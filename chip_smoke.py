@@ -11,7 +11,9 @@ Phases, each of which fails the run on error:
   3. kernel vs plain on seeded inputs: the block-scan kernel against its
      plain PyTorch version (`block_scan_ref`) on the card (p_tile=128,
      d=128, s_eff 1024 and 2048, k_pair=10, 1024 blocks, bf16), both
-     selects, with CUDA-event times of each; then the f32-cache kernel.
+     selects, with CUDA-event times of each; then the f32-cache kernel;
+     then the codes-scan kernel against `codes_scan_ref` (PQ64 codes,
+     s_eff 1024, 1024 blocks), both selects.
   4. the slice: 1M x 128 manifold-12 base + 10k queries (the numpy draws of
      bench.py:make_data, seed 0), IVFPQIndex IVF4096 x PQ64 euclidean,
      trained on 100k and filled in four 250k adds; exact f32 ground truth
@@ -28,9 +30,22 @@ Phases, each of which fails the run on error:
   6. relayout: the same trained codecs in an index with a quarter of the
      cell capacity, filled by the same adds, must relayout and then hold
      and find what the main index holds and finds.
-  7. profile: torch.profiler over one search per plan; device-busy time
-     and the largest kernels of each.
-  8. prints the kernels' JSON line, the card line, and the result line.
+  7. code-domain slice: an index with scan_cache_dtype="none" (codes and
+     norms only) takes the same trained codecs and the same four adds; no
+     decoded store may exist, and its bytes are logged beside the main
+     index's cache. The codes-scan launch counters are zeroed, then the same
+     plans run (flat = decode-on-the-fly sweep; probed = the codes kernel)
+     with the same floors; the exact n_probe=8 result must equal the main
+     index's, and the flat result must agree with the main flat result
+     (ids >= 0.99, recall within 0.005: the codes sweep rounds the query to
+     bf16). Both selects must have launched. Then the codes kernel against
+     `codes_scan_ref` (exact: equal values, equal addresses outside ties;
+     pack32: >= 0.9999 of keys equal) and against the block-scan kernel over
+     the decoded bf16 rows, on the codes-scan arguments of the exact
+     n_probe=8 and pack32 n_probe=32 searches, timed.
+  8. profile: torch.profiler over one search per plan of both indexes;
+     device-busy time and the largest kernels of each.
+  9. prints the kernels' JSON line, the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -103,19 +118,22 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def compare_exact(torch, bs, got, ref, k):
+def compare_exact(torch, bs, got, ref, k, rel=TOL_REL, abs_=TOL_ABS):
+    """Values within rel * |v| + abs_; addresses equal wherever a value is
+    separated from its neighbours by more than rel * |v| (rel = abs_ = 0:
+    equal values, equal addresses outside exact ties)."""
     v = bs.sortable_i32_to_f32(got[..., :k])
     vr = bs.sortable_i32_to_f32(ref[..., :k])
     fin = torch.isfinite(vr)
     if not torch.equal(fin, torch.isfinite(v)):
         fail("exact select: dead entries differ from the plain version")
     err = torch.where(fin, (v - vr).abs(), 0.0)
-    tol = TOL_REL * vr.abs() + TOL_ABS
+    tol = rel * vr.abs() + abs_
     if bool((err > torch.where(fin, tol, 1.0)).any()):
         fail(f"exact select: values off by up to {float(err.max())}")
     # addresses must agree wherever the value is separated from its
     # neighbours by more than the tolerance (else the order may swap)
-    gap = TOL_REL * vr.abs()
+    gap = rel * vr.abs()
     left = torch.ones_like(fin)
     left[..., 1:] = (vr[..., :-1] - vr[..., 1:]).abs() > gap[..., 1:]
     right = torch.zeros_like(fin)  # the k-th may tie with the (k+1)-th
@@ -141,33 +159,45 @@ def compare_pack32(torch, bs, got, ref, slot_mask):
 
 
 def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
-                 reps=20):
-    """The kernel against its plain version on the same inputs; fails the
-    run on disagreement. Returns (max_abs_err, key agreement, ms, plain_ms)."""
+                 reps=20, kernel=None, plain=None, exact_bits=False):
+    """A kernel (default: the block scan) against its plain version on the
+    same inputs; fails the run on disagreement. exact_bits: exact values
+    equal, and pack32 keys agree on >= 0.9999 of entries (the plain
+    version's batched GEMM may sum in another order on some chunks, which
+    moves a key's low value bits). Returns (max_abs_err, key agreement, ms,
+    plain_ms)."""
+    kernel = kernel or bs.block_scan
+    plain = plain or bs.block_scan_ref
     slot_mask = bs.util.next_pow2(s_eff) - 1
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
               pack32=pack32, slot_mask=slot_mask)
-    got = bs.block_scan(*args, **kw)
+    got = kernel(*args, **kw)
     torch.cuda.synchronize()
-    ref = bs.block_scan_ref(*args, **kw)
+    ref = plain(*args, **kw)
     if pack32:
         err, agree = compare_pack32(torch, bs, got, ref, slot_mask)
+        if exact_bits and agree < 0.9999:
+            fail(f"pack32 select: key agreement {agree:.7f} < 0.9999")
+    elif exact_bits:
+        err, agree = compare_exact(torch, bs, got, ref, k_pair, 0.0, 0.0), \
+            None
     else:
         err, agree = compare_exact(torch, bs, got, ref, k_pair), None
-    ms = cuda_ms(torch, lambda: bs.block_scan(*args, **kw), reps)
-    plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kw), 3)
+    ms = cuda_ms(torch, lambda: kernel(*args, **kw), reps)
+    plain_ms = cuda_ms(torch, lambda: plain(*args, **kw), 3)
     return err, agree, ms, plain_ms
 
 
 def kernel_row(name, s_eff, blocks, err, agree, ms, plain_ms):
     return (f"{name} s_eff={s_eff} blocks={blocks}: kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, max_abs_err {err:.3g}"
-            + (f", key agreement {agree:.5f}" if agree is not None else ""))
+            + (f", key agreement {agree:.7f}" if agree is not None else ""))
 
 
-def phase_kernels(torch, bs):
+def phase_kernels(torch, bs, cs):
     """Seeded inputs at s_eff 1024 and 2048 (1024 blocks of 128 probers,
-    d=128, k_pair=10, bf16), both selects; then the f32-cache kernel."""
+    d=128, k_pair=10, bf16), both selects; then the f32-cache kernel; then
+    the codes kernel (PQ64 codes, s_eff 1024), both selects."""
     for s_eff in (1024, 2048):
         args = bs.random_inputs("cuda", s_eff=s_eff, n_blocks=1024,
                                 nq=10000, cap_total=1 << 21, seed=s_eff)
@@ -181,26 +211,36 @@ def phase_kernels(torch, bs):
     err = check_kernel(torch, bs, args, s_eff=512, k_pair=10, pack32=False,
                        euclidean=False, reps=1)[0]
     log(f"block_scan_exact f32 cache, inner: max_abs_err {err:.3g}")
+    args = cs.random_codes_inputs("cuda", s_eff=1024, n_blocks=1024,
+                                  nq=10000, m=64, dsub=2, cap_total=1 << 21,
+                                  seed=11)
+    for pack32 in (False, True):
+        res = check_kernel(torch, bs, args, s_eff=1024, k_pair=10,
+                           pack32=pack32, kernel=cs.codes_scan,
+                           plain=cs.codes_scan_ref, exact_bits=True)
+        name = "codes_scan_pack32" if pack32 else "codes_scan_exact"
+        log(kernel_row(name, 1024, 1024, *res) + " (PQ64, g=2)")
 
 
-def capture_block_scan(tp, index, xq, k):
+def capture_call(tp, index, xq, k, module=None, name="block_scan"):
     """One search with the index's current settings, keeping the arguments
-    its cell-major scan hands the block-scan kernel."""
-    adc = tp.ops.adc
+    it hands the kernel wrapper `module.name` (default: the block scan, as
+    ops/adc.py calls it)."""
+    module = module or tp.ops.adc
     seen = []
-    launch = adc.block_scan
+    launch = getattr(module, name)
 
     def record(*args, **kw):
         seen.append((args, kw))
         return launch(*args, **kw)
 
-    adc.block_scan = record
+    setattr(module, name, record)
     try:
         index.search(xq.T, k=k)
     finally:
-        adc.block_scan = launch
+        setattr(module, name, launch)
     if len(seen) != 1:
-        fail(f"expected one block-scan call per search, saw {len(seen)}")
+        fail(f"expected one {name} call per search, saw {len(seen)}")
     return seen[0]
 
 
@@ -213,7 +253,7 @@ def phase_main_shapes(torch, tp, bs, index, xq, k):
     for n_probe, approx in ((8, False), (32, True)):
         index.scan_mode, index.n_probe = "cell_major", n_probe
         index.use_approx_topk = approx
-        args, kw = capture_block_scan(tp, index, xq, k)
+        args, kw = capture_call(tp, index, xq, k)
         s_eff, k_pair = kw["s_eff"], kw["k_pair"]
         blocks, p_tile = args[1].shape
         live = int((args[1] >= 0).sum())
@@ -280,7 +320,203 @@ def phase_relayout(torch, tp, index, trained, base, xq, per_cell, k):
     del small
 
 
-def phase_profile(torch, index, xq, k):
+def time_plans(torch, tp, index, xq, gt, k, launches, label,
+               short_ok=False):
+    """Each plan of PLANS on `index`: the warm-up search, then the median of
+    3 host-clock searches to torch.cuda.synchronize(), q/s, recall@10 and
+    the kernel launches per search (from the counters in `launches`).
+    Fails on a malformed result or a probed plan that launched nothing.
+
+    short_ok: pack32 plans may return fewer than k results (-inf / -1) for
+    a query. The code-domain kernel groups columns, and with g = 2 a group
+    holds slots 2j and 2j+1, so a cell of n live items fills only
+    ceil(n / 2) groups: at n_probe=1 a cell under 2k items comes up short,
+    as in the JAX package's kernel."""
+    n_query = xq.shape[0]
+    rows, results = [], {}
+    for mode, n_probe, approx in PLANS:
+        index.scan_mode = mode
+        index.n_probe = n_probe
+        index.use_approx_topk = approx
+        vals, ids = index.search(xq.T, k=k)  # warm-up (builds layouts)
+        torch.cuda.synchronize()
+        before = dict(launches)
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            vals, ids = index.search(xq.T, k=k)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        launched = sum(launches[x] - before[x] for x in before) // 3
+        if tuple(vals.shape) != (n_query, k) or tuple(ids.shape) != \
+                (n_query, k):
+            fail(f"{label}{mode} np={n_probe}: result shape "
+                 f"{tuple(vals.shape)}")
+        dead = ~torch.isfinite(vals)
+        if bool(torch.isnan(vals).any()) or bool((vals == torch.inf).any()) \
+                or not torch.equal(dead, ids < 0):
+            fail(f"{label}{mode} np={n_probe}: NaN or +inf values, or dead "
+                 "values and missing ids apart")
+        short = int(dead.any(1).sum())
+        if short and not (short_ok and approx and mode == "cell_major"):
+            fail(f"{label}{mode} np={n_probe}: {short} queries with fewer "
+                 f"than {k} results")
+        ms = float(np.median(times)) * 1e3
+        rec = recall_at(ids.long(), gt)
+        gate = tp.ops.adc.LAST_GATE
+        row = dict(plan=mode, n_probe=n_probe, approx=approx, ms=ms,
+                   qps=n_query / ms * 1e3, recall_at_10=rec,
+                   kernel_launches=launched, short_rows=short,
+                   select=gate.get("impl") if mode == "cell_major" else None,
+                   s_eff=gate.get("s_eff") if mode == "cell_major" else None)
+        rows.append(row)
+        results[(mode, n_probe, approx)] = (vals, ids)
+        log(label + json.dumps(row))
+        if mode == "cell_major" and launched <= 0:
+            fail(f"{label}cell_major np={n_probe} did not launch the kernel")
+    rec = {(r["plan"], r["n_probe"], r["approx"]): r["recall_at_10"]
+           for r in rows}
+    if rec[("flat", 1, True)] < 0.85:
+        fail(f"{label}flat recall@10 {rec[('flat', 1, True)]:.4f} < 0.85")
+    if rec[("cell_major", 32, True)] < 0.75:
+        fail(f"{label}n_probe=32 recall@10 "
+             f"{rec[('cell_major', 32, True)]:.4f} < 0.75")
+    r1, r8, r32 = (rec[("cell_major", p, True)] for p in (1, 8, 32))
+    if r8 < r1 - 0.005 or r32 < r8 - 0.005:
+        fail(f"{label}recall falls with n_probe: {r1:.4f} {r8:.4f} "
+             f"{r32:.4f}")
+    return rec, results
+
+
+def phase_code_domain(torch, tp, bs, cs, sl):
+    """The code-domain tier at the slice's shape: the main index's trained
+    codecs and adds in an index that keeps only codes and norms; every
+    plan, held to the floors and to the main index's results; then the
+    codes kernel against its plain version and against the block-scan
+    kernel over the decoded rows, on the phase's own kernel arguments.
+    Returns (launch counts, the codes kernels' JSON rows)."""
+    index, base, xq, gt, k = (sl[x] for x in ("index", "base", "xq", "gt",
+                                              "k"))
+    code = tp.IVFPQIndex(d_vector=index.d_vector,
+                         n_subvectors=index.n_subvectors,
+                         n_cells=index.n_cells, initial_size=sl["per_cell"],
+                         distance="euclidean", scan_cache_dtype="none",
+                         device="cuda")
+    code.load_state_dict(sl["trained"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = base.shape[0] // 4
+    for i in range(0, base.shape[0], step):
+        code.add(torch.from_numpy(base[i:i + step]).cuda().T)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    if "decoded" in code._aux or hasattr(code, "_aux_decoded"):
+        fail("the code-domain index holds a decoded store")
+    if not np.array_equal(code._cell_size_np, index._cell_size_np):
+        fail("the code-domain index holds other cell sizes")
+    codes_b = code._storage.numel() * code._storage.element_size()
+    norm_b = code.aux("norm").numel() * 4
+    dec = index.aux("decoded")
+    dec_b = dec.numel() * dec.element_size()
+    comp_b = (index._compact_cache[1][0].numel() * dec.element_size()
+              if index._compact_cache is not None else 0)
+    log(f"code-domain index: add {add_s:.2f} s; storage {tuple(code._storage.shape)}"
+        f" uint8 (pack_group {code.pack_group}); device bytes: codes "
+        f"{codes_b}, norms {norm_b}; main index: decoded cache {dec_b}, "
+        f"compacted copy {comp_b}, norms {index.aux('norm').numel() * 4}, "
+        f"codes {index._storage.numel()}")
+
+    for key in cs.launches:
+        cs.launches[key] = 0
+    rec, res = time_plans(torch, tp, code, xq, gt, k, cs.launches,
+                          "code-domain ", short_ok=True)
+    counts = dict(cs.launches)
+    log(f"code-domain launches: {counts}")
+    for name, c in counts.items():
+        if c <= 0:
+            fail(f"kernel codes_scan_{name} was never launched by the "
+                 "code-domain slice")
+
+    # the same exact probed search on the main index: equal results
+    index.scan_mode, index.n_probe, index.use_approx_topk = "cell_major", 8, \
+        False
+    v_m, i_m = index.search(xq.T, k=k)
+    v_c, i_c = res[("cell_major", 8, False)]
+    agree = recall_at(i_c.long(), i_m.long())
+    verr = float((v_c - v_m).abs().max())
+    log(f"code-domain vs main index, exact n_probe=8: id agreement "
+        f"{agree:.5f}, max value diff {verr:.3g}")
+    if agree < 0.999 or bool(((v_c - v_m).abs()
+                              > TOL_REL * v_m.abs() + TOL_ABS).any()):
+        fail("the code-domain exact n_probe=8 result differs from the main "
+             "index's")
+    index.scan_mode, index.use_approx_topk = "flat", True
+    _, i_mf = index.search(xq.T, k=k)
+    agree = recall_at(res[("flat", 1, True)][1].long(), i_mf.long())
+    rec_main = recall_at(i_mf.long(), gt)
+    log(f"code-domain vs main index, flat: id agreement {agree:.5f}, "
+        f"recall {rec[('flat', 1, True)]:.4f} vs {rec_main:.4f}")
+    if agree < 0.99 or abs(rec[("flat", 1, True)] - rec_main) > 0.005:
+        fail("the code-domain flat result differs from the main index's")
+
+    # the kernel on the arguments the code-domain searches give it
+    rows = {}
+    onehot = tp.ops.onehot_adc
+    decoded = None
+    for n_probe, approx in ((8, False), (32, True)):
+        code.scan_mode, code.n_probe = "cell_major", n_probe
+        code.use_approx_topk = approx
+        args, kw = capture_call(tp, code, xq, k, module=onehot,
+                                      name="codes_scan")
+        s_eff, k_pair = kw["s_eff"], kw["k_pair"]
+        blocks, p_tile = args[1].shape
+        live = int((args[1] >= 0).sum())
+        m = args[7].shape[0]
+        log(f"code-domain path n_probe={n_probe} "
+            f"({'pack32' if approx else 'exact'}): {blocks} blocks x "
+            f"{p_tile} probers, {live} live ({live / (blocks * p_tile):.3f})"
+            f", s_eff={s_eff}, k_pair={k_pair}, m={m}, "
+            f"g={args[6].shape[1] // m}")
+        if decoded is None:
+            decoded = cs.decode_codes(args[6].view(-1, m), args[7]) \
+                .contiguous()
+        bs_args = list(args[:6]) + [decoded]
+        for pack32 in (False, True):
+            res_k = check_kernel(torch, bs, args, s_eff=s_eff, k_pair=k_pair,
+                                 pack32=pack32, euclidean=kw["euclidean"],
+                                 kernel=cs.codes_scan, plain=cs.codes_scan_ref,
+                                 exact_bits=True)
+            name = "codes_scan_pack32" if pack32 else "codes_scan_exact"
+            log(kernel_row(name, s_eff, blocks, *res_k)
+                + f" (inputs of the code-domain n_probe={n_probe} search)")
+            kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
+                       pack32=pack32, slot_mask=kw["slot_mask"])
+            got = cs.codes_scan(*args, **kkw)
+            ref = bs.block_scan(*bs_args, **kkw)
+            torch.cuda.synchronize()
+            bs_ms = cuda_ms(torch, lambda: bs.block_scan(*bs_args, **kkw), 20)
+            if pack32:
+                # strided groups of columns, not of slots: may differ
+                agree = float((got == ref).float().mean())
+                log(f"  vs block_scan over the decoded rows: key agreement "
+                    f"{agree:.5f}; block_scan {bs_ms:.3f} ms")
+            else:
+                compare_exact(torch, bs, got, ref, k_pair, 0.0, 0.0)
+                log(f"  vs block_scan over the decoded rows: values equal, "
+                    f"addresses equal outside ties; block_scan "
+                    f"{bs_ms:.3f} ms")
+            err, _, ms, plain_ms = res_k
+            if pack32 == approx:
+                rows[name] = dict(
+                    name=name, route="cuda",
+                    source="torchpq_tpu_torch/csrc/codes_scan.cu",
+                    replaces="torchpq_tpu/ops/pallas_codes_scan.py:198",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    del decoded
+    return counts, rows, code
+
+
+def phase_profile(torch, index, xq, k, label=""):
     """torch.profiler over one search per plan: device-busy time (the sum
     of the kernels' own device times) and the largest kernels."""
     from torch.autograd import DeviceType
@@ -303,8 +539,8 @@ def phase_profile(torch, index, xq, k):
         top = "; ".join(f"{e.key[:48]} x{e.count} "
                         f"{e.self_device_time_total / 1e3:.3f} ms"
                         for e in kernels[:5])
-        log(f"profile {mode} n_probe={n_probe} approx={approx}: device busy "
-            f"{busy:.3f} ms; {top}")
+        log(f"profile {label}{mode} n_probe={n_probe} approx={approx}: "
+            f"device busy {busy:.3f} ms; {top}")
 
 
 # the slice's searches: (scan_mode, n_probe, use_approx_topk)
@@ -361,55 +597,12 @@ def phase_slice(torch, tp, bs):
     del xb
     torch.cuda.synchronize()
 
-    rows = []
-    for mode, n_probe, approx in PLANS:
-        index.scan_mode = mode
-        index.n_probe = n_probe
-        index.use_approx_topk = approx
-        vals, ids = index.search(xq.T, k=k)  # warm-up (builds layouts)
-        torch.cuda.synchronize()
-        before = dict(bs.launches)
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            vals, ids = index.search(xq.T, k=k)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        launched = sum(bs.launches[x] - before[x] for x in before) // 3
-        if tuple(vals.shape) != (n_query, k) or tuple(ids.shape) != \
-                (n_query, k):
-            fail(f"{mode} np={n_probe}: result shape {tuple(vals.shape)}")
-        if not bool(torch.isfinite(vals).all()) or bool((ids < 0).any()):
-            fail(f"{mode} np={n_probe}: non-finite values or missing ids")
-        ms = float(np.median(times)) * 1e3
-        rec = recall_at(ids.long(), gt)
-        row = dict(plan=mode, n_probe=n_probe, approx=approx, ms=ms,
-                   qps=n_query / ms * 1e3, recall_at_10=rec,
-                   block_scan_launches=launched,
-                   select=(tp.ops.adc.LAST_GATE.get("impl")
-                           if mode == "cell_major" else None),
-                   s_eff=(tp.ops.adc.LAST_GATE.get("s_eff")
-                          if mode == "cell_major" else None))
-        rows.append(row)
-        log(json.dumps(row))
-        if mode == "cell_major" and launched <= 0:
-            fail(f"cell_major np={n_probe} did not launch the kernel")
+    time_plans(torch, tp, index, xq, gt, k, bs.launches, "")
     counts = dict(bs.launches)
     log(f"main-path launches: {counts}")
     for name, c in counts.items():
         if c <= 0:
             fail(f"kernel block_scan_{name} was never launched by the slice")
-
-    rec = {(r["plan"], r["n_probe"], r["approx"]): r["recall_at_10"]
-           for r in rows}
-    if rec[("flat", 1, True)] < 0.85:
-        fail(f"flat recall@10 {rec[('flat', 1, True)]:.4f} < 0.85")
-    if rec[("cell_major", 32, True)] < 0.75:
-        fail(f"n_probe=32 recall@10 {rec[('cell_major', 32, True)]:.4f} "
-             "< 0.75")
-    r1, r8, r32 = (rec[("cell_major", p, True)] for p in (1, 8, 32))
-    if r8 < r1 - 0.005 or r32 < r8 - 0.005:
-        fail(f"recall falls with n_probe: {r1:.4f} {r8:.4f} {r32:.4f}")
 
     # small-input reference: probing every cell with the exact select must
     # find what the exact flat sweep finds
@@ -429,7 +622,7 @@ def phase_slice(torch, tp, bs):
         fail("the probed exact plan disagrees with the flat exact plan")
     index.use_smart_probing = True
     return counts, dict(index=index, trained=trained, base=base, xq=xq,
-                        per_cell=per_cell, k=k)
+                        gt=gt, per_cell=per_cell, k=k)
 
 
 def main():
@@ -450,25 +643,31 @@ def main():
     import torchpq_tpu_torch as tp
     from torchpq_tpu_torch import _build
     from torchpq_tpu_torch.ops import block_scan as bs
+    from torchpq_tpu_torch.ops import codes_scan as cs
     lib = _build.library()
     log(f"build: {lib.build_seconds:.1f} s -> {lib.path.name}")
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log("ptxas: " + line.strip())
 
-    phase_kernels(torch, bs)
+    phase_kernels(torch, bs, cs)
     if args.kernels_only:
         return
     counts, sl = phase_slice(torch, tp, bs)
     krows = phase_main_shapes(torch, tp, bs, sl["index"], sl["xq"], sl["k"])
     phase_relayout(torch, tp, sl["index"], sl["trained"], sl["base"],
                    sl["xq"], sl["per_cell"], sl["k"])
+    code_counts, code_rows, code = phase_code_domain(torch, tp, bs, cs, sl)
     phase_profile(torch, sl["index"], sl["xq"], sl["k"])
+    phase_profile(torch, code, sl["xq"], sl["k"], label="code-domain ")
 
     kernels = []
-    for name in ("block_scan_exact", "block_scan_pack32"):
-        row = dict(krows[name])
-        row["launches"] = counts[name.rsplit("_", 1)[1]]
+    for name, rows, cnt in (("block_scan_exact", krows, counts),
+                            ("block_scan_pack32", krows, counts),
+                            ("codes_scan_exact", code_rows, code_counts),
+                            ("codes_scan_pack32", code_rows, code_counts)):
+        row = dict(rows[name])
+        row["launches"] = cnt[name.rsplit("_", 1)[1]]
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(card)

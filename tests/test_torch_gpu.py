@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels (block scan, codes scan) against their plain
+PyTorch versions, on a card.
 
 Marked `gpu`: without a CUDA card every test here skips. This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -12,6 +13,7 @@ import torch
 
 from torchpq_tpu_torch.ops import adc
 from torchpq_tpu_torch.ops import block_scan as bs
+from torchpq_tpu_torch.ops import codes_scan as cs
 
 
 @pytest.fixture
@@ -74,6 +76,29 @@ def test_scan_cell_major_on_card_matches_cpu(cuda):
         assert agree >= 0.99, agree
 
 
+def _assert_pack32_values(v, v_ref, i, i_ref, q, s_eff):
+    """pack32 keeps a raw score r = v + |q|^2 only above the slot bits: its
+    f32 bits below log2(slot_mask + 1) are cut, one step being
+    (slot_mask + 1) ulps of r. Two sums of r that differ in the last bits
+    can fall on either side of a step, so where the ids agree the values
+    differ by at most one step (of the larger binade), plus the summation
+    and -|q|^2 rounding (1e-5 |r|). The group reduce may keep another of
+    two near-tied slots, so compare where ids agree."""
+    import numpy as np
+    import torchpq_tpu_torch as tp
+
+    slot_mask = tp.util.next_pow2(s_eff) - 1
+    same = i.cpu() == i_ref
+    raw = (v_ref.double() + torch.from_numpy(
+        (q.astype(np.float64) ** 2).sum(1))[:, None]).abs()
+    step = (slot_mask + 1) * torch.exp2(
+        torch.floor(torch.log2(raw * (1 + 1e-5))) - 23)
+    tol = step + 1e-5 * raw
+    err = (v.cpu().double() - v_ref.double()).abs()
+    assert bool((err[same] <= tol[same]).all()), \
+        float((err - tol)[same].max())
+
+
 @pytest.mark.gpu
 def test_index_on_card_matches_cpu(cuda):
     """The same trained state and adds on the card and on the CPU: the adds
@@ -109,22 +134,107 @@ def test_index_on_card_matches_cpu(cuda):
         if not approx:
             torch.testing.assert_close(v.cpu(), v_ref, rtol=1e-3, atol=1e-2)
             continue
-        # pack32 keeps a raw score r = v + |q|^2 only above the slot bits:
-        # its f32 bits below log2(slot_mask + 1) are cut, one step being
-        # (slot_mask + 1) ulps of r. Two sums of r that differ in the last
-        # bits can fall on either side of a step, so where the ids agree
-        # the values differ by at most one step (of the larger binade), plus
-        # the summation and -|q|^2 rounding (1e-5 |r|). The group reduce may
-        # keep another of two near-tied slots, so compare where ids agree.
         gate = adc.LAST_GATE
         assert gate["pack32"] and gate["impl"] == "block_scan", gate
-        slot_mask = tp.util.next_pow2(gate["s_eff"]) - 1
-        same = i.cpu() == i_ref
-        raw = (v_ref.double() + torch.from_numpy(
-            (q.astype(np.float64) ** 2).sum(1))[:, None]).abs()
-        step = (slot_mask + 1) * torch.exp2(
-            torch.floor(torch.log2(raw * (1 + 1e-5))) - 23)
-        tol = step + 1e-5 * raw
-        err = (v.cpu().double() - v_ref.double()).abs()
-        assert bool((err[same] <= tol[same]).all()), \
-            float((err - tol)[same].max())
+        _assert_pack32_values(v, v_ref, i, i_ref, q, gate["s_eff"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack32", [False, True])
+@pytest.mark.parametrize("m,dsub", [(64, 2), (8, 4)])
+@pytest.mark.parametrize("s_eff", [256, 1024])
+def test_codes_kernel_matches_plain(cuda, pack32, m, dsub, s_eff):
+    """g = 2 (d=128, PQ64) and g = 16 (d=32, PQ8); s_eff 1024 with pack32
+    selects over 128 strided groups of columns."""
+    args = cs.random_codes_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
+                                  m=m, dsub=dsub, cap_total=8192)
+    kw = dict(s_eff=s_eff, k_pair=10, euclidean=True, pack32=pack32,
+              slot_mask=s_eff - 1)
+    mode = "pack32" if pack32 else "exact"
+    before = cs.launches[mode]
+    got = cs.codes_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert cs.launches[mode] == before + 1
+    ref = cs.codes_scan_ref(*args, **kw)
+    if pack32:
+        assert (got == ref).float().mean().item() >= 0.99
+    else:
+        # bf16 products are exact in f32; only the summation order differs
+        v = bs.sortable_i32_to_f32(got[..., :10])
+        v_ref = bs.sortable_i32_to_f32(ref[..., :10])
+        torch.testing.assert_close(v, v_ref, rtol=1e-3, atol=1e-3)
+        assert (got[..., 10:] == ref[..., 10:]).float().mean().item() \
+            >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,dsub,pack32", [(64, 2, False), (128, 1, True)])
+def test_codes_kernel_matches_block_scan(cuda, m, dsub, pack32):
+    """The codes kernel and the block-scan kernel over the bf16 decoded rows
+    share their FMA chain, so their scores agree bit for bit. Exact keys
+    are equal and addresses equal outside exact ties; pack32 is compared
+    at g = 1 (m = 128), where the column order is the slot order."""
+    args = cs.random_codes_inputs(cuda, s_eff=512, n_blocks=64, nq=500,
+                                  m=m, dsub=dsub, cap_total=8192)
+    qtable, probers, start_c, off, cap, penalty, codes, codebook = args
+    decoded = cs.decode_codes(codes.view(-1, m), codebook).contiguous()
+    kw = dict(s_eff=512, k_pair=10, euclidean=True, pack32=pack32,
+              slot_mask=511)
+    got = cs.codes_scan(*args, **kw)
+    ref = bs.block_scan(qtable, probers, start_c, off, cap, penalty, decoded,
+                        **kw)
+    torch.cuda.synchronize()
+    if pack32:
+        assert torch.equal(got, ref)
+        return
+    assert torch.equal(got[..., :10], ref[..., :10])
+    keys = ref[..., :10]
+    tied = torch.zeros_like(keys, dtype=torch.bool)
+    tied[..., 1:] |= keys[..., 1:] == keys[..., :-1]
+    tied[..., :-1] |= keys[..., :-1] == keys[..., 1:]
+    assert torch.equal(got[..., 10:][~tied], ref[..., 10:][~tied])
+
+
+@pytest.mark.gpu
+def test_code_domain_index_on_card_matches_cpu(cuda):
+    """A code-domain index (scan_cache_dtype="none", PQ8 at d=32: g = 16)
+    with the same state and adds on the card and on the CPU: equal stores,
+    and every plan finds the same neighbours (the probed plans through the
+    codes kernel on the card)."""
+    import numpy as np
+    import torchpq_tpu_torch as tp
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(40, 32)).astype(np.float32) * 3
+    x = (centers[rng.integers(0, 40, 6000)]
+         + rng.normal(size=(6000, 32))).astype(np.float32)
+    q = x[:200] + 0.1 * rng.normal(size=(200, 32)).astype(np.float32)
+    cpu = tp.IVFPQIndex(32, 8, 16, initial_size=32, scan_cache_dtype="none")
+    cpu.train(x[:2000].T)
+    gpu = tp.IVFPQIndex(32, 8, 16, initial_size=32, scan_cache_dtype="none",
+                        device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    for chunk in (x[:3000], x[3000:]):
+        cpu.add(chunk.T)
+        gpu.add(torch.from_numpy(chunk).to(cuda).T)
+    assert gpu.max_cell_capacity > 32, "the adds must relayout"
+    assert torch.equal(gpu._storage.cpu(), cpu._storage)
+    assert "decoded" not in gpu._aux
+    before = dict(cs.launches)
+    for mode, approx in (("cell_major", False), ("cell_major", True),
+                         ("query_major", False), ("flat", False)):
+        for idx in (cpu, gpu):
+            idx.scan_mode, idx.use_approx_topk, idx.n_probe = mode, approx, 4
+        v_ref, i_ref = cpu.search(q.T, k=10)
+        v, i = gpu.search(torch.from_numpy(q).to(cuda).T, k=10)
+        shared = sum(len(set(a.tolist()) & set(b.tolist()))
+                     for a, b in zip(i.cpu(), i_ref)) / i_ref.numel()
+        assert shared >= 0.99, (mode, approx, shared)
+        if not approx:
+            torch.testing.assert_close(v.cpu(), v_ref, rtol=1e-3, atol=1e-2)
+            continue
+        gate = adc.LAST_GATE
+        assert gate["pack32"] and gate["impl"] == "codes_scan", gate
+        _assert_pack32_values(v, v_ref, i, i_ref, q, gate["s_eff"])
+    assert cs.launches["exact"] == before["exact"] + 2
+    assert cs.launches["pack32"] == before["pack32"] + 1

@@ -188,7 +188,7 @@ def test_port_trains_on_its_own():
 
 @pytest.mark.parametrize("kwargs,attr", [
     (dict(scan_cache_dtype="int8"), None),
-    (dict(scan_cache_dtype="none"), None),
+    (dict(scan_cache_dtype="none", n_bits=4), None),
     (dict(n_bits=4), None),
     (dict(pq_use_residual=True), None),
     (dict(anisotropic_eta=2.0), None),

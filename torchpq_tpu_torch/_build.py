@@ -1,10 +1,12 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
 All `csrc/*.cu` files compile into one shared library with a plain C
-interface, for Hopper (`sm_90a`), at first use. The library goes to
+interface, for Hopper (`sm_90a`), at first use: one nvcc per source, all
+started together, then one link. The library goes to
 `build/torchpq_tpu_torch/` beside the package, named by a hash of the
-sources and flags, so an edited source rebuilds and an unchanged one loads
-at once. Nothing but the sources in this package is compiled.
+sources, the headers they share (`csrc/*.cuh`) and the flags, so an edited
+file rebuilds and an unchanged tree loads at once. Nothing but the sources
+in this package is compiled.
 """
 
 import ctypes
@@ -17,10 +19,10 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
 SOURCES = sorted((_PKG / "csrc").glob("*.cu"))
+HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "torchpq_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,6 +32,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "torchpq_block_scan": ([_P] * 8 + [_I] * 11 + [_P], _I),
     "torchpq_block_scan_smem": ([_I] * 5, ctypes.c_longlong),
+    "torchpq_codes_scan": ([_P] * 9 + [_I] * 12 + [_P], _I),
+    "torchpq_codes_scan_smem": ([_I] * 4, ctypes.c_longlong),
 }
 
 
@@ -66,23 +70,40 @@ def build():
     """Compile the sources if no library for their hash exists yet.
     Returns (path, seconds spent compiling, compiler log)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libtorchpq_kernels_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    failed = [(src.name, p.returncode, text) for src, p, text
+              in zip(SOURCES, procs, logs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{name} ({rc}):\n{text}" for name, rc, text in failed))
+    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
     seconds = time.perf_counter() - t0
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if res.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+            f"nvcc link failed ({res.returncode}):\n{res.stdout}\n"
+            f"{res.stderr}")
     os.replace(tmp, out)
-    return out, seconds, res.stdout + res.stderr
+    return out, seconds, log + res.stdout + res.stderr
 
 
 def library():

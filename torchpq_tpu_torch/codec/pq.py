@@ -11,6 +11,7 @@ import torch
 
 from .base import BaseCodec
 from ..clustering import MultiKMeans
+from ..ops.codes_scan import decode_codes
 from ..ops.max_sim import batched_max_sim
 from .. import util
 from ..metric import canonical_distance
@@ -18,10 +19,7 @@ from ..metric import canonical_distance
 
 def _decode_nd(codes_nm, codebook):
     """codes [n, m] uint8, codebook [m, n_clusters, dsub] -> [n, m*dsub] f32."""
-    n, m = codes_nm.shape
-    sub = torch.arange(m, device=codebook.device)
-    g = codebook[sub[None, :], codes_nm.long()]  # [n, m, dsub]
-    return g.reshape(n, -1).float()
+    return decode_codes(codes_nm, codebook).float()
 
 
 class PQCodec(BaseCodec):

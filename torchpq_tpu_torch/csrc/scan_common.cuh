@@ -1,0 +1,224 @@
+// Shared core of the IVF block scans (block_scan.cu, codes_scan.cu).
+//
+// A block is up to p_tile probers (queries) of one IVF cell; one CTA scores
+// `pt` of them (one prober per thread) against the block's window of s_eff
+// columns. A Window type fills one shared-memory tile of TS columns at a
+// time: the candidate rows as f32 [TS][d], the penalty of each column
+// (norm-or-BIG plus the out-of-cell mask) and the in-window slot each column
+// holds. block_scan.cu's window reads decoded cache rows, column c = slot c;
+// codes_scan.cu's decodes PQ codes against a shared-memory codebook and
+// visits the slots in the packed column order. Scoring and both selects are
+// this file's, so the two kernels' scores agree bit for bit on equal rows.
+//
+//   score = factor * <q_p, y_c> - pen_c      (f32 FMA chain, k ascending)
+//
+//   exact  -> [B, p_tile, 2*k_pair] int32: sortable keys ++ absolute
+//             addresses (start_c + slot), ordered by value descending then
+//             by visit (column) order — the "first maximal column per pass"
+//             order; entries with value <= -BIG/2 are dead: sortable(-inf)
+//             and -1.
+//   pack32 -> [B, p_tile, k_pair] int32: key = (sortable(score) & ~slot_mask)
+//             | slot, reduced to one winner per strided group of COLUMNS
+//             (group j holds columns j, j+G, j+2G, ...), then the k_pair
+//             largest group winners, descending. Keys are unique per row.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <cfloat>
+#include <climits>
+#include <cstddef>
+
+namespace tpq {
+
+constexpr int TS = 16;  // window columns per shared-memory tile
+constexpr int U = 8;    // columns scored per register tile
+
+__device__ __forceinline__ int sortable(float x) {
+  const int i = __float_as_int(x);
+  return i < 0 ? (i ^ 0x7FFFFFFF) : i;
+}
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+__device__ __forceinline__ float big_penalty() { return FLT_MAX / 4.0f; }
+
+// four consecutive elements as f32 (8-byte aligned for bf16, 16 for f32)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// Keep v[0..KMAX) sorted by value descending, visit order on ties: a new
+// entry goes after every entry whose value is >= its own.
+template <int KMAX>
+__device__ __forceinline__ void insert(float (&v)[KMAX], int (&s)[KMAX],
+                                       float x, int j) {
+  if (!(x > v[KMAX - 1])) return;
+#pragma unroll
+  for (int i = KMAX - 1; i > 0; --i) {
+    if (v[i - 1] < x) {
+      v[i] = v[i - 1];
+      s[i] = s[i - 1];
+    } else if (v[i] < x) {
+      v[i] = x;
+      s[i] = j;
+    }
+  }
+  if (v[0] < x) {
+    v[0] = x;
+    s[0] = j;
+  }
+}
+
+// Dynamic shared memory of the core: query rows [pt][d+4] (elem_size
+// bytes each), the f32 tile [TS][d], penalties and slots [TS], prober rows
+// [pt], pack32 group maxima [n_groups][pt]. 16-byte multiple, so a kernel
+// may place its own data right after it.
+__host__ __device__ inline size_t core_smem_bytes(int pt, int d, int pack32,
+                                                  int n_groups,
+                                                  int elem_size) {
+  const size_t bytes =
+      (size_t)elem_size * pt * (d + 4) +
+      sizeof(float) * ((size_t)TS * d + TS) +
+      sizeof(int) * ((size_t)TS + pt + (pack32 ? (size_t)n_groups * pt : 0));
+  return (bytes + 15) / 16 * 16;
+}
+
+// The scan of one CTA's probers over one block's window. Every thread of
+// the CTA calls it; `smem` is the core's shared memory. Window::load(ts,
+// nrow, y_s, pen_s, slot_s) fills columns [ts, ts + nrow) of the tile
+// (rows past nrow zero) and the penalty and slot of each.
+template <typename T, bool PACK, int KMAX, typename Window>
+__device__ __forceinline__ void scan_block(
+    const Window& win, unsigned char* smem, const T* __restrict__ qtable,
+    const int* __restrict__ probers, int* __restrict__ out, int p_tile,
+    int d, int s_eff, int k_pair, float factor, int slot_mask, int n_groups,
+    int s0) {
+  const int pt = blockDim.x;
+  const int ldq = d + 4;  // padded rows: 4-element reads of q_s are
+                          // conflict-free
+  T* q_s = reinterpret_cast<T*>(smem);                            // [pt][ldq]
+  float* y_s = reinterpret_cast<float*>(q_s + (size_t)pt * ldq);  // [TS][d]
+  float* pen_s = y_s + TS * d;                         // [TS]
+  int* slot_s = reinterpret_cast<int*>(pen_s + TS);    // [TS]
+  int* prow_s = slot_s + TS;                           // [pt]
+  int* best_s = prow_s + pt;                           // [n_groups][pt]
+
+  const float big = big_penalty();
+  const int b = blockIdx.x;
+  const int t = threadIdx.x;
+  const int p = blockIdx.y * pt + t;
+
+  const int pr = probers[(size_t)b * p_tile + p];
+  prow_s[t] = pr < 0 ? 0 : pr;  // padding rows score query 0, never read
+  if (PACK) {
+    for (int g = 0; g < n_groups; ++g) best_s[g * pt + t] = INT_MIN;
+  }
+  __syncthreads();
+  for (int r = 0; r < pt; ++r) {
+    const T* src = qtable + (size_t)prow_s[r] * d;
+    for (int k = t; k < d; k += pt) q_s[r * ldq + k] = src[k];
+  }
+
+  float vals[KMAX];
+  int slots[KMAX];
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) {
+    vals[i] = neg_inf();
+    slots[i] = 0;
+  }
+
+  const T* qrow = q_s + (size_t)t * ldq;
+  for (int ts = 0; ts < s_eff; ts += TS) {
+    __syncthreads();  // previous tile fully consumed
+    const int nrow = min(TS, s_eff - ts);
+    win.load(ts, nrow, y_s, pen_s, slot_s);
+    __syncthreads();
+    for (int u0 = 0; u0 < nrow; u0 += U) {
+      float acc[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) acc[u] = 0.0f;
+      for (int k = 0; k < d; k += 4) {
+        const float4 qv = load4(qrow + k);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const float4 yv =
+              *reinterpret_cast<const float4*>(y_s + (u0 + u) * d + k);
+          acc[u] = fmaf(qv.x, yv.x, acc[u]);
+          acc[u] = fmaf(qv.y, yv.y, acc[u]);
+          acc[u] = fmaf(qv.z, yv.z, acc[u]);
+          acc[u] = fmaf(qv.w, yv.w, acc[u]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int jl = u0 + u;
+        if (jl < nrow) {
+          const int j = slot_s[jl];
+          const float sc = factor * acc[u] - pen_s[jl];
+          if (PACK) {
+            const int key = (sortable(sc) & ~slot_mask) | j;
+            int* bp = best_s + ((ts + jl) % n_groups) * pt + t;
+            *bp = max(*bp, key);
+          } else {
+            insert<KMAX>(vals, slots, sc, j);
+          }
+        }
+      }
+    }
+  }
+
+  if (PACK) {
+    int* o = out + ((size_t)b * p_tile + p) * k_pair;
+    for (int i = 0; i < k_pair; ++i) {
+      int m = INT_MIN;
+      int gi = 0;
+      for (int g = 0; g < n_groups; ++g) {
+        const int v = best_s[g * pt + t];
+        if (v > m) {
+          m = v;
+          gi = g;
+        }
+      }
+      o[i] = m;
+      best_s[gi * pt + t] = INT_MIN;
+    }
+  } else {
+    int* o = out + ((size_t)b * p_tile + p) * 2 * k_pair;
+#pragma unroll
+    for (int i = 0; i < KMAX; ++i) {
+      if (i < k_pair) {
+        const bool alive = vals[i] > -big / 2.0f;
+        o[i] = sortable(alive ? vals[i] : neg_inf());
+        o[k_pair + i] = alive ? s0 + slots[i] : -1;
+      }
+    }
+  }
+}
+
+// Raise the kernel's dynamic shared-memory limit to `smem`, with all of L1
+// as shared memory, then launch it; returns the CUDA error code.
+template <typename Kernel, typename... Args>
+int launch_kernel(Kernel kern, dim3 grid, int pt, size_t smem,
+                  cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, pt, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tpq

@@ -1,8 +1,10 @@
 """IVFPQ scan facade (counterpart of torchpq_tpu/fn/ivfpq_topk.py): picks
 the query-major scan for small batches and the cell-major scan for large
-ones, with explicit overrides."""
+ones, with explicit overrides; a code-domain index's raw codes take the
+code-domain cell-major scan."""
 
 from ..ops import adc
+from ..ops.onehot_adc import scan_cell_major_codes
 
 
 class IVFPQTopk:
@@ -17,11 +19,20 @@ class IVFPQTopk:
 
     def topk(self, query, cells, probe_mask, decoded, norms, is_empty,
              cell_start, cell_capacity, *, k, distance, s_max, mode=None,
-             approx=None):
+             approx=None, pq_codebook=None, m=None):
         """Returns (values [nq, k] f32, addresses [nq, k] int32; -1 pads).
-        With explicit cells, "flat" and "auto" pick by batch size."""
+        With explicit cells, "flat" and "auto" pick by batch size. When
+        `decoded` is the raw uint8 codes (scan_cache_dtype="none"), pass
+        `pq_codebook`: every mode runs the code-domain cell-major scan, with
+        `m` the per-slot code width of the packed [cap/g, g*m] layout."""
         mode = mode or self.mode
         approx = self.approx if approx is None else approx
+        if pq_codebook is not None:
+            return scan_cell_major_codes(
+                query, cells, probe_mask, decoded, norms, is_empty,
+                cell_start, cell_capacity, pq_codebook, k=k,
+                distance=distance, s_max=s_max, n_cells=self.n_cells,
+                p_tile=self.p_tile, approx=approx, m=m)
         if mode in ("auto", "flat"):
             mode = ("query_major" if query.shape[0] < self.batch_threshold
                     else "cell_major")

@@ -9,6 +9,11 @@ scan -> merge), `query_major` (gather each query's windows) and `flat` (a
 sweep over the compacted cache). The reference's [d_vector, n_data] layout
 holds at every public method.
 
+scan_cache_dtype="none" is the code-domain tier: no decoded cache, only the
+codes (m B per slot) and the norms (4 B). Its probed plans run the codes
+scan (ops/onehot_adc.py:scan_cell_major_codes) and its flat plan decodes
+chunks of codes on the fly (flat_decode_scan).
+
 Settings the JAX package supports but this port does not yet raise
 NotImplementedError naming their ROADMAP item; none silently takes another
 path.
@@ -25,7 +30,9 @@ from ..container import CellContainer
 from ..fn.ivfpq_topk import IVFPQTopk
 from ..ops import adc
 from ..ops.block_scan import BIG
+from ..ops.codes_scan import codes_kernel_static_gate
 from ..ops.flat_adc import flat_adc_scan
+from ..ops.onehot_adc import flat_decode_scan, scan_cell_major_codes
 
 
 def _coarse_probe(query, coarse_codebook, temperature, *, n_probe,
@@ -127,6 +134,34 @@ def _search_full(q, coarse_codebook, decoded, norms, is_empty, cell_start,
     return vals, ids, addr
 
 
+def _search_flat_codes(q, codes, norms, is_empty, addr_map, address2id,
+                       codebook, *, k, distance, m):
+    """Code-domain flat plan: decode-on-the-fly sweep + address
+    translation."""
+    penalty = torch.where(is_empty, BIG,
+                          norms.float() if distance == "euclidean" else 0.0)
+    vals, addr = flat_decode_scan(q, codes, penalty.float(), codebook, k=k,
+                                  distance=distance, m=m)
+    ids, addr = _translate(addr, addr_map, address2id)
+    return vals, ids, addr
+
+
+def _search_full_codes(q, coarse_codebook, codes, norms, is_empty,
+                       cell_start, cell_capacity, address2id, pq_codebook,
+                       temperature, *, k, n_probe, use_smart, distance, s_max,
+                       n_cells, approx, m):
+    """Code-domain probed plans: coarse probe + codes scan + id
+    translation."""
+    _, cells, mask = _coarse_probe(q, coarse_codebook, temperature,
+                                   n_probe=n_probe, use_smart=use_smart)
+    vals, addr = scan_cell_major_codes(
+        q, cells, mask, codes, norms, is_empty, cell_start, cell_capacity,
+        pq_codebook, k=k, distance=distance, s_max=s_max, n_cells=n_cells,
+        approx=approx, m=m)
+    ids, addr = _translate(addr, None, address2id)
+    return vals, ids, addr
+
+
 class IVFPQIndex(CellContainer):
     def __init__(self, d_vector, n_subvectors=8, n_cells=128,
                  initial_size=None, expand_step_size=128,
@@ -136,10 +171,11 @@ class IVFPQIndex(CellContainer):
                  pack_ingest=None):
         assert d_vector % n_subvectors == 0
         cache_dtype = str(scan_cache_dtype or config.SCAN_CACHE_DTYPE)
-        if cache_dtype in ("int8", "none"):
+        if cache_dtype == "int8":
             raise NotImplementedError(
-                f"scan_cache_dtype={cache_dtype!r} is not ported yet "
-                f"(ROADMAP {'A9' if cache_dtype == 'int8' else 'A11'})")
+                "scan_cache_dtype='int8' is not ported yet (ROADMAP A9)")
+        # scan_cache_dtype="none": no decoded cache; scans read the codes
+        self._code_domain = cache_dtype == "none"
         if n_bits != 8:
             raise NotImplementedError("n_bits=4 is not ported yet "
                                       "(ROADMAP A12)")
@@ -189,7 +225,8 @@ class IVFPQIndex(CellContainer):
         # the JAX package's state format (zero columns score nothing)
         self._d_cache = (util.round_up(d_vector, 128) if d_vector > 128
                          else d_vector)
-        self.add_aux_store("decoded", self._d_cache, cache_dtype)
+        if not self._code_domain:
+            self.add_aux_store("decoded", self._d_cache, cache_dtype)
         self.add_aux_store("norm", 1, "float32")
         # the codec hyperparameters of the reference (IVFPQIndex.py:63-79)
         self.register_module("vq_codec", VQCodec(
@@ -204,7 +241,9 @@ class IVFPQIndex(CellContainer):
         self._flat_cache = None
         self._compact_cache = None
         self.scan_compact = "auto"
-        self.set_aux_rebuilder(("decoded", "norm"), self._rebuild_scan_cache)
+        self.set_aux_rebuilder(
+            ("norm",) if self._code_domain else ("decoded", "norm"),
+            self._rebuild_scan_cache)
 
     # ---- tunables ----
     @property
@@ -274,41 +313,91 @@ class IVFPQIndex(CellContainer):
         self.pq_codec.train(x)
 
     def _rebuild_scan_cache(self):
-        """Recompute decoded/norm from the canonical codes in chunks.
-        Never-written slots decode to garbage; every reader masks them."""
+        """Recompute decoded/norm (norm only in the code domain) from the
+        canonical codes in chunks. Never-written slots decode to garbage;
+        every reader masks them."""
         cap, d = self._capacity, self._d_cache
         chunk = min(cap, util.next_pow2(max(16384, (1 << 27) // max(d, 1))))
-        dec = torch.zeros((cap, d), dtype=self._aux["decoded"][1],
-                          device=self.device)
+        dec = None if self._code_domain else torch.zeros(
+            (cap, d), dtype=self._aux["decoded"][1], device=self.device)
         nrm = torch.zeros((cap, 1), dtype=torch.float32, device=self.device)
         codes = self._codes_view()
         for c0 in range(0, cap, chunk):
-            db = self.pq_codec.decode_nd(codes[c0:c0 + chunk])
+            db = self._decode_stored(codes[c0:c0 + chunk])
             nrm[c0:c0 + chunk, 0] = torch.sum(db * db, dim=-1)
-            dec[c0:c0 + chunk] = util.pad_cols(db, d).to(dec.dtype)
+            if dec is not None:
+                dec[c0:c0 + chunk] = util.pad_cols(db, d).to(dec.dtype)
+        if dec is None:
+            return {"norm": nrm}
         return {"decoded": dec, "norm": nrm}
+
+    @property
+    def _scan_codebook(self):
+        """The codebook of the stored bytes: at 8 bits the PQ codebook
+        itself (the 4-bit byte-pair view is ROADMAP A12)."""
+        return self.pq_codec.codebook_internal
+
+    @property
+    def _m_packed(self):
+        """Per-slot code width to hand the code-domain scans when the
+        storage is the packed [cap/g, g*m] layout, else None."""
+        return self.code_size if self.pack_group > 1 else None
+
+    def _decode_stored(self, codes):
+        """Stored bytes [n, code_size] -> [n, d] f32 reconstruction."""
+        return self.pq_codec.decode_nd(codes)
+
+    # ---- frozen code-domain storage ----
+    def freeze_codes(self):
+        """Block mutation of a code-domain index (ivfpq.py:847-882). Packed
+        storage makes this a flag flip; a pack_ingest=False index is first
+        re-viewed as [cap/g, g*m] rows (the same bytes: no copy). A no-op
+        when the code width cannot pack (g = 128 // m must divide 16)."""
+        if not self._code_domain:
+            raise ValueError("freeze_codes is for scan_cache_dtype='none'")
+        if self._frozen_codes:
+            return
+        m = self.code_size
+        g = 128 // m if (8 <= m < 128 and 128 % m == 0) else 1
+        if g == 1 or self._capacity % g:
+            return
+        if self.pack_group == 1:
+            self.register_state("_storage", self._storage.view(
+                self._capacity // g, g * m))
+            self.pack_group = g
+            self._mutations += 1  # invalidate layout-derived caches
+        self._frozen_codes = True
+
+    def unfreeze_codes(self):
+        """Re-enable mutation; the storage stays packed."""
+        self._frozen_codes = False
+
+    def _assert_unfrozen(self, what):
+        if self._frozen_codes:
+            raise RuntimeError(
+                f"{what} on a frozen code-domain index: call "
+                "unfreeze_codes() first")
 
     # ---- ingestion ----
     def add(self, x, ids=None, return_address=False):
         """x: [d_vector, n]. Coarse assignment, PQ encode, container write
         of the codes with their decoded rows and norms."""
         self._check_ported("add")
-        if self._frozen_codes:
-            raise RuntimeError("add on a frozen index")
+        self._assert_unfrozen("add")
         assert self.is_trained, "train the index first"
         x = self._prep(x)
         cells = self.vq_codec.encode(x)
         codes_nm = self.pq_codec.encode_nd(x.T)
         decoded = self.pq_codec.decode_nd(codes_nm)
         norms = torch.sum(decoded * decoded, dim=-1, keepdim=True)
-        aux_rows = {"norm": norms,
-                    "decoded": util.pad_cols(decoded, self._d_cache)}
+        aux_rows = {"norm": norms}
+        if not self._code_domain:
+            aux_rows["decoded"] = util.pad_cols(decoded, self._d_cache)
         return super().add(codes_nm.T, cells, ids=ids,
                            return_address=return_address, aux_rows=aux_rows)
 
     def remove(self, ids=None, address=None):
-        if self._frozen_codes:
-            raise RuntimeError("remove on a frozen index")
+        self._assert_unfrozen("remove")
         return super().remove(ids=ids, address=address)
 
     # ---- search ----
@@ -351,7 +440,7 @@ class IVFPQIndex(CellContainer):
         the window by >= 1.25x and the copy stays under 4 GiB."""
         if self.scan_compact is True:
             return True
-        if self.scan_compact is False:
+        if self.scan_compact is False or self._code_domain:
             return False
         sizes = self._cell_size_np
         if sizes.max() == 0:
@@ -384,13 +473,46 @@ class IVFPQIndex(CellContainer):
         self._flat_cache = (ver, res)
         return res
 
+    def _flat_compacted_codes(self):
+        """(codes, norms, is_empty, addr_map, m_packed) for the code-domain
+        flat sweep (ivfpq.py:1006-1034): live rows compacted into unpacked
+        [n_pad, m] codes, unless capacity is already tight or the storage is
+        packed and over 1 GiB (then dead slots ride the penalty). m_packed
+        is the per-slot code width when the packed storage is returned."""
+        ver = self._mutations
+        if self._flat_cache is not None and self._flat_cache[0] == ver:
+            return self._flat_cache[1]
+        g = self.pack_group
+        n = max(int(self.n_items), 1)
+        unit = 131072 if n > 131072 else 2048
+        n_pad = util.round_up(n, unit)
+        big = self._storage.numel() > (1 << 30)
+        if n_pad >= self.capacity or (g > 1 and big):
+            res = (self._storage, self._aux_col0("norm"), self._is_empty,
+                   None, self._m_packed)
+        else:
+            res = _compact_flat_cache(self._codes_view(),
+                                      self._aux_col0("norm"),
+                                      self._is_empty, n_pad) + (None,)
+        self._flat_cache = (ver, res)
+        return res
+
+    def _codes_kernel_eligible(self):
+        """The planner's mirror of the codes-kernel gate: the same shape
+        predicate the scan dispatch uses (ops/codes_scan.py)."""
+        if self.pack_group <= 1:
+            return False
+        return codes_kernel_static_gate(self.code_size, self.pack_group,
+                                        self.d_vector, self.distance)
+
     def plan_scan_mode(self, nq, k):
         """The plan `search` runs for nq queries at this k: 'flat',
         'cell_major' or 'query_major'; scan_mode != 'auto' pins it.
 
         The structure is the JAX package's (ivfpq.py:1140-1197). Its
-        crossover multipliers (128x, 512x) were measured on a TPU v5e and
-        are not yet re-derived for the H100: pin scan_mode to choose."""
+        crossover multipliers (128x, 512x; 12x and 512x in the code domain)
+        were measured on a TPU v5e and are not yet re-derived for the H100:
+        pin scan_mode to choose."""
         mode = self.scan_mode
         if mode != "auto":
             return mode
@@ -399,7 +521,12 @@ class IVFPQIndex(CellContainer):
                 else "cell_major")
         touched = n_probe * util.next_pow2(self.max_cell_capacity)
         n_live = max(int(self.n_items), 1)
-        if int(k) <= 32 or self.d_vector >= 512:
+        if self._code_domain:
+            # probed codes scan against the decode-on-the-fly flat sweep
+            mult = 12 if self._codes_kernel_eligible() else 512
+            if touched * mult >= n_live:
+                mode = "flat"
+        elif int(k) <= 32 or self.d_vector >= 512:
             if self._use_approx_topk and touched * 128 >= n_live:
                 mode = "flat"
         elif touched * 512 >= n_live:
@@ -415,7 +542,25 @@ class IVFPQIndex(CellContainer):
         k = int(k)
         n_probe = min(self.n_probe, self.n_cells)
         mode = self.plan_scan_mode(nq, k)
-        if mode == "flat":
+        if self._code_domain:
+            # every non-flat plan, query_major included, runs the codes
+            # cell-major scan, as in the JAX package
+            if mode == "flat":
+                codes, nrm, emp, amap, m_c = self._flat_compacted_codes()
+                out = _search_flat_codes(
+                    q, codes, nrm, emp, amap, self._address2id,
+                    self._scan_codebook, k=k, distance=self.distance, m=m_c)
+            else:
+                out = _search_full_codes(
+                    q, self._coarse_cb(), self._storage,
+                    self._aux_col0("norm"), self._is_empty, self._cell_start,
+                    self._cell_capacity, self._address2id,
+                    self._scan_codebook, self._smart_probing_temperature,
+                    k=k, n_probe=n_probe, use_smart=self._use_smart_probing,
+                    distance=self.distance, s_max=self.max_cell_capacity,
+                    n_cells=self.n_cells, approx=self._use_approx_topk,
+                    m=self._m_packed)
+        elif mode == "flat":
             dec, nrm, emp, amap = self._flat_compacted()
             out = _search_flat(q, dec, nrm, emp, amap, self._address2id,
                                k=k, distance=self.distance)
@@ -452,12 +597,16 @@ class IVFPQIndex(CellContainer):
         if probe_mask is None:
             probe_mask = torch.ones(cells.shape, dtype=torch.bool,
                                     device=self.device)
+        code = self._code_domain
         vals, addr = self._ivfpq_topk.topk(
             q, cells, util.as_tensor(probe_mask, self.device).bool(),
-            self.aux("decoded"), self._aux_col0("norm"), self._is_empty,
+            self._storage if code else self.aux("decoded"),
+            self._aux_col0("norm"), self._is_empty,
             self._cell_start, self._cell_capacity, k=int(k),
             distance=self.distance, s_max=self.max_cell_capacity,
-            mode=self.scan_mode)
+            mode=self.scan_mode,
+            pq_codebook=self._scan_codebook if code else None,
+            m=self._m_packed if code else None)
         ids, addr = _translate(addr, None, self._address2id)
         if return_address:
             return vals, ids, addr
@@ -472,7 +621,11 @@ class IVFPQIndex(CellContainer):
         valid = (address >= 0) & (address < self._capacity)
         safe = torch.where(valid, address, 0)
         valid = valid & ~self._is_empty[safe]
-        y = self.aux("decoded")[safe]
+        if self._code_domain:
+            # no cache: decode the requested rows from their codes (f32)
+            y = self._decode_stored(self.storage_rows(safe))
+        else:
+            y = self.aux("decoded")[safe]
         q = util.pad_cols(q, y.shape[-1])
         sims = util.matmul_f32(q, y)  # the f32 query, as the JAX package
         if self.distance == "euclidean":

@@ -63,14 +63,14 @@ def n_groups(s_eff, k_pair):
     return s_eff
 
 
-def block_scores(qtable, probers, start_c, off, cap, penalty, decoded, *,
-                 s_eff, euclidean):
-    """Plain per-block scores [B, P, s_eff] f32: products of the cache's
-    values (bf16 rounds nothing more), summed in f32."""
-    dev = decoded.device
-    slot = torch.arange(s_eff, device=dev)
+def window_scores(qtable, probers, start_c, off, cap, penalty, gather, slot,
+                  *, euclidean):
+    """Plain per-block scores [B, P, s] f32 over window columns whose
+    in-window slots are `slot` [s] (long); gather(rows [B, s]) gives the
+    candidate rows [B, s, d]. Products of the operands' values (bf16 rounds
+    nothing more), summed in f32."""
     rows = start_c.long()[:, None] + slot[None, :]
-    win = decoded[rows].float()                            # [B, s, d]
+    win = gather(rows).float()                              # [B, s, d]
     q = qtable[probers.clamp(min=0).long()].float()         # [B, P, d]
     ab = torch.bmm(q, win.transpose(1, 2))
     in_cell = (slot[None, :] >= off[:, None]) \
@@ -79,46 +79,70 @@ def block_scores(qtable, probers, start_c, off, cap, penalty, decoded, *,
     return (2.0 * ab if euclidean else ab) - pen[:, None, :]
 
 
-def select_exact(scores, start_c, k_pair):
-    """Top k_pair per row, by value descending then slot ascending (the
+def block_scores(qtable, probers, start_c, off, cap, penalty, decoded, *,
+                 s_eff, euclidean):
+    """Plain per-block scores [B, P, s_eff] over the cache's rows."""
+    slot = torch.arange(s_eff, device=decoded.device)
+    return window_scores(qtable, probers, start_c, off, cap, penalty,
+                         lambda rows: decoded[rows], slot,
+                         euclidean=euclidean)
+
+
+def select_exact(scores, start_c, k_pair, slot=None):
+    """Top k_pair per row, by value descending then column ascending (the
     Pallas kernel's "first maximal column per pass" order) ->
-    [B, P, 2*k_pair] int32 sortable keys ++ addresses; -inf / -1 dead."""
+    [B, P, 2*k_pair] int32 sortable keys ++ addresses; -inf / -1 dead.
+    `slot` [s] maps a column to its in-window slot (default: the column)."""
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     vals, idx = vals[..., :k_pair], idx[..., :k_pair]
+    if slot is not None:
+        idx = slot[idx]
     alive = vals > -BIG / 2
     keys = sortable_i32(torch.where(alive, vals, -torch.inf))
     addr = torch.where(alive, start_c.long()[:, None, None] + idx, -1)
     return torch.cat([keys, addr.int()], dim=-1)
 
 
-def select_pack32(scores, k_pair, slot_mask):
+def select_pack32(scores, k_pair, slot_mask, slot=None):
     """pack32: key = (sortable(score) & ~slot_mask) | slot, one winner per
-    strided group (group g holds slots g, g+G, ...), then the k_pair largest
-    winners descending -> [B, P, k_pair] int32. Keys are unique per row."""
+    strided group of columns (group g holds columns g, g+G, ...), then the
+    k_pair largest winners descending -> [B, P, k_pair] int32. Keys are
+    unique per row. `slot` [s] int32 maps a column to its in-window slot
+    (default: the column)."""
     b, p, s = scores.shape
     g = n_groups(s, k_pair)
-    slot = torch.arange(s, dtype=torch.int32, device=scores.device)
+    if slot is None:
+        slot = torch.arange(s, dtype=torch.int32, device=scores.device)
     packed = (sortable_i32(scores) & ~slot_mask) | slot
     best = packed.view(b, p, s // g, g).amax(dim=2)
     return torch.topk(best, k_pair, dim=-1).values
 
 
-def select_blocks(select, qtable, probers, start_c, off, cap, penalty,
-                  decoded, *, s_eff, euclidean, width):
-    """select(block_scores(...), start_c) over chunks of blocks, each chunk
-    holding at most _CHUNK_SCORES f32 scores -> int32 [B, p_tile, width]."""
+def select_chunks(scores, select, probers, start_c, *, s_eff, width,
+                  cost=1):
+    """select(scores(sl), start_c[sl]) over slices sl of the blocks, each
+    holding at most _CHUNK_SCORES / cost f32 scores (cost: temporaries per
+    score) -> int32 [B, p_tile, width]."""
     b, p = probers.shape
-    step = max(1, _CHUNK_SCORES // max(p * s_eff, 1))
-    outs = []
-    for i in range(0, b, step):
-        sl = slice(i, i + step)
-        sc = block_scores(qtable, probers[sl], start_c[sl], off[sl], cap[sl],
-                          penalty, decoded, s_eff=s_eff, euclidean=euclidean)
-        outs.append(select(sc, start_c[sl]))
+    step = max(1, _CHUNK_SCORES // max(p * s_eff * cost, 1))
+    outs = [select(scores(slice(i, i + step)), start_c[i:i + step])
+            for i in range(0, b, step)]
     if not outs:
         return torch.empty((0, p, width), dtype=torch.int32,
-                           device=decoded.device)
+                           device=probers.device)
     return torch.cat(outs)
+
+
+def select_blocks(select, qtable, probers, start_c, off, cap, penalty,
+                  decoded, *, s_eff, euclidean, width):
+    """select(block_scores(...), start_c) over chunks of blocks ->
+    int32 [B, p_tile, width]."""
+    def scores(sl):
+        return block_scores(qtable, probers[sl], start_c[sl], off[sl],
+                            cap[sl], penalty, decoded, s_eff=s_eff,
+                            euclidean=euclidean)
+    return select_chunks(scores, select, probers, start_c, s_eff=s_eff,
+                         width=width)
 
 
 def block_scan_ref(qtable, probers, start_c, off, cap, penalty, decoded, *,

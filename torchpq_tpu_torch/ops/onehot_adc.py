@@ -1,0 +1,188 @@
+"""Code-domain IVFPQ scans: the index keeps only its uint8 PQ codes (m B per
+slot) and norms (4 B), no decoded cache (counterpart of
+torchpq_tpu/ops/onehot_adc.py).
+
+* `scan_cell_major_codes` is the probed scan. It packs (query, cell) pairs
+  into blocks and merges them like adc.scan_cell_major; only the block
+  scoring differs. Inside the codes-kernel gate (packed storage, the
+  decode bound; ops/codes_scan.py) the blocks run the codes scan, which
+  decodes each window against the bf16 codebook and scores it (the kernel
+  on the card, its plain version on the CPU). Outside it the JAX package
+  scores with a bf16 LUT summed in f32; that path is computed in XLA there,
+  not Pallas, so here it is plain torch, and it is the JAX package's own
+  routing, not a fallback.
+* `flat_decode_scan` is the exhaustive sweep: each chunk of codes is
+  decoded to bf16 rows once and scored against every (bf16) query with an
+  f32 product.
+
+Both return (values [nq, k] f32, addresses [nq, k] int32, -1 padding).
+"""
+
+import torch
+
+from .. import util
+from ..metric import canonical_distance
+from .adc import LAST_GATE, _block_select, _merge_pairs, _pack_pairs
+from .block_scan import BIG, select_chunks
+from .codes_scan import codes_kernel_static_gate, codes_scan, decode_codes
+from .flat_adc import final_merge, flat_sweep
+
+
+def _no_manhattan(distance):
+    """Code-domain manhattan (the JAX package's flat_onehot_scan and its
+    LUT scans) waits for ROADMAP A12."""
+    if distance == "manhattan":
+        raise NotImplementedError(
+            "code-domain manhattan distance (flat_onehot_scan) is not "
+            "ported yet (ROADMAP A12)")
+
+
+def build_scan_lut(query, codebook, distance):
+    """Per-subvector partial-similarity table with sum semantics: summing
+    lut[q, i, code_i] over i gives <q, y> (the euclidean caller applies
+    2<q,y> - |y|^2 - |q|^2). query [nq, d], codebook [m, nc, dsub] ->
+    [nq, m, nc] f32."""
+    _no_manhattan(canonical_distance(distance))
+    m, _, dsub = codebook.shape
+    q = query.float().reshape(query.shape[0], m, dsub)
+    return torch.einsum("qmd,mcd->qmc", q, codebook.float())
+
+
+def _packing(codes, m):
+    """(g, m, cap_total) of a codes array: [cap, m] when m is None or equals
+    its width, else the packed [cap/g, g*m] layout."""
+    if m is None or m == codes.shape[1]:
+        return 1, codes.shape[1], codes.shape[0]
+    g = codes.shape[1] // m
+    assert codes.shape[1] == g * m and 16 % g == 0, (codes.shape, m)
+    return g, m, codes.shape[0] * g
+
+
+def _lut_block_scores(lut_flat, probers, start_c, off, cap, penalty, codes,
+                      *, s_eff, euclidean):
+    """The JAX package's outside-gate block scores: bf16 LUT entries
+    [nq, m*nc] looked up by each slot's codes and summed in f32, in slot
+    order -> [B, P, s_eff]."""
+    m = codes.shape[1]
+    nc = lut_flat.shape[1] // m
+    b, p = probers.shape
+    slot = torch.arange(s_eff, device=codes.device)
+    rows = start_c.long()[:, None] + slot[None, :]
+    col = codes[rows].long() + torch.arange(m, device=codes.device) * nc
+    lut_t = lut_flat[probers.clamp(min=0).long()]            # [B, P, m*nc]
+    picked = torch.gather(lut_t, 2,
+                          col.reshape(b, 1, s_eff * m).expand(b, p, -1))
+    sums = picked.reshape(b, p, s_eff, m).float().sum(-1)
+    in_cell = (slot[None, :] >= off[:, None]) \
+        & (slot[None, :] < (off + cap)[:, None])
+    pen = penalty[rows] + torch.where(in_cell, 0.0, BIG)
+    return (2.0 * sums if euclidean else sums) - pen[:, None, :]
+
+
+def scan_cell_major_codes(query, cells, probe_mask, codes, norms, is_empty,
+                          cell_start, cell_capacity, codebook, *, k,
+                          distance, s_max, n_cells, p_tile=128, approx=False,
+                          m=None):
+    """Cell-major scan over raw uint8 codes (onehot_adc.py:
+    scan_cell_major_codes at the default k_pair). codes is [cap, m], or the
+    packed [cap/g, g*m] storage with `m` given; codebook [m, nc, dsub]."""
+    distance = canonical_distance(distance)
+    _no_manhattan(distance)
+    query = query.float()
+    nq, n_probe = cells.shape
+    g, m, cap_total = _packing(codes, m)
+    # the code scan's own k_pair rule (:125-136), not adc.scan_cell_major's
+    if approx and k > 16:
+        k_pair = min(k, max(16, 4 * util.cdiv(k, n_probe)),
+                     max(64, util.cdiv(k, n_probe)))
+    else:
+        k_pair = k
+    k_pair = min(k_pair, k, s_max, cap_total)
+    s_eff = min(s_max, cap_total)
+    assert s_eff % g == 0, (s_eff, g)
+    s_pow2 = util.next_pow2(s_eff)
+    slot_mask = s_pow2 - 1
+    euclidean = distance == "euclidean"
+    d = m * codebook.shape[-1]
+    # pack32 slot bits: the kernel path takes windows up to 8192 slots, the
+    # LUT path keeps the decoded scan's 4096 (:158-163, :193-194)
+    pack32 = approx and s_pow2 <= 8192
+    use_kernel = (k_pair <= 64
+                  and codes_kernel_static_gate(m, g, d, distance)
+                  and (not approx or (pack32 and (
+                      s_eff % 128 == 0 or (s_pow2 == s_eff and s_eff < 128)))))
+    if not use_kernel:
+        pack32 = approx and s_pow2 <= 4096
+
+    pair_block, pair_slot, block_cell, probers, n_blocks = _pack_pairs(
+        cells, probe_mask, n_cells=n_cells, p_tile=p_tile)
+    start = cell_start[block_cell]
+    cap_b = cell_capacity[block_cell].int()
+    start_c = start.clamp(0, cap_total - s_eff)
+    off = (start - start_c).int()
+    start_c = start_c.int().contiguous()
+    penalty = torch.where(is_empty, BIG,
+                          norms.float() if euclidean else 0.0)
+    penalty = penalty.float().contiguous()
+    LAST_GATE.clear()
+    LAST_GATE.update(impl="codes_scan" if use_kernel else "onehot",
+                     k_pair=k_pair, s_eff=s_eff, pack32=pack32, m=m, g=g,
+                     blocks=n_blocks)
+    width = k_pair if pack32 else 2 * k_pair
+    if use_kernel:
+        combo = codes_scan(
+            query.to(torch.bfloat16).contiguous(), probers, start_c, off,
+            cap_b, penalty, codes.contiguous(),
+            codebook.to(torch.bfloat16).contiguous(), s_eff=s_eff,
+            k_pair=k_pair, euclidean=euclidean, pack32=pack32,
+            slot_mask=slot_mask)
+    else:
+        # The JAX package's row-gather window fetch (gather_windows,
+        # :166, :266-275) is a TPU layout workaround for huge codes arrays
+        # with identical results; windows here are plain index gathers.
+        lut_flat = build_scan_lut(query, codebook, distance) \
+            .reshape(nq, -1).to(torch.bfloat16)
+        flat = codes.reshape(cap_total, m)
+
+        def scores(sl):
+            return _lut_block_scores(lut_flat, probers[sl], start_c[sl],
+                                     off[sl], cap_b[sl], penalty, flat,
+                                     s_eff=s_eff, euclidean=euclidean)
+
+        def select(sc, st):
+            return _block_select(sc, st, k_pair=k_pair, pack32=pack32,
+                                 slot_mask=slot_mask)
+        # temporaries per score: the looked-up entries and each block's
+        # gathered LUT rows
+        cost = m * (2 + lut_flat.shape[1] // max(m * s_eff, 1))
+        combo = select_chunks(scores, select, probers, start_c, s_eff=s_eff,
+                              width=width, cost=cost)
+    return _merge_pairs(
+        combo, query, pair_block, pair_slot, start_c, n_blocks=n_blocks,
+        p_tile=p_tile, k=k, k_pair=k_pair, nq=nq, n_probe=n_probe,
+        pack32=pack32, slot_mask=slot_mask, distance=distance)
+
+
+def flat_decode_scan(query, codes, penalty, codebook, *, k, distance, m=None,
+                     max_elems=1 << 28):
+    """Exhaustive code-domain sweep: per chunk of slots, decode the codes to
+    bf16 rows (a gather from the bf16-rounded codebook, bit-identical to the
+    JAX package's one-hot @ blockdiag_codebook product, which the port
+    therefore does not need), score them against the
+    bf16-rounded query with an f32 product of the upcast operands, keep the
+    chunk's top k; then the exact final merge. penalty [cap] f32 =
+    norms-or-0 with BIG at empty slots."""
+    distance = canonical_distance(distance)
+    _no_manhattan(distance)
+    query = query.float()
+    _, m, cap = _packing(codes, m)
+    flat = codes.reshape(cap, m)
+    cb = codebook.to(torch.bfloat16)
+    # the JAX sweep rounds the query to bf16 (onehot_adc.py:450)
+    q_mm = query.to(torch.bfloat16).float()
+    vals, idx = flat_sweep(
+        q_mm, lambda c0, c1: decode_codes(flat[c0:c1], cb).float(), cap,
+        penalty, k=k, factor=2.0 if distance == "euclidean" else 1.0,
+        max_elems=max_elems)
+    return final_merge(vals, idx, query, k=k, distance=distance)
+
