@@ -13,14 +13,20 @@ Phases, each of which fails the run on error:
      d=128, s_eff 1024 and 2048, k_pair=10, 1024 blocks, bf16), both
      selects, with CUDA-event times of each; then the f32-cache kernel;
      then the codes-scan kernel against `codes_scan_ref` (PQ64 codes,
-     s_eff 1024, 1024 blocks), both selects.
+     s_eff 1024, 1024 blocks), both selects; then the block scan's int8
+     mode at d 128 and 1024 (both selects, bit for bit); the flat-scan
+     kernel against `flat_scan_ref` (cap 262,144, 1,024 queries, the
+     glue's head k=10 addresses equal outside ties); the row gather against
+     `table[idx.clamp]` (f32, bf16, int8 tables, out-of-range indices, bit
+     for bit).
   4. the slice: 1M x 128 manifold-12 base + 10k queries (the numpy draws of
      bench.py:make_data, seed 0), IVFPQIndex IVF4096 x PQ64 euclidean,
      trained on 100k and filled in four 250k adds; exact f32 ground truth
      on the card; searches: flat, cell_major at n_probe 1/8/32 (pack32
      select), cell_major at n_probe 8 (exact select). Launch counters are
      zeroed before and read after this phase; every kernel of the path must
-     have launched. Floors: flat recall@10 >= 0.85, n_probe=32 >= 0.75,
+     have launched (the block scan's bf16 selects, and the row gather,
+     which builds the compacted layouts). Floors: flat recall@10 >= 0.85, n_probe=32 >= 0.75,
      recall non-decreasing in n_probe within 0.005. Then a small-input
      check: the probed exact plan over every cell equals the flat exact
      plan.
@@ -43,9 +49,33 @@ Phases, each of which fails the run on error:
      pack32: >= 0.9999 of keys equal) and against the block-scan kernel over
      the decoded bf16 rows, on the codes-scan arguments of the exact
      n_probe=8 and pack32 n_probe=32 searches, timed.
-  8. profile: torch.profiler over one search per plan of both indexes;
-     device-busy time and the largest kernels of each.
-  9. prints the kernels' JSON line, the card line, and the result line.
+  8. int8 tier: an index with scan_cache_dtype="int8" takes the same
+     trained codecs and adds; device bytes logged; the block scan's
+     counters zeroed, the five plans run (every plan's recall@10 within
+     0.005 of the bf16 tier's; both int8 selects must launch); then the
+     int8 kernel against its plain version on the int8 searches' own
+     arguments (exact n_probe 8, pack32 n_probe 32), bit for bit, timed.
+  9. GIST-class int8 tier: 1M x 960 manifold-12 data (make_data, seed 1),
+     IVF4096 x PQ64, int8 cache 1024 wide, 10k queries, k=10; plans flat,
+     pack32 at n_probe 8 and 32, exact at n_probe 8 (counters zeroed
+     before, both int8 selects must launch); floors: recall non-decreasing
+     in n_probe within 0.005, the flat plan within 0.02 of an exact f32
+     sweep over the same PQ-decoded rows; the int8 kernel at d_cache=1024
+     against its plain version on the phase's own arguments.
+ 10. fused flat scan: the main index with scan_impl="pallas_flat" and
+     approx top-k; the flat counter zeroed, the flat plan must launch the
+     flat kernel, agree with the exact flat plan on >= 0.98 of ids and lie
+     within 0.01 of its recall (the kernel's bucket top-2 approximation);
+     both timed in this call; then the kernel against `flat_scan_ref` on
+     the plan's own arguments (head-k addresses equal outside ties),
+     timed.
+ 11. profile: torch.profiler over one search per plan of the bf16, code
+     domain and int8 indexes and the pallas_flat flat plan; device-busy
+     time and the largest kernels of each.
+ 12. prints the kernels' JSON line (every kernel: launches on its path,
+     kernel and plain ms, the bound from the inputs' own counts, the
+     library call's ms where one PyTorch call computes the same), the card
+     line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -60,6 +90,12 @@ import numpy as np
 
 TOL_REL = 1e-3  # bf16 products are exact in f32; only summation order differs
 TOL_ABS = 1e-3
+
+
+# the card's data-sheet rates (H100 SXM, dense): HBM bytes/s and the
+# tensor-core peak of each operand type, for the kernels' bounds
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "int8": 1979e12, "f32": 495e12}
 
 
 def fail(msg):
@@ -118,12 +154,46 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(ops, nbytes, peak):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of ops over the peak rate and bytes over the HBM rate."""
+    t_ops, t_bytes = ops / PEAK_OPS_S[peak], nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def scan_bound(torch, args, kw, *, slot_bytes, row_bytes, peak, d,
+               extra_bytes=0):
+    """Bound of a block scan (bf16 / int8 / codes) on its own arguments:
+    2 * s_eff * d operations per live prober; bytes: the unique cache slots
+    the windows cover (slot_bytes each), the live query rows (row_bytes
+    each), the block arrays, the output, and extra_bytes (a codebook)."""
+    probers, start_c = args[1], args[2]
+    s_eff = kw["s_eff"]
+    width = kw["k_pair"] if kw["pack32"] else 2 * kw["k_pair"]
+    live = int((probers >= 0).sum())
+    cap_total = args[5].shape[0]
+    cover = torch.zeros(cap_total, dtype=torch.bool, device=probers.device)
+    cover[(start_c.long()[:, None] + torch.arange(
+        s_eff, device=probers.device)[None]).reshape(-1)] = True
+    queries = int(torch.unique(probers[probers >= 0]).numel())
+    nbytes = (int(cover.sum()) * slot_bytes + queries * row_bytes
+              + probers.numel() * 4 + start_c.numel() * 12
+              + probers.numel() * width * 4 + extra_bytes)
+    return bound(2.0 * live * s_eff * d, nbytes, peak)
+
+
 def compare_exact(torch, bs, got, ref, k, rel=TOL_REL, abs_=TOL_ABS):
     """Values within rel * |v| + abs_; addresses equal wherever a value is
     separated from its neighbours by more than rel * |v| (rel = abs_ = 0:
     equal values, equal addresses outside exact ties)."""
-    v = bs.sortable_i32_to_f32(got[..., :k])
-    vr = bs.sortable_i32_to_f32(ref[..., :k])
+    return compare_topk(torch, bs.sortable_i32_to_f32(got[..., :k]),
+                        got[..., k:], bs.sortable_i32_to_f32(ref[..., :k]),
+                        ref[..., k:], rel, abs_)
+
+
+def compare_topk(torch, v, a, vr, ar, rel=TOL_REL, abs_=TOL_ABS):
+    """compare_exact on sorted values v / vr and their addresses a / ar."""
     fin = torch.isfinite(vr)
     if not torch.equal(fin, torch.isfinite(v)):
         fail("exact select: dead entries differ from the plain version")
@@ -139,14 +209,19 @@ def compare_exact(torch, bs, got, ref, k, rel=TOL_REL, abs_=TOL_ABS):
     right = torch.zeros_like(fin)  # the k-th may tie with the (k+1)-th
     right[..., :-1] = (vr[..., :-1] - vr[..., 1:]).abs() > gap[..., :-1]
     sep = left & right & fin
-    a, ar = got[..., k:], ref[..., k:]
     if bool((a != ar)[sep].any()):
         fail("exact select: addresses differ at separated values")
     return float(err.max())
 
 
+def share_equal(a, b):
+    """Share of equal entries, counted exactly (a float32 mean of millions
+    of ones is not exactly 1)."""
+    return int((a == b).sum()) / a.numel()
+
+
 def compare_pack32(torch, bs, got, ref, slot_mask):
-    agree = float((got == ref).float().mean())
+    agree = share_equal(got, ref)
     if agree < 0.99:
         fail(f"pack32 select: key agreement {agree:.4f} < 0.99")
     same_slot = (got & slot_mask) == (ref & slot_mask)
@@ -159,7 +234,8 @@ def compare_pack32(torch, bs, got, ref, slot_mask):
 
 
 def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
-                 reps=20, kernel=None, plain=None, exact_bits=False):
+                 reps=20, kernel=None, plain=None, exact_bits=False,
+                 extra=None):
     """A kernel (default: the block scan) against its plain version on the
     same inputs; fails the run on disagreement. exact_bits: exact values
     equal, and pack32 keys agree on >= 0.9999 of entries (the plain
@@ -170,7 +246,7 @@ def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
     plain = plain or bs.block_scan_ref
     slot_mask = bs.util.next_pow2(s_eff) - 1
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
-              pack32=pack32, slot_mask=slot_mask)
+              pack32=pack32, slot_mask=slot_mask, **(extra or {}))
     got = kernel(*args, **kw)
     torch.cuda.synchronize()
     ref = plain(*args, **kw)
@@ -194,10 +270,11 @@ def kernel_row(name, s_eff, blocks, err, agree, ms, plain_ms):
             + (f", key agreement {agree:.7f}" if agree is not None else ""))
 
 
-def phase_kernels(torch, bs, cs):
+def phase_kernels(torch, bs, cs, fs, gr):
     """Seeded inputs at s_eff 1024 and 2048 (1024 blocks of 128 probers,
     d=128, k_pair=10, bf16), both selects; then the f32-cache kernel; then
-    the codes kernel (PQ64 codes, s_eff 1024), both selects."""
+    the codes kernel (PQ64 codes, s_eff 1024), both selects; then the int8
+    mode, the flat scan and the row gather."""
     for s_eff in (1024, 2048):
         args = bs.random_inputs("cuda", s_eff=s_eff, n_blocks=1024,
                                 nq=10000, cap_total=1 << 21, seed=s_eff)
@@ -220,6 +297,45 @@ def phase_kernels(torch, bs, cs):
                            plain=cs.codes_scan_ref, exact_bits=True)
         name = "codes_scan_pack32" if pack32 else "codes_scan_exact"
         log(kernel_row(name, 1024, 1024, *res) + " (PQ64, g=2)")
+    # int8 mode at d 128 and at the GIST cache width 1024: bit for bit
+    for d in (128, 1024):
+        args, scale, q_scale = bs.random_int8_inputs(
+            "cuda", s_eff=1024, n_blocks=1024, nq=10000, d=d,
+            cap_total=1 << 20, seed=d)
+        for pack32 in (False, True):
+            res = check_kernel(torch, bs, args, s_eff=1024, k_pair=10,
+                               pack32=pack32, exact_bits=True, reps=5,
+                               extra=dict(scale=scale, q_scale=q_scale))
+            name = "block_scan_int8_" + ("pack32" if pack32 else "exact")
+            log(kernel_row(name, 1024, 1024, *res) + f" (d={d})")
+        del args
+    # the flat scan: the glue's head k=10 of the top r_keep=16
+    args = fs.random_flat_inputs("cuda", nq=1024, cap=262144, seed=5)
+    v, a = fs.flat_scan(*args, r_keep=16, euclidean=True)
+    torch.cuda.synchronize()
+    vr, ar = fs.flat_scan_ref(*args, r_keep=16, euclidean=True)
+    err = compare_topk(torch, v[:, :10], a[:, :10], vr[:, :10], ar[:, :10])
+    ms = cuda_ms(torch, lambda: fs.flat_scan(*args, r_keep=16,
+                                             euclidean=True), 5)
+    plain_ms = cuda_ms(torch, lambda: fs.flat_scan_ref(
+        *args, r_keep=16, euclidean=True), 2)
+    log(f"flat_scan nq=1024 cap=262144: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, max_abs_err {err:.3g}, head-10 addresses "
+        f"equal {share_equal(a[:, :10], ar[:, :10]):.5f}")
+    # the row gather: bit for bit, out-of-range indices clipped
+    g = torch.Generator(device="cuda").manual_seed(9)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        table = (torch.randn(100000, 128, generator=g, device="cuda")
+                 * 40).to(dtype)
+        idx = torch.randint(-1000, 101000, (1 << 20,), generator=g,
+                            device="cuda", dtype=torch.int32)
+        got = gr.gather_rows(table, idx)
+        torch.cuda.synchronize()
+        if not torch.equal(got, gr.gather_rows_ref(table, idx)):
+            fail(f"gather_rows differs from table[idx.clamp] ({dtype})")
+        ms = cuda_ms(torch, lambda: gr.gather_rows(table, idx), 20)
+        log(f"gather_rows {dtype} [100000, 128] x 2^20 indices: equal bit "
+            f"for bit; kernel {ms:.3f} ms")
 
 
 def capture_call(tp, index, xq, k, module=None, name="block_scan"):
@@ -274,12 +390,44 @@ def phase_main_shapes(torch, tp, bs, index, xq, k):
             log(f"  {flop * blocks * p_tile / ms / 1e9:.2f} TFLOP/s executed,"
                 f" {flop * live / ms / 1e9:.2f} TFLOP/s over live probers")
             if pack32 == approx:
+                b_ms, b_by = scan_bound(
+                    torch, args, dict(kw, pack32=pack32), slot_bytes=2 * d + 4,
+                    row_bytes=2 * d, peak="bf16", d=d)
                 rows[name] = dict(
                     name=name, route="cuda",
                     source="torchpq_tpu_torch/csrc/block_scan.cu",
                     replaces="torchpq_tpu/ops/pallas_scan.py:281",
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
     return rows
+
+
+def phase_gather_main(torch, gr, index):
+    """The row gather on the main path's own arguments: the decoded rows
+    of the main index's compacted layout (its addr_map, clipped as
+    _gather_compact clips it), against the plain version and against one
+    library call (torch.index_select, the same function on in-range
+    indices). Returns the kernel's JSON row without its launch count."""
+    table = index.aux("decoded")
+    idx = index._compact_cache[1][3].long().clamp(min=0)
+    got = gr.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(got, gr.gather_rows_ref(table, idx)):
+        fail("gather_rows differs from its plain version on the main path's "
+             "compaction")
+    ms = cuda_ms(torch, lambda: gr.gather_rows(table, idx), 20)
+    plain_ms = cuda_ms(torch, lambda: gr.gather_rows_ref(table, idx), 5)
+    lib_ms = cuda_ms(torch, lambda: torch.index_select(table, 0, idx), 20)
+    row_b = table.shape[1] * table.element_size()
+    b_ms, b_by = bound(0.0, idx.numel() * (2 * row_b + 8), "bf16")
+    log(f"gather_rows on the compaction's rows ({idx.numel()} x {row_b} B):"
+        f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, index_select "
+        f"{lib_ms:.3f} ms, bound {b_ms:.3f} ms")
+    return dict(name="gather_rows", route="cuda",
+                source="torchpq_tpu_torch/csrc/gather_rows.cu",
+                replaces="torchpq_tpu/ops/pallas_gather.py:39",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms)
 
 
 def phase_relayout(torch, tp, index, trained, base, xq, per_cell, k):
@@ -321,7 +469,7 @@ def phase_relayout(torch, tp, index, trained, base, xq, per_cell, k):
 
 
 def time_plans(torch, tp, index, xq, gt, k, launches, label,
-               short_ok=False):
+               short_ok=False, plans=None, floors=True):
     """Each plan of PLANS on `index`: the warm-up search, then the median of
     3 host-clock searches to torch.cuda.synchronize(), q/s, recall@10 and
     the kernel launches per search (from the counters in `launches`).
@@ -334,7 +482,7 @@ def time_plans(torch, tp, index, xq, gt, k, launches, label,
     as in the JAX package's kernel."""
     n_query = xq.shape[0]
     rows, results = [], {}
-    for mode, n_probe, approx in PLANS:
+    for mode, n_probe, approx in plans or PLANS:
         index.scan_mode = mode
         index.n_probe = n_probe
         index.use_approx_topk = approx
@@ -376,6 +524,8 @@ def time_plans(torch, tp, index, xq, gt, k, launches, label,
             fail(f"{label}cell_major np={n_probe} did not launch the kernel")
     rec = {(r["plan"], r["n_probe"], r["approx"]): r["recall_at_10"]
            for r in rows}
+    if not floors:
+        return rec, results
     if rec[("flat", 1, True)] < 0.85:
         fail(f"{label}flat recall@10 {rec[('flat', 1, True)]:.4f} < 0.85")
     if rec[("cell_major", 32, True)] < 0.75:
@@ -497,7 +647,7 @@ def phase_code_domain(torch, tp, bs, cs, sl):
             bs_ms = cuda_ms(torch, lambda: bs.block_scan(*bs_args, **kkw), 20)
             if pack32:
                 # strided groups of columns, not of slots: may differ
-                agree = float((got == ref).float().mean())
+                agree = share_equal(got, ref)
                 log(f"  vs block_scan over the decoded rows: key agreement "
                     f"{agree:.5f}; block_scan {bs_ms:.3f} ms")
             else:
@@ -507,21 +657,26 @@ def phase_code_domain(torch, tp, bs, cs, sl):
                     f"{bs_ms:.3f} ms")
             err, _, ms, plain_ms = res_k
             if pack32 == approx:
+                d = args[0].shape[1]
+                b_ms, b_by = scan_bound(
+                    torch, args, kkw, slot_bytes=m + 4, row_bytes=2 * d,
+                    peak="bf16", d=d, extra_bytes=args[7].numel() * 2)
                 rows[name] = dict(
                     name=name, route="cuda",
                     source="torchpq_tpu_torch/csrc/codes_scan.cu",
                     replaces="torchpq_tpu/ops/pallas_codes_scan.py:198",
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
     del decoded
     return counts, rows, code
 
 
-def phase_profile(torch, index, xq, k, label=""):
+def phase_profile(torch, index, xq, k, label="", plans=None):
     """torch.profiler over one search per plan: device-busy time (the sum
     of the kernels' own device times) and the largest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    for mode, n_probe, approx in PLANS:
+    for mode, n_probe, approx in plans or PLANS:
         index.scan_mode, index.n_probe = mode, n_probe
         index.use_approx_topk = approx
         index.search(xq.T, k=k)
@@ -543,6 +698,259 @@ def phase_profile(torch, index, xq, k, label=""):
             f"device busy {busy:.3f} ms; {top}")
 
 
+def build_index(torch, tp, trained, base, *, d, m, n_cells, per_cell,
+                cache):
+    """An index with the given scan cache tier, the trained codecs loaded,
+    filled by four adds of a quarter each; returns (index, add seconds)."""
+    index = tp.IVFPQIndex(d_vector=d, n_subvectors=m, n_cells=n_cells,
+                          initial_size=per_cell, distance="euclidean",
+                          scan_cache_dtype=cache, device="cuda")
+    index.load_state_dict(trained)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = base.shape[0] // 4
+    for i in range(0, base.shape[0], step):
+        index.add(torch.from_numpy(base[i:i + step]).cuda().T)
+    torch.cuda.synchronize()
+    return index, time.perf_counter() - t0
+
+
+def int8_kernel_rows(torch, tp, bs, index, xq, k, label, gist=False):
+    """The int8 kernel against its plain version on the arguments an int8
+    index's exact n_probe=8 and pack32 n_probe=32 searches give it (both
+    selects on each, bit-exact criteria), timed. Returns the JSON rows of
+    the select each search ran."""
+    rows = {}
+    for n_probe, approx in ((8, False), (32, True)):
+        index.scan_mode, index.n_probe = "cell_major", n_probe
+        index.use_approx_topk = approx
+        args, kw = capture_call(tp, index, xq, k)
+        s_eff, k_pair = kw["s_eff"], kw["k_pair"]
+        blocks, p_tile = args[1].shape
+        live = int((args[1] >= 0).sum())
+        d = args[6].shape[1]
+        log(f"{label}path n_probe={n_probe} "
+            f"({'pack32' if approx else 'exact'}): {blocks} blocks x "
+            f"{p_tile} probers, {live} live ({live / (blocks * p_tile):.3f})"
+            f", s_eff={s_eff}, k_pair={k_pair}, d_cache={d}")
+        extra = dict(scale=kw["scale"], q_scale=kw["q_scale"])
+        for pack32 in (False, True):
+            res = check_kernel(torch, bs, args, s_eff=s_eff, k_pair=k_pair,
+                               pack32=pack32, euclidean=kw["euclidean"],
+                               exact_bits=True, extra=extra,
+                               reps=5 if gist else 20)
+            name = "block_scan_int8_" + ("pack32" if pack32 else "exact")
+            log(kernel_row(name, s_eff, blocks, *res)
+                + f" (inputs of the {label}n_probe={n_probe} search)")
+            if pack32 == approx:
+                err, _, ms, plain_ms = res
+                b_ms, b_by = scan_bound(
+                    torch, args, dict(kw, pack32=pack32), slot_bytes=d + 8,
+                    row_bytes=d + 4, peak="int8", d=d)
+                log(f"  bound {b_ms:.3f} ms ({b_by})")
+                rows[name] = dict(
+                    name=name, route="cuda",
+                    source="torchpq_tpu_torch/csrc/block_scan.cu",
+                    replaces="torchpq_tpu/ops/pallas_scan.py:281",
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    return rows
+
+
+def phase_int8(torch, tp, bs, sl):
+    """The int8 tier at the slice's shape: the main index's trained codecs
+    and adds in an index whose cache rows are int8 with per-slot scales;
+    the five plans with the launch counters zeroed before and read after,
+    each plan's recall within 0.005 of the bf16 tier's; then the int8
+    kernel on the phase's own arguments. Returns (launch counts, the int8
+    kernels' JSON rows, the index)."""
+    index, base, xq, gt, k = (sl[x] for x in ("index", "base", "xq", "gt",
+                                              "k"))
+    i8, add_s = build_index(torch, tp, sl["trained"], base,
+                            d=index.d_vector, m=index.n_subvectors,
+                            n_cells=index.n_cells, per_cell=sl["per_cell"],
+                            cache="int8")
+    dec = i8.aux("decoded")
+    if dec.dtype != torch.int8 or dec.shape[1] != index.d_vector:
+        fail(f"the int8 index holds a {dec.dtype} cache {tuple(dec.shape)}")
+    if not np.array_equal(i8._cell_size_np, index._cell_size_np):
+        fail("the int8 index holds other cell sizes than the main index")
+    for key in bs.launches:
+        bs.launches[key] = 0
+    rec, _ = time_plans(torch, tp, i8, xq, gt, k, bs.launches, "int8 ")
+    counts = dict(bs.launches)
+    log(f"int8 launches: {counts}")
+    for name in ("int8_exact", "int8_pack32"):
+        if counts[name] <= 0:
+            fail(f"kernel block_scan_{name} was never launched by the int8 "
+                 "tier")
+    for plan, r in rec.items():
+        if abs(r - sl["rec"][plan]) > 0.005:
+            fail(f"int8 plan {plan}: recall {r:.4f} vs the bf16 tier's "
+                 f"{sl['rec'][plan]:.4f}")
+    comp = i8._compact_cache[1] if i8._compact_cache is not None else None
+    log(f"int8 index: add {add_s:.2f} s; device bytes: int8 cache "
+        f"{dec.numel()}, scales {i8.aux('scale').numel() * 4}, norms "
+        f"{i8.aux('norm').numel() * 4}, codes {i8._storage.numel()}, "
+        f"compacted copy "
+        f"{0 if comp is None else comp[0].numel() + comp[4].numel() * 4}; "
+        f"recall within 0.005 of the bf16 tier on every plan")
+    rows = int8_kernel_rows(torch, tp, bs, i8, xq, k, "int8 ")
+    return counts, rows, i8
+
+
+def phase_pallas_flat(torch, tp, fs, sl):
+    """scan_impl="pallas_flat" on the main index: the flat plan through the
+    fused flat-scan kernel (its counter zeroed before, read after), held
+    to the exact flat plan run in the same call (ids >= 0.98, recall
+    within 0.01), both timed; then the kernel against flat_scan_ref on the
+    plan's own arguments. Returns (launch counts, the kernel's JSON row)."""
+    index, xq, gt, k = (sl[x] for x in ("index", "xq", "gt", "k"))
+    index.scan_mode, index.use_approx_topk = "flat", True
+
+    def timed():
+        index.search(xq.T, k=k)  # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = index.search(xq.T, k=k)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return out, float(np.median(times)) * 1e3
+
+    index.scan_impl = "auto"
+    (_, i_ref), sweep_ms = timed()
+    for key in fs.launches:
+        fs.launches[key] = 0
+    index.scan_impl = "pallas_flat"
+    (v, i), kern_ms = timed()
+    counts = dict(fs.launches)
+    if counts["flat"] <= 0 or tp.ops.flat_adc.LAST_FLAT["impl"] != \
+            "flat_scan":
+        fail("the pallas_flat flat plan did not launch the flat kernel")
+    agree = recall_at(i.long(), i_ref.long())
+    r_k, r_s = recall_at(i.long(), gt), recall_at(i_ref.long(), gt)
+    log(f"pallas_flat flat plan: {kern_ms:.2f} ms ({xq.shape[0] / kern_ms * 1e3:.0f} q/s), "
+        f"recall {r_k:.4f}; exact sweep {sweep_ms:.2f} ms, recall "
+        f"{r_s:.4f}; id agreement {agree:.5f}; launches {counts}")
+    # The kernel keeps the TPU kernel's bucket approximation (the top 2 of
+    # each 64-slot bucket): in the cell-ordered flat layout a query's
+    # neighbours share buckets, and ~1.2% of the exact top-10 ids drop out
+    # on this data (0.98758, recall -0.0067 in the first card run). Its
+    # fidelity is the check against flat_scan_ref below; these floors
+    # guard against a broken plan.
+    if agree < 0.98 or abs(r_k - r_s) > 0.01:
+        fail("the pallas_flat flat plan disagrees with the exact flat plan")
+    args, kw = capture_call(tp, index, xq, k, module=tp.ops.flat_adc,
+                            name="flat_scan")
+    index.scan_impl = "auto"
+    got = fs.flat_scan(*args, **kw)
+    torch.cuda.synchronize()
+    ref = fs.flat_scan_ref(*args, **kw)
+    err = compare_topk(torch, got[0][:, :k], got[1][:, :k], ref[0][:, :k],
+                       ref[1][:, :k])
+    ms = cuda_ms(torch, lambda: fs.flat_scan(*args, **kw), 5)
+    plain_ms = cuda_ms(torch, lambda: fs.flat_scan_ref(*args, **kw), 2)
+    q, dec = args[0], args[1]
+    nq, d = q.shape
+    cap = dec.shape[0]
+    b_ms, b_by = bound(2.0 * nq * cap * d,
+                       cap * d * dec.element_size() + cap * 4 + nq * d * 4
+                       + nq * kw["r_keep"] * 8, "bf16")
+    log(f"flat_scan on the plan's arguments (nq={nq}, cap={cap}, d={d}, "
+        f"r_keep={kw['r_keep']}): kernel {ms:.3f} ms, plain {plain_ms:.3f}"
+        f" ms, bound {b_ms:.3f} ms ({b_by}), max_abs_err {err:.3g}; "
+        f"{2.0 * nq * cap * d / ms / 1e9:.2f} TFLOP/s")
+    return counts, dict(
+        name="flat_scan", route="cuda",
+        source="torchpq_tpu_torch/csrc/flat_scan.cu",
+        replaces="torchpq_tpu/ops/pallas_flat.py:139", max_abs_err=err,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None)
+
+
+# the GIST-class phase's searches
+GIST_PLANS = [("flat", 1, True), ("cell_major", 8, True),
+              ("cell_major", 32, True), ("cell_major", 8, False)]
+
+
+def phase_gist(torch, tp, bs):
+    """The int8 tier at a GIST-class shape: 1M x 960 manifold-12 data
+    (seed 1), IVF4096 x PQ64, an int8 cache lane-padded to 1024, 10k
+    queries, k=10, spill and scan_group off. Returns the int8 launch counts
+    of its plans and the index."""
+    n_base, n_query, d, m, n_cells, k = 1_000_000, 10_000, 960, 64, 4096, 10
+    t0 = time.perf_counter()
+    base, query = make_data(n_base, n_query, d, seed=1)
+    log(f"GIST-class data {n_base} x {d} + {n_query} queries: "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+    per_cell = max(16, n_base // n_cells * 3)
+    index = tp.IVFPQIndex(d_vector=d, n_subvectors=m, n_cells=n_cells,
+                          initial_size=per_cell, distance="euclidean",
+                          scan_cache_dtype="int8", device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index.train(torch.from_numpy(base[: n_base // 10]).cuda().T)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trained = {**index.vq_codec.state_dict("vq_codec."),
+               **index.pq_codec.state_dict("pq_codec.")}
+    del index
+    index, add_s = build_index(torch, tp, trained, base, d=d, m=m,
+                               n_cells=n_cells, per_cell=per_cell,
+                               cache="int8")
+    dec = index.aux("decoded")
+    log(f"GIST-class int8 index: train {train_s:.2f} s, add {add_s:.2f} s; "
+        f"cache {tuple(dec.shape)} {dec.dtype}; max cell capacity "
+        f"{index.max_cell_capacity}, largest cell "
+        f"{int(index._cell_size_np.max())}")
+    if tuple(dec.shape[1:]) != (1024,) or dec.dtype != torch.int8:
+        fail("the GIST-class cache is not int8 and 1024 wide")
+
+    xb = torch.from_numpy(base).cuda()
+    xq = torch.from_numpy(query).cuda()
+    del base
+    # exact f32 ground truth, and the exact f32 sweep over the PQ-decoded
+    # rows of every stored vector (the ADC ceiling of these codes)
+    addr = torch.nonzero(~index._is_empty).flatten()
+    ids = index._address2id[addr].long()
+    pq_rows = index._decode_stored(index.storage_rows(addr))
+    xb_n, pq_n = (xb * xb).sum(-1), (pq_rows * pq_rows).sum(-1)
+    gt, pq_top = [], []
+    for i in range(0, n_query, 500):
+        qc = xq[i:i + 500]
+        gt.append(torch.topk(2 * qc @ xb.T - xb_n[None], k, dim=-1).indices)
+        pq_top.append(ids[torch.topk(2 * qc @ pq_rows.T - pq_n[None], k,
+                                     dim=-1).indices])
+    gt, pq_top = torch.cat(gt), torch.cat(pq_top)
+    del xb, pq_rows
+    torch.cuda.synchronize()
+    rec_pq = recall_at(pq_top, gt)
+
+    for key in bs.launches:
+        bs.launches[key] = 0
+    rec, _ = time_plans(torch, tp, index, xq, gt, k, bs.launches,
+                        "GIST int8 ", plans=GIST_PLANS, floors=False)
+    counts = dict(bs.launches)
+    log(f"GIST int8 launches: {counts}")
+    for name in ("int8_exact", "int8_pack32"):
+        if counts[name] <= 0:
+            fail(f"kernel block_scan_{name} was never launched by the "
+                 "GIST-class phase")
+    r8, r32 = rec[("cell_major", 8, True)], rec[("cell_major", 32, True)]
+    gap = rec[("flat", 1, True)] - rec_pq
+    log(f"GIST int8: flat recall {rec[('flat', 1, True)]:.4f} vs the exact "
+        f"f32 sweep over the PQ-decoded rows {rec_pq:.4f} (gap {gap:+.4f});"
+        f" pack32 n_probe 8 / 32: {r8:.4f} / {r32:.4f}")
+    if r32 < r8 - 0.005:
+        fail(f"GIST recall falls with n_probe: {r8:.4f} {r32:.4f}")
+    if abs(gap) > 0.02:
+        fail(f"GIST int8 flat recall is {gap:+.4f} off the PQ ceiling")
+    int8_kernel_rows(torch, tp, bs, index, xq, k, "GIST int8 ", gist=True)
+    return counts, index, xq
+
+
 # the slice's searches: (scan_mode, n_probe, use_approx_topk)
 PLANS = [("flat", 1, True), ("cell_major", 1, True), ("cell_major", 8, True),
          ("cell_major", 32, True), ("cell_major", 8, False)]
@@ -553,15 +961,16 @@ def recall_at(ids, gt):
     return float(hit.mean() / gt.shape[1])
 
 
-def phase_slice(torch, tp, bs):
+def phase_slice(torch, tp, bs, gr):
     n_base, n_query, d, m, n_cells, k = 1_000_000, 10_000, 128, 64, 4096, 10
 
     t0 = time.perf_counter()
     base, query = make_data(n_base, n_query, d)
     log(f"data {n_base} x {d} + {n_query} queries: "
         f"{time.perf_counter() - t0:.1f} s (host)")
-    for key in bs.launches:
-        bs.launches[key] = 0
+    for launches in (bs.launches, gr.launches):
+        for key in launches:
+            launches[key] = 0
     per_cell = max(16, n_base // n_cells * 3)  # 732 at 1M: bench.py's 3x
     index = tp.IVFPQIndex(d_vector=d, n_subvectors=m, n_cells=n_cells,
                           initial_size=per_cell,
@@ -597,12 +1006,12 @@ def phase_slice(torch, tp, bs):
     del xb
     torch.cuda.synchronize()
 
-    time_plans(torch, tp, index, xq, gt, k, bs.launches, "")
-    counts = dict(bs.launches)
+    rec, _ = time_plans(torch, tp, index, xq, gt, k, bs.launches, "")
+    counts = {**bs.launches, **gr.launches}
     log(f"main-path launches: {counts}")
-    for name, c in counts.items():
-        if c <= 0:
-            fail(f"kernel block_scan_{name} was never launched by the slice")
+    for name in ("exact", "pack32", "gather"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was never launched by the slice")
 
     # small-input reference: probing every cell with the exact select must
     # find what the exact flat sweep finds
@@ -622,7 +1031,7 @@ def phase_slice(torch, tp, bs):
         fail("the probed exact plan disagrees with the flat exact plan")
     index.use_smart_probing = True
     return counts, dict(index=index, trained=trained, base=base, xq=xq,
-                        gt=gt, per_cell=per_cell, k=k)
+                        gt=gt, per_cell=per_cell, k=k, rec=rec)
 
 
 def main():
@@ -644,31 +1053,54 @@ def main():
     from torchpq_tpu_torch import _build
     from torchpq_tpu_torch.ops import block_scan as bs
     from torchpq_tpu_torch.ops import codes_scan as cs
+    from torchpq_tpu_torch.ops import flat_scan as fs
+    from torchpq_tpu_torch.ops import gather as gr
+    t_start = time.perf_counter()
     lib = _build.library()
     log(f"build: {lib.build_seconds:.1f} s -> {lib.path.name}")
     for line in lib.build_log.splitlines():
         if "registers" in line or "spill" in line:
             log("ptxas: " + line.strip())
 
-    phase_kernels(torch, bs, cs)
+    phase_kernels(torch, bs, cs, fs, gr)
+    log(f"phases 1-3: {time.perf_counter() - t_start:.1f} s")
     if args.kernels_only:
         return
-    counts, sl = phase_slice(torch, tp, bs)
+    counts, sl = phase_slice(torch, tp, bs, gr)
     krows = phase_main_shapes(torch, tp, bs, sl["index"], sl["xq"], sl["k"])
+    krows["gather_rows"] = phase_gather_main(torch, gr, sl["index"])
     phase_relayout(torch, tp, sl["index"], sl["trained"], sl["base"],
                    sl["xq"], sl["per_cell"], sl["k"])
     code_counts, code_rows, code = phase_code_domain(torch, tp, bs, cs, sl)
+    int8_counts, int8_rows, i8 = phase_int8(torch, tp, bs, sl)
+    gist_counts, gist, gist_q = phase_gist(torch, tp, bs)
+    # last of the paths: its floor holds the kernel's bucket approximation
+    flat_counts, flat_row = phase_pallas_flat(torch, tp, fs, sl)
+    log(f"phases 4-10: {time.perf_counter() - t_start:.1f} s")
     phase_profile(torch, sl["index"], sl["xq"], sl["k"])
     phase_profile(torch, code, sl["xq"], sl["k"], label="code-domain ")
+    phase_profile(torch, i8, sl["xq"], sl["k"], label="int8 ")
+    phase_profile(torch, gist, gist_q, 10, label="GIST int8 ",
+                  plans=GIST_PLANS)
+    sl["index"].scan_impl = "pallas_flat"
+    phase_profile(torch, sl["index"], sl["xq"], sl["k"],
+                  label="pallas_flat ", plans=[("flat", 1, True)])
+    log(f"phases 4-11: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
-    for name, rows, cnt in (("block_scan_exact", krows, counts),
-                            ("block_scan_pack32", krows, counts),
-                            ("codes_scan_exact", code_rows, code_counts),
-                            ("codes_scan_pack32", code_rows, code_counts)):
-        row = dict(rows[name])
-        row["launches"] = cnt[name.rsplit("_", 1)[1]]
-        kernels.append(row)
+    for name, row, cnt in (
+            ("block_scan_exact", krows, counts["exact"]),
+            ("block_scan_pack32", krows, counts["pack32"]),
+            ("block_scan_int8_exact", int8_rows, int8_counts["int8_exact"]),
+            ("block_scan_int8_pack32", int8_rows,
+             int8_counts["int8_pack32"]),
+            ("codes_scan_exact", code_rows, code_counts["exact"]),
+            ("codes_scan_pack32", code_rows, code_counts["pack32"]),
+            ("flat_scan", {"flat_scan": flat_row}, flat_counts["flat"]),
+            ("gather_rows", krows, counts["gather"])):
+        kernels.append(dict(row[name], launches=cnt))
+    log(f"GIST-class int8 launches (not in the JSON line, whose int8 rows "
+        f"are the 1M x 128 tier's): {gist_counts}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,10 @@ PyTorch port torchpq_tpu_torch. Arrays cross between the two as numpy."""
 import numpy as np
 import torch
 
+# The port's objects live on the card unless built with a device: the CPU
+# parity tests build theirs here.
+CPU = "cpu"
+
 
 def to_np(x):
     """JAX array / torch tensor -> numpy (bf16 as float32)."""

@@ -27,7 +27,7 @@ from torchpq_tpu_torch.ops import onehot_adc as tonehot
 from torchpq_tpu_torch.ops.block_scan import (BIG, sortable_i32_to_f32,
                                               block_scan)
 
-from _torch_helpers import assert_topk_match, overlap, to_np, to_t
+from _torch_helpers import CPU, assert_topk_match, overlap, to_np, to_t
 
 N_CELLS = 8
 
@@ -209,7 +209,7 @@ def _case(distance="euclidean", d=32, m=8, pack_ingest=None,
     jidx.vq_codec.kmeans.max_iter = 6
     jidx.pq_codec.kmeans.max_iter = 6
     jidx.train(jnp.asarray(x[:1500].T))
-    port = tp.IVFPQIndex(**kw)
+    port = tp.IVFPQIndex(**kw, device=CPU)
     port.load_state_dict(jidx.state_dict())
     assert port.is_trained and port.n_items == 0
     for chunk in (x[:1200], x[1200:]):
@@ -424,14 +424,14 @@ def test_freeze_unfreeze():
 
 def test_freeze_needs_code_domain():
     with pytest.raises(ValueError):
-        tp.IVFPQIndex(32, 8, N_CELLS).freeze_codes()
+        tp.IVFPQIndex(32, 8, N_CELLS, device=CPU).freeze_codes()
 
 
 def test_jax_saved_npz_searches_alike(tmp_path):
     jidx, _, q = _case()
     jidx.save(tmp_path / "jax_codes.npz")
     port = tp.IVFPQIndex(32, 8, N_CELLS, initial_size=64,
-                         scan_cache_dtype="none")
+                         scan_cache_dtype="none", device=CPU)
     port.load(tmp_path / "jax_codes.npz")
     assert port.pack_group == 16 and "decoded" not in port._aux
     for idx in (jidx, port):
@@ -461,7 +461,7 @@ def test_port_trains_on_its_own():
     rng = np.random.default_rng(0)
     x = rng.normal(size=(1500, 32)).astype(np.float32)
     idx = tp.IVFPQIndex(32, 8, N_CELLS, initial_size=64,
-                        scan_cache_dtype="none")
+                        scan_cache_dtype="none", device=CPU)
     idx.train(x.T)
     ids = idx.add(x.T).numpy()
     idx.n_probe = 8

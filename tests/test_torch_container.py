@@ -8,7 +8,7 @@ import pytest
 from torchpq_tpu.container import CellContainer as JaxCells
 import torchpq_tpu_torch as tp
 
-from _torch_helpers import to_np
+from _torch_helpers import CPU, to_np
 
 
 def _state_equal(jc, tc):
@@ -24,7 +24,7 @@ def _state_equal(jc, tc):
 def test_cell_add_relayout_remove_matches(rng, pack_group):
     kw = dict(code_size=8, n_cells=4, dtype="uint8", initial_size=16,
               pack_group=pack_group)
-    jc, tc = JaxCells(**kw), tp.container.CellContainer(**kw)
+    jc, tc = JaxCells(**kw), tp.container.CellContainer(**kw, device=CPU)
     for c in (jc, tc):
         c.add_aux_store("v", 2, "float32")
     for step, (n, p) in enumerate([(30, [0.7, 0.1, 0.1, 0.1]),
@@ -57,7 +57,8 @@ def test_cell_add_relayout_remove_matches(rng, pack_group):
 
 
 def test_cell_add_user_ids_and_bad_cells(rng):
-    tc = tp.container.CellContainer(code_size=4, n_cells=3, initial_size=16)
+    tc = tp.container.CellContainer(code_size=4, n_cells=3, initial_size=16,
+                                    device=CPU)
     data = rng.integers(0, 256, size=(4, 5)).astype(np.uint8)
     ids = tc.add(data, np.array([0, 1, 2, 0, 1]), ids=[10, 20, 30, 40, 50])
     assert ids.tolist() == [10, 20, 30, 40, 50]

@@ -1,0 +1,201 @@
+"""Port parity of the fused flat scan (the flat plan under
+scan_impl="pallas_flat") and of the scan_impl routing.
+
+The oracle is the JAX package's Pallas kernel (flat_scan_pallas) and its
+glue (_flat_pallas_glue) in interpret mode, on the same inputs. The CUDA
+kernel runs only on a card: tests/test_torch_gpu.py holds it to its plain
+version there."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from torchpq_tpu.index import IVFPQIndex as JaxIndex
+from torchpq_tpu.ops import flat_adc as jflat
+from torchpq_tpu.ops import pallas_flat
+import torchpq_tpu_torch as tp
+from torchpq_tpu_torch.ops import adc as tadc
+from torchpq_tpu_torch.ops import flat_adc as tflat
+from torchpq_tpu_torch.ops import flat_scan as fs
+
+from _torch_helpers import CPU, assert_topk_match, to_t
+
+BIG = fs.BIG
+
+
+def _inputs(rng, *, nq, cap, d=32, live=0.9, dtype=np.float32, ties=False):
+    """Queries, a cache (bf16-representable values when dtype is bf16),
+    its squared norms as penalty with BIG at the dead slots."""
+    q = rng.normal(size=(nq, d)).astype(np.float32)
+    y = rng.normal(size=(cap, d)).astype(np.float32)
+    if ties:  # equal rows inside and across buckets
+        y[100:300] = y[100]
+    if dtype != np.float32:
+        y = np.asarray(jnp.asarray(y).astype(jnp.bfloat16))
+    empty = rng.random(cap) >= live
+    pen = np.where(empty, BIG, (to_t(y).float() ** 2).sum(1).numpy()) \
+        .astype(np.float32)
+    return q, y, pen
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16])
+@pytest.mark.parametrize("distance", ["euclidean", "inner"])
+def test_flat_scan_ref_matches_pallas(rng, dtype, distance):
+    """The raw top R (values and addresses, dead entries included): bf16
+    products are exact in f32, and f32 caches meet bf16(q) in both; only
+    the summation order of the dot products may differ (1e-5)."""
+    q, y, pen = _inputs(rng, nq=16, cap=4096, dtype=dtype, ties=True)
+    v_ref, a_ref = pallas_flat.flat_scan_pallas(
+        jnp.asarray(q), jnp.asarray(y), jnp.asarray(pen), r_keep=16,
+        w=2048, q_tile=8, distance=distance, interpret=True)
+    before = dict(fs.launches)
+    v, a = fs.flat_scan(torch.from_numpy(q), to_t(y), torch.from_numpy(pen),
+                        r_keep=16, euclidean=distance == "euclidean")
+    assert fs.launches == before, "the plain version is not a launch"
+    assert_topk_match(v_ref, a_ref, v, a, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cap,n_live,k", [(4096, None, 10), (5120, None, 10),
+                                          (4096, 5, 10), (5120, None, 32)])
+def test_flat_glue_matches_pallas(rng, cap, n_live, k):
+    """The port's glue against _flat_pallas_glue: cap 5120 pads to the
+    2048-slot window with dead slots; 5 live slots are fewer than k (the
+    dead entries come back -inf / -1); k = 32 is the widest r_keep."""
+    q, y, pen = _inputs(rng, nq=24, cap=cap, dtype=jnp.bfloat16)
+    if n_live is not None:
+        keep = rng.choice(cap, n_live, replace=False)
+        pen = np.where(np.isin(np.arange(cap), keep), pen, BIG) \
+            .astype(np.float32)
+    v_ref, a_ref = jflat._flat_pallas_glue(
+        jnp.asarray(q), jnp.asarray(y), jnp.asarray(pen), k=k,
+        distance="euclidean", interpret=True)
+    v, a = tflat.flat_scan_glue(torch.from_numpy(q), to_t(y),
+                                torch.from_numpy(pen), k=k,
+                                distance="euclidean")
+    assert_topk_match(v_ref, a_ref, v, a, atol=1e-4, rtol=1e-5)
+    if n_live is not None:
+        assert bool((a[:, n_live:] == -1).all())
+        assert bool(torch.isinf(v[:, n_live:]).all())
+
+
+def test_flat_scan_checks_inputs(rng):
+    q, y, pen = _inputs(rng, nq=4, cap=2048)
+    args = [torch.from_numpy(q), to_t(y), torch.from_numpy(pen)]
+    with pytest.raises(ValueError):
+        fs.flat_scan(*args, r_keep=33, euclidean=True)
+    with pytest.raises(TypeError):
+        fs.flat_scan(args[0], args[1].to(torch.int8), args[2], r_keep=8,
+                     euclidean=True)
+    with pytest.raises(TypeError):
+        fs.flat_scan(args[0].double(), *args[1:], r_keep=8, euclidean=True)
+
+
+def _data(seed, n, d=32):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(40, d)).astype(np.float32) * 3
+    x = centers[rng.integers(0, 40, n)] \
+        + rng.normal(size=(n, d)).astype(np.float32)
+    return x.astype(np.float32)
+
+
+_CASES = {}
+
+
+def _case(cache="bfloat16"):
+    """A JAX-trained index carried into the port, the same adds in both;
+    scan_impl="pallas_flat" and approx top-k on both."""
+    if cache in _CASES:
+        return _CASES[cache]
+    x = _data(5, 4000)
+    kw = dict(d_vector=32, n_subvectors=8, n_cells=16, initial_size=64,
+              scan_cache_dtype=cache)
+    jidx = JaxIndex(**kw)
+    jidx.vq_codec.kmeans.max_iter = 6
+    jidx.pq_codec.kmeans.max_iter = 6
+    jidx.train(jnp.asarray(x[:2000].T))
+    port = tp.IVFPQIndex(**kw, device=CPU)
+    port.load_state_dict(jidx.state_dict())
+    jidx.add(jnp.asarray(x.T))
+    port.add(x.T)
+    for idx in (jidx, port):
+        idx.scan_impl, idx.use_approx_topk, idx.n_probe = \
+            "pallas_flat", True, 4
+    _CASES[cache] = (jidx, port, _data(6, 40))
+    return _CASES[cache]
+
+
+def _search_both(jidx, port, q, k=10):
+    v_ref, i_ref = jidx.search(jnp.asarray(q.T), k=k)
+    v, i = port.search(q.T, k=k)
+    return v_ref, i_ref, v, i
+
+
+def test_pallas_flat_index_matches():
+    """The flat plan of an index set to scan_impl="pallas_flat" runs the
+    fused flat scan. The JAX index's flat path does not read the interpret
+    switch, so its side is _search_flat's work done by hand on the JAX
+    index's own flat layout: the glue in interpret mode, then the address
+    and id translation."""
+    jidx, port, q = _case()
+    port.scan_mode = "flat"
+    v, i = port.search(q.T, k=10)
+    assert tflat.LAST_FLAT["impl"] == "flat_scan"
+    dec, nrm, emp, amap, _ = jidx._flat_compacted()
+    pen = jnp.where(emp, jnp.float32(BIG), nrm)
+    v_ref, a_ref = jflat._flat_pallas_glue(
+        jnp.asarray(q), dec, pen, k=10, distance="euclidean",
+        interpret=True)
+    if amap is not None:
+        a_ref = jnp.where(a_ref >= 0, amap[jnp.maximum(a_ref, 0)], -1)
+    i_ref = jnp.where(a_ref >= 0, jidx._address2id[jnp.maximum(a_ref, 0)],
+                      -1)
+    assert_topk_match(v_ref, i_ref, v, i, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("what", ["k>32", "approx off", "int8"])
+def test_pallas_flat_gate_routes(what):
+    """Outside the flat kernel's gate both packages run the sweep: k > 32,
+    exact top-k, or an int8 cache."""
+    jidx, port, q = _case("int8" if what == "int8" else "bfloat16")
+    k = 40 if what == "k>32" else 10
+    for idx in (jidx, port):
+        idx.scan_mode = "flat"
+        idx.use_approx_topk = what != "approx off"
+    out = _search_both(jidx, port, q, k=k)
+    assert tflat.LAST_FLAT["impl"] == "sweep"
+    assert_topk_match(*out, atol=1e-4, rtol=1e-5)
+    for idx in (jidx, port):
+        idx.use_approx_topk = True
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas_flat"])
+def test_scan_impl_sends_probed_plans_to_the_select(impl):
+    """scan_impl "xla" and "pallas_flat" run the probed plans through the
+    XLA select, in both packages alike."""
+    jidx, port, q = _case()
+    for idx in (jidx, port):
+        idx.scan_mode, idx.scan_impl = "cell_major", impl
+    v_ref, i_ref, v, i = _search_both(jidx, port, q)
+    assert tadc.LAST_GATE["impl"] == "block_select"
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), atol=5e-3,
+                               rtol=1e-4)
+    for idx in (jidx, port):
+        idx.scan_impl = "pallas_flat"
+
+
+def test_scan_impl_pallas_raises_outside_the_gate():
+    """scan_impl="pallas" demands the kernel: where the JAX package warns
+    and falls back (k_pair > 64 here), the port raises; inside the gate it
+    runs the kernel's path."""
+    _, port, q = _case()
+    port.scan_mode, port.scan_impl = "cell_major", "pallas"
+    port.search(q.T, k=10)
+    assert tadc.LAST_GATE["impl"] == "block_scan"
+    port.use_approx_topk = False
+    with pytest.raises(ValueError, match="pallas"):
+        port.search(q.T, k=80)
+    port.scan_impl = "triton"
+    with pytest.raises(ValueError, match="scan_impl"):
+        port.search(q.T, k=10)
+    port.scan_impl, port.use_approx_topk = "pallas_flat", True

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (block scan, codes scan) against their plain
-PyTorch versions, on a card.
+"""The port's CUDA kernels (block scan in its bf16/f32 and int8 modes, codes
+scan, flat scan, row gather) against their plain PyTorch versions, on a
+card.
 
 Marked `gpu`: without a CUDA card every test here skips. This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -14,6 +15,9 @@ import torch
 from torchpq_tpu_torch.ops import adc
 from torchpq_tpu_torch.ops import block_scan as bs
 from torchpq_tpu_torch.ops import codes_scan as cs
+from torchpq_tpu_torch.ops import flat_adc
+from torchpq_tpu_torch.ops import flat_scan as fs
+from torchpq_tpu_torch.ops import gather as gr
 
 
 @pytest.fixture
@@ -112,7 +116,7 @@ def test_index_on_card_matches_cpu(cuda):
     x = (centers[rng.integers(0, 40, 6000)]
          + rng.normal(size=(6000, 32))).astype(np.float32)
     q = x[:200] + 0.1 * rng.normal(size=(200, 32)).astype(np.float32)
-    cpu = tp.IVFPQIndex(32, 8, 16, initial_size=32)
+    cpu = tp.IVFPQIndex(32, 8, 16, initial_size=32, device="cpu")
     cpu.train(x[:2000].T)
     gpu = tp.IVFPQIndex(32, 8, 16, initial_size=32, device=cuda)
     gpu.load_state_dict(cpu.state_dict())
@@ -209,7 +213,8 @@ def test_code_domain_index_on_card_matches_cpu(cuda):
     x = (centers[rng.integers(0, 40, 6000)]
          + rng.normal(size=(6000, 32))).astype(np.float32)
     q = x[:200] + 0.1 * rng.normal(size=(200, 32)).astype(np.float32)
-    cpu = tp.IVFPQIndex(32, 8, 16, initial_size=32, scan_cache_dtype="none")
+    cpu = tp.IVFPQIndex(32, 8, 16, initial_size=32, scan_cache_dtype="none",
+                        device="cpu")
     cpu.train(x[:2000].T)
     gpu = tp.IVFPQIndex(32, 8, 16, initial_size=32, scan_cache_dtype="none",
                         device=cuda)
@@ -238,3 +243,145 @@ def test_code_domain_index_on_card_matches_cpu(cuda):
         _assert_pack32_values(v, v_ref, i, i_ref, q, gate["s_eff"])
     assert cs.launches["exact"] == before["exact"] + 2
     assert cs.launches["pack32"] == before["pack32"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack32", [False, True])
+@pytest.mark.parametrize("d,s_eff", [(128, 512), (1024, 512), (32, 256)])
+def test_int8_kernel_matches_plain(cuda, pack32, d, s_eff):
+    """The int8 mode: exact integer products (__dp4a against f32 sums of
+    int8 values, exact below d = 1040) and one fused multiply-add in both
+    (fmaf against the plain version's once-rounded f64), so the outputs are
+    equal bit for bit. d = 1024 is the GIST cache width."""
+    args, scale, q_scale = bs.random_int8_inputs(
+        cuda, s_eff=s_eff, n_blocks=64, nq=500, d=d, cap_total=8192)
+    kw = dict(s_eff=s_eff, k_pair=10, euclidean=True, pack32=pack32,
+              slot_mask=s_eff - 1, scale=scale, q_scale=q_scale)
+    mode = "int8_pack32" if pack32 else "int8_exact"
+    before = bs.launches[mode]
+    got = bs.block_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert bs.launches[mode] == before + 1
+    assert torch.equal(got, bs.block_scan_ref(*args, **kw))
+
+
+@pytest.mark.gpu
+def test_int8_index_on_card_matches_cpu(cuda):
+    """An int8 index (scan_cache_dtype="int8") with the same state and adds
+    on the card and on the CPU: equal int8 rows and scales, and every plan
+    finds the same neighbours, the probed ones through both int8 selects
+    of the kernel on the card."""
+    import numpy as np
+    import torchpq_tpu_torch as tp
+
+    rng = np.random.default_rng(0)
+    centers = rng.normal(size=(40, 32)).astype(np.float32) * 3
+    x = (centers[rng.integers(0, 40, 6000)]
+         + rng.normal(size=(6000, 32))).astype(np.float32)
+    q = x[:200] + 0.1 * rng.normal(size=(200, 32)).astype(np.float32)
+    cpu = tp.IVFPQIndex(32, 8, 16, initial_size=32, scan_cache_dtype="int8",
+                        device="cpu")
+    cpu.train(x[:2000].T)
+    gpu = tp.IVFPQIndex(32, 8, 16, initial_size=32, scan_cache_dtype="int8",
+                        device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    for chunk in (x[:3000], x[3000:]):
+        cpu.add(chunk.T)
+        gpu.add(torch.from_numpy(chunk).to(cuda).T)
+    assert gpu.max_cell_capacity > 32, "the adds must relayout"
+    assert torch.equal(gpu.aux("decoded").cpu(), cpu.aux("decoded"))
+    assert torch.equal(gpu.aux("scale").cpu(), cpu.aux("scale"))
+    before = dict(bs.launches)
+    for mode, approx in (("cell_major", False), ("cell_major", True),
+                         ("query_major", False), ("flat", False)):
+        for idx in (cpu, gpu):
+            idx.scan_mode, idx.use_approx_topk, idx.n_probe = mode, approx, 4
+        v_ref, i_ref = cpu.search(q.T, k=10)
+        v, i = gpu.search(torch.from_numpy(q).to(cuda).T, k=10)
+        shared = sum(len(set(a.tolist()) & set(b.tolist()))
+                     for a, b in zip(i.cpu(), i_ref)) / i_ref.numel()
+        assert shared >= 0.99, (mode, approx, shared)
+        if not approx:
+            # the norms (penalties) are sums in another order on the card
+            torch.testing.assert_close(v.cpu(), v_ref, rtol=1e-3, atol=1e-2)
+            continue
+        assert adc.LAST_GATE["cache"] == "int8"
+        _assert_pack32_values(v, v_ref, i, i_ref, q, adc.LAST_GATE["s_eff"])
+    assert bs.launches["int8_exact"] == before["int8_exact"] + 2
+    assert bs.launches["int8_pack32"] == before["int8_pack32"] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nq,cap,r_keep", [(300, 20000, 16), (1000, 65536, 32),
+                                           (40, 4096, 8)])
+def test_flat_kernel_matches_plain(cuda, dtype, nq, cap, r_keep):
+    """The flat scan against flat_scan_ref: the same bucket candidates and
+    order; scores differ only by the f32 summation order of the plain
+    version's GEMM (bf16 products are exact in f32), so values agree to
+    1e-3 relative and addresses on >= 0.99 of entries (near ties may
+    swap). cap 20000 is not a multiple of the 2048-slot window."""
+    args = fs.random_flat_inputs(cuda, nq=nq, cap=cap, dtype=dtype)
+    before = fs.launches["flat"]
+    v, a = fs.flat_scan(*args, r_keep=r_keep, euclidean=True)
+    torch.cuda.synchronize()
+    assert fs.launches["flat"] == before + 1
+    v_ref, a_ref = fs.flat_scan_ref(*args, r_keep=r_keep, euclidean=True)
+    torch.testing.assert_close(v, v_ref, rtol=1e-3, atol=1e-3)
+    assert (a == a_ref).float().mean().item() >= 0.99
+
+
+@pytest.mark.gpu
+def test_pallas_flat_index_on_card(cuda):
+    """scan_impl="pallas_flat": the flat plan launches the flat kernel on
+    the card and finds what the same index finds on the CPU (the plain
+    version; only the f32 sum order differs); scan_impl="pallas" raises on
+    the card where the block scan's gate fails (k_pair > 64)."""
+    import numpy as np
+    import torchpq_tpu_torch as tp
+
+    rng = np.random.default_rng(1)
+    centers = rng.normal(size=(40, 32)).astype(np.float32) * 3
+    x = (centers[rng.integers(0, 40, 6000)]
+         + rng.normal(size=(6000, 32))).astype(np.float32)
+    q = x[:300] + 0.1 * rng.normal(size=(300, 32)).astype(np.float32)
+    cpu = tp.IVFPQIndex(32, 8, 16, initial_size=32, device="cpu")
+    cpu.train(x[:2000].T)
+    gpu = tp.IVFPQIndex(32, 8, 16, initial_size=32, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    cpu.add(x.T)
+    gpu.add(torch.from_numpy(x).to(cuda).T)
+    for idx in (cpu, gpu):
+        idx.scan_mode, idx.scan_impl, idx.use_approx_topk = \
+            "flat", "pallas_flat", True
+    v_ref, i_ref = cpu.search(q.T, k=10)
+    before = fs.launches["flat"]
+    v, i = gpu.search(torch.from_numpy(q).to(cuda).T, k=10)
+    assert fs.launches["flat"] == before + 1
+    assert flat_adc.LAST_FLAT["impl"] == "flat_scan"
+    shared = sum(len(set(a.tolist()) & set(b.tolist()))
+                 for a, b in zip(i.cpu(), i_ref)) / i_ref.numel()
+    assert shared >= 0.99, shared
+    torch.testing.assert_close(v.cpu(), v_ref, rtol=1e-3, atol=1e-2)
+    gpu.scan_mode, gpu.scan_impl, gpu.use_approx_topk = \
+        "cell_major", "pallas", False
+    with pytest.raises(ValueError, match="pallas"):
+        gpu.search(torch.from_numpy(q).to(cuda).T, k=80)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("d", [128, 3])
+def test_gather_kernel_matches_plain(cuda, dtype, idx_dtype, d):
+    """Bit for bit, out-of-range indices clipped; d = 3 rows are too narrow
+    for 16-byte copies."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    table = (torch.randn(1000, d, generator=g, device=cuda) * 50).to(dtype)
+    idx = torch.randint(-50, 1100, (4096,), generator=g, device=cuda,
+                        dtype=idx_dtype)
+    before = gr.launches["gather"]
+    got = gr.gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert gr.launches["gather"] == before + 1
+    assert torch.equal(got, gr.gather_rows_ref(table, idx))

@@ -10,7 +10,7 @@ import torch
 from torchpq_tpu.index import IVFPQIndex as JaxIndex
 import torchpq_tpu_torch as tp
 
-from _torch_helpers import assert_topk_match, overlap, to_np
+from _torch_helpers import CPU, assert_topk_match, overlap, to_np
 
 D, M, N_CELLS = 32, 8, 16
 
@@ -38,7 +38,7 @@ def _case(distance):
     jidx.vq_codec.kmeans.max_iter = 8
     jidx.pq_codec.kmeans.max_iter = 8
     jidx.train(jnp.asarray(x[:2000].T))
-    port = tp.IVFPQIndex(**kw)
+    port = tp.IVFPQIndex(**kw, device=CPU)
     port.load_state_dict(jidx.state_dict())
     assert port.is_trained and port.n_items == 0
     for chunk in (x[:1500], x[1500:]):
@@ -153,7 +153,7 @@ def test_remove_then_search_matches(slice_case):
 def test_jax_saved_npz_searches_alike(slice_case, tmp_path):
     _, jidx, _, q = slice_case
     jidx.save(tmp_path / "jax_index.npz")
-    port = tp.IVFPQIndex(D, M, N_CELLS, initial_size=64)
+    port = tp.IVFPQIndex(D, M, N_CELLS, initial_size=64, device=CPU)
     port.load(tmp_path / "jax_index.npz")
     for idx in (jidx, port):
         idx.n_probe = 4
@@ -169,7 +169,7 @@ def test_port_trains_on_its_own():
     its own flat ADC ceiling as n_probe grows."""
     x = _data(7, 3000)
     q = _data(8, 50)
-    idx = tp.IVFPQIndex(D, M, N_CELLS, initial_size=64, seed=1)
+    idx = tp.IVFPQIndex(D, M, N_CELLS, initial_size=64, seed=1, device=CPU)
     idx.train(x.T)
     idx.add(x.T)
     d2 = ((q[:, None, :] - x[None]) ** 2).sum(-1)
@@ -187,7 +187,7 @@ def test_port_trains_on_its_own():
 
 
 @pytest.mark.parametrize("kwargs,attr", [
-    (dict(scan_cache_dtype="int8"), None),
+    (dict(scan_cache_dtype="int8", distance="manhattan"), None),
     (dict(scan_cache_dtype="none", n_bits=4), None),
     (dict(n_bits=4), None),
     (dict(pq_use_residual=True), None),
@@ -201,7 +201,8 @@ def test_port_trains_on_its_own():
 ])
 def test_unported_settings_raise(kwargs, attr):
     def make():
-        return tp.IVFPQIndex(D, M, N_CELLS, initial_size=64, **kwargs)
+        return tp.IVFPQIndex(D, M, N_CELLS, initial_size=64, device=CPU,
+                             **kwargs)
     if attr is None:
         with pytest.raises(NotImplementedError, match="ROADMAP A"):
             make()

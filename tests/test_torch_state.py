@@ -11,7 +11,7 @@ from torchpq_tpu.ops import adc as jadc
 import torchpq_tpu_torch as tp
 from torchpq_tpu_torch.ops.block_scan import sortable_i32, sortable_i32_to_f32
 
-from _torch_helpers import to_np
+from _torch_helpers import CPU, to_np
 
 
 def _floats(rng):
@@ -72,7 +72,7 @@ def _assert_states_equal(a, b):
 
 def test_npz_round_trip_jax_port_jax(jax_index, tmp_path):
     jax_index.save(tmp_path / "a.npz")
-    port = tp.IVFPQIndex(32, 8, 8, initial_size=32)
+    port = tp.IVFPQIndex(32, 8, 8, initial_size=32, device=CPU)
     port.load(tmp_path / "a.npz")
     assert port.aux("decoded").dtype == torch.bfloat16
     assert port.n_items == jax_index.n_items
@@ -95,7 +95,7 @@ def test_load_state_dict_in_process(jax_index, as_uint16):
         state = {k: (v.view(np.uint16) if isinstance(v, np.ndarray)
                      and v.dtype.name == "bfloat16" else v)
                  for k, v in state.items()}
-    port = tp.IVFPQIndex(32, 8, 8, initial_size=32)
+    port = tp.IVFPQIndex(32, 8, 8, initial_size=32, device=CPU)
     port.load_state_dict(state)
     dec = port.aux("decoded")
     assert dec.dtype == torch.bfloat16

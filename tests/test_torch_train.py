@@ -15,6 +15,8 @@ import torchpq_tpu_torch as tp
 from torchpq_tpu_torch.ops import max_sim as tms
 from torchpq_tpu_torch.ops import segment_ops as tseg
 
+from _torch_helpers import CPU
+
 
 @pytest.mark.parametrize("distance", ["euclidean", "inner", "cosine"])
 def test_max_sim_matches(rng, distance):
@@ -73,7 +75,7 @@ def test_kmeans_same_init_matches(rng, distance):
     kw = dict(n_clusters=16, max_iter=20, tol=1e-4, distance=distance)
     ref = JaxKMeans(**kw)
     l_ref = ref.fit(jnp.asarray(x), centroids=jnp.asarray(init))
-    port = tp.clustering.KMeans(**kw)
+    port = tp.clustering.KMeans(**kw, device=CPU)
     lab = port.fit(x, centroids=init)
     np.testing.assert_allclose(port._centroids.numpy(),
                                np.asarray(ref._centroids), atol=1e-5)
@@ -88,7 +90,7 @@ def test_multikmeans_same_init_matches(rng):
     kw = dict(n_clusters=64, max_iter=10, tol=1e-4)
     ref = JaxMultiKMeans(**kw)
     l_ref = ref.fit(jnp.asarray(x), centroids=jnp.asarray(init))
-    port = tp.clustering.MultiKMeans(**kw)
+    port = tp.clustering.MultiKMeans(**kw, device=CPU)
     lab = port.fit(x, centroids=init)
     np.testing.assert_allclose(port._centroids.numpy(),
                                np.asarray(ref._centroids), atol=1e-5)
@@ -101,12 +103,14 @@ def test_kmeans_own_init_trains(rng):
     centers = rng.normal(size=(8, 16)).astype(np.float32) * 10
     x = (centers[rng.integers(0, 8, 2000)]
          + rng.normal(size=(2000, 16)).astype(np.float32)).T
-    km = tp.clustering.KMeans(n_clusters=8, max_iter=50, init_mode="kmeans++")
+    km = tp.clustering.KMeans(n_clusters=8, max_iter=50, init_mode="kmeans++",
+                              device=CPU)
     km.fit(x)
     d2 = ((x.T[:, None, :] - km._centroids[0].numpy()[None]) ** 2) \
         .sum(-1).min(1)
     assert d2.mean() < 16 * 4, d2.mean()
-    fits = [tp.clustering.KMeans(n_clusters=8, n_redo=2, seed=3).fit(x)
+    fits = [tp.clustering.KMeans(n_clusters=8, n_redo=2, seed=3,
+                                 device=CPU).fit(x)
             for _ in range(2)]
     np.testing.assert_array_equal(fits[0].numpy(), fits[1].numpy())
 
@@ -115,7 +119,7 @@ def test_pq_codes_match(rng):
     x = rng.normal(size=(32, 3000)).astype(np.float32)
     ref = JaxPQ(d_vector=32, n_subvectors=8, max_iter=5)
     ref.train(jnp.asarray(x))
-    port = tp.codec.PQCodec(d_vector=32, n_subvectors=8)
+    port = tp.codec.PQCodec(d_vector=32, n_subvectors=8, device=CPU)
     port.load_state_dict(ref.state_dict())
     assert port.is_trained
     xs = rng.normal(size=(32, 2000)).astype(np.float32)
@@ -133,7 +137,8 @@ def test_pq_train_same_init_matches(rng):
     init = x.reshape(4, 4, -1)[:, :, :256].copy()
     ref = JaxPQ(d_vector=16, n_subvectors=4, max_iter=4)
     ref.train(jnp.asarray(x), centroids=jnp.asarray(init))
-    port = tp.codec.PQCodec(d_vector=16, n_subvectors=4, max_iter=4)
+    port = tp.codec.PQCodec(d_vector=16, n_subvectors=4, max_iter=4,
+                            device=CPU)
     port.train(x, centroids=init)
     np.testing.assert_allclose(port.codebook_internal.numpy(),
                                np.asarray(ref.codebook_internal), atol=1e-5)

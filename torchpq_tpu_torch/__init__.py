@@ -6,6 +6,7 @@ package's public API, state layout and results. The JAX package `torchpq_tpu`
 is the reference; this package never imports it or JAX. Each TPU kernel on
 the ported path is a hand-written CUDA kernel under `csrc/`, built at first
 use by `_build.py`; on CPU tensors its plain PyTorch version runs instead.
+Objects live on the card unless they are built with device="cpu".
 """
 
 from . import config

@@ -26,14 +26,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 # ctypes signatures of the C entry points (pointers as c_void_p, so a 64-bit
 # device address is never cut to a 32-bit int)
 _SIGNATURES = {
     "torchpq_block_scan": ([_P] * 8 + [_I] * 11 + [_P], _I),
-    "torchpq_block_scan_smem": ([_I] * 5, ctypes.c_longlong),
+    "torchpq_block_scan_smem": ([_I] * 5, _L),
+    "torchpq_block_scan_int8": ([_P] * 10 + [_I] * 10 + [_P], _I),
+    "torchpq_block_scan_int8_smem": ([_I] * 4, _L),
     "torchpq_codes_scan": ([_P] * 9 + [_I] * 12 + [_P], _I),
-    "torchpq_codes_scan_smem": ([_I] * 4, ctypes.c_longlong),
+    "torchpq_codes_scan_smem": ([_I] * 4, _L),
+    "torchpq_flat_scan": ([_P] * 7 + [_I] * 9 + [_P], _I),
+    "torchpq_flat_scan_smem": ([_I] * 3, _L),
+    "torchpq_gather_rows": ([_P] * 3 + [_L] * 3 + [_I, _P], _I),
 }
 
 

@@ -31,6 +31,20 @@
 // every window element read from memory feeds p_tile (128) FMAs, so the
 // kernel is bound by f32 FMA issue and shared-memory bandwidth, not by HBM;
 // tensor cores (wgmma) and TMA are for later versions.
+//
+// int8 mode (the int8 scan-cache tier, entry point torchpq_block_scan_int8):
+// the cache rows and query rows are int8 with per-slot and per-query f32
+// scales, and
+//
+//   score = fmaf(float(sum_k q8[p,k] * y8[j,k]), (c * q_scale[p]) * scale[j],
+//                -pen)
+//
+// (scan_common.cuh:scan_rows_int8). The window moves 1 byte per element, a
+// quarter of the f32 tier's and half the bf16 tier's, and __dp4a does four
+// int8 products per instruction; the bound is the same per-prober rate of
+// products as above, divided by four.
+
+#include <cstdint>
 
 #include "scan_common.cuh"
 
@@ -66,6 +80,39 @@ struct DecodedWindow {
   }
 };
 
+// A window of int8 cache rows and their scales: column c is slot c.
+struct Int8Window {
+  const signed char* rows;  // decoded + s0 * d
+  const float* pen;         // penalty + s0
+  const float* scale;       // scale + s0
+  int d, o0, o1;
+
+  __device__ __forceinline__ void load(int ts, int nrow, signed char* y_s,
+                                       float* pen_s, float* sc_s,
+                                       int* slot_s) const {
+    const int t = threadIdx.x;
+    const int pt = blockDim.x;
+    const signed char* src = rows + (size_t)ts * d;
+    for (int i = 16 * t; i < TS * d; i += 16 * pt) {  // d % 16 == 0
+      *reinterpret_cast<int4*>(y_s + i) =
+          (i / d) < nrow ? __ldg(reinterpret_cast<const int4*>(src + i))
+                         : make_int4(0, 0, 0, 0);
+    }
+    if (t < TS) {
+      const int j = ts + t;
+      float pv = 0.0f;
+      float sv = 0.0f;
+      if (t < nrow) {
+        pv = pen[j] + ((j >= o0 && j < o1) ? 0.0f : big_penalty());
+        sv = scale[j];
+      }
+      pen_s[t] = pv;
+      sc_s[t] = sv;
+      slot_s[t] = j;
+    }
+  }
+};
+
 template <typename T, bool PACK, int KMAX>
 __global__ void block_scan_kernel(
     const T* __restrict__ qtable, const int* __restrict__ probers,
@@ -80,6 +127,37 @@ __global__ void block_scan_kernel(
                              off[b], off[b] + capb[b]};
   scan_block<T, PACK, KMAX>(win, smem_raw, qtable, probers, out, p_tile, d,
                             s_eff, k_pair, factor, slot_mask, n_groups, s0);
+}
+
+template <bool PACK, int KMAX>
+__global__ void block_scan_int8_kernel(
+    const signed char* __restrict__ qtable, const float* __restrict__ q_scale,
+    const int* __restrict__ probers, const int* __restrict__ start_c,
+    const int* __restrict__ off, const int* __restrict__ capb,
+    const float* __restrict__ penalty, const float* __restrict__ scale,
+    const signed char* __restrict__ decoded, int* __restrict__ out,
+    int p_tile, int d, int s_eff, int k_pair, float factor, int slot_mask,
+    int n_groups) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int b = blockIdx.x;
+  const int s0 = start_c[b];
+  const Int8Window win{decoded + (size_t)s0 * d, penalty + s0, scale + s0, d,
+                       off[b], off[b] + capb[b]};
+  const int pt = blockDim.x;
+  const int t = threadIdx.x;
+  const size_t row = (size_t)b * p_tile + blockIdx.y * pt + t;
+  const int pr = probers[row];
+  const int prow = pr < 0 ? 0 : pr;  // padding rows score query 0, never read
+  const float qmul = factor * q_scale[prow];
+  if constexpr (PACK) {
+    PackSelect sel(int8_best(smem_raw, pt, d) + t, pt, n_groups, slot_mask);
+    scan_rows_int8(win, smem_raw, qtable, prow, qmul, d, s_eff, sel);
+    sel.write(out + row * k_pair, k_pair);
+  } else {
+    ExactSelect<KMAX> sel;
+    scan_rows_int8(win, smem_raw, qtable, prow, qmul, d, s_eff, sel);
+    sel.write(out + row * 2 * k_pair, k_pair, s0);
+  }
 }
 
 template <typename T, bool PACK, int KMAX>
@@ -110,6 +188,22 @@ int dispatch(const void* qtable, const int* probers, const int* start_c,
   if (k_pair <= 32) return launch<T, false, 32>(TPQ_ARGS);
   return launch<T, false, 64>(TPQ_ARGS);
 #undef TPQ_ARGS
+}
+
+template <bool PACK, int KMAX>
+int launch_int8(const void* qtable, const float* q_scale, const int* probers,
+                const int* start_c, const int* off, const int* capb,
+                const float* penalty, const float* scale, const void* decoded,
+                int* out, int n_blocks, int p_tile, int d, int s_eff,
+                int k_pair, float factor, int slot_mask, int n_groups, int pt,
+                cudaStream_t stream) {
+  const size_t smem = int8_smem_bytes(pt, d, PACK, n_groups);
+  return launch_kernel(block_scan_int8_kernel<PACK, KMAX>,
+                       dim3(n_blocks, p_tile / pt), pt, smem, stream,
+                       static_cast<const signed char*>(qtable), q_scale,
+                       probers, start_c, off, capb, penalty, scale,
+                       static_cast<const signed char*>(decoded), out, p_tile,
+                       d, s_eff, k_pair, factor, slot_mask, n_groups);
 }
 
 }  // namespace
@@ -146,4 +240,39 @@ extern "C" long long torchpq_block_scan_smem(int pt, int d, int pack32,
                                              int n_groups, int is_bf16) {
   return (long long)core_smem_bytes(pt, d, pack32, n_groups,
                                     is_bf16 ? 2 : 4);
+}
+
+// int8 mode. qtable [nq, d] int8, q_scale [nq] f32, scale [capacity] f32,
+// decoded [capacity, d] int8 (d % 16 == 0, rows 16-byte aligned); the other
+// arguments as torchpq_block_scan's. Returns 0 or the CUDA error code.
+extern "C" int torchpq_block_scan_int8(
+    const void* qtable, const float* q_scale, const int* probers,
+    const int* start_c, const int* off, const int* capb,
+    const float* penalty, const float* scale, const void* decoded, int* out,
+    int n_blocks, int p_tile, int d, int s_eff, int k_pair, int euclidean,
+    int pack32, int slot_mask, int n_groups, int pt, void* stream) {
+  if (n_blocks <= 0 || pt < TS || p_tile % pt || d <= 0 || d % 16 ||
+      k_pair < 1 || k_pair > 64 || k_pair > s_eff ||
+      (pack32 && n_groups < k_pair) ||
+      reinterpret_cast<uintptr_t>(qtable) % 16 ||
+      reinterpret_cast<uintptr_t>(decoded) % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const float factor = euclidean ? 2.0f : 1.0f;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TPQ_ARGS                                                           \
+  qtable, q_scale, probers, start_c, off, capb, penalty, scale, decoded,   \
+      out, n_blocks, p_tile, d, s_eff, k_pair, factor, slot_mask,          \
+      n_groups, pt, st
+  if (pack32) return launch_int8<true, 1>(TPQ_ARGS);
+  if (k_pair <= 16) return launch_int8<false, 16>(TPQ_ARGS);
+  if (k_pair <= 32) return launch_int8<false, 32>(TPQ_ARGS);
+  return launch_int8<false, 64>(TPQ_ARGS);
+#undef TPQ_ARGS
+}
+
+// Dynamic shared memory one int8 CTA of `pt` probers needs.
+extern "C" long long torchpq_block_scan_int8_smem(int pt, int d, int pack32,
+                                                  int n_groups) {
+  return (long long)int8_smem_bytes(pt, d, pack32, n_groups);
 }

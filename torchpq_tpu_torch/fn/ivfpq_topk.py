@@ -1,7 +1,8 @@
 """IVFPQ scan facade (counterpart of torchpq_tpu/fn/ivfpq_topk.py): picks
 the query-major scan for small batches and the cell-major scan for large
 ones, with explicit overrides; a code-domain index's raw codes take the
-code-domain cell-major scan."""
+code-domain cell-major scan, and an int8 cache (per-slot scales given)
+the cell-major scan."""
 
 from ..ops import adc
 from ..ops.onehot_adc import scan_cell_major_codes
@@ -19,12 +20,15 @@ class IVFPQTopk:
 
     def topk(self, query, cells, probe_mask, decoded, norms, is_empty,
              cell_start, cell_capacity, *, k, distance, s_max, mode=None,
-             approx=None, pq_codebook=None, m=None):
+             approx=None, pq_codebook=None, m=None, scales=None,
+             impl="auto"):
         """Returns (values [nq, k] f32, addresses [nq, k] int32; -1 pads).
         With explicit cells, "flat" and "auto" pick by batch size. When
         `decoded` is the raw uint8 codes (scan_cache_dtype="none"), pass
         `pq_codebook`: every mode runs the code-domain cell-major scan, with
-        `m` the per-slot code width of the packed [cap/g, g*m] layout."""
+        `m` the per-slot code width of the packed [cap/g, g*m] layout. An
+        int8 cache passes its per-slot `scales` and always runs cell-major.
+        `impl` is the index's scan_impl."""
         mode = mode or self.mode
         approx = self.approx if approx is None else approx
         if pq_codebook is not None:
@@ -32,10 +36,12 @@ class IVFPQTopk:
                 query, cells, probe_mask, decoded, norms, is_empty,
                 cell_start, cell_capacity, pq_codebook, k=k,
                 distance=distance, s_max=s_max, n_cells=self.n_cells,
-                p_tile=self.p_tile, approx=approx, m=m)
+                p_tile=self.p_tile, approx=approx, m=m, impl=impl)
         if mode in ("auto", "flat"):
             mode = ("query_major" if query.shape[0] < self.batch_threshold
                     else "cell_major")
+        if scales is not None:
+            mode = "cell_major"  # the int8 cache path
         if mode == "query_major":
             return adc.scan_query_major(
                 query, cells, probe_mask, decoded, norms, is_empty,
@@ -44,4 +50,5 @@ class IVFPQTopk:
         return adc.scan_cell_major(
             query, cells, probe_mask, decoded, norms, is_empty, cell_start,
             cell_capacity, k=k, distance=distance, s_max=s_max,
-            n_cells=self.n_cells, p_tile=self.p_tile, approx=approx)
+            n_cells=self.n_cells, p_tile=self.p_tile, approx=approx,
+            scales=scales, impl=impl)

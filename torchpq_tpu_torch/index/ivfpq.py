@@ -14,6 +14,17 @@ codes (m B per slot) and the norms (4 B). Its probed plans run the codes
 scan (ops/onehot_adc.py:scan_cell_major_codes) and its flat plan decodes
 chunks of codes on the fly (flat_decode_scan).
 
+scan_cache_dtype="int8" is the int8 tier: the decoded cache holds each row
+quantized to int8 (d_cache B per slot) beside its f32 dequant scale (the
+"scale" aux store) and norm. Every probed plan runs the cell-major scan in
+the block scan's int8 mode, and the flat plan sweeps the integer products.
+
+`scan_impl` picks the scan implementation as in the JAX package: "auto"
+(the kernels wherever their gates admit), "pallas" (demand the kernel: the
+port raises where the JAX package warns and falls back), "xla" (the
+probed plans through the XLA select) and "pallas_flat" (the flat plan
+through the fused flat-scan kernel, the probed plans as "xla").
+
 Settings the JAX package supports but this port does not yet raise
 NotImplementedError naming their ROADMAP item; none silently takes another
 path.
@@ -31,7 +42,8 @@ from ..fn.ivfpq_topk import IVFPQTopk
 from ..ops import adc
 from ..ops.block_scan import BIG
 from ..ops.codes_scan import codes_kernel_static_gate
-from ..ops.flat_adc import flat_adc_scan
+from ..ops.flat_adc import flat_adc_auto
+from ..ops.gather import gather_rows
 from ..ops.onehot_adc import flat_decode_scan, scan_cell_major_codes
 
 
@@ -58,10 +70,11 @@ def _coarse_probe(query, coarse_codebook, temperature, *, n_probe,
     return topk_sims, cells.int(), mask
 
 
-def _compact_cells_cache(decoded, norms, is_empty, cell_start, new_start,
-                         n_pad):
+def _compact_cells_cache(decoded, norms, scales, is_empty, cell_start,
+                         new_start, n_pad):
     """Pack each cell's live rows into a contiguous segment of a fresh
-    [n_pad, d] cache starting at new_start[c] (ivfpq.py:122-155).
+    [n_pad, d] cache starting at new_start[c] (ivfpq.py:122-155), with
+    their norms and (int8 tier, else None) scales.
     addr_map[i] = storage address of compact row i (-1 on padding)."""
     dev = decoded.device
     cap = decoded.shape[0]
@@ -73,26 +86,29 @@ def _compact_cells_cache(decoded, norms, is_empty, cell_start, new_start,
                         torch.cumsum(live, 0)])
     rank = prefix[aidx] - prefix[cell_start.long()[cell_of]]
     dest = torch.where(is_empty, n_pad, new_start.long()[cell_of] + rank)
-    return _gather_compact(decoded, norms, aidx, dest, n_pad)
+    return _gather_compact(decoded, norms, scales, aidx, dest, n_pad)
 
 
-def _compact_flat_cache(decoded, norms, is_empty, n_pad):
+def _compact_flat_cache(decoded, norms, is_empty, n_pad, scales=None):
     """Live rows in address order, padded to n_pad (ivfpq.py:158-174)."""
     aidx = torch.nonzero(~is_empty).flatten()
     dest = torch.arange(aidx.shape[0], device=aidx.device)
-    return _gather_compact(decoded, norms, aidx, dest, n_pad)
+    return _gather_compact(decoded, norms, scales, aidx, dest, n_pad)
 
 
-def _gather_compact(decoded, norms, src, dest, n_pad):
-    """Rows src -> positions dest (n_pad drops) of a fresh cache."""
+def _gather_compact(decoded, norms, scales, src, dest, n_pad):
+    """Rows src -> positions dest (n_pad drops) of a fresh cache ->
+    (decoded, norms, is_empty, addr_map, scales or None)."""
     addr_map = torch.full((n_pad + 1,), -1, dtype=torch.long,
                           device=decoded.device)
     addr_map[dest] = src
     addr_map = addr_map[:n_pad]
     valid = addr_map >= 0
     safe = addr_map.clamp(min=0)
-    return (decoded[safe].contiguous(), norms[safe].contiguous(), ~valid,
-            addr_map.int())
+    sc = None if scales is None else scales[safe].contiguous()
+    # the row gather is the port's gather_rows kernel on the card
+    return (gather_rows(decoded.contiguous(), safe), norms[safe].contiguous(),
+            ~valid, addr_map.int(), sc)
 
 
 def _translate(addr, addr_map, address2id):
@@ -104,20 +120,22 @@ def _translate(addr, addr_map, address2id):
 
 
 def _search_flat(q, decoded, norms, is_empty, addr_map, address2id, *, k,
-                 distance):
-    """Flat plan: exhaustive sweep + address translation."""
+                 distance, approx, impl, scales=None):
+    """Flat plan: exhaustive sweep (or the fused flat-scan kernel) +
+    address translation."""
     penalty = torch.where(is_empty, BIG,
                           norms.float() if distance == "euclidean" else 0.0)
-    vals, addr = flat_adc_scan(q, decoded, penalty.float(), k=k,
-                               distance=distance)
+    vals, addr = flat_adc_auto(q, decoded, penalty.float(), k=k,
+                               distance=distance, approx=approx, impl=impl,
+                               scales=scales)
     ids, addr = _translate(addr, addr_map, address2id)
     return vals, ids, addr
 
 
 def _search_full(q, coarse_codebook, decoded, norms, is_empty, cell_start,
                  cell_capacity, address2id, temperature, *, k, n_probe,
-                 use_smart, distance, s_max, n_cells, mode, approx,
-                 addr_map=None):
+                 use_smart, distance, s_max, n_cells, mode, approx, impl,
+                 scales=None, addr_map=None):
     """Probed plans: coarse probe + scan + id translation."""
     _, cells, mask = _coarse_probe(q, coarse_codebook, temperature,
                                    n_probe=n_probe, use_smart=use_smart)
@@ -129,7 +147,7 @@ def _search_full(q, coarse_codebook, decoded, norms, is_empty, cell_start,
         vals, addr = adc.scan_cell_major(
             q, cells, mask, decoded, norms, is_empty, cell_start,
             cell_capacity, k=k, distance=distance, s_max=s_max,
-            n_cells=n_cells, approx=approx)
+            n_cells=n_cells, approx=approx, scales=scales, impl=impl)
     ids, addr = _translate(addr, addr_map, address2id)
     return vals, ids, addr
 
@@ -149,7 +167,7 @@ def _search_flat_codes(q, codes, norms, is_empty, addr_map, address2id,
 def _search_full_codes(q, coarse_codebook, codes, norms, is_empty,
                        cell_start, cell_capacity, address2id, pq_codebook,
                        temperature, *, k, n_probe, use_smart, distance, s_max,
-                       n_cells, approx, m):
+                       n_cells, approx, m, impl):
     """Code-domain probed plans: coarse probe + codes scan + id
     translation."""
     _, cells, mask = _coarse_probe(q, coarse_codebook, temperature,
@@ -157,7 +175,7 @@ def _search_full_codes(q, coarse_codebook, codes, norms, is_empty,
     vals, addr = scan_cell_major_codes(
         q, cells, mask, codes, norms, is_empty, cell_start, cell_capacity,
         pq_codebook, k=k, distance=distance, s_max=s_max, n_cells=n_cells,
-        approx=approx, m=m)
+        approx=approx, m=m, impl=impl)
     ids, addr = _translate(addr, None, address2id)
     return vals, ids, addr
 
@@ -171,11 +189,10 @@ class IVFPQIndex(CellContainer):
                  pack_ingest=None):
         assert d_vector % n_subvectors == 0
         cache_dtype = str(scan_cache_dtype or config.SCAN_CACHE_DTYPE)
-        if cache_dtype == "int8":
-            raise NotImplementedError(
-                "scan_cache_dtype='int8' is not ported yet (ROADMAP A9)")
         # scan_cache_dtype="none": no decoded cache; scans read the codes
         self._code_domain = cache_dtype == "none"
+        # scan_cache_dtype="int8": int8 cache rows with per-slot scales
+        self._int8_cache = cache_dtype == "int8"
         if n_bits != 8:
             raise NotImplementedError("n_bits=4 is not ported yet "
                                       "(ROADMAP A12)")
@@ -213,6 +230,8 @@ class IVFPQIndex(CellContainer):
         self._smart_probing_temperature = 30.0
         self._use_approx_topk = False
         self.scan_mode = scan_mode
+        # "auto", "pallas", "xla" or "pallas_flat" (ops/adc.py:IMPLS)
+        self.scan_impl = "auto"
         # deep-k / grouping / spill settings of the JAX package; only their
         # off values are ported (checked at add / search)
         self.spill_cells = 1
@@ -228,6 +247,9 @@ class IVFPQIndex(CellContainer):
         if not self._code_domain:
             self.add_aux_store("decoded", self._d_cache, cache_dtype)
         self.add_aux_store("norm", 1, "float32")
+        if self._int8_cache:
+            # per-slot symmetric dequant scale of the int8 cache rows
+            self.add_aux_store("scale", 1, "float32")
         # the codec hyperparameters of the reference (IVFPQIndex.py:63-79)
         self.register_module("vq_codec", VQCodec(
             n_clusters=n_cells, n_redo=1, max_iter=15, tol=1e-4,
@@ -242,7 +264,8 @@ class IVFPQIndex(CellContainer):
         self._compact_cache = None
         self.scan_compact = "auto"
         self.set_aux_rebuilder(
-            ("norm",) if self._code_domain else ("decoded", "norm"),
+            ("norm",) if self._code_domain else
+            ("decoded", "norm") + (("scale",) if self._int8_cache else ()),
             self._rebuild_scan_cache)
 
     # ---- tunables ----
@@ -313,23 +336,31 @@ class IVFPQIndex(CellContainer):
         self.pq_codec.train(x)
 
     def _rebuild_scan_cache(self):
-        """Recompute decoded/norm (norm only in the code domain) from the
-        canonical codes in chunks. Never-written slots decode to garbage;
-        every reader masks them."""
+        """Recompute decoded/norm(/scale) (norm only in the code domain)
+        from the canonical codes in chunks; the int8 tier quantizes each
+        decoded chunk (ivfpq.py:177-210). Never-written slots decode to
+        garbage; every reader masks them."""
         cap, d = self._capacity, self._d_cache
         chunk = min(cap, util.next_pow2(max(16384, (1 << 27) // max(d, 1))))
         dec = None if self._code_domain else torch.zeros(
             (cap, d), dtype=self._aux["decoded"][1], device=self.device)
         nrm = torch.zeros((cap, 1), dtype=torch.float32, device=self.device)
+        sc = torch.zeros((cap, 1), dtype=torch.float32, device=self.device) \
+            if self._int8_cache else None
         codes = self._codes_view()
         for c0 in range(0, cap, chunk):
             db = self._decode_stored(codes[c0:c0 + chunk])
             nrm[c0:c0 + chunk, 0] = torch.sum(db * db, dim=-1)
+            if sc is not None:
+                db, sc[c0:c0 + chunk, 0] = util.int8_quantize_rows(db)
             if dec is not None:
                 dec[c0:c0 + chunk] = util.pad_cols(db, d).to(dec.dtype)
         if dec is None:
             return {"norm": nrm}
-        return {"decoded": dec, "norm": nrm}
+        out = {"decoded": dec, "norm": nrm}
+        if sc is not None:
+            out["scale"] = sc
+        return out
 
     @property
     def _scan_codebook(self):
@@ -391,7 +422,11 @@ class IVFPQIndex(CellContainer):
         decoded = self.pq_codec.decode_nd(codes_nm)
         norms = torch.sum(decoded * decoded, dim=-1, keepdim=True)
         aux_rows = {"norm": norms}
-        if not self._code_domain:
+        if self._int8_cache:
+            q, scale = util.int8_quantize_rows(decoded)
+            aux_rows["decoded"] = util.pad_cols(q, self._d_cache)
+            aux_rows["scale"] = scale[:, None]
+        elif not self._code_domain:
             aux_rows["decoded"] = util.pad_cols(decoded, self._d_cache)
         return super().add(codes_nm.T, cells, ids=ids,
                            return_address=return_address, aux_rows=aux_rows)
@@ -407,12 +442,17 @@ class IVFPQIndex(CellContainer):
     def _coarse_cb(self):
         return self.vq_codec.kmeans._centroids[0]
 
+    def _scales(self):
+        """The int8 tier's per-slot scales [cap] (None in other tiers)."""
+        return self._aux_col0("scale") if self._int8_cache else None
+
     def _cell_compacted(self):
         """Cell-aware compacted layout, rebuilt lazily per mutation:
-        (decoded, norms, is_empty, addr_map, cell_start_live, cell_size_live,
-        s_live). Live rows packed per cell into 16-aligned segments, so the
-        probed scans run with s_max = the largest live cell (rounded up to
-        128) instead of the largest capacity."""
+        (decoded, norms, is_empty, addr_map, scales, cell_start_live,
+        cell_size_live, s_live). Live rows packed per cell into 16-aligned
+        segments, so the probed scans run with s_max = the largest live cell
+        (rounded up to 128) instead of the largest capacity. scales is None
+        outside the int8 tier."""
         ver = self._mutations
         if self._compact_cache is not None and self._compact_cache[0] == ver:
             return self._compact_cache[1]
@@ -426,12 +466,12 @@ class IVFPQIndex(CellContainer):
         s_live = min(util.round_up(max(int(caps16.max()), 16), 128), n_pad)
         new_start_t = torch.as_tensor(new_start, dtype=torch.int32,
                                       device=self.device)
-        dec, nrm, emp, amap = _compact_cells_cache(
-            self.aux("decoded"), self._aux_col0("norm"), self._is_empty,
-            self._cell_start, new_start_t, n_pad)
-        res = (dec, nrm, emp, amap, new_start_t,
-               torch.as_tensor(sizes, dtype=torch.int32, device=self.device),
-               s_live)
+        res = _compact_cells_cache(
+            self.aux("decoded"), self._aux_col0("norm"), self._scales(),
+            self._is_empty, self._cell_start, new_start_t, n_pad) + (
+            new_start_t,
+            torch.as_tensor(sizes, dtype=torch.int32, device=self.device),
+            s_live)
         self._compact_cache = (ver, res)
         return res
 
@@ -447,14 +487,14 @@ class IVFPQIndex(CellContainer):
             return False
         caps16 = ((int(sizes.max()) + 15) // 16) * 16
         s_live = min(((caps16 + 127) // 128) * 128, self.capacity)
-        itemsize = self.aux("decoded").element_size()
+        itemsize = self.aux("decoded").element_size()  # 1 B in the int8 tier
         copy_bytes = int(sizes.sum()) * 1.1 * (self.d_vector * itemsize + 8)
         return s_live * 1.25 <= self.max_cell_capacity \
             and copy_bytes <= 4 * (1 << 30)
 
     def _flat_compacted(self):
-        """(decoded, norms, is_empty, addr_map) for the flat sweep, with
-        dead slots squeezed out unless capacity is already tight."""
+        """(decoded, norms, is_empty, addr_map, scales) for the flat sweep,
+        with dead slots squeezed out unless capacity is already tight."""
         ver = self._mutations
         if self._flat_cache is not None and self._flat_cache[0] == ver:
             return self._flat_cache[1]
@@ -463,13 +503,13 @@ class IVFPQIndex(CellContainer):
         n_pad = util.round_up(n, unit)
         if n_pad * 8 >= self.capacity * 7:
             res = (self.aux("decoded"), self._aux_col0("norm"),
-                   self._is_empty, None)
+                   self._is_empty, None, self._scales())
         elif self._use_compact_scan():
-            res = self._cell_compacted()[:4]
+            res = self._cell_compacted()[:5]
         else:
             res = _compact_flat_cache(self.aux("decoded"),
                                       self._aux_col0("norm"),
-                                      self._is_empty, n_pad)
+                                      self._is_empty, n_pad, self._scales())
         self._flat_cache = (ver, res)
         return res
 
@@ -493,7 +533,7 @@ class IVFPQIndex(CellContainer):
         else:
             res = _compact_flat_cache(self._codes_view(),
                                       self._aux_col0("norm"),
-                                      self._is_empty, n_pad) + (None,)
+                                      self._is_empty, n_pad)[:4] + (None,)
         self._flat_cache = (ver, res)
         return res
 
@@ -537,6 +577,7 @@ class IVFPQIndex(CellContainer):
         """x: [d_vector, nq] -> (values [nq, k] f32, ids [nq, k]); with
         return_address also the storage addresses."""
         self._check_ported("search")
+        adc.check_impl(self.scan_impl)
         q = self._prep(x).T.contiguous()
         nq = q.shape[0]
         k = int(k)
@@ -559,29 +600,35 @@ class IVFPQIndex(CellContainer):
                     k=k, n_probe=n_probe, use_smart=self._use_smart_probing,
                     distance=self.distance, s_max=self.max_cell_capacity,
                     n_cells=self.n_cells, approx=self._use_approx_topk,
-                    m=self._m_packed)
+                    m=self._m_packed, impl=self.scan_impl)
         elif mode == "flat":
-            dec, nrm, emp, amap = self._flat_compacted()
+            dec, nrm, emp, amap, sc = self._flat_compacted()
             out = _search_flat(q, dec, nrm, emp, amap, self._address2id,
-                               k=k, distance=self.distance)
+                               k=k, distance=self.distance,
+                               approx=self._use_approx_topk,
+                               impl=self.scan_impl, scales=sc)
         else:
+            # the int8 tier's probed plans live in the cell-major scan
             kw = dict(k=k, n_probe=n_probe,
                       use_smart=self._use_smart_probing,
                       distance=self.distance, n_cells=self.n_cells,
-                      mode=mode, approx=self._use_approx_topk)
+                      mode="cell_major" if self._int8_cache else mode,
+                      approx=self._use_approx_topk, impl=self.scan_impl)
             if self._use_compact_scan():
-                dec, nrm, emp, amap, cs, sz, s_live = self._cell_compacted()
+                dec, nrm, emp, amap, sc, cs, sz, s_live = \
+                    self._cell_compacted()
                 out = _search_full(
                     q, self._coarse_cb(), dec, nrm, emp, cs, sz,
                     self._address2id, self._smart_probing_temperature,
-                    s_max=s_live, addr_map=amap, **kw)
+                    s_max=s_live, scales=sc, addr_map=amap, **kw)
             else:
                 out = _search_full(
                     q, self._coarse_cb(), self.aux("decoded"),
                     self._aux_col0("norm"), self._is_empty, self._cell_start,
                     self._cell_capacity, self._address2id,
                     self._smart_probing_temperature,
-                    s_max=self.max_cell_capacity, **kw)
+                    s_max=self.max_cell_capacity, scales=self._scales(),
+                    **kw)
         vals, ids, addr = out
         if return_address:
             return vals, ids, addr
@@ -592,6 +639,7 @@ class IVFPQIndex(CellContainer):
         """Scan explicit cells per query: x [d_vector, nq], cells
         [nq, n_probe] (distinct per row), through the IVFPQTopk facade."""
         self._check_ported("search_cells")
+        adc.check_impl(self.scan_impl)
         q = self._prep(x).T.contiguous()
         cells = util.as_tensor(cells, self.device).int()
         if probe_mask is None:
@@ -604,7 +652,7 @@ class IVFPQIndex(CellContainer):
             self._aux_col0("norm"), self._is_empty,
             self._cell_start, self._cell_capacity, k=int(k),
             distance=self.distance, s_max=self.max_cell_capacity,
-            mode=self.scan_mode,
+            mode=self.scan_mode, scales=self._scales(), impl=self.scan_impl,
             pq_codebook=self._scan_codebook if code else None,
             m=self._m_packed if code else None)
         ids, addr = _translate(addr, None, self._address2id)
@@ -626,6 +674,9 @@ class IVFPQIndex(CellContainer):
             y = self._decode_stored(self.storage_rows(safe))
         else:
             y = self.aux("decoded")[safe]
+        if self._int8_cache:
+            # dequantized: the int8 row times its scale (ivfpq.py:1317-1318)
+            y = y.float() * self.aux("scale")[safe]
         q = util.pad_cols(q, y.shape[-1])
         sims = util.matmul_f32(q, y)  # the f32 query, as the JAX package
         if self.distance == "euclidean":

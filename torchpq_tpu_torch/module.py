@@ -1,7 +1,8 @@
 """Stateful-shell base class (counterpart of torchpq_tpu/module.py).
 
 Each class keeps its tensor state in named attributes registered with
-`register_state`, on one explicit `device`. `state_dict()` returns a flat
+`register_state`, on one `device`: the card ("cuda") unless the caller
+names another (device="cpu" for CPU use; nothing falls back). `state_dict()` returns a flat
 dict of numpy arrays (plus python scalars) with the JAX package's keys and
 layout, and `load_state_dict()` replaces shapes wholesale. This is the
 carry-across function: an index saved by either package loads into the
@@ -54,7 +55,7 @@ def _is_bf16_bits(a):
 class StateModule:
     def __init__(self, verbose=0, device=None):
         self.verbose = verbose
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = torch.device(device if device is not None else "cuda")
         self._state_keys = []
         self._submodules = {}
 

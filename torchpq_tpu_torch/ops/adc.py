@@ -13,7 +13,8 @@ Two scans over the IVF cells:
 * `scan_cell_major` inverts the probe lists: probed (query, cell) pairs are
   grouped by cell into blocks of up to p_tile probers, each block is scored
   against its cell's window by the block scan (ops/block_scan.py), and the
-  per-pair partial top-ks are unsorted and merged per query.
+  per-pair partial top-ks are unsorted and merged per query. It also serves
+  the int8 cache tier (per-slot `scales`; the queries quantize per row).
 
 Both return (values [nq, k] f32, addresses [nq, k] int32, -1 padding).
 """
@@ -26,8 +27,14 @@ from .block_scan import (BIG, block_scan, select_blocks, select_exact,
                          sortable_i32, sortable_i32_to_f32)
 
 # resolved plan of the most recent scan_cell_major call: {"impl", "k_pair",
-# "s_eff", "pack32", "blocks"} — lets a run record which select served it
+# "s_eff", "pack32", "blocks", "cache"} — lets a run record which select
+# served it
 LAST_GATE = {}
+
+# scan_impl values (the JAX package's): "auto" runs the kernel where its
+# gate admits; "pallas" demands it; "xla" and "pallas_flat" run the probed
+# scans through the XLA select (_block_select)
+IMPLS = ("auto", "pallas", "xla", "pallas_flat")
 
 _INT32_MIN = -(1 << 31)
 
@@ -69,6 +76,9 @@ def scan_query_major(query, cells, probe_mask, decoded, norms, is_empty,
     row); decoded [cap, d]; norms [cap] f32; is_empty [cap] bool; s_max
     bounds every cell's capacity."""
     distance = canonical_distance(distance)
+    if decoded.dtype == torch.int8:
+        raise ValueError("an int8 cache needs per-slot scales: use "
+                         "scan_cell_major (adc.py:182-183)")
     query = util.pad_cols(query.float(), decoded.shape[-1])
     nq, n_probe = cells.shape
     slot = torch.arange(s_max, device=decoded.device)
@@ -210,21 +220,42 @@ def _merge_pairs(combo, query, pair_block, pair_slot, start_c, *, n_blocks,
     return fv, fa
 
 
+def check_impl(impl):
+    if impl not in IMPLS:
+        raise ValueError(f"scan_impl must be one of {IMPLS}, got {impl!r}")
+
+
+def gate_kernel(impl, gate, what):
+    """Whether the kernel serves a scan: impl "auto" or "pallas" and its
+    gate admits. Where the JAX package warns and falls back to its XLA
+    select (impl="pallas" with the gate failing), the port raises."""
+    check_impl(impl)
+    if impl == "pallas" and not gate:
+        raise ValueError(f"{what}: scan_impl='pallas' demands the kernel, "
+                         "but its gate fails at this shape")
+    return gate and impl in ("auto", "pallas")
+
+
 def scan_cell_major(query, cells, probe_mask, decoded, norms, is_empty,
                     cell_start, cell_capacity, *, k, distance, s_max, n_cells,
-                    p_tile=128, approx=False):
+                    p_tile=128, approx=False, scales=None, impl="auto"):
     """Inverted-probe-list block scan (adc.py:scan_cell_major at group=1,
     no probe cap, no taper, k_pair chosen as there).
 
     The block scan (kernel on the card, plain version on the CPU) serves
-    every shape its gate admits: k_pair <= 64, and for approx the pack32
-    wire format with a window the 128 strided groups divide (s_eff % 128
-    == 0, or a power of two below 128). Other shapes take `_block_select`,
-    the JAX package's own XLA select at those shapes."""
+    every shape its gate admits under impl "auto" or "pallas": k_pair <=
+    64, and for approx the pack32 wire format with a window the 128 strided
+    groups divide (s_eff % 128 == 0, or a power of two below 128); an int8
+    cache (decoded int8 with per-slot `scales` [cap] f32) also needs d % 16
+    == 0. Other shapes, and impl "xla" / "pallas_flat", take
+    `_block_select`, the JAX package's own XLA select at those shapes."""
     distance = canonical_distance(distance)
     if distance == "manhattan":
         raise NotImplementedError(
             "manhattan distance is not ported yet (ROADMAP A12)")
+    int8 = decoded.dtype == torch.int8
+    if int8 != (scales is not None):
+        raise ValueError("an int8 cache needs per-slot scales, and only it")
     query = util.pad_cols(query.float(), decoded.shape[-1])
     nq, n_probe = cells.shape
     cap_total = decoded.shape[0]
@@ -250,19 +281,28 @@ def scan_cell_major(query, cells, probe_mask, decoded, norms, is_empty,
     else:
         penalty = torch.where(is_empty, BIG, 0.0)
     penalty = penalty.float().contiguous()
-    qtable = query.to(decoded.dtype).contiguous()
+    if int8:
+        # per-query symmetric quantization (adc.py:776-778)
+        qtable, q_scale = util.int8_quantize_rows(query)
+        scales = scales.float().contiguous()
+    else:
+        qtable, q_scale = query.to(decoded.dtype).contiguous(), None
 
-    use_kernel = k_pair <= 64 and (not approx or (pack32 and (
-        s_eff % 128 == 0 or (s_pow2 == s_eff and s_eff < 128))))
+    gate = k_pair <= 64 and (not approx or (pack32 and (
+        s_eff % 128 == 0 or (s_pow2 == s_eff and s_eff < 128)))) \
+        and (not int8 or decoded.shape[1] % 16 == 0)
+    use_kernel = gate_kernel(impl, gate, "scan_cell_major")
     LAST_GATE.clear()
     LAST_GATE.update(impl="block_scan" if use_kernel else "block_select",
                      k_pair=k_pair, s_eff=s_eff, pack32=pack32,
-                     blocks=n_blocks)
+                     blocks=n_blocks,
+                     cache=str(decoded.dtype).replace("torch.", ""))
     if use_kernel:
         combo = block_scan(qtable, probers, start_c, off, cap_b, penalty,
                            decoded.contiguous(), s_eff=s_eff, k_pair=k_pair,
                            euclidean=euclidean, pack32=pack32,
-                           slot_mask=slot_mask)
+                           slot_mask=slot_mask, scale=scales,
+                           q_scale=q_scale)
     else:
         def select(sc, st):
             return _block_select(sc, st, k_pair=k_pair, pack32=pack32,
@@ -270,7 +310,8 @@ def scan_cell_major(query, cells, probe_mask, decoded, norms, is_empty,
         combo = select_blocks(select, qtable, probers, start_c, off, cap_b,
                               penalty, decoded, s_eff=s_eff,
                               euclidean=euclidean,
-                              width=k_pair if pack32 else 2 * k_pair)
+                              width=k_pair if pack32 else 2 * k_pair,
+                              scale=scales, q_scale=q_scale)
     return _merge_pairs(
         combo, query, pair_block, pair_slot, start_c, n_blocks=n_blocks,
         p_tile=p_tile, k=k, k_pair=k_pair, nq=nq, n_probe=n_probe,

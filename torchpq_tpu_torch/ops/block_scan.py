@@ -2,15 +2,20 @@
 keep each prober's top k_pair.
 
 Replaces the TPU kernel torchpq_tpu/ops/pallas_scan.py:scan_blocks_pallas
-(bf16/f32 decoded cache, exact and pack32 selects, query rows read by
+(bf16/f32/int8 decoded cache, exact and pack32 selects, query rows read by
 prober id). The kernel is `csrc/block_scan.cu`, built by `_build.py` and
-bound through a plain C entry point.
+bound through plain C entry points.
 
 What it computes, for block b, prober p and window slot j < s_eff:
     score = c * <q[probers[b, p]], decoded[start_c[b] + j]> - pen[b, j]
     pen   = penalty[start_c[b] + j] + (off[b] <= j < off[b] + cap[b] ? 0 : BIG)
 with c = 2 for euclidean and 1 otherwise, then one of two selects in the
-JAX package's wire format (see `select_exact` / `select_pack32`).
+JAX package's wire format (see `select_exact` / `select_pack32`). In int8
+mode (int8 query rows and cache, f32 scales `q_scale` [nq] and `scale`
+[capacity]) the score is one fused multiply-add of the exact integer
+product, as the JAX kernel's (checked against it in interpret mode):
+    ab    = sum_k q8[p, k] * y8[j, k]
+    score = fma(ab, (c * q_scale[p]) * scale[j], -pen[b, j])
 
 What bounds it on an H100: a block reads s_eff * d window elements once
 and does p_tile (128) FMAs with each of them, so it is bound by arithmetic,
@@ -33,8 +38,9 @@ from .. import util
 # FLT_MAX / 4: the penalty that marks a slot dead (torchpq_tpu/ops/adc.py)
 BIG = float(np.float32(np.finfo(np.float32).max) / np.float32(4))
 
-# kernel launches per select mode, counted by `block_scan` where it launches
-launches = {"exact": 0, "pack32": 0}
+# kernel launches per cache mode and select, counted by `block_scan` where
+# it launches
+launches = {"exact": 0, "pack32": 0, "int8_exact": 0, "int8_pack32": 0}
 
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one CTA may use on sm_90
 _CHUNK_SCORES = 1 << 25   # f32 scores per chunk of the plain version (128 MB)
@@ -63,29 +69,64 @@ def n_groups(s_eff, k_pair):
     return s_eff
 
 
+def fma_f32(a, b, c):
+    """a * b - c rounded once to f32, as fmaf(a, b, -c) on the card: a
+    holds f32 values (exact integers here), b and c are f32. a * b is exact
+    in f64 (two 24-bit significands); the f64 difference s rounds once more,
+    which can only move the final f32 rounding where s lands exactly on a
+    tie between two f32 values, so there s steps one f64 ulp towards the
+    exact result (its rounding error, TwoSum)."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p - cd
+    t = s - p
+    err = (p - (s - t)) - (cd + t)
+    tie = (s.view(torch.int64) & ((1 << 29) - 1)) == (1 << 28)
+    step = torch.nextafter(s, torch.where(err > 0, torch.inf, -torch.inf))
+    return torch.where(tie & (err != 0), step, s).float()
+
+
+def int8_products(q, y):
+    """Exact int8 dot products q [B, P, d] . y [B, s, d] -> f32 [B, P, s],
+    rounded to f32 as the JAX package's int32 -> f32 cast. Never in int8
+    arithmetic (torch's int8 matmul wraps): f32 sums of int8 products are
+    exact while d * 127^2 < 2^24 (d <= 1040), f64 beyond that."""
+    d = q.shape[-1]
+    acc = torch.float32 if d * 127 * 127 < (1 << 24) else torch.float64
+    return torch.bmm(q.to(acc), y.to(acc).transpose(1, 2)).float()
+
+
 def window_scores(qtable, probers, start_c, off, cap, penalty, gather, slot,
-                  *, euclidean):
+                  *, euclidean, scale=None, q_scale=None):
     """Plain per-block scores [B, P, s] f32 over window columns whose
     in-window slots are `slot` [s] (long); gather(rows [B, s]) gives the
     candidate rows [B, s, d]. Products of the operands' values (bf16 rounds
-    nothing more), summed in f32."""
+    nothing more), summed in f32; in int8 mode (scale [capacity] and
+    q_scale [nq] given) the exact integer products, dequantized by one
+    fused multiply-add."""
     rows = start_c.long()[:, None] + slot[None, :]
-    win = gather(rows).float()                              # [B, s, d]
-    q = qtable[probers.clamp(min=0).long()].float()         # [B, P, d]
-    ab = torch.bmm(q, win.transpose(1, 2))
+    pidx = probers.clamp(min=0).long()
     in_cell = (slot[None, :] >= off[:, None]) \
         & (slot[None, :] < (off + cap)[:, None])
     pen = penalty[rows] + torch.where(in_cell, 0.0, BIG)
+    factor = 2.0 if euclidean else 1.0
+    if scale is not None:
+        ab = int8_products(qtable[pidx], gather(rows))
+        m = (factor * q_scale[pidx])[:, :, None] * scale[rows][:, None, :]
+        return fma_f32(ab, m, pen[:, None, :])
+    win = gather(rows).float()                              # [B, s, d]
+    q = qtable[pidx].float()                                # [B, P, d]
+    ab = torch.bmm(q, win.transpose(1, 2))
     return (2.0 * ab if euclidean else ab) - pen[:, None, :]
 
 
 def block_scores(qtable, probers, start_c, off, cap, penalty, decoded, *,
-                 s_eff, euclidean):
+                 s_eff, euclidean, scale=None, q_scale=None):
     """Plain per-block scores [B, P, s_eff] over the cache's rows."""
     slot = torch.arange(s_eff, device=decoded.device)
     return window_scores(qtable, probers, start_c, off, cap, penalty,
                          lambda rows: decoded[rows], slot,
-                         euclidean=euclidean)
+                         euclidean=euclidean, scale=scale, q_scale=q_scale)
 
 
 def select_exact(scores, start_c, k_pair, slot=None):
@@ -134,19 +175,23 @@ def select_chunks(scores, select, probers, start_c, *, s_eff, width,
 
 
 def select_blocks(select, qtable, probers, start_c, off, cap, penalty,
-                  decoded, *, s_eff, euclidean, width):
+                  decoded, *, s_eff, euclidean, width, scale=None,
+                  q_scale=None):
     """select(block_scores(...), start_c) over chunks of blocks ->
     int32 [B, p_tile, width]."""
     def scores(sl):
         return block_scores(qtable, probers[sl], start_c[sl], off[sl],
                             cap[sl], penalty, decoded, s_eff=s_eff,
-                            euclidean=euclidean)
+                            euclidean=euclidean, scale=scale,
+                            q_scale=q_scale)
+    # the int8 scores' f64 fused multiply-add keeps a few f64 temporaries
     return select_chunks(scores, select, probers, start_c, s_eff=s_eff,
-                         width=width)
+                         width=width, cost=1 if scale is None else 8)
 
 
 def block_scan_ref(qtable, probers, start_c, off, cap, penalty, decoded, *,
-                   s_eff, k_pair, euclidean, pack32, slot_mask):
+                   s_eff, k_pair, euclidean, pack32, slot_mask, scale=None,
+                   q_scale=None):
     """Plain PyTorch version of the kernel."""
     if pack32:
         def select(sc, _):
@@ -156,7 +201,8 @@ def block_scan_ref(qtable, probers, start_c, off, cap, penalty, decoded, *,
             return select_exact(sc, st, k_pair)
     return select_blocks(select, qtable, probers, start_c, off, cap, penalty,
                          decoded, s_eff=s_eff, euclidean=euclidean,
-                         width=k_pair if pack32 else 2 * k_pair)
+                         width=k_pair if pack32 else 2 * k_pair, scale=scale,
+                         q_scale=q_scale)
 
 
 def random_inputs(device, *, s_eff, n_blocks, nq, d=128, cap_total,
@@ -184,14 +230,40 @@ def random_inputs(device, *, s_eff, n_blocks, nq, d=128, cap_total,
     return [qtable, probers, start_c, off, cap, penalty, decoded]
 
 
+def random_int8_inputs(device, *, s_eff, n_blocks, nq, d=128, cap_total,
+                       seed=0):
+    """Seeded int8-mode inputs: `random_inputs`' layout with the query rows
+    and cache quantized per row (util.int8_quantize_rows) -> (args, scale,
+    q_scale); the penalty keeps the f32 rows' squared norms."""
+    qtable, probers, start_c, off, cap, penalty, decoded = random_inputs(
+        device, s_eff=s_eff, n_blocks=n_blocks, nq=nq, d=d,
+        cap_total=cap_total, dtype=torch.float32, seed=seed)
+    q8, q_scale = util.int8_quantize_rows(qtable)
+    y8, scale = util.int8_quantize_rows(decoded)
+    return ([q8, probers, start_c, off, cap, penalty, y8],
+            scale.contiguous(), q_scale.contiguous())
+
+
 def _check(qtable, probers, start_c, off, cap, penalty, decoded, s_eff,
-           k_pair, pack32, slot_mask):
+           k_pair, pack32, slot_mask, scale, q_scale):
     dev = decoded.device
-    if decoded.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"decoded must be bf16 or f32, got {decoded.dtype}")
+    if decoded.dtype not in (torch.bfloat16, torch.float32, torch.int8):
+        raise TypeError(
+            f"decoded must be bf16, f32 or int8, got {decoded.dtype}")
     if qtable.dtype != decoded.dtype:
         raise TypeError(
             f"qtable dtype {qtable.dtype} != decoded dtype {decoded.dtype}")
+    int8 = decoded.dtype == torch.int8
+    if int8 != (scale is not None) or int8 != (q_scale is not None):
+        raise ValueError("scale and q_scale are given for an int8 cache, "
+                         "and only then")
+    if int8:
+        for name, t, n in (("scale", scale, decoded.shape[0]),
+                           ("q_scale", q_scale, qtable.shape[0])):
+            if t.dtype != torch.float32 or tuple(t.shape) != (n,):
+                raise TypeError(f"{name} must be float32 [{n}]")
+            if t.device != dev or not t.is_contiguous():
+                raise ValueError(f"{name} must be contiguous on {dev}")
     if decoded.ndim != 2 or qtable.ndim != 2 \
             or qtable.shape[1] != decoded.shape[1]:
         raise ValueError(f"qtable {tuple(qtable.shape)} and decoded "
@@ -219,30 +291,32 @@ def _check(qtable, probers, start_c, off, cap, penalty, decoded, s_eff,
         raise ValueError("slot_mask must be next_pow2(s_eff) - 1")
 
 
-def _cta_probers(lib, p_tile, d, pack32, groups, is_bf16):
-    """Probers per CTA: the most (of 128/64/32) whose shared memory fits."""
+def _cta_probers(smem, p_tile):
+    """Probers per CTA: the most (of 128/64/32) whose shared memory
+    smem(pt) fits."""
     for pt in (128, 64, 32):
-        if p_tile % pt == 0 and lib.torchpq_block_scan_smem(
-                pt, d, int(pack32), groups, is_bf16) <= _SMEM_LIMIT:
+        if p_tile % pt == 0 and smem(pt) <= _SMEM_LIMIT:
             return pt
-    raise ValueError(
-        f"block scan: no CTA shape fits shared memory at d={d}, "
-        f"p_tile={p_tile}, groups={groups}")
+    raise ValueError(f"block scan: no CTA shape fits shared memory "
+                     f"(p_tile={p_tile})")
 
 
 def block_scan(qtable, probers, start_c, off, cap, penalty, decoded, *,
-               s_eff, k_pair, euclidean, pack32, slot_mask):
+               s_eff, k_pair, euclidean, pack32, slot_mask, scale=None,
+               q_scale=None):
     """Run the block scan.
 
     qtable [nq, d] (decoded's dtype), probers [B, p_tile] int32 query rows
     (-1 pads), start_c / off / cap [B] int32 (window start, the cell's offset
     in the window, its capacity), penalty [capacity] f32 (norm-or-BIG),
-    decoded [capacity, d] bf16/f32. Returns int32 [B, p_tile, k_pair]
-    (pack32) or [B, p_tile, 2*k_pair] (exact)."""
+    decoded [capacity, d] bf16/f32/int8; for int8 also scale [capacity] and
+    q_scale [nq] f32. Returns int32 [B, p_tile, k_pair] (pack32) or
+    [B, p_tile, 2*k_pair] (exact)."""
     _check(qtable, probers, start_c, off, cap, penalty, decoded, s_eff,
-           k_pair, pack32, slot_mask)
+           k_pair, pack32, slot_mask, scale, q_scale)
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
-              pack32=pack32, slot_mask=slot_mask)
+              pack32=pack32, slot_mask=slot_mask, scale=scale,
+              q_scale=q_scale)
     if decoded.device.type == "cpu":
         return block_scan_ref(qtable, probers, start_c, off, cap, penalty,
                               decoded, **kw)
@@ -250,7 +324,20 @@ def block_scan(qtable, probers, start_c, off, cap, penalty, decoded, *,
         raise ValueError(f"block_scan runs on cpu or cuda, not "
                          f"{decoded.device}")
     from .. import _build
-    lib = _build.library()
+    with torch.cuda.device(decoded.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        out = launch(_build.library(), stream, qtable, probers, start_c, off,
+                     cap, penalty, decoded, **kw)
+    launches[("int8_" if decoded.dtype == torch.int8 else "")
+             + ("pack32" if pack32 else "exact")] += 1
+    return out
+
+
+def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
+           decoded, *, s_eff, k_pair, euclidean, pack32, slot_mask,
+           scale=None, q_scale=None):
+    """Launch the kernel of `lib` on `stream` with checked arguments;
+    raises if the launch fails."""
     b, p_tile = probers.shape
     d = decoded.shape[1]
     groups = n_groups(s_eff, k_pair) if pack32 else 0
@@ -258,12 +345,24 @@ def block_scan(qtable, probers, start_c, off, cap, penalty, decoded, *,
                       dtype=torch.int32, device=decoded.device)
     if b == 0:
         return out
-    if d % 4:
-        raise ValueError(f"block scan kernel needs d % 4 == 0, got d={d}")
-    is_bf16 = int(decoded.dtype == torch.bfloat16)
-    pt = _cta_probers(lib, p_tile, d, pack32, groups, is_bf16)
-    with torch.cuda.device(decoded.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    if decoded.dtype == torch.int8:
+        if d % 16 or qtable.data_ptr() % 16 or decoded.data_ptr() % 16:
+            raise ValueError(f"int8 block scan kernel needs d % 16 == 0 "
+                             f"and 16-byte aligned rows, got d={d}")
+        pt = _cta_probers(lambda pt: lib.torchpq_block_scan_int8_smem(
+            pt, d, int(pack32), groups), p_tile)
+        rc = lib.torchpq_block_scan_int8(
+            qtable.data_ptr(), q_scale.data_ptr(), probers.data_ptr(),
+            start_c.data_ptr(), off.data_ptr(), cap.data_ptr(),
+            penalty.data_ptr(), scale.data_ptr(), decoded.data_ptr(),
+            out.data_ptr(), b, p_tile, d, s_eff, k_pair, int(euclidean),
+            int(pack32), slot_mask, groups, pt, ctypes.c_void_p(stream))
+    else:
+        if d % 4:
+            raise ValueError(f"block scan kernel needs d % 4 == 0, got d={d}")
+        is_bf16 = int(decoded.dtype == torch.bfloat16)
+        pt = _cta_probers(lambda pt: lib.torchpq_block_scan_smem(
+            pt, d, int(pack32), groups, is_bf16), p_tile)
         rc = lib.torchpq_block_scan(
             qtable.data_ptr(), probers.data_ptr(), start_c.data_ptr(),
             off.data_ptr(), cap.data_ptr(), penalty.data_ptr(),
@@ -272,5 +371,4 @@ def block_scan(qtable, probers, start_c, off, cap, penalty, decoded, *,
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"block_scan kernel launch failed: CUDA error {rc}")
-    launches["pack32" if pack32 else "exact"] += 1
     return out

@@ -7,30 +7,49 @@ torch: the cache is swept in slot chunks, each chunk one float32 product
 one exact top-k. The JAX package's approx_max_k is exact off the TPU, so
 both `approx` settings take the exact top-k here. `flat_sweep` and
 `final_merge` also serve the code-domain sweep (ops/onehot_adc.py), whose
-chunks are decoded from PQ codes.
+chunks are decoded from PQ codes. An int8 cache sweeps the exact integer
+products of the int8-quantized queries, dequantized per column.
+
+`flat_adc_auto` is the flat plan's dispatch: under impl="pallas_flat", and
+inside that kernel's gate, the fused flat-scan kernel (ops/flat_scan.py)
+runs instead of the sweep.
 """
 
 import torch
 
 from .. import util
 from ..metric import canonical_distance
-from .block_scan import BIG
+from .block_scan import BIG, int8_products
+from .flat_scan import flat_scan
+
+# resolved route of the most recent flat_adc_auto call: {"impl", "k",
+# "approx", "cache"}
+LAST_FLAT = {}
 
 
-def flat_sweep(q_mm, rows, n, penalty, *, k, factor, max_elems=1 << 28):
+def flat_sweep(q_mm, rows, n, penalty, *, k, factor, max_elems=1 << 28,
+               q_scale=None, scales=None):
     """Per chunk of slots [c0, c1): s = factor * q_mm @ rows(c0, c1).T -
     penalty[c0:c1], and its top k. q_mm [nq, d] f32; rows(c0, c1) -> f32
-    [c1 - c0, d]; `max_elems` bounds the [nq, chunk] score tile. Returns
-    the chunk winners (values [nq, n_chunks * k_c], slots alike)."""
+    [c1 - c0, d]; `max_elems` bounds the [nq, chunk] score tile. int8 (q_mm
+    and rows int8, q_scale [nq] and scales [n] f32 given): s = ab *
+    ((factor * q_scale)[:, None] * scales[None, c0:c1]) - penalty, with ab
+    the exact integer products (flat_adc.py:85-91). Returns the chunk
+    winners (values [nq, n_chunks * k_c], slots alike)."""
     nq = q_mm.shape[0]
     chunk = min(n, max(1024, max_elems // max(nq, 1)))
     k_c = min(k, chunk)
     vals, idx = [], []
     for c0 in range(0, n, chunk):
         c1 = min(c0 + chunk, n)
-        # factor * <q, y> - penalty as one GEMM with its bias epilogue
-        s = torch.addmm(-penalty[c0:c1][None, :], q_mm, rows(c0, c1).T,
-                        alpha=factor)
+        if scales is None:
+            # factor * <q, y> - penalty as one GEMM with its bias epilogue
+            s = torch.addmm(-penalty[c0:c1][None, :], q_mm, rows(c0, c1).T,
+                            alpha=factor)
+        else:
+            s = int8_products(q_mm[None], rows(c0, c1)[None])[0]
+            s.mul_((factor * q_scale)[:, None] * scales[None, c0:c1])
+            s.sub_(penalty[c0:c1][None, :])
         v, i = torch.topk(s, min(k_c, s.shape[1]), dim=-1)
         vals.append(v)
         idx.append(i + c0)
@@ -55,9 +74,11 @@ def final_merge(vals, idx, query, *, k, distance):
     return fv, fa
 
 
-def flat_adc_scan(query, decoded, penalty, *, k, distance, max_elems=1 << 28):
-    """query [nq, d] f32 (preprocessed); decoded [cap, d] bf16/f32; penalty
-    [cap] f32 = norms (euclidean) or 0, with BIG at empty slots.
+def flat_adc_scan(query, decoded, penalty, *, k, distance, max_elems=1 << 28,
+                  scales=None):
+    """query [nq, d] f32 (preprocessed); decoded [cap, d] bf16/f32/int8;
+    penalty [cap] f32 = norms (euclidean) or 0, with BIG at empty slots;
+    scales [cap] f32 per-slot dequant scales (int8 cache only).
 
     Returns (values [nq, k] f32, addresses [nq, k] int32, -1 padding); the
     euclidean -|q|^2 term is added after the merge. `max_elems` bounds the
@@ -66,7 +87,18 @@ def flat_adc_scan(query, decoded, penalty, *, k, distance, max_elems=1 << 28):
     if distance == "manhattan":
         raise NotImplementedError(
             "manhattan distance is not ported yet (ROADMAP A12)")
+    int8 = decoded.dtype == torch.int8
+    if int8 != (scales is not None):
+        raise ValueError("an int8 cache needs per-slot scales, and only it")
     query = util.pad_cols(query.float(), decoded.shape[-1])
+    factor = 2.0 if distance == "euclidean" else 1.0
+    if int8:
+        q_mm, q_scale = util.int8_quantize_rows(query)
+        vals, idx = flat_sweep(
+            q_mm, lambda c0, c1: decoded[c0:c1], decoded.shape[0], penalty,
+            k=k, factor=factor, max_elems=max_elems, q_scale=q_scale,
+            scales=scales.float())
+        return final_merge(vals, idx, query, k=k, distance=distance)
     # bf16 cache: the query rounds to bf16 too, then both operands go up to
     # f32, where bf16 products are exact (the JAX package's bf16 x bf16 ->
     # f32 product)
@@ -74,6 +106,44 @@ def flat_adc_scan(query, decoded, penalty, *, k, distance, max_elems=1 << 28):
         if decoded.dtype == torch.bfloat16 else query
     vals, idx = flat_sweep(
         q_mm, lambda c0, c1: decoded[c0:c1].float(), decoded.shape[0],
-        penalty, k=k, factor=2.0 if distance == "euclidean" else 1.0,
-        max_elems=max_elems)
+        penalty, k=k, factor=factor, max_elems=max_elems)
     return final_merge(vals, idx, query, k=k, distance=distance)
+
+
+def flat_scan_glue(query, decoded, penalty, *, k, distance):
+    """The fused flat-scan kernel's glue (flat_adc.py:_flat_pallas_glue):
+    r_keep = min(32, max(8, ceil(k / 8) * 8)); the kernel's top r_keep is
+    sorted, so its head is the answer; then the deferred -|q|^2 term and
+    dead masking. (The JAX glue pads queries to its tile and the cache to
+    the window; the kernel takes any query count and pads the cache
+    itself.)"""
+    r_keep = min(32, max(8, util.cdiv(k, 8) * 8))
+    vals, addrs = flat_scan(query, decoded.contiguous(), penalty.contiguous(),
+                            r_keep=r_keep, euclidean=distance == "euclidean")
+    vals, addrs = vals[:, :k], addrs[:, :k]
+    alive = vals > -BIG / 2
+    if distance == "euclidean":
+        vals = vals - torch.sum(query * query, -1)[:, None]
+    return torch.where(alive, vals, -torch.inf), torch.where(alive, addrs, -1)
+
+
+def flat_adc_auto(query, decoded, penalty, *, k, distance, approx=True,
+                  impl="auto", scales=None):
+    """The flat plan's dispatch (flat_adc.py:flat_adc_auto): the fused
+    flat-scan kernel under impl="pallas_flat" inside its gate (not
+    manhattan, not int8, k <= 32, cap >= 2048, approx), else the sweep,
+    which is the JAX package's own routing."""
+    distance = canonical_distance(distance)
+    query = util.pad_cols(query.float(), decoded.shape[-1])
+    use_kernel = (impl == "pallas_flat" and distance != "manhattan"
+                  and decoded.dtype != torch.int8 and k <= 32
+                  and decoded.shape[0] >= 2048 and approx)
+    LAST_FLAT.clear()
+    LAST_FLAT.update(impl="flat_scan" if use_kernel else "sweep", k=k,
+                     approx=approx,
+                     cache=str(decoded.dtype).replace("torch.", ""))
+    if use_kernel:
+        return flat_scan_glue(query, decoded, penalty, k=k,
+                              distance=distance)
+    return flat_adc_scan(query, decoded, penalty, k=k, distance=distance,
+                         scales=scales)

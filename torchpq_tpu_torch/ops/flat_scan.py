@@ -1,0 +1,184 @@
+"""Fused flat scan: every query against every cache slot, keeping a top R
+of bucket winners (the flat plan's kernel under scan_impl="pallas_flat").
+
+Replaces the TPU kernel torchpq_tpu/ops/pallas_flat.py:flat_scan_pallas.
+The kernel is `csrc/flat_scan.cu`, built by `_build.py` and bound through a
+plain C entry point.
+
+What it computes, for query q and slot j of a cache padded to a multiple of
+W = 2048 slots (the TPU kernel's window) with dead slots (zero rows,
+penalty BIG), as the JAX glue pads it:
+    score = c * <bf16(q), y_j> - penalty[j]         (f32 sum)
+with c = 2 for euclidean and 1 otherwise; the query rounds to bf16 even
+over an f32 cache, as in the TPU kernel. Each bucket of W/32 = 64 slots
+offers its top 2 (the first maximal slot, then the first maximum of the
+rest), and the result is each query's top r_keep of those candidates, by value
+descending then address ascending -> (values [nq, r_keep] f32, addresses
+[nq, r_keep] int32). Dead entries keep their value (<= -BIG/2): the
+caller masks them.
+
+What bounds it on an H100: 2 * nq * cap * d operations on cap * d cache
+elements, so arithmetic, not bytes. The kernel splits the cache across
+CTAs (the top R is associative over address ranges) and merges the
+partial lists in a second launch; it scores with the block scan's f32 FMA
+loop, and the tensor cores are the next step.
+
+`flat_scan` takes the plain version `flat_scan_ref` only for tensors on the
+CPU. For CUDA tensors it launches the kernel or raises.
+"""
+
+import ctypes
+
+import torch
+
+from .. import util
+from .block_scan import BIG, _SMEM_LIMIT
+
+# kernel launches, counted by `flat_scan` where it launches
+launches = {"flat": 0}
+
+W = 2048     # the TPU kernel's window; the cache pads to a multiple
+BUCKET = 64  # slots per bucket, W / 32 (pallas_flat.py:151; flat_scan.cu)
+
+# CTAs to aim for when splitting the cache (4 per SM of an H100's 132)
+_TARGET_CTAS = 528
+
+_CHUNK_SCORES = 1 << 26  # f32 scores per chunk of the plain version
+
+
+def _pad(decoded, penalty):
+    """The glue's padding: dead slots up to a multiple of W."""
+    pad = (-decoded.shape[0]) % W
+    if pad:
+        decoded = torch.nn.functional.pad(decoded, (0, 0, 0, pad))
+        penalty = torch.nn.functional.pad(penalty, (0, pad), value=BIG)
+    return decoded, penalty
+
+
+def flat_scan_ref(query, decoded, penalty, *, r_keep, euclidean):
+    """Plain PyTorch version of the kernel: per chunk of buckets, the f32
+    scores, each bucket's first and second maxima (argmax keeps the first
+    maximal slot), then a stable descending sort of the running list
+    followed by the chunk's candidates, which are in address order."""
+    decoded, penalty = _pad(decoded, penalty)
+    nq = query.shape[0]
+    bucket = BUCKET
+    q = query.to(torch.bfloat16).float()
+    factor = 2.0 if euclidean else 1.0
+    run_v = torch.full((nq, r_keep), -torch.inf, device=query.device)
+    run_a = torch.full((nq, r_keep), -1, dtype=torch.long,
+                       device=query.device)
+    chunk = max(bucket, _CHUNK_SCORES // max(nq, 1) // bucket * bucket)
+    for c0 in range(0, decoded.shape[0], chunk):
+        y = decoded[c0:c0 + chunk].float()
+        s = factor * (q @ y.T) - penalty[c0:c0 + chunk][None, :]
+        s = s.view(nq, -1, bucket)
+        a1 = torch.argmax(s, dim=-1, keepdim=True)
+        m1 = torch.gather(s, -1, a1)
+        s = s.scatter(-1, a1, -torch.inf)
+        a2 = torch.argmax(s, dim=-1, keepdim=True)
+        m2 = torch.gather(s, -1, a2)
+        base = c0 + torch.arange(s.shape[1], device=s.device)[:, None] \
+            * bucket
+        cand_v = torch.cat([m1, m2], -1).reshape(nq, -1)
+        cand_a = (torch.cat([a1, a2], -1) + base).reshape(nq, -1)
+        v, order = torch.sort(torch.cat([run_v, cand_v], 1), dim=1,
+                              descending=True, stable=True)
+        run_v = v[:, :r_keep]
+        run_a = torch.gather(torch.cat([run_a, cand_a], 1), 1,
+                             order[:, :r_keep])
+    return run_v, run_a.int()
+
+
+def random_flat_inputs(device, *, nq, cap, d=128, dtype=torch.bfloat16,
+                       seed=0):
+    """Seeded flat-scan inputs: f32 queries, a cache in `dtype`, and its
+    squared norms as penalty with BIG at 5% empty slots."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    query = torch.randn(nq, d, generator=g, device=device)
+    decoded = torch.randn(cap, d, generator=g, device=device).to(dtype)
+    empty = torch.rand(cap, generator=g, device=device) < 0.05
+    penalty = torch.where(empty, BIG,
+                          decoded.float().pow(2).sum(-1)).contiguous()
+    return [query, decoded, penalty]
+
+
+def _check(query, decoded, penalty, r_keep):
+    dev = decoded.device
+    if decoded.dtype not in (torch.bfloat16, torch.float32) \
+            or decoded.ndim != 2:
+        raise TypeError(f"decoded must be bf16 or f32 [cap, d], got "
+                        f"{decoded.dtype} {tuple(decoded.shape)}")
+    if query.dtype != torch.float32 or query.ndim != 2 \
+            or query.shape[1] != decoded.shape[1]:
+        raise TypeError(f"query must be float32 [nq, {decoded.shape[1]}]")
+    if penalty.dtype != torch.float32 \
+            or tuple(penalty.shape) != (decoded.shape[0],):
+        raise TypeError(f"penalty must be float32 [{decoded.shape[0]}]")
+    for name, t in (("query", query), ("decoded", decoded),
+                    ("penalty", penalty)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, decoded on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not 1 <= r_keep <= 32:
+        raise ValueError(f"need 1 <= r_keep={r_keep} <= 32")
+
+
+def flat_scan(query, decoded, penalty, *, r_keep, euclidean):
+    """Run the flat scan: query [nq, d] f32, decoded [cap, d] bf16/f32,
+    penalty [cap] f32 (norms-or-0, BIG at empty slots). Returns (values
+    [nq, r_keep] f32, addresses [nq, r_keep] int32), sorted."""
+    _check(query, decoded, penalty, r_keep)
+    kw = dict(r_keep=r_keep, euclidean=euclidean)
+    if decoded.device.type == "cpu":
+        return flat_scan_ref(query, decoded, penalty, **kw)
+    if decoded.device.type != "cuda":
+        raise ValueError(f"flat_scan runs on cpu or cuda, not "
+                         f"{decoded.device}")
+    from .. import _build
+    with torch.cuda.device(decoded.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        out = launch(_build.library(), stream, query, decoded, penalty, **kw)
+    launches["flat"] += 1
+    return out
+
+
+def launch(lib, stream, query, decoded, penalty, *, r_keep, euclidean):
+    """Launch the kernel of `lib` on `stream` with checked arguments;
+    raises if the launch fails."""
+    nq, d = query.shape
+    cap = decoded.shape[0]
+    dev = decoded.device
+    out_v = torch.empty((nq, r_keep), dtype=torch.float32, device=dev)
+    out_a = torch.empty((nq, r_keep), dtype=torch.int32, device=dev)
+    if nq == 0:
+        return out_v, out_a
+    if d % 4:
+        raise ValueError(f"flat scan kernel needs d % 4 == 0, got d={d}")
+    is_bf16 = int(decoded.dtype == torch.bfloat16)
+    # the query rounded to bf16, in the cache's dtype for the kernel's loads
+    qtable = query.to(torch.bfloat16).to(decoded.dtype).contiguous()
+    pt = next((pt for pt in (128, 64, 32)
+               if lib.torchpq_flat_scan_smem(pt, d, is_bf16) <= _SMEM_LIMIT),
+              None)
+    if pt is None:
+        raise ValueError(f"flat scan: no CTA shape fits shared memory at "
+                         f"d={d}")
+    # split the padded cache into runs of whole windows
+    n_windows = util.cdiv(cap, W)
+    want = util.cdiv(_TARGET_CTAS, util.cdiv(nq, pt))
+    split = util.cdiv(n_windows, max(1, min(want, n_windows))) * W
+    n_splits = util.cdiv(cap, split)
+    part_v = torch.empty((n_splits, nq, r_keep), dtype=torch.float32,
+                         device=dev)
+    part_a = torch.empty((n_splits, nq, r_keep), dtype=torch.int32,
+                         device=dev)
+    rc = lib.torchpq_flat_scan(
+        qtable.data_ptr(), penalty.data_ptr(), decoded.data_ptr(),
+        part_v.data_ptr(), part_a.data_ptr(), out_v.data_ptr(),
+        out_a.data_ptr(), nq, cap, d, r_keep, split, n_splits,
+        int(euclidean), is_bf16, pt, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"flat_scan kernel launch failed: CUDA error {rc}")
+    return out_v, out_a

@@ -22,7 +22,8 @@ import torch
 
 from .. import util
 from ..metric import canonical_distance
-from .adc import LAST_GATE, _block_select, _merge_pairs, _pack_pairs
+from .adc import LAST_GATE, _block_select, _merge_pairs, _pack_pairs, \
+    gate_kernel
 from .block_scan import BIG, select_chunks
 from .codes_scan import codes_kernel_static_gate, codes_scan, decode_codes
 from .flat_adc import final_merge, flat_sweep
@@ -82,10 +83,12 @@ def _lut_block_scores(lut_flat, probers, start_c, off, cap, penalty, codes,
 def scan_cell_major_codes(query, cells, probe_mask, codes, norms, is_empty,
                           cell_start, cell_capacity, codebook, *, k,
                           distance, s_max, n_cells, p_tile=128, approx=False,
-                          m=None):
+                          m=None, impl="auto"):
     """Cell-major scan over raw uint8 codes (onehot_adc.py:
     scan_cell_major_codes at the default k_pair). codes is [cap, m], or the
-    packed [cap/g, g*m] storage with `m` given; codebook [m, nc, dsub]."""
+    packed [cap/g, g*m] storage with `m` given; codebook [m, nc, dsub].
+    impl routes as in adc.scan_cell_major: "xla" and "pallas_flat" take the
+    LUT path, "pallas" raises where the codes kernel's gate fails."""
     distance = canonical_distance(distance)
     _no_manhattan(distance)
     query = query.float()
@@ -107,10 +110,11 @@ def scan_cell_major_codes(query, cells, probe_mask, codes, norms, is_empty,
     # pack32 slot bits: the kernel path takes windows up to 8192 slots, the
     # LUT path keeps the decoded scan's 4096 (:158-163, :193-194)
     pack32 = approx and s_pow2 <= 8192
-    use_kernel = (k_pair <= 64
-                  and codes_kernel_static_gate(m, g, d, distance)
-                  and (not approx or (pack32 and (
-                      s_eff % 128 == 0 or (s_pow2 == s_eff and s_eff < 128)))))
+    use_kernel = gate_kernel(impl, (
+        k_pair <= 64 and codes_kernel_static_gate(m, g, d, distance)
+        and (not approx or (pack32 and (
+            s_eff % 128 == 0 or (s_pow2 == s_eff and s_eff < 128))))),
+        "scan_cell_major_codes")
     if not use_kernel:
         pack32 = approx and s_pow2 <= 4096
 

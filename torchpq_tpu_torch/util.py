@@ -102,6 +102,18 @@ def matmul_f32(a, b_t):
     return a.float() @ b_t.float().T
 
 
+def int8_quantize_rows(rows):
+    """Per-row symmetric int8 quantization of the int8 scan cache
+    (torchpq_tpu/util.py:int8_quantize_rows): rows [n, d] f32 -> (q [n, d]
+    int8, scale [n] f32) with rows ~= q * scale[:, None]. torch.round
+    rounds half to even, as jnp.round does. The divisor 127 is a tensor on
+    the rows' device: by a Python scalar, CUDA tensors are multiplied by
+    its reciprocal, one ulp off the quotient on some rows."""
+    absmax = torch.clamp(rows.abs().amax(dim=-1), min=1e-12)
+    scale = absmax / torch.tensor(127.0, device=rows.device)
+    return torch.round(rows / scale[:, None]).to(torch.int8), scale
+
+
 def exclusive_cumsum(x):
     out = torch.zeros_like(x)
     if x.numel() > 1:
