@@ -14,9 +14,12 @@ Phases, each of which fails the run on error:
      selects, with CUDA-event times of each; then the f32-cache kernel;
      then the codes-scan kernel against `codes_scan_ref` (PQ64 codes,
      s_eff 1024, 1024 blocks), both selects; then the block scan's int8
-     mode at d 128 and 1024 (both selects, bit for bit); the flat-scan
-     kernel against `flat_scan_ref` (cap 262,144, 1,024 queries, the
-     glue's head k=10 addresses equal outside ties); the row gather against
+     mode at d 128 and 1024 (both selects, bit for bit); the flat scan's
+     two kernels (tensor cores, CUDA cores) against `flat_scan_ref` (cap
+     262,144, 1,024 queries, the glue's head k=10 addresses equal outside
+     ties), the tensor-core one also at d 1024 and at r_keep 32 (values
+     within tolerance, addresses equal outside ties) and on integer-valued
+     inputs with ties at d 128 and 1024 (bit for bit); the row gather against
      `table[idx.clamp]` (f32, bf16, int8 tables, out-of-range indices, bit
      for bit).
   4. the slice: 1M x 128 manifold-12 base + 10k queries (the numpy draws of
@@ -63,12 +66,16 @@ Phases, each of which fails the run on error:
      sweep over the same PQ-decoded rows; the int8 kernel at d_cache=1024
      against its plain version on the phase's own arguments.
  10. fused flat scan: the main index with scan_impl="pallas_flat" and
-     approx top-k; the flat counter zeroed, the flat plan must launch the
-     flat kernel, agree with the exact flat plan on >= 0.98 of ids and lie
-     within 0.01 of its recall (the kernel's bucket top-2 approximation);
-     both timed in this call; then the kernel against `flat_scan_ref` on
-     the plan's own arguments (head-k addresses equal outside ties),
-     timed.
+     approx top-k; the flat counters zeroed, the flat plan must launch the
+     tensor-core flat kernel, agree with the exact flat plan on >= 0.98 of
+     ids and lie within 0.01 of its recall (the kernel's bucket top-2
+     approximation); both timed in this call; then the kernel against
+     `flat_scan_ref` on the plan's own arguments (head-k addresses equal
+     outside ties), timed in turns with the CUDA-core kernel on the same
+     arguments (TFLOP/s and share of the bound of each), beside a
+     yardstick of the product alone (bf16 torch.matmul over a 65,536-slot
+     slice, scaled to the cache) and of the kernel at half the width (the
+     same epilogue, half the products).
  11. profile: torch.profiler over one search per plan of the bf16, code
      domain and int8 indexes and the pallas_flat flat plan; device-busy
      time and the largest kernels of each.
@@ -309,19 +316,7 @@ def phase_kernels(torch, bs, cs, fs, gr):
             name = "block_scan_int8_" + ("pack32" if pack32 else "exact")
             log(kernel_row(name, 1024, 1024, *res) + f" (d={d})")
         del args
-    # the flat scan: the glue's head k=10 of the top r_keep=16
-    args = fs.random_flat_inputs("cuda", nq=1024, cap=262144, seed=5)
-    v, a = fs.flat_scan(*args, r_keep=16, euclidean=True)
-    torch.cuda.synchronize()
-    vr, ar = fs.flat_scan_ref(*args, r_keep=16, euclidean=True)
-    err = compare_topk(torch, v[:, :10], a[:, :10], vr[:, :10], ar[:, :10])
-    ms = cuda_ms(torch, lambda: fs.flat_scan(*args, r_keep=16,
-                                             euclidean=True), 5)
-    plain_ms = cuda_ms(torch, lambda: fs.flat_scan_ref(
-        *args, r_keep=16, euclidean=True), 2)
-    log(f"flat_scan nq=1024 cap=262144: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, max_abs_err {err:.3g}, head-10 addresses "
-        f"equal {share_equal(a[:, :10], ar[:, :10]):.5f}")
+    phase_flat_kernels(torch, fs)
     # the row gather: bit for bit, out-of-range indices clipped
     g = torch.Generator(device="cuda").manual_seed(9)
     for dtype in (torch.float32, torch.bfloat16, torch.int8):
@@ -336,6 +331,62 @@ def phase_kernels(torch, bs, cs, fs, gr):
         ms = cuda_ms(torch, lambda: gr.gather_rows(table, idx), 20)
         log(f"gather_rows {dtype} [100000, 128] x 2^20 indices: equal bit "
             f"for bit; kernel {ms:.3f} ms")
+
+
+def flat_launch(torch, fs, args, route, **kw):
+    """The flat scan's kernel of `route` ("flat_tc" or "flat") on args,
+    without counting a launch: the comparisons with the plain version and
+    the yardstick times."""
+    from torchpq_tpu_torch import _build
+    return fs.launch(_build.library(), torch.cuda.current_stream().cuda_stream,
+                     *args, route=route, **kw)
+
+
+def phase_flat_kernels(torch, fs):
+    """The flat scan's two kernels on seeded inputs: the glue's head k=10
+    of the top r_keep=16 (tolerances), then the tensor-core kernel at d
+    1024 (K chunks, queries in shared memory) and at r_keep 32, and on
+    integer-valued inputs with ties (bit for bit)."""
+    args = fs.random_flat_inputs("cuda", nq=1024, cap=262144, seed=5)
+    vr, ar = fs.flat_scan_ref(*args, r_keep=16, euclidean=True)
+    plain_ms = cuda_ms(torch, lambda: fs.flat_scan_ref(
+        *args, r_keep=16, euclidean=True), 2)
+    for route in ("flat_tc", "flat"):
+        v, a = flat_launch(torch, fs, args, route, r_keep=16, euclidean=True)
+        torch.cuda.synchronize()
+        err = compare_topk(torch, v[:, :10], a[:, :10], vr[:, :10],
+                           ar[:, :10])
+        ms = cuda_ms(torch, lambda: flat_launch(
+            torch, fs, args, route, r_keep=16, euclidean=True), 5)
+        log(f"flat_scan ({route}) nq=1024 cap=262144: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, max_abs_err {err:.3g}, head-10 "
+            f"addresses equal {share_equal(a[:, :10], ar[:, :10]):.5f}")
+    for d, r_keep, cap in ((1024, 16, 100000), (128, 32, 100000)):
+        args = fs.random_flat_inputs("cuda", nq=1000, cap=cap, d=d, seed=d)
+        v, a = flat_launch(torch, fs, args, "flat_tc", r_keep=r_keep,
+                           euclidean=True)
+        torch.cuda.synchronize()
+        vr, ar = fs.flat_scan_ref(*args, r_keep=r_keep, euclidean=True)
+        err = compare_topk(torch, v, a, vr, ar)
+        log(f"flat_scan (flat_tc) nq=1000 cap={cap} d={d} r_keep={r_keep}: "
+            f"max_abs_err {err:.3g}, addresses equal "
+            f"{share_equal(a, ar):.5f}")
+    for d in (128, 1024):
+        args = fs.integer_flat_inputs("cuda", nq=1000, cap=100000, d=d,
+                                      seed=d)
+        for euclidean in (True, False):
+            v, a = flat_launch(torch, fs, args, "flat_tc", r_keep=16,
+                               euclidean=euclidean)
+            torch.cuda.synchronize()
+            vr, ar = fs.flat_scan_ref(*args, r_keep=16, euclidean=euclidean)
+            if not (torch.equal(v, vr) and torch.equal(a, ar)):
+                fail(f"flat_scan (flat_tc) differs from flat_scan_ref on "
+                     f"integer inputs (d={d}, euclidean={euclidean}): "
+                     f"{share_equal(a, ar):.5f} of addresses equal")
+        ties = int((vr[:, 1:] == vr[:, :-1]).sum())
+        log(f"flat_scan (flat_tc) integer inputs nq=1000 cap=100000 d={d}: "
+            f"equal bit for bit, values and addresses ({ties} tied "
+            f"neighbours in the lists)")
 
 
 def capture_call(tp, index, xq, k, module=None, name="block_scan"):
@@ -801,10 +852,14 @@ def phase_int8(torch, tp, bs, sl):
 
 def phase_pallas_flat(torch, tp, fs, sl):
     """scan_impl="pallas_flat" on the main index: the flat plan through the
-    fused flat-scan kernel (its counter zeroed before, read after), held
-    to the exact flat plan run in the same call (ids >= 0.98, recall
-    within 0.01), both timed; then the kernel against flat_scan_ref on the
-    plan's own arguments. Returns (launch counts, the kernel's JSON row)."""
+    fused flat scan (its counters zeroed before, read after; the bf16
+    cache must take the tensor-core kernel), held to the exact flat plan
+    run in the same call (ids >= 0.98, recall within 0.01), both timed;
+    then the kernel against flat_scan_ref on the plan's own arguments,
+    timed in turns with the CUDA-core kernel on the same arguments, and a
+    yardstick of the product alone (bf16 torch.matmul over a slice of the
+    cache, scaled to the whole). Returns (launch counts, the kernel's JSON
+    row)."""
     index, xq, gt, k = (sl[x] for x in ("index", "xq", "gt", "k"))
     index.scan_mode, index.use_approx_topk = "flat", True
 
@@ -826,9 +881,10 @@ def phase_pallas_flat(torch, tp, fs, sl):
     index.scan_impl = "pallas_flat"
     (v, i), kern_ms = timed()
     counts = dict(fs.launches)
-    if counts["flat"] <= 0 or tp.ops.flat_adc.LAST_FLAT["impl"] != \
+    if counts["flat_tc"] <= 0 or tp.ops.flat_adc.LAST_FLAT["impl"] != \
             "flat_scan":
-        fail("the pallas_flat flat plan did not launch the flat kernel")
+        fail("the pallas_flat flat plan did not launch the tensor-core flat "
+             f"kernel: {counts}")
     agree = recall_at(i.long(), i_ref.long())
     r_k, r_s = recall_at(i.long(), gt), recall_at(i_ref.long(), gt)
     log(f"pallas_flat flat plan: {kern_ms:.2f} ms ({xq.shape[0] / kern_ms * 1e3:.0f} q/s), "
@@ -845,29 +901,54 @@ def phase_pallas_flat(torch, tp, fs, sl):
     args, kw = capture_call(tp, index, xq, k, module=tp.ops.flat_adc,
                             name="flat_scan")
     index.scan_impl = "auto"
-    got = fs.flat_scan(*args, **kw)
+    got = flat_launch(torch, fs, args, "flat_tc", **kw)
     torch.cuda.synchronize()
     ref = fs.flat_scan_ref(*args, **kw)
     err = compare_topk(torch, got[0][:, :k], got[1][:, :k], ref[0][:, :k],
                        ref[1][:, :k])
-    ms = cuda_ms(torch, lambda: fs.flat_scan(*args, **kw), 5)
-    plain_ms = cuda_ms(torch, lambda: fs.flat_scan_ref(*args, **kw), 2)
     q, dec = args[0], args[1]
     nq, d = q.shape
     cap = dec.shape[0]
-    b_ms, b_by = bound(2.0 * nq * cap * d,
-                       cap * d * dec.element_size() + cap * 4 + nq * d * 4
-                       + nq * kw["r_keep"] * 8, "bf16")
+    # in turns: CUDA cores, tensor cores, tensor cores, CUDA cores
+    times = {"flat": [], "flat_tc": []}
+    for route in ("flat", "flat_tc", "flat_tc", "flat"):
+        times[route].append(cuda_ms(torch, lambda: flat_launch(
+            torch, fs, args, route, **kw), 3 if route == "flat" else 10))
+    ms, cc_ms = (float(np.mean(times[r])) for r in ("flat_tc", "flat"))
+    plain_ms = cuda_ms(torch, lambda: fs.flat_scan_ref(*args, **kw), 2)
+    flop = 2.0 * nq * cap * d
+    b_ms, b_by = bound(flop, cap * d * dec.element_size() + cap * 4
+                       + nq * d * 4 + nq * kw["r_keep"] * 8, "bf16")
+    # the product alone: bf16 queries x a 65,536-slot slice, scaled to cap
+    sl_rows = min(cap, 65536)
+    qb, yb = q.to(torch.bfloat16), dec[:sl_rows]
+    mm_ms = cuda_ms(torch, lambda: torch.matmul(qb, yb.T), 10) * cap / sl_rows
+    # the same queries and slots at d = 64: half the products, the same
+    # epilogue, which splits the kernel's time between the two
+    half = fs.random_flat_inputs("cuda", nq=nq, cap=cap, d=d // 2, seed=1)
+    half_ms = cuda_ms(torch, lambda: flat_launch(torch, fs, half, "flat_tc",
+                                                 **kw), 10)
+    del half
     log(f"flat_scan on the plan's arguments (nq={nq}, cap={cap}, d={d}, "
-        f"r_keep={kw['r_keep']}): kernel {ms:.3f} ms, plain {plain_ms:.3f}"
-        f" ms, bound {b_ms:.3f} ms ({b_by}), max_abs_err {err:.3g}; "
-        f"{2.0 * nq * cap * d / ms / 1e9:.2f} TFLOP/s")
+        f"r_keep={kw['r_keep']}): tensor cores {ms:.3f} ms "
+        f"({' / '.join(f'{t:.3f}' for t in times['flat_tc'])}; "
+        f"{flop / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.1%} of the bound), CUDA "
+        f"cores {cc_ms:.3f} ms "
+        f"({' / '.join(f'{t:.3f}' for t in times['flat'])}; "
+        f"{flop / cc_ms / 1e9:.2f} TFLOP/s), speed-up {cc_ms / ms:.2f}x; "
+        f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
+        f"max_abs_err {err:.3g}")
+    log(f"flat_scan yardstick, the product alone (bf16 torch.matmul "
+        f"[{nq}, {d}] x [{d}, {sl_rows}], scaled to cap): {mm_ms:.3f} ms "
+        f"({flop / mm_ms / 1e9:.2f} TFLOP/s); tensor cores at d={d // 2} "
+        f"(half the products, the same epilogue): {half_ms:.3f} ms")
     return counts, dict(
         name="flat_scan", route="cuda",
-        source="torchpq_tpu_torch/csrc/flat_scan.cu",
+        source="torchpq_tpu_torch/csrc/flat_scan_tc.cu",
         replaces="torchpq_tpu/ops/pallas_flat.py:139", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None)
+        library_ms=None, cuda_core_ms=cc_ms,
+        cuda_core_source="torchpq_tpu_torch/csrc/flat_scan.cu")
 
 
 # the GIST-class phase's searches
@@ -1096,7 +1177,7 @@ def main():
              int8_counts["int8_pack32"]),
             ("codes_scan_exact", code_rows, code_counts["exact"]),
             ("codes_scan_pack32", code_rows, code_counts["pack32"]),
-            ("flat_scan", {"flat_scan": flat_row}, flat_counts["flat"]),
+            ("flat_scan", {"flat_scan": flat_row}, flat_counts["flat_tc"]),
             ("gather_rows", krows, counts["gather"])):
         kernels.append(dict(row[name], launches=cnt))
     log(f"GIST-class int8 launches (not in the JSON line, whose int8 rows "

@@ -91,6 +91,65 @@ def test_flat_scan_checks_inputs(rng):
         fs.flat_scan(args[0].double(), *args[1:], r_keep=8, euclidean=True)
 
 
+@pytest.mark.parametrize("distance", ["euclidean", "inner"])
+def test_flat_scan_ref_integer_ties_match_pallas(distance):
+    """Integer-valued inputs with equal rows inside and across buckets
+    (the card tests' tie case): every sum is exact in any order, so the
+    plain version equals the JAX kernel bit for bit, addresses included."""
+    q, y, pen = fs.integer_flat_inputs("cpu", nq=16, cap=4096, d=32, seed=3)
+    v_ref, a_ref = pallas_flat.flat_scan_pallas(
+        jnp.asarray(q.numpy()), jnp.asarray(y.float().numpy(), jnp.bfloat16),
+        jnp.asarray(pen.numpy()), r_keep=16, w=2048, q_tile=8,
+        distance=distance, interpret=True)
+    v, a = fs.flat_scan(q, y, pen, r_keep=16,
+                        euclidean=distance == "euclidean")
+    assert bool((v[:, 1:] == v[:, :-1]).any()), "the case must hold ties"
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+    np.testing.assert_array_equal(a.numpy(), np.asarray(a_ref))
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 128, "flat_tc"), (torch.bfloat16, 1024, "flat_tc"),
+    (torch.bfloat16, 8, "flat_tc"), (torch.bfloat16, 40, "flat_tc"),
+    (torch.bfloat16, 100, "flat"), (torch.bfloat16, 1032, "flat"),
+    (torch.float32, 128, "flat"), (torch.float32, 1024, "flat")])
+def test_pick_route(dtype, d, route):
+    """The wrapper's choice of kernel, made from the cache's dtype and
+    width before launch: the tensor cores take bf16 with d % 8 == 0 and
+    d <= 1024, the CUDA cores the rest."""
+    assert fs.pick_route(dtype, d) == route
+
+
+def test_launch_refuses_a_route_that_does_not_take_the_cache(rng):
+    """Forcing the tensor-core route onto an f32 cache, or naming no known
+    route, raises before any kernel is touched."""
+    q, y, pen = _inputs(rng, nq=4, cap=2048)
+    args = [torch.from_numpy(q), to_t(y), torch.from_numpy(pen)]
+    with pytest.raises(ValueError, match="tensor-core"):
+        fs.launch(None, 0, *args, r_keep=8, euclidean=True, route="flat_tc")
+    with pytest.raises(ValueError, match="route"):
+        fs.launch(None, 0, *args, r_keep=8, euclidean=True, route="wgmma")
+
+
+@pytest.mark.parametrize("nq,cap,rows,resident", [
+    (10000, 1 << 20, 128, 2), (10000, 1 << 20, 256, 1),
+    (300, 20000, 128, 2), (40, 4100, 64, 1), (1, 2048, 128, 2)])
+def test_tc_splits(nq, cap, rows, resident):
+    """The tensor-core kernel's split: whole windows, the runs cover the
+    padded cache with no empty run, and at least two CTAs per SM of 132
+    wherever the cache has windows enough (the flat plan: 10k queries x
+    1M slots), within four waves of resident CTAs."""
+    split, n_splits = fs.tc_splits(nq, cap, rows, resident, 132)
+    assert split % fs.W == 0
+    assert split * n_splits >= cap > split * (n_splits - 1)
+    ctas = -(-nq // rows) * n_splits
+    n_windows = -(-cap // fs.W)
+    if -(-nq // rows) * n_windows >= 2 * 132:
+        assert 2 * 132 <= ctas <= 4 * 132 * resident
+    else:
+        assert n_splits == n_windows
+
+
 def _data(seed, n, d=32):
     rng = np.random.default_rng(seed)
     centers = rng.normal(size=(40, d)).astype(np.float32) * 3

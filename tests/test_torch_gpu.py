@@ -1,6 +1,6 @@
 """The port's CUDA kernels (block scan in its bf16/f32 and int8 modes, codes
-scan, flat scan, row gather) against their plain PyTorch versions, on a
-card.
+scan, flat scan on its tensor-core and CUDA-core routes, row gather)
+against their plain PyTorch versions, on a card.
 
 Marked `gpu`: without a CUDA card every test here skips. This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -320,23 +320,85 @@ def test_flat_kernel_matches_plain(cuda, dtype, nq, cap, r_keep):
     order; scores differ only by the f32 summation order of the plain
     version's GEMM (bf16 products are exact in f32), so values agree to
     1e-3 relative and addresses on >= 0.99 of entries (near ties may
-    swap). cap 20000 is not a multiple of the 2048-slot window."""
+    swap). cap 20000 is not a multiple of the 2048-slot window. bf16 at
+    d = 128 takes the tensor-core kernel, f32 the CUDA-core one."""
     args = fs.random_flat_inputs(cuda, nq=nq, cap=cap, dtype=dtype)
-    before = fs.launches["flat"]
+    route = fs.pick_route(dtype, 128)
+    before = fs.launches[route]
     v, a = fs.flat_scan(*args, r_keep=r_keep, euclidean=True)
     torch.cuda.synchronize()
-    assert fs.launches["flat"] == before + 1
+    assert fs.launches[route] == before + 1
     v_ref, a_ref = fs.flat_scan_ref(*args, r_keep=r_keep, euclidean=True)
     torch.testing.assert_close(v, v_ref, rtol=1e-3, atol=1e-3)
     assert (a == a_ref).float().mean().item() >= 0.99
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128, 1024])
+@pytest.mark.parametrize("nq,cap,r_keep", [(300, 20000, 16), (1000, 60000, 32),
+                                           (40, 4100, 8)])
+def test_flat_tc_kernel_matches_plain(cuda, d, nq, cap, r_keep):
+    """The tensor-core route against flat_scan_ref on random bf16 inputs,
+    at the tolerances of the test above (the tensor cores sum in another
+    order than the plain version's GEMM). Every cap is off the 2048-slot
+    window; d = 1024 walks the cache in K chunks with the queries in shared
+    memory, as r_keep = 32 does at any d; r_keep 8 and 16 below d = 128
+    keep them in registers."""
+    args = fs.random_flat_inputs(cuda, nq=nq, cap=cap, d=d, seed=d + cap)
+    before = dict(fs.launches)
+    v, a = fs.flat_scan(*args, r_keep=r_keep, euclidean=True)
+    torch.cuda.synchronize()
+    assert fs.launches == dict(before, flat_tc=before["flat_tc"] + 1)
+    v_ref, a_ref = fs.flat_scan_ref(*args, r_keep=r_keep, euclidean=True)
+    torch.testing.assert_close(v, v_ref, rtol=1e-3, atol=1e-3)
+    assert (a == a_ref).float().mean().item() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,r_keep,euclidean", [(128, 16, True),
+                                                (128, 32, False),
+                                                (1024, 16, True),
+                                                (40, 8, True)])
+def test_flat_tc_kernel_integer_ties_exact(cuda, d, r_keep, euclidean):
+    """Integer-valued inputs with equal rows inside and across buckets:
+    every sum is exact in any order, so the tensor-core kernel equals the
+    plain version bit for bit, values and addresses, ties included."""
+    args = fs.integer_flat_inputs(cuda, nq=500, cap=30000, d=d, seed=d)
+    before = fs.launches["flat_tc"]
+    v, a = fs.flat_scan(*args, r_keep=r_keep, euclidean=euclidean)
+    torch.cuda.synchronize()
+    assert fs.launches["flat_tc"] == before + 1
+    v_ref, a_ref = fs.flat_scan_ref(*args, r_keep=r_keep, euclidean=euclidean)
+    assert torch.equal(v, v_ref)
+    assert torch.equal(a, a_ref)
+
+
+@pytest.mark.gpu
+def test_flat_routes_on_card(cuda):
+    """bf16 at d = 128 launches the tensor-core kernel; an f32 cache and a
+    bf16 cache at d = 100 launch the CUDA-core one; each counts under its
+    own key and matches the plain version."""
+    for dtype, d, route in ((torch.bfloat16, 128, "flat_tc"),
+                            (torch.float32, 128, "flat"),
+                            (torch.bfloat16, 100, "flat")):
+        args = fs.random_flat_inputs(cuda, nq=200, cap=8192, d=d,
+                                     dtype=dtype)
+        before = dict(fs.launches)
+        v, a = fs.flat_scan(*args, r_keep=16, euclidean=True)
+        torch.cuda.synchronize()
+        assert fs.launches == dict(before, **{route: before[route] + 1})
+        v_ref, a_ref = fs.flat_scan_ref(*args, r_keep=16, euclidean=True)
+        torch.testing.assert_close(v, v_ref, rtol=1e-3, atol=1e-3)
+        assert (a == a_ref).float().mean().item() >= 0.99
+
+
+@pytest.mark.gpu
 def test_pallas_flat_index_on_card(cuda):
     """scan_impl="pallas_flat": the flat plan launches the flat kernel on
-    the card and finds what the same index finds on the CPU (the plain
-    version; only the f32 sum order differs); scan_impl="pallas" raises on
-    the card where the block scan's gate fails (k_pair > 64)."""
+    the card (the bf16 cache at d = 32: the tensor-core route) and finds
+    what the same index finds on the CPU (the plain version; only the f32
+    sum order differs); scan_impl="pallas" raises on the card where the
+    block scan's gate fails (k_pair > 64)."""
     import numpy as np
     import torchpq_tpu_torch as tp
 
@@ -355,9 +417,9 @@ def test_pallas_flat_index_on_card(cuda):
         idx.scan_mode, idx.scan_impl, idx.use_approx_topk = \
             "flat", "pallas_flat", True
     v_ref, i_ref = cpu.search(q.T, k=10)
-    before = fs.launches["flat"]
+    before = fs.launches["flat_tc"]
     v, i = gpu.search(torch.from_numpy(q).to(cuda).T, k=10)
-    assert fs.launches["flat"] == before + 1
+    assert fs.launches["flat_tc"] == before + 1
     assert flat_adc.LAST_FLAT["impl"] == "flat_scan"
     shared = sum(len(set(a.tolist()) & set(b.tolist()))
                  for a, b in zip(i.cpu(), i_ref)) / i_ref.numel()

@@ -39,6 +39,9 @@ _SIGNATURES = {
     "torchpq_codes_scan_smem": ([_I] * 4, _L),
     "torchpq_flat_scan": ([_P] * 7 + [_I] * 9 + [_P], _I),
     "torchpq_flat_scan_smem": ([_I] * 3, _L),
+    "torchpq_flat_scan_tc": ([_P] * 7 + [_I] * 8 + [_P], _I),
+    "torchpq_flat_scan_tc_smem": ([_I] * 3, _L),
+    "torchpq_flat_scan_tc_occupancy": ([_I] * 3, _I),
     "torchpq_gather_rows": ([_P] * 3 + [_L] * 3 + [_I, _P], _I),
 }
 

@@ -16,27 +16,26 @@
 // That top R is associative over address ranges, so the kernel splits the
 // cache: CTA (x, y) scores queries [x*pt, x*pt + pt) (one per thread)
 // against slots [y*split, (y+1)*split) and keeps a sorted top-KMAX list in
-// registers; a second kernel merges the n_splits partial lists of each
-// query in split (address) order, with ties to the earlier entry. The TPU
-// grid (one program per 512 queries) would give 20 CTAs at 10k queries for
-// 132 SMs; the split gives n_splits times as many.
+// registers; a second kernel (flat_common.cuh) merges the n_splits partial
+// lists of each query in split (address) order, with ties to the earlier
+// entry. The TPU grid (one program per 512 queries) would give 20 CTAs at
+// 10k queries for 132 SMs; the split gives n_splits times as many.
 //
 // Scoring is scan_common.cuh's f32 FMA loop over shared-memory tiles (query
 // rows in the cache's dtype, bf16-rounded by the wrapper). What bounds it on
 // an H100: 2 * nq * cap * d operations against cap * d * 2 bytes of cache
-// (bf16), so it is compute-bound (some 10^3 operations per byte read); the
-// CUDA cores' f32 FMA rate is this version's limit, and a tensor-core
-// (wgmma) version is later work.
+// (bf16), so it is compute-bound (some 10^3 operations per byte read), and
+// the CUDA cores' f32 FMA rate is this version's limit. It is the route of
+// f32 caches and of the bf16 widths the tensor-core kernel does not take
+// (d % 8 != 0 or d > 1024); flat_scan_tc.cu serves every other bf16 cache.
 
 #include <cstdint>
 
-#include "scan_common.cuh"
+#include "flat_common.cuh"
 
 namespace {
 
 using namespace tpq;
-
-constexpr int BUCKET = 64;  // slots per bucket; every split starts on one
 
 // A window of cache rows [s0, s0 + s_eff) of which the first n_valid exist;
 // the rest are the glue's dead pad rows (zero, penalty BIG).
@@ -128,37 +127,6 @@ __global__ void flat_scan_kernel(const T* __restrict__ qtable,
   }
 }
 
-// Merge the n_splits sorted partial lists of each query, in split order.
-template <int KMAX>
-__global__ void flat_merge_kernel(const float* __restrict__ part_v,
-                                  const int* __restrict__ part_a,
-                                  float* __restrict__ out_v,
-                                  int* __restrict__ out_a, int nq,
-                                  int r_keep, int n_splits) {
-  const int q = blockIdx.x * blockDim.x + threadIdx.x;
-  if (q >= nq) return;
-  float vals[KMAX];
-  int slots[KMAX];
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    vals[i] = neg_inf();
-    slots[i] = -1;
-  }
-  for (int s = 0; s < n_splits; ++s) {
-    const size_t o = ((size_t)s * nq + q) * r_keep;
-    for (int i = 0; i < r_keep; ++i) {
-      insert<KMAX>(vals, slots, part_v[o + i], part_a[o + i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < KMAX; ++i) {
-    if (i < r_keep) {
-      out_v[(size_t)q * r_keep + i] = vals[i];
-      out_a[(size_t)q * r_keep + i] = slots[i];
-    }
-  }
-}
-
 template <typename T, int KMAX>
 int launch(const void* qtable, const float* penalty, const void* decoded,
            float* part_v, int* part_a, float* out_v, int* out_a, int nq,
@@ -171,9 +139,8 @@ int launch(const void* qtable, const float* penalty, const void* decoded,
                          static_cast<const T*>(decoded), part_v, part_a, nq,
                          cap, d, r_keep, split, factor);
   if (rc != 0) return rc;
-  flat_merge_kernel<KMAX><<<(nq + 127) / 128, 128, 0, stream>>>(
-      part_v, part_a, out_v, out_a, nq, r_keep, n_splits);
-  return (int)cudaGetLastError();
+  return launch_flat_merge<KMAX>(part_v, part_a, out_v, out_a, nq, r_keep,
+                                 n_splits, stream);
 }
 
 template <typename T>

@@ -2,8 +2,14 @@
 of bucket winners (the flat plan's kernel under scan_impl="pallas_flat").
 
 Replaces the TPU kernel torchpq_tpu/ops/pallas_flat.py:flat_scan_pallas.
-The kernel is `csrc/flat_scan.cu`, built by `_build.py` and bound through a
-plain C entry point.
+Two kernels serve it, chosen by the cache's dtype and width before launch
+(`pick_route`), each built by `_build.py` and bound through a plain C entry
+point, each counted under its own key of `launches`:
+  - "flat_tc", `csrc/flat_scan_tc.cu`: bf16 caches with d % 8 == 0 and
+    d <= 1024 (the main index's d = 128 and every lane-padded width), on
+    the tensor cores (mma.sync bf16, f32 sums);
+  - "flat", `csrc/flat_scan.cu`: f32 caches and the other widths, on the
+    CUDA cores (f32 FMAs).
 
 What it computes, for query q and slot j of a cache padded to a multiple of
 W = 2048 slots (the TPU kernel's window) with dead slots (zero rows,
@@ -18,30 +24,36 @@ descending then address ascending -> (values [nq, r_keep] f32, addresses
 caller masks them.
 
 What bounds it on an H100: 2 * nq * cap * d operations on cap * d cache
-elements, so arithmetic, not bytes. The kernel splits the cache across
-CTAs (the top R is associative over address ranges) and merges the
-partial lists in a second launch; it scores with the block scan's f32 FMA
-loop, and the tensor cores are the next step.
+elements, so arithmetic, not bytes. Both kernels split the cache across
+CTAs (the top R is associative over address ranges) and merge the partial
+lists in a second launch.
 
 `flat_scan` takes the plain version `flat_scan_ref` only for tensors on the
-CPU. For CUDA tensors it launches the kernel or raises.
+CPU. For CUDA tensors it launches the kernel of its route or raises.
 """
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import util
 from .block_scan import BIG, _SMEM_LIMIT
 
 # kernel launches, counted by `flat_scan` where it launches
-launches = {"flat": 0}
+launches = {"flat": 0, "flat_tc": 0}
 
 W = 2048     # the TPU kernel's window; the cache pads to a multiple
 BUCKET = 64  # slots per bucket, W / 32 (pallas_flat.py:151; flat_scan.cu)
 
 # CTAs to aim for when splitting the cache (4 per SM of an H100's 132)
 _TARGET_CTAS = 528
+_H100_SMS = 132  # SMs assumed for tensors that are not on a card
+
+# warps per CTA of the tensor-core kernel (32 queries each), the first whose
+# shared memory fits: 8 warps (one CTA per SM by registers) read each cache
+# tile into shared memory once for 256 queries
+_TC_WARPS = (8, 4, 2, 1)
 
 _CHUNK_SCORES = 1 << 26  # f32 scores per chunk of the plain version
 
@@ -103,6 +115,25 @@ def random_flat_inputs(device, *, nq, cap, d=128, dtype=torch.bfloat16,
     return [query, decoded, penalty]
 
 
+def integer_flat_inputs(device, *, nq, cap, d=128, seed=0):
+    """Seeded integer-valued flat-scan inputs (numpy draws): query and bf16
+    cache entries in {-3..3}, integer penalties with BIG at 5% empty
+    slots, and equal rows inside and across buckets. Every score is an
+    integer the f32 sums hold exactly in any order, so the kernels and the
+    plain version agree bit for bit, ties and addresses included."""
+    rng = np.random.default_rng(seed)
+    query = rng.integers(-3, 4, (nq, d)).astype(np.float32)
+    decoded = rng.integers(-3, 4, (cap, d)).astype(np.float32)
+    run = slice(cap // 10, cap // 10 + min(200, cap // 5))
+    decoded[run] = decoded[run.start]       # a run of equal rows
+    decoded[cap // 2::97] = decoded[1]      # equal rows far apart
+    penalty = rng.integers(-50, 50, cap).astype(np.float32)
+    penalty[rng.random(cap) < 0.05] = BIG
+    return [torch.from_numpy(query).to(device),
+            torch.from_numpy(decoded).to(torch.bfloat16).to(device),
+            torch.from_numpy(penalty).to(device)]
+
+
 def _check(query, decoded, penalty, r_keep):
     dev = decoded.device
     if decoded.dtype not in (torch.bfloat16, torch.float32) \
@@ -125,6 +156,39 @@ def _check(query, decoded, penalty, r_keep):
         raise ValueError(f"need 1 <= r_keep={r_keep} <= 32")
 
 
+def pick_route(dtype, d):
+    """The kernel that serves a cache of `dtype` and width d, which is also
+    its key in `launches`: "flat_tc" (tensor cores) for bf16 with
+    d % 8 == 0 and d <= 1024, else "flat" (CUDA cores)."""
+    if dtype == torch.bfloat16 and d % 8 == 0 and 0 < d <= 1024:
+        return "flat_tc"
+    return "flat"
+
+
+def tc_splits(nq, cap, rows, resident, n_sm):
+    """(split, n_splits) of the tensor-core kernel: runs of whole windows,
+    as even as the window count allows; CTAs of `rows` queries, `resident`
+    of them per SM at once. Of the split counts up to four waves of
+    resident CTAs, the one with at least two CTAs per SM (where the cache
+    has windows enough) and then the fullest last wave; fewer splits on a
+    tie."""
+    n_windows = util.cdiv(cap, W)
+    q_tiles = util.cdiv(nq, rows)
+    slots = n_sm * resident
+    best, best_key = None, None
+    for n_splits in range(1, n_windows + 1):
+        per = util.cdiv(n_windows, n_splits)
+        ctas = q_tiles * n_splits
+        if util.cdiv(n_windows, per) != n_splits:
+            continue  # no split of whole windows gives this count
+        if best is not None and ctas > 4 * slots:
+            break
+        key = (ctas >= 2 * n_sm, ctas / (util.cdiv(ctas, slots) * slots))
+        if best is None or key > best_key:
+            best, best_key = (per * W, n_splits), key
+    return best
+
+
 def flat_scan(query, decoded, penalty, *, r_keep, euclidean):
     """Run the flat scan: query [nq, d] f32, decoded [cap, d] bf16/f32,
     penalty [cap] f32 (norms-or-0, BIG at empty slots). Returns (values
@@ -137,48 +201,85 @@ def flat_scan(query, decoded, penalty, *, r_keep, euclidean):
         raise ValueError(f"flat_scan runs on cpu or cuda, not "
                          f"{decoded.device}")
     from .. import _build
+    route = pick_route(decoded.dtype, decoded.shape[1])
     with torch.cuda.device(decoded.device):
         stream = torch.cuda.current_stream().cuda_stream
-        out = launch(_build.library(), stream, query, decoded, penalty, **kw)
-    launches["flat"] += 1
+        out = launch(_build.library(), stream, query, decoded, penalty,
+                     route=route, **kw)
+    launches[route] += 1
     return out
 
 
-def launch(lib, stream, query, decoded, penalty, *, r_keep, euclidean):
-    """Launch the kernel of `lib` on `stream` with checked arguments;
-    raises if the launch fails."""
+def _scratch(n_splits, nq, r_keep, dev):
+    """The per-split partial lists [n_splits, nq, r_keep]: values and
+    addresses."""
+    return (torch.empty((n_splits, nq, r_keep), dtype=torch.float32,
+                        device=dev),
+            torch.empty((n_splits, nq, r_keep), dtype=torch.int32,
+                        device=dev))
+
+
+def launch(lib, stream, query, decoded, penalty, *, r_keep, euclidean,
+           route=None):
+    """Launch the kernel of `route` ("flat_tc" or "flat"; default
+    pick_route's) of `lib` on `stream` with checked arguments. Raises if
+    the route does not take the cache or the launch fails."""
     nq, d = query.shape
     cap = decoded.shape[0]
     dev = decoded.device
+    route = route or pick_route(decoded.dtype, d)
+    if route not in launches:
+        raise ValueError(f"unknown flat scan route {route!r}")
     out_v = torch.empty((nq, r_keep), dtype=torch.float32, device=dev)
     out_a = torch.empty((nq, r_keep), dtype=torch.int32, device=dev)
     if nq == 0:
         return out_v, out_a
-    if d % 4:
-        raise ValueError(f"flat scan kernel needs d % 4 == 0, got d={d}")
-    is_bf16 = int(decoded.dtype == torch.bfloat16)
     # the query rounded to bf16, in the cache's dtype for the kernel's loads
     qtable = query.to(torch.bfloat16).to(decoded.dtype).contiguous()
-    pt = next((pt for pt in (128, 64, 32)
-               if lib.torchpq_flat_scan_smem(pt, d, is_bf16) <= _SMEM_LIMIT),
-              None)
-    if pt is None:
-        raise ValueError(f"flat scan: no CTA shape fits shared memory at "
-                         f"d={d}")
-    # split the padded cache into runs of whole windows
-    n_windows = util.cdiv(cap, W)
-    want = util.cdiv(_TARGET_CTAS, util.cdiv(nq, pt))
-    split = util.cdiv(n_windows, max(1, min(want, n_windows))) * W
-    n_splits = util.cdiv(cap, split)
-    part_v = torch.empty((n_splits, nq, r_keep), dtype=torch.float32,
-                         device=dev)
-    part_a = torch.empty((n_splits, nq, r_keep), dtype=torch.int32,
-                         device=dev)
-    rc = lib.torchpq_flat_scan(
-        qtable.data_ptr(), penalty.data_ptr(), decoded.data_ptr(),
-        part_v.data_ptr(), part_a.data_ptr(), out_v.data_ptr(),
-        out_a.data_ptr(), nq, cap, d, r_keep, split, n_splits,
-        int(euclidean), is_bf16, pt, ctypes.c_void_p(stream))
+    if route == "flat_tc":
+        if pick_route(decoded.dtype, d) != "flat_tc":
+            raise ValueError(f"the tensor-core flat scan takes bf16 caches "
+                             f"with d % 8 == 0 and d <= 1024, got "
+                             f"{decoded.dtype} d={d}")
+        if decoded.data_ptr() % 16:  # its copies read 16-byte pieces
+            decoded = decoded.clone()
+        warps = next(
+            w for w in _TC_WARPS
+            if lib.torchpq_flat_scan_tc_smem(w, d, r_keep) <= _SMEM_LIMIT)
+        resident = lib.torchpq_flat_scan_tc_occupancy(warps, d, r_keep)
+        if resident <= 0:
+            raise RuntimeError(f"flat_scan_tc: no CTA of {warps} warps fits "
+                               f"an SM (CUDA error {-resident})")
+        n_sm = (torch.cuda.get_device_properties(dev).multi_processor_count
+                if dev.type == "cuda" else _H100_SMS)
+        split, n_splits = tc_splits(nq, cap, 32 * warps, resident, n_sm)
+        part_v, part_a = _scratch(n_splits, nq, r_keep, dev)
+        rc = lib.torchpq_flat_scan_tc(
+            qtable.data_ptr(), penalty.data_ptr(), decoded.data_ptr(),
+            part_v.data_ptr(), part_a.data_ptr(), out_v.data_ptr(),
+            out_a.data_ptr(), nq, cap, d, r_keep, split, n_splits,
+            int(euclidean), warps, ctypes.c_void_p(stream))
+    else:
+        if d % 4:
+            raise ValueError(f"flat scan kernel needs d % 4 == 0, got d={d}")
+        is_bf16 = int(decoded.dtype == torch.bfloat16)
+        pt = next((pt for pt in (128, 64, 32)
+                   if lib.torchpq_flat_scan_smem(pt, d, is_bf16)
+                   <= _SMEM_LIMIT), None)
+        if pt is None:
+            raise ValueError(f"flat scan: no CTA shape fits shared memory "
+                             f"at d={d}")
+        # split the padded cache into runs of whole windows
+        n_windows = util.cdiv(cap, W)
+        want = util.cdiv(_TARGET_CTAS, util.cdiv(nq, pt))
+        split = util.cdiv(n_windows, max(1, min(want, n_windows))) * W
+        n_splits = util.cdiv(cap, split)
+        part_v, part_a = _scratch(n_splits, nq, r_keep, dev)
+        rc = lib.torchpq_flat_scan(
+            qtable.data_ptr(), penalty.data_ptr(), decoded.data_ptr(),
+            part_v.data_ptr(), part_a.data_ptr(), out_v.data_ptr(),
+            out_a.data_ptr(), nq, cap, d, r_keep, split, n_splits,
+            int(euclidean), is_bf16, pt, ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"flat_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{route} kernel launch failed: CUDA error {rc}")
     return out_v, out_a
