@@ -12,8 +12,14 @@ Phases, each of which fails the run on error:
      plain PyTorch version (`block_scan_ref`) on the card (p_tile=128,
      d=128, s_eff 1024 and 2048, k_pair=10, 1024 blocks, bf16), both
      selects, with CUDA-event times of each; then the f32-cache kernel;
-     then the codes-scan kernel against `codes_scan_ref` (PQ64 codes,
-     s_eff 1024, 1024 blocks), both selects; then the block scan's int8
+     then the tensor-core codes-scan kernel against `codes_scan_ref` (PQ64
+     codes, s_eff 1024, 1024 blocks), both selects, live rows within
+     tolerance and pad rows dead, and bit for bit on integer-valued inputs
+     with ties (PQ64 and PQ8, euclidean and inner, pack32 also at k_pair
+     40 over 512 strided groups); on each of those inputs the CUDA-core
+     codes kernel too, every row (bit for bit on integer inputs, equal
+     exact values and >= 0.9999 of pack32 keys on random ones); then the
+     block scan's int8
      mode at d 128 and 1024 (both selects, bit for bit); the flat scan's
      two kernels (tensor cores, CUDA cores) against `flat_scan_ref` (cap
      262,144, 1,024 queries, the glue's head k=10 addresses equal outside
@@ -47,11 +53,14 @@ Phases, each of which fails the run on error:
      with the same floors; the exact n_probe=8 result must equal the main
      index's, and the flat result must agree with the main flat result
      (ids >= 0.99, recall within 0.005: the codes sweep rounds the query to
-     bf16). Both selects must have launched. Then the codes kernel against
-     `codes_scan_ref` (exact: equal values, equal addresses outside ties;
-     pack32: >= 0.9999 of keys equal) and against the block-scan kernel over
-     the decoded bf16 rows, on the codes-scan arguments of the exact
-     n_probe=8 and pack32 n_probe=32 searches, timed.
+     bf16). Both selects must have launched on the tensor-core codes kernel
+     and the CUDA-core one never. Then, on the codes-scan arguments of the
+     exact n_probe=8 and pack32 n_probe=32 searches, the tensor-core kernel
+     against `codes_scan_ref` and against the block-scan kernel over the
+     decoded bf16 rows (live rows, tolerances; pad rows dead), the
+     CUDA-core codes kernel against `codes_scan_ref` (every row, equal
+     exact values, pack32 keys >= 0.9999), and the search's own select
+     timed on both codes kernels in turns.
   8. int8 tier: an index with scan_cache_dtype="int8" takes the same
      trained codecs and adds; device bytes logged; the block scan's
      counters zeroed, the five plans run (every plan's recall@10 within
@@ -89,6 +98,7 @@ Imports nothing of JAX or of the JAX package.
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -145,6 +155,22 @@ def card_line():
     if res.returncode != 0 or not res.stdout.strip():
         fail(f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def kernel_name(mangled):
+    """A kernel's name and template arguments from its mangled name: the
+    length-prefixed identifier that ends in "_kernel", and what follows it
+    up to the end of the template argument list."""
+    for i in range(len(mangled)):
+        m = re.match(r"\d+", mangled[i:])
+        if not m:
+            continue
+        start = i + m.end()
+        name = mangled[start:start + int(m.group(0))]
+        if name.endswith("_kernel"):
+            args = re.match(r"I\w*?E(?=E)", mangled[start + len(name):])
+            return name + (args.group(0) if args else "")
+    return mangled[:80]
 
 
 def cuda_ms(torch, fn, reps):
@@ -241,16 +267,13 @@ def compare_pack32(torch, bs, got, ref, slot_mask):
 
 
 def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
-                 reps=20, kernel=None, plain=None, exact_bits=False,
-                 extra=None):
-    """A kernel (default: the block scan) against its plain version on the
-    same inputs; fails the run on disagreement. exact_bits: exact values
-    equal, and pack32 keys agree on >= 0.9999 of entries (the plain
-    version's batched GEMM may sum in another order on some chunks, which
-    moves a key's low value bits). Returns (max_abs_err, key agreement, ms,
-    plain_ms)."""
-    kernel = kernel or bs.block_scan
-    plain = plain or bs.block_scan_ref
+                 reps=20, exact_bits=False, extra=None):
+    """The block scan against its plain version on the same inputs; fails
+    the run on disagreement. exact_bits: exact values equal, and pack32
+    keys agree on >= 0.9999 of entries (the plain version's batched GEMM
+    may sum in another order on some chunks, which moves a key's low value
+    bits). Returns (max_abs_err, key agreement, ms, plain_ms)."""
+    kernel, plain = bs.block_scan, bs.block_scan_ref
     slot_mask = bs.util.next_pow2(s_eff) - 1
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
               pack32=pack32, slot_mask=slot_mask, **(extra or {}))
@@ -269,6 +292,99 @@ def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
     ms = cuda_ms(torch, lambda: kernel(*args, **kw), reps)
     plain_ms = cuda_ms(torch, lambda: plain(*args, **kw), 3)
     return err, agree, ms, plain_ms
+
+
+def check_codes(torch, bs, cs, args, *, s_eff, k_pair, pack32,
+                euclidean=True, exact_bits=False, reps=20):
+    """The codes scan as its wrapper routes it (the tensor-core kernel at
+    these shapes) against codes_scan_ref on the live rows (prober >= 0);
+    every pad row must be dead (pack32 INT_MIN; exact sortable(-inf) keys
+    and -1 addresses): the tensor-core kernel does not score them, the
+    plain version scores them with query 0. exact_bits: live rows equal bit
+    for bit (integer inputs, every sum exact in any order); else the
+    tolerances of compare_exact / compare_pack32. Then the CUDA-core
+    kernel (csrc/codes_scan.cu, the route of the shapes the tensor-core
+    one leaves), launched uncounted, against the same plain output on
+    every row (it scores pad rows with query 0, as the plain version
+    does): bit for bit on integer inputs; else exact values equal (the
+    plain version's f32 FMA chain) and pack32 keys on >= 0.9999 of
+    entries. Returns (max_abs_err, key agreement, ms, plain_ms) of the
+    tensor-core kernel, the times None when reps is 0."""
+    slot_mask = bs.util.next_pow2(s_eff) - 1
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
+              pack32=pack32, slot_mask=slot_mask)
+    m, _, dsub = args[7].shape
+    route = cs.pick_route(m=m, dsub=dsub, p_tile=args[1].shape[1],
+                          s_eff=s_eff, k_pair=k_pair, pack32=pack32)
+    if not route.startswith("tc_"):
+        fail(f"the codes scan routes these shapes to {route}, not the "
+             "tensor cores")
+    got = cs.codes_scan(*args, **kw)
+    torch.cuda.synchronize()
+    ref = cs.codes_scan_ref(*args, **kw)
+    check_cuda_core_codes(torch, bs, cs, args, ref, kw, exact_bits)
+    live = args[1] >= 0
+    pad = got[~live]
+    if pack32:
+        dead = bool((pad == torch.iinfo(torch.int32).min).all())
+    else:
+        neg = bs.sortable_i32(torch.full((1,), -torch.inf, device=got.device))
+        dead = bool((pad[:, :k_pair] == neg).all()) and \
+            bool((pad[:, k_pair:] == -1).all())
+    if not dead:
+        fail(f"{route}: pad rows are not written dead")
+    got, ref = got[live], ref[live]
+    if exact_bits:
+        if not torch.equal(got, ref):
+            fail(f"{route} differs from codes_scan_ref on integer inputs: "
+                 f"{share_equal(got, ref):.6f} of entries equal")
+        err, agree = 0.0, (1.0 if pack32 else None)
+    elif pack32:
+        err, agree = compare_pack32(torch, bs, got, ref, slot_mask)
+    else:
+        err, agree = compare_exact(torch, bs, got, ref, k_pair), None
+    if not reps:
+        return err, agree, None, None
+    ms = cuda_ms(torch, lambda: cs.codes_scan(*args, **kw), reps)
+    plain_ms = cuda_ms(torch, lambda: cs.codes_scan_ref(*args, **kw), 3)
+    return err, agree, ms, plain_ms
+
+
+def codes_launch(torch, cs, args, route, **kw):
+    """The codes scan's kernel of `route` on args, without counting a
+    launch: the comparisons with the plain version and the yardstick
+    times."""
+    from torchpq_tpu_torch import _build
+    return cs.launch(_build.library(), torch.cuda.current_stream().cuda_stream,
+                     *args, route=route, **kw)
+
+
+def check_cuda_core_codes(torch, bs, cs, args, ref, kw, exact_bits):
+    """The CUDA-core codes kernel against the plain version's output `ref`
+    on every row; fails the run on disagreement (see check_codes)."""
+    mode = "pack32" if kw["pack32"] else "exact"
+    got = codes_launch(torch, cs, args, mode, **kw)
+    torch.cuda.synchronize()
+    if exact_bits:
+        if not torch.equal(got, ref):
+            fail(f"{mode} (CUDA cores) differs from codes_scan_ref on "
+                 f"integer inputs: {share_equal(got, ref):.6f} equal")
+    elif kw["pack32"]:
+        agree = compare_pack32(torch, bs, got, ref, kw["slot_mask"])[1]
+        if agree < 0.9999:
+            fail(f"pack32 (CUDA cores): key agreement {agree:.7f} < 0.9999")
+    else:
+        compare_exact(torch, bs, got, ref, kw["k_pair"], 0.0, 0.0)
+
+
+def in_turns(torch, fns, reps):
+    """Mean CUDA-event ms of each of two callables, timed in turns a, b,
+    b, a (reps launches each turn) -> ({name: mean}, {name: [turns]})."""
+    a, b = fns
+    times = {a: [], b: []}
+    for name in (a, b, b, a):
+        times[name].append(cuda_ms(torch, fns[name], reps))
+    return {k: float(np.mean(v)) for k, v in times.items()}, times
 
 
 def kernel_row(name, s_eff, blocks, err, agree, ms, plain_ms):
@@ -299,11 +415,34 @@ def phase_kernels(torch, bs, cs, fs, gr):
                                   nq=10000, m=64, dsub=2, cap_total=1 << 21,
                                   seed=11)
     for pack32 in (False, True):
-        res = check_kernel(torch, bs, args, s_eff=1024, k_pair=10,
-                           pack32=pack32, kernel=cs.codes_scan,
-                           plain=cs.codes_scan_ref, exact_bits=True)
+        res = check_codes(torch, bs, cs, args, s_eff=1024, k_pair=10,
+                          pack32=pack32)
         name = "codes_scan_pack32" if pack32 else "codes_scan_exact"
-        log(kernel_row(name, 1024, 1024, *res) + " (PQ64, g=2)")
+        log(kernel_row(name, 1024, 1024, *res) + " (tensor cores, PQ64, "
+            "g=2; live rows within tolerance, pad rows dead; the CUDA-core "
+            "kernel matches the plain version on every row)")
+    del args
+    # integer inputs with runs of equal codes: bit for bit, ties included
+    for m, dsub, s_eff, k_pair in ((64, 2, 1024, 10), (8, 4, 256, 10),
+                                   (64, 2, 1024, 40)):
+        args = cs.integer_codes_inputs("cuda", s_eff=s_eff, n_blocks=1024,
+                                       nq=10000, m=m, dsub=dsub,
+                                       cap_total=1 << 18, seed=m + k_pair)
+        for pack32 in ((True,) if k_pair > 16 else (False, True)):
+            for euclidean in (True, False):
+                check_codes(torch, bs, cs, args, s_eff=s_eff, k_pair=k_pair,
+                            pack32=pack32, euclidean=euclidean,
+                            exact_bits=True, reps=0)
+        ref = cs.codes_scan_ref(*args, s_eff=s_eff, k_pair=10,
+                                euclidean=True, pack32=False,
+                                slot_mask=s_eff - 1)[args[1] >= 0][:, :10]
+        log(f"codes_scan (tensor cores) integer inputs m={m} dsub={dsub} "
+            f"s_eff={s_eff} k_pair={k_pair}: live rows equal bit for bit, "
+            f"{'pack32' if k_pair > 16 else 'both selects'}, euclidean and "
+            f"inner ({int((ref[:, 1:] == ref[:, :-1]).sum())} tied "
+            f"neighbours in the exact lists); pad rows dead; the CUDA-core "
+            f"kernel equal bit for bit on every row")
+        del args
     # int8 mode at d 128 and at the GIST cache width 1024: bit for bit
     for d in (128, 1024):
         args, scale, q_scale = bs.random_int8_inputs(
@@ -634,9 +773,10 @@ def phase_code_domain(torch, tp, bs, cs, sl):
     counts = dict(cs.launches)
     log(f"code-domain launches: {counts}")
     for name, c in counts.items():
-        if c <= 0:
-            fail(f"kernel codes_scan_{name} was never launched by the "
-                 "code-domain slice")
+        if (c <= 0) == name.startswith("tc_"):
+            fail(f"the code-domain slice launched the codes kernel route "
+                 f"{name} {c} times: its probed plans must run the "
+                 "tensor-core kernel, both selects, and no other")
 
     # the same exact probed search on the main index: equal results
     index.scan_mode, index.n_probe, index.use_approx_topk = "cell_major", 8, \
@@ -660,7 +800,7 @@ def phase_code_domain(torch, tp, bs, cs, sl):
     if agree < 0.99 or abs(rec[("flat", 1, True)] - rec_main) > 0.005:
         fail("the code-domain flat result differs from the main index's")
 
-    # the kernel on the arguments the code-domain searches give it
+    # the kernels on the arguments the code-domain searches give them
     rows = {}
     onehot = tp.ops.onehot_adc
     decoded = None
@@ -668,14 +808,17 @@ def phase_code_domain(torch, tp, bs, cs, sl):
         code.scan_mode, code.n_probe = "cell_major", n_probe
         code.use_approx_topk = approx
         args, kw = capture_call(tp, code, xq, k, module=onehot,
-                                      name="codes_scan")
+                                name="codes_scan")
         s_eff, k_pair = kw["s_eff"], kw["k_pair"]
         blocks, p_tile = args[1].shape
         live = int((args[1] >= 0).sum())
+        live_tiles = int((args[1].view(blocks, -1, 16) >= 0).any(-1).sum())
         m = args[7].shape[0]
+        d = args[0].shape[1]
         log(f"code-domain path n_probe={n_probe} "
             f"({'pack32' if approx else 'exact'}): {blocks} blocks x "
             f"{p_tile} probers, {live} live ({live / (blocks * p_tile):.3f})"
+            f", {live_tiles} live 16-prober tiles of {blocks * p_tile // 16}"
             f", s_eff={s_eff}, k_pair={k_pair}, m={m}, "
             f"g={args[6].shape[1] // m}")
         if decoded is None:
@@ -683,41 +826,67 @@ def phase_code_domain(torch, tp, bs, cs, sl):
                 .contiguous()
         bs_args = list(args[:6]) + [decoded]
         for pack32 in (False, True):
-            res_k = check_kernel(torch, bs, args, s_eff=s_eff, k_pair=k_pair,
-                                 pack32=pack32, euclidean=kw["euclidean"],
-                                 kernel=cs.codes_scan, plain=cs.codes_scan_ref,
-                                 exact_bits=True)
+            err, agree, _, _ = check_codes(
+                torch, bs, cs, args, s_eff=s_eff, k_pair=k_pair,
+                pack32=pack32, euclidean=kw["euclidean"], reps=0)
             name = "codes_scan_pack32" if pack32 else "codes_scan_exact"
-            log(kernel_row(name, s_eff, blocks, *res_k)
-                + f" (inputs of the code-domain n_probe={n_probe} search)")
+            log(f"{name} (tensor cores) on the inputs of the code-domain "
+                f"n_probe={n_probe} search: live rows max_abs_err {err:.3g}"
+                + (f", key agreement {agree:.7f}" if pack32 else "")
+                + "; pad rows dead; the CUDA-core kernel matches the plain "
+                "version on every row")
             kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
                        pack32=pack32, slot_mask=kw["slot_mask"])
             got = cs.codes_scan(*args, **kkw)
             ref = bs.block_scan(*bs_args, **kkw)
             torch.cuda.synchronize()
-            bs_ms = cuda_ms(torch, lambda: bs.block_scan(*bs_args, **kkw), 20)
+            sel = args[1] >= 0
+            # the two kernels sum in different orders (tensor cores, f32
+            # FMA chain); pack32 groups columns, not slots: may differ
             if pack32:
-                # strided groups of columns, not of slots: may differ
-                agree = share_equal(got, ref)
-                log(f"  vs block_scan over the decoded rows: key agreement "
-                    f"{agree:.5f}; block_scan {bs_ms:.3f} ms")
+                log(f"  vs block_scan over the decoded rows (live rows): key"
+                    f" agreement {share_equal(got[sel], ref[sel]):.5f}")
             else:
-                compare_exact(torch, bs, got, ref, k_pair, 0.0, 0.0)
-                log(f"  vs block_scan over the decoded rows: values equal, "
-                    f"addresses equal outside ties; block_scan "
-                    f"{bs_ms:.3f} ms")
-            err, _, ms, plain_ms = res_k
-            if pack32 == approx:
-                d = args[0].shape[1]
-                b_ms, b_by = scan_bound(
-                    torch, args, kkw, slot_bytes=m + 4, row_bytes=2 * d,
-                    peak="bf16", d=d, extra_bytes=args[7].numel() * 2)
-                rows[name] = dict(
-                    name=name, route="cuda",
-                    source="torchpq_tpu_torch/csrc/codes_scan.cu",
-                    replaces="torchpq_tpu/ops/pallas_codes_scan.py:198",
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                err_b = compare_exact(torch, bs, got[sel], ref[sel], k_pair)
+                log(f"  vs block_scan over the decoded rows (live rows): "
+                    f"values within tolerance (max_abs_err {err_b:.3g}), "
+                    f"addresses equal at separated values")
+            if pack32 != approx:
+                continue
+            # the select the search ran: both codes kernels in turns
+            mode = "pack32" if pack32 else "exact"
+            (t, turns) = in_turns(torch, {
+                "cuda_cores": lambda: codes_launch(torch, cs, args, mode,
+                                                   **kkw),
+                "tensor_cores": lambda: codes_launch(torch, cs, args,
+                                                     "tc_" + mode, **kkw)},
+                20)
+            ms, cc_ms = t["tensor_cores"], t["cuda_cores"]
+            plain_ms = cuda_ms(torch, lambda: cs.codes_scan_ref(*args,
+                                                                **kkw), 3)
+            bs_ms = cuda_ms(torch, lambda: bs.block_scan(*bs_args, **kkw),
+                            20)
+            b_ms, b_by = scan_bound(
+                torch, args, kkw, slot_bytes=m + 4, row_bytes=2 * d,
+                peak="bf16", d=d, extra_bytes=args[7].numel() * 2)
+            flop = 2.0 * live * s_eff * d
+            log(f"  {name} on the n_probe={n_probe} search's arguments: "
+                f"tensor cores {ms:.3f} ms ("
+                f"{' / '.join(f'{x:.3f}' for x in turns['tensor_cores'])}; "
+                f"{flop / ms / 1e9:.2f} TFLOP/s over live probers, "
+                f"{b_ms / ms:.1%} of the bound), CUDA cores {cc_ms:.3f} ms "
+                f"({' / '.join(f'{x:.3f}' for x in turns['cuda_cores'])}), "
+                f"speed-up {cc_ms / ms:.2f}x; plain {plain_ms:.3f} ms, "
+                f"bound {b_ms:.3f} ms ({b_by}); block_scan over the decoded "
+                f"rows {bs_ms:.3f} ms")
+            rows[name] = dict(
+                name=name, route="cuda",
+                source="torchpq_tpu_torch/csrc/codes_scan_tc.cu",
+                replaces="torchpq_tpu/ops/pallas_codes_scan.py:198",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                cuda_core_ms=cc_ms,
+                cuda_core_source="torchpq_tpu_torch/csrc/codes_scan.cu")
     del decoded
     return counts, rows, code
 
@@ -1139,9 +1308,13 @@ def main():
     t_start = time.perf_counter()
     lib = _build.library()
     log(f"build: {lib.build_seconds:.1f} s -> {lib.path.name}")
+    kernel = "?"
     for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("ptxas: " + line.strip())
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            kernel = kernel_name(entry.group(1))
+        elif "registers" in line or "spill" in line:
+            log(f"ptxas {kernel}: " + line.strip())
 
     phase_kernels(torch, bs, cs, fs, gr)
     log(f"phases 1-3: {time.perf_counter() - t_start:.1f} s")
@@ -1175,8 +1348,8 @@ def main():
             ("block_scan_int8_exact", int8_rows, int8_counts["int8_exact"]),
             ("block_scan_int8_pack32", int8_rows,
              int8_counts["int8_pack32"]),
-            ("codes_scan_exact", code_rows, code_counts["exact"]),
-            ("codes_scan_pack32", code_rows, code_counts["pack32"]),
+            ("codes_scan_exact", code_rows, code_counts["tc_exact"]),
+            ("codes_scan_pack32", code_rows, code_counts["tc_pack32"]),
             ("flat_scan", {"flat_scan": flat_row}, flat_counts["flat_tc"]),
             ("gather_rows", krows, counts["gather"])):
         kernels.append(dict(row[name], launches=cnt))

@@ -61,3 +61,31 @@ def overlap(a, b):
         if ref:
             shares.append(len(set(ra.tolist()) & ref) / len(ref))
     return float(np.mean(shares))
+
+
+def pallas_codes(qt, pr, sc, off, cap, penalty, codes, cb, *, m, s_eff,
+                 k_pair, distance, pack32, slot_mask):
+    """The JAX package's Pallas codes kernel (interpret mode) on its own
+    staged inputs: query tiles, penalty rows in the deinterleaved column
+    order, packed codes, bf16 block diagonal. Inputs are numpy: qt [nq, d],
+    pr [B, 128], sc / off / cap [B], penalty [capacity] f32, codes
+    [capacity, m] uint8, cb [m, 256, dsub]."""
+    import jax.numpy as jnp
+    from torchpq_tpu.ops import onehot_adc as jonehot
+    from torchpq_tpu.ops.pallas_codes_scan import scan_blocks_pallas_codes
+    from torchpq_tpu_torch.ops.block_scan import BIG
+    g = 128 // m
+    b = sc.shape[0]
+    j = np.arange(s_eff)
+    in_cell = (j[None] >= off[:, None]) & (j[None] < (off + cap)[:, None])
+    pen = (penalty[sc[:, None] + j[None]]
+           + np.where(in_cell, 0.0, BIG)).astype(np.float32)
+    pen = pen.reshape(b, s_eff // g, g).transpose(0, 2, 1).reshape(b, s_eff)
+    bdiag = jonehot.blockdiag_codebook(jnp.asarray(cb, jnp.float32)) \
+        .astype(jnp.bfloat16)
+    return np.asarray(scan_blocks_pallas_codes(
+        jnp.asarray(qt, jnp.bfloat16)[jnp.asarray(np.maximum(pr, 0))],
+        jnp.asarray(sc), jnp.asarray(pen),
+        jnp.asarray(codes.reshape(-1, 128)), bdiag, s_eff=s_eff,
+        k_pair=k_pair, p_tile=128, m=m, distance=distance, approx=pack32,
+        slot_mask=slot_mask, bps=1, interpret=True))

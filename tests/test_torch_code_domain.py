@@ -20,14 +20,14 @@ import torch
 from torchpq_tpu.index import IVFPQIndex as JaxIndex
 from torchpq_tpu.index.ivfpq import _coarse_probe
 from torchpq_tpu.ops import onehot_adc as jonehot
-from torchpq_tpu.ops.pallas_codes_scan import scan_blocks_pallas_codes
 import torchpq_tpu_torch as tp
 from torchpq_tpu_torch.ops import codes_scan as cs
 from torchpq_tpu_torch.ops import onehot_adc as tonehot
 from torchpq_tpu_torch.ops.block_scan import (BIG, sortable_i32_to_f32,
                                               block_scan)
 
-from _torch_helpers import CPU, assert_topk_match, overlap, to_np, to_t
+from _torch_helpers import CPU, assert_topk_match, overlap, pallas_codes, \
+    to_np, to_t
 
 N_CELLS = 8
 
@@ -70,27 +70,6 @@ def _staged(rng, *, d, m, s_eff, b=4, cap_total=2048, tie=False):
     return qtable, probers, start_c, off, cap, norms, empty, codes, codebook
 
 
-def _pallas_codes(qt, pr, sc, off, cap, penalty, codes, cb, *, m, s_eff,
-                  k_pair, distance, pack32, slot_mask):
-    """The JAX kernel on its own staged inputs: query tiles, penalty rows in
-    the deinterleaved column order, packed codes, bf16 block diagonal."""
-    g = 128 // m
-    b = sc.shape[0]
-    j = np.arange(s_eff)
-    in_cell = (j[None] >= off[:, None]) & (j[None] < (off + cap)[:, None])
-    pen = (penalty[sc[:, None] + j[None]]
-           + np.where(in_cell, 0.0, BIG)).astype(np.float32)
-    pen = pen.reshape(b, s_eff // g, g).transpose(0, 2, 1).reshape(b, s_eff)
-    bdiag = jonehot.blockdiag_codebook(jnp.asarray(cb, jnp.float32)) \
-        .astype(jnp.bfloat16)
-    return np.asarray(scan_blocks_pallas_codes(
-        jnp.asarray(qt, jnp.bfloat16)[jnp.asarray(np.maximum(pr, 0))],
-        jnp.asarray(sc), jnp.asarray(pen),
-        jnp.asarray(codes.reshape(-1, 128)), bdiag, s_eff=s_eff,
-        k_pair=k_pair, p_tile=128, m=m, distance=distance, approx=pack32,
-        slot_mask=slot_mask, bps=1, interpret=True))
-
-
 @pytest.mark.parametrize("d,m", [(32, 8), (128, 64)])
 @pytest.mark.parametrize("distance", ["euclidean", "inner"])
 @pytest.mark.parametrize("pack32", [False, True])
@@ -107,7 +86,7 @@ def test_codes_scan_ref_matches_pallas(rng, d, m, distance, pack32):
     slot_mask = s_eff - 1
     kw = dict(s_eff=s_eff, k_pair=k_pair, pack32=pack32,
               slot_mask=slot_mask)
-    ref = _pallas_codes(qt, pr, sc, off, cap, penalty, codes, cb, m=m,
+    ref = pallas_codes(qt, pr, sc, off, cap, penalty, codes, cb, m=m,
                         distance=distance, **kw)
     got = cs.codes_scan(
         to_t(qt), to_t(pr), to_t(sc), to_t(off), to_t(cap), to_t(penalty),

@@ -1,0 +1,114 @@
+"""The codes scan's integer-valued inputs and its route, on the CPU.
+
+`integer_codes_inputs` (ops/codes_scan.py) is what the card holds the
+tensor-core codes kernel to bit for bit: every score is an integer that f32
+sums hold exactly in any order, with runs of equal codes so that exact ties
+occur. Here the plain version `codes_scan_ref` is held to the JAX package's
+Pallas codes kernel (interpret mode, through tests/conftest.py) on those
+inputs, bit for bit, keys and addresses, pad rows included (both score them
+with query 0). `pick_route` is checked against the shapes each kernel
+takes."""
+
+import numpy as np
+import pytest
+import torch
+
+from torchpq_tpu_torch.ops import codes_scan as cs
+from torchpq_tpu_torch.ops.block_scan import n_groups
+
+from _torch_helpers import pallas_codes
+
+
+def _integer_case(*, m, dsub, s_eff, seed):
+    args = cs.integer_codes_inputs("cpu", s_eff=s_eff, n_blocks=3, nq=200,
+                                   m=m, dsub=dsub, cap_total=2048,
+                                   seed=seed)
+    return args
+
+
+@pytest.mark.parametrize("m,dsub", [(64, 2), (8, 4)])
+@pytest.mark.parametrize("pack32", [False, True])
+@pytest.mark.parametrize("k_pair,s_eff", [(10, 256), (40, 512)])
+def test_integer_inputs_plain_equals_pallas(m, dsub, pack32, k_pair, s_eff):
+    """g = 2 (PQ64, d = 128) and g = 16 (PQ8, d = 32); k_pair 40 at s_eff
+    512 selects over G = 256 strided groups in pack32."""
+    if pack32:
+        assert n_groups(s_eff, k_pair) == (256 if k_pair > 32 else 128)
+    args = _integer_case(m=m, dsub=dsub, s_eff=s_eff, seed=m + k_pair)
+    qt, pr, sc, off, cap, penalty, codes, cb = args
+    slot_mask = s_eff - 1
+    kw = dict(s_eff=s_eff, k_pair=k_pair, pack32=pack32,
+              slot_mask=slot_mask)
+    got = cs.codes_scan_ref(*args, euclidean=True, **kw).numpy()
+    ref = pallas_codes(
+        qt.float().numpy(), pr.numpy(), sc.numpy(), off.numpy(),
+        cap.numpy(), penalty.numpy(), codes.view(-1, m).numpy(),
+        cb.float().numpy(), m=m, distance="euclidean", **kw)
+    np.testing.assert_array_equal(got, ref)
+    if not pack32:  # the inputs do tie, so the column order is exercised
+        keys = got[..., :k_pair]
+        assert (keys[..., 1:] == keys[..., :-1]).sum() > 0
+
+
+def test_integer_inputs_layout():
+    """Integer values, the block layout of random_inputs (live probers
+    first, then -1 pads), runs of equal codes, BIG at some slots."""
+    qt, pr, sc, off, cap, penalty, codes, cb = _integer_case(
+        m=64, dsub=2, s_eff=256, seed=0)
+    for t in (qt, cb):
+        assert t.dtype == torch.bfloat16
+        assert torch.equal(t.float(), t.float().round())
+        assert int(t.float().abs().max()) <= 3
+    live = pr >= 0
+    assert bool((live.int().diff(dim=1) <= 0).all()), "live probers first"
+    assert bool((sc % 16 == 0).all()) and bool((off % 16 == 0).all())
+    assert bool(((off + cap) <= 256).all())
+    flat = codes.view(-1, 64)
+    assert bool((flat[205:300] == flat[204]).all())
+    big = penalty >= cs.BIG
+    assert 0 < int(big.sum()) < penalty.numel() // 5
+    assert torch.equal(penalty[~big], penalty[~big].round())
+
+
+@pytest.mark.parametrize("shape,route", [
+    (dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=10, pack32=False),
+     "tc_exact"),
+    (dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=10, pack32=True),
+     "tc_pack32"),
+    (dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=40, pack32=True),
+     "tc_pack32"),     # G = 512
+    (dict(m=64, dsub=2, p_tile=128, s_eff=512, k_pair=40, pack32=True),
+     "tc_pack32"),     # G = 256
+    (dict(m=8, dsub=4, p_tile=128, s_eff=96, k_pair=10, pack32=True),
+     "tc_pack32"),     # G = s_eff, one tile
+    (dict(m=128, dsub=1, p_tile=128, s_eff=8192, k_pair=16, pack32=False),
+     "tc_exact"),
+    (dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=17, pack32=False),
+     "exact"),         # the lists hold 16
+    (dict(m=32, dsub=5, p_tile=128, s_eff=512, k_pair=10, pack32=True),
+     "pack32"),        # d = 160 > 128
+    (dict(m=64, dsub=2, p_tile=256, s_eff=512, k_pair=10, pack32=False),
+     "exact"),         # more probers than 8 warps x 16
+    (dict(m=64, dsub=2, p_tile=120, s_eff=512, k_pair=10, pack32=True),
+     "pack32"),        # not whole m tiles
+    (dict(m=16, dsub=2, p_tile=128, s_eff=200, k_pair=10, pack32=True),
+     "pack32"),        # G = s_eff = 200: neither one tile nor 128s
+    (dict(m=16, dsub=2, p_tile=128, s_eff=200, k_pair=10, pack32=False),
+     "tc_exact"),
+])
+def test_pick_route(shape, route):
+    assert cs.pick_route(**shape) == route
+    assert route in cs.launches
+
+
+def test_launch_refuses_a_route_that_does_not_fit():
+    """launch() checks the route against pick_route before anything runs:
+    the tensor-core route for exact k_pair 20, and a route of the other
+    select."""
+    args = _integer_case(m=64, dsub=2, s_eff=256, seed=1)
+    kw = dict(s_eff=256, k_pair=20, euclidean=True, pack32=False,
+              slot_mask=255)
+    with pytest.raises(ValueError, match="tensor-core"):
+        cs.launch(None, 0, *args, route="tc_exact", **kw)
+    with pytest.raises(ValueError, match="select"):
+        cs.launch(None, 0, *args, route="tc_pack32", **kw)

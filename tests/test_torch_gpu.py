@@ -143,60 +143,188 @@ def test_index_on_card_matches_cpu(cuda):
         _assert_pack32_values(v, v_ref, i, i_ref, q, gate["s_eff"])
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("pack32", [False, True])
-@pytest.mark.parametrize("m,dsub", [(64, 2), (8, 4)])
-@pytest.mark.parametrize("s_eff", [256, 1024])
-def test_codes_kernel_matches_plain(cuda, pack32, m, dsub, s_eff):
-    """g = 2 (d=128, PQ64) and g = 16 (d=32, PQ8); s_eff 1024 with pack32
-    selects over 128 strided groups of columns."""
-    args = cs.random_codes_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
-                                  m=m, dsub=dsub, cap_total=8192)
-    kw = dict(s_eff=s_eff, k_pair=10, euclidean=True, pack32=pack32,
-              slot_mask=s_eff - 1)
-    mode = "pack32" if pack32 else "exact"
-    before = cs.launches[mode]
+def _codes_launch(cuda, args, kw):
+    """One codes_scan call on the card: (output, route), with the route's
+    launch counted once and no other key moved."""
+    m, _, dsub = args[7].shape
+    route = cs.pick_route(m=m, dsub=dsub, p_tile=args[1].shape[1],
+                          s_eff=kw["s_eff"], k_pair=kw["k_pair"],
+                          pack32=kw["pack32"])
+    before = dict(cs.launches)
     got = cs.codes_scan(*args, **kw)
     torch.cuda.synchronize()
-    assert cs.launches[mode] == before + 1
+    assert cs.launches == dict(before, **{route: before[route] + 1})
+    return got, route
+
+
+def _assert_pads(got, ref, probers, route, k_pair, pack32):
+    """Pad rows (prober -1): dead from the tensor-core kernel (INT_MIN;
+    sortable(-inf) keys and -1 addresses), scored as the plain version
+    scores them by the CUDA-core one."""
+    pad = probers < 0
+    if not route.startswith("tc_"):
+        assert torch.equal(got[pad], ref[pad])
+    elif pack32:
+        assert bool((got[pad] == torch.iinfo(torch.int32).min).all())
+    else:
+        dead = bs.sortable_i32(torch.tensor([-torch.inf], device=got.device))
+        assert bool((got[pad][:, :k_pair] == dead).all())
+        assert bool((got[pad][:, k_pair:] == -1).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack32", [False, True])
+@pytest.mark.parametrize("m,dsub", [(64, 2), (8, 4), (128, 1)])
+@pytest.mark.parametrize("s_eff", [256, 1024, 8192])
+@pytest.mark.parametrize("k_pair", [10, 40])
+def test_codes_kernel_matches_plain(cuda, pack32, m, dsub, s_eff, k_pair):
+    """g = 2 (d=128, PQ64), g = 16 (d=32, PQ8) and g = 1 (d=128, PQ128) on
+    random inputs, through the kernel pick_route names (exact k_pair 40:
+    the CUDA-core one; pack32 k_pair 40 selects over 512 strided groups at
+    s_eff 1024 and 8192). Live rows: the tensor cores sum in another order
+    than the plain version's GEMM (bf16 products are exact in f32), so
+    exact values agree to 1e-3 relative and addresses and pack32 keys on
+    >= 0.99 of entries; pad rows as _assert_pads."""
+    args = cs.random_codes_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
+                                  m=m, dsub=dsub,
+                                  cap_total=max(8192, 2 * s_eff))
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+              slot_mask=s_eff - 1)
+    got, route = _codes_launch(cuda, args, kw)
+    assert route == ("tc_" if pack32 or k_pair <= 16 else "") + \
+        ("pack32" if pack32 else "exact")
     ref = cs.codes_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], route, k_pair, pack32)
+    live = args[1] >= 0
+    got, ref = got[live], ref[live]
     if pack32:
         assert (got == ref).float().mean().item() >= 0.99
     else:
-        # bf16 products are exact in f32; only the summation order differs
-        v = bs.sortable_i32_to_f32(got[..., :10])
-        v_ref = bs.sortable_i32_to_f32(ref[..., :10])
+        v = bs.sortable_i32_to_f32(got[..., :k_pair])
+        v_ref = bs.sortable_i32_to_f32(ref[..., :k_pair])
         torch.testing.assert_close(v, v_ref, rtol=1e-3, atol=1e-3)
-        assert (got[..., 10:] == ref[..., 10:]).float().mean().item() \
-            >= 0.99
+        assert (got[..., k_pair:] == ref[..., k_pair:]).float().mean() \
+            .item() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack32", [False, True])
+@pytest.mark.parametrize("m,dsub,s_eff", [(64, 2, 1024), (8, 4, 256),
+                                          (128, 1, 512), (64, 2, 8192)])
+@pytest.mark.parametrize("k_pair,euclidean", [(10, True), (40, False)])
+def test_codes_tc_kernel_integer_ties_exact(cuda, pack32, m, dsub, s_eff,
+                                            k_pair, euclidean):
+    """Integer-valued inputs with runs of equal codes: every sum is exact
+    in any order, so the tensor-core kernel equals the plain version bit
+    for bit on live rows, keys, addresses and pack32 keys, ties included
+    (exact k_pair 40 runs on the CUDA-core kernel, equal there too)."""
+    args = cs.integer_codes_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
+                                   m=m, dsub=dsub,
+                                   cap_total=max(8192, 2 * s_eff), seed=m)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
+              pack32=pack32, slot_mask=s_eff - 1)
+    got, route = _codes_launch(cuda, args, kw)
+    ref = cs.codes_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], route, k_pair, pack32)
+    live = args[1] >= 0
+    assert torch.equal(got[live], ref[live])
+    if not pack32:
+        keys = ref[live][:, :k_pair]
+        assert int((keys[:, 1:] == keys[:, :-1]).sum()) > 0, "no ties"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack32,k_pair", [(False, 10), (False, 16),
+                                           (True, 10), (True, 40)])
+@pytest.mark.parametrize("m,dsub,s_eff", [(64, 2, 1024), (8, 4, 256)])
+def test_codes_tc_kernel_persistent_grid(cuda, pack32, k_pair, m, dsub,
+                                         s_eff):
+    """A grid of 3 persistent CTAs over 64 blocks: each CTA walks ~21
+    blocks, so the state it resets between blocks (live-tile rows, the
+    pack32 phase parity of deep G = 512, the exact lists and queues, the
+    A fragments) is reused. Integer inputs: live rows equal the plain
+    version bit for bit, pad rows dead."""
+    from torchpq_tpu_torch import _build
+    args = cs.integer_codes_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
+                                   m=m, dsub=dsub, cap_total=8192,
+                                   seed=m + k_pair)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+              slot_mask=s_eff - 1)
+    route = "tc_" + ("pack32" if pack32 else "exact")
+    got = cs.launch(_build.library(), torch.cuda.current_stream().cuda_stream,
+                    *args, route=route, n_ctas=3, **kw)
+    torch.cuda.synchronize()
+    ref = cs.codes_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], route, k_pair, pack32)
+    live = args[1] >= 0
+    assert torch.equal(got[live], ref[live])
+
+
+@pytest.mark.gpu
+def test_codes_routes_on_card(cuda):
+    """Exact k_pair > 16 and rows wider than 128 take the CUDA-core kernel,
+    counted under its own key; asking the tensor-core route for them
+    raises."""
+    from torchpq_tpu_torch import _build
+    for m, dsub, k_pair, route in ((64, 2, 20, "exact"),
+                                   (32, 5, 10, "exact"),
+                                   (64, 2, 20, "tc_pack32")):
+        pack32 = route.endswith("pack32")
+        args = cs.random_codes_inputs(cuda, s_eff=512, n_blocks=16, nq=300,
+                                      m=m, dsub=dsub, cap_total=8192)
+        kw = dict(s_eff=512, k_pair=k_pair, euclidean=True, pack32=pack32,
+                  slot_mask=511)
+        got, r = _codes_launch(cuda, args, kw)
+        assert r == route
+        if not route.startswith("tc_"):
+            with pytest.raises(ValueError):
+                cs.launch(_build.library(),
+                          torch.cuda.current_stream().cuda_stream, *args,
+                          route="tc_" + route, **kw)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("m,dsub,pack32", [(64, 2, False), (128, 1, True)])
 def test_codes_kernel_matches_block_scan(cuda, m, dsub, pack32):
-    """The codes kernel and the block-scan kernel over the bf16 decoded rows
-    share their FMA chain, so their scores agree bit for bit. Exact keys
-    are equal and addresses equal outside exact ties; pack32 is compared
-    at g = 1 (m = 128), where the column order is the slot order."""
-    args = cs.random_codes_inputs(cuda, s_eff=512, n_blocks=64, nq=500,
-                                  m=m, dsub=dsub, cap_total=8192)
-    qtable, probers, start_c, off, cap, penalty, codes, codebook = args
-    decoded = cs.decode_codes(codes.view(-1, m), codebook).contiguous()
-    kw = dict(s_eff=512, k_pair=10, euclidean=True, pack32=pack32,
-              slot_mask=511)
-    got = cs.codes_scan(*args, **kw)
-    ref = bs.block_scan(qtable, probers, start_c, off, cap, penalty, decoded,
-                        **kw)
-    torch.cuda.synchronize()
-    if pack32:
-        assert torch.equal(got, ref)
-        return
-    assert torch.equal(got[..., :10], ref[..., :10])
-    keys = ref[..., :10]
-    tied = torch.zeros_like(keys, dtype=torch.bool)
-    tied[..., 1:] |= keys[..., 1:] == keys[..., :-1]
-    tied[..., :-1] |= keys[..., :-1] == keys[..., 1:]
-    assert torch.equal(got[..., 10:][~tied], ref[..., 10:][~tied])
+    """The codes kernel against the block-scan kernel over the bf16 decoded
+    rows, live rows only. The two kernels sum in different orders (tensor
+    cores, f32 FMA chain), so on integer inputs the exact keys are equal
+    and addresses equal outside ties (the block scan breaks ties by slot,
+    the codes scan by column); on random inputs the values agree to 1e-3
+    relative. pack32 is compared at g = 1 (m = 128), where the column order
+    is the slot order: keys equal on integer inputs, >= 0.99 on random."""
+    for make in (cs.integer_codes_inputs, cs.random_codes_inputs):
+        args = make(cuda, s_eff=512, n_blocks=64, nq=500, m=m, dsub=dsub,
+                    cap_total=8192)
+        qtable, probers, start_c, off, cap, penalty, codes, codebook = args
+        decoded = cs.decode_codes(codes.view(-1, m), codebook).contiguous()
+        kw = dict(s_eff=512, k_pair=10, euclidean=True, pack32=pack32,
+                  slot_mask=511)
+        got = cs.codes_scan(*args, **kw)
+        ref = bs.block_scan(qtable, probers, start_c, off, cap, penalty,
+                            decoded, **kw)
+        torch.cuda.synchronize()
+        live = probers >= 0
+        got, ref = got[live], ref[live]
+        exact = make is cs.integer_codes_inputs
+        if pack32:
+            agree = (got == ref).float().mean().item()
+            assert agree == 1.0 if exact else agree >= 0.99
+            continue
+        v = bs.sortable_i32_to_f32(got[..., :10])
+        v_ref = bs.sortable_i32_to_f32(ref[..., :10])
+        torch.testing.assert_close(v, v_ref, rtol=0 if exact else 1e-3,
+                                   atol=0 if exact else 1e-3)
+        keys = ref[..., :10]
+        tied = torch.zeros_like(keys, dtype=torch.bool)
+        tied[..., 1:] |= keys[..., 1:] == keys[..., :-1]
+        tied[..., :-1] |= keys[..., :-1] == keys[..., 1:]
+        tied |= keys == keys[..., -1:]  # may tie with the 11th, unseen
+        same = got[..., 10:] == ref[..., 10:]
+        if exact:
+            assert bool(same[~tied].all())
+        else:
+            assert same.float().mean().item() >= 0.99
 
 
 @pytest.mark.gpu
@@ -204,7 +332,7 @@ def test_code_domain_index_on_card_matches_cpu(cuda):
     """A code-domain index (scan_cache_dtype="none", PQ8 at d=32: g = 16)
     with the same state and adds on the card and on the CPU: equal stores,
     and every plan finds the same neighbours (the probed plans through the
-    codes kernel on the card)."""
+    tensor-core codes kernel on the card)."""
     import numpy as np
     import torchpq_tpu_torch as tp
 
@@ -241,8 +369,9 @@ def test_code_domain_index_on_card_matches_cpu(cuda):
         gate = adc.LAST_GATE
         assert gate["pack32"] and gate["impl"] == "codes_scan", gate
         _assert_pack32_values(v, v_ref, i, i_ref, q, gate["s_eff"])
-    assert cs.launches["exact"] == before["exact"] + 2
-    assert cs.launches["pack32"] == before["pack32"] + 1
+    # the probed plans run the tensor-core codes kernel only
+    assert cs.launches == dict(before, tc_exact=before["tc_exact"] + 2,
+                               tc_pack32=before["tc_pack32"] + 1)
 
 
 @pytest.mark.gpu

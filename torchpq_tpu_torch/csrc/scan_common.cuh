@@ -1,6 +1,8 @@
-// Shared core of the IVF block scans (block_scan.cu, codes_scan.cu) and of
-// the fused flat scan (flat_scan.cu, which runs scan_rows over runs of the
-// whole cache with its own select).
+// Shared core of the CUDA-core IVF block scans (block_scan.cu,
+// codes_scan.cu) and of the fused flat scan (flat_scan.cu, which runs
+// scan_rows over runs of the whole cache with its own select); the
+// tensor-core kernels (codes_scan_tc.cu, flat_scan_tc.cu) take only its
+// helpers (sortable, insert, launch_kernel).
 //
 // A block is up to p_tile probers (queries) of one IVF cell; one CTA scores
 // `pt` of them (one prober per thread) against the block's window of s_eff
@@ -10,7 +12,8 @@
 // holds. block_scan.cu's window reads decoded cache rows, column c = slot c;
 // codes_scan.cu's decodes PQ codes against a shared-memory codebook and
 // visits the slots in the packed column order. Scoring and both selects are
-// this file's, so the two kernels' scores agree bit for bit on equal rows.
+// this file's, so those two kernels' scores agree bit for bit on equal rows
+// (codes_scan_tc.cu sums on the tensor cores, in another order).
 //
 //   score = factor * <q_p, y_c> - pen_c      (f32 FMA chain, k ascending)
 //

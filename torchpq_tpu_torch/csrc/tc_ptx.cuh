@@ -1,4 +1,5 @@
-// The tensor-core and asynchronous-copy instructions of flat_scan_tc.cu, one
+// The tensor-core and asynchronous-copy instructions of flat_scan_tc.cu and
+// codes_scan_tc.cu, one
 // inline-PTX wrapper each (sm_80 and later; built for sm_90a), and the
 // fragment layouts they imply, as plain functions of the lane.
 //
@@ -30,6 +31,14 @@ __host__ __device__ constexpr int frag_c_row(int lane, int i) {
 // Column of C (in the 8-column n tile) that register c[i] of `lane` holds.
 __host__ __device__ constexpr int frag_c_col(int lane, int i) {
   return 2 * (lane % 4) + i % 2;
+}
+// Row (of 16) of A, and the first of the two columns (of 16), that
+// register a[i] of `lane` holds.
+__host__ __device__ constexpr int frag_a_row(int lane, int i) {
+  return lane / 4 + 8 * (i % 2);
+}
+__host__ __device__ constexpr int frag_a_col(int lane, int i) {
+  return 2 * (lane % 4) + 8 * (i / 2);
 }
 // Row (of 16) and column (of 16) of the A tile whose address `lane` gives
 // to ldmatrix.x4, so that the four registers are a[0..3].

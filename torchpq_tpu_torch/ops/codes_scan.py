@@ -4,8 +4,14 @@ against the codebook, score it and keep each prober's top k_pair.
 Replaces the TPU kernel
 torchpq_tpu/ops/pallas_codes_scan.py:scan_blocks_pallas_codes, the probed
 scan of the code-domain tier (scan_cache_dtype="none": the index keeps only
-its codes and norms). The kernel is `csrc/codes_scan.cu`, built by
-`_build.py` and bound through a plain C entry point.
+its codes and norms). Two kernels serve it, chosen before launch by
+`pick_route`, each built by `_build.py`, bound through a plain C entry point
+and counted under its own key of `launches`:
+  - "tc_exact" / "tc_pack32", `csrc/codes_scan_tc.cu`: rows of d <= 128,
+    blocks of at most 128 probers, on the tensor cores (mma.sync bf16, f32
+    sums), scoring only the live 16-prober tiles of a block;
+  - "exact" / "pack32", `csrc/codes_scan.cu`: the rest, on the CUDA cores
+    (f32 FMAs).
 
 What it computes, for block b, prober p and window column c < s_eff that
 holds slot j:
@@ -18,25 +24,31 @@ concatenates, so column c = q * (s_eff/g) + r holds slot r*g + q. The
 selects are the block scan's (`select_exact` / `select_pack32`) over the
 columns in that order: exact ties go to the first column, and pack32 groups
 columns {j, j+G, ...}. So pack32 results may differ from the decoded-cache
-scan's where g > 1, while the scores themselves equal the block scan's over
-a bf16 decoded cache.
+scan's where g > 1. The products are exact in f32 (bf16 operands); the
+kernels and the plain version sum them in different orders, so scores agree
+to the last bits, and bit for bit where every sum is exact
+(`integer_codes_inputs`).
 
-What bounds it on an H100: the same f32 FMA issue as the block scan (every
-decoded element feeds p_tile FMAs); the window costs m bytes per slot of
-HBM instead of 2d. The kernel stages the bf16 codebook in shared memory.
+Pad rows (prober -1): the plain version and the CUDA-core kernel score them
+with query 0, as the JAX kernel does; the tensor-core kernel writes them
+dead (exact: sortable(-inf) keys, -1 addresses; pack32: INT_MIN). The merge
+never reads them.
 
 `codes_scan` takes the plain version `codes_scan_ref` only for tensors on
-the CPU. For CUDA tensors it launches the kernel or raises.
+the CPU. For CUDA tensors it launches the kernel of its route or raises.
 """
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from .. import util
 from .block_scan import (BIG, n_groups, random_inputs, select_chunks,
                          select_exact, select_pack32, window_scores,
                          _SMEM_LIMIT)
+from .flat_scan import _H100_SMS
 
 # The JAX package's bound on the resident [m*256, d_pad] bf16 decode matrix
 # (pallas_codes_scan.py:PALLAS_BDIAG_VMEM_BYTES). It is a TPU VMEM budget,
@@ -45,8 +57,15 @@ from .block_scan import (BIG, n_groups, random_inputs, select_chunks,
 # line so both packages take the same numerics at every shape.
 CODEBOOK_BOUND_BYTES = 9 * 1024 * 1024
 
-# kernel launches per select mode, counted by `codes_scan` where it launches
-launches = {"exact": 0, "pack32": 0}
+# kernel launches per route and select, counted by `codes_scan` where it
+# launches ("tc_*": the tensor-core kernel; the others: the CUDA-core one)
+launches = {"exact": 0, "pack32": 0, "tc_exact": 0, "tc_pack32": 0}
+
+_TC_MAX_D = 128     # widest row the tensor-core kernel's A fragments hold
+_TC_MAX_PT = 128    # probers per block: an m tile per warp of 8
+_TC_KMAX = 16       # the exact k_pair its lane lists take
+_TC_MAX_PACK_K = 48  # the pack32 k_pair its shared lists fit
+_TC_TN = 128        # its tile of window columns
 
 
 def codes_kernel_static_gate(m, g, d, distance):
@@ -132,6 +151,43 @@ def random_codes_inputs(device, *, s_eff, n_blocks, nq, m, dsub, cap_total,
     return [qtable, probers, start_c, off, cap, penalty, codes, codebook]
 
 
+def integer_codes_inputs(device, *, s_eff, n_blocks, nq, m, dsub, cap_total,
+                         seed=0):
+    """Seeded integer-valued codes-scan inputs (numpy draws): codebook
+    entries and query values in {-3..3}, the decoded rows' squared norms
+    (integers) as penalty with BIG at 5% of slots, and runs of equal codes
+    inside one window and far apart across windows, so exact ties occur.
+    Blocks in `random_inputs`' layout: each block's live probers first,
+    then -1 pads; 16-aligned windows; the cell at a 16-aligned offset.
+    Every score is an integer the f32 sums hold exactly in any order, so
+    the kernels and the plain version agree bit for bit, ties included."""
+    rng = np.random.default_rng(seed)
+    d = m * dsub
+    qtable = rng.integers(-3, 4, (nq, d)).astype(np.float32)
+    codebook = rng.integers(-3, 4, (m, 256, dsub)).astype(np.float32)
+    codes = rng.integers(0, 256, (cap_total, m)).astype(np.uint8)
+    run = slice(cap_total // 10, cap_total // 10 + min(200, s_eff // 2))
+    codes[run] = codes[run.start]            # a run of equal rows
+    codes[cap_total // 2::97] = codes[1]     # equal rows far apart
+    sub = np.arange(m)[None, :]
+    norms = (codebook[sub, codes] ** 2).sum((1, 2)).astype(np.float32)
+    penalty = np.where(rng.random(cap_total) < 0.05, np.float32(BIG),
+                       norms).astype(np.float32)
+    n_live = rng.integers(1, 129, (n_blocks, 1))
+    probers = np.where(np.arange(128)[None] < n_live,
+                       rng.integers(0, nq, (n_blocks, 128)), -1)
+    start_c = rng.integers(0, (cap_total - s_eff) // 16 + 1, n_blocks) * 16
+    off = rng.integers(0, min(8, s_eff // 16), n_blocks) * 16
+    cap = np.minimum(rng.integers(s_eff // 4, s_eff // 2 + 1, n_blocks),
+                     s_eff - off)
+    t = [torch.from_numpy(x).to(device) for x in (
+        qtable, probers.astype(np.int32), start_c.astype(np.int32),
+        off.astype(np.int32), cap.astype(np.int32), penalty,
+        codes.reshape(-1, 128), codebook)]
+    t[0], t[7] = t[0].to(torch.bfloat16), t[7].to(torch.bfloat16)
+    return [x.contiguous() for x in t]
+
+
 def _check(qtable, probers, start_c, off, cap, penalty, codes, codebook,
            s_eff, k_pair, pack32, slot_mask):
     dev = codes.device
@@ -183,6 +239,31 @@ def _cta_probers(lib, p_tile, d, pack32, groups):
         f"p_tile={p_tile}, groups={groups}")
 
 
+def pick_route(*, m, dsub, p_tile, s_eff, k_pair, pack32):
+    """The kernel that serves a scan of these shapes, which is also its key
+    in `launches`:
+      - "tc_exact" / "tc_pack32" (`csrc/codes_scan_tc.cu`, tensor cores):
+        d = m*dsub <= 128 with m a power of two (the packed storage's, g*m
+        = 128), p_tile a multiple of 16 up to 128; exact with k_pair <= 16;
+        pack32 with k_pair <= 48 and the strided group count G =
+        n_groups(s_eff, k_pair) a multiple of 8 that is either the whole
+        row (s_eff <= 128) or a multiple of 128 dividing s_eff (G = 128,
+        256, 512);
+      - "exact" / "pack32" (`csrc/codes_scan.cu`, CUDA cores): the rest
+        (exact k_pair > 16, rows wider than 128, other blocks or groups)."""
+    mode = "pack32" if pack32 else "exact"
+    tc = (m * dsub <= _TC_MAX_D and m & (m - 1) == 0
+          and p_tile % 16 == 0 and p_tile <= _TC_MAX_PT)
+    if pack32:
+        g = n_groups(s_eff, k_pair)
+        tc = tc and k_pair <= _TC_MAX_PACK_K and g % 8 == 0 and (
+            g <= _TC_TN if g == s_eff
+            else g % _TC_TN == 0 and s_eff % g == 0)
+    else:
+        tc = tc and k_pair <= _TC_KMAX
+    return ("tc_" if tc else "") + mode
+
+
 def codes_scan(qtable, probers, start_c, off, cap, penalty, codes, codebook,
                *, s_eff, k_pair, euclidean, pack32, slot_mask):
     """Run the codes scan.
@@ -204,30 +285,83 @@ def codes_scan(qtable, probers, start_c, off, cap, penalty, codes, codebook,
         raise ValueError(f"codes_scan runs on cpu or cuda, not "
                          f"{codes.device}")
     from .. import _build
-    lib = _build.library()
+    m, _, dsub = codebook.shape
+    route = pick_route(m=m, dsub=dsub, p_tile=probers.shape[1], s_eff=s_eff,
+                       k_pair=k_pair, pack32=pack32)
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        out = launch(_build.library(), stream, qtable, probers, start_c, off,
+                     cap, penalty, codes, codebook, route=route, **kw)
+    launches[route] += 1
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _resident_ctas(lib, device, d, pack32, k_pair):
+    """CTAs of the tensor-core kernel that `device` holds at once (its SMs
+    times the CTAs one SM holds), asked once per library, device, width,
+    select and k_pair."""
+    resident = lib.torchpq_codes_scan_tc_occupancy(d, int(pack32), k_pair)
+    if resident <= 0:
+        raise RuntimeError(f"codes_scan_tc: no CTA fits an SM (CUDA error "
+                           f"{-resident})")
+    n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
+            if device.type == "cuda" else _H100_SMS)
+    return n_sm * resident
+
+
+def launch(lib, stream, qtable, probers, start_c, off, cap, penalty, codes,
+           codebook, *, s_eff, k_pair, euclidean, pack32, slot_mask,
+           route=None, n_ctas=None):
+    """Launch the kernel of `route` (a key of `launches`; default
+    pick_route's) of `lib` on `stream` with checked arguments. n_ctas: the
+    tensor-core kernel's persistent grid (default: as many CTAs as the
+    card's SMs hold at once, at most one per block). Raises if the route
+    does not take the shapes or the launch fails."""
     b, p_tile = probers.shape
     m, _, dsub = codebook.shape
     d = m * dsub
+    g = codes.shape[1] // m
     groups = n_groups(s_eff, k_pair) if pack32 else 0
+    mode = "pack32" if pack32 else "exact"
+    best = pick_route(m=m, dsub=dsub, p_tile=p_tile, s_eff=s_eff,
+                      k_pair=k_pair, pack32=pack32)
+    route = route or best
+    if route not in (mode, "tc_" + mode):
+        raise ValueError(f"route {route!r} does not serve the {mode} select")
     out = torch.empty((b, p_tile, k_pair if pack32 else 2 * k_pair),
                       dtype=torch.int32, device=codes.device)
     if b == 0:
         return out
-    if d % 4 or m % 8 or m > 128 or codebook.data_ptr() % 16 \
-            or codes.data_ptr() % 8:
-        raise ValueError(f"codes scan kernel needs d % 4 == 0 (d={d}), "
-                         f"m % 8 == 0 and m <= 128 (m={m}), a 16-byte "
-                         "aligned codebook and 8-byte aligned codes")
-    pt = _cta_probers(lib, p_tile, d, pack32, groups)
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.torchpq_codes_scan(
-            qtable.data_ptr(), probers.data_ptr(), start_c.data_ptr(),
+    if m % 8 or m > 128 or codebook.data_ptr() % 16 or codes.data_ptr() % 8:
+        raise ValueError(f"codes scan kernels need m % 8 == 0 and m <= 128 "
+                         f"(m={m}), a 16-byte aligned codebook and 8-byte "
+                         "aligned codes")
+    args = (qtable.data_ptr(), probers.data_ptr(), start_c.data_ptr(),
             off.data_ptr(), cap.data_ptr(), penalty.data_ptr(),
             codes.data_ptr(), codebook.data_ptr(), out.data_ptr(), b, p_tile,
-            m, dsub, codes.shape[1] // m, s_eff, k_pair, int(euclidean),
-            int(pack32), slot_mask, groups, pt, ctypes.c_void_p(stream))
+            m, dsub, g, s_eff, k_pair, int(euclidean), int(pack32), slot_mask,
+            groups)
+    if route.startswith("tc_"):
+        if best != route:
+            raise ValueError(
+                f"the tensor-core codes scan does not take d={d}, "
+                f"p_tile={p_tile}, s_eff={s_eff}, k_pair={k_pair}, "
+                f"pack32={pack32}")
+        if lib.torchpq_codes_scan_tc_smem(d, int(pack32), k_pair) \
+                > _SMEM_LIMIT:
+            raise ValueError(f"codes_scan_tc: shared memory exceeds the "
+                             f"limit at d={d}, k_pair={k_pair}")
+        if n_ctas is None:
+            n_ctas = _resident_ctas(lib, codes.device, d, pack32, k_pair)
+        rc = lib.torchpq_codes_scan_tc(*args, min(n_ctas, b),
+                                       ctypes.c_void_p(stream))
+    else:
+        if d % 4:
+            raise ValueError(f"codes scan kernel needs d % 4 == 0 (d={d})")
+        pt = _cta_probers(lib, p_tile, d, pack32, groups)
+        rc = lib.torchpq_codes_scan(*args, pt, ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"codes_scan kernel launch failed: CUDA error {rc}")
-    launches["pack32" if pack32 else "exact"] += 1
+        raise RuntimeError(f"{route} codes scan kernel launch failed: CUDA "
+                           f"error {rc}")
     return out

@@ -6,11 +6,13 @@ torchpq_tpu/ops/onehot_adc.py).
   into blocks and merges them like adc.scan_cell_major; only the block
   scoring differs. Inside the codes-kernel gate (packed storage, the
   decode bound; ops/codes_scan.py) the blocks run the codes scan, which
-  decodes each window against the bf16 codebook and scores it (the kernel
-  on the card, its plain version on the CPU). Outside it the JAX package
-  scores with a bf16 LUT summed in f32; that path is computed in XLA there,
-  not Pallas, so here it is plain torch, and it is the JAX package's own
-  routing, not a fallback.
+  decodes each window against the bf16 codebook and scores it (on the card
+  the kernel `codes_scan.pick_route` names, the tensor-core one at the
+  index's shapes, which writes -1 pad rows dead; on the CPU its plain
+  version, which scores them as the JAX kernel does; the merge reads only
+  live rows). Outside it the JAX package scores with a bf16 LUT summed in
+  f32; that path is computed in XLA there, not Pallas, so here it is plain
+  torch, and it is the JAX package's own routing, not a fallback.
 * `flat_decode_scan` is the exhaustive sweep: each chunk of codes is
   decoded to bf16 rows once and scored against every (bf16) query with an
   f32 product.
