@@ -8,10 +8,15 @@ Phases, each of which fails the run on error:
   1. device: a CUDA card is required (no CPU continuation); prints its name
      and `nvidia-smi` name + power limit.
   2. build: compiles the kernels from `torchpq_tpu_torch/csrc` with nvcc.
-  3. kernel vs plain on seeded inputs: the block-scan kernel against its
-     plain PyTorch version (`block_scan_ref`) on the card (p_tile=128,
-     d=128, s_eff 1024 and 2048, k_pair=10, 1024 blocks, bf16), both
-     selects, with CUDA-event times of each; then the f32-cache kernel;
+  3. kernel vs plain on seeded inputs: the tensor-core block-scan kernel
+     against its plain PyTorch version (`block_scan_ref`) on the card
+     (p_tile=128, d=128, s_eff 1024 and 2048, k_pair=10, 1024 blocks,
+     bf16), both selects, live rows within tolerance and pad rows dead,
+     with CUDA-event times of each, and bit for bit on integer-valued
+     inputs with ties (d 128 at s_eff 640, pack32 also at k_pair 40 over
+     512 strided groups, and d 40 at s_eff 200, euclidean and inner); on
+     each of those inputs the CUDA-core block-scan kernel too, every row;
+     then the f32-cache kernel (CUDA cores);
      then the tensor-core codes-scan kernel against `codes_scan_ref` (PQ64
      codes, s_eff 1024, 1024 blocks), both selects, live rows within
      tolerance and pad rows dead, and bit for bit on integer-valued inputs
@@ -34,14 +39,19 @@ Phases, each of which fails the run on error:
      on the card; searches: flat, cell_major at n_probe 1/8/32 (pack32
      select), cell_major at n_probe 8 (exact select). Launch counters are
      zeroed before and read after this phase; every kernel of the path must
-     have launched (the block scan's bf16 selects, and the row gather,
-     which builds the compacted layouts). Floors: flat recall@10 >= 0.85, n_probe=32 >= 0.75,
+     have launched (the tensor-core block scan's two selects, and the row
+     gather, which builds the compacted layouts) and the CUDA-core block
+     scan never. Floors: flat recall@10 >= 0.85, n_probe=32 >= 0.75,
      recall non-decreasing in n_probe within 0.005. Then a small-input
      check: the probed exact plan over every cell equals the flat exact
      plan.
   5. kernel vs plain at the main path's shapes: the block-scan arguments of
      the exact n_probe=8 and pack32 n_probe=32 searches, each checked with
-     both selects and timed; these times go into the kernels' JSON line.
+     both selects (the tensor-core kernel on live rows, pad rows dead; the
+     CUDA-core one on every row); the select each search ran timed on both
+     kernels in turns (TFLOP/s over live probers and over live 16-prober
+     tiles); the tensor-core times go into the kernels' JSON line, the
+     CUDA-core ones beside them.
   6. relayout: the same trained codecs in an index with a quarter of the
      cell capacity, filled by the same adds, must relayout and then hold
      and find what the main index holds and finds.
@@ -56,8 +66,9 @@ Phases, each of which fails the run on error:
      bf16). Both selects must have launched on the tensor-core codes kernel
      and the CUDA-core one never. Then, on the codes-scan arguments of the
      exact n_probe=8 and pack32 n_probe=32 searches, the tensor-core kernel
-     against `codes_scan_ref` and against the block-scan kernel over the
-     decoded bf16 rows (live rows, tolerances; pad rows dead), the
+     against `codes_scan_ref` and against the tensor-core block-scan
+     kernel over the decoded bf16 rows (live rows, tolerances; pad rows
+     dead), the
      CUDA-core codes kernel against `codes_scan_ref` (every row, equal
      exact values, pack32 keys >= 0.9999), and the search's own select
      timed on both codes kernels in turns.
@@ -266,31 +277,86 @@ def compare_pack32(torch, bs, got, ref, slot_mask):
     return float(err.max()), agree
 
 
-def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
-                 reps=20, exact_bits=False, extra=None):
-    """The block scan against its plain version on the same inputs; fails
-    the run on disagreement. exact_bits: exact values equal, and pack32
-    keys agree on >= 0.9999 of entries (the plain version's batched GEMM
-    may sum in another order on some chunks, which moves a key's low value
-    bits). Returns (max_abs_err, key agreement, ms, plain_ms)."""
-    kernel, plain = bs.block_scan, bs.block_scan_ref
-    slot_mask = bs.util.next_pow2(s_eff) - 1
-    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
-              pack32=pack32, slot_mask=slot_mask, **(extra or {}))
-    got = kernel(*args, **kw)
-    torch.cuda.synchronize()
-    ref = plain(*args, **kw)
+def dead_rows(torch, bs, got, probers, k_pair, pack32):
+    """Whether every pad row (prober -1) of `got` is dead: pack32 INT_MIN;
+    exact sortable(-inf) keys and -1 addresses."""
+    pad = got[probers < 0]
+    if pack32:
+        return bool((pad == torch.iinfo(torch.int32).min).all())
+    neg = bs.sortable_i32(torch.full((1,), -torch.inf, device=got.device))
+    return bool((pad[:, :k_pair] == neg).all()) and \
+        bool((pad[:, k_pair:] == -1).all())
+
+
+def block_launch(torch, bs, args, route, **kw):
+    """The block scan's kernel of `route` on args, without counting a
+    launch: the comparisons with the plain version and the times in
+    turns."""
+    from torchpq_tpu_torch import _build
+    return bs.launch(_build.library(), torch.cuda.current_stream().cuda_stream,
+                     *args, route=route, **kw)
+
+
+def compare_rows(torch, bs, got, ref, *, k_pair, pack32, slot_mask, equal,
+                 exact_bits, what):
+    """Rows of a block-scan kernel against the plain version's; fails the
+    run on disagreement. equal: bit for bit (integer inputs, every sum
+    exact in any order); exact_bits: exact values equal, and pack32 keys
+    agree on >= 0.9999 of entries (the plain version's batched GEMM may sum
+    in another order on some chunks, which moves a key's low value bits);
+    else the tolerances of compare_exact / compare_pack32. Returns
+    (max_abs_err, key agreement)."""
+    if equal:
+        if not torch.equal(got, ref):
+            fail(f"{what} differs from block_scan_ref on integer inputs: "
+                 f"{share_equal(got, ref):.6f} of entries equal")
+        return 0.0, (1.0 if pack32 else None)
     if pack32:
         err, agree = compare_pack32(torch, bs, got, ref, slot_mask)
         if exact_bits and agree < 0.9999:
-            fail(f"pack32 select: key agreement {agree:.7f} < 0.9999")
-    elif exact_bits:
-        err, agree = compare_exact(torch, bs, got, ref, k_pair, 0.0, 0.0), \
-            None
-    else:
-        err, agree = compare_exact(torch, bs, got, ref, k_pair), None
-    ms = cuda_ms(torch, lambda: kernel(*args, **kw), reps)
-    plain_ms = cuda_ms(torch, lambda: plain(*args, **kw), 3)
+            fail(f"{what} pack32 select: key agreement {agree:.7f} < 0.9999")
+        return err, agree
+    if exact_bits:
+        return compare_exact(torch, bs, got, ref, k_pair, 0.0, 0.0), None
+    return compare_exact(torch, bs, got, ref, k_pair), None
+
+
+def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
+                 reps=20, exact_bits=False, equal=False, extra=None):
+    """The block scan as its wrapper routes it against its plain version on
+    the same inputs; fails the run on disagreement (compare_rows' criteria,
+    equal / exact_bits as there). The tensor-core route (bf16, d <= 128) is
+    held on the live rows (prober >= 0), and every pad row must be dead: it
+    does not score them, the plain version scores them with query 0. Then
+    the CUDA-core kernel of the same select (csrc/block_scan.cu, the route
+    of f32 and int8 caches and of the shapes the tensor-core one leaves),
+    launched uncounted, on every row. Returns (max_abs_err, key agreement,
+    ms, plain_ms) of the routed kernel, the times None when reps is 0."""
+    slot_mask = bs.util.next_pow2(s_eff) - 1
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
+              pack32=pack32, slot_mask=slot_mask, **(extra or {}))
+    route = bs.pick_route(dtype=args[6].dtype, d=args[6].shape[1],
+                          p_tile=args[1].shape[1], s_eff=s_eff,
+                          k_pair=k_pair, pack32=pack32)
+    got = bs.block_scan(*args, **kw)
+    torch.cuda.synchronize()
+    ref = bs.block_scan_ref(*args, **kw)
+    crit = dict(k_pair=k_pair, pack32=pack32, slot_mask=slot_mask,
+                equal=equal, exact_bits=exact_bits)
+    if route.startswith("tc_"):
+        if not dead_rows(torch, bs, got, args[1], k_pair, pack32):
+            fail(f"{route}: pad rows are not written dead")
+        mode = route[3:]
+        cc = block_launch(torch, bs, args, mode, **kw)
+        torch.cuda.synchronize()
+        compare_rows(torch, bs, cc, ref, what=f"{mode} (CUDA cores)", **crit)
+        live = args[1] >= 0
+        got, ref = got[live], ref[live]
+    err, agree = compare_rows(torch, bs, got, ref, what=route, **crit)
+    if not reps:
+        return err, agree, None, None
+    ms = cuda_ms(torch, lambda: bs.block_scan(*args, **kw), reps)
+    plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kw), 3)
     return err, agree, ms, plain_ms
 
 
@@ -323,16 +389,9 @@ def check_codes(torch, bs, cs, args, *, s_eff, k_pair, pack32,
     torch.cuda.synchronize()
     ref = cs.codes_scan_ref(*args, **kw)
     check_cuda_core_codes(torch, bs, cs, args, ref, kw, exact_bits)
-    live = args[1] >= 0
-    pad = got[~live]
-    if pack32:
-        dead = bool((pad == torch.iinfo(torch.int32).min).all())
-    else:
-        neg = bs.sortable_i32(torch.full((1,), -torch.inf, device=got.device))
-        dead = bool((pad[:, :k_pair] == neg).all()) and \
-            bool((pad[:, k_pair:] == -1).all())
-    if not dead:
+    if not dead_rows(torch, bs, got, args[1], k_pair, pack32):
         fail(f"{route}: pad rows are not written dead")
+    live = args[1] >= 0
     got, ref = got[live], ref[live]
     if exact_bits:
         if not torch.equal(got, ref):
@@ -405,7 +464,34 @@ def phase_kernels(torch, bs, cs, fs, gr):
             res = check_kernel(torch, bs, args, s_eff=s_eff, k_pair=10,
                                pack32=pack32)
             name = "block_scan_pack32" if pack32 else "block_scan_exact"
-            log(kernel_row(name, s_eff, 1024, *res))
+            log(kernel_row(name, s_eff, 1024, *res) + " (tensor cores; live "
+                "rows within tolerance, pad rows dead; the CUDA-core kernel "
+                "matches the plain version on every row)")
+    # integer inputs with runs of equal rows: bit for bit, ties included
+    # (d 40 pads K to 48; s_eff 200 ends in a ragged tile)
+    for d, s_eff, k_pair, selects in ((128, 640, 10, (False, True)),
+                                      (128, 2048, 40, (True,)),
+                                      (40, 200, 16, (False,))):
+        args = bs.integer_block_inputs("cuda", s_eff=s_eff, n_blocks=1024,
+                                       nq=10000, d=d, cap_total=1 << 18,
+                                       seed=d + k_pair)
+        for pack32 in selects:
+            for euclidean in (True, False):
+                check_kernel(torch, bs, args, s_eff=s_eff, k_pair=k_pair,
+                             pack32=pack32, euclidean=euclidean, equal=True,
+                             reps=0)
+        ref = bs.block_scan_ref(*args, s_eff=s_eff, k_pair=k_pair,
+                                euclidean=True, pack32=False,
+                                slot_mask=bs.util.next_pow2(s_eff) - 1)
+        ref = ref[args[1] >= 0][:, :k_pair]
+        log(f"block_scan (tensor cores) integer inputs d={d} s_eff={s_eff} "
+            f"k_pair={k_pair}: live rows equal bit for bit, "
+            f"{' and '.join('pack32' if p else 'exact' for p in selects)}, "
+            f"euclidean and "
+            f"inner ({int((ref[:, 1:] == ref[:, :-1]).sum())} tied "
+            f"neighbours in the exact lists); pad rows dead; the CUDA-core "
+            f"kernel equal bit for bit on every row")
+        del args
     args = bs.random_inputs("cuda", s_eff=512, n_blocks=64, nq=10000,
                             cap_total=1 << 21, seed=7, dtype=torch.float32)
     err = check_kernel(torch, bs, args, s_eff=512, k_pair=10, pack32=False,
@@ -553,8 +639,10 @@ def capture_call(tp, index, xq, k, module=None, name="block_scan"):
 def phase_main_shapes(torch, tp, bs, index, xq, k):
     """The kernel against its plain version on the inputs the main path
     really gives it: the block-scan arguments of the exact n_probe=8 and
-    the pack32 n_probe=32 searches, each checked with both selects. Returns
-    the kernels' JSON rows without their launch counts."""
+    the pack32 n_probe=32 searches, each checked with both selects (the
+    tensor-core kernel on live rows, pad rows dead; the CUDA-core one on
+    every row); then the select the search ran timed on both kernels in
+    turns. Returns the kernels' JSON rows without their launch counts."""
     rows = {}
     for n_probe, approx in ((8, False), (32, True)):
         index.scan_mode, index.n_probe = "cell_major", n_probe
@@ -563,32 +651,59 @@ def phase_main_shapes(torch, tp, bs, index, xq, k):
         s_eff, k_pair = kw["s_eff"], kw["k_pair"]
         blocks, p_tile = args[1].shape
         live = int((args[1] >= 0).sum())
+        live_tiles = int((args[1].view(blocks, -1, 16) >= 0).any(-1).sum())
         d = args[6].shape[1]
         log(f"main path n_probe={n_probe} ({'pack32' if approx else 'exact'}"
             f"): {blocks} blocks x {p_tile} probers, {live} live "
-            f"({live / (blocks * p_tile):.3f}), s_eff={s_eff}, "
+            f"({live / (blocks * p_tile):.3f}), {live_tiles} live 16-prober "
+            f"tiles of {blocks * p_tile // 16}, s_eff={s_eff}, "
             f"k_pair={k_pair}, d={d}")
         for pack32 in (False, True):
             res = check_kernel(torch, bs, args, s_eff=s_eff, k_pair=k_pair,
-                               pack32=pack32, euclidean=kw["euclidean"])
+                               pack32=pack32, euclidean=kw["euclidean"],
+                               reps=0)
             name = "block_scan_pack32" if pack32 else "block_scan_exact"
-            log(kernel_row(name, s_eff, blocks, *res)
-                + f" (inputs of the n_probe={n_probe} search)")
-            err, _, ms, plain_ms = res
-            # executed FMAs count every prober slot, -1 pads included
+            log(f"{name} (tensor cores) on the inputs of the n_probe="
+                f"{n_probe} search: live rows max_abs_err {res[0]:.3g}"
+                + (f", key agreement {res[1]:.7f}" if pack32 else "")
+                + "; pad rows dead; the CUDA-core kernel matches the plain "
+                "version on every row")
+            if pack32 != approx:
+                continue
+            # the select the search ran: both kernels in turns
+            mode = "pack32" if pack32 else "exact"
+            kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
+                       pack32=pack32, slot_mask=kw["slot_mask"])
+            t, turns = in_turns(torch, {
+                "cuda_cores": lambda: block_launch(torch, bs, args, mode,
+                                                   **kkw),
+                "tensor_cores": lambda: block_launch(torch, bs, args,
+                                                     "tc_" + mode, **kkw)},
+                20)
+            ms, cc_ms = t["tensor_cores"], t["cuda_cores"]
+            plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw),
+                               3)
+            b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=2 * d + 4,
+                                    row_bytes=2 * d, peak="bf16", d=d)
             flop = 2.0 * s_eff * d
-            log(f"  {flop * blocks * p_tile / ms / 1e9:.2f} TFLOP/s executed,"
-                f" {flop * live / ms / 1e9:.2f} TFLOP/s over live probers")
-            if pack32 == approx:
-                b_ms, b_by = scan_bound(
-                    torch, args, dict(kw, pack32=pack32), slot_bytes=2 * d + 4,
-                    row_bytes=2 * d, peak="bf16", d=d)
-                rows[name] = dict(
-                    name=name, route="cuda",
-                    source="torchpq_tpu_torch/csrc/block_scan.cu",
-                    replaces="torchpq_tpu/ops/pallas_scan.py:281",
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            log(f"  {name} on the n_probe={n_probe} search's arguments: "
+                f"tensor cores {ms:.3f} ms ("
+                f"{' / '.join(f'{x:.3f}' for x in turns['tensor_cores'])}; "
+                f"{flop * live / ms / 1e9:.2f} TFLOP/s over live probers, "
+                f"{flop * 16 * live_tiles / ms / 1e9:.2f} over live tiles, "
+                f"{b_ms / ms:.1%} of the bound), CUDA cores {cc_ms:.3f} ms "
+                f"({' / '.join(f'{x:.3f}' for x in turns['cuda_cores'])}; "
+                f"{flop * live / cc_ms / 1e9:.2f} TFLOP/s over live "
+                f"probers), speed-up {cc_ms / ms:.2f}x; plain {plain_ms:.3f} "
+                f"ms, bound {b_ms:.3f} ms ({b_by})")
+            rows[name] = dict(
+                name=name, route="cuda",
+                source="torchpq_tpu_torch/csrc/block_scan_tc.cu",
+                replaces="torchpq_tpu/ops/pallas_scan.py:281",
+                max_abs_err=res[0], ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                launch_key="tc_" + mode, cuda_core_ms=cc_ms,
+                cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu")
     return rows
 
 
@@ -841,14 +956,17 @@ def phase_code_domain(torch, tp, bs, cs, sl):
             ref = bs.block_scan(*bs_args, **kkw)
             torch.cuda.synchronize()
             sel = args[1] >= 0
-            # the two kernels sum in different orders (tensor cores, f32
-            # FMA chain); pack32 groups columns, not slots: may differ
+            # one kernel body over the same bf16 rows, but the codes
+            # kernel visits the slots in its deinterleaved column order:
+            # exact ties may keep other slots, and pack32 groups columns,
+            # not slots: keys may differ
+            vs = "  vs block_scan (tensor cores) over the decoded rows"
             if pack32:
-                log(f"  vs block_scan over the decoded rows (live rows): key"
-                    f" agreement {share_equal(got[sel], ref[sel]):.5f}")
+                log(f"{vs} (live rows): key agreement "
+                    f"{share_equal(got[sel], ref[sel]):.5f}")
             else:
                 err_b = compare_exact(torch, bs, got[sel], ref[sel], k_pair)
-                log(f"  vs block_scan over the decoded rows (live rows): "
+                log(f"{vs} (live rows): "
                     f"values within tolerance (max_abs_err {err_b:.3g}), "
                     f"addresses equal at separated values")
             if pack32 != approx:
@@ -877,8 +995,8 @@ def phase_code_domain(torch, tp, bs, cs, sl):
                 f"{b_ms / ms:.1%} of the bound), CUDA cores {cc_ms:.3f} ms "
                 f"({' / '.join(f'{x:.3f}' for x in turns['cuda_cores'])}), "
                 f"speed-up {cc_ms / ms:.2f}x; plain {plain_ms:.3f} ms, "
-                f"bound {b_ms:.3f} ms ({b_by}); block_scan over the decoded "
-                f"rows {bs_ms:.3f} ms")
+                f"bound {b_ms:.3f} ms ({b_by}); block_scan (tensor cores) over "
+                f"the decoded rows {bs_ms:.3f} ms")
             rows[name] = dict(
                 name=name, route="cuda",
                 source="torchpq_tpu_torch/csrc/codes_scan_tc.cu",
@@ -1259,9 +1377,13 @@ def phase_slice(torch, tp, bs, gr):
     rec, _ = time_plans(torch, tp, index, xq, gt, k, bs.launches, "")
     counts = {**bs.launches, **gr.launches}
     log(f"main-path launches: {counts}")
-    for name in ("exact", "pack32", "gather"):
+    for name in ("tc_exact", "tc_pack32", "gather"):
         if counts[name] <= 0:
             fail(f"kernel {name} was never launched by the slice")
+    for name in ("exact", "pack32"):
+        if counts[name] > 0:
+            fail(f"the bf16 plans launched the CUDA-core block scan ({name}) "
+                 f"{counts[name]} times: they must run the tensor-core one")
 
     # small-input reference: probing every cell with the exact select must
     # find what the exact flat sweep finds
@@ -1343,8 +1465,8 @@ def main():
 
     kernels = []
     for name, row, cnt in (
-            ("block_scan_exact", krows, counts["exact"]),
-            ("block_scan_pack32", krows, counts["pack32"]),
+            ("block_scan_exact", krows, counts["tc_exact"]),
+            ("block_scan_pack32", krows, counts["tc_pack32"]),
             ("block_scan_int8_exact", int8_rows, int8_counts["int8_exact"]),
             ("block_scan_int8_pack32", int8_rows,
              int8_counts["int8_pack32"]),

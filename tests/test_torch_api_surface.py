@@ -1,0 +1,247 @@
+"""Public API surface lock of the port, the twin of tests/test_api_surface.py
+restricted to the modules the port has, and the parity of the surface's
+smaller members with the JAX package on the same inputs (numpy draws from a
+seed): codec exposure, similarity by id, the inert tunables and their
+validation, KMeans / MultiKMeans predict and top-k, the PQ ADC table and
+the batched top-k."""
+
+import importlib
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from torchpq_tpu.clustering import KMeans as JaxKMeans
+from torchpq_tpu.clustering import MultiKMeans as JaxMultiKMeans
+from torchpq_tpu.codec import PQCodec as JaxPQ
+from torchpq_tpu.index import IVFPQIndex as JaxIndex
+from torchpq_tpu.ops import max_sim as jms
+import torchpq_tpu_torch as tp
+from torchpq_tpu_torch.ops import max_sim as tms
+
+from _torch_helpers import CPU
+
+SURFACE = {
+    "torchpq_tpu_torch": [
+        "CustomModule", "StateModule", "metric", "util", "config", "fn",
+        "ops", "clustering", "codec", "container", "index",
+    ],
+    "torchpq_tpu_torch.index": ["IVFPQIndex"],
+    "torchpq_tpu_torch.clustering": ["KMeans", "MultiKMeans"],
+    "torchpq_tpu_torch.codec": ["BaseCodec", "VQCodec", "PQCodec"],
+    "torchpq_tpu_torch.container": ["BaseContainer", "CellContainer"],
+    "torchpq_tpu_torch.fn": ["IVFPQTopk"],
+    "torchpq_tpu_torch.ops.adc": [
+        "build_adc_table", "adc_lookup_scores", "scan_query_major",
+        "scan_cell_major",
+    ],
+    "torchpq_tpu_torch.ops.flat_adc": ["flat_adc_scan", "flat_adc_auto"],
+    "torchpq_tpu_torch.ops.max_sim": [
+        "max_sim", "topk_sim", "batched_max_sim", "batched_topk_sim",
+    ],
+    "torchpq_tpu_torch.metric": [
+        "similarity", "cosine_similarity", "negative_squared_l2_distance",
+        "canonical_distance",
+    ],
+}
+
+METHODS = {
+    "torchpq_tpu_torch.index.IVFPQIndex": [
+        "train", "add", "remove", "search", "search_cells", "encode",
+        "decode", "save", "load", "state_dict", "load_state_dict",
+        "similarity_at_address", "similarity_at_id", "get_id_by_address",
+        "get_address_by_id",
+    ],
+    "torchpq_tpu_torch.clustering.KMeans": ["fit", "predict", "topk"],
+    "torchpq_tpu_torch.clustering.MultiKMeans": ["fit", "predict", "topk"],
+    "torchpq_tpu_torch.codec.PQCodec": [
+        "train", "encode", "decode", "precompute_adc",
+    ],
+}
+
+TUNABLES = ["use_cublas", "use_tensor_core", "fp16_scale_mode",
+            "use_precomputed", "pq_max_iter", "vq_max_iter",
+            "use_smart_probing", "smart_probing_temperature",
+            "use_approx_topk"]
+
+
+def _reference(name):
+    """The JAX package's counterpart of a port module or class name."""
+    return name.replace("torchpq_tpu_torch", "torchpq_tpu", 1)
+
+
+@pytest.mark.parametrize("module", sorted(SURFACE))
+def test_module_exports(module):
+    """Each name exists in the port and in the reference module it
+    mirrors (the twin never lists a name the reference lacks)."""
+    mod = importlib.import_module(module)
+    missing = [s for s in SURFACE[module] if not hasattr(mod, s)]
+    assert not missing, f"{module} missing {missing}"
+    ref = importlib.import_module(_reference(module))
+    extra = [s for s in SURFACE[module] if not hasattr(ref, s)]
+    assert not extra, f"{_reference(module)} lacks {extra}"
+
+
+@pytest.mark.parametrize("qualname", sorted(METHODS) + ["tunables"])
+def test_class_methods(qualname):
+    if qualname == "tunables":
+        qualname, names = "torchpq_tpu_torch.index.IVFPQIndex", TUNABLES
+    else:
+        names = METHODS[qualname]
+    for name in (qualname, _reference(qualname)):
+        mod_name, cls_name = name.rsplit(".", 1)
+        cls = getattr(importlib.import_module(mod_name), cls_name)
+        missing = [m for m in names if not hasattr(cls, m)]
+        assert not missing, f"{name} missing {missing}"
+
+
+def test_custom_module_alias():
+    assert tp.CustomModule is tp.StateModule
+
+
+@pytest.fixture(scope="module")
+def index_pair():
+    """A JAX-trained index, its state carried into the port, the same add
+    (ids 0..n-1) in both."""
+    rng = np.random.default_rng(21)
+    centers = rng.normal(size=(20, 32)).astype(np.float32) * 3
+    x = (centers[rng.integers(0, 20, 2500)]
+         + rng.normal(size=(2500, 32))).astype(np.float32)
+    kw = dict(d_vector=32, n_subvectors=8, n_cells=8, initial_size=512)
+    jidx = JaxIndex(**kw)
+    port = tp.IVFPQIndex(**kw, device=CPU)
+    assert (port.vq_max_iter, port.pq_max_iter) == \
+        (jidx.vq_max_iter, jidx.pq_max_iter)
+    for idx in (jidx, port):
+        idx.vq_max_iter = idx.pq_max_iter = 5
+    jidx.train(jnp.asarray(x[:1500].T))
+    port.load_state_dict(jidx.state_dict())
+    jidx.add(jnp.asarray(x.T))
+    port.add(x.T)
+    q = rng.normal(size=(32, 12)).astype(np.float32)
+    return jidx, port, x, q
+
+
+def test_encode_decode_matches(index_pair):
+    jidx, port, x, _ = index_pair
+    xs = x[:300].T
+    c_ref = np.asarray(jidx.encode(jnp.asarray(xs)))
+    codes = port.encode(xs)
+    assert codes.dtype == torch.uint8 and tuple(codes.shape) == (8, 300)
+    assert np.mean(codes.numpy() == c_ref) >= 0.999
+    np.testing.assert_array_equal(
+        port.decode(codes).numpy(),
+        np.asarray(jidx.decode(jnp.asarray(codes.numpy()))))
+
+
+def test_similarity_at_id_matches(index_pair):
+    """Ids present, absent (-1, out of range) and removed-never: -inf where
+    an id holds nothing."""
+    jidx, port, _, q = index_pair
+    ids = np.array([-1, 0, 7, 123, 2499, 2500, 99999])
+    ref = np.asarray(jidx.similarity_at_id(jnp.asarray(q), jnp.asarray(ids)))
+    got = port.similarity_at_id(q, ids).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-4)
+    assert np.isinf(got[:, [0, 5, 6]]).all()
+    np.testing.assert_array_equal(
+        got, port.similarity_at_address(
+            q, port.get_address_by_id(ids)).numpy())
+
+
+@pytest.mark.parametrize("name,value", [
+    ("use_cublas", 0), ("use_tensor_core", 0), ("use_precomputed", 1),
+    ("fp16_scale_mode", "both"), ("pq_max_iter", 7.0), ("vq_max_iter", 3)])
+def test_tunables_match(index_pair, name, value):
+    """The reference's defaults, the same coercion on set, the codec
+    pass-throughs; a search is unchanged by the inert ones."""
+    jidx, port, _, q = index_pair
+    assert getattr(port, name) == getattr(jidx, name)
+    before = port.search(q, k=5)
+    old = getattr(port, name)
+    try:
+        setattr(port, name, value)
+        setattr(jidx, name, value)
+        assert getattr(port, name) == getattr(jidx, name)
+        assert type(getattr(port, name)) is type(getattr(jidx, name))
+        if name.endswith("max_iter"):
+            codec = port.pq_codec if name.startswith("pq") else port.vq_codec
+            assert codec.kmeans.max_iter == int(value)
+        after = port.search(q, k=5)
+        assert all(torch.equal(a, b) for a, b in zip(before, after))
+    finally:
+        setattr(port, name, old)
+        setattr(jidx, name, old)
+
+
+def test_fp16_scale_mode_validates(index_pair):
+    _, port, _, _ = index_pair
+    with pytest.raises(AssertionError):
+        port.fp16_scale_mode = "c"
+    assert port.fp16_scale_mode == "a"
+
+
+@pytest.mark.parametrize("distance", ["euclidean", "inner", "cosine"])
+def test_kmeans_topk_matches(rng, distance):
+    x = rng.normal(size=(16, 800)).astype(np.float32)
+    init = x[:, :24].copy()
+    kw = dict(n_clusters=24, max_iter=5, distance=distance)
+    ref = JaxKMeans(**kw)
+    ref.fit(jnp.asarray(x), centroids=jnp.asarray(init))
+    port = tp.clustering.KMeans(**kw, device=CPU)
+    port.load_state_dict(ref.state_dict())
+    q = rng.normal(size=(16, 50)).astype(np.float32)
+    v_ref, i_ref = ref.topk(jnp.asarray(q), k=6)
+    v, i = port.topk(q, k=6)
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+
+
+@pytest.mark.parametrize("distance", ["euclidean", "cosine"])
+def test_multikmeans_predict_topk_match(rng, distance):
+    x = rng.normal(size=(4, 3, 600)).astype(np.float32)
+    init = x[:, :, :20].copy()
+    kw = dict(n_clusters=20, max_iter=5, distance=distance)
+    ref = JaxMultiKMeans(**kw)
+    ref.fit(jnp.asarray(x), centroids=jnp.asarray(init))
+    port = tp.clustering.MultiKMeans(**kw, device=CPU)
+    port.load_state_dict(ref.state_dict())
+    q = rng.normal(size=(4, 3, 70)).astype(np.float32)
+    np.testing.assert_array_equal(port.predict(q).numpy(),
+                                  np.asarray(ref.predict(jnp.asarray(q))))
+    v_ref, i_ref = ref.topk(jnp.asarray(q), k=5)
+    v, i = port.topk(q, k=5)
+    assert tuple(v.shape) == (4, 70, 5)
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+
+
+@pytest.mark.parametrize("distance", ["euclidean", "inner"])
+def test_batched_topk_sim_matches(rng, distance):
+    x = rng.normal(size=(3, 200, 8)).astype(np.float32)
+    c = rng.normal(size=(3, 40, 8)).astype(np.float32)
+    v_ref, i_ref = jms.batched_topk_sim(jnp.asarray(x), jnp.asarray(c), 7,
+                                        distance)
+    v, i = tms.batched_topk_sim(torch.from_numpy(x), torch.from_numpy(c), 7,
+                                distance)
+    np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+
+
+@pytest.mark.parametrize("distance", ["euclidean", "inner"])
+def test_pq_precompute_adc_matches(rng, distance):
+    x = rng.normal(size=(32, 2000)).astype(np.float32)
+    ref = JaxPQ(d_vector=32, n_subvectors=8, max_iter=5, distance=distance)
+    ref.train(jnp.asarray(x))
+    port = tp.codec.PQCodec(d_vector=32, n_subvectors=8, distance=distance,
+                            device=CPU)
+    port.load_state_dict(ref.state_dict())
+    q = rng.normal(size=(32, 9)).astype(np.float32)
+    lut = port.precompute_adc(q)
+    assert tuple(lut.shape) == (8, 9, 256)
+    np.testing.assert_allclose(
+        lut.numpy(), np.asarray(ref.precompute_adc(jnp.asarray(q))),
+        rtol=1e-5, atol=1e-4)

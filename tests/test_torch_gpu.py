@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (block scan in its bf16/f32 and int8 modes, codes
-scan, flat scan on its tensor-core and CUDA-core routes, row gather)
+"""The port's CUDA kernels (block scan on its tensor-core route and in its
+bf16/f32 and int8 modes on the CUDA cores, codes scan and flat scan on
+their tensor-core and CUDA-core routes, row gather)
 against their plain PyTorch versions, on a card.
 
 Marked `gpu`: without a CUDA card every test here skips. This file imports
@@ -27,31 +28,182 @@ def cuda():
     return torch.device("cuda")
 
 
+def _block_launch(args, kw):
+    """One block_scan call on the card: (output, route), with the route's
+    launch counted once and no other key moved."""
+    route = bs.pick_route(dtype=args[6].dtype, d=args[6].shape[1],
+                          p_tile=args[1].shape[1], s_eff=kw["s_eff"],
+                          k_pair=kw["k_pair"], pack32=kw["pack32"])
+    before = dict(bs.launches)
+    got = bs.block_scan(*args, **kw)
+    torch.cuda.synchronize()
+    assert bs.launches == dict(before, **{route: before[route] + 1})
+    return got, route
+
+
+def _block_uncounted(args, kw, route, **extra):
+    """The block scan's kernel of `route` on args through launch(), no
+    launch counted."""
+    from torchpq_tpu_torch import _build
+    before = dict(bs.launches)
+    got = bs.launch(_build.library(), torch.cuda.current_stream().cuda_stream,
+                    *args, route=route, **kw, **extra)
+    torch.cuda.synchronize()
+    assert bs.launches == before
+    return got
+
+
+def _assert_close_rows(got, ref, k_pair, pack32):
+    """Rows of the kernel against the plain version's: the kernels sum in
+    another order than the plain version's GEMM (bf16 products are exact
+    in f32), so exact values agree to 1e-3 relative and addresses and
+    pack32 keys on >= 0.99 of entries."""
+    if pack32:
+        assert (got == ref).float().mean().item() >= 0.99
+        return
+    v = bs.sortable_i32_to_f32(got[..., :k_pair])
+    v_ref = bs.sortable_i32_to_f32(ref[..., :k_pair])
+    torch.testing.assert_close(v, v_ref, rtol=1e-3, atol=1e-3)
+    assert (got[..., k_pair:] == ref[..., k_pair:]).float().mean() \
+        .item() >= 0.99
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("pack32", [False, True])
 @pytest.mark.parametrize("s_eff,k_pair", [(512, 10), (512, 40), (1024, 40)])
 def test_kernel_matches_plain(cuda, dtype, pack32, s_eff, k_pair):
-    """(1024, 40) selects over 512 strided groups: 64 probers per CTA."""
+    """Through the kernel pick_route names: bf16 takes the tensor-core one
+    (exact k_pair 40: the CUDA-core one), f32 the CUDA-core one. (1024, 40)
+    selects over 512 strided groups (64 probers per CTA on the CUDA cores).
+    Rows to the tolerances of _assert_close_rows: every row from the
+    CUDA-core kernel (it scores pad rows with query 0, as the plain version
+    does), the live rows from the tensor-core one, whose pad rows are dead
+    (_assert_pads)."""
     args = bs.random_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
                             cap_total=8192, dtype=dtype)
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
               slot_mask=s_eff - 1)
     mode = "pack32" if pack32 else "exact"
-    before = bs.launches[mode]
-    got = bs.block_scan(*args, **kw)
-    torch.cuda.synchronize()
-    assert bs.launches[mode] == before + 1
+    got, route = _block_launch(args, kw)
+    tc = dtype == torch.bfloat16 and (pack32 or k_pair <= 16)
+    assert route == ("tc_" if tc else "") + mode
     ref = bs.block_scan_ref(*args, **kw)
-    if pack32:
-        assert (got == ref).float().mean().item() >= 0.99
-    else:
-        # bf16 products are exact in f32; only the summation order differs
-        v = bs.sortable_i32_to_f32(got[..., :k_pair])
-        v_ref = bs.sortable_i32_to_f32(ref[..., :k_pair])
-        torch.testing.assert_close(v, v_ref, rtol=1e-3, atol=1e-3)
-        assert (got[..., k_pair:] == ref[..., k_pair:]).float().mean() \
-            .item() >= 0.99
+    if tc:
+        _assert_pads(got, ref, args[1], route, k_pair, pack32)
+        live = args[1] >= 0
+        got, ref = got[live], ref[live]
+    _assert_close_rows(got, ref, k_pair, pack32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s_eff", [512, 640, 1024, 2048])
+@pytest.mark.parametrize("pack32,k_pair", [(False, 10), (False, 16),
+                                           (True, 10), (True, 40)])
+def test_block_tc_kernel_matches_plain(cuda, s_eff, pack32, k_pair):
+    """The tensor-core block scan on random bf16 inputs at the main path's
+    width (d = 128): s_eff 640 is the compacted layout's (a ragged pack32
+    phase count of 5 tiles), pack32 k_pair 40 selects over 512 / 128 / 256
+    / 512 strided groups. Live rows to the tolerances of
+    _assert_close_rows, pad rows dead. The CUDA-core kernel, launched
+    uncounted on the same inputs, matches the plain version on every row
+    (it scores pad rows with query 0, as the plain version does)."""
+    args = bs.random_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
+                            cap_total=8192, seed=s_eff + k_pair)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+              slot_mask=bs.util.next_pow2(s_eff) - 1)
+    mode = "pack32" if pack32 else "exact"
+    got, route = _block_launch(args, kw)
+    assert route == "tc_" + mode
+    ref = bs.block_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], route, k_pair, pack32)
+    live = args[1] >= 0
+    _assert_close_rows(got[live], ref[live], k_pair, pack32)
+    _assert_close_rows(_block_uncounted(args, kw, mode), ref, k_pair, pack32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack32,k_pair,s_eff", [
+    (False, 10, 640), (False, 16, 200), (True, 10, 640), (True, 40, 2048),
+    (True, 10, 96)])
+@pytest.mark.parametrize("euclidean", [True, False])
+@pytest.mark.parametrize("d", [128, 40])
+def test_block_tc_kernel_integer_ties_exact(cuda, pack32, k_pair, s_eff,
+                                            euclidean, d):
+    """Integer-valued inputs with runs of equal rows: every sum is exact in
+    any order, so the tensor-core kernel equals the plain version bit for
+    bit on live rows, keys, addresses and pack32 keys, ties included; pad
+    rows dead. s_eff 200 has a ragged last tile, 96 is one tile of G =
+    s_eff groups; d = 40 pads K to 48. The CUDA-core kernel, launched
+    uncounted, equals the plain version on every row."""
+    args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
+                                   d=d, cap_total=max(8192, 2 * s_eff),
+                                   seed=d + s_eff)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
+              pack32=pack32, slot_mask=bs.util.next_pow2(s_eff) - 1)
+    got, route = _block_launch(args, kw)
+    assert route.startswith("tc_")
+    ref = bs.block_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], route, k_pair, pack32)
+    live = args[1] >= 0
+    assert torch.equal(got[live], ref[live])
+    if not pack32:
+        keys = ref[live][:, :k_pair]
+        assert int((keys[:, 1:] == keys[:, :-1]).sum()) > 0, "no ties"
+    mode = "pack32" if pack32 else "exact"
+    assert torch.equal(_block_uncounted(args, kw, mode), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack32,k_pair,s_eff", [
+    (False, 10, 640), (False, 16, 1024), (True, 10, 640), (True, 40, 1024)])
+def test_block_tc_kernel_persistent_grid(cuda, pack32, k_pair, s_eff):
+    """A grid of 3 persistent CTAs over 64 blocks: each CTA walks ~21
+    blocks, so the state it resets between blocks (live-tile rows, the
+    pack32 phase parity of deep G = 512, the exact lists and queues, the A
+    fragments, the copies in flight) is reused. Integer inputs: live rows
+    equal the plain version bit for bit, pad rows dead."""
+    args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
+                                   cap_total=8192, seed=k_pair)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+              slot_mask=bs.util.next_pow2(s_eff) - 1)
+    route = "tc_" + ("pack32" if pack32 else "exact")
+    got = _block_uncounted(args, kw, route, n_ctas=3)
+    ref = bs.block_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], route, k_pair, pack32)
+    live = args[1] >= 0
+    assert torch.equal(got[live], ref[live])
+
+
+@pytest.mark.gpu
+def test_block_routes_on_card(cuda):
+    """bf16 at d = 128 takes the tensor-core kernel; an f32 cache, an int8
+    cache and bf16 exact k_pair 20 take the CUDA-core one; each counts
+    under its own key, and asking the tensor-core route for the others
+    raises before anything launches."""
+    for dtype, k_pair, pack32, route in (
+            (torch.bfloat16, 10, False, "tc_exact"),
+            (torch.bfloat16, 10, True, "tc_pack32"),
+            (torch.float32, 10, False, "exact"),
+            (torch.float32, 10, True, "pack32"),
+            (torch.bfloat16, 20, False, "exact"),
+            (torch.int8, 10, False, "int8_exact"),
+            (torch.int8, 10, True, "int8_pack32")):
+        extra = {}
+        if dtype == torch.int8:
+            args, scale, q_scale = bs.random_int8_inputs(
+                cuda, s_eff=512, n_blocks=16, nq=300, cap_total=8192)
+            extra = dict(scale=scale, q_scale=q_scale)
+        else:
+            args = bs.random_inputs(cuda, s_eff=512, n_blocks=16, nq=300,
+                                    cap_total=8192, dtype=dtype)
+        kw = dict(s_eff=512, k_pair=k_pair, euclidean=True, pack32=pack32,
+                  slot_mask=511, **extra)
+        got, r = _block_launch(args, kw)
+        assert r == route
+        if not route.startswith("tc_"):
+            with pytest.raises(ValueError):
+                _block_uncounted(args, kw, "tc_" + route.split("_")[-1])
 
 
 @pytest.mark.gpu

@@ -21,4 +21,7 @@ from . import index
 from .module import StateModule
 from .index import IVFPQIndex
 
+# the reference's name of the stateful-shell base class
+CustomModule = StateModule
+
 __version__ = "0.1.0"

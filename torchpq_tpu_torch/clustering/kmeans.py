@@ -12,7 +12,8 @@ import torch
 from .. import util
 from ..metric import canonical_distance
 from ..module import StateModule
-from ..ops.max_sim import max_sim
+from ..ops.max_sim import batched_max_sim, batched_topk_sim, max_sim, \
+    topk_sim
 from . import lloyd
 
 
@@ -63,6 +64,27 @@ class MultiKMeans(StateModule):
         self.print_message(f"fit done: {iters} iters", 1)
         return labels
 
+    def _query(self, query):
+        """query [m, d_subvector, n] -> f32 on the device, normalized along
+        d for cosine."""
+        assert self.is_trained, "kmeans is not trained"
+        x = util.as_tensor(query, self.device, torch.float32)
+        if x.ndim != 3:
+            raise ValueError(f"expected [m, d, n], got {tuple(x.shape)}")
+        return util.normalize(x, dim=1) if self.distance == "cosine" else x
+
+    def predict(self, query):
+        """query: [m, d_subvector, n] -> labels [m, n] i32."""
+        _, labels = batched_max_sim(self._query(query), self._centroids,
+                                    self.distance, layout="dn")
+        return labels
+
+    def topk(self, query, k=128):
+        """query: [m, d_subvector, n] -> (values, indices) [m, n, k] of the
+        k best centroids of each problem."""
+        x = self._query(query).transpose(1, 2)
+        return batched_topk_sim(x, self._centroids, k, self.distance)
+
 
 class KMeans(MultiKMeans):
     """Single k-means problem."""
@@ -93,11 +115,21 @@ class KMeans(MultiKMeans):
             f"fit done: {iters} iters, inertia={float(inertia[0]):.6g}", 1)
         return labels[0]
 
-    def predict(self, query):
-        """query: [d_vector, n] -> labels [n] i32."""
+    def _query(self, query):
+        """query [d_vector, n] -> [n, d_vector] f32 on the device,
+        normalized for cosine."""
         assert self.is_trained, "kmeans is not trained"
         x = util.as_tensor(query, self.device, torch.float32).T
-        if self.distance == "cosine":
-            x = util.normalize(x)
-        _, labels = max_sim(x, self._centroids[0], self.distance)
+        return util.normalize(x) if self.distance == "cosine" else x
+
+    def predict(self, query):
+        """query: [d_vector, n] -> labels [n] i32."""
+        _, labels = max_sim(self._query(query), self._centroids[0],
+                            self.distance)
         return labels
+
+    def topk(self, query, k=128):
+        """query: [d_vector, n] -> (values, indices) [n, k] of the k best
+        centroids per query."""
+        return topk_sim(self._query(query), self._centroids[0], k,
+                        self.distance)

@@ -11,6 +11,7 @@ import torch
 
 from .base import BaseCodec
 from ..clustering import MultiKMeans
+from ..ops.adc import build_adc_table
 from ..ops.codes_scan import decode_codes
 from ..ops.max_sim import batched_max_sim
 from .. import util
@@ -64,6 +65,13 @@ class PQCodec(BaseCodec):
     def decode(self, code):
         """codes [n_subvectors, n] uint8 -> [d_vector, n] f32."""
         return self.decode_nd(util.as_tensor(code, self.device).T).T
+
+    def precompute_adc(self, query):
+        """query [d_vector, nq] -> ADC table [m, nq, 256] f32."""
+        assert self.is_trained, "codec is not trained"
+        q = util.as_tensor(query, self.device, torch.float32).T
+        return build_adc_table(q, self.codebook_internal,
+                               self.distance).transpose(0, 1)
 
     def encode_nd(self, x_nd):
         """[n, d] -> [n, m] uint8 codes."""

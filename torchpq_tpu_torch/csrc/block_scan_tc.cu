@@ -1,0 +1,201 @@
+// IVF block scan over the bf16 decoded cache on Hopper's tensor cores
+// (sm_90a): the counterpart of torchpq_tpu/ops/pallas_scan.py:
+// scan_blocks_pallas in bf16 mode for rows of d <= 128 (block_scan.cu, on
+// the CUDA cores, serves f32 and int8 caches and the other shapes). It
+// computes what block_scan.cu computes, for block b, prober p and window
+// slot j < s_eff (column j of the window):
+//
+//   score = factor * <q_p, y_{start_c[b] + j}> - pen_j,   factor = 2 or 1
+//   pen_j = penalty[start_c[b] + j] + (off[b] <= j < off[b] + cap[b] ? 0 : BIG)
+//
+// summed in f32 over bf16 operands, then the selects of block_scan.cu in
+// its wire format (exact: value descending, slot ascending; pack32: one
+// maximal key per strided group of slots {j, j+G, ...}, then the k_pair
+// largest). One difference: rows whose prober is -1 are not scored but
+// written dead (exact: sortable(-inf) keys and -1 addresses; pack32:
+// INT_MIN). ops/adc.py:_merge_pairs never reads them.
+//
+// What bounds it on an H100: at the bf16 plans' arguments (4,075 blocks of
+// 128 probers at n_probe 8, 4,507 at n_probe 32; s_eff 640 over the
+// compacted layout; d = 128) the bytes are the window rows the blocks
+// cover, ~0.3 GB (~0.09 ms at 3.35 TB/s: the blocks of one cell share its
+// window, so most of the ~0.7 GB the CTAs copy comes from L2), and the
+// products of the live probers ~1e10-4e10 operations (~0.01-0.04 ms at
+// 989 TFLOP/s bf16). With one CTA of 8 warps per SM (its registers), two
+// warps per scheduler hide little latency: the time goes to dependent
+// chains (each k step's mma.sync on the last, the pack32 keys and their
+// phase-end extraction, the exact select's inserts) and to each tile's copy
+// where the scoring is too short to cover it, not to bytes or products.
+// block_scan.cu spent its time on what this design drops: an f32 FMA chain
+// per prober (every window element feeds 128 FMAs) and pad probers scored
+// in full (15% of rows are live at n_probe 8, 56% at n_probe 32).
+//
+// Design: scan_tc.cuh's body (persistent CTAs of 8 warps, live 16-prober
+// tiles only, mma.sync over tiles of 128 window columns, warps split by
+// column slices, pack32 maxima in registers, the exact select staged
+// through shared memory), fed by RowsSource below: the window's bf16 rows
+// are B as they lie in the cache ([slot][k]), so a tile is a copy, 16
+// bytes per cp.async (tc_ptx.cuh), into the body's [TN][round16(d) + 8]
+// layout; column c is slot c. The copy of tile t + 1 is in flight while
+// the warps score tile t (the two tile buffers alternate), and each thread
+// waits for its own copies after scoring, before the tile's barrier.
+// Budget at d = 128: shared memory 2 x 34,816 B tiles + 2,048 B penalties
+// and slots + 544 B prober rows and tile flags + the slice lists + exact:
+// 37,376 B staging rows and row bounds, 12,288 B queues; pack32: running
+// lists: 132,128 B exact and 87,584 B pack32 at k_pair 10; one CTA of 8
+// warps per SM, for its registers (the body's, few of the source's).
+
+#include <cstdint>
+
+#include "scan_tc.cuh"
+
+namespace {
+
+using namespace tpq;
+using namespace tpq::tc;
+
+constexpr int MAX_COPIES = TN * MAX_D / 8 / THREADS;  // 16-byte copies per
+                                                      // thread and tile
+
+// The window tiles of the bf16 cache rows: column c is slot c. A thread
+// copies the 16-byte chunks e = t + r * THREADS of the tile (chunk e is
+// chunk e % cpr of column e / cpr, cpr = d / 8 per row), stepped without a
+// division: (cl, ch) of e + THREADS is (cl + dq, ch + dr), carried.
+struct RowsSource {
+  const __nv_bfloat16* __restrict__ rows;  // the cache [capacity, d]
+  const float* __restrict__ penalty;
+  int d, ld, cpr, cl0, ch0, dq, dr;
+  float pen;
+
+  __device__ __forceinline__ void fetch(int s0, int o0, int o1, int ts,
+                                        int nrow, __nv_bfloat16* tile) {
+    const int t = threadIdx.x;
+    const __nv_bfloat16* src = rows + ((size_t)s0 + ts) * d;
+    int cl = cl0;
+    int ch = ch0;
+#pragma unroll
+    for (int r = 0; r < MAX_COPIES; ++r) {
+      if (cl < nrow) {
+        cp_async16(tile + cl * ld + 8 * ch, src + (size_t)cl * d + 8 * ch,
+                   16);
+      }
+      cl += dq;
+      ch += dr;
+      if (ch >= cpr) {
+        ch -= cpr;
+        ++cl;
+      }
+    }
+    cp_async_commit();
+    if (t < TN) {
+      pen = 0.0f;
+      if (t < nrow) {
+        const int j = ts + t;
+        pen = __ldg(penalty + s0 + j) +
+              ((j >= o0 && j < o1) ? 0.0f : big_penalty());
+      }
+    }
+  }
+
+  __device__ __forceinline__ void land(int ts, int, __nv_bfloat16*,
+                                       float* pen_s, int* slot_s) const {
+    cp_async_wait<0>();
+    const int t = threadIdx.x;
+    if (t < TN) {
+      pen_s[t] = pen;
+      slot_s[t] = ts + t;
+    }
+  }
+
+  __device__ __forceinline__ int slot(int c) const { return c; }
+};
+
+template <bool PACK, int KMAX>
+__global__ void __launch_bounds__(THREADS, 1) block_scan_tc_kernel(
+    const __nv_bfloat16* __restrict__ qtable,
+    const int* __restrict__ probers, const int* __restrict__ start_c,
+    const int* __restrict__ off, const int* __restrict__ capb,
+    const float* __restrict__ penalty,
+    const __nv_bfloat16* __restrict__ decoded, int* __restrict__ out,
+    int n_blocks, int p_tile, int d, int s_eff, int k_pair, float factor,
+    int slot_mask, int n_groups) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int t = threadIdx.x;
+  RowsSource src;
+  src.rows = decoded;
+  src.penalty = penalty;
+  src.d = d;
+  src.ld = round16(d) + 8;
+  src.cpr = d / 8;
+  src.cl0 = t / src.cpr;
+  src.ch0 = t % src.cpr;
+  src.dq = THREADS / src.cpr;
+  src.dr = THREADS % src.cpr;
+  scan_blocks<PACK, KMAX>(src, smem_raw, qtable, probers, start_c, off, capb,
+                          out, n_blocks, p_tile, d, s_eff, k_pair, factor,
+                          slot_mask, n_groups);
+}
+
+template <bool PACK, int KMAX>
+int occupancy_of(int d, int k_pair) {
+  return occupancy(block_scan_tc_kernel<PACK, KMAX>,
+                   body_smem_bytes(d, PACK, k_pair));
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes). qtable [nq, d] bf16 and decoded
+// [capacity, d] bf16, both 16-byte aligned, d % 8 == 0 and d <= 128;
+// probers [n_blocks, p_tile] int32 (p_tile % 16 == 0, p_tile <= 128),
+// start_c / off / capb [n_blocks] int32, penalty [capacity] f32, out int32;
+// exact: k_pair <= 16; pack32: k_pair <= 48 and n_groups % 8 == 0, either
+// n_groups == s_eff <= 128, or n_groups a multiple of 128 that divides
+// s_eff. n_ctas: the persistent grid (at most n_blocks). Returns 0 or the
+// CUDA error code of an attribute call or the launch. Launches on
+// `stream`, does not synchronize and allocates nothing.
+extern "C" int torchpq_block_scan_tc(
+    const void* qtable, const int* probers, const int* start_c,
+    const int* off, const int* capb, const float* penalty,
+    const void* decoded, int* out, int n_blocks, int p_tile, int d,
+    int s_eff, int k_pair, int euclidean, int pack32, int slot_mask,
+    int n_groups, int n_ctas, void* stream) {
+  if (!shape_ok(n_blocks, n_ctas, p_tile, d, s_eff, k_pair, pack32,
+                n_groups) ||
+      reinterpret_cast<uintptr_t>(qtable) % 16 ||
+      reinterpret_cast<uintptr_t>(decoded) % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const float factor = euclidean ? 2.0f : 1.0f;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t smem = body_smem_bytes(d, pack32, k_pair);
+#define TPQ_ARGS                                                          \
+  static_cast<const __nv_bfloat16*>(qtable), probers, start_c, off, capb, \
+      penalty, static_cast<const __nv_bfloat16*>(decoded), out, n_blocks, \
+      p_tile, d, s_eff, k_pair, factor, slot_mask, n_groups
+  if (pack32) {
+    return launch_kernel(block_scan_tc_kernel<true, 1>, dim3(n_ctas),
+                         THREADS, smem, st, TPQ_ARGS);
+  }
+  if (k_pair <= 10) {
+    return launch_kernel(block_scan_tc_kernel<false, 10>, dim3(n_ctas),
+                         THREADS, smem, st, TPQ_ARGS);
+  }
+  return launch_kernel(block_scan_tc_kernel<false, 16>, dim3(n_ctas),
+                       THREADS, smem, st, TPQ_ARGS);
+#undef TPQ_ARGS
+}
+
+// Dynamic shared memory of one CTA at width d.
+extern "C" long long torchpq_block_scan_tc_smem(int d, int pack32,
+                                               int k_pair) {
+  return (long long)body_smem_bytes(d, pack32, k_pair);
+}
+
+// CTAs one SM holds at once (registers and shared memory permitting), or
+// minus the CUDA error code.
+extern "C" int torchpq_block_scan_tc_occupancy(int d, int pack32,
+                                               int k_pair) {
+  if (pack32) return occupancy_of<true, 1>(d, k_pair);
+  return k_pair <= 10 ? occupancy_of<false, 10>(d, k_pair)
+                      : occupancy_of<false, 16>(d, k_pair);
+}

@@ -1,0 +1,774 @@
+// The tensor-core IVF block scan of codes_scan_tc.cu and block_scan_tc.cu:
+// one kernel body, templated over the source of its window tiles.
+//
+// For block b, prober p and window column c < s_eff holding in-window slot
+// j (the source says which):
+//
+//   score = factor * <bf16(q_p), y_j> - pen_j,   factor = 2 (euclidean) or 1
+//   pen_j = penalty[start_c[b] + j] + (off[b] <= j < off[b] + cap[b] ? 0 : BIG)
+//
+// summed in f32 over bf16 operands, then scan_common.cuh's selects over the
+// columns (exact: value descending, column ascending; pack32: one maximal
+// key per strided group of columns {c, c+G, ...}, then the k_pair largest),
+// in block_scan.cu's wire format. Rows whose prober is -1 are not scored but
+// written dead (exact: sortable(-inf) keys and -1 addresses; pack32:
+// INT_MIN); ops/adc.py:_merge_pairs never reads them.
+//
+// Design:
+// - Persistent CTAs of 8 warps, one per SM (the wrapper sizes the grid from
+//   the occupancy), each walking the blocks b = blockIdx.x + i * gridDim.x.
+// - Only live m tiles: a block's p_tile <= 128 probers are up to 8 m tiles
+//   of 16 rows; a ballot finds the nm tiles that hold a prober >= 0. Every
+//   -1 row is written dead as the block starts. The 8 warps split the live
+//   tiles' work: S = 8 / next_pow2(nm) warps per live tile, each taking a
+//   slice of 128 / S columns of every window tile, so at n_probe 8 (~2 live
+//   tiles a block) every warp scores and selects. A warp's A fragments (its
+//   tile's 16 query rows, zero for -1 rows and past d) stay in registers for
+//   the block (32 registers at d = 128).
+// - The window in tiles of TN = 128 columns, shared by every live m tile:
+//   bf16 [column][k] with rows of round16(d) + 8 elements (an odd multiple
+//   of 16 bytes, so the 8 row addresses of an ldmatrix phase fall on
+//   distinct banks; the K padding is zero), which is B as it lies
+//   (tc_ptx.cuh). Two tiles alternate: the source's fetch() starts the next
+//   tile before the warps score this one, and its land() finishes it after;
+//   one __syncthreads per tile. A block's last tile brings the CTA's next
+//   block's first one and this thread's prober of it, so a block waits at
+//   its start only for its window's bounds and its A fragments.
+// - The merges of the slices' lists (one thread per live row) keep their
+//   list heads in registers (loops over the 8 slices unrolled), so the
+//   loads of a step issue together.
+// - Products: mma.sync m16n8k16 bf16 x bf16 -> f32 (tc_ptx.cuh), B by
+//   ldmatrix.x4 (16 columns x 16 k), up to 8 accumulator tiles (64 columns)
+//   at a time, the first k step from a zero accumulator.
+// - pack32 in registers along the C fragment layout: lane (g, t) holds rows
+//   g and g + 8 of its m tile and, of every 8 columns of its slice, columns
+//   2t and 2t + 1, so each (row, group) has one owner and no atomics are
+//   needed: at most 32 group maxima per row of a 128-column phase (32 / S
+//   in a slice of 128 / S columns). At a phase's end the quad extracts its
+//   slice's k_pair largest keys per row by 4-lane shuffles into shared
+//   memory, scanning only the maxima its slice fills (a code path per S),
+//   and one thread per live row
+//   merges the S slices' lists and the running list of earlier phases.
+//   With G = 256 or 512 (deep selects) the tiles are visited phase by phase
+//   (columns == phase * 128 mod G), so a lane never holds more than 32
+//   groups per row.
+// - exact through shared memory: a warp writes the scores of its 64-column
+//   group to its staging rows [16][SLD], and lane l takes row l / 2 over
+//   its half of the group's columns, in ascending order, into a sorted list
+//   of k_pair (rounded up to 10 or 16) entries (scan_common.cuh:insert keeps
+//   column order on ties). Inserting score by score costs the whole warp an
+//   insert whenever any lane has one, so a score enters only at or above a
+//   bound on the row's k_pair-th value (the largest k_pair-th entry of the
+//   row's lists, shared across its slices through shared memory), waits in
+//   a short per-lane queue, and the queues are inserted together; a lane's
+//   first 8 or 16 columns of a block are sorted at once by a bitonic
+//   network. The queue lives in shared memory and the lists in registers:
+//   no per-thread array may be indexed by a value the compiler cannot
+//   unroll, or it lands in local memory, which has little L1 beside these
+//   kernels' shared memory (see kth_of). At the block's end each
+//   slice's list per row (the two lanes' merged by shuffles) goes to shared
+//   memory, and one thread per live row merges the S slices' lists in
+//   (value descending, column ascending) order.
+// - Registers: 32 A + 32 accumulators + 64 pack32 maxima or 20-32 exact
+//   list entries + the source's prefetch, under the 255 that
+//   __launch_bounds__(256, 1) allows (read -Xptxas -v for spills and stack
+//   frames).
+//
+// A tile source is a struct with
+//   fetch(s0, o0, o1, ts, nrow, tile): start bringing window columns
+//       [ts, ts + nrow) of the block whose window starts at slot s0 (its
+//       cell's slots [o0, o1) of the window) into `tile`;
+//   land(ts, nrow, tile, pen_s, slot_s): finish them, and write each
+//       column's penalty and in-window slot; after a __syncthreads the tile
+//       holds the columns' rows in [0, d) of each;
+//   slot(c): the in-window slot of column c.
+
+#pragma once
+
+#include <cstdint>
+
+#include "scan_common.cuh"
+#include "tc_ptx.cuh"
+
+namespace tpq {
+namespace tc {
+
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int TN = 128;             // window columns per tile
+constexpr int MAX_D = 128;          // widest row the A fragments hold
+constexpr int KSTEPS = MAX_D / 16;  // k16 steps of the widest row
+constexpr int MAX_PT = 16 * WARPS;  // probers per block: up to 8 m tiles
+constexpr int MAX_EXACT_K = 16;     // exact k_pair the lane lists take
+constexpr int MAX_PACK_K = 48;      // pack32 k_pair the shared lists fit
+constexpr int NGRP = TN / 4;        // pack32 group maxima per lane and row
+constexpr int SLD = 72;             // exact staging row stride, floats
+constexpr int QUEUE = 6;            // exact: a lane's queued candidates
+
+__host__ __device__ inline int round16(int d) { return (d + 15) / 16 * 16; }
+
+// Shared memory of the body: tiles [2][TN][round16(d) + 8] bf16, penalties
+// [2][TN] f32, slots [2][TN], prober rows [MAX_PT], tile flags
+// [MAX_PT / 16], slice lists [WARPS][16][k_pair] (exact: values and
+// columns; pack32: keys), then exact: score staging rows [WARPS][16][SLD]
+// f32, row bounds [WARPS][16] f32 and the lanes' queues [QUEUE][THREADS]
+// f32 and int; pack32: running lists
+// [2][MAX_PT][k_pair]. Each part is a multiple of 16 bytes (d % 8 == 0).
+__host__ __device__ inline size_t body_smem_bytes(int d, int pack32,
+                                                  int k_pair) {
+  return (size_t)4 * TN * (round16(d) + 8) + (size_t)16 * TN + 4 * MAX_PT +
+         4 * (MAX_PT / 16) + (size_t)WARPS * 16 * k_pair * (pack32 ? 4 : 8) +
+         (pack32 ? (size_t)2 * MAX_PT * k_pair * 4
+                 : (size_t)WARPS * 16 * (SLD + 1) * 4 +
+                       (size_t)QUEUE * THREADS * 8);
+}
+
+// The shapes the body takes (d % 8 == 0 and the sources' own terms apart):
+// blocks of whole m tiles, at most 8; exact k_pair <= 16; pack32 k_pair <=
+// 48 with G % 8 == 0, either G == s_eff <= TN, or G a multiple of TN that
+// divides s_eff.
+__host__ inline bool shape_ok(int n_blocks, int n_ctas, int p_tile, int d,
+                              int s_eff, int k_pair, int pack32,
+                              int n_groups) {
+  const bool groups_ok =
+      n_groups >= k_pair && n_groups % 8 == 0 &&
+      (n_groups == s_eff ? s_eff <= TN
+                         : (n_groups % TN == 0 && s_eff % n_groups == 0));
+  return n_blocks > 0 && n_ctas > 0 && n_ctas <= n_blocks && p_tile > 0 &&
+         p_tile % 16 == 0 && p_tile <= MAX_PT && d > 0 && d % 8 == 0 &&
+         d <= MAX_D && s_eff > 0 && k_pair >= 1 && k_pair <= s_eff &&
+         (pack32 ? (k_pair <= MAX_PACK_K && groups_ok)
+                 : k_pair <= MAX_EXACT_K);
+}
+
+// (x, i) comes before (y, j): value descending, then column ascending.
+__device__ __forceinline__ bool before(float x, int i, float y, int j) {
+  return x > y || (x == y && i < j);
+}
+
+// exact: a lane's candidates that passed the bound, queued in visit
+// (column) order and inserted into its sorted list in one go when some
+// lane's queue may overflow. Inserting one score at a time costs the whole warp
+// an insert whenever any of its 32 lanes has a candidate; a flush lets
+// every lane insert its own queued candidates together. The queue is the
+// thread's column of [QUEUE][THREADS] arrays in shared memory (conflict
+// free; indexed by the count, so neither registers nor local memory, which
+// gets little L1 beside the kernels' shared memory).
+
+struct ExactQueue {
+  float* v;  // &values[0][threadIdx.x]
+  int* c;    // &columns[0][threadIdx.x]
+  int n;
+
+  __device__ __forceinline__ void push(float x, int col) {
+    v[n * THREADS] = x;
+    c[n * THREADS] = col;
+    ++n;
+  }
+
+  template <int KMAX>
+  __device__ __forceinline__ void flush(float (&vals)[KMAX],
+                                        int (&cols)[KMAX]) {
+#pragma unroll 1
+    for (int j = 0; j < n; ++j) {
+      insert<KMAX>(vals, cols, v[j * THREADS], c[j * THREADS]);
+    }
+    n = 0;
+  }
+};
+
+// exact: the first N candidates of a lane's empty list, sorted at once (a
+// bitonic network, value descending then column ascending: a total order,
+// the columns being distinct) rather than inserted one by one.
+template <int N, int KMAX>
+__device__ __forceinline__ void first_fill(float (&vals)[KMAX],
+                                           int (&cols)[KMAX],
+                                           const float* sr, int c0, int col0,
+                                           int nrow) {
+  float v[N];
+  int c[N];
+#pragma unroll
+  for (int j = 0; j < N; j += 4) {
+    const float4 s4 = *reinterpret_cast<const float4*>(sr + j);
+    v[j] = s4.x;
+    v[j + 1] = s4.y;
+    v[j + 2] = s4.z;
+    v[j + 3] = s4.w;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    c[j] = col0 + j;
+    if (c0 + j >= nrow) {
+      v[j] = neg_inf();
+      c[j] = INT_MAX;
+    }
+  }
+#pragma unroll
+  for (int k = 2; k <= N; k *= 2) {
+#pragma unroll
+    for (int h = k / 2; h > 0; h /= 2) {
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int l = i ^ h;
+        if (l > i) {
+          const bool first = (i & k) == 0;  // this run sorts descending
+          if (first ? before(v[l], c[l], v[i], c[i])
+                    : before(v[i], c[i], v[l], c[l])) {
+            const float tv = v[i];
+            const int tc = c[i];
+            v[i] = v[l];
+            c[i] = c[l];
+            v[l] = tv;
+            c[l] = tc;
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {
+    vals[j] = j < N ? v[j < N ? j : 0] : neg_inf();
+    cols[j] = j < N ? c[j < N ? j : 0] : INT_MAX;
+  }
+}
+
+// Largest of v[0..N), N % 4 == 0, in four independent running maxima.
+template <int N>
+__device__ __forceinline__ int max_of(const int (&v)[NGRP]) {
+  int b0 = v[0], b1 = v[1], b2 = v[2], b3 = v[3];
+#pragma unroll
+  for (int j = 4; j < N; j += 4) {
+    b0 = max(b0, v[j]);
+    b1 = max(b1, v[j + 1]);
+    b2 = max(b2, v[j + 2]);
+    b3 = max(b3, v[j + 3]);
+  }
+  return max(max(b0, b1), max(b2, b3));
+}
+
+// pack32 phase end: the slice's k_pair largest keys of each of the lane's
+// two rows (rows g and g + 8 of the warp's m tile), by the quad's shuffles,
+// into the warp's list keys_s [16][k_pair]; the maxima reset. NU: the group
+// maxima a lane holds per row, 32 / S (a slice of 128 / S columns), so the
+// scans run over those only, with register indices. Keys are unique in a
+// row, so the lane holding the quad's maximum clears it by value.
+template <int NU>
+__device__ __forceinline__ void extract_slice(int (&mx)[2][NGRP], int* keys_s,
+                                              int lane, int k_pair) {
+  for (int i = 0; i < k_pair; ++i) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int best = max_of<NU>(mx[rr]);
+      int q = max(best, __shfl_xor_sync(0xffffffffu, best, 1));
+      q = max(q, __shfl_xor_sync(0xffffffffu, q, 2));
+#pragma unroll
+      for (int j = 0; j < NU; ++j) {
+        if (mx[rr][j] == q) mx[rr][j] = INT_MIN;
+      }
+      if (lane % 4 == 0) keys_s[frag_c_row(lane, 2 * rr) * k_pair + i] = q;
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+    for (int j = 0; j < NU; ++j) mx[rr][j] = INT_MIN;
+  }
+}
+
+// The k-th entry of a list sorted descending: the least of its first k,
+// taken with register indices (an equality pick vals[k - 1] is compiled
+// into a load from a copy of the list in local memory).
+template <int KMAX>
+__device__ __forceinline__ float kth_of(const float (&vals)[KMAX], int k) {
+  float m = -neg_inf();
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {
+    if (j < k) m = fminf(m, vals[j]);
+  }
+  return m;
+}
+
+// Global index (of the block's m tiles) of the n-th live one.
+__device__ __forceinline__ int nth_live(const int* live_s, int n) {
+  int k = 0;
+  for (int i = 0; i < MAX_PT / 16; ++i) {
+    if (live_s[i]) {
+      if (k == n) return i;
+      ++k;
+    }
+  }
+  return -1;
+}
+
+// The scan of the blocks b = blockIdx.x + i * gridDim.x (see the notes
+// above). smem: the body's shared memory (body_smem_bytes), 16-byte
+// aligned. KMAX: the exact lists' length, k_pair rounded up to 10 or 16
+// (shorter lists make each insert cheaper; pack32 does not use them).
+template <bool PACK, int KMAX, typename Source>
+__device__ __forceinline__ void scan_blocks(
+    Source& src, unsigned char* smem, const __nv_bfloat16* __restrict__ qtable,
+    const int* __restrict__ probers, const int* __restrict__ start_c,
+    const int* __restrict__ off, const int* __restrict__ capb,
+    int* __restrict__ out, int n_blocks, int p_tile, int d, int s_eff,
+    int k_pair, float factor, int slot_mask, int n_groups) {
+  const int t = threadIdx.x;
+  const int lane = t % 32;
+  const int warp = t / 32;
+  const int dpad = round16(d);
+  const int ld = dpad + 8;
+  const int ksteps = dpad / 16;
+  const int width = PACK ? k_pair : 2 * k_pair;  // output ints per row
+
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][TN][ld]
+  float* pen_s = reinterpret_cast<float*>(tiles + 2 * TN * ld);  // [2][TN]
+  int* slot_s = reinterpret_cast<int*>(pen_s + 2 * TN);          // [2][TN]
+  int* prow_s = slot_s + 2 * TN;                                 // [MAX_PT]
+  int* live_s = prow_s + MAX_PT;                          // [MAX_PT / 16]
+  int* keys_s = live_s + MAX_PT / 16;  // slice lists [WARPS][16][k_pair]
+  float* vals_s = reinterpret_cast<float*>(keys_s + WARPS * 16 * k_pair);
+  int* run_s = keys_s + WARPS * 16 * k_pair;  // pack32 [2][MAX_PT][k_pair]
+  float* stage_s = vals_s + WARPS * 16 * k_pair;  // exact [WARPS][16][SLD]
+  volatile float* rowb_s = stage_s + WARPS * 16 * SLD;  // exact [WARPS][16]
+  float* qv_s = stage_s + WARPS * 16 * (SLD + 1);  // exact [QUEUE][THREADS]
+  int* qc_s = reinterpret_cast<int*>(qv_s + QUEUE * THREADS);
+
+  // the K padding of both tiles, zero once (the sources write [0, d))
+  if (dpad > d) {
+    const int pad = dpad - d;
+    unsigned short* raw = reinterpret_cast<unsigned short*>(tiles);
+    for (int i = t; i < 2 * TN * pad; i += THREADS) {
+      raw[(i / pad) * ld + d + i % pad] = 0;
+    }
+  }
+
+  // Tile order: ts(i) = (i % tpp) * stride + (i / tpp) * TN. Deep pack32
+  // groups (G > TN) take the tiles phase by phase: phase f holds the
+  // columns == f * TN (mod G), and a phase ends every tpp tiles.
+  const bool phased = PACK && n_groups > TN;
+  const int n_tiles = (s_eff + TN - 1) / TN;
+  const int tpp = phased ? s_eff / n_groups : n_tiles;
+  const int stride = phased ? n_groups : TN;
+
+  // The first block's first tile and this thread's prober; a block's last
+  // tile brings the next block's (its tile 0 into the other buffer), so a
+  // block waits on global memory only for its window's bounds and its A
+  // fragments. Tile buffer: gt & 1, gt counting the tiles of the CTA's
+  // blocks.
+  int pr = -1, gt = 0;
+  __syncthreads();  // what the kernel staged before the body (a codebook)
+  if ((int)blockIdx.x < n_blocks) {
+    const int b = blockIdx.x;
+    pr = t < p_tile ? probers[(size_t)b * p_tile + t] : -1;
+    src.fetch(start_c[b], off[b], off[b] + capb[b], 0, min(TN, s_eff),
+              tiles);
+    src.land(0, min(TN, s_eff), tiles, pen_s, slot_s);
+  }
+
+  for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+    __syncthreads();  // the previous block is done with the shared arrays
+                      // and this block's first tile has landed
+    const int nb = b + gridDim.x;  // the CTA's next block
+    const int s0 = start_c[b];
+    const int o0 = off[b];
+    const int o1 = o0 + capb[b];
+    int npr = -1;  // this thread's prober of the next block
+    if (t < MAX_PT) {
+      prow_s[t] = pr;
+      if (!PACK) rowb_s[t] = neg_inf();
+    }
+    if (t < p_tile && pr < 0) {  // pad rows: dead, never scored
+      int* o = out + ((size_t)b * p_tile + t) * width;
+      for (int i = 0; i < k_pair; ++i) {
+        if (PACK) {
+          o[i] = INT_MIN;
+        } else {
+          o[i] = sortable(neg_inf());
+          o[k_pair + i] = -1;
+        }
+      }
+    }
+    const unsigned live = __ballot_sync(0xffffffffu, pr >= 0);
+    if (lane == 0 && warp < MAX_PT / 32) {
+      live_s[2 * warp] = (live & 0xFFFFu) != 0u;
+      live_s[2 * warp + 1] = (live >> 16) != 0u;
+    }
+    __syncthreads();
+
+    // The live tiles' work: S warps per live tile, warp w takes slice
+    // w % S (pairs of n8 tiles [slice * np_s, (slice + 1) * np_s) of every
+    // window tile) of live tile w / S (warp-uniform).
+    int nm = 0;
+    for (int i = 0; i < MAX_PT / 16; ++i) nm += live_s[i];
+    const int S = nm <= 1 ? 8 : nm <= 2 ? 4 : nm <= 4 ? 2 : 1;
+    const int np_s = 8 / S;  // 16-column pairs per slice and tile
+    const int lt = warp / S;
+    const int slice = warp % S;
+    const bool busy = lt < nm;
+    const int mt = busy ? nth_live(live_s, lt) : 0;
+
+    // A: the m tile's query rows, zero for -1 rows and past d. A lane
+    // reads two rows (frag_a_row: g and g + 8); all its loads issue
+    // together, from the rows of query max(q, 0).
+    uint32_t a[KSTEPS][4];
+    {
+      const int q0 = busy ? prow_s[16 * mt + frag_a_row(lane, 0)] : -1;
+      const int q1 = busy ? prow_s[16 * mt + frag_a_row(lane, 1)] : -1;
+      const unsigned int* r0 = reinterpret_cast<const unsigned int*>(
+          qtable + (size_t)max(q0, 0) * d);
+      const unsigned int* r1 = reinterpret_cast<const unsigned int*>(
+          qtable + (size_t)max(q1, 0) * d);
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = 16 * ks + frag_a_col(lane, i);
+          uint32_t v = 0u;
+          if (busy && ks < ksteps && col < d) {
+            v = __ldg((i % 2 ? r1 : r0) + col / 2);
+          }
+          a[ks][i] = (i % 2 ? q1 : q0) >= 0 ? v : 0u;
+        }
+      }
+    }
+
+    // select state: exact lists and the quad's bound, or pack32 group
+    // maxima of the phase
+    // (exact: lane l keeps row l / 2 of the warp's 16, over its half of
+    // each group of columns)
+    float vals[KMAX];
+    int cols[KMAX];
+    // a -1 row of a live tile is scored but selects nothing
+    const bool dead_row = busy && prow_s[16 * mt + lane / 2] < 0;
+    float bound = dead_row ? -neg_inf() : neg_inf();
+    int mx[2][NGRP];
+    ExactQueue queue;
+    queue.v = qv_s + t;
+    queue.c = qc_s + t;
+    queue.n = 0;
+    if constexpr (PACK) {
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+        for (int j = 0; j < NGRP; ++j) mx[rr][j] = INT_MIN;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        vals[j] = neg_inf();
+        cols[j] = INT_MAX;
+      }
+    }
+    int phase = 0;
+
+    for (int it = 0; it < n_tiles; ++it, ++gt) {
+      const int buf = gt & 1;
+      const int ts = (it % tpp) * stride + (it / tpp) * TN;
+      const int nrow = min(TN, s_eff - ts);
+      // the next tile: this block's, or the next block's first
+      const bool more = it + 1 < n_tiles;
+      const int tn =
+          more ? ((it + 1) % tpp) * stride + ((it + 1) / tpp) * TN : 0;
+      const bool ahead = more || nb < n_blocks;
+      if (more) {
+        src.fetch(s0, o0, o1, tn, min(TN, s_eff - tn),
+                  tiles + (buf ^ 1) * TN * ld);
+      } else if (ahead) {
+        src.fetch(start_c[nb], off[nb], off[nb] + capb[nb], 0,
+                  min(TN, s_eff), tiles + (buf ^ 1) * TN * ld);
+        npr = t < p_tile ? probers[(size_t)nb * p_tile + t] : -1;
+      }
+      if (busy) {
+        const __nv_bfloat16* tile = tiles + buf * TN * ld;
+        const float* pen = pen_s + buf * TN;
+        const int* slt = slot_s + buf * TN;
+#pragma unroll
+        for (int gq = 0; gq < 2; ++gq) {  // up to 4 pairs (64 columns)
+          const int p0 = slice * np_s + 4 * gq;  // first pair of the group
+          if (4 * gq < np_s && 16 * p0 < nrow) {
+            float acc[8][4];
+#pragma unroll
+            for (int ks = 0; ks < KSTEPS; ++ks) {
+              if (ks < ksteps) {
+#pragma unroll
+                for (int np = 0; np < 4; ++np) {
+                  const int c0 = 16 * (p0 + np);
+                  if (4 * gq + np < np_s && c0 < nrow) {
+                    uint32_t bf[4];
+                    ldmatrix_x4(bf, tile + (c0 + ldm_b_row(lane)) * ld +
+                                        16 * ks + ldm_b_col(lane));
+                    if (ks == 0) {
+                      mma_bf16_16816_zero(acc[2 * np], a[0], bf[0], bf[1]);
+                      mma_bf16_16816_zero(acc[2 * np + 1], a[0], bf[2],
+                                          bf[3]);
+                    } else {
+                      mma_bf16_16816(acc[2 * np], a[ks], bf[0], bf[1]);
+                      mma_bf16_16816(acc[2 * np + 1], a[ks], bf[2], bf[3]);
+                    }
+                  }
+                }
+              }
+            }
+            // the scores of this lane's columns, in ascending order
+            if constexpr (PACK) {
+#pragma unroll
+              for (int nt = 0; nt < 8; ++nt) {
+                const int base = 16 * p0 + 8 * nt;  // the n8 tile's column
+                const int cl = base + frag_c_col(lane, 0);
+                if (4 * gq + nt / 2 < np_s && base < nrow) {
+                  const float2 p =
+                      *reinterpret_cast<const float2*>(pen + cl);
+#pragma unroll
+                  for (int i = 0; i < 2; ++i) {
+                    if (cl + i < nrow) {
+#pragma unroll
+                      for (int rr = 0; rr < 2; ++rr) {
+                        const float sc =
+                            factor * acc[nt][2 * rr + i] - (i ? p.y : p.x);
+                        const int key =
+                            (sortable(sc) & ~slot_mask) | slt[cl + i];
+                        int& best = mx[rr][2 * (8 * gq + nt) + i];
+                        best = max(best, key);
+                      }
+                    }
+                  }
+                }
+              }
+            } else {
+              // exact: the group's scores through the warp's staging rows
+              // [16][SLD]; lane l then takes row l / 2 over its half of the
+              // group's columns, in ascending order
+              float* st = stage_s + warp * 16 * SLD;
+#pragma unroll
+              for (int nt = 0; nt < 8; ++nt) {
+                const int base = 16 * p0 + 8 * nt;
+                const int cl = base + frag_c_col(lane, 0);
+                if (4 * gq + nt / 2 < np_s && base < nrow) {
+                  const float2 p =
+                      *reinterpret_cast<const float2*>(pen + cl);
+#pragma unroll
+                  for (int rr = 0; rr < 2; ++rr) {
+                    *reinterpret_cast<float2*>(
+                        st + frag_c_row(lane, 2 * rr) * SLD + 8 * nt +
+                        frag_c_col(lane, 0)) =
+                        make_float2(factor * acc[nt][2 * rr] - p.x,
+                                    factor * acc[nt][2 * rr + 1] - p.y);
+                  }
+                }
+              }
+              __syncwarp();
+              const int hw = 8 * min(4, np_s - 4 * gq);  // half the group
+              const int c0 = 16 * p0 + (lane % 2) * hw;  // lane's first
+              const float* sr = st + (lane / 2) * SLD + (lane % 2) * hw;
+              // the block's first group: the lists are empty, so its first
+              // 16 (or 8) columns are sorted into them at once
+              int j0 = 0;
+              if (it == 0 && gq == 0) {
+                if (hw >= 16) {
+                  first_fill<16, KMAX>(vals, cols, sr, c0, ts + c0, nrow);
+                  j0 = 16;
+                } else {
+                  first_fill<8, KMAX>(vals, cols, sr, c0, ts + c0, nrow);
+                  j0 = 8;
+                }
+                const float kth = kth_of(vals, k_pair);
+                bound = fmaxf(bound,
+                              fmaxf(kth, __shfl_xor_sync(0xffffffffu, kth, 1)));
+              }
+#pragma unroll 1
+              for (int j = j0; j < hw; j += 4) {  // hw % 8 == 0
+                if (__any_sync(0xffffffffu, queue.n > QUEUE - 4)) {
+                  queue.flush(vals, cols);
+                }
+                const float4 s4 = *reinterpret_cast<const float4*>(sr + j);
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                  const float sc = u == 0 ? s4.x : u == 1 ? s4.y
+                                 : u == 2 ? s4.z : s4.w;
+                  if (c0 + j + u < nrow && sc >= bound &&
+                      sc > vals[KMAX - 1]) {
+                    queue.push(sc, ts + c0 + j + u);
+                  }
+                }
+              }
+              __syncwarp();  // the staging rows are free again
+              // a bound on the row's k_pair-th value: the largest k_pair-th
+              // entry of the lists of its lanes, published per slice (a
+              // slice holding k_pair entries >= x bounds the row's k_pair-th
+              // by x; another slice's value read stale is a lower bound too)
+              float kth = kth_of(vals, k_pair);
+              kth = fmaxf(kth, __shfl_xor_sync(0xffffffffu, kth, 1));
+              if (lane % 2 == 0) rowb_s[warp * 16 + lane / 2] = kth;
+              bound = kth;
+#pragma unroll
+              for (int sl = 0; sl < WARPS; ++sl) {
+                if (sl < S) {
+                  bound = fmaxf(bound, rowb_s[(lt * S + sl) * 16 + lane / 2]);
+                }
+              }
+              if (dead_row) bound = -neg_inf();
+            }
+          }
+        }
+      }
+      if constexpr (PACK) {
+        if ((it + 1) % tpp == 0) {
+          // phase end: each slice's k_pair largest keys per row, by the
+          // quad's shuffles, into its shared list
+          if (busy) {
+            int* ks_w = keys_s + warp * 16 * k_pair;
+            switch (S) {  // a lane holds the first 32 / S maxima of a row
+              case 8:
+                extract_slice<NGRP / 8>(mx, ks_w, lane, k_pair);
+                break;
+              case 4:
+                extract_slice<NGRP / 4>(mx, ks_w, lane, k_pair);
+                break;
+              case 2:
+                extract_slice<NGRP / 2>(mx, ks_w, lane, k_pair);
+                break;
+              default:
+                extract_slice<NGRP>(mx, ks_w, lane, k_pair);
+            }
+          }
+          __syncthreads();
+          // one thread per live row: the k_pair largest of its slices'
+          // lists and the running list of the earlier phases
+          if (t < 16 * nm) {
+            const int* cur = run_s + ((phase & 1) * MAX_PT + t) * k_pair;
+            int* nxt = run_s + (((phase + 1) & 1) * MAX_PT + t) * k_pair;
+            const int* sl = keys_s + ((t / 16) * S * 16 + t % 16) * k_pair;
+            int h[WARPS];  // the slices' heads (unrolled: registers)
+            int hc = 0;    // the running list's head
+#pragma unroll
+            for (int s = 0; s < WARPS; ++s) h[s] = 0;
+            for (int i = 0; i < k_pair; ++i) {
+              int best = phase > 0 ? cur[hc] : INT_MIN;
+              int bs = WARPS;
+#pragma unroll
+              for (int s = 0; s < WARPS; ++s) {
+                if (s < S) {
+                  const int v = h[s] < k_pair ? sl[s * 16 * k_pair + h[s]]
+                                              : INT_MIN;
+                  if (v > best) {
+                    best = v;
+                    bs = s;
+                  }
+                }
+              }
+#pragma unroll
+              for (int s = 0; s < WARPS; ++s) h[s] += s == bs;
+              hc += bs == WARPS;
+              nxt[i] = best;
+            }
+          }
+          ++phase;
+        }
+      }
+      if (ahead) {
+        src.land(tn, min(TN, s_eff - tn), tiles + (buf ^ 1) * TN * ld,
+                 pen_s + (buf ^ 1) * TN, slot_s + (buf ^ 1) * TN);
+      }
+      __syncthreads();
+    }
+
+    // the live rows' outputs
+    if constexpr (PACK) {
+      if (t < 16 * nm) {
+        const int p = 16 * nth_live(live_s, t / 16) + t % 16;
+        if (prow_s[p] >= 0) {
+          const int* fin = run_s + ((phase & 1) * MAX_PT + t) * k_pair;
+          int* o = out + ((size_t)b * p_tile + p) * k_pair;
+          for (int i = 0; i < k_pair; ++i) o[i] = fin[i];
+        }
+      }
+    } else {
+      // each slice's k_pair best per row: the better head of the row's
+      // two lanes, then its owner pops it
+      if (busy) {
+        queue.flush(vals, cols);
+        for (int i = 0; i < k_pair; ++i) {
+          float v = vals[0];
+          int c = cols[0];
+          const float ov = __shfl_xor_sync(0xffffffffu, v, 1);
+          const int oc = __shfl_xor_sync(0xffffffffu, c, 1);
+          const bool mine = !before(ov, oc, v, c);
+          if (mine) {
+#pragma unroll
+            for (int j = 0; j < KMAX - 1; ++j) {
+              vals[j] = vals[j + 1];
+              cols[j] = cols[j + 1];
+            }
+            vals[KMAX - 1] = neg_inf();
+            cols[KMAX - 1] = INT_MAX;
+          } else {
+            v = ov;
+            c = oc;
+          }
+          if (lane % 2 == 0) {
+            const int e = (warp * 16 + lane / 2) * k_pair + i;
+            vals_s[e] = v;
+            keys_s[e] = c;
+          }
+        }
+      }
+      __syncthreads();
+      // one thread per live row: merge its slices' lists
+      if (t < 16 * nm) {
+        const int p = 16 * nth_live(live_s, t / 16) + t % 16;
+        if (prow_s[p] >= 0) {
+          const int e0 = ((t / 16) * S * 16 + t % 16) * k_pair;
+          int* o = out + ((size_t)b * p_tile + p) * 2 * k_pair;
+          const float dead = -big_penalty() / 2.0f;
+          int h[WARPS];  // the slices' heads (unrolled: registers)
+#pragma unroll
+          for (int s = 0; s < WARPS; ++s) h[s] = 0;
+          for (int i = 0; i < k_pair; ++i) {
+            float v = neg_inf();
+            int c = INT_MAX;
+            int bs = 0;
+#pragma unroll
+            for (int s = 0; s < WARPS; ++s) {
+              if (s < S && h[s] < k_pair) {
+                const int e = e0 + s * 16 * k_pair + h[s];
+                if (before(vals_s[e], keys_s[e], v, c)) {
+                  v = vals_s[e];
+                  c = keys_s[e];
+                  bs = s;
+                }
+              }
+            }
+#pragma unroll
+            for (int s = 0; s < WARPS; ++s) h[s] += s == bs;
+            const bool alive = v > dead;
+            o[i] = sortable(alive ? v : neg_inf());
+            o[k_pair + i] = alive ? s0 + src.slot(c) : -1;
+          }
+        }
+      }
+    }
+    pr = npr;
+  }
+}
+
+// CTAs of `kern` one SM holds at once with `smem` bytes of dynamic shared
+// memory (registers and shared memory permitting), or minus the CUDA error
+// code.
+template <typename Kernel>
+int occupancy(Kernel kern, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  }
+  int n = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, THREADS,
+                                                        smem);
+  }
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+}  // namespace tc
+}  // namespace tpq

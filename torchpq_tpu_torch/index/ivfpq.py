@@ -229,6 +229,12 @@ class IVFPQIndex(CellContainer):
         self._use_smart_probing = True
         self._smart_probing_temperature = 30.0
         self._use_approx_topk = False
+        # the reference's CUDA tunables (ivfpq.py:483-488): validated and
+        # kept, with no effect on the port's scans
+        self._use_precomputed = False
+        self._use_cublas = True
+        self._use_tensor_core = True
+        self._fp16_scale_mode = "a"
         self.scan_mode = scan_mode
         # "auto", "pallas", "xla" or "pallas_flat" (ops/adc.py:IMPLS)
         self.scan_impl = "auto"
@@ -297,6 +303,56 @@ class IVFPQIndex(CellContainer):
         self._ivfpq_topk.approx = bool(value)
 
     @property
+    def use_cublas(self):
+        return self._use_cublas
+
+    @use_cublas.setter
+    def use_cublas(self, value):
+        self._use_cublas = bool(value)
+
+    @property
+    def use_tensor_core(self):
+        return self._use_tensor_core
+
+    @use_tensor_core.setter
+    def use_tensor_core(self, value):
+        self._use_tensor_core = bool(value)
+
+    @property
+    def fp16_scale_mode(self):
+        return self._fp16_scale_mode
+
+    @fp16_scale_mode.setter
+    def fp16_scale_mode(self, value):
+        assert value in ("a", "b", "both", "none")
+        self._fp16_scale_mode = value
+
+    @property
+    def use_precomputed(self):
+        return self._use_precomputed
+
+    @use_precomputed.setter
+    def use_precomputed(self, value):
+        self._use_precomputed = bool(value)
+
+    # codec hyperparameter pass-throughs (the reference's IVFPQIndex.py)
+    @property
+    def pq_max_iter(self):
+        return self.pq_codec.kmeans.max_iter
+
+    @pq_max_iter.setter
+    def pq_max_iter(self, v):
+        self.pq_codec.kmeans.max_iter = int(v)
+
+    @property
+    def vq_max_iter(self):
+        return self.vq_codec.kmeans.max_iter
+
+    @vq_max_iter.setter
+    def vq_max_iter(self, v):
+        self.vq_codec.kmeans.max_iter = int(v)
+
+    @property
     def is_trained(self):
         return self.vq_codec.is_trained and self.pq_codec.is_trained
 
@@ -334,6 +390,16 @@ class IVFPQIndex(CellContainer):
         km.register_state("_centroids", km._centroids[
             :, torch.as_tensor(order, device=self.device)].contiguous())
         self.pq_codec.train(x)
+
+    # ---- codec exposure ----
+    def encode(self, x):
+        """x: [d_vector, n] -> PQ codes [n_subvectors, n] uint8 (cosine
+        inputs normalized first)."""
+        return self.pq_codec.encode(self._prep(x))
+
+    def decode(self, x):
+        """PQ codes [n_subvectors, n] -> [d_vector, n] f32."""
+        return self.pq_codec.decode(x)
 
     def _rebuild_scan_cache(self):
         """Recompute decoded/norm(/scale) (norm only in the code domain)
@@ -683,3 +749,7 @@ class IVFPQIndex(CellContainer):
             sims = 2.0 * sims - self.aux("norm")[safe, 0][None, :] \
                 - torch.sum(q * q, -1)[:, None]
         return torch.where(valid[None, :], sims, -torch.inf)
+
+    def similarity_at_id(self, x, ids):
+        """similarity_at_address at the addresses of `ids` [n]."""
+        return self.similarity_at_address(x, self.get_address_by_id(ids))

@@ -3,8 +3,16 @@ keep each prober's top k_pair.
 
 Replaces the TPU kernel torchpq_tpu/ops/pallas_scan.py:scan_blocks_pallas
 (bf16/f32/int8 decoded cache, exact and pack32 selects, query rows read by
-prober id). The kernel is `csrc/block_scan.cu`, built by `_build.py` and
-bound through plain C entry points.
+prober id). Two kernels serve it, chosen before launch by `pick_route`,
+each built by `_build.py`, bound through plain C entry points and counted
+under its own key of `launches`:
+  - "tc_exact" / "tc_pack32", `csrc/block_scan_tc.cu`: bf16 caches with
+    rows of d <= 128 (d % 8 == 0), blocks of at most 128 probers, on the
+    tensor cores (mma.sync bf16, f32 sums), scoring only the live
+    16-prober tiles of a block; the bf16 tier's probed plans;
+  - "exact" / "pack32" and "int8_exact" / "int8_pack32",
+    `csrc/block_scan.cu`: f32 caches, the int8 tier, and the shapes the
+    tensor-core kernel does not take, on the CUDA cores (f32 FMAs, __dp4a).
 
 What it computes, for block b, prober p and window slot j < s_eff:
     score = c * <q[probers[b, p]], decoded[start_c[b] + j]> - pen[b, j]
@@ -17,18 +25,30 @@ product, as the JAX kernel's (checked against it in interpret mode):
     ab    = sum_k q8[p, k] * y8[j, k]
     score = fma(ab, (c * q_scale[p]) * scale[j], -pen[b, j])
 
-What bounds it on an H100: a block reads s_eff * d window elements once
-and does p_tile (128) FMAs with each of them, so it is bound by arithmetic,
-not by HBM bytes (128 FMA per 2-byte element against a machine balance of
-~20 f32 FLOP per byte). The first kernel keeps the window in shared memory
-tiles and runs f32 FMAs on the CUDA cores, one prober per thread; moving
-the product onto the tensor cores (wgmma on bf16) is the next step.
+What bounds it on an H100: a block reads s_eff * d window elements and
+does 2 * d operations per live prober and slot, so bytes and products
+alike are far below the card's rates (the bf16 plans' bound is ~0.09 ms,
+set by the window bytes). The CUDA-core kernel spends its time on an f32
+FMA chain per prober, pad probers included (every window element feeds
+128 FMAs). The tensor-core kernel runs the products on mma.sync for the
+live 16-prober tiles only and copies the window rows as they lie (cp.async
+tiles, no conversion); what is left is the select, one pass over every
+live score, and the latency of each tile's copy.
+
+The products of bf16 values are exact in f32, so the kernels and the plain
+version differ only in summation order: they agree bit for bit where every
+sum is exact (`integer_block_inputs`), and within 1e-3 elsewhere. Pad rows
+(prober -1): the plain version and the CUDA-core kernel score them with
+query 0, as the JAX kernel does; the tensor-core kernel writes them dead
+(exact: sortable(-inf) keys, -1 addresses; pack32: INT_MIN). The merge
+never reads them.
 
 `block_scan` takes the plain version `block_scan_ref` only for tensors on
-the CPU. For CUDA tensors it launches the kernel or raises.
+the CPU. For CUDA tensors it launches the kernel of its route or raises.
 """
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -38,12 +58,21 @@ from .. import util
 # FLT_MAX / 4: the penalty that marks a slot dead (torchpq_tpu/ops/adc.py)
 BIG = float(np.float32(np.finfo(np.float32).max) / np.float32(4))
 
-# kernel launches per cache mode and select, counted by `block_scan` where
-# it launches
-launches = {"exact": 0, "pack32": 0, "int8_exact": 0, "int8_pack32": 0}
+# kernel launches per route, counted by `block_scan` where it launches
+# ("tc_*": the tensor-core kernel; the others: the CUDA-core one, per cache
+# mode and select)
+launches = {"exact": 0, "pack32": 0, "int8_exact": 0, "int8_pack32": 0,
+            "tc_exact": 0, "tc_pack32": 0}
 
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one CTA may use on sm_90
 _CHUNK_SCORES = 1 << 25   # f32 scores per chunk of the plain version (128 MB)
+_H100_SMS = 132           # SMs assumed for tensors that are not on a card
+# the tensor-core scans' body (csrc/scan_tc.cuh)
+_TC_MAX_D = 128     # widest row its A fragments hold
+_TC_MAX_PT = 128    # probers per block: an m tile per warp of 8
+_TC_KMAX = 16       # the exact k_pair its lane lists take
+_TC_MAX_PACK_K = 48  # the pack32 k_pair its shared lists fit
+_TC_TN = 128        # its tile of window columns
 
 
 def sortable_i32(x):
@@ -244,6 +273,39 @@ def random_int8_inputs(device, *, s_eff, n_blocks, nq, d=128, cap_total,
             scale.contiguous(), q_scale.contiguous())
 
 
+def integer_block_inputs(device, *, s_eff, n_blocks, nq, d=128, cap_total,
+                         seed=0):
+    """Seeded integer-valued bf16 block-scan inputs (numpy draws): query and
+    cache values in {-3..3}, the rows' squared norms (integers) as penalty
+    with BIG at ~5% of slots, and runs of equal rows inside one window and
+    far apart across windows, so exact ties occur. Blocks in
+    `random_inputs`' layout: each block's live probers first, then -1
+    pads; 16-aligned windows; the cell at a 16-aligned offset. Every score
+    is an integer the f32 sums hold exactly in any order, so the kernels
+    and the plain version agree bit for bit, ties included."""
+    rng = np.random.default_rng(seed)
+    qtable = rng.integers(-3, 4, (nq, d)).astype(np.float32)
+    decoded = rng.integers(-3, 4, (cap_total, d)).astype(np.float32)
+    run = slice(cap_total // 10, cap_total // 10 + min(200, s_eff // 2))
+    decoded[run] = decoded[run.start]          # a run of equal rows
+    decoded[cap_total // 2::97] = decoded[1]   # equal rows far apart
+    norms = (decoded ** 2).sum(1).astype(np.float32)
+    penalty = np.where(rng.random(cap_total) < 0.05, np.float32(BIG),
+                       norms).astype(np.float32)
+    n_live = rng.integers(1, 129, (n_blocks, 1))
+    probers = np.where(np.arange(128)[None] < n_live,
+                       rng.integers(0, nq, (n_blocks, 128)), -1)
+    start_c = rng.integers(0, (cap_total - s_eff) // 16 + 1, n_blocks) * 16
+    off = rng.integers(0, min(8, s_eff // 16), n_blocks) * 16
+    cap = np.minimum(rng.integers(s_eff // 4, s_eff // 2 + 1, n_blocks),
+                     s_eff - off)
+    t = [torch.from_numpy(x).to(device) for x in (
+        qtable, probers.astype(np.int32), start_c.astype(np.int32),
+        off.astype(np.int32), cap.astype(np.int32), penalty, decoded)]
+    t[0], t[6] = t[0].to(torch.bfloat16), t[6].to(torch.bfloat16)
+    return [x.contiguous() for x in t]
+
+
 def _check(qtable, probers, start_c, off, cap, penalty, decoded, s_eff,
            k_pair, pack32, slot_mask, scale, q_scale):
     dev = decoded.device
@@ -301,6 +363,38 @@ def _cta_probers(smem, p_tile):
                      f"(p_tile={p_tile})")
 
 
+def tc_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32):
+    """Whether the tensor-core scans' body (csrc/scan_tc.cuh) takes these
+    shapes: d <= 128 with d % 8 == 0, p_tile a multiple of 16 up to 128;
+    exact with k_pair <= 16; pack32 with k_pair <= 48 and the strided group
+    count G = n_groups(s_eff, k_pair) a multiple of 8 that is either the
+    whole row (s_eff <= 128) or a multiple of 128 dividing s_eff (G = 128,
+    256, 512)."""
+    ok = (d <= _TC_MAX_D and d % 8 == 0 and p_tile % 16 == 0
+          and p_tile <= _TC_MAX_PT)
+    if not pack32:
+        return ok and k_pair <= _TC_KMAX
+    g = n_groups(s_eff, k_pair)
+    return ok and k_pair <= _TC_MAX_PACK_K and g % 8 == 0 and (
+        g <= _TC_TN if g == s_eff else g % _TC_TN == 0 and s_eff % g == 0)
+
+
+def pick_route(*, dtype, d, p_tile, s_eff, k_pair, pack32):
+    """The kernel that serves a scan of these shapes, which is also its key
+    in `launches`:
+      - "tc_exact" / "tc_pack32" (`csrc/block_scan_tc.cu`, tensor cores): a
+        bf16 cache at the shapes of `tc_shapes_ok`;
+      - "exact" / "pack32" (`csrc/block_scan.cu`, CUDA cores): f32 caches
+        and the bf16 shapes above it does not take;
+      - "int8_exact" / "int8_pack32" (`csrc/block_scan.cu`): int8 caches."""
+    mode = "pack32" if pack32 else "exact"
+    if dtype == torch.int8:
+        return "int8_" + mode
+    tc = dtype == torch.bfloat16 and tc_shapes_ok(
+        d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair, pack32=pack32)
+    return ("tc_" if tc else "") + mode
+
+
 def block_scan(qtable, probers, start_c, off, cap, penalty, decoded, *,
                s_eff, k_pair, euclidean, pack32, slot_mask, scale=None,
                q_scale=None):
@@ -324,28 +418,62 @@ def block_scan(qtable, probers, start_c, off, cap, penalty, decoded, *,
         raise ValueError(f"block_scan runs on cpu or cuda, not "
                          f"{decoded.device}")
     from .. import _build
+    route = pick_route(dtype=decoded.dtype, d=decoded.shape[1],
+                       p_tile=probers.shape[1], s_eff=s_eff, k_pair=k_pair,
+                       pack32=pack32)
     with torch.cuda.device(decoded.device):
         stream = torch.cuda.current_stream().cuda_stream
         out = launch(_build.library(), stream, qtable, probers, start_c, off,
-                     cap, penalty, decoded, **kw)
-    launches[("int8_" if decoded.dtype == torch.int8 else "")
-             + ("pack32" if pack32 else "exact")] += 1
+                     cap, penalty, decoded, route=route, **kw)
+    launches[route] += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def resident_ctas(lib, occupancy, device, *shape):
+    """CTAs of a persistent kernel that `device` holds at once: its SMs
+    times the CTAs one SM holds, as the library's entry point `occupancy`
+    gives them for `shape`; asked once per library, entry point, device and
+    shape."""
+    resident = getattr(lib, occupancy)(*shape)
+    if resident <= 0:
+        raise RuntimeError(f"{occupancy}{shape}: no CTA fits an SM (CUDA "
+                           f"error {-resident})")
+    n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
+            if device.type == "cuda" else _H100_SMS)
+    return n_sm * resident
 
 
 def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
            decoded, *, s_eff, k_pair, euclidean, pack32, slot_mask,
-           scale=None, q_scale=None):
-    """Launch the kernel of `lib` on `stream` with checked arguments;
-    raises if the launch fails."""
+           scale=None, q_scale=None, route=None, n_ctas=None):
+    """Launch the kernel of `route` (a key of `launches`; default
+    pick_route's) of `lib` on `stream` with checked arguments. n_ctas: the
+    tensor-core kernel's persistent grid (default: as many CTAs as the
+    card's SMs hold at once, at most one per block). Raises if the route
+    does not take the shapes or the launch fails."""
     b, p_tile = probers.shape
     d = decoded.shape[1]
     groups = n_groups(s_eff, k_pair) if pack32 else 0
+    mode = "pack32" if pack32 else "exact"
+    best = pick_route(dtype=decoded.dtype, d=d, p_tile=p_tile, s_eff=s_eff,
+                      k_pair=k_pair, pack32=pack32)
+    route = route or best
+    int8 = decoded.dtype == torch.int8
+    serves = ("int8_" + mode,) if int8 else (mode, "tc_" + mode)
+    if route not in serves:
+        raise ValueError(f"route {route!r} does not serve the {mode} select "
+                         f"of a {decoded.dtype} cache")
+    if route.startswith("tc_") and best != route:
+        raise ValueError(
+            f"the tensor-core block scan does not take {decoded.dtype} "
+            f"d={d}, p_tile={p_tile}, s_eff={s_eff}, k_pair={k_pair}, "
+            f"pack32={pack32}")
     out = torch.empty((b, p_tile, k_pair if pack32 else 2 * k_pair),
                       dtype=torch.int32, device=decoded.device)
     if b == 0:
         return out
-    if decoded.dtype == torch.int8:
+    if int8:
         if d % 16 or qtable.data_ptr() % 16 or decoded.data_ptr() % 16:
             raise ValueError(f"int8 block scan kernel needs d % 16 == 0 "
                              f"and 16-byte aligned rows, got d={d}")
@@ -357,6 +485,24 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
             penalty.data_ptr(), scale.data_ptr(), decoded.data_ptr(),
             out.data_ptr(), b, p_tile, d, s_eff, k_pair, int(euclidean),
             int(pack32), slot_mask, groups, pt, ctypes.c_void_p(stream))
+    elif route.startswith("tc_"):
+        if qtable.data_ptr() % 16 or decoded.data_ptr() % 16:
+            raise ValueError("the tensor-core block scan copies 16-byte "
+                             "pieces: qtable and decoded must be 16-byte "
+                             "aligned")
+        if lib.torchpq_block_scan_tc_smem(d, int(pack32), k_pair) \
+                > _SMEM_LIMIT:
+            raise ValueError(f"block_scan_tc: shared memory exceeds the "
+                             f"limit at d={d}, k_pair={k_pair}")
+        if n_ctas is None:
+            n_ctas = resident_ctas(lib, "torchpq_block_scan_tc_occupancy",
+                                   decoded.device, d, int(pack32), k_pair)
+        rc = lib.torchpq_block_scan_tc(
+            qtable.data_ptr(), probers.data_ptr(), start_c.data_ptr(),
+            off.data_ptr(), cap.data_ptr(), penalty.data_ptr(),
+            decoded.data_ptr(), out.data_ptr(), b, p_tile, d, s_eff, k_pair,
+            int(euclidean), int(pack32), slot_mask, groups, min(n_ctas, b),
+            ctypes.c_void_p(stream))
     else:
         if d % 4:
             raise ValueError(f"block scan kernel needs d % 4 == 0, got d={d}")
@@ -370,5 +516,6 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
             int(euclidean), int(pack32), slot_mask, groups, is_bf16, pt,
             ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"block_scan kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{route} block scan kernel launch failed: CUDA "
+                           f"error {rc}")
     return out

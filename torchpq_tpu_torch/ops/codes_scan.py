@@ -39,16 +39,14 @@ the CPU. For CUDA tensors it launches the kernel of its route or raises.
 """
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
 
 from .. import util
-from .block_scan import (BIG, n_groups, random_inputs, select_chunks,
-                         select_exact, select_pack32, window_scores,
-                         _SMEM_LIMIT)
-from .flat_scan import _H100_SMS
+from .block_scan import (BIG, n_groups, random_inputs, resident_ctas,
+                         select_chunks, select_exact, select_pack32,
+                         tc_shapes_ok, window_scores, _SMEM_LIMIT)
 
 # The JAX package's bound on the resident [m*256, d_pad] bf16 decode matrix
 # (pallas_codes_scan.py:PALLAS_BDIAG_VMEM_BYTES). It is a TPU VMEM budget,
@@ -60,12 +58,6 @@ CODEBOOK_BOUND_BYTES = 9 * 1024 * 1024
 # kernel launches per route and select, counted by `codes_scan` where it
 # launches ("tc_*": the tensor-core kernel; the others: the CUDA-core one)
 launches = {"exact": 0, "pack32": 0, "tc_exact": 0, "tc_pack32": 0}
-
-_TC_MAX_D = 128     # widest row the tensor-core kernel's A fragments hold
-_TC_MAX_PT = 128    # probers per block: an m tile per warp of 8
-_TC_KMAX = 16       # the exact k_pair its lane lists take
-_TC_MAX_PACK_K = 48  # the pack32 k_pair its shared lists fit
-_TC_TN = 128        # its tile of window columns
 
 
 def codes_kernel_static_gate(m, g, d, distance):
@@ -243,24 +235,13 @@ def pick_route(*, m, dsub, p_tile, s_eff, k_pair, pack32):
     """The kernel that serves a scan of these shapes, which is also its key
     in `launches`:
       - "tc_exact" / "tc_pack32" (`csrc/codes_scan_tc.cu`, tensor cores):
-        d = m*dsub <= 128 with m a power of two (the packed storage's, g*m
-        = 128), p_tile a multiple of 16 up to 128; exact with k_pair <= 16;
-        pack32 with k_pair <= 48 and the strided group count G =
-        n_groups(s_eff, k_pair) a multiple of 8 that is either the whole
-        row (s_eff <= 128) or a multiple of 128 dividing s_eff (G = 128,
-        256, 512);
+        m a power of two (the packed storage's, g*m = 128) and d = m*dsub
+        at the shapes of `block_scan.tc_shapes_ok`;
       - "exact" / "pack32" (`csrc/codes_scan.cu`, CUDA cores): the rest
         (exact k_pair > 16, rows wider than 128, other blocks or groups)."""
     mode = "pack32" if pack32 else "exact"
-    tc = (m * dsub <= _TC_MAX_D and m & (m - 1) == 0
-          and p_tile % 16 == 0 and p_tile <= _TC_MAX_PT)
-    if pack32:
-        g = n_groups(s_eff, k_pair)
-        tc = tc and k_pair <= _TC_MAX_PACK_K and g % 8 == 0 and (
-            g <= _TC_TN if g == s_eff
-            else g % _TC_TN == 0 and s_eff % g == 0)
-    else:
-        tc = tc and k_pair <= _TC_KMAX
+    tc = m & (m - 1) == 0 and tc_shapes_ok(
+        d=m * dsub, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair, pack32=pack32)
     return ("tc_" if tc else "") + mode
 
 
@@ -294,20 +275,6 @@ def codes_scan(qtable, probers, start_c, off, cap, penalty, codes, codebook,
                      cap, penalty, codes, codebook, route=route, **kw)
     launches[route] += 1
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _resident_ctas(lib, device, d, pack32, k_pair):
-    """CTAs of the tensor-core kernel that `device` holds at once (its SMs
-    times the CTAs one SM holds), asked once per library, device, width,
-    select and k_pair."""
-    resident = lib.torchpq_codes_scan_tc_occupancy(d, int(pack32), k_pair)
-    if resident <= 0:
-        raise RuntimeError(f"codes_scan_tc: no CTA fits an SM (CUDA error "
-                           f"{-resident})")
-    n_sm = (torch.cuda.get_device_properties(device).multi_processor_count
-            if device.type == "cuda" else _H100_SMS)
-    return n_sm * resident
 
 
 def launch(lib, stream, qtable, probers, start_c, off, cap, penalty, codes,
@@ -353,7 +320,8 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty, codes,
             raise ValueError(f"codes_scan_tc: shared memory exceeds the "
                              f"limit at d={d}, k_pair={k_pair}")
         if n_ctas is None:
-            n_ctas = _resident_ctas(lib, codes.device, d, pack32, k_pair)
+            n_ctas = resident_ctas(lib, "torchpq_codes_scan_tc_occupancy",
+                                   codes.device, d, int(pack32), k_pair)
         rc = lib.torchpq_codes_scan_tc(*args, min(n_ctas, b),
                                        ctypes.c_void_p(stream))
     else:

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import util
-from .block_scan import BIG, _SMEM_LIMIT
+from .block_scan import BIG, _H100_SMS, _SMEM_LIMIT
 
 # kernel launches, counted by `flat_scan` where it launches
 launches = {"flat": 0, "flat_tc": 0}
@@ -48,7 +48,6 @@ BUCKET = 64  # slots per bucket, W / 32 (pallas_flat.py:151; flat_scan.cu)
 
 # CTAs to aim for when splitting the cache (4 per SM of an H100's 132)
 _TARGET_CTAS = 528
-_H100_SMS = 132  # SMs assumed for tensors that are not on a card
 
 # warps per CTA of the tensor-core kernel (32 queries each), the first whose
 # shared memory fits: 8 warps (one CTA per SM by registers) read each cache

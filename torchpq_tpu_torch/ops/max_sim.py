@@ -77,3 +77,24 @@ def batched_max_sim(data, centroids, distance, layout="nd"):
         maxs.append(v)
         labels.append(a.int())
     return torch.cat(maxs, dim=1), torch.cat(labels, dim=1)
+
+
+def batched_topk_sim(data, centroids, k_top, distance):
+    """Per-problem top-k over centroids for MultiKMeans.topk.
+
+    data: [m, n, d], centroids: [m, k, d] -> (vals [m, n, k_top] f32,
+    idx [m, n, k_top] i32)."""
+    distance = canonical_distance(distance)
+    n = data.shape[1]
+    k_top = min(int(k_top), centroids.shape[1])
+    centroids = centroids.float()
+    chunk = _chunk_rows(config.MAX_SIM_CHUNK_ELEMS,
+                        max(data.shape[0] * centroids.shape[1], 1))
+    vals, idx = [], []
+    for i in range(0, n, chunk):
+        sim = _scores_batched(data[:, i:i + chunk].float(), centroids,
+                              distance)
+        v, a = torch.topk(sim, k_top, dim=-1)
+        vals.append(v)
+        idx.append(a.int())
+    return torch.cat(vals, dim=1), torch.cat(idx, dim=1)
