@@ -24,8 +24,11 @@ Phases, each of which fails the run on error:
      40 over 512 strided groups); on each of those inputs the CUDA-core
      codes kernel too, every row (bit for bit on integer inputs, equal
      exact values and >= 0.9999 of pack32 keys on random ones); then the
-     block scan's int8
-     mode at d 128 and 1024 (both selects, bit for bit); the flat scan's
+     block scan's int8 mode at d 128 and 1024 through both routes (the
+     tensor-core int8 kernel, A in registers at 128 and 256-byte k chunks
+     at 1024, on live rows with pad rows dead; the CUDA-core one on every
+     row), both selects, bit for bit on random inputs and on
+     `int8_tie_inputs` (equal rows, exact ties); the flat scan's
      two kernels (tensor cores, CUDA cores) against `flat_scan_ref` (cap
      262,144, 1,024 queries, the glue's head k=10 addresses equal outside
      ties), the tensor-core one also at d 1024 and at r_keep 32 (values
@@ -75,16 +78,20 @@ Phases, each of which fails the run on error:
   8. int8 tier: an index with scan_cache_dtype="int8" takes the same
      trained codecs and adds; device bytes logged; the block scan's
      counters zeroed, the five plans run (every plan's recall@10 within
-     0.005 of the bf16 tier's; both int8 selects must launch); then the
-     int8 kernel against its plain version on the int8 searches' own
-     arguments (exact n_probe 8, pack32 n_probe 32), bit for bit, timed.
+     0.005 of the bf16 tier's; both selects of the tensor-core int8 kernel
+     must launch, the CUDA-core int8 kernel never); then both int8 kernels
+     against the plain version on the int8 searches' own arguments (exact
+     n_probe 8, pack32 n_probe 32), bit for bit (the tensor-core one on
+     live rows, pad rows dead), and the select each search ran timed on
+     both in turns (TOP/s over live probers and live 16-prober tiles).
   9. GIST-class int8 tier: 1M x 960 manifold-12 data (make_data, seed 1),
      IVF4096 x PQ64, int8 cache 1024 wide, 10k queries, k=10; plans flat,
      pack32 at n_probe 8 and 32, exact at n_probe 8 (counters zeroed
-     before, both int8 selects must launch); floors: recall non-decreasing
-     in n_probe within 0.005, the flat plan within 0.02 of an exact f32
-     sweep over the same PQ-decoded rows; the int8 kernel at d_cache=1024
-     against its plain version on the phase's own arguments.
+     before; both selects of the tensor-core int8 kernel, in 256-byte k
+     chunks, must launch, the CUDA-core int8 kernel never); floors: recall
+     non-decreasing in n_probe within 0.005, the flat plan within 0.02 of
+     an exact f32 sweep over the same PQ-decoded rows; then both int8
+     kernels on the phase's own arguments, as in phase 8 (fewer repeats).
  10. fused flat scan: the main index with scan_impl="pallas_flat" and
      approx top-k; the flat counters zeroed, the flat plan must launch the
      tensor-core flat kernel, agree with the exact flat plan on >= 0.98 of
@@ -101,8 +108,9 @@ Phases, each of which fails the run on error:
      time and the largest kernels of each.
  12. prints the kernels' JSON line (every kernel: launches on its path,
      kernel and plain ms, the bound from the inputs' own counts, the
-     library call's ms where one PyTorch call computes the same), the card
-     line, and the result line.
+     library call's ms where one PyTorch call computes the same; the int8
+     block scan at both widths, the 1M x 128 tier's and the GIST-class
+     d = 1024 one's), the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -325,13 +333,14 @@ def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
                  reps=20, exact_bits=False, equal=False, extra=None):
     """The block scan as its wrapper routes it against its plain version on
     the same inputs; fails the run on disagreement (compare_rows' criteria,
-    equal / exact_bits as there). The tensor-core route (bf16, d <= 128) is
-    held on the live rows (prober >= 0), and every pad row must be dead: it
-    does not score them, the plain version scores them with query 0. Then
-    the CUDA-core kernel of the same select (csrc/block_scan.cu, the route
-    of f32 and int8 caches and of the shapes the tensor-core one leaves),
-    launched uncounted, on every row. Returns (max_abs_err, key agreement,
-    ms, plain_ms) of the routed kernel, the times None when reps is 0."""
+    equal / exact_bits as there). A tensor-core route (bf16 d <= 128, int8
+    d <= 1024) is held on the live rows (prober >= 0), and every pad row
+    must be dead: it does not score them, the plain version scores them
+    with query 0. Then the CUDA-core kernel of the same cache mode and
+    select (csrc/block_scan.cu, the route of f32 caches and of the shapes
+    the tensor-core ones leave), launched uncounted, on every row. Returns
+    (max_abs_err, key agreement, ms, plain_ms) of the routed kernel, the
+    times None when reps is 0."""
     slot_mask = bs.util.next_pow2(s_eff) - 1
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
               pack32=pack32, slot_mask=slot_mask, **(extra or {}))
@@ -529,17 +538,37 @@ def phase_kernels(torch, bs, cs, fs, gr):
             f"neighbours in the exact lists); pad rows dead; the CUDA-core "
             f"kernel equal bit for bit on every row")
         del args
-    # int8 mode at d 128 and at the GIST cache width 1024: bit for bit
+    # int8 mode at d 128 and at the GIST cache width 1024, both routes: bit
+    # for bit on random inputs and on inputs with exact ties
     for d in (128, 1024):
         args, scale, q_scale = bs.random_int8_inputs(
             "cuda", s_eff=1024, n_blocks=1024, nq=10000, d=d,
             cap_total=1 << 20, seed=d)
         for pack32 in (False, True):
             res = check_kernel(torch, bs, args, s_eff=1024, k_pair=10,
-                               pack32=pack32, exact_bits=True, reps=5,
+                               pack32=pack32, equal=True, reps=5,
                                extra=dict(scale=scale, q_scale=q_scale))
             name = "block_scan_int8_" + ("pack32" if pack32 else "exact")
-            log(kernel_row(name, 1024, 1024, *res) + f" (d={d})")
+            log(kernel_row(name, 1024, 1024, *res) + f" (d={d}; tensor "
+                "cores on live rows, pad rows dead; the CUDA-core kernel on "
+                "every row; bit for bit)")
+        args, scale, q_scale = bs.int8_tie_inputs(
+            "cuda", s_eff=640, n_blocks=1024, nq=10000, d=d,
+            cap_total=1 << 18, seed=d)
+        extra = dict(scale=scale, q_scale=q_scale)
+        for pack32, k_pair in ((False, 10), (True, 40)):
+            for euclidean in (True, False):
+                check_kernel(torch, bs, args, s_eff=640, k_pair=k_pair,
+                             pack32=pack32, euclidean=euclidean, equal=True,
+                             reps=0, extra=extra)
+        ref = bs.block_scan_ref(*args, s_eff=640, k_pair=10, euclidean=True,
+                                pack32=False, slot_mask=1023, **extra)
+        ref = ref[args[1] >= 0][:, :10]
+        log(f"block_scan_int8 (tensor cores) tie inputs d={d} s_eff=640: "
+            f"live rows equal bit for bit, exact k_pair 10 and pack32 40, "
+            f"euclidean and inner ({int((ref[:, 1:] == ref[:, :-1]).sum())} "
+            f"tied neighbours in the exact lists); pad rows dead; the "
+            f"CUDA-core kernel equal bit for bit on every row")
         del args
     phase_flat_kernels(torch, fs)
     # the row gather: bit for bit, out-of-range indices clipped
@@ -1053,11 +1082,14 @@ def build_index(torch, tp, trained, base, *, d, m, n_cells, per_cell,
     return index, time.perf_counter() - t0
 
 
-def int8_kernel_rows(torch, tp, bs, index, xq, k, label, gist=False):
-    """The int8 kernel against its plain version on the arguments an int8
-    index's exact n_probe=8 and pack32 n_probe=32 searches give it (both
-    selects on each, bit-exact criteria), timed. Returns the JSON rows of
-    the select each search ran."""
+def int8_kernel_rows(torch, tp, bs, index, xq, k, label, suffix="",
+                     reps=20):
+    """Both int8 kernels against the plain version on the arguments an int8
+    index's exact n_probe=8 and pack32 n_probe=32 searches give them (both
+    selects on each, bit for bit: the tensor-core one on live rows with pad
+    rows dead, the CUDA-core one on every row); then the select each search
+    ran timed on both in turns (reps launches a turn). Returns the JSON
+    rows of those selects (names + suffix), the route that served each."""
     rows = {}
     for n_probe, approx in ((8, False), (32, True)):
         index.scan_mode, index.n_probe = "cell_major", n_probe
@@ -1066,33 +1098,74 @@ def int8_kernel_rows(torch, tp, bs, index, xq, k, label, gist=False):
         s_eff, k_pair = kw["s_eff"], kw["k_pair"]
         blocks, p_tile = args[1].shape
         live = int((args[1] >= 0).sum())
+        live_tiles = int((args[1].view(blocks, -1, 16) >= 0).any(-1).sum())
         d = args[6].shape[1]
         log(f"{label}path n_probe={n_probe} "
             f"({'pack32' if approx else 'exact'}): {blocks} blocks x "
             f"{p_tile} probers, {live} live ({live / (blocks * p_tile):.3f})"
+            f", {live_tiles} live 16-prober tiles of {blocks * p_tile // 16}"
             f", s_eff={s_eff}, k_pair={k_pair}, d_cache={d}")
         extra = dict(scale=kw["scale"], q_scale=kw["q_scale"])
         for pack32 in (False, True):
-            res = check_kernel(torch, bs, args, s_eff=s_eff, k_pair=k_pair,
+            err = check_kernel(torch, bs, args, s_eff=s_eff, k_pair=k_pair,
                                pack32=pack32, euclidean=kw["euclidean"],
-                               exact_bits=True, extra=extra,
-                               reps=5 if gist else 20)
-            name = "block_scan_int8_" + ("pack32" if pack32 else "exact")
-            log(kernel_row(name, s_eff, blocks, *res)
-                + f" (inputs of the {label}n_probe={n_probe} search)")
-            if pack32 == approx:
-                err, _, ms, plain_ms = res
-                b_ms, b_by = scan_bound(
-                    torch, args, dict(kw, pack32=pack32), slot_bytes=d + 8,
-                    row_bytes=d + 4, peak="int8", d=d)
-                log(f"  bound {b_ms:.3f} ms ({b_by})")
-                rows[name] = dict(
-                    name=name, route="cuda",
-                    source="torchpq_tpu_torch/csrc/block_scan.cu",
-                    replaces="torchpq_tpu/ops/pallas_scan.py:281",
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                               equal=True, extra=extra, reps=0)[0]
+            mode = "pack32" if pack32 else "exact"
+            route = bs.pick_route(dtype=args[6].dtype, d=d, p_tile=p_tile,
+                                  s_eff=s_eff, k_pair=k_pair, pack32=pack32)
+            name = "block_scan_int8_" + mode + suffix
+            log(f"{name} ({route}) on the inputs of the {label}n_probe="
+                f"{n_probe} search: equal to the plain version bit for bit"
+                + ("; pad rows dead; the CUDA-core kernel equal on every row"
+                   if route.startswith("tc_") else ""))
+            if pack32 != approx:
+                continue
+            kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
+                       pack32=pack32, slot_mask=kw["slot_mask"], **extra)
+            t, turns = in_turns(torch, {
+                "cuda_cores": lambda: block_launch(torch, bs, args,
+                                                   "int8_" + mode, **kkw),
+                route: lambda: block_launch(torch, bs, args, route, **kkw)},
+                reps)
+            ms, cc_ms = t[route], t["cuda_cores"]
+            plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw),
+                               1 if suffix else 3)
+            b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=d + 8,
+                                    row_bytes=d + 4, peak="int8", d=d)
+            ops = 2.0 * s_eff * d
+            log(f"  {name} on the {label}n_probe={n_probe} search's "
+                f"arguments: {route} {ms:.3f} ms ("
+                f"{' / '.join(f'{x:.3f}' for x in turns[route])}; "
+                f"{ops * live / ms / 1e9:.2f} TOP/s over live probers, "
+                f"{ops * 16 * live_tiles / ms / 1e9:.2f} over live tiles, "
+                f"{b_ms / ms:.1%} of the bound), CUDA cores {cc_ms:.3f} ms "
+                f"({' / '.join(f'{x:.3f}' for x in turns['cuda_cores'])}; "
+                f"{ops * live / cc_ms / 1e9:.2f} TOP/s over live probers), "
+                f"speed-up {cc_ms / ms:.2f}x; plain {plain_ms:.3f} ms, bound "
+                f"{b_ms:.3f} ms ({b_by})")
+            rows[name] = dict(
+                name=name, route="cuda",
+                source="torchpq_tpu_torch/csrc/" + (
+                    "block_scan_tc_int8.cu" if route.startswith("tc_")
+                    else "block_scan.cu"),
+                replaces="torchpq_tpu/ops/pallas_scan.py:281",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, launch_key=route,
+                cuda_core_ms=cc_ms,
+                cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu")
     return rows
+
+
+def require_int8_keys(counts, what):
+    """The int8 plans must launch both selects of the tensor-core int8
+    kernel and never the CUDA-core one."""
+    for name in ("tc_int8_exact", "tc_int8_pack32"):
+        if counts[name] <= 0:
+            fail(f"kernel block_scan {name} was never launched by {what}")
+    for name in ("int8_exact", "int8_pack32"):
+        if counts[name] > 0:
+            fail(f"{what} launched the CUDA-core int8 block scan ({name}) "
+                 f"{counts[name]} times: it must run the tensor-core one")
 
 
 def phase_int8(torch, tp, bs, sl):
@@ -1118,10 +1191,7 @@ def phase_int8(torch, tp, bs, sl):
     rec, _ = time_plans(torch, tp, i8, xq, gt, k, bs.launches, "int8 ")
     counts = dict(bs.launches)
     log(f"int8 launches: {counts}")
-    for name in ("int8_exact", "int8_pack32"):
-        if counts[name] <= 0:
-            fail(f"kernel block_scan_{name} was never launched by the int8 "
-                 "tier")
+    require_int8_keys(counts, "the int8 tier")
     for plan, r in rec.items():
         if abs(r - sl["rec"][plan]) > 0.005:
             fail(f"int8 plan {plan}: recall {r:.4f} vs the bf16 tier's "
@@ -1247,7 +1317,8 @@ def phase_gist(torch, tp, bs):
     """The int8 tier at a GIST-class shape: 1M x 960 manifold-12 data
     (seed 1), IVF4096 x PQ64, an int8 cache lane-padded to 1024, 10k
     queries, k=10, spill and scan_group off. Returns the int8 launch counts
-    of its plans and the index."""
+    of its plans, the int8 kernels' JSON rows at d_cache 1024, the index
+    and its queries."""
     n_base, n_query, d, m, n_cells, k = 1_000_000, 10_000, 960, 64, 4096, 10
     t0 = time.perf_counter()
     base, query = make_data(n_base, n_query, d, seed=1)
@@ -1302,10 +1373,7 @@ def phase_gist(torch, tp, bs):
                         "GIST int8 ", plans=GIST_PLANS, floors=False)
     counts = dict(bs.launches)
     log(f"GIST int8 launches: {counts}")
-    for name in ("int8_exact", "int8_pack32"):
-        if counts[name] <= 0:
-            fail(f"kernel block_scan_{name} was never launched by the "
-                 "GIST-class phase")
+    require_int8_keys(counts, "the GIST-class phase")
     r8, r32 = rec[("cell_major", 8, True)], rec[("cell_major", 32, True)]
     gap = rec[("flat", 1, True)] - rec_pq
     log(f"GIST int8: flat recall {rec[('flat', 1, True)]:.4f} vs the exact "
@@ -1315,8 +1383,9 @@ def phase_gist(torch, tp, bs):
         fail(f"GIST recall falls with n_probe: {r8:.4f} {r32:.4f}")
     if abs(gap) > 0.02:
         fail(f"GIST int8 flat recall is {gap:+.4f} off the PQ ceiling")
-    int8_kernel_rows(torch, tp, bs, index, xq, k, "GIST int8 ", gist=True)
-    return counts, index, xq
+    rows = int8_kernel_rows(torch, tp, bs, index, xq, k, "GIST int8 ",
+                            suffix="_d1024", reps=3)
+    return counts, rows, index, xq
 
 
 # the slice's searches: (scan_mode, n_probe, use_approx_topk)
@@ -1449,7 +1518,7 @@ def main():
                    sl["xq"], sl["per_cell"], sl["k"])
     code_counts, code_rows, code = phase_code_domain(torch, tp, bs, cs, sl)
     int8_counts, int8_rows, i8 = phase_int8(torch, tp, bs, sl)
-    gist_counts, gist, gist_q = phase_gist(torch, tp, bs)
+    gist_counts, gist_rows, gist, gist_q = phase_gist(torch, tp, bs)
     # last of the paths: its floor holds the kernel's bucket approximation
     flat_counts, flat_row = phase_pallas_flat(torch, tp, fs, sl)
     log(f"phases 4-10: {time.perf_counter() - t_start:.1f} s")
@@ -1467,16 +1536,19 @@ def main():
     for name, row, cnt in (
             ("block_scan_exact", krows, counts["tc_exact"]),
             ("block_scan_pack32", krows, counts["tc_pack32"]),
-            ("block_scan_int8_exact", int8_rows, int8_counts["int8_exact"]),
+            ("block_scan_int8_exact", int8_rows,
+             int8_counts["tc_int8_exact"]),
             ("block_scan_int8_pack32", int8_rows,
-             int8_counts["int8_pack32"]),
+             int8_counts["tc_int8_pack32"]),
+            ("block_scan_int8_exact_d1024", gist_rows,
+             gist_counts["tc_int8_exact"]),
+            ("block_scan_int8_pack32_d1024", gist_rows,
+             gist_counts["tc_int8_pack32"]),
             ("codes_scan_exact", code_rows, code_counts["tc_exact"]),
             ("codes_scan_pack32", code_rows, code_counts["tc_pack32"]),
             ("flat_scan", {"flat_scan": flat_row}, flat_counts["flat_tc"]),
             ("gather_rows", krows, counts["gather"])):
         kernels.append(dict(row[name], launches=cnt))
-    log(f"GIST-class int8 launches (not in the JSON line, whose int8 rows "
-        f"are the 1M x 128 tier's): {gist_counts}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

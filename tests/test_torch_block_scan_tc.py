@@ -8,7 +8,8 @@ rows so that exact ties occur. Here the plain version `block_scan_ref` is
 held to the JAX package's Pallas kernel (interpret mode, through
 tests/conftest.py) on those inputs, bit for bit, keys and addresses, pad
 rows included (both score them with query 0). `pick_route` is checked
-against the shapes each kernel takes."""
+against the shapes each kernel takes (bf16 and int8 tensor-core routes,
+CUDA-core ones), and `launch` against the routes it refuses."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -98,7 +99,29 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.float32, d=128, p_tile=128, s_eff=640, k_pair=10,
           pack32=False), "exact"),          # f32 cache
     (dict(dtype=torch.int8, d=128, p_tile=128, s_eff=640, k_pair=10,
-          pack32=True), "int8_pack32"),     # int8 cache
+          pack32=True), "tc_int8_pack32"),  # int8 cache, A in registers
+    (dict(dtype=torch.int8, d=128, p_tile=128, s_eff=640, k_pair=10,
+          pack32=False), "tc_int8_exact"),  # the int8 tier's exact plan
+    (dict(dtype=torch.int8, d=256, p_tile=128, s_eff=640, k_pair=16,
+          pack32=False), "tc_int8_exact"),  # the widest row in registers
+    (dict(dtype=torch.int8, d=288, p_tile=128, s_eff=640, k_pair=10,
+          pack32=True), "tc_int8_pack32"),  # k chunks of 256 + 32 bytes
+    (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=640, k_pair=10,
+          pack32=True), "tc_int8_pack32"),  # the GIST-class cache
+    (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=2048, k_pair=48,
+          pack32=True), "tc_int8_pack32"),  # G = 512 at d = 1024
+    (dict(dtype=torch.int8, d=1040, p_tile=128, s_eff=640, k_pair=10,
+          pack32=False), "int8_exact"),     # wider than 1024 bytes
+    (dict(dtype=torch.int8, d=136, p_tile=128, s_eff=640, k_pair=10,
+          pack32=True), "int8_pack32"),     # d % 16 != 0
+    (dict(dtype=torch.int8, d=128, p_tile=128, s_eff=640, k_pair=17,
+          pack32=False), "int8_exact"),     # the lists hold 16
+    (dict(dtype=torch.int8, d=128, p_tile=128, s_eff=2048, k_pair=49,
+          pack32=True), "int8_pack32"),     # the shared lists hold 48
+    (dict(dtype=torch.int8, d=128, p_tile=120, s_eff=640, k_pair=10,
+          pack32=True), "int8_pack32"),     # not whole m tiles
+    (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=200, k_pair=10,
+          pack32=True), "int8_pack32"),     # G = s_eff = 200
     (dict(dtype=torch.bfloat16, d=160, p_tile=128, s_eff=640, k_pair=10,
           pack32=True), "pack32"),          # d > 128
     (dict(dtype=torch.bfloat16, d=100, p_tile=128, s_eff=640, k_pair=10,
@@ -140,4 +163,34 @@ def test_launch_refuses_a_route_that_does_not_fit():
     i8[0], i8[6] = args[0].to(torch.int8), args[6].to(torch.int8)
     with pytest.raises(ValueError, match="select"):
         bs.launch(None, 0, *i8, route="exact", k_pair=10, **kw)
+    with pytest.raises(ValueError, match="select"):
+        bs.launch(None, 0, *i8, route="tc_exact", k_pair=10, **kw)
+    with pytest.raises(ValueError, match="select"):
+        bs.launch(None, 0, *args, route="tc_int8_exact", k_pair=10, **kw)
+
+
+@pytest.mark.parametrize("d,p_tile,k_pair,pack32,s_eff", [
+    (1040, 128, 10, False, 256),  # wider than the 1,024-byte rows
+    (136, 128, 10, True, 256),    # rows not of 16-byte pieces
+    (128, 128, 17, False, 256),   # the exact lists hold 16
+    (128, 128, 49, True, 2048),   # the pack32 lists hold 48
+    (128, 120, 10, True, 256),    # not whole m tiles
+    (1024, 128, 10, True, 200),   # G = s_eff = 200 > one tile
+])
+def test_launch_refuses_the_int8_tensor_core_route(d, p_tile, k_pair, pack32,
+                                                   s_eff):
+    """launch(route="tc_int8_*") raises for int8 shapes the tensor-core
+    kernel does not take, before it touches the library (None here); the
+    CUDA-core int8 route is what pick_route names for them."""
+    args, scale, q_scale = bs.int8_tie_inputs(
+        "cpu", s_eff=s_eff, n_blocks=2, nq=20, d=d, cap_total=2048, seed=d)
+    args[1] = args[1][:, :p_tile].contiguous()
+    mode = "pack32" if pack32 else "exact"
+    assert bs.pick_route(dtype=torch.int8, d=d, p_tile=p_tile, s_eff=s_eff,
+                         k_pair=k_pair, pack32=pack32) == "int8_" + mode
+    with pytest.raises(ValueError, match="tensor-core"):
+        bs.launch(None, 0, *args, route="tc_int8_" + mode, s_eff=s_eff,
+                  k_pair=k_pair, euclidean=True, pack32=pack32,
+                  slot_mask=bs.util.next_pow2(s_eff) - 1, scale=scale,
+                  q_scale=q_scale)
 

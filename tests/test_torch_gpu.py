@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (block scan on its tensor-core route and in its
-bf16/f32 and int8 modes on the CUDA cores, codes scan and flat scan on
-their tensor-core and CUDA-core routes, row gather)
+"""The port's CUDA kernels (block scan on its bf16 and int8 tensor-core
+routes and in its bf16/f32 and int8 modes on the CUDA cores, codes scan and
+flat scan on their tensor-core and CUDA-core routes, row gather)
 against their plain PyTorch versions, on a card.
 
 Marked `gpu`: without a CUDA card every test here skips. This file imports
@@ -177,22 +177,26 @@ def test_block_tc_kernel_persistent_grid(cuda, pack32, k_pair, s_eff):
 
 @pytest.mark.gpu
 def test_block_routes_on_card(cuda):
-    """bf16 at d = 128 takes the tensor-core kernel; an f32 cache, an int8
-    cache and bf16 exact k_pair 20 take the CUDA-core one; each counts
-    under its own key, and asking the tensor-core route for the others
-    raises before anything launches."""
-    for dtype, k_pair, pack32, route in (
-            (torch.bfloat16, 10, False, "tc_exact"),
-            (torch.bfloat16, 10, True, "tc_pack32"),
-            (torch.float32, 10, False, "exact"),
-            (torch.float32, 10, True, "pack32"),
-            (torch.bfloat16, 20, False, "exact"),
-            (torch.int8, 10, False, "int8_exact"),
-            (torch.int8, 10, True, "int8_pack32")):
+    """bf16 at d = 128 and int8 at d = 128 and 1024 take the tensor-core
+    kernels; an f32 cache, bf16 exact k_pair 20 and int8 at d = 1040 or
+    exact k_pair 20 take the CUDA-core one; each counts under its own key,
+    and asking the tensor-core route for the others raises before anything
+    launches."""
+    for dtype, d, k_pair, pack32, route in (
+            (torch.bfloat16, 128, 10, False, "tc_exact"),
+            (torch.bfloat16, 128, 10, True, "tc_pack32"),
+            (torch.float32, 128, 10, False, "exact"),
+            (torch.float32, 128, 10, True, "pack32"),
+            (torch.bfloat16, 128, 20, False, "exact"),
+            (torch.int8, 128, 10, False, "tc_int8_exact"),
+            (torch.int8, 128, 10, True, "tc_int8_pack32"),
+            (torch.int8, 1024, 10, True, "tc_int8_pack32"),
+            (torch.int8, 1040, 10, False, "int8_exact"),
+            (torch.int8, 128, 20, False, "int8_exact")):
         extra = {}
         if dtype == torch.int8:
             args, scale, q_scale = bs.random_int8_inputs(
-                cuda, s_eff=512, n_blocks=16, nq=300, cap_total=8192)
+                cuda, s_eff=512, n_blocks=16, nq=300, d=d, cap_total=8192)
             extra = dict(scale=scale, q_scale=q_scale)
         else:
             args = bs.random_inputs(cuda, s_eff=512, n_blocks=16, nq=300,
@@ -203,7 +207,7 @@ def test_block_routes_on_card(cuda):
         assert r == route
         if not route.startswith("tc_"):
             with pytest.raises(ValueError):
-                _block_uncounted(args, kw, "tc_" + route.split("_")[-1])
+                _block_uncounted(args, kw, "tc_" + route)
 
 
 @pytest.mark.gpu
@@ -530,20 +534,108 @@ def test_code_domain_index_on_card_matches_cpu(cuda):
 @pytest.mark.parametrize("pack32", [False, True])
 @pytest.mark.parametrize("d,s_eff", [(128, 512), (1024, 512), (32, 256)])
 def test_int8_kernel_matches_plain(cuda, pack32, d, s_eff):
-    """The int8 mode: exact integer products (__dp4a against f32 sums of
-    int8 values, exact below d = 1040) and one fused multiply-add in both
-    (fmaf against the plain version's once-rounded f64), so the outputs are
-    equal bit for bit. d = 1024 is the GIST cache width."""
+    """The int8 mode: exact integer products (s32 mma.sync or __dp4a
+    against f32 sums of int8 values, exact below d = 1040) and one fused
+    multiply-add in all (fmaf against the plain version's once-rounded
+    f64), so the outputs are equal bit for bit: the tensor-core kernel's
+    (the route at these shapes) on live rows, its pad rows dead, and the
+    CUDA-core kernel's, launched uncounted, on every row. d = 1024 is the
+    GIST cache width."""
     args, scale, q_scale = bs.random_int8_inputs(
         cuda, s_eff=s_eff, n_blocks=64, nq=500, d=d, cap_total=8192)
     kw = dict(s_eff=s_eff, k_pair=10, euclidean=True, pack32=pack32,
               slot_mask=s_eff - 1, scale=scale, q_scale=q_scale)
     mode = "int8_pack32" if pack32 else "int8_exact"
-    before = bs.launches[mode]
-    got = bs.block_scan(*args, **kw)
-    torch.cuda.synchronize()
-    assert bs.launches[mode] == before + 1
-    assert torch.equal(got, bs.block_scan_ref(*args, **kw))
+    got, route = _block_launch(args, kw)
+    assert route == "tc_" + mode
+    ref = bs.block_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], route, 10, pack32)
+    live = args[1] >= 0
+    assert torch.equal(got[live], ref[live])
+    assert torch.equal(_block_uncounted(args, kw, mode), ref)
+
+
+_INT8_CASES = [(False, 10, 640), (False, 16, 2048), (False, 10, 200),
+               (True, 10, 640), (True, 40, 512), (True, 48, 2048)]
+
+
+def _int8_held(args, kw, scale, q_scale, route, n_ctas=None):
+    """The tensor-core int8 kernel (counted through block_scan, or launched
+    uncounted on a grid of n_ctas) equal to block_scan_ref bit for bit on
+    live rows, pad rows dead; the CUDA-core int8 kernel, uncounted, equal
+    on every row. Returns the plain output."""
+    kw = dict(kw, scale=scale, q_scale=q_scale)
+    if n_ctas is None:
+        got, r = _block_launch(args, kw)
+        assert r == route
+    else:
+        got = _block_uncounted(args, kw, route, n_ctas=n_ctas)
+    ref = bs.block_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], route, kw["k_pair"], kw["pack32"])
+    live = args[1] >= 0
+    assert torch.equal(got[live], ref[live])
+    assert torch.equal(_block_uncounted(args, kw, route[3:]), ref)
+    return ref
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("euclidean", [True, False])
+@pytest.mark.parametrize("pack32,k_pair,s_eff", _INT8_CASES)
+@pytest.mark.parametrize("d", [128, 160, 256, 1024])
+def test_block_tc_int8_matches_plain(cuda, d, pack32, k_pair, s_eff,
+                                     euclidean):
+    """The tensor-core int8 kernel on random int8 inputs: rows of 128 and
+    256 bytes (A in registers; 160 pads K to 160 of 176-byte tile rows)
+    and 1,024 bytes (four 256-byte k chunks per tile); s_eff 640 (the
+    compacted layout's, 5 tiles), 2048 and 200 (a ragged last tile); exact
+    k_pair 10 and 16; pack32 k_pair 10, 40 over 256 and 48 over 512
+    strided groups. Exact integer sums: bit for bit on every input."""
+    args, scale, q_scale = bs.random_int8_inputs(
+        cuda, s_eff=s_eff, n_blocks=64, nq=500, d=d, cap_total=8192,
+        seed=d + s_eff + k_pair)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
+              pack32=pack32, slot_mask=bs.util.next_pow2(s_eff) - 1)
+    _int8_held(args, kw, scale, q_scale,
+               "tc_int8_" + ("pack32" if pack32 else "exact"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("euclidean", [True, False])
+@pytest.mark.parametrize("pack32", [False, True])
+@pytest.mark.parametrize("d", [32, 128, 288, 1024])
+def test_block_tc_int8_ties_exact(cuda, d, pack32, euclidean):
+    """int8_tie_inputs (equal rows all over each window, runs of them):
+    the tensor-core int8 kernel equals the plain version bit for bit on
+    live rows, ties and their column order included; d = 288 ends in a
+    32-byte k chunk."""
+    args, scale, q_scale = bs.int8_tie_inputs(
+        cuda, s_eff=640, n_blocks=64, nq=500, d=d, cap_total=8192, seed=d)
+    k_pair = 40 if pack32 else 10
+    kw = dict(s_eff=640, k_pair=k_pair, euclidean=euclidean, pack32=pack32,
+              slot_mask=1023)
+    ref = _int8_held(args, kw, scale, q_scale,
+                     "tc_int8_" + ("pack32" if pack32 else "exact"))
+    if not pack32:
+        keys = ref[args[1] >= 0][:, :k_pair]
+        assert int((keys[:, 1:] == keys[:, :-1]).sum()) > 0, "no ties"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack32,k_pair,s_eff", [
+    (False, 10, 640), (False, 16, 1024), (True, 10, 640), (True, 40, 1024)])
+@pytest.mark.parametrize("d", [128, 1024])
+def test_block_tc_int8_persistent_grid(cuda, d, pack32, k_pair, s_eff):
+    """A grid of 3 persistent CTAs over 64 blocks: each CTA walks ~21
+    blocks, so the state it resets between blocks (live-tile rows, the
+    pack32 phase parity, the exact lists and queues, the A fragments or
+    the staged query chunks, the copies in flight) is reused."""
+    args, scale, q_scale = bs.int8_tie_inputs(
+        cuda, s_eff=s_eff, n_blocks=64, nq=500, d=d, cap_total=8192,
+        seed=k_pair)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+              slot_mask=s_eff - 1)
+    _int8_held(args, kw, scale, q_scale,
+               "tc_int8_" + ("pack32" if pack32 else "exact"), n_ctas=3)
 
 
 @pytest.mark.gpu
@@ -551,7 +643,7 @@ def test_int8_index_on_card_matches_cpu(cuda):
     """An int8 index (scan_cache_dtype="int8") with the same state and adds
     on the card and on the CPU: equal int8 rows and scales, and every plan
     finds the same neighbours, the probed ones through both int8 selects
-    of the kernel on the card."""
+    of the tensor-core kernel on the card (and never the CUDA-core one)."""
     import numpy as np
     import torchpq_tpu_torch as tp
 
@@ -588,8 +680,9 @@ def test_int8_index_on_card_matches_cpu(cuda):
             continue
         assert adc.LAST_GATE["cache"] == "int8"
         _assert_pack32_values(v, v_ref, i, i_ref, q, adc.LAST_GATE["s_eff"])
-    assert bs.launches["int8_exact"] == before["int8_exact"] + 2
-    assert bs.launches["int8_pack32"] == before["int8_pack32"] + 1
+    assert bs.launches == dict(
+        before, tc_int8_exact=before["tc_int8_exact"] + 2,
+        tc_int8_pack32=before["tc_int8_pack32"] + 1)
 
 
 @pytest.mark.gpu

@@ -105,6 +105,32 @@ def test_int8_block_scan_ref_matches_pallas(rng, pack32, distance, d):
     np.testing.assert_array_equal(got, ref)
 
 
+@pytest.mark.parametrize("pack32", [False, True])
+@pytest.mark.parametrize("distance", ["euclidean", "inner"])
+@pytest.mark.parametrize("d", [32, 288])
+def test_int8_tie_inputs_plain_matches_pallas(pack32, distance, d):
+    """bs.int8_tie_inputs, what the card holds both int8 kernels to (equal
+    rows all over each window, so exact ties): the plain version equals the
+    JAX kernel bit for bit, keys, addresses and the column order of ties,
+    pad rows included. d = 288 crosses the tensor-core kernel's 256-byte k
+    chunk."""
+    s_eff, k_pair = 256, 10
+    args, scale, q_scale = bs.int8_tie_inputs(
+        "cpu", s_eff=s_eff, n_blocks=3, nq=60, d=d, cap_total=2048, seed=d)
+    got = bs.block_scan_ref(*args, s_eff=s_eff, k_pair=k_pair,
+                            euclidean=distance == "euclidean", pack32=pack32,
+                            slot_mask=s_eff - 1, scale=scale,
+                            q_scale=q_scale).numpy()
+    q8, pr, sc, off, cap, penalty, y8 = (x.numpy() for x in args)
+    ref = _pallas_int8(q8, q_scale.numpy(), pr, sc, off, cap, penalty, y8,
+                       scale.numpy(), s_eff=s_eff, k_pair=k_pair,
+                       distance=distance, pack32=pack32)
+    np.testing.assert_array_equal(got, ref)
+    if not pack32:
+        keys = got[..., :k_pair][pr >= 0]
+        assert (keys[:, 1:] == keys[:, :-1]).sum() > 0, "no ties"
+
+
 def test_int8_plain_version_does_not_wrap():
     """A row of +-127s at d = 160 sums to 160 * 127^2 = 2,580,640, far past
     int8 (and int16) arithmetic; the plain version scores it exactly, as

@@ -1,7 +1,8 @@
 // IVF block scan over the bf16 decoded cache on Hopper's tensor cores
 // (sm_90a): the counterpart of torchpq_tpu/ops/pallas_scan.py:
-// scan_blocks_pallas in bf16 mode for rows of d <= 128 (block_scan.cu, on
-// the CUDA cores, serves f32 and int8 caches and the other shapes). It
+// scan_blocks_pallas in bf16 mode for rows of d <= 128 (block_scan_tc_int8.cu
+// serves the int8 mode; block_scan.cu, on the CUDA cores, f32 caches and
+// the other shapes). It
 // computes what block_scan.cu computes, for block b, prober p and window
 // slot j < s_eff (column j of the window):
 //
@@ -33,10 +34,10 @@
 // Design: scan_tc.cuh's body (persistent CTAs of 8 warps, live 16-prober
 // tiles only, mma.sync over tiles of 128 window columns, warps split by
 // column slices, pack32 maxima in registers, the exact select staged
-// through shared memory), fed by RowsSource below: the window's bf16 rows
+// through shared memory), fed by its RowsSource: the window's bf16 rows
 // are B as they lie in the cache ([slot][k]), so a tile is a copy, 16
-// bytes per cp.async (tc_ptx.cuh), into the body's [TN][round16(d) + 8]
-// layout; column c is slot c. The copy of tile t + 1 is in flight while
+// bytes per cp.async (tc_ptx.cuh), into the body's rows of round32(2d) + 16
+// bytes; column c is slot c. The copy of tile t + 1 is in flight while
 // the warps score tile t (the two tile buffers alternate), and each thread
 // waits for its own copies after scoring, before the tile's barrier.
 // Budget at d = 128: shared memory 2 x 34,816 B tiles + 2,048 B penalties
@@ -54,62 +55,6 @@ namespace {
 using namespace tpq;
 using namespace tpq::tc;
 
-constexpr int MAX_COPIES = TN * MAX_D / 8 / THREADS;  // 16-byte copies per
-                                                      // thread and tile
-
-// The window tiles of the bf16 cache rows: column c is slot c. A thread
-// copies the 16-byte chunks e = t + r * THREADS of the tile (chunk e is
-// chunk e % cpr of column e / cpr, cpr = d / 8 per row), stepped without a
-// division: (cl, ch) of e + THREADS is (cl + dq, ch + dr), carried.
-struct RowsSource {
-  const __nv_bfloat16* __restrict__ rows;  // the cache [capacity, d]
-  const float* __restrict__ penalty;
-  int d, ld, cpr, cl0, ch0, dq, dr;
-  float pen;
-
-  __device__ __forceinline__ void fetch(int s0, int o0, int o1, int ts,
-                                        int nrow, __nv_bfloat16* tile) {
-    const int t = threadIdx.x;
-    const __nv_bfloat16* src = rows + ((size_t)s0 + ts) * d;
-    int cl = cl0;
-    int ch = ch0;
-#pragma unroll
-    for (int r = 0; r < MAX_COPIES; ++r) {
-      if (cl < nrow) {
-        cp_async16(tile + cl * ld + 8 * ch, src + (size_t)cl * d + 8 * ch,
-                   16);
-      }
-      cl += dq;
-      ch += dr;
-      if (ch >= cpr) {
-        ch -= cpr;
-        ++cl;
-      }
-    }
-    cp_async_commit();
-    if (t < TN) {
-      pen = 0.0f;
-      if (t < nrow) {
-        const int j = ts + t;
-        pen = __ldg(penalty + s0 + j) +
-              ((j >= o0 && j < o1) ? 0.0f : big_penalty());
-      }
-    }
-  }
-
-  __device__ __forceinline__ void land(int ts, int, __nv_bfloat16*,
-                                       float* pen_s, int* slot_s) const {
-    cp_async_wait<0>();
-    const int t = threadIdx.x;
-    if (t < TN) {
-      pen_s[t] = pen;
-      slot_s[t] = ts + t;
-    }
-  }
-
-  __device__ __forceinline__ int slot(int c) const { return c; }
-};
-
 template <bool PACK, int KMAX>
 __global__ void __launch_bounds__(THREADS, 1) block_scan_tc_kernel(
     const __nv_bfloat16* __restrict__ qtable,
@@ -120,26 +65,18 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_tc_kernel(
     int n_blocks, int p_tile, int d, int s_eff, int k_pair, float factor,
     int slot_mask, int n_groups) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int t = threadIdx.x;
-  RowsSource src;
-  src.rows = decoded;
-  src.penalty = penalty;
-  src.d = d;
-  src.ld = round16(d) + 8;
-  src.cpr = d / 8;
-  src.cl0 = t / src.cpr;
-  src.ch0 = t % src.cpr;
-  src.dq = THREADS / src.cpr;
-  src.dr = THREADS % src.cpr;
-  scan_blocks<PACK, KMAX>(src, smem_raw, qtable, probers, start_c, off, capb,
-                          out, n_blocks, p_tile, d, s_eff, k_pair, factor,
-                          slot_mask, n_groups);
+  RowsSource<false> src;
+  src.init(decoded, penalty, nullptr, 2 * d, row_ld(2 * d, false));
+  scan_blocks<Bf16, PACK, KMAX, false>(
+      src, smem_raw, reinterpret_cast<const unsigned char*>(qtable), nullptr,
+      probers, start_c, off, capb, out, n_blocks, p_tile, 2 * d, s_eff,
+      k_pair, factor, slot_mask, n_groups);
 }
 
 template <bool PACK, int KMAX>
 int occupancy_of(int d, int k_pair) {
   return occupancy(block_scan_tc_kernel<PACK, KMAX>,
-                   body_smem_bytes(d, PACK, k_pair));
+                   body_smem_bytes(2 * d, PACK, k_pair, false, false));
 }
 
 }  // namespace
@@ -159,15 +96,15 @@ extern "C" int torchpq_block_scan_tc(
     const void* decoded, int* out, int n_blocks, int p_tile, int d,
     int s_eff, int k_pair, int euclidean, int pack32, int slot_mask,
     int n_groups, int n_ctas, void* stream) {
-  if (!shape_ok(n_blocks, n_ctas, p_tile, d, s_eff, k_pair, pack32,
-                n_groups) ||
+  if (!shape_ok(n_blocks, n_ctas, p_tile, 2 * d, MAX_ROW, s_eff, k_pair,
+                pack32, n_groups) ||
       reinterpret_cast<uintptr_t>(qtable) % 16 ||
       reinterpret_cast<uintptr_t>(decoded) % 16) {
     return (int)cudaErrorInvalidValue;
   }
   const float factor = euclidean ? 2.0f : 1.0f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = body_smem_bytes(d, pack32, k_pair);
+  const size_t smem = body_smem_bytes(2 * d, pack32, k_pair, false, false);
 #define TPQ_ARGS                                                          \
   static_cast<const __nv_bfloat16*>(qtable), probers, start_c, off, capb, \
       penalty, static_cast<const __nv_bfloat16*>(decoded), out, n_blocks, \
@@ -188,7 +125,7 @@ extern "C" int torchpq_block_scan_tc(
 // Dynamic shared memory of one CTA at width d.
 extern "C" long long torchpq_block_scan_tc_smem(int d, int pack32,
                                                int k_pair) {
-  return (long long)body_smem_bytes(d, pack32, k_pair);
+  return (long long)body_smem_bytes(2 * d, pack32, k_pair, false, false);
 }
 
 // CTAs one SM holds at once (registers and shared memory permitting), or

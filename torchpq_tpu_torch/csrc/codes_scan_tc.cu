@@ -65,7 +65,8 @@ constexpr int MAX_CHUNKS = TN * 128 / 8 / THREADS;  // 8-byte code chunks
 // Shared memory: the codebook [256 * d] bf16, then the body's.
 __host__ __device__ inline size_t tc_smem_bytes(int d, int pack32,
                                                 int k_pair) {
-  return (size_t)512 * d + body_smem_bytes(d, pack32, k_pair);
+  return (size_t)512 * d + body_smem_bytes(2 * d, pack32, k_pair, false,
+                                           false);
 }
 
 // The column -> slot map of the packed codes (see the note above), without
@@ -120,7 +121,7 @@ struct CodesSource {
   int slt;
 
   __device__ __forceinline__ void fetch(int s0, int o0, int o1, int ts,
-                                        int nrow, __nv_bfloat16*) {
+                                        int nrow, unsigned char*, int) {
     const int t = threadIdx.x;
     const int items = (nrow + 1) / 2 * 2 << lc;
 #pragma unroll
@@ -146,8 +147,10 @@ struct CodesSource {
   }
 
   // Decode into tile [TN][ld] and the tile's penalties and slots.
-  __device__ __forceinline__ void land(int, int nrow, __nv_bfloat16* tile,
-                                       float* pen_s, int* slot_s) const {
+  __device__ __forceinline__ void land(int, int nrow, unsigned char* tile_b,
+                                       float* pen_s, int* slot_s,
+                                       float*) const {
+    __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(tile_b);
     const int t = threadIdx.x;
     const int items = (nrow + 1) / 2 * 2 << lc;
 #pragma unroll
@@ -237,11 +240,13 @@ __global__ void __launch_bounds__(THREADS, 1) codes_scan_tc_kernel(
   src.lc = 31 - __clz(m / 8);  // log2 of the code chunks per slot
   src.s_rows = s_rows;
   src.g = g;
-  src.ld = round16(d) + 8;
+  src.ld = row_ld(2 * d, false) / 2;
   src.inv = 1.0f / (float)s_rows;
-  scan_blocks<PACK, KMAX>(src, smem_raw + (size_t)512 * d, qtable, probers,
-                          start_c, off, capb, out, n_blocks, p_tile, d, s_eff,
-                          k_pair, factor, slot_mask, n_groups);
+  scan_blocks<Bf16, PACK, KMAX, false>(
+      src, smem_raw + (size_t)512 * d,
+      reinterpret_cast<const unsigned char*>(qtable), nullptr, probers,
+      start_c, off, capb, out, n_blocks, p_tile, 2 * d, s_eff, k_pair,
+      factor, slot_mask, n_groups);
 }
 
 template <bool PACK, int KMAX>
@@ -271,8 +276,8 @@ extern "C" int torchpq_codes_scan_tc(
     int euclidean, int pack32, int slot_mask, int n_groups, int n_ctas,
     void* stream) {
   const int d = m * dsub;
-  if (!shape_ok(n_blocks, n_ctas, p_tile, d, s_eff, k_pair, pack32,
-                n_groups) ||
+  if (!shape_ok(n_blocks, n_ctas, p_tile, 2 * d, MAX_ROW, s_eff, k_pair,
+                pack32, n_groups) ||
       m < 8 || (m & (m - 1)) || m > 128 || dsub <= 0 || g <= 0 ||
       s_eff % g || reinterpret_cast<uintptr_t>(qtable) % 4 ||
       reinterpret_cast<uintptr_t>(codebook) % 16 ||

@@ -3,16 +3,20 @@ keep each prober's top k_pair.
 
 Replaces the TPU kernel torchpq_tpu/ops/pallas_scan.py:scan_blocks_pallas
 (bf16/f32/int8 decoded cache, exact and pack32 selects, query rows read by
-prober id). Two kernels serve it, chosen before launch by `pick_route`,
+prober id). Three kernels serve it, chosen before launch by `pick_route`,
 each built by `_build.py`, bound through plain C entry points and counted
 under its own key of `launches`:
   - "tc_exact" / "tc_pack32", `csrc/block_scan_tc.cu`: bf16 caches with
     rows of d <= 128 (d % 8 == 0), blocks of at most 128 probers, on the
     tensor cores (mma.sync bf16, f32 sums), scoring only the live
     16-prober tiles of a block; the bf16 tier's probed plans;
+  - "tc_int8_exact" / "tc_int8_pack32", `csrc/block_scan_tc_int8.cu`: int8
+    caches with rows of d <= 1024 (d % 16 == 0; above 256 in k chunks of
+    256 bytes), the same blocks, on the tensor cores (mma.sync s8, exact
+    s32 sums) through the same kernel body; the int8 tier's probed plans;
   - "exact" / "pack32" and "int8_exact" / "int8_pack32",
-    `csrc/block_scan.cu`: f32 caches, the int8 tier, and the shapes the
-    tensor-core kernel does not take, on the CUDA cores (f32 FMAs, __dp4a).
+    `csrc/block_scan.cu`: f32 caches and the shapes the tensor-core kernels
+    do not take, on the CUDA cores (f32 FMAs, __dp4a).
 
 What it computes, for block b, prober p and window slot j < s_eff:
     score = c * <q[probers[b, p]], decoded[start_c[b] + j]> - pen[b, j]
@@ -29,19 +33,21 @@ What bounds it on an H100: a block reads s_eff * d window elements and
 does 2 * d operations per live prober and slot, so bytes and products
 alike are far below the card's rates (the bf16 plans' bound is ~0.09 ms,
 set by the window bytes). The CUDA-core kernel spends its time on an f32
-FMA chain per prober, pad probers included (every window element feeds
-128 FMAs). The tensor-core kernel runs the products on mma.sync for the
-live 16-prober tiles only and copies the window rows as they lie (cp.async
-tiles, no conversion); what is left is the select, one pass over every
-live score, and the latency of each tile's copy.
+FMA (or __dp4a) chain per prober, pad probers included (every window
+element feeds 128 of them). The tensor-core kernels run the products on
+mma.sync for the live 16-prober tiles only and copy the window rows as
+they lie (cp.async tiles, no conversion); what is left is the select, one
+pass over every live score, and the latency of each tile's copy.
 
 The products of bf16 values are exact in f32, so the kernels and the plain
 version differ only in summation order: they agree bit for bit where every
-sum is exact (`integer_block_inputs`), and within 1e-3 elsewhere. Pad rows
-(prober -1): the plain version and the CUDA-core kernel score them with
-query 0, as the JAX kernel does; the tensor-core kernel writes them dead
-(exact: sortable(-inf) keys, -1 addresses; pack32: INT_MIN). The merge
-never reads them.
+sum is exact (`integer_block_inputs`), and within 1e-3 elsewhere. The int8
+sums are exact integers in every kernel, so the int8 kernels and the plain
+version agree bit for bit on every input (`int8_tie_inputs` adds ties).
+Pad rows (prober -1): the plain version and the CUDA-core kernel score
+them with query 0, as the JAX kernel does; the tensor-core kernels write
+them dead (exact: sortable(-inf) keys, -1 addresses; pack32: INT_MIN). The
+merge never reads them.
 
 `block_scan` takes the plain version `block_scan_ref` only for tensors on
 the CPU. For CUDA tensors it launches the kernel of its route or raises.
@@ -59,16 +65,18 @@ from .. import util
 BIG = float(np.float32(np.finfo(np.float32).max) / np.float32(4))
 
 # kernel launches per route, counted by `block_scan` where it launches
-# ("tc_*": the tensor-core kernel; the others: the CUDA-core one, per cache
-# mode and select)
+# ("tc_*": the tensor-core kernels, bf16 and int8; the others: the CUDA-core
+# one, per cache mode and select)
 launches = {"exact": 0, "pack32": 0, "int8_exact": 0, "int8_pack32": 0,
-            "tc_exact": 0, "tc_pack32": 0}
+            "tc_exact": 0, "tc_pack32": 0, "tc_int8_exact": 0,
+            "tc_int8_pack32": 0}
 
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one CTA may use on sm_90
 _CHUNK_SCORES = 1 << 25   # f32 scores per chunk of the plain version (128 MB)
 _H100_SMS = 132           # SMs assumed for tensors that are not on a card
 # the tensor-core scans' body (csrc/scan_tc.cuh)
-_TC_MAX_D = 128     # widest row its A fragments hold
+_TC_MAX_ROW = 256   # widest row (bytes) its A fragments hold: bf16 d <= 128
+_TC_MAX_CHUNKED_ROW = 1024  # widest int8 row it walks in 256-byte k chunks
 _TC_MAX_PT = 128    # probers per block: an m tile per warp of 8
 _TC_KMAX = 16       # the exact k_pair its lane lists take
 _TC_MAX_PACK_K = 48  # the pack32 k_pair its shared lists fit
@@ -273,6 +281,46 @@ def random_int8_inputs(device, *, s_eff, n_blocks, nq, d=128, cap_total,
             scale.contiguous(), q_scale.contiguous())
 
 
+def int8_tie_inputs(device, *, s_eff, n_blocks, nq, d=128, cap_total,
+                    seed=0):
+    """Seeded int8-mode inputs with exact ties (numpy draws): query and
+    cache rows of integers in {-3..3} quantized per row
+    (util.int8_quantize_rows: few distinct scales and byte values), the
+    cache rows drawn from 64 distinct ones (equal rows all over each
+    window), a run of equal rows inside one window and equal rows far
+    apart across windows, the rows' squared norms (integers) as penalty
+    with BIG at ~5% of slots; blocks in `random_inputs`' layout -> (args,
+    scale, q_scale). The int8 sums are exact integers in every kernel, so
+    the kernels and the plain version agree bit for bit on any input; these
+    make equal scores at any d."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-3, 4, (nq, d)).astype(np.float32)
+    pool = rng.integers(-3, 4, (64, d)).astype(np.float32)
+    y = pool[rng.integers(0, 64, cap_total)]
+    run = slice(cap_total // 10, cap_total // 10 + min(200, s_eff // 2))
+    y[run] = y[run.start]          # a run of equal rows
+    y[cap_total // 2::97] = y[1]   # equal rows far apart
+    norms = (y ** 2).sum(1).astype(np.float32)
+    penalty = np.where(rng.random(cap_total) < 0.05, np.float32(BIG),
+                       norms).astype(np.float32)
+    n_live = rng.integers(1, 129, (n_blocks, 1))
+    probers = np.where(np.arange(128)[None] < n_live,
+                       rng.integers(0, nq, (n_blocks, 128)), -1)
+    start_c = rng.integers(0, (cap_total - s_eff) // 16 + 1, n_blocks) * 16
+    off = rng.integers(0, min(8, s_eff // 16), n_blocks) * 16
+    cap = np.minimum(rng.integers(s_eff // 4, s_eff // 2 + 1, n_blocks),
+                     s_eff - off)
+    q8, q_scale = util.int8_quantize_rows(torch.from_numpy(q))
+    y8, scale = util.int8_quantize_rows(torch.from_numpy(y))
+    t = [x.to(device).contiguous() for x in (
+        q8, torch.from_numpy(probers.astype(np.int32)),
+        torch.from_numpy(start_c.astype(np.int32)),
+        torch.from_numpy(off.astype(np.int32)),
+        torch.from_numpy(cap.astype(np.int32)), torch.from_numpy(penalty),
+        y8)]
+    return t, scale.to(device).contiguous(), q_scale.to(device).contiguous()
+
+
 def integer_block_inputs(device, *, s_eff, n_blocks, nq, d=128, cap_total,
                          seed=0):
     """Seeded integer-valued bf16 block-scan inputs (numpy draws): query and
@@ -363,15 +411,19 @@ def _cta_probers(smem, p_tile):
                      f"(p_tile={p_tile})")
 
 
-def tc_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32):
+def tc_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
     """Whether the tensor-core scans' body (csrc/scan_tc.cuh) takes these
-    shapes: d <= 128 with d % 8 == 0, p_tile a multiple of 16 up to 128;
-    exact with k_pair <= 16; pack32 with k_pair <= 48 and the strided group
-    count G = n_groups(s_eff, k_pair) a multiple of 8 that is either the
-    whole row (s_eff <= 128) or a multiple of 128 dividing s_eff (G = 128,
-    256, 512)."""
-    ok = (d <= _TC_MAX_D and d % 8 == 0 and p_tile % 16 == 0
-          and p_tile <= _TC_MAX_PT)
+    shapes: rows of 16-byte pieces, bf16 d <= 128 (d % 8 == 0, the A
+    fragments in registers) or int8 d <= 1024 (d % 16 == 0, above 256 in
+    k chunks), p_tile a multiple of 16 up to 128; exact with k_pair <= 16;
+    pack32 with k_pair <= 48 and the strided group count G =
+    n_groups(s_eff, k_pair) a multiple of 8 that is either the whole row
+    (s_eff <= 128) or a multiple of 128 dividing s_eff (G = 128, 256,
+    512)."""
+    rb = d * (1 if dtype == torch.int8 else 2)
+    ok = (rb % 16 == 0 and rb <= (_TC_MAX_CHUNKED_ROW if dtype == torch.int8
+                                  else _TC_MAX_ROW)
+          and p_tile % 16 == 0 and p_tile <= _TC_MAX_PT)
     if not pack32:
         return ok and k_pair <= _TC_KMAX
     g = n_groups(s_eff, k_pair)
@@ -384,15 +436,18 @@ def pick_route(*, dtype, d, p_tile, s_eff, k_pair, pack32):
     in `launches`:
       - "tc_exact" / "tc_pack32" (`csrc/block_scan_tc.cu`, tensor cores): a
         bf16 cache at the shapes of `tc_shapes_ok`;
+      - "tc_int8_exact" / "tc_int8_pack32" (`csrc/block_scan_tc_int8.cu`,
+        tensor cores): an int8 cache at the shapes of `tc_shapes_ok`;
       - "exact" / "pack32" (`csrc/block_scan.cu`, CUDA cores): f32 caches
         and the bf16 shapes above it does not take;
-      - "int8_exact" / "int8_pack32" (`csrc/block_scan.cu`): int8 caches."""
+      - "int8_exact" / "int8_pack32" (`csrc/block_scan.cu`): the int8
+        shapes the tensor-core kernel does not take."""
     mode = "pack32" if pack32 else "exact"
-    if dtype == torch.int8:
-        return "int8_" + mode
-    tc = dtype == torch.bfloat16 and tc_shapes_ok(
-        d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair, pack32=pack32)
-    return ("tc_" if tc else "") + mode
+    tc = dtype in (torch.bfloat16, torch.int8) and tc_shapes_ok(
+        d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair, pack32=pack32,
+        dtype=dtype)
+    return ("tc_" if tc else "") + ("int8_" if dtype == torch.int8
+                                    else "") + mode
 
 
 def block_scan(qtable, probers, start_c, off, cap, penalty, decoded, *,
@@ -448,7 +503,7 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
            decoded, *, s_eff, k_pair, euclidean, pack32, slot_mask,
            scale=None, q_scale=None, route=None, n_ctas=None):
     """Launch the kernel of `route` (a key of `launches`; default
-    pick_route's) of `lib` on `stream` with checked arguments. n_ctas: the
+    pick_route's) of `lib` on `stream` with checked arguments. n_ctas: a
     tensor-core kernel's persistent grid (default: as many CTAs as the
     card's SMs hold at once, at most one per block). Raises if the route
     does not take the shapes or the launch fails."""
@@ -460,8 +515,8 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
                       k_pair=k_pair, pack32=pack32)
     route = route or best
     int8 = decoded.dtype == torch.int8
-    serves = ("int8_" + mode,) if int8 else (mode, "tc_" + mode)
-    if route not in serves:
+    kind = "int8_" + mode if int8 else mode
+    if route not in (kind, "tc_" + kind):
         raise ValueError(f"route {route!r} does not serve the {mode} select "
                          f"of a {decoded.dtype} cache")
     if route.startswith("tc_") and best != route:
@@ -473,7 +528,32 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
                       dtype=torch.int32, device=decoded.device)
     if b == 0:
         return out
-    if int8:
+    if route.startswith("tc_"):
+        if qtable.data_ptr() % 16 or decoded.data_ptr() % 16:
+            raise ValueError("the tensor-core block scan copies 16-byte "
+                             "pieces: qtable and decoded must be 16-byte "
+                             "aligned")
+        name = "torchpq_block_scan_tc" + ("_int8" if int8 else "")
+        if getattr(lib, name + "_smem")(d, int(pack32), k_pair) \
+                > _SMEM_LIMIT:
+            raise ValueError(f"{name}: shared memory exceeds the limit at "
+                             f"d={d}, k_pair={k_pair}")
+        if n_ctas is None:
+            n_ctas = resident_ctas(lib, name + "_occupancy", decoded.device,
+                                   d, int(pack32), k_pair)
+        rows = (decoded.data_ptr(), out.data_ptr(), b, p_tile, d, s_eff,
+                k_pair, int(euclidean), int(pack32), slot_mask, groups,
+                min(n_ctas, b), ctypes.c_void_p(stream))
+        if int8:
+            rc = lib.torchpq_block_scan_tc_int8(
+                qtable.data_ptr(), q_scale.data_ptr(), probers.data_ptr(),
+                start_c.data_ptr(), off.data_ptr(), cap.data_ptr(),
+                penalty.data_ptr(), scale.data_ptr(), *rows)
+        else:
+            rc = lib.torchpq_block_scan_tc(
+                qtable.data_ptr(), probers.data_ptr(), start_c.data_ptr(),
+                off.data_ptr(), cap.data_ptr(), penalty.data_ptr(), *rows)
+    elif int8:
         if d % 16 or qtable.data_ptr() % 16 or decoded.data_ptr() % 16:
             raise ValueError(f"int8 block scan kernel needs d % 16 == 0 "
                              f"and 16-byte aligned rows, got d={d}")
@@ -485,24 +565,6 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
             penalty.data_ptr(), scale.data_ptr(), decoded.data_ptr(),
             out.data_ptr(), b, p_tile, d, s_eff, k_pair, int(euclidean),
             int(pack32), slot_mask, groups, pt, ctypes.c_void_p(stream))
-    elif route.startswith("tc_"):
-        if qtable.data_ptr() % 16 or decoded.data_ptr() % 16:
-            raise ValueError("the tensor-core block scan copies 16-byte "
-                             "pieces: qtable and decoded must be 16-byte "
-                             "aligned")
-        if lib.torchpq_block_scan_tc_smem(d, int(pack32), k_pair) \
-                > _SMEM_LIMIT:
-            raise ValueError(f"block_scan_tc: shared memory exceeds the "
-                             f"limit at d={d}, k_pair={k_pair}")
-        if n_ctas is None:
-            n_ctas = resident_ctas(lib, "torchpq_block_scan_tc_occupancy",
-                                   decoded.device, d, int(pack32), k_pair)
-        rc = lib.torchpq_block_scan_tc(
-            qtable.data_ptr(), probers.data_ptr(), start_c.data_ptr(),
-            off.data_ptr(), cap.data_ptr(), penalty.data_ptr(),
-            decoded.data_ptr(), out.data_ptr(), b, p_tile, d, s_eff, k_pair,
-            int(euclidean), int(pack32), slot_mask, groups, min(n_ctas, b),
-            ctypes.c_void_p(stream))
     else:
         if d % 4:
             raise ValueError(f"block scan kernel needs d % 4 == 0, got d={d}")
