@@ -84,7 +84,23 @@ Phases, each of which fails the run on error:
      n_probe 8, pack32 n_probe 32), bit for bit (the tensor-core one on
      live rows, pad rows dead), and the select each search ran timed on
      both in turns (TOP/s over live probers and live 16-prober tiles).
-  9. GIST-class int8 tier: 1M x 960 manifold-12 data (make_data, seed 1),
+  9. deep-k: the JAX package's k = 100 configuration
+     (benchmark/results/ivf4096_pq64_sift1m_deepk_r6_g8c64kp64t8_16.json:
+     spill 8 cells at capacity 2 x n / n_cells = 512, supercells of 8, a
+     cap of 64 per query, k_pair 64, the merge taper (8, 16) run as the
+     split, n_probe 128, 10k queries) on the main index's codecs and adds,
+     each add's spill routing held to its rule; the block-scan counters
+     zeroed before the r6 plan's searches: the split's head (pack32 k_pair
+     64 over 512 strided groups, 64 probers per CTA) must launch the
+     CUDA-core kernel and its tail (pack32 k_pair 16) the tensor-core one,
+     `LAST_GATE` must show super-probe, split (8, 16) and s_eff 4096 on
+     both sides; recall@100 against exact f32 ground truth within 0.03 of
+     the untapered plan's (no supercells, cap or taper), the flat plan's
+     logged; both kernels against `block_scan_ref` on the r6 search's own
+     arguments (the head on every row, the tail on live rows with pad rows
+     dead), the tail timed in turns with the CUDA-core kernel, the head
+     beside the same launch writing one key per row.
+ 10. GIST-class int8 tier: 1M x 960 manifold-12 data (make_data, seed 1),
      IVF4096 x PQ64, int8 cache 1024 wide, 10k queries, k=10; plans flat,
      pack32 at n_probe 8 and 32, exact at n_probe 8 (counters zeroed
      before; both selects of the tensor-core int8 kernel, in 256-byte k
@@ -92,7 +108,7 @@ Phases, each of which fails the run on error:
      non-decreasing in n_probe within 0.005, the flat plan within 0.02 of
      an exact f32 sweep over the same PQ-decoded rows; then both int8
      kernels on the phase's own arguments, as in phase 8 (fewer repeats).
- 10. fused flat scan: the main index with scan_impl="pallas_flat" and
+ 11. fused flat scan: the main index with scan_impl="pallas_flat" and
      approx top-k; the flat counters zeroed, the flat plan must launch the
      tensor-core flat kernel, agree with the exact flat plan on >= 0.98 of
      ids and lie within 0.01 of its recall (the kernel's bucket top-2
@@ -103,14 +119,16 @@ Phases, each of which fails the run on error:
      yardstick of the product alone (bf16 torch.matmul over a 65,536-slot
      slice, scaled to the cache) and of the kernel at half the width (the
      same epilogue, half the products).
- 11. profile: torch.profiler over one search per plan of the bf16, code
-     domain and int8 indexes and the pallas_flat flat plan; device-busy
-     time and the largest kernels of each.
- 12. prints the kernels' JSON line (every kernel: launches on its path,
+ 12. profile: torch.profiler over one search per plan of the bf16, code
+     domain and int8 indexes, the deep-k r6 and untapered plans and the
+     pallas_flat flat plan; device-busy time and the largest kernels of
+     each.
+ 13. prints the kernels' JSON line (every kernel: launches on its path,
      kernel and plain ms, the bound from the inputs' own counts, the
      library call's ms where one PyTorch call computes the same; the int8
      block scan at both widths, the 1M x 128 tier's and the GIST-class
-     d = 1024 one's), the card line, and the result line.
+     d = 1024 one's; the deep-k split's head and tail scans), the card
+     line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -643,10 +661,12 @@ def phase_flat_kernels(torch, fs):
             f"neighbours in the lists)")
 
 
-def capture_call(tp, index, xq, k, module=None, name="block_scan"):
+def capture_call(tp, index, xq, k, module=None, name="block_scan",
+                 n_calls=1):
     """One search with the index's current settings, keeping the arguments
     it hands the kernel wrapper `module.name` (default: the block scan, as
-    ops/adc.py calls it)."""
+    ops/adc.py calls it): the (args, kw) of its one call, or the list of
+    its n_calls calls (the split taper's head and tail scans)."""
     module = module or tp.ops.adc
     seen = []
     launch = getattr(module, name)
@@ -660,9 +680,9 @@ def capture_call(tp, index, xq, k, module=None, name="block_scan"):
         index.search(xq.T, k=k)
     finally:
         setattr(module, name, launch)
-    if len(seen) != 1:
-        fail(f"expected one {name} call per search, saw {len(seen)}")
-    return seen[0]
+    if len(seen) != n_calls:
+        fail(f"expected {n_calls} {name} call(s) per search, saw {len(seen)}")
+    return seen[0] if n_calls == 1 else seen
 
 
 def phase_main_shapes(torch, tp, bs, index, xq, k):
@@ -805,7 +825,7 @@ def phase_relayout(torch, tp, index, trained, base, xq, per_cell, k):
 def time_plans(torch, tp, index, xq, gt, k, launches, label,
                short_ok=False, plans=None, floors=True):
     """Each plan of PLANS on `index`: the warm-up search, then the median of
-    3 host-clock searches to torch.cuda.synchronize(), q/s, recall@10 and
+    3 host-clock searches to torch.cuda.synchronize(), q/s, recall@k and
     the kernel launches per search (from the counters in `launches`).
     Fails on a malformed result or a probed plan that launched nothing.
 
@@ -847,7 +867,7 @@ def time_plans(torch, tp, index, xq, gt, k, launches, label,
         rec = recall_at(ids.long(), gt)
         gate = tp.ops.adc.LAST_GATE
         row = dict(plan=mode, n_probe=n_probe, approx=approx, ms=ms,
-                   qps=n_query / ms * 1e3, recall_at_10=rec,
+                   qps=n_query / ms * 1e3, **{f"recall_at_{k}": rec},
                    kernel_launches=launched, short_rows=short,
                    select=gate.get("impl") if mode == "cell_major" else None,
                    s_eff=gate.get("s_eff") if mode == "cell_major" else None)
@@ -856,7 +876,7 @@ def time_plans(torch, tp, index, xq, gt, k, launches, label,
         log(label + json.dumps(row))
         if mode == "cell_major" and launched <= 0:
             fail(f"{label}cell_major np={n_probe} did not launch the kernel")
-    rec = {(r["plan"], r["n_probe"], r["approx"]): r["recall_at_10"]
+    rec = {(r["plan"], r["n_probe"], r["approx"]): r[f"recall_at_{k}"]
            for r in rows}
     if not floors:
         return rec, results
@@ -1207,6 +1227,271 @@ def phase_int8(torch, tp, bs, sl):
     return counts, rows, i8
 
 
+# the JAX package's deep-k record (benchmark/results/
+# ivf4096_pq64_sift1m_deepk_r6_g8c64kp64t8_16.json): supercells of 8 cells,
+# at most 64 of them per query, k_pair 64, the merge taper (8, 16) run as
+# the split (super-probe and split taper on by default), n_probe 128, k 100
+DEEPK_K, DEEPK_NPROBE, DEEPK_GROUP = 100, 128, 8
+DEEPK_R6 = dict(scan_group=DEEPK_GROUP, scan_probe_cap=64, scan_k_pair=64,
+                scan_merge_taper=(8, 16), scan_super_probe=True,
+                scan_split_taper=True)
+# the yardstick: the same index untapered (no supercells, cap or taper)
+DEEPK_PLAIN = dict(scan_group=1, scan_probe_cap=None, scan_k_pair=None,
+                   scan_merge_taper=None)
+
+
+def spill_recorder(tp, seen):
+    """Wrap the index's spill routing so each add's candidates, the
+    occupancy before it and its result land in `seen`; returns the
+    function that restores the original."""
+    mod = tp.index.ivfpq
+    orig = mod.spill_assign_device
+
+    def record(top, cell_size, **kw):
+        before = cell_size.clone()
+        chosen, counts = orig(top, cell_size, **kw)
+        seen.append((top, before, chosen, counts, kw["cap"]))
+        return chosen, counts
+
+    mod.spill_assign_device = record
+    return lambda: setattr(mod, "spill_assign_device", orig)
+
+
+def check_spill(torch, seen):
+    """Each add's spill routing held to its rule: every item went to one of
+    its candidates, to its best one wherever that cell stayed below the
+    capacity; a cell ends above the capacity only through items all of
+    whose candidates ended full (the all-full fallback). Returns the count
+    of items placed above the capacity."""
+    over = 0
+    for top, before, chosen, counts, cap in seen:
+        after = before.long() + counts.long()
+        c = chosen.long()
+        top = top.long()
+        if not bool((top == c[:, None]).any(1).all()):
+            fail("spill: an item went to a cell outside its candidates")
+        best_open = after[top[:, 0]] < cap
+        if not bool((c[best_open] == top[best_open, 0]).all()):
+            fail("spill: an item whose best cell stayed open went elsewhere")
+        overfull = after[c] > cap
+        all_full = (after[top] >= cap).all(1)
+        if not bool(all_full[overfull].all()):
+            fail("spill: a cell went above the capacity while an item in it "
+                 "had a candidate with room")
+        over += int((after - torch.maximum(before.long(), torch.full_like(
+            after, cap))).clamp(min=0).sum())
+    return over
+
+
+def head_one_pass(torch, lib, args, kw, groups, pt):
+    """The CUDA-core pack32 launch of the split's head on its own
+    arguments, but writing k_pair = 1 key per row: the products and the
+    group maxima as at k_pair 64, one pass of PackSelect::write over the
+    groups instead of 64. The difference to the real launch is the cost of
+    the other passes."""
+    b, p_tile = args[1].shape
+    out = torch.empty((b, p_tile, 1), dtype=torch.int32,
+                      device=args[1].device)
+    rc = lib.torchpq_block_scan(
+        *(t.data_ptr() for t in args), out.data_ptr(), b, p_tile,
+        args[6].shape[1], kw["s_eff"], 1, int(kw["euclidean"]), 1,
+        kw["slot_mask"], groups, 1, pt,
+        torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        fail(f"the one-pass head launch failed: CUDA error {rc}")
+    return out
+
+
+def phase_deepk(torch, tp, bs, sl):
+    """The JAX package's deep-k configuration (DEEPK_R6) at the slice's
+    shape: the main index's trained codecs in an index with the spill on
+    (8 candidate cells, capacity the initial per-cell 2 x n / n_cells,
+    device route), filled by the same four adds; the r6 plan with the
+    block-scan counters zeroed before its searches and read after (both
+    sides of the split must launch a kernel: the head pack32 k_pair 64 on
+    the CUDA cores, the tail pack32 k_pair 16 on the tensor cores), its
+    gate record (super-probe, split (8, 16), s_eff 8 x capacity on both
+    sides), recall@100 against exact f32 ground truth within 0.03 of the
+    untapered yardstick's (DEEPK_PLAIN at n_probe 128), the flat plan's
+    recall@100 (the ADC ceiling); then both kernels against block_scan_ref
+    on the r6 search's own arguments, timed (the tail in turns with the
+    CUDA-core kernel). Returns (launch counts, the two kernels' JSON rows,
+    the index with the r6 knobs set)."""
+    index, base, xq = (sl[x] for x in ("index", "base", "xq"))
+    k = DEEPK_K
+    n_base, n_cells = base.shape[0], index.n_cells
+    per_cell = n_base // n_cells * 2
+    deep = tp.IVFPQIndex(d_vector=index.d_vector,
+                         n_subvectors=index.n_subvectors, n_cells=n_cells,
+                         initial_size=per_cell, distance="euclidean",
+                         device="cuda")
+    deep.load_state_dict(sl["trained"])
+    deep.spill_cells = 8
+    deep.spill_capacity = cap = deep.max_cell_capacity
+    seen = []
+    restore = spill_recorder(tp, seen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = n_base // 4
+    for i in range(0, n_base, step):
+        deep.add(torch.from_numpy(base[i:i + step]).cuda().T)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    restore()
+    if len(seen) != 4:
+        fail(f"the deep-k adds routed {len(seen)} of 4 batches by spill")
+    over = check_spill(torch, seen)
+    del seen
+    sizes = deep._cell_size_np
+    dec = deep.aux("decoded")
+    log(f"deep-k index: spill 8 cells at capacity {cap}; add {add_s:.2f} s; "
+        f"largest cell {int(sizes.max())}, {int((sizes >= cap).sum())} cells "
+        f"at capacity, {over} items above it (all-full fallback), max cell "
+        f"capacity {deep.max_cell_capacity}; device bytes: decoded cache "
+        f"{dec.numel() * dec.element_size()}, norms "
+        f"{deep.aux('norm').numel() * 4}, codes {deep._storage.numel()}")
+    if int(sizes.sum()) != n_base:
+        fail(f"the deep-k index holds {int(sizes.sum())} items")
+    if int((np.maximum(sizes - cap, 0)).sum()) != over:
+        fail("deep-k cells above the capacity beyond the fallback's items")
+
+    xb = torch.from_numpy(base).cuda()
+    gt = []
+    for i in range(0, xq.shape[0], 1000):
+        qc = xq[i:i + 1000]
+        s = 2 * qc @ xb.T - (xb * xb).sum(-1)[None]
+        gt.append(torch.topk(s, k, dim=-1).indices)
+    gt = torch.cat(gt)
+    del xb, s
+
+    # the r6 plan, the path's counters zeroed just before its searches
+    for name, value in DEEPK_R6.items():
+        setattr(deep, name, value)
+    plan = [("cell_major", DEEPK_NPROBE, True)]
+    for key in bs.launches:
+        bs.launches[key] = 0
+    rec, _ = time_plans(torch, tp, deep, xq, gt, k, bs.launches,
+                        "deep-k r6 ", plans=plan, floors=False)
+    counts = dict(bs.launches)
+    gate = tp.ops.adc.LAST_GATE
+    head, tail = gate.get("head", {}), gate.get("tail", {})
+    s_want = DEEPK_GROUP * cap
+    log(f"deep-k r6 launches: {counts}; gate: super_probe "
+        f"{gate.get('super_probe')}, split {gate.get('split')}, head "
+        f"{head}, tail {tail}")
+    if gate.get("super_probe") is not True or gate.get("split") != (8, 16):
+        fail("the r6 plan did not run supercell-native probing and the "
+             "split (8, 16)")
+    for side, g in (("head", head), ("tail", tail)):
+        if g.get("impl") != "block_scan" or g.get("s_eff") != s_want \
+                or not g.get("pack32"):
+            fail(f"the r6 {side} scan did not run the block scan's pack32 "
+                 f"select at s_eff {s_want}: {g}")
+    for key in ("pack32", "tc_pack32"):
+        if counts[key] <= 0:
+            fail(f"kernel block_scan {key} was never launched by the r6 plan")
+    r6 = rec[plan[0]]
+
+    # the yardstick and the flat plan (their launches are not the r6 path's)
+    for name, value in DEEPK_PLAIN.items():
+        setattr(deep, name, value)
+    rec_plain, _ = time_plans(torch, tp, deep, xq, gt, k, bs.launches,
+                              "deep-k untapered ", plans=plan, floors=False)
+    rec_flat, _ = time_plans(torch, tp, deep, xq, gt, k, bs.launches,
+                             "deep-k ", plans=[("flat", 1, True)],
+                             floors=False)
+    plain = rec_plain[plan[0]]
+    log(f"deep-k recall@{k}: r6 {r6:.5f}, untapered yardstick {plain:.5f} "
+        f"(gap {r6 - plain:+.5f}), flat (ADC ceiling) "
+        f"{rec_flat[('flat', 1, True)]:.5f}")
+    if r6 < plain - 0.03:
+        fail(f"the r6 plan's recall@{k} {r6:.5f} is more than 0.03 below "
+             f"the untapered yardstick's {plain:.5f}")
+
+    # both kernels on the r6 search's own arguments
+    for name, value in DEEPK_R6.items():
+        setattr(deep, name, value)
+    deep.scan_mode, deep.n_probe = "cell_major", DEEPK_NPROBE
+    calls = capture_call(tp, deep, xq, k, n_calls=2)
+    rows = {}
+    for side, (args, kw) in zip(("head", "tail"), calls):
+        s_eff, k_pair = kw["s_eff"], kw["k_pair"]
+        blocks, p_tile = args[1].shape
+        d = args[6].shape[1]
+        live = int((args[1] >= 0).sum())
+        route = bs.pick_route(dtype=args[6].dtype, d=d, p_tile=p_tile,
+                              s_eff=s_eff, k_pair=k_pair, pack32=True)
+        groups = bs.n_groups(s_eff, k_pair)
+        pt = None
+        if route == "pack32":
+            from torchpq_tpu_torch import _build
+            lib = _build.library()
+            pt = bs._cta_probers(lambda pt: lib.torchpq_block_scan_smem(
+                pt, d, 1, groups, 1), p_tile)
+            if pt != 64:
+                fail(f"the head's CUDA-core select at G = {groups} runs "
+                     f"{pt} probers per CTA, not 64")
+        log(f"deep-k r6 {side}: {blocks} blocks x {p_tile} probers, {live} "
+            f"live ({live / (blocks * p_tile):.3f}), s_eff={s_eff}, "
+            f"k_pair={k_pair}, G={groups}, route {route}"
+            + (f", {pt} probers per CTA" if pt else ""))
+        if route != ("pack32" if side == "head" else "tc_pack32"):
+            fail(f"the r6 {side} routes to {route}")
+        err, agree, _, _ = check_kernel(torch, bs, args, s_eff=s_eff,
+                                        k_pair=k_pair, pack32=True,
+                                        euclidean=kw["euclidean"], reps=0)
+        kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
+                   pack32=True, slot_mask=kw["slot_mask"])
+        if side == "tail":
+            t, turns = in_turns(torch, {
+                "cuda_cores": lambda: block_launch(torch, bs, args, "pack32",
+                                                   **kkw),
+                "tensor_cores": lambda: block_launch(torch, bs, args,
+                                                     "tc_pack32", **kkw)}, 5)
+            ms, cc_ms = t["tensor_cores"], t["cuda_cores"]
+            times = (f"tensor cores {ms:.3f} ms ("
+                     f"{' / '.join(f'{x:.3f}' for x in turns['tensor_cores'])}"
+                     f"), CUDA cores {cc_ms:.3f} ms ("
+                     f"{' / '.join(f'{x:.3f}' for x in turns['cuda_cores'])})"
+                     f", speed-up {cc_ms / ms:.2f}x")
+        else:
+            ms = cuda_ms(torch, lambda: block_launch(torch, bs, args,
+                                                     "pack32", **kkw), 5)
+            cc_ms = None
+            k1_ms = cuda_ms(torch, lambda: head_one_pass(
+                torch, lib, args, kkw, groups, pt), 5)
+            times = (f"CUDA cores {ms:.3f} ms; the same launch writing one "
+                     f"key per row (the same products and group maxima, 1 "
+                     f"of the select's {k_pair} passes over the {groups} "
+                     f"groups) {k1_ms:.3f} ms")
+        plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw), 1)
+        b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=2 * d + 4,
+                                row_bytes=2 * d, peak="bf16", d=d)
+        flop = 2.0 * live * s_eff * d
+        name = f"block_scan_pack32_deepk_{side}"
+        log(f"{name} on the r6 search's arguments: {times}; "
+            f"{flop / ms / 1e9:.2f} TFLOP/s over live probers, "
+            f"{b_ms / ms:.1%} of the bound; plain {plain_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}); "
+            + ("live rows" if side == "tail" else "every row")
+            + f" held to block_scan_ref: max_abs_err {err:.3g}, key "
+            f"agreement {agree:.7f}"
+            + ("; pad rows dead; the CUDA-core kernel matches on every row"
+               if side == "tail" else ""))
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="torchpq_tpu_torch/csrc/" + (
+                "block_scan_tc.cu" if side == "tail" else "block_scan.cu"),
+            replaces="torchpq_tpu/ops/pallas_scan.py:281",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, launch_key=route)
+        if cc_ms is not None:
+            rows[name].update(
+                cuda_core_ms=cc_ms,
+                cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu")
+    return counts, rows, deep
+
+
 def phase_pallas_flat(torch, tp, fs, sl):
     """scan_impl="pallas_flat" on the main index: the flat plan through the
     fused flat scan (its counters zeroed before, read after; the bf16
@@ -1518,19 +1803,27 @@ def main():
                    sl["xq"], sl["per_cell"], sl["k"])
     code_counts, code_rows, code = phase_code_domain(torch, tp, bs, cs, sl)
     int8_counts, int8_rows, i8 = phase_int8(torch, tp, bs, sl)
+    deep_counts, deep_rows, deep = phase_deepk(torch, tp, bs, sl)
     gist_counts, gist_rows, gist, gist_q = phase_gist(torch, tp, bs)
     # last of the paths: its floor holds the kernel's bucket approximation
     flat_counts, flat_row = phase_pallas_flat(torch, tp, fs, sl)
-    log(f"phases 4-10: {time.perf_counter() - t_start:.1f} s")
+    log(f"phases 4-11: {time.perf_counter() - t_start:.1f} s")
     phase_profile(torch, sl["index"], sl["xq"], sl["k"])
     phase_profile(torch, code, sl["xq"], sl["k"], label="code-domain ")
     phase_profile(torch, i8, sl["xq"], sl["k"], label="int8 ")
+    for label, knobs in (("deep-k untapered ", DEEPK_PLAIN),
+                         ("deep-k r6 ", DEEPK_R6)):
+        for name, value in knobs.items():
+            setattr(deep, name, value)
+        phase_profile(torch, deep, sl["xq"], DEEPK_K, label=label,
+                      plans=[("cell_major", DEEPK_NPROBE, True)])
+    del deep
     phase_profile(torch, gist, gist_q, 10, label="GIST int8 ",
                   plans=GIST_PLANS)
     sl["index"].scan_impl = "pallas_flat"
     phase_profile(torch, sl["index"], sl["xq"], sl["k"],
                   label="pallas_flat ", plans=[("flat", 1, True)])
-    log(f"phases 4-11: {time.perf_counter() - t_start:.1f} s")
+    log(f"phases 4-12: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, row, cnt in (
@@ -1544,6 +1837,10 @@ def main():
              gist_counts["tc_int8_exact"]),
             ("block_scan_int8_pack32_d1024", gist_rows,
              gist_counts["tc_int8_pack32"]),
+            ("block_scan_pack32_deepk_head", deep_rows,
+             deep_counts["pack32"]),
+            ("block_scan_pack32_deepk_tail", deep_rows,
+             deep_counts["tc_pack32"]),
             ("codes_scan_exact", code_rows, code_counts["tc_exact"]),
             ("codes_scan_pack32", code_rows, code_counts["tc_pack32"]),
             ("flat_scan", {"flat_scan": flat_row}, flat_counts["flat_tc"]),

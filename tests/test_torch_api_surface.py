@@ -37,6 +37,7 @@ SURFACE = {
         "scan_cell_major",
     ],
     "torchpq_tpu_torch.ops.flat_adc": ["flat_adc_scan", "flat_adc_auto"],
+    "torchpq_tpu_torch.ops.spill": ["rank_in_group", "spill_assign_device"],
     "torchpq_tpu_torch.ops.max_sim": [
         "max_sim", "topk_sim", "batched_max_sim", "batched_topk_sim",
     ],
@@ -64,6 +65,12 @@ TUNABLES = ["use_cublas", "use_tensor_core", "fp16_scale_mode",
             "use_precomputed", "pq_max_iter", "vq_max_iter",
             "use_smart_probing", "smart_probing_temperature",
             "use_approx_topk"]
+
+
+# the deep-k surface and spill settings (plain attributes in both packages)
+DEEPK = ["spill_cells", "spill_capacity", "spill_impl", "scan_group",
+         "scan_probe_cap", "scan_k_pair", "scan_merge_taper",
+         "scan_super_probe", "scan_split_taper"]
 
 
 def _reference(name):
@@ -172,6 +179,17 @@ def test_tunables_match(index_pair, name, value):
     finally:
         setattr(port, name, old)
         setattr(jidx, name, old)
+
+
+@pytest.mark.parametrize("name", DEEPK)
+def test_deepk_attributes_match(index_pair, name):
+    """Each deep-k / spill attribute exists with the JAX package's default
+    (and its type), on a fresh index as on a filled one."""
+    jidx, port, _, _ = index_pair
+    fresh = tp.IVFPQIndex(32, 8, 8, device=CPU)
+    for idx in (port, fresh):
+        assert getattr(idx, name) == getattr(jidx, name)
+        assert type(getattr(idx, name)) is type(getattr(jidx, name))
 
 
 def test_fp16_scale_mode_validates(index_pair):

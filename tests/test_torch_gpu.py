@@ -1,7 +1,8 @@
 """The port's CUDA kernels (block scan on its bf16 and int8 tensor-core
 routes and in its bf16/f32 and int8 modes on the CUDA cores, codes scan and
 flat scan on their tensor-core and CUDA-core routes, row gather)
-against their plain PyTorch versions, on a card.
+against their plain PyTorch versions, and the device spill routing against
+its CPU result, on a card.
 
 Marked `gpu`: without a CUDA card every test here skips. This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -176,6 +177,46 @@ def test_block_tc_kernel_persistent_grid(cuda, pack32, k_pair, s_eff):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["random", "integer"])
+@pytest.mark.parametrize("pack32,k_pair,route", [
+    (True, 64, "pack32"), (True, 16, "tc_pack32"), (False, 64, "exact")])
+def test_block_deepk_shapes_match_plain(cuda, pack32, k_pair, route, inputs):
+    """The deep-k configuration's windows: supercells of 8 cells of 512
+    slots (s_eff 4096), d 128, bf16. pack32 k_pair 64 selects over 512
+    strided groups on the CUDA cores (the split's head), whose shared
+    group maxima (4 B x 512 x probers) fit only 64 probers per CTA, so the
+    grid takes two CTAs per block; pack32 k_pair 16 over 128 groups runs
+    on the tensor cores (the tail, 32 column tiles); exact k_pair 64 on
+    the CUDA cores. Integer inputs: equal to the plain version bit for bit
+    (the tensor-core kernel on live rows, pad rows dead); random ones to
+    the tolerances of _assert_close_rows."""
+    s_eff = 4096
+    make = bs.integer_block_inputs if inputs == "integer" else \
+        bs.random_inputs
+    args = make(cuda, s_eff=s_eff, n_blocks=48, nq=500, cap_total=16384,
+                seed=k_pair + pack32)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+              slot_mask=s_eff - 1)
+    if route == "pack32":
+        from torchpq_tpu_torch import _build
+        lib = _build.library()
+        assert bs.n_groups(s_eff, k_pair) == 512
+        assert bs._cta_probers(lambda pt: lib.torchpq_block_scan_smem(
+            pt, 128, 1, 512, 1), 128) == 64
+    got, r = _block_launch(args, kw)
+    assert r == route
+    ref = bs.block_scan_ref(*args, **kw)
+    if route.startswith("tc_"):
+        _assert_pads(got, ref, args[1], route, k_pair, pack32)
+        live = args[1] >= 0
+        got, ref = got[live], ref[live]
+    if inputs == "integer":
+        assert torch.equal(got, ref)
+    else:
+        _assert_close_rows(got, ref, k_pair, pack32)
+
+
+@pytest.mark.gpu
 def test_block_routes_on_card(cuda):
     """bf16 at d = 128 and int8 at d = 128 and 1024 take the tensor-core
     kernels; an f32 cache, bf16 exact k_pair 20 and int8 at d = 1040 or
@@ -297,6 +338,29 @@ def test_index_on_card_matches_cpu(cuda):
         gate = adc.LAST_GATE
         assert gate["pack32"] and gate["impl"] == "block_scan", gate
         _assert_pack32_values(v, v_ref, i, i_ref, q, gate["s_eff"])
+
+
+@pytest.mark.gpu
+def test_spill_assign_on_card_matches_cpu(cuda):
+    """The device spill routing on the card equals the CPU's bit for bit:
+    a hot cell whose items spill, items whose every candidate is full (the
+    least-occupied fallback), occupancy from earlier adds."""
+    from torchpq_tpu_torch.ops.spill import spill_assign_device
+
+    g = torch.Generator().manual_seed(5)
+    n, n_cells, l, cap = 20000, 512, 8, 48
+    top = torch.stack([torch.randperm(n_cells, generator=g)[:l]
+                       for _ in range(n)]).int()
+    top[:3000, 0] = 7
+    top[:500] = torch.arange(100, 100 + l, dtype=torch.int32)
+    occ = torch.randint(0, cap, (n_cells,), generator=g).int()
+    occ[100:100 + l] = cap
+    ref = spill_assign_device(top, occ, cap=cap, n_cells=n_cells)
+    got = spill_assign_device(top.to(cuda), occ.to(cuda), cap=cap,
+                              n_cells=n_cells)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)
+    assert int(ref[1][100:100 + l].sum()) >= 500   # the fallback items
 
 
 def _codes_launch(cuda, args, kw):

@@ -193,11 +193,7 @@ def test_port_trains_on_its_own():
     (dict(pq_use_residual=True), None),
     (dict(anisotropic_eta=2.0), None),
     (dict(distance="manhattan"), None),
-    ({}, ("scan_group", 2)),
-    ({}, ("scan_probe_cap", 8)),
-    ({}, ("scan_k_pair", 16)),
-    ({}, ("scan_merge_taper", (2, 4))),
-    ({}, ("spill_cells", 2)),
+    ({}, dict(spill_cells=2, spill_capacity=64, spill_impl="host")),
 ])
 def test_unported_settings_raise(kwargs, attr):
     def make():
@@ -210,7 +206,8 @@ def test_unported_settings_raise(kwargs, attr):
     idx = make()
     x = _data(9, 300)
     idx.train(x.T)
-    setattr(idx, *attr)
+    for name, value in attr.items():
+        setattr(idx, name, value)
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         idx.add(x.T)
         idx.search(x[:4].T)

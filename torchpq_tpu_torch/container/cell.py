@@ -3,11 +3,12 @@
 One flat buffer split into contiguous per-cell segments (`_cell_start`,
 `_cell_size`, `_cell_capacity`, `_is_empty`). Per-cell capacities are
 powers of two and at least 16, so every cell start is a multiple of 16.
-Adds follow the JAX package: rank within the cell (ioa) -> grow cells that
-would overflow -> the ioa-th empty slot of the cell -> scatter. Growth is
-one relayout over the whole store; aux row stores (the decoded scan cache,
-the norms) share the slot address space, and stores marked derived are
-rebuilt from the codes instead of moved.
+Adds follow the JAX package: rank within the cell (ioa,
+ops/spill.py:rank_in_group) -> grow cells that would overflow -> the
+ioa-th empty slot of the cell -> scatter. Growth is one relayout over the
+whole store; aux row stores (the decoded scan cache, the norms) share the
+slot address space, and stores marked derived are rebuilt from the codes
+instead of moved.
 
 `pack_group` g > 1 keeps the JAX package's packed code layout
 [cap/g, g*code_size] (part of the npz state format). A contiguous
@@ -19,21 +20,8 @@ import numpy as np
 import torch
 
 from .. import util
+from ..ops.spill import rank_in_group
 from .base import BaseContainer
-
-
-def _compute_ioa(cells, n_cells):
-    """Rank of each batch item among the batch items of its cell, stable by
-    batch position."""
-    order = torch.argsort(cells, stable=True)
-    sorted_cells = cells[order]
-    first = torch.searchsorted(
-        sorted_cells, torch.arange(n_cells, device=cells.device))
-    rank_sorted = torch.arange(cells.shape[0], device=cells.device) \
-        - first[sorted_cells]
-    rank = torch.empty_like(rank_sorted)
-    rank[order] = rank_sorted
-    return rank
 
 
 def _find_write_addresses(is_empty, cell_start, cells, ioa):
@@ -232,7 +220,9 @@ class CellContainer(BaseContainer):
             self.expand(required={
                 int(c): int(need[c]) for c in np.nonzero(over)[0]})
         ids_t = torch.as_tensor(ids_np, device=dev)
-        ioa = _compute_ioa(cells, self.n_cells)
+        # rank of each item among the batch's items of its cell (ioa)
+        ioa = rank_in_group(cells, torch.ones_like(cells, dtype=torch.bool),
+                            self.n_cells)
         addr = _find_write_addresses(self._is_empty, self._cell_start,
                                      cells, ioa)
         self._codes_view()[addr] = data.T

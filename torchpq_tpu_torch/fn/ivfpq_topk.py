@@ -21,14 +21,16 @@ class IVFPQTopk:
     def topk(self, query, cells, probe_mask, decoded, norms, is_empty,
              cell_start, cell_capacity, *, k, distance, s_max, mode=None,
              approx=None, pq_codebook=None, m=None, scales=None,
-             impl="auto"):
+             impl="auto", group=1, probe_cap=None):
         """Returns (values [nq, k] f32, addresses [nq, k] int32; -1 pads).
         With explicit cells, "flat" and "auto" pick by batch size. When
         `decoded` is the raw uint8 codes (scan_cache_dtype="none"), pass
         `pq_codebook`: every mode runs the code-domain cell-major scan, with
         `m` the per-slot code width of the packed [cap/g, g*m] layout. An
         int8 cache passes its per-slot `scales` and always runs cell-major.
-        `impl` is the index's scan_impl."""
+        `impl` is the index's scan_impl; `group` and `probe_cap` pass
+        through to the cell-major scan (supercells, the probe cap), as in
+        the JAX package, which takes no merge taper here."""
         mode = mode or self.mode
         approx = self.approx if approx is None else approx
         if pq_codebook is not None:
@@ -51,4 +53,4 @@ class IVFPQTopk:
             query, cells, probe_mask, decoded, norms, is_empty, cell_start,
             cell_capacity, k=k, distance=distance, s_max=s_max,
             n_cells=self.n_cells, p_tile=self.p_tile, approx=approx,
-            scales=scales, impl=impl)
+            scales=scales, impl=impl, group=group, probe_cap=probe_cap)

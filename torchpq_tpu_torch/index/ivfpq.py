@@ -25,6 +25,11 @@ port raises where the JAX package warns and falls back), "xla" (the
 probed plans through the XLA select) and "pallas_flat" (the flat plan
 through the fused flat-scan kernel, the probed plans as "xla").
 
+The deep-k surface of the JAX package is here too: supercells
+(`scan_group`), the probe cap, `scan_k_pair`, the rank-tapered merge and
+its split into two scans, supercell-native probing, and the device route of
+capacity-bounded (spill) assignment at add.
+
 Settings the JAX package supports but this port does not yet raise
 NotImplementedError naming their ROADMAP item; none silently takes another
 path.
@@ -44,7 +49,9 @@ from ..ops.block_scan import BIG
 from ..ops.codes_scan import codes_kernel_static_gate
 from ..ops.flat_adc import flat_adc_auto
 from ..ops.gather import gather_rows
+from ..ops.max_sim import topk_sim
 from ..ops.onehot_adc import flat_decode_scan, scan_cell_major_codes
+from ..ops.spill import spill_assign_device
 
 
 def _coarse_probe(query, coarse_codebook, temperature, *, n_probe,
@@ -68,6 +75,35 @@ def _coarse_probe(query, coarse_codebook, temperature, *, n_probe,
     else:
         mask = torch.ones(cells.shape, dtype=torch.bool, device=cells.device)
     return topk_sims, cells.int(), mask
+
+
+def _coarse_probe_super(query, coarse_codebook, temperature, *, cap, group,
+                        n_cells, use_smart):
+    """Supercell-native probing (ivfpq.py:76-119): rank the supercells of
+    `group` adjacent cells by the largest coarse score of their cells
+    (padded with -inf to n_super * group) and keep the top
+    min(cap, n_super), each query's distinct supercells in rank order.
+    Smart probing applies _coarse_probe's entropy rule to the supercell
+    scores, normalized by log2(max(cap, 2))."""
+    sims = negative_squared_l2_distance(query, coarse_codebook)
+    n_super = util.cdiv(n_cells, group)
+    pad = n_super * group - n_cells
+    if pad:
+        sims = torch.nn.functional.pad(sims, (0, pad), value=-torch.inf)
+    sup_sims = sims.reshape(sims.shape[0], n_super, group).amax(-1)
+    top_sims, sup = torch.topk(sup_sims, min(cap, n_super), dim=-1)
+    if use_smart and cap > 1:
+        p = torch.softmax(-torch.sqrt(torch.abs(top_sims)) / temperature,
+                          dim=-1)
+        log2p = torch.log2(torch.clamp(p, min=1e-30))
+        ent = -torch.sum(p * log2p / np.log2(np.float32(max(cap, 2))),
+                         dim=-1)
+        n_list = torch.clamp(torch.ceil(ent * cap).int(), 1, cap)
+        mask = torch.arange(sup.shape[1], device=sup.device)[None, :] \
+            < n_list[:, None]
+    else:
+        mask = torch.ones(sup.shape, dtype=torch.bool, device=sup.device)
+    return top_sims, sup.int(), mask
 
 
 def _compact_cells_cache(decoded, norms, scales, is_empty, cell_start,
@@ -135,19 +171,77 @@ def _search_flat(q, decoded, norms, is_empty, addr_map, address2id, *, k,
 def _search_full(q, coarse_codebook, decoded, norms, is_empty, cell_start,
                  cell_capacity, address2id, temperature, *, k, n_probe,
                  use_smart, distance, s_max, n_cells, mode, approx, impl,
-                 scales=None, addr_map=None):
-    """Probed plans: coarse probe + scan + id translation."""
-    _, cells, mask = _coarse_probe(q, coarse_codebook, temperature,
-                                   n_probe=n_probe, use_smart=use_smart)
+                 scales=None, addr_map=None, group=1, probe_cap=None,
+                 k_pair=None, merge_taper=None, super_probe=False,
+                 split_taper=True):
+    """Probed plans: coarse probe + scan + id translation (ivfpq.py:327-422).
+
+    Supercell-native probing (_coarse_probe_super) serves the cell-major
+    scan when grouping, an approx select and a probe cap below n_probe are
+    all on. The split taper runs an engaged merge taper as two scans, the
+    first p0 probes at the full width kp_res and the rest at kp_tail, then
+    one [nq, 2k] top-k; it needs distinct probes per query (super-probe or
+    group 1). Where k_pair is not given, kp_res keeps the scan's
+    completeness floor (ops/adc.py:resolve_k_pair), which the JAX package
+    leaves out here: with k > 64 * np_eff the port returns k live rows
+    where the JAX package pads with -inf / -1.
+
+    adc.LAST_GATE gains "super_probe" and "split" ((p0, kp_tail) or None);
+    after a split the records of both scans, "head" and "tail"."""
+    use_super = (super_probe and mode == "cell_major" and group > 1
+                 and probe_cap is not None and probe_cap < n_probe
+                 and approx)
+    if use_super:
+        _, cells, mask = _coarse_probe_super(
+            q, coarse_codebook, temperature, cap=probe_cap, group=group,
+            n_cells=n_cells, use_smart=use_smart)
+    else:
+        _, cells, mask = _coarse_probe(q, coarse_codebook, temperature,
+                                       n_probe=n_probe, use_smart=use_smart)
     if mode == "query_major":
         vals, addr = adc.scan_query_major(
             q, cells, mask, decoded, norms, is_empty, cell_start,
             cell_capacity, k=k, distance=distance, s_max=s_max)
+        ids, addr = _translate(addr, addr_map, address2id)
+        return vals, ids, addr
+    np_eff = probe_cap if (probe_cap is not None
+                           and probe_cap < n_probe) else n_probe
+    kp_res = k_pair if k_pair is not None \
+        else (64 if (approx and k > 64) else k)
+    use_split = (split_taper and merge_taper is not None and approx
+                 and (use_super or group == 1)
+                 and min(k, np_eff * kp_res) > 32
+                 and np_eff > merge_taper[0]
+                 and merge_taper[1] < kp_res)
+    scan_kw = dict(k=k, distance=distance, s_max=s_max, n_cells=n_cells,
+                   approx=approx, scales=scales, impl=impl, group=group,
+                   pre_grouped=use_super)
+    if use_split:
+        # the completeness floor the JAX package omits here (ROADMAP C1)
+        kp_res = adc.resolve_k_pair(k_pair, k=k, n_probe=np_eff,
+                                    approx=approx)
+        p0 = merge_taper[0]
+        kp_tail = max(merge_taper[1], util.cdiv(
+            max(min(k, np_eff * kp_res) - p0 * kp_res, 0),
+            max(np_eff - p0, 1)))
+        v_h, a_h = adc.scan_cell_major(
+            q, cells[:, :p0], mask[:, :p0], decoded, norms, is_empty,
+            cell_start, cell_capacity, k_pair=kp_res, **scan_kw)
+        head = dict(adc.LAST_GATE)
+        v_t, a_t = adc.scan_cell_major(
+            q, cells[:, p0:], mask[:, p0:], decoded, norms, is_empty,
+            cell_start, cell_capacity, k_pair=kp_tail, **scan_kw)
+        adc.LAST_GATE.update(head=head, tail=dict(adc.LAST_GATE))
+        vals, sel = torch.topk(torch.cat([v_h, v_t], dim=1), k, dim=-1)
+        addr = torch.gather(torch.cat([a_h, a_t], dim=1), 1, sel)
+        split = (p0, kp_tail)
     else:
         vals, addr = adc.scan_cell_major(
             q, cells, mask, decoded, norms, is_empty, cell_start,
-            cell_capacity, k=k, distance=distance, s_max=s_max,
-            n_cells=n_cells, approx=approx, scales=scales, impl=impl)
+            cell_capacity, probe_cap=None if use_super else probe_cap,
+            k_pair=k_pair, merge_taper=merge_taper, **scan_kw)
+        split = None
+    adc.LAST_GATE.update(super_probe=use_super, split=split)
     ids, addr = _translate(addr, addr_map, address2id)
     return vals, ids, addr
 
@@ -167,15 +261,15 @@ def _search_flat_codes(q, codes, norms, is_empty, addr_map, address2id,
 def _search_full_codes(q, coarse_codebook, codes, norms, is_empty,
                        cell_start, cell_capacity, address2id, pq_codebook,
                        temperature, *, k, n_probe, use_smart, distance, s_max,
-                       n_cells, approx, m, impl):
-    """Code-domain probed plans: coarse probe + codes scan + id
-    translation."""
+                       n_cells, approx, m, impl, k_pair=None):
+    """Code-domain probed plans: coarse probe + codes scan (k_pair: the
+    index's scan_k_pair) + id translation."""
     _, cells, mask = _coarse_probe(q, coarse_codebook, temperature,
                                    n_probe=n_probe, use_smart=use_smart)
     vals, addr = scan_cell_major_codes(
         q, cells, mask, codes, norms, is_empty, cell_start, cell_capacity,
         pq_codebook, k=k, distance=distance, s_max=s_max, n_cells=n_cells,
-        approx=approx, m=m, impl=impl)
+        approx=approx, m=m, impl=impl, k_pair=k_pair)
     ids, addr = _translate(addr, None, address2id)
     return vals, ids, addr
 
@@ -238,13 +332,25 @@ class IVFPQIndex(CellContainer):
         self.scan_mode = scan_mode
         # "auto", "pallas", "xla" or "pallas_flat" (ops/adc.py:IMPLS)
         self.scan_impl = "auto"
-        # deep-k / grouping / spill settings of the JAX package; only their
-        # off values are ported (checked at add / search)
+        # spill (off by default; see _assign_cells): up to spill_cells
+        # best cells per item, each held to spill_capacity items. "device"
+        # routes on the device (ops/spill.py); the JAX package's "host"
+        # route (native C++ greedy) is ROADMAP A15
         self.spill_cells = 1
+        self.spill_capacity = None
+        self.spill_impl = "device"
+        # the deep-k surface (ivfpq.py:497-539): supercells of scan_group
+        # adjacent cells per scanned window; a cap on each query's distinct
+        # supercells (None, "auto" or an int; approx only); the per-pair
+        # width (None: the scan's rule); the rank-tapered merge (None or
+        # (p0, kp_tail)); supercell-native probing and the split taper,
+        # both on by default, engage as in the JAX package (_search_full)
         self.scan_group = 1
         self.scan_probe_cap = None
         self.scan_k_pair = None
         self.scan_merge_taper = None
+        self.scan_super_probe = True
+        self.scan_split_taper = True
         self.register_state("_frozen_codes", False)
         # cache width: lane-padded to a multiple of 128 above d=128, as in
         # the JAX package's state format (zero columns score nothing)
@@ -356,18 +462,14 @@ class IVFPQIndex(CellContainer):
     def is_trained(self):
         return self.vq_codec.is_trained and self.pq_codec.is_trained
 
-    def _check_ported(self, what):
-        unported = [
-            ("spill_cells > 1", self.spill_cells > 1, "A15"),
-            ("scan_group > 1", self.scan_group != 1, "A10"),
-            ("scan_probe_cap", self.scan_probe_cap is not None, "A10"),
-            ("scan_k_pair", self.scan_k_pair is not None, "A10"),
-            ("scan_merge_taper", self.scan_merge_taper is not None, "A10"),
-        ]
-        for name, on, item in unported:
-            if on:
-                raise NotImplementedError(
-                    f"{what} with {name} is not ported yet (ROADMAP {item})")
+    def _check_ported(self):
+        """The host spill route is not ported: raise rather than run the
+        device route in its place."""
+        if (self.spill_cells > 1 and self.spill_capacity is not None
+                and self.spill_impl != "device"):
+            raise NotImplementedError(
+                f"spill_impl={self.spill_impl!r} (the native host route) is "
+                "not ported yet (ROADMAP A15); use spill_impl='device'")
 
     def _prep(self, x):
         x = util.as_tensor(x, self.device, torch.float32)
@@ -479,11 +581,11 @@ class IVFPQIndex(CellContainer):
     def add(self, x, ids=None, return_address=False):
         """x: [d_vector, n]. Coarse assignment, PQ encode, container write
         of the codes with their decoded rows and norms."""
-        self._check_ported("add")
+        self._check_ported()
         self._assert_unfrozen("add")
         assert self.is_trained, "train the index first"
         x = self._prep(x)
-        cells = self.vq_codec.encode(x)
+        cells = self._assign_cells(x)
         codes_nm = self.pq_codec.encode_nd(x.T)
         decoded = self.pq_codec.decode_nd(codes_nm)
         norms = torch.sum(decoded * decoded, dim=-1, keepdim=True)
@@ -496,6 +598,21 @@ class IVFPQIndex(CellContainer):
             aux_rows["decoded"] = util.pad_cols(decoded, self._d_cache)
         return super().add(codes_nm.T, cells, ids=ids,
                            return_address=return_address, aux_rows=aux_rows)
+
+    def _assign_cells(self, x):
+        """Coarse cells of x [d_vector, n] (ivfpq.py:810-846): the argmax
+        cell, or with spill (spill_cells > 1 and a spill_capacity) each
+        item's best cell below the capacity among its spill_cells best
+        (ops/spill.py). The top cells are an exact top-k, as approx_max_k
+        is off the TPU."""
+        if self.spill_cells <= 1 or self.spill_capacity is None:
+            return self.vq_codec.encode(x)
+        _, top = topk_sim(x.T, self._coarse_cb(), self.spill_cells,
+                          "euclidean")
+        cells, _ = spill_assign_device(top, self._cell_size,
+                                       cap=int(self.spill_capacity),
+                                       n_cells=self.n_cells)
+        return cells
 
     def remove(self, ids=None, address=None):
         self._assert_unfrozen("remove")
@@ -611,6 +728,19 @@ class IVFPQIndex(CellContainer):
         return codes_kernel_static_gate(self.code_size, self.pack_group,
                                         self.d_vector, self.distance)
 
+    def _resolved_probe_cap(self, n_probe):
+        """The probe cap of a search at n_probe (ivfpq.py:1130-1138): None
+        unless grouping and an approx select are on; "auto" is 2x the
+        supercells n_probe cells span, at least 8; a cap >= n_probe is
+        None."""
+        cap = self.scan_probe_cap
+        if cap is None or self.scan_group <= 1 or not self._use_approx_topk:
+            return None
+        if cap == "auto":
+            cap = max(2 * util.cdiv(n_probe, self.scan_group), 8)
+        cap = int(cap)
+        return cap if cap < n_probe else None
+
     def plan_scan_mode(self, nq, k):
         """The plan `search` runs for nq queries at this k: 'flat',
         'cell_major' or 'query_major'; scan_mode != 'auto' pins it.
@@ -642,7 +772,6 @@ class IVFPQIndex(CellContainer):
     def search(self, x, k=1, return_address=False):
         """x: [d_vector, nq] -> (values [nq, k] f32, ids [nq, k]); with
         return_address also the storage addresses."""
-        self._check_ported("search")
         adc.check_impl(self.scan_impl)
         q = self._prep(x).T.contiguous()
         nq = q.shape[0]
@@ -666,7 +795,8 @@ class IVFPQIndex(CellContainer):
                     k=k, n_probe=n_probe, use_smart=self._use_smart_probing,
                     distance=self.distance, s_max=self.max_cell_capacity,
                     n_cells=self.n_cells, approx=self._use_approx_topk,
-                    m=self._m_packed, impl=self.scan_impl)
+                    m=self._m_packed, impl=self.scan_impl,
+                    k_pair=self.scan_k_pair)
         elif mode == "flat":
             dec, nrm, emp, amap, sc = self._flat_compacted()
             out = _search_flat(q, dec, nrm, emp, amap, self._address2id,
@@ -679,7 +809,13 @@ class IVFPQIndex(CellContainer):
                       use_smart=self._use_smart_probing,
                       distance=self.distance, n_cells=self.n_cells,
                       mode="cell_major" if self._int8_cache else mode,
-                      approx=self._use_approx_topk, impl=self.scan_impl)
+                      approx=self._use_approx_topk, impl=self.scan_impl,
+                      group=self.scan_group,
+                      probe_cap=self._resolved_probe_cap(n_probe),
+                      k_pair=self.scan_k_pair,
+                      merge_taper=self.scan_merge_taper,
+                      super_probe=self.scan_super_probe,
+                      split_taper=self.scan_split_taper)
             if self._use_compact_scan():
                 dec, nrm, emp, amap, sc, cs, sz, s_live = \
                     self._cell_compacted()
@@ -703,8 +839,10 @@ class IVFPQIndex(CellContainer):
     def search_cells(self, x, cells, probe_mask=None, k=1,
                      return_address=False):
         """Scan explicit cells per query: x [d_vector, nq], cells
-        [nq, n_probe] (distinct per row), through the IVFPQTopk facade."""
-        self._check_ported("search_cells")
+        [nq, n_probe] (distinct per row), through the IVFPQTopk facade,
+        with the index's scan_group and probe cap; as in the JAX package
+        (ivfpq.py:932-965), no merge taper, split or supercell-native
+        probing."""
         adc.check_impl(self.scan_impl)
         q = self._prep(x).T.contiguous()
         cells = util.as_tensor(cells, self.device).int()
@@ -719,6 +857,8 @@ class IVFPQIndex(CellContainer):
             self._cell_start, self._cell_capacity, k=int(k),
             distance=self.distance, s_max=self.max_cell_capacity,
             mode=self.scan_mode, scales=self._scales(), impl=self.scan_impl,
+            group=self.scan_group,
+            probe_cap=self._resolved_probe_cap(cells.shape[1]),
             pq_codebook=self._scan_codebook if code else None,
             m=self._m_packed if code else None)
         ids, addr = _translate(addr, None, self._address2id)

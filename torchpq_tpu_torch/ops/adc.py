@@ -14,7 +14,10 @@ Two scans over the IVF cells:
   grouped by cell into blocks of up to p_tile probers, each block is scored
   against its cell's window by the block scan (ops/block_scan.py), and the
   per-pair partial top-ks are unsorted and merged per query. It also serves
-  the int8 cache tier (per-slot `scales`; the queries quantize per row).
+  the int8 cache tier (per-slot `scales`; the queries quantize per row),
+  and the deep-k surface: supercells of `group` adjacent cells scanned as
+  one window, a cap on each query's distinct supercells, an explicit
+  per-pair width `k_pair`, and the rank-tapered merge.
 
 Both return (values [nq, k] f32, addresses [nq, k] int32, -1 padding).
 """
@@ -27,8 +30,10 @@ from .block_scan import (BIG, block_scan, select_blocks, select_exact,
                          sortable_i32, sortable_i32_to_f32)
 
 # resolved plan of the most recent scan_cell_major call: {"impl", "k_pair",
-# "s_eff", "pack32", "blocks", "cache"} — lets a run record which select
-# served it
+# "s_eff", "pack32", "blocks", "cache", "group", "n_probe"} — lets a run
+# record which select served it. index/ivfpq.py:_search_full adds
+# "super_probe" and "split" ((p0, kp_tail) or None), and after a split
+# "head" and "tail", the records of its two scans.
 LAST_GATE = {}
 
 # scan_impl values (the JAX package's): "auto" runs the kernel where its
@@ -173,10 +178,16 @@ def _block_select(scores, start_c, *, k_pair, pack32, slot_mask):
 
 def _merge_pairs(combo, query, pair_block, pair_slot, start_c, *, n_blocks,
                  p_tile, k, k_pair, nq, n_probe, pack32, slot_mask,
-                 distance):
+                 distance, merge_taper=None):
     """Unsort per-pair partial top-ks to [nq, n_probe * k_pair] and take
-    each query's top k (adc.py:_merge_pairs, without the taper). The JAX
-    package's bitonic tree and top_k give the same exact set here."""
+    each query's top k (adc.py:_merge_pairs). The JAX package merges with a
+    bitonic tree, an approx_max_k (exact off the TPU) or a top_k by width;
+    each picks the same exact set as the torch.topk here.
+
+    merge_taper (p0, kp_tail), pack32 only: where it engages (k > 32,
+    n_probe > p0, kp_tail < k_pair) the first p0 probes keep all k_pair
+    columns and the rest their first kp_tail (raised so the columns still
+    reach k), gathered at that width (the JAX package's split unsort)."""
     live = pair_block < n_blocks
     bo = pair_block.clamp(max=max(n_blocks - 1, 0))
     rows = (bo * p_tile + pair_slot).reshape(nq, n_probe)
@@ -187,13 +198,32 @@ def _merge_pairs(combo, query, pair_block, pair_slot, start_c, *, n_blocks,
                             device=combo.device)
     if pack32:
         tbl = combo.reshape(-1, k_pair)
-        keys = torch.where(live2[:, :, None], tbl[rows],
-                           _key_neg_big(slot_mask)) \
-            .reshape(nq, n_probe * k_pair)
+        dead = _key_neg_big(slot_mask)
         starts_q = torch.where(live, start_c.long()[bo] if n_blocks else 0,
                                0).reshape(nq, n_probe)
-        packed_w, fi = torch.topk(keys, kk, dim=-1)
-        start_w = torch.gather(starts_q, 1, fi // k_pair)
+        if (merge_taper is not None and kk > 32 and n_probe > merge_taper[0]
+                and merge_taper[1] < k_pair):
+            p0, kp_tail = merge_taper
+            kp_tail = max(kp_tail, util.cdiv(max(kk - p0 * k_pair, 0),
+                                             max(n_probe - p0, 1)))
+            head = torch.where(live2[:, :p0, None], tbl[rows[:, :p0]], dead)
+            tail = torch.where(live2[:, p0:, None],
+                               tbl[:, :kp_tail][rows[:, p0:]], dead)
+            keys = torch.cat([head.reshape(nq, p0 * k_pair),
+                              tail.reshape(nq, -1)], dim=1)
+            dev = keys.device
+            col2probe = torch.cat([
+                torch.arange(p0 * k_pair, device=dev) // k_pair,
+                p0 + torch.arange((n_probe - p0) * kp_tail, device=dev)
+                // kp_tail])
+            kk = min(kk, keys.shape[-1])
+            packed_w, fi = torch.topk(keys, kk, dim=-1)
+            start_w = torch.gather(starts_q, 1, col2probe[fi])
+        else:
+            keys = torch.where(live2[:, :, None], tbl[rows], dead) \
+                .reshape(nq, n_probe * k_pair)
+            packed_w, fi = torch.topk(keys, kk, dim=-1)
+            start_w = torch.gather(starts_q, 1, fi // k_pair)
         alive = sortable_i32_to_f32(packed_w) > -BIG / 2
         slot = packed_w & slot_mask
         fv = sortable_i32_to_f32(packed_w & ~slot_mask)
@@ -236,11 +266,78 @@ def gate_kernel(impl, gate, what):
     return gate and impl in ("auto", "pallas")
 
 
+def _group_cells(cells, probe_mask, cell_start, *, group, n_cells,
+                 cap_total, probe_cap, pre_grouped):
+    """Supercell windows for a grouped scan (adc.py:656-721): supercell c
+    is cells [c*group, (c+1)*group), one contiguous window from
+    cell_start[c*group] to the next supercell's start (the last to
+    cap_total). Each query's probed cells become their supercells with a
+    rank-preserving first-occurrence dedup (duplicates masked), then at
+    most probe_cap of them by rank (None: all). pre_grouped: `cells`
+    already holds distinct supercell ids (_coarse_probe_super).
+
+    Returns (cells, probe_mask, super_start, super_cap, n_super)."""
+    dev = cells.device
+    n_super = util.cdiv(n_cells, group)
+    super_start = cell_start[::group]
+    super_cap = torch.diff(torch.cat([
+        super_start, torch.tensor([cap_total], dtype=super_start.dtype,
+                                  device=dev)]))
+    nq, n_probe = cells.shape
+    if pre_grouped:
+        cells = torch.where(probe_mask, cells, n_super).int()
+        return cells, cells < n_super, super_start, super_cap, n_super
+    sup = torch.where(probe_mask, cells.long() // group, n_super)
+    if n_probe <= 128:
+        # [np, np] strict-lower compare per row
+        prior = torch.tril(torch.ones((n_probe, n_probe), dtype=torch.bool,
+                                      device=dev), diagonal=-1)
+        dup = ((sup[:, :, None] == sup[:, None, :]) & prior[None]).any(-1)
+    else:
+        # a stable value sort: the first of each equal run is the first
+        # occurrence by rank; unsort the run-start mask
+        order = torch.argsort(sup, dim=1, stable=True)
+        s_sorted = torch.gather(sup, 1, order)
+        dup_sorted = torch.cat([
+            torch.zeros((nq, 1), dtype=torch.bool, device=dev),
+            s_sorted[:, 1:] == s_sorted[:, :-1]], dim=1)
+        dup = torch.gather(dup_sorted, 1, torch.argsort(order, dim=1))
+    cells = torch.where(dup, n_super, sup).int()
+    probe_mask = cells < n_super
+    if probe_cap is not None and probe_cap < n_probe:
+        # each query's best-ranked probe_cap distinct supercells
+        key = torch.where(probe_mask,
+                          torch.arange(n_probe, device=dev)[None, :], n_probe)
+        order = torch.argsort(key, dim=1, stable=True)[:, :probe_cap]
+        cells = torch.gather(cells, 1, order)
+        probe_mask = torch.gather(probe_mask, 1, order)
+    return cells, probe_mask, super_start, super_cap, n_super
+
+
+def resolve_k_pair(k_pair, *, k, n_probe, approx):
+    """The per-pair width before the shape clip (adc.py:725-747): explicit
+    k_pair as given; else k (approx k > 64: 64), raised by the completeness
+    floor to min(k, ceil(k / n_probe)) so that n_probe * k_pair reaches
+    k."""
+    if k_pair is not None:
+        return int(k_pair)
+    k_pair = 64 if (approx and k > 64) else k
+    return max(k_pair, min(k, util.cdiv(k, n_probe)))
+
+
 def scan_cell_major(query, cells, probe_mask, decoded, norms, is_empty,
                     cell_start, cell_capacity, *, k, distance, s_max, n_cells,
-                    p_tile=128, approx=False, scales=None, impl="auto"):
-    """Inverted-probe-list block scan (adc.py:scan_cell_major at group=1,
-    no probe cap, no taper, k_pair chosen as there).
+                    p_tile=128, approx=False, scales=None, impl="auto",
+                    group=1, k_pair=None, probe_cap=None, merge_taper=None,
+                    pre_grouped=False):
+    """Inverted-probe-list block scan (adc.py:scan_cell_major).
+
+    group > 1 scans supercells of `group` adjacent cells as one window of
+    min(s_max * group, capacity) slots (_group_cells: dedup, probe_cap,
+    pre_grouped). k_pair: the per-pair width (resolve_k_pair; an explicit
+    one bypasses the completeness floor), clipped to k, s_max and the
+    capacity. merge_taper (p0, kp_tail): the rank-tapered merge of the
+    pack32 lists (_merge_pairs); exact selects ignore it.
 
     The block scan (kernel on the card, plain version on the CPU) serves
     every shape its gate admits under impl "auto" or "pallas": k_pair <=
@@ -257,10 +354,15 @@ def scan_cell_major(query, cells, probe_mask, decoded, norms, is_empty,
     if int8 != (scales is not None):
         raise ValueError("an int8 cache needs per-slot scales, and only it")
     query = util.pad_cols(query.float(), decoded.shape[-1])
-    nq, n_probe = cells.shape
     cap_total = decoded.shape[0]
-    k_pair = 64 if (approx and k > 64) else k
-    k_pair = max(k_pair, min(k, util.cdiv(k, n_probe)))
+    if group > 1:
+        cells, probe_mask, cell_start, cell_capacity, n_cells = _group_cells(
+            cells, probe_mask, cell_start, group=group, n_cells=n_cells,
+            cap_total=cap_total, probe_cap=probe_cap,
+            pre_grouped=pre_grouped)
+        s_max = min(s_max * group, cap_total)
+    nq, n_probe = cells.shape
+    k_pair = resolve_k_pair(k_pair, k=k, n_probe=n_probe, approx=approx)
     k_pair = min(k_pair, k, s_max, cap_total)
     s_eff = min(s_max, cap_total)
     s_pow2 = util.next_pow2(s_eff)
@@ -295,7 +397,7 @@ def scan_cell_major(query, cells, probe_mask, decoded, norms, is_empty,
     LAST_GATE.clear()
     LAST_GATE.update(impl="block_scan" if use_kernel else "block_select",
                      k_pair=k_pair, s_eff=s_eff, pack32=pack32,
-                     blocks=n_blocks,
+                     blocks=n_blocks, group=group, n_probe=n_probe,
                      cache=str(decoded.dtype).replace("torch.", ""))
     if use_kernel:
         combo = block_scan(qtable, probers, start_c, off, cap_b, penalty,
@@ -315,4 +417,5 @@ def scan_cell_major(query, cells, probe_mask, decoded, norms, is_empty,
     return _merge_pairs(
         combo, query, pair_block, pair_slot, start_c, n_blocks=n_blocks,
         p_tile=p_tile, k=k, k_pair=k_pair, nq=nq, n_probe=n_probe,
-        pack32=pack32, slot_mask=slot_mask, distance=distance)
+        pack32=pack32, slot_mask=slot_mask, distance=distance,
+        merge_taper=merge_taper if pack32 else None)

@@ -85,23 +85,26 @@ def _lut_block_scores(lut_flat, probers, start_c, off, cap, penalty, codes,
 def scan_cell_major_codes(query, cells, probe_mask, codes, norms, is_empty,
                           cell_start, cell_capacity, codebook, *, k,
                           distance, s_max, n_cells, p_tile=128, approx=False,
-                          m=None, impl="auto"):
+                          m=None, impl="auto", k_pair=None):
     """Cell-major scan over raw uint8 codes (onehot_adc.py:
-    scan_cell_major_codes at the default k_pair). codes is [cap, m], or the
-    packed [cap/g, g*m] storage with `m` given; codebook [m, nc, dsub].
-    impl routes as in adc.scan_cell_major: "xla" and "pallas_flat" take the
-    LUT path, "pallas" raises where the codes kernel's gate fails."""
+    scan_cell_major_codes). codes is [cap, m], or the packed [cap/g, g*m]
+    storage with `m` given; codebook [m, nc, dsub]. k_pair: the per-pair
+    width (None: the code scan's own rule; explicit: as given), clipped to
+    k, s_max and the capacity. impl routes as in adc.scan_cell_major: "xla"
+    and "pallas_flat" take the LUT path, "pallas" raises where the codes
+    kernel's gate fails."""
     distance = canonical_distance(distance)
     _no_manhattan(distance)
     query = query.float()
     nq, n_probe = cells.shape
     g, m, cap_total = _packing(codes, m)
     # the code scan's own k_pair rule (:125-136), not adc.scan_cell_major's
-    if approx and k > 16:
-        k_pair = min(k, max(16, 4 * util.cdiv(k, n_probe)),
-                     max(64, util.cdiv(k, n_probe)))
-    else:
-        k_pair = k
+    if k_pair is None:
+        if approx and k > 16:
+            k_pair = min(k, max(16, 4 * util.cdiv(k, n_probe)),
+                         max(64, util.cdiv(k, n_probe)))
+        else:
+            k_pair = k
     k_pair = min(k_pair, k, s_max, cap_total)
     s_eff = min(s_max, cap_total)
     assert s_eff % g == 0, (s_eff, g)
