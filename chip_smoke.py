@@ -14,7 +14,8 @@ Phases, each of which fails the run on error:
      bf16), both selects, live rows within tolerance and pad rows dead,
      with CUDA-event times of each, and bit for bit on integer-valued
      inputs with ties (d 128 at s_eff 640, pack32 also at k_pair 40 over
-     512 strided groups, and d 40 at s_eff 200, euclidean and inner); on
+     512 strided groups, 64 over 512 and 57 over 256, and d 40 at s_eff
+     200, euclidean and inner); on
      each of those inputs the CUDA-core block-scan kernel too, every row;
      then the f32-cache kernel (CUDA cores);
      then the tensor-core codes-scan kernel against `codes_scan_ref` (PQ64
@@ -28,7 +29,8 @@ Phases, each of which fails the run on error:
      tensor-core int8 kernel, A in registers at 128 and 256-byte k chunks
      at 1024, on live rows with pad rows dead; the CUDA-core one on every
      row), both selects, bit for bit on random inputs and on
-     `int8_tie_inputs` (equal rows, exact ties); the flat scan's
+     `int8_tie_inputs` (equal rows, exact ties; at d 128 also pack32
+     k_pair 64 over 512 groups); the flat scan's
      two kernels (tensor cores, CUDA cores) against `flat_scan_ref` (cap
      262,144, 1,024 queries, the glue's head k=10 addresses equal outside
      ties), the tensor-core one also at d 1024 and at r_keep 32 (values
@@ -90,16 +92,20 @@ Phases, each of which fails the run on error:
      cap of 64 per query, k_pair 64, the merge taper (8, 16) run as the
      split, n_probe 128, 10k queries) on the main index's codecs and adds,
      each add's spill routing held to its rule; the block-scan counters
-     zeroed before the r6 plan's searches: the split's head (pack32 k_pair
-     64 over 512 strided groups, 64 probers per CTA) must launch the
-     CUDA-core kernel and its tail (pack32 k_pair 16) the tensor-core one,
-     `LAST_GATE` must show super-probe, split (8, 16) and s_eff 4096 on
-     both sides; recall@100 against exact f32 ground truth within 0.03 of
-     the untapered plan's (no supercells, cap or taper), the flat plan's
-     logged; both kernels against `block_scan_ref` on the r6 search's own
-     arguments (the head on every row, the tail on live rows with pad rows
-     dead), the tail timed in turns with the CUDA-core kernel, the head
-     beside the same launch writing one key per row.
+     zeroed before the r6 plan's searches and read after: the split's head
+     (pack32 k_pair 64 over 512 strided groups) and its tail (pack32
+     k_pair 16) must both launch the tensor-core kernel, the CUDA-core one
+     never; `LAST_GATE` must show super-probe, split (8, 16) and s_eff 4096
+     on both sides; the same for the untapered plan (no supercells, cap or
+     taper: pack32 k_pair 64 over 256 groups at s_eff 512), whose
+     recall@100 against exact f32 ground truth the r6 plan's must come
+     within 0.03 of, the flat plan's logged; the three scans against
+     `block_scan_ref` on their searches' own arguments (live rows, key
+     agreement >= 0.99, or slot agreement where the plain version's own
+     keys agree with an f64-summed select's on fewer than 0.99; pad rows
+     dead; the CUDA-core kernel on every row), each timed in turns with
+     the CUDA-core kernel and beside the same tensor-core launch writing
+     one key per row.
  10. GIST-class int8 tier: 1M x 960 manifold-12 data (make_data, seed 1),
      IVF4096 x PQ64, int8 cache 1024 wide, 10k queries, k=10; plans flat,
      pack32 at n_probe 8 and 32, exact at n_probe 8 (counters zeroed
@@ -127,7 +133,8 @@ Phases, each of which fails the run on error:
      kernel and plain ms, the bound from the inputs' own counts, the
      library call's ms where one PyTorch call computes the same; the int8
      block scan at both widths, the 1M x 128 tier's and the GIST-class
-     d = 1024 one's; the deep-k split's head and tail scans), the card
+     d = 1024 one's; the deep-k split's head and tail scans and the
+     untapered plan's scan), the card
      line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -290,16 +297,26 @@ def share_equal(a, b):
     return int((a == b).sum()) / a.numel()
 
 
-def compare_pack32(torch, bs, got, ref, slot_mask):
+def compare_pack32(torch, bs, got, ref, slot_mask, what="pack32 select",
+                   by_slot=False):
+    """pack32 keys of a kernel against the plain version's: the values
+    within TOL_REL |v| + TOL_ABS wherever both name the same slot, and
+    >= 0.99 of the entries agreeing, as whole keys or (by_slot) as slots,
+    whose values the first check then holds to the tolerance (where a key's
+    value bits are finer than any f32 summation order keeps them:
+    deepk_scan_row). Returns (max_abs_err, key agreement)."""
     agree = share_equal(got, ref)
-    if agree < 0.99:
-        fail(f"pack32 select: key agreement {agree:.4f} < 0.99")
     same_slot = (got & slot_mask) == (ref & slot_mask)
     v = bs.sortable_i32_to_f32(got & ~slot_mask)
     vr = bs.sortable_i32_to_f32(ref & ~slot_mask)
     err = torch.where(same_slot, (v - vr).abs(), 0.0)
     if bool((err > TOL_REL * vr.abs() + TOL_ABS).any()):
-        fail(f"pack32 select: equal slots, values off by {float(err.max())}")
+        fail(f"{what}: equal slots, values off by {float(err.max())}")
+    held = share_equal(got & slot_mask, ref & slot_mask) if by_slot \
+        else agree
+    if held < 0.99:
+        fail(f"{what}: {'slot' if by_slot else 'key'} agreement "
+             f"{held:.4f} < 0.99")
     return float(err.max()), agree
 
 
@@ -324,21 +341,22 @@ def block_launch(torch, bs, args, route, **kw):
 
 
 def compare_rows(torch, bs, got, ref, *, k_pair, pack32, slot_mask, equal,
-                 exact_bits, what):
+                 exact_bits, what, by_slot=False):
     """Rows of a block-scan kernel against the plain version's; fails the
     run on disagreement. equal: bit for bit (integer inputs, every sum
     exact in any order); exact_bits: exact values equal, and pack32 keys
     agree on >= 0.9999 of entries (the plain version's batched GEMM may sum
     in another order on some chunks, which moves a key's low value bits);
-    else the tolerances of compare_exact / compare_pack32. Returns
-    (max_abs_err, key agreement)."""
+    else the tolerances of compare_exact / compare_pack32 (by_slot as
+    there). Returns (max_abs_err, key agreement)."""
     if equal:
         if not torch.equal(got, ref):
             fail(f"{what} differs from block_scan_ref on integer inputs: "
                  f"{share_equal(got, ref):.6f} of entries equal")
         return 0.0, (1.0 if pack32 else None)
     if pack32:
-        err, agree = compare_pack32(torch, bs, got, ref, slot_mask)
+        err, agree = compare_pack32(torch, bs, got, ref, slot_mask, what,
+                                    by_slot)
         if exact_bits and agree < 0.9999:
             fail(f"{what} pack32 select: key agreement {agree:.7f} < 0.9999")
         return err, agree
@@ -348,7 +366,8 @@ def compare_rows(torch, bs, got, ref, *, k_pair, pack32, slot_mask, equal,
 
 
 def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
-                 reps=20, exact_bits=False, equal=False, extra=None):
+                 reps=20, exact_bits=False, equal=False, extra=None,
+                 by_slot=False):
     """The block scan as its wrapper routes it against its plain version on
     the same inputs; fails the run on disagreement (compare_rows' criteria,
     equal / exact_bits as there). A tensor-core route (bf16 d <= 128, int8
@@ -356,9 +375,9 @@ def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
     must be dead: it does not score them, the plain version scores them
     with query 0. Then the CUDA-core kernel of the same cache mode and
     select (csrc/block_scan.cu, the route of f32 caches and of the shapes
-    the tensor-core ones leave), launched uncounted, on every row. Returns
-    (max_abs_err, key agreement, ms, plain_ms) of the routed kernel, the
-    times None when reps is 0."""
+    the tensor-core ones leave), launched uncounted, on every row. by_slot:
+    compare_pack32's. Returns (max_abs_err, key agreement, ms, plain_ms) of
+    the routed kernel, the times None when reps is 0."""
     slot_mask = bs.util.next_pow2(s_eff) - 1
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
               pack32=pack32, slot_mask=slot_mask, **(extra or {}))
@@ -369,7 +388,7 @@ def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
     torch.cuda.synchronize()
     ref = bs.block_scan_ref(*args, **kw)
     crit = dict(k_pair=k_pair, pack32=pack32, slot_mask=slot_mask,
-                equal=equal, exact_bits=exact_bits)
+                equal=equal, exact_bits=exact_bits, by_slot=by_slot)
     if route.startswith("tc_"):
         if not dead_rows(torch, bs, got, args[1], k_pair, pack32):
             fail(f"{route}: pad rows are not written dead")
@@ -495,9 +514,12 @@ def phase_kernels(torch, bs, cs, fs, gr):
                 "rows within tolerance, pad rows dead; the CUDA-core kernel "
                 "matches the plain version on every row)")
     # integer inputs with runs of equal rows: bit for bit, ties included
-    # (d 40 pads K to 48; s_eff 200 ends in a ragged tile)
+    # (d 40 pads K to 48; s_eff 200 ends in a ragged tile; pack32 k_pair 64
+    # over 512 groups and 57 over 256, the deep-k selects)
     for d, s_eff, k_pair, selects in ((128, 640, 10, (False, True)),
                                       (128, 2048, 40, (True,)),
+                                      (128, 4096, 64, (True,)),
+                                      (128, 512, 57, (True,)),
                                       (40, 200, 16, (False,))):
         args = bs.integer_block_inputs("cuda", s_eff=s_eff, n_blocks=1024,
                                        nq=10000, d=d, cap_total=1 << 18,
@@ -588,6 +610,19 @@ def phase_kernels(torch, bs, cs, fs, gr):
             f"tied neighbours in the exact lists); pad rows dead; the "
             f"CUDA-core kernel equal bit for bit on every row")
         del args
+    # pack32 k_pair 64 over 512 groups with A in registers (the chunked
+    # rows' shared memory holds 48)
+    args, scale, q_scale = bs.int8_tie_inputs(
+        "cuda", s_eff=1024, n_blocks=1024, nq=10000, d=128,
+        cap_total=1 << 18, seed=64)
+    for euclidean in (True, False):
+        check_kernel(torch, bs, args, s_eff=1024, k_pair=64, pack32=True,
+                     euclidean=euclidean, equal=True, reps=0,
+                     extra=dict(scale=scale, q_scale=q_scale))
+    log("block_scan_int8 (tensor cores) tie inputs d=128 s_eff=1024 pack32 "
+        "k_pair 64: live rows equal bit for bit, euclidean and inner; pad "
+        "rows dead; the CUDA-core kernel equal bit for bit on every row")
+    del args
     phase_flat_kernels(torch, fs)
     # the row gather: bit for bit, out-of-range indices clipped
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -1283,23 +1318,157 @@ def check_spill(torch, seen):
     return over
 
 
-def head_one_pass(torch, lib, args, kw, groups, pt):
-    """The CUDA-core pack32 launch of the split's head on its own
-    arguments, but writing k_pair = 1 key per row: the products and the
-    group maxima as at k_pair 64, one pass of PackSelect::write over the
-    groups instead of 64. The difference to the real launch is the cost of
-    the other passes."""
+def one_key_ms(torch, bs, args, kw, reps):
+    """The tensor-core pack32 launch on a scan's own arguments, but writing
+    k_pair = 1 key per row over the same strided groups: the same tiles,
+    products, group maxima and phases, with one extraction pass and one
+    merge step per phase. The difference to the real launch is what the
+    rest of the select costs (the passes or the sort, the merge, the
+    writes). Mean CUDA-event ms over reps launches (none counted)."""
+    from torchpq_tpu_torch import _build
+    lib = _build.library()
     b, p_tile = args[1].shape
+    d = args[6].shape[1]
+    groups = bs.n_groups(kw["s_eff"], kw["k_pair"])
+    n_ctas = bs.resident_ctas(lib, "torchpq_block_scan_tc_occupancy",
+                              args[6].device, d, 1, 1)
     out = torch.empty((b, p_tile, 1), dtype=torch.int32,
                       device=args[1].device)
-    rc = lib.torchpq_block_scan(
-        *(t.data_ptr() for t in args), out.data_ptr(), b, p_tile,
-        args[6].shape[1], kw["s_eff"], 1, int(kw["euclidean"]), 1,
-        kw["slot_mask"], groups, 1, pt,
-        torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        fail(f"the one-pass head launch failed: CUDA error {rc}")
-    return out
+
+    def run():
+        rc = lib.torchpq_block_scan_tc(
+            *(t.data_ptr() for t in args), out.data_ptr(), b, p_tile, d,
+            kw["s_eff"], 1, int(kw["euclidean"]), 1, kw["slot_mask"], groups,
+            min(n_ctas, b), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"the one-key tensor-core launch failed: CUDA error {rc}")
+
+    return cuda_ms(torch, run, reps)
+
+
+def scan_recorder(tp, seen):
+    """Wrap the block-scan wrapper that ops/adc.py calls so that each call's
+    k_pair lands in `seen` (the split's head and tail scans differ in it);
+    returns the function that restores the original."""
+    mod = tp.ops.adc
+    orig = mod.block_scan
+
+    def record(*args, **kw):
+        seen.append(kw["k_pair"])
+        return orig(*args, **kw)
+
+    mod.block_scan = record
+    return lambda: setattr(mod, "block_scan", orig)
+
+
+def pack32_f64(torch, bs, args, kw):
+    """block_scan_ref's pack32 select (bf16 cache) over scores summed in
+    f64 and rounded once to f32: the scores every f32 summation order
+    approximates."""
+    s_eff, dev = kw["s_eff"], args[1].device
+    factor = 2.0 if kw["euclidean"] else 1.0
+
+    def scores(sl):
+        probers, start_c, off, cap = (args[i][sl] for i in (1, 2, 3, 4))
+        slot = torch.arange(s_eff, device=dev)
+        rows = start_c.long()[:, None] + slot[None]
+        in_cell = (slot[None] >= off[:, None]) \
+            & (slot[None] < (off + cap)[:, None])
+        pen = args[5][rows] + torch.where(in_cell, 0.0, bs.BIG)
+        ab = torch.bmm(args[0][probers.clamp(min=0).long()].double(),
+                       args[6][rows].double().transpose(1, 2))
+        return (factor * ab - pen[:, None, :].double()).float()
+
+    return bs.select_chunks(
+        scores, lambda sc, _: bs.select_pack32(sc, kw["k_pair"],
+                                               kw["slot_mask"]),
+        args[1], args[2], s_eff=s_eff, width=kw["k_pair"], cost=6)
+
+
+def deepk_scan_row(torch, bs, name, args, kw, what):
+    """One deep-k scan on its search's own arguments: it must route to the
+    tensor-core pack32 kernel; held to block_scan_ref (live rows, >= 0.99
+    of the keys equal; pad rows dead; the CUDA-core kernel on every row),
+    then timed in turns with block_scan.cu on the same arguments, and the
+    same launch writing one key per row. A key keeps 31 - log2(s_eff)
+    value bits, which at s_eff 512 are finer than any f32 summation order
+    holds at these scores (2 <q, y> - |y|^2 cancels): where the plain
+    version's own keys agree with the f64-summed select's on fewer than
+    0.99 of the entries, no other order can reach 0.99 against it, and the
+    scan is held to >= 0.99 equal slots instead, each with its value within
+    the tolerance (compare_pack32's by_slot); every agreement is logged.
+    Returns the kernels-line row."""
+    s_eff, k_pair = kw["s_eff"], kw["k_pair"]
+    blocks, p_tile = args[1].shape
+    d = args[6].shape[1]
+    live = int((args[1] >= 0).sum())
+    live_tiles = int((args[1].view(blocks, -1, 16) >= 0).any(-1).sum())
+    route = bs.pick_route(dtype=args[6].dtype, d=d, p_tile=p_tile,
+                          s_eff=s_eff, k_pair=k_pair, pack32=True)
+    groups = bs.n_groups(s_eff, k_pair)
+    log(f"{what}: {blocks} blocks x {p_tile} probers, {live} live "
+        f"({live / (blocks * p_tile):.3f}), {live_tiles} live 16-prober "
+        f"tiles, s_eff={s_eff}, k_pair={k_pair}, G={groups}, route {route}")
+    if route != "tc_pack32":
+        fail(f"{what} routes to {route}, not the tensor cores")
+    kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
+               pack32=True, slot_mask=kw["slot_mask"])
+    alive = args[1] >= 0
+    exact = pack32_f64(torch, bs, args, kkw)[alive]
+    tc = block_launch(torch, bs, args, "tc_pack32", **kkw)[alive]
+    plain_f64 = share_equal(bs.block_scan_ref(*args, **kkw)[alive], exact)
+    tc_f64 = share_equal(tc, exact)
+    by_slot = plain_f64 < 0.99
+    del exact, tc
+    err, agree, _, _ = check_kernel(torch, bs, args, s_eff=s_eff,
+                                    k_pair=k_pair, pack32=True,
+                                    euclidean=kw["euclidean"], reps=0,
+                                    by_slot=by_slot)
+    t, turns = in_turns(torch, {
+        "cuda_cores": lambda: block_launch(torch, bs, args, "pack32", **kkw),
+        "tensor_cores": lambda: block_launch(torch, bs, args, "tc_pack32",
+                                             **kkw)}, 5)
+    ms, cc_ms = t["tensor_cores"], t["cuda_cores"]
+    k1_ms = one_key_ms(torch, bs, args, kkw, 5)
+    plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw), 1)
+    b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=2 * d + 4,
+                            row_bytes=2 * d, peak="bf16", d=d)
+    flop = 2.0 * live * s_eff * d
+    log(f"{name} on {what}'s arguments: tensor cores {ms:.3f} ms ("
+        f"{' / '.join(f'{x:.3f}' for x in turns['tensor_cores'])}), CUDA "
+        f"cores {cc_ms:.3f} ms ("
+        f"{' / '.join(f'{x:.3f}' for x in turns['cuda_cores'])}), speed-up "
+        f"{cc_ms / ms:.2f}x; the tensor-core launch writing one key per row "
+        f"(the same products and group maxima over the {groups} groups, one "
+        f"extraction pass and one merge step per phase) {k1_ms:.3f} ms; "
+        f"{flop / ms / 1e9:.2f} TFLOP/s over live probers, "
+        f"{b_ms / ms:.1%} of the bound; plain {plain_ms:.3f} ms, bound "
+        f"{b_ms:.3f} ms ({b_by}); live rows held to block_scan_ref by "
+        f"{'slot' if by_slot else 'key'}: max_abs_err {err:.3g}, key "
+        f"agreement {agree:.7f} (with the f64-summed select: the plain "
+        f"version's {plain_f64:.7f}, the kernel's {tc_f64:.7f}); pad rows "
+        f"dead; the CUDA-core kernel matches on every row")
+    return dict(
+        name=name, route="cuda",
+        source="torchpq_tpu_torch/csrc/block_scan_tc.cu",
+        replaces="torchpq_tpu/ops/pallas_scan.py:281",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, cuda_core_ms=cc_ms,
+        cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu",
+        one_key_ms=k1_ms, key_agreement=agree, held_by_slot=by_slot)
+
+
+def deepk_counts(bs, seen, counts, what):
+    """The block-scan launches of a deep-k run: every one on the
+    tensor-core pack32 kernel (the CUDA-core keys at 0), one per scan call
+    ops/adc.py made; returns the calls per k_pair."""
+    for key in ("pack32", "exact", "tc_exact"):
+        if counts[key]:
+            fail(f"{what} launched block_scan {key!r}: {counts}")
+    if counts["tc_pack32"] <= 0 or counts["tc_pack32"] != len(seen):
+        fail(f"{what}: {counts['tc_pack32']} tensor-core pack32 launches "
+             f"for {len(seen)} block-scan calls")
+    return {kp: seen.count(kp) for kp in sorted(set(seen))}
 
 
 def phase_deepk(torch, tp, bs, sl):
@@ -1308,15 +1477,17 @@ def phase_deepk(torch, tp, bs, sl):
     (8 candidate cells, capacity the initial per-cell 2 x n / n_cells,
     device route), filled by the same four adds; the r6 plan with the
     block-scan counters zeroed before its searches and read after (both
-    sides of the split must launch a kernel: the head pack32 k_pair 64 on
-    the CUDA cores, the tail pack32 k_pair 16 on the tensor cores), its
-    gate record (super-probe, split (8, 16), s_eff 8 x capacity on both
-    sides), recall@100 against exact f32 ground truth within 0.03 of the
-    untapered yardstick's (DEEPK_PLAIN at n_probe 128), the flat plan's
-    recall@100 (the ADC ceiling); then both kernels against block_scan_ref
-    on the r6 search's own arguments, timed (the tail in turns with the
-    CUDA-core kernel). Returns (launch counts, the two kernels' JSON rows,
-    the index with the r6 knobs set)."""
+    sides of the split must launch the tensor-core pack32 kernel, the head
+    at k_pair 64 over G = 512 groups, the tail at k_pair 16; the CUDA-core
+    kernel never), its gate record (super-probe, split (8, 16), s_eff 8 x
+    capacity on both sides), recall@100 against exact f32 ground truth
+    within 0.03 of the untapered plan's (DEEPK_PLAIN at n_probe 128, its
+    counters zeroed and read the same way: k_pair 64 over G = 256 on the
+    tensor cores), the flat plan's recall@100 (the ADC ceiling); then the
+    three scans against block_scan_ref on their searches' own arguments,
+    each timed in turns with the CUDA-core kernel. Returns ({row name:
+    launches}, the three scans' JSON rows, the index with the r6 knobs
+    set)."""
     index, base, xq = (sl[x] for x in ("index", "base", "xq"))
     k = DEEPK_K
     n_base, n_cells = base.shape[0], index.n_cells
@@ -1368,17 +1539,21 @@ def phase_deepk(torch, tp, bs, sl):
     for name, value in DEEPK_R6.items():
         setattr(deep, name, value)
     plan = [("cell_major", DEEPK_NPROBE, True)]
+    calls = []
+    restore = scan_recorder(tp, calls)
     for key in bs.launches:
         bs.launches[key] = 0
     rec, _ = time_plans(torch, tp, deep, xq, gt, k, bs.launches,
                         "deep-k r6 ", plans=plan, floors=False)
     counts = dict(bs.launches)
+    restore()
     gate = tp.ops.adc.LAST_GATE
     head, tail = gate.get("head", {}), gate.get("tail", {})
     s_want = DEEPK_GROUP * cap
-    log(f"deep-k r6 launches: {counts}; gate: super_probe "
-        f"{gate.get('super_probe')}, split {gate.get('split')}, head "
-        f"{head}, tail {tail}")
+    per_kp = deepk_counts(bs, calls, counts, "the r6 plan")
+    log(f"deep-k r6 launches: {counts}, calls per k_pair {per_kp}; gate: "
+        f"super_probe {gate.get('super_probe')}, split {gate.get('split')}, "
+        f"head {head}, tail {tail}")
     if gate.get("super_probe") is not True or gate.get("split") != (8, 16):
         fail("the r6 plan did not run supercell-native probing and the "
              "split (8, 16)")
@@ -1387,16 +1562,28 @@ def phase_deepk(torch, tp, bs, sl):
                 or not g.get("pack32"):
             fail(f"the r6 {side} scan did not run the block scan's pack32 "
                  f"select at s_eff {s_want}: {g}")
-    for key in ("pack32", "tc_pack32"):
-        if counts[key] <= 0:
-            fail(f"kernel block_scan {key} was never launched by the r6 plan")
+    kp_head, kp_tail = head.get("k_pair"), tail.get("k_pair")
+    if set(per_kp) != {kp_head, kp_tail} or kp_head == kp_tail:
+        fail(f"the r6 scans' k_pair {per_kp} are not the gate's head "
+             f"{kp_head} and tail {kp_tail}")
     r6 = rec[plan[0]]
 
-    # the yardstick and the flat plan (their launches are not the r6 path's)
+    # the untapered plan, its counters zeroed the same way; then the flat
+    # plan (its launches are no block scan's)
     for name, value in DEEPK_PLAIN.items():
         setattr(deep, name, value)
+    calls = []
+    restore = scan_recorder(tp, calls)
+    for key in bs.launches:
+        bs.launches[key] = 0
     rec_plain, _ = time_plans(torch, tp, deep, xq, gt, k, bs.launches,
                               "deep-k untapered ", plans=plan, floors=False)
+    counts_plain = dict(bs.launches)
+    restore()
+    per_kp_plain = deepk_counts(bs, calls, counts_plain,
+                                "the untapered plan")
+    log(f"deep-k untapered launches: {counts_plain}, calls per k_pair "
+        f"{per_kp_plain}")
     rec_flat, _ = time_plans(torch, tp, deep, xq, gt, k, bs.launches,
                              "deep-k ", plans=[("flat", 1, True)],
                              floors=False)
@@ -1408,88 +1595,24 @@ def phase_deepk(torch, tp, bs, sl):
         fail(f"the r6 plan's recall@{k} {r6:.5f} is more than 0.03 below "
              f"the untapered yardstick's {plain:.5f}")
 
-    # both kernels on the r6 search's own arguments
+    # the three scans on their searches' own arguments
+    deep.scan_mode, deep.n_probe = "cell_major", DEEPK_NPROBE
+    (plain_args, plain_kw) = capture_call(tp, deep, xq, k)
+    rows = {"block_scan_pack32_deepk_untapered": deepk_scan_row(
+        torch, bs, "block_scan_pack32_deepk_untapered", plain_args,
+        plain_kw, "the untapered search")}
+    launches = {"block_scan_pack32_deepk_untapered":
+                per_kp_plain[plain_kw["k_pair"]]}
+    del plain_args
     for name, value in DEEPK_R6.items():
         setattr(deep, name, value)
-    deep.scan_mode, deep.n_probe = "cell_major", DEEPK_NPROBE
-    calls = capture_call(tp, deep, xq, k, n_calls=2)
-    rows = {}
-    for side, (args, kw) in zip(("head", "tail"), calls):
-        s_eff, k_pair = kw["s_eff"], kw["k_pair"]
-        blocks, p_tile = args[1].shape
-        d = args[6].shape[1]
-        live = int((args[1] >= 0).sum())
-        route = bs.pick_route(dtype=args[6].dtype, d=d, p_tile=p_tile,
-                              s_eff=s_eff, k_pair=k_pair, pack32=True)
-        groups = bs.n_groups(s_eff, k_pair)
-        pt = None
-        if route == "pack32":
-            from torchpq_tpu_torch import _build
-            lib = _build.library()
-            pt = bs._cta_probers(lambda pt: lib.torchpq_block_scan_smem(
-                pt, d, 1, groups, 1), p_tile)
-            if pt != 64:
-                fail(f"the head's CUDA-core select at G = {groups} runs "
-                     f"{pt} probers per CTA, not 64")
-        log(f"deep-k r6 {side}: {blocks} blocks x {p_tile} probers, {live} "
-            f"live ({live / (blocks * p_tile):.3f}), s_eff={s_eff}, "
-            f"k_pair={k_pair}, G={groups}, route {route}"
-            + (f", {pt} probers per CTA" if pt else ""))
-        if route != ("pack32" if side == "head" else "tc_pack32"):
-            fail(f"the r6 {side} routes to {route}")
-        err, agree, _, _ = check_kernel(torch, bs, args, s_eff=s_eff,
-                                        k_pair=k_pair, pack32=True,
-                                        euclidean=kw["euclidean"], reps=0)
-        kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
-                   pack32=True, slot_mask=kw["slot_mask"])
-        if side == "tail":
-            t, turns = in_turns(torch, {
-                "cuda_cores": lambda: block_launch(torch, bs, args, "pack32",
-                                                   **kkw),
-                "tensor_cores": lambda: block_launch(torch, bs, args,
-                                                     "tc_pack32", **kkw)}, 5)
-            ms, cc_ms = t["tensor_cores"], t["cuda_cores"]
-            times = (f"tensor cores {ms:.3f} ms ("
-                     f"{' / '.join(f'{x:.3f}' for x in turns['tensor_cores'])}"
-                     f"), CUDA cores {cc_ms:.3f} ms ("
-                     f"{' / '.join(f'{x:.3f}' for x in turns['cuda_cores'])})"
-                     f", speed-up {cc_ms / ms:.2f}x")
-        else:
-            ms = cuda_ms(torch, lambda: block_launch(torch, bs, args,
-                                                     "pack32", **kkw), 5)
-            cc_ms = None
-            k1_ms = cuda_ms(torch, lambda: head_one_pass(
-                torch, lib, args, kkw, groups, pt), 5)
-            times = (f"CUDA cores {ms:.3f} ms; the same launch writing one "
-                     f"key per row (the same products and group maxima, 1 "
-                     f"of the select's {k_pair} passes over the {groups} "
-                     f"groups) {k1_ms:.3f} ms")
-        plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw), 1)
-        b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=2 * d + 4,
-                                row_bytes=2 * d, peak="bf16", d=d)
-        flop = 2.0 * live * s_eff * d
+    for side, (args, kw) in zip(("head", "tail"), capture_call(
+            tp, deep, xq, k, n_calls=2)):
         name = f"block_scan_pack32_deepk_{side}"
-        log(f"{name} on the r6 search's arguments: {times}; "
-            f"{flop / ms / 1e9:.2f} TFLOP/s over live probers, "
-            f"{b_ms / ms:.1%} of the bound; plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.3f} ms ({b_by}); "
-            + ("live rows" if side == "tail" else "every row")
-            + f" held to block_scan_ref: max_abs_err {err:.3g}, key "
-            f"agreement {agree:.7f}"
-            + ("; pad rows dead; the CUDA-core kernel matches on every row"
-               if side == "tail" else ""))
-        rows[name] = dict(
-            name=name, route="cuda",
-            source="torchpq_tpu_torch/csrc/" + (
-                "block_scan_tc.cu" if side == "tail" else "block_scan.cu"),
-            replaces="torchpq_tpu/ops/pallas_scan.py:281",
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-            bound_by=b_by, library_ms=None, launch_key=route)
-        if cc_ms is not None:
-            rows[name].update(
-                cuda_core_ms=cc_ms,
-                cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu")
-    return counts, rows, deep
+        rows[name] = deepk_scan_row(torch, bs, name, args, kw,
+                                    f"the r6 search's {side}")
+        launches[name] = per_kp[kw["k_pair"]]
+    return launches, rows, deep
 
 
 def phase_pallas_flat(torch, tp, fs, sl):
@@ -1803,7 +1926,7 @@ def main():
                    sl["xq"], sl["per_cell"], sl["k"])
     code_counts, code_rows, code = phase_code_domain(torch, tp, bs, cs, sl)
     int8_counts, int8_rows, i8 = phase_int8(torch, tp, bs, sl)
-    deep_counts, deep_rows, deep = phase_deepk(torch, tp, bs, sl)
+    deep_launches, deep_rows, deep = phase_deepk(torch, tp, bs, sl)
     gist_counts, gist_rows, gist, gist_q = phase_gist(torch, tp, bs)
     # last of the paths: its floor holds the kernel's bucket approximation
     flat_counts, flat_row = phase_pallas_flat(torch, tp, fs, sl)
@@ -1838,9 +1961,11 @@ def main():
             ("block_scan_int8_pack32_d1024", gist_rows,
              gist_counts["tc_int8_pack32"]),
             ("block_scan_pack32_deepk_head", deep_rows,
-             deep_counts["pack32"]),
+             deep_launches["block_scan_pack32_deepk_head"]),
             ("block_scan_pack32_deepk_tail", deep_rows,
-             deep_counts["tc_pack32"]),
+             deep_launches["block_scan_pack32_deepk_tail"]),
+            ("block_scan_pack32_deepk_untapered", deep_rows,
+             deep_launches["block_scan_pack32_deepk_untapered"]),
             ("codes_scan_exact", code_rows, code_counts["tc_exact"]),
             ("codes_scan_pack32", code_rows, code_counts["tc_pack32"]),
             ("flat_scan", {"flat_scan": flat_row}, flat_counts["flat_tc"]),

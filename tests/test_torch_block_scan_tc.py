@@ -9,7 +9,12 @@ held to the JAX package's Pallas kernel (interpret mode, through
 tests/conftest.py) on those inputs, bit for bit, keys and addresses, pad
 rows included (both score them with query 0). `pick_route` is checked
 against the shapes each kernel takes (bf16 and int8 tensor-core routes,
-CUDA-core ones), and `launch` against the routes it refuses."""
+CUDA-core ones), `launch` against the routes it refuses, and the shared
+memory mirror that decides the pack32 k_pair 49-64 routes against the
+header's formula."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -117,7 +122,13 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.int8, d=128, p_tile=128, s_eff=640, k_pair=17,
           pack32=False), "int8_exact"),     # the lists hold 16
     (dict(dtype=torch.int8, d=128, p_tile=128, s_eff=2048, k_pair=49,
-          pack32=True), "int8_pack32"),     # the shared lists hold 48
+          pack32=True), "tc_int8_pack32"),  # its shared memory fits 49-64
+    (dict(dtype=torch.int8, d=256, p_tile=128, s_eff=4096, k_pair=64,
+          pack32=True), "tc_int8_pack32"),  # 173,088 B at k_pair 64
+    (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=2048, k_pair=49,
+          pack32=True), "int8_pack32"),     # the chunked route holds 48
+    (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=4096, k_pair=64,
+          pack32=True), "int8_pack32"),     # 242,720 B at k_pair 64
     (dict(dtype=torch.int8, d=128, p_tile=120, s_eff=640, k_pair=10,
           pack32=True), "int8_pack32"),     # not whole m tiles
     (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=200, k_pair=10,
@@ -129,7 +140,13 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=640, k_pair=17,
           pack32=False), "exact"),          # the lists hold 16
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=2048, k_pair=49,
-          pack32=True), "pack32"),          # the shared lists hold 48
+          pack32=True), "tc_pack32"),       # its shared memory fits 49-64
+    (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=4096, k_pair=64,
+          pack32=True), "tc_pack32"),       # the deep-k head, G = 512
+    (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=512, k_pair=64,
+          pack32=True), "tc_pack32"),       # the untapered deep-k, G = 256
+    (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=4096, k_pair=65,
+          pack32=True), "pack32"),          # past the lists' 64
     (dict(dtype=torch.bfloat16, d=128, p_tile=120, s_eff=640, k_pair=10,
           pack32=True), "pack32"),          # not whole m tiles
     (dict(dtype=torch.bfloat16, d=128, p_tile=256, s_eff=640, k_pair=10,
@@ -173,7 +190,8 @@ def test_launch_refuses_a_route_that_does_not_fit():
     (1040, 128, 10, False, 256),  # wider than the 1,024-byte rows
     (136, 128, 10, True, 256),    # rows not of 16-byte pieces
     (128, 128, 17, False, 256),   # the exact lists hold 16
-    (128, 128, 49, True, 2048),   # the pack32 lists hold 48
+    (1024, 128, 49, True, 2048),  # the chunked route's shared memory
+                                  # holds 48
     (128, 120, 10, True, 256),    # not whole m tiles
     (1024, 128, 10, True, 200),   # G = s_eff = 200 > one tile
 ])
@@ -194,3 +212,66 @@ def test_launch_refuses_the_int8_tensor_core_route(d, p_tile, k_pair, pack32,
                   slot_mask=bs.util.next_pow2(s_eff) - 1, scale=scale,
                   q_scale=q_scale)
 
+
+
+_HEADER = Path(bs.__file__).resolve().parents[1] / "csrc" / "scan_tc.cuh"
+
+
+def _header_constants():
+    """The namespace-level `constexpr int` constants of csrc/scan_tc.cuh,
+    evaluated in order (each is a literal or an expression of earlier
+    ones)."""
+    env = {}
+    for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);",
+                                 _HEADER.read_text(), re.M):
+        env[name] = eval(expr.replace("/", "//"), {}, dict(env))
+    return env
+
+
+def _header_smem(c, rb, pack32, k_pair, scaled, chunked):
+    """scan_tc.cuh:body_smem_bytes transcribed over the header's own
+    constants: tiles [2][TN][row_ld] (chunked: twice, the query chunks),
+    penalties and slots, scales, prober rows, tile flags, the slice lists,
+    then pack32's running lists or exact's staging rows, row bounds and
+    queues; the lists' rows of list_ld entries (pack32: k_pair made odd)."""
+    ld = (c["CHUNK"] if chunked else (rb + 31) // 32 * 32) + 16
+    kls = k_pair + (1 - k_pair % 2) if pack32 else k_pair
+    return (2 * c["TN"] * ld * (2 if chunked else 1) + 16 * c["TN"]
+            + (8 * c["TN"] if scaled else 0) + 4 * c["MAX_PT"]
+            + 4 * (c["MAX_PT"] // 16)
+            + c["WARPS"] * 16 * kls * (4 if pack32 else 8)
+            + (2 * c["MAX_PT"] * kls * 4 if pack32 else
+               c["WARPS"] * 16 * (c["SLD"] + 1) * 4
+               + c["QUEUE"] * c["THREADS"] * 8))
+
+
+@pytest.mark.parametrize("pack32", [False, True])
+@pytest.mark.parametrize("scaled,chunked", [(False, False), (True, False),
+                                            (True, True)])
+def test_smem_mirror_equals_header(pack32, scaled, chunked):
+    """ops/block_scan.py:tc_smem_bytes, which pick_route reads without the
+    library, equals the header's formula over rows of 16 to 1,024 bytes and
+    k_pair 1 to 64 (the card test holds the library's sizes to it too);
+    the header's constants are the mirror's; and the limit admits pack32
+    k_pair 64 for bf16 d 128 and int8 d 128 and 256 (rows in registers),
+    not for int8 d 1024 (rows in k chunks)."""
+    c = _header_constants()
+    assert (c["WARPS"], c["TN"], c["MAX_PT"], c["CHUNK"], c["SLD"],
+            c["QUEUE"], c["MAX_PACK_K"], c["MAX_ROW"], c["MAX_CHUNKED_ROW"],
+            c["MAX_EXACT_K"]) == (
+        bs._TC_WARPS, bs._TC_TN, bs._TC_MAX_PT, bs._TC_CHUNK, bs._TC_SLD,
+        bs._TC_QUEUE, bs._TC_MAX_PACK_K, bs._TC_MAX_ROW,
+        bs._TC_MAX_CHUNKED_ROW, bs._TC_KMAX)
+    limit = re.search(r"SMEM_LIMIT = (\d+);", _HEADER.read_text())
+    assert int(limit.group(1)) == bs._SMEM_LIMIT
+    for rb in ((272, 512, 1024) if chunked else (16, 48, 80, 128, 256)):
+        for k_pair in (1, 10, 16, 40, 48, 49, 57, 64):
+            assert bs.tc_smem_bytes(rb, pack32, k_pair, scaled, chunked) \
+                == _header_smem(c, rb, pack32, k_pair, scaled, chunked)
+    if pack32:
+        fits = {(rb, sc, ch): bs.tc_smem_bytes(rb, True, 64, sc, ch)
+                <= bs._SMEM_LIMIT for rb, sc, ch in (
+                    (256, False, False), (128, True, False),
+                    (256, True, False), (1024, True, True))}
+        assert fits == {(256, False, False): True, (128, True, False): True,
+                        (256, True, False): True, (1024, True, True): False}

@@ -95,6 +95,14 @@ def test_integer_inputs_layout():
      "pack32"),        # G = s_eff = 200: neither one tile nor 128s
     (dict(m=16, dsub=2, p_tile=128, s_eff=200, k_pair=10, pack32=False),
      "tc_exact"),
+    (dict(m=64, dsub=2, p_tile=128, s_eff=4096, k_pair=48, pack32=True),
+     "tc_pack32"),     # G = 512 at k_pair 48
+    (dict(m=64, dsub=2, p_tile=128, s_eff=4096, k_pair=64, pack32=True),
+     "pack32"),        # codebook + lists: 237,600 B
+    (dict(m=64, dsub=2, p_tile=128, s_eff=512, k_pair=49, pack32=True),
+     "pack32"),        # the codes source stays at k_pair <= 48
+    (dict(m=8, dsub=4, p_tile=128, s_eff=512, k_pair=57, pack32=True),
+     "pack32"),        # even where its shared memory would fit
 ])
 def test_pick_route(shape, route):
     assert cs.pick_route(**shape) == route

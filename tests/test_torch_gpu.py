@@ -157,13 +157,15 @@ def test_block_tc_kernel_integer_ties_exact(cuda, pack32, k_pair, s_eff,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("pack32,k_pair,s_eff", [
-    (False, 10, 640), (False, 16, 1024), (True, 10, 640), (True, 40, 1024)])
+    (False, 10, 640), (False, 16, 1024), (True, 10, 640), (True, 40, 1024),
+    (True, 64, 4096), (True, 64, 512)])
 def test_block_tc_kernel_persistent_grid(cuda, pack32, k_pair, s_eff):
     """A grid of 3 persistent CTAs over 64 blocks: each CTA walks ~21
     blocks, so the state it resets between blocks (live-tile rows, the
-    pack32 phase parity of deep G = 512, the exact lists and queues, the A
-    fragments, the copies in flight) is reused. Integer inputs: live rows
-    equal the plain version bit for bit, pad rows dead."""
+    pack32 phase parity of deep G = 512 and 256 and the running lists the
+    extraction reads, the exact lists and queues, the A fragments, the
+    copies in flight) is reused. Integer inputs: live rows equal the plain
+    version bit for bit, pad rows dead."""
     args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
                                    cap_total=8192, seed=k_pair)
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
@@ -179,17 +181,19 @@ def test_block_tc_kernel_persistent_grid(cuda, pack32, k_pair, s_eff):
 @pytest.mark.gpu
 @pytest.mark.parametrize("inputs", ["random", "integer"])
 @pytest.mark.parametrize("pack32,k_pair,route", [
-    (True, 64, "pack32"), (True, 16, "tc_pack32"), (False, 64, "exact")])
+    (True, 64, "tc_pack32"), (True, 64, "pack32"), (True, 16, "tc_pack32"),
+    (False, 64, "exact")])
 def test_block_deepk_shapes_match_plain(cuda, pack32, k_pair, route, inputs):
     """The deep-k configuration's windows: supercells of 8 cells of 512
     slots (s_eff 4096), d 128, bf16. pack32 k_pair 64 selects over 512
-    strided groups on the CUDA cores (the split's head), whose shared
-    group maxima (4 B x 512 x probers) fit only 64 probers per CTA, so the
-    grid takes two CTAs per block; pack32 k_pair 16 over 128 groups runs
-    on the tensor cores (the tail, 32 column tiles); exact k_pair 64 on
-    the CUDA cores. Integer inputs: equal to the plain version bit for bit
-    (the tensor-core kernel on live rows, pad rows dead); random ones to
-    the tolerances of _assert_close_rows."""
+    strided groups (the split's head) on the tensor cores, four phases of
+    128 groups each; the CUDA-core kernel, forced with route="pack32",
+    keeps it covered (its shared group maxima, 4 B x 512 x probers, fit
+    only 64 probers per CTA, so the grid takes two CTAs per block). pack32
+    k_pair 16 over 128 groups runs on the tensor cores (the tail, 32 column
+    tiles); exact k_pair 64 on the CUDA cores. Integer inputs: equal to the
+    plain version bit for bit (the tensor-core kernel on live rows, pad
+    rows dead); random ones to the tolerances of _assert_close_rows."""
     s_eff = 4096
     make = bs.integer_block_inputs if inputs == "integer" else \
         bs.random_inputs
@@ -203,8 +207,13 @@ def test_block_deepk_shapes_match_plain(cuda, pack32, k_pair, route, inputs):
         assert bs.n_groups(s_eff, k_pair) == 512
         assert bs._cta_probers(lambda pt: lib.torchpq_block_scan_smem(
             pt, 128, 1, 512, 1), 128) == 64
-    got, r = _block_launch(args, kw)
-    assert r == route
+        assert bs.pick_route(dtype=torch.bfloat16, d=128, p_tile=128,
+                             s_eff=s_eff, k_pair=k_pair,
+                             pack32=True) == "tc_pack32"
+        got = _block_uncounted(args, kw, route)
+    else:
+        got, r = _block_launch(args, kw)
+        assert r == route
     ref = bs.block_scan_ref(*args, **kw)
     if route.startswith("tc_"):
         _assert_pads(got, ref, args[1], route, k_pair, pack32)
@@ -217,12 +226,114 @@ def test_block_deepk_shapes_match_plain(cuda, pack32, k_pair, route, inputs):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["random", "integer"])
+@pytest.mark.parametrize("k_pair", [49, 57, 64])
+@pytest.mark.parametrize("s_eff", [512, 4096])
+def test_block_tc_deep_pack32_matches_plain(cuda, s_eff, k_pair, inputs):
+    """pack32 k_pair 49-64, which the tensor-core body takes since its
+    lists grew past 48: over 256 strided groups at s_eff 512 (the
+    untapered deep-k scan: two phases of 128 groups) and 512 at s_eff 4096
+    (the split's head: four phases), d 128 bf16. Above k_pair 16 each
+    phase end sorts the quad's group maxima, and the slices of blocks with
+    few live tiles hold fewer groups than k_pair (their lists end early).
+    Integer inputs: live rows equal the plain version bit for bit, pad rows
+    dead; random ones to the tolerances of _assert_close_rows. The
+    CUDA-core kernel, launched uncounted, on every row."""
+    make = bs.integer_block_inputs if inputs == "integer" else \
+        bs.random_inputs
+    args = make(cuda, s_eff=s_eff, n_blocks=48, nq=500, cap_total=16384,
+                seed=s_eff + k_pair)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=True,
+              slot_mask=s_eff - 1)
+    assert bs.n_groups(s_eff, k_pair) == (256 if s_eff == 512 else 512)
+    got, route = _block_launch(args, kw)
+    assert route == "tc_pack32"
+    ref = bs.block_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], route, k_pair, True)
+    live = args[1] >= 0
+    cc = _block_uncounted(args, kw, "pack32")
+    if inputs == "integer":
+        assert torch.equal(got[live], ref[live])
+        assert torch.equal(cc, ref)
+    else:
+        _assert_close_rows(got[live], ref[live], k_pair, True)
+        _assert_close_rows(cc, ref, k_pair, True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ctas", [None, 3])
+@pytest.mark.parametrize("inputs", ["random", "ties"])
+@pytest.mark.parametrize("d,s_eff", [(128, 4096), (256, 512)])
+def test_block_tc_int8_deep_pack32(cuda, d, s_eff, inputs, n_ctas):
+    """The tensor-core int8 kernel at pack32 k_pair 64 with A in registers
+    (d 128 and 256: 140,320 and 173,088 B of shared memory; the chunked
+    rows' 242,720 B stay on the CUDA cores), over 512 and 256 strided
+    groups, on the card's grid and on 3 persistent CTAs: exact integer
+    sums, so bit for bit on every input, ties included (int8_tie_inputs);
+    pad rows dead; the CUDA-core int8 kernel equal on every row."""
+    make = bs.int8_tie_inputs if inputs == "ties" else bs.random_int8_inputs
+    args, scale, q_scale = make(cuda, s_eff=s_eff, n_blocks=64, nq=500, d=d,
+                                cap_total=8192, seed=d + s_eff)
+    kw = dict(s_eff=s_eff, k_pair=64, euclidean=True, pack32=True,
+              slot_mask=s_eff - 1)
+    _int8_held(args, kw, scale, q_scale, "tc_int8_pack32", n_ctas=n_ctas)
+
+
+@pytest.mark.gpu
+def test_tc_smem_matches_mirror(cuda):
+    """The library's shared-memory sizes of the three tensor-core scans
+    equal ops/block_scan.py's mirror of scan_tc.cuh:body_smem_bytes (which
+    pick_route reads without the library), the codes scan's with its
+    512 * d-byte codebook; and an entry point refuses, without launching,
+    a shape whose shared memory exceeds the limit: the chunked int8 rows
+    and the codes source at pack32 k_pair 64."""
+    from torchpq_tpu_torch import _build
+    lib = _build.library()
+    for d in (32, 40, 64, 128):
+        for pack32 in (0, 1):
+            for k_pair in (1, 10, 16, 40, 48, 49, 57, 64):
+                want = bs.tc_route_smem(d=d, pack32=pack32, k_pair=k_pair)
+                assert lib.torchpq_block_scan_tc_smem(d, pack32, k_pair) \
+                    == want
+                assert lib.torchpq_codes_scan_tc_smem(d, pack32, k_pair) \
+                    == want + 512 * d
+    for d in (32, 128, 160, 256, 288, 512, 1024):
+        for pack32 in (0, 1):
+            for k_pair in (1, 10, 16, 40, 48, 49, 64):
+                assert lib.torchpq_block_scan_tc_int8_smem(
+                    d, pack32, k_pair) == bs.tc_route_smem(
+                        d=d, pack32=pack32, k_pair=k_pair, dtype=torch.int8)
+    assert bs.tc_route_smem(d=1024, pack32=True, k_pair=64,
+                            dtype=torch.int8) > bs._SMEM_LIMIT
+    args, scale, q_scale = bs.random_int8_inputs(
+        cuda, s_eff=1024, n_blocks=4, nq=50, d=1024, cap_total=4096)
+    out = torch.empty((4, 128, 64), dtype=torch.int32, device=cuda)
+    rc = lib.torchpq_block_scan_tc_int8(
+        args[0].data_ptr(), q_scale.data_ptr(), args[1].data_ptr(),
+        args[2].data_ptr(), args[3].data_ptr(), args[4].data_ptr(),
+        args[5].data_ptr(), scale.data_ptr(), args[6].data_ptr(),
+        out.data_ptr(), 4, 128, 1024, 1024, 64, 1, 1, 1023, 512, 4,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 1  # cudaErrorInvalidValue
+    cargs = cs.random_codes_inputs(cuda, s_eff=1024, n_blocks=4, nq=50,
+                                   m=64, dsub=2, cap_total=4096)
+    rc = lib.torchpq_codes_scan_tc(
+        *(t.data_ptr() for t in cargs[:6]), cargs[6].data_ptr(),
+        cargs[7].data_ptr(), out.data_ptr(), 4, 128, 64, 2,
+        cargs[6].shape[1] // 64, 1024, 64, 1, 1, 1023, 512, 4,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 1
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
 def test_block_routes_on_card(cuda):
     """bf16 at d = 128 and int8 at d = 128 and 1024 take the tensor-core
-    kernels; an f32 cache, bf16 exact k_pair 20 and int8 at d = 1040 or
-    exact k_pair 20 take the CUDA-core one; each counts under its own key,
-    and asking the tensor-core route for the others raises before anything
-    launches."""
+    kernels, pack32 k_pair 64 too at bf16 and int8 d = 128; an f32 cache,
+    bf16 exact k_pair 20, int8 at d = 1040 or exact k_pair 20 and int8
+    pack32 k_pair 64 at d = 1024 (shared memory) take the CUDA-core one;
+    each counts under its own key, and asking the tensor-core route for
+    the others raises before anything launches."""
     for dtype, d, k_pair, pack32, route in (
             (torch.bfloat16, 128, 10, False, "tc_exact"),
             (torch.bfloat16, 128, 10, True, "tc_pack32"),
@@ -233,7 +344,10 @@ def test_block_routes_on_card(cuda):
             (torch.int8, 128, 10, True, "tc_int8_pack32"),
             (torch.int8, 1024, 10, True, "tc_int8_pack32"),
             (torch.int8, 1040, 10, False, "int8_exact"),
-            (torch.int8, 128, 20, False, "int8_exact")):
+            (torch.int8, 128, 20, False, "int8_exact"),
+            (torch.bfloat16, 128, 64, True, "tc_pack32"),
+            (torch.int8, 128, 64, True, "tc_int8_pack32"),
+            (torch.int8, 1024, 64, True, "int8_pack32")):
         extra = {}
         if dtype == torch.int8:
             args, scale, q_scale = bs.random_int8_inputs(

@@ -86,14 +86,17 @@ def _nvcc():
 
 def build():
     """Compile the sources if no library for their hash exists yet.
-    Returns (path, seconds spent compiling, compiler log)."""
+    Returns (path, seconds spent compiling, compiler log); the log is kept
+    beside the library, so a process that finds it built reads the same
+    ptxas report."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out = BUILD_DIR / f"libtorchpq_kernels_{h.hexdigest()[:16]}.so"
+    log_path = out.with_suffix(".log")
     if out.exists():
-        return out, 0.0, ""
+        return out, 0.0, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{h.hexdigest()[:16]}.{os.getpid()}"
@@ -120,8 +123,10 @@ def build():
         raise RuntimeError(
             f"nvcc link failed ({res.returncode}):\n{res.stdout}\n"
             f"{res.stderr}")
+    log += res.stdout + res.stderr
+    log_path.write_text(log)
     os.replace(tmp, out)
-    return out, seconds, log + res.stdout + res.stderr
+    return out, seconds, log
 
 
 def library():

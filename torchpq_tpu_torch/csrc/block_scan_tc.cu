@@ -40,11 +40,15 @@
 // bytes; column c is slot c. The copy of tile t + 1 is in flight while
 // the warps score tile t (the two tile buffers alternate), and each thread
 // waits for its own copies after scoring, before the tile's barrier.
+// pack32 above k_pair 16 (the deep-k scans, up to 64) runs a kernel
+// instance of its own whose phase ends sort the group maxima
+// (scan_tc.cuh:sort_slice) instead of extracting them pass by pass.
 // Budget at d = 128: shared memory 2 x 34,816 B tiles + 2,048 B penalties
 // and slots + 544 B prober rows and tile flags + the slice lists + exact:
 // 37,376 B staging rows and row bounds, 12,288 B queues; pack32: running
-// lists: 132,128 B exact and 87,584 B pack32 at k_pair 10; one CTA of 8
-// warps per SM, for its registers (the body's, few of the source's).
+// lists: 132,128 B exact and 89,120 B pack32 at k_pair 10, 172,064 B
+// pack32 at k_pair 64 (the deep-k scans); one CTA of 8 warps per SM, for
+// its registers (the body's, few of the source's).
 
 #include <cstdint>
 
@@ -85,32 +89,38 @@ int occupancy_of(int d, int k_pair) {
 // [capacity, d] bf16, both 16-byte aligned, d % 8 == 0 and d <= 128;
 // probers [n_blocks, p_tile] int32 (p_tile % 16 == 0, p_tile <= 128),
 // start_c / off / capb [n_blocks] int32, penalty [capacity] f32, out int32;
-// exact: k_pair <= 16; pack32: k_pair <= 48 and n_groups % 8 == 0, either
-// n_groups == s_eff <= 128, or n_groups a multiple of 128 that divides
-// s_eff. n_ctas: the persistent grid (at most n_blocks). Returns 0 or the
-// CUDA error code of an attribute call or the launch. Launches on
-// `stream`, does not synchronize and allocates nothing.
+// exact: k_pair <= 16; pack32: k_pair <= 64 (172,064 B of shared memory
+// at d = 128) and n_groups % 8 == 0, either n_groups == s_eff <= 128, or
+// n_groups a multiple of 128 that divides s_eff. n_ctas: the persistent
+// grid (at most n_blocks). Returns 0 or the CUDA error code of an attribute
+// call or the launch (cudaErrorInvalidValue, without launching, for other
+// shapes or a shared memory above SMEM_LIMIT). Launches on `stream`, does
+// not synchronize and allocates nothing.
 extern "C" int torchpq_block_scan_tc(
     const void* qtable, const int* probers, const int* start_c,
     const int* off, const int* capb, const float* penalty,
     const void* decoded, int* out, int n_blocks, int p_tile, int d,
     int s_eff, int k_pair, int euclidean, int pack32, int slot_mask,
     int n_groups, int n_ctas, void* stream) {
+  const size_t smem = body_smem_bytes(2 * d, pack32, k_pair, false, false);
   if (!shape_ok(n_blocks, n_ctas, p_tile, 2 * d, MAX_ROW, s_eff, k_pair,
                 pack32, n_groups) ||
-      reinterpret_cast<uintptr_t>(qtable) % 16 ||
+      smem > SMEM_LIMIT || reinterpret_cast<uintptr_t>(qtable) % 16 ||
       reinterpret_cast<uintptr_t>(decoded) % 16) {
     return (int)cudaErrorInvalidValue;
   }
   const float factor = euclidean ? 2.0f : 1.0f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = body_smem_bytes(2 * d, pack32, k_pair, false, false);
 #define TPQ_ARGS                                                          \
   static_cast<const __nv_bfloat16*>(qtable), probers, start_c, off, capb, \
       penalty, static_cast<const __nv_bfloat16*>(decoded), out, n_blocks, \
       p_tile, d, s_eff, k_pair, factor, slot_mask, n_groups
+  if (pack32 && k_pair > PASS_K) {  // the deep selects: sorted
+    return launch_kernel(block_scan_tc_kernel<true, MAX_PACK_K>, dim3(n_ctas),
+                         THREADS, smem, st, TPQ_ARGS);
+  }
   if (pack32) {
-    return launch_kernel(block_scan_tc_kernel<true, 1>, dim3(n_ctas),
+    return launch_kernel(block_scan_tc_kernel<true, PASS_K>, dim3(n_ctas),
                          THREADS, smem, st, TPQ_ARGS);
   }
   if (k_pair <= 10) {
@@ -132,7 +142,10 @@ extern "C" long long torchpq_block_scan_tc_smem(int d, int pack32,
 // minus the CUDA error code.
 extern "C" int torchpq_block_scan_tc_occupancy(int d, int pack32,
                                                int k_pair) {
-  if (pack32) return occupancy_of<true, 1>(d, k_pair);
+  if (pack32) {
+    return k_pair > PASS_K ? occupancy_of<true, MAX_PACK_K>(d, k_pair)
+                           : occupancy_of<true, PASS_K>(d, k_pair);
+  }
   return k_pair <= 10 ? occupancy_of<false, 10>(d, k_pair)
                       : occupancy_of<false, 16>(d, k_pair);
 }

@@ -39,19 +39,23 @@
 // factor * q_scale (two per lane, read once per block) and the column's
 // scale in shared memory.
 // - d <= 256 (narrow): the A fragments of a warp's m tile in registers (16
-//   at d = 128, 32 at d = 256), tiles of whole rows. Budget at d = 128:
-//   shared memory 2 x 18,432 B tiles + 3,072 B penalties, slots and scales
-//   + 544 B prober rows and tile flags + the slice lists + exact: 37,376 B
-//   staging rows and row bounds, 12,288 B queues; pack32: running lists:
-//   100,384 B exact and 55,840 B pack32 at k_pair 10 (at d = 256: 133,152 B
-//   and 88,608 B).
+//   at d = 128, 32 at d = 256), tiles of whole rows; pack32 above k_pair 16
+//   in a kernel instance whose phase ends sort (scan_tc.cuh:sort_slice).
+//   Budget at d = 128: shared memory 2 x 18,432 B tiles + 3,072 B
+//   penalties, slots and scales + 544 B prober rows and tile flags + the
+//   slice lists + exact: 37,376 B staging rows and row bounds, 12,288 B
+//   queues; pack32: running lists:
+//   100,384 B exact and 57,376 B pack32 at k_pair 10 (at d = 256: 133,152 B
+//   and 90,144 B; 173,088 B pack32 at k_pair 64).
 // - 256 < d <= 1024 (chunked, the GIST-class cache): each tile in k chunks
 //   of 256 bytes, a ring stage per (tile, chunk) holding the window chunk
 //   and the block's query rows' chunk (2 x (34,816 + 34,816) B), A by
 //   ldmatrix per k step, the accumulators of a warp's columns kept across a
 //   tile's chunks (64 registers). Budget at d = 1024: 202,784 B exact and
-//   158,240 B pack32 at k_pair 10, 208,928 B exact at 16, 216,608 B pack32
-//   at 48. One CTA of 8 warps per SM in both, for its registers.
+//   159,776 B pack32 at k_pair 10, 208,928 B exact at 16, 218,144 B pack32
+//   at 48 (242,720 B at 64: above the limit, so ops/block_scan.py keeps
+//   chunked pack32 k_pair > 48 on block_scan.cu). One CTA of 8 warps per
+//   SM in both, for its registers.
 
 #include <cstdint>
 
@@ -92,7 +96,10 @@ int occupancy_of(int d, int k_pair) {
 
 template <bool CHUNKED>
 int occupancy_mode(int d, int pack32, int k_pair) {
-  if (pack32) return occupancy_of<true, 1, CHUNKED>(d, k_pair);
+  if (pack32 && !CHUNKED && k_pair > PASS_K) {
+    return occupancy_of<true, MAX_PACK_K, false>(d, k_pair);
+  }
+  if (pack32) return occupancy_of<true, PASS_K, CHUNKED>(d, k_pair);
   return k_pair <= 10 ? occupancy_of<false, 10, CHUNKED>(d, k_pair)
                       : occupancy_of<false, 16, CHUNKED>(d, k_pair);
 }
@@ -104,33 +111,41 @@ int occupancy_mode(int d, int pack32, int k_pair) {
 // (chunked above 256); q_scale [nq] and scale [capacity] f32; probers
 // [n_blocks, p_tile] int32 (p_tile % 16 == 0, p_tile <= 128), start_c /
 // off / capb [n_blocks] int32, penalty [capacity] f32, out int32; exact:
-// k_pair <= 16; pack32: k_pair <= 48 and n_groups % 8 == 0, either
-// n_groups == s_eff <= 128, or n_groups a multiple of 128 that divides
-// s_eff. n_ctas: the persistent grid (at most n_blocks). Returns 0 or the
-// CUDA error code of an attribute call or the launch. Launches on
-// `stream`, does not synchronize and allocates nothing.
+// k_pair <= 16; pack32: k_pair <= 64 where the shared memory fits (d <=
+// 256: 173,088 B at k_pair 64; chunked rows: up to k_pair 57, and
+// ops/block_scan.py sends them k_pair <= 48, 218,144 B) and
+// n_groups % 8 == 0, either n_groups == s_eff <= 128, or n_groups a
+// multiple of 128 that divides s_eff. n_ctas: the persistent grid (at most
+// n_blocks). Returns 0 or the CUDA error code of an attribute call or the
+// launch (cudaErrorInvalidValue, without launching, for other shapes or a
+// shared memory above SMEM_LIMIT). Launches on `stream`, does not
+// synchronize and allocates nothing.
 extern "C" int torchpq_block_scan_tc_int8(
     const void* qtable, const float* q_scale, const int* probers,
     const int* start_c, const int* off, const int* capb,
     const float* penalty, const float* scale, const void* decoded, int* out,
     int n_blocks, int p_tile, int d, int s_eff, int k_pair, int euclidean,
     int pack32, int slot_mask, int n_groups, int n_ctas, void* stream) {
+  const size_t smem = smem_of(d, pack32, k_pair);
   if (!shape_ok(n_blocks, n_ctas, p_tile, d, MAX_CHUNKED_ROW, s_eff, k_pair,
                 pack32, n_groups) ||
-      reinterpret_cast<uintptr_t>(qtable) % 16 ||
+      smem > SMEM_LIMIT || reinterpret_cast<uintptr_t>(qtable) % 16 ||
       reinterpret_cast<uintptr_t>(decoded) % 16) {
     return (int)cudaErrorInvalidValue;
   }
   const float factor = euclidean ? 2.0f : 1.0f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_of(d, pack32, k_pair);
 #define TPQ_ARGS                                                              \
   static_cast<const signed char*>(qtable), q_scale, probers, start_c, off,   \
       capb, penalty, scale, static_cast<const signed char*>(decoded), out,   \
       n_blocks, p_tile, d, s_eff, k_pair, factor, slot_mask, n_groups
 #define TPQ_LAUNCH(CH)                                                        \
+  if (pack32 && !CH && k_pair > PASS_K) {                                     \
+    return launch_kernel(block_scan_tc_int8_kernel<true, MAX_PACK_K, false>, \
+                         dim3(n_ctas), THREADS, smem, st, TPQ_ARGS);         \
+  }                                                                           \
   if (pack32) {                                                               \
-    return launch_kernel(block_scan_tc_int8_kernel<true, 1, CH>,             \
+    return launch_kernel(block_scan_tc_int8_kernel<true, PASS_K, CH>,        \
                          dim3(n_ctas), THREADS, smem, st, TPQ_ARGS);         \
   }                                                                           \
   if (k_pair <= 10) {                                                         \

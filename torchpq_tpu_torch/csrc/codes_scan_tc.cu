@@ -46,7 +46,7 @@
 //   + 2,048 B penalties and slots + 544 B prober rows and tile flags + the
 //   slice lists (8 x 16 x k_pair entries) + exact: 36,864 B staging rows,
 //   512 B row bounds and 12,288 B queues; pack32: running lists (2 x 128 x
-//   k_pair keys): 197,664 B exact and 153,120 B pack32 at k_pair 10, one
+//   k_pair keys): 197,664 B exact and 154,656 B pack32 at k_pair 10, one
 //   CTA of 8 warps per SM. Registers: the body's, plus 16 of prefetched
 //   codes.
 
@@ -262,12 +262,15 @@ int occupancy_of(int d, int k_pair) {
 // 128), start_c / off / capb [n_blocks] int32, penalty [capacity] f32,
 // codes the packed uint8 storage (capacity * m bytes, m a power of two
 // from 8 to 128, 8-byte aligned), codebook [m, 256, dsub] bf16 (16-byte aligned), d =
-// m * dsub <= 128, out int32; exact: k_pair <= 16; pack32: k_pair <= 48 and
-// n_groups % 8 == 0, either n_groups == s_eff <= 128, or n_groups == 128
-// with s_eff % 128 == 0, or n_groups a multiple of 128 that divides s_eff.
-// n_ctas: the persistent grid (at most n_blocks). Returns 0 or the CUDA
-// error code of an attribute call or the launch. Launches on `stream`,
-// does not synchronize and allocates nothing.
+// m * dsub <= 128, out int32; exact: k_pair <= 16; pack32: k_pair <= 64
+// where the shared memory with the codebook fits (at d = 128: k_pair <= 61;
+// ops/codes_scan.py sends it k_pair <= 48) and n_groups % 8 == 0, either
+// n_groups == s_eff <= 128, or n_groups == 128 with s_eff % 128 == 0, or
+// n_groups a multiple of 128 that divides s_eff. n_ctas: the persistent
+// grid (at most n_blocks). Returns 0 or the CUDA error code of an attribute
+// call or the launch (cudaErrorInvalidValue, without launching, for other
+// shapes or a shared memory above SMEM_LIMIT). Launches on `stream`, does
+// not synchronize and allocates nothing.
 extern "C" int torchpq_codes_scan_tc(
     const void* qtable, const int* probers, const int* start_c,
     const int* off, const int* capb, const float* penalty,
@@ -276,24 +279,24 @@ extern "C" int torchpq_codes_scan_tc(
     int euclidean, int pack32, int slot_mask, int n_groups, int n_ctas,
     void* stream) {
   const int d = m * dsub;
+  const size_t smem = tc_smem_bytes(d, pack32, k_pair);
   if (!shape_ok(n_blocks, n_ctas, p_tile, 2 * d, MAX_ROW, s_eff, k_pair,
                 pack32, n_groups) ||
-      m < 8 || (m & (m - 1)) || m > 128 || dsub <= 0 || g <= 0 ||
-      s_eff % g || reinterpret_cast<uintptr_t>(qtable) % 4 ||
+      smem > SMEM_LIMIT || m < 8 || (m & (m - 1)) || m > 128 || dsub <= 0 ||
+      g <= 0 || s_eff % g || reinterpret_cast<uintptr_t>(qtable) % 4 ||
       reinterpret_cast<uintptr_t>(codebook) % 16 ||
       reinterpret_cast<uintptr_t>(codes) % 8) {
     return (int)cudaErrorInvalidValue;
   }
   const float factor = euclidean ? 2.0f : 1.0f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem = tc_smem_bytes(d, pack32, k_pair);
 #define TPQ_ARGS                                                           \
   static_cast<const __nv_bfloat16*>(qtable), probers, start_c, off, capb, \
       penalty, codes, static_cast<const __nv_bfloat16*>(codebook), out,    \
       n_blocks, p_tile, m, dsub, g, s_eff, k_pair, factor, slot_mask,      \
       n_groups
   if (pack32) {
-    return launch_kernel(codes_scan_tc_kernel<true, 1>, dim3(n_ctas),
+    return launch_kernel(codes_scan_tc_kernel<true, PASS_K>, dim3(n_ctas),
                          THREADS, smem, st, TPQ_ARGS);
   }
   if (k_pair <= 10) {
@@ -315,7 +318,7 @@ extern "C" long long torchpq_codes_scan_tc_smem(int d, int pack32,
 // minus the CUDA error code.
 extern "C" int torchpq_codes_scan_tc_occupancy(int d, int pack32,
                                                int k_pair) {
-  if (pack32) return occupancy_of<true, 1>(d, k_pair);
+  if (pack32) return occupancy_of<true, PASS_K>(d, k_pair);
   return k_pair <= 10 ? occupancy_of<false, 10>(d, k_pair)
                       : occupancy_of<false, 16>(d, k_pair);
 }

@@ -65,9 +65,13 @@
 //   needed: at most 32 group maxima per row of a 128-column phase (32 / S
 //   in a slice of 128 / S columns). At a phase's end the quad extracts its
 //   slice's k_pair largest keys per row by 4-lane shuffles into shared
-//   memory, scanning only the maxima its slice fills (a code path per S),
-//   and one thread per live row
-//   merges the S slices' lists and the running list of earlier phases.
+//   memory, over only the maxima its slice fills (a code path per S): a
+//   pass per key up to k_pair 16, above it a bitonic sort of the quad's
+//   maxima (a pass costs ~3 instructions per maximum, so 64 passes over
+//   128 groups cost ~4x the sort). One thread per live row merges the S
+//   slices' lists and the running list of earlier phases (pack32 lists of
+//   an odd row stride, so those threads hit distinct banks), and each warp
+//   writes two rows of every live tile, its lanes on consecutive keys.
 //   With G = 256 or 512 (deep selects) the tiles are visited phase by phase
 //   (columns == phase * 128 mod G), so a lane never holds more than 32
 //   groups per row.
@@ -123,8 +127,12 @@ constexpr int CHUNK = 256;             // k chunk (bytes) of chunked rows
 constexpr int MAX_CHUNKED_ROW = 1024;  // widest chunked row (bytes)
 constexpr int MAX_PT = 16 * WARPS;     // probers per block: up to 8 m tiles
 constexpr int MAX_EXACT_K = 16;        // exact k_pair the lane lists take
-constexpr int MAX_PACK_K = 48;         // pack32 k_pair the shared lists fit
+constexpr int MAX_PACK_K = 64;         // pack32 k_pair (where the shared
+                                       // memory fits: body_smem_bytes)
+constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory of a CTA
 constexpr int NGRP = TN / 4;           // pack32 group maxima per lane and row
+constexpr int PASS_K = 16;             // pack32 k_pair extracted pass by pass
+                                       // (deeper: sorted, sort_slice)
 constexpr int SLD = 72;                // exact staging row stride, floats
 constexpr int QUEUE = 6;               // exact: a lane's queued candidates
 
@@ -179,29 +187,42 @@ struct S8 {
   }
 };
 
+// Row stride (entries) of the slice and running lists: pack32 rows of an
+// odd stride, so that the merge's thread-per-row reads and writes fall on
+// distinct banks (at k_pair 64 a stride of 64 put a warp's 32 rows on one).
+__host__ __device__ inline int list_ld(int k_pair, int pack32) {
+  return pack32 ? (k_pair | 1) : k_pair;
+}
+
 // Shared memory of the body: tiles [2][TN][row_ld] bytes (chunked: and the
 // query rows' chunks [2][MAX_PT][row_ld]), penalties [2][TN] f32, slots
 // [2][TN], (scaled) column scales [2][TN] f32, prober rows [MAX_PT], tile
-// flags [MAX_PT / 16], slice lists [WARPS][16][k_pair] (exact: values and
+// flags [MAX_PT / 16], slice lists [WARPS][16][list_ld] (exact: values and
 // columns; pack32: keys), then exact: score staging rows [WARPS][16][SLD]
 // f32, row bounds [WARPS][16] f32 and the lanes' queues [QUEUE][THREADS]
-// f32 and int; pack32: running lists [2][MAX_PT][k_pair]. Each part is a
+// f32 and int; pack32: running lists [2][MAX_PT][list_ld]. Each part is a
 // multiple of 16 bytes (rb % 16 == 0).
 __host__ __device__ inline size_t body_smem_bytes(int rb, int pack32,
                                                   int k_pair, bool scaled,
                                                   bool chunked) {
+  const size_t kls = list_ld(k_pair, pack32);
   return (size_t)2 * TN * row_ld(rb, chunked) * (chunked ? 2 : 1) +
          (size_t)16 * TN + (scaled ? (size_t)8 * TN : 0) + 4 * MAX_PT +
-         4 * (MAX_PT / 16) + (size_t)WARPS * 16 * k_pair * (pack32 ? 4 : 8) +
-         (pack32 ? (size_t)2 * MAX_PT * k_pair * 4
+         4 * (MAX_PT / 16) + (size_t)WARPS * 16 * kls * (pack32 ? 4 : 8) +
+         (pack32 ? (size_t)2 * MAX_PT * kls * 4
                  : (size_t)WARPS * 16 * (SLD + 1) * 4 +
                        (size_t)QUEUE * THREADS * 8);
 }
 
 // The shapes the body takes (the sources' own terms apart): rows of rb
 // bytes, rb % 16 == 0 and rb <= max_rb; blocks of whole m tiles, at most 8;
-// exact k_pair <= 16; pack32 k_pair <= 48 with G % 8 == 0, either G ==
-// s_eff <= TN, or G a multiple of TN that divides s_eff.
+// exact k_pair <= 16; pack32 k_pair <= 64 with G % 8 == 0, either G ==
+// s_eff <= TN, or G a multiple of TN that divides s_eff. The entry points
+// also refuse a shared memory above SMEM_LIMIT: the pack32 lists take
+// 1,536 bytes per entry of their row stride, so k_pair 64 fits the rows
+// sources (bf16 d <= 128: 172,064 B; int8 d <= 256: 173,088 B) but not the
+// chunked int8 one (242,720 B) nor the codes one with its codebook
+// (237,600 B).
 __host__ inline bool shape_ok(int n_blocks, int n_ctas, int p_tile, int rb,
                               int max_rb, int s_eff, int k_pair, int pack32,
                               int n_groups) {
@@ -321,15 +342,17 @@ __device__ __forceinline__ int max_of(const int (&v)[NGRP]) {
   return max(max(b0, b1), max(b2, b3));
 }
 
-// pack32 phase end: the slice's k_pair largest keys of each of the lane's
-// two rows (rows g and g + 8 of the warp's m tile), by the quad's shuffles,
-// into the warp's list keys_s [16][k_pair]; the maxima reset. NU: the group
-// maxima a lane holds per row, 32 / S (a slice of 128 / S columns), so the
-// scans run over those only, with register indices. Keys are unique in a
-// row, so the lane holding the quad's maximum clears it by value.
+// pack32 phase end, k_pair <= PASS_K: the slice's k_pair largest keys of
+// each of the lane's two rows (rows g and g + 8 of the warp's m tile), by
+// the quad's shuffles, into the warp's list keys_s [16][kls]; the maxima
+// reset. NU: the group maxima a lane holds per row, 32 / S (a slice of
+// 128 / S columns), so the scans run over those only, with register
+// indices. Keys are unique in a row, so the lane holding the quad's maximum
+// clears it by value. A pass costs ~3 NU instructions and two dependent
+// shuffles per row, so deeper selects sort instead (sort_slice).
 template <int NU>
 __device__ __forceinline__ void extract_slice(int (&mx)[2][NGRP], int* keys_s,
-                                              int lane, int k_pair) {
+                                              int lane, int k_pair, int kls) {
   for (int i = 0; i < k_pair; ++i) {
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
@@ -340,13 +363,84 @@ __device__ __forceinline__ void extract_slice(int (&mx)[2][NGRP], int* keys_s,
       for (int j = 0; j < NU; ++j) {
         if (mx[rr][j] == q) mx[rr][j] = INT_MIN;
       }
-      if (lane % 4 == 0) keys_s[frag_c_row(lane, 2 * rr) * k_pair + i] = q;
+      if (lane % 4 == 0) keys_s[frag_c_row(lane, 2 * rr) * kls + i] = q;
     }
   }
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
 #pragma unroll
     for (int j = 0; j < NU; ++j) mx[rr][j] = INT_MIN;
+  }
+}
+
+// The quad's 4 * NU values of one row sorted descending by a bitonic
+// network: lane lq = lane % 4 holds elements lq * NU + j in v[j], before and
+// after (so lane lq ends with ranks lq * NU .. lq * NU + NU - 1). Partners
+// closer than NU lie in the lane (register indices), farther ones in lane
+// lq ^ (distance / NU) of the quad (a shuffle per element).
+template <int NU>
+__device__ __forceinline__ void quad_sort_desc(int (&v)[NGRP], int lq) {
+  constexpr int N = 4 * NU;
+#pragma unroll
+  for (int k = 2; k <= N; k *= 2) {
+#pragma unroll
+    for (int jj = k / 2; jj > 0; jj /= 2) {
+      if (jj >= NU) {
+        const int m = jj / NU;
+        const bool lower = (lq & m) == 0;
+#pragma unroll
+        for (int j = 0; j < NU; ++j) {
+          const bool desc = ((lq * NU + j) & k) == 0;  // this run descends
+          const int p = __shfl_xor_sync(0xffffffffu, v[j], m);
+          v[j] = lower == desc ? max(v[j], p) : min(v[j], p);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < NU; ++i) {
+          const int l = i ^ jj;
+          if (l > i) {
+            const bool desc = ((lq * NU + i) & k) == 0;
+            const int a = v[i], b = v[l];
+            v[i] = desc ? max(a, b) : min(a, b);
+            v[l] = desc ? min(a, b) : max(a, b);
+          }
+        }
+      }
+    }
+  }
+}
+
+// pack32 phase end, k_pair > PASS_K: extract_slice's result by sorting the
+// quad's maxima of each row (quad_sort_desc: ~1,500 instructions a row at
+// NU = 32 against ~100 per pass) and writing its first k_pair; where the
+// slice holds fewer groups than k_pair, one INT_MIN ends the list (the
+// merge never passes it).
+template <int NU>
+__device__ __forceinline__ void sort_slice(int (&mx)[2][NGRP], int* keys_s,
+                                           int lane, int k_pair, int kls) {
+  const int lq = lane % 4;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    quad_sort_desc<NU>(mx[rr], lq);
+    int* row = keys_s + frag_c_row(lane, 2 * rr) * kls;
+#pragma unroll
+    for (int j = 0; j < NU; ++j) {
+      if (lq * NU + j < k_pair) row[lq * NU + j] = mx[rr][j];
+      mx[rr][j] = INT_MIN;
+    }
+    if (4 * NU < k_pair && lq == 0) row[4 * NU] = INT_MIN;
+  }
+}
+
+// The phase end's select of a slice of NU maxima per lane and row: sorted
+// (SORT, the kernels of k_pair > PASS_K) or pass by pass.
+template <int NU, bool SORT>
+__device__ __forceinline__ void select_slice(int (&mx)[2][NGRP], int* keys_s,
+                                             int lane, int k_pair, int kls) {
+  if constexpr (SORT) {
+    sort_slice<NU>(mx, keys_s, lane, k_pair, kls);
+  } else {
+    extract_slice<NU>(mx, keys_s, lane, k_pair, kls);
   }
 }
 
@@ -411,7 +505,10 @@ __device__ __forceinline__ A& pick(A& chunked, A& narrow) {
 // above). smem: the body's shared memory (body_smem_bytes), 16-byte
 // aligned. qtable: the query rows [nq][rb] bytes; q_scale: their scales
 // (Op::SCALED). KMAX: the exact lists' length, k_pair rounded up to 10 or
-// 16 (shorter lists make each insert cheaper; pack32 does not use them).
+// 16 (shorter lists make each insert cheaper); pack32: the largest k_pair
+// the kernel serves, PASS_K (a pass per key) or MAX_PACK_K (sort_slice: a
+// kernel of its own, so the sort's registers burden only the deep selects,
+// and a source whose registers it would spill keeps the passes).
 template <typename Op, bool PACK, int KMAX, bool CHUNKED, typename Source>
 __device__ __forceinline__ void scan_blocks(
     Source& src, unsigned char* smem, const unsigned char* __restrict__ qtable,
@@ -428,6 +525,8 @@ __device__ __forceinline__ void scan_blocks(
   const int ksteps = round32(rb) / 32;  // narrow rows' k steps
   const int nch = CHUNKED ? (rb + CHUNK - 1) / CHUNK : 1;  // k chunks
   const int width = PACK ? k_pair : 2 * k_pair;  // output ints per row
+  const int kls = list_ld(k_pair, PACK);  // the lists' row stride
+  constexpr bool SORT = PACK && KMAX > PASS_K;  // deep pack32: sort_slice
   // the prober whose row this thread reads (chunked: every thread copies
   // a half of row t % MAX_PT; else threads t < MAX_PT own row t)
   const int prow_t = CHUNKED ? t % MAX_PT : t;
@@ -441,10 +540,10 @@ __device__ __forceinline__ void scan_blocks(
   int* prow_s = reinterpret_cast<int*>(
       scale_s + (Op::SCALED ? 2 * TN : 0));               // [MAX_PT]
   int* live_s = prow_s + MAX_PT;                          // [MAX_PT / 16]
-  int* keys_s = live_s + MAX_PT / 16;  // slice lists [WARPS][16][k_pair]
-  float* vals_s = reinterpret_cast<float*>(keys_s + WARPS * 16 * k_pair);
-  int* run_s = keys_s + WARPS * 16 * k_pair;  // pack32 [2][MAX_PT][k_pair]
-  float* stage_s = vals_s + WARPS * 16 * k_pair;  // exact [WARPS][16][SLD]
+  int* keys_s = live_s + MAX_PT / 16;  // slice lists [WARPS][16][kls]
+  float* vals_s = reinterpret_cast<float*>(keys_s + WARPS * 16 * kls);
+  int* run_s = keys_s + WARPS * 16 * kls;  // pack32 [2][MAX_PT][kls]
+  float* stage_s = vals_s + WARPS * 16 * kls;  // exact [WARPS][16][SLD]
   volatile float* rowb_s = stage_s + WARPS * 16 * SLD;  // exact [WARPS][16]
   float* qv_s = stage_s + WARPS * 16 * (SLD + 1);  // exact [QUEUE][THREADS]
   int* qc_s = reinterpret_cast<int*>(qv_s + QUEUE * THREADS);
@@ -558,8 +657,8 @@ __device__ __forceinline__ void scan_blocks(
     // maxima of the phase
     // (exact: lane l keeps row l / 2 of the warp's 16, over its half of
     // each group of columns)
-    float vals[KMAX];
-    int cols[KMAX];
+    float vals[PACK ? 1 : KMAX];
+    int cols[PACK ? 1 : KMAX];
     // a -1 row of a live tile is scored but selects nothing
     const bool dead_row = busy && prow_s[16 * mt + lane / 2] < 0;
     float bound = dead_row ? -neg_inf() : neg_inf();
@@ -782,28 +881,29 @@ __device__ __forceinline__ void scan_blocks(
             // phase end: each slice's k_pair largest keys per row, by the
             // quad's shuffles, into its shared list
             if (busy) {
-              int* ks_w = keys_s + warp * 16 * k_pair;
+              int* ks_w = keys_s + warp * 16 * kls;
               switch (S) {  // a lane holds the first 32 / S maxima of a row
                 case 8:
-                  extract_slice<NGRP / 8>(mx, ks_w, lane, k_pair);
+                  select_slice<NGRP / 8, SORT>(mx, ks_w, lane, k_pair, kls);
                   break;
                 case 4:
-                  extract_slice<NGRP / 4>(mx, ks_w, lane, k_pair);
+                  select_slice<NGRP / 4, SORT>(mx, ks_w, lane, k_pair, kls);
                   break;
                 case 2:
-                  extract_slice<NGRP / 2>(mx, ks_w, lane, k_pair);
+                  select_slice<NGRP / 2, SORT>(mx, ks_w, lane, k_pair, kls);
                   break;
                 default:
-                  extract_slice<NGRP>(mx, ks_w, lane, k_pair);
+                  select_slice<NGRP, SORT>(mx, ks_w, lane, k_pair, kls);
               }
             }
             __syncthreads();
             // one thread per live row: the k_pair largest of its slices'
-            // lists and the running list of the earlier phases
+            // lists (each of k_pair keys, or ended by an INT_MIN) and the
+            // running list of the earlier phases
             if (t < 16 * nm) {
-              const int* cur = run_s + ((phase & 1) * MAX_PT + t) * k_pair;
-              int* nxt = run_s + (((phase + 1) & 1) * MAX_PT + t) * k_pair;
-              const int* sl = keys_s + ((t / 16) * S * 16 + t % 16) * k_pair;
+              const int* cur = run_s + ((phase & 1) * MAX_PT + t) * kls;
+              int* nxt = run_s + (((phase + 1) & 1) * MAX_PT + t) * kls;
+              const int* sl = keys_s + ((t / 16) * S * 16 + t % 16) * kls;
               int h[WARPS];  // the slices' heads (unrolled: registers)
               int hc = 0;    // the running list's head
 #pragma unroll
@@ -814,8 +914,8 @@ __device__ __forceinline__ void scan_blocks(
 #pragma unroll
                 for (int s = 0; s < WARPS; ++s) {
                   if (s < S) {
-                    const int v = h[s] < k_pair ? sl[s * 16 * k_pair + h[s]]
-                                                : INT_MIN;
+                    const int v =
+                        h[s] < k_pair ? sl[s * 16 * kls + h[s]] : INT_MIN;
                     if (v > best) {
                       best = v;
                       bs = s;
@@ -842,13 +942,22 @@ __device__ __forceinline__ void scan_blocks(
 
     // the live rows' outputs
     if constexpr (PACK) {
-      if (t < 16 * nm) {
-        const int p = 16 * nth_live(live_s, t / 16) + t % 16;
-        if (prow_s[p] >= 0) {
-          const int* fin = run_s + ((phase & 1) * MAX_PT + t) * k_pair;
-          int* o = out + ((size_t)b * p_tile + p) * k_pair;
-          for (int i = 0; i < k_pair; ++i) o[i] = fin[i];
+      // warp w writes rows w and w + 8 of each live tile, its lanes on
+      // consecutive keys (coalesced stores)
+      int lt2 = 0;  // the live tile's index among the live ones
+      for (int m2 = 0; m2 < MAX_PT / 16; ++m2) {
+        if (!live_s[m2]) continue;
+#pragma unroll
+        for (int h = 0; h < 16 / WARPS; ++h) {
+          const int rw = warp + WARPS * h;  // the row in the tile
+          if (prow_s[16 * m2 + rw] >= 0) {
+            const int* fin =
+                run_s + ((phase & 1) * MAX_PT + 16 * lt2 + rw) * kls;
+            int* o = out + ((size_t)b * p_tile + 16 * m2 + rw) * k_pair;
+            for (int i = lane; i < k_pair; i += 32) o[i] = fin[i];
+          }
         }
+        ++lt2;
       }
     } else {
       // each slice's k_pair best per row: the better head of the row's

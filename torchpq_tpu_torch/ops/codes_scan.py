@@ -8,8 +8,9 @@ its codes and norms). Two kernels serve it, chosen before launch by
 `pick_route`, each built by `_build.py`, bound through a plain C entry point
 and counted under its own key of `launches`:
   - "tc_exact" / "tc_pack32", `csrc/codes_scan_tc.cu`: rows of d <= 128,
-    blocks of at most 128 probers, on the tensor cores (mma.sync bf16, f32
-    sums), scoring only the live 16-prober tiles of a block;
+    blocks of at most 128 probers, pack32 k_pair <= 48, on the tensor
+    cores (mma.sync bf16, f32 sums), scoring only the live 16-prober tiles
+    of a block;
   - "exact" / "pack32", `csrc/codes_scan.cu`: the rest, on the CUDA cores
     (f32 FMAs).
 
@@ -54,6 +55,13 @@ from .block_scan import (BIG, n_groups, random_inputs, resident_ctas,
 # outside it scores with a bf16 LUT. The port keeps it as that dividing
 # line so both packages take the same numerics at every shape.
 CODEBOOK_BOUND_BYTES = 9 * 1024 * 1024
+
+# The pack32 k_pair the tensor-core codes scan is sent. The shared body
+# takes 64, but with the 512 * d-byte codebook staged beside it the shared
+# memory fits only up to k_pair 61 at d = 128 (237,600 B at 64; 213,024 B
+# at 48), and no code-domain plan has run k_pair 49-61 on the card: those
+# stay on codes_scan.cu.
+_TC_MAX_PACK_K = 48
 
 # kernel launches per route and select, counted by `codes_scan` where it
 # launches ("tc_*": the tensor-core kernel; the others: the CUDA-core one)
@@ -236,12 +244,16 @@ def pick_route(*, m, dsub, p_tile, s_eff, k_pair, pack32):
     in `launches`:
       - "tc_exact" / "tc_pack32" (`csrc/codes_scan_tc.cu`, tensor cores):
         m a power of two (the packed storage's, g*m = 128) and d = m*dsub
-        at the shapes of `block_scan.tc_shapes_ok`;
+        at the shapes of `block_scan.tc_shapes_ok`, pack32 only up to
+        k_pair 48 (this module's _TC_MAX_PACK_K: the rows sources take
+        64);
       - "exact" / "pack32" (`csrc/codes_scan.cu`, CUDA cores): the rest
-        (exact k_pair > 16, rows wider than 128, other blocks or groups)."""
+        (exact k_pair > 16, pack32 k_pair > 48, rows wider than 128, other
+        blocks or groups)."""
     mode = "pack32" if pack32 else "exact"
-    tc = m & (m - 1) == 0 and tc_shapes_ok(
-        d=m * dsub, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair, pack32=pack32)
+    tc = (m & (m - 1) == 0 and not (pack32 and k_pair > _TC_MAX_PACK_K)
+          and tc_shapes_ok(d=m * dsub, p_tile=p_tile, s_eff=s_eff,
+                           k_pair=k_pair, pack32=pack32))
     return ("tc_" if tc else "") + mode
 
 
