@@ -106,7 +106,42 @@ Phases, each of which fails the run on error:
      dead; the CUDA-core kernel on every row), each timed in turns with
      the CUDA-core kernel and beside the same tensor-core launch writing
      one key per row.
- 10. GIST-class int8 tier: 1M x 960 manifold-12 data (make_data, seed 1),
+ 10. 4-bit PQ: the JAX package's record
+     (benchmark/results/ivf4096_pq64_sift1m_pq4.json): the main VQ codec,
+     a 16-cluster PQ trained on the 100k train slice, n_bits 4 (32 code
+     bytes per slot), the bf16 cache, spill 8 cells at 3 x n / n_cells,
+     scan_group 4, four adds; pack32 at n_probe 1/8/32/128 for k = 10 and
+     k = 100 (n_probe 1 at k = 100 on the plain select, as in the JAX
+     package), exact at n_probe 8, flat; the block-scan counters zeroed
+     before, only the tensor-core selects after; recall rising with
+     n_probe; the all-cells probe against the flat sweep; the pack32 scan
+     against `block_scan_ref` on its search's own arguments, timed in
+     turns. Then the code domain at 4 bits (pack group 4, no spill or
+     supercells): its plans must launch only the tensor-core codes kernel
+     (32 byte pairs over the byte-pair codebook, dsub 4); a 4-bit bf16
+     index of the main layout runs the slice's plans, each recall@10 below
+     the 8-bit tier's, and holds the code domain's exact n_probe 8 and flat
+     results; the codes kernels on the code domain's own arguments, as in
+     phase 7; device bytes per slot logged (36 B against 68 B).
+ 11. residual PQ: the JAX package's record
+     (ivf4096_pq64_residual_sift1m_residual.json): the main VQ codec, a PQ
+     trained on the train slice's residuals, the main phase's settings,
+     four adds; pack32 at n_probe 1/8/32/128 for k = 100 and k = 10, exact
+     at n_probe 8, flat; tensor-core launches only; 4,096 sampled cache
+     rows equal bf16(centroid[cell] + PQ decode) bit for bit; the
+     reconstruction error on the train slice below the main index's; the
+     all-cells probe against flat; the k = 100 pack32 scan (k_pair 64)
+     against `block_scan_ref` on its search's own arguments, timed in
+     turns.
+ 12. anisotropic PQ and manhattan, at 100k x 128 (no kernel on these
+     paths): the card's `_aniso_refine` (eta 4, 8 iterations, from the
+     main PQ codebook) and `_aniso_assign` on the 100k rows, then both on
+     the card and on the CPU over 10,000 rows (labels >= 0.999 equal,
+     refined centroid entries >= 0.99 within 1e-3 + 1e-3 |c|); an IVF256
+     x PQ64 manhattan index, 1,000 queries: pack32 at n_probe 8 and flat,
+     recall@10 against exact L1 logged, the all-cells probe against flat,
+     the block and codes scan counters at 0 (zeroed before).
+ 13. GIST-class int8 tier: 1M x 960 manifold-12 data (make_data, seed 1),
      IVF4096 x PQ64, int8 cache 1024 wide, 10k queries, k=10; plans flat,
      pack32 at n_probe 8 and 32, exact at n_probe 8 (counters zeroed
      before; both selects of the tensor-core int8 kernel, in 256-byte k
@@ -114,7 +149,7 @@ Phases, each of which fails the run on error:
      non-decreasing in n_probe within 0.005, the flat plan within 0.02 of
      an exact f32 sweep over the same PQ-decoded rows; then both int8
      kernels on the phase's own arguments, as in phase 8 (fewer repeats).
- 11. fused flat scan: the main index with scan_impl="pallas_flat" and
+ 14. fused flat scan: the main index with scan_impl="pallas_flat" and
      approx top-k; the flat counters zeroed, the flat plan must launch the
      tensor-core flat kernel, agree with the exact flat plan on >= 0.98 of
      ids and lie within 0.01 of its recall (the kernel's bucket top-2
@@ -125,16 +160,17 @@ Phases, each of which fails the run on error:
      yardstick of the product alone (bf16 torch.matmul over a 65,536-slot
      slice, scaled to the cache) and of the kernel at half the width (the
      same epilogue, half the products).
- 12. profile: torch.profiler over one search per plan of the bf16, code
+ 15. profile: torch.profiler over one search per plan of the bf16, code
      domain and int8 indexes, the deep-k r6 and untapered plans and the
-     pallas_flat flat plan; device-busy time and the largest kernels of
-     each.
- 13. prints the kernels' JSON line (every kernel: launches on its path,
+     pallas_flat flat plan (phases 10 and 11 profile their own plans);
+     device-busy time and the largest kernels of each.
+ 16. prints the kernels' JSON line (every kernel: launches on its path,
      kernel and plain ms, the bound from the inputs' own counts, the
      library call's ms where one PyTorch call computes the same; the int8
      block scan at both widths, the 1M x 128 tier's and the GIST-class
      d = 1024 one's; the deep-k split's head and tail scans and the
-     untapered plan's scan), the card
+     untapered plan's scan; the 4-bit tier's pack32 block scan and both
+     codes scans, the residual tier's k = 100 pack32 block scan), the card
      line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
@@ -304,7 +340,7 @@ def compare_pack32(torch, bs, got, ref, slot_mask, what="pack32 select",
     >= 0.99 of the entries agreeing, as whole keys or (by_slot) as slots,
     whose values the first check then holds to the tolerance (where a key's
     value bits are finer than any f32 summation order keeps them:
-    deepk_scan_row). Returns (max_abs_err, key agreement)."""
+    pack32_scan_row). Returns (max_abs_err, key agreement)."""
     agree = share_equal(got, ref)
     same_slot = (got & slot_mask) == (ref & slot_mask)
     v = bs.sortable_i32_to_f32(got & ~slot_mask)
@@ -858,17 +894,21 @@ def phase_relayout(torch, tp, index, trained, base, xq, per_cell, k):
 
 
 def time_plans(torch, tp, index, xq, gt, k, launches, label,
-               short_ok=False, plans=None, floors=True):
+               short_ok=False, plans=None, floors=True, plain_ok=()):
     """Each plan of PLANS on `index`: the warm-up search, then the median of
     3 host-clock searches to torch.cuda.synchronize(), q/s, recall@k and
     the kernel launches per search (from the counters in `launches`).
-    Fails on a malformed result or a probed plan that launched nothing.
+    Fails on a malformed result or a probed plan that launched nothing,
+    but for the plans in `plain_ok`, which must then have run the plain
+    select (the JAX package's gate sends them to XLA: k_pair above 64
+    where the completeness floor lifts it, at n_probe 1 and k = 100).
 
     short_ok: pack32 plans may return fewer than k results (-inf / -1) for
     a query. The code-domain kernel groups columns, and with g = 2 a group
     holds slots 2j and 2j+1, so a cell of n live items fills only
     ceil(n / 2) groups: at n_probe=1 a cell under 2k items comes up short,
-    as in the JAX package's kernel."""
+    as in the JAX package's kernel; and at k = 100 a query whose probed
+    cells hold fewer than k live items comes up short in either package."""
     n_query = xq.shape[0]
     rows, results = [], {}
     for mode, n_probe, approx in plans or PLANS:
@@ -909,7 +949,11 @@ def time_plans(torch, tp, index, xq, gt, k, launches, label,
         rows.append(row)
         results[(mode, n_probe, approx)] = (vals, ids)
         log(label + json.dumps(row))
-        if mode == "cell_major" and launched <= 0:
+        if (mode, n_probe, approx) in plain_ok:
+            if launched or gate.get("impl") != "block_select":
+                fail(f"{label}cell_major np={n_probe}: expected the plain "
+                     f"select, got {gate}")
+        elif mode == "cell_major" and launched <= 0:
             fail(f"{label}cell_major np={n_probe} did not launch the kernel")
     rec = {(r["plan"], r["n_probe"], r["approx"]): r[f"recall_at_{k}"]
            for r in rows}
@@ -1000,6 +1044,20 @@ def phase_code_domain(torch, tp, bs, cs, sl):
         fail("the code-domain flat result differs from the main index's")
 
     # the kernels on the arguments the code-domain searches give them
+    return counts, codes_rows(torch, tp, bs, cs, code, xq, k,
+                              "code-domain"), code
+
+
+def codes_rows(torch, tp, bs, cs, code, xq, k, label, suffix=""):
+    """The codes kernels on the arguments a code-domain index's searches
+    give them: the exact n_probe=8 and pack32 n_probe=32 searches' codes
+    scans, each checked with both selects (check_codes: the tensor-core
+    kernel against codes_scan_ref on live rows, pad rows dead; the
+    CUDA-core one on every row), and against the tensor-core block scan
+    over the decoded bf16 rows; then the select each search ran timed on
+    both codes kernels in turns. Returns the kernels' JSON rows (names
+    codes_scan_exact / codes_scan_pack32 + suffix) without their launch
+    counts."""
     rows = {}
     onehot = tp.ops.onehot_adc
     decoded = None
@@ -1014,7 +1072,7 @@ def phase_code_domain(torch, tp, bs, cs, sl):
         live_tiles = int((args[1].view(blocks, -1, 16) >= 0).any(-1).sum())
         m = args[7].shape[0]
         d = args[0].shape[1]
-        log(f"code-domain path n_probe={n_probe} "
+        log(f"{label} path n_probe={n_probe} "
             f"({'pack32' if approx else 'exact'}): {blocks} blocks x "
             f"{p_tile} probers, {live} live ({live / (blocks * p_tile):.3f})"
             f", {live_tiles} live 16-prober tiles of {blocks * p_tile // 16}"
@@ -1028,8 +1086,9 @@ def phase_code_domain(torch, tp, bs, cs, sl):
             err, agree, _, _ = check_codes(
                 torch, bs, cs, args, s_eff=s_eff, k_pair=k_pair,
                 pack32=pack32, euclidean=kw["euclidean"], reps=0)
-            name = "codes_scan_pack32" if pack32 else "codes_scan_exact"
-            log(f"{name} (tensor cores) on the inputs of the code-domain "
+            name = ("codes_scan_pack32" if pack32 else "codes_scan_exact") \
+                + suffix
+            log(f"{name} (tensor cores) on the inputs of the {label} "
                 f"n_probe={n_probe} search: live rows max_abs_err {err:.3g}"
                 + (f", key agreement {agree:.7f}" if pack32 else "")
                 + "; pad rows dead; the CUDA-core kernel matches the plain "
@@ -1090,7 +1149,7 @@ def phase_code_domain(torch, tp, bs, cs, sl):
                 cuda_core_ms=cc_ms,
                 cuda_core_source="torchpq_tpu_torch/csrc/codes_scan.cu")
     del decoded
-    return counts, rows, code
+    return rows
 
 
 def phase_profile(torch, index, xq, k, label="", plans=None):
@@ -1121,13 +1180,18 @@ def phase_profile(torch, index, xq, k, label="", plans=None):
 
 
 def build_index(torch, tp, trained, base, *, d, m, n_cells, per_cell,
-                cache):
-    """An index with the given scan cache tier, the trained codecs loaded,
-    filled by four adds of a quarter each; returns (index, add seconds)."""
+                cache, spill=False, **kw):
+    """An index with the given scan cache tier (and constructor kwargs),
+    the trained codecs loaded, filled by four adds of a quarter each;
+    spill: 8 candidate cells at the initial cell capacity (the JAX
+    package's sweep default). Returns (index, add seconds)."""
     index = tp.IVFPQIndex(d_vector=d, n_subvectors=m, n_cells=n_cells,
                           initial_size=per_cell, distance="euclidean",
-                          scan_cache_dtype=cache, device="cuda")
+                          scan_cache_dtype=cache, device="cuda", **kw)
     index.load_state_dict(trained)
+    if spill:
+        index.spill_cells = 8
+        index.spill_capacity = index.max_cell_capacity
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     step = base.shape[0] // 4
@@ -1385,9 +1449,9 @@ def pack32_f64(torch, bs, args, kw):
         args[1], args[2], s_eff=s_eff, width=kw["k_pair"], cost=6)
 
 
-def deepk_scan_row(torch, bs, name, args, kw, what):
-    """One deep-k scan on its search's own arguments: it must route to the
-    tensor-core pack32 kernel; held to block_scan_ref (live rows, >= 0.99
+def pack32_scan_row(torch, bs, name, args, kw, what):
+    """One pack32 scan (the deep-k, 4-bit and residual phases') on its
+    search's own arguments: it must route to the tensor-core pack32 kernel; held to block_scan_ref (live rows, >= 0.99
     of the keys equal; pad rows dead; the CUDA-core kernel on every row),
     then timed in turns with block_scan.cu on the same arguments, and the
     same launch writing one key per row. A key keeps 31 - log2(s_eff)
@@ -1471,7 +1535,7 @@ def deepk_counts(bs, seen, counts, what):
     return {kp: seen.count(kp) for kp in sorted(set(seen))}
 
 
-def phase_deepk(torch, tp, bs, sl):
+def phase_deepk(torch, tp, bs, sl, gt):
     """The JAX package's deep-k configuration (DEEPK_R6) at the slice's
     shape: the main index's trained codecs in an index with the spill on
     (8 candidate cells, capacity the initial per-cell 2 x n / n_cells,
@@ -1481,7 +1545,8 @@ def phase_deepk(torch, tp, bs, sl):
     at k_pair 64 over G = 512 groups, the tail at k_pair 16; the CUDA-core
     kernel never), its gate record (super-probe, split (8, 16), s_eff 8 x
     capacity on both sides), recall@100 against exact f32 ground truth
-    within 0.03 of the untapered plan's (DEEPK_PLAIN at n_probe 128, its
+    within 0.03 of the untapered plan's (gt: the exact top 100 ids;
+    DEEPK_PLAIN at n_probe 128, its
     counters zeroed and read the same way: k_pair 64 over G = 256 on the
     tensor cores), the flat plan's recall@100 (the ADC ceiling); then the
     three scans against block_scan_ref on their searches' own arguments,
@@ -1525,15 +1590,6 @@ def phase_deepk(torch, tp, bs, sl):
         fail(f"the deep-k index holds {int(sizes.sum())} items")
     if int((np.maximum(sizes - cap, 0)).sum()) != over:
         fail("deep-k cells above the capacity beyond the fallback's items")
-
-    xb = torch.from_numpy(base).cuda()
-    gt = []
-    for i in range(0, xq.shape[0], 1000):
-        qc = xq[i:i + 1000]
-        s = 2 * qc @ xb.T - (xb * xb).sum(-1)[None]
-        gt.append(torch.topk(s, k, dim=-1).indices)
-    gt = torch.cat(gt)
-    del xb, s
 
     # the r6 plan, the path's counters zeroed just before its searches
     for name, value in DEEPK_R6.items():
@@ -1598,7 +1654,7 @@ def phase_deepk(torch, tp, bs, sl):
     # the three scans on their searches' own arguments
     deep.scan_mode, deep.n_probe = "cell_major", DEEPK_NPROBE
     (plain_args, plain_kw) = capture_call(tp, deep, xq, k)
-    rows = {"block_scan_pack32_deepk_untapered": deepk_scan_row(
+    rows = {"block_scan_pack32_deepk_untapered": pack32_scan_row(
         torch, bs, "block_scan_pack32_deepk_untapered", plain_args,
         plain_kw, "the untapered search")}
     launches = {"block_scan_pack32_deepk_untapered":
@@ -1609,10 +1665,411 @@ def phase_deepk(torch, tp, bs, sl):
     for side, (args, kw) in zip(("head", "tail"), capture_call(
             tp, deep, xq, k, n_calls=2)):
         name = f"block_scan_pack32_deepk_{side}"
-        rows[name] = deepk_scan_row(torch, bs, name, args, kw,
+        rows[name] = pack32_scan_row(torch, bs, name, args, kw,
                                     f"the r6 search's {side}")
         launches[name] = per_kp[kw["k_pair"]]
     return launches, rows, deep
+
+
+# the JAX package's 4-bit record (benchmark/results/
+# ivf4096_pq64_sift1m_pq4.json, at the sweep's defaults: spill 8 cells at
+# the initial capacity 3 x n / n_cells, approximate top-k) with scan_group
+# 4: pack32 at n_probe 1/8/32/128 for k = 10 and k = 100, exact at n_probe 8
+# (k = 10), and flat at both k
+# (the residual record, ivf4096_pq64_residual_sift1m_residual.json, runs
+# the same plans)
+PQ4_GROUP = 4
+PLANS_K10 = [("flat", 1, True), ("cell_major", 1, True),
+             ("cell_major", 8, True), ("cell_major", 32, True),
+             ("cell_major", 128, True), ("cell_major", 8, False)]
+PLANS_K100 = [("flat", 1, True)] + [("cell_major", p, True)
+                                    for p in (1, 8, 32, 128)]
+# at n_probe 1 and k = 100 the completeness floor lifts k_pair to 100,
+# above the kernel gate's 64, in both packages: the plain select serves it
+PLAIN_K100 = {("cell_major", 1, True)}
+
+
+def exact_gt(torch, base, xq, k):
+    """Exact f32 euclidean top-k ids of the queries over the base, on the
+    card in chunks of 1,000 queries."""
+    xb = torch.from_numpy(base).cuda()
+    nb = (xb * xb).sum(-1)
+    gt = [torch.topk(2 * xq[i:i + 1000] @ xb.T - nb[None], k,
+                     dim=-1).indices for i in range(0, xq.shape[0], 1000)]
+    del xb
+    return torch.cat(gt)
+
+
+def all_cells_check(torch, index, xq, k, label):
+    """Over 256 queries, the exact select probing every cell must find what
+    the exact flat sweep finds (ids >= 0.99, values within the tolerance);
+    the index's probe settings are restored after."""
+    keep = (index.scan_mode, index.n_probe, index.use_approx_topk,
+            index.use_smart_probing)
+    qs = xq[:256]
+    index.use_approx_topk = index.use_smart_probing = False
+    index.scan_mode, index.n_probe = "cell_major", index.n_cells
+    v_p, i_p = index.search(qs.T, k=k)
+    index.scan_mode = "flat"
+    v_f, i_f = index.search(qs.T, k=k)
+    torch.cuda.synchronize()
+    verr = float((v_p - v_f).abs().max())
+    agree = recall_at(i_p.long(), i_f.long())
+    log(f"{label}all-cells probe vs flat (256 queries, exact): id agreement "
+        f"{agree:.4f}, max value diff {verr:.3g}")
+    if agree < 0.99 or verr > TOL_REL * float(v_f.abs().max()) + TOL_ABS:
+        fail(f"{label}the probed exact plan disagrees with the flat plan")
+    (index.scan_mode, index.n_probe, index.use_approx_topk,
+     index.use_smart_probing) = keep
+
+
+def require_tc_keys(counts, what):
+    """The bf16 block-scan launches of a run: both tensor-core selects, the
+    CUDA-core keys never."""
+    if counts["tc_exact"] <= 0 or counts["tc_pack32"] <= 0 \
+            or counts["exact"] or counts["pack32"]:
+        fail(f"{what} must launch the tensor-core block scan's two selects "
+             f"and never the CUDA-core one: {counts}")
+
+
+def rising(rec, plans, what):
+    """Recall non-decreasing in n_probe (within 0.005) over the pack32
+    plans of `plans`."""
+    r = [rec[p] for p in plans if p[0] == "cell_major" and p[2]]
+    if any(b < a - 0.005 for a, b in zip(r, r[1:])):
+        fail(f"{what}: recall falls with n_probe: {r}")
+
+
+def codec_state(index, pq_from=None):
+    """The trained VQ codec of `index`, and the PQ codec of `pq_from` (if
+    given), as a state dict to load."""
+    out = index.vq_codec.state_dict("vq_codec.")
+    if pq_from is not None:
+        out.update(pq_from.pq_codec.state_dict("pq_codec."))
+    return out
+
+
+def phase_pq4(torch, tp, bs, cs, sl, gt100):
+    """The JAX package's 4-bit record at the slice's shape: IVF4096 x PQ64
+    at n_bits 4 (32 code bytes per slot), the bf16 cache, spill 8 cells
+    at 3 x n / n_cells, scan_group 4, approximate top-k; the main VQ codec
+    and a 16-cluster PQ trained on the 100k train slice; four adds. The
+    bf16 plans (PLANS_K10, PLANS_K100) with the block-scan counters zeroed
+    before and read after (the tensor-core selects only), recall rising
+    with n_probe, the all-cells probe against the flat sweep, and the
+    pack32 scan held to block_scan_ref on its search's own arguments. Then
+    the code domain at 4 bits (scan_cache_dtype="none", pack group 4, no
+    spill, no supercells): its plans with the codes-scan counters zeroed
+    (the tensor-core codes kernel at 32 byte pairs, dsub 4, only); a 4-bit
+    bf16 index of the same layout (the main index's) runs the slice's
+    plans, each recall@10 below the 8-bit tier's, and holds the code
+    domain's exact n_probe 8 and flat results; the codes kernels on the
+    code-domain searches' own arguments. Returns ({row name: launches},
+    the kernels' JSON rows)."""
+    index, base, xq, gt, k = (sl[x] for x in ("index", "base", "xq", "gt",
+                                              "k"))
+    d, m, n_cells = index.d_vector, index.n_subvectors, index.n_cells
+    per_cell = sl["per_cell"]
+    t0 = time.perf_counter()
+    proto = tp.IVFPQIndex(d_vector=d, n_subvectors=m, n_cells=n_cells,
+                          n_bits=4, initial_size=16, device="cuda")
+    proto.load_state_dict(codec_state(index))
+    proto.pq_codec.train(torch.from_numpy(base[: base.shape[0] // 10])
+                         .cuda().T)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trained = codec_state(index, proto)
+    del proto
+    pq4, add_s = build_index(torch, tp, trained, base, d=d, m=m,
+                             n_cells=n_cells, per_cell=per_cell, cache=None,
+                             spill=True, n_bits=4)
+    pq4.scan_group = PQ4_GROUP
+    dec = pq4.aux("decoded")
+    sizes = pq4._cell_size_np
+    log(f"pq4 index: PQ train {train_s:.2f} s, add {add_s:.2f} s; storage "
+        f"{tuple(pq4._storage.shape)} uint8 (pack group {pq4.pack_group}), "
+        f"codebook {tuple(pq4.pq_codec.codebook_internal.shape)}, byte-pair "
+        f"view {tuple(pq4._scan_codebook.shape)}; spill 8 cells at capacity "
+        f"{pq4.spill_capacity}: largest cell {int(sizes.max())}; device "
+        f"bytes: codes {pq4._storage.numel()}, decoded cache "
+        f"{dec.numel() * dec.element_size()}")
+    if pq4._storage.shape[1] != m // 2 or pq4.pack_group != 1:
+        fail("the 4-bit bf16 index does not store unpacked m/2-byte rows")
+
+    for key in bs.launches:
+        bs.launches[key] = 0
+    rec10, _ = time_plans(torch, tp, pq4, xq, gt, k, bs.launches,
+                          "pq4 ", plans=PLANS_K10, floors=False)
+    rec100, _ = time_plans(torch, tp, pq4, xq, gt100, 100, bs.launches,
+                           "pq4 k=100 ", plans=PLANS_K100, floors=False,
+                           short_ok=True, plain_ok=PLAIN_K100)
+    counts = dict(bs.launches)
+    log(f"pq4 launches: {counts}")
+    require_tc_keys(counts, "the pq4 bf16 plans")
+    rising(rec10, PLANS_K10, "pq4 k=10")
+    rising(rec100, PLANS_K100, "pq4 k=100")
+    all_cells_check(torch, pq4, xq, k, "pq4 ")
+    pq4.scan_mode, pq4.n_probe, pq4.use_approx_topk = "cell_major", 32, True
+    args, kw = capture_call(tp, pq4, xq, k)
+    rows = {"block_scan_pack32_pq4": pack32_scan_row(
+        torch, bs, "block_scan_pack32_pq4", args, kw,
+        "the pq4 n_probe=32 search")}
+    launches = {"block_scan_pack32_pq4": counts["tc_pack32"]}
+    del args
+    phase_profile(torch, pq4, xq, k, label="pq4 ",
+                  plans=[p for p in PLANS_K10 if p[1] in (1, 8, 32)])
+    phase_profile(torch, pq4, xq, 100, label="pq4 k=100 ",
+                  plans=[("cell_major", 32, True)])
+
+    # the code domain at 4 bits, held to a 4-bit bf16 index of its layout
+    code = build_index(torch, tp, trained, base, d=d, m=m, n_cells=n_cells,
+                       per_cell=per_cell, cache="none", n_bits=4)[0]
+    if code.pack_group != 4 or code._storage.shape[1] != 128:
+        fail(f"the 4-bit code-domain index packs {code.pack_group} slots "
+             f"per row, {tuple(code._storage.shape)}")
+    slot_b = code._storage.numel() // code.capacity + 4
+    log(f"pq4 code-domain index: storage {tuple(code._storage.shape)} uint8 "
+        f"(pack group {code.pack_group}); device bytes per slot: "
+        f"{code._storage.numel() // code.capacity} B codes + 4 B norm = "
+        f"{slot_b} B (the 8-bit code domain: {m} + 4 = {m + 4} B)")
+    for key in cs.launches:
+        cs.launches[key] = 0
+    plans = [p for p in PLANS_K10 if p[1] != 128]
+    rec_c, res_c = time_plans(torch, tp, code, xq, gt, k, cs.launches,
+                              "pq4 code-domain ", short_ok=True,
+                              plans=plans, floors=False)
+    code_counts = dict(cs.launches)
+    log(f"pq4 code-domain launches: {code_counts}")
+    for name, c in code_counts.items():
+        if (c <= 0) == name.startswith("tc_"):
+            fail(f"the 4-bit code domain launched the codes kernel route "
+                 f"{name} {c} times: its probed plans must run the "
+                 "tensor-core kernel, both selects, and no other")
+    gate = tp.ops.adc.LAST_GATE
+    if (gate.get("m"), code._scan_codebook.shape[-1]) != (m // 2, 4):
+        fail(f"the 4-bit codes scan ran at m {gate.get('m')}, not 32 byte "
+             "pairs of dsub 4")
+    # a 4-bit bf16 index of the main index's layout (no spill, no
+    # supercells): its recall@10 below the 8-bit tier's on every plan,
+    # and the code domain's results held to it
+    ref, _ = build_index(torch, tp, trained, base, d=d, m=m,
+                         n_cells=n_cells, per_cell=per_cell, cache=None,
+                         n_bits=4)
+    rec_r, res_r = time_plans(torch, tp, ref, xq, gt, k, bs.launches,
+                              "pq4 main layout ", floors=False)
+    log("4-bit recall@10 against the 8-bit tier, same layout and plans: "
+        + ", ".join(f"{p[0]} np={p[1]}{'' if p[2] else ' exact'} "
+                    f"{rec_r[p]:.4f} vs {sl['rec'][p]:.4f}" for p in rec_r))
+    for plan, r in rec_r.items():
+        if not r < sl["rec"][plan]:
+            fail(f"4-bit plan {plan}: recall@10 {r:.4f} not below the "
+                 f"8-bit tier's {sl['rec'][plan]:.4f}")
+    for plan in (("cell_major", 8, False), ("flat", 1, True)):
+        v_r, i_r = res_r[plan]
+        v_c, i_c = res_c[plan]
+        agree = recall_at(i_c.long(), i_r.long())
+        err = float((v_c - v_r).abs().max())
+        log(f"pq4 code-domain vs a 4-bit bf16 index of its layout, {plan}: "
+            f"id agreement {agree:.5f}, max value diff {err:.3g}, recall "
+            f"{rec_c[plan]:.4f} vs {rec_r[plan]:.4f}")
+        if plan[0] == "cell_major" and (agree < 0.999 or bool(
+                ((v_c - v_r).abs() > TOL_REL * v_r.abs() + TOL_ABS).any())):
+            fail("the 4-bit code-domain exact n_probe=8 result differs from "
+                 "the 4-bit bf16 index's")
+        if plan[0] == "flat" and (agree < 0.99
+                                  or abs(rec_c[plan] - rec_r[plan]) > 0.005):
+            fail("the 4-bit code-domain flat result differs from the 4-bit "
+                 "bf16 index's")
+    del ref, res_r
+    rows.update(codes_rows(torch, tp, bs, cs, code, xq, k,
+                           "pq4 code-domain", suffix="_pq4"))
+    launches.update(codes_scan_exact_pq4=code_counts["tc_exact"],
+                    codes_scan_pack32_pq4=code_counts["tc_pack32"])
+    phase_profile(torch, code, xq, k, label="pq4 code-domain ",
+                  plans=[("cell_major", 32, True)])
+    del code, pq4
+    return launches, rows
+
+
+def phase_residual(torch, tp, bs, sl, gt100):
+    """The JAX package's residual record at the slice's shape: IVF4096 x
+    PQ64 with pq_use_residual, the bf16 cache, the main phase's settings
+    (no spill, no supercells), approximate top-k; the main VQ codec and a
+    PQ trained on the residuals of the 100k train slice; four adds. The
+    plans (PLANS_K100, PLANS_K10) with the block-scan counters zeroed before
+    and read after (tensor-core selects only); 4,096 sampled live cache
+    rows equal bf16(centroid[cell] + PQ decode) bit for bit; the
+    reconstruction error on the train slice below the main index's; the
+    all-cells probe against the flat sweep; the k = 100 pack32 scan (k_pair
+    64) on its search's own arguments. Returns ({row name: launches}, the
+    kernel's JSON rows)."""
+    index, base, xq, gt, k = (sl[x] for x in ("index", "base", "xq", "gt",
+                                              "k"))
+    d, m, n_cells = index.d_vector, index.n_subvectors, index.n_cells
+    xt = torch.from_numpy(base[: base.shape[0] // 10]).cuda().T
+    t0 = time.perf_counter()
+    proto = tp.IVFPQIndex(d_vector=d, n_subvectors=m, n_cells=n_cells,
+                          pq_use_residual=True, initial_size=16,
+                          device="cuda")
+    proto.load_state_dict(codec_state(index))
+    proto.pq_codec.train(xt - proto.vq_codec.decode(proto.vq_codec.encode(
+        xt)))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trained = codec_state(index, proto)
+    del proto
+    res, add_s = build_index(torch, tp, trained, base, d=d, m=m,
+                             n_cells=n_cells, per_cell=sl["per_cell"],
+                             cache=None, pq_use_residual=True)
+    if not np.array_equal(res._cell_size_np, index._cell_size_np):
+        fail("the residual index holds other cell sizes than the main index")
+    live = torch.nonzero(~res._is_empty).flatten()
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    addr = live[torch.randperm(live.numel(), generator=gen)[:4096].cuda()]
+    cells = res.get_cell_by_address(addr).long()
+    want = (res._coarse_cb()[cells] + res._decode_stored(
+        res.storage_rows(addr))).to(torch.bfloat16)
+    if not torch.equal(res.aux("decoded")[addr], want):
+        fail("residual cache rows differ from bf16(centroid + PQ decode)")
+    mse = {}
+    for name, idx in (("main", index), ("residual", res)):
+        rec_x = idx.decode(idx.encode(xt))
+        mse[name] = float(((rec_x - xt) ** 2).mean())
+    log(f"residual index: PQ train on residuals {train_s:.2f} s, add "
+        f"{add_s:.2f} s; 4,096 sampled cache rows equal bf16(centroid[cell] "
+        f"+ PQ decode) bit for bit; reconstruction MSE on the train slice "
+        f"{mse['residual']:.6g} (main index {mse['main']:.6g})")
+    if not mse["residual"] < mse["main"]:
+        fail("the residual index reconstructs the train slice no better "
+             "than the main index")
+    for key in bs.launches:
+        bs.launches[key] = 0
+    rec100, _ = time_plans(torch, tp, res, xq, gt100, 100, bs.launches,
+                           "residual k=100 ", plans=PLANS_K100, floors=False,
+                           short_ok=True, plain_ok=PLAIN_K100)
+    counts100 = dict(bs.launches)
+    rec10, _ = time_plans(torch, tp, res, xq, gt, k, bs.launches,
+                          "residual ", plans=PLANS_K10, floors=False)
+    counts = dict(bs.launches)
+    log(f"residual launches: k=100 plans {counts100}, all plans {counts}")
+    require_tc_keys(counts, "the residual plans")
+    rising(rec10, PLANS_K10, "residual k=10")
+    rising(rec100, PLANS_K100, "residual k=100")
+    log("residual recall@10 against the main index: " + ", ".join(
+        f"{p[0]} np={p[1]}{'' if p[2] else ' exact'} {rec10[p]:.4f} vs "
+        f"{sl['rec'][p]:.4f}" for p in rec10 if p in sl["rec"]))
+    all_cells_check(torch, res, xq, k, "residual ")
+    res.scan_mode, res.n_probe, res.use_approx_topk = "cell_major", 32, True
+    args, kw = capture_call(tp, res, xq, 100)
+    if kw["k_pair"] != 64:
+        fail(f"the residual k=100 scan ran k_pair {kw['k_pair']}, not 64")
+    rows = {"block_scan_pack32_residual_k100": pack32_scan_row(
+        torch, bs, "block_scan_pack32_residual_k100", args, kw,
+        "the residual k=100 n_probe=32 search")}
+    launches = {"block_scan_pack32_residual_k100": counts100["tc_pack32"]}
+    del args
+    phase_profile(torch, res, xq, 100, label="residual k=100 ",
+                  plans=[p for p in PLANS_K100 if p[1] in (1, 8, 32)])
+    del res
+    return launches, rows
+
+
+def phase_aniso_manhattan(torch, tp, bs, cs, sl):
+    """No kernel lies on these paths, so they run at a reduced size, 100k x
+    128 of the slice's data. Anisotropic PQ: from the main PQ codebook as
+    the warm start, the card's _aniso_assign and _aniso_refine (eta 4, 8
+    iterations) on the 100k rows, timed; the same two calls on the card and
+    on the CPU over the first 10,000 rows: labels agree on >= 0.999, the
+    refined centroids on >= 0.99 of their entries within 1e-3 + 1e-3 |c|
+    (the card's per-cluster sums are atomic adds in a run-dependent order,
+    and a label flipped on a near-tie in one of 8 rounds moves its two
+    clusters: 0.9992-0.9997 measured on an H100).
+    Manhattan: an IVF256 x PQ64 index trained and filled on the 100k rows,
+    1,000 queries: pack32 at n_probe 8 and flat, recall@10 against exact L1
+    ground truth logged, the all-cells exact probe against the flat sweep,
+    and the block-scan and codes-scan counters unmoved (the gates exclude
+    manhattan, as the JAX package's: zeroed before, 0 after)."""
+    from torchpq_tpu_torch.codec import pq as tpq
+    base, xq = sl["base"], sl["xq"]
+    n, d = min(100_000, base.shape[0]), base.shape[1]
+    x = torch.from_numpy(base[:n]).cuda()
+    main_pq = sl["index"].pq_codec
+    m, k_c = main_pq.n_subvectors, main_pq.n_clusters
+    sub = x.T.reshape(m, d // m, n).contiguous()
+    warm = main_pq.codebook_internal
+    chunk = tpq._aniso_chunk(m, k_c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    refined = tpq._aniso_refine(sub, warm, eta=4.0, iters=8, k=k_c,
+                                chunk=chunk)
+    lab = tpq._aniso_assign(sub, refined, eta=4.0, k=k_c, chunk=chunk)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    moved = float((refined - warm).abs().max())
+    changed = float((lab != tpq._aniso_assign(sub, warm, eta=1.0, k=k_c,
+                                              chunk=chunk)).float().mean())
+    small = sub[:, :, :10_000]
+    lab_g = tpq._aniso_assign(small, warm, eta=4.0, k=k_c, chunk=chunk)
+    ref_g = tpq._aniso_refine(small, warm, eta=4.0, iters=8, k=k_c,
+                              chunk=chunk)
+    t0 = time.perf_counter()
+    lab_c = tpq._aniso_assign(small.cpu(), warm.cpu(), eta=4.0, k=k_c,
+                              chunk=chunk)
+    ref_c = tpq._aniso_refine(small.cpu(), warm.cpu(), eta=4.0, iters=8,
+                              k=k_c, chunk=chunk)
+    cpu_s = time.perf_counter() - t0
+    lab_agree = share_equal(lab_g.cpu(), lab_c)
+    close = (ref_g.cpu() - ref_c).abs() <= 1e-3 + 1e-3 * ref_c.abs()
+    cent_agree = share_equal(close, torch.ones_like(close))
+    log(f"anisotropic PQ (eta 4, 8 iterations, warm start: the main PQ "
+        f"codebook): card on {n} rows {card_s:.2f} s (centroids moved up "
+        f"to {moved:.4g}, {changed:.4f} of the codes differ from the "
+        f"plain assignment); card vs CPU on 10,000 rows (CPU {cpu_s:.2f} "
+        f"s): labels agree {lab_agree:.6f}, refined centroid entries "
+        f"within 1e-3 + 1e-3 |c| {cent_agree:.6f} (max diff "
+        f"{float((ref_g.cpu() - ref_c).abs().max()):.3g})")
+    if lab_agree < 0.999 or cent_agree < 0.99:
+        fail("the card's anisotropic assignment or refinement disagrees "
+             "with the CPU's")
+    del sub, refined, lab, small
+
+    # manhattan: IVF256 x PQ64 on the 100k rows, 1,000 queries
+    q = xq[:1000]
+    for launches in (bs.launches, cs.launches):
+        for key in launches:
+            launches[key] = 0
+    t0 = time.perf_counter()
+    man = tp.IVFPQIndex(d_vector=d, n_subvectors=m, n_cells=256,
+                        initial_size=max(16, n // 256 * 3),
+                        distance="manhattan", device="cuda")
+    man.train(x.T)
+    man.add(x.T)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    gt = torch.cat([torch.topk(tp.metric.negative_manhattan_distance(
+        q[i:i + 250], x), 10, dim=-1).indices
+        for i in range(0, q.shape[0], 250)])
+    out = {}
+    for plan in (("cell_major", 8, True), ("flat", 1, True)):
+        man.scan_mode, man.n_probe, man.use_approx_topk = plan
+        man.search(q.T, k=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, i = man.search(q.T, k=10)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out[plan] = recall_at(i.long(), gt)
+        log(f"manhattan {plan[0]} n_probe={plan[1]}: {ms:.2f} ms per "
+            f"1,000 queries, recall@10 against exact L1 {out[plan]:.4f}"
+            + (f", select {tp.ops.adc.LAST_GATE.get('impl')}"
+               if plan[0] == "cell_major" else ""))
+    all_cells_check(torch, man, q, 10, "manhattan ")
+    counts = {**bs.launches, **cs.launches}
+    log(f"manhattan index: train + add {build_s:.2f} s; block / codes scan "
+        f"launches {counts}")
+    if any(counts.values()):
+        fail(f"the manhattan plans launched a scan kernel: {counts}")
+    del man, x
 
 
 def phase_pallas_flat(torch, tp, fs, sl):
@@ -1840,45 +2297,19 @@ def phase_slice(torch, tp, bs, gr):
         f"relayout ran: "
         f"{index.max_cell_capacity > tp.util.next_pow2(per_cell)}")
 
-    xb = torch.from_numpy(base).cuda()
     xq = torch.from_numpy(query).cuda()
-    gt = []
-    for i in range(0, n_query, 1000):
-        qc = xq[i:i + 1000]
-        s = 2 * qc @ xb.T - (xb * xb).sum(-1)[None]
-        gt.append(torch.topk(s, k, dim=-1).indices)
-    gt = torch.cat(gt)
-    del xb
+    gt = exact_gt(torch, base, xq, k)
     torch.cuda.synchronize()
 
     rec, _ = time_plans(torch, tp, index, xq, gt, k, bs.launches, "")
     counts = {**bs.launches, **gr.launches}
     log(f"main-path launches: {counts}")
-    for name in ("tc_exact", "tc_pack32", "gather"):
-        if counts[name] <= 0:
-            fail(f"kernel {name} was never launched by the slice")
-    for name in ("exact", "pack32"):
-        if counts[name] > 0:
-            fail(f"the bf16 plans launched the CUDA-core block scan ({name}) "
-                 f"{counts[name]} times: they must run the tensor-core one")
-
+    require_tc_keys(counts, "the bf16 plans")
+    if counts["gather"] <= 0:
+        fail("the row gather was never launched by the slice")
     # small-input reference: probing every cell with the exact select must
     # find what the exact flat sweep finds
-    qs = xq[:256]
-    index.use_approx_topk = False
-    index.use_smart_probing = False
-    index.scan_mode, index.n_probe = "cell_major", n_cells
-    v_p, i_p = index.search(qs.T, k=k)
-    index.scan_mode = "flat"
-    v_f, i_f = index.search(qs.T, k=k)
-    torch.cuda.synchronize()
-    verr = float((v_p - v_f).abs().max())
-    agree = recall_at(i_p.long(), i_f.long())
-    log(f"all-cells probe vs flat (256 queries, exact): id agreement "
-        f"{agree:.4f}, max value diff {verr:.3g}")
-    if agree < 0.99 or verr > TOL_REL * float(v_f.abs().max()) + TOL_ABS:
-        fail("the probed exact plan disagrees with the flat exact plan")
-    index.use_smart_probing = True
+    all_cells_check(torch, index, xq, k, "")
     return counts, dict(index=index, trained=trained, base=base, xq=xq,
                         gt=gt, per_cell=per_cell, k=k, rec=rec)
 
@@ -1926,11 +2357,23 @@ def main():
                    sl["xq"], sl["per_cell"], sl["k"])
     code_counts, code_rows, code = phase_code_domain(torch, tp, bs, cs, sl)
     int8_counts, int8_rows, i8 = phase_int8(torch, tp, bs, sl)
-    deep_launches, deep_rows, deep = phase_deepk(torch, tp, bs, sl)
+    gt100 = exact_gt(torch, sl["base"], sl["xq"], DEEPK_K)
+    deep_launches, deep_rows, deep = phase_deepk(torch, tp, bs, sl, gt100)
+    t_phase = time.perf_counter()
+    pq4_launches, pq4_rows = phase_pq4(torch, tp, bs, cs, sl, gt100)
+    log(f"pq4 phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    res_launches, res_rows = phase_residual(torch, tp, bs, sl, gt100)
+    log(f"residual phase: {time.perf_counter() - t_phase:.1f} s")
+    del gt100
+    t_phase = time.perf_counter()
+    phase_aniso_manhattan(torch, tp, bs, cs, sl)
+    log(f"anisotropic and manhattan check: "
+        f"{time.perf_counter() - t_phase:.1f} s")
     gist_counts, gist_rows, gist, gist_q = phase_gist(torch, tp, bs)
     # last of the paths: its floor holds the kernel's bucket approximation
     flat_counts, flat_row = phase_pallas_flat(torch, tp, fs, sl)
-    log(f"phases 4-11: {time.perf_counter() - t_start:.1f} s")
+    log(f"phases 4-14: {time.perf_counter() - t_start:.1f} s")
     phase_profile(torch, sl["index"], sl["xq"], sl["k"])
     phase_profile(torch, code, sl["xq"], sl["k"], label="code-domain ")
     phase_profile(torch, i8, sl["xq"], sl["k"], label="int8 ")
@@ -1946,7 +2389,7 @@ def main():
     sl["index"].scan_impl = "pallas_flat"
     phase_profile(torch, sl["index"], sl["xq"], sl["k"],
                   label="pallas_flat ", plans=[("flat", 1, True)])
-    log(f"phases 4-12: {time.perf_counter() - t_start:.1f} s")
+    log(f"phases 4-15: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, row, cnt in (
@@ -1968,6 +2411,14 @@ def main():
              deep_launches["block_scan_pack32_deepk_untapered"]),
             ("codes_scan_exact", code_rows, code_counts["tc_exact"]),
             ("codes_scan_pack32", code_rows, code_counts["tc_pack32"]),
+            ("block_scan_pack32_pq4", pq4_rows,
+             pq4_launches["block_scan_pack32_pq4"]),
+            ("codes_scan_exact_pq4", pq4_rows,
+             pq4_launches["codes_scan_exact_pq4"]),
+            ("codes_scan_pack32_pq4", pq4_rows,
+             pq4_launches["codes_scan_pack32_pq4"]),
+            ("block_scan_pack32_residual_k100", res_rows,
+             res_launches["block_scan_pack32_residual_k100"]),
             ("flat_scan", {"flat_scan": flat_row}, flat_counts["flat_tc"]),
             ("gather_rows", krows, counts["gather"])):
         kernels.append(dict(row[name], launches=cnt))

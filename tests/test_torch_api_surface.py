@@ -3,9 +3,13 @@ restricted to the modules the port has, and the parity of the surface's
 smaller members with the JAX package on the same inputs (numpy draws from a
 seed): codec exposure, similarity by id, the inert tunables and their
 validation, KMeans / MultiKMeans predict and top-k, the PQ ADC table and
-the batched top-k."""
+the batched top-k; the centroids setter and the static helpers of the
+k-means classes, the cell container's address helpers, state_nbytes and
+the save formats; and the JAX package's keyword arguments and defaults on
+the port's public signatures."""
 
 import importlib
+import inspect
 
 import numpy as np
 import jax.numpy as jnp
@@ -15,12 +19,13 @@ import torch
 from torchpq_tpu.clustering import KMeans as JaxKMeans
 from torchpq_tpu.clustering import MultiKMeans as JaxMultiKMeans
 from torchpq_tpu.codec import PQCodec as JaxPQ
+from torchpq_tpu.container import CellContainer as JaxCells
 from torchpq_tpu.index import IVFPQIndex as JaxIndex
 from torchpq_tpu.ops import max_sim as jms
 import torchpq_tpu_torch as tp
 from torchpq_tpu_torch.ops import max_sim as tms
 
-from _torch_helpers import CPU
+from _torch_helpers import CPU, to_np
 
 SURFACE = {
     "torchpq_tpu_torch": [
@@ -30,6 +35,9 @@ SURFACE = {
     "torchpq_tpu_torch.index": ["IVFPQIndex"],
     "torchpq_tpu_torch.clustering": ["KMeans", "MultiKMeans"],
     "torchpq_tpu_torch.codec": ["BaseCodec", "VQCodec", "PQCodec"],
+    "torchpq_tpu_torch.codec.pq": [
+        "PQCodec", "pack_nibbles", "unpack_nibbles", "paired_codebook",
+    ],
     "torchpq_tpu_torch.container": ["BaseContainer", "CellContainer"],
     "torchpq_tpu_torch.fn": ["IVFPQTopk"],
     "torchpq_tpu_torch.ops.adc": [
@@ -37,12 +45,17 @@ SURFACE = {
         "scan_cell_major",
     ],
     "torchpq_tpu_torch.ops.flat_adc": ["flat_adc_scan", "flat_adc_auto"],
+    "torchpq_tpu_torch.ops.onehot_adc": [
+        "build_scan_lut", "scan_cell_major_codes", "flat_onehot_scan",
+        "flat_decode_scan",
+    ],
     "torchpq_tpu_torch.ops.spill": ["rank_in_group", "spill_assign_device"],
     "torchpq_tpu_torch.ops.max_sim": [
         "max_sim", "topk_sim", "batched_max_sim", "batched_topk_sim",
     ],
     "torchpq_tpu_torch.metric": [
         "similarity", "cosine_similarity", "negative_squared_l2_distance",
+        "negative_manhattan_distance", "inner_similarity",
         "canonical_distance",
     ],
 }
@@ -54,12 +67,48 @@ METHODS = {
         "similarity_at_address", "similarity_at_id", "get_id_by_address",
         "get_address_by_id",
     ],
-    "torchpq_tpu_torch.clustering.KMeans": ["fit", "predict", "topk"],
-    "torchpq_tpu_torch.clustering.MultiKMeans": ["fit", "predict", "topk"],
+    "torchpq_tpu_torch.clustering.KMeans": [
+        "fit", "predict", "topk", "remaining_memory", "does_it_fit",
+        "cos_sim", "euc_sim", "sim", "calculate_error", "calculate_inertia",
+    ],
+    "torchpq_tpu_torch.clustering.MultiKMeans": [
+        "fit", "predict", "topk", "remaining_memory", "does_it_fit",
+        "cos_sim", "euc_sim", "sim", "calculate_error", "calculate_inertia",
+    ],
     "torchpq_tpu_torch.codec.PQCodec": [
         "train", "encode", "decode", "precompute_adc",
     ],
+    "torchpq_tpu_torch.container.CellContainer": [
+        "add", "remove", "expand", "get_cell_by_address",
+        "get_data_by_address", "get_ioa", "get_write_address",
+        "set_data_by_address", "get_data_by_id", "empty",
+    ],
+    "torchpq_tpu_torch.StateModule": [
+        "state_dict", "load_state_dict", "state_nbytes", "save", "load",
+    ],
 }
+
+# public callables whose JAX signatures' parameters the port's must all
+# accept (ROADMAP C7: the precision and tiling kwargs are accepted and
+# ignored), with the defaults of `DEFAULTS` equal in both
+SIGNATURES = [
+    "metric.inner_similarity", "metric.cosine_similarity",
+    "metric.negative_squared_l2_distance", "metric.similarity",
+    "metric.negative_manhattan_distance",
+    "ops.max_sim.max_sim", "ops.max_sim.topk_sim",
+    "ops.max_sim.batched_max_sim", "ops.max_sim.batched_topk_sim",
+    "ops.adc.build_adc_table", "ops.adc.adc_lookup_scores",
+    "ops.adc.scan_query_major", "ops.adc.scan_cell_major",
+    "ops.flat_adc.flat_adc_scan", "ops.flat_adc.flat_adc_auto",
+    "ops.onehot_adc.build_scan_lut", "ops.onehot_adc.scan_cell_major_codes",
+    "ops.onehot_adc.flat_onehot_scan", "ops.onehot_adc.flat_decode_scan",
+    "fn.ivfpq_topk.IVFPQTopk.topk", "clustering.kmeans.KMeans.__init__",
+    "clustering.kmeans.MultiKMeans.__init__",
+    "container.cell.CellContainer.__init__", "module.StateModule.save",
+    "codec.pq.PQCodec.__init__", "index.ivfpq.IVFPQIndex.__init__",
+]
+DEFAULTS = ("impl", "dtype", "format", "n_bits", "anisotropic_iters",
+            "pq_use_residual")
 
 TUNABLES = ["use_cublas", "use_tensor_core", "fp16_scale_mode",
             "use_precomputed", "pq_max_iter", "vq_max_iter",
@@ -263,3 +312,141 @@ def test_pq_precompute_adc_matches(rng, distance):
     np.testing.assert_allclose(
         lut.numpy(), np.asarray(ref.precompute_adc(jnp.asarray(q))),
         rtol=1e-5, atol=1e-4)
+
+
+def _resolve(pkg, path):
+    """The object at `path` (modules, then attributes) under `pkg`."""
+    parts = path.split(".")
+    for i in range(len(parts), 0, -1):
+        try:
+            obj = importlib.import_module(".".join([pkg] + parts[:i]))
+        except ImportError:
+            continue
+        for name in parts[i:]:
+            obj = getattr(obj, name)
+        return obj
+    raise ImportError(path)
+
+
+@pytest.mark.parametrize("path", SIGNATURES)
+def test_signature_accepts_reference_kwargs(path):
+    """Every parameter of the JAX signature exists in the port's (the
+    precision / tiling kwargs accepted and ignored, C7), and the defaults
+    that decide behaviour are the JAX package's (impl "xla", a float32
+    cell store, npz saves; C6)."""
+    ref = inspect.signature(_resolve("torchpq_tpu", path)).parameters
+    got = inspect.signature(_resolve("torchpq_tpu_torch", path)).parameters
+    missing = [p for p in ref if p not in got]
+    assert not missing, f"{path} lacks {missing}"
+    for name in DEFAULTS:
+        if name in ref:
+            assert got[name].default == ref[name].default, (path, name)
+
+
+@pytest.mark.parametrize("cls", ["KMeans", "MultiKMeans"])
+def test_centroids_setter_matches(rng, cls):
+    """Assigning centroids in the reference layout sets the same state and
+    the same predictions in both packages (C5); None clears it."""
+    if cls == "KMeans":
+        x = rng.normal(size=(8, 300)).astype(np.float32)
+        cents = rng.normal(size=(8, 12)).astype(np.float32)
+        ref, port = JaxKMeans(n_clusters=12), tp.clustering.KMeans(
+            n_clusters=12, sm_size=48 * 1024, device=CPU)
+    else:
+        x = rng.normal(size=(3, 4, 300)).astype(np.float32)
+        cents = rng.normal(size=(3, 4, 12)).astype(np.float32)
+        ref, port = JaxMultiKMeans(n_clusters=12), \
+            tp.clustering.MultiKMeans(n_clusters=12, sm_size=48 * 1024,
+                                      device=CPU)
+    ref.centroids = jnp.asarray(cents)
+    port.centroids = cents
+    assert port.is_trained
+    np.testing.assert_array_equal(port.centroids.numpy(), cents)
+    np.testing.assert_array_equal(port._centroids.numpy(),
+                                  np.asarray(ref._centroids))
+    np.testing.assert_array_equal(port.predict(x).numpy(),
+                                  np.asarray(ref.predict(jnp.asarray(x))))
+    port.centroids = None
+    assert not port.is_trained
+
+
+def test_kmeans_static_helpers_match(rng):
+    """cos_sim / euc_sim / sim take the reference's [d, n] operands;
+    calculate_error / calculate_inertia; the memory probe's CPU answer is
+    the JAX package's 8 GiB assumption (C5)."""
+    a = rng.normal(size=(6, 20)).astype(np.float32)
+    b = rng.normal(size=(6, 9)).astype(np.float32)
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    port = tp.clustering.KMeans(n_clusters=4, distance="inner", device=CPU)
+    ref = JaxKMeans(n_clusters=4, distance="inner")
+    for got, want in (
+            (tp.clustering.KMeans.cos_sim(ta, tb), JaxKMeans.cos_sim(ja, jb)),
+            (tp.clustering.KMeans.euc_sim(ta, tb), JaxKMeans.euc_sim(ja, jb)),
+            (port.sim(ta, tb), ref.sim(ja, jb)),
+            (tp.clustering.KMeans.calculate_error(ta[:, :9], tb),
+             JaxKMeans.calculate_error(ja[:, :9], jb)),
+            (tp.clustering.KMeans.calculate_inertia(ta),
+             JaxKMeans.calculate_inertia(ja))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+    assert tp.clustering.KMeans.remaining_memory("cpu") == 1 << 33
+    assert tp.clustering.MultiKMeans.does_it_fit(1 << 20, "cpu")
+    assert not tp.clustering.KMeans.does_it_fit(1 << 32, "cpu")
+
+
+def test_cell_container_helpers_match(rng):
+    """The float32 default store (C6), contiguous_size accepted (C7), and
+    get_ioa / get_write_address / set_data_by_address / get_data_by_id /
+    empty against the JAX container on the same adds (C5)."""
+    kw = dict(code_size=3, n_cells=4, initial_size=16)
+    jc = JaxCells(**kw, contiguous_size=4)
+    tc = tp.container.CellContainer(**kw, contiguous_size=4, device=CPU)
+    assert tc._storage.dtype == torch.float32
+    data = rng.normal(size=(3, 30)).astype(np.float32)
+    cells = rng.integers(0, 4, size=30).astype(np.int32)
+    jc.add(jnp.asarray(data), jnp.asarray(cells))
+    tc.add(data, cells)
+    new = rng.integers(0, 4, size=11).astype(np.int32)
+    np.testing.assert_array_equal(tc.get_ioa(new).numpy(),
+                                  np.asarray(jc.get_ioa(jnp.asarray(new))))
+    np.testing.assert_array_equal(
+        tc.get_write_address(new).numpy(),
+        np.asarray(jc.get_write_address(jnp.asarray(new))))
+    addr = np.array([0, 5, 17, 40, -1, 9999])
+    rows = rng.normal(size=(3, 6)).astype(np.float32)
+    jc.set_data_by_address(jnp.asarray(rows), jnp.asarray(addr))
+    tc.set_data_by_address(rows, addr)
+    np.testing.assert_array_equal(tc._storage.numpy(),
+                                  np.asarray(jc._storage))
+    ids = np.array([0, 3, 29, 30, -1])
+    np.testing.assert_array_equal(
+        tc.get_data_by_id(ids).numpy(),
+        np.asarray(jc.get_data_by_id(jnp.asarray(ids))))
+    jc.empty()
+    tc.empty()
+    assert tc.n_items == 0 and tc.max_id == 0
+    for k in ("_address2id", "_id2address", "_is_empty", "_cell_size"):
+        np.testing.assert_array_equal(to_np(getattr(tc, k)),
+                                      np.asarray(getattr(jc, k)), err_msg=k)
+    assert tc.add(data[:, :2], cells[:2]).tolist() == [0, 1]
+
+
+def test_state_nbytes_and_save_formats(index_pair, tmp_path):
+    """state_nbytes counts the same registered state as the JAX package's
+    (C5); save takes format="npz" and refuses "orbax", which imports jax
+    (C7, a recorded divergence)."""
+    jidx, port, _, q = index_pair
+    assert port.state_nbytes() == jidx.state_nbytes()
+    assert port.state_nbytes() == sum(
+        np.asarray(v).nbytes for k, v in port.state_dict().items()
+        if not k.endswith("::bfloat16") and np.ndim(v))
+    path = str(tmp_path / "idx.npz")
+    port.save(path, format="npz")
+    fresh = tp.IVFPQIndex(d_vector=32, n_subvectors=8, n_cells=8,
+                          device=CPU)
+    fresh.load(path)
+    assert all(torch.equal(a, b) for a, b in zip(port.search(q, k=5),
+                                                  fresh.search(q, k=5)))
+    with pytest.raises(NotImplementedError, match="jax"):
+        port.save(str(tmp_path / "ckpt"), format="orbax")

@@ -147,7 +147,7 @@ def test_scan_cell_major_matches(scan_case, compact, approx, k):
         impl="pallas" if k <= 64 else "xla", interpret=True, **kw)
     v, a = tadc.scan_cell_major(
         to_t(q), to_t(cells), to_t(mask),
-        *[to_t(t) for t in arrs], **kw)
+        *[to_t(t) for t in arrs], impl="auto", **kw)
     assert tadc.LAST_GATE["impl"] == ("block_scan" if k <= 64
                                       else "block_select")
     if approx:

@@ -26,12 +26,13 @@ def _integer_case(*, m, dsub, s_eff, seed):
     return args
 
 
-@pytest.mark.parametrize("m,dsub", [(64, 2), (8, 4)])
+@pytest.mark.parametrize("m,dsub", [(64, 2), (8, 4), (32, 4)])
 @pytest.mark.parametrize("pack32", [False, True])
 @pytest.mark.parametrize("k_pair,s_eff", [(10, 256), (40, 512)])
 def test_integer_inputs_plain_equals_pallas(m, dsub, pack32, k_pair, s_eff):
-    """g = 2 (PQ64, d = 128) and g = 16 (PQ8, d = 32); k_pair 40 at s_eff
-    512 selects over G = 256 strided groups in pack32."""
+    """g = 2 (PQ64, d = 128), g = 16 (PQ8, d = 32) and g = 4 (4-bit PQ64:
+    32 byte pairs over the byte-pair codebook, d = 128); k_pair 40 at
+    s_eff 512 selects over G = 256 strided groups in pack32."""
     if pack32:
         assert n_groups(s_eff, k_pair) == (256 if k_pair > 32 else 128)
     args = _integer_case(m=m, dsub=dsub, s_eff=s_eff, seed=m + k_pair)

@@ -383,7 +383,7 @@ def test_scan_cell_major_on_card_matches_cpu(cuda):
     cpu = (q, cells, mask, decoded, norms, is_empty, start, cap)
     for approx in (False, True):
         kw = dict(k=10, distance="euclidean", s_max=per, n_cells=n_cells,
-                  approx=approx)
+                  approx=approx, impl="auto")
         v_ref, a_ref = adc.scan_cell_major(*cpu, **kw)
         v, a = adc.scan_cell_major(*[t.to(cuda) for t in cpu], **kw)
         torch.testing.assert_close(v.cpu(), v_ref, rtol=1e-3, atol=1e-2)
@@ -454,6 +454,96 @@ def test_index_on_card_matches_cpu(cuda):
         _assert_pack32_values(v, v_ref, i, i_ref, q, gate["s_eff"])
 
 
+def _assert_topk_ties(v, i, v_ref, i_ref, rtol=1e-3, atol=1e-2):
+    """An exact plan's top-k against the CPU's: values within the
+    tolerance, position by position, and ids equal wherever a value is
+    apart from the others of its row and from the row's last (4-bit codes
+    decode many rows alike, and the two devices' top-k order exact ties
+    differently)."""
+    v, i = v.cpu(), i.cpu()
+    torch.testing.assert_close(v, v_ref, rtol=rtol, atol=atol)
+    tol = atol + rtol * v_ref.abs()
+    near = (v_ref[:, :, None] - v_ref[:, None, :]).abs() <= tol[:, :, None]
+    apart = (near.sum(-1) == 1) & ((v_ref - v_ref[:, -1:]).abs() > tol)
+    assert torch.equal(i[apart], i_ref[apart])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,m,kwargs", [
+    (32, 8, dict(n_bits=4)),
+    (64, 32, dict(n_bits=4, scan_cache_dtype="none")),
+    (32, 8, dict(pq_use_residual=True)),
+    (32, 8, dict(distance="inner", anisotropic_eta=4.0)),
+    (32, 8, dict(distance="manhattan")),
+])
+def test_pq_variants_on_card_match_cpu(cuda, tmp_path, d, m, kwargs):
+    """The PQ variants on the card: an index trains there; with the CPU
+    index's trained state, the same adds (a relayout), a remove and more
+    adds, the stores equal the CPU's (anisotropic codes on >= 0.999: the
+    cost cancels, so near-ties follow the card's summation order) and
+    every plan finds the same neighbours; a save loads back on the card
+    and searches alike. The 4-bit code domain at 32 codes runs the
+    tensor-core codes kernel over the byte-pair codebook (dsub 4); no
+    kernel takes manhattan."""
+    import numpy as np
+    import torchpq_tpu_torch as tp
+
+    rng = np.random.default_rng(1)
+    centers = rng.normal(size=(40, d)).astype(np.float32) * 3
+    x = (centers[rng.integers(0, 40, 5000)]
+         + rng.normal(size=(5000, d))).astype(np.float32)
+    q = x[:200] + 0.1 * rng.normal(size=(200, d)).astype(np.float32)
+    kw = dict(initial_size=32, **kwargs)
+    trained = tp.IVFPQIndex(d, m, 16, device=cuda, **kw)
+    trained.vq_max_iter = trained.pq_max_iter = 5
+    trained.train(torch.from_numpy(x[:1500]).to(cuda).T)
+    assert trained.is_trained
+    assert bool(torch.isfinite(trained.pq_codec.codebook_internal).all())
+    cpu = tp.IVFPQIndex(d, m, 16, device="cpu", **kw)
+    cpu.vq_max_iter = cpu.pq_max_iter = 5
+    cpu.train(x[:1500].T)
+    gpu = tp.IVFPQIndex(d, m, 16, device=cuda, **kw)
+    gpu.load_state_dict(cpu.state_dict())
+    for chunk in (x[:2500], x[2500:4000]):
+        cpu.add(chunk.T)
+        gpu.add(torch.from_numpy(chunk).to(cuda).T)
+    rm = np.arange(0, 4000, 7)
+    assert gpu.remove(rm) == cpu.remove(rm)
+    cpu.add(x[4000:].T)
+    gpu.add(torch.from_numpy(x[4000:]).to(cuda).T)
+    assert gpu.max_cell_capacity > 32, "the adds must relayout"
+    same = (gpu._storage.cpu() == cpu._storage).float().mean().item()
+    assert same >= (0.999 if "anisotropic_eta" in kwargs else 1.0), same
+    assert torch.equal(gpu._address2id.cpu(), cpu._address2id)
+    path = str(tmp_path / "variant.npz")
+    gpu.save(path)
+    back = tp.IVFPQIndex(d, m, 16, device=cuda, **kw)
+    back.load(path)
+    before = {**bs.launches, **cs.launches}
+    for mode, approx in (("cell_major", False), ("cell_major", True),
+                         ("flat", False)):
+        for idx in (cpu, gpu, back):
+            idx.scan_mode, idx.use_approx_topk, idx.n_probe = mode, approx, 4
+        v_ref, i_ref = cpu.search(q.T, k=10)
+        v, i = gpu.search(torch.from_numpy(q).to(cuda).T, k=10)
+        v_b, i_b = back.search(torch.from_numpy(q).to(cuda).T, k=10)
+        assert torch.equal(i_b, i) and torch.equal(v_b, v)
+        shared = sum(len(set(a.tolist()) & set(b.tolist()))
+                     for a, b in zip(i.cpu(), i_ref)) / i_ref.numel()
+        if approx or "anisotropic_eta" in kwargs:
+            assert shared >= 0.95, (mode, approx, shared)
+        if approx:
+            _assert_pack32_values(v, v_ref, i, i_ref, q,
+                                  adc.LAST_GATE["s_eff"])
+        elif "anisotropic_eta" not in kwargs:
+            _assert_topk_ties(v, i, v_ref, i_ref)
+    if kwargs.get("scan_cache_dtype") == "none":
+        assert cs.launches["tc_exact"] > before["tc_exact"]
+        assert cs.launches["tc_pack32"] > before["tc_pack32"]
+    if kwargs.get("distance") == "manhattan":
+        assert {**bs.launches, **cs.launches} == before
+
+
 @pytest.mark.gpu
 def test_spill_assign_on_card_matches_cpu(cuda):
     """The device spill routing on the card equals the CPU's bit for bit:
@@ -508,12 +598,13 @@ def _assert_pads(got, ref, probers, route, k_pair, pack32):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("pack32", [False, True])
-@pytest.mark.parametrize("m,dsub", [(64, 2), (8, 4), (128, 1)])
+@pytest.mark.parametrize("m,dsub", [(64, 2), (8, 4), (128, 1), (32, 4)])
 @pytest.mark.parametrize("s_eff", [256, 1024, 8192])
 @pytest.mark.parametrize("k_pair", [10, 40])
 def test_codes_kernel_matches_plain(cuda, pack32, m, dsub, s_eff, k_pair):
-    """g = 2 (d=128, PQ64), g = 16 (d=32, PQ8) and g = 1 (d=128, PQ128) on
-    random inputs, through the kernel pick_route names (exact k_pair 40:
+    """g = 2 (d=128, PQ64), g = 16 (d=32, PQ8), g = 1 (d=128, PQ128) and
+    g = 4 (d=128, 4-bit PQ64: 32 byte pairs over the byte-pair codebook)
+    on random inputs, through the kernel pick_route names (exact k_pair 40:
     the CUDA-core one; pack32 k_pair 40 selects over 512 strided groups at
     s_eff 1024 and 8192). Live rows: the tensor cores sum in another order
     than the plain version's GEMM (bf16 products are exact in f32), so
@@ -544,7 +635,8 @@ def test_codes_kernel_matches_plain(cuda, pack32, m, dsub, s_eff, k_pair):
 @pytest.mark.gpu
 @pytest.mark.parametrize("pack32", [False, True])
 @pytest.mark.parametrize("m,dsub,s_eff", [(64, 2, 1024), (8, 4, 256),
-                                          (128, 1, 512), (64, 2, 8192)])
+                                          (128, 1, 512), (64, 2, 8192),
+                                          (32, 4, 1024)])
 @pytest.mark.parametrize("k_pair,euclidean", [(10, True), (40, False)])
 def test_codes_tc_kernel_integer_ties_exact(cuda, pack32, m, dsub, s_eff,
                                             k_pair, euclidean):

@@ -373,7 +373,7 @@ def test_int8_scan_cell_major_matches():
         v, a = tadc.scan_cell_major(
             torch.from_numpy(q), to_t(cells), to_t(mask),
             *[to_t(t) for t in arrs], scales=to_t(jidx.aux("scale")[:, 0]),
-            **kw)
+            impl="auto", **kw)
         assert tadc.LAST_GATE["impl"] == "block_scan"
         assert overlap(a, a_ref) >= (0.99 if approx else 1.0)
         np.testing.assert_allclose(v.numpy(), np.asarray(v_ref), atol=1e-4,

@@ -186,24 +186,29 @@ def test_port_trains_on_its_own():
     assert recalls[("flat", 1)] >= 0.5, recalls
 
 
+@pytest.mark.parametrize("kwargs", [
+    dict(scan_cache_dtype="int8", distance="manhattan"),
+    dict(scan_cache_dtype="none", pq_use_residual=True),
+])
+def test_refused_settings_match_jax(kwargs):
+    """The settings the JAX package refuses (an int8 cache with manhattan,
+    residual PQ in the code domain), the port refuses alike: the same
+    exception type and words."""
+    with pytest.raises(AssertionError) as ref:
+        JaxIndex(D, M, N_CELLS, initial_size=64, **kwargs)
+    with pytest.raises(AssertionError) as got:
+        tp.IVFPQIndex(D, M, N_CELLS, initial_size=64, device=CPU, **kwargs)
+    assert str(got.value) == str(ref.value)
+
+
 @pytest.mark.parametrize("kwargs,attr", [
-    (dict(scan_cache_dtype="int8", distance="manhattan"), None),
-    (dict(scan_cache_dtype="none", n_bits=4), None),
-    (dict(n_bits=4), None),
-    (dict(pq_use_residual=True), None),
-    (dict(anisotropic_eta=2.0), None),
-    (dict(distance="manhattan"), None),
-    ({}, dict(spill_cells=2, spill_capacity=64, spill_impl="host")),
+    # the case keeps the id it had among the settings ported since
+    pytest.param({}, dict(spill_cells=2, spill_capacity=64,
+                          spill_impl="host"), id="kwargs6-attr6"),
 ])
 def test_unported_settings_raise(kwargs, attr):
-    def make():
-        return tp.IVFPQIndex(D, M, N_CELLS, initial_size=64, device=CPU,
-                             **kwargs)
-    if attr is None:
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            make()
-        return
-    idx = make()
+    idx = tp.IVFPQIndex(D, M, N_CELLS, initial_size=64, device=CPU,
+                        **kwargs)
     x = _data(9, 300)
     idx.train(x.T)
     for name, value in attr.items():

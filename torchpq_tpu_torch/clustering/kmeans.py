@@ -10,7 +10,8 @@ package's state dict.
 import torch
 
 from .. import util
-from ..metric import canonical_distance
+from ..metric import (canonical_distance, cosine_similarity,
+                      negative_squared_l2_distance, similarity)
 from ..module import StateModule
 from ..ops.max_sim import batched_max_sim, batched_topk_sim, max_sim, \
     topk_sim
@@ -22,8 +23,9 @@ class MultiKMeans(StateModule):
 
     def __init__(self, n_clusters, n_redo=1, max_iter=100, tol=1e-4,
                  distance="euclidean", init_mode="random", verbose=0,
-                 seed=0, device=None):
+                 sm_size=None, seed=0, device=None):
         super().__init__(verbose=verbose, device=device)
+        del sm_size  # the reference's shared-memory knob; no effect here
         self.n_clusters = n_clusters
         self.n_redo = n_redo
         self.max_iter = max_iter
@@ -40,9 +42,52 @@ class MultiKMeans(StateModule):
             return None
         return self._centroids.transpose(1, 2)
 
+    @centroids.setter
+    def centroids(self, value):
+        self._centroids = None if value is None else util.as_tensor(
+            value, self.device, torch.float32).transpose(1, 2).contiguous()
+
     @property
     def is_trained(self):
         return self._centroids is not None
+
+    # -- memory probing and similarity helpers (kmeans.py:60-95) --
+    @staticmethod
+    def remaining_memory(device=None):
+        """Free device memory in bytes: the CUDA allocator's free bytes on
+        a card, else the JAX package's assumption of 8 GiB."""
+        dev = torch.device(device if device is not None else (
+            "cuda" if torch.cuda.is_available() else "cpu"))
+        if dev.type == "cuda":
+            return int(torch.cuda.mem_get_info(dev)[0])
+        return 1 << 33
+
+    @staticmethod
+    def does_it_fit(size, device=None, dtype=torch.float32):
+        itemsize = torch.empty((), dtype=util.str2dtype(dtype)).element_size()
+        return size * itemsize < MultiKMeans.remaining_memory(device)
+
+    @staticmethod
+    def cos_sim(a, b):
+        """[d, na] x [d, nb] -> [na, nb] cosine similarity."""
+        return cosine_similarity(a.T, b.T)
+
+    @staticmethod
+    def euc_sim(a, b):
+        """[d, na] x [d, nb] -> [na, nb] negative squared L2."""
+        return negative_squared_l2_distance(a.T, b.T)
+
+    def sim(self, a, b):
+        """[d, na] x [d, nb] -> [na, nb] by the instance's distance."""
+        return similarity(a.T, b.T, self.distance)
+
+    @staticmethod
+    def calculate_error(a, b):
+        return torch.sum((a - b) ** 2)
+
+    @staticmethod
+    def calculate_inertia(maxsims):
+        return torch.mean(-maxsims)
 
     def _generator(self):
         return torch.Generator().manual_seed(int(self.seed))
@@ -95,6 +140,11 @@ class KMeans(MultiKMeans):
         if self._centroids is None:
             return None
         return self._centroids[0].T
+
+    @centroids.setter
+    def centroids(self, value):
+        self._centroids = None if value is None else util.as_tensor(
+            value, self.device, torch.float32).T[None].contiguous()
 
     def fit(self, data, centroids=None):
         """data: [d_vector, n_data]; centroids [d_vector, k] optional.

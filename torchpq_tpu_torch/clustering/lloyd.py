@@ -36,10 +36,15 @@ def _init_random(x, gen, n_clusters):
 
 
 def _init_kmeanspp(x, gen, n_clusters, distance):
-    """k-means++ seeding by Gumbel-max sampling on log D^2."""
-    if canonical_distance(distance) == "manhattan":
-        raise NotImplementedError(
-            "manhattan distance is not ported yet (ROADMAP A12)")
+    """k-means++ seeding by Gumbel-max sampling on log D, with D the
+    squared L2 distance to the nearest seed (the L1 distance for
+    manhattan)."""
+    l1 = canonical_distance(distance) == "manhattan"
+
+    def dist_to(xi, c):
+        diff = xi - c
+        return torch.sum(diff.abs() if l1 else diff * diff, dim=-1)
+
     m, n, d = x.shape
     out = []
     for i in range(m):
@@ -47,14 +52,13 @@ def _init_kmeanspp(x, gen, n_clusters, distance):
         first = int(torch.randint(n, (1,), generator=gen))
         cents = torch.zeros((n_clusters, d), dtype=xi.dtype, device=xi.device)
         cents[0] = xi[first]
-        best_d = torch.sum((xi - xi[first]) ** 2, dim=-1)
+        best_d = dist_to(xi, xi[first])
         for j in range(1, n_clusters):
             u = torch.rand(n, generator=gen).clamp_(1e-20, 1.0)
             g = -torch.log(-torch.log(u)).to(xi.device)
             idx = int(torch.argmax(torch.log(best_d.clamp(min=1e-30)) + g))
             cents[j] = xi[idx]
-            best_d = torch.minimum(best_d,
-                                   torch.sum((xi - xi[idx]) ** 2, dim=-1))
+            best_d = torch.minimum(best_d, dist_to(xi, xi[idx]))
         out.append(cents)
     return torch.stack(out)
 

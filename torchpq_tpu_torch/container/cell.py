@@ -52,10 +52,11 @@ def _relayout_gather(old_rows, old_start, old_cap, new_start, new_total,
 
 
 class CellContainer(BaseContainer):
-    def __init__(self, code_size, n_cells, dtype="uint8", device=None,
+    def __init__(self, code_size, n_cells, dtype="float32", device=None,
                  initial_size=None, expand_step_size=1024,
                  expand_mode="double", use_inverse_id_mapping=True,
-                 verbose=0, pack_group=1):
+                 contiguous_size=1, verbose=0, pack_group=1):
+        del contiguous_size  # the reference's vector-load width; no effect
         if initial_size is None:
             initial_size = max(expand_step_size // max(n_cells, 1), 16)
         per_cell = max(util.next_pow2(initial_size), 16)
@@ -130,6 +131,24 @@ class CellContainer(BaseContainer):
                                right=True) - 1
         return torch.where(valid, c, -1).int()
 
+    def get_ioa(self, cells, unique_cells=None):
+        """Rank of each item within its own cell among the batch's items,
+        stable -> [n] (the reference's get_ioa)."""
+        del unique_cells
+        cells = util.as_tensor(cells, self.device).long()
+        return rank_in_group(cells, torch.ones_like(cells, dtype=torch.bool),
+                             self.n_cells)
+
+    def get_write_address(self, cells, empty_adr=None, ioa=None):
+        """Address each new item would be written at: the ioa-th empty slot
+        of its cell -> int32 [n]."""
+        del empty_adr
+        cells = util.as_tensor(cells, self.device).long()
+        ioa = self.get_ioa(cells) if ioa is None \
+            else util.as_tensor(ioa, self.device).long()
+        return _find_write_addresses(self._is_empty, self._cell_start, cells,
+                                     ioa).int()
+
     def storage_rows(self, address):
         """Code rows [n, code_size] at in-range addresses."""
         return self._codes_view()[util.as_tensor(address, self.device).long()]
@@ -142,6 +161,19 @@ class CellContainer(BaseContainer):
         valid = valid & ~self._is_empty[safe]
         rows = self.storage_rows(safe)
         return torch.where(valid[:, None], rows, 0).T
+
+    def set_data_by_address(self, data, address):
+        """Overwrite the code rows at `address` [n] with data
+        [code_size, n]; out-of-range addresses are dropped."""
+        address = util.as_tensor(address, self.device).long()
+        valid = (address >= 0) & (address < self._capacity)
+        rows = util.as_tensor(data, self.device, self.dtype).T
+        self._codes_view()[address[valid]] = rows[valid]
+        self._mutations += 1
+
+    def get_data_by_id(self, ids):
+        """ids [n] -> [code_size, n]; zeros where an id holds nothing."""
+        return self.get_data_by_address(self.get_address_by_id(ids))
 
     # -- growth --
     def expand(self, cells=None, required=None):
@@ -267,6 +299,17 @@ class CellContainer(BaseContainer):
         self._n_items -= removed
         self._mutations += 1
         return removed
+
+    def empty(self):
+        """Drop every item and keep the layout."""
+        self._address2id.fill_(-1)
+        self._id2address.fill_(-1)
+        self._is_empty.fill_(True)
+        self._cell_size.zero_()
+        self._n_items = 0
+        self._max_id = 0
+        self._mutations += 1
+        self._cell_size_np[:] = 0
 
     def _after_load(self):
         super()._after_load()

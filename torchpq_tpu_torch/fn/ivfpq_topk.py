@@ -19,18 +19,19 @@ class IVFPQTopk:
         self.approx = approx
 
     def topk(self, query, cells, probe_mask, decoded, norms, is_empty,
-             cell_start, cell_capacity, *, k, distance, s_max, mode=None,
-             approx=None, pq_codebook=None, m=None, scales=None,
-             impl="auto", group=1, probe_cap=None):
+             cell_start, cell_capacity, *, k, distance, s_max, scales=None,
+             mode=None, approx=None, impl="xla", group=1, precision=None,
+             pq_codebook=None, probe_cap=None, m=None):
         """Returns (values [nq, k] f32, addresses [nq, k] int32; -1 pads).
         With explicit cells, "flat" and "auto" pick by batch size. When
         `decoded` is the raw uint8 codes (scan_cache_dtype="none"), pass
         `pq_codebook`: every mode runs the code-domain cell-major scan, with
         `m` the per-slot code width of the packed [cap/g, g*m] layout. An
         int8 cache passes its per-slot `scales` and always runs cell-major.
-        `impl` is the index's scan_impl; `group` and `probe_cap` pass
-        through to the cell-major scan (supercells, the probe cap), as in
-        the JAX package, which takes no merge taper here."""
+        `impl` is the index's scan_impl ("xla" by default, as in the JAX
+        package); `group` and `probe_cap` pass through to the cell-major
+        scan (supercells, the probe cap), as in the JAX package, which
+        takes no merge taper here. `precision` is accepted and ignored."""
         mode = mode or self.mode
         approx = self.approx if approx is None else approx
         if pq_codebook is not None:

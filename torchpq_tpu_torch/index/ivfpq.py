@@ -19,6 +19,17 @@ quantized to int8 (d_cache B per slot) beside its f32 dequant scale (the
 "scale" aux store) and norm. Every probed plan runs the cell-major scan in
 the block scan's int8 mode, and the flat plan sweeps the integer products.
 
+n_bits=4 keeps two 16-cluster codes per byte (m/2 bytes per slot). Every
+reader of the stored bytes (the cache rebuild, the code-domain scans,
+similarity_at_address) decodes or scores them against the byte-pair view
+of the codebooks (`_scan_codebook`, codec/pq.py:paired_codebook), so
+nothing unpacks them. pq_use_residual=True encodes each vector's residual
+from its cell centroid: the cache rows are centroid + PQ reconstruction
+(the code domain refuses it, as the JAX package does). anisotropic_eta
+trains and encodes the PQ by the anisotropic loss (codec/pq.py).
+Manhattan distance runs in plain torch: no kernel takes it, in either
+package.
+
 `scan_impl` picks the scan implementation as in the JAX package: "auto"
 (the kernels wherever their gates admit), "pallas" (demand the kernel: the
 port raises where the JAX package warns and falls back), "xla" (the
@@ -30,9 +41,9 @@ The deep-k surface of the JAX package is here too: supercells
 its split into two scans, supercell-native probing, and the device route of
 capacity-bounded (spill) assignment at add.
 
-Settings the JAX package supports but this port does not yet raise
-NotImplementedError naming their ROADMAP item; none silently takes another
-path.
+Settings the JAX package supports but this port does not yet (the host
+spill route) raise NotImplementedError naming their ROADMAP item; none
+silently takes another path.
 """
 
 import numpy as np
@@ -40,17 +51,20 @@ import torch
 
 from .. import config
 from .. import util
-from ..metric import canonical_distance, negative_squared_l2_distance
+from ..metric import (canonical_distance, negative_manhattan_distance,
+                      negative_squared_l2_distance)
 from ..codec import PQCodec, VQCodec
+from ..codec.pq import pack_nibbles, paired_codebook
 from ..container import CellContainer
 from ..fn.ivfpq_topk import IVFPQTopk
 from ..ops import adc
 from ..ops.block_scan import BIG
-from ..ops.codes_scan import codes_kernel_static_gate
+from ..ops.codes_scan import codes_kernel_static_gate, decode_codes
 from ..ops.flat_adc import flat_adc_auto
 from ..ops.gather import gather_rows
 from ..ops.max_sim import topk_sim
-from ..ops.onehot_adc import flat_decode_scan, scan_cell_major_codes
+from ..ops.onehot_adc import (flat_decode_scan, flat_onehot_scan,
+                              scan_cell_major_codes)
 from ..ops.spill import spill_assign_device
 
 
@@ -248,12 +262,14 @@ def _search_full(q, coarse_codebook, decoded, norms, is_empty, cell_start,
 
 def _search_flat_codes(q, codes, norms, is_empty, addr_map, address2id,
                        codebook, *, k, distance, m):
-    """Code-domain flat plan: decode-on-the-fly sweep + address
+    """Code-domain flat plan: decode-on-the-fly sweep (manhattan: the LUT
+    sweep, as L1 does not factor through a product) + address
     translation."""
     penalty = torch.where(is_empty, BIG,
                           norms.float() if distance == "euclidean" else 0.0)
-    vals, addr = flat_decode_scan(q, codes, penalty.float(), codebook, k=k,
-                                  distance=distance, m=m)
+    sweep = flat_onehot_scan if distance == "manhattan" else flat_decode_scan
+    vals, addr = sweep(q, codes, penalty.float(), codebook, k=k,
+                       distance=distance, m=m)
     ids, addr = _translate(addr, addr_map, address2id)
     return vals, ids, addr
 
@@ -280,52 +296,53 @@ class IVFPQIndex(CellContainer):
                  expand_mode="double", distance="euclidean", device=None,
                  pq_use_residual=False, verbose=0, scan_cache_dtype=None,
                  scan_mode="auto", n_bits=8, seed=0, anisotropic_eta=None,
-                 pack_ingest=None):
+                 anisotropic_iters=8, pack_ingest=None):
         assert d_vector % n_subvectors == 0
+        assert n_bits in (4, 8), "n_bits must be 4 or 8"
+        if n_bits == 4:
+            assert n_subvectors % 2 == 0, "4-bit PQ needs even n_subvectors"
         cache_dtype = str(scan_cache_dtype or config.SCAN_CACHE_DTYPE)
         # scan_cache_dtype="none": no decoded cache; scans read the codes
         self._code_domain = cache_dtype == "none"
         # scan_cache_dtype="int8": int8 cache rows with per-slot scales
         self._int8_cache = cache_dtype == "int8"
-        if n_bits != 8:
-            raise NotImplementedError("n_bits=4 is not ported yet "
-                                      "(ROADMAP A12)")
-        if pq_use_residual:
-            raise NotImplementedError("pq_use_residual is not ported yet "
-                                      "(ROADMAP A12)")
-        if anisotropic_eta is not None:
-            raise NotImplementedError("anisotropic PQ is not ported yet "
-                                      "(ROADMAP A12)")
-        if canonical_distance(distance) == "manhattan":
-            raise NotImplementedError(
-                "manhattan distance is not ported yet (ROADMAP A12)")
-        self.n_bits = 8
+        self.n_bits = int(n_bits)
         if initial_size is None:
             initial_size = expand_step_size
-        eligible = 8 <= n_subvectors < 128 and 128 % n_subvectors == 0
+        code_bytes = n_subvectors // 2 if n_bits == 4 else n_subvectors
+        # packed [cap/g, g*m] storage at ingest (g = 128 // code bytes):
+        # every eligible 8-bit index, and a 4-bit one only in the code
+        # domain (ivfpq.py:444-470), so each tier's stored layout and .npz
+        # state are the JAX package's
+        eligible = 8 <= code_bytes < 128 and 128 % code_bytes == 0
         if pack_ingest is None:
-            pack_ingest = eligible
+            pack_ingest = eligible and (n_bits == 8 or self._code_domain)
         elif pack_ingest and not eligible:
             raise ValueError(
                 "pack_ingest requires 8 <= code bytes < 128 dividing 128")
         super().__init__(
-            code_size=n_subvectors, n_cells=n_cells, dtype="uint8",
+            code_size=code_bytes, n_cells=n_cells, dtype="uint8",
             device=device, initial_size=initial_size,
             expand_step_size=expand_step_size, expand_mode=expand_mode,
-            use_inverse_id_mapping=True, verbose=verbose,
-            pack_group=128 // n_subvectors if pack_ingest else 1)
+            use_inverse_id_mapping=True, contiguous_size=4, verbose=verbose,
+            pack_group=128 // code_bytes if pack_ingest else 1)
         self.d_vector = d_vector
         self.n_subvectors = n_subvectors
         self.d_subvector = d_vector // n_subvectors
         self.distance = canonical_distance(distance)
-        self.pq_use_residual = False
+        self.pq_use_residual = pq_use_residual
+        assert not (self._code_domain and pq_use_residual), \
+            "scan_cache_dtype='none' does not support pq_use_residual yet " \
+            "(the per-cell centroid term is not in the code LUT)"
+        assert not (self._int8_cache and self.distance == "manhattan"), \
+            "int8 scan cache does not support manhattan distance"
         self.n_probe = 1
         self._use_smart_probing = True
         self._smart_probing_temperature = 30.0
         self._use_approx_topk = False
         # the reference's CUDA tunables (ivfpq.py:483-488): validated and
         # kept, with no effect on the port's scans
-        self._use_precomputed = False
+        self._use_precomputed = pq_use_residual
         self._use_cublas = True
         self._use_tensor_core = True
         self._fp16_scale_mode = "a"
@@ -368,8 +385,10 @@ class IVFPQIndex(CellContainer):
             distance="euclidean", init_mode="random", verbose=verbose,
             seed=seed, device=device))
         self.register_module("pq_codec", PQCodec(
-            d_vector=d_vector, n_subvectors=n_subvectors, n_clusters=256,
-            distance=distance, verbose=verbose, seed=seed, device=device))
+            d_vector=d_vector, n_subvectors=n_subvectors,
+            n_clusters=16 if n_bits == 4 else 256, distance=distance,
+            verbose=verbose, seed=seed, anisotropic_eta=anisotropic_eta,
+            anisotropic_iters=anisotropic_iters, device=device))
         self._ivfpq_topk = IVFPQTopk(n_cells=n_cells, mode=scan_mode)
         # (mutation counter, layout) caches of the compacted scan layouts
         self._flat_cache = None
@@ -481,7 +500,8 @@ class IVFPQIndex(CellContainer):
     # ---- training ----
     def train(self, x, force_retrain=False):
         """x: [d_vector, n]. VQ k-means, the locality relabel of the cells
-        (util.locality_order, as in the JAX package), then PQ k-means."""
+        (util.locality_order, as in the JAX package), then PQ k-means (on
+        the residuals from the cell centroids with pq_use_residual)."""
         if self.is_trained and not force_retrain:
             self.print_message("index is already trained", 1)
             return
@@ -491,23 +511,38 @@ class IVFPQIndex(CellContainer):
         order = util.locality_order(km._centroids[0].cpu().numpy())
         km.register_state("_centroids", km._centroids[
             :, torch.as_tensor(order, device=self.device)].contiguous())
+        if self.pq_use_residual:
+            x = x - self.vq_codec.decode(self.vq_codec.encode(x))
         self.pq_codec.train(x)
 
     # ---- codec exposure ----
     def encode(self, x):
         """x: [d_vector, n] -> PQ codes [n_subvectors, n] uint8 (cosine
-        inputs normalized first)."""
-        return self.pq_codec.encode(self._prep(x))
+        inputs normalized first); with pq_use_residual (pq_code, vq_code),
+        the PQ codes of the residuals from the cells' centroids."""
+        x = self._prep(x)
+        if self.pq_use_residual:
+            vq_code = self.vq_codec.encode(x)
+            pq_code = self.pq_codec.encode(x - self.vq_codec.decode(vq_code))
+            return pq_code, vq_code
+        return self.pq_codec.encode(x)
 
     def decode(self, x):
-        """PQ codes [n_subvectors, n] -> [d_vector, n] f32."""
+        """PQ codes [n_subvectors, n] -> [d_vector, n] f32; with
+        pq_use_residual a (pq_code, vq_code) pair, the sum of both parts."""
+        if self.pq_use_residual:
+            pq_code, vq_code = x
+            return self.vq_codec.decode(vq_code) + self.pq_codec.decode(
+                pq_code)
         return self.pq_codec.decode(x)
 
     def _rebuild_scan_cache(self):
         """Recompute decoded/norm(/scale) (norm only in the code domain)
-        from the canonical codes in chunks; the int8 tier quantizes each
-        decoded chunk (ivfpq.py:177-210). Never-written slots decode to
-        garbage; every reader masks them."""
+        from the canonical codes in chunks; with pq_use_residual each row
+        adds its cell's centroid, the cell found from the address by the
+        cell starts; the int8 tier quantizes each decoded chunk
+        (ivfpq.py:177-210). Never-written slots decode to garbage; every
+        reader masks them."""
         cap, d = self._capacity, self._d_cache
         chunk = min(cap, util.next_pow2(max(16384, (1 << 27) // max(d, 1))))
         dec = None if self._code_domain else torch.zeros(
@@ -516,8 +551,14 @@ class IVFPQIndex(CellContainer):
         sc = torch.zeros((cap, 1), dtype=torch.float32, device=self.device) \
             if self._int8_cache else None
         codes = self._codes_view()
+        starts = self._cell_start.long()
         for c0 in range(0, cap, chunk):
             db = self._decode_stored(codes[c0:c0 + chunk])
+            if self.pq_use_residual:
+                idx = torch.arange(c0, c0 + db.shape[0], device=self.device)
+                cell = (torch.searchsorted(starts, idx, right=True) - 1) \
+                    .clamp(0, starts.shape[0] - 1)
+                db = db + self._coarse_cb()[cell]
             nrm[c0:c0 + chunk, 0] = torch.sum(db * db, dim=-1)
             if sc is not None:
                 db, sc[c0:c0 + chunk, 0] = util.int8_quantize_rows(db)
@@ -530,11 +571,28 @@ class IVFPQIndex(CellContainer):
             out["scale"] = sc
         return out
 
+    def _pack_codes(self, codes_nm):
+        """Codec codes [n, m] -> the stored bytes [n, code_size]: at 4 bits
+        two codes per byte (codec/pq.py:pack_nibbles)."""
+        if self.n_bits == 8:
+            return codes_nm
+        return pack_nibbles(codes_nm.T).T
+
     @property
     def _scan_codebook(self):
         """The codebook of the stored bytes: at 8 bits the PQ codebook
-        itself (the 4-bit byte-pair view is ROADMAP A12)."""
-        return self.pq_codec.codebook_internal
+        itself, at 4 bits its byte-pair view (codec/pq.py:paired_codebook),
+        built once per codebook: the cache is keyed on the tensor and its
+        version counter, so a load (a new tensor) and an in-place change
+        both rebuild it."""
+        cb = self.pq_codec.codebook_internal
+        if self.n_bits == 8:
+            return cb
+        cached = getattr(self, "_paired_cb", None)
+        if cached is None or cached[0] is not cb or cached[1] != cb._version:
+            cached = (cb, cb._version, paired_codebook(cb))
+            self._paired_cb = cached
+        return cached[2]
 
     @property
     def _m_packed(self):
@@ -543,8 +601,10 @@ class IVFPQIndex(CellContainer):
         return self.code_size if self.pack_group > 1 else None
 
     def _decode_stored(self, codes):
-        """Stored bytes [n, code_size] -> [n, d] f32 reconstruction."""
-        return self.pq_codec.decode_nd(codes)
+        """Stored bytes [n, code_size] -> [n, d] f32 PQ reconstruction,
+        against the codebook of the stored bytes."""
+        return decode_codes(util.as_tensor(codes, self.device),
+                            self._scan_codebook).float()
 
     # ---- frozen code-domain storage ----
     def freeze_codes(self):
@@ -586,8 +646,15 @@ class IVFPQIndex(CellContainer):
         assert self.is_trained, "train the index first"
         x = self._prep(x)
         cells = self._assign_cells(x)
-        codes_nm = self.pq_codec.encode_nd(x.T)
-        decoded = self.pq_codec.decode_nd(codes_nm)
+        if self.pq_use_residual:
+            # the residual from the assigned cell's centroid; the row is
+            # centroid + PQ reconstruction, summed in the JAX package's order
+            recon = self.vq_codec.decode(cells).T
+            codes_nm = self.pq_codec.encode_nd(x.T - recon)
+            decoded = recon + self.pq_codec.decode_nd(codes_nm)
+        else:
+            codes_nm = self.pq_codec.encode_nd(x.T)
+            decoded = self.pq_codec.decode_nd(codes_nm)
         norms = torch.sum(decoded * decoded, dim=-1, keepdim=True)
         aux_rows = {"norm": norms}
         if self._int8_cache:
@@ -596,7 +663,7 @@ class IVFPQIndex(CellContainer):
             aux_rows["scale"] = scale[:, None]
         elif not self._code_domain:
             aux_rows["decoded"] = util.pad_cols(decoded, self._d_cache)
-        return super().add(codes_nm.T, cells, ids=ids,
+        return super().add(self._pack_codes(codes_nm).T, cells, ids=ids,
                            return_address=return_address, aux_rows=aux_rows)
 
     def _assign_cells(self, x):
@@ -884,6 +951,9 @@ class IVFPQIndex(CellContainer):
             # dequantized: the int8 row times its scale (ivfpq.py:1317-1318)
             y = y.float() * self.aux("scale")[safe]
         q = util.pad_cols(q, y.shape[-1])
+        if self.distance == "manhattan":
+            sims = negative_manhattan_distance(q, y.float())
+            return torch.where(valid[None, :], sims, -torch.inf)
         sims = util.matmul_f32(q, y)  # the f32 query, as the JAX package
         if self.distance == "euclidean":
             sims = 2.0 * sims - self.aux("norm")[safe, 0][None, :] \

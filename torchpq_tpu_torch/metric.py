@@ -1,12 +1,15 @@
 """Similarity metrics (counterpart of torchpq_tpu/metric.py).
 
 Every score is a similarity — larger is better. Euclidean is the negative
-squared L2 distance. Functions take row-major [n, d] tensors and return
-[n_a, n_b] score matrices in float32.
+squared L2 distance, manhattan the negative L1 distance. Functions take
+row-major [n, d] tensors and return [n_a, n_b] score matrices in float32.
+`precision` is the JAX package's matmul precision: accepted and ignored,
+every float32 product here runs in full float32 (config.py).
 """
 
 import torch
 
+from . import config
 from . import util
 
 CANONICAL = {
@@ -24,16 +27,16 @@ def canonical_distance(name):
     return CANONICAL[key]
 
 
-def inner_similarity(a, b):
+def inner_similarity(a, b, precision=None):
     """<a_i, b_j> for all pairs. a: [na, d], b: [nb, d] -> [na, nb]."""
     return util.matmul_f32(a, b)
 
 
-def cosine_similarity(a, b):
+def cosine_similarity(a, b, precision=None):
     return inner_similarity(util.normalize(a.float()), util.normalize(b.float()))
 
 
-def negative_squared_l2_distance(a, b, b_sq=None):
+def negative_squared_l2_distance(a, b, precision=None, b_sq=None):
     """-||a_i - b_j||^2 expanded as 2<a,b> - ||a||^2 - ||b||^2 (the same
     expansion as the JAX package, so near-ties round alike)."""
     a = a.float()
@@ -45,7 +48,21 @@ def negative_squared_l2_distance(a, b, b_sq=None):
     return 2.0 * ab - a_sq - b_sq[None, :]
 
 
-def similarity(a, b, distance, b_sq=None):
+def negative_manhattan_distance(a, b, chunk=None):
+    """-sum_k |a_ik - b_jk| in float32, over chunks of `a`'s rows that bound
+    the [chunk, nb, d] broadcast to config.MAX_SIM_CHUNK_ELEMS elements."""
+    a, b = a.float(), b.float()
+    if chunk is None:
+        chunk = max(1, config.MAX_SIM_CHUNK_ELEMS
+                    // max(b.shape[0] * b.shape[1], 1))
+    out = torch.empty((a.shape[0], b.shape[0]), device=a.device)
+    for i in range(0, a.shape[0], chunk):
+        out[i:i + chunk] = -torch.sum(
+            torch.abs(a[i:i + chunk, None, :] - b[None]), dim=-1)
+    return out
+
+
+def similarity(a, b, distance, precision=None, b_sq=None):
     """Dispatch by canonical distance name; [na, d] x [nb, d] -> [na, nb]."""
     distance = canonical_distance(distance)
     if distance == "euclidean":
@@ -54,5 +71,4 @@ def similarity(a, b, distance, b_sq=None):
         return cosine_similarity(a, b)
     if distance == "inner":
         return inner_similarity(a, b)
-    raise NotImplementedError(
-        "manhattan distance is not ported yet (ROADMAP A12)")
+    return negative_manhattan_distance(a, b)

@@ -25,17 +25,19 @@ BF16_MARK = "::bfloat16"
 
 
 def _to_numpy(v):
-    """Tensor -> (numpy array, is_bf16). bf16 comes back as uint16 bits."""
-    v = v.detach().cpu()
+    """Tensor -> (numpy array, is_bf16), a copy of the tensor's values.
+    bf16 comes back as uint16 bits."""
+    v = v.detach().to("cpu", copy=True)
     if v.dtype == torch.bfloat16:
         return v.view(torch.int16).numpy().view(np.uint16), True
     return v.numpy(), False
 
 
 def _from_numpy(a, bf16, device):
-    a = np.ascontiguousarray(a)
-    if not a.flags.writeable:
-        a = a.copy()
+    # always a copy: the state mutates in place, and `a` may share memory
+    # with the caller or with another module's tensors (state_dict() of a
+    # CPU module views its tensors)
+    a = np.array(a, order="C", copy=True)
     if bf16:
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     elif a.dtype == np.uint16:
@@ -90,6 +92,18 @@ class StateModule:
             out.update(mod.state_dict(prefix=prefix + name + "."))
         return out
 
+    def state_nbytes(self):
+        """Bytes of the registered tensor state, submodules included, read
+        from the tensors' metadata (no copy to the host)."""
+        total = 0
+        for k in self._state_keys:
+            v = getattr(self, k)
+            if isinstance(v, torch.Tensor):
+                total += v.numel() * v.element_size()
+        for mod in self._submodules.values():
+            total += mod.state_nbytes()
+        return total
+
     def load_state_dict(self, state, prefix=""):
         for k in self._state_keys:
             key = prefix + k
@@ -119,8 +133,15 @@ class StateModule:
     def _after_load(self):
         """Hook for derived classes to rebuild derived/python-side state."""
 
-    def save(self, path):
-        """One portable np.savez file, in the JAX package's npz layout."""
+    def save(self, path, format="npz"):
+        """One portable np.savez file, in the JAX package's npz layout.
+        format="orbax" (the JAX package's checkpoint directory) is refused:
+        orbax imports jax, which the port never does."""
+        if format == "orbax":
+            raise NotImplementedError(
+                "format='orbax' is not available in the port: orbax imports "
+                "jax; save with format='npz'")
+        assert format == "npz", format
         arrays = {k: np.asarray(v) for k, v in self.state_dict().items()}
         np.savez(path, **arrays)
 

@@ -26,8 +26,8 @@ import torch
 
 from .. import util
 from ..metric import canonical_distance
-from .block_scan import (BIG, block_scan, select_blocks, select_exact,
-                         sortable_i32, sortable_i32_to_f32)
+from .block_scan import (BIG, block_scan, select_blocks, select_chunks,
+                         select_exact, sortable_i32, sortable_i32_to_f32)
 
 # resolved plan of the most recent scan_cell_major call: {"impl", "k_pair",
 # "s_eff", "pack32", "blocks", "cache", "group", "n_probe"} — lets a run
@@ -49,37 +49,42 @@ def _key_neg_big(slot_mask):
     return int(sortable_i32(torch.tensor([-BIG]))[0]) & ~slot_mask
 
 
-def build_adc_table(query, codebook, distance):
+def build_adc_table(query, codebook, distance, precision=None):
     """Per-subvector similarity table: query [nq, d], codebook
-    [m, 256, dsub] -> LUT [nq, m, 256] f32."""
+    [m, 256, dsub] -> LUT [nq, m, 256] f32 (manhattan: -|q_i - c|_1 by
+    broadcast, nq x m x 256 x dsub)."""
     distance = canonical_distance(distance)
     m, _, dsub = codebook.shape
     q = query.float().reshape(query.shape[0], m, dsub)
-    ab = torch.einsum("qmd,mcd->qmc", q, codebook.float())
-    if distance in ("inner", "cosine"):
-        return ab
+    cb = codebook.float()
+    if distance == "manhattan":
+        return -torch.sum(torch.abs(q[:, :, None, :] - cb[None]), dim=-1)
+    ab = torch.einsum("qmd,mcd->qmc", q, cb)
     if distance == "euclidean":
         return (2.0 * ab - torch.sum(q * q, dim=-1)[:, :, None]
-                - torch.sum(codebook * codebook, dim=-1)[None])
-    raise NotImplementedError(
-        "manhattan distance is not ported yet (ROADMAP A12)")
+                - torch.sum(cb * cb, dim=-1)[None])
+    return ab
 
 
-def adc_lookup_scores(lut, codes):
+def adc_lookup_scores(lut, codes, chunk=4096):
     """Gather-oracle ADC: score[q, j] = sum_i lut[q, i, codes[j, i]].
-    lut [nq, m, 256] f32, codes [n, m] uint8 -> [nq, n] f32."""
+    lut [nq, m, 256] f32, codes [n, m] uint8 -> [nq, n] f32. (`chunk`, the
+    JAX package's gather tile, is accepted and ignored.)"""
     m = lut.shape[1]
     sub = torch.arange(m, device=lut.device)
     return lut[:, sub[None, :], codes.long()].sum(-1)
 
 
 def scan_query_major(query, cells, probe_mask, decoded, norms, is_empty,
-                     cell_start, cell_capacity, *, k, distance, s_max):
+                     cell_start, cell_capacity, *, k, distance, s_max,
+                     q_chunk=16, approx=False, precision=None):
     """Gather-and-score each query's probed windows.
 
     query [nq, d] f32; cells / probe_mask [nq, n_probe] (distinct cells per
     row); decoded [cap, d]; norms [cap] f32; is_empty [cap] bool; s_max
-    bounds every cell's capacity."""
+    bounds every cell's capacity. The JAX package's `q_chunk` tiling and
+    `precision` are accepted and ignored; its approx_max_k is exact off
+    the TPU, so `approx` takes the exact top-k."""
     distance = canonical_distance(distance)
     if decoded.dtype == torch.int8:
         raise ValueError("an int8 cache needs per-slot scales: use "
@@ -89,26 +94,30 @@ def scan_query_major(query, cells, probe_mask, decoded, norms, is_empty,
     slot = torch.arange(s_max, device=decoded.device)
     # queries per chunk: bounds the gathered [chunk, n_probe * s_max, d]
     # candidates to 2^26 elements
-    q_chunk = max(1, (1 << 26) // max(n_probe * s_max * query.shape[1], 1))
+    rows = max(1, (1 << 26) // max(n_probe * s_max * query.shape[1], 1))
     vals_out, addr_out = [], []
-    for i in range(0, nq, q_chunk):
-        q = query[i:i + q_chunk]
-        qc = cells[i:i + q_chunk].long()
+    for i in range(0, nq, rows):
+        q = query[i:i + rows]
+        qc = cells[i:i + rows].long()
         start = cell_start.long()[qc]
         capc = cell_capacity.long()[qc]
         addr = start[:, :, None] + slot[None, None, :]
         valid = (slot[None, None, :] < capc[:, :, None]) \
-            & probe_mask[i:i + q_chunk, :, None]
+            & probe_mask[i:i + rows, :, None]
         flat = torch.where(valid, addr, 0).reshape(q.shape[0], -1)
         valid = valid.reshape(q.shape[0], -1) & ~is_empty[flat]
         cand = decoded[flat].float()                       # [qc, np*s, d]
-        qv = q.to(decoded.dtype).float() if decoded.dtype == torch.bfloat16 \
-            else q
-        ab = torch.bmm(cand, qv[:, :, None])[:, :, 0]
-        if distance == "euclidean":
-            sc = 2.0 * ab - norms[flat] - torch.sum(q * q, -1)[:, None]
+        if distance == "manhattan":
+            # the f32 query against the upcast rows (adc.py:138, :155)
+            sc = -torch.sum(torch.abs(cand - q[:, None, :]), dim=-1)
         else:
-            sc = ab
+            qv = q.to(decoded.dtype).float() \
+                if decoded.dtype == torch.bfloat16 else q
+            ab = torch.bmm(cand, qv[:, :, None])[:, :, 0]
+            if distance == "euclidean":
+                sc = 2.0 * ab - norms[flat] - torch.sum(q * q, -1)[:, None]
+            else:
+                sc = ab
         sc = torch.where(valid, sc, -torch.inf)
         kc = min(k, sc.shape[-1])
         v, idx = torch.topk(sc, kc, dim=-1)
@@ -250,6 +259,22 @@ def _merge_pairs(combo, query, pair_block, pair_slot, start_c, *, n_blocks,
     return fv, fa
 
 
+def _l1_block_scores(query, probers, start_c, off, cap, penalty, decoded, *,
+                     s_eff):
+    """Manhattan block scores [B, P, s_eff]: -|q - y|_1 of the f32 query
+    against the upcast window rows, minus the penalty (the JAX package's
+    XLA select, adc.py:943-948)."""
+    slot = torch.arange(s_eff, device=decoded.device)
+    rows = start_c.long()[:, None] + slot[None, :]
+    in_cell = (slot[None, :] >= off[:, None]) \
+        & (slot[None, :] < (off + cap)[:, None])
+    pen = penalty[rows] + torch.where(in_cell, 0.0, BIG)
+    q = query[probers.clamp(min=0).long()]                  # [B, P, d]
+    win = decoded[rows].float()                             # [B, s, d]
+    l1 = torch.sum(torch.abs(q[:, :, None, :] - win[:, None, :, :]), dim=-1)
+    return -l1 - pen[:, None, :]
+
+
 def check_impl(impl):
     if impl not in IMPLS:
         raise ValueError(f"scan_impl must be one of {IMPLS}, got {impl!r}")
@@ -327,8 +352,9 @@ def resolve_k_pair(k_pair, *, k, n_probe, approx):
 
 def scan_cell_major(query, cells, probe_mask, decoded, norms, is_empty,
                     cell_start, cell_capacity, *, k, distance, s_max, n_cells,
-                    p_tile=128, approx=False, scales=None, impl="auto",
-                    group=1, k_pair=None, probe_cap=None, merge_taper=None,
+                    p_tile=128, block_chunk=8, approx=False, impl="xla",
+                    interpret=False, group=1, scales=None, precision=None,
+                    k_pair=None, probe_cap=None, merge_taper=None,
                     pre_grouped=False):
     """Inverted-probe-list block scan (adc.py:scan_cell_major).
 
@@ -344,13 +370,16 @@ def scan_cell_major(query, cells, probe_mask, decoded, norms, is_empty,
     64, and for approx the pack32 wire format with a window the 128 strided
     groups divide (s_eff % 128 == 0, or a power of two below 128); an int8
     cache (decoded int8 with per-slot `scales` [cap] f32) also needs d % 16
-    == 0. Other shapes, and impl "xla" / "pallas_flat", take
-    `_block_select`, the JAX package's own XLA select at those shapes."""
+    == 0. Other shapes, manhattan, and impl "xla" (the default, as in the
+    JAX package) / "pallas_flat", take `_block_select`, the JAX package's
+    own XLA select at those shapes; manhattan scores there by the L1
+    broadcast (_l1_block_scores). `block_chunk`, `interpret` and
+    `precision` (the JAX package's tiling, interpret mode and matmul
+    precision) are accepted and ignored."""
     distance = canonical_distance(distance)
-    if distance == "manhattan":
-        raise NotImplementedError(
-            "manhattan distance is not ported yet (ROADMAP A12)")
     int8 = decoded.dtype == torch.int8
+    assert not (int8 and distance == "manhattan"), \
+        "int8 caches cannot score manhattan (no dequant in the L1 path)"
     if int8 != (scales is not None):
         raise ValueError("an int8 cache needs per-slot scales, and only it")
     query = util.pad_cols(query.float(), decoded.shape[-1])
@@ -390,8 +419,9 @@ def scan_cell_major(query, cells, probe_mask, decoded, norms, is_empty,
     else:
         qtable, q_scale = query.to(decoded.dtype).contiguous(), None
 
-    gate = k_pair <= 64 and (not approx or (pack32 and (
-        s_eff % 128 == 0 or (s_pow2 == s_eff and s_eff < 128)))) \
+    gate = distance != "manhattan" and k_pair <= 64 and (
+        not approx or (pack32 and (
+            s_eff % 128 == 0 or (s_pow2 == s_eff and s_eff < 128)))) \
         and (not int8 or decoded.shape[1] % 16 == 0)
     use_kernel = gate_kernel(impl, gate, "scan_cell_major")
     LAST_GATE.clear()
@@ -409,11 +439,21 @@ def scan_cell_major(query, cells, probe_mask, decoded, norms, is_empty,
         def select(sc, st):
             return _block_select(sc, st, k_pair=k_pair, pack32=pack32,
                                  slot_mask=slot_mask)
-        combo = select_blocks(select, qtable, probers, start_c, off, cap_b,
-                              penalty, decoded, s_eff=s_eff,
-                              euclidean=euclidean,
-                              width=k_pair if pack32 else 2 * k_pair,
-                              scale=scales, q_scale=q_scale)
+        width = k_pair if pack32 else 2 * k_pair
+        if distance == "manhattan":
+            def scores(sl):
+                return _l1_block_scores(query, probers[sl], start_c[sl],
+                                        off[sl], cap_b[sl], penalty, decoded,
+                                        s_eff=s_eff)
+            # the [B, P, s_eff, d] broadcast: d temporaries per score
+            combo = select_chunks(scores, select, probers, start_c,
+                                  s_eff=s_eff, width=width,
+                                  cost=decoded.shape[1])
+        else:
+            combo = select_blocks(select, qtable, probers, start_c, off,
+                                  cap_b, penalty, decoded, s_eff=s_eff,
+                                  euclidean=euclidean, width=width,
+                                  scale=scales, q_scale=q_scale)
     return _merge_pairs(
         combo, query, pair_block, pair_slot, start_c, n_blocks=n_blocks,
         p_tile=p_tile, k=k, k_pair=k_pair, nq=nq, n_probe=n_probe,

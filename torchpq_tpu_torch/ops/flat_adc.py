@@ -18,7 +18,7 @@ runs instead of the sweep.
 import torch
 
 from .. import util
-from ..metric import canonical_distance
+from ..metric import canonical_distance, negative_manhattan_distance
 from .block_scan import BIG, int8_products
 from .flat_scan import flat_scan
 
@@ -28,21 +28,26 @@ LAST_FLAT = {}
 
 
 def flat_sweep(q_mm, rows, n, penalty, *, k, factor, max_elems=1 << 28,
-               q_scale=None, scales=None):
+               q_scale=None, scales=None, manhattan=False):
     """Per chunk of slots [c0, c1): s = factor * q_mm @ rows(c0, c1).T -
     penalty[c0:c1], and its top k. q_mm [nq, d] f32; rows(c0, c1) -> f32
     [c1 - c0, d]; `max_elems` bounds the [nq, chunk] score tile. int8 (q_mm
     and rows int8, q_scale [nq] and scales [n] f32 given): s = ab *
     ((factor * q_scale)[:, None] * scales[None, c0:c1]) - penalty, with ab
-    the exact integer products (flat_adc.py:85-91). Returns the chunk
-    winners (values [nq, n_chunks * k_c], slots alike)."""
+    the exact integer products (flat_adc.py:85-91). manhattan: s =
+    -|q_mm - row|_1 - penalty (flat_adc.py:80-84), the broadcast chunked by
+    metric.negative_manhattan_distance. Returns the chunk winners (values
+    [nq, n_chunks * k_c], slots alike)."""
     nq = q_mm.shape[0]
     chunk = min(n, max(1024, max_elems // max(nq, 1)))
     k_c = min(k, chunk)
     vals, idx = [], []
     for c0 in range(0, n, chunk):
         c1 = min(c0 + chunk, n)
-        if scales is None:
+        if manhattan:
+            s = negative_manhattan_distance(q_mm, rows(c0, c1))
+            s.sub_(penalty[c0:c1][None, :])
+        elif scales is None:
             # factor * <q, y> - penalty as one GEMM with its bias epilogue
             s = torch.addmm(-penalty[c0:c1][None, :], q_mm, rows(c0, c1).T,
                             alpha=factor)
@@ -74,19 +79,20 @@ def final_merge(vals, idx, query, *, k, distance):
     return fv, fa
 
 
-def flat_adc_scan(query, decoded, penalty, *, k, distance, max_elems=1 << 28,
-                  scales=None):
+def flat_adc_scan(query, decoded, penalty, *, k, distance, chunk=None,
+                  approx=True, scales=None, precision=None,
+                  max_elems=1 << 28):
     """query [nq, d] f32 (preprocessed); decoded [cap, d] bf16/f32/int8;
     penalty [cap] f32 = norms (euclidean) or 0, with BIG at empty slots;
     scales [cap] f32 per-slot dequant scales (int8 cache only).
 
     Returns (values [nq, k] f32, addresses [nq, k] int32, -1 padding); the
     euclidean -|q|^2 term is added after the merge. `max_elems` bounds the
-    [nq, chunk] score tile."""
+    [nq, chunk] score tile; the JAX package's `chunk` and `precision` are
+    accepted and ignored, and its approx_max_k is exact off the TPU, so
+    `approx` takes the exact top-k. Manhattan scores the f32 query against
+    the upcast rows by the L1 broadcast."""
     distance = canonical_distance(distance)
-    if distance == "manhattan":
-        raise NotImplementedError(
-            "manhattan distance is not ported yet (ROADMAP A12)")
     int8 = decoded.dtype == torch.int8
     if int8 != (scales is not None):
         raise ValueError("an int8 cache needs per-slot scales, and only it")
@@ -101,12 +107,14 @@ def flat_adc_scan(query, decoded, penalty, *, k, distance, max_elems=1 << 28,
         return final_merge(vals, idx, query, k=k, distance=distance)
     # bf16 cache: the query rounds to bf16 too, then both operands go up to
     # f32, where bf16 products are exact (the JAX package's bf16 x bf16 ->
-    # f32 product)
+    # f32 product); manhattan keeps the f32 query
+    manhattan = distance == "manhattan"
     q_mm = query.to(decoded.dtype).float() \
-        if decoded.dtype == torch.bfloat16 else query
+        if decoded.dtype == torch.bfloat16 and not manhattan else query
     vals, idx = flat_sweep(
         q_mm, lambda c0, c1: decoded[c0:c1].float(), decoded.shape[0],
-        penalty, k=k, factor=factor, max_elems=max_elems)
+        penalty, k=k, factor=factor, max_elems=max_elems,
+        manhattan=manhattan)
     return final_merge(vals, idx, query, k=k, distance=distance)
 
 
@@ -128,11 +136,12 @@ def flat_scan_glue(query, decoded, penalty, *, k, distance):
 
 
 def flat_adc_auto(query, decoded, penalty, *, k, distance, approx=True,
-                  impl="auto", scales=None):
+                  impl="xla", scales=None, interpret=False, precision=None):
     """The flat plan's dispatch (flat_adc.py:flat_adc_auto): the fused
     flat-scan kernel under impl="pallas_flat" inside its gate (not
     manhattan, not int8, k <= 32, cap >= 2048, approx), else the sweep,
-    which is the JAX package's own routing."""
+    which is the JAX package's own routing. `interpret` and `precision`
+    are accepted and ignored."""
     distance = canonical_distance(distance)
     query = util.pad_cols(query.float(), decoded.shape[-1])
     use_kernel = (impl == "pallas_flat" and distance != "manhattan"

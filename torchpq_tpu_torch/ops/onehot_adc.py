@@ -16,8 +16,14 @@ torchpq_tpu/ops/onehot_adc.py).
 * `flat_decode_scan` is the exhaustive sweep: each chunk of codes is
   decoded to bf16 rows once and scored against every (bf16) query with an
   f32 product.
+* `flat_onehot_scan` is the exhaustive LUT sweep, which manhattan takes:
+  L1 decomposes per subvector (an exact code-domain L1), but not through a
+  product. No kernel takes manhattan; its probed plans run the LUT path.
 
-Both return (values [nq, k] f32, addresses [nq, k] int32, -1 padding).
+Each returns (values [nq, k] f32, addresses [nq, k] int32, -1 padding).
+`precision`, `block_chunk`, `chunk`, `sub` and `interpret` (the JAX
+package's matmul precision, tiling and interpret mode) are accepted and
+ignored.
 """
 
 import torch
@@ -31,23 +37,16 @@ from .codes_scan import codes_kernel_static_gate, codes_scan, decode_codes
 from .flat_adc import final_merge, flat_sweep
 
 
-def _no_manhattan(distance):
-    """Code-domain manhattan (the JAX package's flat_onehot_scan and its
-    LUT scans) waits for ROADMAP A12."""
-    if distance == "manhattan":
-        raise NotImplementedError(
-            "code-domain manhattan distance (flat_onehot_scan) is not "
-            "ported yet (ROADMAP A12)")
-
-
-def build_scan_lut(query, codebook, distance):
+def build_scan_lut(query, codebook, distance, precision=None):
     """Per-subvector partial-similarity table with sum semantics: summing
     lut[q, i, code_i] over i gives <q, y> (the euclidean caller applies
-    2<q,y> - |y|^2 - |q|^2). query [nq, d], codebook [m, nc, dsub] ->
-    [nq, m, nc] f32."""
-    _no_manhattan(canonical_distance(distance))
+    2<q,y> - |y|^2 - |q|^2), or -|q - y|_1 exactly for manhattan. query
+    [nq, d], codebook [m, nc, dsub] -> [nq, m, nc] f32."""
     m, _, dsub = codebook.shape
     q = query.float().reshape(query.shape[0], m, dsub)
+    if canonical_distance(distance) == "manhattan":
+        return -torch.sum(torch.abs(q[:, :, None, :]
+                                    - codebook.float()[None]), dim=-1)
     return torch.einsum("qmd,mcd->qmc", q, codebook.float())
 
 
@@ -84,8 +83,9 @@ def _lut_block_scores(lut_flat, probers, start_c, off, cap, penalty, codes,
 
 def scan_cell_major_codes(query, cells, probe_mask, codes, norms, is_empty,
                           cell_start, cell_capacity, codebook, *, k,
-                          distance, s_max, n_cells, p_tile=128, approx=False,
-                          m=None, impl="auto", k_pair=None):
+                          distance, s_max, n_cells, p_tile=128, block_chunk=8,
+                          approx=False, precision=None, k_pair=None, m=None,
+                          impl="auto", interpret=False):
     """Cell-major scan over raw uint8 codes (onehot_adc.py:
     scan_cell_major_codes). codes is [cap, m], or the packed [cap/g, g*m]
     storage with `m` given; codebook [m, nc, dsub]. k_pair: the per-pair
@@ -94,7 +94,6 @@ def scan_cell_major_codes(query, cells, probe_mask, codes, norms, is_empty,
     and "pallas_flat" take the LUT path, "pallas" raises where the codes
     kernel's gate fails."""
     distance = canonical_distance(distance)
-    _no_manhattan(distance)
     query = query.float()
     nq, n_probe = cells.shape
     g, m, cap_total = _packing(codes, m)
@@ -172,17 +171,51 @@ def scan_cell_major_codes(query, cells, probe_mask, codes, norms, is_empty,
         pack32=pack32, slot_mask=slot_mask, distance=distance)
 
 
-def flat_decode_scan(query, codes, penalty, codebook, *, k, distance, m=None,
-                     max_elems=1 << 28):
+def flat_onehot_scan(query, codes, penalty, codebook, *, k, distance,
+                     chunk=16384, approx=True, precision=None, m=None,
+                     max_elems=1 << 26):
+    """Exhaustive code-domain sweep over the bf16 LUT (onehot_adc.py:324):
+    per chunk of slots, each slot's LUT entries looked up by its codes and
+    summed in f32 (the JAX package's one-hot [nq, m*nc] product sums the
+    same bf16 values), minus the penalty; then the chunk's top k and the
+    exact final merge. `max_elems` bounds the [nq, chunk, m] lookup."""
+    distance = canonical_distance(distance)
+    query = query.float()
+    nq = query.shape[0]
+    _, m, cap = _packing(codes, m)
+    flat = codes.reshape(cap, m)
+    lut = build_scan_lut(query, codebook, distance)
+    nc = lut.shape[-1]
+    lut_flat = lut.reshape(nq, m * nc).to(torch.bfloat16)
+    off = torch.arange(m, device=codes.device) * nc
+    step = min(cap, max(1, max_elems // max(nq * m, 1)))
+    k_c = min(k, step)
+    vals, idx = [], []
+    for c0 in range(0, cap, step):
+        col = (flat[c0:c0 + step].long() + off).reshape(-1)
+        sums = lut_flat[:, col].reshape(nq, -1, m).float().sum(-1)
+        s = (2.0 * sums if distance == "euclidean" else sums) \
+            - penalty[c0:c0 + step][None, :]
+        v, i = torch.topk(s, min(k_c, s.shape[1]), dim=-1)
+        vals.append(v)
+        idx.append(i + c0)
+    return final_merge(torch.cat(vals, dim=1), torch.cat(idx, dim=1), query,
+                       k=k, distance=distance)
+
+
+def flat_decode_scan(query, codes, penalty, codebook, *, k, distance,
+                     chunk=65536, sub=8192, approx=True, precision=None,
+                     m=None, max_elems=1 << 28):
     """Exhaustive code-domain sweep: per chunk of slots, decode the codes to
     bf16 rows (a gather from the bf16-rounded codebook, bit-identical to the
     JAX package's one-hot @ blockdiag_codebook product, which the port
     therefore does not need), score them against the
     bf16-rounded query with an f32 product of the upcast operands, keep the
     chunk's top k; then the exact final merge. penalty [cap] f32 =
-    norms-or-0 with BIG at empty slots."""
+    norms-or-0 with BIG at empty slots. Manhattan does not factor through
+    a product: it takes flat_onehot_scan."""
     distance = canonical_distance(distance)
-    _no_manhattan(distance)
+    assert distance != "manhattan", "manhattan: use flat_onehot_scan"
     query = query.float()
     _, m, cap = _packing(codes, m)
     flat = codes.reshape(cap, m)
