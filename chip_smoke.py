@@ -133,7 +133,36 @@ Phases, each of which fails the run on error:
      all-cells probe against flat; the k = 100 pack32 scan (k_pair 64)
      against `block_scan_ref` on its search's own arguments, timed in
      turns.
- 12. anisotropic PQ and manhattan, at 100k x 128 (no kernel on these
+ 12. IVFPQR, cached bf16 tier: the JAX package's record
+     (benchmark/results/ivf4096_pq64r32_sift1m_pqr3.json, built as
+     benchmark/sweep.py:112-127 builds it): the main codecs and a PQ32
+     rerank trained on the train slice's second-stage residuals, rerank
+     multiplier 4, the cache rows the full two-stage reconstruction, spill 8
+     cells at 2 x n / n_cells, scan_group 4, four adds; pack32 at n_probe
+     1/8/32 and flat for k = 10 (with an exact n_probe 8 plan) and k = 100,
+     the block-scan counters zeroed before and read after (tensor-core keys
+     only; n_probe 1 at k = 100 on the plain select); the flat recall@10
+     above the main index's; the all-cells probe against flat; the pack32
+     scans at n_probe 32 (k_pair 10 and 64) held to block_scan_ref on their
+     searches' own arguments and timed in turns with block_scan.cu; the
+     exact select at scan_group 1 (the code domain's cells); a forced
+     relayout (expand) keeps the exact and flat searches.
+ 13. IVFPQR, code domain (the record's _codes twin: scan_cache_dtype
+     "none", initial_mult 3): flat and pack32 n_probe 8/32 at k = 10 (the
+     base codes scan at k' 40 on the tensor-core codes kernel only) and
+     k = 100 (k' 400: k_pair 52-64, on the CUDA-core codes kernel only, no
+     tensor-core route takes it); recall within 0.02 of the cached tier's
+     exact select over the same cells (its pack32 plans over supercells
+     logged beside); both n_probe 32 scans held to codes_scan_ref on their
+     own arguments; one k = 100 plan profiled.
+ 14. FlatIndex at 1M x 128 f32 (the slice's base and 10k queries), k = 10
+     and 100: ids against the exact ground truth (>= 0.999), ms per batch
+     and device bytes; then a seeded 10% removed and 1,000 queries held to
+     the survivors' exact ground truth.
+ 15. transforms and SQ at 100k x 128, card against CPU from the same
+     carried state: OPQ (PQ16) -> IVFPQIndex, PCA 128 -> 64 -> FlatIndex,
+     an 8-bit SQCodec round trip.
+ 16. anisotropic PQ and manhattan, at 100k x 128 (no kernel on these
      paths): the card's `_aniso_refine` (eta 4, 8 iterations, from the
      main PQ codebook) and `_aniso_assign` on the 100k rows, then both on
      the card and on the CPU over 10,000 rows (labels >= 0.999 equal,
@@ -141,7 +170,7 @@ Phases, each of which fails the run on error:
      x PQ64 manhattan index, 1,000 queries: pack32 at n_probe 8 and flat,
      recall@10 against exact L1 logged, the all-cells probe against flat,
      the block and codes scan counters at 0 (zeroed before).
- 13. GIST-class int8 tier: 1M x 960 manifold-12 data (make_data, seed 1),
+ 17. GIST-class int8 tier: 1M x 960 manifold-12 data (make_data, seed 1),
      IVF4096 x PQ64, int8 cache 1024 wide, 10k queries, k=10; plans flat,
      pack32 at n_probe 8 and 32, exact at n_probe 8 (counters zeroed
      before; both selects of the tensor-core int8 kernel, in 256-byte k
@@ -149,7 +178,7 @@ Phases, each of which fails the run on error:
      non-decreasing in n_probe within 0.005, the flat plan within 0.02 of
      an exact f32 sweep over the same PQ-decoded rows; then both int8
      kernels on the phase's own arguments, as in phase 8 (fewer repeats).
- 14. fused flat scan: the main index with scan_impl="pallas_flat" and
+ 18. fused flat scan: the main index with scan_impl="pallas_flat" and
      approx top-k; the flat counters zeroed, the flat plan must launch the
      tensor-core flat kernel, agree with the exact flat plan on >= 0.98 of
      ids and lie within 0.01 of its recall (the kernel's bucket top-2
@@ -160,18 +189,19 @@ Phases, each of which fails the run on error:
      yardstick of the product alone (bf16 torch.matmul over a 65,536-slot
      slice, scaled to the cache) and of the kernel at half the width (the
      same epilogue, half the products).
- 15. profile: torch.profiler over one search per plan of the bf16, code
+ 19. profile: torch.profiler over one search per plan of the bf16, code
      domain and int8 indexes, the deep-k r6 and untapered plans and the
-     pallas_flat flat plan (phases 10 and 11 profile their own plans);
+     pallas_flat flat plan (phases 10-13 profile their own plans);
      device-busy time and the largest kernels of each.
- 16. prints the kernels' JSON line (every kernel: launches on its path,
+ 20. prints the kernels' JSON line (every kernel: launches on its path,
      kernel and plain ms, the bound from the inputs' own counts, the
      library call's ms where one PyTorch call computes the same; the int8
      block scan at both widths, the 1M x 128 tier's and the GIST-class
      d = 1024 one's; the deep-k split's head and tail scans and the
      untapered plan's scan; the 4-bit tier's pack32 block scan and both
-     codes scans, the residual tier's k = 100 pack32 block scan), the card
-     line, and the result line.
+     codes scans, the residual tier's k = 100 pack32 block scan, the IVFPQR
+     tiers' two block scans and two codes scans), the card line, and the
+     result line.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -1152,42 +1182,49 @@ def codes_rows(torch, tp, bs, cs, code, xq, k, label, suffix=""):
     return rows
 
 
-def phase_profile(torch, index, xq, k, label="", plans=None):
-    """torch.profiler over one search per plan: device-busy time (the sum
-    of the kernels' own device times) and the largest kernels."""
+def profile_search(torch, search, what):
+    """torch.profiler over one call of search() after a warm-up one:
+    device-busy time (the sum of the kernels' own device times) and the
+    largest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    search()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        search()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    if not kernels:
+        fail(f"profile of {what}: no device time")
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = "; ".join(f"{e.key[:48]} x{e.count} "
+                    f"{e.self_device_time_total / 1e3:.3f} ms"
+                    for e in kernels[:5])
+    log(f"profile {what}: device busy {busy:.3f} ms; {top}")
+
+
+def phase_profile(torch, index, xq, k, label="", plans=None):
+    """profile_search over one search per plan of an index."""
     for mode, n_probe, approx in plans or PLANS:
         index.scan_mode, index.n_probe = mode, n_probe
         index.use_approx_topk = approx
-        index.search(xq.T, k=k)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            index.search(xq.T, k=k)
-            torch.cuda.synchronize()
-        kernels = sorted((e for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA),
-                         key=lambda e: -e.self_device_time_total)
-        if not kernels:
-            fail(f"profile of {mode} n_probe={n_probe}: no device time")
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        top = "; ".join(f"{e.key[:48]} x{e.count} "
-                        f"{e.self_device_time_total / 1e3:.3f} ms"
-                        for e in kernels[:5])
-        log(f"profile {label}{mode} n_probe={n_probe} approx={approx}: "
-            f"device busy {busy:.3f} ms; {top}")
+        profile_search(torch, lambda: index.search(xq.T, k=k),
+                       f"{label}{mode} n_probe={n_probe} approx={approx}")
 
 
 def build_index(torch, tp, trained, base, *, d, m, n_cells, per_cell,
-                cache, spill=False, **kw):
-    """An index with the given scan cache tier (and constructor kwargs),
-    the trained codecs loaded, filled by four adds of a quarter each;
-    spill: 8 candidate cells at the initial cell capacity (the JAX
-    package's sweep default). Returns (index, add seconds)."""
-    index = tp.IVFPQIndex(d_vector=d, n_subvectors=m, n_cells=n_cells,
-                          initial_size=per_cell, distance="euclidean",
-                          scan_cache_dtype=cache, device="cuda", **kw)
+                cache, spill=False, cls=None, **kw):
+    """An index (cls, default IVFPQIndex) with the given scan cache tier
+    (and constructor kwargs), the trained codecs loaded, filled by four
+    adds of a quarter each; spill: 8 candidate cells at the initial cell
+    capacity (the JAX package's sweep default). Returns (index, add
+    seconds)."""
+    index = (cls or tp.IVFPQIndex)(
+        d_vector=d, n_subvectors=m, n_cells=n_cells, initial_size=per_cell,
+        distance="euclidean", scan_cache_dtype=cache, device="cuda", **kw)
     index.load_state_dict(trained)
     if spill:
         index.spill_cells = 8
@@ -1974,6 +2011,438 @@ def phase_residual(torch, tp, bs, sl, gt100):
     return launches, rows
 
 
+# the JAX package's IVFPQR records (benchmark/results/
+# ivf4096_pq64r32_sift1m_pqr3.json and _pqr3_codes.json, built as
+# benchmark/sweep.py:112-127 builds them): PQ64 base + PQ32 rerank, rerank
+# multiplier 4, spill 8 cells at the initial capacity, scan_group 4,
+# approximate top-k; cached bf16 at initial_mult 2, code domain at 3
+PQR_RERANK_M, PQR_MULT, PQR_GROUP = 32, 4, 4
+PQR_PLANS_K10 = [("flat", 1, True), ("cell_major", 1, True),
+                 ("cell_major", 8, True), ("cell_major", 32, True),
+                 ("cell_major", 8, False)]
+PQR_PLANS_K100 = [("flat", 1, True)] + [("cell_major", p, True)
+                                        for p in (1, 8, 32)]
+PQR_CODE_PLANS = [("flat", 1, True), ("cell_major", 8, True),
+                  ("cell_major", 32, True)]
+
+
+def build_pqr(torch, tp, trained, base, main, *, initial_mult, cache):
+    """An IVFPQRIndex of the records' settings (the main index's cells and
+    subvectors, cells of initial_mult x n / n_cells, spill, supercells of
+    PQR_GROUP) with the trained codecs, filled by build_index's adds."""
+    index, add_s = build_index(
+        torch, tp, trained, base, d=base.shape[1], m=main.n_subvectors,
+        n_cells=main.n_cells, cache=cache, spill=True, cls=tp.IVFPQRIndex,
+        per_cell=max(16, base.shape[0] // main.n_cells * initial_mult),
+        n_subvectors_rerank=PQR_RERANK_M, rerank_multiplier=PQR_MULT)
+    index.scan_group = PQR_GROUP
+    return index, add_s
+
+
+def relayout_keeps_search(torch, index, xq, k, label):
+    """A forced relayout (expand: every cell's capacity doubled, the cache
+    rebuilt from the codes through the rerank hook) leaves the exact
+    n_probe 8 and flat searches' values within 1e-5 (rel 1e-5; logged when
+    bit-equal) and their ids equal on >= 0.999 (exact ties may fall either
+    way). A cache rebuilt without the rerank decode moves every value by
+    the refinement's 2 q.r - |r|^2 terms, far above that."""
+    plans = [("cell_major", 8, False), ("flat", 1, True)]
+    before = {}
+    for mode, n_probe, approx in plans:
+        index.scan_mode, index.n_probe = mode, n_probe
+        index.use_approx_topk = approx
+        before[mode] = index.search(xq.T, k=k)
+    cap = index.max_cell_capacity
+    index.expand()
+    for mode, n_probe, approx in plans:
+        index.scan_mode, index.n_probe = mode, n_probe
+        index.use_approx_topk = approx
+        v, i = index.search(xq.T, k=k)
+        v0, i0 = before[mode]
+        agree = recall_at(i.long(), i0.long())
+        err = float((v - v0).abs().max())
+        log(f"{label}forced relayout (cell capacity {cap} -> "
+            f"{index.max_cell_capacity}), {mode} np={n_probe}: values "
+            f"bit-equal {torch.equal(v, v0)} (max diff {err:.3g}), id "
+            f"agreement {agree:.5f}")
+        if bool(((v - v0).abs() > 1e-5 * v0.abs() + 1e-5).any()) \
+                or agree < 0.999:
+            fail(f"{label}a forced relayout changed the {mode} search: the "
+                 "rebuilt cache lost the refinement")
+
+
+def phase_pqr(torch, tp, bs, sl, gt100):
+    """The JAX package's IVFPQR record, cached bf16 tier (pqr3): the main
+    index's codecs and a PQ32 rerank trained on the train slice's
+    second-stage residuals, the cache rows the full two-stage
+    reconstruction; k = 10 (PQR_PLANS_K10, with an exact plan) and k = 100
+    (PQR_PLANS_K100) with the block-scan counters zeroed before and read
+    after: the tensor-core keys only, n_probe 1 at k = 100 on the plain
+    select (time_plans' plain_ok); the flat plan's recall@10 above the main
+    index's; the pack32 scans at n_probe 32 (k = 10: k_pair 10; k = 100:
+    k_pair 64) held to block_scan_ref on their searches' own arguments;
+    the exact select at n_probe 8 and 32 and scan_group 1 (the cells the
+    code domain scans); a forced relayout keeps the searches. Returns
+    (launches, the kernels' rows, the trained codec state, the recalls)."""
+    index, base, xq, gt, k = (sl[x] for x in ("index", "base", "xq", "gt",
+                                              "k"))
+    xt = torch.from_numpy(base[: base.shape[0] // 10]).cuda().T
+    t0 = time.perf_counter()
+    proto = tp.IVFPQRIndex(d_vector=index.d_vector,
+                           n_subvectors=index.n_subvectors,
+                           n_subvectors_rerank=PQR_RERANK_M,
+                           n_cells=index.n_cells, initial_size=16,
+                           device="cuda")
+    proto.load_state_dict(codec_state(index, index))
+    proto.rerank_codec.train(xt - proto.decode(proto.encode(xt)))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    trained = {**codec_state(index, index),
+               **proto.rerank_codec.state_dict("rerank_codec.")}
+    del proto, xt
+    pqr, add_s = build_pqr(torch, tp, trained, base, index, initial_mult=2,
+                           cache=None)
+    sizes = pqr._cell_size_np
+    dec = pqr.aux("decoded")
+    log(f"pqr3 index (IVF4096 x PQ64 + rerank PQ{PQR_RERANK_M}, bf16 cache "
+        f"of the full reconstruction): rerank PQ train {train_s:.2f} s, add "
+        f"{add_s:.2f} s; s_max {pqr.max_cell_capacity} (spill 8 cells at "
+        f"{pqr.spill_capacity}: largest cell {int(sizes.max())}), "
+        f"scan_group {pqr.scan_group}; device bytes: codes "
+        f"{pqr._storage.numel()}, rerank codes "
+        f"{pqr.aux('rerank_codes').numel()}, decoded cache "
+        f"{dec.numel() * dec.element_size()}")
+    for key in bs.launches:
+        bs.launches[key] = 0
+    rec10, _ = time_plans(torch, tp, pqr, xq, gt, k, bs.launches, "pqr3 ",
+                          plans=PQR_PLANS_K10, floors=False)
+    counts10 = dict(bs.launches)
+    rec100, _ = time_plans(torch, tp, pqr, xq, gt100, 100, bs.launches,
+                           "pqr3 k=100 ", plans=PQR_PLANS_K100, floors=False,
+                           short_ok=True, plain_ok=PLAIN_K100)
+    counts = dict(bs.launches)
+    counts100 = {key: counts[key] - counts10[key] for key in counts}
+    log(f"pqr3 launches: k=10 plans {counts10}, k=100 plans {counts100}")
+    require_tc_keys(counts, "the pqr3 plans")
+    rising(rec10, PQR_PLANS_K10, "pqr3 k=10")
+    rising(rec100, PQR_PLANS_K100, "pqr3 k=100")
+    flat = ("flat", 1, True)
+    log(f"pqr3 recall@10 flat {rec10[flat]:.4f} against the main index's "
+        f"{sl['rec'][flat]:.4f}; recall@100 " + ", ".join(
+            f"{p[0]} np={p[1]} {rec100[p]:.4f}" for p in PQR_PLANS_K100))
+    if not rec10[flat] > sl["rec"][flat]:
+        fail("the refined cache's flat recall@10 is not above the main "
+             "index's")
+    all_cells_check(torch, pqr, xq, k, "pqr3 ")
+    rows, launches = {}, {}
+    for name, kk, key_counts in (("block_scan_pack32_pqr", k, counts10),
+                                 ("block_scan_pack32_pqr_k100", 100,
+                                  counts100)):
+        pqr.scan_mode, pqr.n_probe, pqr.use_approx_topk = "cell_major", 32, \
+            True
+        args, kw = capture_call(tp, pqr, xq, kk)
+        if kw["k_pair"] != min(kk, 64):
+            fail(f"the pqr3 k={kk} scan ran k_pair {kw['k_pair']}")
+        rows[name] = pack32_scan_row(torch, bs, name, args, kw,
+                                     f"the pqr3 k={kk} n_probe=32 search")
+        launches[name] = key_counts["tc_pack32"]
+        del args
+    phase_profile(torch, pqr, xq, k, label="pqr3 ",
+                  plans=[("cell_major", 32, True)])
+    phase_profile(torch, pqr, xq, 100, label="pqr3 k=100 ",
+                  plans=[("cell_major", 32, True)])
+    # the exact select over the probed cells alone (scan_group 1): the
+    # two-stage ranking of the cells the code domain scans, which takes no
+    # supercells in either package (k = 100: k_pair 100, the plain select)
+    pqr.scan_group = 1
+    rec = {"k10": rec10, "k100": rec100}
+    same_set = [("cell_major", p, False) for p in (8, 32)]
+    for key, kk, g in (("k10_g1", k, gt), ("k100_g1", 100, gt100)):
+        rec[key], _ = time_plans(
+            torch, tp, pqr, xq, g, kk, bs.launches,
+            f"pqr3 k={kk} scan_group 1 ", plans=same_set, floors=False,
+            plain_ok=set(same_set) if kk > 64 else ())
+    pqr.scan_group = PQR_GROUP
+    relayout_keeps_search(torch, pqr, xq, k, "pqr3 ")
+    return launches, rows, trained, rec
+
+
+def codes_pack32_row(torch, bs, cs, name, args, kw, route, what):
+    """One pack32 codes scan on its search's own arguments, through the
+    kernel pick_route names (`route`): against codes_scan_ref (the
+    tensor-core kernel on live rows, pad rows dead, and the CUDA-core one
+    on every row: compare_pack32's tolerances), timed (in turns with the
+    CUDA-core kernel where the tensor cores serve it), with its bound.
+    Returns the kernels-line row."""
+    s_eff, k_pair = kw["s_eff"], kw["k_pair"]
+    blocks, p_tile = args[1].shape
+    m, _, dsub = args[7].shape
+    d = args[0].shape[1]
+    live = int((args[1] >= 0).sum())
+    picked = cs.pick_route(m=m, dsub=dsub, p_tile=p_tile, s_eff=s_eff,
+                           k_pair=k_pair, pack32=True)
+    log(f"{what}: {blocks} blocks x {p_tile} probers, {live} live, "
+        f"s_eff={s_eff}, k_pair={k_pair}, m={m}, route {picked}")
+    if picked != route:
+        fail(f"{what} routes to {picked}, not {route}")
+    kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
+               pack32=True, slot_mask=kw["slot_mask"])
+    ref = cs.codes_scan_ref(*args, **kkw)
+    if route == "tc_pack32":
+        err, agree, _, _ = check_codes(torch, bs, cs, args, s_eff=s_eff,
+                                       k_pair=k_pair, pack32=True,
+                                       euclidean=kw["euclidean"], reps=0)
+        t, turns = in_turns(torch, {
+            "cuda_cores": lambda: codes_launch(torch, cs, args, "pack32",
+                                               **kkw),
+            "tensor_cores": lambda: codes_launch(torch, cs, args,
+                                                 "tc_pack32", **kkw)}, 10)
+        ms, cc_ms = t["tensor_cores"], t["cuda_cores"]
+        times = (f"tensor cores {ms:.3f} ms ("
+                 f"{' / '.join(f'{x:.3f}' for x in turns['tensor_cores'])})"
+                 f", CUDA cores {cc_ms:.3f} ms ("
+                 f"{' / '.join(f'{x:.3f}' for x in turns['cuda_cores'])})")
+        source = "torchpq_tpu_torch/csrc/codes_scan_tc.cu"
+    else:
+        got = codes_launch(torch, cs, args, route, **kkw)
+        torch.cuda.synchronize()
+        err, agree = compare_pack32(torch, bs, got, ref, kkw["slot_mask"],
+                                    what=f"{name} (CUDA cores)")
+        del got
+        ms = cc_ms = cuda_ms(torch, lambda: codes_launch(
+            torch, cs, args, route, **kkw), 5)
+        times = (f"CUDA cores {ms:.3f} ms (no tensor-core route takes "
+                 f"pack32 k_pair {k_pair} > {cs._TC_MAX_PACK_K}: with the "
+                 "codebook beside them the lists do not fit)")
+        source = "torchpq_tpu_torch/csrc/codes_scan.cu"
+    del ref
+    plain_ms = cuda_ms(torch, lambda: cs.codes_scan_ref(*args, **kkw), 1)
+    b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=m + 4,
+                            row_bytes=2 * d, peak="bf16", d=d,
+                            extra_bytes=args[7].numel() * 2)
+    log(f"{name} on {what}'s arguments: {times}; "
+        f"{2.0 * live * s_eff * d / ms / 1e9:.2f} TFLOP/s over live "
+        f"probers, {b_ms / ms:.1%} of the bound; plain {plain_ms:.3f} ms, "
+        f"bound {b_ms:.3f} ms ({b_by}); max_abs_err {err:.3g}, key agreement "
+        f"{agree:.7f}")
+    return dict(name=name, route="cuda", source=source,
+                replaces="torchpq_tpu/ops/pallas_codes_scan.py:198",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, cuda_core_ms=cc_ms,
+                tensor_core_route=route.startswith("tc_"))
+
+
+def phase_pqr_codes(torch, tp, bs, cs, sl, gt100, trained, rec_cached):
+    """The JAX package's IVFPQR record, code domain (pqr3_codes): the same
+    codecs in a scan_cache_dtype="none" index (codes, rerank codes, base
+    norms and norm deltas: no cache), initial_mult 3; PQR_CODE_PLANS at k =
+    10 and 100 with the codes-scan counters zeroed before each and read
+    after. The base scan runs at k * 4 under the code scan's k_pair rule:
+    k = 10 (k' 40) at pack32 k_pair 20 / 16 (n_probe 8 / 32) on the
+    tensor-core key only; k = 100 (k' 400) at k_pair 64 / 52, above the
+    tensor-core limit of 48, on the CUDA-core pack32 key only. Recall@10
+    and @100 within 0.02 of the cached tier's exact select over the same
+    probed cells (scan_group 1: the code domain takes no supercells, in
+    either package) at n_probe 8 and 32; the cached tier's pack32 plans
+    over supercells of 4 are logged beside (on manifold-12 the supercells
+    lift them 0.01-0.05 above both); both scans held to codes_scan_ref on
+    their searches' own arguments. Returns (launches, the kernels' rows)."""
+    base, xq, gt, k = (sl[x] for x in ("base", "xq", "gt", "k"))
+    code, add_s = build_pqr(torch, tp, trained, base, sl["index"],
+                            initial_mult=3, cache="none")
+    if "decoded" in code._aux or code._aux_rebuild_names != ("norm",
+                                                             "dnorm2"):
+        fail("the pqr3 code-domain index holds a decoded cache or does not "
+             "rebuild its norm deltas")
+    per_slot = (code._storage.numel() + code.aux("rerank_codes").numel()
+                + 8 * code.capacity) / code.capacity
+    log(f"pqr3 code-domain index: add {add_s:.2f} s; s_max "
+        f"{code.max_cell_capacity}; storage {tuple(code._storage.shape)} "
+        f"uint8 (pack group {code.pack_group}); device bytes per slot "
+        f"{per_slot:.0f} (64 B codes, {PQR_RERANK_M} B rerank codes, 4 B "
+        "norm, 4 B norm delta)")
+    rec, counts, launches, rows = {}, {}, {}, {}
+    for kk, g, want in ((k, gt, "tc_pack32"), (100, gt100, "pack32")):
+        for key in cs.launches:
+            cs.launches[key] = 0
+        rec[kk], _ = time_plans(torch, tp, code, xq, g, kk, cs.launches,
+                                f"pqr3 code-domain k={kk} ",
+                                plans=PQR_CODE_PLANS, floors=False,
+                                short_ok=True)
+        counts[kk] = dict(cs.launches)
+        log(f"pqr3 code-domain k={kk} launches: {counts[kk]} (the route "
+            f"served: {want})")
+        for key, c in counts[kk].items():
+            if (c > 0) != (key == want):
+                fail(f"the pqr3 code-domain k={kk} plans launched the codes "
+                     f"scan's {key} {c} times: only {want} may serve them")
+        key = "k10" if kk == k else "k100"
+        cached, same_set = rec_cached[key], rec_cached[key + "_g1"]
+        for plan in PQR_CODE_PLANS[1:]:
+            r, exact = rec[kk][plan], same_set[(plan[0], plan[1], False)]
+            log(f"pqr3 code-domain k={kk} {plan[0]} np={plan[1]}: recall "
+                f"{r:.4f}; the cached tier's exact select over the same "
+                f"probed cells (scan_group 1) {exact:.4f}, its pack32 plan "
+                f"over supercells of {PQR_GROUP} {cached[plan]:.4f}")
+            if abs(r - exact) > 0.02:
+                fail(f"the pqr3 code domain's recall@{kk} at n_probe "
+                     f"{plan[1]} is not within 0.02 of the cached tier's")
+        name = "codes_scan_pack32_pqr" + ("" if kk == k else "_k100")
+        code.scan_mode, code.n_probe, code.use_approx_topk = "cell_major", \
+            32, True
+        args, kw = capture_call(tp, code, xq, kk, module=tp.ops.onehot_adc,
+                                name="codes_scan")
+        rows[name] = codes_pack32_row(
+            torch, bs, cs, name, args, kw, want,
+            f"the pqr3 code-domain k={kk} n_probe=32 search")
+        launches[name] = counts[kk][want]
+        del args
+    phase_profile(torch, code, xq, 100, label="pqr3 code-domain k=100 ",
+                  plans=[("cell_major", 32, True)])
+    return launches, rows
+
+
+def phase_flat_index(torch, tp, sl):
+    """FlatIndex over the slice's 1M x 128 base, f32, euclidean: 10k
+    queries at k = 10 and 100, each search's ids held to the exact f32
+    ground truth (>= 0.999 agreement: only exact ties may fall either
+    way), ms per batch and device bytes logged, one k = 10 search
+    profiled; then a seeded 10% of the ids removed and 1,000 queries held
+    to the exact ground truth of the survivors."""
+    base, xq = sl["base"], sl["xq"]
+    n, d = base.shape
+    t0 = time.perf_counter()
+    flat = tp.FlatIndex(d_vector=d, initial_size=n, device="cuda")
+    ids = flat.add(torch.from_numpy(base).cuda().T)
+    torch.cuda.synchronize()
+    log(f"FlatIndex: add {n} x {d} f32 {time.perf_counter() - t0:.2f} s; "
+        f"capacity {flat.capacity}, device bytes {flat.state_nbytes()}")
+    if not torch.equal(ids.cpu(), torch.arange(n, dtype=ids.dtype)):
+        fail("FlatIndex did not assign ids 0..n-1")
+    for kk, gt in ((10, sl["gt"]), (100, exact_gt(torch, base, xq, 100))):
+        flat.search(xq.T, k=kk)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            vals, got = flat.search(xq.T, k=kk)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        agree = recall_at(got.long(), gt)
+        ms = float(np.median(times)) * 1e3
+        log(f"FlatIndex k={kk}: {ms:.2f} ms per {xq.shape[0]}-query batch "
+            f"({xq.shape[0] / ms * 1e3:.0f} q/s), id agreement with the "
+            f"exact ground truth {agree:.5f}")
+        if tuple(got.shape) != (xq.shape[0], kk) or agree < 0.999 \
+                or not bool(torch.isfinite(vals).all()):
+            fail(f"FlatIndex k={kk} disagrees with the exact ground truth")
+    profile_search(torch, lambda: flat.search(xq.T, k=10),
+                   "FlatIndex k=10")
+    gen = np.random.default_rng(0)
+    gone = gen.choice(n, n // 10, replace=False)
+    if flat.remove(gone) != gone.size:
+        fail("FlatIndex removed another count than asked")
+    keep = np.setdiff1d(np.arange(n), gone)
+    sub = xq[:1000]
+    gt = exact_gt(torch, base[keep], sub, 10)
+    want = torch.from_numpy(keep).cuda()[gt]
+    _, got = flat.search(sub.T, k=10)
+    agree = recall_at(got.long(), want)
+    log(f"FlatIndex after removing {gone.size} seeded ids: {flat.n_items} "
+        f"items; 1,000 queries, id agreement with the survivors' exact "
+        f"ground truth {agree:.5f}")
+    if agree < 0.999 or bool(np.isin(got.cpu().numpy(), gone).any()):
+        fail("FlatIndex after the remove disagrees with the survivors' "
+             "ground truth")
+    del flat
+
+
+def phase_transforms(torch, tp, sl):
+    """The transforms and SQ at 100k x 128 of the slice's data (no kernel
+    on these paths), each card result against the same calls on the CPU
+    from the same carried state: OPQ (PQ16, 3 rounds, trained on the card)
+    -> rotate (within 1e-4) -> an IVFPQIndex IVF256 x PQ16 (trained on the
+    card over the rotated rows, carried to the CPU, the same adds): the
+    exact n_probe 8 search of 1,000 rotated queries, ids on >= 0.99 and
+    values within 1e-2 where the ids agree; PCA 128 -> 64 (trained on the
+    card) -> encode (within 1e-3) -> FlatIndex: 1,000 queries, the same
+    holds; and an SQCodec (8 bits) round trip: codes equal to the CPU's on
+    >= 0.999, every decode within half a bin of its input (1e-5 of the
+    largest |x| for rounding)."""
+    base, xq = sl["base"], sl["xq"]
+    n = min(100_000, base.shape[0])
+    x_cpu = torch.from_numpy(base[:n]).T.contiguous()
+    x = x_cpu.cuda()
+    q_cpu = xq[:1000].T.cpu().contiguous()
+    q = q_cpu.cuda()
+
+    def held(label, v, i, v_ref, i_ref, tol):
+        """ids on >= 0.99; values within tol where the ids agree (the two
+        devices' rows differ in their last bits, so a code may flip)."""
+        agree = recall_at(i.cpu().long(), i_ref.long())
+        same = i.cpu() == i_ref
+        err = float((v.cpu() - v_ref).abs()[same].max())
+        log(f"transforms: {label} card vs CPU: id agreement {agree:.5f}, "
+            f"max value diff at equal ids {err:.3g}")
+        if agree < 0.99 or err > tol:
+            fail(f"{label}: the card's search differs from the CPU's")
+
+    t0 = time.perf_counter()
+    opq = tp.transform.OPQ(d_vector=128, n_subvectors=16, n_iter=3,
+                           device="cuda")
+    opq.train(x)
+    opq_cpu = tp.transform.OPQ(d_vector=128, n_subvectors=16, device="cpu")
+    opq_cpu.load_state_dict(opq.state_dict())
+    z, z_cpu = opq.rotate(x), opq_cpu.rotate(x_cpu)
+    if float((z.cpu() - z_cpu).abs().max()) > 1e-4:
+        fail("OPQ.rotate on the card differs from the CPU's")
+    kw = dict(d_vector=128, n_subvectors=16, n_cells=256, initial_size=512)
+    ivf = tp.IVFPQIndex(**kw, device="cuda")
+    ivf.train(z)
+    ivf_cpu = tp.IVFPQIndex(**kw, device="cpu")
+    ivf_cpu.load_state_dict(ivf.state_dict())
+    ivf.add(z)
+    ivf_cpu.add(z_cpu)
+    for idx in (ivf, ivf_cpu):
+        idx.scan_mode, idx.n_probe, idx.use_approx_topk = "cell_major", 8, \
+            False
+    v, i = ivf.search(opq.rotate(q), k=10)
+    v_ref, i_ref = ivf_cpu.search(opq_cpu.rotate(q_cpu), k=10)
+    held("OPQ (PQ16) -> IVFPQIndex IVF256 x PQ16, exact n_probe 8", v, i,
+         v_ref, i_ref, 1e-2)
+    log(f"transforms: OPQ path {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    pca = tp.transform.PCA(n_components=64, device="cuda")
+    pca.train(x)
+    pca_cpu = tp.transform.PCA(n_components=64, device="cpu")
+    pca_cpu.load_state_dict(pca.state_dict())
+    y, y_cpu = pca.encode(x), pca_cpu.encode(x_cpu)
+    if float((y.cpu() - y_cpu).abs().max()) > 1e-3:
+        fail("PCA.encode on the card differs from the CPU's")
+    flat = tp.FlatIndex(d_vector=64, initial_size=n, device="cuda")
+    flat_cpu = tp.FlatIndex(d_vector=64, initial_size=n, device="cpu")
+    flat.add(y)
+    flat_cpu.add(y_cpu)
+    v, i = flat.search(pca.encode(q), k=10)
+    v_ref, i_ref = flat_cpu.search(pca_cpu.encode(q_cpu), k=10)
+    held("PCA 128 -> 64 -> FlatIndex", v, i, v_ref, i_ref, 1e-2)
+    log(f"transforms: PCA path {time.perf_counter() - t0:.2f} s")
+
+    sq = tp.codec.SQCodec(bits=8, device="cuda")
+    sq.train(x)
+    sq_cpu = tp.codec.SQCodec(bits=8, device="cpu")
+    sq_cpu.load_state_dict(sq.state_dict())
+    codes = sq.encode(x)
+    same = share_equal(codes.cpu(), sq_cpu.encode(x_cpu))
+    err = ((sq.decode(codes) - x).abs() - sq.binsize[:, None] / 2).max()
+    log(f"transforms: SQCodec 8-bit round trip on the card: codes equal to "
+        f"the CPU's {same:.6f}, decode within half a bin (excess "
+        f"{float(err):.3g})")
+    if same < 0.999 or float(err) > 1e-5 * (1 + float(x.abs().max())):
+        fail("SQCodec round trip on the card")
+
+
 def phase_aniso_manhattan(torch, tp, bs, cs, sl):
     """No kernel lies on these paths, so they run at a reduced size, 100k x
     128 of the slice's data. Anisotropic PQ: from the main PQ codebook as
@@ -2365,7 +2834,21 @@ def main():
     t_phase = time.perf_counter()
     res_launches, res_rows = phase_residual(torch, tp, bs, sl, gt100)
     log(f"residual phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    pqr_launches, pqr_rows, pqr_trained, pqr_rec = phase_pqr(
+        torch, tp, bs, sl, gt100)
+    log(f"pqr3 phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    pqrc_launches, pqrc_rows = phase_pqr_codes(
+        torch, tp, bs, cs, sl, gt100, pqr_trained, pqr_rec)
+    log(f"pqr3 code-domain phase: {time.perf_counter() - t_phase:.1f} s")
     del gt100
+    t_phase = time.perf_counter()
+    phase_flat_index(torch, tp, sl)
+    log(f"FlatIndex phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    phase_transforms(torch, tp, sl)
+    log(f"transforms and SQ phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     phase_aniso_manhattan(torch, tp, bs, cs, sl)
     log(f"anisotropic and manhattan check: "
@@ -2373,7 +2856,7 @@ def main():
     gist_counts, gist_rows, gist, gist_q = phase_gist(torch, tp, bs)
     # last of the paths: its floor holds the kernel's bucket approximation
     flat_counts, flat_row = phase_pallas_flat(torch, tp, fs, sl)
-    log(f"phases 4-14: {time.perf_counter() - t_start:.1f} s")
+    log(f"phases 4-18: {time.perf_counter() - t_start:.1f} s")
     phase_profile(torch, sl["index"], sl["xq"], sl["k"])
     phase_profile(torch, code, sl["xq"], sl["k"], label="code-domain ")
     phase_profile(torch, i8, sl["xq"], sl["k"], label="int8 ")
@@ -2389,7 +2872,7 @@ def main():
     sl["index"].scan_impl = "pallas_flat"
     phase_profile(torch, sl["index"], sl["xq"], sl["k"],
                   label="pallas_flat ", plans=[("flat", 1, True)])
-    log(f"phases 4-15: {time.perf_counter() - t_start:.1f} s")
+    log(f"phases 4-19: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, row, cnt in (
@@ -2419,6 +2902,14 @@ def main():
              pq4_launches["codes_scan_pack32_pq4"]),
             ("block_scan_pack32_residual_k100", res_rows,
              res_launches["block_scan_pack32_residual_k100"]),
+            ("block_scan_pack32_pqr", pqr_rows,
+             pqr_launches["block_scan_pack32_pqr"]),
+            ("block_scan_pack32_pqr_k100", pqr_rows,
+             pqr_launches["block_scan_pack32_pqr_k100"]),
+            ("codes_scan_pack32_pqr", pqrc_rows,
+             pqrc_launches["codes_scan_pack32_pqr"]),
+            ("codes_scan_pack32_pqr_k100", pqrc_rows,
+             pqrc_launches["codes_scan_pack32_pqr_k100"]),
             ("flat_scan", {"flat_scan": flat_row}, flat_counts["flat_tc"]),
             ("gather_rows", krows, counts["gather"])):
         kernels.append(dict(row[name], launches=cnt))

@@ -52,6 +52,21 @@ def assert_topk_match(v_ref, i_ref, v, i, atol=1e-4, rtol=1e-5):
                     (r, c, i[r], i_ref[r], row)
 
 
+def seed_fits(index, max_iter=6):
+    """Every k-means fit of an index's codecs (VQ, PQ and, where there is
+    one, the rerank PQ) starts from the first k columns of the data it is
+    given, in either package: equal initial centroids, not the packages'
+    own random draws."""
+    for name in ("vq_codec", "pq_codec", "rerank_codec"):
+        km = getattr(index, name).kmeans
+        km.max_iter = max_iter
+
+        def seeded(data, centroids=None, fit=km.fit, k=km.n_clusters):
+            return fit(data, centroids=data[..., :k])
+
+        km.fit = seeded
+
+
 def overlap(a, b):
     """Mean per-row share of b's (non -1) entries that a holds too."""
     a, b = to_np(a), to_np(b)

@@ -29,17 +29,26 @@ from _torch_helpers import CPU, to_np
 
 SURFACE = {
     "torchpq_tpu_torch": [
-        "CustomModule", "StateModule", "metric", "util", "config", "fn",
-        "ops", "clustering", "codec", "container", "index",
+        "topk", "Topk", "CustomModule", "StateModule", "metric", "util",
+        "config", "fn", "ops", "clustering", "codec", "container", "index",
+        "transform",
     ],
-    "torchpq_tpu_torch.index": ["IVFPQIndex"],
-    "torchpq_tpu_torch.clustering": ["KMeans", "MultiKMeans"],
-    "torchpq_tpu_torch.codec": ["BaseCodec", "VQCodec", "PQCodec"],
+    "torchpq_tpu_torch.index": ["FlatIndex", "IVFPQIndex", "IVFPQRIndex"],
+    "torchpq_tpu_torch.clustering": ["KMeans", "MultiKMeans",
+                                     "MinibatchKMeans"],
+    "torchpq_tpu_torch.codec": ["BaseCodec", "VQCodec", "PQCodec",
+                                "SQCodec"],
     "torchpq_tpu_torch.codec.pq": [
         "PQCodec", "pack_nibbles", "unpack_nibbles", "paired_codebook",
     ],
-    "torchpq_tpu_torch.container": ["BaseContainer", "CellContainer"],
-    "torchpq_tpu_torch.fn": ["IVFPQTopk"],
+    "torchpq_tpu_torch.container": [
+        "BaseContainer", "FlatContainer", "CellContainer",
+        "FlatContainerGroup",
+    ],
+    "torchpq_tpu_torch.transform": ["PCA", "OPQ"],
+    "torchpq_tpu_torch.fn": ["Topk", "topk", "IVFPQTopk"],
+    "torchpq_tpu_torch.ops.bmm": ["bmm", "min_bmm", "topk_bmm",
+                                  "masked_bmm"],
     "torchpq_tpu_torch.ops.adc": [
         "build_adc_table", "adc_lookup_scores", "scan_query_major",
         "scan_cell_major",
@@ -56,7 +65,7 @@ SURFACE = {
     "torchpq_tpu_torch.metric": [
         "similarity", "cosine_similarity", "negative_squared_l2_distance",
         "negative_manhattan_distance", "inner_similarity",
-        "canonical_distance",
+        "canonical_distance", "preprocess_query",
     ],
 }
 
@@ -86,6 +95,35 @@ METHODS = {
     "torchpq_tpu_torch.StateModule": [
         "state_dict", "load_state_dict", "state_nbytes", "save", "load",
     ],
+    "torchpq_tpu_torch.index.IVFPQRIndex": [
+        "train", "add", "remove", "search", "search_cells", "encode",
+        "decode", "save", "load", "state_dict", "load_state_dict",
+        "similarity_at_address", "similarity_at_id", "get_id_by_address",
+        "get_address_by_id", "expand",
+    ],
+    "torchpq_tpu_torch.index.FlatIndex": [
+        "add", "remove", "search", "expand", "get_data_by_address",
+        "get_data_by_id", "set_data_by_address", "get_id_by_address",
+        "get_address_by_id", "empty", "save", "load",
+    ],
+    "torchpq_tpu_torch.container.FlatContainer": [
+        "add", "remove", "expand", "add_aux_store", "aux",
+        "get_data_by_address", "set_data_by_address", "get_data_by_id",
+        "empty", "create_inverse_id_mapping",
+    ],
+    "torchpq_tpu_torch.container.FlatContainerGroup": [
+        "add", "remove", "get_data_by_address", "set_data_by_address",
+        "__getitem__",
+    ],
+    "torchpq_tpu_torch.codec.SQCodec": ["train", "encode", "decode"],
+    "torchpq_tpu_torch.transform.PCA": ["train", "encode", "decode",
+                                        "covar"],
+    "torchpq_tpu_torch.transform.OPQ": ["train", "encode", "decode",
+                                        "rotate"],
+    "torchpq_tpu_torch.clustering.MinibatchKMeans": [
+        "fit_minibatch", "predict", "topk",
+    ],
+    "torchpq_tpu_torch.fn.Topk": ["__call__"],
 }
 
 # public callables whose JAX signatures' parameters the port's must all
@@ -106,9 +144,29 @@ SIGNATURES = [
     "clustering.kmeans.MultiKMeans.__init__",
     "container.cell.CellContainer.__init__", "module.StateModule.save",
     "codec.pq.PQCodec.__init__", "index.ivfpq.IVFPQIndex.__init__",
+    "fn.topk.topk", "fn.topk.Topk.__call__", "metric.preprocess_query",
+    "container.flat.FlatContainer.__init__",
+    "container.flat.FlatContainer.add", "container.flat.FlatContainer.remove",
+    "container.group.FlatContainerGroup.__init__",
+    "container.group.FlatContainerGroup.add",
+    "container.group.FlatContainerGroup.get_data_by_address",
+    "index.flat.FlatIndex.__init__", "index.flat.FlatIndex.add",
+    "index.flat.FlatIndex.search", "index.ivfpqr.IVFPQRIndex.__init__",
+    "index.ivfpqr.IVFPQRIndex.train", "index.ivfpqr.IVFPQRIndex.add",
+    "index.ivfpqr.IVFPQRIndex.search", "codec.sq.SQCodec.__init__",
+    "transform.pca.PCA.__init__", "transform.pca.PCA.covar",
+    "transform.opq.OPQ.__init__",
+    "clustering.minibatch_kmeans.MinibatchKMeans.__init__",
+    "clustering.minibatch_kmeans.MinibatchKMeans.fit_minibatch",
+    "clustering.minibatch_kmeans.MinibatchKMeans.topk",
+    "ops.bmm.bmm", "ops.bmm.min_bmm", "ops.bmm.topk_bmm", "ops.bmm.masked_bmm",
 ]
 DEFAULTS = ("impl", "dtype", "format", "n_bits", "anisotropic_iters",
-            "pq_use_residual")
+            "pq_use_residual", "k", "dim", "distance", "approx",
+            "recall_target", "expand_mode", "expand_step_size", "bits",
+            "alpha", "mode", "n_subvectors_rerank", "rerank_multiplier",
+            "n_iter", "pq_max_iter", "n_clusters", "init_mode", "meaned",
+            "rowvar")
 
 TUNABLES = ["use_cublas", "use_tensor_core", "fp16_scale_mode",
             "use_precomputed", "pq_max_iter", "vq_max_iter",
@@ -450,3 +508,53 @@ def test_state_nbytes_and_save_formats(index_pair, tmp_path):
                                                   fresh.search(q, k=5)))
     with pytest.raises(NotImplementedError, match="jax"):
         port.save(str(tmp_path / "ckpt"), format="orbax")
+
+
+# the modules this slice of the port brought (A13, A14)
+NEW_MODULES = [
+    "torchpq_tpu_torch.fn.topk", "torchpq_tpu_torch.container.flat",
+    "torchpq_tpu_torch.container.group", "torchpq_tpu_torch.index.flat",
+    "torchpq_tpu_torch.index.ivfpqr", "torchpq_tpu_torch.codec.sq",
+    "torchpq_tpu_torch.transform.pca", "torchpq_tpu_torch.transform.opq",
+    "torchpq_tpu_torch.clustering.minibatch_kmeans",
+    "torchpq_tpu_torch.ops.bmm",
+]
+
+
+def _imports(path):
+    """Top-level names of every module a source file imports."""
+    import ast
+    tree = ast.parse(open(path).read())
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            out.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and not node.level:
+            out.add(node.module)
+    return {name.split(".")[0] for name in out}
+
+
+def test_port_sources_import_no_jax():
+    """No source of the port, and not chip_smoke.py, names jax, orbax or
+    the JAX package in an import."""
+    import pathlib
+    root = pathlib.Path(tp.__file__).parent
+    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    for path in files:
+        bad = _imports(path) & {"jax", "jaxlib", "orbax", "torchpq_tpu"}
+        assert not bad, f"{path} imports {bad}"
+
+
+def test_new_modules_load_without_jax():
+    """A fresh interpreter imports every module of this slice and finds no
+    jax, orbax or JAX-package module loaded."""
+    import subprocess
+    import sys
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in NEW_MODULES)
+            + "bad = [m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'orbax', 'torchpq_tpu')]\n"
+              "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True,
+                   cwd=str(__import__("pathlib").Path(tp.__file__)
+                           .parent.parent))

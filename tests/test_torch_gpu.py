@@ -21,6 +21,8 @@ from torchpq_tpu_torch.ops import flat_adc
 from torchpq_tpu_torch.ops import flat_scan as fs
 from torchpq_tpu_torch.ops import gather as gr
 
+from _torch_helpers import seed_fits
+
 
 @pytest.fixture
 def cuda():
@@ -1091,3 +1093,117 @@ def test_gather_kernel_matches_plain(cuda, dtype, idx_dtype, d):
     torch.cuda.synchronize()
     assert gr.launches["gather"] == before + 1
     assert torch.equal(got, gr.gather_rows_ref(table, idx))
+
+
+def _ids_by_plan(cpu, gpu, q, k, plans):
+    """Every plan on both devices: values within 1e-3 (rel 1e-3; pack32 by
+    _assert_pack32_values where the ids agree) and ids equal outside ties
+    (exact plans) or shared on >= 0.99 (pack32)."""
+    for mode, approx in plans:
+        for idx in (cpu, gpu):
+            idx.scan_mode, idx.use_approx_topk, idx.n_probe = mode, approx, 4
+        v_ref, i_ref = cpu.search(q.T, k=k)
+        v, i = gpu.search(torch.from_numpy(q).to(gpu.device).T, k=k)
+        if approx and mode == "cell_major" and not gpu._code_domain:
+            shared = sum(len(set(a.tolist()) & set(b.tolist()))
+                         for a, b in zip(i.cpu(), i_ref)) / i_ref.numel()
+            assert shared >= 0.99, (mode, approx, shared)
+            _assert_pack32_values(v, v_ref, i, i_ref, q,
+                                  adc.LAST_GATE["s_eff"])
+        elif approx:
+            shared = sum(len(set(a.tolist()) & set(b.tolist()))
+                         for a, b in zip(i.cpu(), i_ref)) / i_ref.numel()
+            assert shared >= 0.95, (mode, approx, shared)
+        else:
+            _assert_topk_ties(v, i, v_ref, i_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [None, "int8", "none"])
+def test_ivfpqr_on_card_matches_cpu(cuda, cache, tmp_path):
+    """IVFPQRIndex on the card against the CPU: train from equal initial
+    centroids on both (codebooks within 1e-2), then the CPU's trained state
+    on both, two adds that relayout (equal codes, rerank codes and ids; the
+    refined cache rows or the norm deltas within 1e-3), every plan, a
+    remove, a forced relayout (expand) and an npz saved on the card and
+    loaded on the CPU, each held to the CPU tie-aware."""
+    import numpy as np
+    import torchpq_tpu_torch as tp
+
+    rng = np.random.default_rng(1)
+    centers = rng.normal(size=(40, 32)).astype(np.float32) * 3
+    x = (centers[rng.integers(0, 40, 6000)]
+         + rng.normal(size=(6000, 32))).astype(np.float32)
+    q = x[:200] + 0.1 * rng.normal(size=(200, 32)).astype(np.float32)
+    kw = dict(d_vector=32, n_subvectors=8, n_subvectors_rerank=8,
+              n_cells=16, initial_size=32, scan_cache_dtype=cache)
+    cpu = tp.IVFPQRIndex(**kw, device="cpu")
+    gpu = tp.IVFPQRIndex(**kw, device=cuda)
+    for idx in (cpu, gpu):
+        seed_fits(idx)
+    cpu.train(x[:2000].T)
+    gpu.train(torch.from_numpy(x[:2000]).to(cuda).T)
+    for name in ("vq_codec", "pq_codec", "rerank_codec"):
+        torch.testing.assert_close(
+            getattr(gpu, name).kmeans._centroids.cpu(),
+            getattr(cpu, name).kmeans._centroids, rtol=1e-2, atol=1e-2)
+    gpu.load_state_dict(cpu.state_dict())
+    for chunk in (x[:3000], x[3000:]):
+        cpu.add(chunk.T)
+        gpu.add(torch.from_numpy(chunk).to(cuda).T)
+    assert gpu.max_cell_capacity > 32, "the adds must relayout"
+    for name in ("_storage", "_address2id", "_aux_rerank_codes"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))
+    derived = "dnorm2" if cache == "none" else "decoded"
+    torch.testing.assert_close(gpu.aux(derived).cpu().float(),
+                               cpu.aux(derived).float(), rtol=1e-3,
+                               atol=1e-3 if cache != "int8" else 1.0)
+    plans = (("cell_major", False), ("cell_major", True), ("flat", False))
+    _ids_by_plan(cpu, gpu, q, 10, plans)
+    rm = np.arange(0, 6000, 9)
+    assert gpu.remove(rm) == cpu.remove(rm)
+    for idx in (cpu, gpu):
+        idx.expand()
+    _ids_by_plan(cpu, gpu, q, 10, plans)
+    gpu.save(str(tmp_path / "r.npz"))
+    back = tp.IVFPQRIndex(**kw, device="cpu")
+    back.load(str(tmp_path / "r.npz"))
+    _ids_by_plan(back, gpu, q, 10, plans[:1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("distance", ["euclidean", "cosine", "manhattan"])
+def test_flat_index_on_card_matches_cpu(cuda, distance, tmp_path):
+    """FlatIndex on the card against the CPU: the same adds, removes and
+    growth give equal stores and id maps; searches (k 10 and k above the
+    rows held) within 1e-3 with ids equal outside ties; an npz saved on
+    the card loads on the CPU."""
+    import numpy as np
+    import torchpq_tpu_torch as tp
+
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(5000, 48)).astype(np.float32)
+    q = rng.normal(size=(300, 48)).astype(np.float32)
+    kw = dict(d_vector=48, distance=distance, initial_size=1024)
+    cpu, gpu = tp.FlatIndex(**kw, device="cpu"), tp.FlatIndex(**kw,
+                                                              device=cuda)
+    for chunk in (x[:3000], x[3000:]):
+        cpu.add(chunk.T)
+        gpu.add(torch.from_numpy(chunk).to(cuda).T)
+    rm = rng.choice(5000, 500, replace=False)
+    assert gpu.remove(rm) == cpu.remove(rm) == 500
+    for name in ("_address2id", "_id2address"):
+        assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name))
+    torch.testing.assert_close(gpu._storage.cpu(), cpu._storage)
+    v_ref, i_ref = cpu.search(q.T, k=10)
+    v, i = gpu.search(torch.from_numpy(q).to(cuda).T, k=10)
+    _assert_topk_ties(v, i, v_ref, i_ref, rtol=1e-4, atol=1e-3)
+    gpu.save(str(tmp_path / "f.npz"))
+    back = tp.FlatIndex(**kw, device="cpu")
+    back.load(str(tmp_path / "f.npz"))
+    small = tp.FlatIndex(**kw, device=cuda)
+    small.add(torch.from_numpy(x[:4]).to(cuda).T)
+    v4, i4 = small.search(torch.from_numpy(q).to(cuda).T, k=6)
+    assert bool((i4[:, 4:] == -1).all()) and bool(torch.isinf(v4[:, 4:]).all())
+    v_b, i_b = back.search(q.T, k=10)
+    _assert_topk_ties(v, i, v_b, i_b, rtol=1e-4, atol=1e-3)

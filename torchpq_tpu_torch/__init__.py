@@ -18,10 +18,15 @@ from . import codec
 from . import container
 from . import fn
 from . import index
+from . import transform
+from .fn import Topk
 from .module import StateModule
-from .index import IVFPQIndex
+from .index import FlatIndex, IVFPQIndex, IVFPQRIndex
 
 # the reference's name of the stateful-shell base class
 CustomModule = StateModule
+
+# the reference's module-level top-k facade
+topk = Topk()
 
 __version__ = "0.1.0"

@@ -24,6 +24,7 @@ class BaseContainer(StateModule):
         self.expand_step_size = int(expand_step_size)
         self.expand_mode = expand_mode
         self.use_inverse_id_mapping = use_inverse_id_mapping
+        self._expand_calls = 0
         # bumped on every storage mutation (add/remove/relayout/load); lets
         # caches derived from storage invalidate without content hashing
         self._mutations = 0
@@ -48,6 +49,18 @@ class BaseContainer(StateModule):
     @property
     def max_id(self):
         return self._max_id
+
+    def _next_capacity(self, required):
+        """Growth policy of the flat stores: step up to a power of two by
+        expand_step_size, which "double" mode doubles on every step."""
+        cap = self._capacity
+        while cap < required:
+            step = self.expand_step_size
+            if self.expand_mode == "double":
+                step *= 2 ** self._expand_calls
+            cap = util.next_pow2(cap + step)
+            self._expand_calls += 1
+        return cap
 
     def _prepare_ids(self, ids, n):
         """Host int64 ids (default: consecutive from max_id)."""

@@ -1,1 +1,2 @@
+from .topk import Topk, topk
 from .ivfpq_topk import IVFPQTopk

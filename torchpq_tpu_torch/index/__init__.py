@@ -1,1 +1,3 @@
+from .flat import FlatIndex
 from .ivfpq import IVFPQIndex
+from .ivfpqr import IVFPQRIndex

@@ -536,14 +536,22 @@ class IVFPQIndex(CellContainer):
                 pq_code)
         return self.pq_codec.decode(x)
 
+    def _rerank_cache_parts(self):
+        """(rerank codes [cap, m_r], rerank codebook) whose decode each
+        cache row adds: (None, None) here; IVFPQRIndex's cached tiers hold
+        the full two-stage reconstruction."""
+        return None, None
+
     def _rebuild_scan_cache(self):
         """Recompute decoded/norm(/scale) (norm only in the code domain)
         from the canonical codes in chunks; with pq_use_residual each row
         adds its cell's centroid, the cell found from the address by the
-        cell starts; the int8 tier quantizes each decoded chunk
-        (ivfpq.py:177-210). Never-written slots decode to garbage; every
-        reader masks them."""
+        cell starts, and with rerank parts (_rerank_cache_parts) the decode
+        of the row's rerank codes, before the norm and the int8
+        quantization of each chunk (ivfpq.py:177-210). Never-written slots
+        decode to garbage; every reader masks them."""
         cap, d = self._capacity, self._d_cache
+        rr_store, rr_cb = self._rerank_cache_parts()
         chunk = min(cap, util.next_pow2(max(16384, (1 << 27) // max(d, 1))))
         dec = None if self._code_domain else torch.zeros(
             (cap, d), dtype=self._aux["decoded"][1], device=self.device)
@@ -559,6 +567,9 @@ class IVFPQIndex(CellContainer):
                 cell = (torch.searchsorted(starts, idx, right=True) - 1) \
                     .clamp(0, starts.shape[0] - 1)
                 db = db + self._coarse_cb()[cell]
+            if rr_store is not None:
+                db = db + decode_codes(rr_store[c0:c0 + chunk],
+                                       rr_cb).float()
             nrm[c0:c0 + chunk, 0] = torch.sum(db * db, dim=-1)
             if sc is not None:
                 db, sc[c0:c0 + chunk, 0] = util.int8_quantize_rows(db)
@@ -644,17 +655,7 @@ class IVFPQIndex(CellContainer):
         self._check_ported()
         self._assert_unfrozen("add")
         assert self.is_trained, "train the index first"
-        x = self._prep(x)
-        cells = self._assign_cells(x)
-        if self.pq_use_residual:
-            # the residual from the assigned cell's centroid; the row is
-            # centroid + PQ reconstruction, summed in the JAX package's order
-            recon = self.vq_codec.decode(cells).T
-            codes_nm = self.pq_codec.encode_nd(x.T - recon)
-            decoded = recon + self.pq_codec.decode_nd(codes_nm)
-        else:
-            codes_nm = self.pq_codec.encode_nd(x.T)
-            decoded = self.pq_codec.decode_nd(codes_nm)
+        cells, codes_nm, decoded = self._encode_rows(self._prep(x))
         norms = torch.sum(decoded * decoded, dim=-1, keepdim=True)
         aux_rows = {"norm": norms}
         if self._int8_cache:
@@ -665,6 +666,20 @@ class IVFPQIndex(CellContainer):
             aux_rows["decoded"] = util.pad_cols(decoded, self._d_cache)
         return super().add(self._pack_codes(codes_nm).T, cells, ids=ids,
                            return_address=return_address, aux_rows=aux_rows)
+
+    def _encode_rows(self, x):
+        """Prepared x [d_vector, n] -> (cells [n], PQ codes [n, m], the
+        rows' reconstruction [n, d] f32). With pq_use_residual the codes
+        are the residual's from the assigned cell's centroid, and the row
+        is centroid + PQ reconstruction, summed in the JAX package's
+        order."""
+        cells = self._assign_cells(x)
+        if self.pq_use_residual:
+            recon = self.vq_codec.decode(cells).T
+            codes_nm = self.pq_codec.encode_nd(x.T - recon)
+            return cells, codes_nm, recon + self.pq_codec.decode_nd(codes_nm)
+        codes_nm = self.pq_codec.encode_nd(x.T)
+        return cells, codes_nm, self.pq_codec.decode_nd(codes_nm)
 
     def _assign_cells(self, x):
         """Coarse cells of x [d_vector, n] (ivfpq.py:810-846): the argmax

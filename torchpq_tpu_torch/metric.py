@@ -72,3 +72,10 @@ def similarity(a, b, distance, precision=None, b_sq=None):
     if distance == "inner":
         return inner_similarity(a, b)
     return negative_manhattan_distance(a, b)
+
+
+def preprocess_query(q, distance):
+    """Queries are L2-normalized for cosine, row-wise ([nq, d])."""
+    if canonical_distance(distance) == "cosine":
+        return util.normalize(q)
+    return q
