@@ -193,24 +193,71 @@ Phases, each of which fails the run on error:
      domain and int8 indexes, the deep-k r6 and untapered plans and the
      pallas_flat flat plan (phases 10-13 profile their own plans);
      device-busy time and the largest kernels of each.
- 20. prints the kernels' JSON line (every kernel: launches on its path,
+ 20. native (timed, as are 21-24, through profiling.PhaseTimer): the 1M
+     base written as .fvecs and read back by read_fvecs and in 250k-row
+     chunks by stream_vecs, bit-equal, through the C++ route (MB/s
+     logged); the deep-k phase's spill (8 cells at 512) over the four adds
+     through the device route and through spill_impl="host", each host
+     add's cells equal to the numpy greedy's on the same top matrix and
+     occupancy, no cell above the capacity; add s of both routes.
+ 21. presize: on an empty index of the main layout (16 slots a cell), a
+     counting pass routes the 1M rows through the host greedy (8 cells at
+     2 x n / n_cells) in the adds' chunks; expand(required, exact=True);
+     the four adds with the same spill: capacities multiples of 16 (of 128
+     from 128 up), unchanged by the adds (no relayout), the cell sizes the
+     counting pass's.
+ 22. legacy: the v1 IVFPQ facade at 100k x 128 (IVF256 x PQ64, the
+     CPU-RAM SQ tier on) trained on the card, its state carried into a CPU
+     facade, the same adds: 1,000 queries at n_probe 8, ids >= 0.999
+     equal; the SQ reconstructions within 0.05.
+ 23. dp k-means (inside 24's NCCL world): data_parallel_kmeans_fit on the
+     100k train slice to 4096 clusters, 10 iterations, D = 1, timed beside
+     a plain Lloyd loop from the same initial rows; both again under
+     torch.use_deterministic_algorithms within 1e-3 (relative Frobenius).
+ 24. sharded: the bf16, int8 and code-domain indexes through
+     ShardedIVFPQSearcher at D = 1 (a NCCL world of one, this process) and
+     D = 2 (two processes of this script, --sharded-rank, over gloo on
+     the same card, loading the three indexes this process saved as
+     .npz): the bf16 plans (pack32 n_probe 8 / 32, exact n_probe 8, flat)
+     and one pack32 n_probe 32 plan per other tier, each tier's counters
+     zeroed before and read after (the tensor-core keys only), held to the
+     single-device search on the same uncompacted layout (exact plans
+     ids equal outside ties within the compare_topk tolerance, pack32
+     ids >= 0.99, recall@10 within 0.005), both ranks' results equal; the
+     block scan (exact n_probe 8, pack32 n_probe 32, int8 pack32) and the
+     codes scan (pack32) held to their plain versions on the arguments a
+     rank's local scan gives them (its shard's uncompacted layout and
+     shard-local cell tables; at D = 2 rank 0's), as phases 5, 7 and 8 hold
+     them (tensor-core kernel on live rows, pad rows dead, CUDA-core one on
+     every row, the int8 scans bit for bit), and timed there; the
+     all_gather + merge ms; an add of 100k seeded near-duplicate rows and
+     a remove of 10% of them, then the exact plan, against the same on the
+     single-device index; at D = 1, one search in profiling.trace under
+     a named_scope (the scope and the card's kernels must be in the
+     trace) and the sharded and single-device plans profiled.
+ 25. prints the kernels' JSON line (every kernel: launches on its path,
      kernel and plain ms, the bound from the inputs' own counts, the
      library call's ms where one PyTorch call computes the same; the int8
      block scan at both widths, the 1M x 128 tier's and the GIST-class
      d = 1024 one's; the deep-k split's head and tail scans and the
      untapered plan's scan; the 4-bit tier's pack32 block scan and both
      codes scans, the residual tier's k = 100 pack32 block scan, the IVFPQR
-     tiers' two block scans and two codes scans), the card line, and the
-     result line.
+     tiers' two block scans and two codes scans; each row's launches on
+     the sharded path, per rank at D = 1 and 2; and the four sharded scans'
+     rows of phase 24 at D = 1 and 2, names *_sharded_d1 / *_sharded_d2),
+     the card line, and the result line.
 
 Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1182,18 +1229,21 @@ def codes_rows(torch, tp, bs, cs, code, xq, k, label, suffix=""):
     return rows
 
 
-def profile_search(torch, search, what):
+def profile_search(torch, search, what, host_ops=False):
     """torch.profiler over one call of search() after a warm-up one:
     device-busy time (the sum of the kernels' own device times) and the
-    largest kernels."""
+    largest kernels; with host_ops also the host's wall time and its
+    largest operators by self CPU time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     search()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         search()
         torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
@@ -1204,6 +1254,14 @@ def profile_search(torch, search, what):
                     f"{e.self_device_time_total / 1e3:.3f} ms"
                     for e in kernels[:5])
     log(f"profile {what}: device busy {busy:.3f} ms; {top}")
+    if host_ops:
+        ops = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CPU),
+                     key=lambda e: -e.self_cpu_time_total)
+        log(f"profile {what}: host wall {wall:.3f} ms (profiled); "
+            + "; ".join(f"{e.key[:40]} x{e.count} "
+                        f"{e.self_cpu_time_total / 1e3:.3f} ms"
+                        for e in ops[:8]))
 
 
 def phase_profile(torch, index, xq, k, label="", plans=None):
@@ -2783,11 +2841,707 @@ def phase_slice(torch, tp, bs, gr):
                         gt=gt, per_cell=per_cell, k=k, rec=rec)
 
 
+def write_fvecs(path, rows):
+    """rows [n, d] f32 -> a texmex .fvecs file ([int32 d][d floats] rows)."""
+    n, d = rows.shape
+    body = np.empty((n, 4 + 4 * d), np.uint8)
+    body[:, :4] = np.frombuffer(np.int32(d).tobytes(), np.uint8)
+    body[:, 4:] = rows.view(np.uint8).reshape(n, -1)
+    body.tofile(path)
+
+
+def bits_equal(a, b):
+    return a.shape == b.shape and np.array_equal(a.view(np.uint32),
+                                                 b.view(np.uint32))
+
+
+def spill_index(torch, tp, sl, impl, initial_size):
+    """The main index's trained codecs in an index with the deep-k phase's
+    spill (8 candidate cells, capacity its initial per-cell capacity) on
+    the given route."""
+    index = sl["index"]
+    idx = tp.IVFPQIndex(d_vector=index.d_vector,
+                        n_subvectors=index.n_subvectors,
+                        n_cells=index.n_cells, initial_size=initial_size,
+                        distance="euclidean", device="cuda")
+    idx.load_state_dict(sl["trained"])
+    idx.spill_cells = 8
+    idx.spill_impl = impl
+    return idx
+
+
+def add_quarters(torch, idx, base):
+    """Four adds of a quarter of `base` each; returns seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = base.shape[0] // 4
+    for i in range(0, base.shape[0], step):
+        idx.add(torch.from_numpy(base[i:i + step]).cuda().T)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def host_spill_recorder(tp, seen):
+    """Wrap native.spill_assign so each add's candidates, the occupancy
+    before it and its result land in `seen`; returns the restorer."""
+    orig = tp.native.spill_assign
+
+    def record(top, counts, cap):
+        before = np.array(counts, np.int64)
+        out, after = orig(top, counts, cap)
+        seen.append((np.array(top, np.int32), before, cap, out.copy()))
+        return out, after
+
+    tp.native.spill_assign = record
+    return lambda: setattr(tp.native, "spill_assign", orig)
+
+
+def phase_native(torch, tp, sl, work, timer):
+    """The native data plane at the slice's size: the 1M base written as
+    .fvecs and read back whole and in 250k chunks (bit-equal, through the
+    C++ route); the deep-k spill (8 cells at 2 x n / n_cells) through
+    spill_impl="host" over the four adds, each add's cells equal to the
+    numpy greedy's on the same top matrix and occupancy, beside the same
+    adds through the device route."""
+    base = sl["base"]
+    path = os.path.join(work, "base.fvecs")
+    with timer.phase("native write .fvecs (numpy)"):
+        write_fvecs(path, base)
+    mb = os.path.getsize(path) / 1e6
+    with timer.phase("native read_fvecs"):
+        got = tp.native.read_fvecs(path)
+    if tp.native.LAST_ROUTE.get("read_fvecs") != "cpp":
+        fail(f"read_fvecs did not run the C++ route: "
+             f"{tp.native.LAST_ROUTE} ({tp.native.BUILD_ERROR})")
+    if not bits_equal(got, base):
+        fail("read_fvecs: the rows read differ from the rows written")
+    del got
+    quarter = base.shape[0] // 4  # 250k at the slice's size
+    with timer.phase("native stream_vecs"):
+        chunks = list(tp.native.stream_vecs(path, chunk_rows=quarter))
+    if [len(c) for c in chunks] != [quarter] * 4 \
+            or not bits_equal(np.concatenate(chunks), base):
+        fail("stream_vecs: the chunks differ from the rows written")
+    del chunks
+    os.remove(path)
+    read_s = timer.phases["native read_fvecs"]
+    stream_s = timer.phases["native stream_vecs"]
+    log(f"native: {mb:.1f} MB .fvecs; read_fvecs {read_s:.3f} s "
+        f"({mb / read_s:.1f} MB/s), stream_vecs {quarter} rows a chunk "
+        f"{stream_s:.3f} s "
+        f"({mb / stream_s:.1f} MB/s); bit-equal; route "
+        f"{tp.native.LAST_ROUTE['read_fvecs']}, {tp.native.library_path().name}")
+
+    per_cell = base.shape[0] // sl["index"].n_cells * 2
+    times = {}
+    for impl in ("device", "host"):
+        idx = spill_index(torch, tp, sl, impl, per_cell)
+        idx.spill_capacity = cap = idx.max_cell_capacity
+        seen = []
+        restore = host_spill_recorder(tp, seen)
+        try:
+            with timer.phase(f"spill adds, {impl} route"):
+                times[impl] = add_quarters(torch, idx, base)
+        finally:
+            restore()
+        sizes = idx._cell_size_np
+        log(f"spill {impl} route: four adds {times[impl]:.3f} s; "
+            f"capacity {cap}, largest cell {int(sizes.max())}, "
+            f"{int((sizes >= cap).sum())} cells at capacity, "
+            f"{int(np.maximum(sizes - cap, 0).sum())} items above it")
+        if impl == "device":
+            if seen:
+                fail("the device spill route called the host greedy")
+            continue
+        if len(seen) != 4 or tp.native.LAST_ROUTE["spill_assign"] != "cpp":
+            fail(f"the host spill routed {len(seen)} of 4 adds, route "
+                 f"{tp.native.LAST_ROUTE.get('spill_assign')}")
+        with timer.phase("spill numpy greedy replay"):
+            for top, before, c, out in seen:
+                ref = tp.native._spill_assign_numpy(top, before.copy(), c)
+                if not np.array_equal(out, ref):
+                    fail(f"host spill: {int((out != ref).sum())} cells "
+                         "differ from the numpy greedy's")
+        if int(sizes.max()) > cap or int(sizes.sum()) != base.shape[0]:
+            fail(f"host spill: largest cell {int(sizes.max())} above the "
+                 f"capacity {cap}, or {int(sizes.sum())} items held")
+    log(f"host spill: the cells of all 4 adds equal the numpy greedy's on "
+        f"the same top matrices; add s host {times['host']:.3f} vs device "
+        f"{times['device']:.3f}")
+    return times
+
+
+def phase_presize(torch, tp, sl, gt, timer):
+    """Presize before ingest: on an empty index of the main layout (16 slots
+    per cell), a counting pass routes the 1M rows through the host spill
+    greedy in the adds' chunks against running counts; expand(required,
+    exact=True); then the four adds with the same spill: every capacity a
+    multiple of 16 (of 128 from 128 up), unchanged by the adds (no
+    relayout), and the cell sizes the counting pass's."""
+    from torchpq_tpu_torch.ops.max_sim import topk_sim
+    base, xq = sl["base"], sl["xq"]
+    idx = spill_index(torch, tp, sl, "host", 16)
+    spill_cap = base.shape[0] // idx.n_cells * 2
+    counts = np.zeros(idx.n_cells, np.int64)
+    step = base.shape[0] // 4
+    with timer.phase("presize counting pass"):
+        for i in range(0, base.shape[0], step):
+            x = idx._prep(torch.from_numpy(base[i:i + step]).cuda().T)
+            _, top = topk_sim(x.T, idx._coarse_cb(), 8, "euclidean")
+            tp.native.spill_assign(top.to(torch.int16).cpu().numpy(), counts,
+                                   spill_cap)
+    with timer.phase("presize expand(exact=True)"):
+        idx.expand(required={int(c): int(n)
+                             for c, n in enumerate(counts) if n},
+                   exact=True)
+        torch.cuda.synchronize()
+    caps = idx._cell_capacity_np.copy()
+    if not (((caps % 16 == 0) & ((caps < 128) | (caps % 128 == 0))).all()
+            and (caps >= counts).all()):
+        fail("presize: capacities not multiples of 16 / 128 or below the "
+             "counts")
+    idx.spill_capacity = spill_cap
+    with timer.phase("presize adds"):
+        add_s = add_quarters(torch, idx, base)
+    if not np.array_equal(idx._cell_capacity_np, caps):
+        fail("presize: the adds relayouted the presized store")
+    if not np.array_equal(idx._cell_size_np, counts):
+        fail("presize: the adds' cells differ from the counting pass's")
+    pow2 = sum(tp.util.next_pow2(max(int(c), 16)) for c in counts)
+    idx.scan_mode, idx.n_probe, idx.use_approx_topk = "cell_major", 32, True
+    _, ids = idx.search(xq.T, k=10)
+    torch.cuda.synchronize()
+    log(f"presize: {int(caps.sum())} slots exact (power-of-two capacities "
+        f"would take {pow2}); max cell capacity {int(caps.max())}; 4 x 250k "
+        f"adds {add_s:.3f} s with no relayout; pack32 n_probe 32 "
+        f"recall@10 {recall_at(ids.long(), gt):.4f}")
+
+
+SHARDED_PLANS = [("cell_major", 8, True), ("cell_major", 32, True),
+                 ("cell_major", 8, False), ("flat", 1, True)]
+TIER_PLAN = ("cell_major", 32, True)
+# the kernels' JSON rows the sharded plans launch: (tier, launch key)
+SHARDED_KEYS = {"block_scan_exact": ("bf16", "tc_exact"),
+                "block_scan_pack32": ("bf16", "tc_pack32"),
+                "block_scan_int8_pack32": ("int8", "tc_int8_pack32"),
+                "codes_scan_pack32": ("codes", "tc_pack32")}
+
+
+# the scans of the sharded plans held to their plain versions on a rank's
+# own arguments: (row name, tier, plan)
+SHARDED_ROWS = (("block_scan_exact_sharded", "bf16", ("cell_major", 8, False)),
+                ("block_scan_pack32_sharded", "bf16", TIER_PLAN),
+                ("block_scan_int8_pack32_sharded", "int8", TIER_PLAN),
+                ("codes_scan_pack32_sharded", "codes", TIER_PLAN))
+SHARDED_SOURCES = {"bf16": "block_scan_tc.cu", "int8": "block_scan_tc_int8.cu",
+                   "codes": "codes_scan_tc.cu"}
+
+
+def sharded_kernel_rows(torch, tp, bs, cs, searchers, tiers, xq, check,
+                        label):
+    """The scans of the sharded plans (SHARDED_ROWS) on the arguments a
+    rank's local scan gives them: its shard's uncompacted layout, with
+    shard-local cell tables and windows. Collective: every rank of the mesh
+    runs the captured searches (each ends in an all_gather); the ranks with
+    `check` hold each scan, as its wrapper routes it, to its plain version
+    (check_kernel / check_codes: the tensor-core kernel on live rows, pad
+    rows dead, the CUDA-core one on every row; the int8 scans bit for bit)
+    and time it, uncounted, beside the plain version and the bound from
+    these arguments. Returns {name: JSON row without its launch count}."""
+    rows = {}
+    for name, tier, plan in SHARDED_ROWS:
+        s, codes = searchers[tier], tier == "codes"
+        set_plan(tiers[tier], plan)
+        s.scan_mode = "cell_major"
+        args, kw = capture_call(
+            tp, s, xq, 10, module=tp.ops.onehot_adc if codes else None,
+            name="codes_scan" if codes else "block_scan")
+        if not check:
+            continue
+        s_eff, k_pair, pack32 = kw["s_eff"], kw["k_pair"], kw["pack32"]
+        kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
+                   pack32=pack32, slot_mask=kw["slot_mask"])
+        blocks, p_tile = args[1].shape
+        live = int((args[1] >= 0).sum())
+        if codes:
+            m, _, dsub = args[7].shape
+            d = args[0].shape[1]
+            route = cs.pick_route(m=m, dsub=dsub, p_tile=p_tile, s_eff=s_eff,
+                                  k_pair=k_pair, pack32=pack32)
+            err = check_codes(torch, bs, cs, args, s_eff=s_eff,
+                              k_pair=k_pair, pack32=pack32,
+                              euclidean=kw["euclidean"], reps=0)[0]
+            ms = cuda_ms(torch, lambda: codes_launch(torch, cs, args, route,
+                                                     **kkw), 20)
+            plain_ms = cuda_ms(torch, lambda: cs.codes_scan_ref(*args, **kkw),
+                               3)
+            b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=m + 4,
+                                    row_bytes=2 * d, peak="bf16", d=d,
+                                    extra_bytes=args[7].numel() * 2)
+            shape = f"m={m}, g={args[6].shape[1] // m}"
+        else:
+            d = args[6].shape[1]
+            int8 = tier == "int8"
+            if int8:
+                kkw.update(scale=kw["scale"], q_scale=kw["q_scale"])
+            route = bs.pick_route(dtype=args[6].dtype, d=d, p_tile=p_tile,
+                                  s_eff=s_eff, k_pair=k_pair, pack32=pack32)
+            err = check_kernel(
+                torch, bs, args, s_eff=s_eff, k_pair=k_pair, pack32=pack32,
+                euclidean=kw["euclidean"], reps=0, equal=int8,
+                extra=dict(scale=kw["scale"], q_scale=kw["q_scale"])
+                if int8 else None)[0]
+            ms = cuda_ms(torch, lambda: block_launch(torch, bs, args, route,
+                                                     **kkw), 20)
+            plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw),
+                               3)
+            b_ms, b_by = scan_bound(
+                torch, args, kkw, slot_bytes=d + 8 if int8 else 2 * d + 4,
+                row_bytes=d + 4 if int8 else 2 * d,
+                peak="int8" if int8 else "bf16", d=d)
+            shape = f"d_cache={d}, {args[6].dtype}"
+        if not route.startswith("tc_"):
+            fail(f"{label}{name}: the wrapper routes these shapes to {route}, "
+                 "not the tensor cores")
+        log(f"{label}{name} on the arguments of the {tier} {plan} plan: "
+            f"{blocks} blocks x {p_tile} probers, {live} live, s_eff={s_eff},"
+            f" k_pair={k_pair}, cache rows {args[5].shape[0]}, {shape}; "
+            f"{route} live rows max_abs_err {err:.3g} (pad rows dead; the "
+            f"CUDA-core kernel matches on every row); {ms:.3f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="torchpq_tpu_torch/csrc/" + SHARDED_SOURCES[tier],
+            replaces="torchpq_tpu/ops/" + (
+                "pallas_codes_scan.py:198" if codes else "pallas_scan.py:281"),
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+            bound_by=b_by, library_ms=None, launch_key=route, s_eff=s_eff,
+            cache_rows=int(args[5].shape[0]))
+    return rows
+
+
+def run_plan(torch, search, reps=3):
+    """A warm-up call, then the median ms of `reps` calls to a sync."""
+    out = search()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = search()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return out, float(np.median(times)) * 1e3
+
+
+def set_plan(index, plan):
+    index.scan_mode, index.n_probe, index.use_approx_topk = plan
+
+
+def sharded_suite(torch, tp, bs, cs, tiers, xq, extra, rm_ids, mesh, check,
+                  label):
+    """The sharded surface over `mesh` (collective: every rank of the mesh
+    runs it alike): a searcher per tier (bf16, int8, codes); the bf16
+    plans, then one pack32 plan per other tier, each tier's launch counters
+    zeroed before and read after; sharded_kernel_rows (check: this rank
+    compares and times); the all_gather's ms; an add of `extra` and a
+    remove of `rm_ids`, then the exact n_probe 8 plan. Returns (results
+    {name: (values, ids)}, ms {name: ms}, counts {tier: launches}, kernel
+    rows, the add's ids, the count removed, the bf16 searcher)."""
+    S = tp.parallel.ShardedIVFPQSearcher
+    res, ms, counts, searchers = {}, {}, {}, {}
+    for tier, idx in tiers.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        searchers[tier] = S(idx, mesh=mesh)
+        torch.cuda.synchronize()
+        ms[f"relayout {tier}"] = (time.perf_counter() - t0) * 1e3
+    for tier, plans, launches in (("bf16", SHARDED_PLANS, bs.launches),
+                                  ("int8", [TIER_PLAN], bs.launches),
+                                  ("codes", [TIER_PLAN], cs.launches)):
+        s = searchers[tier]
+        for key in launches:
+            launches[key] = 0
+        for plan in plans:
+            set_plan(tiers[tier], plan)
+            s.scan_mode = "flat" if plan[0] == "flat" else "cell_major"
+            name = f"{tier} {plan[0]} n_probe={plan[1]} approx={plan[2]}"
+            res[name], ms[name] = run_plan(
+                torch, lambda: s.search(xq.T, k=10))
+        counts[tier] = dict(launches)
+    rows = sharded_kernel_rows(torch, tp, bs, cs, searchers, tiers, xq, check,
+                               label)
+    s = searchers["bf16"]
+    v, i = res[f"bf16 {SHARDED_PLANS[0][0]} n_probe=8 approx=True"]
+    ms["all_gather"] = cuda_ms(torch, lambda: tp.parallel.sharded_ivfpq
+                               ._merge(v, i, 10, s.group, s.n_shards), 20)
+    torch.cuda.synchronize()
+    new_ids = s.add(torch.from_numpy(extra).cuda().T)
+    removed = s.remove(rm_ids)
+    set_plan(tiers["bf16"], ("cell_major", 8, False))
+    s.scan_mode = "cell_major"
+    res["post"] = s.search(xq.T, k=10)
+    torch.cuda.synchronize()
+    return res, ms, counts, rows, new_ids, removed, s
+
+
+TIER_FILES = {"bf16": None, "int8": "int8", "codes": "none"}
+
+
+def sharded_child(args):
+    """One rank of the D-rank gloo run on the card (chip_smoke.py
+    --sharded-rank R --world D --work DIR): loads the three indexes the
+    parent saved, runs sharded_suite over get_mesh(D), and writes its
+    results to DIR/d{D}.r{R}.npz and its launches and ms to .json."""
+    import torch
+    import torch.distributed as dist
+    import torchpq_tpu_torch as tp
+    from torchpq_tpu_torch.ops import block_scan as bs
+    from torchpq_tpu_torch.ops import codes_scan as cs
+    torch.cuda.set_device(0)
+    rank, world, work = args.sharded_rank, args.world, args.work
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(work, f"store.d{world}"),
+                                     world), rank=rank, world_size=world)
+    with open(os.path.join(work, "tiers.json")) as f:
+        spec = json.load(f)
+    tiers = {}
+    for tier, cache in TIER_FILES.items():
+        idx = tp.IVFPQIndex(**spec, scan_cache_dtype=cache, device="cuda")
+        idx.load(os.path.join(work, f"{tier}.npz"))
+        tiers[tier] = idx
+    with np.load(os.path.join(work, "inputs.npz")) as f:
+        xq = torch.from_numpy(f["xq"]).cuda()
+        extra, rm_ids = f["extra"], f["rm_ids"]
+    # rank 0 holds the scans to their plain versions (the ranks share one
+    # card: one rank's times are not disturbed by the other's checks)
+    res, ms, counts, rows, new_ids, removed, _ = sharded_suite(
+        torch, tp, bs, cs, tiers, xq, extra, rm_ids,
+        tp.parallel.get_mesh(world), rank == 0,
+        f"sharded D={world} (gloo) rank {rank} ")
+    out = {"new_ids": new_ids.cpu().numpy(), "removed": np.int64(removed)}
+    for i, (name, (v, ids)) in enumerate(res.items()):
+        out[f"v{i}"], out[f"i{i}"] = v.cpu().numpy(), ids.cpu().numpy()
+    np.savez(os.path.join(work, f"d{world}.r{rank}.npz"), **out)
+    with open(os.path.join(work, f"d{world}.r{rank}.json"), "w") as f:
+        json.dump({"names": list(res), "ms": ms, "counts": counts,
+                   "rows": rows}, f)
+    dist.destroy_process_group()
+
+
+def compare_sharded(torch, label, res, ref, gt, new_ids, ref_ids, removed,
+                    ref_removed):
+    """A sharded run's results against the single-device index's on the
+    same plans: exact plans (exact select, flat sweep, the post add /
+    remove plan) ids equal outside ties and values within compare_topk's
+    tolerance; pack32 ids agreeing >= 0.99; recall@10 within 0.005; the
+    add's ids and the remove's count equal."""
+    for name, (v, i) in res.items():
+        vr, ir = ref[name]
+        v, i = v.cuda(), i.cuda().long()
+        ir = ir.long()
+        if "approx=True" in name and "flat" not in name:
+            agree = recall_at(i, ir)
+            extra = f"id agreement {agree:.5f}"
+            if agree < 0.99:
+                fail(f"{label}{name}: pack32 id agreement {agree:.5f}")
+        else:
+            err = compare_topk(torch, v, i, vr, ir)
+            extra = f"ids equal outside ties, max value diff {err:.3g}"
+        r, rr = recall_at(i, gt), recall_at(ir, gt)
+        log(f"{label}{name}: recall@10 {r:.4f} vs single {rr:.4f}; {extra}")
+        if abs(r - rr) > 0.005:
+            fail(f"{label}{name}: recall {r:.4f} vs the single device's "
+                 f"{rr:.4f}")
+    if not torch.equal(torch.as_tensor(new_ids).cpu().long(),
+                       ref_ids.cpu().long()) or removed != ref_removed:
+        fail(f"{label}the sharded add / remove differ from the single "
+             f"device's (removed {removed} vs {ref_removed})")
+
+
+def phase_sharded(torch, tp, bs, cs, sl, tiers, work, timer):
+    """The sharded surface at D = 1 (NCCL, this process) and D = 2 (gloo,
+    two processes on this card, loading the indexes this process saved),
+    each held to the single-device index on the same plans; the launches
+    of the tensor-core scan keys required on both; profiling.trace around
+    one sharded search, whose named scope must be in the trace; the
+    data-parallel k-means at D = 1 against a plain Lloyd loop. Returns
+    ({tier: {"d1": counts, "d2": counts}}, the sharded scans' JSON rows:
+    sharded_kernel_rows' of D = 1 and of D = 2's rank 0, with that rank's
+    launches)."""
+    import torch.distributed as dist
+    xq, gt, base = sl["xq"], sl["gt"], sl["base"]
+    # new rows from the base's own distribution: seeded base rows with the
+    # manifold's noise (0.02) drawn again
+    rng = np.random.default_rng(7)
+    n_add = base.shape[0] // 10  # 100k at the slice's size
+    extra = base[rng.choice(base.shape[0], n_add, replace=False)] \
+        + np.float32(0.02) * rng.standard_normal(
+            (n_add, base.shape[1]), dtype=np.float32)
+    # a tenth of the added rows' ids (the adds number them from n on)
+    rm_ids = rng.choice(np.arange(base.shape[0], base.shape[0] + n_add),
+                        n_add // 10, replace=False)
+
+    # the single-device reference plans, on the uncompacted layout the
+    # shards scan (the default compacted plan's ms beside)
+    ref, ref_ms = {}, {}
+    with timer.phase("sharded: single-device reference plans"):
+        for tier, plans in (("bf16", SHARDED_PLANS), ("int8", [TIER_PLAN]),
+                            ("codes", [TIER_PLAN])):
+            idx = tiers[tier]
+            for plan in plans:
+                set_plan(idx, plan)
+                name = f"{tier} {plan[0]} n_probe={plan[1]} approx={plan[2]}"
+                idx.scan_compact = False
+                ref[name], ref_ms[name] = run_plan(
+                    torch, lambda: idx.search(xq.T, k=10))
+                idx.scan_compact = "auto"
+                _, ref_ms[name + " (compacted)"] = run_plan(
+                    torch, lambda: idx.search(xq.T, k=10))
+    spec = dict(d_vector=sl["index"].d_vector,
+                n_subvectors=sl["index"].n_subvectors,
+                n_cells=sl["index"].n_cells, initial_size=sl["per_cell"],
+                distance="euclidean")
+    with timer.phase("sharded: save the indexes (.npz)"):
+        for tier, idx in tiers.items():
+            idx.save(os.path.join(work, f"{tier}.npz"))
+        np.savez(os.path.join(work, "inputs.npz"), xq=xq.cpu().numpy(),
+                 extra=extra, rm_ids=rm_ids)
+        with open(os.path.join(work, "tiers.json"), "w") as f:
+            json.dump(spec, f)
+
+    # D = 1 over NCCL in this process
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(work, "store.d1"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = tp.parallel.get_mesh(1)
+        with timer.phase("sharded D=1 (NCCL)"):
+            res1, ms1, counts1, rows1, ids1, rm1, s1 = sharded_suite(
+                torch, tp, bs, cs, tiers, xq, extra, rm_ids, mesh, True,
+                "sharded D=1 (NCCL) ")
+        with timer.phase("profiling.trace of one sharded search"):
+            set_plan(tiers["bf16"], ("cell_major", 32, True))
+            with tp.profiling.trace(work) as prof:
+                with tp.profiling.named_scope("torchpq_sharded_search"):
+                    s1.search(xq.T, k=10)
+            with open(prof.trace_path) as f:
+                events = json.load(f)["traceEvents"]
+            os.remove(prof.trace_path)
+        # where a sharded plan's time goes, beside the single device's on
+        # the same (uncompacted) layout
+        profile_search(torch, lambda: s1.search(xq.T, k=10),
+                       "sharded D=1 bf16 cell_major n_probe=32 approx=True",
+                       host_ops=True)
+        tiers["bf16"].scan_compact = False
+        profile_search(torch, lambda: tiers["bf16"].search(xq.T, k=10),
+                       "single device, uncompacted, bf16 cell_major "
+                       "n_probe=32 approx=True", host_ops=True)
+        tiers["bf16"].scan_compact = "auto"
+        scopes = [e for e in events if e.get("name") == "torchpq_sharded_search"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        log(f"profiling.trace: {len(events)} events, scope "
+            f"'torchpq_sharded_search' x{len(scopes)}, {len(kernels)} device "
+            f"kernel events")
+        if not scopes or not kernels:
+            fail("profiling.trace: the named scope or the device kernels are "
+                 "missing from the trace")
+        phase_dp_kmeans(torch, tp, base, mesh, timer, k=sl["index"].n_cells)
+    finally:
+        dist.destroy_process_group()
+
+    # D = 2: two gloo ranks on this card
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    with timer.phase("sharded D=2 (gloo, 2 processes)"):
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-rank",
+             str(r), "--world", "2", "--work", work], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=400)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            fail(f"sharded D=2 rank {r} exited {p.returncode}:\n"
+                 f"{text[-3000:]}")
+    runs = []
+    for r in range(2):
+        with open(os.path.join(work, f"d2.r{r}.json")) as f:
+            meta = json.load(f)
+        with np.load(os.path.join(work, f"d2.r{r}.npz")) as f:
+            out = {k: f[k] for k in f.files}
+        runs.append((meta, out))
+    for key in runs[0][1]:
+        if not np.array_equal(runs[0][1][key], runs[1][1][key]):
+            fail(f"sharded D=2: the two ranks returned different {key}")
+    meta2, out2 = runs[0]
+    res2 = {name: (torch.from_numpy(out2[f"v{i}"]),
+                   torch.from_numpy(out2[f"i{i}"]))
+            for i, name in enumerate(meta2["names"])}
+
+    # the same add and remove on the single-device index
+    index = tiers["bf16"]
+    ref_ids = index.add(torch.from_numpy(extra).cuda().T)
+    ref_rm = index.remove(ids=torch.as_tensor(rm_ids).cuda())
+    set_plan(index, ("cell_major", 8, False))
+    index.scan_compact = False
+    ref["post"] = index.search(xq.T, k=10)
+    index.scan_compact = "auto"
+    counts = {}
+    for label, res, ms, cnt, ids, rm in (
+            ("sharded D=1 (NCCL) ", res1, ms1, counts1, ids1, rm1),
+            ("sharded D=2 (gloo) ", res2, meta2["ms"],
+             [m["counts"] for m, _ in runs], out2["new_ids"],
+             int(out2["removed"]))):
+        compare_sharded(torch, label, res, ref, gt, ids, ref_ids, rm, ref_rm)
+        for c in (cnt if isinstance(cnt, list) else [cnt]):
+            require_tc_keys(c["bf16"], f"{label}bf16 plans")
+            if c["int8"]["tc_int8_pack32"] <= 0 or c["int8"]["int8_pack32"]:
+                fail(f"{label}int8 plan must launch the tensor-core int8 "
+                     f"pack32 scan only: {c['int8']}")
+            if c["codes"]["tc_pack32"] <= 0 or c["codes"]["pack32"]:
+                fail(f"{label}code-domain plan must launch the tensor-core "
+                     f"codes scan only: {c['codes']}")
+        log(f"{label}launches: {cnt}")
+        for name in res:
+            if name in ms:
+                log(f"{label}{name}: {ms[name]:.3f} ms vs single device "
+                    f"{ref_ms[name]:.3f} ms (compacted layout "
+                    f"{ref_ms[name + ' (compacted)']:.3f} ms)")
+        log(f"{label}all_gather + merge of [10000, 10]: "
+            f"{ms['all_gather']:.4f} ms; re-layouts "
+            + ", ".join(f"{t} {ms['relayout ' + t]:.1f} ms" for t in tiers))
+        d = "d1" if "D=1" in label else "d2"
+        first = cnt if isinstance(cnt, dict) else cnt[0]
+        for tier in tiers:
+            counts.setdefault(tier, {})[d] = first[tier]
+    # the sharded scans' rows, with rank 0's launches on its plans
+    rows = []
+    for d, krows, cnt in (("d1", rows1, counts1),
+                          ("d2", runs[0][0]["rows"], runs[0][0]["counts"])):
+        for name, tier, _ in SHARDED_ROWS:
+            row = krows[name]
+            rows.append(dict(row, name=f"{name}_{d}",
+                             launches=cnt[tier][row["launch_key"]]))
+    return counts, rows
+
+
+def plain_lloyd(torch, x, k, iters, seed):
+    """A plain single-device Lloyd loop from the rows the dp fit starts
+    from (np.random.default_rng(seed).choice(n, k, replace=False))."""
+    from torchpq_tpu_torch.ops.max_sim import max_sim
+    from torchpq_tpu_torch.ops.segment_ops import compute_centroids
+    pick = np.random.default_rng(seed).choice(x.shape[0], k, replace=False)
+    ref = x[torch.as_tensor(pick).cuda()].clone()
+    for _ in range(iters):
+        _, labels = max_sim(x, ref, "euclidean")
+        sums, cnt = compute_centroids(x, labels, k)
+        ref = torch.where((cnt > 0)[:, None],
+                          sums / torch.clamp(cnt, min=1.0)[:, None], ref)
+    return ref
+
+
+def phase_dp_kmeans(torch, tp, base, mesh, timer, k, iters=10):
+    """data_parallel_kmeans_fit on the 100k train slice to k (4096)
+    clusters, 10 iterations, over `mesh`, timed beside a plain single-device
+    Lloyd loop from the same initial rows; then both again under
+    torch.use_deterministic_algorithms, where they must agree within a
+    relative Frobenius difference of 1e-3. (The sums are index_add_'s
+    atomic float adds, whose order changes between runs: a near-tie label
+    flips, and after 10 iterations two runs of one loop differ by up to
+    ~1e-3. That spread is logged.)"""
+    import warnings
+    x = torch.from_numpy(base[: base.shape[0] // 10]).cuda()
+    fit = tp.parallel.data_parallel_kmeans_fit
+    torch.cuda.synchronize()
+    with timer.phase("dp k-means fit"):
+        cents, it = fit(x, k, mesh=mesh, max_iter=iters, tol=0.0, seed=0)
+        torch.cuda.synchronize()
+    with timer.phase("plain Lloyd loop"):
+        ref = plain_lloyd(torch, x, k, iters, 0)
+        torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    spread = rel(cents, ref)
+    was = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            det, it_det = fit(x, k, mesh=mesh, max_iter=iters, tol=0.0,
+                              seed=0)
+            det_ref = plain_lloyd(torch, x, k, iters, 0)
+        finally:
+            torch.use_deterministic_algorithms(was)
+    diff = rel(det, det_ref)
+    fit_s = timer.phases["dp k-means fit"]
+    plain_s = timer.phases["plain Lloyd loop"]
+    log(f"dp k-means D={mesh.size()}: {it} iterations, {fit_s / it:.4f} s "
+        f"per iteration (plain loop {plain_s / iters:.4f}); relative "
+        f"difference {diff:.3g} with deterministic algorithms, {spread:.3g} "
+        f"without (atomic adds in both)")
+    if it != iters or it_det != iters or diff > 1e-3:
+        fail(f"dp k-means: {it} iterations, relative difference {diff:.3g}")
+    return dict(s_per_iter=fit_s / it, plain_s_per_iter=plain_s / iters,
+                rel=diff, spread=spread)
+
+
+def phase_legacy(torch, tp, sl, timer):
+    """The v1 IVFPQ facade at 100k x 128 (IVF256 x PQ64, blocksize 512,
+    the CPU-RAM SQ tier on): trained on the card, its state carried into a
+    CPU facade, the same 100k adds in both; 1,000 queries at n_probe 8,
+    exact select: ids agree >= 0.999; the SQ reconstructions close."""
+    base, xq = sl["base"], sl["xq"]
+    x = base[:100_000]
+    kw = dict(d_vector=x.shape[1], n_subvectors=sl["index"].n_subvectors,
+              n_cq_clusters=256, blocksize=512)
+    with timer.phase("legacy facade, card"):
+        card = tp.legacy.IVFPQ(**kw, device="cuda",
+                               cpu_quantizer=tp.legacy.SQ(bits=8,
+                                                          device="cuda"))
+        card.train(torch.from_numpy(x[:50_000]).cuda().T)
+        trained = card._index.state_dict()  # copies, before the adds
+        ids = card.add(torch.from_numpy(x).cuda().T)
+        card.n_probe = 8
+        v, i = card.topk(xq[:1000].T, k=10)
+        rec = card.reconstruct_from_cpu_ram(ids[:1000])
+        torch.cuda.synchronize()
+    with timer.phase("legacy facade, CPU"):
+        cpu = tp.legacy.IVFPQ(**kw, device="cpu")
+        cpu._index.load_state_dict(trained)
+        ids_c = cpu.add(x.T)
+        cpu.n_probe = 8
+        v_c, i_c = cpu.topk(xq[:1000].cpu().T, k=10)
+    agree = share_equal(i.cpu(), i_c)
+    err = float((rec.cpu().T - torch.from_numpy(x[:1000])).abs().mean())
+    log(f"legacy IVFPQ 100k: card vs CPU id agreement {agree:.5f}, max value "
+        f"diff {float((v.cpu() - v_c).abs().max()):.3g}; SQ CPU-RAM tier "
+        f"mean abs reconstruction error {err:.4f}")
+    if not torch.equal(ids.cpu(), ids_c) or agree < 0.999 or err > 0.05:
+        fail("legacy IVFPQ: the card facade disagrees with the CPU one")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel-vs-plain phase")
+    ap.add_argument("--sharded-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)  # a rank of the D=2 phase
+    ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
+    ap.add_argument("--work", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.sharded_rank is not None:
+        sharded_child(args)
+        return
 
     import torch
     if not torch.cuda.is_available():
@@ -2872,7 +3626,24 @@ def main():
     sl["index"].scan_impl = "pallas_flat"
     phase_profile(torch, sl["index"], sl["xq"], sl["k"],
                   label="pallas_flat ", plans=[("flat", 1, True)])
+    sl["index"].scan_impl = "auto"
     log(f"phases 4-19: {time.perf_counter() - t_start:.1f} s")
+
+    # phases 20-24, timed through profiling.PhaseTimer; the sharded phase
+    # comes last: its single-device add / remove change the main index
+    timer = tp.profiling.PhaseTimer()
+    work = tempfile.mkdtemp(prefix="torchpq_smoke_")
+    try:
+        phase_native(torch, tp, sl, work, timer)
+        phase_presize(torch, tp, sl, sl["gt"], timer)
+        phase_legacy(torch, tp, sl, timer)
+        sharded, sharded_rows = phase_sharded(
+            torch, tp, bs, cs, sl,
+            {"bf16": sl["index"], "int8": i8, "codes": code}, work, timer)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log("phases 20-24 (PhaseTimer, s): " + json.dumps(timer.report()))
+    log(f"phases 4-24: {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
     for name, row, cnt in (
@@ -2912,7 +3683,11 @@ def main():
              pqrc_launches["codes_scan_pack32_pqr_k100"]),
             ("flat_scan", {"flat_scan": flat_row}, flat_counts["flat_tc"]),
             ("gather_rows", krows, counts["gather"])):
-        kernels.append(dict(row[name], launches=cnt))
+        # launches on the sharded path (phase 24), per rank, D = 1 and 2
+        tier, key = SHARDED_KEYS.get(name, (None, None))
+        kernels.append(dict(row[name], launches=cnt, sharded_launches={
+            d: sharded[tier][d][key] if tier else 0 for d in ("d1", "d2")}))
+    kernels += sharded_rows
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

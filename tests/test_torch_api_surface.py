@@ -31,7 +31,26 @@ SURFACE = {
     "torchpq_tpu_torch": [
         "topk", "Topk", "CustomModule", "StateModule", "metric", "util",
         "config", "fn", "ops", "clustering", "codec", "container", "index",
-        "transform",
+        "transform", "parallel", "legacy", "native", "profiling",
+    ],
+    "torchpq_tpu_torch.parallel": [
+        "get_mesh", "device_count", "ShardedIVFPQSearcher",
+        "data_parallel_lloyd_step", "data_parallel_kmeans_fit",
+        "data_parallel_search",
+    ],
+    "torchpq_tpu_torch.legacy": [
+        "IVFPQ", "IVFPQR", "PQ", "SQ", "IVFPQTopk", "KMeansOld",
+        "MultiKMeansOld",
+    ],
+    "torchpq_tpu_torch.native": [
+        "read_fvecs", "read_bvecs", "read_ivecs", "stream_vecs",
+        "spill_assign",
+    ],
+    "torchpq_tpu_torch.profiling": ["named_scope", "trace", "PhaseTimer"],
+    "torchpq_tpu_torch.util": [
+        "Timer", "block_until_ready", "to_numpy", "id_dtype", "as_n_d",
+        "as_d_n", "pad_rows", "cdiv", "round_up", "next_pow2",
+        "locality_order", "int8_quantize_rows", "normalize", "pad_cols",
     ],
     "torchpq_tpu_torch.index": ["FlatIndex", "IVFPQIndex", "IVFPQRIndex"],
     "torchpq_tpu_torch.clustering": ["KMeans", "MultiKMeans",
@@ -124,6 +143,16 @@ METHODS = {
         "fit_minibatch", "predict", "topk",
     ],
     "torchpq_tpu_torch.fn.Topk": ["__call__"],
+    "torchpq_tpu_torch.parallel.ShardedIVFPQSearcher": ["search", "add",
+                                                        "remove"],
+    "torchpq_tpu_torch.legacy.IVFPQ": [
+        "train", "add", "remove", "remove_address", "encode", "decode",
+        "topk", "similarity_at_address", "similarity_at_id",
+        "reconstruct_from_cpu_ram",
+    ],
+    "torchpq_tpu_torch.legacy.IVFPQTopk": ["topk", "scores"],
+    "torchpq_tpu_torch.profiling.PhaseTimer": ["phase", "report"],
+    "torchpq_tpu_torch.util.Timer": ["tick"],
 }
 
 # public callables whose JAX signatures' parameters the port's must all
@@ -160,13 +189,33 @@ SIGNATURES = [
     "clustering.minibatch_kmeans.MinibatchKMeans.fit_minibatch",
     "clustering.minibatch_kmeans.MinibatchKMeans.topk",
     "ops.bmm.bmm", "ops.bmm.min_bmm", "ops.bmm.topk_bmm", "ops.bmm.masked_bmm",
+    "container.cell.CellContainer.expand", "index.ivfpq.IVFPQIndex.expand",
+    "native.read_fvecs", "native.read_bvecs", "native.read_ivecs",
+    "native.stream_vecs", "native.spill_assign", "parallel.mesh.get_mesh",
+    "parallel.sharded_ivfpq.ShardedIVFPQSearcher.__init__",
+    "parallel.sharded_ivfpq.ShardedIVFPQSearcher.search",
+    "parallel.sharded_ivfpq.ShardedIVFPQSearcher.add",
+    "parallel.sharded_ivfpq.ShardedIVFPQSearcher.remove",
+    "parallel.sharded_ivfpq.data_parallel_lloyd_step",
+    "parallel.sharded_ivfpq.data_parallel_kmeans_fit",
+    "parallel.sharded_ivfpq.data_parallel_search",
+    "legacy.ivfpq.IVFPQ.__init__", "legacy.ivfpq.IVFPQ.add",
+    "legacy.ivfpq.IVFPQ.topk", "legacy.ivfpq.IVFPQ.remove",
+    "legacy.ivfpq.IVFPQR.__init__", "legacy.pq.PQ.__init__",
+    "legacy.sq.SQ.__init__", "legacy.ivfpq_topk.IVFPQTopk.__init__",
+    "legacy.ivfpq_topk.IVFPQTopk.topk", "legacy.ivfpq_topk.IVFPQTopk.scores",
+    "profiling.PhaseTimer.phase", "util.Timer.tick", "util.as_n_d",
+    "util.pad_rows",
 ]
 DEFAULTS = ("impl", "dtype", "format", "n_bits", "anisotropic_iters",
             "pq_use_residual", "k", "dim", "distance", "approx",
             "recall_target", "expand_mode", "expand_step_size", "bits",
             "alpha", "mode", "n_subvectors_rerank", "rerank_multiplier",
             "n_iter", "pq_max_iter", "n_clusters", "init_mode", "meaned",
-            "rowvar")
+            "rowvar", "exact", "axis_name", "scan_mode", "p_tile",
+            "scan_group", "max_iter", "tol", "seed", "chunk_rows", "kind",
+            "n_cq_clusters", "n_pq_clusters", "blocksize", "n_subq",
+            "n_cs", "offset", "n_max", "sync", "label")
 
 TUNABLES = ["use_cublas", "use_tensor_core", "fp16_scale_mode",
             "use_precomputed", "pq_max_iter", "vq_max_iter",
@@ -510,14 +559,19 @@ def test_state_nbytes_and_save_formats(index_pair, tmp_path):
         port.save(str(tmp_path / "ckpt"), format="orbax")
 
 
-# the modules this slice of the port brought (A13, A14)
+# the modules the later slices of the port brought (A13, A14; A15-A17)
 NEW_MODULES = [
     "torchpq_tpu_torch.fn.topk", "torchpq_tpu_torch.container.flat",
     "torchpq_tpu_torch.container.group", "torchpq_tpu_torch.index.flat",
     "torchpq_tpu_torch.index.ivfpqr", "torchpq_tpu_torch.codec.sq",
     "torchpq_tpu_torch.transform.pca", "torchpq_tpu_torch.transform.opq",
     "torchpq_tpu_torch.clustering.minibatch_kmeans",
-    "torchpq_tpu_torch.ops.bmm",
+    "torchpq_tpu_torch.ops.bmm", "torchpq_tpu_torch.native",
+    "torchpq_tpu_torch.parallel", "torchpq_tpu_torch.parallel.mesh",
+    "torchpq_tpu_torch.parallel.sharded_ivfpq", "torchpq_tpu_torch.legacy",
+    "torchpq_tpu_torch.legacy.ivfpq", "torchpq_tpu_torch.legacy.ivfpq_topk",
+    "torchpq_tpu_torch.legacy.pq", "torchpq_tpu_torch.legacy.sq",
+    "torchpq_tpu_torch.profiling",
 ]
 
 
@@ -535,11 +589,14 @@ def _imports(path):
 
 
 def test_port_sources_import_no_jax():
-    """No source of the port, and not chip_smoke.py, names jax, orbax or
-    the JAX package in an import."""
+    """No source of the port, not chip_smoke.py and not the multi-rank
+    test worker (tests/_torch_dist_worker.py) names jax, orbax or the JAX
+    package in an import."""
     import pathlib
     root = pathlib.Path(tp.__file__).parent
-    files = sorted(root.rglob("*.py")) + [root.parent / "chip_smoke.py"]
+    files = sorted(root.rglob("*.py")) + [
+        root.parent / "chip_smoke.py",
+        pathlib.Path(__file__).parent / "_torch_dist_worker.py"]
     for path in files:
         bad = _imports(path) & {"jax", "jaxlib", "orbax", "torchpq_tpu"}
         assert not bad, f"{path} imports {bad}"

@@ -442,14 +442,26 @@ def test_split_keeps_completeness_floor():
 
 
 def test_host_spill_raises():
-    """The native host route is not ported: spill with spill_impl="host"
-    raises naming A15 and adds nothing."""
-    _, port, _ = _index_pair()
+    """The native host route, which raised NotImplementedError before it
+    was ported, no longer raises: spill with spill_impl="host" adds, and
+    gives the JAX package's host route's cells and addresses (both run the
+    same sequential greedy in arrival order), two adds over full cells."""
+    jidx, port, _ = _index_pair()
+    codecs = {**port.vq_codec.state_dict("vq_codec."),
+              **port.pq_codec.state_dict("pq_codec.")}
+    j = JaxIndex(D, M, N_CELLS, initial_size=64)
+    j.load_state_dict({**jidx.vq_codec.state_dict("vq_codec."),
+                       **jidx.pq_codec.state_dict("pq_codec.")})
     idx = tp.IVFPQIndex(D, M, N_CELLS, initial_size=64, device=CPU)
-    idx.load_state_dict({**port.vq_codec.state_dict("vq_codec."),
-                         **port.pq_codec.state_dict("pq_codec.")})
-    idx.spill_cells, idx.spill_capacity = 8, 64
-    idx.spill_impl = "host"
-    with pytest.raises(NotImplementedError, match="A15"):
-        idx.add(_data(14, 50).T)
-    assert idx.n_items == 0
+    idx.load_state_dict(codecs)
+    for index in (j, idx):
+        index.spill_cells, index.spill_capacity = 8, 64
+        index.spill_impl = "host"
+    for seed, n in ((14, 1500), (15, 900)):
+        x = _data(seed, n)
+        _, a_ref = j.add(jnp.asarray(x.T), return_address=True)
+        _, a = idx.add(x.T, return_address=True)
+        np.testing.assert_array_equal(a.numpy(), np.asarray(a_ref))
+    assert idx.n_items == 2400
+    np.testing.assert_array_equal(idx._cell_size.numpy(),
+                                  np.asarray(j._cell_size))

@@ -2,7 +2,9 @@
 routes and in its bf16/f32 and int8 modes on the CUDA cores, codes scan and
 flat scan on their tensor-core and CUDA-core routes, row gather)
 against their plain PyTorch versions, and the device spill routing against
-its CPU result, on a card.
+its CPU result, on a card; the indexes card against CPU; the sharded
+searcher and data-parallel k-means over a world of one NCCL rank, the host
+spill, the v1 facade and the profiling helpers on the card.
 
 Marked `gpu`: without a CUDA card every test here skips. This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -1207,3 +1209,177 @@ def test_flat_index_on_card_matches_cpu(cuda, distance, tmp_path):
     assert bool((i4[:, 4:] == -1).all()) and bool(torch.isinf(v4[:, 4:]).all())
     v_b, i_b = back.search(q.T, k=10)
     _assert_topk_ties(v, i, v_b, i_b, rtol=1e-4, atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A world of one rank over NCCL (this process) and its mesh; the
+    group is destroyed after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL runs on cards only")
+    import torch.distributed as dist
+    import torchpq_tpu_torch as tp
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(tmp_path_factory.mktemp("nccl") / "store"),
+                           1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        yield tp.parallel.get_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _card_index(cuda, cache, n=6000, seed=3):
+    """A small index on the card (IVF16 x PQ8, d 32) with the CPU's trained
+    state, filled by two adds; returns (card index, rows, queries)."""
+    import numpy as np
+    import torchpq_tpu_torch as tp
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(40, 32)).astype(np.float32) * 3
+    x = (centers[rng.integers(0, 40, n)]
+         + rng.normal(size=(n, 32))).astype(np.float32)
+    q = x[:300] + 0.1 * rng.normal(size=(300, 32)).astype(np.float32)
+    kw = dict(d_vector=32, n_subvectors=8, n_cells=16, initial_size=256,
+              scan_cache_dtype=cache)
+    cpu = tp.IVFPQIndex(**kw, device="cpu")
+    cpu.vq_max_iter = cpu.pq_max_iter = 6
+    cpu.train(x[:2000].T)
+    gpu = tp.IVFPQIndex(**kw, device=cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    for chunk in (x[: n // 2], x[n // 2:]):
+        gpu.add(torch.from_numpy(chunk).to(cuda).T)
+    return gpu, x, q
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", [None, "int8", "none"])
+def test_sharded_d1_on_card_matches_single(cuda, nccl_mesh, cache):
+    """ShardedIVFPQSearcher over a world of one NCCL rank: each tier's
+    probed plans launch the tensor-core scans and match the index's own
+    search over the same (uncompacted) layout, exact plans tie-aware,
+    pack32 on >= 0.99 of ids; flat; then an add and a remove against the
+    same on the index."""
+    import numpy as np
+    import torchpq_tpu_torch as tp
+    gpu, x, q = _card_index(cuda, cache)
+    gpu.scan_compact = False
+    s = tp.parallel.ShardedIVFPQSearcher(gpu, mesh=nccl_mesh)
+    qt = torch.from_numpy(q).to(cuda)
+    counters = cs.launches if cache == "none" else bs.launches
+    for mode, approx in (("cell_major", False), ("cell_major", True),
+                         ("flat", False)):
+        gpu.scan_mode, gpu.use_approx_topk, gpu.n_probe = mode, approx, 4
+        s.scan_mode = mode
+        before = dict(counters)
+        v, i = s.search(qt.T, k=10)
+        launched = {key: counters[key] - before[key] for key in counters}
+        v_ref, i_ref = gpu.search(qt.T, k=10)
+        if mode == "cell_major":
+            assert sum(n for key, n in launched.items()
+                       if key.startswith("tc_")) == 1, launched
+        if approx:
+            shared = sum(len(set(a.tolist()) & set(b.tolist()))
+                         for a, b in zip(i.cpu(), i_ref.cpu())) / i.numel()
+            assert shared >= 0.99, shared
+        else:
+            _assert_topk_ties(v, i, v_ref.cpu(), i_ref.cpu())
+    extra = torch.from_numpy(x[:500] + 0.5).to(cuda)
+    ids_ref = gpu.add(extra.T)
+    assert torch.equal(s.add(extra.T), ids_ref)
+    rm = np.arange(0, 6500, 7)
+    assert s.remove(rm) == gpu.remove(rm)
+    gpu.scan_mode, gpu.use_approx_topk = "cell_major", False
+    s.scan_mode = "cell_major"
+    v, i = s.search(qt.T, k=10)
+    v_ref, i_ref = gpu.search(qt.T, k=10)
+    _assert_topk_ties(v, i, v_ref.cpu(), i_ref.cpu())
+
+
+@pytest.mark.gpu
+def test_dp_kmeans_d1_on_card(cuda, nccl_mesh):
+    """data_parallel_kmeans_fit over one NCCL rank equals a plain Lloyd loop
+    from the same initial rows (relative 1e-5: the same operations), and
+    the lloyd step one iteration of it."""
+    import numpy as np
+    import torchpq_tpu_torch as tp
+    from torchpq_tpu_torch.ops.max_sim import max_sim
+    from torchpq_tpu_torch.ops.segment_ops import compute_centroids
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(5000, 16)).astype(np.float32)).to(cuda)
+    cents, it = tp.parallel.data_parallel_kmeans_fit(
+        x, 32, mesh=nccl_mesh, max_iter=5, tol=0.0, seed=2)
+    ref = x[torch.as_tensor(np.random.default_rng(2).choice(
+        5000, 32, replace=False), device=cuda)]
+    step = tp.parallel.data_parallel_lloyd_step(nccl_mesh, x, ref,
+                                                "euclidean")
+    for i in range(5):
+        _, labels = max_sim(x, ref, "euclidean")
+        sums, cnt = compute_centroids(x, labels, 32)
+        ref = torch.where((cnt > 0)[:, None],
+                          sums / torch.clamp(cnt, min=1.0)[:, None], ref)
+        if i == 0:
+            torch.testing.assert_close(step, ref, rtol=1e-5, atol=1e-5)
+    assert it == 5
+    torch.testing.assert_close(cents, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_host_spill_on_card_matches_cpu(cuda):
+    """spill_impl="host" on the card: the cells the CPU gives from the same
+    state, on >= 0.99 of items (the greedy runs on the host either way; the
+    top cells come from each device's coarse GEMM, whose near ties may
+    order two candidates apart)."""
+    import numpy as np
+    import torchpq_tpu_torch as tp
+    gpu, x, _ = _card_index(cuda, None, n=2000)
+    cpu = tp.IVFPQIndex(d_vector=32, n_subvectors=8, n_cells=16,
+                        initial_size=256, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    for idx in (cpu, gpu):
+        idx.spill_cells, idx.spill_capacity = 4, 200
+        idx.spill_impl = "host"
+    y = x + np.float32(0.25)
+    _, a_ref = cpu.add(y.T, return_address=True)
+    _, a = gpu.add(torch.from_numpy(y).to(cuda).T, return_address=True)
+    assert tp.native.LAST_ROUTE["spill_assign"] == "cpp"
+    cells = gpu.get_cell_by_address(a).cpu()
+    assert (cells == cpu.get_cell_by_address(a_ref)).float().mean() \
+        .item() >= 0.99
+    assert gpu.n_items == cpu.n_items == 4000
+
+
+@pytest.mark.gpu
+def test_legacy_and_profiling_on_card(cuda, tmp_path):
+    """The v1 IVFPQ facade on the card against its CPU twin from the same
+    state (ids equal outside ties), with its CPU-RAM SQ tier; one search
+    inside profiling.trace and named_scope: the scope and the card's
+    kernels are in the Chrome trace; PhaseTimer and Timer sync the card."""
+    import json
+    import numpy as np
+    import torchpq_tpu_torch as tp
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(4000, 32)).astype(np.float32)
+    kw = dict(d_vector=32, n_subvectors=8, n_cq_clusters=16, blocksize=256)
+    card = tp.legacy.IVFPQ(**kw, device=cuda,
+                           cpu_quantizer=tp.legacy.SQ(bits=8, device=cuda))
+    card.train(torch.from_numpy(x[:2000]).to(cuda).T)
+    cpu = tp.legacy.IVFPQ(**kw, device="cpu")
+    cpu._index.load_state_dict(card._index.state_dict())
+    ids = card.add(torch.from_numpy(x).to(cuda).T)
+    assert torch.equal(ids.cpu(), cpu.add(x.T))
+    card.n_probe = cpu.n_probe = 4
+    timer = tp.profiling.PhaseTimer()
+    with tp.profiling.trace(str(tmp_path)) as prof:
+        with tp.profiling.named_scope("legacy_topk"), timer.phase("topk"):
+            v, i = card.topk(torch.from_numpy(x[:200]).to(cuda).T, k=5)
+    v_ref, i_ref = cpu.topk(x[:200].T, k=5)
+    _assert_topk_ties(v, i, v_ref, i_ref)
+    rec = card.reconstruct_from_cpu_ram(ids[:50])
+    assert float((rec.cpu().T - torch.from_numpy(x[:50])).abs().mean()) \
+        < 0.05
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "legacy_topk" for e in events)
+    assert any(e.get("cat") == "kernel" for e in events)
+    assert timer.report()["topk"] > 0
+    assert tp.util.Timer().tick(sync=v) >= 0

@@ -7,6 +7,9 @@ is the reference; this package never imports it or JAX. Each TPU kernel on
 the ported path is a hand-written CUDA kernel under `csrc/`, built at first
 use by `_build.py`; on CPU tensors its plain PyTorch version runs instead.
 Objects live on the card unless they are built with device="cpu".
+Multi-device search and k-means run over torch.distributed (`parallel`);
+the host data plane (dataset readers, the host spill greedy) is C++ built
+with g++ at first use (`native`); the v1 API lives in `legacy`.
 """
 
 from . import config
@@ -19,6 +22,10 @@ from . import container
 from . import fn
 from . import index
 from . import transform
+from . import native
+from . import parallel
+from . import legacy
+from . import profiling
 from .fn import Topk
 from .module import StateModule
 from .index import FlatIndex, IVFPQIndex, IVFPQRIndex

@@ -2,7 +2,8 @@
 
 One flat buffer split into contiguous per-cell segments (`_cell_start`,
 `_cell_size`, `_cell_capacity`, `_is_empty`). Per-cell capacities are
-powers of two and at least 16, so every cell start is a multiple of 16.
+powers of two (after an exact presize, multiples of 16, or of 128 from 128
+up) and at least 16, so every cell start is a multiple of 16.
 Adds follow the JAX package: rank within the cell (ioa,
 ops/spill.py:rank_in_group) -> grow cells that would overflow -> the
 ioa-th empty slot of the cell -> scatter. Growth is one relayout over the
@@ -176,14 +177,26 @@ class CellContainer(BaseContainer):
         return self.get_data_by_address(self.get_address_by_id(ids))
 
     # -- growth --
-    def expand(self, cells=None, required=None):
+    def expand(self, cells=None, required=None, exact=False):
         """Relayout with grown capacities: `required` {cell: min size}
         rounds each to the next power of two; `cells` doubles those cells;
-        neither doubles every cell."""
+        neither doubles every cell.
+
+        `exact` (with `required`, cell.py:376-408): round to multiples of 16
+        instead, or of 128 once at or above 128, so capacities track the
+        true counts while every cell start stays 16-aligned and the largest
+        capacity (the scan window) a multiple of 128. Meant for the
+        presize-before-ingest path: one relayout while the store is empty,
+        which allocates fresh stores instead of moving zeros (_relayout)."""
         new_caps = self._cell_capacity_np.copy()
         if required is not None:
             for c, req in required.items():
-                new_caps[c] = max(util.next_pow2(int(req)), new_caps[c])
+                if exact:
+                    r = max(int(req), 16)
+                    rounded = util.round_up(r, 16 if r < 128 else 128)
+                else:
+                    rounded = util.next_pow2(int(req))
+                new_caps[c] = max(rounded, new_caps[c])
         elif cells is not None:
             for c in np.unique(np.asarray(cells)):
                 new_caps[c] = new_caps[c] * 2
@@ -204,18 +217,24 @@ class CellContainer(BaseContainer):
                    if getattr(self, "_aux_rebuilder", None) else set())
         for name in rebuild:
             setattr(self, "_aux_" + name, None)  # free before the moves
-        move = (old_start, old_caps, new_start, new_total)
-        codes = _relayout_gather(self._codes_view(), *move, 0)
-        self.register_state("_storage", codes.view(
+        if self._n_items == 0:
+            # an empty store (the presize-before-ingest path): fresh stores,
+            # not a gather of zeros, which would cost a pass over the store
+            # and a transient of twice its size (cell.py:424-445)
+            def build(old, fill):
+                return torch.full((new_total,) + tuple(old.shape[1:]), fill,
+                                  dtype=old.dtype, device=dev)
+        else:
+            def build(old, fill):
+                return _relayout_gather(old, old_start, old_caps, new_start,
+                                        new_total, fill)
+        self.register_state("_storage", build(self._codes_view(), 0).view(
             new_total // self.pack_group, self.pack_group * self.code_size))
-        self.register_state("_address2id", _relayout_gather(
-            self._address2id, *move, -1))
-        self.register_state("_is_empty", _relayout_gather(
-            self._is_empty, *move, True))
+        self.register_state("_address2id", build(self._address2id, -1))
+        self.register_state("_is_empty", build(self._is_empty, True))
         for name in self._aux:
             if name not in rebuild:
-                self.register_state("_aux_" + name, _relayout_gather(
-                    self.aux(name), *move, 0))
+                self.register_state("_aux_" + name, build(self.aux(name), 0))
         self.register_state("_cell_start", new_start.int())
         self.register_state("_cell_capacity", torch.as_tensor(
             new_caps, dtype=torch.int32, device=dev))

@@ -38,18 +38,17 @@ through the fused flat-scan kernel, the probed plans as "xla").
 
 The deep-k surface of the JAX package is here too: supercells
 (`scan_group`), the probe cap, `scan_k_pair`, the rank-tapered merge and
-its split into two scans, supercell-native probing, and the device route of
-capacity-bounded (spill) assignment at add.
-
-Settings the JAX package supports but this port does not yet (the host
-spill route) raise NotImplementedError naming their ROADMAP item; none
-silently takes another path.
+its split into two scans, supercell-native probing, and both routes of
+capacity-bounded (spill) assignment at add: on the device (ops/spill.py)
+and on the host through the native C++ greedy (native.spill_assign), in
+exact arrival order.
 """
 
 import numpy as np
 import torch
 
 from .. import config
+from .. import native
 from .. import util
 from ..metric import (canonical_distance, negative_manhattan_distance,
                       negative_squared_l2_distance)
@@ -351,8 +350,8 @@ class IVFPQIndex(CellContainer):
         self.scan_impl = "auto"
         # spill (off by default; see _assign_cells): up to spill_cells
         # best cells per item, each held to spill_capacity items. "device"
-        # routes on the device (ops/spill.py); the JAX package's "host"
-        # route (native C++ greedy) is ROADMAP A15
+        # routes on the device (ops/spill.py), any other value ("host") on
+        # the host through the native C++ greedy
         self.spill_cells = 1
         self.spill_capacity = None
         self.spill_impl = "device"
@@ -480,15 +479,6 @@ class IVFPQIndex(CellContainer):
     @property
     def is_trained(self):
         return self.vq_codec.is_trained and self.pq_codec.is_trained
-
-    def _check_ported(self):
-        """The host spill route is not ported: raise rather than run the
-        device route in its place."""
-        if (self.spill_cells > 1 and self.spill_capacity is not None
-                and self.spill_impl != "device"):
-            raise NotImplementedError(
-                f"spill_impl={self.spill_impl!r} (the native host route) is "
-                "not ported yet (ROADMAP A15); use spill_impl='device'")
 
     def _prep(self, x):
         x = util.as_tensor(x, self.device, torch.float32)
@@ -652,7 +642,6 @@ class IVFPQIndex(CellContainer):
     def add(self, x, ids=None, return_address=False):
         """x: [d_vector, n]. Coarse assignment, PQ encode, container write
         of the codes with their decoded rows and norms."""
-        self._check_ported()
         self._assert_unfrozen("add")
         assert self.is_trained, "train the index first"
         cells, codes_nm, decoded = self._encode_rows(self._prep(x))
@@ -684,17 +673,28 @@ class IVFPQIndex(CellContainer):
     def _assign_cells(self, x):
         """Coarse cells of x [d_vector, n] (ivfpq.py:810-846): the argmax
         cell, or with spill (spill_cells > 1 and a spill_capacity) each
-        item's best cell below the capacity among its spill_cells best
-        (ops/spill.py). The top cells are an exact top-k, as approx_max_k
-        is off the TPU."""
+        item's best cell below the capacity among its spill_cells best. The
+        top cells are an exact top-k, as approx_max_k is off the TPU.
+
+        spill_impl "device" routes on the device (ops/spill.py); any other
+        value on the host: the [n, l] top cells cross as int16 where the
+        cell ids fit, then the native greedy (native.spill_assign) walks the
+        items in arrival order against a copy of the host cell sizes, which
+        the container keeps in step with every add and remove."""
         if self.spill_cells <= 1 or self.spill_capacity is None:
             return self.vq_codec.encode(x)
         _, top = topk_sim(x.T, self._coarse_cb(), self.spill_cells,
                           "euclidean")
-        cells, _ = spill_assign_device(top, self._cell_size,
-                                       cap=int(self.spill_capacity),
-                                       n_cells=self.n_cells)
-        return cells
+        cap = int(self.spill_capacity)
+        if self.spill_impl == "device":
+            cells, _ = spill_assign_device(top, self._cell_size, cap=cap,
+                                           n_cells=self.n_cells)
+            return cells
+        if self.n_cells <= 32767:
+            top = top.to(torch.int16)
+        cells, _ = native.spill_assign(top.cpu().numpy(),
+                                       self._cell_size_np.copy(), cap)
+        return torch.as_tensor(cells, device=self.device)
 
     def remove(self, ids=None, address=None):
         self._assert_unfrozen("remove")

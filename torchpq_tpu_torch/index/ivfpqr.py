@@ -159,7 +159,6 @@ class IVFPQRIndex(IVFPQIndex):
         the second-stage residual; the cached tiers store the full
         reconstruction (int8: quantized), the code domain the base norm
         and the norm delta."""
-        self._check_ported()
         self._assert_unfrozen("add")
         assert self.is_trained, "train the index first"
         x = self._prep(x)

@@ -1,5 +1,7 @@
 """Shape/dtype utilities (counterpart of torchpq_tpu/util.py)."""
 
+import time
+
 import numpy as np
 import torch
 
@@ -119,3 +121,103 @@ def exclusive_cumsum(x):
     if x.numel() > 1:
         torch.cumsum(x[:-1], 0, out=out[1:])
     return out
+
+
+def id_dtype():
+    """Dtype of user-visible id arrays (torchpq_tpu/util.py:id_dtype):
+    ID_DTYPE, int32, which is the JAX package's answer in its default x32
+    mode and what every entry point of the port returns."""
+    return ID_DTYPE
+
+
+def as_n_d(x, d_vector=None):
+    """Accept the reference's [d_vector, n_data] layout and return
+    row-major [n, d] (a view). Public entry points take [d, n]; internal
+    compute is [n, d]."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    if x.ndim != 2:
+        raise ValueError(
+            f"expected 2-D [d_vector, n_data] input, got {tuple(x.shape)}")
+    if d_vector is not None and x.shape[0] != d_vector:
+        raise ValueError(f"expected [d_vector={d_vector}, n_data], got "
+                         f"{tuple(x.shape)}")
+    return x.T
+
+
+def as_d_n(x):
+    """Return to the reference's [d, n] layout at the boundary."""
+    return x.T
+
+
+def pad_rows(x, multiple, value=0):
+    """Pad dim 0 of `x` up to a multiple; returns (padded, n_valid)."""
+    n = x.shape[0]
+    target = round_up(max(n, 1), multiple)
+    if target == n:
+        return x, n
+    pad = x.new_full((target - n,) + tuple(x.shape[1:]), value)
+    return torch.cat([x, pad]), n
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [_tree_map(fn, v) for v in tree]
+        return type(tree)(out) if isinstance(tree, list) else tuple(out)
+    return fn(tree)
+
+
+def block_until_ready(tree):
+    """Wait for the devices of every CUDA tensor in `tree` (dicts, lists
+    and tuples of tensors) to finish their queued work; returns `tree`.
+    Kernel launches return before the card is done, so a host clock read
+    without this measures the enqueue."""
+    devices = set()
+
+    def note(a):
+        if isinstance(a, torch.Tensor) and a.is_cuda:
+            devices.add(a.device)
+        return a
+
+    _tree_map(note, tree)
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    return tree
+
+
+def to_numpy(tree):
+    """Tensors of `tree` -> numpy copies on the host (bf16 as float32, which
+    numpy lacks); other leaves as np.asarray gives them."""
+    def conv(a):
+        if isinstance(a, torch.Tensor):
+            a = a.detach()
+            if a.dtype == torch.bfloat16:
+                a = a.float()
+            return a.cpu().numpy()
+        return np.asarray(a)
+    return _tree_map(conv, tree)
+
+
+class Timer:
+    """Wall-clock probe with device sync (reference torchpq/util.py:86
+    tick())."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+
+    def tick(self, label="", sync=None):
+        """Seconds since the last tick. `sync`: the tensors being timed,
+        whose devices are waited for; without it the current CUDA device
+        (where one is in use) is."""
+        if sync is not None:
+            block_until_ready(sync)
+        elif torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        dt = now - self.t
+        self.t = now
+        if label:
+            print(f"[tick] {label}: {dt * 1e3:.3f} ms")
+        return dt
