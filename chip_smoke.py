@@ -22,7 +22,9 @@ Phases, each of which fails the run on error:
      codes, s_eff 1024, 1024 blocks), both selects, live rows within
      tolerance and pad rows dead, and bit for bit on integer-valued inputs
      with ties (PQ64 and PQ8, euclidean and inner, pack32 also at k_pair
-     40 over 512 strided groups); on each of those inputs the CUDA-core
+     40 over 512 strided groups, and the deep instance at k_pair 52 and
+     64 over 512 for PQ64 and the 4-bit byte pairs); on each of those
+     inputs the CUDA-core
      codes kernel too, every row (bit for bit on integer inputs, equal
      exact values and >= 0.9999 of pack32 keys on random ones); then the
      block scan's int8 mode at d 128 and 1024 through both routes (the
@@ -149,12 +151,14 @@ Phases, each of which fails the run on error:
      relayout (expand) keeps the exact and flat searches.
  13. IVFPQR, code domain (the record's _codes twin: scan_cache_dtype
      "none", initial_mult 3): flat and pack32 n_probe 8/32 at k = 10 (the
-     base codes scan at k' 40 on the tensor-core codes kernel only) and
-     k = 100 (k' 400: k_pair 52-64, on the CUDA-core codes kernel only, no
-     tensor-core route takes it); recall within 0.02 of the cached tier's
-     exact select over the same cells (its pack32 plans over supercells
-     logged beside); both n_probe 32 scans held to codes_scan_ref on their
-     own arguments; one k = 100 plan profiled.
+     base codes scan at k' 40) and k = 100 (k' 400: k_pair 64 / 52, the
+     deep instance), each plan's codes-scan counters zeroed before and
+     read after: the tensor-core codes kernel only; recall within 0.02 of
+     the cached tier's exact select over the same cells (its pack32 plans
+     over supercells logged beside); the n_probe 32 scans and the k = 100
+     n_probe 8 one held to codes_scan_ref on their own arguments (live
+     rows, pad rows dead) and timed in turns with the CUDA-core
+     codes_scan.cu; both k = 100 plans profiled.
  14. FlatIndex at 1M x 128 f32 (the slice's base and 10k queries), k = 10
      and 100: ids against the exact ground truth (>= 0.999), ms per batch
      and device bytes; then a seeded 10% removed and 1,000 queries held to
@@ -265,6 +269,10 @@ import numpy as np
 TOL_REL = 1e-3  # bf16 products are exact in f32; only summation order differs
 TOL_ABS = 1e-3
 
+
+# the deep tensor-core codes instance (pack32 k_pair 49-64), by the name
+# kernel_name gives its mangled one
+DEEP_CODES_KERNEL = "codes_scan_tc_kernelILb1ELi64E"
 
 # the card's data-sheet rates (H100 SXM, dense): HBM bytes/s and the
 # tensor-core peak of each operand type, for the kernels' bounds
@@ -671,8 +679,12 @@ def phase_kernels(torch, bs, cs, fs, gr):
             "kernel matches the plain version on every row)")
     del args
     # integer inputs with runs of equal codes: bit for bit, ties included
+    # (k_pair 52 and 64 over 512 groups: the deep instance, the IVFPQR code
+    # domain's k = 100 shapes, for PQ64 and the 4-bit byte pairs)
     for m, dsub, s_eff, k_pair in ((64, 2, 1024, 10), (8, 4, 256, 10),
-                                   (64, 2, 1024, 40)):
+                                   (64, 2, 1024, 40), (64, 2, 1024, 52),
+                                   (64, 2, 1024, 64), (32, 4, 1024, 52),
+                                   (32, 4, 1024, 64)):
         args = cs.integer_codes_inputs("cuda", s_eff=s_eff, n_blocks=1024,
                                        nq=10000, m=m, dsub=dsub,
                                        cap_total=1 << 18, seed=m + k_pair)
@@ -2225,13 +2237,13 @@ def phase_pqr(torch, tp, bs, sl, gt100):
     return launches, rows, trained, rec
 
 
-def codes_pack32_row(torch, bs, cs, name, args, kw, route, what):
+def codes_pack32_row(torch, bs, cs, name, args, kw, what):
     """One pack32 codes scan on its search's own arguments, through the
-    kernel pick_route names (`route`): against codes_scan_ref (the
-    tensor-core kernel on live rows, pad rows dead, and the CUDA-core one
-    on every row: compare_pack32's tolerances), timed (in turns with the
-    CUDA-core kernel where the tensor cores serve it), with its bound.
-    Returns the kernels-line row."""
+    tensor-core kernel pick_route must name: against codes_scan_ref on the
+    live rows, pad rows dead (check_codes; the CUDA-core kernel on every
+    row), timed in turns with the CUDA-core codes_scan.cu (the
+    cuda_core_ms yardstick), with its bound. Returns the kernels-line
+    row."""
     s_eff, k_pair = kw["s_eff"], kw["k_pair"]
     blocks, p_tile = args[1].shape
     m, _, dsub = args[7].shape
@@ -2241,70 +2253,55 @@ def codes_pack32_row(torch, bs, cs, name, args, kw, route, what):
                            k_pair=k_pair, pack32=True)
     log(f"{what}: {blocks} blocks x {p_tile} probers, {live} live, "
         f"s_eff={s_eff}, k_pair={k_pair}, m={m}, route {picked}")
-    if picked != route:
-        fail(f"{what} routes to {picked}, not {route}")
+    if picked != "tc_pack32":
+        fail(f"{what} routes to {picked}, not tc_pack32")
     kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
                pack32=True, slot_mask=kw["slot_mask"])
-    ref = cs.codes_scan_ref(*args, **kkw)
-    if route == "tc_pack32":
-        err, agree, _, _ = check_codes(torch, bs, cs, args, s_eff=s_eff,
-                                       k_pair=k_pair, pack32=True,
-                                       euclidean=kw["euclidean"], reps=0)
-        t, turns = in_turns(torch, {
-            "cuda_cores": lambda: codes_launch(torch, cs, args, "pack32",
-                                               **kkw),
-            "tensor_cores": lambda: codes_launch(torch, cs, args,
-                                                 "tc_pack32", **kkw)}, 10)
-        ms, cc_ms = t["tensor_cores"], t["cuda_cores"]
-        times = (f"tensor cores {ms:.3f} ms ("
-                 f"{' / '.join(f'{x:.3f}' for x in turns['tensor_cores'])})"
-                 f", CUDA cores {cc_ms:.3f} ms ("
-                 f"{' / '.join(f'{x:.3f}' for x in turns['cuda_cores'])})")
-        source = "torchpq_tpu_torch/csrc/codes_scan_tc.cu"
-    else:
-        got = codes_launch(torch, cs, args, route, **kkw)
-        torch.cuda.synchronize()
-        err, agree = compare_pack32(torch, bs, got, ref, kkw["slot_mask"],
-                                    what=f"{name} (CUDA cores)")
-        del got
-        ms = cc_ms = cuda_ms(torch, lambda: codes_launch(
-            torch, cs, args, route, **kkw), 5)
-        times = (f"CUDA cores {ms:.3f} ms (no tensor-core route takes "
-                 f"pack32 k_pair {k_pair} > {cs._TC_MAX_PACK_K}: with the "
-                 "codebook beside them the lists do not fit)")
-        source = "torchpq_tpu_torch/csrc/codes_scan.cu"
-    del ref
+    err, agree, _, _ = check_codes(torch, bs, cs, args, s_eff=s_eff,
+                                   k_pair=k_pair, pack32=True,
+                                   euclidean=kw["euclidean"], reps=0)
+    t, turns = in_turns(torch, {
+        "cuda_cores": lambda: codes_launch(torch, cs, args, "pack32", **kkw),
+        "tensor_cores": lambda: codes_launch(torch, cs, args, "tc_pack32",
+                                             **kkw)}, 10)
+    ms, cc_ms = t["tensor_cores"], t["cuda_cores"]
     plain_ms = cuda_ms(torch, lambda: cs.codes_scan_ref(*args, **kkw), 1)
     b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=m + 4,
                             row_bytes=2 * d, peak="bf16", d=d,
                             extra_bytes=args[7].numel() * 2)
-    log(f"{name} on {what}'s arguments: {times}; "
+    log(f"{name} on {what}'s arguments: tensor cores {ms:.3f} ms ("
+        f"{' / '.join(f'{x:.3f}' for x in turns['tensor_cores'])}), CUDA "
+        f"cores {cc_ms:.3f} ms ("
+        f"{' / '.join(f'{x:.3f}' for x in turns['cuda_cores'])}); "
         f"{2.0 * live * s_eff * d / ms / 1e9:.2f} TFLOP/s over live "
         f"probers, {b_ms / ms:.1%} of the bound; plain {plain_ms:.3f} ms, "
         f"bound {b_ms:.3f} ms ({b_by}); max_abs_err {err:.3g}, key agreement "
         f"{agree:.7f}")
-    return dict(name=name, route="cuda", source=source,
+    return dict(name=name, route="cuda",
+                source="torchpq_tpu_torch/csrc/codes_scan_tc.cu",
                 replaces="torchpq_tpu/ops/pallas_codes_scan.py:198",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, cuda_core_ms=cc_ms,
-                tensor_core_route=route.startswith("tc_"))
+                tensor_core_route=True)
 
 
 def phase_pqr_codes(torch, tp, bs, cs, sl, gt100, trained, rec_cached):
     """The JAX package's IVFPQR record, code domain (pqr3_codes): the same
     codecs in a scan_cache_dtype="none" index (codes, rerank codes, base
-    norms and norm deltas: no cache), initial_mult 3; PQR_CODE_PLANS at k =
-    10 and 100 with the codes-scan counters zeroed before each and read
-    after. The base scan runs at k * 4 under the code scan's k_pair rule:
-    k = 10 (k' 40) at pack32 k_pair 20 / 16 (n_probe 8 / 32) on the
-    tensor-core key only; k = 100 (k' 400) at k_pair 64 / 52, above the
-    tensor-core limit of 48, on the CUDA-core pack32 key only. Recall@10
-    and @100 within 0.02 of the cached tier's exact select over the same
-    probed cells (scan_group 1: the code domain takes no supercells, in
-    either package) at n_probe 8 and 32; the cached tier's pack32 plans
-    over supercells of 4 are logged beside (on manifold-12 the supercells
-    lift them 0.01-0.05 above both); both scans held to codes_scan_ref on
-    their searches' own arguments. Returns (launches, the kernels' rows)."""
+    norms and norm deltas: no cache), initial_mult 3; each plan of
+    PQR_CODE_PLANS at k = 10 and 100 with the codes-scan counters zeroed
+    before it and read after. The base scan runs at k * 4 under the code
+    scan's k_pair rule: k = 10 (k' 40) at pack32 k_pair 20 / 16 (n_probe
+    8 / 32), k = 100 (k' 400) at k_pair 64 / 52 (the deep instance), all
+    on the tensor-core pack32 key only. Recall@10 and @100 within 0.02 of
+    the cached tier's exact select over the same probed cells (scan_group
+    1: the code domain takes no supercells, in either package) at n_probe
+    8 and 32; the cached tier's pack32 plans over supercells of 4 are
+    logged beside (on manifold-12 the supercells lift them 0.01-0.05 above
+    both); the n_probe 32 scans of both k and the k = 100 n_probe 8 scan
+    held to codes_scan_ref on their searches' own arguments. Returns
+    (launches, the kernels' rows): a k = 10 row launched by both probed
+    plans, a k = 100 row per probed plan."""
     base, xq, gt, k = (sl[x] for x in ("base", "xq", "gt", "k"))
     code, add_s = build_pqr(torch, tp, trained, base, sl["index"],
                             initial_mult=3, cache="none")
@@ -2319,21 +2316,27 @@ def phase_pqr_codes(torch, tp, bs, cs, sl, gt100, trained, rec_cached):
         f"uint8 (pack group {code.pack_group}); device bytes per slot "
         f"{per_slot:.0f} (64 B codes, {PQR_RERANK_M} B rerank codes, 4 B "
         "norm, 4 B norm delta)")
-    rec, counts, launches, rows = {}, {}, {}, {}
-    for kk, g, want in ((k, gt, "tc_pack32"), (100, gt100, "pack32")):
-        for key in cs.launches:
-            cs.launches[key] = 0
-        rec[kk], _ = time_plans(torch, tp, code, xq, g, kk, cs.launches,
-                                f"pqr3 code-domain k={kk} ",
-                                plans=PQR_CODE_PLANS, floors=False,
-                                short_ok=True)
-        counts[kk] = dict(cs.launches)
-        log(f"pqr3 code-domain k={kk} launches: {counts[kk]} (the route "
-            f"served: {want})")
-        for key, c in counts[kk].items():
-            if (c > 0) != (key == want):
-                fail(f"the pqr3 code-domain k={kk} plans launched the codes "
-                     f"scan's {key} {c} times: only {want} may serve them")
+    rec, launches, rows = {}, {}, {}
+    want = "tc_pack32"
+    for kk, g in ((k, gt), (100, gt100)):
+        rec[kk], counts = {}, {}
+        for plan in PQR_CODE_PLANS:
+            for key in cs.launches:
+                cs.launches[key] = 0
+            r, _ = time_plans(torch, tp, code, xq, g, kk, cs.launches,
+                              f"pqr3 code-domain k={kk} ", plans=[plan],
+                              floors=False, short_ok=True)
+            rec[kk].update(r)
+            counts[plan] = dict(cs.launches)
+            log(f"pqr3 code-domain k={kk} {plan[0]} np={plan[1]} launches: "
+                f"{counts[plan]} (the route that must serve: {want})")
+            for key, c in counts[plan].items():
+                if c > 0 and (key != want or plan[0] == "flat") or (
+                        key == want and plan[0] != "flat" and c <= 0):
+                    fail(f"the pqr3 code-domain k={kk} {plan[0]} "
+                         f"np={plan[1]} plan launched the codes scan's {key}"
+                         f" {c} times: only {want} may serve the probed "
+                         "plans")
         key = "k10" if kk == k else "k100"
         cached, same_set = rec_cached[key], rec_cached[key + "_g1"]
         for plan in PQR_CODE_PLANS[1:]:
@@ -2345,18 +2348,23 @@ def phase_pqr_codes(torch, tp, bs, cs, sl, gt100, trained, rec_cached):
             if abs(r - exact) > 0.02:
                 fail(f"the pqr3 code domain's recall@{kk} at n_probe "
                      f"{plan[1]} is not within 0.02 of the cached tier's")
-        name = "codes_scan_pack32_pqr" + ("" if kk == k else "_k100")
-        code.scan_mode, code.n_probe, code.use_approx_topk = "cell_major", \
-            32, True
-        args, kw = capture_call(tp, code, xq, kk, module=tp.ops.onehot_adc,
-                                name="codes_scan")
-        rows[name] = codes_pack32_row(
-            torch, bs, cs, name, args, kw, want,
-            f"the pqr3 code-domain k={kk} n_probe=32 search")
-        launches[name] = counts[kk][want]
-        del args
+        named = ({"codes_scan_pack32_pqr": PQR_CODE_PLANS[1:]} if kk == k
+                 else {"codes_scan_pack32_pqr_k100": [PQR_CODE_PLANS[2]],
+                       "codes_scan_pack32_pqr_k100_np8": [PQR_CODE_PLANS[1]]})
+        for name, plans in named.items():
+            n_probe = plans[-1][1]
+            code.scan_mode, code.n_probe, code.use_approx_topk = \
+                "cell_major", n_probe, True
+            args, kw = capture_call(tp, code, xq, kk,
+                                    module=tp.ops.onehot_adc,
+                                    name="codes_scan")
+            rows[name] = codes_pack32_row(
+                torch, bs, cs, name, args, kw,
+                f"the pqr3 code-domain k={kk} n_probe={n_probe} search")
+            launches[name] = sum(counts[p][want] for p in plans)
+            del args
     phase_profile(torch, code, xq, 100, label="pqr3 code-domain k=100 ",
-                  plans=[("cell_major", 32, True)])
+                  plans=[("cell_major", 8, True), ("cell_major", 32, True)])
     return launches, rows
 
 
@@ -3561,13 +3569,25 @@ def main():
     t_start = time.perf_counter()
     lib = _build.library()
     log(f"build: {lib.build_seconds:.1f} s -> {lib.path.name}")
-    kernel = "?"
+    kernel, report = "?", {}
     for line in lib.build_log.splitlines():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             kernel = kernel_name(entry.group(1))
         elif "registers" in line or "spill" in line:
             log(f"ptxas {kernel}: " + line.strip())
+            report[kernel] = report.get(kernel, "") + " " + line.strip()
+    # the deep codes instance (pack32 k_pair 49-64): no spill, no stack
+    deep = report.get(DEEP_CODES_KERNEL, "")
+    regs = re.search(r"Used (\d+) registers", deep)
+    frame = [int(x) for x in re.findall(
+        r"(\d+) bytes (?:stack frame|spill stores|spill loads)", deep)]
+    log(f"ptxas deep codes instance {DEEP_CODES_KERNEL}: "
+        f"{regs.group(1) if regs else '?'} registers, stack frame / spill "
+        f"stores / spill loads {frame} bytes")
+    if not regs or len(frame) != 3 or any(frame):
+        fail(f"ptxas reports a stack frame or spills for "
+             f"{DEEP_CODES_KERNEL} (or no report): {deep.strip()!r}")
 
     phase_kernels(torch, bs, cs, fs, gr)
     log(f"phases 1-3: {time.perf_counter() - t_start:.1f} s")
@@ -3681,6 +3701,8 @@ def main():
              pqrc_launches["codes_scan_pack32_pqr"]),
             ("codes_scan_pack32_pqr_k100", pqrc_rows,
              pqrc_launches["codes_scan_pack32_pqr_k100"]),
+            ("codes_scan_pack32_pqr_k100_np8", pqrc_rows,
+             pqrc_launches["codes_scan_pack32_pqr_k100_np8"]),
             ("flat_scan", {"flat_scan": flat_row}, flat_counts["flat_tc"]),
             ("gather_rows", krows, counts["gather"])):
         # launches on the sharded path (phase 24), per rank, D = 1 and 2

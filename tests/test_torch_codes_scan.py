@@ -7,12 +7,13 @@ occur. Here the plain version `codes_scan_ref` is held to the JAX package's
 Pallas codes kernel (interpret mode, through tests/conftest.py) on those
 inputs, bit for bit, keys and addresses, pad rows included (both score them
 with query 0). `pick_route` is checked against the shapes each kernel
-takes."""
+takes, and its shared-memory mirror `tc_smem_bytes` against its terms."""
 
 import numpy as np
 import pytest
 import torch
 
+from torchpq_tpu_torch.ops import block_scan
 from torchpq_tpu_torch.ops import codes_scan as cs
 from torchpq_tpu_torch.ops.block_scan import n_groups
 
@@ -99,11 +100,21 @@ def test_integer_inputs_layout():
     (dict(m=64, dsub=2, p_tile=128, s_eff=4096, k_pair=48, pack32=True),
      "tc_pack32"),     # G = 512 at k_pair 48
     (dict(m=64, dsub=2, p_tile=128, s_eff=4096, k_pair=64, pack32=True),
-     "pack32"),        # codebook + lists: 237,600 B
+     "tc_pack32"),     # the deep instance, one tile: 210,976 B
     (dict(m=64, dsub=2, p_tile=128, s_eff=512, k_pair=49, pack32=True),
-     "pack32"),        # the codes source stays at k_pair <= 48
+     "tc_pack32"),     # the deep instance from k_pair 49, G = 256
     (dict(m=8, dsub=4, p_tile=128, s_eff=512, k_pair=57, pack32=True),
-     "pack32"),        # even where its shared memory would fit
+     "tc_pack32"),     # d = 32: 130,080 B
+    (dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=52, pack32=True),
+     "tc_pack32"),     # IVFPQR code domain, k = 100 at n_probe 32
+    (dict(m=32, dsub=4, p_tile=128, s_eff=1024, k_pair=64, pack32=True),
+     "tc_pack32"),     # 4-bit byte pairs: 206,880 B
+    (dict(m=128, dsub=1, p_tile=128, s_eff=1024, k_pair=64, pack32=True),
+     "tc_pack32"),     # PQ128: the ring of 16 KB, 219,168 B
+    (dict(m=32, dsub=5, p_tile=128, s_eff=1024, k_pair=64, pack32=True),
+     "pack32"),        # d = 160 > 128
+    (dict(m=16, dsub=16, p_tile=128, s_eff=1024, k_pair=52, pack32=True),
+     "pack32"),        # d = 256 > 128
 ])
 def test_pick_route(shape, route):
     assert cs.pick_route(**shape) == route
@@ -121,3 +132,60 @@ def test_launch_refuses_a_route_that_does_not_fit():
         cs.launch(None, 0, *args, route="tc_exact", **kw)
     with pytest.raises(ValueError, match="select"):
         cs.launch(None, 0, *args, route="tc_pack32", **kw)
+
+
+def _codes_constants():
+    """DEEP_PACK_K of csrc/codes_scan_tc.cu and TN of csrc/scan_tc.cuh."""
+    import re
+    from pathlib import Path
+    csrc = Path(cs.__file__).resolve().parents[1] / "csrc"
+    deep = re.search(r"constexpr int DEEP_PACK_K = (\d+);",
+                     (csrc / "codes_scan_tc.cu").read_text())
+    tn = re.search(r"constexpr int TN = (\d+);",
+                   (csrc / "scan_tc.cuh").read_text())
+    return int(deep.group(1)), int(tn.group(1))
+
+
+@pytest.mark.parametrize("m,dsub", [(64, 2), (32, 4), (128, 1), (8, 4),
+                                    (8, 5)])
+def test_tc_smem_mirror_terms(m, dsub):
+    """ops/codes_scan.py:tc_smem_bytes, which pick_route reads without the
+    library (the card test holds the library's sizes to it), term for term:
+    the 512 * d-byte codebook beside the body; above pack32 k_pair
+    DEEP_PACK_K (the header's constant) the deep instance adds the raw
+    codes' ring [TN][m] and keeps one decoded tile of the body's two."""
+    deep_k, tn = _codes_constants()
+    assert deep_k == cs._TC_DEEP_PACK_K == 48
+    d = m * dsub
+    tile = tn * ((2 * d + 31) // 32 * 32 + 16)
+    for pack32 in (False, True):
+        for k_pair in (1, 10, 16, 40, 48, 49, 52, 57, 64):
+            body = block_scan.tc_smem_bytes(2 * d, pack32, k_pair, False,
+                                            False)
+            got = cs.tc_smem_bytes(m=m, dsub=dsub, pack32=pack32,
+                                   k_pair=k_pair)
+            if pack32 and k_pair > deep_k:
+                assert got == 512 * d + tn * m + body - tile
+            else:
+                assert got == 512 * d + body
+
+
+def test_tc_route_boundary_reads_the_mirror(monkeypatch):
+    """The deep instance's sizes at d = 128, k_pair 64 (the two tiles of the
+    shallow instances would take 237,600 B there, over the limit), and
+    pick_route's tensor-core boundary sits where the mirror meets the
+    limit: one byte less and the same shape goes to the CUDA cores."""
+    sizes = {(m, dsub): cs.tc_smem_bytes(m=m, dsub=dsub, pack32=True,
+                                         k_pair=64)
+             for m, dsub in ((64, 2), (32, 4), (128, 1))}
+    assert sizes == {(64, 2): 210976, (32, 4): 206880, (128, 1): 219168}
+    assert cs.tc_smem_bytes(m=64, dsub=2, pack32=True, k_pair=48) == 213024
+    assert 512 * 128 + block_scan.tc_smem_bytes(256, True, 64, False, False) \
+        == 237600 > cs._SMEM_LIMIT
+    shape = dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=64,
+                 pack32=True)
+    monkeypatch.setattr(cs, "_SMEM_LIMIT", 210976)
+    assert cs.pick_route(**shape) == "tc_pack32"
+    monkeypatch.setattr(cs, "_SMEM_LIMIT", 210975)
+    assert cs.pick_route(**shape) == "pack32"
+    assert cs.pick_route(**dict(shape, k_pair=52)) == "tc_pack32"

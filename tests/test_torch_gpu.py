@@ -287,10 +287,13 @@ def test_block_tc_int8_deep_pack32(cuda, d, s_eff, inputs, n_ctas):
 def test_tc_smem_matches_mirror(cuda):
     """The library's shared-memory sizes of the three tensor-core scans
     equal ops/block_scan.py's mirror of scan_tc.cuh:body_smem_bytes (which
-    pick_route reads without the library), the codes scan's with its
-    512 * d-byte codebook; and an entry point refuses, without launching,
-    a shape whose shared memory exceeds the limit: the chunked int8 rows
-    and the codes source at pack32 k_pair 64."""
+    pick_route reads without the library), the codes scan's its own mirror
+    ops/codes_scan.py:tc_smem_bytes (the 512 * d-byte codebook beside the
+    body; above pack32 k_pair 48 the deep instance's ring and one tile);
+    an entry point refuses, without launching, a shape whose shared memory
+    exceeds the limit (the chunked int8 rows at pack32 k_pair 64); and the
+    codes entry point launches at pack32 k_pair 64, d = 128, equal to the
+    plain version on integer inputs."""
     from torchpq_tpu_torch import _build
     lib = _build.library()
     for d in (32, 40, 64, 128):
@@ -299,8 +302,12 @@ def test_tc_smem_matches_mirror(cuda):
                 want = bs.tc_route_smem(d=d, pack32=pack32, k_pair=k_pair)
                 assert lib.torchpq_block_scan_tc_smem(d, pack32, k_pair) \
                     == want
-                assert lib.torchpq_codes_scan_tc_smem(d, pack32, k_pair) \
-                    == want + 512 * d
+    for m, dsub in ((8, 4), (8, 5), (16, 4), (64, 2), (32, 4), (128, 1)):
+        for pack32 in (0, 1):
+            for k_pair in (1, 10, 16, 40, 48, 49, 52, 57, 64):
+                assert lib.torchpq_codes_scan_tc_smem(
+                    m, dsub, pack32, k_pair) == cs.tc_smem_bytes(
+                        m=m, dsub=dsub, pack32=pack32, k_pair=k_pair)
     for d in (32, 128, 160, 256, 288, 512, 1024):
         for pack32 in (0, 1):
             for k_pair in (1, 10, 16, 40, 48, 49, 64):
@@ -319,15 +326,20 @@ def test_tc_smem_matches_mirror(cuda):
         out.data_ptr(), 4, 128, 1024, 1024, 64, 1, 1, 1023, 512, 4,
         torch.cuda.current_stream().cuda_stream)
     assert rc == 1  # cudaErrorInvalidValue
-    cargs = cs.random_codes_inputs(cuda, s_eff=1024, n_blocks=4, nq=50,
-                                   m=64, dsub=2, cap_total=4096)
+    cargs = cs.integer_codes_inputs(cuda, s_eff=1024, n_blocks=4, nq=50,
+                                    m=64, dsub=2, cap_total=4096)
     rc = lib.torchpq_codes_scan_tc(
         *(t.data_ptr() for t in cargs[:6]), cargs[6].data_ptr(),
         cargs[7].data_ptr(), out.data_ptr(), 4, 128, 64, 2,
         cargs[6].shape[1] // 64, 1024, 64, 1, 1, 1023, 512, 4,
         torch.cuda.current_stream().cuda_stream)
-    assert rc == 1
+    assert rc == 0
     torch.cuda.synchronize()
+    ref = cs.codes_scan_ref(*cargs, s_eff=1024, k_pair=64, euclidean=True,
+                            pack32=True, slot_mask=1023)
+    live = cargs[1] >= 0
+    assert torch.equal(out[live], ref[live])
+    assert bool((out[~live] == torch.iinfo(torch.int32).min).all())
 
 
 @pytest.mark.gpu
@@ -604,13 +616,13 @@ def _assert_pads(got, ref, probers, route, k_pair, pack32):
 @pytest.mark.parametrize("pack32", [False, True])
 @pytest.mark.parametrize("m,dsub", [(64, 2), (8, 4), (128, 1), (32, 4)])
 @pytest.mark.parametrize("s_eff", [256, 1024, 8192])
-@pytest.mark.parametrize("k_pair", [10, 40])
+@pytest.mark.parametrize("k_pair", [10, 40, 52, 64])
 def test_codes_kernel_matches_plain(cuda, pack32, m, dsub, s_eff, k_pair):
     """g = 2 (d=128, PQ64), g = 16 (d=32, PQ8), g = 1 (d=128, PQ128) and
     g = 4 (d=128, 4-bit PQ64: 32 byte pairs over the byte-pair codebook)
-    on random inputs, through the kernel pick_route names (exact k_pair 40:
-    the CUDA-core one; pack32 k_pair 40 selects over 512 strided groups at
-    s_eff 1024 and 8192). Live rows: the tensor cores sum in another order
+    on random inputs, through the kernel pick_route names (exact k_pair 40
+    to 64: the CUDA-core one; pack32 k_pair 40 to 64 selects over 512
+    strided groups at s_eff 1024 and 8192, above 48 in the deep instance). Live rows: the tensor cores sum in another order
     than the plain version's GEMM (bf16 products are exact in f32), so
     exact values agree to 1e-3 relative and addresses and pack32 keys on
     >= 0.99 of entries; pad rows as _assert_pads."""
@@ -641,13 +653,15 @@ def test_codes_kernel_matches_plain(cuda, pack32, m, dsub, s_eff, k_pair):
 @pytest.mark.parametrize("m,dsub,s_eff", [(64, 2, 1024), (8, 4, 256),
                                           (128, 1, 512), (64, 2, 8192),
                                           (32, 4, 1024)])
-@pytest.mark.parametrize("k_pair,euclidean", [(10, True), (40, False)])
+@pytest.mark.parametrize("k_pair,euclidean", [(10, True), (40, False),
+                                              (52, True), (64, False)])
 def test_codes_tc_kernel_integer_ties_exact(cuda, pack32, m, dsub, s_eff,
                                             k_pair, euclidean):
     """Integer-valued inputs with runs of equal codes: every sum is exact
     in any order, so the tensor-core kernel equals the plain version bit
     for bit on live rows, keys, addresses and pack32 keys, ties included
-    (exact k_pair 40 runs on the CUDA-core kernel, equal there too)."""
+    (pack32 k_pair 52 and 64: the deep instance; exact k_pair 40 to 64 runs
+    on the CUDA-core kernel, equal there too)."""
     args = cs.integer_codes_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
                                    m=m, dsub=dsub,
                                    cap_total=max(8192, 2 * s_eff), seed=m)
@@ -665,14 +679,15 @@ def test_codes_tc_kernel_integer_ties_exact(cuda, pack32, m, dsub, s_eff,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("pack32,k_pair", [(False, 10), (False, 16),
-                                           (True, 10), (True, 40)])
+                                           (True, 10), (True, 40),
+                                           (True, 52), (True, 64)])
 @pytest.mark.parametrize("m,dsub,s_eff", [(64, 2, 1024), (8, 4, 256)])
 def test_codes_tc_kernel_persistent_grid(cuda, pack32, k_pair, m, dsub,
                                          s_eff):
     """A grid of 3 persistent CTAs over 64 blocks: each CTA walks ~21
     blocks, so the state it resets between blocks (live-tile rows, the
     pack32 phase parity of deep G = 512, the exact lists and queues, the
-    A fragments) is reused. Integer inputs: live rows equal the plain
+    A fragments; the deep instance's codes ring and one tile) is reused. Integer inputs: live rows equal the plain
     version bit for bit, pad rows dead."""
     from torchpq_tpu_torch import _build
     args = cs.integer_codes_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
@@ -694,11 +709,14 @@ def test_codes_tc_kernel_persistent_grid(cuda, pack32, k_pair, m, dsub,
 def test_codes_routes_on_card(cuda):
     """Exact k_pair > 16 and rows wider than 128 take the CUDA-core kernel,
     counted under its own key; asking the tensor-core route for them
-    raises."""
+    raises. pack32 k_pair 52 at d = 128 takes the deep tensor-core
+    instance, k_pair 64 at d = 160 the CUDA cores."""
     from torchpq_tpu_torch import _build
     for m, dsub, k_pair, route in ((64, 2, 20, "exact"),
                                    (32, 5, 10, "exact"),
-                                   (64, 2, 20, "tc_pack32")):
+                                   (64, 2, 20, "tc_pack32"),
+                                   (64, 2, 52, "tc_pack32"),
+                                   (32, 5, 64, "pack32")):
         pack32 = route.endswith("pack32")
         args = cs.random_codes_inputs(cuda, s_eff=512, n_blocks=16, nq=300,
                                       m=m, dsub=dsub, cap_total=8192)

@@ -49,6 +49,28 @@
 //   k_pair keys): 197,664 B exact and 154,656 B pack32 at k_pair 10, one
 //   CTA of 8 warps per SM. Registers: the body's, plus 16 of prefetched
 //   codes.
+//
+// The deep instance (pack32 k_pair 49-64: the IVFPQR code domain's base
+// scan at k' = 400, k_pair 52 / 64): the phase ends sort the group maxima
+// (scan_tc.cuh:sort_slice) rather than extract them pass by pass, as the
+// rows sources' deep instance does. Two tiles, the codebook and the deep
+// lists do not fit (237,600 B at k_pair 64, d = 128), and the sort leaves
+// no registers for the prefetched codes (the codes instance sits at 251
+// on passes, the rows source's sorted one at 252). So its CodesSource<true>
+// copies each tile's raw codes by cp.async into a ring of shared memory
+// [TN][m] (8 KB at m = 64) while the warps score, and the body keeps one
+// decoded tile (scan_tc.cuh's ONE_TILE): a __syncthreads once the warps
+// are done with the tile, then the decode from the ring into it. Each
+// thread decodes the very 8-byte chunks it copied, so its own cp.async
+// wait makes them visible, and one ring serves: the land that reads it
+// precedes the stage's closing barrier, the next fetch follows it. Budget
+// at d = 128, k_pair 64: 65,536 B codebook + 8,192 B ring (16,384 at m =
+// 128, dsub 1) + 34,816 B tile + 2,048 B penalties and slots + 544 B
+// prober rows and tile flags + 33,280 B slice lists + 66,560 B running
+// lists = 210,976 B (219,168 at m = 128), one CTA of 8 warps per SM. What
+// bounds it is the rows instance's deep select (the sort and the serial
+// merge of the lists, ~half a deep scan) plus the decode, now behind a
+// barrier instead of beside the scoring.
 
 #include <cstdint>
 
@@ -61,12 +83,20 @@ using namespace tpq::tc;
 
 constexpr int MAX_CHUNKS = TN * 128 / 8 / THREADS;  // 8-byte code chunks
                                                     // per thread (m <= 128)
+constexpr int DEEP_PACK_K = 48;  // pack32 k_pair above it: the deep instance
 
-// Shared memory: the codebook [256 * d] bf16, then the body's.
-__host__ __device__ inline size_t tc_smem_bytes(int d, int pack32,
+__host__ __device__ inline bool deep_instance(int pack32, int k_pair) {
+  return pack32 && k_pair > DEEP_PACK_K;
+}
+
+// Shared memory: the codebook [256 * d] bf16, (the deep instance) the raw
+// codes' ring [TN][m], then the body's (the deep instance: one tile).
+__host__ __device__ inline size_t tc_smem_bytes(int m, int dsub, int pack32,
                                                 int k_pair) {
-  return (size_t)512 * d + body_smem_bytes(2 * d, pack32, k_pair, false,
-                                           false);
+  const bool deep = deep_instance(pack32, k_pair);
+  const int d = m * dsub;
+  return (size_t)512 * d + (deep ? (size_t)TN * m : 0) +
+         body_smem_bytes(2 * d, pack32, k_pair, false, false, deep);
 }
 
 // The column -> slot map of the packed codes (see the note above), without
@@ -109,30 +139,59 @@ __device__ __forceinline__ uint32_t code_byte(uint2 raw, int b) {
 // codebook. One thread's share of a tile's inputs is read from global
 // memory before the tile is needed (fetch) and written to shared memory
 // after (land): its code chunks, and (threads < TN) one column's penalty
-// and slot.
+// and slot. RING: the code chunks are copied into the ring [TN][m] of
+// shared memory (cp.async) instead of registers, and the body keeps one
+// tile (see the note above).
+template <bool RING>
 struct CodesSource {
+  static constexpr bool ONE_TILE = RING;
   const unsigned char* __restrict__ codes;
   const float* __restrict__ penalty;
-  const __nv_bfloat16* cb_s;  // the staged codebook
+  const __nv_bfloat16* cb_s;  // the staged codebook (RING: then the ring)
   int m, dsub, lc, s_rows, g, ld;
   float inv;
-  uint2 raw[MAX_CHUNKS];
+  uint2 raw[RING ? 1 : MAX_CHUNKS];
   float pen;
   int slt;
+
+  // RING: the raw codes [TN][m] after the codebook. The deep instance's
+  // registers are full (the sort), so what its loops need is worked out
+  // where they run rather than kept, and they are not unrolled.
+  __device__ __forceinline__ unsigned char* ring() const {
+    return reinterpret_cast<unsigned char*>(
+        const_cast<__nv_bfloat16*>(cb_s) + 256 * m * dsub);
+  }
 
   __device__ __forceinline__ void fetch(int s0, int o0, int o1, int ts,
                                         int nrow, unsigned char*, int) {
     const int t = threadIdx.x;
-    const int items = (nrow + 1) / 2 * 2 << lc;
+    if constexpr (RING) {
+      const int lcr = 31 - __clz(m / 8);
+      const int items = (nrow + 1) / 2 * 2 << lcr;
+      unsigned char* rg = ring();
+#pragma unroll 1
+      for (int e = t; e < items; e += THREADS) {
+        int cl, ch;
+        chunk_item(e, lcr, cl, ch);
+        if (cl < nrow) {
+          const int j = col_slot(ts + cl, s_rows, g, inv);
+          cp_async8(rg + cl * m + 8 * ch,
+                    codes + ((size_t)s0 + j) * m + 8 * ch);
+        }
+      }
+      cp_async_commit();
+    } else {
+      const int items = (nrow + 1) / 2 * 2 << lc;
 #pragma unroll
-    for (int r = 0; r < MAX_CHUNKS; ++r) {
-      const int e = t + r * THREADS;
-      int cl, ch;
-      chunk_item(e, lc, cl, ch);
-      if (e < items && cl < nrow) {
-        const int j = col_slot(ts + cl, s_rows, g, inv);
-        raw[r] = __ldg(reinterpret_cast<const uint2*>(
-            codes + ((size_t)s0 + j) * m + 8 * ch));
+      for (int r = 0; r < MAX_CHUNKS; ++r) {
+        const int e = t + r * THREADS;
+        int cl, ch;
+        chunk_item(e, lc, cl, ch);
+        if (e < items && cl < nrow) {
+          const int j = col_slot(ts + cl, s_rows, g, inv);
+          raw[r] = __ldg(reinterpret_cast<const uint2*>(
+              codes + ((size_t)s0 + j) * m + 8 * ch));
+        }
       }
     }
     if (t < TN) {
@@ -146,58 +205,79 @@ struct CodesSource {
     }
   }
 
-  // Decode into tile [TN][ld] and the tile's penalties and slots.
+  // Chunk ch (8 codes) of column cl, decoded into tile [TN][ldt].
+  __device__ __forceinline__ void decode(uint2 raw_c, int cl, int ch,
+                                         __nv_bfloat16* tile, int ldt) const {
+    const int i0 = 8 * ch;  // first subspace of the chunk
+    __nv_bfloat16* dst = tile + cl * ldt + i0 * dsub;
+    if (dsub == 2) {  // a codeword is one 4-byte word
+      const uint32_t* cb = reinterpret_cast<const uint32_t*>(cb_s) + i0 * 256;
+      uint32_t w[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) w[b] = cb[b * 256 + code_byte(raw_c, b)];
+      uint4* d16 = reinterpret_cast<uint4*>(dst);
+      d16[0] = make_uint4(w[0], w[1], w[2], w[3]);
+      d16[1] = make_uint4(w[4], w[5], w[6], w[7]);
+    } else if (dsub == 1) {  // two codewords per word
+      const unsigned short* cb =
+          reinterpret_cast<const unsigned short*>(cb_s) + i0 * 256;
+      uint32_t h[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) h[b] = cb[b * 256 + code_byte(raw_c, b)];
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16,
+                     h[4] | h[5] << 16, h[6] | h[7] << 16);
+    } else if (dsub == 4) {  // a codeword is 8 bytes
+      const uint2* cb = reinterpret_cast<const uint2*>(cb_s) + i0 * 256;
+      uint2 w[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) w[b] = cb[b * 256 + code_byte(raw_c, b)];
+      uint4* d16 = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        d16[k] = make_uint4(w[2 * k].x, w[2 * k].y, w[2 * k + 1].x,
+                            w[2 * k + 1].y);
+      }
+    } else {
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        const __nv_bfloat16* src =
+            cb_s + ((i0 + b) * 256 + code_byte(raw_c, b)) * dsub;
+        for (int u = 0; u < dsub; ++u) dst[b * dsub + u] = src[u];
+      }
+    }
+  }
+
+  // Decode into tile [TN][ld] and the tile's penalties and slots (RING:
+  // from the ring, once this thread's own copies have landed: each thread
+  // decodes the chunks it copied).
   __device__ __forceinline__ void land(int, int nrow, unsigned char* tile_b,
                                        float* pen_s, int* slot_s,
                                        float*) const {
     __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(tile_b);
     const int t = threadIdx.x;
-    const int items = (nrow + 1) / 2 * 2 << lc;
-#pragma unroll
-    for (int r = 0; r < MAX_CHUNKS; ++r) {
-      const int e = t + r * THREADS;
-      int cl, ch;
-      chunk_item(e, lc, cl, ch);
-      if (e < items && cl < nrow) {
-        const int i0 = 8 * ch;  // first subspace of the chunk
-        __nv_bfloat16* dst = tile + cl * ld + i0 * dsub;
-        if (dsub == 2) {  // a codeword is one 4-byte word
-          const uint32_t* cb =
-              reinterpret_cast<const uint32_t*>(cb_s) + i0 * 256;
-          uint32_t w[8];
-#pragma unroll
-          for (int b = 0; b < 8; ++b) w[b] = cb[b * 256 + code_byte(raw[r], b)];
-          uint4* d16 = reinterpret_cast<uint4*>(dst);
-          d16[0] = make_uint4(w[0], w[1], w[2], w[3]);
-          d16[1] = make_uint4(w[4], w[5], w[6], w[7]);
-        } else if (dsub == 1) {  // two codewords per word
-          const unsigned short* cb =
-              reinterpret_cast<const unsigned short*>(cb_s) + i0 * 256;
-          uint32_t h[8];
-#pragma unroll
-          for (int b = 0; b < 8; ++b) h[b] = cb[b * 256 + code_byte(raw[r], b)];
-          *reinterpret_cast<uint4*>(dst) =
-              make_uint4(h[0] | h[1] << 16, h[2] | h[3] << 16,
-                         h[4] | h[5] << 16, h[6] | h[7] << 16);
-        } else if (dsub == 4) {  // a codeword is 8 bytes
-          const uint2* cb = reinterpret_cast<const uint2*>(cb_s) + i0 * 256;
-          uint2 w[8];
-#pragma unroll
-          for (int b = 0; b < 8; ++b) w[b] = cb[b * 256 + code_byte(raw[r], b)];
-          uint4* d16 = reinterpret_cast<uint4*>(dst);
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            d16[k] = make_uint4(w[2 * k].x, w[2 * k].y, w[2 * k + 1].x,
-                                w[2 * k + 1].y);
-          }
-        } else {
-#pragma unroll
-          for (int b = 0; b < 8; ++b) {
-            const __nv_bfloat16* src =
-                cb_s + ((i0 + b) * 256 + code_byte(raw[r], b)) * dsub;
-            for (int u = 0; u < dsub; ++u) dst[b * dsub + u] = src[u];
-          }
+    if constexpr (RING) {
+      const int lcr = 31 - __clz(m / 8);
+      const int items = (nrow + 1) / 2 * 2 << lcr;
+      const unsigned char* rg = ring();
+      cp_async_wait<0>();
+#pragma unroll 1
+      for (int e = t; e < items; e += THREADS) {
+        int cl, ch;
+        chunk_item(e, lcr, cl, ch);
+        if (cl < nrow) {
+          decode(*reinterpret_cast<const uint2*>(rg + cl * m + 8 * ch), cl,
+                 ch, tile, row_ld(2 * m * dsub, false) / 2);
         }
+      }
+    } else {
+      const int items = (nrow + 1) / 2 * 2 << lc;
+#pragma unroll
+      for (int r = 0; r < MAX_CHUNKS; ++r) {
+        const int e = t + r * THREADS;
+        int cl, ch;
+        chunk_item(e, lc, cl, ch);
+        if (e < items && cl < nrow) decode(raw[r], cl, ch, tile, ld);
       }
     }
     if (t < TN) {
@@ -221,6 +301,7 @@ __global__ void __launch_bounds__(THREADS, 1) codes_scan_tc_kernel(
     int n_blocks, int p_tile, int m, int dsub, int g, int s_eff, int k_pair,
     float factor, int slot_mask, int n_groups) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr bool RING = PACK && KMAX > PASS_K;  // the deep instance
   const int d = m * dsub;
   __nv_bfloat16* cb_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   // the codebook, 16 bytes per thread step (256 * d * 2 bytes); the body's
@@ -231,7 +312,7 @@ __global__ void __launch_bounds__(THREADS, 1) codes_scan_tc_kernel(
     for (int i = threadIdx.x; i < 32 * d; i += THREADS) dst[i] = src[i];
   }
   const int s_rows = s_eff / g;
-  CodesSource src;
+  CodesSource<RING> src;
   src.codes = codes;
   src.penalty = penalty;
   src.cb_s = cb_s;
@@ -243,16 +324,16 @@ __global__ void __launch_bounds__(THREADS, 1) codes_scan_tc_kernel(
   src.ld = row_ld(2 * d, false) / 2;
   src.inv = 1.0f / (float)s_rows;
   scan_blocks<Bf16, PACK, KMAX, false>(
-      src, smem_raw + (size_t)512 * d,
+      src, smem_raw + (size_t)512 * d + (RING ? TN * m : 0),
       reinterpret_cast<const unsigned char*>(qtable), nullptr, probers,
       start_c, off, capb, out, n_blocks, p_tile, 2 * d, s_eff, k_pair,
       factor, slot_mask, n_groups);
 }
 
 template <bool PACK, int KMAX>
-int occupancy_of(int d, int k_pair) {
+int occupancy_of(int m, int dsub, int k_pair) {
   return occupancy(codes_scan_tc_kernel<PACK, KMAX>,
-                   tc_smem_bytes(d, PACK, k_pair));
+                   tc_smem_bytes(m, dsub, PACK, k_pair));
 }
 
 }  // namespace
@@ -263,8 +344,8 @@ int occupancy_of(int d, int k_pair) {
 // codes the packed uint8 storage (capacity * m bytes, m a power of two
 // from 8 to 128, 8-byte aligned), codebook [m, 256, dsub] bf16 (16-byte aligned), d =
 // m * dsub <= 128, out int32; exact: k_pair <= 16; pack32: k_pair <= 64
-// where the shared memory with the codebook fits (at d = 128: k_pair <= 61;
-// ops/codes_scan.py sends it k_pair <= 48) and n_groups % 8 == 0, either
+// (above 48 the deep instance: 210,976 B at d = 128, m = 64) and
+// n_groups % 8 == 0, either
 // n_groups == s_eff <= 128, or n_groups == 128 with s_eff % 128 == 0, or
 // n_groups a multiple of 128 that divides s_eff. n_ctas: the persistent
 // grid (at most n_blocks). Returns 0 or the CUDA error code of an attribute
@@ -279,7 +360,7 @@ extern "C" int torchpq_codes_scan_tc(
     int euclidean, int pack32, int slot_mask, int n_groups, int n_ctas,
     void* stream) {
   const int d = m * dsub;
-  const size_t smem = tc_smem_bytes(d, pack32, k_pair);
+  const size_t smem = tc_smem_bytes(m, dsub, pack32, k_pair);
   if (!shape_ok(n_blocks, n_ctas, p_tile, 2 * d, MAX_ROW, s_eff, k_pair,
                 pack32, n_groups) ||
       smem > SMEM_LIMIT || m < 8 || (m & (m - 1)) || m > 128 || dsub <= 0 ||
@@ -295,6 +376,10 @@ extern "C" int torchpq_codes_scan_tc(
       penalty, codes, static_cast<const __nv_bfloat16*>(codebook), out,    \
       n_blocks, p_tile, m, dsub, g, s_eff, k_pair, factor, slot_mask,      \
       n_groups
+  if (deep_instance(pack32, k_pair)) {  // sorted, one tile, the codes ring
+    return launch_kernel(codes_scan_tc_kernel<true, MAX_PACK_K>,
+                         dim3(n_ctas), THREADS, smem, st, TPQ_ARGS);
+  }
   if (pack32) {
     return launch_kernel(codes_scan_tc_kernel<true, PASS_K>, dim3(n_ctas),
                          THREADS, smem, st, TPQ_ARGS);
@@ -308,17 +393,21 @@ extern "C" int torchpq_codes_scan_tc(
 #undef TPQ_ARGS
 }
 
-// Dynamic shared memory of one CTA at width d.
-extern "C" long long torchpq_codes_scan_tc_smem(int d, int pack32,
+// Dynamic shared memory of one CTA of the instance that serves these
+// shapes (d = m * dsub).
+extern "C" long long torchpq_codes_scan_tc_smem(int m, int dsub, int pack32,
                                                int k_pair) {
-  return (long long)tc_smem_bytes(d, pack32, k_pair);
+  return (long long)tc_smem_bytes(m, dsub, pack32, k_pair);
 }
 
 // CTAs one SM holds at once (registers and shared memory permitting), or
 // minus the CUDA error code.
-extern "C" int torchpq_codes_scan_tc_occupancy(int d, int pack32,
+extern "C" int torchpq_codes_scan_tc_occupancy(int m, int dsub, int pack32,
                                                int k_pair) {
-  if (pack32) return occupancy_of<true, PASS_K>(d, k_pair);
-  return k_pair <= 10 ? occupancy_of<false, 10>(d, k_pair)
-                      : occupancy_of<false, 16>(d, k_pair);
+  if (deep_instance(pack32, k_pair)) {
+    return occupancy_of<true, MAX_PACK_K>(m, dsub, k_pair);
+  }
+  if (pack32) return occupancy_of<true, PASS_K>(m, dsub, k_pair);
+  return k_pair <= 10 ? occupancy_of<false, 10>(m, dsub, k_pair)
+                      : occupancy_of<false, 16>(m, dsub, k_pair);
 }

@@ -53,6 +53,13 @@
 //   __syncthreads per stage. A block's last stage brings the CTA's next
 //   block's first one and this thread's prober of it, so a block waits at
 //   its start only for its window's bounds and its A fragments.
+// - One tile (a source whose ONE_TILE is true: the deep codes instance,
+//   whose codebook leaves no room for a second decoded tile beside the
+//   deep lists): the source keeps the next stage's raw inputs in shared
+//   memory of its own while the warps score the one tile, then a
+//   __syncthreads (the warps are done with the tile; at a pack32 phase
+//   end the select's own barrier serves), then land() writes the tile:
+//   two __syncthreads per stage, the land no longer overlapped by scoring.
 // - The merges of the slices' lists (one thread per live row) keep their
 //   list heads in registers (loops over the 8 slices unrolled), so the
 //   loads of a step issue together.
@@ -98,6 +105,7 @@
 //   allows (read -Xptxas -v for spills and stack frames).
 //
 // A tile source is a struct with
+//   ONE_TILE: whether the body keeps one tile (see above) or two;
 //   fetch(s0, o0, o1, ts, nrow, tile, kc): start bringing k chunk kc
 //       (CHUNKED; else the whole row) of window columns [ts, ts + nrow) of
 //       the block whose window starts at slot s0 (its cell's slots [o0, o1)
@@ -194,8 +202,9 @@ __host__ __device__ inline int list_ld(int k_pair, int pack32) {
   return pack32 ? (k_pair | 1) : k_pair;
 }
 
-// Shared memory of the body: tiles [2][TN][row_ld] bytes (chunked: and the
-// query rows' chunks [2][MAX_PT][row_ld]), penalties [2][TN] f32, slots
+// Shared memory of the body: tiles [2][TN][row_ld] bytes (one_tile:
+// [1][TN][row_ld]; chunked: and the query rows' chunks
+// [2][MAX_PT][row_ld]), penalties [2][TN] f32, slots
 // [2][TN], (scaled) column scales [2][TN] f32, prober rows [MAX_PT], tile
 // flags [MAX_PT / 16], slice lists [WARPS][16][list_ld] (exact: values and
 // columns; pack32: keys), then exact: score staging rows [WARPS][16][SLD]
@@ -204,9 +213,11 @@ __host__ __device__ inline int list_ld(int k_pair, int pack32) {
 // multiple of 16 bytes (rb % 16 == 0).
 __host__ __device__ inline size_t body_smem_bytes(int rb, int pack32,
                                                   int k_pair, bool scaled,
-                                                  bool chunked) {
+                                                  bool chunked,
+                                                  bool one_tile = false) {
   const size_t kls = list_ld(k_pair, pack32);
-  return (size_t)2 * TN * row_ld(rb, chunked) * (chunked ? 2 : 1) +
+  return (size_t)(one_tile ? 1 : 2) * TN * row_ld(rb, chunked) *
+             (chunked ? 2 : 1) +
          (size_t)16 * TN + (scaled ? (size_t)8 * TN : 0) + 4 * MAX_PT +
          4 * (MAX_PT / 16) + (size_t)WARPS * 16 * kls * (pack32 ? 4 : 8) +
          (pack32 ? (size_t)2 * MAX_PT * kls * 4
@@ -220,9 +231,9 @@ __host__ __device__ inline size_t body_smem_bytes(int rb, int pack32,
 // s_eff <= TN, or G a multiple of TN that divides s_eff. The entry points
 // also refuse a shared memory above SMEM_LIMIT: the pack32 lists take
 // 1,536 bytes per entry of their row stride, so k_pair 64 fits the rows
-// sources (bf16 d <= 128: 172,064 B; int8 d <= 256: 173,088 B) but not the
-// chunked int8 one (242,720 B) nor the codes one with its codebook
-// (237,600 B).
+// sources (bf16 d <= 128: 172,064 B; int8 d <= 256: 173,088 B) and the
+// codes one with its codebook in one tile (d <= 128: at most 219,168 B),
+// but not the chunked int8 one (242,720 B).
 __host__ inline bool shape_ok(int n_blocks, int n_ctas, int p_tile, int rb,
                               int max_rb, int s_eff, int k_pair, int pack32,
                               int n_groups) {
@@ -527,12 +538,14 @@ __device__ __forceinline__ void scan_blocks(
   const int width = PACK ? k_pair : 2 * k_pair;  // output ints per row
   const int kls = list_ld(k_pair, PACK);  // the lists' row stride
   constexpr bool SORT = PACK && KMAX > PASS_K;  // deep pack32: sort_slice
+  constexpr bool ONE = Source::ONE_TILE;  // one tile, landed after a barrier
   // the prober whose row this thread reads (chunked: every thread copies
   // a half of row t % MAX_PT; else threads t < MAX_PT own row t)
   const int prow_t = CHUNKED ? t % MAX_PT : t;
 
-  unsigned char* tiles = smem;  // [2][TN][ld]
-  unsigned char* a_ring = tiles + 2 * TN * ld;  // chunked: [2][MAX_PT][ld]
+  unsigned char* tiles = smem;  // [2][TN][ld] (ONE: [1][TN][ld])
+  unsigned char* a_ring =
+      tiles + (ONE ? 1 : 2) * TN * ld;  // chunked: [2][MAX_PT][ld]
   float* pen_s = reinterpret_cast<float*>(
       a_ring + (CHUNKED ? 2 * MAX_PT * ld : 0));  // [2][TN]
   int* slot_s = reinterpret_cast<int*>(pen_s + 2 * TN);          // [2][TN]
@@ -548,10 +561,10 @@ __device__ __forceinline__ void scan_blocks(
   float* qv_s = stage_s + WARPS * 16 * (SLD + 1);  // exact [QUEUE][THREADS]
   int* qc_s = reinterpret_cast<int*>(qv_s + QUEUE * THREADS);
 
-  // narrow: the K padding of both tiles (16 bytes or none), zero once (the
+  // narrow: the K padding of the tiles (16 bytes or none), zero once (the
   // sources write [0, rb)); chunked rows pad A instead (copy_a_chunk)
   if (!CHUNKED && round32(rb) > rb) {
-    for (int i = t; i < 2 * TN; i += THREADS) {
+    for (int i = t; i < (ONE ? 1 : 2) * TN; i += THREADS) {
       *reinterpret_cast<uint4*>(tiles + i * ld + rb) = make_uint4(0, 0, 0, 0);
     }
   }
@@ -705,7 +718,7 @@ __device__ __forceinline__ void scan_blocks(
                          ld);
           }
           src.fetch(s0, o0, o1, tn, min(TN, s_eff - tn),
-                    tiles + (buf ^ 1) * TN * ld, kn);
+                    tiles + (ONE ? 0 : (buf ^ 1) * TN * ld), kn);
         } else if (ahead) {
           npr = prow_t < p_tile ? probers[(size_t)nb * p_tile + prow_t] : -1;
           if constexpr (CHUNKED) {
@@ -713,10 +726,11 @@ __device__ __forceinline__ void scan_blocks(
                          ld);
           }
           src.fetch(start_c[nb], off[nb], off[nb] + capb[nb], 0,
-                    min(TN, s_eff), tiles + (buf ^ 1) * TN * ld, 0);
+                    min(TN, s_eff), tiles + (ONE ? 0 : (buf ^ 1) * TN * ld),
+                    0);
         }
         if (busy) {
-          const unsigned char* tile = tiles + buf * TN * ld;
+          const unsigned char* tile = tiles + (ONE ? 0 : buf * TN * ld);
           const unsigned char* arow =
               a_ring + buf * MAX_PT * ld + (16 * mt + ldm_a_row(lane)) * ld +
               2 * ldm_a_col(lane);
@@ -932,7 +946,13 @@ __device__ __forceinline__ void scan_blocks(
           }
         }
         if (ahead) {
-          src.land(tn, min(TN, s_eff - tn), tiles + (buf ^ 1) * TN * ld,
+          if constexpr (ONE) {
+            // the warps are done with the tile (a pack32 phase end's
+            // barrier has seen to it already)
+            if (!(PACK && last_k && (it + 1) % tpp == 0)) __syncthreads();
+          }
+          src.land(tn, min(TN, s_eff - tn),
+                   tiles + (ONE ? 0 : (buf ^ 1) * TN * ld),
                    pen_s + (buf ^ 1) * TN, slot_s + (buf ^ 1) * TN,
                    scale_s + (buf ^ 1) * TN);
         }
@@ -1038,6 +1058,7 @@ __device__ __forceinline__ void scan_blocks(
 // scales).
 template <bool SCALED>
 struct RowsSource {
+  static constexpr bool ONE_TILE = false;
   static constexpr int MAX_COPIES = TN * CHUNK / 16 / THREADS;  // per thread
   const unsigned char* __restrict__ rows;
   const float* __restrict__ penalty;

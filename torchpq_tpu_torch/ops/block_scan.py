@@ -419,12 +419,13 @@ def _cta_probers(smem, p_tile):
                      f"(p_tile={p_tile})")
 
 
-def tc_smem_bytes(rb, pack32, k_pair, scaled, chunked):
+def tc_smem_bytes(rb, pack32, k_pair, scaled, chunked, one_tile=False):
     """Dynamic shared memory of the tensor-core scans' body at rows of rb
     bytes: csrc/scan_tc.cuh:body_smem_bytes, term for term (the library's
     `*_smem` entry points report the same; a card test holds them equal),
     so that pick_route needs no library. Tiles [2][TN][row stride] bytes
-    (chunked: and the query rows' chunks), penalties and slots [2][TN],
+    (one_tile: [1][TN][row stride], the deep codes instance; chunked: and
+    the query rows' chunks), penalties and slots [2][TN],
     scales [2][TN] (scaled), prober rows and tile flags, the slice lists
     [WARPS][16][kls], then pack32: the running lists [2][MAX_PT][kls];
     exact: the staging rows, row bounds and queues. kls: the lists' row
@@ -435,7 +436,8 @@ def tc_smem_bytes(rb, pack32, k_pair, scaled, chunked):
     select = (2 * _TC_MAX_PT * kls * 4 if pack32 else
               _TC_WARPS * 16 * (_TC_SLD + 1) * 4 + _TC_QUEUE * 32 * _TC_WARPS
               * 8)
-    return (2 * _TC_TN * ld * (2 if chunked else 1) + 16 * _TC_TN
+    return ((1 if one_tile else 2) * _TC_TN * ld * (2 if chunked else 1)
+            + 16 * _TC_TN
             + (8 * _TC_TN if scaled else 0) + 4 * _TC_MAX_PT
             + 4 * (_TC_MAX_PT // 16) + lists + select)
 

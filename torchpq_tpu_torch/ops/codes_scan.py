@@ -8,9 +8,9 @@ its codes and norms). Two kernels serve it, chosen before launch by
 `pick_route`, each built by `_build.py`, bound through a plain C entry point
 and counted under its own key of `launches`:
   - "tc_exact" / "tc_pack32", `csrc/codes_scan_tc.cu`: rows of d <= 128,
-    blocks of at most 128 probers, pack32 k_pair <= 48, on the tensor
-    cores (mma.sync bf16, f32 sums), scoring only the live 16-prober tiles
-    of a block;
+    blocks of at most 128 probers, pack32 k_pair <= 64 where its shared
+    memory fits (`tc_smem_bytes`), on the tensor cores (mma.sync bf16, f32
+    sums), scoring only the live 16-prober tiles of a block;
   - "exact" / "pack32", `csrc/codes_scan.cu`: the rest, on the CUDA cores
     (f32 FMAs).
 
@@ -47,7 +47,8 @@ import torch
 from .. import util
 from .block_scan import (BIG, n_groups, random_inputs, resident_ctas,
                          select_chunks, select_exact, select_pack32,
-                         tc_shapes_ok, window_scores, _SMEM_LIMIT)
+                         tc_shapes_ok, window_scores, _SMEM_LIMIT, _TC_TN)
+from .block_scan import tc_smem_bytes as body_smem_bytes
 
 # The JAX package's bound on the resident [m*256, d_pad] bf16 decode matrix
 # (pallas_codes_scan.py:PALLAS_BDIAG_VMEM_BYTES). It is a TPU VMEM budget,
@@ -56,12 +57,11 @@ from .block_scan import (BIG, n_groups, random_inputs, resident_ctas,
 # line so both packages take the same numerics at every shape.
 CODEBOOK_BOUND_BYTES = 9 * 1024 * 1024
 
-# The pack32 k_pair the tensor-core codes scan is sent. The shared body
-# takes 64, but with the 512 * d-byte codebook staged beside it the shared
-# memory fits only up to k_pair 61 at d = 128 (237,600 B at 64; 213,024 B
-# at 48), and no code-domain plan has run k_pair 49-61 on the card: those
-# stay on codes_scan.cu.
-_TC_MAX_PACK_K = 48
+# The pack32 k_pair above which the tensor-core codes scan runs its deep
+# instance (csrc/codes_scan_tc.cu:DEEP_PACK_K): sorted phase ends, one
+# decoded tile and a ring of raw codes, since two tiles beside the
+# codebook and the lists at k_pair 64 take 237,600 B at d = 128.
+_TC_DEEP_PACK_K = 48
 
 # kernel launches per route and select, counted by `codes_scan` where it
 # launches ("tc_*": the tensor-core kernel; the others: the CUDA-core one)
@@ -228,6 +228,21 @@ def _check(qtable, probers, start_c, off, cap, penalty, codes, codebook,
         raise ValueError("slot_mask must be next_pow2(s_eff) - 1")
 
 
+def tc_smem_bytes(*, m, dsub, pack32, k_pair):
+    """Dynamic shared memory of the tensor-core codes kernel instance that
+    serves these shapes: csrc/codes_scan_tc.cu:tc_smem_bytes, term for term
+    (the library's torchpq_codes_scan_tc_smem reports the same; a card test
+    holds them equal), so that pick_route needs no library. The codebook
+    [256 * d] bf16; above pack32 k_pair 48 (the deep instance) the raw
+    codes' ring [TN][m] and the body with one tile; then the body's
+    (block_scan.tc_smem_bytes at rows of 2 * d bytes)."""
+    d = m * dsub
+    deep = bool(pack32) and k_pair > _TC_DEEP_PACK_K
+    return (512 * d + (_TC_TN * m if deep else 0)
+            + body_smem_bytes(2 * d, pack32, k_pair, False, False,
+                              one_tile=deep))
+
+
 def _cta_probers(lib, p_tile, d, pack32, groups):
     """Probers per CTA: the most (of 128/64/32) whose shared memory fits."""
     for pt in (128, 64, 32):
@@ -244,14 +259,16 @@ def pick_route(*, m, dsub, p_tile, s_eff, k_pair, pack32):
     in `launches`:
       - "tc_exact" / "tc_pack32" (`csrc/codes_scan_tc.cu`, tensor cores):
         m a power of two (the packed storage's, g*m = 128) and d = m*dsub
-        at the shapes of `block_scan.tc_shapes_ok`, pack32 only up to
-        k_pair 48 (this module's _TC_MAX_PACK_K: the rows sources take
-        64);
+        at the shapes of `block_scan.tc_shapes_ok` (pack32 k_pair <= 64),
+        where the instance's shared memory (`tc_smem_bytes`: the codebook
+        beside the body) fits;
       - "exact" / "pack32" (`csrc/codes_scan.cu`, CUDA cores): the rest
-        (exact k_pair > 16, pack32 k_pair > 48, rows wider than 128, other
-        blocks or groups)."""
+        (exact k_pair > 16, rows wider than 128, other blocks or groups,
+        a shared memory above the limit)."""
     mode = "pack32" if pack32 else "exact"
-    tc = (m & (m - 1) == 0 and not (pack32 and k_pair > _TC_MAX_PACK_K)
+    tc = (m & (m - 1) == 0
+          and tc_smem_bytes(m=m, dsub=dsub, pack32=pack32,
+                            k_pair=k_pair) <= _SMEM_LIMIT
           and tc_shapes_ok(d=m * dsub, p_tile=p_tile, s_eff=s_eff,
                            k_pair=k_pair, pack32=pack32))
     return ("tc_" if tc else "") + mode
@@ -327,13 +344,14 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty, codes,
                 f"the tensor-core codes scan does not take d={d}, "
                 f"p_tile={p_tile}, s_eff={s_eff}, k_pair={k_pair}, "
                 f"pack32={pack32}")
-        if lib.torchpq_codes_scan_tc_smem(d, int(pack32), k_pair) \
+        if lib.torchpq_codes_scan_tc_smem(m, dsub, int(pack32), k_pair) \
                 > _SMEM_LIMIT:
             raise ValueError(f"codes_scan_tc: shared memory exceeds the "
-                             f"limit at d={d}, k_pair={k_pair}")
+                             f"limit at m={m}, dsub={dsub}, k_pair={k_pair}")
         if n_ctas is None:
             n_ctas = resident_ctas(lib, "torchpq_codes_scan_tc_occupancy",
-                                   codes.device, d, int(pack32), k_pair)
+                                   codes.device, m, dsub, int(pack32),
+                                   k_pair)
         rc = lib.torchpq_codes_scan_tc(*args, min(n_ctas, b),
                                        ctypes.c_void_p(stream))
     else:
