@@ -14,8 +14,10 @@ Phases, each of which fails the run on error:
      bf16), both selects, live rows within tolerance and pad rows dead,
      with CUDA-event times of each, and bit for bit on integer-valued
      inputs with ties (d 128 at s_eff 640, pack32 also at k_pair 40 over
-     512 strided groups, 64 over 512 and 57 over 256, and d 40 at s_eff
-     200, euclidean and inner); on
+     512 strided groups, 64 over 512 and 57 over 256, d 40 at s_eff 200,
+     and d 1024 (256-byte k chunks) at s_eff 2048, exact and pack32 k_pair
+     10 and pack32 k_pair 64 over 512 groups (the one-list instance),
+     euclidean and inner); on
      each of those inputs the CUDA-core block-scan kernel too, every row;
      then the f32-cache kernel (CUDA cores);
      then the tensor-core codes-scan kernel against `codes_scan_ref` (PQ64
@@ -31,8 +33,9 @@ Phases, each of which fails the run on error:
      tensor-core int8 kernel, A in registers at 128 and 256-byte k chunks
      at 1024, on live rows with pad rows dead; the CUDA-core one on every
      row), both selects, bit for bit on random inputs and on
-     `int8_tie_inputs` (equal rows, exact ties; at d 128 also pack32
-     k_pair 64 over 512 groups); the flat scan's
+     `int8_tie_inputs` (equal rows, exact ties; pack32 k_pair 64 over 512
+     groups at d 128 and, on the one-list instance, at d 1024); the flat
+     scan's
      two kernels (tensor cores, CUDA cores) against `flat_scan_ref` (cap
      262,144, 1,024 queries, the glue's head k=10 addresses equal outside
      ties), the tensor-core one also at d 1024 and at r_keep 32 (values
@@ -182,6 +185,23 @@ Phases, each of which fails the run on error:
      non-decreasing in n_probe within 0.005, the flat plan within 0.02 of
      an exact f32 sweep over the same PQ-decoded rows; then both int8
      kernels on the phase's own arguments, as in phase 8 (fewer repeats).
+     Then the JAX package's two GIST records at their settings
+     (ivf4096_pq64_gist1m_class_r3.json, bf16 cache, and
+     ivf4096_pq64_gist1m_int8_r5.json, int8 cache) on the same trained
+     codecs: the same adds into each tier with spill 8 cells at 2 x n /
+     n_cells (512 slots), scan_group 4; per tier flat, pack32 n_probe 8 /
+     32 and exact n_probe 8 at k = 10, pack32 n_probe 8 / 32 at k = 100,
+     the block-scan counters zeroed before each set and read after (the
+     tensor-core keys only: chip_smoke fails if a CUDA-core key
+     launches); each pack32 plan's LAST_GATE at s_eff 2048 with k_pair 10
+     / 64; recall non-decreasing in n_probe (within 0.005), each flat plan
+     within 0.02 of the exact sweep over its tier's PQ-decoded rows, int8
+     within 0.005 of bf16 per k = 10 plan, recall@100 logged; the bf16
+     exact scan (n_probe 8) held to block_scan_ref within the tolerance and
+     its pack32 scans at k = 10 and k = 100 (k_pair 64 over 512 groups,
+     the one-list instance; n_probe 32) by key or slot as in phase 9, each
+     timed in turns with block_scan.cu; the int8 k = 100 scan bit for bit,
+     timed the same way; both tiers profiled.
  18. fused flat scan: the main index with scan_impl="pallas_flat" and
      approx top-k; the flat counters zeroed, the flat plan must launch the
      tensor-core flat kernel, agree with the exact flat plan on >= 0.98 of
@@ -243,7 +263,9 @@ Phases, each of which fails the run on error:
      kernel and plain ms, the bound from the inputs' own counts, the
      library call's ms where one PyTorch call computes the same; the int8
      block scan at both widths, the 1M x 128 tier's and the GIST-class
-     d = 1024 one's; the deep-k split's head and tail scans and the
+     d = 1024 one's, and the GIST records' bf16 exact, pack32 and pack32
+     k = 100 and int8 pack32 k = 100 scans at d_cache 1024; the deep-k
+     split's head and tail scans and the
      untapered plan's scan; the 4-bit tier's pack32 block scan and both
      codes scans, the residual tier's k = 100 pack32 block scan, the IVFPQR
      tiers' two block scans and two codes scans; each row's launches on
@@ -273,6 +295,14 @@ TOL_ABS = 1e-3
 # the deep tensor-core codes instance (pack32 k_pair 49-64), by the name
 # kernel_name gives its mangled one
 DEEP_CODES_KERNEL = "codes_scan_tc_kernelILb1ELi64E"
+# the instances whose ptxas report must show no spill and no stack frame:
+# the deep codes instance, the block scan's bf16 instances over k-chunked
+# rows (<PACK, KMAX, CHUNKED = true, ONE_LIST>: exact 10 / 16, pack32 pass
+# by pass, one running list) and its int8 one-list instance
+CHECKED_KERNELS = re.compile(
+    r"codes_scan_tc_kernelILb1ELi64E$|block_scan_tc_kernelI\w*Lb1ELb[01]E$"
+    r"|block_scan_tc_int8_kernelI\w*Lb1ELb1E$")
+N_CHECKED_KERNELS = 6
 
 # the card's data-sheet rates (H100 SXM, dense): HBM bytes/s and the
 # tensor-core peak of each operand type, for the kernels' bounds
@@ -636,13 +666,18 @@ def phase_kernels(torch, bs, cs, fs, gr):
                 "matches the plain version on every row)")
     # integer inputs with runs of equal rows: bit for bit, ties included
     # (d 40 pads K to 48; s_eff 200 ends in a ragged tile; pack32 k_pair 64
-    # over 512 groups and 57 over 256, the deep-k selects)
+    # over 512 groups and 57 over 256, the deep-k selects; d 1024, the
+    # GIST-class cache in 256-byte k chunks, at the records' k = 10 and
+    # k = 100 shapes, the latter on the one-list instance)
     for d, s_eff, k_pair, selects in ((128, 640, 10, (False, True)),
                                       (128, 2048, 40, (True,)),
                                       (128, 4096, 64, (True,)),
                                       (128, 512, 57, (True,)),
-                                      (40, 200, 16, (False,))):
-        args = bs.integer_block_inputs("cuda", s_eff=s_eff, n_blocks=1024,
+                                      (40, 200, 16, (False,)),
+                                      (1024, 2048, 10, (False, True)),
+                                      (1024, 2048, 64, (True,))):
+        args = bs.integer_block_inputs("cuda", s_eff=s_eff,
+                                       n_blocks=256 if d > 128 else 1024,
                                        nq=10000, d=d, cap_total=1 << 18,
                                        seed=d + k_pair)
         for pack32 in selects:
@@ -735,19 +770,22 @@ def phase_kernels(torch, bs, cs, fs, gr):
             f"tied neighbours in the exact lists); pad rows dead; the "
             f"CUDA-core kernel equal bit for bit on every row")
         del args
-    # pack32 k_pair 64 over 512 groups with A in registers (the chunked
-    # rows' shared memory holds 48)
-    args, scale, q_scale = bs.int8_tie_inputs(
-        "cuda", s_eff=1024, n_blocks=1024, nq=10000, d=128,
-        cap_total=1 << 18, seed=64)
-    for euclidean in (True, False):
-        check_kernel(torch, bs, args, s_eff=1024, k_pair=64, pack32=True,
-                     euclidean=euclidean, equal=True, reps=0,
-                     extra=dict(scale=scale, q_scale=q_scale))
-    log("block_scan_int8 (tensor cores) tie inputs d=128 s_eff=1024 pack32 "
-        "k_pair 64: live rows equal bit for bit, euclidean and inner; pad "
-        "rows dead; the CUDA-core kernel equal bit for bit on every row")
-    del args
+    # pack32 k_pair 64 over 512 groups with A in registers (d 128) and in
+    # k chunks (d 1024: the one-list instance)
+    for d in (128, 1024):
+        args, scale, q_scale = bs.int8_tie_inputs(
+            "cuda", s_eff=1024, n_blocks=1024 if d == 128 else 256,
+            nq=10000, d=d,
+            cap_total=1 << 18, seed=64)
+        for euclidean in (True, False):
+            check_kernel(torch, bs, args, s_eff=1024, k_pair=64, pack32=True,
+                         euclidean=euclidean, equal=True, reps=0,
+                         extra=dict(scale=scale, q_scale=q_scale))
+        log(f"block_scan_int8 (tensor cores) tie inputs d={d} s_eff=1024 "
+            f"pack32 k_pair 64: live rows equal bit for bit, euclidean and "
+            f"inner; pad rows dead; the CUDA-core kernel equal bit for bit "
+            f"on every row")
+        del args
     phase_flat_kernels(torch, fs)
     # the row gather: bit for bit, out-of-range indices clipped
     g = torch.Generator(device="cuda").manual_seed(9)
@@ -845,15 +883,19 @@ def capture_call(tp, index, xq, k, module=None, name="block_scan",
     return seen[0] if n_calls == 1 else seen
 
 
-def phase_main_shapes(torch, tp, bs, index, xq, k):
+def phase_main_shapes(torch, tp, bs, index, xq, k, label="main path",
+                      suffix="", plans=((8, False), (32, True)), reps=20,
+                      both=True):
     """The kernel against its plain version on the inputs the main path
     really gives it: the block-scan arguments of the exact n_probe=8 and
-    the pack32 n_probe=32 searches, each checked with both selects (the
+    the pack32 n_probe=32 searches (plans: (n_probe, approx) pairs), each
+    checked with both selects (both=False: the select the search ran) (the
     tensor-core kernel on live rows, pad rows dead; the CUDA-core one on
     every row); then the select the search ran timed on both kernels in
-    turns. Returns the kernels' JSON rows without their launch counts."""
+    turns (reps launches a turn). Returns the kernels' JSON rows (names +
+    suffix) without their launch counts."""
     rows = {}
-    for n_probe, approx in ((8, False), (32, True)):
+    for n_probe, approx in plans:
         index.scan_mode, index.n_probe = "cell_major", n_probe
         index.use_approx_topk = approx
         args, kw = capture_call(tp, index, xq, k)
@@ -862,17 +904,18 @@ def phase_main_shapes(torch, tp, bs, index, xq, k):
         live = int((args[1] >= 0).sum())
         live_tiles = int((args[1].view(blocks, -1, 16) >= 0).any(-1).sum())
         d = args[6].shape[1]
-        log(f"main path n_probe={n_probe} ({'pack32' if approx else 'exact'}"
+        log(f"{label} n_probe={n_probe} ({'pack32' if approx else 'exact'}"
             f"): {blocks} blocks x {p_tile} probers, {live} live "
             f"({live / (blocks * p_tile):.3f}), {live_tiles} live 16-prober "
             f"tiles of {blocks * p_tile // 16}, s_eff={s_eff}, "
             f"k_pair={k_pair}, d={d}")
-        for pack32 in (False, True):
+        for pack32 in ((False, True) if both else (approx,)):
             res = check_kernel(torch, bs, args, s_eff=s_eff, k_pair=k_pair,
                                pack32=pack32, euclidean=kw["euclidean"],
                                reps=0)
-            name = "block_scan_pack32" if pack32 else "block_scan_exact"
-            log(f"{name} (tensor cores) on the inputs of the n_probe="
+            name = ("block_scan_pack32" if pack32 else "block_scan_exact") \
+                + suffix
+            log(f"{name} (tensor cores) on the inputs of the {label} n_probe="
                 f"{n_probe} search: live rows max_abs_err {res[0]:.3g}"
                 + (f", key agreement {res[1]:.7f}" if pack32 else "")
                 + "; pad rows dead; the CUDA-core kernel matches the plain "
@@ -888,14 +931,15 @@ def phase_main_shapes(torch, tp, bs, index, xq, k):
                                                    **kkw),
                 "tensor_cores": lambda: block_launch(torch, bs, args,
                                                      "tc_" + mode, **kkw)},
-                20)
+                reps)
             ms, cc_ms = t["tensor_cores"], t["cuda_cores"]
             plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw),
                                3)
             b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=2 * d + 4,
                                     row_bytes=2 * d, peak="bf16", d=d)
             flop = 2.0 * s_eff * d
-            log(f"  {name} on the n_probe={n_probe} search's arguments: "
+            log(f"  {name} on the {label} n_probe={n_probe} search's "
+                f"arguments: "
                 f"tensor cores {ms:.3f} ms ("
                 f"{' / '.join(f'{x:.3f}' for x in turns['tensor_cores'])}; "
                 f"{flop * live / ms / 1e9:.2f} TFLOP/s over live probers, "
@@ -1220,7 +1264,8 @@ def codes_rows(torch, tp, bs, cs, code, xq, k, label, suffix=""):
                 torch, args, kkw, slot_bytes=m + 4, row_bytes=2 * d,
                 peak="bf16", d=d, extra_bytes=args[7].numel() * 2)
             flop = 2.0 * live * s_eff * d
-            log(f"  {name} on the n_probe={n_probe} search's arguments: "
+            log(f"  {name} on the {label} n_probe={n_probe} search's "
+                f"arguments: "
                 f"tensor cores {ms:.3f} ms ("
                 f"{' / '.join(f'{x:.3f}' for x in turns['tensor_cores'])}; "
                 f"{flop / ms / 1e9:.2f} TFLOP/s over live probers, "
@@ -1382,18 +1427,6 @@ def int8_kernel_rows(torch, tp, bs, index, xq, k, label, suffix="",
     return rows
 
 
-def require_int8_keys(counts, what):
-    """The int8 plans must launch both selects of the tensor-core int8
-    kernel and never the CUDA-core one."""
-    for name in ("tc_int8_exact", "tc_int8_pack32"):
-        if counts[name] <= 0:
-            fail(f"kernel block_scan {name} was never launched by {what}")
-    for name in ("int8_exact", "int8_pack32"):
-        if counts[name] > 0:
-            fail(f"{what} launched the CUDA-core int8 block scan ({name}) "
-                 f"{counts[name]} times: it must run the tensor-core one")
-
-
 def phase_int8(torch, tp, bs, sl):
     """The int8 tier at the slice's shape: the main index's trained codecs
     and adds in an index whose cache rows are int8 with per-slot scales;
@@ -1417,7 +1450,7 @@ def phase_int8(torch, tp, bs, sl):
     rec, _ = time_plans(torch, tp, i8, xq, gt, k, bs.launches, "int8 ")
     counts = dict(bs.launches)
     log(f"int8 launches: {counts}")
-    require_int8_keys(counts, "the int8 tier")
+    require_only_tc(counts, INT8_KEYS, "the int8 tier")
     for plan, r in rec.items():
         if abs(r - sl["rec"][plan]) > 0.005:
             fail(f"int8 plan {plan}: recall {r:.4f} vs the bf16 tier's "
@@ -1490,27 +1523,34 @@ def check_spill(torch, seen):
 
 
 def one_key_ms(torch, bs, args, kw, reps):
-    """The tensor-core pack32 launch on a scan's own arguments, but writing
-    k_pair = 1 key per row over the same strided groups: the same tiles,
-    products, group maxima and phases, with one extraction pass and one
-    merge step per phase. The difference to the real launch is what the
-    rest of the select costs (the passes or the sort, the merge, the
-    writes). Mean CUDA-event ms over reps launches (none counted)."""
+    """The tensor-core pack32 launch on a scan's own arguments (bf16, or
+    int8 where kw holds its scales), but writing k_pair = 1 key per row
+    over the same strided groups: the same tiles, products, group maxima
+    and phases, with one extraction pass and one merge step per phase. The
+    difference to the real launch is what the rest of the select costs (the
+    passes or the sort, the merge, the writes). Mean CUDA-event ms over
+    reps launches (none counted)."""
     from torchpq_tpu_torch import _build
     lib = _build.library()
     b, p_tile = args[1].shape
     d = args[6].shape[1]
+    int8 = kw.get("scale") is not None
+    name = "torchpq_block_scan_tc" + ("_int8" if int8 else "")
     groups = bs.n_groups(kw["s_eff"], kw["k_pair"])
-    n_ctas = bs.resident_ctas(lib, "torchpq_block_scan_tc_occupancy",
-                              args[6].device, d, 1, 1)
+    n_ctas = bs.resident_ctas(lib, name + "_occupancy", args[6].device, d,
+                              1, 1)
     out = torch.empty((b, p_tile, 1), dtype=torch.int32,
                       device=args[1].device)
+    ptrs = [t.data_ptr() for t in args]
+    if int8:  # the entry's order: q8, q_scale, ..., penalty, scale, y8
+        ptrs = ptrs[:1] + [kw["q_scale"].data_ptr()] + ptrs[1:6] + [
+            kw["scale"].data_ptr(), ptrs[6]]
 
     def run():
-        rc = lib.torchpq_block_scan_tc(
-            *(t.data_ptr() for t in args), out.data_ptr(), b, p_tile, d,
-            kw["s_eff"], 1, int(kw["euclidean"]), 1, kw["slot_mask"], groups,
-            min(n_ctas, b), torch.cuda.current_stream().cuda_stream)
+        rc = getattr(lib, name)(
+            *ptrs, out.data_ptr(), b, p_tile, d, kw["s_eff"], 1,
+            int(kw["euclidean"]), 1, kw["slot_mask"], groups, min(n_ctas, b),
+            torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             fail(f"the one-key tensor-core launch failed: CUDA error {rc}")
 
@@ -1556,7 +1596,7 @@ def pack32_f64(torch, bs, args, kw):
         args[1], args[2], s_eff=s_eff, width=kw["k_pair"], cost=6)
 
 
-def pack32_scan_row(torch, bs, name, args, kw, what):
+def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
     """One pack32 scan (the deep-k, 4-bit and residual phases') on its
     search's own arguments: it must route to the tensor-core pack32 kernel; held to block_scan_ref (live rows, >= 0.99
     of the keys equal; pad rows dead; the CUDA-core kernel on every row),
@@ -1568,6 +1608,10 @@ def pack32_scan_row(torch, bs, name, args, kw, what):
     0.99 of the entries, no other order can reach 0.99 against it, and the
     scan is held to >= 0.99 equal slots instead, each with its value within
     the tolerance (compare_pack32's by_slot); every agreement is logged.
+    against_f64: the kernel is held to the f64-summed select itself, by
+    the same rule, and the CUDA-core kernel to it by slot (at d_cache 1024
+    the plain version's own f32 sums leave the tolerance where the score
+    cancels: 2 <q, y> ~ |y|^2 ~ 1e3).
     Returns the kernels-line row."""
     s_eff, k_pair = kw["s_eff"], kw["k_pair"]
     blocks, p_tile = args[1].shape
@@ -1585,16 +1629,29 @@ def pack32_scan_row(torch, bs, name, args, kw, what):
     kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
                pack32=True, slot_mask=kw["slot_mask"])
     alive = args[1] >= 0
-    exact = pack32_f64(torch, bs, args, kkw)[alive]
-    tc = block_launch(torch, bs, args, "tc_pack32", **kkw)[alive]
+    full = pack32_f64(torch, bs, args, kkw)
+    exact = full[alive]
+    tc = block_launch(torch, bs, args, "tc_pack32", **kkw)
     plain_f64 = share_equal(bs.block_scan_ref(*args, **kkw)[alive], exact)
-    tc_f64 = share_equal(tc, exact)
+    tc_f64 = share_equal(tc[alive], exact)
     by_slot = plain_f64 < 0.99
-    del exact, tc
-    err, agree, _, _ = check_kernel(torch, bs, args, s_eff=s_eff,
-                                    k_pair=k_pair, pack32=True,
-                                    euclidean=kw["euclidean"], reps=0,
-                                    by_slot=by_slot)
+    if against_f64:
+        if not dead_rows(torch, bs, tc, args[1], k_pair, True):
+            fail(f"{what}: tc_pack32 pad rows are not written dead")
+        cc = block_launch(torch, bs, args, "pack32", **kkw)
+        compare_pack32(torch, bs, cc, full, kkw["slot_mask"],
+                       "pack32 (CUDA cores) against the f64 select", True)
+        err, agree = compare_pack32(torch, bs, tc[alive], exact,
+                                    kkw["slot_mask"],
+                                    "tc_pack32 against the f64 select",
+                                    by_slot)
+        del cc
+    del exact, tc, full
+    if not against_f64:
+        err, agree, _, _ = check_kernel(torch, bs, args, s_eff=s_eff,
+                                        k_pair=k_pair, pack32=True,
+                                        euclidean=kw["euclidean"], reps=0,
+                                        by_slot=by_slot)
     t, turns = in_turns(torch, {
         "cuda_cores": lambda: block_launch(torch, bs, args, "pack32", **kkw),
         "tensor_cores": lambda: block_launch(torch, bs, args, "tc_pack32",
@@ -1614,7 +1671,8 @@ def pack32_scan_row(torch, bs, name, args, kw, what):
         f"extraction pass and one merge step per phase) {k1_ms:.3f} ms; "
         f"{flop / ms / 1e9:.2f} TFLOP/s over live probers, "
         f"{b_ms / ms:.1%} of the bound; plain {plain_ms:.3f} ms, bound "
-        f"{b_ms:.3f} ms ({b_by}); live rows held to block_scan_ref by "
+        f"{b_ms:.3f} ms ({b_by}); live rows held to "
+        f"{'the f64-summed select' if against_f64 else 'block_scan_ref'} by "
         f"{'slot' if by_slot else 'key'}: max_abs_err {err:.3g}, key "
         f"agreement {agree:.7f} (with the f64-summed select: the plain "
         f"version's {plain_f64:.7f}, the kernel's {tc_f64:.7f}); pad rows "
@@ -1626,7 +1684,8 @@ def pack32_scan_row(torch, bs, name, args, kw, what):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None, cuda_core_ms=cc_ms,
         cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu",
-        one_key_ms=k1_ms, key_agreement=agree, held_by_slot=by_slot)
+        one_key_ms=k1_ms, key_agreement=agree, held_by_slot=by_slot,
+        held_against="f64" if against_f64 else "plain")
 
 
 def deepk_counts(bs, seen, counts, what):
@@ -1830,13 +1889,21 @@ def all_cells_check(torch, index, xq, k, label):
      index.use_smart_probing) = keep
 
 
-def require_tc_keys(counts, what):
-    """The bf16 block-scan launches of a run: both tensor-core selects, the
-    CUDA-core keys never."""
-    if counts["tc_exact"] <= 0 or counts["tc_pack32"] <= 0 \
-            or counts["exact"] or counts["pack32"]:
-        fail(f"{what} must launch the tensor-core block scan's two selects "
-             f"and never the CUDA-core one: {counts}")
+# the block scan's tensor-core keys per cache: (exact, pack32)
+BF16_KEYS = ("tc_exact", "tc_pack32")
+INT8_KEYS = ("tc_int8_exact", "tc_int8_pack32")
+
+
+def require_only_tc(counts, keys, what):
+    """A run's block-scan launches: each of `keys` (tensor-core) launched,
+    no CUDA-core key ("exact", "pack32", "int8_exact", "int8_pack32")."""
+    for key in keys:
+        if counts[key] <= 0:
+            fail(f"kernel block_scan {key} was never launched by {what}")
+    for key in ("exact", "pack32", "int8_exact", "int8_pack32"):
+        if counts[key] > 0:
+            fail(f"{what} launched the CUDA-core block scan ({key}) "
+                 f"{counts[key]} times: {counts}")
 
 
 def rising(rec, plans, what):
@@ -1912,7 +1979,7 @@ def phase_pq4(torch, tp, bs, cs, sl, gt100):
                            short_ok=True, plain_ok=PLAIN_K100)
     counts = dict(bs.launches)
     log(f"pq4 launches: {counts}")
-    require_tc_keys(counts, "the pq4 bf16 plans")
+    require_only_tc(counts, BF16_KEYS, "the pq4 bf16 plans")
     rising(rec10, PLANS_K10, "pq4 k=10")
     rising(rec100, PLANS_K100, "pq4 k=100")
     all_cells_check(torch, pq4, xq, k, "pq4 ")
@@ -2059,7 +2126,7 @@ def phase_residual(torch, tp, bs, sl, gt100):
                           "residual ", plans=PLANS_K10, floors=False)
     counts = dict(bs.launches)
     log(f"residual launches: k=100 plans {counts100}, all plans {counts}")
-    require_tc_keys(counts, "the residual plans")
+    require_only_tc(counts, BF16_KEYS, "the residual plans")
     rising(rec10, PLANS_K10, "residual k=10")
     rising(rec100, PLANS_K100, "residual k=100")
     log("residual recall@10 against the main index: " + ", ".join(
@@ -2193,7 +2260,7 @@ def phase_pqr(torch, tp, bs, sl, gt100):
     counts = dict(bs.launches)
     counts100 = {key: counts[key] - counts10[key] for key in counts}
     log(f"pqr3 launches: k=10 plans {counts10}, k=100 plans {counts100}")
-    require_tc_keys(counts, "the pqr3 plans")
+    require_only_tc(counts, BF16_KEYS, "the pqr3 plans")
     rising(rec10, PQR_PLANS_K10, "pqr3 k=10")
     rising(rec100, PQR_PLANS_K100, "pqr3 k=100")
     flat = ("flat", 1, True)
@@ -2711,14 +2778,220 @@ def phase_pallas_flat(torch, tp, fs, sl):
 # the GIST-class phase's searches
 GIST_PLANS = [("flat", 1, True), ("cell_major", 8, True),
               ("cell_major", 32, True), ("cell_major", 8, False)]
+# the JAX package's two GIST records (benchmark/results/
+# ivf4096_pq64_gist1m_class_r3.json, bf16 cache, and
+# ivf4096_pq64_gist1m_int8_r5.json, int8 cache): spill 8 cells at the
+# initial capacity 2 x n / n_cells (512 slots), scan_group 4 (s_eff 2048),
+# approximate top-k; k = 10: flat, pack32 at n_probe 8 and 32, exact at
+# n_probe 8; k = 100: pack32 at n_probe 8 and 32 (k_pair 64 over G = 512)
+GIST_GROUP = 4
+GIST_PLANS_K10 = [("flat", 1, True), ("cell_major", 8, True),
+                  ("cell_major", 32, True), ("cell_major", 8, False)]
+GIST_PLANS_K100 = [("cell_major", 8, True), ("cell_major", 32, True)]
+
+
+def pq_ceiling(torch, index, xq, xb, k):
+    """The exact f32 top-k ids of the queries over the PQ-decoded rows of
+    every vector an index stores (its ADC ceiling), in chunks of 500."""
+    addr = torch.nonzero(~index._is_empty).flatten()
+    ids = index._address2id[addr].long()
+    rows = index._decode_stored(index.storage_rows(addr))
+    norms = (rows * rows).sum(-1)
+    top = [ids[torch.topk(2 * xq[i:i + 500] @ rows.T - norms[None], k,
+                          dim=-1).indices]
+           for i in range(0, xq.shape[0], 500)]
+    del rows
+    return torch.cat(top)
+
+
+def gist_gate(gates, plans, k_pair, label):
+    """Each pack32 plan's gate record: the block scan's pack32 select at
+    s_eff 2048 (supercells of 4 cells of 512 slots) and this k_pair, as the
+    records' scan_gate shows."""
+    for plan in plans:
+        g = gates[plan]
+        if plan[0] != "cell_major" or not plan[2]:
+            continue
+        if g.get("impl") != "block_scan" or not g.get("pack32") \
+                or g.get("s_eff") != 2048 or g.get("k_pair") != k_pair:
+            fail(f"{label}n_probe={plan[1]}: gate {g}, not the records' "
+                 f"pack32 scan at s_eff 2048, k_pair {k_pair}")
+
+
+def gist_plans(torch, tp, bs, index, xq, gt, k, plans, label):
+    """time_plans over one set of plans with the block-scan counters zeroed
+    just before and read just after, each plan's gate record kept ->
+    (recall per plan, counts, gates)."""
+    gates = {}
+    for key in bs.launches:
+        bs.launches[key] = 0
+    rec = {}
+    for plan in plans:
+        r, _ = time_plans(torch, tp, index, xq, gt, k, bs.launches, label,
+                          plans=[plan], floors=False)
+        rec.update(r)
+        gates[plan] = dict(tp.ops.adc.LAST_GATE)
+    return rec, dict(bs.launches), gates
+
+
+def int8_deep_row(torch, tp, bs, index, xq, k, name, what):
+    """The int8 tier's pack32 k = 100 scan (k_pair 64 over G = 512, the
+    one-list instance) on its search's own arguments: bit for bit against
+    block_scan_ref on live rows, pad rows dead, the CUDA-core int8 kernel on
+    every row; timed in turns with it and beside the same launch writing
+    one key per row. Returns the kernels-line row."""
+    args, kw = capture_call(tp, index, xq, k)
+    s_eff, k_pair = kw["s_eff"], kw["k_pair"]
+    blocks, p_tile = args[1].shape
+    d = args[6].shape[1]
+    live = int((args[1] >= 0).sum())
+    route = bs.pick_route(dtype=args[6].dtype, d=d, p_tile=p_tile,
+                          s_eff=s_eff, k_pair=k_pair, pack32=True)
+    log(f"{what}: {blocks} blocks x {p_tile} probers, {live} live "
+        f"({live / (blocks * p_tile):.3f}), s_eff={s_eff}, k_pair={k_pair}, "
+        f"G={bs.n_groups(s_eff, k_pair)}, d_cache={d}, route {route}")
+    if route != "tc_int8_pack32":
+        fail(f"{what} routes to {route}, not the tensor cores")
+    extra = dict(scale=kw["scale"], q_scale=kw["q_scale"])
+    check_kernel(torch, bs, args, s_eff=s_eff, k_pair=k_pair, pack32=True,
+                 euclidean=kw["euclidean"], equal=True, extra=extra, reps=0)
+    kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
+               pack32=True, slot_mask=kw["slot_mask"], **extra)
+    t, turns = in_turns(torch, {
+        "cuda_cores": lambda: block_launch(torch, bs, args, "int8_pack32",
+                                           **kkw),
+        route: lambda: block_launch(torch, bs, args, route, **kkw)}, 3)
+    ms, cc_ms = t[route], t["cuda_cores"]
+    k1_ms = one_key_ms(torch, bs, args, kkw, 3)
+    plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw), 1)
+    b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=d + 8,
+                            row_bytes=d + 4, peak="int8", d=d)
+    log(f"{name} on {what}'s arguments: {route} {ms:.3f} ms ("
+        f"{' / '.join(f'{x:.3f}' for x in turns[route])}; "
+        f"{2.0 * s_eff * d * live / ms / 1e9:.2f} TOP/s over live probers, "
+        f"{b_ms / ms:.1%} of the bound), CUDA cores {cc_ms:.3f} ms ("
+        f"{' / '.join(f'{x:.3f}' for x in turns['cuda_cores'])}), speed-up "
+        f"{cc_ms / ms:.2f}x; the launch writing one key per row {k1_ms:.3f} "
+        f"ms; plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); equal "
+        f"to the plain version bit for bit on live rows, pad rows dead, the "
+        f"CUDA-core kernel equal on every row")
+    return dict(
+        name=name, route="cuda",
+        source="torchpq_tpu_torch/csrc/block_scan_tc_int8.cu",
+        replaces="torchpq_tpu/ops/pallas_scan.py:281", max_abs_err=0.0,
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, cuda_core_ms=cc_ms,
+        cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu",
+        one_key_ms=k1_ms)
+
+
+def phase_gist_records(torch, tp, bs, trained, base, xq, xb, gt100, d, m,
+                       n_cells):
+    """The JAX package's two GIST records at their settings on the phase's
+    trained codecs: the same four adds into a bf16 tier (r3) and an int8
+    tier (r5), spill 8 cells at 2 x n / n_cells, scan_group 4. Per tier,
+    the k = 10 plans and then the k = 100 plans, the block-scan counters
+    zeroed before and read after each set (the tensor-core keys only, no
+    CUDA-core key); each pack32 plan's gate at s_eff 2048 with k_pair 10 /
+    64; recall non-decreasing in n_probe (within 0.005); the flat plan
+    within 0.02 of the exact f32 sweep over the tier's PQ-decoded rows;
+    int8 within 0.005 of bf16 per k = 10 plan; recall@100 logged. Then the
+    scans on the tiers' own arguments: bf16 exact (n_probe 8) and pack32
+    k = 10 and k = 100 (n_probe 32) held to block_scan_ref (values within
+    the tolerance, pack32 keys or slots >= 0.99), int8 pack32 k = 100 bit
+    for bit, each timed in turns with block_scan.cu; both tiers profiled.
+    Returns ({row name: launches}, the kernels' JSON rows)."""
+    gt10 = gt100[:, :10]
+    per_cell = base.shape[0] // n_cells * 2
+    rows, launches, rec10 = {}, {}, {}
+    for tier, cache in (("bf16", None), ("int8", "int8")):
+        t0 = time.perf_counter()
+        idx, add_s = build_index(torch, tp, trained, base, d=d, m=m,
+                                 n_cells=n_cells, per_cell=per_cell,
+                                 cache=cache, spill=True)
+        idx.scan_group = GIST_GROUP
+        dec = idx.aux("decoded")
+        sizes = idx._cell_size_np
+        label = f"GIST {tier} records "
+        log(f"{label}index: add {add_s:.2f} s; cache {tuple(dec.shape)} "
+            f"{dec.dtype}; spill 8 cells at capacity {idx.spill_capacity}, "
+            f"largest cell {int(sizes.max())}, max cell capacity "
+            f"{idx.max_cell_capacity}, scan_group {idx.scan_group}")
+        if tuple(dec.shape[1:]) != (1024,) or idx.max_cell_capacity != 512:
+            fail(f"{label}: cache {tuple(dec.shape)}, capacity "
+                 f"{idx.max_cell_capacity}; the records' are 1024 wide, 512")
+        keys = INT8_KEYS if cache else BF16_KEYS
+        r10, c10, g10 = gist_plans(torch, tp, bs, idx, xq, gt10, 10,
+                                   GIST_PLANS_K10, label)
+        log(f"{label}k=10 launches: {c10}")
+        require_only_tc(c10, keys, f"the {label}k = 10 plans")
+        r100, c100, g100 = gist_plans(torch, tp, bs, idx, xq, gt100, 100,
+                                      GIST_PLANS_K100, label + "k=100 ")
+        log(f"{label}k=100 launches: {c100}")
+        require_only_tc(c100, keys[1:], f"the {label}k = 100 plans")
+        gist_gate(g10, GIST_PLANS_K10, 10, label)
+        gist_gate(g100, GIST_PLANS_K100, 64, label + "k=100 ")
+        rising(r10, GIST_PLANS_K10, label + "k=10")
+        rising(r100, GIST_PLANS_K100, label + "k=100")
+        rec_pq = recall_at(pq_ceiling(torch, idx, xq, xb, 10), gt10)
+        gap = r10[("flat", 1, True)] - rec_pq
+        log(f"{label}recall@10: flat {r10[('flat', 1, True)]:.4f} vs the "
+            f"exact f32 sweep over its PQ-decoded rows {rec_pq:.4f} (gap "
+            f"{gap:+.4f}); pack32 n_probe 8 / 32 "
+            f"{r10[('cell_major', 8, True)]:.4f} / "
+            f"{r10[('cell_major', 32, True)]:.4f}, exact n_probe 8 "
+            f"{r10[('cell_major', 8, False)]:.4f}; recall@100 pack32 "
+            f"n_probe 8 / 32 {r100[('cell_major', 8, True)]:.4f} / "
+            f"{r100[('cell_major', 32, True)]:.4f}")
+        if abs(gap) > 0.02:
+            fail(f"{label}flat recall is {gap:+.4f} off the PQ ceiling")
+        if cache:
+            for plan, r in r10.items():
+                if abs(r - rec10[plan]) > 0.005:
+                    fail(f"{label}{plan}: recall@10 {r:.4f} vs the bf16 "
+                         f"tier's {rec10[plan]:.4f}")
+            log(f"{label}recall@10 within 0.005 of the bf16 tier's on "
+                f"every plan")
+        rec10 = r10
+        if cache:
+            name = "block_scan_int8_pack32_k100_d1024"
+            rows[name] = int8_deep_row(torch, tp, bs, idx, xq, 100, name,
+                                       f"the {label}k=100 n_probe=32 search")
+            launches[name] = c100["tc_int8_pack32"]
+        else:
+            rows.update(phase_main_shapes(
+                torch, tp, bs, idx, xq, 10, label=label.strip(),
+                suffix="_d1024", plans=((8, False),), reps=5, both=False))
+            launches["block_scan_exact_d1024"] = c10["tc_exact"]
+            for kk, name, cnt in ((10, "block_scan_pack32_d1024", c10),
+                                  (100, "block_scan_pack32_k100_d1024",
+                                   c100)):
+                idx.scan_mode, idx.n_probe = "cell_major", 32
+                idx.use_approx_topk = True
+                args, kw = capture_call(tp, idx, xq, kk)
+                rows[name] = pack32_scan_row(
+                    torch, bs, name, args, kw,
+                    f"the {label}k={kk} n_probe=32 search", against_f64=True)
+                launches[name] = cnt["tc_pack32"]
+                del args
+        phase_profile(torch, idx, xq, 10, label=label,
+                      plans=[p for p in GIST_PLANS_K10 if p[0] != "flat"])
+        phase_profile(torch, idx, xq, 100, label=label + "k=100 ",
+                      plans=GIST_PLANS_K100)
+        log(f"{label}phase: {time.perf_counter() - t0:.1f} s")
+        del idx, dec
+        torch.cuda.empty_cache()
+    return launches, rows
 
 
 def phase_gist(torch, tp, bs):
     """The int8 tier at a GIST-class shape: 1M x 960 manifold-12 data
     (seed 1), IVF4096 x PQ64, an int8 cache lane-padded to 1024, 10k
-    queries, k=10, spill and scan_group off. Returns the int8 launch counts
-    of its plans, the int8 kernels' JSON rows at d_cache 1024, the index
-    and its queries."""
+    queries, k=10, spill and scan_group off. Then the JAX package's two
+    GIST records on the same trained codecs (phase_gist_records). Returns
+    the int8 launch counts of its plans, the int8 kernels' JSON rows at
+    d_cache 1024, the index and its queries, and the records' ({row name:
+    launches}, rows)."""
     n_base, n_query, d, m, n_cells, k = 1_000_000, 10_000, 960, 64, 4096, 10
     t0 = time.perf_counter()
     base, query = make_data(n_base, n_query, d, seed=1)
@@ -2749,23 +3022,16 @@ def phase_gist(torch, tp, bs):
 
     xb = torch.from_numpy(base).cuda()
     xq = torch.from_numpy(query).cuda()
-    del base
-    # exact f32 ground truth, and the exact f32 sweep over the PQ-decoded
-    # rows of every stored vector (the ADC ceiling of these codes)
-    addr = torch.nonzero(~index._is_empty).flatten()
-    ids = index._address2id[addr].long()
-    pq_rows = index._decode_stored(index.storage_rows(addr))
-    xb_n, pq_n = (xb * xb).sum(-1), (pq_rows * pq_rows).sum(-1)
-    gt, pq_top = [], []
-    for i in range(0, n_query, 500):
-        qc = xq[i:i + 500]
-        gt.append(torch.topk(2 * qc @ xb.T - xb_n[None], k, dim=-1).indices)
-        pq_top.append(ids[torch.topk(2 * qc @ pq_rows.T - pq_n[None], k,
-                                     dim=-1).indices])
-    gt, pq_top = torch.cat(gt), torch.cat(pq_top)
-    del xb, pq_rows
+    # exact f32 ground truth (top 100; its first 10 the k = 10 truth), and
+    # the exact f32 sweep over the PQ-decoded rows of every stored vector
+    # (the ADC ceiling of these codes)
+    xb_n = (xb * xb).sum(-1)
+    gt100 = torch.cat([torch.topk(2 * xq[i:i + 500] @ xb.T - xb_n[None],
+                                  100, dim=-1).indices
+                       for i in range(0, n_query, 500)])
+    gt = gt100[:, :k]
+    rec_pq = recall_at(pq_ceiling(torch, index, xq, xb, k), gt)
     torch.cuda.synchronize()
-    rec_pq = recall_at(pq_top, gt)
 
     for key in bs.launches:
         bs.launches[key] = 0
@@ -2773,7 +3039,7 @@ def phase_gist(torch, tp, bs):
                         "GIST int8 ", plans=GIST_PLANS, floors=False)
     counts = dict(bs.launches)
     log(f"GIST int8 launches: {counts}")
-    require_int8_keys(counts, "the GIST-class phase")
+    require_only_tc(counts, INT8_KEYS, "the GIST-class phase")
     r8, r32 = rec[("cell_major", 8, True)], rec[("cell_major", 32, True)]
     gap = rec[("flat", 1, True)] - rec_pq
     log(f"GIST int8: flat recall {rec[('flat', 1, True)]:.4f} vs the exact "
@@ -2785,7 +3051,10 @@ def phase_gist(torch, tp, bs):
         fail(f"GIST int8 flat recall is {gap:+.4f} off the PQ ceiling")
     rows = int8_kernel_rows(torch, tp, bs, index, xq, k, "GIST int8 ",
                             suffix="_d1024", reps=3)
-    return counts, rows, index, xq
+    records = phase_gist_records(torch, tp, bs, trained, base, xq, xb, gt100,
+                                 d, m, n_cells)
+    del xb, base
+    return counts, rows, index, xq, records
 
 
 # the slice's searches: (scan_mode, n_probe, use_approx_topk)
@@ -2839,7 +3108,7 @@ def phase_slice(torch, tp, bs, gr):
     rec, _ = time_plans(torch, tp, index, xq, gt, k, bs.launches, "")
     counts = {**bs.launches, **gr.launches}
     log(f"main-path launches: {counts}")
-    require_tc_keys(counts, "the bf16 plans")
+    require_only_tc(counts, BF16_KEYS, "the bf16 plans")
     if counts["gather"] <= 0:
         fail("the row gather was never launched by the slice")
     # small-input reference: probing every cell with the exact select must
@@ -3410,7 +3679,7 @@ def phase_sharded(torch, tp, bs, cs, sl, tiers, work, timer):
              int(out2["removed"]))):
         compare_sharded(torch, label, res, ref, gt, ids, ref_ids, rm, ref_rm)
         for c in (cnt if isinstance(cnt, list) else [cnt]):
-            require_tc_keys(c["bf16"], f"{label}bf16 plans")
+            require_only_tc(c["bf16"], BF16_KEYS, f"{label}bf16 plans")
             if c["int8"]["tc_int8_pack32"] <= 0 or c["int8"]["int8_pack32"]:
                 fail(f"{label}int8 plan must launch the tensor-core int8 "
                      f"pack32 scan only: {c['int8']}")
@@ -3577,17 +3846,23 @@ def main():
         elif "registers" in line or "spill" in line:
             log(f"ptxas {kernel}: " + line.strip())
             report[kernel] = report.get(kernel, "") + " " + line.strip()
-    # the deep codes instance (pack32 k_pair 49-64): no spill, no stack
-    deep = report.get(DEEP_CODES_KERNEL, "")
-    regs = re.search(r"Used (\d+) registers", deep)
-    frame = [int(x) for x in re.findall(
-        r"(\d+) bytes (?:stack frame|spill stores|spill loads)", deep)]
-    log(f"ptxas deep codes instance {DEEP_CODES_KERNEL}: "
-        f"{regs.group(1) if regs else '?'} registers, stack frame / spill "
-        f"stores / spill loads {frame} bytes")
-    if not regs or len(frame) != 3 or any(frame):
-        fail(f"ptxas reports a stack frame or spills for "
-             f"{DEEP_CODES_KERNEL} (or no report): {deep.strip()!r}")
+    # the deep codes instance and the block scan's chunked bf16 and
+    # one-list int8 instances: no spill, no stack frame
+    checked = sorted(x for x in report if CHECKED_KERNELS.search(x))
+    for name in checked:
+        rep = report[name]
+        regs = re.search(r"Used (\d+) registers", rep)
+        frame = [int(x) for x in re.findall(
+            r"(\d+) bytes (?:stack frame|spill stores|spill loads)", rep)]
+        log(f"ptxas checked instance {name}: "
+            f"{regs.group(1) if regs else '?'} registers, stack frame / "
+            f"spill stores / spill loads {frame} bytes")
+        if not regs or len(frame) != 3 or any(frame):
+            fail(f"ptxas reports a stack frame or spills for {name} (or no "
+                 f"report): {rep.strip()!r}")
+    if len(checked) != N_CHECKED_KERNELS or DEEP_CODES_KERNEL not in checked:
+        fail(f"ptxas reported {checked}, not the {N_CHECKED_KERNELS} checked "
+             f"instances")
 
     phase_kernels(torch, bs, cs, fs, gr)
     log(f"phases 1-3: {time.perf_counter() - t_start:.1f} s")
@@ -3627,7 +3902,10 @@ def main():
     phase_aniso_manhattan(torch, tp, bs, cs, sl)
     log(f"anisotropic and manhattan check: "
         f"{time.perf_counter() - t_phase:.1f} s")
-    gist_counts, gist_rows, gist, gist_q = phase_gist(torch, tp, bs)
+    t_phase = time.perf_counter()
+    gist_counts, gist_rows, gist, gist_q, (rec_launches, rec_rows) = \
+        phase_gist(torch, tp, bs)
+    log(f"GIST-class phase: {time.perf_counter() - t_phase:.1f} s")
     # last of the paths: its floor holds the kernel's bucket approximation
     flat_counts, flat_row = phase_pallas_flat(torch, tp, fs, sl)
     log(f"phases 4-18: {time.perf_counter() - t_start:.1f} s")
@@ -3677,6 +3955,14 @@ def main():
              gist_counts["tc_int8_exact"]),
             ("block_scan_int8_pack32_d1024", gist_rows,
              gist_counts["tc_int8_pack32"]),
+            ("block_scan_exact_d1024", rec_rows,
+             rec_launches["block_scan_exact_d1024"]),
+            ("block_scan_pack32_d1024", rec_rows,
+             rec_launches["block_scan_pack32_d1024"]),
+            ("block_scan_pack32_k100_d1024", rec_rows,
+             rec_launches["block_scan_pack32_k100_d1024"]),
+            ("block_scan_int8_pack32_k100_d1024", rec_rows,
+             rec_launches["block_scan_int8_pack32_k100_d1024"]),
             ("block_scan_pack32_deepk_head", deep_rows,
              deep_launches["block_scan_pack32_deepk_head"]),
             ("block_scan_pack32_deepk_tail", deep_rows,

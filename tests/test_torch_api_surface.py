@@ -589,13 +589,13 @@ def _imports(path):
 
 
 def test_port_sources_import_no_jax():
-    """No source of the port, not chip_smoke.py and not the multi-rank
-    test worker (tests/_torch_dist_worker.py) names jax, orbax or the JAX
-    package in an import."""
+    """No source of the port, not chip_smoke.py or chip_variants.py and not
+    the multi-rank test worker (tests/_torch_dist_worker.py) names jax,
+    orbax or the JAX package in an import."""
     import pathlib
     root = pathlib.Path(tp.__file__).parent
     files = sorted(root.rglob("*.py")) + [
-        root.parent / "chip_smoke.py",
+        root.parent / "chip_smoke.py", root.parent / "chip_variants.py",
         pathlib.Path(__file__).parent / "_torch_dist_worker.py"]
     for path in files:
         bad = _imports(path) & {"jax", "jaxlib", "orbax", "torchpq_tpu"}

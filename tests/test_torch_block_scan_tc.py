@@ -126,15 +126,15 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.int8, d=256, p_tile=128, s_eff=4096, k_pair=64,
           pack32=True), "tc_int8_pack32"),  # 173,088 B at k_pair 64
     (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=2048, k_pair=49,
-          pack32=True), "int8_pack32"),     # the chunked route holds 48
+          pack32=True), "tc_int8_pack32"),  # chunked: one running list
     (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=4096, k_pair=64,
-          pack32=True), "int8_pack32"),     # 242,720 B at k_pair 64
+          pack32=True), "tc_int8_pack32"),  # 209,440 B at k_pair 64
     (dict(dtype=torch.int8, d=128, p_tile=120, s_eff=640, k_pair=10,
           pack32=True), "int8_pack32"),     # not whole m tiles
     (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=200, k_pair=10,
           pack32=True), "int8_pack32"),     # G = s_eff = 200
     (dict(dtype=torch.bfloat16, d=160, p_tile=128, s_eff=640, k_pair=10,
-          pack32=True), "pack32"),          # d > 128
+          pack32=True), "tc_pack32"),       # d > 128: k chunks
     (dict(dtype=torch.bfloat16, d=100, p_tile=128, s_eff=640, k_pair=10,
           pack32=False), "exact"),          # d % 8 != 0
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=640, k_pair=17,
@@ -155,6 +155,30 @@ def test_integer_inputs_layout():
           pack32=True), "pack32"),          # G = s_eff = 200
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=200, k_pair=10,
           pack32=False), "tc_exact"),       # a ragged last tile
+    # the GIST-class bf16 cache (d 1024: 2,048-byte rows in 256-byte k
+    # chunks), exact and pack32 over G = 128 and 512
+    (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=2048, k_pair=10,
+          pack32=False), "tc_exact"),       # 201,760 B
+    (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=2048, k_pair=16,
+          pack32=False), "tc_exact"),       # 207,904 B
+    (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=640, k_pair=10,
+          pack32=True), "tc_pack32"),       # G = 128
+    (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=2048, k_pair=10,
+          pack32=True), "tc_pack32"),       # the records' k = 10, G = 128
+    (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=2048, k_pair=48,
+          pack32=True), "tc_pack32"),       # G = 512, 217,120 B
+    (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=2048, k_pair=64,
+          pack32=True), "tc_pack32"),       # the records' k = 100: one list
+    (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=512, k_pair=64,
+          pack32=True), "tc_pack32"),       # G = 256
+    (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=640, k_pair=17,
+          pack32=False), "exact"),          # the lists hold 16
+    (dict(dtype=torch.bfloat16, d=1032, p_tile=128, s_eff=640, k_pair=10,
+          pack32=True), "pack32"),          # a row over 2,048 bytes
+    (dict(dtype=torch.bfloat16, d=200, p_tile=128, s_eff=640, k_pair=10,
+          pack32=False), "tc_exact"),       # ends in half a k step
+    (dict(dtype=torch.int8, d=288, p_tile=128, s_eff=2048, k_pair=64,
+          pack32=True), "tc_int8_pack32"),  # one running list at d 288
 ])
 def test_pick_route(shape, route):
     assert bs.pick_route(**shape) == route
@@ -190,8 +214,7 @@ def test_launch_refuses_a_route_that_does_not_fit():
     (1040, 128, 10, False, 256),  # wider than the 1,024-byte rows
     (136, 128, 10, True, 256),    # rows not of 16-byte pieces
     (128, 128, 17, False, 256),   # the exact lists hold 16
-    (1024, 128, 49, True, 2048),  # the chunked route's shared memory
-                                  # holds 48
+    (1024, 128, 65, True, 2048),  # past the lists' 64
     (128, 120, 10, True, 256),    # not whole m tiles
     (1024, 128, 10, True, 200),   # G = s_eff = 200 > one tile
 ])
@@ -228,50 +251,76 @@ def _header_constants():
     return env
 
 
-def _header_smem(c, rb, pack32, k_pair, scaled, chunked):
+def _header_smem(c, rb, pack32, k_pair, scaled, chunked, one_list=False):
     """scan_tc.cuh:body_smem_bytes transcribed over the header's own
     constants: tiles [2][TN][row_ld] (chunked: twice, the query chunks),
     penalties and slots, scales, prober rows, tile flags, the slice lists,
-    then pack32's running lists or exact's staging rows, row bounds and
-    queues; the lists' rows of list_ld entries (pack32: k_pair made odd)."""
+    then pack32's running lists (one_list: one of them) or exact's staging
+    rows, row bounds and queues; the lists' rows of list_ld entries
+    (pack32: k_pair made odd)."""
     ld = (c["CHUNK"] if chunked else (rb + 31) // 32 * 32) + 16
     kls = k_pair + (1 - k_pair % 2) if pack32 else k_pair
     return (2 * c["TN"] * ld * (2 if chunked else 1) + 16 * c["TN"]
             + (8 * c["TN"] if scaled else 0) + 4 * c["MAX_PT"]
             + 4 * (c["MAX_PT"] // 16)
             + c["WARPS"] * 16 * kls * (4 if pack32 else 8)
-            + (2 * c["MAX_PT"] * kls * 4 if pack32 else
+            + ((1 if one_list else 2) * c["MAX_PT"] * kls * 4 if pack32 else
                c["WARPS"] * 16 * (c["SLD"] + 1) * 4
                + c["QUEUE"] * c["THREADS"] * 8))
 
 
 @pytest.mark.parametrize("pack32", [False, True])
 @pytest.mark.parametrize("scaled,chunked", [(False, False), (True, False),
-                                            (True, True)])
+                                            (True, True), (False, True)])
 def test_smem_mirror_equals_header(pack32, scaled, chunked):
     """ops/block_scan.py:tc_smem_bytes, which pick_route reads without the
-    library, equals the header's formula over rows of 16 to 1,024 bytes and
-    k_pair 1 to 64 (the card test holds the library's sizes to it too);
-    the header's constants are the mirror's; and the limit admits pack32
-    k_pair 64 for bf16 d 128 and int8 d 128 and 256 (rows in registers),
-    not for int8 d 1024 (rows in k chunks)."""
+    library, equals the header's formula over rows of 16 to 1,024 bytes
+    (int8) or 2,048 (bf16, chunked above 256) and k_pair 1 to 64, with two
+    running lists and with one (the chunked rows' pack32 above k_pair 48)
+    (the card test holds the library's sizes to it too); the header's
+    constants are the mirror's; tc_route_smem takes one running list where
+    one_list_of does; and the limit admits pack32 k_pair 64 on every
+    route: bf16 d 128 and int8 d 128 and 256 (rows in registers), and the
+    rows in k chunks (int8 d 1024, bf16 d 1024) with one running list,
+    not with two."""
     c = _header_constants()
     assert (c["WARPS"], c["TN"], c["MAX_PT"], c["CHUNK"], c["SLD"],
             c["QUEUE"], c["MAX_PACK_K"], c["MAX_ROW"], c["MAX_CHUNKED_ROW"],
+            c["MAX_CHUNKED_ROW_BF16"], c["CHUNKED_PACK_K"],
             c["MAX_EXACT_K"]) == (
         bs._TC_WARPS, bs._TC_TN, bs._TC_MAX_PT, bs._TC_CHUNK, bs._TC_SLD,
         bs._TC_QUEUE, bs._TC_MAX_PACK_K, bs._TC_MAX_ROW,
-        bs._TC_MAX_CHUNKED_ROW, bs._TC_KMAX)
-    limit = re.search(r"SMEM_LIMIT = (\d+);", _HEADER.read_text())
+        bs._TC_MAX_CHUNKED_ROW, bs._TC_MAX_CHUNKED_ROW_BF16,
+        bs._TC_CHUNKED_PACK_K, bs._TC_KMAX)
+    text = _HEADER.read_text()
+    limit = re.search(r"SMEM_LIMIT = (\d+);", text)
     assert int(limit.group(1)) == bs._SMEM_LIMIT
-    for rb in ((272, 512, 1024) if chunked else (16, 48, 80, 128, 256)):
+    rule = re.search(r"return rb > MAX_ROW && pack32 && k_pair > "
+                     r"CHUNKED_PACK_K;", text)
+    assert rule, "one_list_of's rule"
+    rbs = ((272, 320, 400, 512, 1024) + ((1536, 2048) if not scaled else ())
+           if chunked else (16, 48, 80, 128, 256))
+    for rb in rbs:
         for k_pair in (1, 10, 16, 40, 48, 49, 57, 64):
-            assert bs.tc_smem_bytes(rb, pack32, k_pair, scaled, chunked) \
-                == _header_smem(c, rb, pack32, k_pair, scaled, chunked)
+            for one_list in ((False, True) if chunked and pack32
+                             else (False,)):
+                assert bs.tc_smem_bytes(rb, pack32, k_pair, scaled, chunked,
+                                        one_list=one_list) \
+                    == _header_smem(c, rb, pack32, k_pair, scaled, chunked,
+                                    one_list)
+            # the route's rows of rb bytes: chunked iff rb > 256
+            assert bs.tc_route_smem(
+                d=rb if scaled else rb // 2, pack32=pack32, k_pair=k_pair,
+                dtype=torch.int8 if scaled else torch.bfloat16) \
+                == _header_smem(c, rb, pack32, k_pair, scaled, chunked,
+                                chunked and pack32 and k_pair > 48)
     if pack32:
-        fits = {(rb, sc, ch): bs.tc_smem_bytes(rb, True, 64, sc, ch)
+        fits = {(rb, sc, ch): _header_smem(c, rb, True, 64, sc, ch, ch)
                 <= bs._SMEM_LIMIT for rb, sc, ch in (
                     (256, False, False), (128, True, False),
-                    (256, True, False), (1024, True, True))}
-        assert fits == {(256, False, False): True, (128, True, False): True,
-                        (256, True, False): True, (1024, True, True): False}
+                    (256, True, False), (1024, True, True),
+                    (2048, False, True))}
+        assert all(fits.values()), fits
+        for rb, sc in ((1024, True), (2048, False)):
+            assert _header_smem(c, rb, True, 64, sc, True) > bs._SMEM_LIMIT
+            assert _header_smem(c, rb, True, 48, sc, True) <= bs._SMEM_LIMIT

@@ -115,6 +115,9 @@ def test_integer_inputs_layout():
      "pack32"),        # d = 160 > 128
     (dict(m=16, dsub=16, p_tile=128, s_eff=1024, k_pair=52, pack32=True),
      "pack32"),        # d = 256 > 128
+    (dict(m=8, dsub=20, p_tile=128, s_eff=1024, k_pair=10, pack32=False),
+     "exact"),         # d = 160: its shared memory fits (230,432 B), but
+                       # the decode source walks no k chunks
 ])
 def test_pick_route(shape, route):
     assert cs.pick_route(**shape) == route

@@ -271,10 +271,11 @@ def test_block_tc_deep_pack32_matches_plain(cuda, s_eff, k_pair, inputs):
 def test_block_tc_int8_deep_pack32(cuda, d, s_eff, inputs, n_ctas):
     """The tensor-core int8 kernel at pack32 k_pair 64 with A in registers
     (d 128 and 256: 140,320 and 173,088 B of shared memory; the chunked
-    rows' 242,720 B stay on the CUDA cores), over 512 and 256 strided
-    groups, on the card's grid and on 3 persistent CTAs: exact integer
-    sums, so bit for bit on every input, ties included (int8_tie_inputs);
-    pad rows dead; the CUDA-core int8 kernel equal on every row."""
+    rows' one-list instance: test_block_tc_int8_one_list), over 512 and
+    256 strided groups, on the card's grid and on 3 persistent CTAs: exact
+    integer sums, so bit for bit on every input, ties included
+    (int8_tie_inputs); pad rows dead; the CUDA-core int8 kernel equal on
+    every row."""
     make = bs.int8_tie_inputs if inputs == "ties" else bs.random_int8_inputs
     args, scale, q_scale = make(cuda, s_eff=s_eff, n_blocks=64, nq=500, d=d,
                                 cap_total=8192, seed=d + s_eff)
@@ -283,20 +284,165 @@ def test_block_tc_int8_deep_pack32(cuda, d, s_eff, inputs, n_ctas):
     _int8_held(args, kw, scale, q_scale, "tc_int8_pack32", n_ctas=n_ctas)
 
 
+# the chunked bf16 rows' cases: (pack32, k_pair, s_eff); pack32 k_pair 49-64
+# run the one-list instance (57 over 256 groups, 64 over 512)
+_CHUNKED_CASES = [(False, 10, 640), (False, 16, 200), (True, 10, 640),
+                  (True, 48, 2048), (True, 57, 512), (True, 64, 2048)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("euclidean", [True, False])
+@pytest.mark.parametrize("pack32,k_pair,s_eff", _CHUNKED_CASES)
+@pytest.mark.parametrize("d", [160, 384, 1024])
+def test_block_tc_chunked_integer_ties_exact(cuda, d, pack32, k_pair, s_eff,
+                                             euclidean):
+    """bf16 rows wider than 256 bytes, walked in 256-byte k chunks (d 160:
+    256 + 64 bytes; 384: three chunks; 1024: eight, the GIST-class cache),
+    on integer inputs with runs of equal rows: every sum is exact in any
+    order, so the tensor-core kernel equals the plain version bit for bit
+    on live rows, ties included; pad rows dead; the CUDA-core kernel,
+    uncounted, equal on every row."""
+    args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=48, nq=500,
+                                   d=d, cap_total=8192, seed=d + k_pair)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
+              pack32=pack32, slot_mask=bs.util.next_pow2(s_eff) - 1)
+    got, route = _block_launch(args, kw)
+    assert route == "tc_" + ("pack32" if pack32 else "exact")
+    ref = bs.block_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], route, k_pair, pack32)
+    live = args[1] >= 0
+    assert torch.equal(got[live], ref[live])
+    if not pack32:
+        keys = ref[live][:, :k_pair]
+        assert int((keys[:, 1:] == keys[:, :-1]).sum()) > 0, "no ties"
+    assert torch.equal(_block_uncounted(args, kw, route[3:]), ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack32,k_pair,s_eff", _CHUNKED_CASES)
+@pytest.mark.parametrize("d", [160, 200, 1024])
+def test_block_tc_chunked_matches_plain(cuda, d, pack32, k_pair, s_eff):
+    """The chunked bf16 rows on random inputs (d 200 ends in half a k step:
+    the tile bytes past the row are zeroed): live rows to the tolerances of
+    _assert_close_rows, pad rows dead; the CUDA-core kernel, uncounted, on
+    every row."""
+    args = bs.random_inputs(cuda, s_eff=s_eff, n_blocks=48, nq=500, d=d,
+                            cap_total=8192, seed=d + s_eff + k_pair)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+              slot_mask=bs.util.next_pow2(s_eff) - 1)
+    got, route = _block_launch(args, kw)
+    assert route == "tc_" + ("pack32" if pack32 else "exact")
+    ref = bs.block_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], route, k_pair, pack32)
+    live = args[1] >= 0
+    _assert_close_rows(got[live], ref[live], k_pair, pack32)
+    _assert_close_rows(_block_uncounted(args, kw, route[3:]), ref, k_pair,
+                       pack32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack32,k_pair,s_eff", [
+    (False, 10, 640), (True, 10, 640), (True, 48, 1024), (True, 64, 2048)])
+@pytest.mark.parametrize("d", [384, 1024])
+def test_block_tc_chunked_persistent_grid(cuda, d, pack32, k_pair, s_eff):
+    """The chunked bf16 rows on a grid of 3 persistent CTAs over 64 blocks
+    (each walks ~21, reusing its query chunks, phase state and, at k_pair
+    64, its one running list and the tiles its merges pass through):
+    integer inputs, live rows bit for bit, pad rows dead."""
+    args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
+                                   d=d, cap_total=8192, seed=d + k_pair)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+              slot_mask=s_eff - 1)
+    route = "tc_" + ("pack32" if pack32 else "exact")
+    got = _block_uncounted(args, kw, route, n_ctas=3)
+    ref = bs.block_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], route, k_pair, pack32)
+    live = args[1] >= 0
+    assert torch.equal(got[live], ref[live])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ctas", [None, 3])
+@pytest.mark.parametrize("inputs", ["random", "ties"])
+@pytest.mark.parametrize("k_pair,s_eff", [(49, 2048), (57, 512),
+                                          (64, 2048)])
+@pytest.mark.parametrize("d", [288, 1024])
+def test_block_tc_int8_one_list(cuda, d, k_pair, s_eff, inputs, n_ctas):
+    """int8 rows in k chunks at pack32 k_pair 49-64: the one-list instance
+    (209,440 B at k_pair 64), over 512 and 256 strided groups, on the
+    card's grid and on 3 persistent CTAs: bit for bit on every input, ties
+    included; pad rows dead; the CUDA-core int8 kernel equal on every
+    row."""
+    make = bs.int8_tie_inputs if inputs == "ties" else bs.random_int8_inputs
+    args, scale, q_scale = make(cuda, s_eff=s_eff, n_blocks=64, nq=500, d=d,
+                                cap_total=8192, seed=d + k_pair)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=True,
+              slot_mask=s_eff - 1)
+    _int8_held(args, kw, scale, q_scale, "tc_int8_pack32", n_ctas=n_ctas)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d,k_pair", [
+    (torch.bfloat16, 1032, 10),   # a row of 2,064 bytes
+    (torch.int8, 1040, 10),       # a row of 1,040 bytes
+    (torch.bfloat16, 1024, 17),   # the exact lists hold 16
+])
+def test_block_tc_refuses_shapes_past_the_limit(cuda, dtype, d, k_pair):
+    """Shapes past the tensor-core body's limits: launch(route="tc_*")
+    raises before the library is called, pick_route names the CUDA-core
+    kernel, and the C entry point itself returns cudaErrorInvalidValue
+    without launching (the output keeps its fill)."""
+    from torchpq_tpu_torch import _build
+    lib = _build.library()
+    s_eff, int8 = 512, dtype == torch.int8
+    if int8:
+        args, scale, q_scale = bs.random_int8_inputs(
+            cuda, s_eff=s_eff, n_blocks=4, nq=50, d=d, cap_total=4096)
+        extra = dict(scale=scale, q_scale=q_scale)
+    else:
+        args = bs.random_inputs(cuda, s_eff=s_eff, n_blocks=4, nq=50, d=d,
+                                cap_total=4096)
+        extra = {}
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=False,
+              slot_mask=s_eff - 1, **extra)
+    route = bs.pick_route(dtype=dtype, d=d, p_tile=128, s_eff=s_eff,
+                          k_pair=k_pair, pack32=False)
+    assert route == ("int8_" if int8 else "") + "exact"
+    with pytest.raises(ValueError, match="tensor-core"):
+        _block_uncounted(args, kw, "tc_" + route)
+    out = torch.full((4, 128, 2 * k_pair), 7, dtype=torch.int32,
+                     device=cuda)
+    ptrs = [t.data_ptr() for t in args]
+    common = (out.data_ptr(), 4, 128, d, s_eff, k_pair, 1, 0, s_eff - 1, 0,
+              2, torch.cuda.current_stream().cuda_stream)
+    if int8:
+        rc = lib.torchpq_block_scan_tc_int8(
+            ptrs[0], q_scale.data_ptr(), *ptrs[1:6], scale.data_ptr(),
+            ptrs[6], *common)
+    else:
+        rc = lib.torchpq_block_scan_tc(*ptrs, *common)
+    torch.cuda.synchronize()
+    assert rc == 1  # cudaErrorInvalidValue
+    assert bool((out == 7).all())
+
+
 @pytest.mark.gpu
 def test_tc_smem_matches_mirror(cuda):
     """The library's shared-memory sizes of the three tensor-core scans
     equal ops/block_scan.py's mirror of scan_tc.cuh:body_smem_bytes (which
-    pick_route reads without the library), the codes scan's its own mirror
-    ops/codes_scan.py:tc_smem_bytes (the 512 * d-byte codebook beside the
-    body; above pack32 k_pair 48 the deep instance's ring and one tile);
-    an entry point refuses, without launching, a shape whose shared memory
-    exceeds the limit (the chunked int8 rows at pack32 k_pair 64); and the
-    codes entry point launches at pack32 k_pair 64, d = 128, equal to the
-    plain version on integer inputs."""
+    pick_route reads without the library; bf16 rows in k chunks up to d
+    1024, and chunked pack32 above k_pair 48 with one running list), the
+    codes scan's its own mirror ops/codes_scan.py:tc_smem_bytes (the
+    512 * d-byte codebook beside the body; above pack32 k_pair 48 the deep
+    instance's ring and one tile); every routed shape within the limit,
+    and the chunked int8 rows at pack32 k_pair 64 launching (209,440 B, one
+    running list) equal to the plain version on live rows; an entry point
+    refuses, without launching, a k_pair past the lists' 64; and the codes
+    entry point launches at pack32 k_pair 64, d = 128, equal to the plain
+    version on integer inputs."""
     from torchpq_tpu_torch import _build
     lib = _build.library()
-    for d in (32, 40, 64, 128):
+    for d in (32, 40, 64, 128, 136, 160, 200, 384, 960, 1024):
         for pack32 in (0, 1):
             for k_pair in (1, 10, 16, 40, 48, 49, 57, 64):
                 want = bs.tc_route_smem(d=d, pack32=pack32, k_pair=k_pair)
@@ -314,18 +460,34 @@ def test_tc_smem_matches_mirror(cuda):
                 assert lib.torchpq_block_scan_tc_int8_smem(
                     d, pack32, k_pair) == bs.tc_route_smem(
                         d=d, pack32=pack32, k_pair=k_pair, dtype=torch.int8)
-    assert bs.tc_route_smem(d=1024, pack32=True, k_pair=64,
-                            dtype=torch.int8) > bs._SMEM_LIMIT
+    for dtype, d in ((torch.bfloat16, 1024), (torch.int8, 1024)):
+        assert bs.tc_route_smem(d=d, pack32=True, k_pair=64,
+                                dtype=dtype) <= bs._SMEM_LIMIT
     args, scale, q_scale = bs.random_int8_inputs(
         cuda, s_eff=1024, n_blocks=4, nq=50, d=1024, cap_total=4096)
+
+    def int8_entry(k_pair):
+        o = torch.full((4, 128, k_pair), 7, dtype=torch.int32, device=cuda)
+        rc = lib.torchpq_block_scan_tc_int8(
+            args[0].data_ptr(), q_scale.data_ptr(), args[1].data_ptr(),
+            args[2].data_ptr(), args[3].data_ptr(), args[4].data_ptr(),
+            args[5].data_ptr(), scale.data_ptr(), args[6].data_ptr(),
+            o.data_ptr(), 4, 128, 1024, 1024, k_pair, 1, 1, 1023, 512, 4,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        return rc, o
+
+    rc, o = int8_entry(65)
+    assert rc == 1  # cudaErrorInvalidValue, nothing written
+    assert bool((o == 7).all())
+    rc, o = int8_entry(64)
+    assert rc == 0
+    ref = bs.block_scan_ref(*args, s_eff=1024, k_pair=64, euclidean=True,
+                            pack32=True, slot_mask=1023, scale=scale,
+                            q_scale=q_scale)
+    live = args[1] >= 0
+    assert torch.equal(o[live], ref[live])
     out = torch.empty((4, 128, 64), dtype=torch.int32, device=cuda)
-    rc = lib.torchpq_block_scan_tc_int8(
-        args[0].data_ptr(), q_scale.data_ptr(), args[1].data_ptr(),
-        args[2].data_ptr(), args[3].data_ptr(), args[4].data_ptr(),
-        args[5].data_ptr(), scale.data_ptr(), args[6].data_ptr(),
-        out.data_ptr(), 4, 128, 1024, 1024, 64, 1, 1, 1023, 512, 4,
-        torch.cuda.current_stream().cuda_stream)
-    assert rc == 1  # cudaErrorInvalidValue
     cargs = cs.integer_codes_inputs(cuda, s_eff=1024, n_blocks=4, nq=50,
                                     m=64, dsub=2, cap_total=4096)
     rc = lib.torchpq_codes_scan_tc(
@@ -344,12 +506,12 @@ def test_tc_smem_matches_mirror(cuda):
 
 @pytest.mark.gpu
 def test_block_routes_on_card(cuda):
-    """bf16 at d = 128 and int8 at d = 128 and 1024 take the tensor-core
-    kernels, pack32 k_pair 64 too at bf16 and int8 d = 128; an f32 cache,
-    bf16 exact k_pair 20, int8 at d = 1040 or exact k_pair 20 and int8
-    pack32 k_pair 64 at d = 1024 (shared memory) take the CUDA-core one;
-    each counts under its own key, and asking the tensor-core route for
-    the others raises before anything launches."""
+    """bf16 at d = 128 and 1024 and int8 at d = 128 and 1024 take the
+    tensor-core kernels, pack32 k_pair 64 too at every such width; an f32
+    cache, bf16 exact k_pair 20 or d = 1032, and int8 at d = 1040 or exact
+    k_pair 20 take the CUDA-core one; each counts under its own key, and
+    asking the tensor-core route for the others raises before anything
+    launches."""
     for dtype, d, k_pair, pack32, route in (
             (torch.bfloat16, 128, 10, False, "tc_exact"),
             (torch.bfloat16, 128, 10, True, "tc_pack32"),
@@ -363,7 +525,10 @@ def test_block_routes_on_card(cuda):
             (torch.int8, 128, 20, False, "int8_exact"),
             (torch.bfloat16, 128, 64, True, "tc_pack32"),
             (torch.int8, 128, 64, True, "tc_int8_pack32"),
-            (torch.int8, 1024, 64, True, "int8_pack32")):
+            (torch.int8, 1024, 64, True, "tc_int8_pack32"),
+            (torch.bfloat16, 1024, 10, False, "tc_exact"),
+            (torch.bfloat16, 1024, 64, True, "tc_pack32"),
+            (torch.bfloat16, 1032, 10, True, "pack32")):
         extra = {}
         if dtype == torch.int8:
             args, scale, q_scale = bs.random_int8_inputs(
@@ -371,7 +536,7 @@ def test_block_routes_on_card(cuda):
             extra = dict(scale=scale, q_scale=q_scale)
         else:
             args = bs.random_inputs(cuda, s_eff=512, n_blocks=16, nq=300,
-                                    cap_total=8192, dtype=dtype)
+                                    d=d, cap_total=8192, dtype=dtype)
         kw = dict(s_eff=512, k_pair=k_pair, euclidean=True, pack32=pack32,
                   slot_mask=511, **extra)
         got, r = _block_launch(args, kw)

@@ -53,9 +53,12 @@
 //   ldmatrix per k step, the accumulators of a warp's columns kept across a
 //   tile's chunks (64 registers). Budget at d = 1024: 202,784 B exact and
 //   159,776 B pack32 at k_pair 10, 208,928 B exact at 16, 218,144 B pack32
-//   at 48 (242,720 B at 64: above the limit, so ops/block_scan.py keeps
-//   chunked pack32 k_pair > 48 on block_scan.cu). One CTA of 8 warps per
-//   SM in both, for its registers.
+//   at 48 (pass by pass); pack32 k_pair 49-64 (the GIST-class plans at
+//   k = 100) in an instance of its own with one running list
+//   (scan_tc.cuh's ONE_LIST: the merge staged through the query chunk
+//   just scored), pass by pass as well: 209,440 B at 64 (two lists:
+//   242,720 B, above the limit). One CTA of 8 warps per SM in both, for
+//   its registers.
 
 #include <cstdint>
 
@@ -66,7 +69,7 @@ namespace {
 using namespace tpq;
 using namespace tpq::tc;
 
-template <bool PACK, int KMAX, bool CHUNKED>
+template <bool PACK, int KMAX, bool CHUNKED, bool ONE_LIST>
 __global__ void __launch_bounds__(THREADS, 1) block_scan_tc_int8_kernel(
     const signed char* __restrict__ qtable, const float* __restrict__ q_scale,
     const int* __restrict__ probers, const int* __restrict__ start_c,
@@ -78,30 +81,34 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_tc_int8_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   RowsSource<true> src;
   src.init(decoded, penalty, scale, d, row_ld(d, CHUNKED));
-  scan_blocks<S8, PACK, KMAX, CHUNKED>(
+  scan_blocks<S8, PACK, KMAX, CHUNKED, ONE_LIST>(
       src, smem_raw, reinterpret_cast<const unsigned char*>(qtable), q_scale,
       probers, start_c, off, capb, out, n_blocks, p_tile, d, s_eff, k_pair,
       factor, slot_mask, n_groups);
 }
 
 size_t smem_of(int d, int pack32, int k_pair) {
-  return body_smem_bytes(d, pack32, k_pair, true, d > MAX_ROW);
+  return body_smem_bytes(d, pack32, k_pair, true, d > MAX_ROW, false,
+                         one_list_of(d, pack32, k_pair));
 }
 
-template <bool PACK, int KMAX, bool CHUNKED>
+template <bool PACK, int KMAX, bool CHUNKED, bool ONE_LIST>
 int occupancy_of(int d, int k_pair) {
-  return occupancy(block_scan_tc_int8_kernel<PACK, KMAX, CHUNKED>,
+  return occupancy(block_scan_tc_int8_kernel<PACK, KMAX, CHUNKED, ONE_LIST>,
                    smem_of(d, PACK, k_pair));
 }
 
 template <bool CHUNKED>
 int occupancy_mode(int d, int pack32, int k_pair) {
   if (pack32 && !CHUNKED && k_pair > PASS_K) {
-    return occupancy_of<true, MAX_PACK_K, false>(d, k_pair);
+    return occupancy_of<true, MAX_PACK_K, false, false>(d, k_pair);
   }
-  if (pack32) return occupancy_of<true, PASS_K, CHUNKED>(d, k_pair);
-  return k_pair <= 10 ? occupancy_of<false, 10, CHUNKED>(d, k_pair)
-                      : occupancy_of<false, 16, CHUNKED>(d, k_pair);
+  if (pack32 && CHUNKED && k_pair > CHUNKED_PACK_K) {
+    return occupancy_of<true, PASS_K, true, true>(d, k_pair);
+  }
+  if (pack32) return occupancy_of<true, PASS_K, CHUNKED, false>(d, k_pair);
+  return k_pair <= 10 ? occupancy_of<false, 10, CHUNKED, false>(d, k_pair)
+                      : occupancy_of<false, 16, CHUNKED, false>(d, k_pair);
 }
 
 }  // namespace
@@ -111,10 +118,9 @@ int occupancy_mode(int d, int pack32, int k_pair) {
 // (chunked above 256); q_scale [nq] and scale [capacity] f32; probers
 // [n_blocks, p_tile] int32 (p_tile % 16 == 0, p_tile <= 128), start_c /
 // off / capb [n_blocks] int32, penalty [capacity] f32, out int32; exact:
-// k_pair <= 16; pack32: k_pair <= 64 where the shared memory fits (d <=
-// 256: 173,088 B at k_pair 64; chunked rows: up to k_pair 57, and
-// ops/block_scan.py sends them k_pair <= 48, 218,144 B) and
-// n_groups % 8 == 0, either n_groups == s_eff <= 128, or n_groups a
+// k_pair <= 16; pack32: k_pair <= 64 (d <= 256: 173,088 B at k_pair 64;
+// chunked rows: 218,144 B at 48, one running list above it, 209,440 B at
+// 64) and n_groups % 8 == 0, either n_groups == s_eff <= 128, or n_groups a
 // multiple of 128 that divides s_eff. n_ctas: the persistent grid (at most
 // n_blocks). Returns 0 or the CUDA error code of an attribute call or the
 // launch (cudaErrorInvalidValue, without launching, for other shapes or a
@@ -139,25 +145,23 @@ extern "C" int torchpq_block_scan_tc_int8(
   static_cast<const signed char*>(qtable), q_scale, probers, start_c, off,   \
       capb, penalty, scale, static_cast<const signed char*>(decoded), out,   \
       n_blocks, p_tile, d, s_eff, k_pair, factor, slot_mask, n_groups
-#define TPQ_LAUNCH(CH)                                                        \
-  if (pack32 && !CH && k_pair > PASS_K) {                                     \
-    return launch_kernel(block_scan_tc_int8_kernel<true, MAX_PACK_K, false>, \
-                         dim3(n_ctas), THREADS, smem, st, TPQ_ARGS);         \
-  }                                                                           \
-  if (pack32) {                                                               \
-    return launch_kernel(block_scan_tc_int8_kernel<true, PASS_K, CH>,        \
-                         dim3(n_ctas), THREADS, smem, st, TPQ_ARGS);         \
-  }                                                                           \
-  if (k_pair <= 10) {                                                         \
-    return launch_kernel(block_scan_tc_int8_kernel<false, 10, CH>,           \
-                         dim3(n_ctas), THREADS, smem, st, TPQ_ARGS);         \
-  }                                                                           \
-  return launch_kernel(block_scan_tc_int8_kernel<false, 16, CH>,             \
-                       dim3(n_ctas), THREADS, smem, st, TPQ_ARGS);
-  if (d > MAX_ROW) {
-    TPQ_LAUNCH(true)
+#define TPQ_LAUNCH(...)                                                    \
+  return launch_kernel(block_scan_tc_int8_kernel<__VA_ARGS__>, dim3(n_ctas), \
+                       THREADS, smem, st, TPQ_ARGS)
+  if (d > MAX_ROW) {  // chunked rows
+    if (pack32 && k_pair > CHUNKED_PACK_K) {  // one running list
+      TPQ_LAUNCH(true, PASS_K, true, true);
+    }
+    if (pack32) TPQ_LAUNCH(true, PASS_K, true, false);
+    if (k_pair <= 10) TPQ_LAUNCH(false, 10, true, false);
+    TPQ_LAUNCH(false, 16, true, false);
   }
-  TPQ_LAUNCH(false)
+  if (pack32 && k_pair > PASS_K) {  // the deep selects: sorted
+    TPQ_LAUNCH(true, MAX_PACK_K, false, false);
+  }
+  if (pack32) TPQ_LAUNCH(true, PASS_K, false, false);
+  if (k_pair <= 10) TPQ_LAUNCH(false, 10, false, false);
+  TPQ_LAUNCH(false, 16, false, false);
 #undef TPQ_LAUNCH
 #undef TPQ_ARGS
 }

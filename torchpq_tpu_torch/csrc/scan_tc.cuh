@@ -39,15 +39,32 @@
 //   with rows of round32(rb) + 16 bytes (an odd multiple of 16 bytes, so
 //   the 8 row addresses of an ldmatrix phase fall on distinct banks; the K
 //   padding is zero), which is B as it lies (tc_ptx.cuh).
-// - Chunked rows (CHUNKED; int8 with 256 < rb <= 1024, the GIST-class
-//   cache of 1,024 bytes): a row's A fragments would take 128 registers and
-//   a tile of whole rows 128 KB, so the body walks each tile in k chunks of
-//   256 bytes, a ring stage per (tile, chunk): the window chunk [TN][272]
-//   and the block's query rows' chunk [MAX_PT][272] (zero for -1 rows and
-//   past d), read by ldmatrix per k step. A warp's accumulators (up to 64
-//   columns x 2 groups, 64 registers) persist across a tile's chunks, and
+// - Chunked rows (CHUNKED; rb > 256: int8 rows up to 1,024 bytes and bf16
+//   rows up to 2,048, the GIST-class caches 1,024 wide): a row's A
+//   fragments would take 128 registers or more and a tile of whole rows
+//   128 KB or more, so the body walks each tile in k chunks of 256 bytes, a
+//   ring stage per (tile, chunk): the window chunk [TN][272] and the
+//   block's query rows' chunk [MAX_PT][272] (zero for -1 rows and past d),
+//   read by ldmatrix per k step. A warp's accumulators (up to 64 columns x
+//   2 groups, 64 registers, s32 or f32) persist across a tile's chunks, and
 //   the select runs at its last chunk; integer sums are exact in any order,
-//   so the chunking changes no bit.
+//   so the chunking changes no int8 bit; bf16 chunks are summed from zero
+//   apart and added in f32 (the tensor cores' accumulation truncates, see
+//   APART below). Where the last chunk ends in half a k step, its tile
+//   bytes past the row are zeroed once (bf16: a stale NaN pattern there
+//   would survive the zeros of A).
+// - One running list (ONE_LIST; chunked pack32 above k_pair 48, the deep
+//   selects of the GIST-class caches, whose two tiles, two query chunks
+//   and two running lists at k_pair 64 would take 241,696 B (bf16) or
+//   242,720 B (int8) against the limit): a phase end's merge writes each
+//   row's new list into the query rows' chunk just scored (free from the
+//   select's barrier to the stage's closing one; 33,280 B of lists fit its
+//   34,816, and the next copy into it rewrites every byte the products
+//   read, where a window tile's bytes past a ragged row would keep list
+//   words) and copies it back over the running list, thread by thread, so
+//   a second list is not kept: 208,416 B and 209,440 B at k_pair 64. Its
+//   phase ends extract pass by pass: with the sort (sort_slice) beside the
+//   64 persistent accumulators ptxas spilled 120-256 B at 255 registers.
 // - Two ring stages alternate: the source's fetch() starts the next stage
 //   before the warps score this one, and its land() finishes it after; one
 //   __syncthreads per stage. A block's last stage brings the CTA's next
@@ -132,7 +149,10 @@ constexpr int TN = 128;                // window columns per tile
 constexpr int MAX_ROW = 256;           // widest row (bytes) A registers hold
 constexpr int KSTEPS = MAX_ROW / 32;   // 32-byte k steps of the widest row
 constexpr int CHUNK = 256;             // k chunk (bytes) of chunked rows
-constexpr int MAX_CHUNKED_ROW = 1024;  // widest chunked row (bytes)
+constexpr int MAX_CHUNKED_ROW = 1024;  // widest chunked int8 row (bytes)
+constexpr int MAX_CHUNKED_ROW_BF16 = 2048;  // and bf16 row: d <= 1024
+constexpr int CHUNKED_PACK_K = 48;     // chunked pack32 k_pair with two
+                                       // running lists (above: ONE_LIST)
 constexpr int MAX_PT = 16 * WARPS;     // probers per block: up to 8 m tiles
 constexpr int MAX_EXACT_K = 16;        // exact k_pair the lane lists take
 constexpr int MAX_PACK_K = 64;         // pack32 k_pair (where the shared
@@ -158,6 +178,7 @@ struct Bf16 {
   using Acc = float;
   static constexpr int ELEM = 2;
   static constexpr bool SCALED = false;
+  static constexpr bool EXACT = false;  // sums exact in any order
   __device__ static __forceinline__ void mma(float (&c)[4],
                                              const uint32_t (&a)[4],
                                              uint32_t b0, uint32_t b1) {
@@ -178,6 +199,7 @@ struct S8 {
   using Acc = int;
   static constexpr int ELEM = 1;
   static constexpr bool SCALED = true;
+  static constexpr bool EXACT = true;
   __device__ static __forceinline__ void mma(int (&c)[4],
                                              const uint32_t (&a)[4],
                                              uint32_t b0, uint32_t b1) {
@@ -209,20 +231,28 @@ __host__ __device__ inline int list_ld(int k_pair, int pack32) {
 // flags [MAX_PT / 16], slice lists [WARPS][16][list_ld] (exact: values and
 // columns; pack32: keys), then exact: score staging rows [WARPS][16][SLD]
 // f32, row bounds [WARPS][16] f32 and the lanes' queues [QUEUE][THREADS]
-// f32 and int; pack32: running lists [2][MAX_PT][list_ld]. Each part is a
-// multiple of 16 bytes (rb % 16 == 0).
+// f32 and int; pack32: running lists [2][MAX_PT][list_ld] (one_list:
+// [1][MAX_PT][list_ld]). Each part is a multiple of 16 bytes (rb % 16 ==
+// 0).
 __host__ __device__ inline size_t body_smem_bytes(int rb, int pack32,
                                                   int k_pair, bool scaled,
                                                   bool chunked,
-                                                  bool one_tile = false) {
+                                                  bool one_tile = false,
+                                                  bool one_list = false) {
   const size_t kls = list_ld(k_pair, pack32);
   return (size_t)(one_tile ? 1 : 2) * TN * row_ld(rb, chunked) *
              (chunked ? 2 : 1) +
          (size_t)16 * TN + (scaled ? (size_t)8 * TN : 0) + 4 * MAX_PT +
          4 * (MAX_PT / 16) + (size_t)WARPS * 16 * kls * (pack32 ? 4 : 8) +
-         (pack32 ? (size_t)2 * MAX_PT * kls * 4
+         (pack32 ? (size_t)(one_list ? 1 : 2) * MAX_PT * kls * 4
                  : (size_t)WARPS * 16 * (SLD + 1) * 4 +
                        (size_t)QUEUE * THREADS * 8);
+}
+
+// Whether a rows source's scan of rows of rb bytes keeps one running list
+// (ONE_LIST): chunked pack32 above CHUNKED_PACK_K.
+__host__ __device__ inline bool one_list_of(int rb, int pack32, int k_pair) {
+  return rb > MAX_ROW && pack32 && k_pair > CHUNKED_PACK_K;
 }
 
 // The shapes the body takes (the sources' own terms apart): rows of rb
@@ -230,10 +260,11 @@ __host__ __device__ inline size_t body_smem_bytes(int rb, int pack32,
 // exact k_pair <= 16; pack32 k_pair <= 64 with G % 8 == 0, either G ==
 // s_eff <= TN, or G a multiple of TN that divides s_eff. The entry points
 // also refuse a shared memory above SMEM_LIMIT: the pack32 lists take
-// 1,536 bytes per entry of their row stride, so k_pair 64 fits the rows
-// sources (bf16 d <= 128: 172,064 B; int8 d <= 256: 173,088 B) and the
-// codes one with its codebook in one tile (d <= 128: at most 219,168 B),
-// but not the chunked int8 one (242,720 B).
+// 1,536 bytes per entry of their row stride (1,024 with one running list),
+// so k_pair 64 fits the rows sources (bf16 d <= 128: 172,064 B; int8 d <=
+// 256: 173,088 B; chunked rows with one running list: 208,416 B bf16,
+// 209,440 B int8) and the codes one with its codebook in one tile (d <=
+// 128: at most 219,168 B).
 __host__ inline bool shape_ok(int n_blocks, int n_ctas, int p_tile, int rb,
                               int max_rb, int s_eff, int k_pair, int pack32,
                               int n_groups) {
@@ -519,8 +550,10 @@ __device__ __forceinline__ A& pick(A& chunked, A& narrow) {
 // 16 (shorter lists make each insert cheaper); pack32: the largest k_pair
 // the kernel serves, PASS_K (a pass per key) or MAX_PACK_K (sort_slice: a
 // kernel of its own, so the sort's registers burden only the deep selects,
-// and a source whose registers it would spill keeps the passes).
-template <typename Op, bool PACK, int KMAX, bool CHUNKED, typename Source>
+// and a source whose registers it would spill keeps the passes). ONE_LIST:
+// one running list (see the notes above; a two-tile source's pack32).
+template <typename Op, bool PACK, int KMAX, bool CHUNKED,
+          bool ONE_LIST = false, typename Source>
 __device__ __forceinline__ void scan_blocks(
     Source& src, unsigned char* smem, const unsigned char* __restrict__ qtable,
     const float* __restrict__ q_scale, const int* __restrict__ probers,
@@ -539,6 +572,10 @@ __device__ __forceinline__ void scan_blocks(
   const int kls = list_ld(k_pair, PACK);  // the lists' row stride
   constexpr bool SORT = PACK && KMAX > PASS_K;  // deep pack32: sort_slice
   constexpr bool ONE = Source::ONE_TILE;  // one tile, landed after a barrier
+  static_assert(!ONE_LIST || (PACK && CHUNKED && !ONE),
+                "one running list: a chunked pack32 scan over two tiles");
+  static_assert((MAX_PACK_K + 1) * 4 <= CHUNK + 16,
+                "a query chunk's rows hold the merged lists");
   // the prober whose row this thread reads (chunked: every thread copies
   // a half of row t % MAX_PT; else threads t < MAX_PT own row t)
   const int prow_t = CHUNKED ? t % MAX_PT : t;
@@ -556,16 +593,21 @@ __device__ __forceinline__ void scan_blocks(
   int* keys_s = live_s + MAX_PT / 16;  // slice lists [WARPS][16][kls]
   float* vals_s = reinterpret_cast<float*>(keys_s + WARPS * 16 * kls);
   int* run_s = keys_s + WARPS * 16 * kls;  // pack32 [2][MAX_PT][kls]
+                                           // (ONE_LIST: [1][MAX_PT][kls])
   float* stage_s = vals_s + WARPS * 16 * kls;  // exact [WARPS][16][SLD]
   volatile float* rowb_s = stage_s + WARPS * 16 * SLD;  // exact [WARPS][16]
   float* qv_s = stage_s + WARPS * 16 * (SLD + 1);  // exact [QUEUE][THREADS]
   int* qc_s = reinterpret_cast<int*>(qv_s + QUEUE * THREADS);
 
   // narrow: the K padding of the tiles (16 bytes or none), zero once (the
-  // sources write [0, rb)); chunked rows pad A instead (copy_a_chunk)
-  if (!CHUNKED && round32(rb) > rb) {
+  // sources write [0, rb)); chunked rows pad A instead (copy_a_chunk), and
+  // bf16 ones zero the tiles past their last chunk's bytes tb as well (the
+  // full chunks later write finite values there; a stale NaN pattern
+  // before them would survive the zeros of A)
+  const int tb = CHUNKED ? rb - (nch - 1) * CHUNK : rb;
+  if ((!CHUNKED || !Op::SCALED) && round32(tb) > tb) {
     for (int i = t; i < (ONE ? 1 : 2) * TN; i += THREADS) {
-      *reinterpret_cast<uint4*>(tiles + i * ld + rb) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(tiles + i * ld + tb) = make_uint4(0, 0, 0, 0);
     }
   }
 
@@ -743,28 +785,86 @@ __device__ __forceinline__ void scan_blocks(
           for (int gq = 0; gq < 2; ++gq) {  // up to 4 pairs (64 columns)
             const int p0 = slice * np_s + 4 * gq;  // first pair of the group
             if (4 * gq < np_s && 16 * p0 < nrow) {
+              // sum: the tile's sums. Chunked bf16 rows sum each chunk
+              // from zero apart (APART) and add it to the tile's sums in
+              // f32: the tensor cores' f32 accumulation truncates at each
+              // mma.sync relative to the accumulator, so one chain of 64 k
+              // steps at d = 1024 put 2.4% of the pack32 keys off an
+              // f64-summed select's (the plain version 0.7%; apart 0.3%).
+              // A chunk's sums are taken PP pairs at a time (A loaded once
+              // per PP pairs and k step): pack32 takes 2 (16 registers
+              // beside the tile's sums and the group maxima; 4 spilled),
+              // exact 4. Integer sums chain across chunks.
+              constexpr bool APART = CHUNKED && !Op::EXACT;
+              constexpr int PP = PACK ? 2 : 4;
               Acc accn[8][4];
-              Acc(&acc)[8][4] = pick<CHUNKED>(accw[gq], accn);
+              Acc(&sum)[8][4] = pick<CHUNKED>(accw[gq], accn);
+              if constexpr (APART) {
 #pragma unroll
-              for (int ks = 0; ks < KSTEPS; ++ks) {
-                if (ks < kst) {
-                  uint32_t af[4];
-                  if constexpr (CHUNKED) ldmatrix_x4(af, arow + 32 * ks);
-                  const uint32_t(&ak)[4] = pick<CHUNKED>(af, a[ks]);
-                  const bool fresh = ks == 0 && (!CHUNKED || kc == 0);
+                for (int n0 = 0; n0 < 4; n0 += PP) {
+                  Acc part[2 * PP][4];
 #pragma unroll
-                  for (int np = 0; np < 4; ++np) {
-                    const int c0 = 16 * (p0 + np);
-                    if (4 * gq + np < np_s && c0 < nrow) {
-                      uint32_t bf[4];
-                      ldmatrix_x4(bf, tile + (c0 + ldm_b_row(lane)) * ld +
-                                          32 * ks + 2 * ldm_b_col(lane));
-                      if (fresh) {
-                        Op::mma_zero(acc[2 * np], ak, bf[0], bf[1]);
-                        Op::mma_zero(acc[2 * np + 1], ak, bf[2], bf[3]);
-                      } else {
-                        Op::mma(acc[2 * np], ak, bf[0], bf[1]);
-                        Op::mma(acc[2 * np + 1], ak, bf[2], bf[3]);
+                  for (int ks = 0; ks < KSTEPS; ++ks) {
+                    if (ks < kst) {
+                      uint32_t af[4];
+                      ldmatrix_x4(af, arow + 32 * ks);
+#pragma unroll
+                      for (int np = n0; np < n0 + PP; ++np) {
+                        const int c0 = 16 * (p0 + np);
+                        if (4 * gq + np < np_s && c0 < nrow) {
+                          uint32_t bf[4];
+                          ldmatrix_x4(bf, tile + (c0 + ldm_b_row(lane)) * ld +
+                                              32 * ks + 2 * ldm_b_col(lane));
+                          Acc(&lo)[4] = part[2 * (np - n0)];
+                          Acc(&hi)[4] = part[2 * (np - n0) + 1];
+                          if (ks == 0) {
+                            Op::mma_zero(lo, af, bf[0], bf[1]);
+                            Op::mma_zero(hi, af, bf[2], bf[3]);
+                          } else {
+                            Op::mma(lo, af, bf[0], bf[1]);
+                            Op::mma(hi, af, bf[2], bf[3]);
+                          }
+                        }
+                      }
+                    }
+                  }
+#pragma unroll
+                  for (int np = n0; np < n0 + PP; ++np) {
+                    if (4 * gq + np < np_s && 16 * (p0 + np) < nrow) {
+#pragma unroll
+                      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+                        for (int i = 0; i < 4; ++i) {
+                          const Acc x = part[2 * (np - n0) + h][i];
+                          Acc& y = sum[2 * np + h][i];
+                          y = kc == 0 ? x : y + x;
+                        }
+                      }
+                    }
+                  }
+                }
+              } else {
+#pragma unroll
+                for (int ks = 0; ks < KSTEPS; ++ks) {
+                  if (ks < kst) {
+                    uint32_t af[4];
+                    if constexpr (CHUNKED) ldmatrix_x4(af, arow + 32 * ks);
+                    const uint32_t(&ak)[4] = pick<CHUNKED>(af, a[ks]);
+                    const bool fresh = ks == 0 && (!CHUNKED || kc == 0);
+#pragma unroll
+                    for (int np = 0; np < 4; ++np) {
+                      const int c0 = 16 * (p0 + np);
+                      if (4 * gq + np < np_s && c0 < nrow) {
+                        uint32_t bf[4];
+                        ldmatrix_x4(bf, tile + (c0 + ldm_b_row(lane)) * ld +
+                                            32 * ks + 2 * ldm_b_col(lane));
+                        if (fresh) {
+                          Op::mma_zero(sum[2 * np], ak, bf[0], bf[1]);
+                          Op::mma_zero(sum[2 * np + 1], ak, bf[2], bf[3]);
+                        } else {
+                          Op::mma(sum[2 * np], ak, bf[0], bf[1]);
+                          Op::mma(sum[2 * np + 1], ak, bf[2], bf[3]);
+                        }
                       }
                     }
                   }
@@ -790,7 +890,7 @@ __device__ __forceinline__ void scan_blocks(
 #pragma unroll
                           for (int rr = 0; rr < 2; ++rr) {
                             const float sc =
-                                Op::score(acc[nt][2 * rr + i], rowm[rr],
+                                Op::score(sum[nt][2 * rr + i], rowm[rr],
                                           i ? cs.y : cs.x, i ? p.y : p.x);
                             const int key =
                                 (sortable(sc) & ~slot_mask) | slt[cl + i];
@@ -822,9 +922,9 @@ __device__ __forceinline__ void scan_blocks(
                         *reinterpret_cast<float2*>(
                             st + frag_c_row(lane, 2 * rr) * SLD + 8 * nt +
                             frag_c_col(lane, 0)) =
-                            make_float2(Op::score(acc[nt][2 * rr], rowm[rr],
+                            make_float2(Op::score(sum[nt][2 * rr], rowm[rr],
                                                   cs.x, p.x),
-                                        Op::score(acc[nt][2 * rr + 1],
+                                        Op::score(sum[nt][2 * rr + 1],
                                                   rowm[rr], cs.y, p.y));
                       }
                     }
@@ -913,10 +1013,16 @@ __device__ __forceinline__ void scan_blocks(
             __syncthreads();
             // one thread per live row: the k_pair largest of its slices'
             // lists (each of k_pair keys, or ended by an INT_MIN) and the
-            // running list of the earlier phases
+            // running list of the earlier phases (ONE_LIST: into the query
+            // chunk just scored, then back over the running list)
             if (t < 16 * nm) {
-              const int* cur = run_s + ((phase & 1) * MAX_PT + t) * kls;
-              int* nxt = run_s + (((phase + 1) & 1) * MAX_PT + t) * kls;
+              const int* cur =
+                  run_s + ((ONE_LIST ? 0 : phase & 1) * MAX_PT + t) * kls;
+              int* nxt =
+                  ONE_LIST ? reinterpret_cast<int*>(a_ring +
+                                                    buf * MAX_PT * ld) +
+                                 t * kls
+                           : run_s + (((phase + 1) & 1) * MAX_PT + t) * kls;
               const int* sl = keys_s + ((t / 16) * S * 16 + t % 16) * kls;
               int h[WARPS];  // the slices' heads (unrolled: registers)
               int hc = 0;    // the running list's head
@@ -940,6 +1046,10 @@ __device__ __forceinline__ void scan_blocks(
                 for (int s = 0; s < WARPS; ++s) h[s] += s == bs;
                 hc += bs == WARPS;
                 nxt[i] = best;
+              }
+              if constexpr (ONE_LIST) {
+                int* run = run_s + t * kls;
+                for (int i = 0; i < k_pair; ++i) run[i] = nxt[i];
               }
             }
             ++phase;
@@ -972,7 +1082,8 @@ __device__ __forceinline__ void scan_blocks(
           const int rw = warp + WARPS * h;  // the row in the tile
           if (prow_s[16 * m2 + rw] >= 0) {
             const int* fin =
-                run_s + ((phase & 1) * MAX_PT + 16 * lt2 + rw) * kls;
+                run_s +
+                ((ONE_LIST ? 0 : phase & 1) * MAX_PT + 16 * lt2 + rw) * kls;
             int* o = out + ((size_t)b * p_tile + 16 * m2 + rw) * k_pair;
             for (int i = lane; i < k_pair; i += 32) o[i] = fin[i];
           }

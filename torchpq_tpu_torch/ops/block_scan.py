@@ -7,15 +7,17 @@ prober id). Three kernels serve it, chosen before launch by `pick_route`,
 each built by `_build.py`, bound through plain C entry points and counted
 under its own key of `launches`:
   - "tc_exact" / "tc_pack32", `csrc/block_scan_tc.cu`: bf16 caches with
-    rows of d <= 128 (d % 8 == 0), blocks of at most 128 probers, on the
-    tensor cores (mma.sync bf16, f32 sums), scoring only the live
-    16-prober tiles of a block; the bf16 tier's probed plans, the deep-k
-    scans (pack32 k_pair 64) included;
+    rows of d <= 1024 (d % 8 == 0; above 128 in k chunks of 256 bytes),
+    blocks of at most 128 probers, on the tensor cores (mma.sync bf16, f32
+    sums), scoring only the live 16-prober tiles of a block; the bf16
+    tier's probed plans, the deep-k scans (pack32 k_pair 64) and the
+    GIST-class cache (1,024 wide) included;
   - "tc_int8_exact" / "tc_int8_pack32", `csrc/block_scan_tc_int8.cu`: int8
     caches with rows of d <= 1024 (d % 16 == 0; above 256 in k chunks of
-    256 bytes, pack32 there up to k_pair 48), the same blocks, on the
-    tensor cores (mma.sync s8, exact s32 sums) through the same kernel
-    body; the int8 tier's probed plans;
+    256 bytes), the same blocks, on the tensor cores (mma.sync s8, exact
+    s32 sums) through the same kernel body; the int8 tier's probed plans;
+    in k chunks, pack32 above k_pair 48 runs an instance of its own that
+    keeps one running list (its shared memory);
   - "exact" / "pack32" and "int8_exact" / "int8_pack32",
     `csrc/block_scan.cu`: f32 caches and the shapes the tensor-core kernels
     do not take, on the CUDA cores (f32 FMAs, __dp4a).
@@ -81,11 +83,12 @@ _TC_WARPS = 8       # warps per CTA
 _TC_MAX_ROW = 256   # widest row (bytes) its A fragments hold: bf16 d <= 128
 _TC_CHUNK = 256     # k chunk (bytes) of wider rows
 _TC_MAX_CHUNKED_ROW = 1024  # widest int8 row it walks in those chunks
+_TC_MAX_CHUNKED_ROW_BF16 = 2048  # and bf16 row: d <= 1024
+_TC_CHUNKED_PACK_K = 48  # chunked pack32 k_pair with two running lists
+                         # (above: one, the ONE_LIST instances)
 _TC_MAX_PT = 128    # probers per block: an m tile per warp of 8
 _TC_KMAX = 16       # the exact k_pair its lane lists take
-_TC_MAX_PACK_K = 64  # the pack32 k_pair of sources whose shared memory
-                     # holds the lists at 64 (bf16 d <= 128, int8 d <= 256)
-_TC_PACK_K_ALL = 48  # the pack32 k_pair every source holds
+_TC_MAX_PACK_K = 64  # the pack32 k_pair its lists take
 _TC_TN = 128        # its tile of window columns
 _TC_SLD = 72        # exact staging row stride (floats)
 _TC_QUEUE = 6       # exact: a lane's queued candidates
@@ -419,7 +422,8 @@ def _cta_probers(smem, p_tile):
                      f"(p_tile={p_tile})")
 
 
-def tc_smem_bytes(rb, pack32, k_pair, scaled, chunked, one_tile=False):
+def tc_smem_bytes(rb, pack32, k_pair, scaled, chunked, one_tile=False,
+                  one_list=False):
     """Dynamic shared memory of the tensor-core scans' body at rows of rb
     bytes: csrc/scan_tc.cuh:body_smem_bytes, term for term (the library's
     `*_smem` entry points report the same; a card test holds them equal),
@@ -427,13 +431,14 @@ def tc_smem_bytes(rb, pack32, k_pair, scaled, chunked, one_tile=False):
     (one_tile: [1][TN][row stride], the deep codes instance; chunked: and
     the query rows' chunks), penalties and slots [2][TN],
     scales [2][TN] (scaled), prober rows and tile flags, the slice lists
-    [WARPS][16][kls], then pack32: the running lists [2][MAX_PT][kls];
-    exact: the staging rows, row bounds and queues. kls: the lists' row
-    stride, k_pair (pack32: made odd, list_ld)."""
+    [WARPS][16][kls], then pack32: the running lists [2][MAX_PT][kls]
+    (one_list: [1][MAX_PT][kls]); exact: the staging rows, row bounds and
+    queues. kls: the lists' row stride, k_pair (pack32: made odd,
+    list_ld)."""
     ld = (_TC_CHUNK if chunked else -(-rb // 32) * 32) + 16
     kls = k_pair | 1 if pack32 else k_pair
     lists = _TC_WARPS * 16 * kls * (4 if pack32 else 8)
-    select = (2 * _TC_MAX_PT * kls * 4 if pack32 else
+    select = ((1 if one_list else 2) * _TC_MAX_PT * kls * 4 if pack32 else
               _TC_WARPS * 16 * (_TC_SLD + 1) * 4 + _TC_QUEUE * 32 * _TC_WARPS
               * 8)
     return ((1 if one_tile else 2) * _TC_TN * ld * (2 if chunked else 1)
@@ -445,39 +450,39 @@ def tc_smem_bytes(rb, pack32, k_pair, scaled, chunked, one_tile=False):
 def tc_route_smem(*, d, pack32, k_pair, dtype=torch.bfloat16):
     """Shared memory of the tensor-core block scan of a `dtype` cache at
     width d (the library's torchpq_block_scan_tc_smem /
-    torchpq_block_scan_tc_int8_smem)."""
-    if dtype == torch.int8:
-        return tc_smem_bytes(d, pack32, k_pair, True, d > _TC_MAX_ROW)
-    return tc_smem_bytes(2 * d, pack32, k_pair, False, False)
+    torchpq_block_scan_tc_int8_smem): rows of more than _TC_MAX_ROW bytes
+    in k chunks, and there pack32 above _TC_CHUNKED_PACK_K with one running
+    list (scan_tc.cuh:one_list_of)."""
+    rb = d if dtype == torch.int8 else 2 * d
+    chunked = rb > _TC_MAX_ROW
+    return tc_smem_bytes(rb, pack32, k_pair, dtype == torch.int8, chunked,
+                         one_list=bool(chunked and pack32
+                                       and k_pair > _TC_CHUNKED_PACK_K))
 
 
 def tc_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
     """Whether the tensor-core scans' body (csrc/scan_tc.cuh) takes these
-    shapes: rows of 16-byte pieces, bf16 d <= 128 (d % 8 == 0, the A
-    fragments in registers) or int8 d <= 1024 (d % 16 == 0, above 256 in
-    k chunks), p_tile a multiple of 16 up to 128; exact with k_pair <= 16;
-    pack32 with the strided group count G = n_groups(s_eff, k_pair) a
-    multiple of 8 that is either the whole row (s_eff <= 128) or a multiple
-    of 128 dividing s_eff (G = 128, 256, 512), and k_pair <= 48, or up to
-    64 where the source's shared memory (tc_route_smem) holds the lists at
-    k_pair 64; and the route's shared memory within the limit. So pack32
-    k_pair 49-64 goes to bf16 rows (d <= 128, 172,064 B at 64) and int8
-    rows held in registers (d <= 256, 173,088 B), not to the int8 rows
-    walked in k chunks (242,720 B at 64, whatever d)."""
+    shapes: rows of 16-byte pieces, above 256 bytes in k chunks, up to
+    1,024 bytes of int8 (d <= 1024, d % 16 == 0) or 2,048 of bf16 (d <=
+    1024, d % 8 == 0); p_tile a multiple of 16 up to 128; exact with
+    k_pair <= 16; pack32 with k_pair <= 64 and the strided group count G =
+    n_groups(s_eff, k_pair) a multiple of 8 that is either the whole row
+    (s_eff <= 128) or a multiple of 128 dividing s_eff (G = 128, 256,
+    512); and the route's shared memory (tc_route_smem) within the limit,
+    which every such shape meets: pack32 k_pair 64 takes 172,064 B at bf16
+    d 128, 173,088 B at int8 d 256, and 208,416 B (bf16) or 209,440 B
+    (int8) over chunked rows of any width, one running list there."""
     rb = d * (1 if dtype == torch.int8 else 2)
-
-    def fits(k):
-        return tc_route_smem(d=d, pack32=pack32, k_pair=k,
-                             dtype=dtype) <= _SMEM_LIMIT
-
-    ok = (rb % 16 == 0 and rb <= (_TC_MAX_CHUNKED_ROW if dtype == torch.int8
-                                  else _TC_MAX_ROW)
-          and p_tile % 16 == 0 and p_tile <= _TC_MAX_PT and fits(k_pair))
+    ok = (rb % 16 == 0
+          and rb <= (_TC_MAX_CHUNKED_ROW if dtype == torch.int8
+                     else _TC_MAX_CHUNKED_ROW_BF16)
+          and p_tile % 16 == 0 and p_tile <= _TC_MAX_PT
+          and tc_route_smem(d=d, pack32=pack32, k_pair=k_pair,
+                            dtype=dtype) <= _SMEM_LIMIT)
     if not pack32:
         return ok and k_pair <= _TC_KMAX
     g = n_groups(s_eff, k_pair)
-    return ok and (k_pair <= _TC_PACK_K_ALL or k_pair <= _TC_MAX_PACK_K
-                   and fits(_TC_MAX_PACK_K)) and g % 8 == 0 and (
+    return ok and k_pair <= _TC_MAX_PACK_K and g % 8 == 0 and (
         g <= _TC_TN if g == s_eff else g % _TC_TN == 0 and s_eff % g == 0)
 
 
@@ -489,10 +494,10 @@ def pick_route(*, dtype, d, p_tile, s_eff, k_pair, pack32):
       - "tc_int8_exact" / "tc_int8_pack32" (`csrc/block_scan_tc_int8.cu`,
         tensor cores): an int8 cache at the shapes of `tc_shapes_ok`;
       - "exact" / "pack32" (`csrc/block_scan.cu`, CUDA cores): f32 caches
-        and the bf16 shapes above it does not take;
+        and the bf16 shapes above it does not take (rows over 2,048 bytes,
+        exact k_pair > 16, other blocks or groups);
       - "int8_exact" / "int8_pack32" (`csrc/block_scan.cu`): the int8
-        shapes the tensor-core kernel does not take (the chunked rows'
-        pack32 k_pair 49-64 among them)."""
+        shapes the tensor-core kernel does not take."""
     mode = "pack32" if pack32 else "exact"
     tc = dtype in (torch.bfloat16, torch.int8) and tc_shapes_ok(
         d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair, pack32=pack32,

@@ -47,7 +47,8 @@ import torch
 from .. import util
 from .block_scan import (BIG, n_groups, random_inputs, resident_ctas,
                          select_chunks, select_exact, select_pack32,
-                         tc_shapes_ok, window_scores, _SMEM_LIMIT, _TC_TN)
+                         tc_shapes_ok, window_scores, _SMEM_LIMIT,
+                         _TC_MAX_ROW, _TC_TN)
 from .block_scan import tc_smem_bytes as body_smem_bytes
 
 # The JAX package's bound on the resident [m*256, d_pad] bf16 decode matrix
@@ -259,14 +260,15 @@ def pick_route(*, m, dsub, p_tile, s_eff, k_pair, pack32):
     in `launches`:
       - "tc_exact" / "tc_pack32" (`csrc/codes_scan_tc.cu`, tensor cores):
         m a power of two (the packed storage's, g*m = 128) and d = m*dsub
-        at the shapes of `block_scan.tc_shapes_ok` (pack32 k_pair <= 64),
-        where the instance's shared memory (`tc_smem_bytes`: the codebook
-        beside the body) fits;
+        <= 128 (bf16 rows the body's A registers hold: the decode source
+        walks no k chunks) at the shapes of `block_scan.tc_shapes_ok`
+        (pack32 k_pair <= 64), where the instance's shared memory
+        (`tc_smem_bytes`: the codebook beside the body) fits;
       - "exact" / "pack32" (`csrc/codes_scan.cu`, CUDA cores): the rest
         (exact k_pair > 16, rows wider than 128, other blocks or groups,
         a shared memory above the limit)."""
     mode = "pack32" if pack32 else "exact"
-    tc = (m & (m - 1) == 0
+    tc = (m & (m - 1) == 0 and 2 * m * dsub <= _TC_MAX_ROW
           and tc_smem_bytes(m=m, dsub=dsub, pack32=pack32,
                             k_pair=k_pair) <= _SMEM_LIMIT
           and tc_shapes_ok(d=m * dsub, p_tile=p_tile, s_eff=s_eff,
