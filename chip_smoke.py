@@ -199,7 +199,10 @@ Phases, each of which fails the run on error:
      within 0.005 of bf16 per k = 10 plan, recall@100 logged; the bf16
      exact scan (n_probe 8) held to block_scan_ref within the tolerance and
      its pack32 scans at k = 10 and k = 100 (k_pair 64 over 512 groups,
-     the one-list instance; n_probe 32) by key or slot as in phase 9, each
+     the one-list instance; n_probe 32) to an f64-summed select by key or
+     slot as in phase 9, and block_scan.cu to it by slot, the values of
+     these 1,024-wide scans within the tolerance plus the bound of an f32
+     sum of their terms (sum_slack: the scores cancel), each
      timed in turns with block_scan.cu; the int8 k = 100 scan bit for bit,
      timed the same way; both tiers profiled.
  18. fused flat scan: the main index with scan_impl="pallas_flat" and
@@ -290,6 +293,9 @@ import numpy as np
 
 TOL_REL = 1e-3  # bf16 products are exact in f32; only summation order differs
 TOL_ABS = 1e-3
+# an f32 rounding unit wide enough for accumulators that truncate: what
+# sum_slack allows a k-chunked (d > 128) score for each term it sums
+F32_UNIT = 2.0 ** -23
 
 
 # the deep tensor-core codes instance (pack32 k_pair 49-64), by the name
@@ -411,27 +417,78 @@ def scan_bound(torch, args, kw, *, slot_bytes, row_bytes, peak, d,
     return bound(2.0 * live * s_eff * d, nbytes, peak)
 
 
-def compare_exact(torch, bs, got, ref, k, rel=TOL_REL, abs_=TOL_ABS):
-    """Values within rel * |v| + abs_; addresses equal wherever a value is
-    separated from its neighbours by more than rel * |v| (rel = abs_ = 0:
-    equal values, equal addresses outside exact ties)."""
+def compare_exact(torch, bs, got, ref, k, rel=TOL_REL, abs_=TOL_ABS,
+                  slack=None):
+    """Values within rel * |v| + abs_ (+ slack, where given: sum_slack);
+    addresses equal wherever a value is separated from its neighbours by
+    more than rel * |v| (+ slack) (rel = abs_ = 0: equal values, equal
+    addresses outside exact ties)."""
     return compare_topk(torch, bs.sortable_i32_to_f32(got[..., :k]),
                         got[..., k:], bs.sortable_i32_to_f32(ref[..., :k]),
-                        ref[..., k:], rel, abs_)
+                        ref[..., k:], rel, abs_, slack)
 
 
-def compare_topk(torch, v, a, vr, ar, rel=TOL_REL, abs_=TOL_ABS):
+def sum_slack(torch, args, euclidean, rows, probers, sides):
+    """What f32 arithmetic may leave of an exact score c <q, y> - pen over
+    a d-wide bf16 row, in any summation order: sides * (d + 2) * F32_UNIT *
+    (c |q| |y| + |pen|) per entry, the forward error bound of a sum of
+    d + 2 terms (Higham, Accuracy and Stability of Numerical Algorithms,
+    2nd ed., eq. 3.5; bf16 products are exact in f32, and
+    sum_i |q_i y_i| <= |q| |y|). At d_cache 1024 the score cancels
+    (2 <q, y> ~ |y|^2 ~ 1e3 on the GIST-class data), so a score near 0
+    carries an error far above TOL_ABS in every order, the plain
+    version's too. rows / probers: the cache rows and the query ids of the
+    entries (same shape; pad probers and dead rows clamped to 0, whose
+    entries are dead or scored with query 0 on both sides). sides: 2
+    between two f32 scores, 1 against the f64-summed one."""
+    def norms(t, chunk=1 << 17):
+        return torch.cat([t[i:i + chunk].float().norm(dim=1)
+                          for i in range(0, t.shape[0], chunk)])
+
+    rows = rows.clamp(min=0).long()
+    terms = (2.0 if euclidean else 1.0) \
+        * norms(args[0])[probers.clamp(min=0).long()] \
+        * norms(args[6])[rows] + args[5][rows].abs()
+    return sides * (args[6].shape[1] + 2) * F32_UNIT * terms
+
+
+def log_slack(what, err, tol, slack, mask):
+    """The entries that only the f32 summation bound (sum_slack) admits."""
+    beyond = mask & (err > tol - slack)
+
+    def most(r):
+        return float(r[mask].max()) if bool(mask.any()) else 0.0
+
+    log(f"{what}: {int(beyond.sum())} of {int(mask.sum())} compared values "
+        f"beyond {TOL_REL:g} |v| + {TOL_ABS:g}, each within the f32 "
+        f"summation bound (largest error / tolerance {most(err / tol):.4f}; "
+        f"against {TOL_REL:g} |v| + {TOL_ABS:g} alone "
+        f"{most(err / (tol - slack)):.4f})")
+
+
+def worst(err, tol, v, vr):
+    """The entry furthest outside its tolerance, for a failure message."""
+    i = int((err - tol).flatten().argmax())
+    return (f"{float(err.flatten()[i]):.6g} at {float(v.flatten()[i]):.6g} "
+            f"(plain {float(vr.flatten()[i]):.6g}, tolerance "
+            f"{float(tol.flatten()[i]):.6g})")
+
+
+def compare_topk(torch, v, a, vr, ar, rel=TOL_REL, abs_=TOL_ABS, slack=None):
     """compare_exact on sorted values v / vr and their addresses a / ar."""
     fin = torch.isfinite(vr)
     if not torch.equal(fin, torch.isfinite(v)):
         fail("exact select: dead entries differ from the plain version")
     err = torch.where(fin, (v - vr).abs(), 0.0)
-    tol = rel * vr.abs() + abs_
+    tol = rel * vr.abs() + abs_ + (0.0 if slack is None else slack)
     if bool((err > torch.where(fin, tol, 1.0)).any()):
-        fail(f"exact select: values off by up to {float(err.max())}")
+        fail(f"exact select: values off by up to {float(err.max())}; worst "
+             f"{worst(err, torch.where(fin, tol, 1.0), v, vr)}")
+    if slack is not None:
+        log_slack("exact select", err, tol, slack, fin)
     # addresses must agree wherever the value is separated from its
     # neighbours by more than the tolerance (else the order may swap)
-    gap = rel * vr.abs()
+    gap = rel * vr.abs() + (0.0 if slack is None else slack)
     left = torch.ones_like(fin)
     left[..., 1:] = (vr[..., :-1] - vr[..., 1:]).abs() > gap[..., 1:]
     right = torch.zeros_like(fin)  # the k-th may tie with the (k+1)-th
@@ -449,20 +506,25 @@ def share_equal(a, b):
 
 
 def compare_pack32(torch, bs, got, ref, slot_mask, what="pack32 select",
-                   by_slot=False):
+                   by_slot=False, slack=None):
     """pack32 keys of a kernel against the plain version's: the values
-    within TOL_REL |v| + TOL_ABS wherever both name the same slot, and
-    >= 0.99 of the entries agreeing, as whole keys or (by_slot) as slots,
-    whose values the first check then holds to the tolerance (where a key's
-    value bits are finer than any f32 summation order keeps them:
-    pack32_scan_row). Returns (max_abs_err, key agreement)."""
+    within TOL_REL |v| + TOL_ABS (+ slack, where given: sum_slack)
+    wherever both name the same slot, and >= 0.99 of the entries agreeing,
+    as whole keys or (by_slot) as slots, whose values the first check then
+    holds to the tolerance (where a key's value bits are finer than any f32
+    summation order keeps them: pack32_scan_row). Returns (max_abs_err, key
+    agreement)."""
     agree = share_equal(got, ref)
     same_slot = (got & slot_mask) == (ref & slot_mask)
     v = bs.sortable_i32_to_f32(got & ~slot_mask)
     vr = bs.sortable_i32_to_f32(ref & ~slot_mask)
     err = torch.where(same_slot, (v - vr).abs(), 0.0)
-    if bool((err > TOL_REL * vr.abs() + TOL_ABS).any()):
-        fail(f"{what}: equal slots, values off by {float(err.max())}")
+    tol = TOL_REL * vr.abs() + TOL_ABS + (0.0 if slack is None else slack)
+    if bool((err > tol).any()):
+        fail(f"{what}: equal slots, values off by up to {float(err.max())}; "
+             f"worst {worst(err, tol, v, vr)}")
+    if slack is not None:
+        log_slack(what, err, tol, slack, same_slot)
     held = share_equal(got & slot_mask, ref & slot_mask) if by_slot \
         else agree
     if held < 0.99:
@@ -492,14 +554,15 @@ def block_launch(torch, bs, args, route, **kw):
 
 
 def compare_rows(torch, bs, got, ref, *, k_pair, pack32, slot_mask, equal,
-                 exact_bits, what, by_slot=False):
+                 exact_bits, what, by_slot=False, slack=None):
     """Rows of a block-scan kernel against the plain version's; fails the
     run on disagreement. equal: bit for bit (integer inputs, every sum
     exact in any order); exact_bits: exact values equal, and pack32 keys
     agree on >= 0.9999 of entries (the plain version's batched GEMM may sum
     in another order on some chunks, which moves a key's low value bits);
     else the tolerances of compare_exact / compare_pack32 (by_slot as
-    there). Returns (max_abs_err, key agreement)."""
+    there; slack: sum_slack's, per entry of ref). Returns (max_abs_err, key
+    agreement)."""
     if equal:
         if not torch.equal(got, ref):
             fail(f"{what} differs from block_scan_ref on integer inputs: "
@@ -507,18 +570,32 @@ def compare_rows(torch, bs, got, ref, *, k_pair, pack32, slot_mask, equal,
         return 0.0, (1.0 if pack32 else None)
     if pack32:
         err, agree = compare_pack32(torch, bs, got, ref, slot_mask, what,
-                                    by_slot)
+                                    by_slot, slack)
         if exact_bits and agree < 0.9999:
             fail(f"{what} pack32 select: key agreement {agree:.7f} < 0.9999")
         return err, agree
     if exact_bits:
         return compare_exact(torch, bs, got, ref, k_pair, 0.0, 0.0), None
-    return compare_exact(torch, bs, got, ref, k_pair), None
+    return compare_exact(torch, bs, got, ref, k_pair, slack=slack), None
+
+
+def entry_slack(torch, args, ref, *, k_pair, pack32, slot_mask, euclidean,
+                sides):
+    """sum_slack for each entry of a block scan's output ref [B, p_tile,
+    ...]: pack32 keys name window slots (row start_c + slot), exact ones
+    carry absolute addresses after their k_pair values."""
+    probers = args[1][..., None]
+    if pack32:
+        rows = args[2][:, None, None] + (ref & slot_mask)
+    else:
+        rows = ref[..., k_pair:]
+    return sum_slack(torch, args, euclidean, rows,
+                     probers.expand(rows.shape), sides)
 
 
 def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
                  reps=20, exact_bits=False, equal=False, extra=None,
-                 by_slot=False):
+                 by_slot=False, f32_bound=False):
     """The block scan as its wrapper routes it against its plain version on
     the same inputs; fails the run on disagreement (compare_rows' criteria,
     equal / exact_bits as there). A tensor-core route (bf16 d <= 128, int8
@@ -527,7 +604,9 @@ def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
     with query 0. Then the CUDA-core kernel of the same cache mode and
     select (csrc/block_scan.cu, the route of f32 caches and of the shapes
     the tensor-core ones leave), launched uncounted, on every row. by_slot:
-    compare_pack32's. Returns (max_abs_err, key agreement, ms, plain_ms) of
+    compare_pack32's. f32_bound: values also within the bound of an f32
+    sum of the scores' terms (sum_slack, both sides f32; the k-chunked
+    rows, d > 128). Returns (max_abs_err, key agreement, ms, plain_ms) of
     the routed kernel, the times None when reps is 0."""
     slot_mask = bs.util.next_pow2(s_eff) - 1
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
@@ -540,16 +619,22 @@ def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
     ref = bs.block_scan_ref(*args, **kw)
     crit = dict(k_pair=k_pair, pack32=pack32, slot_mask=slot_mask,
                 equal=equal, exact_bits=exact_bits, by_slot=by_slot)
+    slack = entry_slack(torch, args, ref, k_pair=k_pair, pack32=pack32,
+                        slot_mask=slot_mask, euclidean=euclidean,
+                        sides=2) if f32_bound else None
     if route.startswith("tc_"):
         if not dead_rows(torch, bs, got, args[1], k_pair, pack32):
             fail(f"{route}: pad rows are not written dead")
         mode = route[3:]
         cc = block_launch(torch, bs, args, mode, **kw)
         torch.cuda.synchronize()
-        compare_rows(torch, bs, cc, ref, what=f"{mode} (CUDA cores)", **crit)
+        compare_rows(torch, bs, cc, ref, what=f"{mode} (CUDA cores)",
+                     slack=slack, **crit)
         live = args[1] >= 0
         got, ref = got[live], ref[live]
-    err, agree = compare_rows(torch, bs, got, ref, what=route, **crit)
+        slack = None if slack is None else slack[live]
+    err, agree = compare_rows(torch, bs, got, ref, what=route, slack=slack,
+                              **crit)
     if not reps:
         return err, agree, None, None
     ms = cuda_ms(torch, lambda: bs.block_scan(*args, **kw), reps)
@@ -885,15 +970,15 @@ def capture_call(tp, index, xq, k, module=None, name="block_scan",
 
 def phase_main_shapes(torch, tp, bs, index, xq, k, label="main path",
                       suffix="", plans=((8, False), (32, True)), reps=20,
-                      both=True):
+                      both=True, f32_bound=False):
     """The kernel against its plain version on the inputs the main path
     really gives it: the block-scan arguments of the exact n_probe=8 and
     the pack32 n_probe=32 searches (plans: (n_probe, approx) pairs), each
     checked with both selects (both=False: the select the search ran) (the
     tensor-core kernel on live rows, pad rows dead; the CUDA-core one on
     every row); then the select the search ran timed on both kernels in
-    turns (reps launches a turn). Returns the kernels' JSON rows (names +
-    suffix) without their launch counts."""
+    turns (reps launches a turn). f32_bound: check_kernel's. Returns the
+    kernels' JSON rows (names + suffix) without their launch counts."""
     rows = {}
     for n_probe, approx in plans:
         index.scan_mode, index.n_probe = "cell_major", n_probe
@@ -912,7 +997,7 @@ def phase_main_shapes(torch, tp, bs, index, xq, k, label="main path",
         for pack32 in ((False, True) if both else (approx,)):
             res = check_kernel(torch, bs, args, s_eff=s_eff, k_pair=k_pair,
                                pack32=pack32, euclidean=kw["euclidean"],
-                               reps=0)
+                               reps=0, f32_bound=f32_bound)
             name = ("block_scan_pack32" if pack32 else "block_scan_exact") \
                 + suffix
             log(f"{name} (tensor cores) on the inputs of the {label} n_probe="
@@ -1611,7 +1696,9 @@ def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
     against_f64: the kernel is held to the f64-summed select itself, by
     the same rule, and the CUDA-core kernel to it by slot (at d_cache 1024
     the plain version's own f32 sums leave the tolerance where the score
-    cancels: 2 <q, y> ~ |y|^2 ~ 1e3).
+    cancels: 2 <q, y> ~ |y|^2 ~ 1e3), both with the values within the
+    tolerance plus the bound of an f32 sum of their terms (sum_slack, the
+    f32 side only), and each kernel's keys equal over two launches.
     Returns the kernels-line row."""
     s_eff, k_pair = kw["s_eff"], kw["k_pair"]
     blocks, p_tile = args[1].shape
@@ -1638,14 +1725,23 @@ def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
     if against_f64:
         if not dead_rows(torch, bs, tc, args[1], k_pair, True):
             fail(f"{what}: tc_pack32 pad rows are not written dead")
+        slack = entry_slack(torch, args, full, k_pair=k_pair, pack32=True,
+                            slot_mask=kkw["slot_mask"],
+                            euclidean=kw["euclidean"], sides=1)
         cc = block_launch(torch, bs, args, "pack32", **kkw)
+        for name_, out in (("pack32 (CUDA cores)", cc), ("tc_pack32", tc)):
+            if not torch.equal(out, block_launch(torch, bs, args,
+                                                 name_.split()[0], **kkw)):
+                fail(f"{what}: {name_} differs between two launches on the "
+                     "same arguments")
         compare_pack32(torch, bs, cc, full, kkw["slot_mask"],
-                       "pack32 (CUDA cores) against the f64 select", True)
+                       "pack32 (CUDA cores) against the f64 select", True,
+                       slack)
         err, agree = compare_pack32(torch, bs, tc[alive], exact,
                                     kkw["slot_mask"],
                                     "tc_pack32 against the f64 select",
-                                    by_slot)
-        del cc
+                                    by_slot, slack[alive])
+        del cc, slack
     del exact, tc, full
     if not against_f64:
         err, agree, _, _ = check_kernel(torch, bs, args, s_eff=s_eff,
@@ -2961,7 +3057,8 @@ def phase_gist_records(torch, tp, bs, trained, base, xq, xb, gt100, d, m,
         else:
             rows.update(phase_main_shapes(
                 torch, tp, bs, idx, xq, 10, label=label.strip(),
-                suffix="_d1024", plans=((8, False),), reps=5, both=False))
+                suffix="_d1024", plans=((8, False),), reps=5, both=False,
+                f32_bound=True))
             launches["block_scan_exact_d1024"] = c10["tc_exact"]
             for kk, name, cnt in ((10, "block_scan_pack32_d1024", c10),
                                   (100, "block_scan_pack32_k100_d1024",
