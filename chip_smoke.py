@@ -45,16 +45,23 @@ Phases, each of which fails the run on error:
      for bit).
   4. the slice: 1M x 128 manifold-12 base + 10k queries (the numpy draws of
      bench.py:make_data, seed 0), IVFPQIndex IVF4096 x PQ64 euclidean,
-     trained on 100k and filled in four 250k adds; exact f32 ground truth
-     on the card; searches: flat, cell_major at n_probe 1/8/32 (pack32
-     select), cell_major at n_probe 8 (exact select). Launch counters are
-     zeroed before and read after this phase; every kernel of the path must
+     trained on 100k; a second training on the same slice must give
+     bit-equal codecs (sha256 logged: the Lloyd sums sort by label and
+     sum each cluster in a fixed order), a third with the atomic sums
+     times their cost, beside compute_centroids alone at 1M x 128 into
+     4096 clusters and the first call of each deterministic route;
+     filled in four 250k adds, the planner's sweep (phase 25) after each
+     of the first three; exact f32 ground truth on the card; searches:
+     flat, cell_major at n_probe 1/8/32 (pack32 select), cell_major at
+     n_probe 8 (exact select). Launch counters are zeroed before the last
+     add and read after these searches; every kernel of the path must
      have launched (the tensor-core block scan's two selects, and the row
      gather, which builds the compacted layouts) and the CUDA-core block
      scan never. Floors: flat recall@10 >= 0.85, n_probe=32 >= 0.75,
      recall non-decreasing in n_probe within 0.005. Then a small-input
      check: the probed exact plan over every cell equals the flat exact
-     plan.
+     plan. Then the planner's sweep at 1M, and the small-index one (the
+     main codecs, the base's first 20k and 100k rows).
   5. kernel vs plain at the main path's shapes: the block-scan arguments of
      the exact n_probe=8 and pack32 n_probe=32 searches, each checked with
      both selects (the tensor-core kernel on live rows, pad rows dead; the
@@ -200,10 +207,11 @@ Phases, each of which fails the run on error:
      exact scan (n_probe 8) held to block_scan_ref within the tolerance and
      its pack32 scans at k = 10 and k = 100 (k_pair 64 over 512 groups,
      the one-list instance; n_probe 32) to an f64-summed select by key or
-     slot as in phase 9, and block_scan.cu to it by slot, the values of
-     these 1,024-wide scans within the tolerance plus the bound of an f32
-     sum of their terms (sum_slack: the scores cancel), each
-     timed in turns with block_scan.cu; the int8 k = 100 scan bit for bit,
+     slot as in phase 9, and block_scan.cu to it by slot, the tensor-core
+     scans' values within the tolerance (their ratio to it logged), those
+     of block_scan.cu's one sequential chain within the tolerance plus the
+     bound of an f32 sum of their terms (sum_slack: the scores cancel),
+     each timed in turns with block_scan.cu; the int8 k = 100 scan bit for bit,
      timed the same way; both tiers profiled.
  18. fused flat scan: the main index with scan_impl="pallas_flat" and
      approx top-k; the flat counters zeroed, the flat plan must launch the
@@ -235,8 +243,8 @@ Phases, each of which fails the run on error:
      counting pass's.
  22. legacy: the v1 IVFPQ facade at 100k x 128 (IVF256 x PQ64, the
      CPU-RAM SQ tier on) trained on the card, its state carried into a CPU
-     facade, the same adds: 1,000 queries at n_probe 8, ids >= 0.999
-     equal; the SQ reconstructions within 0.05.
+     facade, the same adds: 1,000 queries at n_probe 8, cell_major pinned
+     on both, ids >= 0.999 equal; the SQ reconstructions within 0.05.
  23. dp k-means (inside 24's NCCL world): data_parallel_kmeans_fit on the
      100k train slice to 4096 clusters, 10 iterations, D = 1, timed beside
      a plain Lloyd loop from the same initial rows; both again under
@@ -262,7 +270,24 @@ Phases, each of which fails the run on error:
      single-device index; at D = 1, one search in profiling.trace under
      a named_scope (the scope and the card's kernels must be in the
      trace) and the sharded and single-device plans profiled.
- 25. prints the kernels' JSON line (every kernel: launches on its path,
+ 25. planner (run after phase 19, before 20-24): the points the sweeps
+     timed (time_plans' clock: a warm-up, then the median of 3 host-clock
+     searches) on the 1M x 128 index at 250k / 500k / 750k / 1M items, its
+     code-domain and int8 tiers, the small index, the GIST bf16 record,
+     pqr3 and the deep-k r6 plan: per k (10, 100) the flat plan, then
+     cell_major at n_probe 1, 2, 4, ... up to n_cells / 4 with approx on
+     and off (a series ends after the first point slower than flat whose
+     select the next n_probe keeps), and the batch axis (nq 1, 16, 64, 256, 1024:
+     flat, cell_major and, for bf16 caches, query_major). Each point's
+     plan ms, the plan "auto" picks on the card, the JAX package's rule's
+     pick on the same shadows and the fastest; the constants fitted to
+     this call's points (fit_planner) beside the shipped table; the cases
+     the JAX rule sent to the flat sweep (auto's plan and ms before and
+     after). Prints the planner JSON line; fails where auto's plan at a
+     point of the 1M, GIST, pqr3 or deep-k indexes is more than 2x slower
+     than the fastest plan timed there, and lists the points at 1.25-2x
+     and those near a crossover without failing.
+ 26. prints the kernels' JSON line (every kernel: launches on its path,
      kernel and plain ms, the bound from the inputs' own counts, the
      library call's ms where one PyTorch call computes the same; the int8
      block scan at both widths, the 1M x 128 tier's and the GIST-class
@@ -418,14 +443,14 @@ def scan_bound(torch, args, kw, *, slot_bytes, row_bytes, peak, d,
 
 
 def compare_exact(torch, bs, got, ref, k, rel=TOL_REL, abs_=TOL_ABS,
-                  slack=None):
+                  slack=None, ratio=False):
     """Values within rel * |v| + abs_ (+ slack, where given: sum_slack);
     addresses equal wherever a value is separated from its neighbours by
     more than rel * |v| (+ slack) (rel = abs_ = 0: equal values, equal
     addresses outside exact ties)."""
     return compare_topk(torch, bs.sortable_i32_to_f32(got[..., :k]),
                         got[..., k:], bs.sortable_i32_to_f32(ref[..., :k]),
-                        ref[..., k:], rel, abs_, slack)
+                        ref[..., k:], rel, abs_, slack, ratio)
 
 
 def sum_slack(torch, args, euclidean, rows, probers, sides):
@@ -474,8 +499,17 @@ def worst(err, tol, v, vr):
             f"{float(tol.flatten()[i]):.6g})")
 
 
-def compare_topk(torch, v, a, vr, ar, rel=TOL_REL, abs_=TOL_ABS, slack=None):
-    """compare_exact on sorted values v / vr and their addresses a / ar."""
+def log_ratio(what, err, tol, mask):
+    """The largest error over its tolerance TOL_REL |v| + TOL_ABS."""
+    r = float((err / tol)[mask].max()) if bool(mask.any()) else 0.0
+    log(f"{what}: {int(mask.sum())} compared values, largest error / "
+        f"({TOL_REL:g} |v| + {TOL_ABS:g}) {r:.4f} (no f32 summation bound)")
+
+
+def compare_topk(torch, v, a, vr, ar, rel=TOL_REL, abs_=TOL_ABS, slack=None,
+                 ratio=False):
+    """compare_exact on sorted values v / vr and their addresses a / ar;
+    ratio: log the largest error over the tolerance."""
     fin = torch.isfinite(vr)
     if not torch.equal(fin, torch.isfinite(v)):
         fail("exact select: dead entries differ from the plain version")
@@ -486,6 +520,8 @@ def compare_topk(torch, v, a, vr, ar, rel=TOL_REL, abs_=TOL_ABS, slack=None):
              f"{worst(err, torch.where(fin, tol, 1.0), v, vr)}")
     if slack is not None:
         log_slack("exact select", err, tol, slack, fin)
+    elif ratio:
+        log_ratio("exact select", err, tol, fin)
     # addresses must agree wherever the value is separated from its
     # neighbours by more than the tolerance (else the order may swap)
     gap = rel * vr.abs() + (0.0 if slack is None else slack)
@@ -506,7 +542,7 @@ def share_equal(a, b):
 
 
 def compare_pack32(torch, bs, got, ref, slot_mask, what="pack32 select",
-                   by_slot=False, slack=None):
+                   by_slot=False, slack=None, ratio=False):
     """pack32 keys of a kernel against the plain version's: the values
     within TOL_REL |v| + TOL_ABS (+ slack, where given: sum_slack)
     wherever both name the same slot, and >= 0.99 of the entries agreeing,
@@ -525,6 +561,8 @@ def compare_pack32(torch, bs, got, ref, slot_mask, what="pack32 select",
              f"worst {worst(err, tol, v, vr)}")
     if slack is not None:
         log_slack(what, err, tol, slack, same_slot)
+    elif ratio:
+        log_ratio(what, err, tol, same_slot)
     held = share_equal(got & slot_mask, ref & slot_mask) if by_slot \
         else agree
     if held < 0.99:
@@ -554,15 +592,15 @@ def block_launch(torch, bs, args, route, **kw):
 
 
 def compare_rows(torch, bs, got, ref, *, k_pair, pack32, slot_mask, equal,
-                 exact_bits, what, by_slot=False, slack=None):
+                 exact_bits, what, by_slot=False, slack=None, ratio=False):
     """Rows of a block-scan kernel against the plain version's; fails the
     run on disagreement. equal: bit for bit (integer inputs, every sum
     exact in any order); exact_bits: exact values equal, and pack32 keys
     agree on >= 0.9999 of entries (the plain version's batched GEMM may sum
     in another order on some chunks, which moves a key's low value bits);
     else the tolerances of compare_exact / compare_pack32 (by_slot as
-    there; slack: sum_slack's, per entry of ref). Returns (max_abs_err, key
-    agreement)."""
+    there; slack: sum_slack's, per entry of ref; ratio: log the largest
+    error over the tolerance). Returns (max_abs_err, key agreement)."""
     if equal:
         if not torch.equal(got, ref):
             fail(f"{what} differs from block_scan_ref on integer inputs: "
@@ -570,13 +608,14 @@ def compare_rows(torch, bs, got, ref, *, k_pair, pack32, slot_mask, equal,
         return 0.0, (1.0 if pack32 else None)
     if pack32:
         err, agree = compare_pack32(torch, bs, got, ref, slot_mask, what,
-                                    by_slot, slack)
+                                    by_slot, slack, ratio)
         if exact_bits and agree < 0.9999:
             fail(f"{what} pack32 select: key agreement {agree:.7f} < 0.9999")
         return err, agree
     if exact_bits:
         return compare_exact(torch, bs, got, ref, k_pair, 0.0, 0.0), None
-    return compare_exact(torch, bs, got, ref, k_pair, slack=slack), None
+    return compare_exact(torch, bs, got, ref, k_pair, slack=slack,
+                         ratio=ratio), None
 
 
 def entry_slack(torch, args, ref, *, k_pair, pack32, slot_mask, euclidean,
@@ -604,9 +643,11 @@ def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
     with query 0. Then the CUDA-core kernel of the same cache mode and
     select (csrc/block_scan.cu, the route of f32 caches and of the shapes
     the tensor-core ones leave), launched uncounted, on every row. by_slot:
-    compare_pack32's. f32_bound: values also within the bound of an f32
-    sum of the scores' terms (sum_slack, both sides f32; the k-chunked
-    rows, d > 128). Returns (max_abs_err, key agreement, ms, plain_ms) of
+    compare_pack32's. f32_bound (the k-chunked rows, d > 128): the
+    CUDA-core kernel's values may also take the bound of an f32 sum of the
+    scores' terms (sum_slack, both sides f32: its one sequential chain
+    comes near the tolerance where the score cancels); the tensor-core
+    kernel is held to the tolerance alone, its ratio to it logged. Returns (max_abs_err, key agreement, ms, plain_ms) of
     the routed kernel, the times None when reps is 0."""
     slot_mask = bs.util.next_pow2(s_eff) - 1
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
@@ -632,9 +673,9 @@ def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
                      slack=slack, **crit)
         live = args[1] >= 0
         got, ref = got[live], ref[live]
-        slack = None if slack is None else slack[live]
+        slack = None
     err, agree = compare_rows(torch, bs, got, ref, what=route, slack=slack,
-                              **crit)
+                              ratio=f32_bound, **crit)
     if not reps:
         return err, agree, None, None
     ms = cuda_ms(torch, lambda: bs.block_scan(*args, **kw), reps)
@@ -1111,6 +1152,10 @@ def phase_relayout(torch, tp, index, trained, base, xq, per_cell, k):
     del small
 
 
+# every time_plans row's ms by (label, plan, n_probe, approx, k)
+TIMED = {}
+
+
 def time_plans(torch, tp, index, xq, gt, k, launches, label,
                short_ok=False, plans=None, floors=True, plain_ok=()):
     """Each plan of PLANS on `index`: the warm-up search, then the median of
@@ -1165,6 +1210,7 @@ def time_plans(torch, tp, index, xq, gt, k, launches, label,
                    select=gate.get("impl") if mode == "cell_major" else None,
                    s_eff=gate.get("s_eff") if mode == "cell_major" else None)
         rows.append(row)
+        TIMED[(label, mode, n_probe, approx, k)] = ms
         results[(mode, n_probe, approx)] = (vals, ids)
         log(label + json.dumps(row))
         if (mode, n_probe, approx) in plain_ok:
@@ -1261,6 +1307,7 @@ def phase_code_domain(torch, tp, bs, cs, sl):
     if agree < 0.99 or abs(rec[("flat", 1, True)] - rec_main) > 0.005:
         fail("the code-domain flat result differs from the main index's")
 
+    planner_sweep(torch, tp, code, xq, "code", nq_probes=(8,))
     # the kernels on the arguments the code-domain searches give them
     return counts, codes_rows(torch, tp, bs, cs, code, xq, k,
                               "code-domain"), code
@@ -1375,20 +1422,27 @@ def profile_search(torch, search, what, host_ops=False):
     """torch.profiler over one call of search() after a warm-up one:
     device-busy time (the sum of the kernels' own device times) and the
     largest kernels; with host_ops also the host's wall time and its
-    largest operators by self CPU time."""
+    largest operators by self CPU time. A session that records no kernel
+    is run once more; a second such session fails the run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     search()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        search()
-        torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA),
-                     key=lambda e: -e.self_device_time_total)
+    for attempt in range(2):
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            search()
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        kernels = sorted((e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA),
+                         key=lambda e: -e.self_device_time_total)
+        if kernels:
+            break
+        # the card's profiler can deliver no kernel records for a session
+        # that follows another (seen after profiling.trace): profile again
+        log(f"profile of {what}: no device time; profiling again")
     if not kernels:
         fail(f"profile of {what}: no device time")
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
@@ -1548,6 +1602,7 @@ def phase_int8(torch, tp, bs, sl):
         f"{0 if comp is None else comp[0].numel() + comp[4].numel() * 4}; "
         f"recall within 0.005 of the bf16 tier on every plan")
     rows = int8_kernel_rows(torch, tp, bs, i8, xq, k, "int8 ")
+    planner_sweep(torch, tp, i8, xq, "int8", nq_probes=(8,))
     return counts, rows, i8
 
 
@@ -1694,11 +1749,12 @@ def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
     scan is held to >= 0.99 equal slots instead, each with its value within
     the tolerance (compare_pack32's by_slot); every agreement is logged.
     against_f64: the kernel is held to the f64-summed select itself, by
-    the same rule, and the CUDA-core kernel to it by slot (at d_cache 1024
-    the plain version's own f32 sums leave the tolerance where the score
-    cancels: 2 <q, y> ~ |y|^2 ~ 1e3), both with the values within the
+    the same rule, with the values within the tolerance (its ratio to it
+    logged), and the CUDA-core kernel to it by slot, its values within the
     tolerance plus the bound of an f32 sum of their terms (sum_slack, the
-    f32 side only), and each kernel's keys equal over two launches.
+    f32 side only: at d_cache 1024 its one sequential chain comes near the
+    tolerance where the score cancels, 2 <q, y> ~ |y|^2 ~ 1e3); each
+    kernel's keys equal over two launches.
     Returns the kernels-line row."""
     s_eff, k_pair = kw["s_eff"], kw["k_pair"]
     blocks, p_tile = args[1].shape
@@ -1740,7 +1796,7 @@ def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
         err, agree = compare_pack32(torch, bs, tc[alive], exact,
                                     kkw["slot_mask"],
                                     "tc_pack32 against the f64 select",
-                                    by_slot, slack[alive])
+                                    by_slot, ratio=True)
         del cc, slack
     del exact, tc, full
     if not against_f64:
@@ -1906,6 +1962,9 @@ def phase_deepk(torch, tp, bs, sl, gt):
                              "deep-k ", plans=[("flat", 1, True)],
                              floors=False)
     plain = rec_plain[plan[0]]
+    planner_point(tp, deep, "deep-k r6", xq.shape[0], k, DEEPK_NPROBE, True,
+                  {"flat": TIMED[("deep-k ", "flat", 1, True, k)],
+                   "cell_major": TIMED[("deep-k r6 ", *plan[0], k)]}, 3)
     log(f"deep-k recall@{k}: r6 {r6:.5f}, untapered yardstick {plain:.5f} "
         f"(gap {r6 - plain:+.5f}), flat (ADC ceiling) "
         f"{rec_flat[('flat', 1, True)]:.5f}")
@@ -2396,6 +2455,7 @@ def phase_pqr(torch, tp, bs, sl, gt100):
             f"pqr3 k={kk} scan_group 1 ", plans=same_set, floors=False,
             plain_ok=set(same_set) if kk > 64 else ())
     pqr.scan_group = PQR_GROUP
+    planner_sweep(torch, tp, pqr, xq, "pqr3")
     relayout_keeps_search(torch, pqr, xq, k, "pqr3 ")
     return launches, rows, trained, rec
 
@@ -3071,6 +3131,9 @@ def phase_gist_records(torch, tp, bs, trained, base, xq, xb, gt100, d, m,
                     f"the {label}k={kk} n_probe=32 search", against_f64=True)
                 launches[name] = cnt["tc_pack32"]
                 del args
+        if not cache:
+            planner_sweep(torch, tp, idx, xq, "GIST bf16 record",
+                          nq_probes=(32,))
         phase_profile(torch, idx, xq, 10, label=label,
                       plans=[p for p in GIST_PLANS_K10 if p[0] != "flat"])
         phase_profile(torch, idx, xq, 100, label=label + "k=100 ",
@@ -3164,6 +3227,119 @@ def recall_at(ids, gt):
     return float(hit.mean() / gt.shape[1])
 
 
+def codec_hash(torch, state):
+    """sha256 over a codec state dict's tensors' bytes, in key order."""
+    import hashlib
+    h = hashlib.sha256()
+    for key in sorted(state):
+        h.update(key.encode())
+        v = state[key]
+        h.update(v.detach().cpu().contiguous().numpy().tobytes()
+                 if isinstance(v, torch.Tensor) else repr(v).encode())
+    return h.hexdigest()
+
+
+def first_segment_sum_s(torch):
+    """Host seconds of the process's first compute_centroids call on the
+    card (1,000 x 128 rows into 16 clusters), and then of the first
+    index_add_ under PyTorch's deterministic algorithms (switched on for
+    that call), the other deterministic route: one-time costs a first
+    training would carry."""
+    from torchpq_tpu_torch.ops import segment_ops
+    x = torch.ones((1000, 128), device="cuda")
+    labels = torch.arange(1000, device="cuda") % 16
+
+    def first(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def det_index_add():
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            torch.zeros((16, 128), device="cuda").index_add_(0, labels, x)
+        finally:
+            torch.use_deterministic_algorithms(was)
+
+    return (first(lambda: segment_ops.compute_centroids(x, labels, 16)),
+            first(det_index_add))
+
+
+def train_repro(torch, tp, index, trained, base, train_s, first_s):
+    """The card's training is reproducible: a second index of the main
+    layout trained on the same slice holds bit-equal codecs (the Lloyd
+    sums sort by label and sum each cluster in a fixed order,
+    ops/segment_ops.py). Then the cost: trainings with the atomic
+    index_add_ sums in their place, timed in turns with the fixed-order
+    ones (two each), and compute_centroids alone at 1M x 128
+    into 4096 clusters (the trained coarse labels), deterministic against
+    atomic sums, CUDA events; first_s: first_segment_sum_s's."""
+    from torchpq_tpu_torch.ops import segment_ops
+
+    def train():
+        idx = tp.IVFPQIndex(d_vector=index.d_vector,
+                            n_subvectors=index.n_subvectors,
+                            n_cells=index.n_cells, initial_size=16,
+                            distance="euclidean", device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx.train(torch.from_numpy(base[: base.shape[0] // 10]).cuda().T)
+        torch.cuda.synchronize()
+        return idx, time.perf_counter() - t0
+
+    det = segment_ops._sum_rows
+
+    def atomic_train():
+        segment_ops._sum_rows = lambda out, labels, rows: \
+            out.index_add_(0, labels, rows)
+        try:
+            return train()
+        finally:
+            segment_ops._sum_rows = det
+
+    again, again_s = train()
+    h1 = codec_hash(torch, trained)
+    h2 = codec_hash(torch, {**again.vq_codec.state_dict("vq_codec."),
+                            **again.pq_codec.state_dict("pq_codec.")})
+    atomic, atomic_s = atomic_train()
+    h3 = codec_hash(torch, {**atomic.vq_codec.state_dict("vq_codec."),
+                            **atomic.pq_codec.state_dict("pq_codec.")})
+    del again, atomic
+    # two more trainings, in the other order: the cost in turns
+    atomic_s = (atomic_s + atomic_train()[1]) / 2
+    again_s = (again_s + train()[1]) / 2
+    x = torch.from_numpy(base).cuda()
+    labels = index.vq_codec.kmeans.predict(x.T).long()
+    n_cells = index.n_cells
+
+    det_ms = cuda_ms(torch, lambda: segment_ops.compute_centroids(
+        x, labels, n_cells), 10)
+    segment_ops._sum_rows = lambda out, labels, rows: \
+        out.index_add_(0, labels, rows)
+    try:
+        atomic_ms = cuda_ms(torch, lambda: segment_ops.compute_centroids(
+            x, labels, n_cells), 10)
+    finally:
+        segment_ops._sum_rows = det
+    del x, labels
+    log(f"training reproducible: codecs sha256 {h1[:16]} (a second "
+        f"training {h2[:16]}; with atomic sums {h3[:16]}); train "
+        f"{train_s:.3f} s; in turns (deterministic, atomic, atomic, "
+        f"deterministic) {again_s:.3f} s deterministic, {atomic_s:.3f} s "
+        f"atomic, mean of two each; the process's first compute_centroids "
+        f"call {first_s[0]:.3f} s (the first deterministic index_add_ after "
+        f"it {first_s[1]:.3f} s); compute_centroids at {base.shape[0]} x "
+        f"{base.shape[1]} "
+        f"into {n_cells} clusters: {det_ms:.3f} ms deterministic, "
+        f"{atomic_ms:.3f} ms with atomic sums")
+    if h1 != h2:
+        fail("two trainings of the main layout on the same slice gave other "
+             "codecs")
+
+
 def phase_slice(torch, tp, bs, gr):
     n_base, n_query, d, m, n_cells, k = 1_000_000, 10_000, 128, 64, 4096, 10
 
@@ -3178,6 +3354,7 @@ def phase_slice(torch, tp, bs, gr):
     index = tp.IVFPQIndex(d_vector=d, n_subvectors=m, n_cells=n_cells,
                           initial_size=per_cell,
                           distance="euclidean", device="cuda")
+    first_s = first_segment_sum_s(torch)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     index.train(torch.from_numpy(base[: n_base // 10]).cuda().T)
@@ -3185,12 +3362,24 @@ def phase_slice(torch, tp, bs, gr):
     train_s = time.perf_counter() - t0
     trained = {**index.vq_codec.state_dict("vq_codec."),
                **index.pq_codec.state_dict("pq_codec.")}
-    t0 = time.perf_counter()
+    train_repro(torch, tp, index, trained, base, train_s, first_s)
+
+    xq = torch.from_numpy(query).cuda()
+    add_s = 0.0
     step = n_base // 4
     for i in range(0, n_base, step):
+        if i == n_base - step:
+            # the main path's counters: zeroed after the planner's sweeps
+            for launches in (bs.launches, gr.launches):
+                for key in launches:
+                    launches[key] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         index.add(torch.from_numpy(base[i:i + step]).cuda().T)
-    torch.cuda.synchronize()
-    add_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        add_s += time.perf_counter() - t0
+        if i < n_base - step:
+            planner_sweep(torch, tp, index, xq, "bf16")
     log(f"train {train_s:.2f} s, add {add_s:.2f} s; capacity "
         f"{index.capacity}, max cell capacity {index.max_cell_capacity}, "
         f"items {index.n_items}")
@@ -3198,7 +3387,6 @@ def phase_slice(torch, tp, bs, gr):
         f"relayout ran: "
         f"{index.max_cell_capacity > tp.util.next_pow2(per_cell)}")
 
-    xq = torch.from_numpy(query).cuda()
     gt = exact_gt(torch, base, xq, k)
     torch.cuda.synchronize()
 
@@ -3211,6 +3399,7 @@ def phase_slice(torch, tp, bs, gr):
     # small-input reference: probing every cell with the exact select must
     # find what the exact flat sweep finds
     all_cells_check(torch, index, xq, k, "")
+    planner_sweep(torch, tp, index, xq, "bf16", nq_probes=(8, 32))
     return counts, dict(index=index, trained=trained, base=base, xq=xq,
                         gt=gt, per_cell=per_cell, k=k, rec=rec)
 
@@ -3827,10 +4016,9 @@ def phase_dp_kmeans(torch, tp, base, mesh, timer, k, iters=10):
     clusters, 10 iterations, over `mesh`, timed beside a plain single-device
     Lloyd loop from the same initial rows; then both again under
     torch.use_deterministic_algorithms, where they must agree within a
-    relative Frobenius difference of 1e-3. (The sums are index_add_'s
-    atomic float adds, whose order changes between runs: a near-tie label
-    flips, and after 10 iterations two runs of one loop differ by up to
-    ~1e-3. That spread is logged.)"""
+    relative Frobenius difference of 1e-3. (The sums run in a fixed order
+    on the card, ops/segment_ops.py; the two fits' difference without the
+    switch is logged beside it.)"""
     import warnings
     x = torch.from_numpy(base[: base.shape[0] // 10]).cuda()
     fit = tp.parallel.data_parallel_kmeans_fit
@@ -3862,7 +4050,7 @@ def phase_dp_kmeans(torch, tp, base, mesh, timer, k, iters=10):
     log(f"dp k-means D={mesh.size()}: {it} iterations, {fit_s / it:.4f} s "
         f"per iteration (plain loop {plain_s / iters:.4f}); relative "
         f"difference {diff:.3g} with deterministic algorithms, {spread:.3g} "
-        f"without (atomic adds in both)")
+        f"without")
     if it != iters or it_det != iters or diff > 1e-3:
         fail(f"dp k-means: {it} iterations, relative difference {diff:.3g}")
     return dict(s_per_iter=fit_s / it, plain_s_per_iter=plain_s / iters,
@@ -3873,6 +4061,7 @@ def phase_legacy(torch, tp, sl, timer):
     """The v1 IVFPQ facade at 100k x 128 (IVF256 x PQ64, blocksize 512,
     the CPU-RAM SQ tier on): trained on the card, its state carried into a
     CPU facade, the same 100k adds in both; 1,000 queries at n_probe 8,
+    cell_major pinned on both (the card's planner reads the card's costs),
     exact select: ids agree >= 0.999; the SQ reconstructions close."""
     base, xq = sl["base"], sl["xq"]
     x = base[:100_000]
@@ -3886,6 +4075,7 @@ def phase_legacy(torch, tp, sl, timer):
         trained = card._index.state_dict()  # copies, before the adds
         ids = card.add(torch.from_numpy(x).cuda().T)
         card.n_probe = 8
+        card._index.scan_mode = "cell_major"
         v, i = card.topk(xq[:1000].T, k=10)
         rec = card.reconstruct_from_cpu_ram(ids[:1000])
         torch.cuda.synchronize()
@@ -3894,6 +4084,7 @@ def phase_legacy(torch, tp, sl, timer):
         cpu._index.load_state_dict(trained)
         ids_c = cpu.add(x.T)
         cpu.n_probe = 8
+        cpu._index.scan_mode = "cell_major"
         v_c, i_c = cpu.topk(xq[:1000].cpu().T, k=10)
     agree = share_equal(i.cpu(), i_c)
     err = float((rec.cpu().T - torch.from_numpy(x[:1000])).abs().mean())
@@ -3902,6 +4093,315 @@ def phase_legacy(torch, tp, sl, timer):
         f"mean abs reconstruction error {err:.4f}")
     if not torch.equal(ids.cpu(), ids_c) or agree < 0.999 or err > 0.05:
         fail("legacy IVFPQ: the card facade disagrees with the CPU one")
+
+
+# the planner phase (25): the points the sweeps below time, each with the
+# plan "auto" picks on the card and the JAX package's rule's pick (plan_for
+# on the CPU, its TPU v5e crossovers); filled by the phases that build the
+# indexes, read by phase_planner
+PLANNER = []
+PLANNER_NQ = (1, 16, 64, 256, 1024)
+# the indexes whose points fail the run where auto's plan is more than 2x
+# slower than the fastest one timed (flat and probed far apart there)
+PLANNER_CHECKED = ("bf16", "code", "int8", "GIST bf16 record", "pqr3",
+                   "deep-k r6")
+
+
+def plan_ms(torch, index, q, k, plan, n_probe, approx, cap_ms=None):
+    """time_plans' clock for one plan on queries q [nq, d]: the warm-up
+    search, then the median of 3 host-clock searches to
+    torch.cuda.synchronize() -> (ms, timed searches). A warm-up above
+    cap_ms is kept as the time (0 timed searches): the plan is that much
+    slower."""
+    index.scan_mode, index.n_probe, index.use_approx_topk = \
+        plan, n_probe, approx
+    t0 = time.perf_counter()
+    index.search(q.T, k=k)
+    torch.cuda.synchronize()
+    warm = (time.perf_counter() - t0) * 1e3
+    if cap_ms is not None and warm > cap_ms:
+        return warm, 0
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        index.search(q.T, k=k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3, 3
+
+
+def planner_point(tp, index, label, nq, k, n_probe, approx, ms, reps):
+    """Record one point: the plans' ms, the plan auto picks on the card,
+    the JAX package's rule's pick on the same shadows, the card table's
+    estimates and the fastest plan timed."""
+    index.scan_mode, index.n_probe, index.use_approx_topk = \
+        "auto", n_probe, approx
+    auto = index.plan_scan_mode(nq, k)
+    shadows = index._plan_shadows()
+    before = tp.index.ivfpq.plan_for(nq, k, **dict(shadows, device="cpu"))
+    est = tp.index.ivfpq.card_plan_ms(nq, k, **{
+        x: shadows[x] for x in ("n_probe", "s_pow2", "n_items", "d_vector",
+                                "tier", "approx")})
+    PLANNER.append(dict(
+        index=label, n_live=int(index.n_items), nq=nq, k=k,
+        n_probe=n_probe, approx=approx, s_pow2=shadows["s_pow2"],
+        d=index.d_vector, tier=shadows["tier"], ms=ms, reps=reps,
+        est={p: round(v, 3) for p, v in est.items()}, auto=auto,
+        before=before, fastest=min(ms, key=ms.get)))
+
+
+def planner_sweep(torch, tp, index, xq, label, nq_probes=()):
+    """The planner's points on one index state: per k, the flat plan at
+    the full batch (its top-k is exact either way), then cell_major at
+    n_probe 1, 2, 4, ... up to n_cells / 4 per approx setting, a series
+    ending after the first point slower than flat whose select the next
+    n_probe keeps (approx k = 100 at n_probe 1 lifts k_pair to 100: the
+    plain select); a warm-up above flat is that point's time; then at
+    each n_probe of nq_probes the batch axis: flat, cell_major and (bf16 /
+    f32 caches: the int8 and code tiers run every probed plan cell-major)
+    query_major at PLANNER_NQ queries, k 10, approx on."""
+    from torchpq_tpu_torch.index.ivfpq import _select_class as select_class
+    t0 = time.perf_counter()
+    nq = xq.shape[0]
+    for k in (10, 100):
+        flat = plan_ms(torch, index, xq, k, "flat", 1, True)[0]
+        for approx in (True, False):
+            n_probe = 1
+            while n_probe <= index.n_cells // 4:
+                ms, reps = plan_ms(torch, index, xq, k, "cell_major",
+                                   n_probe, approx, cap_ms=flat)
+                planner_point(tp, index, label, nq, k, n_probe, approx,
+                              {"flat": flat, "cell_major": ms}, reps)
+                if ms > flat and select_class(
+                        k, n_probe, approx) == select_class(
+                        k, 2 * n_probe, approx):
+                    break
+                n_probe *= 2
+    plans = ("flat", "cell_major")
+    if index._plan_tier() in ("bf16", "float32"):
+        plans += ("query_major",)
+    for n_probe in nq_probes:
+        for n in PLANNER_NQ:
+            ms = {p: plan_ms(torch, index, xq[:n], 10, p, n_probe, True)[0]
+                  for p in plans}
+            planner_point(tp, index, label, n, 10, n_probe, True, ms, 3)
+    log(f"planner sweep, {label} at {index.n_items} items: "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def planner_small(torch, tp, sl):
+    """The small-index regime: the main codecs in an index of the main
+    layout filled with the base's first 20k rows, then its first 100k,
+    swept at both sizes (the batch axis at n_probe 8)."""
+    index, base = sl["index"], sl["base"]
+    small = tp.IVFPQIndex(d_vector=index.d_vector,
+                          n_subvectors=index.n_subvectors,
+                          n_cells=index.n_cells, initial_size=32,
+                          distance="euclidean", device="cuda")
+    small.load_state_dict(sl["trained"])
+    for lo, hi in ((0, 20_000), (20_000, 100_000)):
+        small.add(torch.from_numpy(base[lo:hi]).cuda().T)
+        planner_sweep(torch, tp, small, sl["xq"], "small", nq_probes=(8,))
+    del small
+
+
+PLANNER_CASES = (
+    # (case, index label, k, n_probe): the searches auto sent to the flat
+    # sweep under the JAX package's rule
+    ("1M x 128 bf16, approx, k = 10, n_probe 8", "bf16", 10, 8),
+    ("1M x 128 bf16, approx, k = 10, n_probe 32", "bf16", 10, 32),
+    ("1M x 128 pqr3, approx, k = 100, n_probe 8", "pqr3", 100, 8),
+    ("1M x 128 pqr3, approx, k = 100, n_probe 32", "pqr3", 100, 32),
+    ("deep-k r6, k = 100, n_probe 128", "deep-k r6", 100, 128),
+    ("GIST bf16 record, approx, k = 10, n_probe 32", "GIST bf16 record",
+     10, 32),
+    ("GIST bf16 record, approx, k = 100, n_probe 32", "GIST bf16 record",
+     100, 32))
+
+
+def ran(plan, tier):
+    """The plan a search under `plan` runs: the int8 and code tiers run
+    every probed plan cell-major."""
+    return "cell_major" if plan == "query_major" and tier in ("int8",
+                                                              "codes") \
+        else plan
+
+
+def fit_planner(points):
+    """The card table's constants (index/ivfpq.py:CARD_PLAN_COSTS' terms)
+    fitted to the points by non-negative least squares on relative
+    errors, in steps: the bf16 points fix each plan's per-call term and
+    widths (two widths: d 128 and 960); each other tier (and select) its
+    own terms with those fixed. The points a warm-up timed (a series' last)
+    count as timed."""
+    from scipy.optimize import nnls
+    from torchpq_tpu_torch.index.ivfpq import _select_class
+
+    def solve(rows, ys):
+        a = np.array(rows, float) / np.array(ys, float)[:, None]
+        return [float(x) for x in nnls(a, np.ones(len(ys)))[0]]
+
+    def sel(p):
+        return _select_class(p["k"], p["n_probe"], p["approx"])
+
+    def r(p):
+        return p["d"] / 128.0 - 1.0
+
+    def slots(p):
+        return p["nq"] * p["n_probe"] * max(p["s_pow2"], 128) * 1e-9
+
+    def pairs(p):
+        return p["nq"] * p["n_probe"] * 1e-6
+
+    flat, seen = [], set()
+    for p in points:
+        key = (p["index"], p["n_live"], p["nq"], p["k"])
+        if "flat" in p["ms"] and key not in seen:
+            seen.add(key)
+            flat.append(p)
+
+    def n(p):
+        return p["n_live"] * 1e-9
+
+    b16 = [p for p in flat if p["tier"] == "bf16"]
+    c0, pa, pb, sa, sb = solve(
+        [[1.0, n(p), n(p) * r(p), p["nq"] * n(p), p["nq"] * n(p) * r(p)]
+         for p in b16], [p["ms"]["flat"] for p in b16])
+    pw, sw = pb / pa if pa else 0.0, sb / sa if sa else 0.0
+    fl = dict(call_ms=c0, pass_width=pw, slot_width=sw,
+              pass_ps={"bf16": pa}, slot_ps={"bf16": sa})
+    for tier in ("int8", "codes"):
+        tp_ = [p for p in flat if p["tier"] == tier]
+        fl["pass_ps"][tier], fl["slot_ps"][tier] = solve(
+            [[n(p) * (1 + pw * r(p)), p["nq"] * n(p) * (1 + sw * r(p))]
+             for p in tp_], [p["ms"]["flat"] - c0 for p in tp_]) \
+            if tp_ else (pa, sa)
+
+    cm = [p for p in points if "cell_major" in p["ms"]]
+    terms = {t: {} for t in ("query_us", "pair_ns", "slot_ps")}
+    width = {}
+
+    def put(tier, s, vals):
+        for name, v in zip(("query_us", "pair_ns", "slot_ps"), vals):
+            terms[name].setdefault(tier, {})[s] = v
+
+    fast = [p for p in cm if p["tier"] == "bf16" and sel(p) == "fast"]
+    c0, q, pp, a, b = solve(
+        [[1.0, p["nq"] * 1e-3, pairs(p), slots(p), slots(p) * r(p)]
+         for p in fast], [p["ms"]["cell_major"] for p in fast])
+    width["fast"] = b / a if a else 0.0
+    put("bf16", "fast", (q, pp, a))
+    slow = [p for p in cm if p["tier"] == "bf16" and sel(p) == "slow"]
+    q, pp, a, b = solve(
+        [[p["nq"] * 1e-3, pairs(p), slots(p), slots(p) * r(p)]
+         for p in slow], [p["ms"]["cell_major"] - c0 for p in slow])
+    width["slow"] = b / a if a else 0.0
+    put("bf16", "slow", (q, pp, a))
+    for tier in ("int8", "codes"):
+        for s in ("fast", "slow"):
+            tp_ = [p for p in cm if p["tier"] == tier and sel(p) == s]
+            put(tier, s, solve(
+                [[p["nq"] * 1e-3, pairs(p),
+                  slots(p) * (1 + width[s] * r(p))] for p in tp_],
+                [p["ms"]["cell_major"] - c0 for p in tp_]) if tp_ else
+                [terms[x]["bf16"][s] for x in ("query_us", "pair_ns",
+                                               "slot_ps")])
+    out = dict(flat=fl, cell_major=dict(call_ms=c0, width=width, **terms))
+    qm = [p for p in points if "query_major" in p["ms"]]
+    c0, a, b = solve([[1.0, slots(p), slots(p) * r(p)] for p in qm],
+                     [p["ms"]["query_major"] for p in qm])
+    out["query_major"] = dict(call_ms=c0, width=b / a if a else 0.0,
+                              slot_ps=a)
+    return sig3(out)
+
+
+def sig3(x):
+    """Every float of a nested dict to 3 significant digits."""
+    if isinstance(x, dict):
+        return {key: sig3(v) for key, v in x.items()}
+    return float(f"{x:.3g}") if isinstance(x, float) else x
+
+
+def phase_planner(torch, tp, card):
+    """Phase 25: the planner line. Every point's plan times, auto's plan
+    (after: the card's table; before: the JAX package's rule) and the
+    fastest; the cases the JAX rule sent to the flat sweep (PLANNER_CASES),
+    their plans and ms before and after; the constants fitted to this
+    call's points beside the shipped table. Fails
+    where auto's plan at a point of PLANNER_CHECKED is more than 2x slower
+    than the fastest plan timed there; lists the points at 1.25-2x and
+    those near a crossover (the two plans within 1.25x) without failing."""
+    pts = PLANNER
+    cases = []
+    for name, label, k, n_probe in PLANNER_CASES:
+        hit = [p for p in pts if p["index"] == label and p["k"] == k
+               and p["n_probe"] == n_probe and p["approx"]
+               and p["nq"] == 10_000 and p["n_live"] >= 1_000_000]
+        if not hit:
+            fail(f"planner: no point for the case {name}")
+        p = hit[0]
+        b, a = ran(p["before"], p["tier"]), ran(p["auto"], p["tier"])
+        cases.append(dict(case=name, before=p["before"],
+                          before_ms=p["ms"].get(b), after=p["auto"],
+                          after_ms=p["ms"].get(a), fastest=p["fastest"],
+                          ms=p["ms"]))
+    slow, near, bad = [], [], []
+    for p in pts:
+        a = ran(p["auto"], p["tier"])
+        best = p["ms"][p["fastest"]]
+        p["auto_over_fastest"] = None if a not in p["ms"] \
+            else round(p["ms"][a] / best, 3)
+        times = sorted(p["ms"].values())
+        if len(times) > 1 and times[1] <= 1.25 * times[0]:
+            near.append(p)
+        x = p["auto_over_fastest"]
+        if x is None:
+            continue
+        if x > 2.0 and p["index"] in PLANNER_CHECKED:
+            bad.append(p)
+        elif x > 1.25:
+            slow.append(p)
+    fit = fit_planner(pts)
+    shipped = dict(tp.index.ivfpq.CARD_PLAN_COSTS, batch_threshold=(
+        tp.fn.ivfpq_topk.BATCH_THRESHOLD["cuda"]))
+    # the shipped table's query_major / cell_major crossover at the main
+    # shape (1M x 128 bf16, cell capacity 1024, k 10, approx): the largest
+    # batch of 1, 2, 4, ... that card_probed_plan sends to query_major
+    qm_below = {}
+    for n_probe in (8, 32):
+        nqs = [n for n in (2 ** i for i in range(14))
+               if tp.index.ivfpq.card_probed_plan(
+                   n, 10, n_probe=n_probe, s_pow2=1024, d_vector=128,
+                   tier="bf16", approx=True) == "query_major"]
+        qm_below[n_probe] = max(nqs) if nqs else 0
+    summary = dict(points=len(pts), timed=sum(1 for p in pts if p["reps"]),
+                   auto_fastest=sum(1 for p in pts
+                                    if p["auto_over_fastest"] == 1.0),
+                   slow_1_25_to_2=len(slow), near_crossover=len(near),
+                   over_2x_checked=len(bad))
+    log("planner: " + json.dumps(summary))
+    for p in slow + bad:
+        log(f"planner: auto {p['auto']} at {p['auto_over_fastest']}x the "
+            f"fastest ({p['fastest']}): {p['index']} n_live {p['n_live']} "
+            f"nq {p['nq']} k {p['k']} n_probe {p['n_probe']} approx "
+            f"{p['approx']} ms {p['ms']}")
+    for c in cases:
+        log(f"planner case {c['case']}: before {c['before']} "
+            f"{c['before_ms']} ms, after {c['after']} {c['after_ms']} ms "
+            f"(fastest {c['fastest']})")
+    log("planner fit (this call's points): " + json.dumps(fit))
+    log("planner: the shipped table sends a 1M x 128 bf16 search (k 10, "
+        "approx) to query_major up to this batch, by n_probe: "
+        + json.dumps(qm_below))
+    print(json.dumps({"planner": dict(
+        card=card, summary=summary, cases=cases, fit=fit, shipped=shipped,
+        query_major_up_to=qm_below,
+        near_crossover=[(p["index"], p["n_live"], p["nq"], p["k"],
+                         p["n_probe"], p["approx"]) for p in near],
+        points=pts)}), flush=True)
+    if bad:
+        fail(f"planner: auto's plan is more than 2x slower than the fastest "
+             f"timed at {len(bad)} points of {PLANNER_CHECKED}")
 
 
 def main():
@@ -3966,6 +4466,7 @@ def main():
     if args.kernels_only:
         return
     counts, sl = phase_slice(torch, tp, bs, gr)
+    planner_small(torch, tp, sl)
     krows = phase_main_shapes(torch, tp, bs, sl["index"], sl["xq"], sl["k"])
     krows["gather_rows"] = phase_gather_main(torch, gr, sl["index"])
     phase_relayout(torch, tp, sl["index"], sl["trained"], sl["base"],
@@ -4023,6 +4524,7 @@ def main():
                   label="pallas_flat ", plans=[("flat", 1, True)])
     sl["index"].scan_impl = "auto"
     log(f"phases 4-19: {time.perf_counter() - t_start:.1f} s")
+    phase_planner(torch, tp, card)
 
     # phases 20-24, timed through profiling.PhaseTimer; the sharded phase
     # comes last: its single-device add / remove change the main index

@@ -205,7 +205,11 @@ SIGNATURES = [
     "legacy.sq.SQ.__init__", "legacy.ivfpq_topk.IVFPQTopk.__init__",
     "legacy.ivfpq_topk.IVFPQTopk.topk", "legacy.ivfpq_topk.IVFPQTopk.scores",
     "profiling.PhaseTimer.phase", "util.Timer.tick", "util.as_n_d",
-    "util.pad_rows",
+    "util.pad_rows", "util.cdiv", "util.round_up", "util.next_pow2",
+    "util.locality_order", "util.str2dtype", "util.pad_cols",
+    "util.normalize", "util.int8_quantize_rows", "util.id_dtype",
+    "util.as_d_n", "util.block_until_ready", "util.to_numpy",
+    "util.Timer.__init__",
 ]
 DEFAULTS = ("impl", "dtype", "format", "n_bits", "anisotropic_iters",
             "pq_use_residual", "k", "dim", "distance", "approx",
@@ -448,6 +452,22 @@ def test_signature_accepts_reference_kwargs(path):
     for name in DEFAULTS:
         if name in ref:
             assert got[name].default == ref[name].default, (path, name)
+
+
+@pytest.mark.parametrize("axis", [0, 1, -1])
+def test_normalize_axis_matches(rng, axis):
+    """util.normalize takes the reference's `axis` (ROADMAP C8): the JAX
+    function's output on the same rows, positional and by keyword."""
+    from torchpq_tpu import util as jutil
+    x = rng.normal(size=(6, 9)).astype(np.float32)
+    x[:, 2] = 0.0  # a zero column: the eps clamp
+    ref = np.asarray(jutil.normalize(jnp.asarray(x), axis=axis))
+    np.testing.assert_allclose(
+        tp.util.normalize(torch.from_numpy(x), axis=axis).numpy(), ref,
+        rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(
+        tp.util.normalize(torch.from_numpy(x), axis).numpy(), ref,
+        rtol=1e-6, atol=1e-7)
 
 
 @pytest.mark.parametrize("cls", ["KMeans", "MultiKMeans"])

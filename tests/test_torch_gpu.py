@@ -1551,6 +1551,10 @@ def test_legacy_and_profiling_on_card(cuda, tmp_path):
     ids = card.add(torch.from_numpy(x).to(cuda).T)
     assert torch.equal(ids.cpu(), cpu.add(x.T))
     card.n_probe = cpu.n_probe = 4
+    # the plan the CPU's planner picks, pinned on both: the card's planner
+    # reads the card's costs (index/ivfpq.py:plan_for)
+    cpu._index.scan_mode = cpu._index.plan_scan_mode(200, 5)
+    card._index.scan_mode = cpu._index.scan_mode
     timer = tp.profiling.PhaseTimer()
     with tp.profiling.trace(str(tmp_path)) as prof:
         with tp.profiling.named_scope("legacy_topk"), timer.phase("topk"):
@@ -1566,3 +1570,67 @@ def test_legacy_and_profiling_on_card(cuda, tmp_path):
     assert any(e.get("cat") == "kernel" for e in events)
     assert timer.report()["topk"] > 0
     assert tp.util.Timer().tick(sync=v) >= 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cls", ["KMeans", "MultiKMeans"])
+def test_kmeans_trains_reproducibly_on_card(cuda, cls):
+    """Two trainings from seed 0 on the card give bit-equal centroids: the
+    Lloyd sums sort by label and sum each cluster in a fixed order
+    (ops/segment_ops.py), with PyTorch's deterministic switch left off."""
+    import numpy as np
+    import torchpq_tpu_torch as tp
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(4, 8, 20_000)).astype(np.float32)).to(cuda)
+    cents = []
+    for _ in range(2):
+        if cls == "KMeans":
+            km = tp.clustering.KMeans(n_clusters=256, seed=0, device=cuda)
+            km.fit(x[0])
+        else:
+            km = tp.clustering.MultiKMeans(n_clusters=64, seed=0,
+                                           device=cuda)
+            km.fit(x)
+        cents.append(km.centroids)
+        assert not torch.are_deterministic_algorithms_enabled()
+    assert torch.equal(cents[0], cents[1])
+
+
+@pytest.mark.gpu
+def test_planner_on_card(cuda):
+    """A CUDA index's "auto" plan is plan_for's on the card's table from
+    its shadows (the CPU twin keeps the JAX package's rule), and a search
+    under it equals the search pinned to that plan; the batch threshold
+    of card queries is the card's, and search_cells under "auto" runs
+    card_probed_plan's plan."""
+    import torchpq_tpu_torch as tp
+    from torchpq_tpu_torch.fn.ivfpq_topk import (BATCH_THRESHOLD,
+                                                 batch_threshold_for)
+    from torchpq_tpu_torch.index.ivfpq import card_probed_plan, plan_for
+    gpu, _, q = _card_index(cuda, None)
+    qt = torch.from_numpy(q).to(cuda).T
+    gpu.use_approx_topk = True
+    for nq, k, n_probe in ((300, 10, 4), (1, 10, 4), (300, 100, 16)):
+        gpu.scan_mode, gpu.n_probe = "auto", n_probe
+        plan = gpu.plan_scan_mode(nq, k)
+        assert plan == plan_for(nq, k, **gpu._plan_shadows())
+        assert plan == plan_for(nq, k, **dict(gpu._plan_shadows(),
+                                              device="cuda"))
+        v, i = gpu.search(qt[:, :nq], k=k)
+        gpu.scan_mode = plan
+        v_p, i_p = gpu.search(qt[:, :nq], k=k)
+        assert torch.equal(v, v_p) and torch.equal(i, i_p), (nq, k, plan)
+    assert batch_threshold_for(gpu.device) == BATCH_THRESHOLD["cuda"]
+    for mode in ("flat", "cell_major", "query_major"):
+        gpu.scan_mode = mode
+        assert gpu.plan_scan_mode(300, 10) == mode
+    # the IVFPQTopk facade (search_cells) picks its probed plan the same way
+    cells = torch.arange(4, device=cuda).repeat(8, 1)
+    plan = card_probed_plan(
+        8, 10, n_probe=4, s_pow2=tp.util.next_pow2(gpu.max_cell_capacity),
+        d_vector=gpu.aux("decoded").shape[1], tier="bf16", approx=True)
+    gpu.scan_mode = "auto"
+    v, i = gpu.search_cells(qt[:, :8], cells, k=10)
+    gpu.scan_mode = plan
+    v_p, i_p = gpu.search_cells(qt[:, :8], cells, k=10)
+    assert torch.equal(v, v_p) and torch.equal(i, i_p), plan

@@ -55,7 +55,7 @@ from ..metric import (canonical_distance, negative_manhattan_distance,
 from ..codec import PQCodec, VQCodec
 from ..codec.pq import pack_nibbles, paired_codebook
 from ..container import CellContainer
-from ..fn.ivfpq_topk import IVFPQTopk
+from ..fn.ivfpq_topk import IVFPQTopk, batch_threshold_for
 from ..ops import adc
 from ..ops.block_scan import BIG
 from ..ops.codes_scan import codes_kernel_static_gate, decode_codes
@@ -287,6 +287,121 @@ def _search_full_codes(q, coarse_codebook, codes, norms, is_empty,
         approx=approx, m=m, impl=impl, k_pair=k_pair)
     ids, addr = _translate(addr, None, address2id)
     return vals, ids, addr
+
+
+# The planner's costs on an H100 (plan_scan_mode on a CUDA index): each
+# plan's estimated ms, fitted by chip_smoke.py's fit_planner to the points
+# of its planner sweep on an NVIDIA H100 80GB HBM3 at its 700.00 W power
+# limit (torch 2.11.0+cu128). Terms, with r = d / 128 - 1 (each width a
+# plan's cost growth per 128 more dimensions):
+#   flat:        call + n_items * ((1 + pass_width r) pass_ps
+#                                  + nq (1 + slot_width r) slot_ps)
+#   cell_major:  call + nq query_us + nq n_probe pair_ns
+#                + nq n_probe s (1 + width r) slot_ps
+#   query_major: call + nq n_probe s (1 + width r) slot_ps
+# with s = max(next_pow2(max cell capacity), 128), the probed scans'
+# narrowest window. The cell-major terms are per tier and per select:
+# "fast" (the tensor-core selects) or "slow" (an exact k_pair above 16 on
+# the CUDA cores, or a k_pair above 64 on the plain select).
+CARD_PLAN_COSTS = {
+    "flat": dict(
+        call_ms=0.675, pass_width=2.66, slot_width=0.209,
+        pass_ps={"bf16": 227.0, "int8": 564.0, "codes": 1740.0},
+        slot_ps={"bf16": 24.2, "int8": 29.3, "codes": 23.4}),
+    "cell_major": dict(
+        call_ms=3.02, width={"fast": 7.26, "slow": 1.05},
+        query_us={"bf16": {"fast": 0.0922, "slow": 0.0983},
+                  "int8": {"fast": 0.102, "slow": 6.76},
+                  "codes": {"fast": 0.128, "slow": 151.0}},
+        pair_ns={"bf16": {"fast": 1.66, "slow": 0.0},
+                 "int8": {"fast": 0.0, "slow": 0.0},
+                 "codes": {"fast": 0.0, "slow": 0.0}},
+        slot_ps={"bf16": {"fast": 1.22, "slow": 46.7},
+                 "int8": {"fast": 2.92, "slow": 124.0},
+                 "codes": {"fast": 4.44, "slow": 0.0}}),
+    "query_major": dict(call_ms=1.24, width=1.85, slot_ps=866.0),
+}
+
+
+def _select_class(k, n_probe, approx):
+    """The probed scan's select as ops/adc.py resolves it: "slow" where the
+    k_pair is above 64 (k above 64 * n_probe with approx on: the plain
+    select) or an exact one above 16 (the CUDA-core scans), else "fast"
+    (the tensor cores)."""
+    if approx:
+        return "slow" if k > 64 * n_probe else "fast"
+    return "slow" if k > 16 else "fast"
+
+
+def card_plan_ms(nq, k, *, n_probe, s_pow2, n_items, d_vector, tier,
+                 approx):
+    """Estimated ms of each plan on the card (CARD_PLAN_COSTS' model) ->
+    {"flat", "cell_major", "query_major": ms}. An f32 cache takes the bf16
+    terms (not measured)."""
+    c = CARD_PLAN_COSTS
+    t = "bf16" if tier == "float32" else tier
+    r = d_vector / 128.0 - 1.0
+    pairs = nq * n_probe
+    slots = pairs * max(s_pow2, 128) * 1e-9
+    f, cm, qm = c["flat"], c["cell_major"], c["query_major"]
+    sel = _select_class(k, n_probe, approx)
+    return {
+        "flat": f["call_ms"] + max(n_items, 1) * 1e-9 * (
+            (1.0 + f["pass_width"] * r) * f["pass_ps"][t]
+            + nq * (1.0 + f["slot_width"] * r) * f["slot_ps"][t]),
+        "cell_major": cm["call_ms"] + nq * cm["query_us"][t][sel] * 1e-3
+        + pairs * cm["pair_ns"][t][sel] * 1e-6
+        + slots * (1.0 + cm["width"][sel] * r) * cm["slot_ps"][t][sel],
+        "query_major": qm["call_ms"]
+        + slots * (1.0 + qm["width"] * r) * qm["slot_ps"]}
+
+
+def card_probed_plan(nq, k, *, n_probe, s_pow2, d_vector, tier, approx,
+                     batch_threshold=None):
+    """The card's probed plan: query_major where the cache is bf16 / f32,
+    the batch is below the threshold and its estimate is below
+    cell_major's; else cell_major (the int8 and code tiers run every
+    probed plan cell-major)."""
+    if tier in ("int8", "codes") \
+            or nq >= batch_threshold_for("cuda", batch_threshold):
+        return "cell_major"
+    est = card_plan_ms(nq, k, n_probe=n_probe, s_pow2=s_pow2, n_items=1,
+                       d_vector=d_vector, tier=tier, approx=approx)
+    return "query_major" if est["query_major"] < est["cell_major"] \
+        else "cell_major"
+
+
+def plan_for(nq, k, *, n_probe, s_pow2, n_items, d_vector, tier, approx,
+             codes_kernel=True, device="cpu", batch_threshold=None):
+    """The plan of an "auto" search from the index's host shadows: tier is
+    "bf16", "float32", "int8" or "codes" (codes_kernel: whether the codes
+    kernel's static gate admits the index). On the CPU, the JAX package's
+    rule and TPU v5e crossovers (ivfpq.py:1140-1197), so the CPU parity
+    tests compare the same plan. On a CUDA device, the card's costs:
+    card_probed_plan, then flat where its estimate is no higher."""
+    if getattr(device, "type", str(device)) == "cuda":
+        mode = card_probed_plan(nq, k, n_probe=n_probe, s_pow2=s_pow2,
+                                d_vector=d_vector, tier=tier, approx=approx,
+                                batch_threshold=batch_threshold)
+        est = card_plan_ms(nq, k, n_probe=n_probe, s_pow2=s_pow2,
+                           n_items=n_items, d_vector=d_vector, tier=tier,
+                           approx=approx)
+        return "flat" if est["flat"] <= est[mode] else mode
+    mode = ("query_major" if nq < batch_threshold_for("cpu", batch_threshold)
+            else "cell_major")
+    touched = n_probe * s_pow2
+    n_live = max(int(n_items), 1)
+    if tier == "codes":
+        # probed codes scan against the decode-on-the-fly flat sweep
+        mult = 12 if codes_kernel else 512
+        if touched * mult >= n_live:
+            mode = "flat"
+    elif int(k) <= 32 or d_vector >= 512:
+        if approx and touched * 128 >= n_live:
+            mode = "flat"
+    elif touched * 512 >= n_live:
+        mode = "flat"
+    return mode
 
 
 class IVFPQIndex(CellContainer):
@@ -823,33 +938,37 @@ class IVFPQIndex(CellContainer):
         cap = int(cap)
         return cap if cap < n_probe else None
 
+    def _plan_tier(self):
+        """The planner's tier: "codes", "int8", or the cache's dtype."""
+        if self._code_domain:
+            return "codes"
+        if self._int8_cache:
+            return "int8"
+        return "float32" if self.aux("decoded").dtype == torch.float32 \
+            else "bf16"
+
     def plan_scan_mode(self, nq, k):
         """The plan `search` runs for nq queries at this k: 'flat',
         'cell_major' or 'query_major'; scan_mode != 'auto' pins it.
 
-        The structure is the JAX package's (ivfpq.py:1140-1197). Its
-        crossover multipliers (128x, 512x; 12x and 512x in the code domain)
-        were measured on a TPU v5e and are not yet re-derived for the H100:
-        pin scan_mode to choose."""
+        "auto" decides from the host shadows by plan_for: on a CPU index
+        the JAX package's rule and TPU v5e crossovers (ivfpq.py:1140-1197);
+        on a CUDA index the card's measured costs (CARD_PLAN_COSTS)."""
         mode = self.scan_mode
         if mode != "auto":
             return mode
-        n_probe = min(self.n_probe, self.n_cells)
-        mode = ("query_major" if nq < self._ivfpq_topk.batch_threshold
-                else "cell_major")
-        touched = n_probe * util.next_pow2(self.max_cell_capacity)
-        n_live = max(int(self.n_items), 1)
-        if self._code_domain:
-            # probed codes scan against the decode-on-the-fly flat sweep
-            mult = 12 if self._codes_kernel_eligible() else 512
-            if touched * mult >= n_live:
-                mode = "flat"
-        elif int(k) <= 32 or self.d_vector >= 512:
-            if self._use_approx_topk and touched * 128 >= n_live:
-                mode = "flat"
-        elif touched * 512 >= n_live:
-            mode = "flat"
-        return mode
+        return plan_for(int(nq), int(k), **self._plan_shadows())
+
+    def _plan_shadows(self):
+        """plan_for's keyword arguments from this index's host shadows."""
+        return dict(
+            n_probe=min(self.n_probe, self.n_cells),
+            s_pow2=util.next_pow2(self.max_cell_capacity),
+            n_items=int(self.n_items), d_vector=self.d_vector,
+            tier=self._plan_tier(), approx=self._use_approx_topk,
+            codes_kernel=self._code_domain and self._codes_kernel_eligible(),
+            device=self.device,
+            batch_threshold=self._ivfpq_topk.batch_threshold)
 
     def search(self, x, k=1, return_address=False):
         """x: [d_vector, nq] -> (values [nq, k] f32, ids [nq, k]); with

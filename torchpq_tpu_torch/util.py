@@ -82,9 +82,11 @@ def pad_cols(x, w):
     return torch.nn.functional.pad(x, (0, w - x.shape[-1]))
 
 
-def normalize(x, dim=-1, eps=1e-12):
-    """L2-normalize along `dim`."""
-    n = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
+def normalize(x, axis=-1, eps=1e-12, dim=None):
+    """L2-normalize along `axis` (the reference's name); `dim`, where
+    given, takes its place."""
+    n = torch.linalg.vector_norm(x, dim=axis if dim is None else dim,
+                                 keepdim=True)
     return x / torch.clamp(n, min=eps)
 
 
