@@ -170,12 +170,28 @@ Phases, each of which fails the run on error:
      rows, pad rows dead) and timed in turns with the CUDA-core
      codes_scan.cu; both k = 100 plans profiled.
  14. FlatIndex at 1M x 128 f32 (the slice's base and 10k queries), k = 10
-     and 100: ids against the exact ground truth (>= 0.999), ms per batch
+     and 100, at the search precision "highest" (IEEE f32, the exact
+     index): ids against the exact ground truth (>= 0.999), ms per batch
      and device bytes; then a seeded 10% removed and 1,000 queries held to
-     the survivors' exact ground truth.
+     the survivors' exact ground truth. Then the precision phase (14b):
+     util.matmul on the card on the slice's operands (1,024 queries
+     against the coarse centroids and against 65,536 base rows, f32, and
+     the bf16 query against bf16 cache rows): "default" within the f32
+     summation bound of an f64 product of the bf16-rounded operands, "high"
+     within the bf16_3x bound of the f64 product, "highest" bit-equal to
+     the f32 product, each mode within the bound of its plain version;
+     then at each precision (search precision set, then restored) the
+     coarse GEMM's ms (CUDA events), the 1M x 128 bf16 index's flat plan
+     and cell_major n_probe 32 (ms, recall@10; the flat plan profiled for
+     its GEMMs' device ms) and a 1M x 128 f32 FlatIndex's 10k-query
+     search; at "default": flat recall@10 >= 0.85 and n_probe 32 >= 0.75,
+     the flat plan's ids >= 0.99 equal to "highest"'s, FlatIndex ids
+     >= 0.999 equal to an f32 sweep of the bf16-rounded operands (its
+     recall against the f32 truth logged).
  15. transforms and SQ at 100k x 128, card against CPU from the same
-     carried state: OPQ (PQ16) -> IVFPQIndex, PCA 128 -> 64 -> FlatIndex,
-     an 8-bit SQCodec round trip.
+     carried state (at the search precision "highest": the CPU computes
+     f32 at every precision): OPQ (PQ16) -> IVFPQIndex, PCA 128 -> 64 ->
+     FlatIndex, an 8-bit SQCodec round trip.
  16. anisotropic PQ and manhattan, at 100k x 128 (no kernel on these
      paths): the card's `_aniso_refine` (eta 4, 8 iterations, from the
      main PQ codebook) and `_aniso_assign` on the 100k rows, then both on
@@ -204,7 +220,8 @@ Phases, each of which fails the run on error:
      / 64; recall non-decreasing in n_probe (within 0.005), each flat plan
      within 0.02 of the exact sweep over its tier's PQ-decoded rows, int8
      within 0.005 of bf16 per k = 10 plan, recall@100 logged; the bf16
-     exact scan (n_probe 8) held to block_scan_ref within the tolerance and
+     record's flat plan timed at the search precisions "default" and
+     "highest" in turns (logged); the bf16 exact scan (n_probe 8) held to block_scan_ref within the tolerance and
      its pack32 scans at k = 10 and k = 100 (k_pair 64 over 512 groups,
      the one-list instance; n_probe 32) to an f64-summed select by key or
      slot as in phase 9, and block_scan.cu to it by slot, the tensor-core
@@ -244,7 +261,8 @@ Phases, each of which fails the run on error:
  22. legacy: the v1 IVFPQ facade at 100k x 128 (IVF256 x PQ64, the
      CPU-RAM SQ tier on) trained on the card, its state carried into a CPU
      facade, the same adds: 1,000 queries at n_probe 8, cell_major pinned
-     on both, ids >= 0.999 equal; the SQ reconstructions within 0.05.
+     on both, at the search precision "highest", ids >= 0.999 equal; the
+     SQ reconstructions within 0.05.
  23. dp k-means (inside 24's NCCL world): data_parallel_kmeans_fit on the
      100k train slice to 4096 clusters, 10 iterations, D = 1, timed beside
      a plain Lloyd loop from the same initial rows; both again under
@@ -305,6 +323,7 @@ Imports nothing of JAX or of the JAX package.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -1423,7 +1442,8 @@ def profile_search(torch, search, what, host_ops=False):
     device-busy time (the sum of the kernels' own device times) and the
     largest kernels; with host_ops also the host's wall time and its
     largest operators by self CPU time. A session that records no kernel
-    is run once more; a second such session fails the run."""
+    is run once more; a second such session fails the run. Returns (busy
+    ms, [(kernel name, device ms)] largest first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     search()
@@ -1450,6 +1470,7 @@ def profile_search(torch, search, what, host_ops=False):
                     f"{e.self_device_time_total / 1e3:.3f} ms"
                     for e in kernels[:5])
     log(f"profile {what}: device busy {busy:.3f} ms; {top}")
+    by_name = [(e.key, e.self_device_time_total / 1e3) for e in kernels]
     if host_ops:
         ops = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CPU),
@@ -1458,6 +1479,7 @@ def profile_search(torch, search, what, host_ops=False):
             + "; ".join(f"{e.key[:40]} x{e.count} "
                         f"{e.self_cpu_time_total / 1e3:.3f} ms"
                         for e in ops[:8]))
+    return busy, by_name
 
 
 def phase_profile(torch, index, xq, k, label="", plans=None):
@@ -2591,6 +2613,164 @@ def phase_pqr_codes(torch, tp, bs, cs, sl, gt100, trained, rec_cached):
     return launches, rows
 
 
+@contextlib.contextmanager
+def search_precision(tp, precision):
+    """config.SEARCH_PRECISION set to `precision` inside, then restored.
+    The card-against-CPU checks run at "highest": the CPU computes f32 at
+    every precision, so they compare the algorithm, not the precision."""
+    keep = tp.config.SEARCH_PRECISION
+    tp.config.set_search_precision(precision)
+    try:
+        yield
+    finally:
+        tp.config.set_search_precision(keep)
+
+
+def matmul_bound(torch, a, b, precision):
+    """The largest error util.matmul(a, b, precision) may show against the
+    f64 product of its operands (of their bf16 roundings at "default"),
+    per entry: the f32 summation bound (d + 2) * F32_UNIT * sum |a_i b_i|
+    (F32_UNIT: one f32 unit for accumulators that truncate, as the tensor
+    cores' f32 accumulation does), at "high" three GEMMs' worth of it plus
+    bf16_3x's dropped terms, lo * lo and the low parts' own rounding, at
+    most 2^-14 sum |a_i b_i| (each part rounds to 8 significant bits, so
+    a - a_hi - a_lo is within 2^-16 |a|)."""
+    d = a.shape[-1]
+    if precision == "default":
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    mag = a.double().abs() @ b.double().abs().T
+    if precision == "high":
+        return (2.0 ** -14 + 2 * (d + 4) * F32_UNIT) * mag
+    return (d + 2) * F32_UNIT * mag
+
+
+def check_matmul(torch, tp, label, a, b):
+    """util.matmul on the card at each precision against its oracle:
+    "default" and "high" within matmul_bound of the f64 product (of the
+    bf16-rounded operands at "default"), as is each mode's plain version;
+    "highest" bit-equal to the f32 product a.float() @ b.float().T."""
+    util = tp.util
+    for p in ("default", "high", "highest"):
+        got = util.matmul(a, b, p)
+        if got.dtype != torch.float32 or tuple(got.shape) != (
+                a.shape[0], b.shape[0]):
+            fail(f"precision {label} {p}: {got.dtype} {tuple(got.shape)}")
+        if p == "highest":
+            if not torch.equal(got, a.float() @ b.float().T):
+                fail(f"precision {label}: 'highest' is not the f32 product")
+            log(f"precision {label} highest: bit-equal to the f32 product")
+            continue
+        x, y = (a.to(torch.bfloat16), b.to(torch.bfloat16)) \
+            if p == "default" else (a, b)
+        want = x.double() @ y.double().T
+        tol = matmul_bound(torch, a, b, p)
+        for name, v in (("card", got), ("plain", util.matmul_plain(a, b, p))):
+            ratio = float(((v.double() - want).abs() / tol).max())
+            log(f"precision {label} {p} ({name}): largest error over the "
+                f"bound {ratio:.4f}")
+            if not ratio <= 1.0:  # NaN fails too
+                fail(f"precision {label} {p} ({name}) beyond its bound")
+
+
+def phase_precision(torch, tp, sl):
+    """Phase 14b: the JAX package's matmul precision on the card (C11).
+    util.matmul's three modes held to their oracles on the slice's
+    operands; then, at each precision, the coarse GEMM, the bf16 index's
+    flat plan (its GEMMs' device ms from a profile) and cell_major n_probe
+    32, and a 1M x 128 f32 FlatIndex, timed in one call; the "default"
+    results held to their floors and to "highest"'s."""
+    index, base, xq, gt, k = (sl[x] for x in ("index", "base", "xq", "gt",
+                                                "k"))
+    util = tp.util
+    xb = torch.from_numpy(base[:65536]).cuda()
+    check_matmul(torch, tp, "queries x coarse centroids", xq[:1024],
+                 index._coarse_cb())
+    check_matmul(torch, tp, "queries x base rows", xq[:1024], xb)
+    q16 = xq[:1024].to(torch.bfloat16)
+    live = torch.nonzero(~index._is_empty).flatten()[:65536]
+    rows = index.aux("decoded")[live]
+    check_matmul(torch, tp, "bf16 queries x bf16 cache rows", q16, rows)
+    if not torch.equal(util.matmul(q16, rows, "default"),
+                       util.matmul(q16, rows, "high")):
+        fail("precision: 'high' on bf16 operands is not the one bf16 GEMM")
+    del xb
+
+    n, d = base.shape
+    flat = tp.FlatIndex(d_vector=d, initial_size=n, device="cuda")
+    flat.add(torch.from_numpy(base).cuda().T)
+    keep = (index.scan_mode, index.n_probe, index.use_approx_topk)
+    out, rows_log = {}, []
+    for p in ("default", "high", "highest"):
+        with search_precision(tp, p):
+            row = dict(precision=p, coarse_gemm_ms=cuda_ms(
+                torch, lambda: util.matmul(xq, index._coarse_cb()), 10))
+            for plan, n_probe in (("flat", 1), ("cell_major", 32)):
+                ms, _ = plan_ms(torch, index, xq, k, plan, n_probe, True)
+                _, ids = index.search(xq.T, k=k)
+                row[f"{plan}_ms"], row[f"{plan}_recall"] = ms, recall_at(
+                    ids.long(), gt)
+                if plan == "flat":
+                    if tp.ops.flat_adc.LAST_FLAT.get("precision") != p:
+                        fail(f"precision {p}: the flat plan recorded "
+                             f"{tp.ops.flat_adc.LAST_FLAT}")
+                    out[p] = ids
+                    _, kernels = profile_search(
+                        torch, lambda: index.search(xq.T, k=k),
+                        f"precision {p}, flat plan")
+                    gemm = [(name, ms) for name, ms in kernels
+                            if re.search(r"gemm|xmma|cutlass|nvjet", name,
+                                         re.I)]
+                    row["flat_gemm_device_ms"] = sum(x for _, x in gemm)
+                    row["flat_gemm_kernels"] = [name[:60] for name, _ in gemm]
+                elif tp.ops.adc.LAST_GATE.get("precision") != p:
+                    fail(f"precision {p}: the scan recorded "
+                         f"{tp.ops.adc.LAST_GATE}")
+            flat.search(xq.T, k=k)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                v_f, i_f = flat.search(xq.T, k=k)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            if tp.index.flat.LAST_SEARCH.get("precision") != p:
+                fail(f"precision {p}: FlatIndex recorded "
+                     f"{tp.index.flat.LAST_SEARCH}")
+            row["flat_index_ms"] = float(np.median(times)) * 1e3
+            row["flat_index_recall"] = recall_at(i_f.long(), gt)
+            if p == "default":
+                i_default = i_f
+        rows_log.append(row)
+        log("precision " + json.dumps(row))
+    index.scan_mode, index.n_probe, index.use_approx_topk = keep
+    r = rows_log[0]
+    if r["flat_recall"] < 0.85 or r["cell_major_recall"] < 0.75:
+        fail(f"precision default: recall@10 flat {r['flat_recall']:.4f} "
+             f"(floor 0.85), n_probe 32 {r['cell_major_recall']:.4f} "
+             f"(floor 0.75)")
+    agree = share_equal(out["default"], out["highest"])
+    log(f"precision: the flat plan's ids at default equal to highest's on "
+        f"{agree:.5f}")
+    if agree < 0.99:
+        fail("precision: the flat plan at default departs from highest")
+    # FlatIndex at "default": an f32 sweep of the bf16-rounded operands
+    xb = torch.from_numpy(base).cuda()
+    nb = (xb * xb).sum(-1)
+    xb16 = xb.to(torch.bfloat16).float()
+    want = torch.cat([torch.topk(
+        2 * (xq[i:i + 1000].to(torch.bfloat16).float() @ xb16.T) - nb[None],
+        k, dim=-1).indices for i in range(0, xq.shape[0], 1000)])
+    del xb, xb16
+    agree = recall_at(i_default.long(), want)
+    log(f"precision: FlatIndex at default, ids against an f32 sweep of the "
+        f"bf16-rounded operands {agree:.5f}, recall@10 against the f32 "
+        f"truth {r['flat_index_recall']:.5f}")
+    if agree < 0.999:
+        fail("precision: FlatIndex at default departs from the bf16 sweep")
+    del flat
+    return rows_log
+
+
 def phase_flat_index(torch, tp, sl):
     """FlatIndex over the slice's 1M x 128 base, f32, euclidean: 10k
     queries at k = 10 and 100, each search's ids held to the exact f32
@@ -3109,6 +3289,15 @@ def phase_gist_records(torch, tp, bs, trained, base, xq, xb, gt100, d, m,
             log(f"{label}recall@10 within 0.005 of the bf16 tier's on "
                 f"every plan")
         rec10 = r10
+        if not cache:
+            # the flat plan's GEMMs at "highest" beside the default, in turns
+            flat_ms = {}
+            for p in ("default", "highest", "highest", "default"):
+                with search_precision(tp, p):
+                    flat_ms.setdefault(p, []).append(plan_ms(
+                        torch, idx, xq, 10, "flat", 1, True)[0])
+            log(f"{label}flat plan by search precision, in turns (ms): "
+                f"{json.dumps(flat_ms)}")
         if cache:
             name = "block_scan_int8_pack32_k100_d1024"
             rows[name] = int8_deep_row(torch, tp, bs, idx, xq, 100, name,
@@ -4141,10 +4330,11 @@ def planner_point(tp, index, label, nq, k, n_probe, approx, ms, reps):
     before = tp.index.ivfpq.plan_for(nq, k, **dict(shadows, device="cpu"))
     est = tp.index.ivfpq.card_plan_ms(nq, k, **{
         x: shadows[x] for x in ("n_probe", "s_pow2", "n_items", "d_vector",
-                                "tier", "approx")})
+                                "tier", "approx", "precision")})
     PLANNER.append(dict(
         index=label, n_live=int(index.n_items), nq=nq, k=k,
         n_probe=n_probe, approx=approx, s_pow2=shadows["s_pow2"],
+        precision=shadows["precision"],
         d=index.d_vector, tier=shadows["tier"], ms=ms, reps=reps,
         est={p: round(v, 3) for p, v in est.items()}, auto=auto,
         before=before, fastest=min(ms, key=ms.get)))
@@ -4232,10 +4422,11 @@ def fit_planner(points):
     fitted to the points by non-negative least squares on relative
     errors, in steps: the bf16 points fix each plan's per-call term and
     widths (two widths: d 128 and 960); each other tier (and select) its
-    own terms with those fixed. The points a warm-up timed (a series' last)
-    count as timed."""
+    own terms with those fixed; the flat terms per precision class of the
+    points' search precision (flat_class). The points a warm-up timed (a
+    series' last) count as timed."""
     from scipy.optimize import nnls
-    from torchpq_tpu_torch.index.ivfpq import _select_class
+    from torchpq_tpu_torch.index.ivfpq import _select_class, flat_class
 
     def solve(rows, ys):
         a = np.array(rows, float) / np.array(ys, float)[:, None]
@@ -4263,19 +4454,25 @@ def fit_planner(points):
     def n(p):
         return p["n_live"] * 1e-9
 
-    b16 = [p for p in flat if p["tier"] == "bf16"]
-    c0, pa, pb, sa, sb = solve(
-        [[1.0, n(p), n(p) * r(p), p["nq"] * n(p), p["nq"] * n(p) * r(p)]
-         for p in b16], [p["ms"]["flat"] for p in b16])
-    pw, sw = pb / pa if pa else 0.0, sb / sa if sa else 0.0
-    fl = dict(call_ms=c0, pass_width=pw, slot_width=sw,
-              pass_ps={"bf16": pa}, slot_ps={"bf16": sa})
-    for tier in ("int8", "codes"):
-        tp_ = [p for p in flat if p["tier"] == tier]
-        fl["pass_ps"][tier], fl["slot_ps"][tier] = solve(
-            [[n(p) * (1 + pw * r(p)), p["nq"] * n(p) * (1 + sw * r(p))]
-             for p in tp_], [p["ms"]["flat"] - c0 for p in tp_]) \
-            if tp_ else (pa, sa)
+    def fit_flat(flat):
+        b16 = [p for p in flat if p["tier"] == "bf16"]
+        c0, pa, pb, sa, sb = solve(
+            [[1.0, n(p), n(p) * r(p), p["nq"] * n(p), p["nq"] * n(p) * r(p)]
+             for p in b16], [p["ms"]["flat"] for p in b16])
+        pw, sw = pb / pa if pa else 0.0, sb / sa if sa else 0.0
+        fl = dict(call_ms=c0, pass_width=pw, slot_width=sw,
+                  pass_ps={"bf16": pa}, slot_ps={"bf16": sa})
+        for tier in ("int8", "codes"):
+            tp_ = [p for p in flat if p["tier"] == tier]
+            fl["pass_ps"][tier], fl["slot_ps"][tier] = solve(
+                [[n(p) * (1 + pw * r(p)), p["nq"] * n(p) * (1 + sw * r(p))]
+                 for p in tp_], [p["ms"]["flat"] - c0 for p in tp_]) \
+                if tp_ else (pa, sa)
+        return fl
+
+    classes = {flat_class(p["precision"]) for p in flat}
+    fl = {c: fit_flat([p for p in flat if flat_class(p["precision"]) == c])
+          for c in sorted(classes)}
 
     cm = [p for p in points if "cell_major" in p["ms"]]
     terms = {t: {} for t in ("query_us", "pair_ns", "slot_ps")}
@@ -4491,10 +4688,15 @@ def main():
     log(f"pqr3 code-domain phase: {time.perf_counter() - t_phase:.1f} s")
     del gt100
     t_phase = time.perf_counter()
-    phase_flat_index(torch, tp, sl)
+    with search_precision(tp, "highest"):
+        phase_flat_index(torch, tp, sl)
     log(f"FlatIndex phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
-    phase_transforms(torch, tp, sl)
+    phase_precision(torch, tp, sl)
+    log(f"precision phase: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    with search_precision(tp, "highest"):
+        phase_transforms(torch, tp, sl)
     log(f"transforms and SQ phase: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     phase_aniso_manhattan(torch, tp, bs, cs, sl)
@@ -4533,7 +4735,8 @@ def main():
     try:
         phase_native(torch, tp, sl, work, timer)
         phase_presize(torch, tp, sl, sl["gt"], timer)
-        phase_legacy(torch, tp, sl, timer)
+        with search_precision(tp, "highest"):
+            phase_legacy(torch, tp, sl, timer)
         sharded, sharded_rows = phase_sharded(
             torch, tp, bs, cs, sl,
             {"bf16": sl["index"], "int8": i8, "codes": code}, work, timer)

@@ -156,9 +156,10 @@ METHODS = {
 }
 
 # public callables whose JAX signatures' parameters the port's must all
-# accept (ROADMAP C7: the precision and tiling kwargs are accepted and
-# ignored), with the defaults of `DEFAULTS` equal in both
+# accept (ROADMAP C7: the tiling kwargs are accepted and ignored; C11: the
+# precision kwargs are live), with the defaults of `DEFAULTS` equal in both
 SIGNATURES = [
+    "config.set_search_precision", "config.set_train_precision",
     "metric.inner_similarity", "metric.cosine_similarity",
     "metric.negative_squared_l2_distance", "metric.similarity",
     "metric.negative_manhattan_distance",
@@ -442,9 +443,9 @@ def _resolve(pkg, path):
 @pytest.mark.parametrize("path", SIGNATURES)
 def test_signature_accepts_reference_kwargs(path):
     """Every parameter of the JAX signature exists in the port's (the
-    precision / tiling kwargs accepted and ignored, C7), and the defaults
-    that decide behaviour are the JAX package's (impl "xla", a float32
-    cell store, npz saves; C6)."""
+    tiling kwargs accepted and ignored, C7; precision live, C11), and the
+    defaults that decide behaviour are the JAX package's (impl "xla", a
+    float32 cell store, npz saves; C6)."""
     ref = inspect.signature(_resolve("torchpq_tpu", path)).parameters
     got = inspect.signature(_resolve("torchpq_tpu_torch", path)).parameters
     missing = [p for p in ref if p not in got]
@@ -609,13 +610,15 @@ def _imports(path):
 
 
 def test_port_sources_import_no_jax():
-    """No source of the port, not chip_smoke.py or chip_variants.py and not
-    the multi-rank test worker (tests/_torch_dist_worker.py) names jax,
-    orbax or the JAX package in an import."""
+    """No source of the port, not chip_smoke.py, chip_variants.py or
+    chip_matmul.py and not the multi-rank test worker
+    (tests/_torch_dist_worker.py) names jax, orbax or the JAX package in an
+    import."""
     import pathlib
     root = pathlib.Path(tp.__file__).parent
     files = sorted(root.rglob("*.py")) + [
         root.parent / "chip_smoke.py", root.parent / "chip_variants.py",
+        root.parent / "chip_matmul.py",
         pathlib.Path(__file__).parent / "_torch_dist_worker.py"]
     for path in files:
         bad = _imports(path) & {"jax", "jaxlib", "orbax", "torchpq_tpu"}

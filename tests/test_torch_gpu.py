@@ -4,7 +4,10 @@ flat scan on their tensor-core and CUDA-core routes, row gather)
 against their plain PyTorch versions, and the device spill routing against
 its CPU result, on a card; the indexes card against CPU; the sharded
 searcher and data-parallel k-means over a world of one NCCL rank, the host
-spill, the v1 facade and the profiling helpers on the card.
+spill, the v1 facade and the profiling helpers on the card; util.matmul's
+three precisions against their plain versions (the tests holding a card
+result to the CPU's search at "highest", since the CPU computes f32 at
+every precision).
 
 Marked `gpu`: without a CUDA card every test here skips. This file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -31,6 +34,18 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def f32_search():
+    """The search precision "highest" for the test, then restored: a card
+    result held to the CPU's compares the algorithm, and the CPU computes
+    f32 at every precision."""
+    from torchpq_tpu_torch import config
+    keep = config.SEARCH_PRECISION
+    config.set_search_precision("highest")
+    yield
+    config.set_search_precision(keep)
 
 
 def _block_launch(args, kw):
@@ -547,7 +562,7 @@ def test_block_routes_on_card(cuda):
 
 
 @pytest.mark.gpu
-def test_scan_cell_major_on_card_matches_cpu(cuda):
+def test_scan_cell_major_on_card_matches_cpu(cuda, f32_search):
     """The whole cell-major scan on the card (kernel) against the same scan
     on the CPU (plain version)."""
     g = torch.Generator().manual_seed(1)
@@ -596,7 +611,7 @@ def _assert_pack32_values(v, v_ref, i, i_ref, q, s_eff):
 
 
 @pytest.mark.gpu
-def test_index_on_card_matches_cpu(cuda):
+def test_index_on_card_matches_cpu(cuda, f32_search):
     """The same trained state and adds on the card and on the CPU: the adds
     relayout the cells, the stores come out equal, and every plan finds the
     same neighbours."""
@@ -657,7 +672,8 @@ def _assert_topk_ties(v, i, v_ref, i_ref, rtol=1e-3, atol=1e-2):
     (32, 8, dict(distance="inner", anisotropic_eta=4.0)),
     (32, 8, dict(distance="manhattan")),
 ])
-def test_pq_variants_on_card_match_cpu(cuda, tmp_path, d, m, kwargs):
+def test_pq_variants_on_card_match_cpu(cuda, f32_search, tmp_path, d, m,
+                                       kwargs):
     """The PQ variants on the card: an index trains there; with the CPU
     index's trained state, the same adds (a relayout), a remove and more
     adds, the stores equal the CPU's (anisotropic codes on >= 0.999: the
@@ -726,7 +742,7 @@ def test_pq_variants_on_card_match_cpu(cuda, tmp_path, d, m, kwargs):
 
 
 @pytest.mark.gpu
-def test_spill_assign_on_card_matches_cpu(cuda):
+def test_spill_assign_on_card_matches_cpu(cuda, f32_search):
     """The device spill routing on the card equals the CPU's bit for bit:
     a hot cell whose items spill, items whose every candidate is full (the
     least-occupied fallback), occupancy from earlier adds."""
@@ -941,7 +957,7 @@ def test_codes_kernel_matches_block_scan(cuda, m, dsub, pack32):
 
 
 @pytest.mark.gpu
-def test_code_domain_index_on_card_matches_cpu(cuda):
+def test_code_domain_index_on_card_matches_cpu(cuda, f32_search):
     """A code-domain index (scan_cache_dtype="none", PQ8 at d=32: g = 16)
     with the same state and adds on the card and on the CPU: equal stores,
     and every plan finds the same neighbours (the probed plans through the
@@ -1096,7 +1112,7 @@ def test_block_tc_int8_persistent_grid(cuda, d, pack32, k_pair, s_eff):
 
 
 @pytest.mark.gpu
-def test_int8_index_on_card_matches_cpu(cuda):
+def test_int8_index_on_card_matches_cpu(cuda, f32_search):
     """An int8 index (scan_cache_dtype="int8") with the same state and adds
     on the card and on the CPU: equal int8 rows and scales, and every plan
     finds the same neighbours, the probed ones through both int8 selects
@@ -1305,7 +1321,7 @@ def _ids_by_plan(cpu, gpu, q, k, plans):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cache", [None, "int8", "none"])
-def test_ivfpqr_on_card_matches_cpu(cuda, cache, tmp_path):
+def test_ivfpqr_on_card_matches_cpu(cuda, f32_search, cache, tmp_path):
     """IVFPQRIndex on the card against the CPU: train from equal initial
     centroids on both (codebooks within 1e-2), then the CPU's trained state
     on both, two adds that relayout (equal codes, rerank codes and ids; the
@@ -1358,7 +1374,7 @@ def test_ivfpqr_on_card_matches_cpu(cuda, cache, tmp_path):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("distance", ["euclidean", "cosine", "manhattan"])
-def test_flat_index_on_card_matches_cpu(cuda, distance, tmp_path):
+def test_flat_index_on_card_matches_cpu(cuda, f32_search, distance, tmp_path):
     """FlatIndex on the card against the CPU: the same adds, removes and
     growth give equal stores and id maps; searches (k 10 and k above the
     rows held) within 1e-3 with ids equal outside ties; an npz saved on
@@ -1507,7 +1523,7 @@ def test_dp_kmeans_d1_on_card(cuda, nccl_mesh):
 
 
 @pytest.mark.gpu
-def test_host_spill_on_card_matches_cpu(cuda):
+def test_host_spill_on_card_matches_cpu(cuda, f32_search):
     """spill_impl="host" on the card: the cells the CPU gives from the same
     state, on >= 0.99 of items (the greedy runs on the host either way; the
     top cells come from each device's coarse GEMM, whose near ties may
@@ -1532,7 +1548,7 @@ def test_host_spill_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
-def test_legacy_and_profiling_on_card(cuda, tmp_path):
+def test_legacy_and_profiling_on_card(cuda, f32_search, tmp_path):
     """The v1 IVFPQ facade on the card against its CPU twin from the same
     state (ids equal outside ties), with its CPU-RAM SQ tier; one search
     inside profiling.trace and named_scope: the scope and the card's
@@ -1634,3 +1650,92 @@ def test_planner_on_card(cuda):
     gpu.scan_mode = plan
     v_p, i_p = gpu.search_cells(qt[:, :8], cells, k=10)
     assert torch.equal(v, v_p) and torch.equal(i, i_p), plan
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [32, 128, 1024])
+def test_matmul_precisions_on_card(cuda, d):
+    """util.matmul on the card: "default" and "high" within the f32
+    summation bound of their plain versions' f64 counterparts (the
+    tensor cores' accumulation truncates: one f32 unit, 2^-23, per term
+    summed; "high" three GEMMs of it and bf16_3x's dropped terms, 2^-14);
+    "highest" bit-equal to a.float() @ b.float().T; on bf16 operands
+    "default" and "high" are the one GEMM, within the bound of the f64
+    product; alpha and bias as the f32 addmm's up to that bound."""
+    from torchpq_tpu_torch import util
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    a = torch.randn(300, d, device=cuda, generator=gen) \
+        * torch.rand(300, 1, device=cuda, generator=gen) * 10
+    b = torch.randn(700, d, device=cuda, generator=gen)
+    unit = 2.0 ** -23
+
+    def bound(x, y, precision):
+        mag = x.double().abs() @ y.double().abs().T
+        if precision == "high":
+            return (2.0 ** -14 + 2 * (d + 4) * unit) * mag
+        return (d + 2) * unit * mag
+
+    assert torch.equal(util.matmul(a, b, "highest"), a.float() @ b.float().T)
+    for p in ("default", "high"):
+        x, y = (a.to(torch.bfloat16), b.to(torch.bfloat16)) \
+            if p == "default" else (a, b)
+        want = x.double() @ y.double().T
+        tol = bound(x, y, p)
+        got = util.matmul(a, b, p)
+        assert got.dtype == torch.float32
+        assert bool(((got.double() - want).abs() <= tol).all()), p
+        plain = util.matmul_plain(a, b, p)
+        assert bool(((plain.double() - want).abs() <= tol).all()), p
+        bias = torch.randn(1, 700, device=cuda, generator=gen)
+        got = util.matmul(a, b, p, alpha=2.0, bias=bias)
+        assert bool(((got.double() - (2 * want + bias.double())).abs()
+                     <= 2 * tol + 2 * unit * bias.double().abs()).all()), p
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    got = util.matmul(a16, b16, "default")
+    assert torch.equal(got, util.matmul(a16, b16, "high"))
+    want = a16.double() @ b16.double().T
+    assert bool(((got.double() - want).abs()
+                 <= bound(a16, b16, "default")).all())
+    # batched, as the query-major scan and the LUT use it
+    got = util.matmul(a16.reshape(10, 30, d), b16.reshape(10, 70, d),
+                      "default")
+    want = a16.reshape(10, 30, d).double() @ b16.reshape(
+        10, 70, d).double().transpose(1, 2)
+    assert bool(((got.double() - want).abs() <= (d + 2) * unit * (
+        a16.reshape(10, 30, d).double().abs()
+        @ b16.reshape(10, 70, d).double().abs().transpose(1, 2))).all())
+
+
+@pytest.mark.gpu
+def test_search_precision_on_card(cuda):
+    """A card index's flat plan and FlatIndex at each search precision
+    record it; "default" finds what "highest" finds on >= 0.99 of ids;
+    use_tensor_core = False searches at "highest"."""
+    import numpy as np
+    import torchpq_tpu_torch as tp
+    from torchpq_tpu_torch import config
+    gpu, _, q = _card_index(cuda, None)
+    qt = torch.from_numpy(q).to(cuda).T
+    flat = tp.FlatIndex(d_vector=gpu.d_vector, device=cuda)
+    rng = np.random.default_rng(3)
+    flat.add(torch.from_numpy(rng.normal(size=(gpu.d_vector, 5000))
+                              .astype(np.float32)).to(cuda))
+    keep = config.SEARCH_PRECISION
+    ids = {}
+    try:
+        for p in ("default", "high", "highest"):
+            config.set_search_precision(p)
+            gpu.scan_mode = "flat"
+            ids[p] = gpu.search(qt, k=10)[1]
+            assert flat_adc.LAST_FLAT["precision"] == p
+            flat.search(qt, k=10)
+            assert tp.index.flat.LAST_SEARCH["precision"] == p
+        agree = (ids["default"] == ids["highest"]).float().mean().item()
+        assert agree >= 0.99, agree
+        config.set_search_precision("default")
+        gpu.scan_mode, gpu.use_tensor_core = "cell_major", False
+        gpu.search(qt, k=10)
+        assert adc.LAST_GATE["precision"] == "highest"
+    finally:
+        config.set_search_precision(keep)
+        gpu.use_tensor_core = True

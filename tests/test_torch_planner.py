@@ -265,11 +265,11 @@ def test_card_table_sweeps_small_index(case, shadows, nq, k):
 def test_card_table_names_what_runs(tier):
     """At 64 queries, n_probe 8 on the 1M index, the card's sweep measured
     query_major fastest (1.40 ms against cell_major's 2.55 and flat's
-    2.20):
+    2.20, every GEMM in IEEE f32: the flat terms of "highest"):
     the bf16 and f32 caches take it; the int8 and code tiers run every
     probed plan cell-major, which the card's rule names. From the batch
     threshold on, query_major is never a candidate."""
-    shadows = dict(MAIN, tier=tier, n_probe=8)
+    shadows = dict(MAIN, tier=tier, n_probe=8, precision="highest")
     want = "query_major" if tier in ("bf16", "float32") else "cell_major"
     assert plan_for(64, 10, device="cuda", **shadows) == want
     assert plan_for(BATCH_THRESHOLD["cuda"], 10, device="cuda",
@@ -278,15 +278,19 @@ def test_card_table_names_what_runs(tier):
 
 def test_card_estimates_are_monotone():
     """Each plan's estimate grows with the batch, the items swept and the
-    slots probed; the table has an entry for every tier and select."""
-    for tier in CARD_PLAN_COSTS["flat"]["slot_ps"]:
-        sh = dict(MAIN, tier=tier)
-        for approx, k in ((True, 10), (False, 10), (False, 100),
-                          (True, 100)):
-            sh["approx"] = approx
-            a = card_plan_ms(1000, k, n_probe=8, **sh)
-            b = card_plan_ms(2000, k, n_probe=16, **dict(sh, n_items=2e6))
-            assert all(b[p] > a[p] > 0 for p in a), (tier, approx, k)
+    slots probed; the table has an entry for every tier and select, and
+    flat terms for each precision class."""
+    assert set(CARD_PLAN_COSTS["flat"]) == {"f32", "bf16"}
+    for precision in ("default", "high", "highest"):
+        for tier in CARD_PLAN_COSTS["flat"]["f32"]["slot_ps"]:
+            sh = dict(MAIN, tier=tier, precision=precision)
+            for approx, k in ((True, 10), (False, 10), (False, 100),
+                              (True, 100)):
+                sh["approx"] = approx
+                a = card_plan_ms(1000, k, n_probe=8, **sh)
+                b = card_plan_ms(2000, k, n_probe=16,
+                                 **dict(sh, n_items=2e6))
+                assert all(b[p] > a[p] > 0 for p in a), (tier, approx, k)
 
 
 def test_card_index_keys_the_table_and_passes_pins():

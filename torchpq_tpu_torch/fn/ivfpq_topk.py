@@ -54,7 +54,8 @@ class IVFPQTopk:
         `impl` is the index's scan_impl ("xla" by default, as in the JAX
         package); `group` and `probe_cap` pass through to the cell-major
         scan (supercells, the probe cap), as in the JAX package, which
-        takes no merge taper here. `precision` is accepted and ignored."""
+        takes no merge taper here. `precision` (None: the search
+        precision) is the scans' products'."""
         mode = mode or self.mode
         approx = self.approx if approx is None else approx
         if pq_codebook is not None:
@@ -62,7 +63,8 @@ class IVFPQTopk:
                 query, cells, probe_mask, decoded, norms, is_empty,
                 cell_start, cell_capacity, pq_codebook, k=k,
                 distance=distance, s_max=s_max, n_cells=self.n_cells,
-                p_tile=self.p_tile, approx=approx, m=m, impl=impl)
+                p_tile=self.p_tile, approx=approx, m=m, impl=impl,
+                precision=precision)
         if mode in ("auto", "flat") and query.is_cuda:
             from ..index.ivfpq import card_probed_plan
             mode = card_probed_plan(
@@ -80,9 +82,10 @@ class IVFPQTopk:
             return adc.scan_query_major(
                 query, cells, probe_mask, decoded, norms, is_empty,
                 cell_start, cell_capacity, k=k, distance=distance,
-                s_max=s_max)
+                s_max=s_max, precision=precision)
         return adc.scan_cell_major(
             query, cells, probe_mask, decoded, norms, is_empty, cell_start,
             cell_capacity, k=k, distance=distance, s_max=s_max,
             n_cells=self.n_cells, p_tile=self.p_tile, approx=approx,
-            scales=scales, impl=impl, group=group, probe_cap=probe_cap)
+            scales=scales, impl=impl, group=group, probe_cap=probe_cap,
+            precision=precision)

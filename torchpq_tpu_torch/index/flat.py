@@ -1,8 +1,11 @@
 """Exact (brute-force) index (counterpart of torchpq_tpu/index/flat.py).
 
 Rows live in a FlatContainer as float32; a search scores the queries
-against the live prefix in float32 (TF32 is off, config.py: this index is
-the exact one) and keeps the top k per query. Queries go in chunks whose
+against the live prefix at the search precision, as the JAX package does
+(config.py): on the card "highest" is IEEE float32, the exact index, and
+the default "default" scores bf16-rounded operands on the tensor cores, as
+the TPU does; the CPU computes float32 at every precision. It keeps the
+top k per query. Queries go in chunks whose
 [chunk, n_items] score tile stays within FLAT_TILE_ELEMS, so memory is
 bounded while the GEMM stays wide on the card. Cosine rows are normalized
 at add and scored as inner products against the normalized queries.
@@ -11,6 +14,7 @@ Manhattan runs through the chunked broadcast of metric.py.
 
 import torch
 
+from .. import config
 from .. import util
 from ..container import FlatContainer
 from ..metric import canonical_distance, preprocess_query, similarity
@@ -19,23 +23,30 @@ from ..metric import canonical_distance, preprocess_query, similarity
 # chunk against 1M rows
 FLAT_TILE_ELEMS = 1 << 29
 
+# the resolved precision of the most recent FlatIndex search: {"precision"}
+LAST_SEARCH = {}
+
 
 def _flat_search(query, storage, address2id, n_items, *, k, distance,
-                 q_chunk=None):
+                 q_chunk=None, precision=None):
     """query [nq, d] f32 -> (vals [nq, min(k, n_items)], ids, addr); columns
     whose row holds no id score -inf, and -inf entries carry id and
-    address -1."""
+    address -1. The rows are cast for the products once (at "default" on
+    the card, one bf16 copy), not per query chunk; |row|^2 is an f32 sum."""
     rows = storage[:n_items].float()
     valid = address2id[:n_items] >= 0
     b_sq = torch.sum(rows * rows, dim=-1) if distance == "euclidean" \
         else None
     eff = "inner" if distance == "cosine" else distance
+    if eff != "manhattan":
+        rows = util.matmul_operand(rows, precision)
     k_eff = min(k, n_items)
     if q_chunk is None:
         q_chunk = max(1, FLAT_TILE_ELEMS // max(n_items, 1))
     vals, idx = [], []
     for i in range(0, query.shape[0], q_chunk):
-        sims = similarity(query[i:i + q_chunk], rows, eff, b_sq=b_sq)
+        sims = similarity(query[i:i + q_chunk], rows, eff,
+                          precision=precision, b_sq=b_sq)
         sims = torch.where(valid[None, :], sims, -torch.inf)
         v, a = torch.topk(sims, k_eff, dim=-1)
         vals.append(v)
@@ -68,16 +79,19 @@ class FlatIndex(FlatContainer):
         return super().add(data, ids=ids, return_address=return_address)
 
     def search(self, x, k=1, return_address=False):
-        """x: [d_vector, nq] -> (values [nq, k], ids [nq, k]); past the
-        live rows the values pad with -inf and the ids (and addresses)
-        with -1."""
+        """x: [d_vector, nq] -> (values [nq, k], ids [nq, k]) at the
+        search precision (config.SEARCH_PRECISION); past the live rows the
+        values pad with -inf and the ids (and addresses) with -1."""
         x = util.as_tensor(x, self.device, torch.float32)
         assert x.shape[0] == self.d_vector
         q = preprocess_query(x.T.contiguous(), self.distance)
         k = max(int(k), 1)
+        precision = config.resolve_precision(None)
+        LAST_SEARCH.clear()
+        LAST_SEARCH.update(precision=precision)
         vals, ids, addr = _flat_search(
             q, self._storage, self._address2id, self._n_items, k=k,
-            distance=self.distance)
+            distance=self.distance, precision=precision)
         pad = k - vals.shape[1]
         if pad:
             vals = torch.nn.functional.pad(vals, (0, pad), value=-torch.inf)

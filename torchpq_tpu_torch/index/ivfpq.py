@@ -68,14 +68,16 @@ from ..ops.spill import spill_assign_device
 
 
 def _coarse_probe(query, coarse_codebook, temperature, *, n_probe,
-                  use_smart):
+                  use_smart, precision=None):
     """Coarse scoring + cell selection + smart-probing mask (ivfpq.py:37-70).
 
-    Scores are float32 negative squared L2 against the coarse codebook.
+    Scores are float32 negative squared L2 against the coarse codebook,
+    the products at `precision` (None: the search precision).
     Smart probing keeps ceil(normalized_entropy * n_probe) cells per query,
     with p = softmax(-sqrt|sims| / T). The JAX package's approx_max_k is
     exact off the TPU, so cells are an exact top-k here."""
-    sims = negative_squared_l2_distance(query, coarse_codebook)
+    sims = negative_squared_l2_distance(query, coarse_codebook,
+                                        precision=precision)
     topk_sims, cells = torch.topk(sims, n_probe, dim=-1)
     if use_smart and n_probe > 1:
         p = torch.softmax(-torch.sqrt(torch.abs(topk_sims)) / temperature,
@@ -91,14 +93,15 @@ def _coarse_probe(query, coarse_codebook, temperature, *, n_probe,
 
 
 def _coarse_probe_super(query, coarse_codebook, temperature, *, cap, group,
-                        n_cells, use_smart):
+                        n_cells, use_smart, precision=None):
     """Supercell-native probing (ivfpq.py:76-119): rank the supercells of
     `group` adjacent cells by the largest coarse score of their cells
     (padded with -inf to n_super * group) and keep the top
     min(cap, n_super), each query's distinct supercells in rank order.
     Smart probing applies _coarse_probe's entropy rule to the supercell
     scores, normalized by log2(max(cap, 2))."""
-    sims = negative_squared_l2_distance(query, coarse_codebook)
+    sims = negative_squared_l2_distance(query, coarse_codebook,
+                                        precision=precision)
     n_super = util.cdiv(n_cells, group)
     pad = n_super * group - n_cells
     if pad:
@@ -169,14 +172,14 @@ def _translate(addr, addr_map, address2id):
 
 
 def _search_flat(q, decoded, norms, is_empty, addr_map, address2id, *, k,
-                 distance, approx, impl, scales=None):
+                 distance, approx, impl, scales=None, precision=None):
     """Flat plan: exhaustive sweep (or the fused flat-scan kernel) +
     address translation."""
     penalty = torch.where(is_empty, BIG,
                           norms.float() if distance == "euclidean" else 0.0)
     vals, addr = flat_adc_auto(q, decoded, penalty.float(), k=k,
                                distance=distance, approx=approx, impl=impl,
-                               scales=scales)
+                               scales=scales, precision=precision)
     ids, addr = _translate(addr, addr_map, address2id)
     return vals, ids, addr
 
@@ -186,8 +189,9 @@ def _search_full(q, coarse_codebook, decoded, norms, is_empty, cell_start,
                  use_smart, distance, s_max, n_cells, mode, approx, impl,
                  scales=None, addr_map=None, group=1, probe_cap=None,
                  k_pair=None, merge_taper=None, super_probe=False,
-                 split_taper=True):
-    """Probed plans: coarse probe + scan + id translation (ivfpq.py:327-422).
+                 split_taper=True, precision=None):
+    """Probed plans: coarse probe + scan + id translation (ivfpq.py:327-422),
+    the coarse and scan products at `precision`.
 
     Supercell-native probing (_coarse_probe_super) serves the cell-major
     scan when grouping, an approx select and a probe cap below n_probe are
@@ -207,14 +211,16 @@ def _search_full(q, coarse_codebook, decoded, norms, is_empty, cell_start,
     if use_super:
         _, cells, mask = _coarse_probe_super(
             q, coarse_codebook, temperature, cap=probe_cap, group=group,
-            n_cells=n_cells, use_smart=use_smart)
+            n_cells=n_cells, use_smart=use_smart, precision=precision)
     else:
         _, cells, mask = _coarse_probe(q, coarse_codebook, temperature,
-                                       n_probe=n_probe, use_smart=use_smart)
+                                       n_probe=n_probe, use_smart=use_smart,
+                                       precision=precision)
     if mode == "query_major":
         vals, addr = adc.scan_query_major(
             q, cells, mask, decoded, norms, is_empty, cell_start,
-            cell_capacity, k=k, distance=distance, s_max=s_max)
+            cell_capacity, k=k, distance=distance, s_max=s_max,
+            precision=precision)
         ids, addr = _translate(addr, addr_map, address2id)
         return vals, ids, addr
     np_eff = probe_cap if (probe_cap is not None
@@ -228,7 +234,7 @@ def _search_full(q, coarse_codebook, decoded, norms, is_empty, cell_start,
                  and merge_taper[1] < kp_res)
     scan_kw = dict(k=k, distance=distance, s_max=s_max, n_cells=n_cells,
                    approx=approx, scales=scales, impl=impl, group=group,
-                   pre_grouped=use_super)
+                   pre_grouped=use_super, precision=precision)
     if use_split:
         # the completeness floor the JAX package omits here (ROADMAP C1)
         kp_res = adc.resolve_k_pair(k_pair, k=k, n_probe=np_eff,
@@ -260,7 +266,7 @@ def _search_full(q, coarse_codebook, decoded, norms, is_empty, cell_start,
 
 
 def _search_flat_codes(q, codes, norms, is_empty, addr_map, address2id,
-                       codebook, *, k, distance, m):
+                       codebook, *, k, distance, m, precision=None):
     """Code-domain flat plan: decode-on-the-fly sweep (manhattan: the LUT
     sweep, as L1 does not factor through a product) + address
     translation."""
@@ -268,7 +274,7 @@ def _search_flat_codes(q, codes, norms, is_empty, addr_map, address2id,
                           norms.float() if distance == "euclidean" else 0.0)
     sweep = flat_onehot_scan if distance == "manhattan" else flat_decode_scan
     vals, addr = sweep(q, codes, penalty.float(), codebook, k=k,
-                       distance=distance, m=m)
+                       distance=distance, m=m, precision=precision)
     ids, addr = _translate(addr, addr_map, address2id)
     return vals, ids, addr
 
@@ -276,15 +282,17 @@ def _search_flat_codes(q, codes, norms, is_empty, addr_map, address2id,
 def _search_full_codes(q, coarse_codebook, codes, norms, is_empty,
                        cell_start, cell_capacity, address2id, pq_codebook,
                        temperature, *, k, n_probe, use_smart, distance, s_max,
-                       n_cells, approx, m, impl, k_pair=None):
+                       n_cells, approx, m, impl, k_pair=None,
+                       precision=None):
     """Code-domain probed plans: coarse probe + codes scan (k_pair: the
     index's scan_k_pair) + id translation."""
     _, cells, mask = _coarse_probe(q, coarse_codebook, temperature,
-                                   n_probe=n_probe, use_smart=use_smart)
+                                   n_probe=n_probe, use_smart=use_smart,
+                                   precision=precision)
     vals, addr = scan_cell_major_codes(
         q, cells, mask, codes, norms, is_empty, cell_start, cell_capacity,
         pq_codebook, k=k, distance=distance, s_max=s_max, n_cells=n_cells,
-        approx=approx, m=m, impl=impl, k_pair=k_pair)
+        approx=approx, m=m, impl=impl, k_pair=k_pair, precision=precision)
     ids, addr = _translate(addr, None, address2id)
     return vals, ids, addr
 
@@ -296,6 +304,10 @@ def _search_full_codes(q, coarse_codebook, codes, norms, is_empty,
 # plan's cost growth per 128 more dimensions):
 #   flat:        call + n_items * ((1 + pass_width r) pass_ps
 #                                  + nq (1 + slot_width r) slot_ps)
+#                by the sweep's precision class (flat_class): "f32", its
+#                GEMMs in IEEE f32 ("highest"; "high" is not measured and
+#                takes them), and "bf16", bf16 GEMMs on the tensor cores
+#                ("default", the shipped search precision)
 #   cell_major:  call + nq query_us + nq n_probe pair_ns
 #                + nq n_probe s (1 + width r) slot_ps
 #   query_major: call + nq n_probe s (1 + width r) slot_ps
@@ -304,10 +316,15 @@ def _search_full_codes(q, coarse_codebook, codes, norms, is_empty,
 # "fast" (the tensor-core selects) or "slow" (an exact k_pair above 16 on
 # the CUDA cores, or a k_pair above 64 on the plain select).
 CARD_PLAN_COSTS = {
-    "flat": dict(
-        call_ms=0.675, pass_width=2.66, slot_width=0.209,
-        pass_ps={"bf16": 227.0, "int8": 564.0, "codes": 1740.0},
-        slot_ps={"bf16": 24.2, "int8": 29.3, "codes": 23.4}),
+    "flat": {
+        "f32": dict(
+            call_ms=0.675, pass_width=2.66, slot_width=0.209,
+            pass_ps={"bf16": 227.0, "int8": 564.0, "codes": 1740.0},
+            slot_ps={"bf16": 24.2, "int8": 29.3, "codes": 23.4}),
+        "bf16": dict(
+            call_ms=0.601, pass_width=0.0, slot_width=0.00802,
+            pass_ps={"bf16": 0.0, "int8": 406.0, "codes": 1160.0},
+            slot_ps={"bf16": 18.1, "int8": 29.3, "codes": 17.9})},
     "cell_major": dict(
         call_ms=3.02, width={"fast": 7.26, "slow": 1.05},
         query_us={"bf16": {"fast": 0.0922, "slow": 0.0983},
@@ -333,17 +350,26 @@ def _select_class(k, n_probe, approx):
     return "slow" if k > 16 else "fast"
 
 
+def flat_class(precision=None):
+    """The flat terms' precision class of a search precision (None: the
+    search precision): "bf16" at "default", else "f32"."""
+    return "bf16" if config.resolve_precision(precision) == "default" \
+        else "f32"
+
+
 def card_plan_ms(nq, k, *, n_probe, s_pow2, n_items, d_vector, tier,
-                 approx):
+                 approx, precision=None):
     """Estimated ms of each plan on the card (CARD_PLAN_COSTS' model) ->
-    {"flat", "cell_major", "query_major": ms}. An f32 cache takes the bf16
+    {"flat", "cell_major", "query_major": ms}; the flat terms of the
+    search precision's class (flat_class). An f32 cache takes the bf16
     terms (not measured)."""
     c = CARD_PLAN_COSTS
     t = "bf16" if tier == "float32" else tier
     r = d_vector / 128.0 - 1.0
     pairs = nq * n_probe
     slots = pairs * max(s_pow2, 128) * 1e-9
-    f, cm, qm = c["flat"], c["cell_major"], c["query_major"]
+    f, cm, qm = (c["flat"][flat_class(precision)], c["cell_major"],
+                 c["query_major"])
     sel = _select_class(k, n_probe, approx)
     return {
         "flat": f["call_ms"] + max(n_items, 1) * 1e-9 * (
@@ -372,20 +398,22 @@ def card_probed_plan(nq, k, *, n_probe, s_pow2, d_vector, tier, approx,
 
 
 def plan_for(nq, k, *, n_probe, s_pow2, n_items, d_vector, tier, approx,
-             codes_kernel=True, device="cpu", batch_threshold=None):
+             codes_kernel=True, device="cpu", batch_threshold=None,
+             precision=None):
     """The plan of an "auto" search from the index's host shadows: tier is
     "bf16", "float32", "int8" or "codes" (codes_kernel: whether the codes
     kernel's static gate admits the index). On the CPU, the JAX package's
     rule and TPU v5e crossovers (ivfpq.py:1140-1197), so the CPU parity
     tests compare the same plan. On a CUDA device, the card's costs:
-    card_probed_plan, then flat where its estimate is no higher."""
+    card_probed_plan, then flat where its estimate (at the search
+    `precision`'s flat terms) is no higher."""
     if getattr(device, "type", str(device)) == "cuda":
         mode = card_probed_plan(nq, k, n_probe=n_probe, s_pow2=s_pow2,
                                 d_vector=d_vector, tier=tier, approx=approx,
                                 batch_threshold=batch_threshold)
         est = card_plan_ms(nq, k, n_probe=n_probe, s_pow2=s_pow2,
                            n_items=n_items, d_vector=d_vector, tier=tier,
-                           approx=approx)
+                           approx=approx, precision=precision)
         return "flat" if est["flat"] <= est[mode] else mode
     mode = ("query_major" if nq < batch_threshold_for("cpu", batch_threshold)
             else "cell_major")
@@ -454,8 +482,9 @@ class IVFPQIndex(CellContainer):
         self._use_smart_probing = True
         self._smart_probing_temperature = 30.0
         self._use_approx_topk = False
-        # the reference's CUDA tunables (ivfpq.py:483-488): validated and
-        # kept, with no effect on the port's scans
+        # the reference's CUDA tunables (ivfpq.py:483-488), validated and
+        # kept; use_tensor_core picks the search products' precision
+        # (_search_precision), the others have no effect on the scans
         self._use_precomputed = pq_use_residual
         self._use_cublas = True
         self._use_tensor_core = True
@@ -551,6 +580,8 @@ class IVFPQIndex(CellContainer):
 
     @property
     def use_tensor_core(self):
+        """Search at config.SEARCH_PRECISION (True, the default) or at
+        "highest" (False), as in the JAX package."""
         return self._use_tensor_core
 
     @use_tensor_core.setter
@@ -959,6 +990,12 @@ class IVFPQIndex(CellContainer):
             return mode
         return plan_for(int(nq), int(k), **self._plan_shadows())
 
+    def _search_precision(self):
+        """The search products' precision (ivfpq.py:945-946): the search
+        precision with use_tensor_core, else "highest"."""
+        return config.resolve_precision(
+            None if self._use_tensor_core else "highest")
+
     def _plan_shadows(self):
         """plan_for's keyword arguments from this index's host shadows."""
         return dict(
@@ -968,7 +1005,8 @@ class IVFPQIndex(CellContainer):
             tier=self._plan_tier(), approx=self._use_approx_topk,
             codes_kernel=self._code_domain and self._codes_kernel_eligible(),
             device=self.device,
-            batch_threshold=self._ivfpq_topk.batch_threshold)
+            batch_threshold=self._ivfpq_topk.batch_threshold,
+            precision=self._search_precision())
 
     def search(self, x, k=1, return_address=False):
         """x: [d_vector, nq] -> (values [nq, k] f32, ids [nq, k]); with
@@ -978,6 +1016,7 @@ class IVFPQIndex(CellContainer):
         nq = q.shape[0]
         k = int(k)
         n_probe = min(self.n_probe, self.n_cells)
+        precision = self._search_precision()
         mode = self.plan_scan_mode(nq, k)
         if self._code_domain:
             # every non-flat plan, query_major included, runs the codes
@@ -986,7 +1025,8 @@ class IVFPQIndex(CellContainer):
                 codes, nrm, emp, amap, m_c = self._flat_compacted_codes()
                 out = _search_flat_codes(
                     q, codes, nrm, emp, amap, self._address2id,
-                    self._scan_codebook, k=k, distance=self.distance, m=m_c)
+                    self._scan_codebook, k=k, distance=self.distance, m=m_c,
+                    precision=precision)
             else:
                 out = _search_full_codes(
                     q, self._coarse_cb(), self._storage,
@@ -997,13 +1037,14 @@ class IVFPQIndex(CellContainer):
                     distance=self.distance, s_max=self.max_cell_capacity,
                     n_cells=self.n_cells, approx=self._use_approx_topk,
                     m=self._m_packed, impl=self.scan_impl,
-                    k_pair=self.scan_k_pair)
+                    k_pair=self.scan_k_pair, precision=precision)
         elif mode == "flat":
             dec, nrm, emp, amap, sc = self._flat_compacted()
             out = _search_flat(q, dec, nrm, emp, amap, self._address2id,
                                k=k, distance=self.distance,
                                approx=self._use_approx_topk,
-                               impl=self.scan_impl, scales=sc)
+                               impl=self.scan_impl, scales=sc,
+                               precision=precision)
         else:
             # the int8 tier's probed plans live in the cell-major scan
             kw = dict(k=k, n_probe=n_probe,
@@ -1016,7 +1057,7 @@ class IVFPQIndex(CellContainer):
                       k_pair=self.scan_k_pair,
                       merge_taper=self.scan_merge_taper,
                       super_probe=self.scan_super_probe,
-                      split_taper=self.scan_split_taper)
+                      split_taper=self.scan_split_taper, precision=precision)
             if self._use_compact_scan():
                 dec, nrm, emp, amap, sc, cs, sz, s_live = \
                     self._cell_compacted()
@@ -1061,7 +1102,8 @@ class IVFPQIndex(CellContainer):
             group=self.scan_group,
             probe_cap=self._resolved_probe_cap(cells.shape[1]),
             pq_codebook=self._scan_codebook if code else None,
-            m=self._m_packed if code else None)
+            m=self._m_packed if code else None,
+            precision=self._search_precision())
         ids, addr = _translate(addr, None, self._address2id)
         if return_address:
             return vals, ids, addr
@@ -1088,7 +1130,8 @@ class IVFPQIndex(CellContainer):
         if self.distance == "manhattan":
             sims = negative_manhattan_distance(q, y.float())
             return torch.where(valid[None, :], sims, -torch.inf)
-        sims = util.matmul_f32(q, y)  # the f32 query, as the JAX package
+        # the f32 query at the search precision, as the JAX package
+        sims = util.matmul(q, y)
         if self.distance == "euclidean":
             sims = 2.0 * sims - self.aux("norm")[safe, 0][None, :] \
                 - torch.sum(q * q, -1)[:, None]

@@ -3,8 +3,8 @@
 Every score is a similarity — larger is better. Euclidean is the negative
 squared L2 distance, manhattan the negative L1 distance. Functions take
 row-major [n, d] tensors and return [n_a, n_b] score matrices in float32.
-`precision` is the JAX package's matmul precision: accepted and ignored,
-every float32 product here runs in full float32 (config.py).
+`precision` is the products' matmul precision (config.py; None: the search
+precision); the norm terms are float32 sums at every precision.
 """
 
 import torch
@@ -28,22 +28,25 @@ def canonical_distance(name):
 
 
 def inner_similarity(a, b, precision=None):
-    """<a_i, b_j> for all pairs. a: [na, d], b: [nb, d] -> [na, nb]."""
-    return util.matmul_f32(a, b)
+    """<a_i, b_j> for all pairs. a: [na, d], b: [nb, d] -> [na, nb]; b
+    may be util.matmul_operand's."""
+    return util.matmul(a, b, precision)
 
 
 def cosine_similarity(a, b, precision=None):
-    return inner_similarity(util.normalize(a.float()), util.normalize(b.float()))
+    return inner_similarity(util.normalize(a.float()),
+                            util.normalize(b.float()), precision=precision)
 
 
 def negative_squared_l2_distance(a, b, precision=None, b_sq=None):
     """-||a_i - b_j||^2 expanded as 2<a,b> - ||a||^2 - ||b||^2 (the same
-    expansion as the JAX package, so near-ties round alike)."""
+    expansion as the JAX package, so near-ties round alike). b may be
+    util.matmul_operand's where b_sq is given."""
     a = a.float()
-    b = b.float()
-    ab = inner_similarity(a, b)
+    ab = inner_similarity(a, b, precision=precision)
     a_sq = torch.sum(a * a, dim=-1, keepdim=True)
     if b_sq is None:
+        b = b.float()
         b_sq = torch.sum(b * b, dim=-1)
     return 2.0 * ab - a_sq - b_sq[None, :]
 
@@ -66,11 +69,12 @@ def similarity(a, b, distance, precision=None, b_sq=None):
     """Dispatch by canonical distance name; [na, d] x [nb, d] -> [na, nb]."""
     distance = canonical_distance(distance)
     if distance == "euclidean":
-        return negative_squared_l2_distance(a, b, b_sq=b_sq)
+        return negative_squared_l2_distance(a, b, precision=precision,
+                                            b_sq=b_sq)
     if distance == "cosine":
-        return cosine_similarity(a, b)
+        return cosine_similarity(a, b, precision=precision)
     if distance == "inner":
-        return inner_similarity(a, b)
+        return inner_similarity(a, b, precision=precision)
     return negative_manhattan_distance(a, b)
 
 

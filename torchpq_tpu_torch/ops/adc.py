@@ -24,13 +24,15 @@ Both return (values [nq, k] f32, addresses [nq, k] int32, -1 padding).
 
 import torch
 
+from .. import config
 from .. import util
 from ..metric import canonical_distance
 from .block_scan import (BIG, block_scan, select_blocks, select_chunks,
                          select_exact, sortable_i32, sortable_i32_to_f32)
 
 # resolved plan of the most recent scan_cell_major call: {"impl", "k_pair",
-# "s_eff", "pack32", "blocks", "cache", "group", "n_probe"} — lets a run
+# "s_eff", "pack32", "blocks", "cache", "group", "n_probe", "precision"}
+# (scan_cell_major_codes: its own keys and "precision") — lets a run
 # record which select served it. index/ivfpq.py:_search_full adds
 # "super_probe" and "split" ((p0, kp_tail) or None), and after a split
 # "head" and "tail", the records of its two scans.
@@ -49,17 +51,25 @@ def _key_neg_big(slot_mask):
     return int(sortable_i32(torch.tensor([-BIG]))[0]) & ~slot_mask
 
 
+def subvector_products(q, codebook, precision):
+    """<q_i, c> per subvector: q [nq, m, dsub], codebook [m, nc, dsub] ->
+    [nq, m, nc] f32, one batched product over m at `precision`."""
+    return util.matmul(q.transpose(0, 1), codebook, precision) \
+        .transpose(0, 1)
+
+
 def build_adc_table(query, codebook, distance, precision=None):
     """Per-subvector similarity table: query [nq, d], codebook
     [m, 256, dsub] -> LUT [nq, m, 256] f32 (manhattan: -|q_i - c|_1 by
-    broadcast, nq x m x 256 x dsub)."""
+    broadcast, nq x m x 256 x dsub); the products at `precision` (None:
+    the search precision), the norm terms f32."""
     distance = canonical_distance(distance)
     m, _, dsub = codebook.shape
     q = query.float().reshape(query.shape[0], m, dsub)
     cb = codebook.float()
     if distance == "manhattan":
         return -torch.sum(torch.abs(q[:, :, None, :] - cb[None]), dim=-1)
-    ab = torch.einsum("qmd,mcd->qmc", q, cb)
+    ab = subvector_products(q, cb, precision)
     if distance == "euclidean":
         return (2.0 * ab - torch.sum(q * q, dim=-1)[:, :, None]
                 - torch.sum(cb * cb, dim=-1)[None])
@@ -82,9 +92,11 @@ def scan_query_major(query, cells, probe_mask, decoded, norms, is_empty,
 
     query [nq, d] f32; cells / probe_mask [nq, n_probe] (distinct cells per
     row); decoded [cap, d]; norms [cap] f32; is_empty [cap] bool; s_max
-    bounds every cell's capacity. The JAX package's `q_chunk` tiling and
-    `precision` are accepted and ignored; its approx_max_k is exact off
-    the TPU, so `approx` takes the exact top-k."""
+    bounds every cell's capacity. The products run at `precision` (None:
+    the search precision), a bf16 cache against the bf16-rounded query.
+    The JAX package's `q_chunk` tiling is accepted and ignored; its
+    approx_max_k is exact off the TPU, so `approx` takes the exact
+    top-k."""
     distance = canonical_distance(distance)
     if decoded.dtype == torch.int8:
         raise ValueError("an int8 cache needs per-slot scales: use "
@@ -106,14 +118,14 @@ def scan_query_major(query, cells, probe_mask, decoded, norms, is_empty,
             & probe_mask[i:i + rows, :, None]
         flat = torch.where(valid, addr, 0).reshape(q.shape[0], -1)
         valid = valid.reshape(q.shape[0], -1) & ~is_empty[flat]
-        cand = decoded[flat].float()                       # [qc, np*s, d]
+        cand = decoded[flat]                               # [qc, np*s, d]
         if distance == "manhattan":
             # the f32 query against the upcast rows (adc.py:138, :155)
-            sc = -torch.sum(torch.abs(cand - q[:, None, :]), dim=-1)
+            sc = -torch.sum(torch.abs(cand.float() - q[:, None, :]), dim=-1)
         else:
-            qv = q.to(decoded.dtype).float() \
+            qv = q.to(decoded.dtype) \
                 if decoded.dtype == torch.bfloat16 else q
-            ab = torch.bmm(cand, qv[:, :, None])[:, :, 0]
+            ab = util.matmul(cand, qv[:, None, :], precision)[:, :, 0]
             if distance == "euclidean":
                 sc = 2.0 * ab - norms[flat] - torch.sum(q * q, -1)[:, None]
             else:
@@ -373,10 +385,12 @@ def scan_cell_major(query, cells, probe_mask, decoded, norms, is_empty,
     == 0. Other shapes, manhattan, and impl "xla" (the default, as in the
     JAX package) / "pallas_flat", take `_block_select`, the JAX package's
     own XLA select at those shapes; manhattan scores there by the L1
-    broadcast (_l1_block_scores). `block_chunk`, `interpret` and
-    `precision` (the JAX package's tiling, interpret mode and matmul
-    precision) are accepted and ignored."""
+    broadcast (_l1_block_scores). `precision` (None: the search
+    precision) is the XLA select's products' (float caches); the kernels,
+    like the Pallas ones, take none. `block_chunk` and `interpret` (the
+    JAX package's tiling and interpret mode) are accepted and ignored."""
     distance = canonical_distance(distance)
+    precision = config.resolve_precision(precision)
     int8 = decoded.dtype == torch.int8
     assert not (int8 and distance == "manhattan"), \
         "int8 caches cannot score manhattan (no dequant in the L1 path)"
@@ -428,7 +442,8 @@ def scan_cell_major(query, cells, probe_mask, decoded, norms, is_empty,
     LAST_GATE.update(impl="block_scan" if use_kernel else "block_select",
                      k_pair=k_pair, s_eff=s_eff, pack32=pack32,
                      blocks=n_blocks, group=group, n_probe=n_probe,
-                     cache=str(decoded.dtype).replace("torch.", ""))
+                     cache=str(decoded.dtype).replace("torch.", ""),
+                     precision=precision)
     if use_kernel:
         combo = block_scan(qtable, probers, start_c, off, cap_b, penalty,
                            decoded.contiguous(), s_eff=s_eff, k_pair=k_pair,
@@ -453,7 +468,8 @@ def scan_cell_major(query, cells, probe_mask, decoded, norms, is_empty,
             combo = select_blocks(select, qtable, probers, start_c, off,
                                   cap_b, penalty, decoded, s_eff=s_eff,
                                   euclidean=euclidean, width=width,
-                                  scale=scales, q_scale=q_scale)
+                                  scale=scales, q_scale=q_scale,
+                                  precision=precision)
     return _merge_pairs(
         combo, query, pair_block, pair_slot, start_c, n_blocks=n_blocks,
         p_tile=p_tile, k=k, k_pair=k_pair, nq=nq, n_probe=n_probe,

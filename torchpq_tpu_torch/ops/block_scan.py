@@ -145,13 +145,15 @@ def int8_products(q, y):
 
 
 def window_scores(qtable, probers, start_c, off, cap, penalty, gather, slot,
-                  *, euclidean, scale=None, q_scale=None):
+                  *, euclidean, scale=None, q_scale=None,
+                  precision="highest"):
     """Plain per-block scores [B, P, s] f32 over window columns whose
     in-window slots are `slot` [s] (long); gather(rows [B, s]) gives the
     candidate rows [B, s, d]. Products of the operands' values (bf16 rounds
     nothing more), summed in f32; in int8 mode (scale [capacity] and
     q_scale [nq] given) the exact integer products, dequantized by one
-    fused multiply-add."""
+    fused multiply-add. `precision` (util.matmul) is the XLA select's: the
+    kernels' plain version keeps "highest"."""
     rows = start_c.long()[:, None] + slot[None, :]
     pidx = probers.clamp(min=0).long()
     in_cell = (slot[None, :] >= off[:, None]) \
@@ -162,19 +164,19 @@ def window_scores(qtable, probers, start_c, off, cap, penalty, gather, slot,
         ab = int8_products(qtable[pidx], gather(rows))
         m = (factor * q_scale[pidx])[:, :, None] * scale[rows][:, None, :]
         return fma_f32(ab, m, pen[:, None, :])
-    win = gather(rows).float()                              # [B, s, d]
-    q = qtable[pidx].float()                                # [B, P, d]
-    ab = torch.bmm(q, win.transpose(1, 2))
+    ab = util.matmul(qtable[pidx], gather(rows), precision)  # [B, P, s]
     return (2.0 * ab if euclidean else ab) - pen[:, None, :]
 
 
 def block_scores(qtable, probers, start_c, off, cap, penalty, decoded, *,
-                 s_eff, euclidean, scale=None, q_scale=None):
+                 s_eff, euclidean, scale=None, q_scale=None,
+                 precision="highest"):
     """Plain per-block scores [B, P, s_eff] over the cache's rows."""
     slot = torch.arange(s_eff, device=decoded.device)
     return window_scores(qtable, probers, start_c, off, cap, penalty,
                          lambda rows: decoded[rows], slot,
-                         euclidean=euclidean, scale=scale, q_scale=q_scale)
+                         euclidean=euclidean, scale=scale, q_scale=q_scale,
+                         precision=precision)
 
 
 def select_exact(scores, start_c, k_pair, slot=None):
@@ -224,14 +226,14 @@ def select_chunks(scores, select, probers, start_c, *, s_eff, width,
 
 def select_blocks(select, qtable, probers, start_c, off, cap, penalty,
                   decoded, *, s_eff, euclidean, width, scale=None,
-                  q_scale=None):
+                  q_scale=None, precision="highest"):
     """select(block_scores(...), start_c) over chunks of blocks ->
     int32 [B, p_tile, width]."""
     def scores(sl):
         return block_scores(qtable, probers[sl], start_c[sl], off[sl],
                             cap[sl], penalty, decoded, s_eff=s_eff,
                             euclidean=euclidean, scale=scale,
-                            q_scale=q_scale)
+                            q_scale=q_scale, precision=precision)
     # the int8 scores' f64 fused multiply-add keeps a few f64 temporaries
     return select_chunks(scores, select, probers, start_c, s_eff=s_eff,
                          width=width, cost=1 if scale is None else 8)

@@ -1,9 +1,9 @@
 """Batched similarity matrices with distance epilogues (counterpart of
 torchpq_tpu/ops/bmm.py, the reference's BMM kernel family). Operands are
 batched row-major: a [l, m, d], b [l, n, d] -> [l, m, n] f32 similarities
-(larger is better). Plain torch: torch.bmm and the reductions; the JAX
-package runs no Pallas kernel here. `precision` is accepted and ignored
-(config.py: float32 products in full float32)."""
+(larger is better). Plain torch: batched products (util.matmul) and the
+reductions; the JAX package runs no Pallas kernel here. `precision` is the
+products' matmul precision (config.py; None: the search precision)."""
 
 import torch
 
@@ -29,7 +29,7 @@ def bmm(a, b, distance="inner", precision=None):
         return out
     if distance == "cosine":
         a, b = util.normalize(a), util.normalize(b)
-    ab = torch.bmm(a, b.transpose(1, 2))
+    ab = util.matmul(a, b, precision)
     if distance == "euclidean":
         ab = (2.0 * ab - torch.sum(a * a, -1)[:, :, None]
               - torch.sum(b * b, -1)[:, None, :])
@@ -40,14 +40,14 @@ def min_bmm(a, b, distance="euclidean", dim=2, precision=None):
     """The best match along `dim` (1 or 2) -> (values, int32 indices, the
     first index among equal values)."""
     assert dim in (1, 2)
-    sims = bmm(a, b, distance=distance)
+    sims = bmm(a, b, distance=distance, precision=precision)
     return sims.amax(dim=dim), torch.argmax(sims, dim=dim).int()
 
 
 def topk_bmm(a, b, k=128, distance="inner", dim=2, precision=None):
     """Per-row top-k along `dim` (1 or 2) -> (values, int32 indices)."""
     assert dim in (1, 2)
-    sims = bmm(a, b, distance=distance)
+    sims = bmm(a, b, distance=distance, precision=precision)
     if dim == 1:
         sims = sims.transpose(1, 2)
     vals, idx = torch.topk(sims, min(k, sims.shape[-1]), dim=-1)
@@ -56,6 +56,6 @@ def topk_bmm(a, b, k=128, distance="inner", dim=2, precision=None):
 
 def masked_bmm(a, b, mask, distance="inner", precision=None):
     """bmm with -inf where `mask` (broadcastable to [l, m, n]) is False."""
-    sims = bmm(a, b, distance=distance)
+    sims = bmm(a, b, distance=distance, precision=precision)
     return torch.where(torch.as_tensor(mask, device=sims.device), sims,
                        -torch.inf)

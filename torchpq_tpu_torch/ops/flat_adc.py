@@ -2,10 +2,12 @@
 torchpq_tpu/ops/flat_adc.py:flat_adc_scan).
 
 The JAX package runs this outside any Pallas kernel, so here it is plain
-torch: the cache is swept in slot chunks, each chunk one float32 product
-[nq, d] x [d, chunk] and a per-query top-k, and the chunk winners merge with
-one exact top-k. The JAX package's approx_max_k is exact off the TPU, so
-both `approx` settings take the exact top-k here. `flat_sweep` and
+torch: the cache is swept in slot chunks, each chunk one product
+[nq, d] x [d, chunk] at the search precision (util.matmul: on the card a
+bf16 GEMM with f32 sums at "default", IEEE f32 at "highest") and a
+per-query top-k, and the chunk winners merge with one exact top-k. The JAX
+package's approx_max_k is exact off the TPU, so both `approx` settings
+take the exact top-k here. `flat_sweep` and
 `final_merge` also serve the code-domain sweep (ops/onehot_adc.py), whose
 chunks are decoded from PQ codes. An int8 cache sweeps the exact integer
 products of the int8-quantized queries, dequantized per column.
@@ -17,21 +19,23 @@ runs instead of the sweep.
 
 import torch
 
+from .. import config
 from .. import util
 from ..metric import canonical_distance, negative_manhattan_distance
 from .block_scan import BIG, int8_products
 from .flat_scan import flat_scan
 
 # resolved route of the most recent flat_adc_auto call: {"impl", "k",
-# "approx", "cache"}
+# "approx", "cache", "precision"}
 LAST_FLAT = {}
 
 
 def flat_sweep(q_mm, rows, n, penalty, *, k, factor, max_elems=1 << 28,
-               q_scale=None, scales=None, manhattan=False):
+               q_scale=None, scales=None, manhattan=False, precision=None):
     """Per chunk of slots [c0, c1): s = factor * q_mm @ rows(c0, c1).T -
-    penalty[c0:c1], and its top k. q_mm [nq, d] f32; rows(c0, c1) -> f32
-    [c1 - c0, d]; `max_elems` bounds the [nq, chunk] score tile. int8 (q_mm
+    penalty[c0:c1], and its top k. q_mm [nq, d] f32 or bf16; rows(c0, c1)
+    -> [c1 - c0, d] f32 or bf16, the product at `precision` (util.matmul);
+    `max_elems` bounds the [nq, chunk] score tile. int8 (q_mm
     and rows int8, q_scale [nq] and scales [n] f32 given): s = ab *
     ((factor * q_scale)[:, None] * scales[None, c0:c1]) - penalty, with ab
     the exact integer products (flat_adc.py:85-91). manhattan: s =
@@ -39,7 +43,11 @@ def flat_sweep(q_mm, rows, n, penalty, *, k, factor, max_elems=1 << 28,
     metric.negative_manhattan_distance. Returns the chunk winners (values
     [nq, n_chunks * k_c], slots alike)."""
     nq = q_mm.shape[0]
-    chunk = min(n, max(1024, max_elems // max(nq, 1)))
+    # whole 128-column chunks: the score tile's rows stay 16-byte aligned,
+    # which cuBLAS's Hopper kernels need (on an H100 a bf16 GEMM with f32
+    # output of an odd width ran a slower CUTLASS sm75 kernel;
+    # chip_matmul.py)
+    chunk = min(n, max(1024, max_elems // max(nq, 1) // 128 * 128))
     k_c = min(k, chunk)
     vals, idx = [], []
     for c0 in range(0, n, chunk):
@@ -49,8 +57,8 @@ def flat_sweep(q_mm, rows, n, penalty, *, k, factor, max_elems=1 << 28,
             s.sub_(penalty[c0:c1][None, :])
         elif scales is None:
             # factor * <q, y> - penalty as one GEMM with its bias epilogue
-            s = torch.addmm(-penalty[c0:c1][None, :], q_mm, rows(c0, c1).T,
-                            alpha=factor)
+            s = util.matmul(q_mm, rows(c0, c1), precision, alpha=factor,
+                            bias=-penalty[c0:c1][None, :])
         else:
             s = int8_products(q_mm[None], rows(c0, c1)[None])[0]
             s.mul_((factor * q_scale)[:, None] * scales[None, c0:c1])
@@ -87,11 +95,12 @@ def flat_adc_scan(query, decoded, penalty, *, k, distance, chunk=None,
     scales [cap] f32 per-slot dequant scales (int8 cache only).
 
     Returns (values [nq, k] f32, addresses [nq, k] int32, -1 padding); the
-    euclidean -|q|^2 term is added after the merge. `max_elems` bounds the
-    [nq, chunk] score tile; the JAX package's `chunk` and `precision` are
-    accepted and ignored, and its approx_max_k is exact off the TPU, so
-    `approx` takes the exact top-k. Manhattan scores the f32 query against
-    the upcast rows by the L1 broadcast."""
+    euclidean -|q|^2 term (f32) is added after the merge. The products run
+    at `precision` (None: the search precision); an int8 cache's are exact
+    integers at any. `max_elems` bounds the [nq, chunk] score tile; the JAX
+    package's `chunk` is accepted and ignored, and its approx_max_k is
+    exact off the TPU, so `approx` takes the exact top-k. Manhattan scores
+    the f32 query against the upcast rows by the L1 broadcast."""
     distance = canonical_distance(distance)
     int8 = decoded.dtype == torch.int8
     if int8 != (scales is not None):
@@ -105,16 +114,17 @@ def flat_adc_scan(query, decoded, penalty, *, k, distance, chunk=None,
             k=k, factor=factor, max_elems=max_elems, q_scale=q_scale,
             scales=scales.float())
         return final_merge(vals, idx, query, k=k, distance=distance)
-    # bf16 cache: the query rounds to bf16 too, then both operands go up to
-    # f32, where bf16 products are exact (the JAX package's bf16 x bf16 ->
-    # f32 product); manhattan keeps the f32 query
+    # bf16 cache: the query rounds to bf16 too, and the products are exact
+    # at any precision (the JAX package's bf16 x bf16 -> f32 product);
+    # manhattan keeps the f32 query against the upcast rows
     manhattan = distance == "manhattan"
-    q_mm = query.to(decoded.dtype).float() \
+    q_mm = query.to(decoded.dtype) \
         if decoded.dtype == torch.bfloat16 and not manhattan else query
     vals, idx = flat_sweep(
-        q_mm, lambda c0, c1: decoded[c0:c1].float(), decoded.shape[0],
+        q_mm, (lambda c0, c1: decoded[c0:c1].float()) if manhattan
+        else (lambda c0, c1: decoded[c0:c1]), decoded.shape[0],
         penalty, k=k, factor=factor, max_elems=max_elems,
-        manhattan=manhattan)
+        manhattan=manhattan, precision=precision)
     return final_merge(vals, idx, query, k=k, distance=distance)
 
 
@@ -140,9 +150,11 @@ def flat_adc_auto(query, decoded, penalty, *, k, distance, approx=True,
     """The flat plan's dispatch (flat_adc.py:flat_adc_auto): the fused
     flat-scan kernel under impl="pallas_flat" inside its gate (not
     manhattan, not int8, k <= 32, cap >= 2048, approx), else the sweep,
-    which is the JAX package's own routing. `interpret` and `precision`
-    are accepted and ignored."""
+    which is the JAX package's own routing. `precision` (None: the search
+    precision) is the sweep's; the kernel, like the Pallas one, takes none.
+    `interpret` is accepted and ignored."""
     distance = canonical_distance(distance)
+    precision = config.resolve_precision(precision)
     query = util.pad_cols(query.float(), decoded.shape[-1])
     use_kernel = (impl == "pallas_flat" and distance != "manhattan"
                   and decoded.dtype != torch.int8 and k <= 32
@@ -150,9 +162,10 @@ def flat_adc_auto(query, decoded, penalty, *, k, distance, approx=True,
     LAST_FLAT.clear()
     LAST_FLAT.update(impl="flat_scan" if use_kernel else "sweep", k=k,
                      approx=approx,
-                     cache=str(decoded.dtype).replace("torch.", ""))
+                     cache=str(decoded.dtype).replace("torch.", ""),
+                     precision=precision)
     if use_kernel:
         return flat_scan_glue(query, decoded, penalty, k=k,
                               distance=distance)
     return flat_adc_scan(query, decoded, penalty, k=k, distance=distance,
-                         scales=scales)
+                         scales=scales, precision=precision)

@@ -1,8 +1,10 @@
 """Chunked similarity + argmax / top-k (counterpart of
 torchpq_tpu/ops/max_sim.py): one GEMM per row chunk, so the [n, k] score
 matrix is never held whole. Manhattan has no GEMM form: its chunks also
-bound the [chunk, k, d] broadcast. `precision` is accepted and ignored
-(config.py), as in metric.py."""
+bound the [chunk, k, d] broadcast. `precision` is the products' matmul
+precision (config.py): None is the search precision in max_sim / topk_sim
+(through metric.similarity) and the train precision in the batched ones,
+which serve k-means and codebook training, as in the JAX package."""
 
 import torch
 
@@ -31,7 +33,8 @@ def max_sim(data, centroids, distance, precision=None, chunk=None):
                             * _inner(distance, centroids.shape[1]))
     maxs, labels = [], []
     for i in range(0, data.shape[0], chunk):
-        sim = similarity(data[i:i + chunk], centroids, distance)
+        sim = similarity(data[i:i + chunk], centroids, distance,
+                         precision=precision)
         v, a = torch.max(sim, dim=-1)
         maxs.append(v)
         labels.append(a.int())
@@ -50,19 +53,22 @@ def topk_sim(data, centroids, k_top, distance, precision=None, chunk=None,
                             * _inner(distance, centroids.shape[1]))
     vals, idx = [], []
     for i in range(0, data.shape[0], chunk):
-        sim = similarity(data[i:i + chunk], centroids, distance)
+        sim = similarity(data[i:i + chunk], centroids, distance,
+                         precision=precision)
         v, a = torch.topk(sim, k_top, dim=-1)
         vals.append(v)
         idx.append(a.int())
     return torch.cat(vals), torch.cat(idx)
 
 
-def _scores_batched(b, centroids, distance):
-    """b [m, c, d], centroids [m, k, d] -> [m, c, k]."""
+def _scores_batched(b, centroids, distance, precision):
+    """b [m, c, d], centroids [m, k, d] -> [m, c, k], the products at
+    `precision` (None: config.TRAIN_PRECISION)."""
     if distance == "manhattan":
         return -torch.sum(torch.abs(b[:, :, None, :]
                                     - centroids[:, None, :, :]), dim=-1)
-    ab = torch.bmm(b, centroids.transpose(1, 2))
+    ab = util.matmul(b, centroids,
+                     config.resolve_precision(precision, train=True))
     if distance == "euclidean":
         return (2.0 * ab
                 - torch.sum(b * b, dim=-1)[:, :, None]
@@ -85,7 +91,7 @@ def batched_max_sim(data, centroids, distance, precision=None, layout="nd"):
     maxs, labels = [], []
     for i in range(0, n, chunk):
         sim = _scores_batched(data[:, i:i + chunk].float(), centroids,
-                              distance)
+                              distance, precision)
         v, a = torch.max(sim, dim=-1)
         maxs.append(v)
         labels.append(a.int())
@@ -107,7 +113,7 @@ def batched_topk_sim(data, centroids, k_top, distance, precision=None):
     vals, idx = [], []
     for i in range(0, n, chunk):
         sim = _scores_batched(data[:, i:i + chunk].float(), centroids,
-                              distance)
+                              distance, precision)
         v, a = torch.topk(sim, k_top, dim=-1)
         vals.append(v)
         idx.append(a.int())

@@ -21,17 +21,19 @@ torchpq_tpu/ops/onehot_adc.py).
   product. No kernel takes manhattan; its probed plans run the LUT path.
 
 Each returns (values [nq, k] f32, addresses [nq, k] int32, -1 padding).
-`precision`, `block_chunk`, `chunk`, `sub` and `interpret` (the JAX
-package's matmul precision, tiling and interpret mode) are accepted and
-ignored.
+`precision` (None: the search precision) is the LUT's and the sweep's
+products' (util.matmul); the codes kernel, like the Pallas one, takes none.
+`block_chunk`, `chunk`, `sub` and `interpret` (the JAX package's tiling and
+interpret mode) are accepted and ignored.
 """
 
 import torch
 
+from .. import config
 from .. import util
 from ..metric import canonical_distance
 from .adc import LAST_GATE, _block_select, _merge_pairs, _pack_pairs, \
-    gate_kernel
+    gate_kernel, subvector_products
 from .block_scan import BIG, select_chunks
 from .codes_scan import codes_kernel_static_gate, codes_scan, decode_codes
 from .flat_adc import final_merge, flat_sweep
@@ -41,13 +43,14 @@ def build_scan_lut(query, codebook, distance, precision=None):
     """Per-subvector partial-similarity table with sum semantics: summing
     lut[q, i, code_i] over i gives <q, y> (the euclidean caller applies
     2<q,y> - |y|^2 - |q|^2), or -|q - y|_1 exactly for manhattan. query
-    [nq, d], codebook [m, nc, dsub] -> [nq, m, nc] f32."""
+    [nq, d], codebook [m, nc, dsub] -> [nq, m, nc] f32, the products at
+    `precision`."""
     m, _, dsub = codebook.shape
     q = query.float().reshape(query.shape[0], m, dsub)
     if canonical_distance(distance) == "manhattan":
         return -torch.sum(torch.abs(q[:, :, None, :]
                                     - codebook.float()[None]), dim=-1)
-    return torch.einsum("qmd,mcd->qmc", q, codebook.float())
+    return subvector_products(q, codebook.float(), precision)
 
 
 def _packing(codes, m):
@@ -94,6 +97,7 @@ def scan_cell_major_codes(query, cells, probe_mask, codes, norms, is_empty,
     and "pallas_flat" take the LUT path, "pallas" raises where the codes
     kernel's gate fails."""
     distance = canonical_distance(distance)
+    precision = config.resolve_precision(precision)
     query = query.float()
     nq, n_probe = cells.shape
     g, m, cap_total = _packing(codes, m)
@@ -135,7 +139,7 @@ def scan_cell_major_codes(query, cells, probe_mask, codes, norms, is_empty,
     LAST_GATE.clear()
     LAST_GATE.update(impl="codes_scan" if use_kernel else "onehot",
                      k_pair=k_pair, s_eff=s_eff, pack32=pack32, m=m, g=g,
-                     blocks=n_blocks)
+                     blocks=n_blocks, precision=precision)
     width = k_pair if pack32 else 2 * k_pair
     if use_kernel:
         combo = codes_scan(
@@ -148,7 +152,7 @@ def scan_cell_major_codes(query, cells, probe_mask, codes, norms, is_empty,
         # The JAX package's row-gather window fetch (gather_windows,
         # :166, :266-275) is a TPU layout workaround for huge codes arrays
         # with identical results; windows here are plain index gathers.
-        lut_flat = build_scan_lut(query, codebook, distance) \
+        lut_flat = build_scan_lut(query, codebook, distance, precision) \
             .reshape(nq, -1).to(torch.bfloat16)
         flat = codes.reshape(cap_total, m)
 
@@ -184,7 +188,7 @@ def flat_onehot_scan(query, codes, penalty, codebook, *, k, distance,
     nq = query.shape[0]
     _, m, cap = _packing(codes, m)
     flat = codes.reshape(cap, m)
-    lut = build_scan_lut(query, codebook, distance)
+    lut = build_scan_lut(query, codebook, distance, precision)
     nc = lut.shape[-1]
     lut_flat = lut.reshape(nq, m * nc).to(torch.bfloat16)
     off = torch.arange(m, device=codes.device) * nc
@@ -209,9 +213,9 @@ def flat_decode_scan(query, codes, penalty, codebook, *, k, distance,
     """Exhaustive code-domain sweep: per chunk of slots, decode the codes to
     bf16 rows (a gather from the bf16-rounded codebook, bit-identical to the
     JAX package's one-hot @ blockdiag_codebook product, which the port
-    therefore does not need), score them against the
-    bf16-rounded query with an f32 product of the upcast operands, keep the
-    chunk's top k; then the exact final merge. penalty [cap] f32 =
+    therefore does not need), score them against the bf16-rounded query
+    (exact products, f32 sums, at `precision`), keep the chunk's top k;
+    then the exact final merge. penalty [cap] f32 =
     norms-or-0 with BIG at empty slots. Manhattan does not factor through
     a product: it takes flat_onehot_scan."""
     distance = canonical_distance(distance)
@@ -221,10 +225,10 @@ def flat_decode_scan(query, codes, penalty, codebook, *, k, distance,
     flat = codes.reshape(cap, m)
     cb = codebook.to(torch.bfloat16)
     # the JAX sweep rounds the query to bf16 (onehot_adc.py:450)
-    q_mm = query.to(torch.bfloat16).float()
+    q_mm = query.to(torch.bfloat16)
     vals, idx = flat_sweep(
-        q_mm, lambda c0, c1: decode_codes(flat[c0:c1], cb).float(), cap,
+        q_mm, lambda c0, c1: decode_codes(flat[c0:c1], cb), cap,
         penalty, k=k, factor=2.0 if distance == "euclidean" else 1.0,
-        max_elems=max_elems)
+        max_elems=max_elems, precision=precision)
     return final_merge(vals, idx, query, k=k, distance=distance)
 

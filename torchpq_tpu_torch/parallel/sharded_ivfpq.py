@@ -331,9 +331,11 @@ class ShardedIVFPQSearcher:
         return dec, None
 
     def _local_search(self, q, k):
-        """This rank's top-k (values, ids) over its own cells."""
+        """This rank's top-k (values, ids) over its own cells, the products
+        at the index's search precision (sharded_ivfpq.py:490-491)."""
         idx, d_count = self.index, self.n_shards
         impl = idx.scan_impl
+        precision = idx._search_precision()
         if self.scan_mode == "flat":
             # an exhaustive sweep of the compacted shard: no probing
             dec, nrm, emp, ids, sc = self._flat_compacted()
@@ -343,24 +345,27 @@ class ShardedIVFPQSearcher:
                 sweep = flat_onehot_scan if self.distance == "manhattan" \
                     else flat_decode_scan
                 vals, addr = sweep(q, dec, penalty, self.pq_cb, k=k,
-                                   distance=self.distance)
+                                   distance=self.distance,
+                                   precision=precision)
             else:
                 vals, addr = flat_adc_scan(q, dec, penalty, k=k,
                                            distance=self.distance,
-                                           approx=True, scales=sc)
+                                           approx=True, scales=sc,
+                                           precision=precision)
         else:
             from ..index.ivfpq import _coarse_probe
             n_probe = min(idx.n_probe, idx.n_cells)
             _, cells, mask = _coarse_probe(
                 q, self.codebook, idx.smart_probing_temperature,
-                n_probe=n_probe, use_smart=idx.use_smart_probing)
+                n_probe=n_probe, use_smart=idx.use_smart_probing,
+                precision=precision)
             local_mask = mask & (cells % d_count == self.rank)
             local_cells = torch.clamp(cells // d_count,
                                       max=self.cells_per_shard - 1)
             ids = self.ids
             kw = dict(k=k, distance=self.distance,
                       s_max=util.next_pow2(self.s_max),
-                      approx=idx.use_approx_topk)
+                      approx=idx.use_approx_topk, precision=precision)
             args = (q, local_cells, local_mask)
             tables = (self.norms, self.is_empty, self.cell_start,
                       self.cell_capacity)

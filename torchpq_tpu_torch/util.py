@@ -1,9 +1,12 @@
 """Shape/dtype utilities (counterpart of torchpq_tpu/util.py)."""
 
+import math
 import time
 
 import numpy as np
 import torch
+
+from . import config
 
 # user-visible id arrays are int32, matching the JAX package's default x32
 # mode (torchpq_tpu/util.py:id_dtype) so saved states carry across
@@ -97,13 +100,105 @@ def as_tensor(x, device, dtype=None):
     return x.to(device=device, dtype=dtype)
 
 
-def matmul_f32(a, b_t):
-    """a [n, d] @ b_t[m, d].T with float32 products and accumulation.
+def _mm_f32(a, b_t, alpha, bias):
+    """alpha * a @ b_t.T + bias in IEEE float32 (bias only for 2-D
+    operands, where it rides the GEMM's epilogue)."""
+    a, b_t = a.float(), b_t.float()
+    if bias is not None:
+        return torch.addmm(bias, a, b_t.T, alpha=alpha)
+    out = a @ b_t.mT
+    return out if alpha == 1.0 else out.mul_(alpha)
 
-    bf16 operands are upcast first: a bf16 product is exact in float32, so
-    this is the bf16 x bf16 -> f32 product the JAX package asks XLA for
-    (torch's own bf16 matmul would round the result to bf16)."""
-    return a.float() @ b_t.float().T
+
+def _mm_bf16(a, b_t):
+    """bf16 a @ b_t.T with an f32 result: the products exact, summed in
+    f32 on the tensor cores (torch.mm's out_dtype; the plain bf16 matmul
+    would round the result to bf16)."""
+    if a.ndim == 2:
+        return torch.mm(a, b_t.T, out_dtype=torch.float32)
+    return torch.bmm(a, b_t.mT, out_dtype=torch.float32)
+
+
+def _on_card(x):
+    """Whether a product of x runs at its precision: on a CUDA tensor. The
+    CPU computes f32 at every precision, as XLA:CPU does."""
+    return x.is_cuda
+
+
+def bf16_parts(x, precision):
+    """x's bf16 high part and, at "high" for a non-bf16 x, its bf16 low
+    part (x - hi rounded; else None): the operands one product reads."""
+    hi = x.to(torch.bfloat16)
+    if precision != "high" or x.dtype == torch.bfloat16:
+        return hi, None
+    return hi, (x.float() - hi.float()).to(torch.bfloat16)
+
+
+def matmul_operand(x, precision=None):
+    """`x` prepared once for many products at one precision (matmul
+    accepts it in place of x): its bf16 parts on a CUDA tensor below
+    "highest", else x as f32. FlatIndex casts its storage so, once per
+    search instead of once per query chunk."""
+    p = config.resolve_precision(precision)
+    if _on_card(x) and p != "highest":
+        return bf16_parts(x, p)
+    return x.float()
+
+
+def matmul(a, b_t, precision=None, *, alpha=1.0, bias=None):
+    """alpha * a @ b_t.T (+ bias) with a float32 result, at a precision
+    (config.resolve_precision; None: SEARCH_PRECISION). a [..., n, d],
+    b_t [..., m, d] with equal leading dims (at most one); bias [m] or
+    [n, m], 2-D operands only; either operand may be matmul_operand's.
+
+    On a CUDA tensor it computes what the TPU computes at the precision:
+    "default", one GEMM of the bf16-rounded operands (exact products, f32
+    sums on the tensor cores); "high", bf16_3x, a_hi b_lo + a_lo b_hi +
+    a_hi b_hi with x = x_hi + x_lo in bf16 each, every term as "default",
+    summed in f32 (bf16 operands have no low part: one GEMM); "highest",
+    IEEE float32. On the CPU every precision computes float32, as XLA:CPU
+    does. matmul_plain is the plain version of each mode. A power-of-two
+    alpha scales a's bf16 parts (exactly), and the bias is added after the
+    GEMM: on an H100 that beat addmm's bias for bf16 operands
+    (chip_matmul.py)."""
+    p = config.resolve_precision(precision)
+    if not _on_card(a[0] if isinstance(a, tuple) else a) or p == "highest":
+        return _mm_f32(a, b_t, alpha, bias)
+    (a_hi, a_lo), (b_hi, b_lo) = (
+        x if isinstance(x, tuple) else bf16_parts(x, p) for x in (a, b_t))
+    scale = alpha if alpha > 0 and math.frexp(alpha)[0] == 0.5 else 1.0
+    if scale != 1.0:
+        a_hi = a_hi * scale
+        a_lo = None if a_lo is None else a_lo * scale
+    out = None
+    if p == "high":
+        for x, y in ((a_hi, b_lo), (a_lo, b_hi)):
+            if x is not None and y is not None:
+                t = _mm_bf16(x, y)
+                out = t if out is None else out.add_(t)
+    hh = _mm_bf16(a_hi, b_hi)
+    out = hh if out is None else out.add_(hh)
+    if alpha != scale:
+        out.mul_(alpha)
+    return out if bias is None else out.add_(bias)
+
+
+def matmul_plain(a, b_t, precision=None):
+    """Plain version of matmul's mode at a precision, on any device:
+    the operands rounded to bf16 explicitly ("default"), or split into
+    bf16 high and low parts with the three products summed in f32
+    ("high"), then f32 products; "highest" an f32 product."""
+    p = config.resolve_precision(precision)
+    if p == "highest":
+        return a.float() @ b_t.float().mT
+    (a_hi, a_lo), (b_hi, b_lo) = (bf16_parts(x, p) for x in (a, b_t))
+
+    def mm(x, y):
+        return x.float() @ y.float().mT
+    small = [mm(x, y) for x, y in ((a_hi, b_lo), (a_lo, b_hi))
+             if x is not None and y is not None]
+    out = mm(a_hi, b_hi)
+    return sum(small[1:], small[0]) + out if small else out
 
 
 def int8_quantize_rows(rows):
