@@ -7,7 +7,11 @@
 Phases, each of which fails the run on error:
   1. device: a CUDA card is required (no CPU continuation); prints its name
      and `nvidia-smi` name + power limit.
-  2. build: compiles the kernels from `torchpq_tpu_torch/csrc` with nvcc.
+  2. build: compiles the kernels from `torchpq_tpu_torch/csrc` with nvcc;
+     the ptxas report of CHECKED_KERNELS' instances must show no spill
+     and no stack frame, and each of the five warp-specialised instances
+     (block_scan_wg.cu) must hold HGMMA and UTMALDG instructions in its
+     SASS (cuobjdump -sass; counts logged and in the kernels line).
   3. kernel vs plain on seeded inputs: the tensor-core block-scan kernel
      against its plain PyTorch version (`block_scan_ref`) on the card
      (p_tile=128, d=128, s_eff 1024 and 2048, k_pair=10, 1024 blocks,
@@ -16,9 +20,13 @@ Phases, each of which fails the run on error:
      inputs with ties (d 128 at s_eff 640, pack32 also at k_pair 40 over
      512 strided groups, 64 over 512 and 57 over 256, d 40 at s_eff 200,
      and d 1024 (256-byte k chunks) at s_eff 2048, exact and pack32 k_pair
-     10 and pack32 k_pair 64 over 512 groups (the one-list instance),
-     euclidean and inner); on
+     10 and pack32 k_pair 64 over 512 groups, and d 200 at s_eff 640,
+     exact and pack32 k_pair 16, euclidean and inner: at d 1024 and 200
+     the warp-specialised route); on
      each of those inputs the CUDA-core block-scan kernel too, every row;
+     then the warp-specialised route at d 200 and 384 (s_eff 640, k_pair
+     10, 1024 blocks, 8 live probers a block and random liveness) within
+     tolerance, pad rows dead, timed in turns with block_scan.cu (logged);
      then the f32-cache kernel (CUDA cores);
      then the tensor-core codes-scan kernel against `codes_scan_ref` (PQ64
      codes, s_eff 1024, 1024 blocks), both selects, live rows within
@@ -221,14 +229,18 @@ Phases, each of which fails the run on error:
      within 0.02 of the exact sweep over its tier's PQ-decoded rows, int8
      within 0.005 of bf16 per k = 10 plan, recall@100 logged; the bf16
      record's flat plan timed at the search precisions "default" and
-     "highest" in turns (logged); the bf16 exact scan (n_probe 8) held to block_scan_ref within the tolerance and
+     "highest" in turns (logged); the bf16 scans run the warp-specialised
+     route (keys "tc_wg_exact" / "tc_wg_pack32": they must launch); the
+     bf16 exact scan
+     (n_probe 8) held to block_scan_ref within the tolerance and
      its pack32 scans at k = 10 and k = 100 (k_pair 64 over 512 groups,
-     the one-list instance; n_probe 32) to an f64-summed select by key or
+     a ring of three stages; n_probe 32) to an f64-summed select by key or
      slot as in phase 9, and block_scan.cu to it by slot, the tensor-core
      scans' values within the tolerance (their ratio to it logged), those
      of block_scan.cu's one sequential chain within the tolerance plus the
      bound of an f32 sum of their terms (sum_slack: the scores cancel),
-     each timed in turns with block_scan.cu; the int8 k = 100 scan bit for bit,
+     each timed in turns with block_scan.cu; the int8 k = 100 scan bit for
+     bit,
      timed the same way; both tiers profiled.
  18. fused flat scan: the main index with scan_impl="pallas_flat" and
      approx top-k; the flat counters zeroed, the flat plan must launch the
@@ -307,10 +319,14 @@ Phases, each of which fails the run on error:
      and those near a crossover without failing.
  26. prints the kernels' JSON line (every kernel: launches on its path,
      kernel and plain ms, the bound from the inputs' own counts, the
-     library call's ms where one PyTorch call computes the same; the int8
+     library call's ms where one PyTorch call computes the same, the share
+     of the bound it reaches; the int8
      block scan at both widths, the 1M x 128 tier's and the GIST-class
      d = 1024 one's, and the GIST records' bf16 exact, pack32 and pack32
-     k = 100 and int8 pack32 k = 100 scans at d_cache 1024; the deep-k
+     k = 100 (on the warp-specialised route: its launch key, the instance
+     and its SASS counts of HGMMA and UTMALDG) and int8 pack32 k = 100
+     scans at d_cache 1024; the
+     deep-k
      split's head and tail scans and the
      untapered plan's scan; the 4-bit tier's pack32 block scan and both
      codes scans, the residual tier's k = 100 pack32 block scan, the IVFPQR
@@ -346,13 +362,21 @@ F32_UNIT = 2.0 ** -23
 # kernel_name gives its mangled one
 DEEP_CODES_KERNEL = "codes_scan_tc_kernelILb1ELi64E"
 # the instances whose ptxas report must show no spill and no stack frame:
-# the deep codes instance, the block scan's bf16 instances over k-chunked
-# rows (<PACK, KMAX, CHUNKED = true, ONE_LIST>: exact 10 / 16, pack32 pass
-# by pass, one running list) and its int8 one-list instance
+# the deep codes instance, the block scan's int8 one-list instance and the
+# five warp-specialised instances over k-chunked bf16 rows
+# (block_scan_wg.cu <PACK, KMAX, ring stages>: exact 10 / 16 on 5 / 4
+# stages, pack32 on 6, 4 and 3)
 CHECKED_KERNELS = re.compile(
-    r"codes_scan_tc_kernelILb1ELi64E$|block_scan_tc_kernelI\w*Lb1ELb[01]E$"
-    r"|block_scan_tc_int8_kernelI\w*Lb1ELb1E$")
-N_CHECKED_KERNELS = 6
+    r"codes_scan_tc_kernelILb1ELi64E$"
+    r"|block_scan_tc_int8_kernelI\w*Lb1ELb1E$|block_scan_wg_kernelI\w*E$")
+N_CHECKED_KERNELS = 7
+# the warp-specialised instances, each of which must hold warpgroup
+# products (HGMMA) and TMA loads (UTMALDG) in its SASS
+WG_KERNEL = re.compile(r"block_scan_wg_kernelI\w*E$")
+N_WG_KERNELS = 5
+WG_OPS = ("HGMMA", "UTMALDG")
+# per instance: its SASS counts of WG_OPS (main, from cuobjdump)
+SASS = {}
 
 # the card's data-sheet rates (H100 SXM, dense): HBM bytes/s and the
 # tensor-core peak of each operand type, for the kernels' bounds
@@ -656,7 +680,7 @@ def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
                  by_slot=False, f32_bound=False):
     """The block scan as its wrapper routes it against its plain version on
     the same inputs; fails the run on disagreement (compare_rows' criteria,
-    equal / exact_bits as there). A tensor-core route (bf16 d <= 128, int8
+    equal / exact_bits as there). A tensor-core route (bf16 d <= 1024, int8
     d <= 1024) is held on the live rows (prober >= 0), and every pad row
     must be dead: it does not score them, the plain version scores them
     with query 0. Then the CUDA-core kernel of the same cache mode and
@@ -685,7 +709,7 @@ def check_kernel(torch, bs, args, *, s_eff, k_pair, pack32, euclidean=True,
     if route.startswith("tc_"):
         if not dead_rows(torch, bs, got, args[1], k_pair, pack32):
             fail(f"{route}: pad rows are not written dead")
-        mode = route[3:]
+        mode = cuda_core_route(route)
         cc = block_launch(torch, bs, args, mode, **kw)
         torch.cuda.synchronize()
         compare_rows(torch, bs, cc, ref, what=f"{mode} (CUDA cores)",
@@ -779,19 +803,115 @@ def check_cuda_core_codes(torch, bs, cs, args, ref, kw, exact_bits):
 
 
 def in_turns(torch, fns, reps):
-    """Mean CUDA-event ms of each of two callables, timed in turns a, b,
+    """Mean CUDA-event ms of each callable, timed in turns a, b, ..., ...,
     b, a (reps launches each turn) -> ({name: mean}, {name: [turns]})."""
-    a, b = fns
-    times = {a: [], b: []}
-    for name in (a, b, b, a):
+    names = list(fns)
+    times = {name: [] for name in names}
+    for name in names + names[::-1]:
         times[name].append(cuda_ms(torch, fns[name], reps))
     return {k: float(np.mean(v)) for k, v in times.items()}, times
+
+
+def cuda_core_route(route):
+    """The CUDA-core route (csrc/block_scan.cu) of a tensor-core one's cache
+    mode and select."""
+    return route[6:] if route.startswith("tc_wg_") else route[3:]
+
+
+def route_source(route):
+    """The source of a block-scan route's kernel."""
+    if route.startswith("tc_wg_"):
+        return "torchpq_tpu_torch/csrc/block_scan_wg.cu"
+    if route.startswith("tc_int8_"):
+        return "torchpq_tpu_torch/csrc/block_scan_tc_int8.cu"
+    if route.startswith("tc_"):
+        return "torchpq_tpu_torch/csrc/block_scan_tc.cu"
+    return "torchpq_tpu_torch/csrc/block_scan.cu"
+
+
+def wg_instance(pack32, k_pair):
+    """The warp-specialised instance (kernel_name) a launch of this select
+    runs (block_scan_wg.cu's dispatch)."""
+    from torchpq_tpu_torch.ops import block_scan as bs
+    ring = bs.wg_ring(pack32, k_pair)
+    return (f"block_scan_wg_kernelILb{int(bool(pack32))}ELi"
+            f"{16 if pack32 or k_pair > 10 else 10}ELi{ring}E")
+
+
+def sass_counts(torch, path):
+    """Per warp-specialised instance of the built library, its SASS counts
+    of WG_OPS (cuobjdump -sass); fails where the library holds other than
+    N_WG_KERNELS such instances or one lacks an op."""
+    res = subprocess.run(["cuobjdump", "-sass", str(path)],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump -sass failed: {res.stderr.strip()[-2000:]}")
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = kernel_name(m.group(1))
+            fn = fn if WG_KERNEL.search(fn) else None
+            if fn:
+                counts[fn] = dict.fromkeys(WG_OPS, 0)
+            continue
+        if fn:
+            for op in WG_OPS:
+                if re.search(r"\b" + op + r"\b", line):
+                    counts[fn][op] += 1
+    for fn, c in sorted(counts.items()):
+        log(f"SASS {fn}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
+        if not all(c.values()):
+            fail(f"{fn}: no {[op for op in WG_OPS if not c[op]]} in its SASS")
+    if len(counts) != N_WG_KERNELS:
+        fail(f"cuobjdump found {sorted(counts)}, not the {N_WG_KERNELS} "
+             f"warp-specialised instances")
+    return counts
 
 
 def kernel_row(name, s_eff, blocks, err, agree, ms, plain_ms):
     return (f"{name} s_eff={s_eff} blocks={blocks}: kernel {ms:.3f} ms, "
             f"plain {plain_ms:.3f} ms, max_abs_err {err:.3g}"
             + (f", key agreement {agree:.7f}" if agree is not None else ""))
+
+
+def narrow_wide_rows(torch, bs):
+    """The warp-specialised route at k-chunked widths below the GIST-class
+    cache (d 200 and 384, the latter the wide tests' 768-byte rows), on
+    sparsely live blocks (8 live probers of 128: one live 64-prober tile,
+    as at n_probe 1) and on blocks of random liveness: held to the plain
+    version (check_kernel) and timed in turns with block_scan.cu, the
+    route these shapes would take without it (logged)."""
+    for d in (200, 384):
+        for sparse in (True, False):
+            args = bs.random_inputs("cuda", s_eff=640, n_blocks=1024,
+                                    nq=10000, d=d, cap_total=1 << 18,
+                                    seed=d + sparse)
+            if sparse:
+                args[1][:, 8:] = -1
+            for pack32 in (False, True):
+                kw = dict(s_eff=640, k_pair=10, euclidean=True,
+                          pack32=pack32, slot_mask=1023)
+                check_kernel(torch, bs, args, s_eff=640, k_pair=10,
+                             pack32=pack32, reps=0)
+                mode = "pack32" if pack32 else "exact"
+                route = bs.pick_route(dtype=args[6].dtype, d=d, p_tile=128,
+                                      s_eff=640, k_pair=10, pack32=pack32)
+                t, turns = in_turns(torch, {
+                    "cuda_cores": lambda: block_launch(torch, bs, args, mode,
+                                                       **kw),
+                    route: lambda: block_launch(torch, bs, args, route,
+                                                **kw)}, 5)
+                log(f"block_scan {route} d={d} s_eff=640 k_pair=10, 1024 "
+                    f"blocks, {int((args[1] >= 0).sum())} live probers "
+                    f"({'8 a block' if sparse else 'random'}): "
+                    f"{t[route]:.3f} ms "
+                    f"({' / '.join(f'{x:.3f}' for x in turns[route])}), "
+                    f"block_scan.cu {t['cuda_cores']:.3f} ms "
+                    f"({' / '.join(f'{x:.3f}' for x in turns['cuda_cores'])})"
+                    f", {t['cuda_cores'] / t[route]:.2f}x; live rows within "
+                    f"tolerance, pad rows dead")
+            del args
 
 
 def phase_kernels(torch, bs, cs, fs, gr):
@@ -813,14 +933,16 @@ def phase_kernels(torch, bs, cs, fs, gr):
     # (d 40 pads K to 48; s_eff 200 ends in a ragged tile; pack32 k_pair 64
     # over 512 groups and 57 over 256, the deep-k selects; d 1024, the
     # GIST-class cache in 256-byte k chunks, at the records' k = 10 and
-    # k = 100 shapes, the latter on the one-list instance)
+    # k = 100 shapes, on the warp-specialised route; d 200, whose rows end
+    # inside a k chunk)
     for d, s_eff, k_pair, selects in ((128, 640, 10, (False, True)),
                                       (128, 2048, 40, (True,)),
                                       (128, 4096, 64, (True,)),
                                       (128, 512, 57, (True,)),
                                       (40, 200, 16, (False,)),
                                       (1024, 2048, 10, (False, True)),
-                                      (1024, 2048, 64, (True,))):
+                                      (1024, 2048, 64, (True,)),
+                                      (200, 640, 16, (False, True))):
         args = bs.integer_block_inputs("cuda", s_eff=s_eff,
                                        n_blocks=256 if d > 128 else 1024,
                                        nq=10000, d=d, cap_total=1 << 18,
@@ -834,14 +956,18 @@ def phase_kernels(torch, bs, cs, fs, gr):
                                 euclidean=True, pack32=False,
                                 slot_mask=bs.util.next_pow2(s_eff) - 1)
         ref = ref[args[1] >= 0][:, :k_pair]
-        log(f"block_scan (tensor cores) integer inputs d={d} s_eff={s_eff} "
-            f"k_pair={k_pair}: live rows equal bit for bit, "
+        routes = sorted({bs.pick_route(dtype=args[6].dtype, d=d, p_tile=128,
+                                       s_eff=s_eff, k_pair=k_pair, pack32=p)
+                         for p in selects})
+        log(f"block_scan ({', '.join(routes)}) integer inputs d={d} "
+            f"s_eff={s_eff} k_pair={k_pair}: live rows equal bit for bit, "
             f"{' and '.join('pack32' if p else 'exact' for p in selects)}, "
             f"euclidean and "
             f"inner ({int((ref[:, 1:] == ref[:, :-1]).sum())} tied "
             f"neighbours in the exact lists); pad rows dead; the CUDA-core "
             f"kernel equal bit for bit on every row")
         del args
+    narrow_wide_rows(torch, bs)
     args = bs.random_inputs("cuda", s_eff=512, n_blocks=64, nq=10000,
                             cap_total=1 << 21, seed=7, dtype=torch.float32)
     err = check_kernel(torch, bs, args, s_eff=512, k_pair=10, pack32=False,
@@ -1069,14 +1195,15 @@ def phase_main_shapes(torch, tp, bs, index, xq, k, label="main path",
                 continue
             # the select the search ran: both kernels in turns
             mode = "pack32" if pack32 else "exact"
+            route = bs.pick_route(dtype=args[6].dtype, d=d, p_tile=p_tile,
+                                  s_eff=s_eff, k_pair=k_pair, pack32=pack32)
             kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
                        pack32=pack32, slot_mask=kw["slot_mask"])
             t, turns = in_turns(torch, {
                 "cuda_cores": lambda: block_launch(torch, bs, args, mode,
                                                    **kkw),
-                "tensor_cores": lambda: block_launch(torch, bs, args,
-                                                     "tc_" + mode, **kkw)},
-                reps)
+                "tensor_cores": lambda: block_launch(torch, bs, args, route,
+                                                     **kkw)}, reps)
             ms, cc_ms = t["tensor_cores"], t["cuda_cores"]
             plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw),
                                3)
@@ -1085,7 +1212,7 @@ def phase_main_shapes(torch, tp, bs, index, xq, k, label="main path",
             flop = 2.0 * s_eff * d
             log(f"  {name} on the {label} n_probe={n_probe} search's "
                 f"arguments: "
-                f"tensor cores {ms:.3f} ms ("
+                f"{route} {ms:.3f} ms ("
                 f"{' / '.join(f'{x:.3f}' for x in turns['tensor_cores'])}; "
                 f"{flop * live / ms / 1e9:.2f} TFLOP/s over live probers, "
                 f"{flop * 16 * live_tiles / ms / 1e9:.2f} over live tiles, "
@@ -1095,13 +1222,15 @@ def phase_main_shapes(torch, tp, bs, index, xq, k, label="main path",
                 f"probers), speed-up {cc_ms / ms:.2f}x; plain {plain_ms:.3f} "
                 f"ms, bound {b_ms:.3f} ms ({b_by})")
             rows[name] = dict(
-                name=name, route="cuda",
-                source="torchpq_tpu_torch/csrc/block_scan_tc.cu",
+                name=name, route="cuda", source=route_source(route),
                 replaces="torchpq_tpu/ops/pallas_scan.py:281",
                 max_abs_err=res[0], ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                launch_key="tc_" + mode, cuda_core_ms=cc_ms,
+                launch_key=route, cuda_core_ms=cc_ms,
                 cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu")
+            if route.startswith("tc_wg_"):
+                inst = wg_instance(pack32, k_pair)
+                rows[name].update(instance=inst, sass=SASS.get(inst))
     return rows
 
 
@@ -1684,11 +1813,14 @@ def check_spill(torch, seen):
     return over
 
 
-def one_key_ms(torch, bs, args, kw, reps):
+def one_key_ms(torch, bs, args, kw, reps, route=None):
     """The tensor-core pack32 launch on a scan's own arguments (bf16, or
-    int8 where kw holds its scales), but writing k_pair = 1 key per row
-    over the same strided groups: the same tiles, products, group maxima
-    and phases, with one extraction pass and one merge step per phase. The
+    int8 where kw holds its scales; route "tc_wg_pack32": the
+    warp-specialised kernel, else the mma.sync one), but writing k_pair =
+    1 key per row over the same strided groups: the same tiles, products,
+    group maxima and phases, with one extraction pass and one merge step
+    per phase (the warp-specialised one on the instance and ring stages of
+    the real launch's k_pair, torchpq_block_scan_wg_instance). The
     difference to the real launch is what the rest of the select costs (the
     passes or the sort, the merge, the writes). Mean CUDA-event ms over
     reps launches (none counted)."""
@@ -1697,22 +1829,27 @@ def one_key_ms(torch, bs, args, kw, reps):
     b, p_tile = args[1].shape
     d = args[6].shape[1]
     int8 = kw.get("scale") is not None
-    name = "torchpq_block_scan_tc" + ("_int8" if int8 else "")
+    wg = route == "tc_wg_pack32"
+    name = "torchpq_block_scan_" + ("wg" if wg else "tc") + (
+        "_int8" if int8 else "")
     groups = bs.n_groups(kw["s_eff"], kw["k_pair"])
     n_ctas = bs.resident_ctas(lib, name + "_occupancy", args[6].device, d,
-                              1, 1)
+                              1, kw["k_pair"] if wg else 1)
     out = torch.empty((b, p_tile, 1), dtype=torch.int32,
                       device=args[1].device)
     ptrs = [t.data_ptr() for t in args]
     if int8:  # the entry's order: q8, q_scale, ..., penalty, scale, y8
         ptrs = ptrs[:1] + [kw["q_scale"].data_ptr()] + ptrs[1:6] + [
             kw["scale"].data_ptr(), ptrs[6]]
+    dims = (d, args[6].shape[0]) if wg else (d,)  # wg: and the capacity
+    # wg: the instance of the real launch's k_pair
+    entry, inst = (name + "_instance", (kw["k_pair"],)) if wg else (name, ())
 
     def run():
-        rc = getattr(lib, name)(
-            *ptrs, out.data_ptr(), b, p_tile, d, kw["s_eff"], 1,
+        rc = getattr(lib, entry)(
+            *ptrs, out.data_ptr(), b, p_tile, *dims, kw["s_eff"], 1,
             int(kw["euclidean"]), 1, kw["slot_mask"], groups, min(n_ctas, b),
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, *inst)
         if rc != 0:
             fail(f"the one-key tensor-core launch failed: CUDA error {rc}")
 
@@ -1789,27 +1926,31 @@ def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
     log(f"{what}: {blocks} blocks x {p_tile} probers, {live} live "
         f"({live / (blocks * p_tile):.3f}), {live_tiles} live 16-prober "
         f"tiles, s_eff={s_eff}, k_pair={k_pair}, G={groups}, route {route}")
-    if route != "tc_pack32":
+    if route not in ("tc_pack32", "tc_wg_pack32"):
         fail(f"{what} routes to {route}, not the tensor cores")
     kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
                pack32=True, slot_mask=kw["slot_mask"])
     alive = args[1] >= 0
     full = pack32_f64(torch, bs, args, kkw)
     exact = full[alive]
-    tc = block_launch(torch, bs, args, "tc_pack32", **kkw)
+    tc = block_launch(torch, bs, args, route, **kkw)
     plain_f64 = share_equal(bs.block_scan_ref(*args, **kkw)[alive], exact)
     tc_f64 = share_equal(tc[alive], exact)
     by_slot = plain_f64 < 0.99
     if against_f64:
-        if not dead_rows(torch, bs, tc, args[1], k_pair, True):
-            fail(f"{what}: tc_pack32 pad rows are not written dead")
+        # the routed kernel: pad rows dead, keys equal over two launches,
+        # held to the f64-summed select within the tolerance (no sum_slack)
         slack = entry_slack(torch, args, full, k_pair=k_pair, pack32=True,
                             slot_mask=kkw["slot_mask"],
                             euclidean=kw["euclidean"], sides=1)
         cc = block_launch(torch, bs, args, "pack32", **kkw)
-        for name_, out in (("pack32 (CUDA cores)", cc), ("tc_pack32", tc)):
-            if not torch.equal(out, block_launch(torch, bs, args,
-                                                 name_.split()[0], **kkw)):
+        for name_, out in (("pack32 (CUDA cores)", cc), (route, tc)):
+            key = name_.split()[0]
+            if key != "pack32" and not dead_rows(torch, bs, out, args[1],
+                                                 k_pair, True):
+                fail(f"{what}: {key} pad rows are not written dead")
+            if not torch.equal(out, block_launch(torch, bs, args, key,
+                                                 **kkw)):
                 fail(f"{what}: {name_} differs between two launches on the "
                      "same arguments")
         compare_pack32(torch, bs, cc, full, kkw["slot_mask"],
@@ -1817,7 +1958,7 @@ def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
                        slack)
         err, agree = compare_pack32(torch, bs, tc[alive], exact,
                                     kkw["slot_mask"],
-                                    "tc_pack32 against the f64 select",
+                                    f"{route} against the f64 select",
                                     by_slot, ratio=True)
         del cc, slack
     del exact, tc, full
@@ -1828,15 +1969,15 @@ def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
                                         by_slot=by_slot)
     t, turns = in_turns(torch, {
         "cuda_cores": lambda: block_launch(torch, bs, args, "pack32", **kkw),
-        "tensor_cores": lambda: block_launch(torch, bs, args, "tc_pack32",
+        "tensor_cores": lambda: block_launch(torch, bs, args, route,
                                              **kkw)}, 5)
     ms, cc_ms = t["tensor_cores"], t["cuda_cores"]
-    k1_ms = one_key_ms(torch, bs, args, kkw, 5)
+    k1_ms = one_key_ms(torch, bs, args, kkw, 5, route=route)
     plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw), 1)
     b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=2 * d + 4,
                             row_bytes=2 * d, peak="bf16", d=d)
     flop = 2.0 * live * s_eff * d
-    log(f"{name} on {what}'s arguments: tensor cores {ms:.3f} ms ("
+    log(f"{name} on {what}'s arguments: {route} {ms:.3f} ms ("
         f"{' / '.join(f'{x:.3f}' for x in turns['tensor_cores'])}), CUDA "
         f"cores {cc_ms:.3f} ms ("
         f"{' / '.join(f'{x:.3f}' for x in turns['cuda_cores'])}), speed-up "
@@ -1851,15 +1992,18 @@ def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
         f"agreement {agree:.7f} (with the f64-summed select: the plain "
         f"version's {plain_f64:.7f}, the kernel's {tc_f64:.7f}); pad rows "
         f"dead; the CUDA-core kernel matches on every row")
-    return dict(
-        name=name, route="cuda",
-        source="torchpq_tpu_torch/csrc/block_scan_tc.cu",
+    row = dict(
+        name=name, route="cuda", source=route_source(route),
         replaces="torchpq_tpu/ops/pallas_scan.py:281",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, cuda_core_ms=cc_ms,
+        bound_by=b_by, library_ms=None, launch_key=route, cuda_core_ms=cc_ms,
         cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu",
         one_key_ms=k1_ms, key_agreement=agree, held_by_slot=by_slot,
         held_against="f64" if against_f64 else "plain")
+    if route.startswith("tc_wg_"):
+        inst = wg_instance(True, k_pair)
+        row.update(instance=inst, sass=SASS.get(inst))
+    return row
 
 
 def deepk_counts(bs, seen, counts, what):
@@ -2069,6 +2213,9 @@ def all_cells_check(torch, index, xq, k, label):
 # the block scan's tensor-core keys per cache: (exact, pack32)
 BF16_KEYS = ("tc_exact", "tc_pack32")
 INT8_KEYS = ("tc_int8_exact", "tc_int8_pack32")
+# and those of the GIST bf16 record's scans (d_cache 1024: the
+# warp-specialised route)
+GIST_BF16_KEYS = ("tc_wg_exact", "tc_wg_pack32")
 
 
 def require_only_tc(counts, keys, what):
@@ -3256,7 +3403,7 @@ def phase_gist_records(torch, tp, bs, trained, base, xq, xb, gt100, d, m,
         if tuple(dec.shape[1:]) != (1024,) or idx.max_cell_capacity != 512:
             fail(f"{label}: cache {tuple(dec.shape)}, capacity "
                  f"{idx.max_cell_capacity}; the records' are 1024 wide, 512")
-        keys = INT8_KEYS if cache else BF16_KEYS
+        keys = INT8_KEYS if cache else GIST_BF16_KEYS
         r10, c10, g10 = gist_plans(torch, tp, bs, idx, xq, gt10, 10,
                                    GIST_PLANS_K10, label)
         log(f"{label}k=10 launches: {c10}")
@@ -3308,7 +3455,7 @@ def phase_gist_records(torch, tp, bs, trained, base, xq, xb, gt100, d, m,
                 torch, tp, bs, idx, xq, 10, label=label.strip(),
                 suffix="_d1024", plans=((8, False),), reps=5, both=False,
                 f32_bound=True))
-            launches["block_scan_exact_d1024"] = c10["tc_exact"]
+            launches["block_scan_exact_d1024"] = c10[keys[0]]
             for kk, name, cnt in ((10, "block_scan_pack32_d1024", c10),
                                   (100, "block_scan_pack32_k100_d1024",
                                    c100)):
@@ -3318,7 +3465,7 @@ def phase_gist_records(torch, tp, bs, trained, base, xq, xb, gt100, d, m,
                 rows[name] = pack32_scan_row(
                     torch, bs, name, args, kw,
                     f"the {label}k={kk} n_probe=32 search", against_f64=True)
-                launches[name] = cnt["tc_pack32"]
+                launches[name] = cnt[keys[1]]
                 del args
         if not cache:
             planner_sweep(torch, tp, idx, xq, "GIST bf16 record",
@@ -4637,11 +4784,14 @@ def main():
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             kernel = kernel_name(entry.group(1))
-        elif "registers" in line or "spill" in line:
+        elif re.search(r"Used \d+ registers|spill", line):
             log(f"ptxas {kernel}: " + line.strip())
             report[kernel] = report.get(kernel, "") + " " + line.strip()
-    # the deep codes instance and the block scan's chunked bf16 and
-    # one-list int8 instances: no spill, no stack frame
+        elif "Performance Loss" in line:  # wgmma serialized (C7520)
+            log("ptxas: " + line.strip())
+    # the deep codes instance, the block scan's chunked bf16 and one-list
+    # int8 instances and its warp-specialised ones: no spill, no stack
+    # frame
     checked = sorted(x for x in report if CHECKED_KERNELS.search(x))
     for name in checked:
         rep = report[name]
@@ -4657,6 +4807,8 @@ def main():
     if len(checked) != N_CHECKED_KERNELS or DEEP_CODES_KERNEL not in checked:
         fail(f"ptxas reported {checked}, not the {N_CHECKED_KERNELS} checked "
              f"instances")
+    # the warp-specialised instances: warpgroup products and TMA loads
+    SASS.update(sass_counts(torch, lib.path))
 
     phase_kernels(torch, bs, cs, fs, gr)
     log(f"phases 1-3: {time.perf_counter() - t_start:.1f} s")
@@ -4798,6 +4950,8 @@ def main():
         kernels.append(dict(row[name], launches=cnt, sharded_launches={
             d: sharded[tier][d][key] if tier else 0 for d in ("d1", "d2")}))
     kernels += sharded_rows
+    for row in kernels:  # the share of the bound each kernel reaches
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,26 +1,36 @@
 #!/usr/bin/env python3
-"""Variant builds of the tensor-core block scan over k-chunked rows, timed
-in turns with the built library on the JAX package's GIST records'
-arguments, on one CUDA card:
+"""Variant builds of the block scan over k-chunked rows, timed in turns
+with the built library on the JAX package's GIST records' arguments, on
+one CUDA card:
 
-    python3 chip_variants.py
+    python3 chip_variants.py                       # every variant and tier
+    python3 chip_variants.py --variants wg_ring4 --tiers bf16
 
-Each variant is a copy of `torchpq_tpu_torch/csrc` with one text edit,
-built with the package's nvcc flags into its own library under
-`build/variants/`:
-  - chain:  each tile's sums in one mma.sync chain across its k chunks
-            (APART off), the accumulation the int8 instances keep;
-  - pp4:    every chunk summed apart four pairs a pass (pack32 too; the
-            built source takes two there);
-  - sorted: the one-list instances (k-chunked pack32 above k_pair 48)
-            with sorted phase ends instead of passes.
-It prints each variant's ptxas report for the k-chunked instances, and on
-the arguments of the GIST records' searches (1M x 960 manifold-12, seed 1,
-IVF4096 x PQ64, spill 8 cells at 512, scan_group 4: bf16 pack32 k = 10
-and k = 100 at n_probe 32, exact at n_probe 8; int8 pack32 k = 100) each
-variant's agreement with an f64-summed pack32 select and its CUDA-event
-ms in turns (built, variant, variant, built). Imports nothing of JAX."""
+On each of the records' searches (1M x 960 manifold-12, seed 1, IVF4096 x
+PQ64, spill 8 cells at 512, scan_group 4: bf16 pack32 k = 10 and k = 100
+at n_probe 32, exact at n_probe 8; int8 pack32 k = 100) it logs the
+block's shapes (blocks, live probers, live 64-prober tiles and the share
+of pad rows they carry) and the built route's agreement with an
+f64-summed pack32 select (bf16: the warp-specialised instance of
+block_scan_wg.cu, wgmma + TMA; int8: block_scan_tc_int8.cu, mma.sync).
 
+Each variant is a copy of `torchpq_tpu_torch/csrc` with text edits, built
+with the package's nvcc flags into its own library under
+`build/variants/`, and timed in turns with the built one on its route
+(built, variant, variant, built):
+  - sorted: (int8, mma.sync) the one-list instance (k-chunked pack32
+            above k_pair 48) with sorted phase ends instead of passes;
+  - wg_regs224: (wgmma) the consumer warpgroups' register budget
+            lowered from 232 to 224 (the producer's raised from 40 to 56);
+  - wg_ring4: (wgmma) rings of four stages where the built instances
+            take five (exact k_pair <= 10) or six (pack32 k_pair <= 16);
+  - wg_sorted: (wgmma) the deep instance (pack32 k_pair > 48) with sorted
+            phase ends instead of passes (ptxas spills 352 B there at the
+            consumers' 232 registers).
+It prints each variant's ptxas report for the k-chunked instances.
+Imports nothing of JAX."""
+
+import argparse
 import ctypes
 import re
 import shutil
@@ -33,19 +43,25 @@ import torch
 import chip_smoke as cs
 
 VARIANTS = {
-    "chain": [("scan_tc.cuh",
-               "constexpr bool APART = CHUNKED && !Op::EXACT;",
-               "constexpr bool APART = false;")],
-    "pp4": [("scan_tc.cuh", "constexpr int PP = PACK ? 2 : 4;",
-             "constexpr int PP = 4;")],
-    "sorted": [(f, a, b) for f in ("block_scan_tc.cu",
-                                   "block_scan_tc_int8.cu")
+    "sorted": [("block_scan_tc_int8.cu", a, b)
                for a, b in (("TPQ_LAUNCH(true, PASS_K, true, true)",
                              "TPQ_LAUNCH(true, MAX_PACK_K, true, true)"),
                             ("occupancy_of<true, PASS_K, true, true>",
                              "occupancy_of<true, MAX_PACK_K, true, true>"))],
+    "wg_regs224": [("block_scan_wg.cu", "constexpr int PRODUCER_REGS = 40;",
+                    "constexpr int PRODUCER_REGS = 56;"),
+                   ("block_scan_wg.cu", "constexpr int CONSUMER_REGS = 232;",
+                    "constexpr int CONSUMER_REGS = 224;")],
+    "wg_sorted": [("block_scan_wg.cu", a + "true, tc::PASS_K, RING_DEEP" + z,
+                   a + "true, tc::MAX_PACK_K, RING_DEEP" + z)
+                  for a, z in (("TPQ_LAUNCH(", ")"), ("occupancy_of<", ">"))],
+    "wg_ring4": [("wg_layout.cuh", "constexpr int RING_EXACT_10 = 5;",
+                  "constexpr int RING_EXACT_10 = 4;"),
+                 ("wg_layout.cuh", "constexpr int RING_PACK_16 = 6;",
+                  "constexpr int RING_PACK_16 = 4;")],
 }
-SOURCES = ("block_scan_tc.cu", "block_scan_tc_int8.cu", "block_scan.cu")
+SOURCES = ("block_scan_tc.cu", "block_scan_tc_int8.cu", "block_scan.cu",
+           "block_scan_wg.cu")
 
 
 def ptxas(log, tag):
@@ -55,8 +71,8 @@ def ptxas(log, tag):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             kernel = cs.kernel_name(m.group(1))
-        elif ("registers" in line or "spill" in line) \
-                and re.search(r"block_scan_tc\w*Lb1ELb[01]E$", kernel):
+        elif ("registers" in line or "spill" in line) and re.search(
+                r"block_scan_tc\w*Lb1ELb[01]E$|block_scan_wg_kernel", kernel):
             print(f"ptxas {tag} {kernel}: {line.strip()}", flush=True)
 
 
@@ -80,8 +96,8 @@ def build_variant(_build, name, edits):
     if any(p.returncode for p in procs):
         cs.fail(f"variant {name}: nvcc failed:\n{log}")
     so = src / "libvariant.so"
-    subprocess.run([nvcc, "-shared", "-o", str(so), *map(str, objs)],
-                   check=True)
+    subprocess.run([nvcc, "-shared", "-o", str(so), *map(str, objs),
+                    *_build.LINK_FLAGS], check=True)
     ptxas(log, name)
     lib = ctypes.CDLL(str(so))
     for fn_name, (argtypes, restype) in _build._SIGNATURES.items():
@@ -91,7 +107,26 @@ def build_variant(_build, name, edits):
     return lib
 
 
+def shapes(torch, args):
+    """Blocks, live probers, live 64-prober tiles and the share of pad rows
+    those tiles carry (the warp-specialised route's products)."""
+    probers = args[1]
+    blocks = probers.shape[0]
+    live = int((probers >= 0).sum())
+    tiles = probers.view(blocks, -1, 64) >= 0
+    live64 = int(tiles.any(-1).sum())
+    return (f"{blocks} blocks, {live} live probers "
+            f"({live / probers.numel():.3f}), {live64} live 64-prober tiles "
+            f"({1 - live / max(64 * live64, 1):.3f} of their rows pads)")
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated names of VARIANTS ('' for none)")
+    ap.add_argument("--tiers", default="bf16,int8",
+                    help="the records' caches to time: bf16, int8")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: this run needs a card")
     print(cs.card_line(), flush=True)
@@ -100,8 +135,8 @@ def main():
     from torchpq_tpu_torch.ops import block_scan as bs
     lib = _build.library()
     ptxas(lib.build_log, "built")
-    libs = {name: build_variant(_build, name, edits)
-            for name, edits in VARIANTS.items()}
+    libs = {name: build_variant(_build, name, VARIANTS[name])
+            for name in filter(None, opts.variants.split(","))}
     base, query = cs.make_data(1_000_000, 10_000, 960, seed=1)
     proto = tp.IVFPQIndex(d_vector=960, n_subvectors=64, n_cells=4096,
                           initial_size=16, device="cuda")
@@ -111,9 +146,12 @@ def main():
     del proto
     xq = torch.from_numpy(query).cuda()
     stream = torch.cuda.current_stream().cuda_stream
+    tiers = opts.tiers.split(",")
     for cache, plans in ((None, ((10, 32, True), (100, 32, True),
                                  (10, 8, False))),
                          ("int8", ((100, 32, True),))):
+        if (cache or "bf16") not in tiers:
+            continue
         index, _ = cs.build_index(torch, tp, trained, base, d=960, m=64,
                                   n_cells=4096, per_cell=488, cache=cache,
                                   spill=True)
@@ -132,17 +170,23 @@ def main():
                                   pack32=approx)
             what = (f"{cache or 'bf16'} {route} k={k} n_probe={n_probe} "
                     f"k_pair={kw['k_pair']}")
+            print(f"{what}: {shapes(torch, args)}", flush=True)
             live = args[1] >= 0
             f64 = cs.pack32_f64(torch, bs, args, kkw)[live] \
                 if approx and not cache else None
-            for name, vlib in [("built", lib)] + list(libs.items()):
+            if f64 is not None:
+                out = bs.launch(lib, stream, *args, **kkw)
+                print(f"{what} built: keys equal to the f64-summed select "
+                      f"{cs.share_equal(out[live], f64):.6f}", flush=True)
+            for name, vlib in libs.items():
+                if name.startswith("wg") != route.startswith("tc_wg_"):
+                    continue  # a variant of the other route's source
                 out = bs.launch(vlib, stream, *args, route=route, **kkw)
                 if f64 is not None:
-                    print(f"{what} {name}: keys equal to the f64-summed "
-                          f"select {cs.share_equal(out[live], f64):.6f}",
+                    print(f"{what} {name} ({route}): keys equal to the "
+                          f"f64-summed select "
+                          f"{cs.share_equal(out[live], f64):.6f}",
                           flush=True)
-                if name == "built":
-                    continue
                 t, turns = cs.in_turns(torch, {
                     "built": lambda: bs.launch(lib, stream, *args,
                                                route=route, **kkw),

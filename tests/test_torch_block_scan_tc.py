@@ -134,7 +134,7 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=200, k_pair=10,
           pack32=True), "int8_pack32"),     # G = s_eff = 200
     (dict(dtype=torch.bfloat16, d=160, p_tile=128, s_eff=640, k_pair=10,
-          pack32=True), "tc_pack32"),       # d > 128: k chunks
+          pack32=True), "tc_wg_pack32"),    # d > 128: k chunks, wgmma
     (dict(dtype=torch.bfloat16, d=100, p_tile=128, s_eff=640, k_pair=10,
           pack32=False), "exact"),          # d % 8 != 0
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=640, k_pair=17,
@@ -156,29 +156,43 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=200, k_pair=10,
           pack32=False), "tc_exact"),       # a ragged last tile
     # the GIST-class bf16 cache (d 1024: 2,048-byte rows in 256-byte k
-    # chunks), exact and pack32 over G = 128 and 512
+    # chunks), exact and pack32 over G = 128 and 512, on the
+    # warp-specialised route (wgmma, TMA ring)
     (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=2048, k_pair=10,
-          pack32=False), "tc_exact"),       # 201,760 B
+          pack32=False), "tc_wg_exact"),    # 194,656 B
     (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=2048, k_pair=16,
-          pack32=False), "tc_exact"),       # 207,904 B
+          pack32=False), "tc_wg_exact"),    # 200,800 B
     (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=640, k_pair=10,
-          pack32=True), "tc_pack32"),       # G = 128
+          pack32=True), "tc_wg_pack32"),    # G = 128
     (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=2048, k_pair=10,
-          pack32=True), "tc_pack32"),       # the records' k = 10, G = 128
+          pack32=True), "tc_wg_pack32"),    # the records' k = 10, G = 128
     (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=2048, k_pair=48,
-          pack32=True), "tc_pack32"),       # G = 512, 217,120 B
+          pack32=True), "tc_wg_pack32"),    # G = 512, 210,016 B
     (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=2048, k_pair=64,
-          pack32=True), "tc_pack32"),       # the records' k = 100: one list
+          pack32=True), "tc_wg_pack32"),    # the records' k = 100: 3 stages
     (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=512, k_pair=64,
-          pack32=True), "tc_pack32"),       # G = 256
+          pack32=True), "tc_wg_pack32"),    # G = 256
     (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=640, k_pair=17,
           pack32=False), "exact"),          # the lists hold 16
     (dict(dtype=torch.bfloat16, d=1032, p_tile=128, s_eff=640, k_pair=10,
           pack32=True), "pack32"),          # a row over 2,048 bytes
     (dict(dtype=torch.bfloat16, d=200, p_tile=128, s_eff=640, k_pair=10,
-          pack32=False), "tc_exact"),       # ends in half a k step
+          pack32=False), "tc_wg_exact"),    # ends in half a k step
     (dict(dtype=torch.int8, d=288, p_tile=128, s_eff=2048, k_pair=64,
           pack32=True), "tc_int8_pack32"),  # one running list at d 288
+    # the warp-specialised route's edges: bf16 rows over 256 bytes only
+    (dict(dtype=torch.bfloat16, d=136, p_tile=128, s_eff=640, k_pair=16,
+          pack32=False), "tc_wg_exact"),    # the narrowest k-chunked row
+    (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=2048, k_pair=10,
+          pack32=False), "tc_exact"),       # A in registers: mma.sync
+    (dict(dtype=torch.bfloat16, d=1024, p_tile=64, s_eff=2048, k_pair=49,
+          pack32=True), "tc_wg_pack32"),    # one 64-prober tile a block
+    (dict(dtype=torch.bfloat16, d=1024, p_tile=120, s_eff=640, k_pair=10,
+          pack32=False), "exact"),          # not whole m tiles
+    (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=200, k_pair=10,
+          pack32=True), "pack32"),          # G = s_eff = 200
+    (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=2048, k_pair=10,
+          pack32=False), "tc_int8_exact"),  # int8 rows stay on mma.sync
 ])
 def test_pick_route(shape, route):
     assert bs.pick_route(**shape) == route
@@ -210,6 +224,24 @@ def test_launch_refuses_a_route_that_does_not_fit():
         bs.launch(None, 0, *args, route="tc_int8_exact", k_pair=10, **kw)
 
 
+@pytest.mark.parametrize("d,dtype,k_pair,match", [
+    (32, torch.bfloat16, 10, "tensor-core"),   # rows of 64 bytes
+    (128, torch.bfloat16, 10, "tensor-core"),  # A in registers: mma.sync
+    (1040, torch.bfloat16, 10, "tensor-core"),  # a row over 2,048 bytes
+    (1024, torch.bfloat16, 17, "tensor-core"),  # the exact lists hold 16
+    (1024, torch.float32, 10, "tensor-core"),   # an f32 cache
+    (1024, torch.int8, 10, "select"),           # an int8 cache
+])
+def test_launch_refuses_the_wg_route(d, dtype, k_pair, match):
+    """launch(route="tc_wg_exact") raises for shapes the warp-specialised
+    kernel does not take, before it touches the library (None here)."""
+    args = bs.random_inputs("cpu", s_eff=256, n_blocks=2, nq=20, d=d,
+                            cap_total=2048, dtype=dtype, seed=d)
+    kw = dict(s_eff=256, euclidean=True, pack32=False, slot_mask=255)
+    with pytest.raises(ValueError, match=match):
+        bs.launch(None, 0, *args, route="tc_wg_exact", k_pair=k_pair, **kw)
+
+
 @pytest.mark.parametrize("d,p_tile,k_pair,pack32,s_eff", [
     (1040, 128, 10, False, 256),  # wider than the 1,024-byte rows
     (136, 128, 10, True, 256),    # rows not of 16-byte pieces
@@ -238,15 +270,16 @@ def test_launch_refuses_the_int8_tensor_core_route(d, p_tile, k_pair, pack32,
 
 
 _HEADER = Path(bs.__file__).resolve().parents[1] / "csrc" / "scan_tc.cuh"
+_WG_HEADER = _HEADER.with_name("wg_layout.cuh")
 
 
-def _header_constants():
-    """The namespace-level `constexpr int` constants of csrc/scan_tc.cuh,
-    evaluated in order (each is a literal or an expression of earlier
-    ones)."""
+def _header_constants(header=_HEADER):
+    """The namespace-level `constexpr int` constants of csrc/scan_tc.cuh
+    (or `header`), evaluated in order (each is a literal or an expression
+    of earlier ones)."""
     env = {}
     for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);",
-                                 _HEADER.read_text(), re.M):
+                                 header.read_text(), re.M):
         env[name] = eval(expr.replace("/", "//"), {}, dict(env))
     return env
 
@@ -279,10 +312,11 @@ def test_smem_mirror_equals_header(pack32, scaled, chunked):
     running lists and with one (the chunked rows' pack32 above k_pair 48)
     (the card test holds the library's sizes to it too); the header's
     constants are the mirror's; tc_route_smem takes one running list where
-    one_list_of does; and the limit admits pack32 k_pair 64 on every
-    route: bf16 d 128 and int8 d 128 and 256 (rows in registers), and the
-    rows in k chunks (int8 d 1024, bf16 d 1024) with one running list,
-    not with two."""
+    one_list_of does, on the routes that chunk (int8 rows over 256 bytes;
+    block_scan_wg.cu takes the wider bf16 rows); and the limit admits
+    pack32 k_pair 64 on every route: bf16 d 128 and int8 d 128 and 256
+    (rows in registers), and the int8 rows in k chunks (d 1024) with one
+    running list, not with two."""
     c = _header_constants()
     assert (c["WARPS"], c["TN"], c["MAX_PT"], c["CHUNK"], c["SLD"],
             c["QUEUE"], c["MAX_PACK_K"], c["MAX_ROW"], c["MAX_CHUNKED_ROW"],
@@ -309,6 +343,8 @@ def test_smem_mirror_equals_header(pack32, scaled, chunked):
                     == _header_smem(c, rb, pack32, k_pair, scaled, chunked,
                                     one_list)
             # the route's rows of rb bytes: chunked iff rb > 256
+            if chunked and not scaled:
+                continue
             assert bs.tc_route_smem(
                 d=rb if scaled else rb // 2, pack32=pack32, k_pair=k_pair,
                 dtype=torch.int8 if scaled else torch.bfloat16) \
@@ -318,9 +354,57 @@ def test_smem_mirror_equals_header(pack32, scaled, chunked):
         fits = {(rb, sc, ch): _header_smem(c, rb, True, 64, sc, ch, ch)
                 <= bs._SMEM_LIMIT for rb, sc, ch in (
                     (256, False, False), (128, True, False),
-                    (256, True, False), (1024, True, True),
-                    (2048, False, True))}
+                    (256, True, False), (1024, True, True))}
         assert all(fits.values()), fits
-        for rb, sc in ((1024, True), (2048, False)):
-            assert _header_smem(c, rb, True, 64, sc, True) > bs._SMEM_LIMIT
-            assert _header_smem(c, rb, True, 48, sc, True) <= bs._SMEM_LIMIT
+        assert _header_smem(c, 1024, True, 64, True, True) > bs._SMEM_LIMIT
+        assert _header_smem(c, 1024, True, 48, True, True) <= bs._SMEM_LIMIT
+
+
+@pytest.mark.parametrize("pack32", [False, True])
+def test_wg_smem_mirror_equals_header(pack32):
+    """ops/block_scan.py:wg_smem_bytes, which pick_route reads without the
+    library, equals csrc/wg_layout.cuh:smem_bytes transcribed over the
+    header's own constants (alignment slack, the instance's ring stages of
+    two [128][128 B] tiles, penalties and two barriers, prober rows, tile
+    flags, the slice lists, then pack32's two running lists or exact's
+    values, staging rows, row bounds and queues) at every k_pair of each
+    new instance: exact k_pair 1-10 (five stages) and 11-16 (four); pack32
+    1-16 (six), 17-48 (four) and 49-64 (three); the header's constants are
+    the mirror's and scan_tc.cuh's, every such shape fits the limit, and
+    one more stage would not at each instance's largest k_pair."""
+    c = _header_constants(_WG_HEADER)
+    t = _header_constants()
+    assert (c["SW_ATOM"], c["STAGE_BYTES"], c["BOX_ROWS"], c["RING_EXACT_10"],
+            c["RING_EXACT"], c["RING_PACK_16"], c["RING_PACK"],
+            c["RING_DEEP"], c["DEEP_K"]) == (
+        bs._WG_SW_ATOM, bs._WG_STAGE_BYTES, bs._WG_BOX_ROWS,
+        bs._WG_RING_EXACT_10, bs._WG_RING_EXACT, bs._WG_RING_PACK_16,
+        bs._WG_RING_PACK, bs._WG_RING_DEEP, bs._WG_DEEP_K)
+    assert (c["MAX_PT"], c["WARPS"], c["SLD"], c["QUEUE"], c["CONSUMERS"]) \
+        == (t["MAX_PT"], t["WARPS"], t["SLD"], t["QUEUE"], t["THREADS"])
+
+    def header(k_pair, ring):
+        kls = k_pair | 1 if pack32 else k_pair
+        return (c["SW_ATOM"] + ring * (2 * c["STAGE_BYTES"]
+                                       + 4 * c["BOX_ROWS"] + 16)
+                + 4 * c["MAX_PT"] + 4 * 8 + 4 * c["WARPS"] * 16 * kls
+                + (2 * 4 * c["MAX_PT"] * kls if pack32 else
+                   4 * c["WARPS"] * 16 * k_pair
+                   + 4 * c["WARPS"] * 16 * (c["SLD"] + 1)
+                   + 8 * c["QUEUE"] * c["CONSUMERS"]))
+
+    if pack32:
+        tops = ((16, c["RING_PACK_16"]), (c["DEEP_K"], c["RING_PACK"]),
+                (64, c["RING_DEEP"]))
+    else:
+        tops = ((10, c["RING_EXACT_10"]), (16, c["RING_EXACT"]))
+    lo = 1
+    for top, ring in tops:
+        for k_pair in range(lo, top + 1):
+            want = header(k_pair, ring)
+            assert bs.wg_smem_bytes(pack32, k_pair) == want, k_pair
+            assert want <= bs._SMEM_LIMIT
+            assert bs.wg_shapes_ok(d=1024, p_tile=128, s_eff=2048,
+                                   k_pair=k_pair, pack32=pack32)
+        assert header(top, ring + 1) > bs._SMEM_LIMIT, (top, ring)
+        lo = top + 1

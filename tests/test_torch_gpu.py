@@ -300,7 +300,7 @@ def test_block_tc_int8_deep_pack32(cuda, d, s_eff, inputs, n_ctas):
 
 
 # the chunked bf16 rows' cases: (pack32, k_pair, s_eff); pack32 k_pair 49-64
-# run the one-list instance (57 over 256 groups, 64 over 512)
+# run the three-stage instance (57 over 256 groups, 64 over 512)
 _CHUNKED_CASES = [(False, 10, 640), (False, 16, 200), (True, 10, 640),
                   (True, 48, 2048), (True, 57, 512), (True, 64, 2048)]
 
@@ -314,23 +314,24 @@ def test_block_tc_chunked_integer_ties_exact(cuda, d, pack32, k_pair, s_eff,
     """bf16 rows wider than 256 bytes, walked in 256-byte k chunks (d 160:
     256 + 64 bytes; 384: three chunks; 1024: eight, the GIST-class cache),
     on integer inputs with runs of equal rows: every sum is exact in any
-    order, so the tensor-core kernel equals the plain version bit for bit
-    on live rows, ties included; pad rows dead; the CUDA-core kernel,
-    uncounted, equal on every row."""
+    order, so the warp-specialised kernel they route to equals the plain
+    version bit for bit on live rows, ties included, pad rows dead; the
+    CUDA-core kernel, uncounted, equal on every row."""
     args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=48, nq=500,
                                    d=d, cap_total=8192, seed=d + k_pair)
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
               pack32=pack32, slot_mask=bs.util.next_pow2(s_eff) - 1)
+    mode = "pack32" if pack32 else "exact"
     got, route = _block_launch(args, kw)
-    assert route == "tc_" + ("pack32" if pack32 else "exact")
+    assert route == "tc_wg_" + mode
     ref = bs.block_scan_ref(*args, **kw)
-    _assert_pads(got, ref, args[1], route, k_pair, pack32)
     live = args[1] >= 0
+    _assert_pads(got, ref, args[1], route, k_pair, pack32)
     assert torch.equal(got[live], ref[live])
     if not pack32:
         keys = ref[live][:, :k_pair]
         assert int((keys[:, 1:] == keys[:, :-1]).sum()) > 0, "no ties"
-    assert torch.equal(_block_uncounted(args, kw, route[3:]), ref)
+    assert torch.equal(_block_uncounted(args, kw, mode), ref)
 
 
 @pytest.mark.gpu
@@ -338,42 +339,169 @@ def test_block_tc_chunked_integer_ties_exact(cuda, d, pack32, k_pair, s_eff,
 @pytest.mark.parametrize("d", [160, 200, 1024])
 def test_block_tc_chunked_matches_plain(cuda, d, pack32, k_pair, s_eff):
     """The chunked bf16 rows on random inputs (d 200 ends in half a k step:
-    the tile bytes past the row are zeroed): live rows to the tolerances of
-    _assert_close_rows, pad rows dead; the CUDA-core kernel, uncounted, on
-    every row."""
+    the bytes past the row are zeros), on the warp-specialised route: live
+    rows to the tolerances of _assert_close_rows, pad rows dead; the
+    CUDA-core kernel, uncounted, on every row."""
     args = bs.random_inputs(cuda, s_eff=s_eff, n_blocks=48, nq=500, d=d,
                             cap_total=8192, seed=d + s_eff + k_pair)
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
               slot_mask=bs.util.next_pow2(s_eff) - 1)
+    mode = "pack32" if pack32 else "exact"
     got, route = _block_launch(args, kw)
-    assert route == "tc_" + ("pack32" if pack32 else "exact")
+    assert route == "tc_wg_" + mode
     ref = bs.block_scan_ref(*args, **kw)
-    _assert_pads(got, ref, args[1], route, k_pair, pack32)
     live = args[1] >= 0
+    _assert_pads(got, ref, args[1], route, k_pair, pack32)
     _assert_close_rows(got[live], ref[live], k_pair, pack32)
-    _assert_close_rows(_block_uncounted(args, kw, route[3:]), ref, k_pair,
+    _assert_close_rows(_block_uncounted(args, kw, mode), ref, k_pair,
                        pack32)
 
 
+# the warp-specialised route's cases (csrc/block_scan_wg.cu): exact KMAX 10
+# and 16, pack32 on four stages (k_pair <= 48, G = 128 and 512) and on
+# three (k_pair 57 over 256 groups, 64 over 512)
+_WG_CASES = [(False, 10, 2048), (False, 16, 200), (True, 10, 2048),
+             (True, 48, 2048), (True, 57, 512), (True, 64, 2048)]
+
+
+def _wg_held(args, kw, n_ctas=None, equal=True):
+    """The warp-specialised kernel (counted through block_scan, or on a grid
+    of n_ctas uncounted) against block_scan_ref: live rows bit for bit
+    (equal) or to _assert_close_rows' tolerances, pad rows dead, the keys
+    equal over two launches."""
+    mode = "pack32" if kw["pack32"] else "exact"
+    if n_ctas is None:
+        got, route = _block_launch(args, kw)
+        assert route == "tc_wg_" + mode
+    else:
+        got = _block_uncounted(args, kw, "tc_wg_" + mode, n_ctas=n_ctas)
+    ref = bs.block_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], "tc_wg_" + mode, kw["k_pair"],
+                 kw["pack32"])
+    live = args[1] >= 0
+    if equal:
+        assert torch.equal(got[live], ref[live])
+    else:
+        _assert_close_rows(got[live], ref[live], kw["k_pair"], kw["pack32"])
+    again = _block_uncounted(args, kw, "tc_wg_" + mode, n_ctas=n_ctas)
+    assert torch.equal(again, got)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("pack32,k_pair,s_eff", [
-    (False, 10, 640), (True, 10, 640), (True, 48, 1024), (True, 64, 2048)])
-@pytest.mark.parametrize("d", [384, 1024])
-def test_block_tc_chunked_persistent_grid(cuda, d, pack32, k_pair, s_eff):
-    """The chunked bf16 rows on a grid of 3 persistent CTAs over 64 blocks
-    (each walks ~21, reusing its query chunks, phase state and, at k_pair
-    64, its one running list and the tiles its merges pass through):
-    integer inputs, live rows bit for bit, pad rows dead."""
+@pytest.mark.parametrize("euclidean", [True, False])
+@pytest.mark.parametrize("pack32,k_pair,s_eff", _WG_CASES)
+@pytest.mark.parametrize("d", [200, 1024])
+def test_block_wg_integer_ties_exact(cuda, d, pack32, k_pair, s_eff,
+                                     euclidean):
+    """The warp-specialised route at the GIST-class width (d 1024: 16 ring
+    stages a tile) and a ragged one (d 200: the last stage holds 8 of its
+    64 elements, one k16 step) on integer inputs with runs of equal rows:
+    live rows bit for bit, ties included; pad rows dead; equal over two
+    launches."""
+    args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=48, nq=500,
+                                   d=d, cap_total=8192, seed=d + k_pair)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
+              pack32=pack32, slot_mask=bs.util.next_pow2(s_eff) - 1)
+    _wg_held(args, kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack32,k_pair,s_eff", _WG_CASES)
+@pytest.mark.parametrize("d", [200, 1024])
+def test_block_wg_matches_plain(cuda, d, pack32, k_pair, s_eff):
+    """The warp-specialised route on random inputs: exact values within
+    1e-3 and addresses and pack32 keys on >= 0.99 of entries
+    (_assert_close_rows), pad rows dead, equal over two launches."""
+    args = bs.random_inputs(cuda, s_eff=s_eff, n_blocks=48, nq=500, d=d,
+                            cap_total=8192, seed=d + s_eff + k_pair)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+              slot_mask=bs.util.next_pow2(s_eff) - 1)
+    _wg_held(args, kw, equal=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack32,k_pair,s_eff", _WG_CASES)
+@pytest.mark.parametrize("d", [200, 1024])
+def test_block_wg_persistent_grid(cuda, d, pack32, k_pair, s_eff):
+    """The warp-specialised route on a grid of 3 persistent CTAs over 64
+    blocks: each CTA walks ~21 blocks through one ring (its stages and
+    barrier phases carried from block to block, blocks of one and of two
+    live 64-prober tiles mixed), integer inputs, live rows bit for bit, pad
+    rows dead, equal over two launches."""
     args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
                                    d=d, cap_total=8192, seed=d + k_pair)
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
-              slot_mask=s_eff - 1)
-    route = "tc_" + ("pack32" if pack32 else "exact")
-    got = _block_uncounted(args, kw, route, n_ctas=3)
-    ref = bs.block_scan_ref(*args, **kw)
-    _assert_pads(got, ref, args[1], route, k_pair, pack32)
-    live = args[1] >= 0
-    assert torch.equal(got[live], ref[live])
+              slot_mask=bs.util.next_pow2(s_eff) - 1)
+    _wg_held(args, kw, n_ctas=3)
+
+
+@pytest.mark.gpu
+def test_block_wg_entry_refuses_and_sizes(cuda):
+    """The warp-specialised entry point: its shared memory equals the
+    mirror (ops/block_scan.py:wg_smem_bytes) at every k_pair, within the
+    limit; it refuses, without launching (cudaErrorInvalidValue, the output
+    keeps its fill), rows of 256 bytes or less (d 128), exact k_pair 17,
+    and a window past the cache; and it holds an SM with one CTA."""
+    from torchpq_tpu_torch import _build
+    lib = _build.library()
+    for pack32 in (0, 1):
+        for k_pair in range(1, 65 if pack32 else 17):
+            assert lib.torchpq_block_scan_wg_smem(1024, pack32, k_pair) \
+                == bs.wg_smem_bytes(pack32, k_pair) <= bs._SMEM_LIMIT
+            assert lib.torchpq_block_scan_wg_occupancy(
+                1024, pack32, k_pair) == 1
+    for d, k_pair, capacity in ((128, 10, 4096), (1024, 17, 4096),
+                                (1024, 10, 256)):
+        args = bs.random_inputs(cuda, s_eff=512, n_blocks=4, nq=50, d=d,
+                                cap_total=4096)
+        out = torch.full((4, 128, 2 * k_pair), 7, dtype=torch.int32,
+                         device=cuda)
+        rc = lib.torchpq_block_scan_wg(
+            *(t.data_ptr() for t in args), out.data_ptr(), 4, 128, d,
+            capacity, 512, k_pair, 1, 0, 511, 0, 2,
+            torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        assert rc == 1  # cudaErrorInvalidValue
+        assert bool((out == 7).all())
+
+
+@pytest.mark.gpu
+def test_block_wg_instance_entry(cuda):
+    """torchpq_block_scan_wg_instance (the one-key timing's entry) runs the
+    instance of a deeper select: at inst_k == k_pair it equals the routed
+    launch; a pack32 launch of one key a row on the deep instance (three
+    stages) equals the one on the routed k_pair 1 instance (six); it
+    refuses, without launching, inst_k below k_pair or past the lists."""
+    from torchpq_tpu_torch import _build
+    lib = _build.library()
+    s_eff, d = 2048, 1024
+    args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=48, nq=500,
+                                   d=d, cap_total=8192, seed=5)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def entry(k_pair, inst_k, fill=None):
+        out = torch.full((48, 128, k_pair), 7, dtype=torch.int32,
+                         device=cuda)
+        rc = lib.torchpq_block_scan_wg_instance(
+            *(t.data_ptr() for t in args), out.data_ptr(), 48, 128, d,
+            args[6].shape[0], s_eff, k_pair, 1, 1, s_eff - 1,
+            bs.n_groups(s_eff, k_pair), 3, stream, inst_k)
+        torch.cuda.synchronize()
+        return rc, out
+
+    kw = dict(s_eff=s_eff, euclidean=True, pack32=True, slot_mask=s_eff - 1)
+    for k_pair in (1, 64):
+        rc, out = entry(k_pair, k_pair)
+        assert rc == 0
+        assert torch.equal(out, _block_uncounted(args, dict(kw, k_pair=k_pair),
+                                                 "tc_wg_pack32"))
+    rc, deep = entry(1, 64)
+    assert rc == 0
+    assert torch.equal(deep, entry(1, 1)[1])
+    for k_pair, inst_k in ((10, 9), (10, 65)):
+        rc, out = entry(k_pair, inst_k)
+        assert rc == 1  # cudaErrorInvalidValue
+        assert bool((out == 7).all())
 
 
 @pytest.mark.gpu
@@ -445,8 +573,9 @@ def test_block_tc_refuses_shapes_past_the_limit(cuda, dtype, d, k_pair):
 def test_tc_smem_matches_mirror(cuda):
     """The library's shared-memory sizes of the three tensor-core scans
     equal ops/block_scan.py's mirror of scan_tc.cuh:body_smem_bytes (which
-    pick_route reads without the library; bf16 rows in k chunks up to d
-    1024, and chunked pack32 above k_pair 48 with one running list), the
+    pick_route reads without the library; bf16 rows of d <= 128, int8 rows
+    in k chunks up to d 1024, and chunked pack32 above k_pair 48 with one
+    running list), the
     codes scan's its own mirror ops/codes_scan.py:tc_smem_bytes (the
     512 * d-byte codebook beside the body; above pack32 k_pair 48 the deep
     instance's ring and one tile); every routed shape within the limit,
@@ -457,7 +586,7 @@ def test_tc_smem_matches_mirror(cuda):
     version on integer inputs."""
     from torchpq_tpu_torch import _build
     lib = _build.library()
-    for d in (32, 40, 64, 128, 136, 160, 200, 384, 960, 1024):
+    for d in (32, 40, 64, 128):
         for pack32 in (0, 1):
             for k_pair in (1, 10, 16, 40, 48, 49, 57, 64):
                 want = bs.tc_route_smem(d=d, pack32=pack32, k_pair=k_pair)
@@ -475,7 +604,7 @@ def test_tc_smem_matches_mirror(cuda):
                 assert lib.torchpq_block_scan_tc_int8_smem(
                     d, pack32, k_pair) == bs.tc_route_smem(
                         d=d, pack32=pack32, k_pair=k_pair, dtype=torch.int8)
-    for dtype, d in ((torch.bfloat16, 1024), (torch.int8, 1024)):
+    for dtype, d in ((torch.bfloat16, 128), (torch.int8, 1024)):
         assert bs.tc_route_smem(d=d, pack32=True, k_pair=64,
                                 dtype=dtype) <= bs._SMEM_LIMIT
     args, scale, q_scale = bs.random_int8_inputs(
@@ -522,7 +651,8 @@ def test_tc_smem_matches_mirror(cuda):
 @pytest.mark.gpu
 def test_block_routes_on_card(cuda):
     """bf16 at d = 128 and 1024 and int8 at d = 128 and 1024 take the
-    tensor-core kernels, pack32 k_pair 64 too at every such width; an f32
+    tensor-core kernels (bf16 at 1024 the warp-specialised one), pack32
+    k_pair 64 too at every such width; an f32
     cache, bf16 exact k_pair 20 or d = 1032, and int8 at d = 1040 or exact
     k_pair 20 take the CUDA-core one; each counts under its own key, and
     asking the tensor-core route for the others raises before anything
@@ -541,8 +671,8 @@ def test_block_routes_on_card(cuda):
             (torch.bfloat16, 128, 64, True, "tc_pack32"),
             (torch.int8, 128, 64, True, "tc_int8_pack32"),
             (torch.int8, 1024, 64, True, "tc_int8_pack32"),
-            (torch.bfloat16, 1024, 10, False, "tc_exact"),
-            (torch.bfloat16, 1024, 64, True, "tc_pack32"),
+            (torch.bfloat16, 1024, 10, False, "tc_wg_exact"),
+            (torch.bfloat16, 1024, 64, True, "tc_wg_pack32"),
             (torch.bfloat16, 1032, 10, True, "pack32")):
         extra = {}
         if dtype == torch.int8:

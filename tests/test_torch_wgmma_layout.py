@@ -1,0 +1,227 @@
+"""The index math of the warp-specialised block scan (csrc/wg_layout.cuh),
+compiled with the host's g++ and checked without a card.
+
+The header's functions are plain constexpr C++ of integers, so a small
+harness built here exercises the very code the kernel (csrc/block_scan_wg.cu)
+compiles: the 128-byte swizzle is a bijection of a [128][128 B] tile that
+keeps each row in its line and spreads the 8 rows of an atom over 8 bank
+groups; the m64nN accumulator map is a bijection of (thread, register) onto
+the tile and, per warp, PTX ISA's m16n8 C fragment layout; the wgmma
+descriptor's fields decode back; the TMA boxes of a block's tiles and
+stages cover its window [s_eff rows][d elements] once each, in the phase
+order of the deep pack32 groups; the k16 steps cover d; and the header's
+shared-memory formula equals ops/block_scan.py's mirror."""
+
+import shutil
+import subprocess
+
+import pytest
+
+from torchpq_tpu_torch.ops import block_scan as bs
+
+from pathlib import Path
+
+_CSRC = Path(bs.__file__).resolve().parents[1] / "csrc"
+
+_HARNESS = r"""
+#include <cstdio>
+#include <set>
+#include <utility>
+#include <vector>
+
+#include "wg_layout.cuh"
+
+using namespace tpq::wg;
+
+static int fails = 0;
+#define CHECK(name, cond)                                   \
+  do {                                                      \
+    if (!(cond)) {                                          \
+      if (fails++ < 20) std::printf("%s FAIL %s\n", name, #cond); \
+    }                                                       \
+  } while (0)
+
+// PTX ISA, mma.m16n8k16 C fragment: lane l, c[i] at row l / 4 + 8 (i / 2),
+// column 2 (l % 4) + i % 2
+static int m16n8_row(int lane, int i) { return lane / 4 + 8 * (i / 2); }
+static int m16n8_col(int lane, int i) { return 2 * (lane % 4) + i % 2; }
+
+static void swizzle() {
+  std::vector<int> seen(STAGE_BYTES, 0);
+  for (int r = 0; r < BOX_ROWS; ++r) {
+    for (int kb = 0; kb < SW_ROW; ++kb) {
+      const int o = sw128_offset(r, kb);
+      CHECK("swizzle", o >= 0 && o < STAGE_BYTES);
+      if (o < 0 || o >= STAGE_BYTES) continue;
+      seen[o] += 1;
+      CHECK("swizzle", o / SW_ROW == r);    // the row keeps its line
+      CHECK("swizzle", o % 16 == kb % 16);  // 16-byte pieces stay whole
+    }
+  }
+  for (int o = 0; o < STAGE_BYTES; ++o) CHECK("swizzle", seen[o] == 1);
+  // a piece column of the 8 rows of an atom: 8 distinct 16-byte groups of
+  // the 128-byte line (no bank conflict among them)
+  for (int a = 0; a < BOX_ROWS / 8; ++a) {
+    for (int c = 0; c < 8; ++c) {
+      std::set<int> groups;
+      for (int r = 8 * a; r < 8 * a + 8; ++r) {
+        groups.insert(sw128_offset(r, 16 * c) % SW_ROW / 16);
+      }
+      CHECK("swizzle", groups.size() == 8);
+    }
+  }
+  std::printf("swizzle %s\n", fails ? "FAIL" : "OK");
+}
+
+static void accumulator() {
+  const int before = fails;
+  for (int n = 8; n <= 256; n *= 2) {  // m64nN: N / 2 registers a thread
+    std::vector<int> seen(64 * n, 0);
+    for (int t = 0; t < 128; ++t) {
+      for (int r = 0; r < n / 2; ++r) {
+        const int row = acc_row(t, r), col = acc_col(t, r);
+        CHECK("accumulator", row >= 0 && row < 64 && col >= 0 && col < n);
+        if (row < 0 || row >= 64 || col < 0 || col >= n) continue;
+        seen[row * n + col] += 1;
+        // warp t / 32 holds rows 16 w .. 16 w + 15 as the m16n8 fragments
+        // of its n8 tiles r / 4
+        CHECK("accumulator", row == 16 * (t / 32) + m16n8_row(t % 32, r % 4));
+        CHECK("accumulator", col == 8 * (r / 4) + m16n8_col(t % 32, r % 4));
+      }
+    }
+    for (int i = 0; i < 64 * n; ++i) CHECK("accumulator", seen[i] == 1);
+  }
+  std::printf("accumulator %s\n", fails > before ? "FAIL" : "OK");
+}
+
+static void descriptor() {
+  const int before = fails;
+  for (uint32_t addr = 0; addr < (1u << 18); addr += 16 * 37) {
+    for (uint32_t lbo : {16u, 128u, 1024u, 8192u}) {
+      for (uint32_t sbo : {16u, 1024u, 2048u, 65520u}) {
+        for (uint32_t layout = 0; layout < 4; ++layout) {
+          const uint64_t d = make_desc(addr, lbo, sbo, layout);
+          CHECK("descriptor", desc_start(d) == addr);
+          CHECK("descriptor", desc_lbo(d) == lbo);
+          CHECK("descriptor", desc_sbo(d) == sbo);
+          CHECK("descriptor", desc_layout(d) == layout);
+          CHECK("descriptor", desc_base_offset(d) == 0);
+          CHECK("descriptor", ((d >> 14) & 3) == 0 && ((d >> 30) & 3) == 0);
+          CHECK("descriptor", ((d >> 46) & 7) == 0 && ((d >> 52) & 1023) == 0);
+        }
+      }
+    }
+  }
+  // the k16 steps of a K-major swizzled tile: 32 bytes apart inside the
+  // 128-byte row, one atom of 8 rows per stride, 128-byte swizzle
+  for (uint32_t tile = 0; tile < (1u << 18); tile += SW_ATOM) {
+    for (int ks = 0; ks < BOX_K / KSTEP; ++ks) {
+      const uint64_t d = kmajor_desc(tile, ks);
+      CHECK("descriptor", desc_start(d) == tile + 32 * ks);
+      CHECK("descriptor", desc_sbo(d) == SW_ATOM);
+      CHECK("descriptor", desc_layout(d) == LAYOUT_SW128);
+      CHECK("descriptor", desc_base_offset(d) == 0);
+    }
+  }
+  std::printf("descriptor %s\n", fails > before ? "FAIL" : "OK");
+}
+
+static void boxes() {
+  const int before = fails;
+  const int ds[] = {136, 160, 200, 384, 960, 1024};
+  // (s_eff, G): the records' k = 10 (G = 128) and deep k = 100 (G = 512),
+  // a G = 256 window and ragged ones
+  const int shapes[][2] = {{2048, 128}, {2048, 512}, {512, 256},
+                           {640, 128}, {200, 128}, {4096, 512}};
+  for (int d : ds) {
+    const int nst = stages_of(d);
+    int covered = 0;
+    for (int st = 0; st < nst; ++st) covered += KSTEP * ksteps_of(d, st);
+    CHECK("boxes", nst * BOX_K >= d && (nst - 1) * BOX_K < d);
+    CHECK("boxes", covered >= d && covered < d + KSTEP);
+    for (int st = 0; st + 1 < nst; ++st) CHECK("boxes", ksteps_of(d, st) == 4);
+    for (const auto& sh : shapes) {
+      const int s_eff = sh[0], G = sh[1];
+      const bool phased = G > BOX_ROWS;
+      const int n_tiles = (s_eff + BOX_ROWS - 1) / BOX_ROWS;
+      const int tpp = phased ? s_eff / G : n_tiles;
+      const int stride = phased ? G : BOX_ROWS;
+      const int s0 = 7 * BOX_ROWS + 16;  // a block's first cache row
+      // every (cache row, k element) of the window once
+      std::vector<int> seen((size_t)n_tiles * BOX_ROWS * nst * BOX_K, 0);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int ts = tile_start(it, tpp, stride);
+        CHECK("boxes", ts % BOX_ROWS == 0 && ts < n_tiles * BOX_ROWS);
+        if (phased) CHECK("boxes", ts % G == (it / tpp) * BOX_ROWS);
+        for (int st = 0; st < nst; ++st) {
+          for (int r = 0; r < BOX_ROWS; ++r) {
+            for (int e = 0; e < BOX_K; ++e) {
+              const int y = box_y(s0, ts) + r - s0, x = box_x(st) + e;
+              if (y < 0 || y >= n_tiles * BOX_ROWS || x >= nst * BOX_K) {
+                CHECK("boxes", false);
+                continue;
+              }
+              seen[(size_t)y * nst * BOX_K + x] += 1;
+            }
+          }
+        }
+      }
+      for (size_t i = 0; i < seen.size(); ++i) CHECK("boxes", seen[i] == 1);
+    }
+  }
+  std::printf("boxes %s\n", fails > before ? "FAIL" : "OK");
+}
+
+int main() {
+  swizzle();
+  accumulator();
+  descriptor();
+  boxes();
+  for (int pack32 = 0; pack32 < 2; ++pack32) {
+    for (int k_pair = 1; k_pair <= 64; ++k_pair) {
+      if (!pack32 && k_pair > 16) break;
+      std::printf("smem %d %d %zu\n", pack32, k_pair,
+                  smem_bytes(pack32, k_pair));
+    }
+  }
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    """The harness built with g++ against csrc/ and run once: its lines."""
+    gxx = shutil.which("g++")
+    assert gxx, "g++ is needed to compile csrc/wg_layout.cuh"
+    work = tmp_path_factory.mktemp("wg_layout")
+    src = work / "harness.cpp"
+    src.write_text(_HARNESS)
+    exe = work / "harness"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-Wall", "-Werror",
+                    f"-I{_CSRC}", str(src), "-o", str(exe)], check=True,
+                   capture_output=True, text=True)
+    res = subprocess.run([str(exe)], check=True, capture_output=True,
+                         text=True, timeout=120)
+    return res.stdout.splitlines()
+
+
+@pytest.mark.parametrize("check", ["swizzle", "accumulator", "descriptor",
+                                   "boxes"])
+def test_layout_map(harness, check):
+    """Each map of the header holds its properties (see the module
+    docstring); the harness prints the first failing condition."""
+    lines = [x for x in harness if x.split()[0] == check]
+    assert lines and lines[-1] == f"{check} OK", "\n".join(lines)
+
+
+def test_smem_formula_matches_mirror(harness):
+    """csrc/wg_layout.cuh:smem_bytes equals ops/block_scan.py:wg_smem_bytes
+    at every exact k_pair 1-16 and pack32 k_pair 1-64, and every such shape
+    fits the limit (three ring stages above pack32 k_pair 48)."""
+    rows = [x.split() for x in harness if x.startswith("smem ")]
+    assert len(rows) == 16 + 64
+    for _, pack32, k_pair, nbytes in rows:
+        pack32, k_pair, nbytes = int(pack32), int(k_pair), int(nbytes)
+        assert bs.wg_smem_bytes(pack32, k_pair) == nbytes, (pack32, k_pair)
+        assert nbytes <= bs._SMEM_LIMIT

@@ -1,6 +1,6 @@
 """Port parity of a bf16 index whose cache rows are wider than 256 bytes:
 d = 320, lane-padded to a 384-wide cache (768-byte rows, which the card's
-tensor-core block scan walks in three 256-byte k chunks), at the GIST
+warp-specialised block scan walks in three 256-byte k chunks), at the GIST
 records' settings scaled down: spill 8 cells at the initial capacity
 2 x n / n_cells, scan_group 4, approximate top-k, k = 10 and k = 100
 (pack32 k_pair 64 over 512 strided groups). The same numpy inputs go
@@ -67,8 +67,8 @@ def _pair():
 def test_wide_layout_and_routes():
     """The port's cache is 384 wide, bf16, at the JAX package's capacity,
     with the same stored layout; the card would take its scans on the
-    tensor cores in k chunks (pick_route), exact and pack32 at k_pair 10
-    and 64."""
+    warp-specialised tensor-core route in k chunks (pick_route: wgmma over
+    a TMA ring), exact and pack32 at k_pair 10 and 64."""
     jidx, port, _ = _pair()
     dec = port.aux("decoded")
     assert tuple(dec.shape[1:]) == (384,) and dec.dtype == torch.bfloat16
@@ -79,9 +79,9 @@ def test_wide_layout_and_routes():
                                       to_np(getattr(jidx, name)),
                                       err_msg=name)
     s_eff = GROUP * port.max_cell_capacity
-    for k_pair, pack32, route in ((10, False, "tc_exact"),
-                                  (10, True, "tc_pack32"),
-                                  (64, True, "tc_pack32")):
+    for k_pair, pack32, route in ((10, False, "tc_wg_exact"),
+                                  (10, True, "tc_wg_pack32"),
+                                  (64, True, "tc_wg_pack32")):
         assert bs.pick_route(dtype=torch.bfloat16, d=384, p_tile=128,
                              s_eff=s_eff, k_pair=k_pair,
                              pack32=pack32) == route

@@ -2,7 +2,8 @@
 
 All `csrc/*.cu` files compile into one shared library with a plain C
 interface, for Hopper (`sm_90a`), at first use: one nvcc per source, all
-started together, then one link. The library goes to
+started together, then one link (with libcuda, for the TMA tensor maps of
+`csrc/block_scan_wg.cu`). The library goes to
 `build/torchpq_tpu_torch/` beside the package, named by a hash of the
 sources, the headers they share (`csrc/*.cuh`) and the flags, so an edited
 file rebuilds and an unchanged tree loads at once. Nothing but the sources
@@ -23,6 +24,9 @@ HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "torchpq_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the link: libcuda, for block_scan_wg.cu's TMA tensor maps
+# (cuTensorMapEncodeTiled); nvcc links its stub, the loader the installed one
+LINK_FLAGS = ["-lcuda"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +45,10 @@ _SIGNATURES = {
     "torchpq_block_scan_tc_int8": ([_P] * 10 + [_I] * 10 + [_P], _I),
     "torchpq_block_scan_tc_int8_smem": ([_I] * 3, _L),
     "torchpq_block_scan_tc_int8_occupancy": ([_I] * 3, _I),
+    "torchpq_block_scan_wg": ([_P] * 8 + [_I] * 11 + [_P], _I),
+    "torchpq_block_scan_wg_instance": ([_P] * 8 + [_I] * 11 + [_P, _I], _I),
+    "torchpq_block_scan_wg_smem": ([_I] * 3, _L),
+    "torchpq_block_scan_wg_occupancy": ([_I] * 3, _I),
     "torchpq_codes_scan": ([_P] * 9 + [_I] * 12 + [_P], _I),
     "torchpq_codes_scan_smem": ([_I] * 4, _L),
     "torchpq_codes_scan_tc": ([_P] * 9 + [_I] * 12 + [_P], _I),
@@ -89,7 +97,7 @@ def build():
     Returns (path, seconds spent compiling, compiler log); the log is kept
     beside the library, so a process that finds it built reads the same
     ptxas report."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -114,8 +122,8 @@ def build():
         raise RuntimeError("nvcc failed:\n" + "\n".join(
             f"{name} ({rc}):\n{text}" for name, rc, text in failed))
     tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-                         capture_output=True, text=True)
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs),
+                          *LINK_FLAGS], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     for obj in objs:
         obj.unlink(missing_ok=True)

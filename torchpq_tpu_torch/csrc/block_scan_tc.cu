@@ -1,8 +1,9 @@
 // IVF block scan over the bf16 decoded cache on Hopper's tensor cores
 // (sm_90a): the counterpart of torchpq_tpu/ops/pallas_scan.py:
-// scan_blocks_pallas in bf16 mode for rows of d <= 1024, d % 8 == 0
-// (block_scan_tc_int8.cu serves the int8 mode; block_scan.cu, on the CUDA
-// cores, f32 caches and the other shapes). It
+// scan_blocks_pallas in bf16 mode for rows of d <= 128, d % 8 == 0
+// (block_scan_wg.cu serves the wider bf16 rows, 128 < d <= 1024;
+// block_scan_tc_int8.cu the int8 mode; block_scan.cu, on the CUDA cores,
+// f32 caches and the other shapes). It
 // computes what block_scan.cu computes, for block b, prober p and window
 // slot j < s_eff (column j of the window):
 //
@@ -29,9 +30,7 @@
 // where the scoring is too short to cover it, not to bytes or products.
 // block_scan.cu spent its time on what this design drops: an f32 FMA chain
 // per prober (every window element feeds 128 FMAs) and pad probers scored
-// in full (15% of rows are live at n_probe 8, 56% at n_probe 32). At the
-// GIST-class cache (d = 1024, 2,048-byte rows) a block's products and
-// window bytes are 8x those at d = 128.
+// in full (15% of rows are live at n_probe 8, 56% at n_probe 32).
 //
 // Design: scan_tc.cuh's body (persistent CTAs of 8 warps, live 16-prober
 // tiles only, mma.sync over tiles of 128 window columns, warps split by
@@ -41,32 +40,17 @@
 // bytes per cp.async (tc_ptx.cuh); column c is slot c. The copy of the
 // next stage is in flight while the warps score this one (the two stage
 // buffers alternate), and each thread waits for its own copies after
-// scoring, before the stage's barrier.
-// - d <= 128 (narrow): the A fragments of a warp's m tile in registers,
-//   tiles of whole rows of round32(2d) + 16 bytes; pack32 above k_pair 16
-//   (the deep-k scans, up to 64) in a kernel instance of its own whose
-//   phase ends sort the group maxima (scan_tc.cuh:sort_slice) instead of
-//   extracting them pass by pass. Budget at d = 128: shared memory 2 x
-//   34,816 B tiles + 2,048 B penalties and slots + 544 B prober rows and
-//   tile flags + the slice lists + exact: 37,376 B staging rows and row
-//   bounds, 12,288 B queues; pack32: running lists: 132,128 B exact and
-//   89,120 B pack32 at k_pair 10, 172,064 B pack32 at k_pair 64.
-// - 128 < d <= 1024 (chunked, the GIST-class cache): each tile in k chunks
-//   of 256 bytes (128 elements), a ring stage per (tile, chunk) holding the
-//   window chunk and the block's query rows' chunk (2 x (34,816 + 34,816)
-//   B), A by ldmatrix per k step, the f32 accumulators of a warp's columns
-//   kept across a tile's chunks (64 registers), the score factor * acc -
-//   pen at the last chunk. Budget: 141,856 B of tiles, query chunks,
-//   penalties, slots, prober rows and tile flags, then exact: 49,664 B of
-//   staging rows, row bounds and queues and 1,024 B per list entry
-//   (201,760 B at k_pair 10, 207,904 B at 16); pack32: 1,536 B per entry
-//   of the lists' row stride (158,752 B at 10, 217,120 B at 48, pass by
-//   pass); pack32 k_pair 49-64 (the GIST-class plans at k = 100) in an
-//   instance of its own with one running list (scan_tc.cuh's ONE_LIST: the
-//   merge staged through the query chunk just scored), pass by pass as
-//   well: 1,024 B per entry, 208,416 B at 64.
-// One CTA of 8 warps per SM in both, for its registers (the body's, few of
-// the source's).
+// scoring, before the stage's barrier. The A fragments of a warp's m tile
+// stay in registers; tiles are of whole rows of round32(2d) + 16 bytes;
+// pack32 above k_pair 16 (the deep-k scans, up to 64) runs in a kernel
+// instance of its own whose phase ends sort the group maxima
+// (scan_tc.cuh:sort_slice) instead of extracting them pass by pass.
+// Budget at d = 128: shared memory 2 x 34,816 B tiles + 2,048 B penalties
+// and slots + 544 B prober rows and tile flags + the slice lists + exact:
+// 37,376 B staging rows and row bounds, 12,288 B queues; pack32: running
+// lists: 132,128 B exact and 89,120 B pack32 at k_pair 10, 172,064 B
+// pack32 at k_pair 64. One CTA of 8 warps per SM, for its registers (the
+// body's, few of the source's).
 
 #include <cstdint>
 
@@ -77,7 +61,7 @@ namespace {
 using namespace tpq;
 using namespace tpq::tc;
 
-template <bool PACK, int KMAX, bool CHUNKED, bool ONE_LIST>
+template <bool PACK, int KMAX>
 __global__ void __launch_bounds__(THREADS, 1) block_scan_tc_kernel(
     const __nv_bfloat16* __restrict__ qtable,
     const int* __restrict__ probers, const int* __restrict__ start_c,
@@ -88,46 +72,31 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_tc_kernel(
     int slot_mask, int n_groups) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   RowsSource<false> src;
-  src.init(decoded, penalty, nullptr, 2 * d, row_ld(2 * d, CHUNKED));
-  scan_blocks<Bf16, PACK, KMAX, CHUNKED, ONE_LIST>(
+  src.init(decoded, penalty, nullptr, 2 * d, row_ld(2 * d, false));
+  scan_blocks<Bf16, PACK, KMAX, false, false>(
       src, smem_raw, reinterpret_cast<const unsigned char*>(qtable), nullptr,
       probers, start_c, off, capb, out, n_blocks, p_tile, 2 * d, s_eff,
       k_pair, factor, slot_mask, n_groups);
 }
 
 size_t smem_of(int d, int pack32, int k_pair) {
-  return body_smem_bytes(2 * d, pack32, k_pair, false, 2 * d > MAX_ROW,
-                         false, one_list_of(2 * d, pack32, k_pair));
+  return body_smem_bytes(2 * d, pack32, k_pair, false, false);
 }
 
-template <bool PACK, int KMAX, bool CHUNKED, bool ONE_LIST>
+template <bool PACK, int KMAX>
 int occupancy_of(int d, int k_pair) {
-  return occupancy(block_scan_tc_kernel<PACK, KMAX, CHUNKED, ONE_LIST>,
+  return occupancy(block_scan_tc_kernel<PACK, KMAX>,
                    smem_of(d, PACK, k_pair));
-}
-
-template <bool CHUNKED>
-int occupancy_mode(int d, int pack32, int k_pair) {
-  if (pack32 && !CHUNKED && k_pair > PASS_K) {
-    return occupancy_of<true, MAX_PACK_K, false, false>(d, k_pair);
-  }
-  if (pack32 && CHUNKED && k_pair > CHUNKED_PACK_K) {
-    return occupancy_of<true, PASS_K, true, true>(d, k_pair);
-  }
-  if (pack32) return occupancy_of<true, PASS_K, CHUNKED, false>(d, k_pair);
-  return k_pair <= 10 ? occupancy_of<false, 10, CHUNKED, false>(d, k_pair)
-                      : occupancy_of<false, 16, CHUNKED, false>(d, k_pair);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes). qtable [nq, d] bf16 and decoded
-// [capacity, d] bf16, both 16-byte aligned, d % 8 == 0 and d <= 1024
-// (chunked above 128); probers [n_blocks, p_tile] int32 (p_tile % 16 == 0,
+// [capacity, d] bf16, both 16-byte aligned, d % 8 == 0 and d <= 128;
+// probers [n_blocks, p_tile] int32 (p_tile % 16 == 0,
 // p_tile <= 128), start_c / off / capb [n_blocks] int32, penalty
 // [capacity] f32, out int32; exact: k_pair <= 16; pack32: k_pair <= 64
-// (172,064 B of shared memory at d = 128; chunked rows: 217,120 B at 48,
-// one running list above it, 208,416 B at 64) and n_groups % 8 == 0,
+// (172,064 B of shared memory at d = 128) and n_groups % 8 == 0,
 // either n_groups == s_eff <= 128, or n_groups a multiple of 128 that
 // divides s_eff. n_ctas: the persistent grid (at most n_blocks). Returns 0
 // or the CUDA error code of an attribute call or the launch
@@ -141,7 +110,7 @@ extern "C" int torchpq_block_scan_tc(
     int s_eff, int k_pair, int euclidean, int pack32, int slot_mask,
     int n_groups, int n_ctas, void* stream) {
   const size_t smem = smem_of(d, pack32, k_pair);
-  if (!shape_ok(n_blocks, n_ctas, p_tile, 2 * d, MAX_CHUNKED_ROW_BF16, s_eff,
+  if (!shape_ok(n_blocks, n_ctas, p_tile, 2 * d, MAX_ROW, s_eff,
                 k_pair, pack32, n_groups) ||
       smem > SMEM_LIMIT || reinterpret_cast<uintptr_t>(qtable) % 16 ||
       reinterpret_cast<uintptr_t>(decoded) % 16) {
@@ -156,20 +125,12 @@ extern "C" int torchpq_block_scan_tc(
 #define TPQ_LAUNCH(...)                                                   \
   return launch_kernel(block_scan_tc_kernel<__VA_ARGS__>, dim3(n_ctas),   \
                        THREADS, smem, st, TPQ_ARGS)
-  if (2 * d > MAX_ROW) {  // chunked rows
-    if (pack32 && k_pair > CHUNKED_PACK_K) {  // one running list
-      TPQ_LAUNCH(true, PASS_K, true, true);
-    }
-    if (pack32) TPQ_LAUNCH(true, PASS_K, true, false);
-    if (k_pair <= 10) TPQ_LAUNCH(false, 10, true, false);
-    TPQ_LAUNCH(false, 16, true, false);
-  }
   if (pack32 && k_pair > PASS_K) {  // the deep selects: sorted
-    TPQ_LAUNCH(true, MAX_PACK_K, false, false);
+    TPQ_LAUNCH(true, MAX_PACK_K);
   }
-  if (pack32) TPQ_LAUNCH(true, PASS_K, false, false);
-  if (k_pair <= 10) TPQ_LAUNCH(false, 10, false, false);
-  TPQ_LAUNCH(false, 16, false, false);
+  if (pack32) TPQ_LAUNCH(true, PASS_K);
+  if (k_pair <= 10) TPQ_LAUNCH(false, 10);
+  TPQ_LAUNCH(false, 16);
 #undef TPQ_LAUNCH
 #undef TPQ_ARGS
 }
@@ -184,6 +145,10 @@ extern "C" long long torchpq_block_scan_tc_smem(int d, int pack32,
 // minus the CUDA error code.
 extern "C" int torchpq_block_scan_tc_occupancy(int d, int pack32,
                                                int k_pair) {
-  return 2 * d > MAX_ROW ? occupancy_mode<true>(d, pack32, k_pair)
-                         : occupancy_mode<false>(d, pack32, k_pair);
+  if (pack32 && k_pair > PASS_K) {
+    return occupancy_of<true, MAX_PACK_K>(d, k_pair);
+  }
+  if (pack32) return occupancy_of<true, PASS_K>(d, k_pair);
+  return k_pair <= 10 ? occupancy_of<false, 10>(d, k_pair)
+                      : occupancy_of<false, 16>(d, k_pair);
 }

@@ -1,0 +1,808 @@
+// IVF block scan over the bf16 decoded cache in k chunks (128 < d <= 1024,
+// d % 8 == 0: the GIST-class cache, 1,024 wide), redesigned for Hopper
+// (sm_90a): warpgroup products (wgmma), window tiles brought by the tensor
+// memory accelerator (TMA) into a ring of shared-memory stages tracked by
+// mbarriers, one producer warpgroup and two consumer warpgroups. The
+// counterpart of torchpq_tpu/ops/pallas_scan.py:scan_blocks_pallas in bf16
+// mode at these widths, as block_scan_tc.cu's k-chunked instances are (the
+// route this one replaces: ops/block_scan.py:pick_route). It computes what
+// they compute, for block b, prober p and window slot j < s_eff:
+//
+//   score = factor * <q_p, y_{start_c[b] + j}> - pen_j,   factor = 2 or 1
+//   pen_j = penalty[start_c[b] + j] + (off[b] <= j < off[b] + cap[b] ? 0 : BIG)
+//
+// with the same numerics (each 256-byte k chunk, 128 elements, summed from
+// zero on the tensor cores, then added into the running f32 sum: the
+// tensor cores' f32 accumulation truncates, and one chain of 64 k steps
+// lost keys at d = 1024) and the same selects in block_scan.cu's
+// wire format, through scan_tc.cuh's functions (exact: value descending,
+// slot ascending, k_pair <= 16; pack32: one maximal key per strided group
+// of slots, then the k_pair largest, k_pair <= 64, pass by pass). Rows whose
+// prober is -1 are written dead (exact: sortable(-inf) keys and -1
+// addresses; pack32: INT_MIN) and never output.
+//
+// What bounds it on an H100: at the GIST bf16 record's arguments (s_eff
+// 2048, d 1024; pack32 at n_probe 32: 2,677 blocks, 276,019 live probers)
+// the window bytes the blocks cover, ~4.3 GB (~1.3 ms at 3.35 TB/s), and
+// about as long the products of the live probers, ~1.2e12 operations
+// (~1.2 ms at 989 TFLOP/s; the pad rows of live 64-prober tiles add 11%
+// there, 31% at n_probe 8, whose 1,032 blocks are 57% live).
+// block_scan_tc.cu's chunked instances took 4.8-16.7 ms there: serial
+// mma.sync chains fed by ldmatrix (the window tile read from shared memory
+// once per 16-prober tile), one CTA of 8 warps per SM, and per-thread
+// cp.async copies of the window chunk and of the block's query chunk into a
+// two-stage ring by the threads that score.
+//
+// Design:
+// - One persistent CTA per SM (the wrapper sizes the grid), 384 threads:
+//   warpgroup 0 the producer (setmaxnreg down to PRODUCER_REGS), warpgroups
+//   1 and 2 the consumers (up to CONSUMER_REGS), in one if / else that
+//   never reconverges. The CTA walks the blocks b = blockIdx.x + i *
+//   gridDim.x; producer and consumers read the block's probers themselves
+//   and skip a block with no live prober alike.
+// - A ring of NST stages (as many as the lists of the instance's largest
+//   k_pair leave room for: exact k_pair <= 10 5, exact 4; pack32 k_pair
+//   <= 16 6, <= 48 4, deeper 3; a ring of 3 took 8-27% longer than one of
+//   4 on the GIST record's scans), each 64 k elements (128 bytes of a row, one
+//   128-byte swizzle span) of one window tile: the window's 128 rows
+//   [128][128 B] by one TMA box {64, 128} from a 2-D tensor map over the
+//   cache [capacity][d] (rows past the cache and elements past d filled
+//   with zeros), and the block's query rows [128][128 B], a gather by prober
+//   index that a tiled box cannot do, by cp.async from the producer's 128
+//   threads (warp w: rows 32w .. 32w + 31, four whole 128-byte lines a
+//   copy; zeros for -1 rows and past d; only the rows of live 64-prober
+//   tiles), both in wgmma's 128-byte swizzled K-major
+//   layout (wg_layout.cuh). The stage of a tile's last 64 k also carries
+//   its columns' penalties. A stage's full barrier completes on 128
+//   arrivals, 128 arrivals of the producer threads' landed copies and the
+//   TMA's bytes; its empty barrier on the 8 consumer warps' arrivals. A
+//   numeric chunk is two stages; the consumers release both after the
+//   chunk's products (and, at a tile's last chunk, its scores) are done.
+// - The query rows are copied anew with every window tile: the block's 128
+//   rows of 2,048 bytes (256 KB) do not fit beside the ring, and k chunks
+//   outside the tile loop would need every tile's sums at once. They come
+//   from L2 (a block's rows are read 16 times within microseconds), and
+//   no consumer thread spends an instruction on them.
+// - Products: wgmma.m64n64k16 (bf16 x bf16 -> f32), A = a 64-prober tile
+//   of the query stage, B = 64 window rows [slot][k] as they lie in the
+//   cache, both from shared memory by descriptor. A block's probers are 1
+//   or 2 live 64-prober tiles (a tile with any prober >= 0): with 2, each
+//   consumer warpgroup takes one tile over both 64-column halves of every
+//   window tile (S = 1 slice per 16-prober tile); with 1, both take that
+//   tile, one column half each (S = 2 slices). Warp w of a warpgroup holds
+//   rows 16w .. 16w + 15 of the tile in the layout of scan_tc.cuh's m16n8
+//   accumulators (wg_layout.cuh: acc_row / acc_col), so the pack32 maxima,
+//   the exact staging and the phase-end selects are scan_tc.cuh's, with
+//   the warps of a 16-prober tile's slices at s * 4 + tile.
+//   A chunk: its k steps (8, fewer where d ends inside the chunk) into a
+//   zeroed accumulator (the first wgmma's scale-d false, so the compiler
+//   keeps no old value alive), one commit and wait, then the f32 add into
+//   the tile's running sums (64 registers for two halves, reset to -0 at
+//   each tile). With 2 live tiles a warpgroup's chunk is one chain of
+//   m64n128k16 over both halves (64 accumulator registers; two chains of
+//   m64n64k16 with a wait between took 2-4% longer), with 1 one chain of
+//   m64n64k16 over its half. At the records'
+//   arguments a 64-prober tile with few live probers still costs its 64
+//   rows of products, but no bytes: the pad rows' query copies are zeros
+//   from no address, and the window is read once per warpgroup whatever
+//   the live count.
+// - Registers: sums 64, the chunk's accumulators 64 (dead between chunks),
+//   the pack32 group maxima 64 or the exact lists 32, under CONSUMER_REGS
+//   (232; the producer's 40 hold no address across its stage loop, which
+//   is worked out anew each stage); ptxas must report no spill and no
+//   stack frame (chip_smoke's CHECKED_KERNELS). At 224 / 56 the pack32
+//   instances spilled 28 B; the deep phase ends sorted (sort_slice)
+//   instead of extracted pass by pass spilled 84-352 B at 232.
+// - Shared memory (wg_layout.cuh: smem_bytes): 1,024 bytes of alignment
+//   slack, a stage's 32,768 B of tiles + 512 B of penalties + 16 B of
+//   barriers, prober rows and tile flags, then the lists of scan_tc.cuh:
+//   227,952 B exact at k_pair 10 (5 stages), 200,800 B at 16 (4); pack32
+//   227,456 B at 16 (6), 210,016 B at 48 (4), 201,296 B at 64 (3).
+
+#include <cstdint>
+
+#include <cuda.h>
+
+#include "scan_tc.cuh"
+#include "wg_ptx.cuh"
+
+namespace {
+
+using namespace tpq::wg;
+namespace tc = tpq::tc;
+using tpq::big_penalty;
+using tpq::neg_inf;
+using tpq::smem_u32;
+using tpq::sortable;
+
+static_assert(WARPS == tc::WARPS && CONSUMERS == tc::THREADS &&
+                  MAX_PT == tc::MAX_PT && SLD == tc::SLD &&
+                  QUEUE == tc::QUEUE && BOX_ROWS == tc::TN,
+              "scan_tc.cuh's selects index the consumers' shared arrays");
+
+constexpr int THREADS = 384;        // producer warpgroup + two consumers
+constexpr int PRODUCER_REGS = 40;   // setmaxnreg: 128 x 40 + 256 x 232
+constexpr int CONSUMER_REGS = 232;  // <= 65,536
+constexpr int BAR_CONSUMERS = 1;    // named barrier of the consumers
+constexpr int BAR_PRODUCER = 2;     // and of the producer warpgroup
+constexpr int FULL_ARRIVALS = 2 * 128;  // a producer thread's arrival, and
+                                        // its landed copies'
+constexpr int HALF = STAGE_BYTES / 2;   // 64 rows of a stage's operand
+
+template <bool PACK, int KMAX, int NST>
+__global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
+    const __grid_constant__ CUtensorMap tmap,
+    const __nv_bfloat16* __restrict__ qtable,
+    const int* __restrict__ probers, const int* __restrict__ start_c,
+    const int* __restrict__ off, const int* __restrict__ capb,
+    const float* __restrict__ penalty, int* __restrict__ out, int n_blocks,
+    int p_tile, int d, int s_eff, int k_pair, float factor, int slot_mask,
+    int n_groups) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((SW_ATOM - (smem_u32(smem_raw) & (SW_ATOM - 1))) &
+                  (SW_ATOM - 1));
+  unsigned char* win = base;                      // [NST][128][128 B]
+  unsigned char* aq = win + NST * STAGE_BYTES;    // [NST][128][128 B]
+  float* pen_s =
+      reinterpret_cast<float*>(aq + NST * STAGE_BYTES);  // [NST][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(pen_s + NST * BOX_ROWS);
+  uint64_t* empty = full + NST;
+  int* prow_s = reinterpret_cast<int*>(empty + NST);  // [MAX_PT]
+  int* live_s = prow_s + MAX_PT;  // consumers' [4], producer's [4]
+  int* keys_s = live_s + 8;       // slice lists [WARPS][16][kls]
+
+  const int t = threadIdx.x;
+  // the warpgroup, uniform in the compiler's eyes (so that the wgmma
+  // instructions sit in no path it must treat as divergent)
+  const int wgi = __shfl_sync(0xffffffffu, t / 128, 0);
+  const int kls = tc::list_ld(k_pair, PACK);
+  const int rb = 2 * d;                      // row bytes
+  const int nst = stages_of(d);              // ring stages per tile
+  const int nch = (nst + 1) / 2;             // 128-element k chunks
+  // tile order as scan_tc.cuh's: deep pack32 groups (G > 128) phase by
+  // phase, a phase ending every tpp tiles
+  const bool phased = PACK && n_groups > BOX_ROWS;
+  const int n_tiles = (s_eff + BOX_ROWS - 1) / BOX_ROWS;
+  const int tpp = phased ? s_eff / n_groups : n_tiles;
+  const int stride = phased ? n_groups : BOX_ROWS;
+
+  if (t == 0) {
+    for (int i = 0; i < NST; ++i) {
+      mbar_init(full + i, FULL_ARRIVALS);
+      mbar_init(empty + i, WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    // ---- producer: the window by TMA, the query rows by cp.async ----
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int lane = t % 32;
+    const int warp = t / 32;
+    int g = 0;  // stages filled
+    for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+      const int pr = t < p_tile ? probers[(size_t)b * p_tile + t] : -1;
+      const unsigned live = __ballot_sync(0xffffffffu, pr >= 0);
+      named_barrier(BAR_PRODUCER, 128);  // the last block's flags are read
+      if (lane == 0) live_s[4 + warp] = live != 0u;
+      named_barrier(BAR_PRODUCER, 128);
+      const bool l0 = live_s[4] | live_s[5];
+      const bool l1 = live_s[6] | live_s[7];
+      if (!l0 && !l1) continue;
+      // this warp's rows (32 warp .. + 31) lie in a live 64-row tile
+      const bool copy = warp < 2 ? l0 : l1;
+      const int s0 = start_c[b];
+      const int o0 = off[b];
+      const int o1 = o0 + capb[b];
+      for (int it = 0; it < n_tiles; ++it) {
+        const int ts = tile_start(it, tpp, stride);
+        const int nrow = min(BOX_ROWS, s_eff - ts);
+        for (int st = 0; st < nst; ++st, ++g) {
+          const int slot = g % NST;
+          uint64_t* fb = full + slot;
+          mbar_wait(empty + slot, ((g / NST) & 1) ^ 1);
+          if (t == 0) {
+            mbar_expect_tx(fb, STAGE_BYTES);
+            tma_load_2d(win + slot * STAGE_BYTES, &tmap, fb, box_x(st),
+                        box_y(s0, ts));
+          }
+          if (copy) {
+            // the warp's 32 rows, 4 a copy: lane l takes 16-byte piece
+            // l % 8 of row 32 warp + 4 i + l / 8 (whole 128-byte lines).
+            // The prober and the thread index pass through an opaque move,
+            // so the addresses are worked out anew each stage rather than
+            // kept across the loop in registers the producer lacks.
+            int pv, tv;
+            asm volatile("mov.b32 %0, %1;" : "=r"(pv) : "r"(pr));
+            asm volatile("mov.b32 %0, %1;" : "=r"(tv) : "r"(t));
+            unsigned char* dst = aq + slot * STAGE_BYTES;
+            const int c = tv % 8;
+            const int kb = st * SW_ROW + 16 * c;  // the piece's row byte
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              const int rr = 4 * i + (tv % 32) / 8;  // of the warp's 32
+              const int q = __shfl_sync(0xffffffffu, pv, rr);
+              tpq::cp_async16(
+                  dst + sw128_offset((tv / 32) * 32 + rr, 16 * c),
+                  reinterpret_cast<const unsigned char*>(qtable) +
+                      (size_t)max(q, 0) * rb + kb,
+                  q >= 0 && kb < rb ? 16 : 0);
+            }
+          }
+          if (st == nst - 1) {  // the tile's penalties
+            float p = 0.0f;
+            if (t < nrow) {
+              const int j = ts + t;
+              p = __ldg(penalty + s0 + j) +
+                  ((j >= o0 && j < o1) ? 0.0f : big_penalty());
+            }
+            pen_s[slot * BOX_ROWS + t] = p;
+          }
+          mbar_arrive_cp_async(fb);
+          mbar_arrive(fb);
+        }
+      }
+    }
+    cp_async_wait_all();
+  } else {
+    // ---- consumers: products, scores and selects ----
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int ct = t - 128;
+    const int lane = ct % 32;
+    const int cw = ct / 32;  // consumer warp
+    const int h = wgi - 1;   // consumer warpgroup
+    const int wq = cw % 4;   // warp of the warpgroup: rows 16 wq .. + 15
+    const int width = PACK ? k_pair : 2 * k_pair;  // output ints per row
+    // pack32 phase ends: sorted (KMAX > PASS_K) or pass by pass
+    constexpr bool SORT = PACK && KMAX > tc::PASS_K;
+    float* vals_s = reinterpret_cast<float*>(keys_s + WARPS * 16 * kls);
+    int* run_s = keys_s + WARPS * 16 * kls;  // pack32 [2][MAX_PT][kls]
+    float* stage_s = vals_s + WARPS * 16 * kls;  // exact [WARPS][16][SLD]
+    volatile float* rowb_s = stage_s + WARPS * 16 * SLD;  // [WARPS][16]
+    float* qv_s = stage_s + WARPS * 16 * (SLD + 1);  // [QUEUE][CONSUMERS]
+    int* qc_s = reinterpret_cast<int*>(qv_s + QUEUE * CONSUMERS);
+    const uint32_t win_u = smem_u32(win);
+    const uint32_t aq_u = smem_u32(aq);
+    float sum[2][8][4];  // a tile's sums over its chunks, per column half
+    float part[8][4];     // the chunk's, from zero
+    float part_hi[8][4];  // the second half's (two live 64-prober tiles)
+    int g = 0;  // stages consumed
+    for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+      const int pr =
+          ct < MAX_PT && ct < p_tile ? probers[(size_t)b * p_tile + ct] : -1;
+      named_barrier(BAR_CONSUMERS, CONSUMERS);  // the last block is done
+                                                // with the shared arrays
+      if (ct < MAX_PT) {
+        prow_s[ct] = pr;
+        if (!PACK) rowb_s[ct] = neg_inf();
+      }
+      if (ct < p_tile && pr < 0) {  // pad rows: dead, never scored
+        int* o = out + ((size_t)b * p_tile + ct) * width;
+        for (int i = 0; i < k_pair; ++i) {
+          if (PACK) {
+            o[i] = INT_MIN;
+          } else {
+            o[i] = sortable(neg_inf());
+            o[k_pair + i] = -1;
+          }
+        }
+      }
+      const unsigned live = __ballot_sync(0xffffffffu, pr >= 0);
+      if (lane == 0 && cw < 4) live_s[cw] = live != 0u;
+      named_barrier(BAR_CONSUMERS, CONSUMERS);
+      const bool l0 = live_s[0] | live_s[1];
+      const bool l1 = live_s[2] | live_s[3];
+      const int nm64 = (int)l0 + (int)l1;  // live 64-prober tiles
+      if (nm64 == 0) continue;
+      const int S = nm64 == 2 ? 1 : 2;      // slices per 16-prober tile
+      const int m64 = nm64 == 2 ? h : (l0 ? 0 : 1);  // this warpgroup's
+      const int base64 = nm64 == 2 ? 0 : 64 * m64;   // the scored rows'
+                                                     // first
+      const int nm = 4 * nm64;               // scored 16-prober tiles
+      const int lt = nm64 == 2 ? cw : wq;    // this warp's, among them
+      const int nhalf = nm64 == 2 ? 2 : 1;   // column halves it takes
+      const int s0 = start_c[b];
+      const uint32_t a_tile = aq_u + m64 * HALF;
+
+      // select state: exact lists (lane l keeps row l / 2 of the warp's 16
+      // over its half of each 64 columns) and the bound, or pack32 maxima
+      float vals[PACK ? 1 : KMAX];
+      int cols[PACK ? 1 : KMAX];
+      const bool dead_row = prow_s[64 * m64 + 16 * wq + lane / 2] < 0;
+      float bound = dead_row ? -neg_inf() : neg_inf();
+      int mx[2][tc::NGRP];
+      tc::ExactQueue queue;
+      queue.v = qv_s + ct;
+      queue.c = qc_s + ct;
+      queue.n = 0;
+      if constexpr (PACK) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+          for (int j = 0; j < tc::NGRP; ++j) mx[rr][j] = INT_MIN;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j) {
+          vals[j] = neg_inf();
+          cols[j] = INT_MAX;
+        }
+      }
+      int phase = 0;
+
+      for (int it = 0; it < n_tiles; ++it) {
+        const int ts = tile_start(it, tpp, stride);
+        const int nrow = min(BOX_ROWS, s_eff - ts);
+        // the tile's sums start at -0, the identity of f32 addition (-0 +
+        // x is x, -0 and +0 included): the first chunk's add is its
+        // assignment, and no sum stays live from the last tile
+#pragma unroll
+        for (int lh = 0; lh < 2; ++lh) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) sum[lh][j][i] = -0.0f;
+          }
+        }
+        for (int kc = 0; kc < nch; ++kc) {
+          const bool last_k = kc + 1 == nch;
+          const int nsc = min(2, nst - 2 * kc);  // the chunk's stages
+          const int sa = g % NST;
+          const int sb = (g + 1) % NST;
+          mbar_wait(full + sa, (g / NST) & 1);
+          if (nsc > 1) mbar_wait(full + sb, ((g + 1) / NST) & 1);
+          fence_proxy_async();  // the query copies, for wgmma's reads
+          const int ka = ksteps_of(d, 2 * kc);
+          const int kb = nsc > 1 ? ksteps_of(d, 2 * kc + 1) : 0;
+          const float* pen = pen_s + ((g + nsc - 1) % NST) * BOX_ROWS;
+          if (nm64 == 2) {  // both halves in one chain
+            wgmma_fence();
+            wgmma_m64n128k16_zero(part, part_hi,
+                                  kmajor_desc(a_tile + sa * STAGE_BYTES, 0),
+                                  kmajor_desc(win_u + sa * STAGE_BYTES, 0));
+#pragma unroll
+            for (int ks = 1; ks < 4; ++ks) {
+              if (ks < ka) {
+                wgmma_m64n128k16(
+                    part, part_hi, kmajor_desc(a_tile + sa * STAGE_BYTES, ks),
+                    kmajor_desc(win_u + sa * STAGE_BYTES, ks));
+              }
+            }
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks) {
+              if (ks < kb) {
+                wgmma_m64n128k16(
+                    part, part_hi, kmajor_desc(a_tile + sb * STAGE_BYTES, ks),
+                    kmajor_desc(win_u + sb * STAGE_BYTES, ks));
+              }
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_acc(part);
+            fence_acc(part_hi);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                sum[0][j][i] += part[j][i];
+                sum[1][j][i] += part_hi[j][i];
+              }
+            }
+          } else if (64 * h < nrow) {  // one: this warpgroup's half
+            wgmma_fence();
+            wgmma_m64n64k16_zero(
+                part, kmajor_desc(a_tile + sa * STAGE_BYTES, 0),
+                kmajor_desc(win_u + sa * STAGE_BYTES + h * HALF, 0));
+#pragma unroll
+            for (int ks = 1; ks < 4; ++ks) {
+              if (ks < ka) {
+                wgmma_m64n64k16(
+                    part, kmajor_desc(a_tile + sa * STAGE_BYTES, ks),
+                    kmajor_desc(win_u + sa * STAGE_BYTES + h * HALF, ks));
+              }
+            }
+#pragma unroll
+            for (int ks = 0; ks < 4; ++ks) {
+              if (ks < kb) {
+                wgmma_m64n64k16(
+                    part, kmajor_desc(a_tile + sb * STAGE_BYTES, ks),
+                    kmajor_desc(win_u + sb * STAGE_BYTES + h * HALF, ks));
+              }
+            }
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_acc(part);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) sum[0][j][i] += part[j][i];
+            }
+          }
+          // at a tile's last chunk, the scores (after the chunk's products:
+          // no lane-dependent code between two of its wgmmas)
+#pragma unroll
+          for (int lh = 0; lh < 2; ++lh) {
+            const int hv = nm64 == 2 ? lh : h;
+            if (last_k && lh < nhalf && 64 * hv < nrow) {
+              {
+                // the scores of this lane's columns of the half, ascending
+                if constexpr (PACK) {
+#pragma unroll
+                  for (int nt = 0; nt < 8; ++nt) {
+                    const int c8 = 64 * hv + 8 * nt;  // the n8 tile's
+                    const int cl = c8 + tpq::frag_c_col(lane, 0);
+                    if (c8 < nrow) {
+                      const float2 p =
+                          *reinterpret_cast<const float2*>(pen + cl);
+#pragma unroll
+                      for (int i = 0; i < 2; ++i) {
+                        if (cl + i < nrow) {
+#pragma unroll
+                          for (int rr = 0; rr < 2; ++rr) {
+                            const float sc = tc::Bf16::score(
+                                sum[lh][nt][2 * rr + i], factor, 0.0f,
+                                i ? p.y : p.x);
+                            const int key =
+                                (sortable(sc) & ~slot_mask) | (ts + cl + i);
+                            int& best = mx[rr][16 * lh + 2 * nt + i];
+                            best = max(best, key);
+                          }
+                        }
+                      }
+                    }
+                  }
+                } else {
+                  // exact: the half's scores through the warp's staging
+                  // rows [16][SLD]; lane l then takes row l / 2 over its
+                  // 32 of the half's columns, in ascending order
+                  float* st = stage_s + cw * 16 * SLD;
+#pragma unroll
+                  for (int nt = 0; nt < 8; ++nt) {
+                    const int c8 = 64 * hv + 8 * nt;
+                    const int cl = c8 + tpq::frag_c_col(lane, 0);
+                    if (c8 < nrow) {
+                      const float2 p =
+                          *reinterpret_cast<const float2*>(pen + cl);
+#pragma unroll
+                      for (int rr = 0; rr < 2; ++rr) {
+                        *reinterpret_cast<float2*>(
+                            st + tpq::frag_c_row(lane, 2 * rr) * SLD +
+                            8 * nt + tpq::frag_c_col(lane, 0)) =
+                            make_float2(
+                                tc::Bf16::score(sum[lh][nt][2 * rr], factor,
+                                                0.0f, p.x),
+                                tc::Bf16::score(sum[lh][nt][2 * rr + 1],
+                                                factor, 0.0f, p.y));
+                      }
+                    }
+                  }
+                  __syncwarp();
+                  constexpr int hw = 32;  // a lane's columns of the half
+                  const int c0 = 64 * hv + (lane % 2) * hw;
+                  const float* sr = st + (lane / 2) * SLD + (lane % 2) * hw;
+                  // the block's first half: the lists are empty, so its
+                  // first 16 columns are sorted into them at once
+                  int j0 = 0;
+                  if (it == 0 && lh == 0) {
+                    tc::first_fill<16, KMAX>(vals, cols, sr, c0, ts + c0,
+                                             nrow);
+                    j0 = 16;
+                    const float kth = tc::kth_of(vals, k_pair);
+                    bound = fmaxf(
+                        bound,
+                        fmaxf(kth, __shfl_xor_sync(0xffffffffu, kth, 1)));
+                  }
+#pragma unroll 1
+                  for (int j = j0; j < hw; j += 4) {
+                    if (__any_sync(0xffffffffu, queue.n > QUEUE - 4)) {
+                      queue.flush(vals, cols);
+                    }
+                    const float4 s4 =
+                        *reinterpret_cast<const float4*>(sr + j);
+#pragma unroll
+                    for (int u = 0; u < 4; ++u) {
+                      const float sc = u == 0   ? s4.x
+                                       : u == 1 ? s4.y
+                                       : u == 2 ? s4.z
+                                                : s4.w;
+                      if (c0 + j + u < nrow && sc >= bound &&
+                          sc > vals[KMAX - 1]) {
+                        queue.push(sc, ts + c0 + j + u);
+                      }
+                    }
+                  }
+                  __syncwarp();  // the staging rows are free again
+                  // a bound on the row's k_pair-th value, shared with the
+                  // row's other slice (scan_tc.cuh)
+                  float kth = tc::kth_of(vals, k_pair);
+                  kth = fmaxf(kth, __shfl_xor_sync(0xffffffffu, kth, 1));
+                  if (lane % 2 == 0) rowb_s[cw * 16 + lane / 2] = kth;
+                  bound = kth;
+#pragma unroll
+                  for (int sl = 0; sl < 2; ++sl) {
+                    if (sl < S) {
+                      bound = fmaxf(bound,
+                                    rowb_s[(sl * 4 + lt) * 16 + lane / 2]);
+                    }
+                  }
+                  if (dead_row) bound = -neg_inf();
+                }
+              }
+            }
+          }
+          __syncwarp();
+          if (lane == 0) {  // the chunk's stages are free again
+            mbar_arrive(empty + sa);
+            if (nsc > 1) mbar_arrive(empty + sb);
+          }
+          g += nsc;
+          if constexpr (PACK) {
+            if (last_k && (it + 1) % tpp == 0) {
+              // phase end: each slice's k_pair largest keys per row, by the
+              // quad's shuffles, into its shared list; then one thread per
+              // live row merges its slices' lists and the running list
+              int* ks_w = keys_s + cw * 16 * kls;
+              if (S == 1) {
+                tc::select_slice<tc::NGRP, SORT>(mx, ks_w, lane, k_pair,
+                                                 kls);
+              } else {
+                tc::select_slice<tc::NGRP / 2, SORT>(mx, ks_w, lane,
+                                                     k_pair, kls);
+              }
+              named_barrier(BAR_CONSUMERS, CONSUMERS);
+              if (ct < 16 * nm && prow_s[base64 + ct] >= 0) {
+                const int* cur = run_s + ((phase & 1) * MAX_PT + ct) * kls;
+                int* nxt = run_s + (((phase + 1) & 1) * MAX_PT + ct) * kls;
+                const int* sl = keys_s + ct * kls;  // slice s: + 64 s rows
+                int h0 = 0, h1 = 0, hc = 0;
+                for (int i = 0; i < k_pair; ++i) {
+                  int best = phase > 0 ? cur[hc] : INT_MIN;
+                  int bs = 2;
+                  const int v0 = h0 < k_pair ? sl[h0] : INT_MIN;
+                  if (v0 > best) {
+                    best = v0;
+                    bs = 0;
+                  }
+                  if (S == 2) {
+                    const int v1 = h1 < k_pair ? sl[64 * kls + h1] : INT_MIN;
+                    if (v1 > best) {
+                      best = v1;
+                      bs = 1;
+                    }
+                  }
+                  h0 += bs == 0;
+                  h1 += bs == 1;
+                  hc += bs == 2;
+                  nxt[i] = best;
+                }
+              }
+              named_barrier(BAR_CONSUMERS, CONSUMERS);
+              ++phase;
+            }
+          }
+        }
+      }
+
+      // the live rows' outputs
+      if constexpr (PACK) {
+        // warp w writes rows w and w + 8 of each scored 16-prober tile, its
+        // lanes on consecutive keys
+        for (int l2 = 0; l2 < nm; ++l2) {
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int rw = cw + WARPS * hh;
+            const int p = base64 + 16 * l2 + rw;
+            if (prow_s[p] >= 0) {
+              const int* fin =
+                  run_s + ((phase & 1) * MAX_PT + 16 * l2 + rw) * kls;
+              int* o = out + ((size_t)b * p_tile + p) * k_pair;
+              for (int i = lane; i < k_pair; i += 32) o[i] = fin[i];
+            }
+          }
+        }
+      } else {
+        // each slice's k_pair best per row: the better head of the row's
+        // two lanes, then its owner pops it
+        queue.flush(vals, cols);
+        for (int i = 0; i < k_pair; ++i) {
+          float v = vals[0];
+          int c = cols[0];
+          const float ov = __shfl_xor_sync(0xffffffffu, v, 1);
+          const int oc = __shfl_xor_sync(0xffffffffu, c, 1);
+          const bool mine = !tc::before(ov, oc, v, c);
+          if (mine) {
+#pragma unroll
+            for (int j = 0; j < KMAX - 1; ++j) {
+              vals[j] = vals[j + 1];
+              cols[j] = cols[j + 1];
+            }
+            vals[KMAX - 1] = neg_inf();
+            cols[KMAX - 1] = INT_MAX;
+          } else {
+            v = ov;
+            c = oc;
+          }
+          if (lane % 2 == 0) {
+            const int e = (cw * 16 + lane / 2) * k_pair + i;
+            vals_s[e] = v;
+            keys_s[e] = c;
+          }
+        }
+        named_barrier(BAR_CONSUMERS, CONSUMERS);
+        // one thread per live row: merge its slices' lists
+        if (ct < 16 * nm) {
+          const int p = base64 + ct;
+          if (prow_s[p] >= 0) {
+            int* o = out + ((size_t)b * p_tile + p) * 2 * k_pair;
+            const float dead = -big_penalty() / 2.0f;
+            int h0 = 0, h1 = 0;
+            for (int i = 0; i < k_pair; ++i) {
+              float v = neg_inf();
+              int c = INT_MAX;
+              int bs = 0;
+              if (h0 < k_pair) {
+                const int e = ct * k_pair + h0;
+                v = vals_s[e];
+                c = keys_s[e];
+              }
+              if (S == 2 && h1 < k_pair) {
+                const int e = (ct + 64) * k_pair + h1;
+                if (tc::before(vals_s[e], keys_s[e], v, c)) {
+                  v = vals_s[e];
+                  c = keys_s[e];
+                  bs = 1;
+                }
+              }
+              h0 += bs == 0;
+              h1 += bs == 1;
+              const bool alive = v > dead;
+              o[i] = sortable(alive ? v : neg_inf());
+              o[k_pair + i] = alive ? s0 + c : -1;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+size_t smem_of(int pack32, int k_pair) { return smem_bytes(pack32, k_pair); }
+
+template <bool PACK, int KMAX, int NST>
+int occupancy_of(int pack32, int k_pair) {
+  auto kern = block_scan_wg_kernel<PACK, KMAX, NST>;
+  const size_t smem = smem_of(pack32, k_pair);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  }
+  int n = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, THREADS,
+                                                        smem);
+  }
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// The 2-D tensor map of the cache [capacity][d] bf16 for boxes {64, 128}
+// in the 128-byte swizzle, elements past the tensor filled with zeros.
+bool encode_map(CUtensorMap* map, const void* decoded, int d, int capacity) {
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)capacity};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BOX_K, (cuuint32_t)BOX_ROWS};
+  const cuuint32_t elem[2] = {1, 1};
+  return cuTensorMapEncodeTiled(
+             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(decoded), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The launch of the instance that serves the select of depth inst_k >=
+// k_pair (its kernel and ring stages), writing k_pair keys or entries a
+// row; the shared memory of that ring and of k_pair's lists.
+int launch_wg(const void* qtable, const int* probers, const int* start_c,
+              const int* off, const int* capb, const float* penalty,
+              const void* decoded, int* out, int n_blocks, int p_tile, int d,
+              int capacity, int s_eff, int k_pair, int euclidean, int pack32,
+              int slot_mask, int n_groups, int n_ctas, void* stream,
+              int inst_k) {
+  const size_t smem = smem_bytes(pack32, k_pair, ring_of(pack32, inst_k));
+  if (!tc::shape_ok(n_blocks, n_ctas, p_tile, 2 * d,
+                    tc::MAX_CHUNKED_ROW_BF16, s_eff, k_pair, pack32,
+                    n_groups) ||
+      inst_k < k_pair ||
+      inst_k > (pack32 ? tc::MAX_PACK_K : tc::MAX_EXACT_K) ||
+      2 * d <= tc::MAX_ROW || capacity < s_eff || smem > tc::SMEM_LIMIT ||
+      reinterpret_cast<uintptr_t>(qtable) % 16 ||
+      reinterpret_cast<uintptr_t>(decoded) % 16) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap map;
+  if (!encode_map(&map, decoded, d, capacity)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const float factor = euclidean ? 2.0f : 1.0f;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TPQ_LAUNCH(...)                                                      \
+  return tpq::launch_kernel(                                                 \
+      block_scan_wg_kernel<__VA_ARGS__>, dim3(n_ctas), THREADS, smem, st,   \
+      map, static_cast<const __nv_bfloat16*>(qtable), probers, start_c, off, \
+      capb, penalty, out, n_blocks, p_tile, d, s_eff, k_pair, factor,        \
+      slot_mask, n_groups)
+  if (pack32 && inst_k > DEEP_K) TPQ_LAUNCH(true, tc::PASS_K, RING_DEEP);
+  if (pack32 && inst_k > 16) TPQ_LAUNCH(true, tc::PASS_K, RING_PACK);
+  if (pack32) TPQ_LAUNCH(true, tc::PASS_K, RING_PACK_16);
+  if (inst_k <= 10) TPQ_LAUNCH(false, 10, RING_EXACT_10);
+  TPQ_LAUNCH(false, 16, RING_EXACT);
+#undef TPQ_LAUNCH
+}
+
+}  // namespace
+
+// Plain C entry point (bound with ctypes). qtable [nq, d] bf16 and decoded
+// [capacity, d] bf16, both 16-byte aligned, 128 < d <= 1024, d % 8 == 0;
+// probers [n_blocks, p_tile] int32 (p_tile % 16 == 0, p_tile <= 128),
+// start_c / off / capb [n_blocks] int32 (start_c[b] + s_eff <= capacity),
+// penalty [capacity] f32, out int32; exact: k_pair <= 16; pack32: k_pair
+// <= 64 and n_groups % 8 == 0, either n_groups == s_eff <= 128, or n_groups
+// a multiple of 128 that divides s_eff. n_ctas: the persistent grid (at
+// most n_blocks). Returns 0 or the CUDA error code of the tensor map, an
+// attribute call or the launch (cudaErrorInvalidValue, without launching,
+// for other shapes). Launches on `stream`, does not synchronize and
+// allocates nothing.
+extern "C" int torchpq_block_scan_wg(
+    const void* qtable, const int* probers, const int* start_c,
+    const int* off, const int* capb, const float* penalty,
+    const void* decoded, int* out, int n_blocks, int p_tile, int d,
+    int capacity, int s_eff, int k_pair, int euclidean, int pack32,
+    int slot_mask, int n_groups, int n_ctas, void* stream) {
+  return launch_wg(qtable, probers, start_c, off, capb, penalty, decoded, out,
+                   n_blocks, p_tile, d, capacity, s_eff, k_pair, euclidean,
+                   pack32, slot_mask, n_groups, n_ctas, stream, k_pair);
+}
+
+// torchpq_block_scan_wg on the instance of a deeper select of the same
+// kind, inst_k >= k_pair (its ring stages): a launch that writes fewer keys
+// than the instance serves, which measures what the select's depth costs
+// apart from the ring.
+extern "C" int torchpq_block_scan_wg_instance(
+    const void* qtable, const int* probers, const int* start_c,
+    const int* off, const int* capb, const float* penalty,
+    const void* decoded, int* out, int n_blocks, int p_tile, int d,
+    int capacity, int s_eff, int k_pair, int euclidean, int pack32,
+    int slot_mask, int n_groups, int n_ctas, void* stream, int inst_k) {
+  return launch_wg(qtable, probers, start_c, off, capb, penalty, decoded, out,
+                   n_blocks, p_tile, d, capacity, s_eff, k_pair, euclidean,
+                   pack32, slot_mask, n_groups, n_ctas, stream, inst_k);
+}
+
+// Dynamic shared memory of one CTA (d does not enter: the ring's stages
+// are 64 elements of any row).
+extern "C" long long torchpq_block_scan_wg_smem(int, int pack32,
+                                               int k_pair) {
+  return (long long)smem_of(pack32, k_pair);
+}
+
+// CTAs one SM holds at once (registers and shared memory permitting), or
+// minus the CUDA error code.
+extern "C" int torchpq_block_scan_wg_occupancy(int, int pack32, int k_pair) {
+  if (pack32 && k_pair > DEEP_K) {
+    return occupancy_of<true, tc::PASS_K, RING_DEEP>(pack32, k_pair);
+  }
+  if (pack32 && k_pair > 16) {
+    return occupancy_of<true, tc::PASS_K, RING_PACK>(pack32, k_pair);
+  }
+  if (pack32) {
+    return occupancy_of<true, tc::PASS_K, RING_PACK_16>(pack32, k_pair);
+  }
+  return k_pair <= 10
+             ? occupancy_of<false, 10, RING_EXACT_10>(pack32, k_pair)
+             : occupancy_of<false, 16, RING_EXACT>(pack32, k_pair);
+}

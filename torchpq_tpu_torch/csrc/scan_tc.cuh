@@ -39,8 +39,9 @@
 //   with rows of round32(rb) + 16 bytes (an odd multiple of 16 bytes, so
 //   the 8 row addresses of an ldmatrix phase fall on distinct banks; the K
 //   padding is zero), which is B as it lies (tc_ptx.cuh).
-// - Chunked rows (CHUNKED; rb > 256: int8 rows up to 1,024 bytes and bf16
-//   rows up to 2,048, the GIST-class caches 1,024 wide): a row's A
+// - Chunked rows (CHUNKED; rb > 256: int8 rows up to 1,024 bytes, the
+//   GIST-class int8 cache 1,024 wide; bf16 rows over 256 bytes are
+//   block_scan_wg.cu's, on wgmma): a row's A
 //   fragments would take 128 registers or more and a tile of whole rows
 //   128 KB or more, so the body walks each tile in k chunks of 256 bytes, a
 //   ring stage per (tile, chunk): the window chunk [TN][272] and the
@@ -48,21 +49,19 @@
 //   read by ldmatrix per k step. A warp's accumulators (up to 64 columns x
 //   2 groups, 64 registers, s32 or f32) persist across a tile's chunks, and
 //   the select runs at its last chunk; integer sums are exact in any order,
-//   so the chunking changes no int8 bit; bf16 chunks are summed from zero
-//   apart and added in f32 (the tensor cores' accumulation truncates, see
-//   APART below). Where the last chunk ends in half a k step, its tile
-//   bytes past the row are zeroed once (bf16: a stale NaN pattern there
-//   would survive the zeros of A).
+//   so the chunking changes no int8 bit (only an operand whose sums are,
+//   Op::EXACT, is chunked here). Where the last chunk ends in half a k
+//   step, A is zero past the row.
 // - One running list (ONE_LIST; chunked pack32 above k_pair 48, the deep
 //   selects of the GIST-class caches, whose two tiles, two query chunks
-//   and two running lists at k_pair 64 would take 241,696 B (bf16) or
-//   242,720 B (int8) against the limit): a phase end's merge writes each
+//   and two running lists at k_pair 64 would take 242,720 B against the
+//   limit): a phase end's merge writes each
 //   row's new list into the query rows' chunk just scored (free from the
 //   select's barrier to the stage's closing one; 33,280 B of lists fit its
 //   34,816, and the next copy into it rewrites every byte the products
 //   read, where a window tile's bytes past a ragged row would keep list
 //   words) and copies it back over the running list, thread by thread, so
-//   a second list is not kept: 208,416 B and 209,440 B at k_pair 64. Its
+//   a second list is not kept: 209,440 B at k_pair 64. Its
 //   phase ends extract pass by pass: with the sort (sort_slice) beside the
 //   64 persistent accumulators ptxas spilled 120-256 B at 255 registers.
 // - Two ring stages alternate: the source's fetch() starts the next stage
@@ -150,7 +149,8 @@ constexpr int MAX_ROW = 256;           // widest row (bytes) A registers hold
 constexpr int KSTEPS = MAX_ROW / 32;   // 32-byte k steps of the widest row
 constexpr int CHUNK = 256;             // k chunk (bytes) of chunked rows
 constexpr int MAX_CHUNKED_ROW = 1024;  // widest chunked int8 row (bytes)
-constexpr int MAX_CHUNKED_ROW_BF16 = 2048;  // and bf16 row: d <= 1024
+constexpr int MAX_CHUNKED_ROW_BF16 = 2048;  // widest bf16 row block_scan_wg.cu
+                                            // walks in chunks: d <= 1024
 constexpr int CHUNKED_PACK_K = 48;     // chunked pack32 k_pair with two
                                        // running lists (above: ONE_LIST)
 constexpr int MAX_PT = 16 * WARPS;     // probers per block: up to 8 m tiles
@@ -262,8 +262,8 @@ __host__ __device__ inline bool one_list_of(int rb, int pack32, int k_pair) {
 // also refuse a shared memory above SMEM_LIMIT: the pack32 lists take
 // 1,536 bytes per entry of their row stride (1,024 with one running list),
 // so k_pair 64 fits the rows sources (bf16 d <= 128: 172,064 B; int8 d <=
-// 256: 173,088 B; chunked rows with one running list: 208,416 B bf16,
-// 209,440 B int8) and the codes one with its codebook in one tile (d <=
+// 256: 173,088 B; chunked int8 rows with one running list: 209,440 B) and
+// the codes one with its codebook in one tile (d <=
 // 128: at most 219,168 B).
 __host__ inline bool shape_ok(int n_blocks, int n_ctas, int p_tile, int rb,
                               int max_rb, int s_eff, int k_pair, int pack32,
@@ -572,6 +572,8 @@ __device__ __forceinline__ void scan_blocks(
   const int kls = list_ld(k_pair, PACK);  // the lists' row stride
   constexpr bool SORT = PACK && KMAX > PASS_K;  // deep pack32: sort_slice
   constexpr bool ONE = Source::ONE_TILE;  // one tile, landed after a barrier
+  static_assert(!CHUNKED || Op::EXACT,
+                "chunked rows chain their sums: integer operands only");
   static_assert(!ONE_LIST || (PACK && CHUNKED && !ONE),
                 "one running list: a chunked pack32 scan over two tiles");
   static_assert((MAX_PACK_K + 1) * 4 <= CHUNK + 16,
@@ -600,14 +602,10 @@ __device__ __forceinline__ void scan_blocks(
   int* qc_s = reinterpret_cast<int*>(qv_s + QUEUE * THREADS);
 
   // narrow: the K padding of the tiles (16 bytes or none), zero once (the
-  // sources write [0, rb)); chunked rows pad A instead (copy_a_chunk), and
-  // bf16 ones zero the tiles past their last chunk's bytes tb as well (the
-  // full chunks later write finite values there; a stale NaN pattern
-  // before them would survive the zeros of A)
-  const int tb = CHUNKED ? rb - (nch - 1) * CHUNK : rb;
-  if ((!CHUNKED || !Op::SCALED) && round32(tb) > tb) {
+  // sources write [0, rb)); chunked rows pad A instead (copy_a_chunk)
+  if (!CHUNKED && round32(rb) > rb) {
     for (int i = t; i < (ONE ? 1 : 2) * TN; i += THREADS) {
-      *reinterpret_cast<uint4*>(tiles + i * ld + tb) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(tiles + i * ld + rb) = make_uint4(0, 0, 0, 0);
     }
   }
 
@@ -785,86 +783,30 @@ __device__ __forceinline__ void scan_blocks(
           for (int gq = 0; gq < 2; ++gq) {  // up to 4 pairs (64 columns)
             const int p0 = slice * np_s + 4 * gq;  // first pair of the group
             if (4 * gq < np_s && 16 * p0 < nrow) {
-              // sum: the tile's sums. Chunked bf16 rows sum each chunk
-              // from zero apart (APART) and add it to the tile's sums in
-              // f32: the tensor cores' f32 accumulation truncates at each
-              // mma.sync relative to the accumulator, so one chain of 64 k
-              // steps at d = 1024 put 2.4% of the pack32 keys off an
-              // f64-summed select's (the plain version 0.7%; apart 0.3%).
-              // A chunk's sums are taken PP pairs at a time (A loaded once
-              // per PP pairs and k step): pack32 takes 2 (16 registers
-              // beside the tile's sums and the group maxima; 4 spilled),
-              // exact 4. Integer sums chain across chunks.
-              constexpr bool APART = CHUNKED && !Op::EXACT;
-              constexpr int PP = PACK ? 2 : 4;
+              // sum: the tile's sums, chained across a chunked row's k
+              // chunks (integer sums: exact in any order).
               Acc accn[8][4];
               Acc(&sum)[8][4] = pick<CHUNKED>(accw[gq], accn);
-              if constexpr (APART) {
 #pragma unroll
-                for (int n0 = 0; n0 < 4; n0 += PP) {
-                  Acc part[2 * PP][4];
+              for (int ks = 0; ks < KSTEPS; ++ks) {
+                if (ks < kst) {
+                  uint32_t af[4];
+                  if constexpr (CHUNKED) ldmatrix_x4(af, arow + 32 * ks);
+                  const uint32_t(&ak)[4] = pick<CHUNKED>(af, a[ks]);
+                  const bool fresh = ks == 0 && (!CHUNKED || kc == 0);
 #pragma unroll
-                  for (int ks = 0; ks < KSTEPS; ++ks) {
-                    if (ks < kst) {
-                      uint32_t af[4];
-                      ldmatrix_x4(af, arow + 32 * ks);
-#pragma unroll
-                      for (int np = n0; np < n0 + PP; ++np) {
-                        const int c0 = 16 * (p0 + np);
-                        if (4 * gq + np < np_s && c0 < nrow) {
-                          uint32_t bf[4];
-                          ldmatrix_x4(bf, tile + (c0 + ldm_b_row(lane)) * ld +
-                                              32 * ks + 2 * ldm_b_col(lane));
-                          Acc(&lo)[4] = part[2 * (np - n0)];
-                          Acc(&hi)[4] = part[2 * (np - n0) + 1];
-                          if (ks == 0) {
-                            Op::mma_zero(lo, af, bf[0], bf[1]);
-                            Op::mma_zero(hi, af, bf[2], bf[3]);
-                          } else {
-                            Op::mma(lo, af, bf[0], bf[1]);
-                            Op::mma(hi, af, bf[2], bf[3]);
-                          }
-                        }
-                      }
-                    }
-                  }
-#pragma unroll
-                  for (int np = n0; np < n0 + PP; ++np) {
-                    if (4 * gq + np < np_s && 16 * (p0 + np) < nrow) {
-#pragma unroll
-                      for (int h = 0; h < 2; ++h) {
-#pragma unroll
-                        for (int i = 0; i < 4; ++i) {
-                          const Acc x = part[2 * (np - n0) + h][i];
-                          Acc& y = sum[2 * np + h][i];
-                          y = kc == 0 ? x : y + x;
-                        }
-                      }
-                    }
-                  }
-                }
-              } else {
-#pragma unroll
-                for (int ks = 0; ks < KSTEPS; ++ks) {
-                  if (ks < kst) {
-                    uint32_t af[4];
-                    if constexpr (CHUNKED) ldmatrix_x4(af, arow + 32 * ks);
-                    const uint32_t(&ak)[4] = pick<CHUNKED>(af, a[ks]);
-                    const bool fresh = ks == 0 && (!CHUNKED || kc == 0);
-#pragma unroll
-                    for (int np = 0; np < 4; ++np) {
-                      const int c0 = 16 * (p0 + np);
-                      if (4 * gq + np < np_s && c0 < nrow) {
-                        uint32_t bf[4];
-                        ldmatrix_x4(bf, tile + (c0 + ldm_b_row(lane)) * ld +
-                                            32 * ks + 2 * ldm_b_col(lane));
-                        if (fresh) {
-                          Op::mma_zero(sum[2 * np], ak, bf[0], bf[1]);
-                          Op::mma_zero(sum[2 * np + 1], ak, bf[2], bf[3]);
-                        } else {
-                          Op::mma(sum[2 * np], ak, bf[0], bf[1]);
-                          Op::mma(sum[2 * np + 1], ak, bf[2], bf[3]);
-                        }
+                  for (int np = 0; np < 4; ++np) {
+                    const int c0 = 16 * (p0 + np);
+                    if (4 * gq + np < np_s && c0 < nrow) {
+                      uint32_t bf[4];
+                      ldmatrix_x4(bf, tile + (c0 + ldm_b_row(lane)) * ld +
+                                          32 * ks + 2 * ldm_b_col(lane));
+                      if (fresh) {
+                        Op::mma_zero(sum[2 * np], ak, bf[0], bf[1]);
+                        Op::mma_zero(sum[2 * np + 1], ak, bf[2], bf[3]);
+                      } else {
+                        Op::mma(sum[2 * np], ak, bf[0], bf[1]);
+                        Op::mma(sum[2 * np + 1], ak, bf[2], bf[3]);
                       }
                     }
                   }

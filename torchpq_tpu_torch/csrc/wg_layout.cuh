@@ -1,0 +1,166 @@
+// The index math of the warp-specialised bf16 block scan (block_scan_wg.cu):
+// pure functions of integers, callable from host and device code, so that
+// tests/test_torch_wgmma_layout.py compiles this header with the host's g++
+// and checks each map without a card. Nothing here touches a GPU.
+//
+// - The 128-byte swizzle (TMA's CU_TENSOR_MAP_SWIZZLE_128B and wgmma's
+//   layout type 1) of a tile of 128-byte rows: 16-byte piece c of row r
+//   lies in piece c ^ (r % 8) of the row, and eight rows make a 1,024-byte
+//   atom (PTX ISA, "Shared Memory Matrix Layout", 128B swizzling mode; the
+//   tile starts on a 1,024-byte boundary, so the hardware's address bits and
+//   these offsets agree).
+// - The wgmma shared-memory matrix descriptor (PTX ISA, "Matrix Descriptor
+//   Format"): start address >> 4 in bits 0-13, leading byte offset >> 4 in
+//   16-29, stride byte offset >> 4 in 32-45, base offset 0 in 49-51, layout
+//   type in 62-63 (1: 128-byte swizzle). A K-major operand in 128-byte
+//   swizzled rows takes the stride byte offset 1,024 (one atom of 8 rows)
+//   and ignores the leading one (its k16 step, 32 bytes, lies inside a
+//   row); the k-th k16 step of a row starts 32 k bytes further.
+// - The accumulator of wgmma.m64nNk16 with f32 output (PTX ISA, "Register
+//   Fragments and Shared Memory Matrix Layouts", wgmma .m64nNk16 D):
+//   thread T of the warpgroup, register r holds row 16 (T / 32) + (T % 32)
+//   / 4 + 8 ((r / 2) % 2), column 8 (r / 4) + 2 (T % 4) + r % 2; so warp w
+//   holds rows 16w .. 16w + 15, and its registers 4j .. 4j + 3 are the
+//   m16n8 C fragment (tc_ptx.cuh: frag_c_row / frag_c_col) of columns
+//   8j .. 8j + 7.
+// - The TMA boxes of the window: tile it of a block (window columns ts =
+//   tile_start(it) .. + 128, phase by phase for the deep pack32 groups, as
+//   scan_tc.cuh orders them), ring stage st of that tile (k elements 64 st
+//   .. 64 st + 63), box {64 elements, 128 rows} at tensor coordinates
+//   (x = 64 st, y = start_c[b] + ts) of the cache [capacity][d].
+
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+
+#ifdef __CUDACC__
+#define TPQ_HD __host__ __device__
+#else
+#define TPQ_HD
+#endif
+
+namespace tpq {
+namespace wg {
+
+constexpr int SW_ROW = 128;    // bytes of a swizzled row: 64 bf16
+constexpr int SW_ATOM = 1024;  // bytes of a swizzle atom: 8 rows
+constexpr int BOX_K = 64;      // k elements per ring stage (one swizzled row)
+constexpr int BOX_ROWS = 128;  // window columns (cache rows) per tile
+constexpr int KSTEP = 16;      // k elements of one wgmma (32 bytes)
+constexpr int STAGE_BYTES = BOX_ROWS * SW_ROW;  // one operand of a stage
+constexpr int LAYOUT_SW128 = 1;                 // descriptor layout type
+
+// Byte offset of byte kb (< 128) of row `row` in a tile of 128-byte rows
+// under the 128-byte swizzle.
+TPQ_HD constexpr int sw128_offset(int row, int kb) {
+  return (row / 8) * SW_ATOM + (row % 8) * SW_ROW +
+         (((kb / 16) ^ (row % 8)) * 16) + kb % 16;
+}
+
+// The wgmma descriptor of the operand at shared address `addr`.
+TPQ_HD constexpr uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                    uint32_t layout) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFFu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFFu) << 32) |
+         ((uint64_t)(layout & 3u) << 62);
+}
+TPQ_HD constexpr uint32_t desc_start(uint64_t d) {
+  return (uint32_t)(d & 0x3FFFu) << 4;
+}
+TPQ_HD constexpr uint32_t desc_lbo(uint64_t d) {
+  return (uint32_t)((d >> 16) & 0x3FFFu) << 4;
+}
+TPQ_HD constexpr uint32_t desc_sbo(uint64_t d) {
+  return (uint32_t)((d >> 32) & 0x3FFFu) << 4;
+}
+TPQ_HD constexpr uint32_t desc_base_offset(uint64_t d) {
+  return (uint32_t)((d >> 49) & 7u);
+}
+TPQ_HD constexpr uint32_t desc_layout(uint64_t d) {
+  return (uint32_t)(d >> 62);
+}
+
+// The descriptor of k16 step ks of a K-major 128-byte swizzled operand
+// whose 64 rows start at shared address `tile` (1,024-byte aligned).
+TPQ_HD constexpr uint64_t kmajor_desc(uint32_t tile, int ks) {
+  return make_desc(tile + 2 * KSTEP * ks, 16, SW_ATOM, LAYOUT_SW128);
+}
+
+// Row and column of the m64nN f32 accumulator that register r of thread t
+// (of the warpgroup's 128) holds.
+TPQ_HD constexpr int acc_row(int t, int r) {
+  return 16 * (t / 32) + (t % 32) / 4 + 8 * ((r / 2) % 2);
+}
+TPQ_HD constexpr int acc_col(int t, int r) {
+  return 8 * (r / 4) + 2 * (t % 4) + r % 2;
+}
+
+// Window column of the first slot of tile `it` (tiles phase by phase: tpp
+// tiles a phase, phase f holding the columns == f * 128 mod stride).
+TPQ_HD constexpr int tile_start(int it, int tpp, int stride) {
+  return (it % tpp) * stride + (it / tpp) * BOX_ROWS;
+}
+// The TMA box of ring stage st of the tile starting at window column ts of
+// the block whose window starts at cache row s0: inner (k element) and
+// outer (cache row) coordinates.
+TPQ_HD constexpr int box_x(int st) { return BOX_K * st; }
+TPQ_HD constexpr int box_y(int s0, int ts) { return s0 + ts; }
+
+// Ring stages of a tile at width d, and the k16 steps of stage st (the
+// last one's past d are skipped: TMA fills the window's bytes past d with
+// zeros and the query copies write zeros there).
+TPQ_HD constexpr int stages_of(int d) { return (d + BOX_K - 1) / BOX_K; }
+TPQ_HD constexpr int ksteps_of(int d, int st) {
+  return (d - BOX_K * st) >= BOX_K ? BOX_K / KSTEP
+                                   : (d - BOX_K * st + KSTEP - 1) / KSTEP;
+}
+
+// The kernel's shared memory, from a 1,024-byte aligned base (the first
+// SW_ATOM bytes are the slack that aligns it): the ring's window tiles
+// [RING][128][128 B] and query tiles [RING][128][128 B], the penalties of
+// each stage's columns [RING][128] f32, the full and empty barriers
+// [2][RING] (8 bytes each), the prober rows [MAX_PT], the tile flags [8],
+// the slice lists [WARPS][16][kls] (pack32 keys; exact columns), then
+// pack32: the running lists [2][MAX_PT][kls]; exact: the slice lists'
+// values [WARPS][16][kls] f32, the score staging rows [WARPS][16][SLD] and
+// row bounds [WARPS][16] f32, and the queues [QUEUE][CONSUMERS] f32 and int.
+// kls: the lists' row stride, k_pair (pack32: made odd, scan_tc.cuh's
+// list_ld). The ring holds as many stages as the lists of an instance's
+// largest k_pair leave room for: exact k_pair <= 10 five, exact four;
+// pack32 k_pair <= 16 six, <= DEEP_K four, deeper three.
+constexpr int RING_EXACT_10 = 5;
+constexpr int RING_EXACT = 4;
+constexpr int RING_PACK_16 = 6;
+constexpr int RING_PACK = 4;
+constexpr int RING_DEEP = 3;
+constexpr int DEEP_K = 48;
+constexpr int MAX_PT = 128;     // probers per block
+constexpr int WARPS = 8;        // consumer warps
+constexpr int CONSUMERS = 256;  // consumer threads
+constexpr int SLD = 72;         // exact staging row stride (floats)
+constexpr int QUEUE = 6;        // exact: a lane's queued candidates
+
+TPQ_HD constexpr int ring_of(int pack32, int k_pair) {
+  return pack32 ? (k_pair <= 16       ? RING_PACK_16
+                   : k_pair <= DEEP_K ? RING_PACK
+                                      : RING_DEEP)
+                : (k_pair <= 10 ? RING_EXACT_10 : RING_EXACT);
+}
+// ring: the instance's stages (0: ring_of's, those of the instance that
+// serves k_pair).
+TPQ_HD constexpr size_t smem_bytes(int pack32, int k_pair, int ring = 0) {
+  return (size_t)SW_ATOM +
+         (size_t)(ring ? ring : ring_of(pack32, k_pair)) *
+             (2 * STAGE_BYTES + 4 * BOX_ROWS + 16) +
+         4 * MAX_PT + 4 * 8 +
+         (size_t)4 * WARPS * 16 * (pack32 ? (k_pair | 1) : k_pair) +
+         (pack32 ? (size_t)2 * 4 * MAX_PT * (k_pair | 1)
+                 : (size_t)4 * WARPS * 16 * k_pair +
+                       (size_t)4 * WARPS * 16 * (SLD + 1) +
+                       (size_t)8 * QUEUE * CONSUMERS);
+}
+
+}  // namespace wg
+}  // namespace tpq

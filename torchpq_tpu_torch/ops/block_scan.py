@@ -3,15 +3,20 @@ keep each prober's top k_pair.
 
 Replaces the TPU kernel torchpq_tpu/ops/pallas_scan.py:scan_blocks_pallas
 (bf16/f32/int8 decoded cache, exact and pack32 selects, query rows read by
-prober id). Three kernels serve it, chosen before launch by `pick_route`,
+prober id). Four kernels serve it, chosen before launch by `pick_route`,
 each built by `_build.py`, bound through plain C entry points and counted
 under its own key of `launches`:
+  - "tc_wg_exact" / "tc_wg_pack32", `csrc/block_scan_wg.cu`: bf16 caches
+    with rows of 128 < d <= 1024 (d % 8 == 0: the GIST-class cache, 1,024
+    wide), on Hopper's warpgroup products
+    (wgmma bf16, f32 sums, each 256-byte k chunk summed from zero) fed by
+    TMA through a shared-memory ring, one producer and two consumer
+    warpgroups;
   - "tc_exact" / "tc_pack32", `csrc/block_scan_tc.cu`: bf16 caches with
-    rows of d <= 1024 (d % 8 == 0; above 128 in k chunks of 256 bytes),
-    blocks of at most 128 probers, on the tensor cores (mma.sync bf16, f32
-    sums), scoring only the live 16-prober tiles of a block; the bf16
-    tier's probed plans, the deep-k scans (pack32 k_pair 64) and the
-    GIST-class cache (1,024 wide) included;
+    rows of d <= 128 (d % 8 == 0), blocks of at most 128 probers, on the
+    tensor cores (mma.sync bf16, f32 sums), scoring only the live
+    16-prober tiles of a block; the bf16 tier's probed plans and the
+    deep-k scans (pack32 k_pair 64) included;
   - "tc_int8_exact" / "tc_int8_pack32", `csrc/block_scan_tc_int8.cu`: int8
     caches with rows of d <= 1024 (d % 16 == 0; above 256 in k chunks of
     256 bytes), the same blocks, on the tensor cores (mma.sync s8, exact
@@ -73,7 +78,7 @@ BIG = float(np.float32(np.finfo(np.float32).max) / np.float32(4))
 # one, per cache mode and select)
 launches = {"exact": 0, "pack32": 0, "int8_exact": 0, "int8_pack32": 0,
             "tc_exact": 0, "tc_pack32": 0, "tc_int8_exact": 0,
-            "tc_int8_pack32": 0}
+            "tc_int8_pack32": 0, "tc_wg_exact": 0, "tc_wg_pack32": 0}
 
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one CTA may use on sm_90
 _CHUNK_SCORES = 1 << 25   # f32 scores per chunk of the plain version (128 MB)
@@ -83,7 +88,7 @@ _TC_WARPS = 8       # warps per CTA
 _TC_MAX_ROW = 256   # widest row (bytes) its A fragments hold: bf16 d <= 128
 _TC_CHUNK = 256     # k chunk (bytes) of wider rows
 _TC_MAX_CHUNKED_ROW = 1024  # widest int8 row it walks in those chunks
-_TC_MAX_CHUNKED_ROW_BF16 = 2048  # and bf16 row: d <= 1024
+_TC_MAX_CHUNKED_ROW_BF16 = 2048  # widest bf16 row block_scan_wg.cu walks
 _TC_CHUNKED_PACK_K = 48  # chunked pack32 k_pair with two running lists
                          # (above: one, the ONE_LIST instances)
 _TC_MAX_PT = 128    # probers per block: an m tile per warp of 8
@@ -92,6 +97,14 @@ _TC_MAX_PACK_K = 64  # the pack32 k_pair its lists take
 _TC_TN = 128        # its tile of window columns
 _TC_SLD = 72        # exact staging row stride (floats)
 _TC_QUEUE = 6       # exact: a lane's queued candidates
+# the warp-specialised scan of k-chunked bf16 rows (csrc/wg_layout.cuh)
+_WG_SW_ATOM = 1024      # bytes of a 128-byte swizzle atom (alignment slack)
+_WG_STAGE_BYTES = 16384  # one operand of a ring stage: [128][128 B]
+_WG_BOX_ROWS = 128      # window columns per tile
+# ring stages: exact k_pair <= 10, exact; pack32 k_pair <= 16, <= 48, deeper
+_WG_RING_EXACT_10, _WG_RING_EXACT = 5, 4
+_WG_RING_PACK_16, _WG_RING_PACK, _WG_RING_DEEP = 6, 4, 3
+_WG_DEEP_K = 48
 
 
 def sortable_i32(x):
@@ -452,47 +465,100 @@ def tc_smem_bytes(rb, pack32, k_pair, scaled, chunked, one_tile=False,
 def tc_route_smem(*, d, pack32, k_pair, dtype=torch.bfloat16):
     """Shared memory of the tensor-core block scan of a `dtype` cache at
     width d (the library's torchpq_block_scan_tc_smem /
-    torchpq_block_scan_tc_int8_smem): rows of more than _TC_MAX_ROW bytes
-    in k chunks, and there pack32 above _TC_CHUNKED_PACK_K with one running
-    list (scan_tc.cuh:one_list_of)."""
+    torchpq_block_scan_tc_int8_smem): int8 rows of more than _TC_MAX_ROW
+    bytes in k chunks, and there pack32 above _TC_CHUNKED_PACK_K with one
+    running list (scan_tc.cuh:one_list_of); bf16 rows whole."""
     rb = d if dtype == torch.int8 else 2 * d
-    chunked = rb > _TC_MAX_ROW
+    chunked = dtype == torch.int8 and rb > _TC_MAX_ROW
     return tc_smem_bytes(rb, pack32, k_pair, dtype == torch.int8, chunked,
                          one_list=bool(chunked and pack32
                                        and k_pair > _TC_CHUNKED_PACK_K))
 
 
-def tc_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
-    """Whether the tensor-core scans' body (csrc/scan_tc.cuh) takes these
-    shapes: rows of 16-byte pieces, above 256 bytes in k chunks, up to
-    1,024 bytes of int8 (d <= 1024, d % 16 == 0) or 2,048 of bf16 (d <=
-    1024, d % 8 == 0); p_tile a multiple of 16 up to 128; exact with
-    k_pair <= 16; pack32 with k_pair <= 64 and the strided group count G =
-    n_groups(s_eff, k_pair) a multiple of 8 that is either the whole row
-    (s_eff <= 128) or a multiple of 128 dividing s_eff (G = 128, 256,
-    512); and the route's shared memory (tc_route_smem) within the limit,
-    which every such shape meets: pack32 k_pair 64 takes 172,064 B at bf16
-    d 128, 173,088 B at int8 d 256, and 208,416 B (bf16) or 209,440 B
-    (int8) over chunked rows of any width, one running list there."""
-    rb = d * (1 if dtype == torch.int8 else 2)
-    ok = (rb % 16 == 0
-          and rb <= (_TC_MAX_CHUNKED_ROW if dtype == torch.int8
-                     else _TC_MAX_CHUNKED_ROW_BF16)
-          and p_tile % 16 == 0 and p_tile <= _TC_MAX_PT
-          and tc_route_smem(d=d, pack32=pack32, k_pair=k_pair,
-                            dtype=dtype) <= _SMEM_LIMIT)
+def wg_ring(pack32, k_pair):
+    """Ring stages of the warp-specialised instance that serves this select
+    (csrc/wg_layout.cuh:ring_of)."""
+    if pack32:
+        return (_WG_RING_PACK_16 if k_pair <= 16 else _WG_RING_PACK
+                if k_pair <= _WG_DEEP_K else _WG_RING_DEEP)
+    return _WG_RING_EXACT_10 if k_pair <= 10 else _WG_RING_EXACT
+
+
+def wg_smem_bytes(pack32, k_pair):
+    """Dynamic shared memory of the warp-specialised scan
+    (csrc/wg_layout.cuh:smem_bytes, term for term; the library's
+    torchpq_block_scan_wg_smem reports the same): alignment slack, the
+    ring's stages (window and query tiles, penalties, two barriers; 3 to 6
+    stages by the instance, wg_layout.cuh:ring_of), prober
+    rows and tile flags, the slice lists [8][16][kls], then pack32: the
+    running lists [2][128][kls]; exact: the lists' values, the staging
+    rows [8][16][SLD], row bounds [8][16] and queues [QUEUE][256] x 2."""
+    ring = wg_ring(pack32, k_pair)
+    kls = k_pair | 1 if pack32 else k_pair
+    lists = 4 * _TC_WARPS * 16 * kls
+    select = (2 * 4 * _TC_MAX_PT * kls if pack32 else
+              lists + 4 * _TC_WARPS * 16 * (_TC_SLD + 1)
+              + 8 * _TC_QUEUE * 32 * _TC_WARPS)
+    return (_WG_SW_ATOM + ring * (2 * _WG_STAGE_BYTES + 4 * _WG_BOX_ROWS
+                                  + 16)
+            + 4 * _TC_MAX_PT + 4 * 8 + lists + select)
+
+
+def wg_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
+    """Whether the warp-specialised scan (csrc/block_scan_wg.cu) takes these
+    shapes: a bf16 cache with rows of 128 < d <= 1024, d % 8 == 0; blocks,
+    selects and groups as tc_shapes_ok (_blocks_ok); its shared memory
+    (wg_smem_bytes)
+    within the limit, which every such shape meets (the ring as deep as
+    the instance's largest k_pair lets it be: exact k_pair 10 227,952 B on
+    five stages; pack32 k_pair 64 201,296 B on three)."""
+    return (dtype == torch.bfloat16 and d % 8 == 0
+            and 2 * d > _TC_MAX_ROW and 2 * d <= _TC_MAX_CHUNKED_ROW_BF16
+            and wg_smem_bytes(pack32, k_pair) <= _SMEM_LIMIT
+            and _blocks_ok(p_tile, s_eff, k_pair, pack32))
+
+
+def _blocks_ok(p_tile, s_eff, k_pair, pack32):
+    """The blocks and selects the tensor-core block scans take: p_tile a
+    multiple of 16 up to 128; exact with k_pair <= 16; pack32 with k_pair
+    <= 64 and the strided group count G = n_groups(s_eff, k_pair) a
+    multiple of 8 that is either the whole row (s_eff <= 128) or a
+    multiple of 128 dividing s_eff (G = 128, 256, 512)."""
+    if p_tile % 16 or p_tile > _TC_MAX_PT:
+        return False
     if not pack32:
-        return ok and k_pair <= _TC_KMAX
+        return k_pair <= _TC_KMAX
     g = n_groups(s_eff, k_pair)
-    return ok and k_pair <= _TC_MAX_PACK_K and g % 8 == 0 and (
+    return k_pair <= _TC_MAX_PACK_K and g % 8 == 0 and (
         g <= _TC_TN if g == s_eff else g % _TC_TN == 0 and s_eff % g == 0)
+
+
+def tc_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
+    """Whether the mma.sync scans' body (csrc/scan_tc.cuh) takes these
+    shapes: rows of 16-byte pieces, bf16 up to 256 bytes (d <= 128, d % 8
+    == 0; block_scan_wg.cu takes the wider ones) and int8 up to 1,024
+    (d <= 1024, d % 16 == 0; above 256 bytes in k chunks); the blocks and
+    selects of _blocks_ok; and the route's shared memory (tc_route_smem)
+    within the limit, which every such shape meets: pack32 k_pair 64 takes
+    172,064 B at bf16 d 128, 173,088 B at int8 d 256, and 209,440 B over
+    chunked int8 rows of any width, one running list there."""
+    rb = d * (1 if dtype == torch.int8 else 2)
+    return (rb % 16 == 0
+            and rb <= (_TC_MAX_CHUNKED_ROW if dtype == torch.int8
+                       else _TC_MAX_ROW)
+            and _blocks_ok(p_tile, s_eff, k_pair, pack32)
+            and tc_route_smem(d=d, pack32=pack32, k_pair=k_pair,
+                              dtype=dtype) <= _SMEM_LIMIT)
 
 
 def pick_route(*, dtype, d, p_tile, s_eff, k_pair, pack32):
     """The kernel that serves a scan of these shapes, which is also its key
     in `launches`:
+      - "tc_wg_exact" / "tc_wg_pack32" (`csrc/block_scan_wg.cu`, wgmma and
+        TMA): a bf16 cache at the shapes of `wg_shapes_ok` (128 < d <=
+        1024);
       - "tc_exact" / "tc_pack32" (`csrc/block_scan_tc.cu`, tensor cores): a
-        bf16 cache at the shapes of `tc_shapes_ok`;
+        bf16 cache at the shapes of `tc_shapes_ok` (d <= 128);
       - "tc_int8_exact" / "tc_int8_pack32" (`csrc/block_scan_tc_int8.cu`,
         tensor cores): an int8 cache at the shapes of `tc_shapes_ok`;
       - "exact" / "pack32" (`csrc/block_scan.cu`, CUDA cores): f32 caches
@@ -501,6 +567,9 @@ def pick_route(*, dtype, d, p_tile, s_eff, k_pair, pack32):
       - "int8_exact" / "int8_pack32" (`csrc/block_scan.cu`): the int8
         shapes the tensor-core kernel does not take."""
     mode = "pack32" if pack32 else "exact"
+    if wg_shapes_ok(d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair,
+                    pack32=pack32, dtype=dtype):
+        return "tc_wg_" + mode
     tc = dtype in (torch.bfloat16, torch.int8) and tc_shapes_ok(
         d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair, pack32=pack32,
         dtype=dtype)
@@ -574,23 +643,34 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
     route = route or best
     int8 = decoded.dtype == torch.int8
     kind = "int8_" + mode if int8 else mode
-    if route not in (kind, "tc_" + kind):
+    if route not in (kind, "tc_" + kind) + (() if int8 else
+                                            ("tc_wg_" + kind,)):
         raise ValueError(f"route {route!r} does not serve the {mode} select "
                          f"of a {decoded.dtype} cache")
     if route.startswith("tc_") and best != route:
         raise ValueError(
-            f"the tensor-core block scan does not take {decoded.dtype} "
-            f"d={d}, p_tile={p_tile}, s_eff={s_eff}, k_pair={k_pair}, "
-            f"pack32={pack32}")
+            f"the tensor-core block scan ({route}) does not take "
+            f"{decoded.dtype} d={d}, p_tile={p_tile}, s_eff={s_eff}, "
+            f"k_pair={k_pair}, pack32={pack32}")
     out = torch.empty((b, p_tile, k_pair if pack32 else 2 * k_pair),
                       dtype=torch.int32, device=decoded.device)
     if b == 0:
         return out
-    if route.startswith("tc_"):
-        if qtable.data_ptr() % 16 or decoded.data_ptr() % 16:
-            raise ValueError("the tensor-core block scan copies 16-byte "
-                             "pieces: qtable and decoded must be 16-byte "
-                             "aligned")
+    if route.startswith("tc_") and (qtable.data_ptr() % 16
+                                    or decoded.data_ptr() % 16):
+        raise ValueError("the tensor-core block scans copy 16-byte pieces: "
+                         "qtable and decoded must be 16-byte aligned")
+    if route.startswith("tc_wg_"):
+        if n_ctas is None:
+            n_ctas = resident_ctas(lib, "torchpq_block_scan_wg_occupancy",
+                                   decoded.device, d, int(pack32), k_pair)
+        rc = lib.torchpq_block_scan_wg(
+            qtable.data_ptr(), probers.data_ptr(), start_c.data_ptr(),
+            off.data_ptr(), cap.data_ptr(), penalty.data_ptr(),
+            decoded.data_ptr(), out.data_ptr(), b, p_tile, d,
+            decoded.shape[0], s_eff, k_pair, int(euclidean), int(pack32),
+            slot_mask, groups, min(n_ctas, b), ctypes.c_void_p(stream))
+    elif route.startswith("tc_"):
         name = "torchpq_block_scan_tc" + ("_int8" if int8 else "")
         if getattr(lib, name + "_smem")(d, int(pack32), k_pair) \
                 > _SMEM_LIMIT:
