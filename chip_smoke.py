@@ -3,16 +3,23 @@
 
     python3 chip_smoke.py                 # the full run, as below
     python3 chip_smoke.py --kernels-only  # phases 1-3 only, no result line
+    python3 chip_smoke.py --parent DIR    # and, on each narrow bf16 row,
+        # DIR's csrc/block_scan_tc.cu (a checkout of the tree whose d <= 128
+        # bf16 scans ran on mma.sync) timed in turns with the narrow route
 
 Phases, each of which fails the run on error:
   1. device: a CUDA card is required (no CPU continuation); prints its name
      and `nvidia-smi` name + power limit.
   2. build: compiles the kernels from `torchpq_tpu_torch/csrc` with nvcc;
      the ptxas report of CHECKED_KERNELS' instances must show no spill
-     and no stack frame, and each of the five warp-specialised instances
-     (block_scan_wg.cu) must hold HGMMA and UTMALDG instructions in its
+     and no stack frame, and each of the nine warp-specialised instances
+     (block_scan_wg.cu, narrow and k-chunked) must hold HGMMA and UTMALDG
+     instructions in its
      SASS (cuobjdump -sass; counts logged and in the kernels line).
-  3. kernel vs plain on seeded inputs: the tensor-core block-scan kernel
+  3. kernel vs plain on seeded inputs: the bf16 block-scan kernel (the
+     narrow warp-specialised instances, keys "tc_wgn_exact" /
+     "tc_wgn_pack32", at d <= 128; pack32 above k_pair 16 whose phases
+     cover fewer than 8 window tiles on block_scan_tc.cu, "tc_pack32")
      against its plain PyTorch version (`block_scan_ref`) on the card
      (p_tile=128, d=128, s_eff 1024 and 2048, k_pair=10, 1024 blocks,
      bf16), both selects, live rows within tolerance and pad rows dead,
@@ -323,8 +330,10 @@ Phases, each of which fails the run on error:
      of the bound it reaches; the int8
      block scan at both widths, the 1M x 128 tier's and the GIST-class
      d = 1024 one's, and the GIST records' bf16 exact, pack32 and pack32
-     k = 100 (on the warp-specialised route: its launch key, the instance
-     and its SASS counts of HGMMA and UTMALDG) and int8 pack32 k = 100
+     k = 100 (on the warp-specialised route, as every bf16 block-scan row
+     is: its launch key, the instance and its SASS counts of HGMMA and
+     UTMALDG; with --parent, the parent's mma.sync times in turns on the
+     narrow rows) and int8 pack32 k = 100
      scans at d_cache 1024; the
      deep-k
      split's head and tail scans and the
@@ -348,6 +357,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -363,17 +373,18 @@ F32_UNIT = 2.0 ** -23
 DEEP_CODES_KERNEL = "codes_scan_tc_kernelILb1ELi64E"
 # the instances whose ptxas report must show no spill and no stack frame:
 # the deep codes instance, the block scan's int8 one-list instance and the
-# five warp-specialised instances over k-chunked bf16 rows
-# (block_scan_wg.cu <PACK, KMAX, ring stages>: exact 10 / 16 on 5 / 4
-# stages, pack32 on 6, 4 and 3)
+# nine warp-specialised instances (block_scan_wg.cu <PACK, KMAX, ring
+# stages, query buffers>: over k-chunked bf16 rows exact 10 / 16 on 5 / 4
+# stages, pack32 on 6, 4 and 3; over narrow rows, d <= 128, exact 10 / 16
+# on 6 / 5, pack32 on 8 and, above k_pair 16, on 5 with one query buffer)
 CHECKED_KERNELS = re.compile(
     r"codes_scan_tc_kernelILb1ELi64E$"
     r"|block_scan_tc_int8_kernelI\w*Lb1ELb1E$|block_scan_wg_kernelI\w*E$")
-N_CHECKED_KERNELS = 7
+N_CHECKED_KERNELS = 11
 # the warp-specialised instances, each of which must hold warpgroup
 # products (HGMMA) and TMA loads (UTMALDG) in its SASS
 WG_KERNEL = re.compile(r"block_scan_wg_kernelI\w*E$")
-N_WG_KERNELS = 5
+N_WG_KERNELS = 9
 WG_OPS = ("HGMMA", "UTMALDG")
 # per instance: its SASS counts of WG_OPS (main, from cuobjdump)
 SASS = {}
@@ -815,12 +826,19 @@ def in_turns(torch, fns, reps):
 def cuda_core_route(route):
     """The CUDA-core route (csrc/block_scan.cu) of a tensor-core one's cache
     mode and select."""
-    return route[6:] if route.startswith("tc_wg_") else route[3:]
+    return route.split("_", 2)[2] if route.startswith(("tc_wg_", "tc_wgn_")) \
+        else route[3:]
+
+
+def is_wg(route):
+    """Whether a block-scan route is block_scan_wg.cu's (narrow or
+    k-chunked instances)."""
+    return route.startswith(("tc_wg_", "tc_wgn_"))
 
 
 def route_source(route):
     """The source of a block-scan route's kernel."""
-    if route.startswith("tc_wg_"):
+    if is_wg(route):
         return "torchpq_tpu_torch/csrc/block_scan_wg.cu"
     if route.startswith("tc_int8_"):
         return "torchpq_tpu_torch/csrc/block_scan_tc_int8.cu"
@@ -829,13 +847,102 @@ def route_source(route):
     return "torchpq_tpu_torch/csrc/block_scan.cu"
 
 
-def wg_instance(pack32, k_pair):
+def wg_instance(pack32, k_pair, d):
     """The warp-specialised instance (kernel_name) a launch of this select
-    runs (block_scan_wg.cu's dispatch)."""
+    at width d runs (block_scan_wg.cu's dispatch: narrow instances up to d
+    = 128, k-chunked ones above)."""
     from torchpq_tpu_torch.ops import block_scan as bs
-    ring = bs.wg_ring(pack32, k_pair)
-    return (f"block_scan_wg_kernelILb{int(bool(pack32))}ELi"
-            f"{16 if pack32 or k_pair > 10 else 10}ELi{ring}E")
+    if 2 * d <= bs._WG_NARROW_ROW:
+        kmax, ring, qbufs = bs.wg_narrow_instance(pack32, k_pair)
+    else:
+        kmax, ring, qbufs = (16 if pack32 or k_pair > 10 else 10,
+                             bs.wg_ring(pack32, k_pair), 0)
+    return (f"block_scan_wg_kernelILb{int(bool(pack32))}ELi{kmax}ELi{ring}"
+            f"ELi{qbufs}E")
+
+
+# --parent DIR: the parent tree's mma.sync bf16 block scan
+# (csrc/block_scan_tc.cu, most of whose d <= 128 shapes the narrow wgmma
+# instances took over), built from DIR and timed in turns with the narrow
+# route on each narrow row's own arguments; empty without --parent
+PARENT = {}
+
+
+def build_parent(_build, root):
+    """block_scan_tc.cu of the tree at `root`, built with the package's
+    nvcc flags into build/parent/ and bound with ctypes (its entry point
+    and occupancy); fails where the tree holds no such source."""
+    import ctypes
+    csrc = Path(root).resolve() / "torchpq_tpu_torch" / "csrc"
+    src = csrc / "block_scan_tc.cu"
+    if not src.exists():
+        fail(f"--parent: {src} does not exist")
+    out = Path("build/parent")
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / "libparent_block_scan_tc.so"
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                          f"-I{csrc}", str(src), "-o", str(so),
+                          *_build.LINK_FLAGS], capture_output=True,
+                         text=True)
+    if res.returncode != 0:
+        fail(f"--parent: nvcc failed:\n{res.stdout}\n{res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.torchpq_block_scan_tc.argtypes = [p] * 8 + [i] * 10 + [p]
+    lib.torchpq_block_scan_tc.restype = i
+    lib.torchpq_block_scan_tc_occupancy.argtypes = [i] * 3
+    lib.torchpq_block_scan_tc_occupancy.restype = i
+    PARENT["lib"] = lib
+    log(f"--parent: built {src} -> {so}")
+
+
+def mma_sync_turns(torch, bs, args, kkw, route, what):
+    """With --parent, a narrow row's arguments (bf16, its select kkw) on
+    the parent's block_scan_tc.cu and on `route` in turns (mma.sync, wgmma,
+    wgmma, mma.sync; 5 launches a turn, none counted), with the share of
+    live entries the two outputs hold equal; returns the row's fields
+    (mma_sync_ms and its turns), {} without --parent or on another
+    route."""
+    if not PARENT or not route.startswith("tc_wgn_"):
+        return {}
+    lib = PARENT["lib"]
+    b, p_tile = args[1].shape
+    d = args[6].shape[1]
+    pack32, k_pair = kkw["pack32"], kkw["k_pair"]
+    groups = bs.n_groups(kkw["s_eff"], k_pair) if pack32 else 0
+    per_sm = lib.torchpq_block_scan_tc_occupancy(d, int(pack32), k_pair)
+    if per_sm <= 0:
+        fail(f"{what}: the parent's occupancy query failed ({per_sm})")
+    n_ctas = min(b, per_sm * torch.cuda.get_device_properties(
+        args[6].device).multi_processor_count)
+    out = torch.empty((b, p_tile, k_pair if pack32 else 2 * k_pair),
+                      dtype=torch.int32, device=args[6].device)
+    ptrs = [t.data_ptr() for t in args]
+
+    def run():
+        rc = lib.torchpq_block_scan_tc(
+            *ptrs, out.data_ptr(), b, p_tile, d, kkw["s_eff"], k_pair,
+            int(kkw["euclidean"]), int(pack32), kkw["slot_mask"], groups,
+            n_ctas, torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            fail(f"{what}: the parent's block_scan_tc launch failed: CUDA "
+                 f"error {rc}")
+
+    run()
+    live = args[1] >= 0
+    agree = share_equal(out[live], block_launch(torch, bs, args, route,
+                                                **kkw)[live])
+    t, turns = in_turns(torch, {
+        "mma_sync": run,
+        route: lambda: block_launch(torch, bs, args, route, **kkw)}, 5)
+    log(f"  {what}: in turns, the parent's block_scan_tc.cu (mma.sync) "
+        f"{t['mma_sync']:.3f} ms "
+        f"({' / '.join(f'{x:.3f}' for x in turns['mma_sync'])}), {route} "
+        f"{t[route]:.3f} ms ({' / '.join(f'{x:.3f}' for x in turns[route])})"
+        f", {t['mma_sync'] / t[route]:.2f}x; live entries equal "
+        f"{agree:.6f}")
+    return dict(mma_sync_ms=t["mma_sync"], mma_sync_turns=turns["mma_sync"],
+                wgmma_turns=turns[route])
 
 
 def sass_counts(torch, path):
@@ -1227,9 +1334,12 @@ def phase_main_shapes(torch, tp, bs, index, xq, k, label="main path",
                 max_abs_err=res[0], ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 launch_key=route, cuda_core_ms=cc_ms,
-                cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu")
-            if route.startswith("tc_wg_"):
-                inst = wg_instance(pack32, k_pair)
+                cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu",
+                **mma_sync_turns(torch, bs, args, kkw, route,
+                                 f"{name} on the {label} n_probe={n_probe} "
+                                 "search's arguments"))
+            if is_wg(route):
+                inst = wg_instance(pack32, k_pair, d)
                 rows[name].update(instance=inst, sass=SASS.get(inst))
     return rows
 
@@ -1815,8 +1925,8 @@ def check_spill(torch, seen):
 
 def one_key_ms(torch, bs, args, kw, reps, route=None):
     """The tensor-core pack32 launch on a scan's own arguments (bf16, or
-    int8 where kw holds its scales; route "tc_wg_pack32": the
-    warp-specialised kernel, else the mma.sync one), but writing k_pair =
+    int8 where kw holds its scales; route "tc_wg_pack32" / "tc_wgn_pack32":
+    the warp-specialised kernel, else the mma.sync one), but writing k_pair =
     1 key per row over the same strided groups: the same tiles, products,
     group maxima and phases, with one extraction pass and one merge step
     per phase (the warp-specialised one on the instance and ring stages of
@@ -1829,7 +1939,7 @@ def one_key_ms(torch, bs, args, kw, reps, route=None):
     b, p_tile = args[1].shape
     d = args[6].shape[1]
     int8 = kw.get("scale") is not None
-    wg = route == "tc_wg_pack32"
+    wg = route in ("tc_wg_pack32", "tc_wgn_pack32")
     name = "torchpq_block_scan_" + ("wg" if wg else "tc") + (
         "_int8" if int8 else "")
     groups = bs.n_groups(kw["s_eff"], kw["k_pair"])
@@ -1926,7 +2036,7 @@ def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
     log(f"{what}: {blocks} blocks x {p_tile} probers, {live} live "
         f"({live / (blocks * p_tile):.3f}), {live_tiles} live 16-prober "
         f"tiles, s_eff={s_eff}, k_pair={k_pair}, G={groups}, route {route}")
-    if route not in ("tc_pack32", "tc_wg_pack32"):
+    if route not in ("tc_wgn_pack32", "tc_wg_pack32", "tc_pack32"):
         fail(f"{what} routes to {route}, not the tensor cores")
     kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
                pack32=True, slot_mask=kw["slot_mask"])
@@ -1999,23 +2109,32 @@ def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
         bound_by=b_by, library_ms=None, launch_key=route, cuda_core_ms=cc_ms,
         cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu",
         one_key_ms=k1_ms, key_agreement=agree, held_by_slot=by_slot,
-        held_against="f64" if against_f64 else "plain")
-    if route.startswith("tc_wg_"):
-        inst = wg_instance(True, k_pair)
+        held_against="f64" if against_f64 else "plain",
+        **mma_sync_turns(torch, bs, args, kkw, route,
+                         f"{name} on {what}'s arguments"))
+    if is_wg(route):
+        inst = wg_instance(True, k_pair, d)
         row.update(instance=inst, sass=SASS.get(inst))
     return row
 
 
-def deepk_counts(bs, seen, counts, what):
-    """The block-scan launches of a deep-k run: every one on the
-    tensor-core pack32 kernel (the CUDA-core keys at 0), one per scan call
-    ops/adc.py made; returns the calls per k_pair."""
-    for key in ("pack32", "exact", "tc_exact"):
-        if counts[key]:
-            fail(f"{what} launched block_scan {key!r}: {counts}")
-    if counts["tc_pack32"] <= 0 or counts["tc_pack32"] != len(seen):
-        fail(f"{what}: {counts['tc_pack32']} tensor-core pack32 launches "
-             f"for {len(seen)} block-scan calls")
+def deepk_counts(bs, seen, counts, what, s_eff):
+    """The block-scan launches of a deep-k run (scans at s_eff): each scan
+    call ops/adc.py made launched the tensor-core pack32 route pick_route
+    names for its k_pair (narrow wgmma, or block_scan_tc.cu's sorted
+    instance where the phases are short: tc_deep_ok), every such route at
+    least once and no other key; returns the calls per k_pair."""
+    want = {}
+    for kp in seen:
+        route = bs.pick_route(dtype=bs.torch.bfloat16, d=128, p_tile=128,
+                              s_eff=s_eff, k_pair=kp, pack32=True)
+        want[route] = want.get(route, 0) + 1
+    for key, n in counts.items():
+        if n != want.get(key, 0):
+            fail(f"{what} launched block_scan {key!r} {n} times, not "
+                 f"{want.get(key, 0)}: {counts} (routes {want})")
+    if not want or not all(k.startswith("tc_") for k in want):
+        fail(f"{what}: its scans route to {want}, not the tensor cores")
     return {kp: seen.count(kp) for kp in sorted(set(seen))}
 
 
@@ -2090,7 +2209,8 @@ def phase_deepk(torch, tp, bs, sl, gt):
     gate = tp.ops.adc.LAST_GATE
     head, tail = gate.get("head", {}), gate.get("tail", {})
     s_want = DEEPK_GROUP * cap
-    per_kp = deepk_counts(bs, calls, counts, "the r6 plan")
+    per_kp = deepk_counts(bs, calls, counts, "the r6 plan",
+                          DEEPK_GROUP * cap)
     log(f"deep-k r6 launches: {counts}, calls per k_pair {per_kp}; gate: "
         f"super_probe {gate.get('super_probe')}, split {gate.get('split')}, "
         f"head {head}, tail {tail}")
@@ -2121,7 +2241,7 @@ def phase_deepk(torch, tp, bs, sl, gt):
     counts_plain = dict(bs.launches)
     restore()
     per_kp_plain = deepk_counts(bs, calls, counts_plain,
-                                "the untapered plan")
+                                "the untapered plan", cap)
     log(f"deep-k untapered launches: {counts_plain}, calls per k_pair "
         f"{per_kp_plain}")
     rec_flat, _ = time_plans(torch, tp, deep, xq, gt, k, bs.launches,
@@ -2210,24 +2330,35 @@ def all_cells_check(torch, index, xq, k, label):
      index.use_smart_probing) = keep
 
 
-# the block scan's tensor-core keys per cache: (exact, pack32)
-BF16_KEYS = ("tc_exact", "tc_pack32")
+# the block scan's tensor-core keys per cache: (exact, pack32); bf16 rows
+# of d <= 128 on the narrow warp-specialised instances
+BF16_KEYS = ("tc_wgn_exact", "tc_wgn_pack32")
+# and the pack32 route that keeps the narrow deep selects of short phases
+# on block_scan_tc.cu (mma.sync, sorted phase ends: ops/block_scan.py:
+# tc_deep_ok), which the k = 100 plans of the 4-bit, residual and pqr3
+# tiers take beside BF16_KEYS
+BF16_DEEP_KEY = "tc_pack32"
 INT8_KEYS = ("tc_int8_exact", "tc_int8_pack32")
-# and those of the GIST bf16 record's scans (d_cache 1024: the
-# warp-specialised route)
+# and those of the GIST bf16 record's scans (d_cache 1024: the k-chunked
+# warp-specialised instances)
 GIST_BF16_KEYS = ("tc_wg_exact", "tc_wg_pack32")
 
 
 def require_only_tc(counts, keys, what):
     """A run's block-scan launches: each of `keys` (tensor-core) launched,
-    no CUDA-core key ("exact", "pack32", "int8_exact", "int8_pack32")."""
+    no CUDA-core key ("exact", "pack32", "int8_exact", "int8_pack32"), and
+    where `keys` are bf16 ones, no other bf16 route's key (the narrow and
+    k-chunked instances serve disjoint widths)."""
     for key in keys:
         if counts[key] <= 0:
             fail(f"kernel block_scan {key} was never launched by {what}")
-    for key in ("exact", "pack32", "int8_exact", "int8_pack32"):
+    bf16 = BF16_KEYS + GIST_BF16_KEYS + (BF16_DEEP_KEY,)
+    others = [k for k in bf16 if k not in keys] if set(keys) <= set(bf16) \
+        else []
+    for key in ("exact", "pack32", "int8_exact", "int8_pack32", *others):
         if counts[key] > 0:
-            fail(f"{what} launched the CUDA-core block scan ({key}) "
-                 f"{counts[key]} times: {counts}")
+            fail(f"{what} launched block_scan {key} {counts[key]} times, "
+                 f"not {keys}: {counts}")
 
 
 def rising(rec, plans, what):
@@ -2303,7 +2434,8 @@ def phase_pq4(torch, tp, bs, cs, sl, gt100):
                            short_ok=True, plain_ok=PLAIN_K100)
     counts = dict(bs.launches)
     log(f"pq4 launches: {counts}")
-    require_only_tc(counts, BF16_KEYS, "the pq4 bf16 plans")
+    require_only_tc(counts, BF16_KEYS + (BF16_DEEP_KEY,),
+                    "the pq4 bf16 plans")
     rising(rec10, PLANS_K10, "pq4 k=10")
     rising(rec100, PLANS_K100, "pq4 k=100")
     all_cells_check(torch, pq4, xq, k, "pq4 ")
@@ -2312,7 +2444,8 @@ def phase_pq4(torch, tp, bs, cs, sl, gt100):
     rows = {"block_scan_pack32_pq4": pack32_scan_row(
         torch, bs, "block_scan_pack32_pq4", args, kw,
         "the pq4 n_probe=32 search")}
-    launches = {"block_scan_pack32_pq4": counts["tc_pack32"]}
+    launches = {"block_scan_pack32_pq4":
+                counts[rows["block_scan_pack32_pq4"]["launch_key"]]}
     del args
     phase_profile(torch, pq4, xq, k, label="pq4 ",
                   plans=[p for p in PLANS_K10 if p[1] in (1, 8, 32)])
@@ -2450,7 +2583,8 @@ def phase_residual(torch, tp, bs, sl, gt100):
                           "residual ", plans=PLANS_K10, floors=False)
     counts = dict(bs.launches)
     log(f"residual launches: k=100 plans {counts100}, all plans {counts}")
-    require_only_tc(counts, BF16_KEYS, "the residual plans")
+    require_only_tc(counts, BF16_KEYS + (BF16_DEEP_KEY,),
+                    "the residual plans")
     rising(rec10, PLANS_K10, "residual k=10")
     rising(rec100, PLANS_K100, "residual k=100")
     log("residual recall@10 against the main index: " + ", ".join(
@@ -2464,7 +2598,8 @@ def phase_residual(torch, tp, bs, sl, gt100):
     rows = {"block_scan_pack32_residual_k100": pack32_scan_row(
         torch, bs, "block_scan_pack32_residual_k100", args, kw,
         "the residual k=100 n_probe=32 search")}
-    launches = {"block_scan_pack32_residual_k100": counts100["tc_pack32"]}
+    launches = {"block_scan_pack32_residual_k100": counts100[
+        rows["block_scan_pack32_residual_k100"]["launch_key"]]}
     del args
     phase_profile(torch, res, xq, 100, label="residual k=100 ",
                   plans=[p for p in PLANS_K100 if p[1] in (1, 8, 32)])
@@ -2584,7 +2719,8 @@ def phase_pqr(torch, tp, bs, sl, gt100):
     counts = dict(bs.launches)
     counts100 = {key: counts[key] - counts10[key] for key in counts}
     log(f"pqr3 launches: k=10 plans {counts10}, k=100 plans {counts100}")
-    require_only_tc(counts, BF16_KEYS, "the pqr3 plans")
+    require_only_tc(counts, BF16_KEYS + (BF16_DEEP_KEY,),
+                    "the pqr3 plans")
     rising(rec10, PQR_PLANS_K10, "pqr3 k=10")
     rising(rec100, PQR_PLANS_K100, "pqr3 k=100")
     flat = ("flat", 1, True)
@@ -2606,7 +2742,7 @@ def phase_pqr(torch, tp, bs, sl, gt100):
             fail(f"the pqr3 k={kk} scan ran k_pair {kw['k_pair']}")
         rows[name] = pack32_scan_row(torch, bs, name, args, kw,
                                      f"the pqr3 k={kk} n_probe=32 search")
-        launches[name] = key_counts["tc_pack32"]
+        launches[name] = key_counts[rows[name]["launch_key"]]
         del args
     phase_profile(torch, pqr, xq, k, label="pqr3 ",
                   plans=[("cell_major", 32, True)])
@@ -3920,8 +4056,8 @@ SHARDED_PLANS = [("cell_major", 8, True), ("cell_major", 32, True),
                  ("cell_major", 8, False), ("flat", 1, True)]
 TIER_PLAN = ("cell_major", 32, True)
 # the kernels' JSON rows the sharded plans launch: (tier, launch key)
-SHARDED_KEYS = {"block_scan_exact": ("bf16", "tc_exact"),
-                "block_scan_pack32": ("bf16", "tc_pack32"),
+SHARDED_KEYS = {"block_scan_exact": ("bf16", "tc_wgn_exact"),
+                "block_scan_pack32": ("bf16", "tc_wgn_pack32"),
                 "block_scan_int8_pack32": ("int8", "tc_int8_pack32"),
                 "codes_scan_pack32": ("codes", "tc_pack32")}
 
@@ -3932,7 +4068,7 @@ SHARDED_ROWS = (("block_scan_exact_sharded", "bf16", ("cell_major", 8, False)),
                 ("block_scan_pack32_sharded", "bf16", TIER_PLAN),
                 ("block_scan_int8_pack32_sharded", "int8", TIER_PLAN),
                 ("codes_scan_pack32_sharded", "codes", TIER_PLAN))
-SHARDED_SOURCES = {"bf16": "block_scan_tc.cu", "int8": "block_scan_tc_int8.cu",
+SHARDED_SOURCES = {"bf16": "block_scan_wg.cu", "int8": "block_scan_tc_int8.cu",
                    "codes": "codes_scan_tc.cu"}
 
 
@@ -3978,6 +4114,7 @@ def sharded_kernel_rows(torch, tp, bs, cs, searchers, tiers, xq, check,
                                     row_bytes=2 * d, peak="bf16", d=d,
                                     extra_bytes=args[7].numel() * 2)
             shape = f"m={m}, g={args[6].shape[1] // m}"
+            turns = {}
         else:
             d = args[6].shape[1]
             int8 = tier == "int8"
@@ -3992,6 +4129,8 @@ def sharded_kernel_rows(torch, tp, bs, cs, searchers, tiers, xq, check,
                 if int8 else None)[0]
             ms = cuda_ms(torch, lambda: block_launch(torch, bs, args, route,
                                                      **kkw), 20)
+            turns = mma_sync_turns(torch, bs, args, kkw, route,
+                                   f"{label}{name}")
             plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw),
                                3)
             b_ms, b_by = scan_bound(
@@ -4015,7 +4154,7 @@ def sharded_kernel_rows(torch, tp, bs, cs, searchers, tiers, xq, check,
                 "pallas_codes_scan.py:198" if codes else "pallas_scan.py:281"),
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
             bound_by=b_by, library_ms=None, launch_key=route, s_eff=s_eff,
-            cache_rows=int(args[5].shape[0]))
+            cache_rows=int(args[5].shape[0]), **turns)
     return rows
 
 
@@ -4752,6 +4891,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel-vs-plain phase")
+    ap.add_argument("--parent", default=None, metavar="DIR",
+                    help="a checkout of the tree whose bf16 scans of d <= "
+                    "128 ran on csrc/block_scan_tc.cu (mma.sync): each "
+                    "narrow row also times that kernel in turns")
     ap.add_argument("--sharded-rank", type=int, default=None,
                     help=argparse.SUPPRESS)  # a rank of the D=2 phase
     ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
@@ -4809,6 +4952,8 @@ def main():
              f"instances")
     # the warp-specialised instances: warpgroup products and TMA loads
     SASS.update(sass_counts(torch, lib.path))
+    if args.parent:
+        build_parent(_build, args.parent)
 
     phase_kernels(torch, bs, cs, fs, gr)
     log(f"phases 1-3: {time.perf_counter() - t_start:.1f} s")
@@ -4899,8 +5044,8 @@ def main():
 
     kernels = []
     for name, row, cnt in (
-            ("block_scan_exact", krows, counts["tc_exact"]),
-            ("block_scan_pack32", krows, counts["tc_pack32"]),
+            ("block_scan_exact", krows, counts["tc_wgn_exact"]),
+            ("block_scan_pack32", krows, counts["tc_wgn_pack32"]),
             ("block_scan_int8_exact", int8_rows,
              int8_counts["tc_int8_exact"]),
             ("block_scan_int8_pack32", int8_rows,

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Variant builds of the block scan over k-chunked rows, timed in turns
-with the built library on the JAX package's GIST records' arguments, on
-one CUDA card:
+"""Variant builds of the block scan, timed in turns with the built library
+on the JAX package's GIST records' arguments (k-chunked rows) or on narrow
+random inputs (d 128, --narrow), on one CUDA card:
 
     python3 chip_variants.py                       # every variant and tier
     python3 chip_variants.py --variants wg_ring4 --tiers bf16
+    python3 chip_variants.py --variants wgn_noscore --narrow
+    python3 chip_variants.py --variants wgn_sorted --ptxas-only
 
 On each of the records' searches (1M x 960 manifold-12, seed 1, IVF4096 x
 PQ64, spill 8 cells at 512, scan_group 4: bf16 pack32 k = 10 and k = 100
@@ -26,8 +28,19 @@ with the package's nvcc flags into its own library under
             take five (exact k_pair <= 10) or six (pack32 k_pair <= 16);
   - wg_sorted: (wgmma) the deep instance (pack32 k_pair > 48) with sorted
             phase ends instead of passes (ptxas spills 352 B there at the
-            consumers' 232 registers).
-It prints each variant's ptxas report for the k-chunked instances.
+            consumers' 232 registers);
+  - wgn_*: (wgmma, narrow rows d <= 128; ptxas only, these records being
+            d 1024) wgn_regs224: the producer's and the consumers'
+            registers at 56 / 224 instead of 40 / 232; wgn_sorted: the
+            deep instance (pack32 k_pair > 16) sorting its phase ends
+            instead of extracting them pass by pass, and wgn_sorted_regs240
+            the same at 24 / 240; and some that compute wrong keys, to
+            time what a part costs (--narrow only): wgn_nopen, no penalty
+            loads in the producer; wgn_noscore, no scores or maxima;
+            wgn_noprod, no products; wgn_noselect, no phase-end extraction
+            (pack32) or list pops (exact).
+It prints each variant's ptxas report for the k-chunked and
+warp-specialised instances; --ptxas-only stops there.
 Imports nothing of JAX."""
 
 import argparse
@@ -54,18 +67,56 @@ VARIANTS = {
                     "constexpr int CONSUMER_REGS = 224;")],
     "wg_sorted": [("block_scan_wg.cu", a + "true, tc::PASS_K, RING_DEEP" + z,
                    a + "true, tc::MAX_PACK_K, RING_DEEP" + z)
-                  for a, z in (("TPQ_LAUNCH(", ")"), ("occupancy_of<", ">"))],
-    "wg_ring4": [("wg_layout.cuh", "constexpr int RING_EXACT_10 = 5;",
-                  "constexpr int RING_EXACT_10 = 4;"),
-                 ("wg_layout.cuh", "constexpr int RING_PACK_16 = 6;",
-                  "constexpr int RING_PACK_16 = 4;")],
+                  for a, z in (("TPQ_LAUNCH(", ", 0)"),
+                               ("occupancy_of<", ", 0>"))],
+    "wgn_regs224": [("block_scan_wg.cu",
+                     "constexpr int NARROW_PRODUCER_REGS = 40;",
+                     "constexpr int NARROW_PRODUCER_REGS = 56;"),
+                    ("block_scan_wg.cu",
+                     "constexpr int NARROW_CONSUMER_REGS = 232;",
+                     "constexpr int NARROW_CONSUMER_REGS = 224;")],
+    "wgn_sorted_regs240": [
+        ("block_scan_wg.cu",
+         "TPQ_LAUNCH(true, tc::PASS_K, NRING_DEEP, NQB_DEEP)",
+         "TPQ_LAUNCH(true, tc::MAX_PACK_K, NRING_DEEP, NQB_DEEP)"),
+        ("block_scan_wg.cu",
+         "occupancy_of<true, tc::PASS_K, NRING_DEEP, NQB_DEEP>",
+         "occupancy_of<true, tc::MAX_PACK_K, NRING_DEEP, NQB_DEEP>"),
+        ("block_scan_wg.cu", "constexpr int NARROW_PRODUCER_REGS = 40;",
+         "constexpr int NARROW_PRODUCER_REGS = 24;"),
+        ("block_scan_wg.cu", "constexpr int NARROW_CONSUMER_REGS = 232;",
+         "constexpr int NARROW_CONSUMER_REGS = 240;")],
+    "wgn_nopen": [("block_scan_wg.cu", "p = __ldg(penalty + s0 + j) +",
+                   "p = 0.0f +")],
+    "wgn_noscore": [("block_scan_wg.cu",
+                     "const int ncol = wlive ? s_eff : 0;",
+                     "const int ncol = 0;")],
+    "wgn_noprod": [("block_scan_wg.cu",
+                    "if (nm64 == 2) {  // both halves in one chain",
+                    "if (false) {"),
+                   ("block_scan_wg.cu",
+                    "} else if (64 * h < nrow) {  // one: this warpgroup's",
+                    "} else if (false) {  //")],
+    "wgn_noselect": [("block_scan_wg.cu",
+                      "const int kx = wlive ? k_pair : 0;",
+                      "const int kx = 0;"),
+                     ("block_scan_wg.cu",
+                      "for (int i = 0; i < (wlive ? k_pair : 0); ++i) {",
+                      "for (int i = 0; i < 0; ++i) {")],
+    "wgn_sorted": [("block_scan_wg.cu",
+                    "TPQ_LAUNCH(true, tc::PASS_K, NRING_DEEP, NQB_DEEP)",
+                    "TPQ_LAUNCH(true, tc::MAX_PACK_K, NRING_DEEP, NQB_DEEP)"),
+                   ("block_scan_wg.cu",
+                    "occupancy_of<true, tc::PASS_K, NRING_DEEP, NQB_DEEP>",
+                    "occupancy_of<true, tc::MAX_PACK_K, NRING_DEEP, "
+                    "NQB_DEEP>")],
 }
-SOURCES = ("block_scan_tc.cu", "block_scan_tc_int8.cu", "block_scan.cu",
-           "block_scan_wg.cu")
+SOURCES = ("block_scan_tc_int8.cu", "block_scan.cu", "block_scan_wg.cu")
 
 
 def ptxas(log, tag):
-    """Registers and spills of the k-chunked instances in a build log."""
+    """Registers and spills of the k-chunked and warp-specialised instances
+    in a build log."""
     kernel = "?"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -120,12 +171,49 @@ def shapes(torch, args):
             f"({1 - live / max(64 * live64, 1):.3f} of their rows pads)")
 
 
+def narrow_turns(torch, bs, lib, libs):
+    """The narrow route (bf16, d 128) of the built library and of each
+    variant in turns (built, variant, variant, built; 5 launches a turn),
+    on `random_inputs` at the main path's window (s_eff 640: exact and
+    pack32 k_pair 10, 4,096 blocks) and the deep-k tail's (s_eff 4096:
+    pack32 k_pair 16, 2,048 blocks); each block's live probers drawn
+    uniformly from 1-128."""
+    stream = torch.cuda.current_stream().cuda_stream
+    for s_eff, blocks, k_pair, pack32 in ((640, 4096, 10, False),
+                                          (640, 4096, 10, True),
+                                          (4096, 2048, 16, True)):
+        args = bs.random_inputs("cuda", s_eff=s_eff, n_blocks=blocks,
+                                nq=10000, cap_total=1 << 21, seed=s_eff)
+        kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+                  slot_mask=bs.util.next_pow2(s_eff) - 1)
+        route = bs.pick_route(dtype=torch.bfloat16, d=128, p_tile=128,
+                              s_eff=s_eff, k_pair=k_pair, pack32=pack32)
+        what = f"{route} s_eff={s_eff} k_pair={k_pair} ({shapes(torch, args)})"
+        for name, vlib in libs.items():
+            t, turns = cs.in_turns(torch, {
+                "built": lambda: bs.launch(lib, stream, *args, route=route,
+                                           **kw),
+                name: lambda: bs.launch(vlib, stream, *args, route=route,
+                                        **kw)}, 5)
+            print(f"{what}: built {t['built']:.3f} ms "
+                  f"{[round(x, 3) for x in turns['built']]}, {name} "
+                  f"{t[name]:.3f} ms {[round(x, 3) for x in turns[name]]}",
+                  flush=True)
+        del args
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS),
                     help="comma-separated names of VARIANTS ('' for none)")
     ap.add_argument("--tiers", default="bf16,int8",
                     help="the records' caches to time: bf16, int8")
+    ap.add_argument("--ptxas-only", action="store_true",
+                    help="build the variants, print their ptxas reports "
+                    "and stop")
+    ap.add_argument("--narrow", action="store_true",
+                    help="time the variants on narrow random inputs "
+                    "(narrow_turns) and stop")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: this run needs a card")
@@ -137,6 +225,11 @@ def main():
     ptxas(lib.build_log, "built")
     libs = {name: build_variant(_build, name, VARIANTS[name])
             for name in filter(None, opts.variants.split(","))}
+    if opts.ptxas_only:
+        return
+    if opts.narrow:
+        narrow_turns(torch, bs, lib, libs)
+        return
     base, query = cs.make_data(1_000_000, 10_000, 960, seed=1)
     proto = tp.IVFPQIndex(d_vector=960, n_subvectors=64, n_cells=4096,
                           initial_size=16, device="cuda")
@@ -179,8 +272,9 @@ def main():
                 print(f"{what} built: keys equal to the f64-summed select "
                       f"{cs.share_equal(out[live], f64):.6f}", flush=True)
             for name, vlib in libs.items():
-                if name.startswith("wg") != route.startswith("tc_wg_"):
-                    continue  # a variant of the other route's source
+                if name.startswith("wgn") or \
+                        name.startswith("wg") != route.startswith("tc_wg_"):
+                    continue  # a variant of another route's instances
                 out = bs.launch(vlib, stream, *args, route=route, **kkw)
                 if f64 is not None:
                     print(f"{what} {name} ({route}): keys equal to the "

@@ -2,16 +2,16 @@
 refusals, on the CPU.
 
 `integer_block_inputs` (ops/block_scan.py) is what the card holds the
-tensor-core block scan (csrc/block_scan_tc.cu) to bit for bit: every score
+tensor-core block scans (csrc/block_scan_wg.cu) to bit for bit: every score
 is an integer that f32 sums hold exactly in any order, with runs of equal
 rows so that exact ties occur. Here the plain version `block_scan_ref` is
 held to the JAX package's Pallas kernel (interpret mode, through
 tests/conftest.py) on those inputs, bit for bit, keys and addresses, pad
 rows included (both score them with query 0). `pick_route` is checked
-against the shapes each kernel takes (bf16 and int8 tensor-core routes,
-CUDA-core ones), `launch` against the routes it refuses, and the shared
-memory mirror that decides the pack32 k_pair 49-64 routes against the
-header's formula."""
+against the shapes each kernel takes (the bf16 warp-specialised routes,
+narrow and k-chunked, the int8 tensor-core route, CUDA-core ones),
+`launch` against the routes it refuses, and the shared memory mirrors that
+decide the routes against the headers' formulas."""
 
 import re
 from pathlib import Path
@@ -90,17 +90,17 @@ def test_integer_inputs_layout():
 
 @pytest.mark.parametrize("shape,route", [
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=640, k_pair=10,
-          pack32=False), "tc_exact"),       # the main path, exact
+          pack32=False), "tc_wgn_exact"),   # the main path, exact
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=640, k_pair=10,
-          pack32=True), "tc_pack32"),       # the main path, G = 128
+          pack32=True), "tc_wgn_pack32"),   # the main path, G = 128
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=2048, k_pair=40,
-          pack32=True), "tc_pack32"),       # G = 512
+          pack32=True), "tc_pack32"),       # G = 512, 4 tiles a phase
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=512, k_pair=40,
-          pack32=True), "tc_pack32"),       # G = 256
+          pack32=True), "tc_pack32"),       # G = 256, 2 tiles a phase
     (dict(dtype=torch.bfloat16, d=32, p_tile=128, s_eff=96, k_pair=10,
-          pack32=True), "tc_pack32"),       # G = s_eff, one tile
+          pack32=True), "tc_wgn_pack32"),   # G = s_eff, one tile
     (dict(dtype=torch.bfloat16, d=40, p_tile=64, s_eff=1024, k_pair=16,
-          pack32=False), "tc_exact"),       # K padded to 48
+          pack32=False), "tc_wgn_exact"),   # ends in half a k step
     (dict(dtype=torch.float32, d=128, p_tile=128, s_eff=640, k_pair=10,
           pack32=False), "exact"),          # f32 cache
     (dict(dtype=torch.int8, d=128, p_tile=128, s_eff=640, k_pair=10,
@@ -140,9 +140,9 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=640, k_pair=17,
           pack32=False), "exact"),          # the lists hold 16
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=2048, k_pair=49,
-          pack32=True), "tc_pack32"),       # its shared memory fits 49-64
+          pack32=True), "tc_pack32"),       # sorted phase ends: 49-64
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=4096, k_pair=64,
-          pack32=True), "tc_pack32"),       # the deep-k head, G = 512
+          pack32=True), "tc_wgn_pack32"),   # the deep-k head, G = 512
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=512, k_pair=64,
           pack32=True), "tc_pack32"),       # the untapered deep-k, G = 256
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=4096, k_pair=65,
@@ -154,7 +154,7 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=200, k_pair=10,
           pack32=True), "pack32"),          # G = s_eff = 200
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=200, k_pair=10,
-          pack32=False), "tc_exact"),       # a ragged last tile
+          pack32=False), "tc_wgn_exact"),   # a ragged last tile
     # the GIST-class bf16 cache (d 1024: 2,048-byte rows in 256-byte k
     # chunks), exact and pack32 over G = 128 and 512, on the
     # warp-specialised route (wgmma, TMA ring)
@@ -184,7 +184,7 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.bfloat16, d=136, p_tile=128, s_eff=640, k_pair=16,
           pack32=False), "tc_wg_exact"),    # the narrowest k-chunked row
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=2048, k_pair=10,
-          pack32=False), "tc_exact"),       # A in registers: mma.sync
+          pack32=False), "tc_wgn_exact"),   # the narrow rows' widest
     (dict(dtype=torch.bfloat16, d=1024, p_tile=64, s_eff=2048, k_pair=49,
           pack32=True), "tc_wg_pack32"),    # one 64-prober tile a block
     (dict(dtype=torch.bfloat16, d=1024, p_tile=120, s_eff=640, k_pair=10,
@@ -193,6 +193,36 @@ def test_integer_inputs_layout():
           pack32=True), "pack32"),          # G = s_eff = 200
     (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=2048, k_pair=10,
           pack32=False), "tc_int8_exact"),  # int8 rows stay on mma.sync
+    # the narrow warp-specialised instances (d <= 128: the query rows
+    # resident), every bf16 shape the mma.sync kernel took
+    (dict(dtype=torch.bfloat16, d=8, p_tile=16, s_eff=640, k_pair=10,
+          pack32=False), "tc_wgn_exact"),   # one k step, one 16-prober tile
+    (dict(dtype=torch.bfloat16, d=64, p_tile=64, s_eff=640, k_pair=16,
+          pack32=True), "tc_wgn_pack32"),   # one stage a tile
+    (dict(dtype=torch.bfloat16, d=72, p_tile=128, s_eff=4096, k_pair=48,
+          pack32=True), "tc_wgn_pack32"),   # two stages, the second 8 wide
+    (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=2560, k_pair=10,
+          pack32=True), "tc_wgn_pack32"),   # the 4-bit record, G = 128
+    (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=4096, k_pair=16,
+          pack32=True), "tc_wgn_pack32"),   # the deep-k tail, G = 128
+    # pack32 above k_pair 16 stays on block_scan_tc.cu (mma.sync, sorted
+    # phase ends) where a phase covers fewer than 8 window tiles
+    (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=640, k_pair=17,
+          pack32=True), "tc_pack32"),       # G = 128: 5 tiles, one phase
+    (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=640, k_pair=64,
+          pack32=True), "tc_pack32"),       # the residual k = 100
+    (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=2048, k_pair=64,
+          pack32=True), "tc_pack32"),       # pqr3 k = 100: 4 tiles
+    (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=1024, k_pair=64,
+          pack32=True), "tc_pack32"),       # G = 512: 2 tiles
+    (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=4096, k_pair=17,
+          pack32=True), "tc_wgn_pack32"),   # G = 128: 32 tiles
+    (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=2304, k_pair=40,
+          pack32=True), "tc_wgn_pack32"),   # G = 256: 9 tiles
+    (dict(dtype=torch.bfloat16, d=136, p_tile=128, s_eff=512, k_pair=64,
+          pack32=True), "tc_wg_pack32"),    # k chunks: no mma.sync route
+    (dict(dtype=torch.bfloat16, d=136, p_tile=128, s_eff=640, k_pair=10,
+          pack32=True), "tc_wg_pack32"),    # past 256 bytes: k chunks
 ])
 def test_pick_route(shape, route):
     assert bs.pick_route(**shape) == route
@@ -202,31 +232,33 @@ def test_pick_route(shape, route):
 def test_launch_refuses_a_route_that_does_not_fit():
     """launch() checks the route against pick_route before it touches the
     library (None here): the tensor-core route for exact k_pair 20 or an
-    f32 cache, a route of the other select, and a bf16 route for an int8
-    cache."""
+    f32 cache, a route of the other select, a bf16 route for an int8 cache
+    and the bf16 mma.sync route, which no kernel serves now."""
     args = _integer_case(s_eff=256, seed=1)
     kw = dict(s_eff=256, euclidean=True, pack32=False, slot_mask=255)
     with pytest.raises(ValueError, match="tensor-core"):
-        bs.launch(None, 0, *args, route="tc_exact", k_pair=20, **kw)
+        bs.launch(None, 0, *args, route="tc_wgn_exact", k_pair=20, **kw)
     with pytest.raises(ValueError, match="select"):
-        bs.launch(None, 0, *args, route="tc_pack32", k_pair=10, **kw)
+        bs.launch(None, 0, *args, route="tc_wgn_pack32", k_pair=10, **kw)
+    with pytest.raises(ValueError, match="select"):
+        bs.launch(None, 0, *args, route="tc_exact", k_pair=10, **kw)
     f32 = list(args)
     f32[0], f32[6] = args[0].float(), args[6].float()
     with pytest.raises(ValueError, match="tensor-core"):
-        bs.launch(None, 0, *f32, route="tc_exact", k_pair=10, **kw)
+        bs.launch(None, 0, *f32, route="tc_wgn_exact", k_pair=10, **kw)
     i8 = list(args)
     i8[0], i8[6] = args[0].to(torch.int8), args[6].to(torch.int8)
     with pytest.raises(ValueError, match="select"):
         bs.launch(None, 0, *i8, route="exact", k_pair=10, **kw)
     with pytest.raises(ValueError, match="select"):
-        bs.launch(None, 0, *i8, route="tc_exact", k_pair=10, **kw)
+        bs.launch(None, 0, *i8, route="tc_wgn_exact", k_pair=10, **kw)
     with pytest.raises(ValueError, match="select"):
         bs.launch(None, 0, *args, route="tc_int8_exact", k_pair=10, **kw)
 
 
 @pytest.mark.parametrize("d,dtype,k_pair,match", [
-    (32, torch.bfloat16, 10, "tensor-core"),   # rows of 64 bytes
-    (128, torch.bfloat16, 10, "tensor-core"),  # A in registers: mma.sync
+    (32, torch.bfloat16, 10, "tensor-core"),   # rows of 64 bytes: narrow
+    (128, torch.bfloat16, 10, "tensor-core"),  # the narrow instances' widest
     (1040, torch.bfloat16, 10, "tensor-core"),  # a row over 2,048 bytes
     (1024, torch.bfloat16, 17, "tensor-core"),  # the exact lists hold 16
     (1024, torch.float32, 10, "tensor-core"),   # an f32 cache
@@ -408,3 +440,32 @@ def test_wg_smem_mirror_equals_header(pack32):
                                    k_pair=k_pair, pack32=pack32)
         assert header(top, ring + 1) > bs._SMEM_LIMIT, (top, ring)
         lo = top + 1
+
+
+@pytest.mark.parametrize("d,dtype,k_pair,match", [
+    (136, torch.bfloat16, 10, "tensor-core"),  # past 256 bytes: k chunks
+    (100, torch.bfloat16, 10, "tensor-core"),  # d % 8 != 0
+    (128, torch.bfloat16, 17, "tensor-core"),  # the exact lists hold 16
+    (128, torch.float32, 10, "tensor-core"),   # an f32 cache
+    (128, torch.int8, 10, "select"),           # an int8 cache
+])
+def test_launch_refuses_the_narrow_route(d, dtype, k_pair, match):
+    """launch(route="tc_wgn_exact") raises for shapes the narrow
+    warp-specialised instances do not take, before it touches the library
+    (None here)."""
+    args = bs.random_inputs("cpu", s_eff=256, n_blocks=2, nq=20, d=d,
+                            cap_total=2048, dtype=dtype, seed=d)
+    kw = dict(s_eff=256, euclidean=True, pack32=False, slot_mask=255)
+    with pytest.raises(ValueError, match=match):
+        bs.launch(None, 0, *args, route="tc_wgn_exact", k_pair=k_pair, **kw)
+
+
+@pytest.mark.parametrize("s_eff,k_pair,tiles", [
+    (4096, 64, 8), (4096, 16, 32), (2048, 64, 4), (512, 64, 2),
+    (640, 64, 5), (2304, 40, 9), (96, 40, 1), (1024, 10, 8)])
+def test_phase_tiles(s_eff, k_pair, tiles):
+    """The window tiles between two pack32 phase ends, which decide the
+    narrow deep selects' route: s_eff / G for deep groups, every tile of
+    the window for G <= 128 (the phases of scan_tc.cuh and
+    block_scan_wg.cu: one per G > 128 stride)."""
+    assert bs.phase_tiles(s_eff, k_pair) == tiles

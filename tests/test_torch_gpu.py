@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (block scan on its bf16 and int8 tensor-core
-routes and in its bf16/f32 and int8 modes on the CUDA cores, codes scan and
+"""The port's CUDA kernels (block scan on its bf16 warp-specialised routes,
+narrow and k-chunked, its int8 tensor-core route and in its bf16/f32 and
+int8 modes on the CUDA cores, codes scan and
 flat scan on their tensor-core and CUDA-core routes, row gather)
 against their plain PyTorch versions, and the device spill routing against
 its CPU result, on a card; the indexes card against CPU; the sharded
@@ -107,7 +108,8 @@ def test_kernel_matches_plain(cuda, dtype, pack32, s_eff, k_pair):
     mode = "pack32" if pack32 else "exact"
     got, route = _block_launch(args, kw)
     tc = dtype == torch.bfloat16 and (pack32 or k_pair <= 16)
-    assert route == ("tc_" if tc else "") + mode
+    assert route == (("tc_" if pack32 and k_pair > 16 else "tc_wgn_")
+                     if tc else "") + mode
     ref = bs.block_scan_ref(*args, **kw)
     if tc:
         _assert_pads(got, ref, args[1], route, k_pair, pack32)
@@ -121,8 +123,9 @@ def test_kernel_matches_plain(cuda, dtype, pack32, s_eff, k_pair):
 @pytest.mark.parametrize("pack32,k_pair", [(False, 10), (False, 16),
                                            (True, 10), (True, 40)])
 def test_block_tc_kernel_matches_plain(cuda, s_eff, pack32, k_pair):
-    """The tensor-core block scan on random bf16 inputs at the main path's
-    width (d = 128): s_eff 640 is the compacted layout's (a ragged pack32
+    """The narrow warp-specialised block scan on random bf16 inputs at the
+    main path's width (d = 128): s_eff 640 is the compacted layout's (a
+    ragged pack32
     phase count of 5 tiles), pack32 k_pair 40 selects over 512 / 128 / 256
     / 512 strided groups. Live rows to the tolerances of
     _assert_close_rows, pad rows dead. The CUDA-core kernel, launched
@@ -134,7 +137,8 @@ def test_block_tc_kernel_matches_plain(cuda, s_eff, pack32, k_pair):
               slot_mask=bs.util.next_pow2(s_eff) - 1)
     mode = "pack32" if pack32 else "exact"
     got, route = _block_launch(args, kw)
-    assert route == "tc_" + mode
+    # pack32 k_pair 40: phases of 2-5 tiles, block_scan_tc.cu's
+    assert route == ("tc_" if k_pair > 16 else "tc_wgn_") + mode
     ref = bs.block_scan_ref(*args, **kw)
     _assert_pads(got, ref, args[1], route, k_pair, pack32)
     live = args[1] >= 0
@@ -151,10 +155,11 @@ def test_block_tc_kernel_matches_plain(cuda, s_eff, pack32, k_pair):
 def test_block_tc_kernel_integer_ties_exact(cuda, pack32, k_pair, s_eff,
                                             euclidean, d):
     """Integer-valued inputs with runs of equal rows: every sum is exact in
-    any order, so the tensor-core kernel equals the plain version bit for
-    bit on live rows, keys, addresses and pack32 keys, ties included; pad
-    rows dead. s_eff 200 has a ragged last tile, 96 is one tile of G =
-    s_eff groups; d = 40 pads K to 48. The CUDA-core kernel, launched
+    any order, so the narrow warp-specialised kernel equals the plain
+    version bit for bit on live rows, keys, addresses and pack32 keys, ties
+    included; pad rows dead. s_eff 200 has a ragged last tile, 96 is one
+    tile of G = s_eff groups; d = 40 ends in half a k step (its last 8
+    elements zero in both operands). The CUDA-core kernel, launched
     uncounted, equals the plain version on every row."""
     args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
                                    d=d, cap_total=max(8192, 2 * s_eff),
@@ -182,14 +187,17 @@ def test_block_tc_kernel_persistent_grid(cuda, pack32, k_pair, s_eff):
     """A grid of 3 persistent CTAs over 64 blocks: each CTA walks ~21
     blocks, so the state it resets between blocks (live-tile rows, the
     pack32 phase parity of deep G = 512 and 256 and the running lists the
-    extraction reads, the exact lists and queues, the A fragments, the
-    copies in flight) is reused. Integer inputs: live rows equal the plain
-    version bit for bit, pad rows dead."""
+    extraction reads, the exact lists and queues, the resident query
+    buffers and their barriers' phases, the ring in flight) is reused.
+    Integer inputs: live rows equal the plain version bit for bit, pad rows
+    dead."""
     args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
                                    cap_total=8192, seed=k_pair)
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
               slot_mask=bs.util.next_pow2(s_eff) - 1)
-    route = "tc_" + ("pack32" if pack32 else "exact")
+    route = bs.pick_route(dtype=torch.bfloat16, d=128, p_tile=128,
+                          s_eff=s_eff, k_pair=k_pair, pack32=pack32)
+    assert route.startswith("tc_")
     got = _block_uncounted(args, kw, route, n_ctas=3)
     ref = bs.block_scan_ref(*args, **kw)
     _assert_pads(got, ref, args[1], route, k_pair, pack32)
@@ -200,8 +208,8 @@ def test_block_tc_kernel_persistent_grid(cuda, pack32, k_pair, s_eff):
 @pytest.mark.gpu
 @pytest.mark.parametrize("inputs", ["random", "integer"])
 @pytest.mark.parametrize("pack32,k_pair,route", [
-    (True, 64, "tc_pack32"), (True, 64, "pack32"), (True, 16, "tc_pack32"),
-    (False, 64, "exact")])
+    (True, 64, "tc_wgn_pack32"), (True, 64, "pack32"),
+    (True, 16, "tc_wgn_pack32"), (False, 64, "exact")])
 def test_block_deepk_shapes_match_plain(cuda, pack32, k_pair, route, inputs):
     """The deep-k configuration's windows: supercells of 8 cells of 512
     slots (s_eff 4096), d 128, bf16. pack32 k_pair 64 selects over 512
@@ -228,7 +236,7 @@ def test_block_deepk_shapes_match_plain(cuda, pack32, k_pair, route, inputs):
             pt, 128, 1, 512, 1), 128) == 64
         assert bs.pick_route(dtype=torch.bfloat16, d=128, p_tile=128,
                              s_eff=s_eff, k_pair=k_pair,
-                             pack32=True) == "tc_pack32"
+                             pack32=True) == "tc_wgn_pack32"
         got = _block_uncounted(args, kw, route)
     else:
         got, r = _block_launch(args, kw)
@@ -249,14 +257,13 @@ def test_block_deepk_shapes_match_plain(cuda, pack32, k_pair, route, inputs):
 @pytest.mark.parametrize("k_pair", [49, 57, 64])
 @pytest.mark.parametrize("s_eff", [512, 4096])
 def test_block_tc_deep_pack32_matches_plain(cuda, s_eff, k_pair, inputs):
-    """pack32 k_pair 49-64, which the tensor-core body takes since its
-    lists grew past 48: over 256 strided groups at s_eff 512 (the
-    untapered deep-k scan: two phases of 128 groups) and 512 at s_eff 4096
-    (the split's head: four phases), d 128 bf16. Above k_pair 16 each
-    phase end sorts the quad's group maxima, and the slices of blocks with
-    few live tiles hold fewer groups than k_pair (their lists end early).
-    Integer inputs: live rows equal the plain version bit for bit, pad rows
-    dead; random ones to the tolerances of _assert_close_rows. The
+    """pack32 k_pair 49-64, on the narrow deep instance (one query
+    buffer, five ring stages, phase ends pass by pass): over 256 strided
+    groups at s_eff 512 (the untapered deep-k scan: two phases of 128
+    groups) and 512 at s_eff 4096 (the split's head: four phases), d 128
+    bf16; the slices of blocks with few live tiles hold fewer groups than
+    k_pair. Integer inputs: live rows equal the plain version bit for bit,
+    pad rows dead; random ones to the tolerances of _assert_close_rows. The
     CUDA-core kernel, launched uncounted, on every row."""
     make = bs.integer_block_inputs if inputs == "integer" else \
         bs.random_inputs
@@ -266,7 +273,8 @@ def test_block_tc_deep_pack32_matches_plain(cuda, s_eff, k_pair, inputs):
               slot_mask=s_eff - 1)
     assert bs.n_groups(s_eff, k_pair) == (256 if s_eff == 512 else 512)
     got, route = _block_launch(args, kw)
-    assert route == "tc_pack32"
+    # 2 tiles a phase at s_eff 512: block_scan_tc.cu's sorted instance
+    assert route == ("tc_pack32" if s_eff == 512 else "tc_wgn_pack32")
     ref = bs.block_scan_ref(*args, **kw)
     _assert_pads(got, ref, args[1], route, k_pair, True)
     live = args[1] >= 0
@@ -277,6 +285,75 @@ def test_block_tc_deep_pack32_matches_plain(cuda, s_eff, k_pair, inputs):
     else:
         _assert_close_rows(got[live], ref[live], k_pair, True)
         _assert_close_rows(cc, ref, k_pair, True)
+
+
+# the narrow warp-specialised instances' selects: exact k_pair 1 / 10 / 16
+# (s_eff 200: a ragged last tile); pack32 over G = the whole row (96),
+# 128, 256 and 512 strided groups (k_pair 48 / 64: the deep instance, at
+# phases of 9 and 8 tiles, where pick_route keeps it)
+_WGN_SELECTS = [(False, 1, 640), (False, 10, 640), (False, 16, 200),
+                (True, 10, 96), (True, 16, 640), (True, 48, 2304),
+                (True, 64, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("euclidean", [True, False])
+@pytest.mark.parametrize("pack32,k_pair,s_eff", _WGN_SELECTS)
+@pytest.mark.parametrize("d", [8, 32, 64, 72, 128])
+def test_block_wgn_integer_ties_exact(cuda, d, pack32, k_pair, s_eff,
+                                      euclidean):
+    """The narrow instances (d <= 128: one ring stage a tile up to d = 64,
+    two above; d = 8 and 72 end in half a k step, zero in both operands)
+    on integer inputs with runs of equal rows: live rows equal
+    block_scan_ref bit for bit, ties included, pad rows dead; one launch
+    counted under the route's own key."""
+    if pack32:
+        assert bs.n_groups(s_eff, k_pair) in (96, 128, 256, 512)
+    args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=48, nq=500,
+                                   d=d, cap_total=max(8192, 2 * s_eff),
+                                   seed=d + k_pair)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
+              pack32=pack32, slot_mask=bs.util.next_pow2(s_eff) - 1)
+    got, route = _block_launch(args, kw)
+    assert route == "tc_wgn_" + ("pack32" if pack32 else "exact")
+    ref = bs.block_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], route, k_pair, pack32)
+    live = args[1] >= 0
+    assert torch.equal(got[live], ref[live])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack32,k_pair,s_eff", [(False, 10, 640),
+                                                 (True, 16, 640),
+                                                 (True, 64, 4096)])
+@pytest.mark.parametrize("p_tile,n_live", [
+    (16, 1), (16, 15), (64, 1), (64, 15), (64, 63), (128, 1), (128, 15),
+    (128, 63), (128, 128)])
+def test_block_wgn_liveness(cuda, p_tile, n_live, pack32, k_pair, s_eff):
+    """Blocks of p_tile probers with n_live live ones, first in odd blocks
+    and last in even ones (a live 64-prober tile behind a dead one, warp
+    slices of no live prober between live ones), on random inputs at d =
+    128: live rows within _assert_close_rows' tolerances, pad rows dead,
+    on the card's grid and on 3 persistent CTAs alike."""
+    seed = p_tile + n_live + k_pair
+    args = bs.random_inputs(cuda, s_eff=s_eff, n_blocks=32, nq=500,
+                            cap_total=8192, seed=seed)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    pr = torch.randint(0, 500, (32, p_tile), generator=g, device=cuda,
+                       dtype=torch.int32)
+    pr[:, n_live:] = -1
+    pr[0::2] = pr[0::2].roll(p_tile - n_live, dims=1)
+    args[1] = pr.contiguous()
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+              slot_mask=bs.util.next_pow2(s_eff) - 1)
+    got, route = _block_launch(args, kw)
+    assert route == "tc_wgn_" + ("pack32" if pack32 else "exact")
+    ref = bs.block_scan_ref(*args, **kw)
+    live = args[1] >= 0
+    assert int(live.sum()) == 32 * n_live
+    for out in (got, _block_uncounted(args, kw, route, n_ctas=3)):
+        _assert_pads(out, ref, args[1], route, k_pair, pack32)
+        _assert_close_rows(out[live], ref[live], k_pair, pack32)
 
 
 @pytest.mark.gpu
@@ -438,20 +515,23 @@ def test_block_wg_persistent_grid(cuda, d, pack32, k_pair, s_eff):
 @pytest.mark.gpu
 def test_block_wg_entry_refuses_and_sizes(cuda):
     """The warp-specialised entry point: its shared memory equals the
-    mirror (ops/block_scan.py:wg_smem_bytes) at every k_pair, within the
-    limit; it refuses, without launching (cudaErrorInvalidValue, the output
-    keeps its fill), rows of 256 bytes or less (d 128), exact k_pair 17,
-    and a window past the cache; and it holds an SM with one CTA."""
+    mirror (ops/block_scan.py:wg_smem_bytes) at every k_pair, narrow (d
+    8, 72, 128) and k-chunked (d 1024), within the limit; it refuses,
+    without launching (cudaErrorInvalidValue, the output keeps its fill),
+    rows not of 16-byte pieces (d 100), exact k_pair 17 and a window past
+    the cache, narrow and k-chunked; and it holds an SM with one CTA."""
     from torchpq_tpu_torch import _build
     lib = _build.library()
-    for pack32 in (0, 1):
-        for k_pair in range(1, 65 if pack32 else 17):
-            assert lib.torchpq_block_scan_wg_smem(1024, pack32, k_pair) \
-                == bs.wg_smem_bytes(pack32, k_pair) <= bs._SMEM_LIMIT
-            assert lib.torchpq_block_scan_wg_occupancy(
-                1024, pack32, k_pair) == 1
-    for d, k_pair, capacity in ((128, 10, 4096), (1024, 17, 4096),
-                                (1024, 10, 256)):
+    for d in (8, 72, 128, 1024):
+        for pack32 in (0, 1):
+            for k_pair in range(1, 65 if pack32 else 17):
+                assert lib.torchpq_block_scan_wg_smem(d, pack32, k_pair) \
+                    == bs.wg_smem_bytes(pack32, k_pair, d) <= bs._SMEM_LIMIT
+                assert lib.torchpq_block_scan_wg_occupancy(
+                    d, pack32, k_pair) == 1
+    for d, k_pair, capacity in ((100, 10, 4096), (1024, 17, 4096),
+                                (1024, 10, 256), (128, 17, 4096),
+                                (128, 10, 256)):
         args = bs.random_inputs(cuda, s_eff=512, n_blocks=4, nq=50, d=d,
                                 cap_total=4096)
         out = torch.full((4, 128, 2 * k_pair), 7, dtype=torch.int32,
@@ -552,18 +632,19 @@ def test_block_tc_refuses_shapes_past_the_limit(cuda, dtype, d, k_pair):
                           k_pair=k_pair, pack32=False)
     assert route == ("int8_" if int8 else "") + "exact"
     with pytest.raises(ValueError, match="tensor-core"):
-        _block_uncounted(args, kw, "tc_" + route)
+        _block_uncounted(args, kw, ("tc_" if int8 else "tc_wg_") + route)
     out = torch.full((4, 128, 2 * k_pair), 7, dtype=torch.int32,
                      device=cuda)
     ptrs = [t.data_ptr() for t in args]
-    common = (out.data_ptr(), 4, 128, d, s_eff, k_pair, 1, 0, s_eff - 1, 0,
-              2, torch.cuda.current_stream().cuda_stream)
+    tail = (s_eff, k_pair, 1, 0, s_eff - 1, 0, 2,
+            torch.cuda.current_stream().cuda_stream)
     if int8:
         rc = lib.torchpq_block_scan_tc_int8(
             ptrs[0], q_scale.data_ptr(), *ptrs[1:6], scale.data_ptr(),
-            ptrs[6], *common)
+            ptrs[6], out.data_ptr(), 4, 128, d, *tail)
     else:
-        rc = lib.torchpq_block_scan_tc(*ptrs, *common)
+        rc = lib.torchpq_block_scan_wg(*ptrs, out.data_ptr(), 4, 128, d,
+                                       args[6].shape[0], *tail)
     torch.cuda.synchronize()
     assert rc == 1  # cudaErrorInvalidValue
     assert bool((out == 7).all())
@@ -571,11 +652,12 @@ def test_block_tc_refuses_shapes_past_the_limit(cuda, dtype, d, k_pair):
 
 @pytest.mark.gpu
 def test_tc_smem_matches_mirror(cuda):
-    """The library's shared-memory sizes of the three tensor-core scans
-    equal ops/block_scan.py's mirror of scan_tc.cuh:body_smem_bytes (which
-    pick_route reads without the library; bf16 rows of d <= 128, int8 rows
-    in k chunks up to d 1024, and chunked pack32 above k_pair 48 with one
-    running list), the
+    """The library's shared-memory sizes of the tensor-core scans equal
+    ops/block_scan.py's mirrors (which pick_route reads without the
+    library): the narrow warp-specialised bf16 scan's wg_smem_bytes at d <=
+    128, the int8 one's scan_tc.cuh:body_smem_bytes (int8 rows in k chunks
+    up to d 1024, and chunked pack32 above k_pair 48 with one running
+    list), the
     codes scan's its own mirror ops/codes_scan.py:tc_smem_bytes (the
     512 * d-byte codebook beside the body; above pack32 k_pair 48 the deep
     instance's ring and one tile); every routed shape within the limit,
@@ -589,8 +671,10 @@ def test_tc_smem_matches_mirror(cuda):
     for d in (32, 40, 64, 128):
         for pack32 in (0, 1):
             for k_pair in (1, 10, 16, 40, 48, 49, 57, 64):
-                want = bs.tc_route_smem(d=d, pack32=pack32, k_pair=k_pair)
-                assert lib.torchpq_block_scan_tc_smem(d, pack32, k_pair) \
+                if not pack32 and k_pair > 16:
+                    continue
+                want = bs.wg_smem_bytes(pack32, k_pair, d)
+                assert lib.torchpq_block_scan_wg_smem(d, pack32, k_pair) \
                     == want
     for m, dsub in ((8, 4), (8, 5), (16, 4), (64, 2), (32, 4), (128, 1)):
         for pack32 in (0, 1):
@@ -651,15 +735,16 @@ def test_tc_smem_matches_mirror(cuda):
 @pytest.mark.gpu
 def test_block_routes_on_card(cuda):
     """bf16 at d = 128 and 1024 and int8 at d = 128 and 1024 take the
-    tensor-core kernels (bf16 at 1024 the warp-specialised one), pack32
+    tensor-core kernels (bf16 the warp-specialised one's narrow and
+    k-chunked instances), pack32
     k_pair 64 too at every such width; an f32
     cache, bf16 exact k_pair 20 or d = 1032, and int8 at d = 1040 or exact
     k_pair 20 take the CUDA-core one; each counts under its own key, and
     asking the tensor-core route for the others raises before anything
     launches."""
     for dtype, d, k_pair, pack32, route in (
-            (torch.bfloat16, 128, 10, False, "tc_exact"),
-            (torch.bfloat16, 128, 10, True, "tc_pack32"),
+            (torch.bfloat16, 128, 10, False, "tc_wgn_exact"),
+            (torch.bfloat16, 128, 10, True, "tc_wgn_pack32"),
             (torch.float32, 128, 10, False, "exact"),
             (torch.float32, 128, 10, True, "pack32"),
             (torch.bfloat16, 128, 20, False, "exact"),
@@ -689,6 +774,9 @@ def test_block_routes_on_card(cuda):
         if not route.startswith("tc_"):
             with pytest.raises(ValueError):
                 _block_uncounted(args, kw, "tc_" + route)
+            if dtype != torch.int8:
+                with pytest.raises(ValueError):
+                    _block_uncounted(args, kw, "tc_wgn_" + route)
 
 
 @pytest.mark.gpu

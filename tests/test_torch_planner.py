@@ -269,12 +269,12 @@ def test_card_table_names_what_runs(tier):
     the bf16 and f32 caches take it. The int8 and code tiers run every
     probed plan cell-major, so the card's rule names no query_major there
     but the faster of the two plans that run, as the sweep measured them
-    at this point (int8: flat 2.911 ms against cell_major 3.037; codes:
-    cell_major 2.513 against flat 2.834). From the batch threshold on,
+    at this point (int8: cell_major 2.302 ms against flat 2.714; codes:
+    cell_major 2.197 against flat 2.821). From the batch threshold on,
     query_major is never a candidate."""
     shadows = dict(MAIN, tier=tier, n_probe=8, precision="highest")
-    want = {"bf16": "query_major", "float32": "query_major", "int8": "flat",
-            "codes": "cell_major"}[tier]
+    want = {"bf16": "query_major", "float32": "query_major",
+            "int8": "cell_major", "codes": "cell_major"}[tier]
     assert plan_for(64, 10, device="cuda", **shadows) == want
     assert plan_for(BATCH_THRESHOLD["cuda"], 10, device="cuda",
                     **dict(shadows, n_probe=1, s_pow2=16)) != "query_major"

@@ -9,8 +9,12 @@ groups; the m64nN accumulator map is a bijection of (thread, register) onto
 the tile and, per warp, PTX ISA's m16n8 C fragment layout; the wgmma
 descriptor's fields decode back; the TMA boxes of a block's tiles and
 stages cover its window [s_eff rows][d elements] once each, in the phase
-order of the deep pack32 groups; the k16 steps cover d; and the header's
-shared-memory formula equals ops/block_scan.py's mirror."""
+order of the deep pack32 groups, at the k-chunked widths and at the narrow
+ones (d <= 128: one or two stages a tile); the k16 steps cover d; the
+narrow rows' resident query buffer [2][128][128 B] is a bijection of a
+block's 128 rows of 256 bytes whose 64-prober tiles' k16 steps start where
+wgmma's descriptors point; and the header's shared-memory formulas (the
+k-chunked and the narrow instances') equal ops/block_scan.py's mirror."""
 
 import shutil
 import subprocess
@@ -126,9 +130,10 @@ static void descriptor() {
   std::printf("descriptor %s\n", fails > before ? "FAIL" : "OK");
 }
 
-static void boxes() {
-  const int before = fails;
-  const int ds[] = {136, 160, 200, 384, 960, 1024};
+// the window's TMA boxes at widths ds: each (cache row, k element) of a
+// block's window once, tiles in the deep groups' phase order
+template <int N>
+static void boxes_at(const char* name, const int (&ds)[N]) {
   // (s_eff, G): the records' k = 10 (G = 128) and deep k = 100 (G = 512),
   // a G = 256 window and ragged ones
   const int shapes[][2] = {{2048, 128}, {2048, 512}, {512, 256},
@@ -137,9 +142,9 @@ static void boxes() {
     const int nst = stages_of(d);
     int covered = 0;
     for (int st = 0; st < nst; ++st) covered += KSTEP * ksteps_of(d, st);
-    CHECK("boxes", nst * BOX_K >= d && (nst - 1) * BOX_K < d);
-    CHECK("boxes", covered >= d && covered < d + KSTEP);
-    for (int st = 0; st + 1 < nst; ++st) CHECK("boxes", ksteps_of(d, st) == 4);
+    CHECK(name, nst * BOX_K >= d && (nst - 1) * BOX_K < d);
+    CHECK(name, covered >= d && covered < d + KSTEP);
+    for (int st = 0; st + 1 < nst; ++st) CHECK(name, ksteps_of(d, st) == 4);
     for (const auto& sh : shapes) {
       const int s_eff = sh[0], G = sh[1];
       const bool phased = G > BOX_ROWS;
@@ -151,14 +156,14 @@ static void boxes() {
       std::vector<int> seen((size_t)n_tiles * BOX_ROWS * nst * BOX_K, 0);
       for (int it = 0; it < n_tiles; ++it) {
         const int ts = tile_start(it, tpp, stride);
-        CHECK("boxes", ts % BOX_ROWS == 0 && ts < n_tiles * BOX_ROWS);
-        if (phased) CHECK("boxes", ts % G == (it / tpp) * BOX_ROWS);
+        CHECK(name, ts % BOX_ROWS == 0 && ts < n_tiles * BOX_ROWS);
+        if (phased) CHECK(name, ts % G == (it / tpp) * BOX_ROWS);
         for (int st = 0; st < nst; ++st) {
           for (int r = 0; r < BOX_ROWS; ++r) {
             for (int e = 0; e < BOX_K; ++e) {
               const int y = box_y(s0, ts) + r - s0, x = box_x(st) + e;
               if (y < 0 || y >= n_tiles * BOX_ROWS || x >= nst * BOX_K) {
-                CHECK("boxes", false);
+                CHECK(name, false);
                 continue;
               }
               seen[(size_t)y * nst * BOX_K + x] += 1;
@@ -166,10 +171,58 @@ static void boxes() {
           }
         }
       }
-      for (size_t i = 0; i < seen.size(); ++i) CHECK("boxes", seen[i] == 1);
+      for (size_t i = 0; i < seen.size(); ++i) CHECK(name, seen[i] == 1);
     }
   }
+}
+
+static void boxes() {
+  const int before = fails;
+  const int ds[] = {136, 160, 200, 384, 960, 1024};
+  boxes_at("boxes", ds);
   std::printf("boxes %s\n", fails > before ? "FAIL" : "OK");
+}
+
+// narrow rows: d <= 128, one stage a tile up to d = 64, two above
+static void narrow_boxes() {
+  const int before = fails;
+  const int ds[] = {8, 32, 64, 72, 128};
+  boxes_at("narrow_boxes", ds);
+  for (int d : ds) CHECK("narrow_boxes", stages_of(d) == (d <= 64 ? 1 : 2));
+  std::printf("narrow_boxes %s\n", fails > before ? "FAIL" : "OK");
+}
+
+// the resident query buffer: byte kb of row r at qbuf_offset(r, kb), a
+// bijection of [128 rows][256 bytes] onto the buffer that keeps 16-byte
+// pieces whole; k half h of 64-prober tile m is the K-major swizzled
+// operand at h * STAGE_BYTES + m * 8 KB (1,024-byte aligned), whose k16
+// step ks starts (kmajor_desc) at row 64 m's byte 32 ks of that half
+static void qbuf() {
+  const int before = fails;
+  std::vector<int> seen(QBUF_BYTES, 0);
+  for (int r = 0; r < 128; ++r) {
+    for (int kb = 0; kb < NARROW_ROW; ++kb) {
+      const int o = qbuf_offset(r, kb);
+      CHECK("qbuf", o >= 0 && o < QBUF_BYTES);
+      if (o < 0 || o >= QBUF_BYTES) continue;
+      seen[o] += 1;
+      CHECK("qbuf", o % 16 == kb % 16);
+      CHECK("qbuf", o / STAGE_BYTES == kb / SW_ROW);
+    }
+  }
+  for (int o = 0; o < QBUF_BYTES; ++o) CHECK("qbuf", seen[o] == 1);
+  for (int m = 0; m < 2; ++m) {
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t tile = h * STAGE_BYTES + m * (STAGE_BYTES / 2);
+      CHECK("qbuf", tile % SW_ATOM == 0);
+      for (int ks = 0; ks < BOX_K / KSTEP; ++ks) {
+        const uint64_t d = kmajor_desc(tile, ks);
+        CHECK("qbuf", (int)desc_start(d) ==
+                          qbuf_offset(64 * m, SW_ROW * h + 2 * KSTEP * ks));
+      }
+    }
+  }
+  std::printf("qbuf %s\n", fails > before ? "FAIL" : "OK");
 }
 
 int main() {
@@ -177,11 +230,17 @@ int main() {
   accumulator();
   descriptor();
   boxes();
+  narrow_boxes();
+  qbuf();
   for (int pack32 = 0; pack32 < 2; ++pack32) {
     for (int k_pair = 1; k_pair <= 64; ++k_pair) {
       if (!pack32 && k_pair > 16) break;
       std::printf("smem %d %d %zu\n", pack32, k_pair,
                   smem_bytes(pack32, k_pair));
+      std::printf("narrow_smem %d %d %zu %d %d\n", pack32, k_pair,
+                  narrow_smem_bytes(pack32, k_pair),
+                  narrow_ring_of(pack32, k_pair),
+                  narrow_qbufs_of(pack32, k_pair));
     }
   }
   return 0;
@@ -207,7 +266,7 @@ def harness(tmp_path_factory):
 
 
 @pytest.mark.parametrize("check", ["swizzle", "accumulator", "descriptor",
-                                   "boxes"])
+                                   "boxes", "narrow_boxes", "qbuf"])
 def test_layout_map(harness, check):
     """Each map of the header holds its properties (see the module
     docstring); the harness prints the first failing condition."""
@@ -225,3 +284,25 @@ def test_smem_formula_matches_mirror(harness):
         pack32, k_pair, nbytes = int(pack32), int(k_pair), int(nbytes)
         assert bs.wg_smem_bytes(pack32, k_pair) == nbytes, (pack32, k_pair)
         assert nbytes <= bs._SMEM_LIMIT
+
+
+def test_narrow_smem_formula_matches_mirror(harness):
+    """csrc/wg_layout.cuh:narrow_smem_bytes, and the ring stages and query
+    buffers of the narrow instance that serves each k_pair, equal
+    ops/block_scan.py's mirror (wg_smem_bytes at d <= 128,
+    wg_narrow_instance) at every exact k_pair 1-16 and pack32 k_pair 1-64;
+    every such shape fits the limit, and one more ring stage would not at
+    each instance's largest k_pair."""
+    rows = [x.split() for x in harness if x.startswith("narrow_smem ")]
+    assert len(rows) == 16 + 64
+    for _, pack32, k_pair, nbytes, ring, qbufs in rows:
+        pack32, k_pair = int(pack32), int(k_pair)
+        for d in (8, 72, 128):
+            assert bs.wg_smem_bytes(pack32, k_pair, d) == int(nbytes), \
+                (pack32, k_pair, d)
+        assert bs.wg_narrow_instance(pack32, k_pair)[1:] \
+            == (int(ring), int(qbufs)), (pack32, k_pair)
+        assert int(nbytes) <= bs._SMEM_LIMIT
+        if k_pair in ((10, 16) if not pack32 else (16, 64)):
+            stage = bs._WG_STAGE_BYTES + 4 * bs._WG_BOX_ROWS + 16
+            assert int(nbytes) + stage > bs._SMEM_LIMIT, (pack32, k_pair)

@@ -1,28 +1,31 @@
-// IVF block scan over the bf16 decoded cache in k chunks (128 < d <= 1024,
-// d % 8 == 0: the GIST-class cache, 1,024 wide), redesigned for Hopper
-// (sm_90a): warpgroup products (wgmma), window tiles brought by the tensor
-// memory accelerator (TMA) into a ring of shared-memory stages tracked by
-// mbarriers, one producer warpgroup and two consumer warpgroups. The
-// counterpart of torchpq_tpu/ops/pallas_scan.py:scan_blocks_pallas in bf16
-// mode at these widths, as block_scan_tc.cu's k-chunked instances are (the
-// route this one replaces: ops/block_scan.py:pick_route). It computes what
-// they compute, for block b, prober p and window slot j < s_eff:
+// IVF block scan over the bf16 decoded cache (d <= 1024, d % 8 == 0) on
+// Hopper (sm_90a): warpgroup products (wgmma), window tiles brought by the
+// tensor memory accelerator (TMA) into a ring of shared-memory stages
+// tracked by mbarriers, one producer warpgroup and two consumer
+// warpgroups. The counterpart of torchpq_tpu/ops/pallas_scan.py:
+// scan_blocks_pallas in bf16 mode, in two families of instances: narrow
+// rows (d <= 128: the main path's cache, 128 wide; the query rows stay
+// resident, see "Narrow rows" below) and rows in k chunks (128 < d <=
+// 1024: the GIST-class cache, 1,024 wide). It computes, for block b,
+// prober p and window slot j < s_eff:
 //
 //   score = factor * <q_p, y_{start_c[b] + j}> - pen_j,   factor = 2 or 1
 //   pen_j = penalty[start_c[b] + j] + (off[b] <= j < off[b] + cap[b] ? 0 : BIG)
 //
-// with the same numerics (each 256-byte k chunk, 128 elements, summed from
-// zero on the tensor cores, then added into the running f32 sum: the
-// tensor cores' f32 accumulation truncates, and one chain of 64 k steps
-// lost keys at d = 1024) and the same selects in block_scan.cu's
-// wire format, through scan_tc.cuh's functions (exact: value descending,
-// slot ascending, k_pair <= 16; pack32: one maximal key per strided group
-// of slots, then the k_pair largest, k_pair <= 64, pass by pass). Rows whose
+// summed in f32 over bf16 operands: a narrow row in one chain of k16
+// steps (at most 8); a wider one in 256-byte k chunks, 128 elements, each
+// summed from zero on the tensor cores, then added into the running f32
+// sum (the tensor cores' f32 accumulation truncates, and one chain of 64 k
+// steps lost keys at d = 1024). Then the selects of block_scan.cu in its wire
+// format, through scan_tc.cuh's functions (exact: value descending, slot
+// ascending, k_pair <= 16; pack32: one maximal key per strided group of
+// slots, then the k_pair largest, k_pair <= 64, pass by pass). Rows whose
 // prober is -1 are written dead (exact: sortable(-inf) keys and -1
 // addresses; pack32: INT_MIN) and never output.
 //
-// What bounds it on an H100: at the GIST bf16 record's arguments (s_eff
-// 2048, d 1024; pack32 at n_probe 32: 2,677 blocks, 276,019 live probers)
+// What bounds the k-chunked rows on an H100: at the GIST bf16 record's
+// arguments (s_eff 2048, d 1024; pack32 at n_probe 32: 2,677 blocks,
+// 276,019 live probers)
 // the window bytes the blocks cover, ~4.3 GB (~1.3 ms at 3.35 TB/s), and
 // about as long the products of the live probers, ~1.2e12 operations
 // (~1.2 ms at 989 TFLOP/s; the pad rows of live 64-prober tiles add 11%
@@ -98,6 +101,60 @@
 //   barriers, prober rows and tile flags, then the lists of scan_tc.cuh:
 //   227,952 B exact at k_pair 10 (5 stages), 200,800 B at 16 (4); pack32
 //   227,456 B at 16 (6), 210,016 B at 48 (4), 201,296 B at 64 (3).
+//
+// Narrow rows (d <= 128, d % 8 == 0; the instances whose QB > 0): the main
+// path's kernel, which replaced block_scan_tc.cu's mma.sync one for every
+// bf16 shape it took but the pack32 selects above k_pair 16 whose phases
+// cover fewer than 8 window tiles (ops/block_scan.py:tc_deep_ok), where
+// it measured slower.
+// - What bounds it: at the main path's arguments (1M x 128, s_eff 640 over
+//   the compacted layout, 4,075 blocks of 128 probers at n_probe 8, 4,507
+//   at n_probe 32, 15% / 56% of their rows live) the window bytes the
+//   blocks cover, ~0.3 GB (~0.09 ms at 3.35 TB/s), and the products of the
+//   live probers, ~1e10-4e10 operations (~0.01-0.04 ms at 989 TFLOP/s; the
+//   pad rows of live 64-prober tiles add as much again at n_probe 8). The
+//   rest is the select: every live score passes through the pack32 maxima
+//   or the exact staging, then the phase ends' extraction and merges.
+//   The mma.sync kernel ran at 6-10% of the bound on every narrow row,
+//   this design at 11-14% (1.35-1.58x in turns on the rows it took; NVIDIA
+//   H100 80GB HBM3, 700.00 W), where the products, the scores and the
+//   phase-end extraction each take about a third (chip_variants.py
+//   --narrow).
+// - The block's query rows are copied once per block, by the producer's
+//   cp.async right after the block's first window tile is on its way (a
+//   gather by prober index; only the rows of live 64-prober tiles; zeros
+//   for -1 rows and past d), into one of QB resident buffers [2][128][128 B]
+//   (wg_layout.cuh: qbuf_offset; 32 KB), with a full barrier (landed
+//   copies and arrivals) and an empty one (the consumer warps release it
+//   after the block's last products). Two buffers let the next block's
+//   rows land while this one's are scored; the deep pack32 instance keeps
+//   one, so that its ring has five stages and not three, and its copy is
+//   covered by the block's last phase-end select. A ring stage is then the
+//   window's [128][128 B] tile of one k half and its penalties: d <= 64
+//   takes one stage a tile, d <= 128 two. A in registers (wgmma's
+//   register-A form, 32 registers a thread at d = 128) would free the
+//   buffers' shared memory, but each consumer thread would load its
+//   fragments from global memory at every block start, a latency no
+//   producer covers, and hold 32 more registers beside the sums and the
+//   group maxima; the resident buffers cost shared memory the lists leave.
+// - Products: one chain of ceil(d / 16) k16 steps into the tile's sums
+//   themselves (the first wgmma's scale-d false), m64n128k16 with two live
+//   64-prober tiles and m64n64k16 over a column half with one: no chunk
+//   sums and no add (APART false). That frees no register where the
+//   consumers' pressure peaks, the phase end's select, where the k-chunked
+//   rows' chunk sums are dead too: sorted phase ends (scan_tc.cuh:
+//   sort_slice, as block_scan_tc.cu's deep instance has them) spilled
+//   40-64 B at 232 and at 240 registers, so every pack32 instance extracts
+//   pass by pass (chip_variants.py --variants wgn_sorted --ptxas-only).
+// - A 16-prober warp slice of no live prober joins its warpgroup's
+//   products (wgmma is collective) but runs neither the pack32 maxima nor
+//   the exact staging and inserts, extracts no phase end and writes no
+//   list: its rows were written dead as the block started.
+// - Shared memory (wg_layout.cuh: narrow_smem_bytes): 1,024 B of slack,
+//   QB x (32,768 B + 16 B of barriers), a stage's 16,384 B tile + 512 B of
+//   penalties + 16 B of barriers, prober rows, tile flags and the lists:
+//   exact 228,512 B at k_pair 10 (6 stages), 217,744 B at 16 (5); pack32
+//   228,544 B at 16 (8), 218,752 B at 64 (5 stages, one query buffer).
 
 #include <cstdint>
 
@@ -122,14 +179,23 @@ static_assert(WARPS == tc::WARPS && CONSUMERS == tc::THREADS &&
 
 constexpr int THREADS = 384;        // producer warpgroup + two consumers
 constexpr int PRODUCER_REGS = 40;   // setmaxnreg: 128 x 40 + 256 x 232
-constexpr int CONSUMER_REGS = 232;  // <= 65,536
+constexpr int CONSUMER_REGS = 232;  // <= 64,512 (168 x 384 at launch)
+// narrow rows: the same split (56 / 224 spilled in the pack32 instances,
+// chip_variants.py --variants wgn_regs224 --ptxas-only; the producer's
+// query gather fits 40 one copy at a time)
+constexpr int NARROW_PRODUCER_REGS = 40;
+constexpr int NARROW_CONSUMER_REGS = 232;
 constexpr int BAR_CONSUMERS = 1;    // named barrier of the consumers
 constexpr int BAR_PRODUCER = 2;     // and of the producer warpgroup
 constexpr int FULL_ARRIVALS = 2 * 128;  // a producer thread's arrival, and
                                         // its landed copies'
 constexpr int HALF = STAGE_BYTES / 2;   // 64 rows of a stage's operand
 
-template <bool PACK, int KMAX, int NST>
+// PACK: the select; KMAX: exact lists' length, or pack32's largest k_pair
+// extracted pass by pass (PASS_K) or sorted (MAX_PACK_K); NST: ring
+// stages; QB: the narrow rows' resident query buffers (d <= 128), 0 for
+// the k-chunked rows' query copies with every stage.
+template <bool PACK, int KMAX, int NST, int QB>
 __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
     const __grid_constant__ CUtensorMap tmap,
     const __nv_bfloat16* __restrict__ qtable,
@@ -142,13 +208,19 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
   unsigned char* base =
       smem_raw + ((SW_ATOM - (smem_u32(smem_raw) & (SW_ATOM - 1))) &
                   (SW_ATOM - 1));
+  constexpr bool NARROW = QB > 0;
+  constexpr int NQ = NARROW ? QB : 1;  // query buffers, as a modulus
   unsigned char* win = base;                      // [NST][128][128 B]
-  unsigned char* aq = win + NST * STAGE_BYTES;    // [NST][128][128 B]
-  float* pen_s =
-      reinterpret_cast<float*>(aq + NST * STAGE_BYTES);  // [NST][128]
+  // the query rows: k-chunked [NST][128][128 B], a stage's with it;
+  // narrow [QB][2][128][128 B], a block's (qbuf_offset)
+  unsigned char* aq = win + NST * STAGE_BYTES;
+  float* pen_s = reinterpret_cast<float*>(
+      aq + (NARROW ? QB * QBUF_BYTES : NST * STAGE_BYTES));  // [NST][128]
   uint64_t* full = reinterpret_cast<uint64_t*>(pen_s + NST * BOX_ROWS);
   uint64_t* empty = full + NST;
-  int* prow_s = reinterpret_cast<int*>(empty + NST);  // [MAX_PT]
+  uint64_t* qfull = empty + NST;  // narrow: [QB] each
+  uint64_t* qempty = qfull + QB;
+  int* prow_s = reinterpret_cast<int*>(qempty + QB);  // [MAX_PT]
   int* live_s = prow_s + MAX_PT;  // consumers' [4], producer's [4]
   int* keys_s = live_s + 8;       // slice lists [WARPS][16][kls]
 
@@ -169,8 +241,13 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
 
   if (t == 0) {
     for (int i = 0; i < NST; ++i) {
-      mbar_init(full + i, FULL_ARRIVALS);
+      // narrow stages: the producer threads' arrivals and the TMA's bytes
+      mbar_init(full + i, NARROW ? 128 : FULL_ARRIVALS);
       mbar_init(empty + i, WARPS);
+    }
+    for (int i = 0; i < QB; ++i) {
+      mbar_init(qfull + i, FULL_ARRIVALS);
+      mbar_init(qempty + i, WARPS);
     }
     mbar_init_fence();
   }
@@ -178,10 +255,11 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
 
   if (wgi == 0) {
     // ---- producer: the window by TMA, the query rows by cp.async ----
-    setmaxnreg_dec<PRODUCER_REGS>();
+    setmaxnreg_dec<(NARROW ? NARROW_PRODUCER_REGS : PRODUCER_REGS)>();
     const int lane = t % 32;
     const int warp = t / 32;
-    int g = 0;  // stages filled
+    int g = 0;   // stages filled
+    int qi = 0;  // narrow: query buffers filled
     for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
       const int pr = t < p_tile ? probers[(size_t)b * p_tile + t] : -1;
       const unsigned live = __ballot_sync(0xffffffffu, pr >= 0);
@@ -208,7 +286,7 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
             tma_load_2d(win + slot * STAGE_BYTES, &tmap, fb, box_x(st),
                         box_y(s0, ts));
           }
-          if (copy) {
+          if (!NARROW && copy) {
             // the warp's 32 rows, 4 a copy: lane l takes 16-byte piece
             // l % 8 of row 32 warp + 4 i + l / 8 (whole 128-byte lines).
             // The prober and the thread index pass through an opaque move,
@@ -240,15 +318,52 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
             }
             pen_s[slot * BOX_ROWS + t] = p;
           }
-          mbar_arrive_cp_async(fb);
+          if (!NARROW) mbar_arrive_cp_async(fb);
           mbar_arrive(fb);
+        }
+        if constexpr (NARROW) {
+          if (it == 0) {
+            // the block's query rows, once its first tile is on its way,
+            // into a buffer the consumers have released (the warp's 32
+            // rows; lane l takes 16-byte piece l % 8 of row 32 warp + 4 i
+            // + l / 8 in each k half, whole 128-byte lines; zeros for -1
+            // rows and past d)
+            const int qs = qi % NQ;
+            mbar_wait(qempty + qs, ((qi / NQ) & 1) ^ 1);
+            if (copy) {
+              for (int kh = 0; kh < nst; ++kh) {
+                // the prober and the thread index pass through an opaque
+                // move, so the addresses are worked out anew each k half
+                int pv, tv;
+                asm volatile("mov.b32 %0, %1;" : "=r"(pv) : "r"(pr));
+                asm volatile("mov.b32 %0, %1;" : "=r"(tv) : "r"(t));
+                unsigned char* dst = aq + qs * QBUF_BYTES;
+                const int kb = kh * SW_ROW + 16 * (tv % 8);
+                // one copy at a time: the producer's registers hold no
+                // batch of addresses
+#pragma unroll 1
+                for (int i = 0; i < 8; ++i) {
+                  const int rr = 4 * i + (tv % 32) / 8;  // of the warp's 32
+                  const int q = __shfl_sync(0xffffffffu, pv, rr);
+                  tpq::cp_async16(
+                      dst + qbuf_offset((tv / 32) * 32 + rr, kb),
+                      reinterpret_cast<const unsigned char*>(qtable) +
+                          (size_t)max(q, 0) * rb + kb,
+                      q >= 0 && kb < rb ? 16 : 0);
+                }
+              }
+            }
+            mbar_arrive_cp_async(qfull + qs);
+            mbar_arrive(qfull + qs);
+            ++qi;
+          }
         }
       }
     }
     cp_async_wait_all();
   } else {
     // ---- consumers: products, scores and selects ----
-    setmaxnreg_inc<CONSUMER_REGS>();
+    setmaxnreg_inc<(NARROW ? NARROW_CONSUMER_REGS : CONSUMER_REGS)>();
     const int ct = t - 128;
     const int lane = ct % 32;
     const int cw = ct / 32;  // consumer warp
@@ -266,9 +381,16 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
     const uint32_t win_u = smem_u32(win);
     const uint32_t aq_u = smem_u32(aq);
     float sum[2][8][4];  // a tile's sums over its chunks, per column half
-    float part[8][4];     // the chunk's, from zero
+    // APART: the chunk's products from zero into accumulators of their
+    // own, then added into sum (k-chunked rows); else one chain into sum
+    // itself (narrow rows)
+    constexpr bool APART = !NARROW;
+    float part[8][4];
     float part_hi[8][4];  // the second half's (two live 64-prober tiles)
-    int g = 0;  // stages consumed
+    float(&acc)[8][4] = tc::pick<APART>(part, sum[0]);
+    float(&acc_hi)[8][4] = tc::pick<APART>(part_hi, sum[1]);
+    int g = 0;   // stages consumed
+    int qi = 0;  // narrow: query buffers consumed
     for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
       const int pr =
           ct < MAX_PT && ct < p_tile ? probers[(size_t)b * p_tile + ct] : -1;
@@ -304,7 +426,22 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
       const int lt = nm64 == 2 ? cw : wq;    // this warp's, among them
       const int nhalf = nm64 == 2 ? 2 : 1;   // column halves it takes
       const int s0 = start_c[b];
-      const uint32_t a_tile = aq_u + m64 * HALF;
+      // this warp's 16 rows hold a live prober: else it scores and selects
+      // nothing (its rows were written dead), but joins the products
+      const bool wlive =
+          !NARROW ||
+          __any_sync(0xffffffffu, prow_s[64 * m64 + 16 * wq + lane % 16] >= 0);
+      // the window columns this warp scores of each tile (none where its
+      // rows hold no live prober): a bound the scores' own conditions read,
+      // so a dead slice adds no branch of its own (a branch spilled)
+      const int ncol = wlive ? s_eff : 0;
+      // the query rows' 64-prober tile: narrow, of the block's buffer
+      const int qs = qi % NQ;
+      const uint32_t a_tile = aq_u + qs * QBUF_BYTES + m64 * HALF;
+      if constexpr (NARROW) {
+        mbar_wait(qfull + qs, (qi / NQ) & 1);
+        fence_proxy_async();  // the query copies, for wgmma's reads
+      }
 
       // select state: exact lists (lane l keeps row l / 2 of the warp's 16
       // over its half of each 64 columns) and the bound, or pack32 maxima
@@ -335,9 +472,13 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
       for (int it = 0; it < n_tiles; ++it) {
         const int ts = tile_start(it, tpp, stride);
         const int nrow = min(BOX_ROWS, s_eff - ts);
+        const int nscore = min(BOX_ROWS, ncol - ts);  // columns it scores
         // the tile's sums start at -0, the identity of f32 addition (-0 +
         // x is x, -0 and +0 included): the first chunk's add is its
-        // assignment, and no sum stays live from the last tile
+        // assignment, and no sum stays live from the last tile (narrow:
+        // the chain's first wgmma overwrites them, and the reset keeps a
+        // path without products from carrying the last tile's sums across
+        // the phase end's select)
 #pragma unroll
         for (int lh = 0; lh < 2; ++lh) {
 #pragma unroll
@@ -353,53 +494,60 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
           const int sb = (g + 1) % NST;
           mbar_wait(full + sa, (g / NST) & 1);
           if (nsc > 1) mbar_wait(full + sb, ((g + 1) / NST) & 1);
-          fence_proxy_async();  // the query copies, for wgmma's reads
+          if (!NARROW) fence_proxy_async();  // the stage's query copies
           const int ka = ksteps_of(d, 2 * kc);
           const int kb = nsc > 1 ? ksteps_of(d, 2 * kc + 1) : 0;
           const float* pen = pen_s + ((g + nsc - 1) % NST) * BOX_ROWS;
+          // A of the chunk's two stages: narrow, the k halves of the
+          // block's buffer (its address through an opaque move, so that
+          // the descriptors are worked out anew each tile rather than
+          // kept across the selects); k-chunked, the stages' query tiles
+          uint32_t qa = a_tile + (NARROW ? 0 : sa * STAGE_BYTES);
+          if constexpr (NARROW) asm volatile("mov.b32 %0, %0;" : "+r"(qa));
+          const uint32_t qb =
+              NARROW ? qa + STAGE_BYTES : a_tile + sb * STAGE_BYTES;
           if (nm64 == 2) {  // both halves in one chain
             wgmma_fence();
-            wgmma_m64n128k16_zero(part, part_hi,
-                                  kmajor_desc(a_tile + sa * STAGE_BYTES, 0),
+            wgmma_m64n128k16_zero(acc, acc_hi, kmajor_desc(qa, 0),
                                   kmajor_desc(win_u + sa * STAGE_BYTES, 0));
 #pragma unroll
             for (int ks = 1; ks < 4; ++ks) {
               if (ks < ka) {
-                wgmma_m64n128k16(
-                    part, part_hi, kmajor_desc(a_tile + sa * STAGE_BYTES, ks),
-                    kmajor_desc(win_u + sa * STAGE_BYTES, ks));
+                wgmma_m64n128k16(acc, acc_hi, kmajor_desc(qa, ks),
+                                 kmajor_desc(win_u + sa * STAGE_BYTES, ks));
               }
             }
 #pragma unroll
             for (int ks = 0; ks < 4; ++ks) {
               if (ks < kb) {
-                wgmma_m64n128k16(
-                    part, part_hi, kmajor_desc(a_tile + sb * STAGE_BYTES, ks),
-                    kmajor_desc(win_u + sb * STAGE_BYTES, ks));
+                wgmma_m64n128k16(acc, acc_hi, kmajor_desc(qb, ks),
+                                 kmajor_desc(win_u + sb * STAGE_BYTES, ks));
               }
             }
             wgmma_commit();
             wgmma_wait_all();
-            fence_acc(part);
-            fence_acc(part_hi);
+            fence_acc(acc);
+            fence_acc(acc_hi);
+            if constexpr (APART) {
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
+              for (int j = 0; j < 8; ++j) {
 #pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                sum[0][j][i] += part[j][i];
-                sum[1][j][i] += part_hi[j][i];
+                for (int i = 0; i < 4; ++i) {
+                  sum[0][j][i] += part[j][i];
+                  sum[1][j][i] += part_hi[j][i];
+                }
               }
             }
           } else if (64 * h < nrow) {  // one: this warpgroup's half
             wgmma_fence();
             wgmma_m64n64k16_zero(
-                part, kmajor_desc(a_tile + sa * STAGE_BYTES, 0),
+                acc, kmajor_desc(qa, 0),
                 kmajor_desc(win_u + sa * STAGE_BYTES + h * HALF, 0));
 #pragma unroll
             for (int ks = 1; ks < 4; ++ks) {
               if (ks < ka) {
                 wgmma_m64n64k16(
-                    part, kmajor_desc(a_tile + sa * STAGE_BYTES, ks),
+                    acc, kmajor_desc(qa, ks),
                     kmajor_desc(win_u + sa * STAGE_BYTES + h * HALF, ks));
               }
             }
@@ -407,17 +555,19 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
             for (int ks = 0; ks < 4; ++ks) {
               if (ks < kb) {
                 wgmma_m64n64k16(
-                    part, kmajor_desc(a_tile + sb * STAGE_BYTES, ks),
+                    acc, kmajor_desc(qb, ks),
                     kmajor_desc(win_u + sb * STAGE_BYTES + h * HALF, ks));
               }
             }
             wgmma_commit();
             wgmma_wait_all();
-            fence_acc(part);
+            fence_acc(acc);
+            if constexpr (APART) {
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
+              for (int j = 0; j < 8; ++j) {
 #pragma unroll
-              for (int i = 0; i < 4; ++i) sum[0][j][i] += part[j][i];
+                for (int i = 0; i < 4; ++i) sum[0][j][i] += part[j][i];
+              }
             }
           }
           // at a tile's last chunk, the scores (after the chunk's products:
@@ -425,7 +575,7 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
 #pragma unroll
           for (int lh = 0; lh < 2; ++lh) {
             const int hv = nm64 == 2 ? lh : h;
-            if (last_k && lh < nhalf && 64 * hv < nrow) {
+            if (last_k && lh < nhalf && 64 * hv < nscore) {
               {
                 // the scores of this lane's columns of the half, ascending
                 if constexpr (PACK) {
@@ -433,12 +583,12 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
                   for (int nt = 0; nt < 8; ++nt) {
                     const int c8 = 64 * hv + 8 * nt;  // the n8 tile's
                     const int cl = c8 + tpq::frag_c_col(lane, 0);
-                    if (c8 < nrow) {
+                    if (c8 < nscore) {
                       const float2 p =
                           *reinterpret_cast<const float2*>(pen + cl);
 #pragma unroll
                       for (int i = 0; i < 2; ++i) {
-                        if (cl + i < nrow) {
+                        if (cl + i < nscore) {
 #pragma unroll
                           for (int rr = 0; rr < 2; ++rr) {
                             const float sc = tc::Bf16::score(
@@ -462,7 +612,7 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
                   for (int nt = 0; nt < 8; ++nt) {
                     const int c8 = 64 * hv + 8 * nt;
                     const int cl = c8 + tpq::frag_c_col(lane, 0);
-                    if (c8 < nrow) {
+                    if (c8 < nscore) {
                       const float2 p =
                           *reinterpret_cast<const float2*>(pen + cl);
 #pragma unroll
@@ -487,7 +637,7 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
                   int j0 = 0;
                   if (it == 0 && lh == 0) {
                     tc::first_fill<16, KMAX>(vals, cols, sr, c0, ts + c0,
-                                             nrow);
+                                             nscore);
                     j0 = 16;
                     const float kth = tc::kth_of(vals, k_pair);
                     bound = fmaxf(
@@ -507,7 +657,7 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
                                        : u == 1 ? s4.y
                                        : u == 2 ? s4.z
                                                 : s4.w;
-                      if (c0 + j + u < nrow && sc >= bound &&
+                      if (c0 + j + u < nscore && sc >= bound &&
                           sc > vals[KMAX - 1]) {
                         queue.push(sc, ts + c0 + j + u);
                       }
@@ -536,6 +686,8 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
           if (lane == 0) {  // the chunk's stages are free again
             mbar_arrive(empty + sa);
             if (nsc > 1) mbar_arrive(empty + sb);
+            // narrow: and the query buffer after the block's last products
+            if (NARROW && it + 1 == n_tiles) mbar_arrive(qempty + qs);
           }
           g += nsc;
           if constexpr (PACK) {
@@ -544,12 +696,15 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
               // quad's shuffles, into its shared list; then one thread per
               // live row merges its slices' lists and the running list
               int* ks_w = keys_s + cw * 16 * kls;
+              // a slice of no live row extracts nothing (its lists are
+              // never read): a count, not a branch of its own (a branch
+              // spilled)
+              const int kx = wlive ? k_pair : 0;
               if (S == 1) {
-                tc::select_slice<tc::NGRP, SORT>(mx, ks_w, lane, k_pair,
-                                                 kls);
+                tc::select_slice<tc::NGRP, SORT>(mx, ks_w, lane, kx, kls);
               } else {
-                tc::select_slice<tc::NGRP / 2, SORT>(mx, ks_w, lane,
-                                                     k_pair, kls);
+                tc::select_slice<tc::NGRP / 2, SORT>(mx, ks_w, lane, kx,
+                                                     kls);
               }
               named_barrier(BAR_CONSUMERS, CONSUMERS);
               if (ct < 16 * nm && prow_s[base64 + ct] >= 0) {
@@ -604,9 +759,10 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
         }
       } else {
         // each slice's k_pair best per row: the better head of the row's
-        // two lanes, then its owner pops it
+        // two lanes, then its owner pops it (a slice of no live row has
+        // nothing to give)
         queue.flush(vals, cols);
-        for (int i = 0; i < k_pair; ++i) {
+        for (int i = 0; i < (wlive ? k_pair : 0); ++i) {
           float v = vals[0];
           int c = cols[0];
           const float ov = __shfl_xor_sync(0xffffffffu, v, 1);
@@ -664,16 +820,24 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
           }
         }
       }
+      ++qi;
     }
   }
 }
 
-size_t smem_of(int pack32, int k_pair) { return smem_bytes(pack32, k_pair); }
+// Dynamic shared memory of the instance that serves inst_k (0: k_pair) at
+// width d, writing k_pair keys or entries a row: its ring (and narrow, its
+// query buffers) and k_pair's lists.
+size_t smem_of(int d, int pack32, int k_pair, int inst_k = 0) {
+  const int ik = inst_k ? inst_k : k_pair;
+  return 2 * d <= NARROW_ROW ? narrow_smem_bytes(pack32, k_pair, ik)
+                             : smem_bytes(pack32, k_pair, ring_of(pack32, ik));
+}
 
-template <bool PACK, int KMAX, int NST>
-int occupancy_of(int pack32, int k_pair) {
-  auto kern = block_scan_wg_kernel<PACK, KMAX, NST>;
-  const size_t smem = smem_of(pack32, k_pair);
+template <bool PACK, int KMAX, int NST, int QB>
+int occupancy_of(int d, int pack32, int k_pair) {
+  auto kern = block_scan_wg_kernel<PACK, KMAX, NST, QB>;
+  const size_t smem = smem_of(d, pack32, k_pair);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess) {
@@ -713,13 +877,13 @@ int launch_wg(const void* qtable, const int* probers, const int* start_c,
               int capacity, int s_eff, int k_pair, int euclidean, int pack32,
               int slot_mask, int n_groups, int n_ctas, void* stream,
               int inst_k) {
-  const size_t smem = smem_bytes(pack32, k_pair, ring_of(pack32, inst_k));
+  const size_t smem = smem_of(d, pack32, k_pair, inst_k);
   if (!tc::shape_ok(n_blocks, n_ctas, p_tile, 2 * d,
                     tc::MAX_CHUNKED_ROW_BF16, s_eff, k_pair, pack32,
                     n_groups) ||
       inst_k < k_pair ||
       inst_k > (pack32 ? tc::MAX_PACK_K : tc::MAX_EXACT_K) ||
-      2 * d <= tc::MAX_ROW || capacity < s_eff || smem > tc::SMEM_LIMIT ||
+      capacity < s_eff || smem > tc::SMEM_LIMIT ||
       reinterpret_cast<uintptr_t>(qtable) % 16 ||
       reinterpret_cast<uintptr_t>(decoded) % 16) {
     return (int)cudaErrorInvalidValue;
@@ -736,11 +900,19 @@ int launch_wg(const void* qtable, const int* probers, const int* start_c,
       map, static_cast<const __nv_bfloat16*>(qtable), probers, start_c, off, \
       capb, penalty, out, n_blocks, p_tile, d, s_eff, k_pair, factor,        \
       slot_mask, n_groups)
-  if (pack32 && inst_k > DEEP_K) TPQ_LAUNCH(true, tc::PASS_K, RING_DEEP);
-  if (pack32 && inst_k > 16) TPQ_LAUNCH(true, tc::PASS_K, RING_PACK);
-  if (pack32) TPQ_LAUNCH(true, tc::PASS_K, RING_PACK_16);
-  if (inst_k <= 10) TPQ_LAUNCH(false, 10, RING_EXACT_10);
-  TPQ_LAUNCH(false, 16, RING_EXACT);
+  if (2 * d <= NARROW_ROW) {  // narrow rows: resident query buffers
+    if (pack32 && inst_k > tc::PASS_K) {  // the deep selects
+      TPQ_LAUNCH(true, tc::PASS_K, NRING_DEEP, NQB_DEEP);
+    }
+    if (pack32) TPQ_LAUNCH(true, tc::PASS_K, NRING_PACK_16, NQB);
+    if (inst_k <= 10) TPQ_LAUNCH(false, 10, NRING_EXACT_10, NQB);
+    TPQ_LAUNCH(false, 16, NRING_EXACT, NQB);
+  }
+  if (pack32 && inst_k > DEEP_K) TPQ_LAUNCH(true, tc::PASS_K, RING_DEEP, 0);
+  if (pack32 && inst_k > 16) TPQ_LAUNCH(true, tc::PASS_K, RING_PACK, 0);
+  if (pack32) TPQ_LAUNCH(true, tc::PASS_K, RING_PACK_16, 0);
+  if (inst_k <= 10) TPQ_LAUNCH(false, 10, RING_EXACT_10, 0);
+  TPQ_LAUNCH(false, 16, RING_EXACT, 0);
 #undef TPQ_LAUNCH
 }
 
@@ -783,26 +955,44 @@ extern "C" int torchpq_block_scan_wg_instance(
                    pack32, slot_mask, n_groups, n_ctas, stream, inst_k);
 }
 
-// Dynamic shared memory of one CTA (d does not enter: the ring's stages
-// are 64 elements of any row).
-extern "C" long long torchpq_block_scan_wg_smem(int, int pack32,
+// Dynamic shared memory of one CTA at width d (narrow rows, d <= 128, or
+// k-chunked ones: d enters no further, the ring's stages being 64 elements
+// of any row).
+extern "C" long long torchpq_block_scan_wg_smem(int d, int pack32,
                                                int k_pair) {
-  return (long long)smem_of(pack32, k_pair);
+  return (long long)smem_of(d, pack32, k_pair);
 }
 
 // CTAs one SM holds at once (registers and shared memory permitting), or
 // minus the CUDA error code.
-extern "C" int torchpq_block_scan_wg_occupancy(int, int pack32, int k_pair) {
+extern "C" int torchpq_block_scan_wg_occupancy(int d, int pack32,
+                                               int k_pair) {
+  if (2 * d <= NARROW_ROW) {
+    if (pack32 && k_pair > tc::PASS_K) {
+      return occupancy_of<true, tc::PASS_K, NRING_DEEP, NQB_DEEP>(
+          d, pack32, k_pair);
+    }
+    if (pack32) {
+      return occupancy_of<true, tc::PASS_K, NRING_PACK_16, NQB>(d, pack32,
+                                                                k_pair);
+    }
+    return k_pair <= 10
+               ? occupancy_of<false, 10, NRING_EXACT_10, NQB>(d, pack32,
+                                                              k_pair)
+               : occupancy_of<false, 16, NRING_EXACT, NQB>(d, pack32,
+                                                           k_pair);
+  }
   if (pack32 && k_pair > DEEP_K) {
-    return occupancy_of<true, tc::PASS_K, RING_DEEP>(pack32, k_pair);
+    return occupancy_of<true, tc::PASS_K, RING_DEEP, 0>(d, pack32, k_pair);
   }
   if (pack32 && k_pair > 16) {
-    return occupancy_of<true, tc::PASS_K, RING_PACK>(pack32, k_pair);
+    return occupancy_of<true, tc::PASS_K, RING_PACK, 0>(d, pack32, k_pair);
   }
   if (pack32) {
-    return occupancy_of<true, tc::PASS_K, RING_PACK_16>(pack32, k_pair);
+    return occupancy_of<true, tc::PASS_K, RING_PACK_16, 0>(d, pack32,
+                                                           k_pair);
   }
   return k_pair <= 10
-             ? occupancy_of<false, 10, RING_EXACT_10>(pack32, k_pair)
-             : occupancy_of<false, 16, RING_EXACT>(pack32, k_pair);
+             ? occupancy_of<false, 10, RING_EXACT_10, 0>(d, pack32, k_pair)
+             : occupancy_of<false, 16, RING_EXACT, 0>(d, pack32, k_pair);
 }

@@ -148,18 +148,67 @@ TPQ_HD constexpr int ring_of(int pack32, int k_pair) {
                                       : RING_DEEP)
                 : (k_pair <= 10 ? RING_EXACT_10 : RING_EXACT);
 }
+// The select's shared arrays after the prober rows and tile flags: the
+// slice lists, then pack32's running lists or exact's values, staging rows,
+// row bounds and queues.
+TPQ_HD constexpr size_t select_bytes(int pack32, int k_pair) {
+  return (size_t)4 * WARPS * 16 * (pack32 ? (k_pair | 1) : k_pair) +
+         (pack32 ? (size_t)2 * 4 * MAX_PT * (k_pair | 1)
+                 : (size_t)4 * WARPS * 16 * k_pair +
+                       (size_t)4 * WARPS * 16 * (SLD + 1) +
+                       (size_t)8 * QUEUE * CONSUMERS);
+}
 // ring: the instance's stages (0: ring_of's, those of the instance that
 // serves k_pair).
 TPQ_HD constexpr size_t smem_bytes(int pack32, int k_pair, int ring = 0) {
   return (size_t)SW_ATOM +
          (size_t)(ring ? ring : ring_of(pack32, k_pair)) *
              (2 * STAGE_BYTES + 4 * BOX_ROWS + 16) +
-         4 * MAX_PT + 4 * 8 +
-         (size_t)4 * WARPS * 16 * (pack32 ? (k_pair | 1) : k_pair) +
-         (pack32 ? (size_t)2 * 4 * MAX_PT * (k_pair | 1)
-                 : (size_t)4 * WARPS * 16 * k_pair +
-                       (size_t)4 * WARPS * 16 * (SLD + 1) +
-                       (size_t)8 * QUEUE * CONSUMERS);
+         4 * MAX_PT + 4 * 8 + select_bytes(pack32, k_pair);
+}
+
+// Narrow rows (d <= 128, 256 bytes: the instances whose QB > 0). The
+// block's query rows stay resident while its window tiles go by, in QB
+// buffers of two k halves [2][128][128 B] (half h: elements 64 h .. 64 h +
+// 63 of each row, in the 128-byte swizzle), each with a full and an empty
+// barrier; a ring stage holds the window's 64 k elements and the tile's
+// penalties only. Per instance as many stages as the lists leave room for:
+// exact k_pair <= 10 six, exact five, pack32 k_pair <= 16 eight, each with
+// two query buffers (the next block's rows copied while this one's are
+// scored); the deep pack32 instance (k_pair 17-64) five stages and one
+// buffer (two would leave three stages).
+constexpr int NARROW_ROW = 256;  // widest narrow row (bytes)
+constexpr int QBUF_BYTES = 2 * STAGE_BYTES;
+constexpr int NRING_EXACT_10 = 6;
+constexpr int NRING_EXACT = 5;
+constexpr int NRING_PACK_16 = 8;
+constexpr int NRING_DEEP = 5;
+constexpr int NQB = 2;       // query buffers, but the deep instance's
+constexpr int NQB_DEEP = 1;
+
+TPQ_HD constexpr int narrow_ring_of(int pack32, int k_pair) {
+  return pack32 ? (k_pair <= 16 ? NRING_PACK_16 : NRING_DEEP)
+                : (k_pair <= 10 ? NRING_EXACT_10 : NRING_EXACT);
+}
+TPQ_HD constexpr int narrow_qbufs_of(int pack32, int k_pair) {
+  return pack32 && k_pair > 16 ? NQB_DEEP : NQB;
+}
+// Byte offset of byte kb (< 256) of query row `row` in a query buffer.
+TPQ_HD constexpr int qbuf_offset(int row, int kb) {
+  return (kb / SW_ROW) * STAGE_BYTES + sw128_offset(row, kb % SW_ROW);
+}
+// The shared memory of the narrow instance that serves inst_k (0: k_pair),
+// writing k_pair entries a row: alignment slack, the query buffers and
+// their barriers, the ring's stages (window tile, penalties, full and empty
+// barriers), prober rows, tile flags and the select's arrays.
+TPQ_HD constexpr size_t narrow_smem_bytes(int pack32, int k_pair,
+                                          int inst_k = 0) {
+  return (size_t)SW_ATOM +
+         (size_t)narrow_qbufs_of(pack32, inst_k ? inst_k : k_pair) *
+             (QBUF_BYTES + 16) +
+         (size_t)narrow_ring_of(pack32, inst_k ? inst_k : k_pair) *
+             (STAGE_BYTES + 4 * BOX_ROWS + 16) +
+         4 * MAX_PT + 4 * 8 + select_bytes(pack32, k_pair);
 }
 
 }  // namespace wg

@@ -316,9 +316,9 @@ def _search_full_codes(q, coarse_codebook, codes, norms, is_empty,
 # "fast" (the tensor-core selects) or "slow" (an exact k_pair above 16 on
 # the CUDA cores, or a k_pair above 64 on the plain select). The flat
 # "bf16" terms, cell_major and query_major are one sweep's whole fit (the
-# k-chunked bf16 scans on block_scan_wg.cu); the flat "f32" terms are the
-# fit of the sweep at "highest" before it (the sweep runs at the shipped
-# default).
+# bf16 scans on block_scan_wg.cu: its narrow instances at d <= 128, k-chunked
+# ones above); the flat "f32" terms are the fit of the sweep at "highest"
+# before it (the sweep runs at the shipped default).
 CARD_PLAN_COSTS = {
     "flat": {
         "f32": dict(
@@ -326,21 +326,21 @@ CARD_PLAN_COSTS = {
             pass_ps={"bf16": 227.0, "int8": 564.0, "codes": 1740.0},
             slot_ps={"bf16": 24.2, "int8": 29.3, "codes": 23.4}),
         "bf16": dict(
-            call_ms=0.728, pass_width=1.49, slot_width=0.00768,
-            pass_ps={"bf16": 61.6, "int8": 433.0, "codes": 1030.0},
-            slot_ps={"bf16": 18.0, "int8": 29.2, "codes": 17.8})},
+            call_ms=0.605, pass_width=0.716, slot_width=0.00732,
+            pass_ps={"bf16": 98.9, "int8": 382.0, "codes": 1110.0},
+            slot_ps={"bf16": 18.3, "int8": 29.3, "codes": 17.8})},
     "cell_major": dict(
-        call_ms=3.54, width={"fast": 2.92, "slow": 0.546},
-        query_us={"bf16": {"fast": 0.0233, "slow": 0.008},
-                  "int8": {"fast": 0.0115, "slow": 7.07},
-                  "codes": {"fast": 0.00167, "slow": 127.0}},
-        pair_ns={"bf16": {"fast": 1.91, "slow": 0.0},
-                 "int8": {"fast": 0.0, "slow": 0.0},
-                 "codes": {"fast": 0.0, "slow": 0.0}},
-        slot_ps={"bf16": {"fast": 0.937, "slow": 51.6},
-                 "int8": {"fast": 3.02, "slow": 130.0},
-                 "codes": {"fast": 4.28, "slow": 0.0}}),
-    "query_major": dict(call_ms=1.4, width=1.69, slot_ps=966.0),
+        call_ms=2.98, width={"fast": 5.02, "slow": 0.479},
+        query_us={"bf16": {"fast": 0.0748, "slow": 0.0619},
+                  "int8": {"fast": 0.0274, "slow": 6.36},
+                  "codes": {"fast": 0.134, "slow": 147.0}},
+        pair_ns={"bf16": {"fast": 1.76, "slow": 0.0},
+                  "int8": {"fast": 0.0, "slow": 0.0},
+                  "codes": {"fast": 0.0, "slow": 0.0}},
+        slot_ps={"bf16": {"fast": 0.566, "slow": 56.6},
+                  "int8": {"fast": 3.07, "slow": 112.0},
+                  "codes": {"fast": 4.37, "slow": 0.0}}),
+    "query_major": dict(call_ms=1.24, width=2.07, slot_ps=682.0),
 }
 
 

@@ -6,23 +6,27 @@ Replaces the TPU kernel torchpq_tpu/ops/pallas_scan.py:scan_blocks_pallas
 prober id). Four kernels serve it, chosen before launch by `pick_route`,
 each built by `_build.py`, bound through plain C entry points and counted
 under its own key of `launches`:
-  - "tc_wg_exact" / "tc_wg_pack32", `csrc/block_scan_wg.cu`: bf16 caches
-    with rows of 128 < d <= 1024 (d % 8 == 0: the GIST-class cache, 1,024
-    wide), on Hopper's warpgroup products
-    (wgmma bf16, f32 sums, each 256-byte k chunk summed from zero) fed by
-    TMA through a shared-memory ring, one producer and two consumer
-    warpgroups;
-  - "tc_exact" / "tc_pack32", `csrc/block_scan_tc.cu`: bf16 caches with
-    rows of d <= 128 (d % 8 == 0), blocks of at most 128 probers, on the
-    tensor cores (mma.sync bf16, f32 sums), scoring only the live
-    16-prober tiles of a block; the bf16 tier's probed plans and the
-    deep-k scans (pack32 k_pair 64) included;
+  - `csrc/block_scan_wg.cu`, bf16 caches with rows of d <= 1024 (d % 8 ==
+    0), blocks of at most 128 probers, on Hopper's warpgroup products
+    (wgmma bf16, f32 sums) fed by TMA through a shared-memory ring, one
+    producer and two consumer warpgroups, in two families of instances:
+    "tc_wgn_exact" / "tc_wgn_pack32", rows of d <= 128 (the main path's
+    cache: the bf16 tier's probed plans and the deep-k scans, pack32
+    k_pair 64, included), the block's query rows resident in shared
+    memory and one chain of k steps; "tc_wg_exact" / "tc_wg_pack32", rows
+    of 128 < d <= 1024 (the GIST-class cache, 1,024 wide), each 256-byte
+    k chunk summed from zero;
+  - "tc_pack32", `csrc/block_scan_tc.cu`: the pack32 selects above k_pair
+    16 at d <= 128 whose phases cover fewer than 8 window tiles
+    (`tc_deep_ok`), on mma.sync with sorted phase ends, which beat the
+    narrow wgmma instances' passes there;
   - "tc_int8_exact" / "tc_int8_pack32", `csrc/block_scan_tc_int8.cu`: int8
     caches with rows of d <= 1024 (d % 16 == 0; above 256 in k chunks of
     256 bytes), the same blocks, on the tensor cores (mma.sync s8, exact
     s32 sums) through the same kernel body; the int8 tier's probed plans;
     in k chunks, pack32 above k_pair 48 runs an instance of its own that
-    keeps one running list (its shared memory);
+    keeps one running list (its shared memory); on mma.sync (s8), scoring
+    only the live 16-prober tiles of a block;
   - "exact" / "pack32" and "int8_exact" / "int8_pack32",
     `csrc/block_scan.cu`: f32 caches and the shapes the tensor-core kernels
     do not take, on the CUDA cores (f32 FMAs, __dp4a).
@@ -44,9 +48,10 @@ alike are far below the card's rates (the bf16 plans' bound is ~0.09 ms,
 set by the window bytes). The CUDA-core kernel spends its time on an f32
 FMA (or __dp4a) chain per prober, pad probers included (every window
 element feeds 128 of them). The tensor-core kernels run the products on
-mma.sync for the live 16-prober tiles only and copy the window rows as
-they lie (cp.async tiles, no conversion); what is left is the select, one
-pass over every live score, and the latency of each tile's copy.
+the tensor cores for the live 64-prober (wgmma) or 16-prober (mma.sync)
+tiles only and bring the window rows as they lie (TMA boxes or cp.async
+tiles, no conversion); what is left is the select, one pass over every
+live score, and the latency of each tile's copy.
 
 The products of bf16 values are exact in f32, so the kernels and the plain
 version differ only in summation order: they agree bit for bit where every
@@ -77,8 +82,9 @@ BIG = float(np.float32(np.finfo(np.float32).max) / np.float32(4))
 # ("tc_*": the tensor-core kernels, bf16 and int8; the others: the CUDA-core
 # one, per cache mode and select)
 launches = {"exact": 0, "pack32": 0, "int8_exact": 0, "int8_pack32": 0,
-            "tc_exact": 0, "tc_pack32": 0, "tc_int8_exact": 0,
-            "tc_int8_pack32": 0, "tc_wg_exact": 0, "tc_wg_pack32": 0}
+            "tc_pack32": 0, "tc_int8_exact": 0, "tc_int8_pack32": 0,
+            "tc_wg_exact": 0, "tc_wg_pack32": 0, "tc_wgn_exact": 0,
+            "tc_wgn_pack32": 0}
 
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one CTA may use on sm_90
 _CHUNK_SCORES = 1 << 25   # f32 scores per chunk of the plain version (128 MB)
@@ -105,6 +111,17 @@ _WG_BOX_ROWS = 128      # window columns per tile
 _WG_RING_EXACT_10, _WG_RING_EXACT = 5, 4
 _WG_RING_PACK_16, _WG_RING_PACK, _WG_RING_DEEP = 6, 4, 3
 _WG_DEEP_K = 48
+# its narrow rows (d <= 128): resident query buffers of [2][128][128 B],
+# ring stages of one [128][128 B] window tile; stages exact k_pair <= 10,
+# exact, pack32 k_pair <= 16, deeper; query buffers, the deep instance's
+_WG_NARROW_ROW = 256
+_WG_QBUF_BYTES = 2 * _WG_STAGE_BYTES
+_WG_NRING_EXACT_10, _WG_NRING_EXACT = 6, 5
+_WG_NRING_PACK_16, _WG_NRING_DEEP = 8, 5
+_WG_NQB, _WG_NQB_DEEP = 2, 1
+# narrow pack32 above k_pair 16: block_scan_wg.cu where a phase covers at
+# least this many window tiles, else block_scan_tc.cu (tc_deep_ok)
+_WGN_DEEP_PHASE_TILES = 8
 
 
 def sortable_i32(x):
@@ -484,37 +501,69 @@ def wg_ring(pack32, k_pair):
     return _WG_RING_EXACT_10 if k_pair <= 10 else _WG_RING_EXACT
 
 
-def wg_smem_bytes(pack32, k_pair):
-    """Dynamic shared memory of the warp-specialised scan
-    (csrc/wg_layout.cuh:smem_bytes, term for term; the library's
-    torchpq_block_scan_wg_smem reports the same): alignment slack, the
-    ring's stages (window and query tiles, penalties, two barriers; 3 to 6
-    stages by the instance, wg_layout.cuh:ring_of), prober
-    rows and tile flags, the slice lists [8][16][kls], then pack32: the
-    running lists [2][128][kls]; exact: the lists' values, the staging
-    rows [8][16][SLD], row bounds [8][16] and queues [QUEUE][256] x 2."""
-    ring = wg_ring(pack32, k_pair)
+def _wg_select_bytes(pack32, k_pair):
+    """The select's shared arrays of the warp-specialised scan
+    (wg_layout.cuh:select_bytes): the slice lists [8][16][kls], then
+    pack32: the running lists [2][128][kls]; exact: the lists' values, the
+    staging rows [8][16][SLD], row bounds [8][16] and queues [QUEUE][256] x
+    2. kls: the lists' row stride, k_pair (pack32: made odd)."""
     kls = k_pair | 1 if pack32 else k_pair
     lists = 4 * _TC_WARPS * 16 * kls
-    select = (2 * 4 * _TC_MAX_PT * kls if pack32 else
-              lists + 4 * _TC_WARPS * 16 * (_TC_SLD + 1)
-              + 8 * _TC_QUEUE * 32 * _TC_WARPS)
-    return (_WG_SW_ATOM + ring * (2 * _WG_STAGE_BYTES + 4 * _WG_BOX_ROWS
-                                  + 16)
-            + 4 * _TC_MAX_PT + 4 * 8 + lists + select)
+    return lists + (2 * 4 * _TC_MAX_PT * kls if pack32 else
+                    lists + 4 * _TC_WARPS * 16 * (_TC_SLD + 1)
+                    + 8 * _TC_QUEUE * 32 * _TC_WARPS)
+
+
+def wg_smem_bytes(pack32, k_pair, d=1024):
+    """Dynamic shared memory of the warp-specialised scan at width d
+    (csrc/wg_layout.cuh:smem_bytes for k-chunked rows, narrow_smem_bytes
+    for d <= 128, term for term; the library's torchpq_block_scan_wg_smem
+    reports the same). k-chunked: alignment slack, the ring's stages
+    (window and query tiles, penalties, two barriers; 3 to 6 stages by the
+    instance, wg_layout.cuh:ring_of), prober rows and tile flags, the
+    select's arrays. Narrow: alignment slack, the resident query buffers
+    [2][128][128 B] and their two barriers (two, or one for the deep
+    pack32 instance), the ring's stages (a window tile, penalties, two
+    barriers; 5 to 8 by the instance), prober rows and tile flags, the
+    select's arrays."""
+    head = _WG_SW_ATOM + 4 * _TC_MAX_PT + 4 * 8 \
+        + _wg_select_bytes(pack32, k_pair)
+    if 2 * d <= _WG_NARROW_ROW:
+        _, ring, qbufs = wg_narrow_instance(pack32, k_pair)
+        return head + qbufs * (_WG_QBUF_BYTES + 16) \
+            + ring * (_WG_STAGE_BYTES + 4 * _WG_BOX_ROWS + 16)
+    return head + wg_ring(pack32, k_pair) * (
+        2 * _WG_STAGE_BYTES + 4 * _WG_BOX_ROWS + 16)
+
+
+def wg_narrow_instance(pack32, k_pair):
+    """(KMAX, ring stages, query buffers) of the narrow warp-specialised
+    instance that serves this select (csrc/block_scan_wg.cu's dispatch,
+    wg_layout.cuh:narrow_ring_of / narrow_qbufs_of): pack32 above k_pair 16
+    runs five stages and one query buffer, the others two buffers; every
+    pack32 instance extracts its phase ends pass by pass (KMAX 16)."""
+    if pack32:
+        if k_pair > 16:
+            return 16, _WG_NRING_DEEP, _WG_NQB_DEEP
+        return 16, _WG_NRING_PACK_16, _WG_NQB
+    if k_pair <= 10:
+        return 10, _WG_NRING_EXACT_10, _WG_NQB
+    return 16, _WG_NRING_EXACT, _WG_NQB
 
 
 def wg_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
     """Whether the warp-specialised scan (csrc/block_scan_wg.cu) takes these
-    shapes: a bf16 cache with rows of 128 < d <= 1024, d % 8 == 0; blocks,
-    selects and groups as tc_shapes_ok (_blocks_ok); its shared memory
-    (wg_smem_bytes)
+    shapes: a bf16 cache with rows of d <= 1024, d % 8 == 0 (narrow
+    instances up to d = 128, k-chunked ones above); blocks, selects and
+    groups as tc_shapes_ok (_blocks_ok); its shared memory (wg_smem_bytes)
     within the limit, which every such shape meets (the ring as deep as
-    the instance's largest k_pair lets it be: exact k_pair 10 227,952 B on
-    five stages; pack32 k_pair 64 201,296 B on three)."""
-    return (dtype == torch.bfloat16 and d % 8 == 0
-            and 2 * d > _TC_MAX_ROW and 2 * d <= _TC_MAX_CHUNKED_ROW_BF16
-            and wg_smem_bytes(pack32, k_pair) <= _SMEM_LIMIT
+    the instance's largest k_pair lets it be: k-chunked, exact k_pair 10
+    227,952 B on five stages, pack32 k_pair 64 201,296 B on three; narrow,
+    exact k_pair 10 228,512 B on six, pack32 k_pair 64 218,752 B on
+    five)."""
+    return (dtype == torch.bfloat16 and d % 8 == 0 and 0 < d
+            and 2 * d <= _TC_MAX_CHUNKED_ROW_BF16
+            and wg_smem_bytes(pack32, k_pair, d) <= _SMEM_LIMIT
             and _blocks_ok(p_tile, s_eff, k_pair, pack32))
 
 
@@ -536,7 +585,8 @@ def _blocks_ok(p_tile, s_eff, k_pair, pack32):
 def tc_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
     """Whether the mma.sync scans' body (csrc/scan_tc.cuh) takes these
     shapes: rows of 16-byte pieces, bf16 up to 256 bytes (d <= 128, d % 8
-    == 0; block_scan_wg.cu takes the wider ones) and int8 up to 1,024
+    == 0: the codes scan's decoded rows; the block scan's bf16 rows are
+    block_scan_wg.cu's) and int8 up to 1,024
     (d <= 1024, d % 16 == 0; above 256 bytes in k chunks); the blocks and
     selects of _blocks_ok; and the route's shared memory (tc_route_smem)
     within the limit, which every such shape meets: pack32 k_pair 64 takes
@@ -551,14 +601,43 @@ def tc_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
                               dtype=dtype) <= _SMEM_LIMIT)
 
 
+def phase_tiles(s_eff, k_pair):
+    """Window tiles of 128 slots between two phase ends of the pack32
+    select: s_eff / G for deep groups (G > 128, the tiles taken phase by
+    phase), every tile of the window otherwise."""
+    g = n_groups(s_eff, k_pair)
+    return s_eff // g if g > _TC_TN else -(-s_eff // _TC_TN)
+
+
+def tc_deep_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
+    """Whether these shapes stay on the mma.sync scan (csrc/block_scan_tc.cu,
+    sorted phase ends): a bf16 cache of d <= 128, pack32 above k_pair 16
+    (the deep selects) whose phases cover fewer than 8 window tiles, within
+    tc_shapes_ok. Timed in turns with the narrow wgmma instances on the
+    scans' own arguments (PERF.md, PR 19): there the narrow instances'
+    passes over 32 group maxima a lane cost more than their faster tiles
+    save (the untapered deep-k scan, 2 tiles a phase, 5.039 against 6.423
+    ms; IVFPQR k = 100, 4, 3.002 against 3.314; residual k = 100, 5, 1.542
+    against 1.600), and at 8 (the deep-k head) they win, 1.587 against
+    1.718 (NVIDIA H100 80GB HBM3, 700.00 W)."""
+    return (dtype == torch.bfloat16 and pack32 and k_pair > 16
+            and 2 * d <= _TC_MAX_ROW
+            and phase_tiles(s_eff, k_pair) < _WGN_DEEP_PHASE_TILES
+            and tc_shapes_ok(d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair,
+                             pack32=pack32, dtype=dtype))
+
+
 def pick_route(*, dtype, d, p_tile, s_eff, k_pair, pack32):
     """The kernel that serves a scan of these shapes, which is also its key
     in `launches`:
-      - "tc_wg_exact" / "tc_wg_pack32" (`csrc/block_scan_wg.cu`, wgmma and
-        TMA): a bf16 cache at the shapes of `wg_shapes_ok` (128 < d <=
-        1024);
-      - "tc_exact" / "tc_pack32" (`csrc/block_scan_tc.cu`, tensor cores): a
-        bf16 cache at the shapes of `tc_shapes_ok` (d <= 128);
+      - "tc_wgn_exact" / "tc_wgn_pack32" (`csrc/block_scan_wg.cu`'s narrow
+        instances, wgmma and TMA, the query rows resident): a bf16 cache
+        at the shapes of `wg_shapes_ok` with d <= 128;
+      - "tc_wg_exact" / "tc_wg_pack32" (`csrc/block_scan_wg.cu`'s k-chunked
+        instances): a bf16 cache at the shapes of `wg_shapes_ok` with 128
+        < d <= 1024;
+      - "tc_pack32" (`csrc/block_scan_tc.cu`, mma.sync): the narrow deep
+        pack32 shapes of `tc_deep_ok`, taken before the narrow route;
       - "tc_int8_exact" / "tc_int8_pack32" (`csrc/block_scan_tc_int8.cu`,
         tensor cores): an int8 cache at the shapes of `tc_shapes_ok`;
       - "exact" / "pack32" (`csrc/block_scan.cu`, CUDA cores): f32 caches
@@ -567,10 +646,13 @@ def pick_route(*, dtype, d, p_tile, s_eff, k_pair, pack32):
       - "int8_exact" / "int8_pack32" (`csrc/block_scan.cu`): the int8
         shapes the tensor-core kernel does not take."""
     mode = "pack32" if pack32 else "exact"
+    if tc_deep_ok(d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair,
+                  pack32=pack32, dtype=dtype):
+        return "tc_pack32"
     if wg_shapes_ok(d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair,
                     pack32=pack32, dtype=dtype):
-        return "tc_wg_" + mode
-    tc = dtype in (torch.bfloat16, torch.int8) and tc_shapes_ok(
+        return ("tc_wgn_" if 2 * d <= _WG_NARROW_ROW else "tc_wg_") + mode
+    tc = dtype == torch.int8 and tc_shapes_ok(
         d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair, pack32=pack32,
         dtype=dtype)
     return ("tc_" if tc else "") + ("int8_" if dtype == torch.int8
@@ -643,8 +725,9 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
     route = route or best
     int8 = decoded.dtype == torch.int8
     kind = "int8_" + mode if int8 else mode
-    if route not in (kind, "tc_" + kind) + (() if int8 else
-                                            ("tc_wg_" + kind,)):
+    if route not in ((kind, "tc_" + kind) if int8 else
+                     (kind, "tc_wg_" + kind, "tc_wgn_" + kind)
+                     + (("tc_pack32",) if pack32 else ())):
         raise ValueError(f"route {route!r} does not serve the {mode} select "
                          f"of a {decoded.dtype} cache")
     if route.startswith("tc_") and best != route:
@@ -660,7 +743,7 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
                                     or decoded.data_ptr() % 16):
         raise ValueError("the tensor-core block scans copy 16-byte pieces: "
                          "qtable and decoded must be 16-byte aligned")
-    if route.startswith("tc_wg_"):
+    if route.startswith(("tc_wg_", "tc_wgn_")):
         if n_ctas is None:
             n_ctas = resident_ctas(lib, "torchpq_block_scan_wg_occupancy",
                                    decoded.device, d, int(pack32), k_pair)
