@@ -3,19 +3,22 @@
 
     python3 chip_smoke.py                 # the full run, as below
     python3 chip_smoke.py --kernels-only  # phases 1-3 only, no result line
-    python3 chip_smoke.py --parent DIR    # and, on each narrow bf16 row,
-        # DIR's csrc/block_scan_tc.cu (a checkout of the tree whose d <= 128
-        # bf16 scans ran on mma.sync) timed in turns with the narrow route
+    python3 chip_smoke.py --parent DIR    # and, on each int8 row, DIR's
+        # csrc/block_scan_tc_int8.cu (a checkout of a tree whose int8
+        # scans ran on mma.sync), where DIR holds it, timed in turns with
+        # the wgmma route; on each narrow bf16 row DIR's
+        # csrc/block_scan_tc.cu where it takes the row's shapes
 
 Phases, each of which fails the run on error:
   1. device: a CUDA card is required (no CPU continuation); prints its name
      and `nvidia-smi` name + power limit.
   2. build: compiles the kernels from `torchpq_tpu_torch/csrc` with nvcc;
      the ptxas report of CHECKED_KERNELS' instances must show no spill
-     and no stack frame, and each of the nine warp-specialised instances
-     (block_scan_wg.cu, narrow and k-chunked) must hold HGMMA and UTMALDG
-     instructions in its
-     SASS (cuobjdump -sass; counts logged and in the kernels line).
+     and no stack frame, and each of the eighteen warp-specialised
+     instances (block_scan_wg.cu, bf16 and int8, narrow and k-chunked)
+     must hold warpgroup products (bf16 HGMMA, int8 IGMMA) and UTMALDG
+     instructions in its SASS (cuobjdump -sass; counts logged and in the
+     kernels line).
   3. kernel vs plain on seeded inputs: the bf16 block-scan kernel (the
      narrow warp-specialised instances, keys "tc_wgn_exact" /
      "tc_wgn_pack32", at d <= 128; pack32 above k_pair 16 whose phases
@@ -44,12 +47,15 @@ Phases, each of which fails the run on error:
      inputs the CUDA-core
      codes kernel too, every row (bit for bit on integer inputs, equal
      exact values and >= 0.9999 of pack32 keys on random ones); then the
-     block scan's int8 mode at d 128 and 1024 through both routes (the
-     tensor-core int8 kernel, A in registers at 128 and 256-byte k chunks
-     at 1024, on live rows with pad rows dead; the CUDA-core one on every
-     row), both selects, bit for bit on random inputs and on
-     `int8_tie_inputs` (equal rows, exact ties; pack32 k_pair 64 over 512
-     groups at d 128 and, on the one-list instance, at d 1024); the flat
+     block scan's int8 mode at d 128 and 1024 (random inputs) and 16, 128,
+     272 and 1024 (ties) through both routes (the tensor-core one: the s8
+     wgmma instances, narrow up to d 256, k-chunked above; on live rows
+     with pad rows dead; the
+     CUDA-core one on every row), both selects, bit for bit on random
+     inputs and on `int8_tie_inputs` (equal rows, exact ties; pack32
+     k_pair 40 over 128 groups, 5 tiles a phase, and 64 over 512 at d 128,
+     2 tiles: the narrow deep instance; at d 1024 the k-chunked wgmma
+     instance of three stages); the flat
      scan's
      two kernels (tensor cores, CUDA cores) against `flat_scan_ref` (cap
      262,144, 1,024 queries, the glue's head k=10 addresses equal outside
@@ -107,12 +113,14 @@ Phases, each of which fails the run on error:
   8. int8 tier: an index with scan_cache_dtype="int8" takes the same
      trained codecs and adds; device bytes logged; the block scan's
      counters zeroed, the five plans run (every plan's recall@10 within
-     0.005 of the bf16 tier's; both selects of the tensor-core int8 kernel
-     must launch, the CUDA-core int8 kernel never); then both int8 kernels
-     against the plain version on the int8 searches' own arguments (exact
-     n_probe 8, pack32 n_probe 32), bit for bit (the tensor-core one on
-     live rows, pad rows dead), and the select each search ran timed on
-     both in turns (TOP/s over live probers and live 16-prober tiles).
+     0.005 of the bf16 tier's; both selects of the narrow s8 wgmma
+     instances must launch, "tc_wgn_int8_exact" / "tc_wgn_int8_pack32",
+     no other int8 key); then both int8 kernels against the plain version
+     on the int8 searches' own arguments (exact n_probe 8, pack32 n_probe
+     32), bit for bit (the tensor-core one on live rows, pad rows dead),
+     and the select each search ran timed on both in turns (TOP/s over
+     live probers and live 16-prober tiles; with --parent, the parent's
+     mma.sync int8 kernel in turns too).
   9. deep-k: the JAX package's k = 100 configuration
      (benchmark/results/ivf4096_pq64_sift1m_deepk_r6_g8c64kp64t8_16.json:
      spill 8 cells at capacity 2 x n / n_cells = 512, supercells of 8, a
@@ -218,8 +226,9 @@ Phases, each of which fails the run on error:
  17. GIST-class int8 tier: 1M x 960 manifold-12 data (make_data, seed 1),
      IVF4096 x PQ64, int8 cache 1024 wide, 10k queries, k=10; plans flat,
      pack32 at n_probe 8 and 32, exact at n_probe 8 (counters zeroed
-     before; both selects of the tensor-core int8 kernel, in 256-byte k
-     chunks, must launch, the CUDA-core int8 kernel never); floors: recall
+     before; both selects of the k-chunked s8 wgmma instances must launch,
+     "tc_wg_int8_exact" / "tc_wg_int8_pack32", no other int8 key); floors:
+     recall
      non-decreasing in n_probe within 0.005, the flat plan within 0.02 of
      an exact f32 sweep over the same PQ-decoded rows; then both int8
      kernels on the phase's own arguments, as in phase 8 (fewer repeats).
@@ -330,11 +339,12 @@ Phases, each of which fails the run on error:
      of the bound it reaches; the int8
      block scan at both widths, the 1M x 128 tier's and the GIST-class
      d = 1024 one's, and the GIST records' bf16 exact, pack32 and pack32
-     k = 100 (on the warp-specialised route, as every bf16 block-scan row
-     is: its launch key, the instance and its SASS counts of HGMMA and
-     UTMALDG; with --parent, the parent's mma.sync times in turns on the
-     narrow rows) and int8 pack32 k = 100
-     scans at d_cache 1024; the
+     k = 100 and int8 pack32 k = 100 scans at d_cache 1024 (on the
+     warp-specialised route, as every int8 row and every bf16 block-scan
+     row but the bf16 mma.sync deep selects are: its launch key, the instance
+     and its SASS counts of HGMMA or IGMMA and UTMALDG; with --parent, the
+     parent's mma.sync times in turns on the int8 rows and on the narrow
+     bf16 rows it takes); the
      deep-k
      split's head and tail scans and the
      untapered plan's scan; the 4-bit tier's pack32 block scan and both
@@ -372,20 +382,29 @@ F32_UNIT = 2.0 ** -23
 # kernel_name gives its mangled one
 DEEP_CODES_KERNEL = "codes_scan_tc_kernelILb1ELi64E"
 # the instances whose ptxas report must show no spill and no stack frame:
-# the deep codes instance, the block scan's int8 one-list instance and the
-# nine warp-specialised instances (block_scan_wg.cu <PACK, KMAX, ring
-# stages, query buffers>: over k-chunked bf16 rows exact 10 / 16 on 5 / 4
-# stages, pack32 on 6, 4 and 3; over narrow rows, d <= 128, exact 10 / 16
-# on 6 / 5, pack32 on 8 and, above k_pair 16, on 5 with one query buffer)
+# the deep codes instance and the block scan's eighteen warp-specialised
+# instances (block_scan_wg.cu <PACK,
+# KMAX, ring stages, query buffers, int8>, bf16 and int8 alike: over
+# k-chunked rows exact 10 / 16 on 5 / 4 stages, pack32 on 6, 4 and 3; over
+# narrow rows (at most 256 bytes) exact 10 / 16 on 6 / 5, pack32 on 8
+# (int8: 7) and, above k_pair 16, on 5 with one query buffer)
 CHECKED_KERNELS = re.compile(
-    r"codes_scan_tc_kernelILb1ELi64E$"
-    r"|block_scan_tc_int8_kernelI\w*Lb1ELb1E$|block_scan_wg_kernelI\w*E$")
-N_CHECKED_KERNELS = 11
-# the warp-specialised instances, each of which must hold warpgroup
-# products (HGMMA) and TMA loads (UTMALDG) in its SASS
+    r"codes_scan_tc_kernelILb1ELi64E$|block_scan_wg_kernelI\w*E$")
+N_CHECKED_KERNELS = 19
+# the warp-specialised instances (nine bf16, nine int8), each of which
+# must hold warpgroup products (bf16: HGMMA; int8, template argument I8 =
+# true, "Lb1E" last: IGMMA, the integer form) and TMA loads (UTMALDG) in
+# its SASS
 WG_KERNEL = re.compile(r"block_scan_wg_kernelI\w*E$")
-N_WG_KERNELS = 9
-WG_OPS = ("HGMMA", "UTMALDG")
+N_WG_KERNELS = 18
+WG_OPS = ("HGMMA", "IGMMA", "UTMALDG")
+
+
+def wg_ops(fn):
+    """The SASS ops a warp-specialised instance must hold."""
+    return ("IGMMA" if fn.endswith("Lb1E") else "HGMMA", "UTMALDG")
+
+
 # per instance: its SASS counts of WG_OPS (main, from cuobjdump)
 SASS = {}
 
@@ -832,7 +851,7 @@ def cuda_core_route(route):
 
 def is_wg(route):
     """Whether a block-scan route is block_scan_wg.cu's (narrow or
-    k-chunked instances)."""
+    k-chunked instances, bf16 or int8)."""
     return route.startswith(("tc_wg_", "tc_wgn_"))
 
 
@@ -840,94 +859,129 @@ def route_source(route):
     """The source of a block-scan route's kernel."""
     if is_wg(route):
         return "torchpq_tpu_torch/csrc/block_scan_wg.cu"
-    if route.startswith("tc_int8_"):
-        return "torchpq_tpu_torch/csrc/block_scan_tc_int8.cu"
     if route.startswith("tc_"):
         return "torchpq_tpu_torch/csrc/block_scan_tc.cu"
     return "torchpq_tpu_torch/csrc/block_scan.cu"
 
 
-def wg_instance(pack32, k_pair, d):
+def wg_instance(pack32, k_pair, d, int8=False):
     """The warp-specialised instance (kernel_name) a launch of this select
-    at width d runs (block_scan_wg.cu's dispatch: narrow instances up to d
-    = 128, k-chunked ones above)."""
+    at width d runs (block_scan_wg.cu's dispatch: narrow instances up to
+    256-byte rows, bf16 d <= 128 and int8 d <= 256, k-chunked ones
+    above)."""
     from torchpq_tpu_torch.ops import block_scan as bs
-    if 2 * d <= bs._WG_NARROW_ROW:
-        kmax, ring, qbufs = bs.wg_narrow_instance(pack32, k_pair)
+    dtype = bs.torch.int8 if int8 else bs.torch.bfloat16
+    if d * (1 if int8 else 2) <= bs._WG_NARROW_ROW:
+        kmax, ring, qbufs = bs.wg_narrow_instance(pack32, k_pair, dtype)
     else:
         kmax, ring, qbufs = (16 if pack32 or k_pair > 10 else 10,
                              bs.wg_ring(pack32, k_pair), 0)
     return (f"block_scan_wg_kernelILb{int(bool(pack32))}ELi{kmax}ELi{ring}"
-            f"ELi{qbufs}E")
+            f"ELi{qbufs}ELb{int(bool(int8))}E")
 
 
-# --parent DIR: the parent tree's mma.sync bf16 block scan
-# (csrc/block_scan_tc.cu, most of whose d <= 128 shapes the narrow wgmma
-# instances took over), built from DIR and timed in turns with the narrow
-# route on each narrow row's own arguments; empty without --parent
+# --parent DIR: the parent tree's mma.sync block scans, built from DIR and
+# timed in turns with the warp-specialised route on each row's own
+# arguments: csrc/block_scan_tc_int8.cu on every int8 row (the int8 rows'
+# kernel before block_scan_wg.cu took them), and csrc/block_scan_tc.cu on
+# the narrow bf16 rows whose shapes it still takes, each where DIR holds
+# it; empty without --parent
 PARENT = {}
+# the parent's sources: (file, its entry point's argument types, as
+# (pointers, ints) before the stream)
+PARENT_SOURCES = {"bf16": ("block_scan_tc.cu", "torchpq_block_scan_tc",
+                           (8, 10)),
+                  "int8": ("block_scan_tc_int8.cu",
+                           "torchpq_block_scan_tc_int8", (10, 10))}
 
 
 def build_parent(_build, root):
-    """block_scan_tc.cu of the tree at `root`, built with the package's
-    nvcc flags into build/parent/ and bound with ctypes (its entry point
-    and occupancy); fails where the tree holds no such source."""
+    """The mma.sync block scans of the tree at `root` (PARENT_SOURCES that
+    it holds, at least one), each built with the package's nvcc flags into
+    build/parent/ and bound with ctypes (its entry point and occupancy)."""
     import ctypes
     csrc = Path(root).resolve() / "torchpq_tpu_torch" / "csrc"
-    src = csrc / "block_scan_tc.cu"
-    if not src.exists():
-        fail(f"--parent: {src} does not exist")
+    if not any((csrc / f).exists() for f, _, _ in PARENT_SOURCES.values()):
+        fail(f"--parent: {csrc} holds none of "
+             f"{[f for f, _, _ in PARENT_SOURCES.values()]}")
     out = Path("build/parent")
     out.mkdir(parents=True, exist_ok=True)
-    so = out / "libparent_block_scan_tc.so"
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                          f"-I{csrc}", str(src), "-o", str(so),
-                          *_build.LINK_FLAGS], capture_output=True,
-                         text=True)
-    if res.returncode != 0:
-        fail(f"--parent: nvcc failed:\n{res.stdout}\n{res.stderr}")
-    lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.torchpq_block_scan_tc.argtypes = [p] * 8 + [i] * 10 + [p]
-    lib.torchpq_block_scan_tc.restype = i
-    lib.torchpq_block_scan_tc_occupancy.argtypes = [i] * 3
-    lib.torchpq_block_scan_tc_occupancy.restype = i
-    PARENT["lib"] = lib
-    log(f"--parent: built {src} -> {so}")
+    jobs = {}
+    for kind, (fname, entry, (n_ptr, n_int)) in PARENT_SOURCES.items():
+        src = csrc / fname
+        if not src.exists():
+            continue
+        so = out / f"libparent_{src.stem}.so"
+        jobs[kind] = (src, so, entry, n_ptr, n_int, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", f"-I{csrc}",
+             str(src), "-o", str(so), *_build.LINK_FLAGS],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for kind, (src, so, entry, n_ptr, n_int, proc) in jobs.items():
+        text = proc.communicate()[0]
+        if proc.returncode != 0:
+            fail(f"--parent: nvcc failed on {src}:\n{text}")
+        lib = ctypes.CDLL(str(so))
+        getattr(lib, entry).argtypes = [p] * n_ptr + [i] * n_int + [p]
+        getattr(lib, entry).restype = i
+        getattr(lib, entry + "_occupancy").argtypes = [i] * 3
+        getattr(lib, entry + "_occupancy").restype = i
+        PARENT[kind] = (lib, entry)
+        log(f"--parent: built {src} -> {so}")
 
 
 def mma_sync_turns(torch, bs, args, kkw, route, what):
-    """With --parent, a narrow row's arguments (bf16, its select kkw) on
-    the parent's block_scan_tc.cu and on `route` in turns (mma.sync, wgmma,
-    wgmma, mma.sync; 5 launches a turn, none counted), with the share of
-    live entries the two outputs hold equal; returns the row's fields
-    (mma_sync_ms and its turns), {} without --parent or on another
-    route."""
-    if not PARENT or not route.startswith("tc_wgn_"):
+    """With --parent, a row's arguments (its select kkw; int8 where kkw
+    holds the scales) on the parent's mma.sync kernel and on `route` in
+    turns (mma.sync, wgmma, wgmma, mma.sync; 5 launches a turn, none
+    counted), with the share of live entries the two outputs hold equal;
+    returns the row's fields (mma_sync_ms and its turns). {} without
+    --parent, on a route other than a narrow bf16 or an int8
+    warp-specialised one, or on a bf16 row whose shapes the parent's
+    block_scan_tc.cu does not take (logged)."""
+    int8 = kkw.get("scale") is not None
+    kind = "int8" if int8 else "bf16"
+    if kind not in PARENT or not (
+            is_wg(route) if int8 else route.startswith("tc_wgn_")):
         return {}
-    lib = PARENT["lib"]
+    lib, entry = PARENT[kind]
     b, p_tile = args[1].shape
     d = args[6].shape[1]
     pack32, k_pair = kkw["pack32"], kkw["k_pair"]
     groups = bs.n_groups(kkw["s_eff"], k_pair) if pack32 else 0
-    per_sm = lib.torchpq_block_scan_tc_occupancy(d, int(pack32), k_pair)
+    per_sm = getattr(lib, entry + "_occupancy")(d, int(pack32), k_pair)
     if per_sm <= 0:
+        if not int8:
+            log(f"  {what}: the parent's block_scan_tc.cu does not take "
+                f"these shapes (occupancy {per_sm})")
+            return {}
         fail(f"{what}: the parent's occupancy query failed ({per_sm})")
     n_ctas = min(b, per_sm * torch.cuda.get_device_properties(
         args[6].device).multi_processor_count)
     out = torch.empty((b, p_tile, k_pair if pack32 else 2 * k_pair),
                       dtype=torch.int32, device=args[6].device)
     ptrs = [t.data_ptr() for t in args]
+    if int8:  # the entry's order: q8, q_scale, ..., penalty, scale, y8
+        ptrs = ptrs[:1] + [kkw["q_scale"].data_ptr()] + ptrs[1:6] + [
+            kkw["scale"].data_ptr(), ptrs[6]]
 
-    def run():
-        rc = lib.torchpq_block_scan_tc(
+    def launch():
+        return getattr(lib, entry)(
             *ptrs, out.data_ptr(), b, p_tile, d, kkw["s_eff"], k_pair,
             int(kkw["euclidean"]), int(pack32), kkw["slot_mask"], groups,
             n_ctas, torch.cuda.current_stream().cuda_stream)
-        if rc != 0:
-            fail(f"{what}: the parent's block_scan_tc launch failed: CUDA "
-                 f"error {rc}")
 
+    def run():
+        rc = launch()
+        if rc != 0:
+            fail(f"{what}: the parent's {entry} launch failed: CUDA error "
+                 f"{rc}")
+
+    rc = launch()
+    if rc != 0 and not int8:
+        log(f"  {what}: the parent's block_scan_tc.cu does not take these "
+            f"shapes (CUDA error {rc})")
+        return {}
     run()
     live = args[1] >= 0
     agree = share_equal(out[live], block_launch(torch, bs, args, route,
@@ -935,14 +989,15 @@ def mma_sync_turns(torch, bs, args, kkw, route, what):
     t, turns = in_turns(torch, {
         "mma_sync": run,
         route: lambda: block_launch(torch, bs, args, route, **kkw)}, 5)
-    log(f"  {what}: in turns, the parent's block_scan_tc.cu (mma.sync) "
-        f"{t['mma_sync']:.3f} ms "
+    log(f"  {what}: in turns, the parent's {PARENT_SOURCES[kind][0]} "
+        f"(mma.sync) {t['mma_sync']:.3f} ms "
         f"({' / '.join(f'{x:.3f}' for x in turns['mma_sync'])}), {route} "
         f"{t[route]:.3f} ms ({' / '.join(f'{x:.3f}' for x in turns[route])})"
         f", {t['mma_sync'] / t[route]:.2f}x; live entries equal "
         f"{agree:.6f}")
     return dict(mma_sync_ms=t["mma_sync"], mma_sync_turns=turns["mma_sync"],
-                wgmma_turns=turns[route])
+                wgmma_turns=turns[route],
+                mma_sync_source=PARENT_SOURCES[kind][0])
 
 
 def sass_counts(torch, path):
@@ -968,8 +1023,9 @@ def sass_counts(torch, path):
                     counts[fn][op] += 1
     for fn, c in sorted(counts.items()):
         log(f"SASS {fn}: " + ", ".join(f"{op} {n}" for op, n in c.items()))
-        if not all(c.values()):
-            fail(f"{fn}: no {[op for op in WG_OPS if not c[op]]} in its SASS")
+        if not all(c[op] for op in wg_ops(fn)):
+            fail(f"{fn}: no {[op for op in wg_ops(fn) if not c[op]]} in its "
+                 "SASS")
     if len(counts) != N_WG_KERNELS:
         fail(f"cuobjdump found {sorted(counts)}, not the {N_WG_KERNELS} "
              f"warp-specialised instances")
@@ -1117,7 +1173,8 @@ def phase_kernels(torch, bs, cs, fs, gr):
             f"kernel equal bit for bit on every row")
         del args
     # int8 mode at d 128 and at the GIST cache width 1024, both routes: bit
-    # for bit on random inputs and on inputs with exact ties
+    # for bit on random inputs and on inputs with exact ties (also at d 16,
+    # half a k32 step, and 272, the narrowest k-chunked row)
     for d in (128, 1024):
         args, scale, q_scale = bs.random_int8_inputs(
             "cuda", s_eff=1024, n_blocks=1024, nq=10000, d=d,
@@ -1130,6 +1187,7 @@ def phase_kernels(torch, bs, cs, fs, gr):
             log(kernel_row(name, 1024, 1024, *res) + f" (d={d}; tensor "
                 "cores on live rows, pad rows dead; the CUDA-core kernel on "
                 "every row; bit for bit)")
+    for d in (16, 128, 272, 1024):
         args, scale, q_scale = bs.int8_tie_inputs(
             "cuda", s_eff=640, n_blocks=1024, nq=10000, d=d,
             cap_total=1 << 18, seed=d)
@@ -1142,14 +1200,19 @@ def phase_kernels(torch, bs, cs, fs, gr):
         ref = bs.block_scan_ref(*args, s_eff=640, k_pair=10, euclidean=True,
                                 pack32=False, slot_mask=1023, **extra)
         ref = ref[args[1] >= 0][:, :10]
-        log(f"block_scan_int8 (tensor cores) tie inputs d={d} s_eff=640: "
+        routes = [bs.pick_route(dtype=torch.int8, d=d, p_tile=128, s_eff=640,
+                                k_pair=k, pack32=pk)
+                  for pk, k in ((False, 10), (True, 40))]
+        log(f"block_scan_int8 ({' / '.join(routes)}) tie inputs d={d} "
+            f"s_eff=640: "
             f"live rows equal bit for bit, exact k_pair 10 and pack32 40, "
             f"euclidean and inner ({int((ref[:, 1:] == ref[:, :-1]).sum())} "
             f"tied neighbours in the exact lists); pad rows dead; the "
             f"CUDA-core kernel equal bit for bit on every row")
         del args
-    # pack32 k_pair 64 over 512 groups with A in registers (d 128) and in
-    # k chunks (d 1024: the one-list instance)
+    # pack32 k_pair 64 over 512 groups, 2 tiles a phase: at d 128 the
+    # narrow deep wgmma instance, at d 1024 the k-chunked one of three ring
+    # stages
     for d in (128, 1024):
         args, scale, q_scale = bs.int8_tie_inputs(
             "cuda", s_eff=1024, n_blocks=1024 if d == 128 else 256,
@@ -1159,7 +1222,9 @@ def phase_kernels(torch, bs, cs, fs, gr):
             check_kernel(torch, bs, args, s_eff=1024, k_pair=64, pack32=True,
                          euclidean=euclidean, equal=True, reps=0,
                          extra=dict(scale=scale, q_scale=q_scale))
-        log(f"block_scan_int8 (tensor cores) tie inputs d={d} s_eff=1024 "
+        route = bs.pick_route(dtype=torch.int8, d=d, p_tile=128, s_eff=1024,
+                              k_pair=64, pack32=True)
+        log(f"block_scan_int8 ({route}) tie inputs d={d} s_eff=1024 "
             f"pack32 k_pair 64: live rows equal bit for bit, euclidean and "
             f"inner; pad rows dead; the CUDA-core kernel equal bit for bit "
             f"on every row")
@@ -1815,15 +1880,18 @@ def int8_kernel_rows(torch, tp, bs, index, xq, k, label, suffix="",
                 f"speed-up {cc_ms / ms:.2f}x; plain {plain_ms:.3f} ms, bound "
                 f"{b_ms:.3f} ms ({b_by})")
             rows[name] = dict(
-                name=name, route="cuda",
-                source="torchpq_tpu_torch/csrc/" + (
-                    "block_scan_tc_int8.cu" if route.startswith("tc_")
-                    else "block_scan.cu"),
+                name=name, route="cuda", source=route_source(route),
                 replaces="torchpq_tpu/ops/pallas_scan.py:281",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, launch_key=route,
                 cuda_core_ms=cc_ms,
-                cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu")
+                cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu",
+                **mma_sync_turns(torch, bs, args, kkw, route,
+                                 f"{name} on the {label}n_probe={n_probe} "
+                                 "search's arguments"))
+            if is_wg(route):
+                inst = wg_instance(pack32, k_pair, d, int8=True)
+                rows[name].update(instance=inst, sass=SASS.get(inst))
     return rows
 
 
@@ -1925,8 +1993,8 @@ def check_spill(torch, seen):
 
 def one_key_ms(torch, bs, args, kw, reps, route=None):
     """The tensor-core pack32 launch on a scan's own arguments (bf16, or
-    int8 where kw holds its scales; route "tc_wg_pack32" / "tc_wgn_pack32":
-    the warp-specialised kernel, else the mma.sync one), but writing k_pair =
+    int8 where kw holds its scales; a warp-specialised route (is_wg): the
+    warp-specialised kernel, else the mma.sync one), but writing k_pair =
     1 key per row over the same strided groups: the same tiles, products,
     group maxima and phases, with one extraction pass and one merge step
     per phase (the warp-specialised one on the instance and ring stages of
@@ -1939,7 +2007,7 @@ def one_key_ms(torch, bs, args, kw, reps, route=None):
     b, p_tile = args[1].shape
     d = args[6].shape[1]
     int8 = kw.get("scale") is not None
-    wg = route in ("tc_wg_pack32", "tc_wgn_pack32")
+    wg = route is not None and is_wg(route)
     name = "torchpq_block_scan_" + ("wg" if wg else "tc") + (
         "_int8" if int8 else "")
     groups = bs.n_groups(kw["s_eff"], kw["k_pair"])
@@ -2338,7 +2406,10 @@ BF16_KEYS = ("tc_wgn_exact", "tc_wgn_pack32")
 # tc_deep_ok), which the k = 100 plans of the 4-bit, residual and pqr3
 # tiers take beside BF16_KEYS
 BF16_DEEP_KEY = "tc_pack32"
-INT8_KEYS = ("tc_int8_exact", "tc_int8_pack32")
+INT8_KEYS = ("tc_wgn_int8_exact", "tc_wgn_int8_pack32")
+# and those of the int8 scans at d_cache 1024 (the GIST-class int8 tier and
+# the GIST int8 record: the k-chunked int8 instances)
+GIST_INT8_KEYS = ("tc_wg_int8_exact", "tc_wg_int8_pack32")
 # and those of the GIST bf16 record's scans (d_cache 1024: the k-chunked
 # warp-specialised instances)
 GIST_BF16_KEYS = ("tc_wg_exact", "tc_wg_pack32")
@@ -2347,14 +2418,16 @@ GIST_BF16_KEYS = ("tc_wg_exact", "tc_wg_pack32")
 def require_only_tc(counts, keys, what):
     """A run's block-scan launches: each of `keys` (tensor-core) launched,
     no CUDA-core key ("exact", "pack32", "int8_exact", "int8_pack32"), and
-    where `keys` are bf16 ones, no other bf16 route's key (the narrow and
-    k-chunked instances serve disjoint widths)."""
+    no other route's key of the same cache type (the narrow and k-chunked
+    instances serve disjoint widths)."""
     for key in keys:
         if counts[key] <= 0:
             fail(f"kernel block_scan {key} was never launched by {what}")
-    bf16 = BF16_KEYS + GIST_BF16_KEYS + (BF16_DEEP_KEY,)
-    others = [k for k in bf16 if k not in keys] if set(keys) <= set(bf16) \
-        else []
+    others = []
+    for family in (BF16_KEYS + GIST_BF16_KEYS + (BF16_DEEP_KEY,),
+                   INT8_KEYS + GIST_INT8_KEYS):
+        if set(keys) <= set(family):
+            others = [k for k in family if k not in keys]
     for key in ("exact", "pack32", "int8_exact", "int8_pack32", *others):
         if counts[key] > 0:
             fail(f"{what} launched block_scan {key} {counts[key]} times, "
@@ -3455,10 +3528,12 @@ def gist_plans(torch, tp, bs, index, xq, gt, k, plans, label):
 
 def int8_deep_row(torch, tp, bs, index, xq, k, name, what):
     """The int8 tier's pack32 k = 100 scan (k_pair 64 over G = 512, the
-    one-list instance) on its search's own arguments: bit for bit against
-    block_scan_ref on live rows, pad rows dead, the CUDA-core int8 kernel on
-    every row; timed in turns with it and beside the same launch writing
-    one key per row. Returns the kernels-line row."""
+    k-chunked warp-specialised int8 instance of three ring stages) on its
+    search's own arguments: bit for bit against block_scan_ref on live
+    rows, pad rows dead, the CUDA-core int8 kernel on every row; timed in
+    turns with it (and, with --parent, with the parent's mma.sync int8
+    kernel) and beside the same launch writing one key per row. Returns the
+    kernels-line row."""
     args, kw = capture_call(tp, index, xq, k)
     s_eff, k_pair = kw["s_eff"], kw["k_pair"]
     blocks, p_tile = args[1].shape
@@ -3469,8 +3544,9 @@ def int8_deep_row(torch, tp, bs, index, xq, k, name, what):
     log(f"{what}: {blocks} blocks x {p_tile} probers, {live} live "
         f"({live / (blocks * p_tile):.3f}), s_eff={s_eff}, k_pair={k_pair}, "
         f"G={bs.n_groups(s_eff, k_pair)}, d_cache={d}, route {route}")
-    if route != "tc_int8_pack32":
-        fail(f"{what} routes to {route}, not the tensor cores")
+    if route != "tc_wg_int8_pack32":
+        fail(f"{what} routes to {route}, not the k-chunked warp-specialised "
+             "int8 instances")
     extra = dict(scale=kw["scale"], q_scale=kw["q_scale"])
     check_kernel(torch, bs, args, s_eff=s_eff, k_pair=k_pair, pack32=True,
                  euclidean=kw["euclidean"], equal=True, extra=extra, reps=0)
@@ -3481,7 +3557,7 @@ def int8_deep_row(torch, tp, bs, index, xq, k, name, what):
                                            **kkw),
         route: lambda: block_launch(torch, bs, args, route, **kkw)}, 3)
     ms, cc_ms = t[route], t["cuda_cores"]
-    k1_ms = one_key_ms(torch, bs, args, kkw, 3)
+    k1_ms = one_key_ms(torch, bs, args, kkw, 3, route=route)
     plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw), 1)
     b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=d + 8,
                             row_bytes=d + 4, peak="int8", d=d)
@@ -3494,14 +3570,16 @@ def int8_deep_row(torch, tp, bs, index, xq, k, name, what):
         f"ms; plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); equal "
         f"to the plain version bit for bit on live rows, pad rows dead, the "
         f"CUDA-core kernel equal on every row")
+    inst = wg_instance(True, k_pair, d, int8=True)
     return dict(
-        name=name, route="cuda",
-        source="torchpq_tpu_torch/csrc/block_scan_tc_int8.cu",
+        name=name, route="cuda", source=route_source(route),
         replaces="torchpq_tpu/ops/pallas_scan.py:281", max_abs_err=0.0,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, cuda_core_ms=cc_ms,
+        library_ms=None, launch_key=route, cuda_core_ms=cc_ms,
         cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu",
-        one_key_ms=k1_ms)
+        one_key_ms=k1_ms, instance=inst, sass=SASS.get(inst),
+        **mma_sync_turns(torch, bs, args, kkw, route,
+                         f"{name} on {what}'s arguments"))
 
 
 def phase_gist_records(torch, tp, bs, trained, base, xq, xb, gt100, d, m,
@@ -3539,7 +3617,7 @@ def phase_gist_records(torch, tp, bs, trained, base, xq, xb, gt100, d, m,
         if tuple(dec.shape[1:]) != (1024,) or idx.max_cell_capacity != 512:
             fail(f"{label}: cache {tuple(dec.shape)}, capacity "
                  f"{idx.max_cell_capacity}; the records' are 1024 wide, 512")
-        keys = INT8_KEYS if cache else GIST_BF16_KEYS
+        keys = GIST_INT8_KEYS if cache else GIST_BF16_KEYS
         r10, c10, g10 = gist_plans(torch, tp, bs, idx, xq, gt10, 10,
                                    GIST_PLANS_K10, label)
         log(f"{label}k=10 launches: {c10}")
@@ -3585,7 +3663,7 @@ def phase_gist_records(torch, tp, bs, trained, base, xq, xb, gt100, d, m,
             name = "block_scan_int8_pack32_k100_d1024"
             rows[name] = int8_deep_row(torch, tp, bs, idx, xq, 100, name,
                                        f"the {label}k=100 n_probe=32 search")
-            launches[name] = c100["tc_int8_pack32"]
+            launches[name] = c100["tc_wg_int8_pack32"]
         else:
             rows.update(phase_main_shapes(
                 torch, tp, bs, idx, xq, 10, label=label.strip(),
@@ -3671,7 +3749,7 @@ def phase_gist(torch, tp, bs):
                         "GIST int8 ", plans=GIST_PLANS, floors=False)
     counts = dict(bs.launches)
     log(f"GIST int8 launches: {counts}")
-    require_only_tc(counts, INT8_KEYS, "the GIST-class phase")
+    require_only_tc(counts, GIST_INT8_KEYS, "the GIST-class phase")
     r8, r32 = rec[("cell_major", 8, True)], rec[("cell_major", 32, True)]
     gap = rec[("flat", 1, True)] - rec_pq
     log(f"GIST int8: flat recall {rec[('flat', 1, True)]:.4f} vs the exact "
@@ -4058,7 +4136,7 @@ TIER_PLAN = ("cell_major", 32, True)
 # the kernels' JSON rows the sharded plans launch: (tier, launch key)
 SHARDED_KEYS = {"block_scan_exact": ("bf16", "tc_wgn_exact"),
                 "block_scan_pack32": ("bf16", "tc_wgn_pack32"),
-                "block_scan_int8_pack32": ("int8", "tc_int8_pack32"),
+                "block_scan_int8_pack32": ("int8", "tc_wgn_int8_pack32"),
                 "codes_scan_pack32": ("codes", "tc_pack32")}
 
 
@@ -4068,7 +4146,7 @@ SHARDED_ROWS = (("block_scan_exact_sharded", "bf16", ("cell_major", 8, False)),
                 ("block_scan_pack32_sharded", "bf16", TIER_PLAN),
                 ("block_scan_int8_pack32_sharded", "int8", TIER_PLAN),
                 ("codes_scan_pack32_sharded", "codes", TIER_PLAN))
-SHARDED_SOURCES = {"bf16": "block_scan_wg.cu", "int8": "block_scan_tc_int8.cu",
+SHARDED_SOURCES = {"bf16": "block_scan_wg.cu", "int8": "block_scan_wg.cu",
                    "codes": "codes_scan_tc.cu"}
 
 
@@ -4441,9 +4519,7 @@ def phase_sharded(torch, tp, bs, cs, sl, tiers, work, timer):
         compare_sharded(torch, label, res, ref, gt, ids, ref_ids, rm, ref_rm)
         for c in (cnt if isinstance(cnt, list) else [cnt]):
             require_only_tc(c["bf16"], BF16_KEYS, f"{label}bf16 plans")
-            if c["int8"]["tc_int8_pack32"] <= 0 or c["int8"]["int8_pack32"]:
-                fail(f"{label}int8 plan must launch the tensor-core int8 "
-                     f"pack32 scan only: {c['int8']}")
+            require_only_tc(c["int8"], INT8_KEYS[1:], f"{label}int8 plan")
             if c["codes"]["tc_pack32"] <= 0 or c["codes"]["pack32"]:
                 fail(f"{label}code-domain plan must launch the tensor-core "
                      f"codes scan only: {c['codes']}")
@@ -4892,9 +4968,11 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel-vs-plain phase")
     ap.add_argument("--parent", default=None, metavar="DIR",
-                    help="a checkout of the tree whose bf16 scans of d <= "
-                    "128 ran on csrc/block_scan_tc.cu (mma.sync): each "
-                    "narrow row also times that kernel in turns")
+                    help="a checkout of a tree whose int8 scans ran on "
+                    "csrc/block_scan_tc_int8.cu (mma.sync): each int8 row "
+                    "also times that kernel in turns (and each narrow bf16 "
+                    "row its csrc/block_scan_tc.cu, where that takes the "
+                    "row's shapes), each where the tree holds it")
     ap.add_argument("--sharded-rank", type=int, default=None,
                     help=argparse.SUPPRESS)  # a rank of the D=2 phase
     ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
@@ -4932,9 +5010,8 @@ def main():
             report[kernel] = report.get(kernel, "") + " " + line.strip()
         elif "Performance Loss" in line:  # wgmma serialized (C7520)
             log("ptxas: " + line.strip())
-    # the deep codes instance, the block scan's chunked bf16 and one-list
-    # int8 instances and its warp-specialised ones: no spill, no stack
-    # frame
+    # the deep codes instance and the block scan's warp-specialised ones:
+    # no spill, no stack frame
     checked = sorted(x for x in report if CHECKED_KERNELS.search(x))
     for name in checked:
         rep = report[name]
@@ -5047,13 +5124,13 @@ def main():
             ("block_scan_exact", krows, counts["tc_wgn_exact"]),
             ("block_scan_pack32", krows, counts["tc_wgn_pack32"]),
             ("block_scan_int8_exact", int8_rows,
-             int8_counts["tc_int8_exact"]),
+             int8_counts["tc_wgn_int8_exact"]),
             ("block_scan_int8_pack32", int8_rows,
-             int8_counts["tc_int8_pack32"]),
+             int8_counts["tc_wgn_int8_pack32"]),
             ("block_scan_int8_exact_d1024", gist_rows,
-             gist_counts["tc_int8_exact"]),
+             gist_counts["tc_wg_int8_exact"]),
             ("block_scan_int8_pack32_d1024", gist_rows,
-             gist_counts["tc_int8_pack32"]),
+             gist_counts["tc_wg_int8_pack32"]),
             ("block_scan_exact_d1024", rec_rows,
              rec_launches["block_scan_exact_d1024"]),
             ("block_scan_pack32_d1024", rec_rows,

@@ -1,27 +1,28 @@
 #!/usr/bin/env python3
 """Variant builds of the block scan, timed in turns with the built library
 on the JAX package's GIST records' arguments (k-chunked rows) or on narrow
-random inputs (d 128, --narrow), on one CUDA card:
+random inputs (d 128, --narrow), on one CUDA card; and the int8 routes
+in turns with a parent tree's mma.sync int8 kernel (--int8-turns):
 
     python3 chip_variants.py                       # every variant and tier
-    python3 chip_variants.py --variants wg_ring4 --tiers bf16
+    python3 chip_variants.py --variants wg8_ring4 --tiers int8
     python3 chip_variants.py --variants wgn_noscore --narrow
     python3 chip_variants.py --variants wgn_sorted --ptxas-only
+    python3 chip_variants.py --variants '' --int8-turns --parent DIR
 
 On each of the records' searches (1M x 960 manifold-12, seed 1, IVF4096 x
 PQ64, spill 8 cells at 512, scan_group 4: bf16 pack32 k = 10 and k = 100
-at n_probe 32, exact at n_probe 8; int8 pack32 k = 100) it logs the
+at n_probe 32, exact at n_probe 8; int8 the same three) it logs the
 block's shapes (blocks, live probers, live 64-prober tiles and the share
 of pad rows they carry) and the built route's agreement with an
-f64-summed pack32 select (bf16: the warp-specialised instance of
-block_scan_wg.cu, wgmma + TMA; int8: block_scan_tc_int8.cu, mma.sync).
+f64-summed pack32 select (bf16; the int8 routes are exact, held by
+chip_smoke and the card tests): the warp-specialised instances of
+block_scan_wg.cu, wgmma + TMA, bf16 and s8.
 
 Each variant is a copy of `torchpq_tpu_torch/csrc` with text edits, built
 with the package's nvcc flags into its own library under
 `build/variants/`, and timed in turns with the built one on its route
 (built, variant, variant, built):
-  - sorted: (int8, mma.sync) the one-list instance (k-chunked pack32
-            above k_pair 48) with sorted phase ends instead of passes;
   - wg_regs224: (wgmma) the consumer warpgroups' register budget
             lowered from 232 to 224 (the producer's raised from 40 to 56);
   - wg_ring4: (wgmma) rings of four stages where the built instances
@@ -29,6 +30,14 @@ with the package's nvcc flags into its own library under
   - wg_sorted: (wgmma) the deep instance (pack32 k_pair > 48) with sorted
             phase ends instead of passes (ptxas spills 352 B there at the
             consumers' 232 registers);
+  - wg8_ring4: (wgmma; for the int8 rows, whose k-chunked tiles take half
+            the stages of bf16 ones) rings of four stages where the built
+            k-chunked instances take five (exact k_pair <= 10) or six
+            (pack32 k_pair <= 16);
+  - wg8_onelist_ring4: (wgmma, k-chunked pack32 k_pair > 48) one running
+            list where the built instance keeps two (the merge reads and
+            writes the same list: wrong keys, a timing variant only), and
+            the 33,280 B it frees at k_pair 64 spent on a fourth ring stage;
   - wgn_*: (wgmma, narrow rows d <= 128; ptxas only, these records being
             d 1024) wgn_regs224: the producer's and the consumers'
             registers at 56 / 224 instead of 40 / 232; wgn_sorted: the
@@ -56,11 +65,24 @@ import torch
 import chip_smoke as cs
 
 VARIANTS = {
-    "sorted": [("block_scan_tc_int8.cu", a, b)
-               for a, b in (("TPQ_LAUNCH(true, PASS_K, true, true)",
-                             "TPQ_LAUNCH(true, MAX_PACK_K, true, true)"),
-                            ("occupancy_of<true, PASS_K, true, true>",
-                             "occupancy_of<true, MAX_PACK_K, true, true>"))],
+    "wg8_ring4": [("wg_layout.cuh", "constexpr int RING_EXACT_10 = 5;",
+                   "constexpr int RING_EXACT_10 = 4;"),
+                  ("wg_layout.cuh", "constexpr int RING_PACK_16 = 6;",
+                   "constexpr int RING_PACK_16 = 4;")],
+    "wg8_onelist_ring4": [
+        ("block_scan_wg.cu",
+         "const int* cur = run_s + ((phase & 1) * MAX_PT + ct) * kls;",
+         "const int* cur = run_s + ct * kls;"),
+        ("block_scan_wg.cu",
+         "int* nxt = run_s + (((phase + 1) & 1) * MAX_PT + ct) * kls;",
+         "int* nxt = run_s + ct * kls;"),
+        ("block_scan_wg.cu",
+         "run_s + ((phase & 1) * MAX_PT + 16 * l2 + rw) * kls;",
+         "run_s + (16 * l2 + rw) * kls;"),
+        ("wg_layout.cuh", "(pack32 ? (size_t)2 * 4 * MAX_PT * (k_pair | 1)",
+         "(pack32 ? (size_t)1 * 4 * MAX_PT * (k_pair | 1)"),
+        ("wg_layout.cuh", "constexpr int RING_DEEP = 3;",
+         "constexpr int RING_DEEP = 4;")],
     "wg_regs224": [("block_scan_wg.cu", "constexpr int PRODUCER_REGS = 40;",
                     "constexpr int PRODUCER_REGS = 56;"),
                    ("block_scan_wg.cu", "constexpr int CONSUMER_REGS = 232;",
@@ -111,19 +133,19 @@ VARIANTS = {
                     "occupancy_of<true, tc::MAX_PACK_K, NRING_DEEP, "
                     "NQB_DEEP>")],
 }
-SOURCES = ("block_scan_tc_int8.cu", "block_scan.cu", "block_scan_wg.cu")
+SOURCES = ("block_scan.cu", "block_scan_wg.cu")
 
 
 def ptxas(log, tag):
-    """Registers and spills of the k-chunked and warp-specialised instances
-    in a build log."""
+    """Registers and spills of the warp-specialised instances (bf16 and
+    int8) in a build log."""
     kernel = "?"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             kernel = cs.kernel_name(m.group(1))
-        elif ("registers" in line or "spill" in line) and re.search(
-                r"block_scan_tc\w*Lb1ELb[01]E$|block_scan_wg_kernel", kernel):
+        elif ("registers" in line or "spill" in line) and \
+                "block_scan_wg_kernel" in kernel:
             print(f"ptxas {tag} {kernel}: {line.strip()}", flush=True)
 
 
@@ -202,6 +224,48 @@ def narrow_turns(torch, bs, lib, libs):
         del args
 
 
+# the int8 shape classes --int8-turns times: (what, d, s_eff, blocks,
+# pack32, k_pair, live probers a block of 128); the int8 tiers' (1M x 128:
+# 15% of rows live at n_probe 8, 56% at 32), the GIST-class width's, and
+# the deep pack32 selects of narrow rows at 2, 4, 5 and 8 tiles a phase
+INT8_CLASSES = (
+    ("d 128 exact", 128, 640, 4096, False, 10, 19),
+    ("d 128 pack32", 128, 640, 4096, True, 10, 72),
+    ("d 256 pack32", 256, 640, 4096, True, 10, 64),
+    ("d 1024 exact", 1024, 640, 4096, False, 10, 19),
+    ("d 1024 pack32", 1024, 640, 4096, True, 10, 72),
+    ("d 1024 pack32 k48, G 512", 1024, 2048, 2048, True, 48, 64),
+    ("d 1024 pack32 k64, G 512", 1024, 2048, 2048, True, 64, 64),
+    ("d 128 pack32 k64, G 256: 2 tiles a phase", 128, 512, 4096, True, 64,
+     64),
+    ("d 128 pack32 k64, G 512: 4 tiles", 128, 2048, 2048, True, 64, 64),
+    ("d 128 pack32 k64, G 128: 5 tiles", 128, 640, 4096, True, 64, 64),
+    ("d 128 pack32 k64, G 512: 8 tiles", 128, 4096, 2048, True, 64, 64))
+
+
+def int8_turns(torch, bs):
+    """Each INT8_CLASSES shape on random int8 inputs (the first n probers
+    of every block live): pick_route's route (an s8 wgmma instance of
+    block_scan_wg.cu) in turns with the parent's mma.sync int8 kernel
+    (chip_smoke.mma_sync_turns: --parent's block_scan_tc_int8.cu; 5
+    launches a turn), live entries compared."""
+    for what, d, s_eff, blocks, pack32, k_pair, n_live in INT8_CLASSES:
+        args, scale, q_scale = bs.random_int8_inputs(
+            "cuda", s_eff=s_eff, n_blocks=blocks, nq=10000, d=d,
+            cap_total=1 << 21 if d <= 256 else 1 << 20, seed=7)
+        args[1][:, n_live:] = -1
+        kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+                  slot_mask=bs.util.next_pow2(s_eff) - 1, scale=scale,
+                  q_scale=q_scale)
+        route = bs.pick_route(dtype=torch.int8, d=d, p_tile=128, s_eff=s_eff,
+                              k_pair=k_pair, pack32=pack32)
+        what = (f"int8 {what} (s_eff {s_eff}, {blocks} blocks, {n_live} of "
+                f"128 probers live), {route}")
+        if not cs.mma_sync_turns(torch, bs, args, kw, route, what):
+            cs.fail("--int8-turns needs --parent DIR (the mma.sync int8 "
+                    "kernel of DIR's tree)")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS),
@@ -214,6 +278,13 @@ def main():
     ap.add_argument("--narrow", action="store_true",
                     help="time the variants on narrow random inputs "
                     "(narrow_turns) and stop")
+    ap.add_argument("--int8-turns", action="store_true",
+                    help="time the int8 routes on INT8_CLASSES in turns "
+                    "with --parent's mma.sync int8 kernel (int8_turns) "
+                    "and stop")
+    ap.add_argument("--parent", default=None, metavar="DIR",
+                    help="a checkout of the tree whose int8 scans ran on "
+                    "csrc/block_scan_tc_int8.cu (mma.sync)")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: this run needs a card")
@@ -230,6 +301,11 @@ def main():
     if opts.narrow:
         narrow_turns(torch, bs, lib, libs)
         return
+    if opts.int8_turns:
+        if opts.parent:
+            cs.build_parent(_build, opts.parent)
+        int8_turns(torch, bs)
+        return
     base, query = cs.make_data(1_000_000, 10_000, 960, seed=1)
     proto = tp.IVFPQIndex(d_vector=960, n_subvectors=64, n_cells=4096,
                           initial_size=16, device="cuda")
@@ -242,7 +318,8 @@ def main():
     tiers = opts.tiers.split(",")
     for cache, plans in ((None, ((10, 32, True), (100, 32, True),
                                  (10, 8, False))),
-                         ("int8", ((100, 32, True),))):
+                         ("int8", ((10, 32, True), (100, 32, True),
+                                   (10, 8, False)))):
         if (cache or "bf16") not in tiers:
             continue
         index, _ = cs.build_index(torch, tp, trained, base, d=960, m=64,

@@ -163,8 +163,7 @@ def test_tc_smem_mirror_terms(m, dsub):
     tile = tn * ((2 * d + 31) // 32 * 32 + 16)
     for pack32 in (False, True):
         for k_pair in (1, 10, 16, 40, 48, 49, 52, 57, 64):
-            body = block_scan.tc_smem_bytes(2 * d, pack32, k_pair, False,
-                                            False)
+            body = block_scan.tc_smem_bytes(2 * d, pack32, k_pair)
             got = cs.tc_smem_bytes(m=m, dsub=dsub, pack32=pack32,
                                    k_pair=k_pair)
             if pack32 and k_pair > deep_k:
@@ -183,7 +182,7 @@ def test_tc_route_boundary_reads_the_mirror(monkeypatch):
              for m, dsub in ((64, 2), (32, 4), (128, 1))}
     assert sizes == {(64, 2): 210976, (32, 4): 206880, (128, 1): 219168}
     assert cs.tc_smem_bytes(m=64, dsub=2, pack32=True, k_pair=48) == 213024
-    assert 512 * 128 + block_scan.tc_smem_bytes(256, True, 64, False, False) \
+    assert 512 * 128 + block_scan.tc_smem_bytes(256, True, 64) \
         == 237600 > cs._SMEM_LIMIT
     shape = dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=64,
                  pack32=True)

@@ -1,7 +1,7 @@
-"""The port's CUDA kernels (block scan on its bf16 warp-specialised routes,
-narrow and k-chunked, its int8 tensor-core route and in its bf16/f32 and
-int8 modes on the CUDA cores, codes scan and
-flat scan on their tensor-core and CUDA-core routes, row gather)
+"""The port's CUDA kernels (block scan on its warp-specialised routes, bf16
+and int8, narrow and k-chunked, its bf16 mma.sync deep selects, and in
+its bf16/f32 and int8 modes on the CUDA cores, codes scan and flat scan
+on their tensor-core and CUDA-core routes, row gather)
 against their plain PyTorch versions, and the device spill routing against
 its CPU result, on a card; the indexes card against CPU; the sharded
 searcher and data-parallel k-means over a world of one NCCL rank, the host
@@ -361,19 +361,18 @@ def test_block_wgn_liveness(cuda, p_tile, n_live, pack32, k_pair, s_eff):
 @pytest.mark.parametrize("inputs", ["random", "ties"])
 @pytest.mark.parametrize("d,s_eff", [(128, 4096), (256, 512)])
 def test_block_tc_int8_deep_pack32(cuda, d, s_eff, inputs, n_ctas):
-    """The tensor-core int8 kernel at pack32 k_pair 64 with A in registers
-    (d 128 and 256: 140,320 and 173,088 B of shared memory; the chunked
-    rows' one-list instance: test_block_tc_int8_one_list), over 512 and
-    256 strided groups, on the card's grid and on 3 persistent CTAs: exact
-    integer sums, so bit for bit on every input, ties included
-    (int8_tie_inputs); pad rows dead; the CUDA-core int8 kernel equal on
-    every row."""
+    """The int8 rows of at most 256 bytes at pack32 k_pair 64, over 512
+    strided groups at s_eff 4096 (8 tiles a phase) and 256 at s_eff 512 (2
+    tiles), both on the narrow deep s8 wgmma instance, on the card's grid
+    and on 3 persistent CTAs: exact integer sums, so bit for bit on every
+    input, ties included (int8_tie_inputs); pad rows dead; the CUDA-core
+    int8 kernel equal on every row."""
     make = bs.int8_tie_inputs if inputs == "ties" else bs.random_int8_inputs
     args, scale, q_scale = make(cuda, s_eff=s_eff, n_blocks=64, nq=500, d=d,
                                 cap_total=8192, seed=d + s_eff)
     kw = dict(s_eff=s_eff, k_pair=64, euclidean=True, pack32=True,
               slot_mask=s_eff - 1)
-    _int8_held(args, kw, scale, q_scale, "tc_int8_pack32", n_ctas=n_ctas)
+    _int8_held(args, kw, scale, q_scale, "tc_wgn_int8_pack32", n_ctas=n_ctas)
 
 
 # the chunked bf16 rows' cases: (pack32, k_pair, s_eff); pack32 k_pair 49-64
@@ -591,17 +590,18 @@ def test_block_wg_instance_entry(cuda):
                                           (64, 2048)])
 @pytest.mark.parametrize("d", [288, 1024])
 def test_block_tc_int8_one_list(cuda, d, k_pair, s_eff, inputs, n_ctas):
-    """int8 rows in k chunks at pack32 k_pair 49-64: the one-list instance
-    (209,440 B at k_pair 64), over 512 and 256 strided groups, on the
-    card's grid and on 3 persistent CTAs: bit for bit on every input, ties
-    included; pad rows dead; the CUDA-core int8 kernel equal on every
-    row."""
+    """int8 rows over 256 bytes at pack32 k_pair 49-64 (the shapes the
+    mma.sync kernel's one-list instance served): the k-chunked s8 wgmma
+    instance of three ring stages (202,832 B at k_pair 64), over 512 and
+    256 strided groups, on the card's grid and on 3 persistent CTAs: bit
+    for bit on every input, ties included; pad rows dead; the CUDA-core
+    int8 kernel equal on every row."""
     make = bs.int8_tie_inputs if inputs == "ties" else bs.random_int8_inputs
     args, scale, q_scale = make(cuda, s_eff=s_eff, n_blocks=64, nq=500, d=d,
                                 cap_total=8192, seed=d + k_pair)
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=True,
               slot_mask=s_eff - 1)
-    _int8_held(args, kw, scale, q_scale, "tc_int8_pack32", n_ctas=n_ctas)
+    _int8_held(args, kw, scale, q_scale, "tc_wg_int8_pack32", n_ctas=n_ctas)
 
 
 @pytest.mark.gpu
@@ -632,16 +632,16 @@ def test_block_tc_refuses_shapes_past_the_limit(cuda, dtype, d, k_pair):
                           k_pair=k_pair, pack32=False)
     assert route == ("int8_" if int8 else "") + "exact"
     with pytest.raises(ValueError, match="tensor-core"):
-        _block_uncounted(args, kw, ("tc_" if int8 else "tc_wg_") + route)
+        _block_uncounted(args, kw, "tc_wg_" + route)
     out = torch.full((4, 128, 2 * k_pair), 7, dtype=torch.int32,
                      device=cuda)
     ptrs = [t.data_ptr() for t in args]
     tail = (s_eff, k_pair, 1, 0, s_eff - 1, 0, 2,
             torch.cuda.current_stream().cuda_stream)
     if int8:
-        rc = lib.torchpq_block_scan_tc_int8(
+        rc = lib.torchpq_block_scan_wg_int8(
             ptrs[0], q_scale.data_ptr(), *ptrs[1:6], scale.data_ptr(),
-            ptrs[6], out.data_ptr(), 4, 128, d, *tail)
+            ptrs[6], out.data_ptr(), 4, 128, d, args[6].shape[0], *tail)
     else:
         rc = lib.torchpq_block_scan_wg(*ptrs, out.data_ptr(), 4, 128, d,
                                        args[6].shape[0], *tail)
@@ -655,17 +655,13 @@ def test_tc_smem_matches_mirror(cuda):
     """The library's shared-memory sizes of the tensor-core scans equal
     ops/block_scan.py's mirrors (which pick_route reads without the
     library): the narrow warp-specialised bf16 scan's wg_smem_bytes at d <=
-    128, the int8 one's scan_tc.cuh:body_smem_bytes (int8 rows in k chunks
-    up to d 1024, and chunked pack32 above k_pair 48 with one running
-    list), the
-    codes scan's its own mirror ops/codes_scan.py:tc_smem_bytes (the
-    512 * d-byte codebook beside the body; above pack32 k_pair 48 the deep
-    instance's ring and one tile); every routed shape within the limit,
-    and the chunked int8 rows at pack32 k_pair 64 launching (209,440 B, one
-    running list) equal to the plain version on live rows; an entry point
-    refuses, without launching, a k_pair past the lists' 64; and the codes
-    entry point launches at pack32 k_pair 64, d = 128, equal to the plain
-    version on integer inputs."""
+    128, the mma.sync bf16 one's scan_tc.cuh:body_smem_bytes (rows of at
+    most 256 bytes), the codes scan's its own mirror
+    ops/codes_scan.py:tc_smem_bytes (the 512 * d-byte codebook beside the
+    body; above pack32 k_pair 48 the deep instance's ring and one tile);
+    every routed shape within the limit; and the codes entry point launches
+    at pack32 k_pair 64, d = 128, equal to the plain version on integer
+    inputs."""
     from torchpq_tpu_torch import _build
     lib = _build.library()
     for d in (32, 40, 64, 128):
@@ -682,39 +678,11 @@ def test_tc_smem_matches_mirror(cuda):
                 assert lib.torchpq_codes_scan_tc_smem(
                     m, dsub, pack32, k_pair) == cs.tc_smem_bytes(
                         m=m, dsub=dsub, pack32=pack32, k_pair=k_pair)
-    for d in (32, 128, 160, 256, 288, 512, 1024):
-        for pack32 in (0, 1):
-            for k_pair in (1, 10, 16, 40, 48, 49, 64):
-                assert lib.torchpq_block_scan_tc_int8_smem(
-                    d, pack32, k_pair) == bs.tc_route_smem(
-                        d=d, pack32=pack32, k_pair=k_pair, dtype=torch.int8)
-    for dtype, d in ((torch.bfloat16, 128), (torch.int8, 1024)):
-        assert bs.tc_route_smem(d=d, pack32=True, k_pair=64,
-                                dtype=dtype) <= bs._SMEM_LIMIT
-    args, scale, q_scale = bs.random_int8_inputs(
-        cuda, s_eff=1024, n_blocks=4, nq=50, d=1024, cap_total=4096)
-
-    def int8_entry(k_pair):
-        o = torch.full((4, 128, k_pair), 7, dtype=torch.int32, device=cuda)
-        rc = lib.torchpq_block_scan_tc_int8(
-            args[0].data_ptr(), q_scale.data_ptr(), args[1].data_ptr(),
-            args[2].data_ptr(), args[3].data_ptr(), args[4].data_ptr(),
-            args[5].data_ptr(), scale.data_ptr(), args[6].data_ptr(),
-            o.data_ptr(), 4, 128, 1024, 1024, k_pair, 1, 1, 1023, 512, 4,
-            torch.cuda.current_stream().cuda_stream)
-        torch.cuda.synchronize()
-        return rc, o
-
-    rc, o = int8_entry(65)
-    assert rc == 1  # cudaErrorInvalidValue, nothing written
-    assert bool((o == 7).all())
-    rc, o = int8_entry(64)
-    assert rc == 0
-    ref = bs.block_scan_ref(*args, s_eff=1024, k_pair=64, euclidean=True,
-                            pack32=True, slot_mask=1023, scale=scale,
-                            q_scale=q_scale)
-    live = args[1] >= 0
-    assert torch.equal(o[live], ref[live])
+    for d in (32, 64, 128):
+        for k_pair in (17, 40, 48, 49, 64):
+            assert lib.torchpq_block_scan_tc_smem(d, 1, k_pair) \
+                == bs.tc_route_smem(d=d, pack32=True, k_pair=k_pair)
+    assert bs.tc_route_smem(d=128, pack32=True, k_pair=64) <= bs._SMEM_LIMIT
     out = torch.empty((4, 128, 64), dtype=torch.int32, device=cuda)
     cargs = cs.integer_codes_inputs(cuda, s_eff=1024, n_blocks=4, nq=50,
                                     m=64, dsub=2, cap_total=4096)
@@ -735,9 +703,10 @@ def test_tc_smem_matches_mirror(cuda):
 @pytest.mark.gpu
 def test_block_routes_on_card(cuda):
     """bf16 at d = 128 and 1024 and int8 at d = 128 and 1024 take the
-    tensor-core kernels (bf16 the warp-specialised one's narrow and
-    k-chunked instances), pack32
-    k_pair 64 too at every such width; an f32
+    tensor-core kernels (the warp-specialised one's narrow and k-chunked
+    instances; pack32 k_pair 64 over 2 tiles a phase at bf16 d = 128 the
+    mma.sync deep selects), pack32 k_pair 64 too at every such width; an
+    f32
     cache, bf16 exact k_pair 20 or d = 1032, and int8 at d = 1040 or exact
     k_pair 20 take the CUDA-core one; each counts under its own key, and
     asking the tensor-core route for the others raises before anything
@@ -748,14 +717,14 @@ def test_block_routes_on_card(cuda):
             (torch.float32, 128, 10, False, "exact"),
             (torch.float32, 128, 10, True, "pack32"),
             (torch.bfloat16, 128, 20, False, "exact"),
-            (torch.int8, 128, 10, False, "tc_int8_exact"),
-            (torch.int8, 128, 10, True, "tc_int8_pack32"),
-            (torch.int8, 1024, 10, True, "tc_int8_pack32"),
+            (torch.int8, 128, 10, False, "tc_wgn_int8_exact"),
+            (torch.int8, 128, 10, True, "tc_wgn_int8_pack32"),
+            (torch.int8, 1024, 10, True, "tc_wg_int8_pack32"),
             (torch.int8, 1040, 10, False, "int8_exact"),
             (torch.int8, 128, 20, False, "int8_exact"),
             (torch.bfloat16, 128, 64, True, "tc_pack32"),
-            (torch.int8, 128, 64, True, "tc_int8_pack32"),
-            (torch.int8, 1024, 64, True, "tc_int8_pack32"),
+            (torch.int8, 128, 64, True, "tc_wgn_int8_pack32"),
+            (torch.int8, 1024, 64, True, "tc_wg_int8_pack32"),
             (torch.bfloat16, 1024, 10, False, "tc_wg_exact"),
             (torch.bfloat16, 1024, 64, True, "tc_wg_pack32"),
             (torch.bfloat16, 1032, 10, True, "pack32")):
@@ -1225,8 +1194,8 @@ def test_code_domain_index_on_card_matches_cpu(cuda, f32_search):
 @pytest.mark.parametrize("pack32", [False, True])
 @pytest.mark.parametrize("d,s_eff", [(128, 512), (1024, 512), (32, 256)])
 def test_int8_kernel_matches_plain(cuda, pack32, d, s_eff):
-    """The int8 mode: exact integer products (s32 mma.sync or __dp4a
-    against f32 sums of int8 values, exact below d = 1040) and one fused
+    """The int8 mode: exact integer products (s32 wgmma or __dp4a against
+    f32 sums of int8 values, exact below d = 1040) and one fused
     multiply-add in all (fmaf against the plain version's once-rounded
     f64), so the outputs are equal bit for bit: the tensor-core kernel's
     (the route at these shapes) on live rows, its pad rows dead, and the
@@ -1238,7 +1207,7 @@ def test_int8_kernel_matches_plain(cuda, pack32, d, s_eff):
               slot_mask=s_eff - 1, scale=scale, q_scale=q_scale)
     mode = "int8_pack32" if pack32 else "int8_exact"
     got, route = _block_launch(args, kw)
-    assert route == "tc_" + mode
+    assert route == ("tc_wgn_" if d <= 256 else "tc_wg_") + mode
     ref = bs.block_scan_ref(*args, **kw)
     _assert_pads(got, ref, args[1], route, 10, pack32)
     live = args[1] >= 0
@@ -1248,6 +1217,14 @@ def test_int8_kernel_matches_plain(cuda, pack32, d, s_eff):
 
 _INT8_CASES = [(False, 10, 640), (False, 16, 2048), (False, 10, 200),
                (True, 10, 640), (True, 40, 512), (True, 48, 2048)]
+
+
+def _int8_wg_route(d, pack32):
+    """The warp-specialised route of an int8 scan of rows of d bytes, the
+    one tensor-core kernel of every int8 shape: the narrow instances up to
+    256 bytes a row, the k-chunked ones above."""
+    return ("tc_wgn_" if d <= 256 else "tc_wg_") + (
+        "int8_pack32" if pack32 else "int8_exact")
 
 
 def _int8_held(args, kw, scale, q_scale, route, n_ctas=None):
@@ -1265,7 +1242,8 @@ def _int8_held(args, kw, scale, q_scale, route, n_ctas=None):
     _assert_pads(got, ref, args[1], route, kw["k_pair"], kw["pack32"])
     live = args[1] >= 0
     assert torch.equal(got[live], ref[live])
-    assert torch.equal(_block_uncounted(args, kw, route[3:]), ref)
+    mode = "int8_pack32" if kw["pack32"] else "int8_exact"
+    assert torch.equal(_block_uncounted(args, kw, mode), ref)
     return ref
 
 
@@ -1275,19 +1253,21 @@ def _int8_held(args, kw, scale, q_scale, route, n_ctas=None):
 @pytest.mark.parametrize("d", [128, 160, 256, 1024])
 def test_block_tc_int8_matches_plain(cuda, d, pack32, k_pair, s_eff,
                                      euclidean):
-    """The tensor-core int8 kernel on random int8 inputs: rows of 128 and
-    256 bytes (A in registers; 160 pads K to 160 of 176-byte tile rows)
-    and 1,024 bytes (four 256-byte k chunks per tile); s_eff 640 (the
+    """The tensor-core int8 routes on random int8 inputs: rows of 128, 160
+    and 256 bytes (the narrow s8 wgmma instances: one or two stages a
+    tile) and 1,024 bytes (the k-chunked ones, eight); s_eff 640 (the
     compacted layout's, 5 tiles), 2048 and 200 (a ragged last tile); exact
     k_pair 10 and 16; pack32 k_pair 10, 40 over 256 and 48 over 512
-    strided groups. Exact integer sums: bit for bit on every input."""
+    strided groups (at the narrow widths, 2 and 4 tiles a phase: the
+    narrow deep instance). Exact integer sums: bit for bit on every
+    input."""
     args, scale, q_scale = bs.random_int8_inputs(
         cuda, s_eff=s_eff, n_blocks=64, nq=500, d=d, cap_total=8192,
         seed=d + s_eff + k_pair)
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
               pack32=pack32, slot_mask=bs.util.next_pow2(s_eff) - 1)
     _int8_held(args, kw, scale, q_scale,
-               "tc_int8_" + ("pack32" if pack32 else "exact"))
+               _int8_wg_route(d, pack32))
 
 
 @pytest.mark.gpu
@@ -1296,16 +1276,16 @@ def test_block_tc_int8_matches_plain(cuda, d, pack32, k_pair, s_eff,
 @pytest.mark.parametrize("d", [32, 128, 288, 1024])
 def test_block_tc_int8_ties_exact(cuda, d, pack32, euclidean):
     """int8_tie_inputs (equal rows all over each window, runs of them):
-    the tensor-core int8 kernel equals the plain version bit for bit on
-    live rows, ties and their column order included; d = 288 ends in a
-    32-byte k chunk."""
+    the tensor-core int8 routes equal the plain version bit for bit on
+    live rows, ties and their column order included; d = 32 is one k32
+    step, d = 288 ends in a 32-byte stage."""
     args, scale, q_scale = bs.int8_tie_inputs(
         cuda, s_eff=640, n_blocks=64, nq=500, d=d, cap_total=8192, seed=d)
     k_pair = 40 if pack32 else 10
     kw = dict(s_eff=640, k_pair=k_pair, euclidean=euclidean, pack32=pack32,
               slot_mask=1023)
     ref = _int8_held(args, kw, scale, q_scale,
-                     "tc_int8_" + ("pack32" if pack32 else "exact"))
+                     _int8_wg_route(d, pack32))
     if not pack32:
         keys = ref[args[1] >= 0][:, :k_pair]
         assert int((keys[:, 1:] == keys[:, :-1]).sum()) > 0, "no ties"
@@ -1318,15 +1298,160 @@ def test_block_tc_int8_ties_exact(cuda, d, pack32, euclidean):
 def test_block_tc_int8_persistent_grid(cuda, d, pack32, k_pair, s_eff):
     """A grid of 3 persistent CTAs over 64 blocks: each CTA walks ~21
     blocks, so the state it resets between blocks (live-tile rows, the
-    pack32 phase parity, the exact lists and queues, the A fragments or
-    the staged query chunks, the copies in flight) is reused."""
+    pack32 phase parity, the exact lists and queues, the query rows, the
+    ring's stages and barrier phases, the copies in flight) is reused."""
     args, scale, q_scale = bs.int8_tie_inputs(
         cuda, s_eff=s_eff, n_blocks=64, nq=500, d=d, cap_total=8192,
         seed=k_pair)
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
               slot_mask=s_eff - 1)
     _int8_held(args, kw, scale, q_scale,
-               "tc_int8_" + ("pack32" if pack32 else "exact"), n_ctas=3)
+               _int8_wg_route(d, pack32), n_ctas=3)
+
+
+# the int8 warp-specialised instances' selects: exact k_pair 10 and 16
+# (s_eff 200: a ragged last tile), pack32 k_pair 10 and 16 over 128 strided
+# groups, 48 and 64 over 512 at s_eff 4096 (8 tiles a phase: the wgmma
+# instances at every width, the narrow deep one included)
+_WG8_SELECTS = [(False, 10, 640), (False, 16, 200), (True, 10, 640),
+                (True, 16, 2048), (True, 48, 4096), (True, 64, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("inputs", ["random", "ties"])
+@pytest.mark.parametrize("pack32,k_pair,s_eff", _WG8_SELECTS)
+@pytest.mark.parametrize("d", [16, 128, 256, 272, 1024])
+def test_block_wg_int8_bit_equal(cuda, d, pack32, k_pair, s_eff, inputs):
+    """The int8 warp-specialised instances (s8 wgmma k32 over a TMA ring):
+    rows of 16 bytes (half a k32 step, zeros past it in both operands),
+    128 and 256 (narrow: one and two stages a tile), 272 (k-chunked: the
+    last of three stages 16 bytes wide) and 1,024 (eight stages, one s32
+    chain); on random int8 inputs and on int8_tie_inputs (equal rows all
+    over each window): live rows equal block_scan_ref bit for bit, ties
+    included, pad rows dead, one launch counted under the route's own key,
+    equal over two launches; the CUDA-core int8 kernel equal on every
+    row."""
+    make = bs.int8_tie_inputs if inputs == "ties" else bs.random_int8_inputs
+    args, scale, q_scale = make(cuda, s_eff=s_eff, n_blocks=48, nq=500, d=d,
+                                cap_total=8192, seed=d + k_pair + s_eff)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=inputs == "random",
+              pack32=pack32, slot_mask=bs.util.next_pow2(s_eff) - 1)
+    route = _int8_wg_route(d, pack32)
+    ref = _int8_held(args, kw, scale, q_scale, route)
+    again = _block_uncounted(args, dict(kw, scale=scale, q_scale=q_scale),
+                             route)
+    live = args[1] >= 0
+    assert torch.equal(again[live], ref[live])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pack32,k_pair,s_eff", _WG8_SELECTS)
+@pytest.mark.parametrize("d", [128, 256, 1024])
+def test_block_wg_int8_persistent_grid(cuda, d, pack32, k_pair, s_eff):
+    """The int8 warp-specialised instances on a grid of 3 persistent CTAs
+    over 64 blocks: each CTA walks ~21 blocks through one ring (its stages,
+    barrier phases and, narrow, its query buffers carried from block to
+    block; blocks of one and of two live 64-prober tiles mixed), tie
+    inputs, live rows bit for bit, pad rows dead."""
+    args, scale, q_scale = bs.int8_tie_inputs(
+        cuda, s_eff=s_eff, n_blocks=64, nq=500, d=d, cap_total=8192,
+        seed=d + k_pair)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+              slot_mask=bs.util.next_pow2(s_eff) - 1)
+    _int8_held(args, kw, scale, q_scale, _int8_wg_route(d, pack32),
+               n_ctas=3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [128, 1024])
+@pytest.mark.parametrize("pack32,k_pair,s_eff", [(False, 10, 640),
+                                                 (True, 16, 640),
+                                                 (True, 64, 4096)])
+@pytest.mark.parametrize("p_tile,n_live", [
+    (16, 1), (16, 15), (64, 1), (64, 63), (128, 1), (128, 15), (128, 63),
+    (128, 128)])
+def test_block_wg_int8_liveness(cuda, p_tile, n_live, pack32, k_pair, s_eff,
+                                d):
+    """Blocks of p_tile probers with n_live live ones, first in odd blocks
+    and last in even ones (a live 64-prober tile behind a dead one, warp
+    slices of no live prober between live ones), on random int8 inputs at
+    d = 128 (narrow) and 1024 (k-chunked): every live row covered and equal
+    to block_scan_ref bit for bit, pad rows dead, on the card's grid and on
+    3 persistent CTAs alike."""
+    seed = p_tile + n_live + k_pair + d
+    args, scale, q_scale = bs.random_int8_inputs(
+        cuda, s_eff=s_eff, n_blocks=32, nq=500, d=d, cap_total=8192,
+        seed=seed)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    pr = torch.randint(0, 500, (32, p_tile), generator=g, device=cuda,
+                       dtype=torch.int32)
+    pr[:, n_live:] = -1
+    pr[0::2] = pr[0::2].roll(p_tile - n_live, dims=1)
+    args[1] = pr.contiguous()
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+              slot_mask=bs.util.next_pow2(s_eff) - 1, scale=scale,
+              q_scale=q_scale)
+    got, route = _block_launch(args, kw)
+    assert route == _int8_wg_route(d, pack32)
+    ref = bs.block_scan_ref(*args, **kw)
+    live = args[1] >= 0
+    assert int(live.sum()) == 32 * n_live
+    for out in (got, _block_uncounted(args, kw, route, n_ctas=3)):
+        _assert_pads(out, ref, args[1], route, k_pair, pack32)
+        assert torch.equal(out[live], ref[live])
+
+
+@pytest.mark.gpu
+def test_block_wg_int8_entry_refuses_and_sizes(cuda):
+    """The int8 warp-specialised entry points: their shared memory equals
+    the mirror (ops/block_scan.py:wg_smem_bytes over an int8 cache) at
+    every k_pair, narrow (d 16, 128, 256) and k-chunked (d 272, 1024),
+    within the limit, one CTA an SM; the instance entry at inst_k ==
+    k_pair equals the routed launch and refuses inst_k below k_pair; the
+    entry refuses, without launching (cudaErrorInvalidValue, the output
+    keeps its fill), rows not of 16-byte pieces (d 136), rows over 1,024
+    bytes, exact k_pair 17 and a window past the cache."""
+    from torchpq_tpu_torch import _build
+    lib = _build.library()
+    for d in (16, 128, 256, 272, 1024):
+        for pack32 in (0, 1):
+            for k_pair in range(1, 65 if pack32 else 17):
+                assert lib.torchpq_block_scan_wg_int8_smem(
+                    d, pack32, k_pair) == bs.wg_smem_bytes(
+                        pack32, k_pair, d, torch.int8) <= bs._SMEM_LIMIT
+                assert lib.torchpq_block_scan_wg_int8_occupancy(
+                    d, pack32, k_pair) == 1
+    stream = torch.cuda.current_stream().cuda_stream
+    for d, k_pair, capacity, inst_k in ((136, 10, 4096, 10),
+                                        (1040, 10, 4096, 10),
+                                        (1024, 17, 4096, 17),
+                                        (128, 10, 256, 10),
+                                        (1024, 10, 4096, 9)):
+        args, scale, q_scale = bs.random_int8_inputs(
+            cuda, s_eff=512, n_blocks=4, nq=50, d=d, cap_total=4096)
+        out = torch.full((4, 128, 2 * k_pair), 7, dtype=torch.int32,
+                         device=cuda)
+        ptrs = [x.data_ptr() for x in args]
+        rc = lib.torchpq_block_scan_wg_int8_instance(
+            ptrs[0], q_scale.data_ptr(), *ptrs[1:6], scale.data_ptr(),
+            ptrs[6], out.data_ptr(), 4, 128, d, capacity, 512, k_pair, 1, 0,
+            511, 0, 2, stream, inst_k)
+        torch.cuda.synchronize()
+        assert rc == 1  # cudaErrorInvalidValue
+        assert bool((out == 7).all())
+    args, scale, q_scale = bs.int8_tie_inputs(
+        cuda, s_eff=2048, n_blocks=16, nq=500, d=1024, cap_total=8192)
+    kw = dict(s_eff=2048, k_pair=64, euclidean=True, pack32=True,
+              slot_mask=2047, scale=scale, q_scale=q_scale)
+    out = torch.empty((16, 128, 64), dtype=torch.int32, device=cuda)
+    ptrs = [x.data_ptr() for x in args]
+    rc = lib.torchpq_block_scan_wg_int8_instance(
+        ptrs[0], q_scale.data_ptr(), *ptrs[1:6], scale.data_ptr(), ptrs[6],
+        out.data_ptr(), 16, 128, 1024, args[6].shape[0], 2048, 64, 1, 1,
+        2047, 512, 3, stream, 64)
+    torch.cuda.synchronize()
+    assert rc == 0
+    assert torch.equal(out, _block_uncounted(args, kw, "tc_wg_int8_pack32"))
 
 
 @pytest.mark.gpu
@@ -1372,8 +1497,8 @@ def test_int8_index_on_card_matches_cpu(cuda, f32_search):
         assert adc.LAST_GATE["cache"] == "int8"
         _assert_pack32_values(v, v_ref, i, i_ref, q, adc.LAST_GATE["s_eff"])
     assert bs.launches == dict(
-        before, tc_int8_exact=before["tc_int8_exact"] + 2,
-        tc_int8_pack32=before["tc_int8_pack32"] + 1)
+        before, tc_wgn_int8_exact=before["tc_wgn_int8_exact"] + 2,
+        tc_wgn_int8_pack32=before["tc_wgn_int8_pack32"] + 1)
 
 
 @pytest.mark.gpu

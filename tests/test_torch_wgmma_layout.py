@@ -14,7 +14,14 @@ ones (d <= 128: one or two stages a tile); the k16 steps cover d; the
 narrow rows' resident query buffer [2][128][128 B] is a bijection of a
 block's 128 rows of 256 bytes whose 64-prober tiles' k16 steps start where
 wgmma's descriptors point; and the header's shared-memory formulas (the
-k-chunked and the narrow instances') equal ops/block_scan.py's mirror."""
+k-chunked and the narrow instances') equal ops/block_scan.py's mirror.
+The int8 rows (one byte an element, s8 wgmma k32 steps of 32 bytes) take
+the same maps in bytes: their TMA boxes {128 elements, 128 rows} cover the
+window [s_eff rows][d bytes] once each at d 16 to 1024 (narrow up to 256,
+k-chunked above), the k32 steps cover d, the narrow query buffer holds a
+block's rows of d bytes once each where the k32 descriptors point, and
+the int8 shared-memory formulas (each stage also carrying its columns'
+scales) equal the mirror's."""
 
 import shutil
 import subprocess
@@ -130,21 +137,24 @@ static void descriptor() {
   std::printf("descriptor %s\n", fails > before ? "FAIL" : "OK");
 }
 
-// the window's TMA boxes at widths ds: each (cache row, k element) of a
-// block's window once, tiles in the deep groups' phase order
+// the window's TMA boxes at widths ds (elements of e bytes): each (cache
+// row, k element) of a block's window once, tiles in the deep groups'
+// phase order
 template <int N>
-static void boxes_at(const char* name, const int (&ds)[N]) {
+static void boxes_at(const char* name, const int (&ds)[N], int e = 2) {
   // (s_eff, G): the records' k = 10 (G = 128) and deep k = 100 (G = 512),
   // a G = 256 window and ragged ones
   const int shapes[][2] = {{2048, 128}, {2048, 512}, {512, 256},
                            {640, 128}, {200, 128}, {4096, 512}};
+  const int bk = SW_ROW / e;          // k elements of a stage's box
+  const int kstep = KSTEP_BYTES / e;  // k elements of a wgmma step
   for (int d : ds) {
-    const int nst = stages_of(d);
+    const int nst = stages_of(d, e);
     int covered = 0;
-    for (int st = 0; st < nst; ++st) covered += KSTEP * ksteps_of(d, st);
-    CHECK(name, nst * BOX_K >= d && (nst - 1) * BOX_K < d);
-    CHECK(name, covered >= d && covered < d + KSTEP);
-    for (int st = 0; st + 1 < nst; ++st) CHECK(name, ksteps_of(d, st) == 4);
+    for (int st = 0; st < nst; ++st) covered += kstep * ksteps_of(d, st, e);
+    CHECK(name, nst * bk >= d && (nst - 1) * bk < d);
+    CHECK(name, covered >= d && covered < d + kstep);
+    for (int st = 0; st + 1 < nst; ++st) CHECK(name, ksteps_of(d, st, e) == 4);
     for (const auto& sh : shapes) {
       const int s_eff = sh[0], G = sh[1];
       const bool phased = G > BOX_ROWS;
@@ -153,20 +163,20 @@ static void boxes_at(const char* name, const int (&ds)[N]) {
       const int stride = phased ? G : BOX_ROWS;
       const int s0 = 7 * BOX_ROWS + 16;  // a block's first cache row
       // every (cache row, k element) of the window once
-      std::vector<int> seen((size_t)n_tiles * BOX_ROWS * nst * BOX_K, 0);
+      std::vector<int> seen((size_t)n_tiles * BOX_ROWS * nst * bk, 0);
       for (int it = 0; it < n_tiles; ++it) {
         const int ts = tile_start(it, tpp, stride);
         CHECK(name, ts % BOX_ROWS == 0 && ts < n_tiles * BOX_ROWS);
         if (phased) CHECK(name, ts % G == (it / tpp) * BOX_ROWS);
         for (int st = 0; st < nst; ++st) {
           for (int r = 0; r < BOX_ROWS; ++r) {
-            for (int e = 0; e < BOX_K; ++e) {
-              const int y = box_y(s0, ts) + r - s0, x = box_x(st) + e;
-              if (y < 0 || y >= n_tiles * BOX_ROWS || x >= nst * BOX_K) {
+            for (int k = 0; k < bk; ++k) {
+              const int y = box_y(s0, ts) + r - s0, x = box_x(st, e) + k;
+              if (y < 0 || y >= n_tiles * BOX_ROWS || x >= nst * bk) {
                 CHECK(name, false);
                 continue;
               }
-              seen[(size_t)y * nst * BOX_K + x] += 1;
+              seen[(size_t)y * nst * bk + x] += 1;
             }
           }
         }
@@ -225,6 +235,65 @@ static void qbuf() {
   std::printf("qbuf %s\n", fails > before ? "FAIL" : "OK");
 }
 
+// int8 rows: boxes of 128 one-byte elements, k-chunked above 256 bytes
+// (three to eight stages a tile), narrow up to 256 (one or two)
+static void boxes_i8() {
+  const int before = fails;
+  const int ds[] = {272, 288, 384, 960, 1024};
+  boxes_at("boxes_i8", ds, 1);
+  for (int d : ds) CHECK("boxes_i8", stages_of(d, 1) == (d + 127) / 128);
+  CHECK("boxes_i8", box_x(3, 1) == 384 && box_x(3) == 192);
+  std::printf("boxes_i8 %s\n", fails > before ? "FAIL" : "OK");
+}
+
+static void narrow_boxes_i8() {
+  const int before = fails;
+  const int ds[] = {16, 32, 128, 160, 256};
+  boxes_at("narrow_boxes_i8", ds, 1);
+  for (int d : ds) {
+    CHECK("narrow_boxes_i8", d <= NARROW_ROW);
+    CHECK("narrow_boxes_i8", stages_of(d, 1) == (d <= 128 ? 1 : 2));
+    // the k32 steps: 32 bytes each, the last one's bytes past d zeros
+    CHECK("narrow_boxes_i8", ksteps_of(d, 0, 1) == (d >= 128 ? 4 : (d + 31) / 32));
+  }
+  std::printf("narrow_boxes_i8 %s\n", fails > before ? "FAIL" : "OK");
+}
+
+// the narrow query buffer of int8 rows of d bytes (d <= 256): each byte of
+// a block's 128 rows once, inside k half kb / 128, 16-byte pieces whole;
+// the k32 step ks of half h of 64-prober tile m starts (kmajor_desc) at
+// row 64 m's byte 128 h + 32 ks, for the ksteps_of(d, h, 1) steps a row
+// of d bytes takes
+static void qbuf_i8() {
+  const int before = fails;
+  for (int d : {16, 48, 128, 160, 256}) {
+    std::vector<int> seen(QBUF_BYTES, 0);
+    for (int r = 0; r < 128; ++r) {
+      for (int kb = 0; kb < d; ++kb) {
+        const int o = qbuf_offset(r, kb);
+        CHECK("qbuf_i8", o >= 0 && o < QBUF_BYTES);
+        if (o < 0 || o >= QBUF_BYTES) continue;
+        seen[o] += 1;
+        CHECK("qbuf_i8", o % 16 == kb % 16);
+        CHECK("qbuf_i8", o / STAGE_BYTES == kb / SW_ROW);
+      }
+    }
+    for (int o = 0; o < QBUF_BYTES; ++o) CHECK("qbuf_i8", seen[o] <= 1);
+    for (int m = 0; m < 2; ++m) {
+      for (int h = 0; h < stages_of(d, 1); ++h) {
+        const uint32_t tile = h * STAGE_BYTES + m * (STAGE_BYTES / 2);
+        for (int ks = 0; ks < ksteps_of(d, h, 1); ++ks) {
+          const uint64_t desc = kmajor_desc(tile, ks);
+          CHECK("qbuf_i8", (int)desc_start(desc) ==
+                               qbuf_offset(64 * m, SW_ROW * h + 32 * ks));
+          CHECK("qbuf_i8", SW_ROW * h + 32 * ks < d);
+        }
+      }
+    }
+  }
+  std::printf("qbuf_i8 %s\n", fails > before ? "FAIL" : "OK");
+}
+
 int main() {
   swizzle();
   accumulator();
@@ -232,6 +301,9 @@ int main() {
   boxes();
   narrow_boxes();
   qbuf();
+  boxes_i8();
+  narrow_boxes_i8();
+  qbuf_i8();
   for (int pack32 = 0; pack32 < 2; ++pack32) {
     for (int k_pair = 1; k_pair <= 64; ++k_pair) {
       if (!pack32 && k_pair > 16) break;
@@ -240,6 +312,12 @@ int main() {
       std::printf("narrow_smem %d %d %zu %d %d\n", pack32, k_pair,
                   narrow_smem_bytes(pack32, k_pair),
                   narrow_ring_of(pack32, k_pair),
+                  narrow_qbufs_of(pack32, k_pair));
+      std::printf("i8_smem %d %d %zu\n", pack32, k_pair,
+                  smem_bytes(pack32, k_pair, 0, 1));
+      std::printf("i8_narrow_smem %d %d %zu %d %d\n", pack32, k_pair,
+                  narrow_smem_bytes(pack32, k_pair, 0, 1),
+                  narrow_ring_of(pack32, k_pair, 1),
                   narrow_qbufs_of(pack32, k_pair));
     }
   }
@@ -266,7 +344,8 @@ def harness(tmp_path_factory):
 
 
 @pytest.mark.parametrize("check", ["swizzle", "accumulator", "descriptor",
-                                   "boxes", "narrow_boxes", "qbuf"])
+                                   "boxes", "narrow_boxes", "qbuf",
+                                   "boxes_i8", "narrow_boxes_i8", "qbuf_i8"])
 def test_layout_map(harness, check):
     """Each map of the header holds its properties (see the module
     docstring); the harness prints the first failing condition."""
@@ -306,3 +385,42 @@ def test_narrow_smem_formula_matches_mirror(harness):
         if k_pair in ((10, 16) if not pack32 else (16, 64)):
             stage = bs._WG_STAGE_BYTES + 4 * bs._WG_BOX_ROWS + 16
             assert int(nbytes) + stage > bs._SMEM_LIMIT, (pack32, k_pair)
+
+
+def test_int8_smem_formula_matches_mirror(harness):
+    """The int8 instances' shared memory (csrc/wg_layout.cuh:smem_bytes and
+    narrow_smem_bytes with i8, each stage carrying its columns' scales
+    beside their penalties) equals ops/block_scan.py:wg_smem_bytes over an
+    int8 cache at every exact k_pair 1-16 and pack32 k_pair 1-64, k-chunked
+    (d 272 and 1024) and narrow (d 16, 128 and 256); the narrow ring
+    stages and query buffers equal wg_narrow_instance's; every such shape
+    fits the limit, and one more ring stage would not at each instance's
+    largest k_pair (the narrow pack32 instance of k_pair <= 16: seven
+    stages, where the bf16 one has eight)."""
+    k_rows = [x.split() for x in harness if x.startswith("i8_smem ")]
+    n_rows = [x.split() for x in harness if x.startswith("i8_narrow_smem ")]
+    assert len(k_rows) == len(n_rows) == 16 + 64
+    i8 = bs.torch.int8
+    stage = bs._WG_STAGE_BYTES + 4 * bs._WG_BOX_ROWS + bs._WG_SCALE_BYTES + 16
+    for _, pack32, k_pair, nbytes in k_rows:
+        pack32, k_pair, nbytes = int(pack32), int(k_pair), int(nbytes)
+        for d in (272, 1024):
+            assert bs.wg_smem_bytes(pack32, k_pair, d, i8) == nbytes, \
+                (pack32, k_pair, d)
+        assert nbytes <= bs._SMEM_LIMIT
+        assert nbytes == bs.wg_smem_bytes(pack32, k_pair) + \
+            bs.wg_ring(pack32, k_pair) * bs._WG_SCALE_BYTES
+        if k_pair in ((10, 16) if not pack32 else (16, 48, 64)):
+            assert nbytes + stage + bs._WG_STAGE_BYTES > bs._SMEM_LIMIT
+    for _, pack32, k_pair, nbytes, ring, qbufs in n_rows:
+        pack32, k_pair = int(pack32), int(k_pair)
+        for d in (16, 128, 256):
+            assert bs.wg_smem_bytes(pack32, k_pair, d, i8) == int(nbytes), \
+                (pack32, k_pair, d)
+        assert bs.wg_narrow_instance(pack32, k_pair, i8)[1:] \
+            == (int(ring), int(qbufs)), (pack32, k_pair)
+        assert int(nbytes) <= bs._SMEM_LIMIT
+        if k_pair in ((10, 16) if not pack32 else (16, 64)):
+            assert int(nbytes) + stage > bs._SMEM_LIMIT, (pack32, k_pair)
+    assert bs.wg_narrow_instance(1, 16, i8)[1] == 7
+    assert bs.wg_narrow_instance(1, 16)[1] == 8

@@ -60,16 +60,16 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_tc_kernel(
     int n_blocks, int p_tile, int d, int s_eff, int k_pair, float factor,
     int slot_mask, int n_groups) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  RowsSource<false> src;
-  src.init(decoded, penalty, nullptr, 2 * d, row_ld(2 * d, false));
-  scan_blocks<Bf16, PACK, KMAX, false, false>(
-      src, smem_raw, reinterpret_cast<const unsigned char*>(qtable), nullptr,
-      probers, start_c, off, capb, out, n_blocks, p_tile, 2 * d, s_eff,
-      k_pair, factor, slot_mask, n_groups);
+  RowsSource src;
+  src.init(decoded, penalty, 2 * d, row_ld(2 * d));
+  scan_blocks<PACK, KMAX>(
+      src, smem_raw, reinterpret_cast<const unsigned char*>(qtable), probers,
+      start_c, off, capb, out, n_blocks, p_tile, 2 * d, s_eff, k_pair,
+      factor, slot_mask, n_groups);
 }
 
 size_t smem_of(int d, int pack32, int k_pair) {
-  return body_smem_bytes(2 * d, pack32, k_pair, false, false);
+  return body_smem_bytes(2 * d, pack32, k_pair);
 }
 
 int occupancy_of(int d, int k_pair) {

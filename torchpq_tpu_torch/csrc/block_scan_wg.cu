@@ -1,9 +1,10 @@
-// IVF block scan over the bf16 decoded cache (d <= 1024, d % 8 == 0) on
+// IVF block scan over the bf16 decoded cache (d <= 1024, d % 8 == 0) and
+// the int8 scan cache (d <= 1024, d % 16 == 0; see "Int8 rows" below) on
 // Hopper (sm_90a): warpgroup products (wgmma), window tiles brought by the
 // tensor memory accelerator (TMA) into a ring of shared-memory stages
 // tracked by mbarriers, one producer warpgroup and two consumer
 // warpgroups. The counterpart of torchpq_tpu/ops/pallas_scan.py:
-// scan_blocks_pallas in bf16 mode, in two families of instances: narrow
+// scan_blocks_pallas in bf16 and int8 modes, in two families of instances: narrow
 // rows (d <= 128: the main path's cache, 128 wide; the query rows stay
 // resident, see "Narrow rows" below) and rows in k chunks (128 < d <=
 // 1024: the GIST-class cache, 1,024 wide). It computes, for block b,
@@ -155,8 +156,46 @@
 //   penalties + 16 B of barriers, prober rows, tile flags and the lists:
 //   exact 228,512 B at k_pair 10 (6 stages), 217,744 B at 16 (5); pack32
 //   228,544 B at 16 (8), 218,752 B at 64 (5 stages, one query buffer).
+//
+// Int8 rows (I8; the int8 scan cache with per-slot scales and int8 query
+// rows with per-query scales, d <= 1024, d % 16 == 0):
+//
+//   ab    = sum_k q8[p, k] * y8[start_c[b] + j, k]          (exact, s32)
+//   m     = (factor * q_scale[p]) * scale[start_c[b] + j]   (f32, that order)
+//   score = fmaf(float(ab), m, -pen_j)
+//
+// in the same body, byte for byte: an s8 wgmma k32 step covers 32 bytes as
+// a bf16 k16 step does, so a 128-byte swizzled row is 128 int8 elements,
+// the descriptors advance alike and a TMA box {128 elements, 128 rows}
+// (the map over the cache as bytes) fills the same 16,384 B stage. Rows of
+// at most 256 bytes (d <= 256) take the narrow instances (the query rows
+// resident, 16 KB a buffer's k half); wider ones (256 < d <= 1024) the
+// k-chunked instances, a tile in up to 8 stages where a bf16 row of the
+// same d takes 16. Products: wgmma.m64n128k32 / m64n64k32 .s32.s8.s8 (both
+// operands K-major, as 8-bit wgmma requires), whose s32 accumulators lie
+// as the f32 ones, so the selects are unchanged. The sums are exact
+// integers (|ab| <= 1024 * 128^2 = 2^24, exact in f32 too), so the
+// k-chunked rows keep one chain over the whole row (no chunk sums, 64
+// registers fewer than bf16's) and the scores are block_scan_ref's bit for
+// bit, ties included, on every input. The stage that carries a tile's
+// penalties carries its columns' scales [128] f32 too (SCALE_BYTES a
+// stage: the narrow pack32 instance of k_pair <= 16 keeps 7 stages, eight
+// would take 232,640 B); each consumer lane reads its two accumulator
+// rows' factor * q_scale once per block. What bounds it is the bf16
+// rows': at the int8 tier's arguments (1M x 128) the window bytes, ~0.05
+// ms, and the select over every live score; the GIST-class rows' bytes
+// and products are half the bf16 ones'. It serves every int8 shape the
+// tensor cores take, in place of an mma.sync m16n8k32 s8 kernel it beat
+// in turns on the int8 rows' own arguments, 1.28x / 1.21x at d 128
+// (exact / pack32), 1.63x / 2.25x at d_cache 1024, 1.85x on the GIST int8
+// record's k = 100 scan (9.588 against 5.192 ms; NVIDIA H100 80GB HBM3,
+// 700.00 W; PERF.md). That kernel's sorted phase ends were 2-12% faster
+// only on the pack32 selects above k_pair 16 of narrow rows whose phases
+// cover fewer than 8 window tiles, which no workload runs on an int8
+// cache.
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda.h>
 
@@ -191,17 +230,34 @@ constexpr int FULL_ARRIVALS = 2 * 128;  // a producer thread's arrival, and
                                         // its landed copies'
 constexpr int HALF = STAGE_BYTES / 2;   // 64 rows of a stage's operand
 
+// The score of a product sum x: bf16, factor * x - pen (rowm = factor);
+// int8, one rounding of float(x) * m - pen with m = rowm * colm rounded
+// first, rowm = factor * q_scale[p] and colm = scale[j] (block_scan_ref's
+// order: ops/block_scan.py:fma_f32), explicit so that no contraction moves
+// a bit.
+__device__ __forceinline__ float wg_score(float x, float rowm, float,
+                                          float pen) {
+  return tc::score(x, rowm, pen);
+}
+__device__ __forceinline__ float wg_score(int x, float rowm, float colm,
+                                          float pen) {
+  return __fmaf_rn(__int2float_rn(x), __fmul_rn(rowm, colm), -pen);
+}
+
 // PACK: the select; KMAX: exact lists' length, or pack32's largest k_pair
 // extracted pass by pass (PASS_K) or sorted (MAX_PACK_K); NST: ring
-// stages; QB: the narrow rows' resident query buffers (d <= 128), 0 for
-// the k-chunked rows' query copies with every stage.
-template <bool PACK, int KMAX, int NST, int QB>
+// stages; QB: the narrow rows' resident query buffers (rows of at most 256
+// bytes), 0 for the k-chunked rows' query copies with every stage; I8:
+// int8 rows (s8 wgmma k32, exact s32 sums, q_scale and scale read), else
+// bf16 (wgmma k16, f32 sums; q_scale and scale unused).
+template <bool PACK, int KMAX, int NST, int QB, bool I8>
 __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
     const __grid_constant__ CUtensorMap tmap,
-    const __nv_bfloat16* __restrict__ qtable,
-    const int* __restrict__ probers, const int* __restrict__ start_c,
-    const int* __restrict__ off, const int* __restrict__ capb,
-    const float* __restrict__ penalty, int* __restrict__ out, int n_blocks,
+    const unsigned char* __restrict__ qtable,
+    const float* __restrict__ q_scale, const int* __restrict__ probers,
+    const int* __restrict__ start_c, const int* __restrict__ off,
+    const int* __restrict__ capb, const float* __restrict__ penalty,
+    const float* __restrict__ scale, int* __restrict__ out, int n_blocks,
     int p_tile, int d, int s_eff, int k_pair, float factor, int slot_mask,
     int n_groups) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -216,7 +272,9 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
   unsigned char* aq = win + NST * STAGE_BYTES;
   float* pen_s = reinterpret_cast<float*>(
       aq + (NARROW ? QB * QBUF_BYTES : NST * STAGE_BYTES));  // [NST][128]
-  uint64_t* full = reinterpret_cast<uint64_t*>(pen_s + NST * BOX_ROWS);
+  float* scl_s = pen_s + NST * BOX_ROWS;  // int8: [NST][128]
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(scl_s + (I8 ? NST * BOX_ROWS : 0));
   uint64_t* empty = full + NST;
   uint64_t* qfull = empty + NST;  // narrow: [QB] each
   uint64_t* qempty = qfull + QB;
@@ -229,8 +287,9 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
   // instructions sit in no path it must treat as divergent)
   const int wgi = __shfl_sync(0xffffffffu, t / 128, 0);
   const int kls = tc::list_ld(k_pair, PACK);
-  const int rb = 2 * d;                      // row bytes
-  const int nst = stages_of(d);              // ring stages per tile
+  constexpr int E = I8 ? 1 : 2;              // element bytes
+  const int rb = E * d;                      // row bytes
+  const int nst = stages_of(d, E);           // ring stages per tile
   const int nch = (nst + 1) / 2;             // 128-element k chunks
   // tile order as scan_tc.cuh's: deep pack32 groups (G > 128) phase by
   // phase, a phase ending every tpp tiles
@@ -283,7 +342,7 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
           mbar_wait(empty + slot, ((g / NST) & 1) ^ 1);
           if (t == 0) {
             mbar_expect_tx(fb, STAGE_BYTES);
-            tma_load_2d(win + slot * STAGE_BYTES, &tmap, fb, box_x(st),
+            tma_load_2d(win + slot * STAGE_BYTES, &tmap, fb, box_x(st, E),
                         box_y(s0, ts));
           }
           if (!NARROW && copy) {
@@ -309,14 +368,17 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
                   q >= 0 && kb < rb ? 16 : 0);
             }
           }
-          if (st == nst - 1) {  // the tile's penalties
+          if (st == nst - 1) {  // the tile's penalties (int8: and scales)
             float p = 0.0f;
+            float c = 0.0f;
             if (t < nrow) {
               const int j = ts + t;
               p = __ldg(penalty + s0 + j) +
                   ((j >= o0 && j < o1) ? 0.0f : big_penalty());
+              if constexpr (I8) c = __ldg(scale + s0 + j);
             }
             pen_s[slot * BOX_ROWS + t] = p;
+            if constexpr (I8) scl_s[slot * BOX_ROWS + t] = c;
           }
           if (!NARROW) mbar_arrive_cp_async(fb);
           mbar_arrive(fb);
@@ -380,15 +442,17 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
     int* qc_s = reinterpret_cast<int*>(qv_s + QUEUE * CONSUMERS);
     const uint32_t win_u = smem_u32(win);
     const uint32_t aq_u = smem_u32(aq);
-    float sum[2][8][4];  // a tile's sums over its chunks, per column half
+    using Acc = std::conditional_t<I8, int, float>;
+    Acc sum[2][8][4];  // a tile's sums over its chunks, per column half
     // APART: the chunk's products from zero into accumulators of their
-    // own, then added into sum (k-chunked rows); else one chain into sum
-    // itself (narrow rows)
-    constexpr bool APART = !NARROW;
-    float part[8][4];
-    float part_hi[8][4];  // the second half's (two live 64-prober tiles)
-    float(&acc)[8][4] = tc::pick<APART>(part, sum[0]);
-    float(&acc_hi)[8][4] = tc::pick<APART>(part_hi, sum[1]);
+    // own, then added into sum (k-chunked bf16 rows); else one chain into
+    // sum itself (narrow rows; k-chunked int8 rows, whose s32 sums are
+    // exact in any order: one chain over the whole row)
+    constexpr bool APART = !NARROW && !I8;
+    Acc part[8][4];
+    Acc part_hi[8][4];  // the second half's (two live 64-prober tiles)
+    Acc(&acc)[8][4] = tc::pick<APART>(part, sum[0]);
+    Acc(&acc_hi)[8][4] = tc::pick<APART>(part_hi, sum[1]);
     int g = 0;   // stages consumed
     int qi = 0;  // narrow: query buffers consumed
     for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
@@ -442,6 +506,16 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
         mbar_wait(qfull + qs, (qi / NQ) & 1);
         fence_proxy_async();  // the query copies, for wgmma's reads
       }
+      // the scale of the lane's two accumulator rows (acc_row: 16 wq + lane
+      // / 4 and 8 more): factor, int8 times the prober's q_scale
+      float rowm[2] = {factor, factor};
+      if constexpr (I8) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int q = prow_s[64 * m64 + 16 * wq + lane / 4 + 8 * rr];
+          rowm[rr] = __fmul_rn(factor, __ldg(q_scale + max(q, 0)));
+        }
+      }
 
       // select state: exact lists (lane l keeps row l / 2 of the warp's 16
       // over its half of each 64 columns) and the bound, or pack32 maxima
@@ -474,17 +548,17 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
         const int nrow = min(BOX_ROWS, s_eff - ts);
         const int nscore = min(BOX_ROWS, ncol - ts);  // columns it scores
         // the tile's sums start at -0, the identity of f32 addition (-0 +
-        // x is x, -0 and +0 included): the first chunk's add is its
-        // assignment, and no sum stays live from the last tile (narrow:
-        // the chain's first wgmma overwrites them, and the reset keeps a
-        // path without products from carrying the last tile's sums across
-        // the phase end's select)
+        // x is x, -0 and +0 included; int8: 0): the first chunk's add is its
+        // assignment, and no sum stays live from the last tile (a chain's
+        // first wgmma overwrites them, and the reset keeps a path without
+        // products from carrying the last tile's sums across the phase
+        // end's select)
 #pragma unroll
         for (int lh = 0; lh < 2; ++lh) {
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
 #pragma unroll
-            for (int i = 0; i < 4; ++i) sum[lh][j][i] = -0.0f;
+            for (int i = 0; i < 4; ++i) sum[lh][j][i] = I8 ? 0 : -0.0f;
           }
         }
         for (int kc = 0; kc < nch; ++kc) {
@@ -495,9 +569,13 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
           mbar_wait(full + sa, (g / NST) & 1);
           if (nsc > 1) mbar_wait(full + sb, ((g + 1) / NST) & 1);
           if (!NARROW) fence_proxy_async();  // the stage's query copies
-          const int ka = ksteps_of(d, 2 * kc);
-          const int kb = nsc > 1 ? ksteps_of(d, 2 * kc + 1) : 0;
+          const int ka = ksteps_of(d, 2 * kc, E);
+          const int kb = nsc > 1 ? ksteps_of(d, 2 * kc + 1, E) : 0;
           const float* pen = pen_s + ((g + nsc - 1) % NST) * BOX_ROWS;
+          const float* scl = scl_s + ((g + nsc - 1) % NST) * BOX_ROWS;
+          // the chunk's first product continues the tile's chain (k-chunked
+          // int8 rows past their first chunk) or starts from zero
+          const bool cont = !APART && kc > 0;
           // A of the chunk's two stages: narrow, the k halves of the
           // block's buffer (its address through an opaque move, so that
           // the descriptors are worked out anew each tile rather than
@@ -508,20 +586,25 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
               NARROW ? qa + STAGE_BYTES : a_tile + sb * STAGE_BYTES;
           if (nm64 == 2) {  // both halves in one chain
             wgmma_fence();
-            wgmma_m64n128k16_zero(acc, acc_hi, kmajor_desc(qa, 0),
-                                  kmajor_desc(win_u + sa * STAGE_BYTES, 0));
+            if (cont) {
+              wgmma_n128(acc, acc_hi, kmajor_desc(qa, 0),
+                         kmajor_desc(win_u + sa * STAGE_BYTES, 0));
+            } else {
+              wgmma_n128_zero(acc, acc_hi, kmajor_desc(qa, 0),
+                              kmajor_desc(win_u + sa * STAGE_BYTES, 0));
+            }
 #pragma unroll
             for (int ks = 1; ks < 4; ++ks) {
               if (ks < ka) {
-                wgmma_m64n128k16(acc, acc_hi, kmajor_desc(qa, ks),
-                                 kmajor_desc(win_u + sa * STAGE_BYTES, ks));
+                wgmma_n128(acc, acc_hi, kmajor_desc(qa, ks),
+                           kmajor_desc(win_u + sa * STAGE_BYTES, ks));
               }
             }
 #pragma unroll
             for (int ks = 0; ks < 4; ++ks) {
               if (ks < kb) {
-                wgmma_m64n128k16(acc, acc_hi, kmajor_desc(qb, ks),
-                                 kmajor_desc(win_u + sb * STAGE_BYTES, ks));
+                wgmma_n128(acc, acc_hi, kmajor_desc(qb, ks),
+                           kmajor_desc(win_u + sb * STAGE_BYTES, ks));
               }
             }
             wgmma_commit();
@@ -540,23 +623,26 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
             }
           } else if (64 * h < nrow) {  // one: this warpgroup's half
             wgmma_fence();
-            wgmma_m64n64k16_zero(
-                acc, kmajor_desc(qa, 0),
-                kmajor_desc(win_u + sa * STAGE_BYTES + h * HALF, 0));
+            if (cont) {
+              wgmma_n64(acc, kmajor_desc(qa, 0),
+                        kmajor_desc(win_u + sa * STAGE_BYTES + h * HALF, 0));
+            } else {
+              wgmma_n64_zero(
+                  acc, kmajor_desc(qa, 0),
+                  kmajor_desc(win_u + sa * STAGE_BYTES + h * HALF, 0));
+            }
 #pragma unroll
             for (int ks = 1; ks < 4; ++ks) {
               if (ks < ka) {
-                wgmma_m64n64k16(
-                    acc, kmajor_desc(qa, ks),
-                    kmajor_desc(win_u + sa * STAGE_BYTES + h * HALF, ks));
+                wgmma_n64(acc, kmajor_desc(qa, ks),
+                          kmajor_desc(win_u + sa * STAGE_BYTES + h * HALF, ks));
               }
             }
 #pragma unroll
             for (int ks = 0; ks < 4; ++ks) {
               if (ks < kb) {
-                wgmma_m64n64k16(
-                    acc, kmajor_desc(qb, ks),
-                    kmajor_desc(win_u + sb * STAGE_BYTES + h * HALF, ks));
+                wgmma_n64(acc, kmajor_desc(qb, ks),
+                          kmajor_desc(win_u + sb * STAGE_BYTES + h * HALF, ks));
               }
             }
             wgmma_commit();
@@ -586,14 +672,18 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
                     if (c8 < nscore) {
                       const float2 p =
                           *reinterpret_cast<const float2*>(pen + cl);
+                      float2 cs = make_float2(0.0f, 0.0f);
+                      if constexpr (I8) {
+                        cs = *reinterpret_cast<const float2*>(scl + cl);
+                      }
 #pragma unroll
                       for (int i = 0; i < 2; ++i) {
                         if (cl + i < nscore) {
 #pragma unroll
                           for (int rr = 0; rr < 2; ++rr) {
-                            const float sc = tc::Bf16::score(
-                                sum[lh][nt][2 * rr + i], factor, 0.0f,
-                                i ? p.y : p.x);
+                            const float sc =
+                                wg_score(sum[lh][nt][2 * rr + i], rowm[rr],
+                                         i ? cs.y : cs.x, i ? p.y : p.x);
                             const int key =
                                 (sortable(sc) & ~slot_mask) | (ts + cl + i);
                             int& best = mx[rr][16 * lh + 2 * nt + i];
@@ -615,16 +705,19 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
                     if (c8 < nscore) {
                       const float2 p =
                           *reinterpret_cast<const float2*>(pen + cl);
+                      float2 cs = make_float2(0.0f, 0.0f);
+                      if constexpr (I8) {
+                        cs = *reinterpret_cast<const float2*>(scl + cl);
+                      }
 #pragma unroll
                       for (int rr = 0; rr < 2; ++rr) {
                         *reinterpret_cast<float2*>(
                             st + tpq::frag_c_row(lane, 2 * rr) * SLD +
                             8 * nt + tpq::frag_c_col(lane, 0)) =
-                            make_float2(
-                                tc::Bf16::score(sum[lh][nt][2 * rr], factor,
-                                                0.0f, p.x),
-                                tc::Bf16::score(sum[lh][nt][2 * rr + 1],
-                                                factor, 0.0f, p.y));
+                            make_float2(wg_score(sum[lh][nt][2 * rr],
+                                                 rowm[rr], cs.x, p.x),
+                                        wg_score(sum[lh][nt][2 * rr + 1],
+                                                 rowm[rr], cs.y, p.y));
                       }
                     }
                   }
@@ -826,18 +919,19 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
 }
 
 // Dynamic shared memory of the instance that serves inst_k (0: k_pair) at
-// width d, writing k_pair keys or entries a row: its ring (and narrow, its
-// query buffers) and k_pair's lists.
-size_t smem_of(int d, int pack32, int k_pair, int inst_k = 0) {
+// width d (int8 rows: i8), writing k_pair keys or entries a row: its ring
+// (and narrow, its query buffers) and k_pair's lists.
+size_t smem_of(int d, int pack32, int k_pair, int i8, int inst_k = 0) {
   const int ik = inst_k ? inst_k : k_pair;
-  return 2 * d <= NARROW_ROW ? narrow_smem_bytes(pack32, k_pair, ik)
-                             : smem_bytes(pack32, k_pair, ring_of(pack32, ik));
+  return d * (i8 ? 1 : 2) <= NARROW_ROW
+             ? narrow_smem_bytes(pack32, k_pair, ik, i8)
+             : smem_bytes(pack32, k_pair, ring_of(pack32, ik), i8);
 }
 
-template <bool PACK, int KMAX, int NST, int QB>
+template <bool PACK, int KMAX, int NST, int QB, bool I8>
 int occupancy_of(int d, int pack32, int k_pair) {
-  auto kern = block_scan_wg_kernel<PACK, KMAX, NST, QB>;
-  const size_t smem = smem_of(d, pack32, k_pair);
+  auto kern = block_scan_wg_kernel<PACK, KMAX, NST, QB, I8>;
+  const size_t smem = smem_of(d, pack32, k_pair, I8);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess) {
@@ -853,16 +947,57 @@ int occupancy_of(int d, int pack32, int k_pair) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// The 2-D tensor map of the cache [capacity][d] bf16 for boxes {64, 128}
-// in the 128-byte swizzle, elements past the tensor filled with zeros.
-bool encode_map(CUtensorMap* map, const void* decoded, int d, int capacity) {
+// CTAs one SM holds at once of the instance that serves this select.
+template <bool I8>
+int occupancy_wg(int d, int pack32, int k_pair) {
+  if (d * (I8 ? 1 : 2) <= NARROW_ROW) {
+    if (pack32 && k_pair > tc::PASS_K) {
+      return occupancy_of<true, tc::PASS_K, NRING_DEEP, NQB_DEEP, I8>(
+          d, pack32, k_pair);
+    }
+    if (pack32) {
+      return occupancy_of<true, tc::PASS_K, narrow_ring_of(1, 16, I8), NQB,
+                          I8>(d, pack32, k_pair);
+    }
+    return k_pair <= 10
+               ? occupancy_of<false, 10, NRING_EXACT_10, NQB, I8>(d, pack32,
+                                                                  k_pair)
+               : occupancy_of<false, 16, NRING_EXACT, NQB, I8>(d, pack32,
+                                                               k_pair);
+  }
+  if (pack32 && k_pair > DEEP_K) {
+    return occupancy_of<true, tc::PASS_K, RING_DEEP, 0, I8>(d, pack32,
+                                                            k_pair);
+  }
+  if (pack32 && k_pair > 16) {
+    return occupancy_of<true, tc::PASS_K, RING_PACK, 0, I8>(d, pack32,
+                                                            k_pair);
+  }
+  if (pack32) {
+    return occupancy_of<true, tc::PASS_K, RING_PACK_16, 0, I8>(d, pack32,
+                                                               k_pair);
+  }
+  return k_pair <= 10
+             ? occupancy_of<false, 10, RING_EXACT_10, 0, I8>(d, pack32, k_pair)
+             : occupancy_of<false, 16, RING_EXACT, 0, I8>(d, pack32, k_pair);
+}
+
+// The 2-D tensor map of the cache [capacity][d] (bf16, or int8 copied as
+// bytes: TMA has no signed 8-bit type and moves the bits alike) for boxes
+// {128 bytes of k, 128 rows} in the 128-byte swizzle, elements past the
+// tensor filled with zeros.
+bool encode_map(CUtensorMap* map, const void* decoded, int d, int capacity,
+                int i8) {
+  const int e = i8 ? 1 : 2;
   const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)capacity};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BOX_K, (cuuint32_t)BOX_ROWS};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * e};
+  const cuuint32_t box[2] = {(cuuint32_t)(SW_ROW / e), (cuuint32_t)BOX_ROWS};
   const cuuint32_t elem[2] = {1, 1};
   return cuTensorMapEncodeTiled(
-             map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(decoded), dims, strides, box, elem,
+             map,
+             i8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             2, const_cast<void*>(decoded), dims, strides, box, elem,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -870,41 +1005,45 @@ bool encode_map(CUtensorMap* map, const void* decoded, int d, int capacity) {
 
 // The launch of the instance that serves the select of depth inst_k >=
 // k_pair (its kernel and ring stages), writing k_pair keys or entries a
-// row; the shared memory of that ring and of k_pair's lists.
-int launch_wg(const void* qtable, const int* probers, const int* start_c,
-              const int* off, const int* capb, const float* penalty,
-              const void* decoded, int* out, int n_blocks, int p_tile, int d,
-              int capacity, int s_eff, int k_pair, int euclidean, int pack32,
-              int slot_mask, int n_groups, int n_ctas, void* stream,
-              int inst_k) {
-  const size_t smem = smem_of(d, pack32, k_pair, inst_k);
-  if (!tc::shape_ok(n_blocks, n_ctas, p_tile, 2 * d,
-                    tc::MAX_CHUNKED_ROW_BF16, s_eff, k_pair, pack32,
-                    n_groups) ||
+// row; the shared memory of that ring and of k_pair's lists. I8: int8 rows
+// (q_scale, scale read), else bf16.
+template <bool I8>
+int launch_wg(const void* qtable, const float* q_scale, const int* probers,
+              const int* start_c, const int* off, const int* capb,
+              const float* penalty, const float* scale, const void* decoded,
+              int* out, int n_blocks, int p_tile, int d, int capacity,
+              int s_eff, int k_pair, int euclidean, int pack32, int slot_mask,
+              int n_groups, int n_ctas, void* stream, int inst_k) {
+  const int rb = d * (I8 ? 1 : 2);
+  const size_t smem = smem_of(d, pack32, k_pair, I8, inst_k);
+  if (!tc::shape_ok(n_blocks, n_ctas, p_tile, rb,
+                    I8 ? MAX_ROW_I8 : MAX_ROW_BF16,
+                    s_eff, k_pair, pack32, n_groups) ||
       inst_k < k_pair ||
       inst_k > (pack32 ? tc::MAX_PACK_K : tc::MAX_EXACT_K) ||
       capacity < s_eff || smem > tc::SMEM_LIMIT ||
+      (I8 && (q_scale == nullptr || scale == nullptr)) ||
       reinterpret_cast<uintptr_t>(qtable) % 16 ||
       reinterpret_cast<uintptr_t>(decoded) % 16) {
     return (int)cudaErrorInvalidValue;
   }
   CUtensorMap map;
-  if (!encode_map(&map, decoded, d, capacity)) {
+  if (!encode_map(&map, decoded, d, capacity, I8)) {
     return (int)cudaErrorInvalidValue;
   }
   const float factor = euclidean ? 2.0f : 1.0f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TPQ_LAUNCH(...)                                                      \
-  return tpq::launch_kernel(                                                 \
-      block_scan_wg_kernel<__VA_ARGS__>, dim3(n_ctas), THREADS, smem, st,   \
-      map, static_cast<const __nv_bfloat16*>(qtable), probers, start_c, off, \
-      capb, penalty, out, n_blocks, p_tile, d, s_eff, k_pair, factor,        \
-      slot_mask, n_groups)
-  if (2 * d <= NARROW_ROW) {  // narrow rows: resident query buffers
+#define TPQ_LAUNCH(...)                                                     \
+  return tpq::launch_kernel(                                                \
+      block_scan_wg_kernel<__VA_ARGS__, I8>, dim3(n_ctas), THREADS, smem,   \
+      st, map, static_cast<const unsigned char*>(qtable), q_scale, probers, \
+      start_c, off, capb, penalty, scale, out, n_blocks, p_tile, d, s_eff,  \
+      k_pair, factor, slot_mask, n_groups)
+  if (rb <= NARROW_ROW) {  // narrow rows: resident query buffers
     if (pack32 && inst_k > tc::PASS_K) {  // the deep selects
       TPQ_LAUNCH(true, tc::PASS_K, NRING_DEEP, NQB_DEEP);
     }
-    if (pack32) TPQ_LAUNCH(true, tc::PASS_K, NRING_PACK_16, NQB);
+    if (pack32) TPQ_LAUNCH(true, tc::PASS_K, narrow_ring_of(1, 16, I8), NQB);
     if (inst_k <= 10) TPQ_LAUNCH(false, 10, NRING_EXACT_10, NQB);
     TPQ_LAUNCH(false, 16, NRING_EXACT, NQB);
   }
@@ -918,29 +1057,45 @@ int launch_wg(const void* qtable, const int* probers, const int* start_c,
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes). qtable [nq, d] bf16 and decoded
-// [capacity, d] bf16, both 16-byte aligned, 128 < d <= 1024, d % 8 == 0;
+// Plain C entry points (bound with ctypes). bf16: qtable [nq, d] and
+// decoded [capacity, d] bf16, d <= 1024, d % 8 == 0. int8 (the *_int8
+// ones): qtable [nq, d] and decoded [capacity, d] int8, d <= 1024, d % 16
+// == 0, q_scale [nq] and scale [capacity] f32. Both 16-byte aligned;
 // probers [n_blocks, p_tile] int32 (p_tile % 16 == 0, p_tile <= 128),
 // start_c / off / capb [n_blocks] int32 (start_c[b] + s_eff <= capacity),
 // penalty [capacity] f32, out int32; exact: k_pair <= 16; pack32: k_pair
 // <= 64 and n_groups % 8 == 0, either n_groups == s_eff <= 128, or n_groups
 // a multiple of 128 that divides s_eff. n_ctas: the persistent grid (at
-// most n_blocks). Returns 0 or the CUDA error code of the tensor map, an
+// most n_blocks). Return 0 or the CUDA error code of the tensor map, an
 // attribute call or the launch (cudaErrorInvalidValue, without launching,
-// for other shapes). Launches on `stream`, does not synchronize and
-// allocates nothing.
+// for other shapes). Launch on `stream`, do not synchronize and allocate
+// nothing.
 extern "C" int torchpq_block_scan_wg(
     const void* qtable, const int* probers, const int* start_c,
     const int* off, const int* capb, const float* penalty,
     const void* decoded, int* out, int n_blocks, int p_tile, int d,
     int capacity, int s_eff, int k_pair, int euclidean, int pack32,
     int slot_mask, int n_groups, int n_ctas, void* stream) {
-  return launch_wg(qtable, probers, start_c, off, capb, penalty, decoded, out,
-                   n_blocks, p_tile, d, capacity, s_eff, k_pair, euclidean,
-                   pack32, slot_mask, n_groups, n_ctas, stream, k_pair);
+  return launch_wg<false>(qtable, nullptr, probers, start_c, off, capb,
+                          penalty, nullptr, decoded, out, n_blocks, p_tile, d,
+                          capacity, s_eff, k_pair, euclidean, pack32,
+                          slot_mask, n_groups, n_ctas, stream, k_pair);
 }
 
-// torchpq_block_scan_wg on the instance of a deeper select of the same
+extern "C" int torchpq_block_scan_wg_int8(
+    const void* qtable, const float* q_scale, const int* probers,
+    const int* start_c, const int* off, const int* capb,
+    const float* penalty, const float* scale, const void* decoded, int* out,
+    int n_blocks, int p_tile, int d, int capacity, int s_eff, int k_pair,
+    int euclidean, int pack32, int slot_mask, int n_groups, int n_ctas,
+    void* stream) {
+  return launch_wg<true>(qtable, q_scale, probers, start_c, off, capb,
+                         penalty, scale, decoded, out, n_blocks, p_tile, d,
+                         capacity, s_eff, k_pair, euclidean, pack32,
+                         slot_mask, n_groups, n_ctas, stream, k_pair);
+}
+
+// The entry points above on the instance of a deeper select of the same
 // kind, inst_k >= k_pair (its ring stages): a launch that writes fewer keys
 // than the instance serves, which measures what the select's depth costs
 // apart from the ring.
@@ -950,49 +1105,44 @@ extern "C" int torchpq_block_scan_wg_instance(
     const void* decoded, int* out, int n_blocks, int p_tile, int d,
     int capacity, int s_eff, int k_pair, int euclidean, int pack32,
     int slot_mask, int n_groups, int n_ctas, void* stream, int inst_k) {
-  return launch_wg(qtable, probers, start_c, off, capb, penalty, decoded, out,
-                   n_blocks, p_tile, d, capacity, s_eff, k_pair, euclidean,
-                   pack32, slot_mask, n_groups, n_ctas, stream, inst_k);
+  return launch_wg<false>(qtable, nullptr, probers, start_c, off, capb,
+                          penalty, nullptr, decoded, out, n_blocks, p_tile, d,
+                          capacity, s_eff, k_pair, euclidean, pack32,
+                          slot_mask, n_groups, n_ctas, stream, inst_k);
 }
 
-// Dynamic shared memory of one CTA at width d (narrow rows, d <= 128, or
-// k-chunked ones: d enters no further, the ring's stages being 64 elements
-// of any row).
+extern "C" int torchpq_block_scan_wg_int8_instance(
+    const void* qtable, const float* q_scale, const int* probers,
+    const int* start_c, const int* off, const int* capb,
+    const float* penalty, const float* scale, const void* decoded, int* out,
+    int n_blocks, int p_tile, int d, int capacity, int s_eff, int k_pair,
+    int euclidean, int pack32, int slot_mask, int n_groups, int n_ctas,
+    void* stream, int inst_k) {
+  return launch_wg<true>(qtable, q_scale, probers, start_c, off, capb,
+                         penalty, scale, decoded, out, n_blocks, p_tile, d,
+                         capacity, s_eff, k_pair, euclidean, pack32,
+                         slot_mask, n_groups, n_ctas, stream, inst_k);
+}
+
+// Dynamic shared memory of one CTA at width d (narrow rows of at most 256
+// bytes, or k-chunked ones: d enters no further, the ring's stages being
+// 128 bytes of any row).
 extern "C" long long torchpq_block_scan_wg_smem(int d, int pack32,
                                                int k_pair) {
-  return (long long)smem_of(d, pack32, k_pair);
+  return (long long)smem_of(d, pack32, k_pair, 0);
+}
+extern "C" long long torchpq_block_scan_wg_int8_smem(int d, int pack32,
+                                                    int k_pair) {
+  return (long long)smem_of(d, pack32, k_pair, 1);
 }
 
 // CTAs one SM holds at once (registers and shared memory permitting), or
 // minus the CUDA error code.
 extern "C" int torchpq_block_scan_wg_occupancy(int d, int pack32,
                                                int k_pair) {
-  if (2 * d <= NARROW_ROW) {
-    if (pack32 && k_pair > tc::PASS_K) {
-      return occupancy_of<true, tc::PASS_K, NRING_DEEP, NQB_DEEP>(
-          d, pack32, k_pair);
-    }
-    if (pack32) {
-      return occupancy_of<true, tc::PASS_K, NRING_PACK_16, NQB>(d, pack32,
-                                                                k_pair);
-    }
-    return k_pair <= 10
-               ? occupancy_of<false, 10, NRING_EXACT_10, NQB>(d, pack32,
-                                                              k_pair)
-               : occupancy_of<false, 16, NRING_EXACT, NQB>(d, pack32,
-                                                           k_pair);
-  }
-  if (pack32 && k_pair > DEEP_K) {
-    return occupancy_of<true, tc::PASS_K, RING_DEEP, 0>(d, pack32, k_pair);
-  }
-  if (pack32 && k_pair > 16) {
-    return occupancy_of<true, tc::PASS_K, RING_PACK, 0>(d, pack32, k_pair);
-  }
-  if (pack32) {
-    return occupancy_of<true, tc::PASS_K, RING_PACK_16, 0>(d, pack32,
-                                                           k_pair);
-  }
-  return k_pair <= 10
-             ? occupancy_of<false, 10, RING_EXACT_10, 0>(d, pack32, k_pair)
-             : occupancy_of<false, 16, RING_EXACT, 0>(d, pack32, k_pair);
+  return occupancy_wg<false>(d, pack32, k_pair);
+}
+extern "C" int torchpq_block_scan_wg_int8_occupancy(int d, int pack32,
+                                                    int k_pair) {
+  return occupancy_wg<true>(d, pack32, k_pair);
 }

@@ -96,7 +96,7 @@ __host__ __device__ inline size_t tc_smem_bytes(int m, int dsub, int pack32,
   const bool deep = deep_instance(pack32, k_pair);
   const int d = m * dsub;
   return (size_t)512 * d + (deep ? (size_t)TN * m : 0) +
-         body_smem_bytes(2 * d, pack32, k_pair, false, false, deep);
+         body_smem_bytes(2 * d, pack32, k_pair, deep);
 }
 
 // The column -> slot map of the packed codes (see the note above), without
@@ -163,7 +163,7 @@ struct CodesSource {
   }
 
   __device__ __forceinline__ void fetch(int s0, int o0, int o1, int ts,
-                                        int nrow, unsigned char*, int) {
+                                        int nrow, unsigned char*) {
     const int t = threadIdx.x;
     if constexpr (RING) {
       const int lcr = 31 - __clz(m / 8);
@@ -252,8 +252,7 @@ struct CodesSource {
   // from the ring, once this thread's own copies have landed: each thread
   // decodes the chunks it copied).
   __device__ __forceinline__ void land(int, int nrow, unsigned char* tile_b,
-                                       float* pen_s, int* slot_s,
-                                       float*) const {
+                                       float* pen_s, int* slot_s) const {
     __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(tile_b);
     const int t = threadIdx.x;
     if constexpr (RING) {
@@ -267,7 +266,7 @@ struct CodesSource {
         chunk_item(e, lcr, cl, ch);
         if (cl < nrow) {
           decode(*reinterpret_cast<const uint2*>(rg + cl * m + 8 * ch), cl,
-                 ch, tile, row_ld(2 * m * dsub, false) / 2);
+                 ch, tile, row_ld(2 * m * dsub) / 2);
         }
       }
     } else {
@@ -321,13 +320,13 @@ __global__ void __launch_bounds__(THREADS, 1) codes_scan_tc_kernel(
   src.lc = 31 - __clz(m / 8);  // log2 of the code chunks per slot
   src.s_rows = s_rows;
   src.g = g;
-  src.ld = row_ld(2 * d, false) / 2;
+  src.ld = row_ld(2 * d) / 2;
   src.inv = 1.0f / (float)s_rows;
-  scan_blocks<Bf16, PACK, KMAX, false>(
+  scan_blocks<PACK, KMAX>(
       src, smem_raw + (size_t)512 * d + (RING ? TN * m : 0),
-      reinterpret_cast<const unsigned char*>(qtable), nullptr, probers,
-      start_c, off, capb, out, n_blocks, p_tile, 2 * d, s_eff, k_pair,
-      factor, slot_mask, n_groups);
+      reinterpret_cast<const unsigned char*>(qtable), probers, start_c, off,
+      capb, out, n_blocks, p_tile, 2 * d, s_eff, k_pair, factor, slot_mask,
+      n_groups);
 }
 
 template <bool PACK, int KMAX>

@@ -1,13 +1,12 @@
-// The tensor-core IVF block scan of codes_scan_tc.cu, block_scan_tc.cu and
-// block_scan_tc_int8.cu: one kernel body, templated over the operand type
-// (bf16 or int8) and over the source of its window tiles.
+// The mma.sync IVF block scan of codes_scan_tc.cu and block_scan_tc.cu:
+// one kernel body over bf16 rows, templated over the source of its window
+// tiles, for rows of at most 256 bytes (the wider ones, and every int8
+// row, are block_scan_wg.cu's, on wgmma).
 //
 // For block b, prober p and window column c < s_eff holding in-window slot
 // j (the source says which):
 //
-//   bf16:  score = factor * <bf16(q_p), y_j> - pen_j    (f32 sums)
-//   int8:  score = fmaf(float(<q8_p, y8_j>), (factor * q_scale[p]) * scale[j],
-//                       -pen_j)                        (exact s32 sums)
+//   score = factor * <bf16(q_p), y_j> - pen_j    (f32 sums)
 //   pen_j = penalty[start_c[b] + j] + (off[b] <= j < off[b] + cap[b] ? 0 : BIG)
 //
 // factor = 2 (euclidean) or 1; then scan_common.cuh's selects over the
@@ -15,10 +14,7 @@
 // key per strided group of columns {c, c+G, ...}, then the k_pair largest),
 // in block_scan.cu's wire format. Rows whose prober is -1 are not scored but
 // written dead (exact: sortable(-inf) keys and -1 addresses; pack32:
-// INT_MIN); ops/adc.py:_merge_pairs never reads them. The int8 sums are
-// exact integers and their conversion to f32 is exact below 2^24 (d <= 1040
-// at |q8|, |y8| <= 127), so the int8 scores equal scan_common.cuh:
-// scan_rows_int8's bit for bit, whatever the summation order.
+// INT_MIN); ops/adc.py:_merge_pairs never reads them.
 //
 // Design:
 // - Persistent CTAs of 8 warps, one per SM (the wrapper sizes the grid from
@@ -29,41 +25,15 @@
 //   tiles' work: S = 8 / next_pow2(nm) warps per live tile, each taking a
 //   slice of 128 / S columns of every window tile, so at n_probe 8 (~2 live
 //   tiles a block) every warp scores and selects.
-// - Rows in bytes: a row of d elements is rb = d * sizeof(element) bytes, a
-//   k step 32 bytes (mma.sync m16n8k16 bf16 or m16n8k32 int8, whose
-//   fragments are the same bytes: tc_ptx.cuh).
-// - Narrow rows (rb <= 256 bytes: bf16 d <= 128, int8 d <= 256): a warp's A
+// - Rows in bytes: a row of d elements is rb = 2 d bytes, a k step 32
+//   bytes (mma.sync m16n8k16 bf16: tc_ptx.cuh).
+// - Rows of rb <= 256 bytes (d <= 128): a warp's A
 //   fragments (its tile's 16 query rows, zero for -1 rows and past d) stay
 //   in registers for the block (32 registers at 256 bytes). The window in
 //   tiles of TN = 128 columns, shared by every live m tile: [column][byte]
 //   with rows of round32(rb) + 16 bytes (an odd multiple of 16 bytes, so
 //   the 8 row addresses of an ldmatrix phase fall on distinct banks; the K
 //   padding is zero), which is B as it lies (tc_ptx.cuh).
-// - Chunked rows (CHUNKED; rb > 256: int8 rows up to 1,024 bytes, the
-//   GIST-class int8 cache 1,024 wide; bf16 rows over 256 bytes are
-//   block_scan_wg.cu's, on wgmma): a row's A
-//   fragments would take 128 registers or more and a tile of whole rows
-//   128 KB or more, so the body walks each tile in k chunks of 256 bytes, a
-//   ring stage per (tile, chunk): the window chunk [TN][272] and the
-//   block's query rows' chunk [MAX_PT][272] (zero for -1 rows and past d),
-//   read by ldmatrix per k step. A warp's accumulators (up to 64 columns x
-//   2 groups, 64 registers, s32 or f32) persist across a tile's chunks, and
-//   the select runs at its last chunk; integer sums are exact in any order,
-//   so the chunking changes no int8 bit (only an operand whose sums are,
-//   Op::EXACT, is chunked here). Where the last chunk ends in half a k
-//   step, A is zero past the row.
-// - One running list (ONE_LIST; chunked pack32 above k_pair 48, the deep
-//   selects of the GIST-class caches, whose two tiles, two query chunks
-//   and two running lists at k_pair 64 would take 242,720 B against the
-//   limit): a phase end's merge writes each
-//   row's new list into the query rows' chunk just scored (free from the
-//   select's barrier to the stage's closing one; 33,280 B of lists fit its
-//   34,816, and the next copy into it rewrites every byte the products
-//   read, where a window tile's bytes past a ragged row would keep list
-//   words) and copies it back over the running list, thread by thread, so
-//   a second list is not kept: 209,440 B at k_pair 64. Its
-//   phase ends extract pass by pass: with the sort (sort_slice) beside the
-//   64 persistent accumulators ptxas spilled 120-256 B at 255 registers.
 // - Two ring stages alternate: the source's fetch() starts the next stage
 //   before the warps score this one, and its land() finishes it after; one
 //   __syncthreads per stage. A block's last stage brings the CTA's next
@@ -115,21 +85,19 @@
 //   slice's list per row (the two lanes' merged by shuffles) goes to shared
 //   memory, and one thread per live row merges the S slices' lists in
 //   (value descending, column ascending) order.
-// - Registers: 32 A (narrow) or 64 persistent accumulators (chunked) + 32
-//   accumulators (narrow) + 64 pack32 maxima or 20-32 exact list entries +
+// - Registers: 32 A + 32 accumulators + 64 pack32 maxima or 20-32 exact
+//   list entries +
 //   the source's prefetch, under the 255 that __launch_bounds__(256, 1)
 //   allows (read -Xptxas -v for spills and stack frames).
 //
 // A tile source is a struct with
 //   ONE_TILE: whether the body keeps one tile (see above) or two;
-//   fetch(s0, o0, o1, ts, nrow, tile, kc): start bringing k chunk kc
-//       (CHUNKED; else the whole row) of window columns [ts, ts + nrow) of
-//       the block whose window starts at slot s0 (its cell's slots [o0, o1)
-//       of the window) into `tile`;
-//   land(ts, nrow, tile, pen_s, slot_s, scale_s): finish them, and write
-//       each column's penalty, in-window slot and (int8) scale; after a
-//       __syncthreads the tile holds the columns' bytes [0, rb) (the chunk's
-//       bytes) of each;
+//   fetch(s0, o0, o1, ts, nrow, tile): start bringing window columns [ts,
+//       ts + nrow) of the block whose window starts at slot s0 (its cell's
+//       slots [o0, o1) of the window) into `tile`;
+//   land(ts, nrow, tile, pen_s, slot_s): finish them, and write each
+//       column's penalty and in-window slot; after a
+//       __syncthreads the tile holds the columns' bytes [0, rb) of each;
 //   slot(c): the in-window slot of column c.
 
 #pragma once
@@ -147,12 +115,6 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int TN = 128;                // window columns per tile
 constexpr int MAX_ROW = 256;           // widest row (bytes) A registers hold
 constexpr int KSTEPS = MAX_ROW / 32;   // 32-byte k steps of the widest row
-constexpr int CHUNK = 256;             // k chunk (bytes) of chunked rows
-constexpr int MAX_CHUNKED_ROW = 1024;  // widest chunked int8 row (bytes)
-constexpr int MAX_CHUNKED_ROW_BF16 = 2048;  // widest bf16 row block_scan_wg.cu
-                                            // walks in chunks: d <= 1024
-constexpr int CHUNKED_PACK_K = 48;     // chunked pack32 k_pair with two
-                                       // running lists (above: ONE_LIST)
 constexpr int MAX_PT = 16 * WARPS;     // probers per block: up to 8 m tiles
 constexpr int MAX_EXACT_K = 16;        // exact k_pair the lane lists take
 constexpr int MAX_PACK_K = 64;         // pack32 k_pair (where the shared
@@ -167,55 +129,12 @@ constexpr int QUEUE = 6;               // exact: a lane's queued candidates
 __host__ __device__ inline int round32(int b) { return (b + 31) / 32 * 32; }
 
 // Row stride (bytes) of the tiles of rows of rb bytes.
-__host__ __device__ inline int row_ld(int rb, bool chunked) {
-  return (chunked ? CHUNK : round32(rb)) + 16;
+__host__ __device__ inline int row_ld(int rb) { return round32(rb) + 16; }
+
+// The score of a bf16 product sum x (block_scan_wg.cu's bf16 rows too).
+__device__ __forceinline__ float score(float x, float factor, float pen) {
+  return factor * x - pen;
 }
-
-// The operand types: the element bytes, the accumulator, the product and
-// the score of a sum x (rowm: factor, times the prober's scale for int8;
-// colm: the column's scale, int8 only).
-struct Bf16 {
-  using Acc = float;
-  static constexpr int ELEM = 2;
-  static constexpr bool SCALED = false;
-  static constexpr bool EXACT = false;  // sums exact in any order
-  __device__ static __forceinline__ void mma(float (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    mma_bf16_16816(c, a, b0, b1);
-  }
-  __device__ static __forceinline__ void mma_zero(float (&c)[4],
-                                                  const uint32_t (&a)[4],
-                                                  uint32_t b0, uint32_t b1) {
-    mma_bf16_16816_zero(c, a, b0, b1);
-  }
-  __device__ static __forceinline__ float score(float x, float rowm, float,
-                                                float pen) {
-    return rowm * x - pen;
-  }
-};
-
-struct S8 {
-  using Acc = int;
-  static constexpr int ELEM = 1;
-  static constexpr bool SCALED = true;
-  static constexpr bool EXACT = true;
-  __device__ static __forceinline__ void mma(int (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-    mma_s8_16832(c, a, b0, b1);
-  }
-  __device__ static __forceinline__ void mma_zero(int (&c)[4],
-                                                  const uint32_t (&a)[4],
-                                                  uint32_t b0, uint32_t b1) {
-    mma_s8_16832_zero(c, a, b0, b1);
-  }
-  // m = (factor * q_scale[p]) * scale[j], one rounding of ab * m - pen
-  __device__ static __forceinline__ float score(int x, float rowm,
-                                                float colm, float pen) {
-    return fmaf(__int2float_rn(x), rowm * colm, -pen);
-  }
-};
 
 // Row stride (entries) of the slice and running lists: pack32 rows of an
 // odd stride, so that the merge's thread-per-row reads and writes fall on
@@ -225,34 +144,23 @@ __host__ __device__ inline int list_ld(int k_pair, int pack32) {
 }
 
 // Shared memory of the body: tiles [2][TN][row_ld] bytes (one_tile:
-// [1][TN][row_ld]; chunked: and the query rows' chunks
-// [2][MAX_PT][row_ld]), penalties [2][TN] f32, slots
-// [2][TN], (scaled) column scales [2][TN] f32, prober rows [MAX_PT], tile
-// flags [MAX_PT / 16], slice lists [WARPS][16][list_ld] (exact: values and
-// columns; pack32: keys), then exact: score staging rows [WARPS][16][SLD]
-// f32, row bounds [WARPS][16] f32 and the lanes' queues [QUEUE][THREADS]
-// f32 and int; pack32: running lists [2][MAX_PT][list_ld] (one_list:
-// [1][MAX_PT][list_ld]). Each part is a multiple of 16 bytes (rb % 16 ==
-// 0).
+// [1][TN][row_ld]), penalties [2][TN] f32, slots [2][TN], prober rows
+// [MAX_PT], tile flags [MAX_PT / 16], slice
+// lists [WARPS][16][list_ld] (exact: values and columns; pack32: keys),
+// then exact: score staging rows [WARPS][16][SLD] f32, row bounds
+// [WARPS][16] f32 and the lanes' queues [QUEUE][THREADS] f32 and int;
+// pack32: running lists [2][MAX_PT][list_ld]. Each part is a multiple of 16
+// bytes (rb % 16 == 0).
 __host__ __device__ inline size_t body_smem_bytes(int rb, int pack32,
-                                                  int k_pair, bool scaled,
-                                                  bool chunked,
-                                                  bool one_tile = false,
-                                                  bool one_list = false) {
+                                                  int k_pair,
+                                                  bool one_tile = false) {
   const size_t kls = list_ld(k_pair, pack32);
-  return (size_t)(one_tile ? 1 : 2) * TN * row_ld(rb, chunked) *
-             (chunked ? 2 : 1) +
-         (size_t)16 * TN + (scaled ? (size_t)8 * TN : 0) + 4 * MAX_PT +
-         4 * (MAX_PT / 16) + (size_t)WARPS * 16 * kls * (pack32 ? 4 : 8) +
-         (pack32 ? (size_t)(one_list ? 1 : 2) * MAX_PT * kls * 4
+  return (size_t)(one_tile ? 1 : 2) * TN * row_ld(rb) + (size_t)16 * TN +
+         4 * MAX_PT + 4 * (MAX_PT / 16) +
+         (size_t)WARPS * 16 * kls * (pack32 ? 4 : 8) +
+         (pack32 ? (size_t)2 * MAX_PT * kls * 4
                  : (size_t)WARPS * 16 * (SLD + 1) * 4 +
                        (size_t)QUEUE * THREADS * 8);
-}
-
-// Whether a rows source's scan of rows of rb bytes keeps one running list
-// (ONE_LIST): chunked pack32 above CHUNKED_PACK_K.
-__host__ __device__ inline bool one_list_of(int rb, int pack32, int k_pair) {
-  return rb > MAX_ROW && pack32 && k_pair > CHUNKED_PACK_K;
 }
 
 // The shapes the body takes (the sources' own terms apart): rows of rb
@@ -260,11 +168,9 @@ __host__ __device__ inline bool one_list_of(int rb, int pack32, int k_pair) {
 // exact k_pair <= 16; pack32 k_pair <= 64 with G % 8 == 0, either G ==
 // s_eff <= TN, or G a multiple of TN that divides s_eff. The entry points
 // also refuse a shared memory above SMEM_LIMIT: the pack32 lists take
-// 1,536 bytes per entry of their row stride (1,024 with one running list),
-// so k_pair 64 fits the rows sources (bf16 d <= 128: 172,064 B; int8 d <=
-// 256: 173,088 B; chunked int8 rows with one running list: 209,440 B) and
-// the codes one with its codebook in one tile (d <=
-// 128: at most 219,168 B).
+// 1,536 bytes per entry of their row stride, so k_pair 64 fits the rows
+// source (d <= 128: 172,064 B) and the codes one with its codebook in one
+// tile (d <= 128: at most 219,168 B).
 __host__ inline bool shape_ok(int n_blocks, int n_ctas, int p_tile, int rb,
                               int max_rb, int s_eff, int k_pair, int pack32,
                               int n_groups) {
@@ -511,99 +417,59 @@ __device__ __forceinline__ int nth_live(const int* live_s, int n) {
   return -1;
 }
 
-// chunked: start copying chunk kc of the query row of prober `pr` (row
-// threadIdx.x % MAX_PT of the block; zero for -1 and past the row's rb
-// bytes, up to the chunk's last 32-byte k step) into a_dst [MAX_PT][ld];
-// the thread takes half the chunk's 16-byte pieces. The caller's source
-// commits them with its own copies.
-__device__ __forceinline__ void copy_a_chunk(unsigned char* a_dst,
-                                             const unsigned char* qtable,
-                                             int pr, int rb, int kc, int ld) {
-  const int t = threadIdx.x;
-  const int off = kc * CHUNK;
-  const int cb = min(CHUNK, rb - off);  // the chunk's bytes
-  const int cbp = round32(cb);          // and its k steps'
-  unsigned char* dst = a_dst + (t % MAX_PT) * ld;
-  const unsigned char* src = qtable + (size_t)max(pr, 0) * rb + off;
-#pragma unroll
-  for (int u = 0; u < CHUNK / 32; ++u) {
-    const int pc = 16 * (CHUNK / 32 * (t / MAX_PT) + u);
-    if (pc < cbp) cp_async16(dst + pc, src + pc, pr >= 0 && pc < cb ? 16 : 0);
-  }
-}
-
-// `chunked` when C, else `narrow` (a reference bound at compile time, so
-// the accumulators and A fragments stay in registers).
+// `a` when C, else `b` (a reference bound at compile time, so the
+// accumulators stay in registers).
 template <bool C, typename A>
-__device__ __forceinline__ A& pick(A& chunked, A& narrow) {
+__device__ __forceinline__ A& pick(A& a, A& b) {
   if constexpr (C) {
-    return chunked;
+    return a;
   } else {
-    return narrow;
+    return b;
   }
 }
 
 // The scan of the blocks b = blockIdx.x + i * gridDim.x (see the notes
 // above). smem: the body's shared memory (body_smem_bytes), 16-byte
-// aligned. qtable: the query rows [nq][rb] bytes; q_scale: their scales
-// (Op::SCALED). KMAX: the exact lists' length, k_pair rounded up to 10 or
+// aligned. qtable: the query rows [nq][rb] bytes. KMAX: the exact lists'
+// length, k_pair rounded up to 10 or
 // 16 (shorter lists make each insert cheaper); pack32: the largest k_pair
 // the kernel serves, PASS_K (a pass per key) or MAX_PACK_K (sort_slice: a
 // kernel of its own, so the sort's registers burden only the deep selects,
-// and a source whose registers it would spill keeps the passes). ONE_LIST:
-// one running list (see the notes above; a two-tile source's pack32).
-template <typename Op, bool PACK, int KMAX, bool CHUNKED,
-          bool ONE_LIST = false, typename Source>
+// and a source whose registers it would spill keeps the passes).
+template <bool PACK, int KMAX, typename Source>
 __device__ __forceinline__ void scan_blocks(
     Source& src, unsigned char* smem, const unsigned char* __restrict__ qtable,
-    const float* __restrict__ q_scale, const int* __restrict__ probers,
-    const int* __restrict__ start_c, const int* __restrict__ off,
-    const int* __restrict__ capb, int* __restrict__ out, int n_blocks,
-    int p_tile, int rb, int s_eff, int k_pair, float factor, int slot_mask,
-    int n_groups) {
-  using Acc = typename Op::Acc;
+    const int* __restrict__ probers, const int* __restrict__ start_c,
+    const int* __restrict__ off, const int* __restrict__ capb,
+    int* __restrict__ out, int n_blocks, int p_tile, int rb, int s_eff,
+    int k_pair, float factor, int slot_mask, int n_groups) {
   const int t = threadIdx.x;
   const int lane = t % 32;
   const int warp = t / 32;
-  const int ld = row_ld(rb, CHUNKED);  // tile row stride, bytes
-  const int ksteps = round32(rb) / 32;  // narrow rows' k steps
-  const int nch = CHUNKED ? (rb + CHUNK - 1) / CHUNK : 1;  // k chunks
+  const int ld = row_ld(rb);              // tile row stride, bytes
+  const int ksteps = round32(rb) / 32;    // the rows' k steps
   const int width = PACK ? k_pair : 2 * k_pair;  // output ints per row
   const int kls = list_ld(k_pair, PACK);  // the lists' row stride
   constexpr bool SORT = PACK && KMAX > PASS_K;  // deep pack32: sort_slice
   constexpr bool ONE = Source::ONE_TILE;  // one tile, landed after a barrier
-  static_assert(!CHUNKED || Op::EXACT,
-                "chunked rows chain their sums: integer operands only");
-  static_assert(!ONE_LIST || (PACK && CHUNKED && !ONE),
-                "one running list: a chunked pack32 scan over two tiles");
-  static_assert((MAX_PACK_K + 1) * 4 <= CHUNK + 16,
-                "a query chunk's rows hold the merged lists");
-  // the prober whose row this thread reads (chunked: every thread copies
-  // a half of row t % MAX_PT; else threads t < MAX_PT own row t)
-  const int prow_t = CHUNKED ? t % MAX_PT : t;
 
   unsigned char* tiles = smem;  // [2][TN][ld] (ONE: [1][TN][ld])
-  unsigned char* a_ring =
-      tiles + (ONE ? 1 : 2) * TN * ld;  // chunked: [2][MAX_PT][ld]
   float* pen_s = reinterpret_cast<float*>(
-      a_ring + (CHUNKED ? 2 * MAX_PT * ld : 0));  // [2][TN]
-  int* slot_s = reinterpret_cast<int*>(pen_s + 2 * TN);          // [2][TN]
-  float* scale_s = reinterpret_cast<float*>(slot_s + 2 * TN);    // [2][TN]
-  int* prow_s = reinterpret_cast<int*>(
-      scale_s + (Op::SCALED ? 2 * TN : 0));               // [MAX_PT]
+      tiles + (ONE ? 1 : 2) * TN * ld);  // [2][TN]
+  int* slot_s = reinterpret_cast<int*>(pen_s + 2 * TN);  // [2][TN]
+  int* prow_s = slot_s + 2 * TN;                         // [MAX_PT]
   int* live_s = prow_s + MAX_PT;                          // [MAX_PT / 16]
   int* keys_s = live_s + MAX_PT / 16;  // slice lists [WARPS][16][kls]
   float* vals_s = reinterpret_cast<float*>(keys_s + WARPS * 16 * kls);
   int* run_s = keys_s + WARPS * 16 * kls;  // pack32 [2][MAX_PT][kls]
-                                           // (ONE_LIST: [1][MAX_PT][kls])
   float* stage_s = vals_s + WARPS * 16 * kls;  // exact [WARPS][16][SLD]
   volatile float* rowb_s = stage_s + WARPS * 16 * SLD;  // exact [WARPS][16]
   float* qv_s = stage_s + WARPS * 16 * (SLD + 1);  // exact [QUEUE][THREADS]
   int* qc_s = reinterpret_cast<int*>(qv_s + QUEUE * THREADS);
 
-  // narrow: the K padding of the tiles (16 bytes or none), zero once (the
-  // sources write [0, rb)); chunked rows pad A instead (copy_a_chunk)
-  if (!CHUNKED && round32(rb) > rb) {
+  // the K padding of the tiles (16 bytes or none), zero once (the sources
+  // write [0, rb))
+  if (round32(rb) > rb) {
     for (int i = t; i < (ONE ? 1 : 2) * TN; i += THREADS) {
       *reinterpret_cast<uint4*>(tiles + i * ld + rb) = make_uint4(0, 0, 0, 0);
     }
@@ -618,19 +484,18 @@ __device__ __forceinline__ void scan_blocks(
   const int stride = phased ? n_groups : TN;
 
   // The first block's first stage and this thread's prober; a block's last
-  // stage brings the next block's (its tile 0, chunk 0 into the other
-  // buffer), so a block waits on global memory only for its window's
+  // stage brings the next block's (its tile 0 into the other buffer), so
+  // a block waits on global memory only for its window's
   // bounds and its A fragments. Stage buffer: gt & 1, gt counting the
   // stages of the CTA's blocks.
   int pr = -1, gt = 0;
   __syncthreads();  // what the kernel staged before the body (a codebook)
   if ((int)blockIdx.x < n_blocks) {
     const int b = blockIdx.x;
-    pr = prow_t < p_tile ? probers[(size_t)b * p_tile + prow_t] : -1;
-    if constexpr (CHUNKED) copy_a_chunk(a_ring, qtable, pr, rb, 0, ld);
+    pr = t < p_tile ? probers[(size_t)b * p_tile + t] : -1;
     src.fetch(start_c[b], off[b], off[b] + capb[b], 0, min(TN, s_eff),
-              tiles, 0);
-    src.land(0, min(TN, s_eff), tiles, pen_s, slot_s, scale_s);
+              tiles);
+    src.land(0, min(TN, s_eff), tiles, pen_s, slot_s);
   }
 
   for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
@@ -676,33 +541,26 @@ __device__ __forceinline__ void scan_blocks(
     const int mt = busy ? nth_live(live_s, lt) : 0;
 
     // A: the m tile's query rows, zero for -1 rows and past d. A lane
-    // reads two rows (frag_a_row: g and g + 8); narrow rows keep all their
+    // reads two rows (frag_a_row: g and g + 8) and keeps all their
     // fragments in registers, loaded together from the rows of query
-    // max(q, 0). rowm: factor, times the two rows' scales (int8).
+    // max(q, 0).
     const int q0 = busy ? prow_s[16 * mt + frag_a_row(lane, 0)] : -1;
     const int q1 = busy ? prow_s[16 * mt + frag_a_row(lane, 1)] : -1;
-    float rowm[2] = {factor, factor};
-    if constexpr (Op::SCALED) {
-      rowm[0] = factor * __ldg(q_scale + max(q0, 0));
-      rowm[1] = factor * __ldg(q_scale + max(q1, 0));
-    }
     uint32_t a[KSTEPS][4];
-    if constexpr (!CHUNKED) {
-      const unsigned int* r0 = reinterpret_cast<const unsigned int*>(
-          qtable + (size_t)max(q0, 0) * rb);
-      const unsigned int* r1 = reinterpret_cast<const unsigned int*>(
-          qtable + (size_t)max(q1, 0) * rb);
+    const unsigned int* r0 = reinterpret_cast<const unsigned int*>(
+        qtable + (size_t)max(q0, 0) * rb);
+    const unsigned int* r1 = reinterpret_cast<const unsigned int*>(
+        qtable + (size_t)max(q1, 0) * rb);
 #pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
+    for (int ks = 0; ks < KSTEPS; ++ks) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int byte = 32 * ks + 2 * frag_a_col(lane, i);
-          uint32_t v = 0u;
-          if (busy && ks < ksteps && byte < rb) {
-            v = __ldg((i % 2 ? r1 : r0) + byte / 4);
-          }
-          a[ks][i] = (i % 2 ? q1 : q0) >= 0 ? v : 0u;
+      for (int i = 0; i < 4; ++i) {
+        const int byte = 32 * ks + 2 * frag_a_col(lane, i);
+        uint32_t v = 0u;
+        if (busy && ks < ksteps && byte < rb) {
+          v = __ldg((i % 2 ? r1 : r0) + byte / 4);
         }
+        a[ks][i] = (i % 2 ? q1 : q0) >= 0 ? v : 0u;
       }
     }
 
@@ -734,282 +592,233 @@ __device__ __forceinline__ void scan_blocks(
       }
     }
     int phase = 0;
-    // chunked: a tile's sums, carried across its chunks
-    Acc accw[2][8][4];
 
-    for (int it = 0; it < n_tiles; ++it) {
+    for (int it = 0; it < n_tiles; ++it, ++gt) {
       const int ts = (it % tpp) * stride + (it / tpp) * TN;
       const int nrow = min(TN, s_eff - ts);
-      for (int kc = 0; kc < nch; ++kc, ++gt) {
-        const int buf = gt & 1;
-        const bool last_k = kc + 1 == nch;
-        // the next stage: this tile's next chunk, this block's next tile,
-        // or the next block's first
-        const bool more = !last_k || it + 1 < n_tiles;
-        const int tn = !last_k ? ts
-                       : more  ? ((it + 1) % tpp) * stride +
-                                    ((it + 1) / tpp) * TN
-                               : 0;
-        const int kn = last_k ? 0 : kc + 1;
-        const bool ahead = more || nb < n_blocks;
-        if (more) {
-          if constexpr (CHUNKED) {
-            copy_a_chunk(a_ring + (buf ^ 1) * MAX_PT * ld, qtable, pr, rb, kn,
-                         ld);
-          }
-          src.fetch(s0, o0, o1, tn, min(TN, s_eff - tn),
-                    tiles + (ONE ? 0 : (buf ^ 1) * TN * ld), kn);
-        } else if (ahead) {
-          npr = prow_t < p_tile ? probers[(size_t)nb * p_tile + prow_t] : -1;
-          if constexpr (CHUNKED) {
-            copy_a_chunk(a_ring + (buf ^ 1) * MAX_PT * ld, qtable, npr, rb, 0,
-                         ld);
-          }
-          src.fetch(start_c[nb], off[nb], off[nb] + capb[nb], 0,
-                    min(TN, s_eff), tiles + (ONE ? 0 : (buf ^ 1) * TN * ld),
-                    0);
-        }
-        if (busy) {
-          const unsigned char* tile = tiles + (ONE ? 0 : buf * TN * ld);
-          const unsigned char* arow =
-              a_ring + buf * MAX_PT * ld + (16 * mt + ldm_a_row(lane)) * ld +
-              2 * ldm_a_col(lane);
-          const int kst =
-              CHUNKED ? round32(min(CHUNK, rb - kc * CHUNK)) / 32 : ksteps;
-          const float* pen = pen_s + buf * TN;
-          const int* slt = slot_s + buf * TN;
-          const float* scl = scale_s + buf * TN;
-#pragma unroll
-          for (int gq = 0; gq < 2; ++gq) {  // up to 4 pairs (64 columns)
-            const int p0 = slice * np_s + 4 * gq;  // first pair of the group
-            if (4 * gq < np_s && 16 * p0 < nrow) {
-              // sum: the tile's sums, chained across a chunked row's k
-              // chunks (integer sums: exact in any order).
-              Acc accn[8][4];
-              Acc(&sum)[8][4] = pick<CHUNKED>(accw[gq], accn);
-#pragma unroll
-              for (int ks = 0; ks < KSTEPS; ++ks) {
-                if (ks < kst) {
-                  uint32_t af[4];
-                  if constexpr (CHUNKED) ldmatrix_x4(af, arow + 32 * ks);
-                  const uint32_t(&ak)[4] = pick<CHUNKED>(af, a[ks]);
-                  const bool fresh = ks == 0 && (!CHUNKED || kc == 0);
-#pragma unroll
-                  for (int np = 0; np < 4; ++np) {
-                    const int c0 = 16 * (p0 + np);
-                    if (4 * gq + np < np_s && c0 < nrow) {
-                      uint32_t bf[4];
-                      ldmatrix_x4(bf, tile + (c0 + ldm_b_row(lane)) * ld +
-                                          32 * ks + 2 * ldm_b_col(lane));
-                      if (fresh) {
-                        Op::mma_zero(sum[2 * np], ak, bf[0], bf[1]);
-                        Op::mma_zero(sum[2 * np + 1], ak, bf[2], bf[3]);
-                      } else {
-                        Op::mma(sum[2 * np], ak, bf[0], bf[1]);
-                        Op::mma(sum[2 * np + 1], ak, bf[2], bf[3]);
-                      }
-                    }
-                  }
-                }
+              const int buf = gt & 1;
+              // the next stage: this block's next tile, or the next block's first
+              const bool more = it + 1 < n_tiles;
+              const int tn =
+                  more ? ((it + 1) % tpp) * stride + ((it + 1) / tpp) * TN : 0;
+              const bool ahead = more || nb < n_blocks;
+              if (more) {
+                src.fetch(s0, o0, o1, tn, min(TN, s_eff - tn),
+                          tiles + (ONE ? 0 : (buf ^ 1) * TN * ld));
+              } else if (ahead) {
+                npr = t < p_tile ? probers[(size_t)nb * p_tile + t] : -1;
+                src.fetch(start_c[nb], off[nb], off[nb] + capb[nb], 0,
+                          min(TN, s_eff), tiles + (ONE ? 0 : (buf ^ 1) * TN * ld));
               }
-              if (last_k) {
-                // the scores of this lane's columns, in ascending order
-                if constexpr (PACK) {
+              if (busy) {
+                const unsigned char* tile = tiles + (ONE ? 0 : buf * TN * ld);
+                const float* pen = pen_s + buf * TN;
+                const int* slt = slot_s + buf * TN;
 #pragma unroll
-                  for (int nt = 0; nt < 8; ++nt) {
-                    const int base = 16 * p0 + 8 * nt;  // the n8 tile's
-                    const int cl = base + frag_c_col(lane, 0);
-                    if (4 * gq + nt / 2 < np_s && base < nrow) {
-                      const float2 p =
-                          *reinterpret_cast<const float2*>(pen + cl);
-                      float2 cs = make_float2(0.0f, 0.0f);
-                      if constexpr (Op::SCALED) {
-                        cs = *reinterpret_cast<const float2*>(scl + cl);
-                      }
+                for (int gq = 0; gq < 2; ++gq) {  // up to 4 pairs (64 columns)
+                  const int p0 = slice * np_s + 4 * gq;  // first pair of the group
+                  if (4 * gq < np_s && 16 * p0 < nrow) {
+                    float sum[8][4];  // the group's sums
 #pragma unroll
-                      for (int i = 0; i < 2; ++i) {
-                        if (cl + i < nrow) {
+                    for (int ks = 0; ks < KSTEPS; ++ks) {
+                      if (ks < ksteps) {
+                        const uint32_t(&ak)[4] = a[ks];
+                        const bool fresh = ks == 0;
 #pragma unroll
-                          for (int rr = 0; rr < 2; ++rr) {
-                            const float sc =
-                                Op::score(sum[nt][2 * rr + i], rowm[rr],
-                                          i ? cs.y : cs.x, i ? p.y : p.x);
-                            const int key =
-                                (sortable(sc) & ~slot_mask) | slt[cl + i];
-                            int& best = mx[rr][2 * (8 * gq + nt) + i];
-                            best = max(best, key);
+                        for (int np = 0; np < 4; ++np) {
+                          const int c0 = 16 * (p0 + np);
+                          if (4 * gq + np < np_s && c0 < nrow) {
+                            uint32_t bf[4];
+                            ldmatrix_x4(bf, tile + (c0 + ldm_b_row(lane)) * ld +
+                                                32 * ks + 2 * ldm_b_col(lane));
+                            if (fresh) {
+                              mma_bf16_16816_zero(sum[2 * np], ak, bf[0], bf[1]);
+                              mma_bf16_16816_zero(sum[2 * np + 1], ak, bf[2], bf[3]);
+                            } else {
+                              mma_bf16_16816(sum[2 * np], ak, bf[0], bf[1]);
+                              mma_bf16_16816(sum[2 * np + 1], ak, bf[2], bf[3]);
+                            }
                           }
                         }
                       }
                     }
-                  }
-                } else {
-                  // exact: the group's scores through the warp's staging
-                  // rows [16][SLD]; lane l then takes row l / 2 over its
-                  // half of the group's columns, in ascending order
-                  float* st = stage_s + warp * 16 * SLD;
+                    {
+                      // the scores of this lane's columns, in ascending order
+                      if constexpr (PACK) {
 #pragma unroll
-                  for (int nt = 0; nt < 8; ++nt) {
-                    const int base = 16 * p0 + 8 * nt;
-                    const int cl = base + frag_c_col(lane, 0);
-                    if (4 * gq + nt / 2 < np_s && base < nrow) {
-                      const float2 p =
-                          *reinterpret_cast<const float2*>(pen + cl);
-                      float2 cs = make_float2(0.0f, 0.0f);
-                      if constexpr (Op::SCALED) {
-                        cs = *reinterpret_cast<const float2*>(scl + cl);
-                      }
+                        for (int nt = 0; nt < 8; ++nt) {
+                          const int base = 16 * p0 + 8 * nt;  // the n8 tile's
+                          const int cl = base + frag_c_col(lane, 0);
+                          if (4 * gq + nt / 2 < np_s && base < nrow) {
+                            const float2 p =
+                                *reinterpret_cast<const float2*>(pen + cl);
 #pragma unroll
-                      for (int rr = 0; rr < 2; ++rr) {
-                        *reinterpret_cast<float2*>(
-                            st + frag_c_row(lane, 2 * rr) * SLD + 8 * nt +
-                            frag_c_col(lane, 0)) =
-                            make_float2(Op::score(sum[nt][2 * rr], rowm[rr],
-                                                  cs.x, p.x),
-                                        Op::score(sum[nt][2 * rr + 1],
-                                                  rowm[rr], cs.y, p.y));
-                      }
-                    }
-                  }
-                  __syncwarp();
-                  const int hw = 8 * min(4, np_s - 4 * gq);  // half the group
-                  const int c0 = 16 * p0 + (lane % 2) * hw;  // lane's first
-                  const float* sr = st + (lane / 2) * SLD + (lane % 2) * hw;
-                  // the block's first group: the lists are empty, so its
-                  // first 16 (or 8) columns are sorted into them at once
-                  int j0 = 0;
-                  if (it == 0 && gq == 0) {
-                    if (hw >= 16) {
-                      first_fill<16, KMAX>(vals, cols, sr, c0, ts + c0, nrow);
-                      j0 = 16;
-                    } else {
-                      first_fill<8, KMAX>(vals, cols, sr, c0, ts + c0, nrow);
-                      j0 = 8;
-                    }
-                    const float kth = kth_of(vals, k_pair);
-                    bound = fmaxf(
-                        bound,
-                        fmaxf(kth, __shfl_xor_sync(0xffffffffu, kth, 1)));
-                  }
+                            for (int i = 0; i < 2; ++i) {
+                              if (cl + i < nrow) {
+#pragma unroll
+                                for (int rr = 0; rr < 2; ++rr) {
+                                  const float sc =
+                                      score(sum[nt][2 * rr + i], factor,
+                                            i ? p.y : p.x);
+                                  const int key =
+                                      (sortable(sc) & ~slot_mask) | slt[cl + i];
+                                  int& best = mx[rr][2 * (8 * gq + nt) + i];
+                                  best = max(best, key);
+                                }
+                              }
+                            }
+                          }
+                        }
+                      } else {
+                        // exact: the group's scores through the warp's staging
+                        // rows [16][SLD]; lane l then takes row l / 2 over its
+                        // half of the group's columns, in ascending order
+                        float* st = stage_s + warp * 16 * SLD;
+#pragma unroll
+                        for (int nt = 0; nt < 8; ++nt) {
+                          const int base = 16 * p0 + 8 * nt;
+                          const int cl = base + frag_c_col(lane, 0);
+                          if (4 * gq + nt / 2 < np_s && base < nrow) {
+                            const float2 p =
+                                *reinterpret_cast<const float2*>(pen + cl);
+#pragma unroll
+                            for (int rr = 0; rr < 2; ++rr) {
+                              *reinterpret_cast<float2*>(
+                                  st + frag_c_row(lane, 2 * rr) * SLD + 8 * nt +
+                                  frag_c_col(lane, 0)) =
+                                  make_float2(score(sum[nt][2 * rr], factor, p.x),
+                                              score(sum[nt][2 * rr + 1], factor,
+                                                    p.y));
+                            }
+                          }
+                        }
+                        __syncwarp();
+                        const int hw = 8 * min(4, np_s - 4 * gq);  // half the group
+                        const int c0 = 16 * p0 + (lane % 2) * hw;  // lane's first
+                        const float* sr = st + (lane / 2) * SLD + (lane % 2) * hw;
+                        // the block's first group: the lists are empty, so its
+                        // first 16 (or 8) columns are sorted into them at once
+                        int j0 = 0;
+                        if (it == 0 && gq == 0) {
+                          if (hw >= 16) {
+                            first_fill<16, KMAX>(vals, cols, sr, c0, ts + c0, nrow);
+                            j0 = 16;
+                          } else {
+                            first_fill<8, KMAX>(vals, cols, sr, c0, ts + c0, nrow);
+                            j0 = 8;
+                          }
+                          const float kth = kth_of(vals, k_pair);
+                          bound = fmaxf(
+                              bound,
+                              fmaxf(kth, __shfl_xor_sync(0xffffffffu, kth, 1)));
+                        }
 #pragma unroll 1
-                  for (int j = j0; j < hw; j += 4) {  // hw % 8 == 0
-                    if (__any_sync(0xffffffffu, queue.n > QUEUE - 4)) {
-                      queue.flush(vals, cols);
-                    }
-                    const float4 s4 = *reinterpret_cast<const float4*>(sr + j);
+                        for (int j = j0; j < hw; j += 4) {  // hw % 8 == 0
+                          if (__any_sync(0xffffffffu, queue.n > QUEUE - 4)) {
+                            queue.flush(vals, cols);
+                          }
+                          const float4 s4 = *reinterpret_cast<const float4*>(sr + j);
 #pragma unroll
-                    for (int u = 0; u < 4; ++u) {
-                      const float sc = u == 0   ? s4.x
-                                       : u == 1 ? s4.y
-                                       : u == 2 ? s4.z
-                                                : s4.w;
-                      if (c0 + j + u < nrow && sc >= bound &&
-                          sc > vals[KMAX - 1]) {
-                        queue.push(sc, ts + c0 + j + u);
+                          for (int u = 0; u < 4; ++u) {
+                            const float sc = u == 0   ? s4.x
+                                             : u == 1 ? s4.y
+                                             : u == 2 ? s4.z
+                                                      : s4.w;
+                            if (c0 + j + u < nrow && sc >= bound &&
+                                sc > vals[KMAX - 1]) {
+                              queue.push(sc, ts + c0 + j + u);
+                            }
+                          }
+                        }
+                        __syncwarp();  // the staging rows are free again
+                        // a bound on the row's k_pair-th value: the largest
+                        // k_pair-th entry of the lists of its lanes, published
+                        // per slice (a slice holding k_pair entries >= x bounds
+                        // the row's k_pair-th by x; another slice's value read
+                        // stale is a lower bound too)
+                        float kth = kth_of(vals, k_pair);
+                        kth = fmaxf(kth, __shfl_xor_sync(0xffffffffu, kth, 1));
+                        if (lane % 2 == 0) rowb_s[warp * 16 + lane / 2] = kth;
+                        bound = kth;
+#pragma unroll
+                        for (int sl = 0; sl < WARPS; ++sl) {
+                          if (sl < S) {
+                            bound =
+                                fmaxf(bound, rowb_s[(lt * S + sl) * 16 + lane / 2]);
+                          }
+                        }
+                        if (dead_row) bound = -neg_inf();
                       }
                     }
                   }
-                  __syncwarp();  // the staging rows are free again
-                  // a bound on the row's k_pair-th value: the largest
-                  // k_pair-th entry of the lists of its lanes, published
-                  // per slice (a slice holding k_pair entries >= x bounds
-                  // the row's k_pair-th by x; another slice's value read
-                  // stale is a lower bound too)
-                  float kth = kth_of(vals, k_pair);
-                  kth = fmaxf(kth, __shfl_xor_sync(0xffffffffu, kth, 1));
-                  if (lane % 2 == 0) rowb_s[warp * 16 + lane / 2] = kth;
-                  bound = kth;
-#pragma unroll
-                  for (int sl = 0; sl < WARPS; ++sl) {
-                    if (sl < S) {
-                      bound =
-                          fmaxf(bound, rowb_s[(lt * S + sl) * 16 + lane / 2]);
-                    }
-                  }
-                  if (dead_row) bound = -neg_inf();
                 }
               }
-            }
-          }
-        }
-        if constexpr (PACK) {
-          if (last_k && (it + 1) % tpp == 0) {
-            // phase end: each slice's k_pair largest keys per row, by the
-            // quad's shuffles, into its shared list
-            if (busy) {
-              int* ks_w = keys_s + warp * 16 * kls;
-              switch (S) {  // a lane holds the first 32 / S maxima of a row
-                case 8:
-                  select_slice<NGRP / 8, SORT>(mx, ks_w, lane, k_pair, kls);
-                  break;
-                case 4:
-                  select_slice<NGRP / 4, SORT>(mx, ks_w, lane, k_pair, kls);
-                  break;
-                case 2:
-                  select_slice<NGRP / 2, SORT>(mx, ks_w, lane, k_pair, kls);
-                  break;
-                default:
-                  select_slice<NGRP, SORT>(mx, ks_w, lane, k_pair, kls);
-              }
-            }
-            __syncthreads();
-            // one thread per live row: the k_pair largest of its slices'
-            // lists (each of k_pair keys, or ended by an INT_MIN) and the
-            // running list of the earlier phases (ONE_LIST: into the query
-            // chunk just scored, then back over the running list)
-            if (t < 16 * nm) {
-              const int* cur =
-                  run_s + ((ONE_LIST ? 0 : phase & 1) * MAX_PT + t) * kls;
-              int* nxt =
-                  ONE_LIST ? reinterpret_cast<int*>(a_ring +
-                                                    buf * MAX_PT * ld) +
-                                 t * kls
-                           : run_s + (((phase + 1) & 1) * MAX_PT + t) * kls;
-              const int* sl = keys_s + ((t / 16) * S * 16 + t % 16) * kls;
-              int h[WARPS];  // the slices' heads (unrolled: registers)
-              int hc = 0;    // the running list's head
-#pragma unroll
-              for (int s = 0; s < WARPS; ++s) h[s] = 0;
-              for (int i = 0; i < k_pair; ++i) {
-                int best = phase > 0 ? cur[hc] : INT_MIN;
-                int bs = WARPS;
-#pragma unroll
-                for (int s = 0; s < WARPS; ++s) {
-                  if (s < S) {
-                    const int v =
-                        h[s] < k_pair ? sl[s * 16 * kls + h[s]] : INT_MIN;
-                    if (v > best) {
-                      best = v;
-                      bs = s;
+              if constexpr (PACK) {
+                if ((it + 1) % tpp == 0) {
+                  // phase end: each slice's k_pair largest keys per row, by the
+                  // quad's shuffles, into its shared list
+                  if (busy) {
+                    int* ks_w = keys_s + warp * 16 * kls;
+                    switch (S) {  // a lane holds the first 32 / S maxima of a row
+                      case 8:
+                        select_slice<NGRP / 8, SORT>(mx, ks_w, lane, k_pair, kls);
+                        break;
+                      case 4:
+                        select_slice<NGRP / 4, SORT>(mx, ks_w, lane, k_pair, kls);
+                        break;
+                      case 2:
+                        select_slice<NGRP / 2, SORT>(mx, ks_w, lane, k_pair, kls);
+                        break;
+                      default:
+                        select_slice<NGRP, SORT>(mx, ks_w, lane, k_pair, kls);
                     }
                   }
-                }
+                  __syncthreads();
+                  // one thread per live row: the k_pair largest of its slices'
+                  // lists (each of k_pair keys, or ended by an INT_MIN) and the
+                  // running list of the earlier phases
+                  if (t < 16 * nm) {
+                    const int* cur = run_s + ((phase & 1) * MAX_PT + t) * kls;
+                    int* nxt = run_s + (((phase + 1) & 1) * MAX_PT + t) * kls;
+                    const int* sl = keys_s + ((t / 16) * S * 16 + t % 16) * kls;
+                    int h[WARPS];  // the slices' heads (unrolled: registers)
+                    int hc = 0;    // the running list's head
 #pragma unroll
-                for (int s = 0; s < WARPS; ++s) h[s] += s == bs;
-                hc += bs == WARPS;
-                nxt[i] = best;
+                    for (int s = 0; s < WARPS; ++s) h[s] = 0;
+                    for (int i = 0; i < k_pair; ++i) {
+                      int best = phase > 0 ? cur[hc] : INT_MIN;
+                      int bs = WARPS;
+#pragma unroll
+                      for (int s = 0; s < WARPS; ++s) {
+                        if (s < S) {
+                          const int v =
+                              h[s] < k_pair ? sl[s * 16 * kls + h[s]] : INT_MIN;
+                          if (v > best) {
+                            best = v;
+                            bs = s;
+                          }
+                        }
+                      }
+#pragma unroll
+                      for (int s = 0; s < WARPS; ++s) h[s] += s == bs;
+                      hc += bs == WARPS;
+                      nxt[i] = best;
+                    }
+                  }
+                  ++phase;
+                }
               }
-              if constexpr (ONE_LIST) {
-                int* run = run_s + t * kls;
-                for (int i = 0; i < k_pair; ++i) run[i] = nxt[i];
+              if (ahead) {
+                if constexpr (ONE) {
+                  // the warps are done with the tile (a pack32 phase end's
+                  // barrier has seen to it already)
+                  if (!(PACK && (it + 1) % tpp == 0)) __syncthreads();
+                }
+                src.land(tn, min(TN, s_eff - tn),
+                         tiles + (ONE ? 0 : (buf ^ 1) * TN * ld),
+                         pen_s + (buf ^ 1) * TN, slot_s + (buf ^ 1) * TN);
               }
-            }
-            ++phase;
-          }
-        }
-        if (ahead) {
-          if constexpr (ONE) {
-            // the warps are done with the tile (a pack32 phase end's
-            // barrier has seen to it already)
-            if (!(PACK && last_k && (it + 1) % tpp == 0)) __syncthreads();
-          }
-          src.land(tn, min(TN, s_eff - tn),
-                   tiles + (ONE ? 0 : (buf ^ 1) * TN * ld),
-                   pen_s + (buf ^ 1) * TN, slot_s + (buf ^ 1) * TN,
-                   scale_s + (buf ^ 1) * TN);
-        }
-        __syncthreads();
-      }
+              __syncthreads();
     }
 
     // the live rows' outputs
@@ -1024,8 +833,7 @@ __device__ __forceinline__ void scan_blocks(
           const int rw = warp + WARPS * h;  // the row in the tile
           if (prow_s[16 * m2 + rw] >= 0) {
             const int* fin =
-                run_s +
-                ((ONE_LIST ? 0 : phase & 1) * MAX_PT + 16 * lt2 + rw) * kls;
+                run_s + ((phase & 1) * MAX_PT + 16 * lt2 + rw) * kls;
             int* o = out + ((size_t)b * p_tile + 16 * m2 + rw) * k_pair;
             for (int i = lane; i < k_pair; i += 32) o[i] = fin[i];
           }
@@ -1101,43 +909,36 @@ __device__ __forceinline__ void scan_blocks(
   }
 }
 
-// The window tiles of the block scans' cache rows ([capacity][rb] bytes,
-// bf16 or int8): column c is slot c. A thread copies the 16-byte pieces
-// e = t + r * THREADS of the tile's k chunk (piece e is piece e % p of
-// column e / p, p = the chunk's bytes / 16), stepped without a division:
+// The window tiles of the block scan's bf16 cache rows ([capacity][rb]
+// bytes): column c is slot c. A thread copies the 16-byte pieces
+// e = t + r * THREADS of the tile (piece e is piece e % p of column e / p,
+// p = the row's bytes / 16), stepped without a division:
 // (cl, ch) of e + THREADS is (cl + q, ch + r), carried. The mapping is
 // worked out at each fetch rather than kept: the body's registers are
-// full. SCALED: each column's scale too (the int8 cache's per-slot
-// scales).
-template <bool SCALED>
+// full.
 struct RowsSource {
   static constexpr bool ONE_TILE = false;
-  static constexpr int MAX_COPIES = TN * CHUNK / 16 / THREADS;  // per thread
+  static constexpr int MAX_COPIES = TN * MAX_ROW / 16 / THREADS;  // a thread's
   const unsigned char* __restrict__ rows;
   const float* __restrict__ penalty;
-  const float* __restrict__ scale;
   int rb, ld;
-  float pen, sc;
+  float pen;
 
   __device__ __forceinline__ void init(const void* rows_, const float* pen_,
-                                       const float* scale_, int rb_,
-                                       int ld_) {
+                                       int rb_, int ld_) {
     rows = static_cast<const unsigned char*>(rows_);
     penalty = pen_;
-    scale = scale_;
     rb = rb_;
     ld = ld_;
   }
 
   __device__ __forceinline__ void fetch(int s0, int o0, int o1, int ts,
-                                        int nrow, unsigned char* tile,
-                                        int kc) {
+                                        int nrow, unsigned char* tile) {
     const int t = threadIdx.x;
-    const int off = kc * CHUNK;
-    const int p = min(CHUNK, rb - off) / 16;  // the chunk's pieces per row
+    const int p = rb / 16;  // the row's pieces
     int cl = t / p, ch = t % p;
     const int q = THREADS / p, r = THREADS % p;
-    const unsigned char* src = rows + ((size_t)s0 + ts) * rb + off;
+    const unsigned char* src = rows + ((size_t)s0 + ts) * rb;
 #pragma unroll
     for (int u = 0; u < MAX_COPIES; ++u) {
       if (cl < nrow) {
@@ -1154,25 +955,21 @@ struct RowsSource {
     cp_async_commit();
     if (t < TN) {
       pen = 0.0f;
-      sc = 0.0f;
       if (t < nrow) {
         const int j = ts + t;
         pen = __ldg(penalty + s0 + j) +
               ((j >= o0 && j < o1) ? 0.0f : big_penalty());
-        if constexpr (SCALED) sc = __ldg(scale + s0 + j);
       }
     }
   }
 
   __device__ __forceinline__ void land(int ts, int, unsigned char*,
-                                       float* pen_s, int* slot_s,
-                                       float* scale_s) const {
+                                       float* pen_s, int* slot_s) const {
     cp_async_wait<0>();
     const int t = threadIdx.x;
     if (t < TN) {
       pen_s[t] = pen;
       slot_s[t] = ts + t;
-      if constexpr (SCALED) scale_s[t] = sc;
     }
   }
 

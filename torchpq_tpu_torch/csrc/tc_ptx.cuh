@@ -1,5 +1,5 @@
 // The tensor-core and asynchronous-copy instructions of flat_scan_tc.cu and
-// scan_tc.cuh (block_scan_tc.cu, block_scan_tc_int8.cu, codes_scan_tc.cu),
+// scan_tc.cuh (block_scan_tc.cu, codes_scan_tc.cu),
 // one inline-PTX wrapper each (sm_80 and later; built for sm_90a), and the
 // fragment layouts they imply, as plain functions of the lane.
 //
@@ -15,19 +15,6 @@
 //                    2t + 1 of matrix j.
 // B is K x N column-major, so a cache stored [slot][k] row-major is B as it
 // lies: an 8 x 8 matrix of cache rows (slots) is one B register fragment.
-//
-// mma.m16n8k32 with .s8 operands ("Matrix Fragments for mma.m16n8k32"),
-// each 32-bit register holding four int8, the lowest k in the low byte:
-//   A 16x32 (.row):  a[i] = A[g + 8 * (i % 2)][4t + 16 * (i / 2) + {0..3}]
-//   B 32x8  (.col):  b[i] = B[4t + 16 * i + {0..3}][g]
-//   C 16x8  (s32):   c[i] = C[g + 8 * (i / 2)][2t + (i % 2)]
-// These are, byte for byte, the bf16 layouts above: bf16 element 2t + 8j
-// is bytes 4t + 16j .. + 3 of a row, so a[i] and b[i] cover the same bytes
-// of the same rows in both, one k step is 32 bytes in both, C lies alike,
-// and ldmatrix .b16 hands each lane the same bytes whatever they hold. The
-// scan body (scan_tc.cuh) therefore addresses both operand types in bytes
-// with the functions below (frag_a_col(lane, i) elements of bf16 are
-// 2 * frag_a_col(lane, i) bytes of either).
 
 #pragma once
 
@@ -141,28 +128,6 @@ __device__ __forceinline__ void mma_bf16_16816_zero(float (&c)[4],
       : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
         "f"(z));
-}
-
-// c += A (16x32 int8) * B (32x8 int8), s32 accumulation (exact, wrapping).
-__device__ __forceinline__ void mma_s8_16832(int (&c)[4],
-                                             const uint32_t (&a)[4],
-                                             uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c = A (16x32 int8) * B (32x8 int8), from a zero accumulator.
-__device__ __forceinline__ void mma_s8_16832_zero(int (&c)[4],
-                                                  const uint32_t (&a)[4],
-                                                  uint32_t b0, uint32_t b1) {
-  const int z = 0;
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=r"(c[0]), "=r"(c[1]), "=r"(c[2]), "=r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "r"(z));
 }
 
 }  // namespace tpq

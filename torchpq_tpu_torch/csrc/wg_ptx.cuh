@@ -1,5 +1,6 @@
 // Hopper's asynchronous instructions for block_scan_wg.cu, one inline-PTX
-// wrapper each (sm_90a): the warpgroup matrix product (wgmma), the tensor
+// wrapper each (sm_90a): the warpgroup matrix product (wgmma: bf16 with f32
+// sums, s8 with s32 sums), the tensor
 // memory accelerator's 2-D tiled load (TMA), the shared-memory barriers
 // that track arrivals and transferred bytes (mbarrier), the register
 // hand-over between warpgroups (setmaxnreg), named barriers and the proxy
@@ -258,6 +259,160 @@ __device__ __forceinline__ void wgmma_m64n128k16_zero(float (&lo)[8][4],
         "=f"(hi[6][0]), "=f"(hi[6][1]), "=f"(hi[6][2]), "=f"(hi[6][3]),
         "=f"(hi[7][0]), "=f"(hi[7][1]), "=f"(hi[7][2]), "=f"(hi[7][3])
       : "l"(da), "l"(db), "r"(0));
+}
+
+// d += A (64 x 32 int8, descriptor da) * B (32 x 64 int8, K-major rows,
+// descriptor db), exact s32 sums (no saturation: |d| < 2^24 for rows of at
+// most 1,024 bytes). Both operands K-major, as 8-bit wgmma requires. The
+// s32 accumulator lies as the f32 one (acc_row / acc_col).
+__device__ __forceinline__ void wgmma_m64n64k32_s8(
+    int (&d)[8][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0][0]), "+r"(d[0][1]), "+r"(d[0][2]), "+r"(d[0][3]),
+        "+r"(d[1][0]), "+r"(d[1][1]), "+r"(d[1][2]), "+r"(d[1][3]),
+        "+r"(d[2][0]), "+r"(d[2][1]), "+r"(d[2][2]), "+r"(d[2][3]),
+        "+r"(d[3][0]), "+r"(d[3][1]), "+r"(d[3][2]), "+r"(d[3][3]),
+        "+r"(d[4][0]), "+r"(d[4][1]), "+r"(d[4][2]), "+r"(d[4][3]),
+        "+r"(d[5][0]), "+r"(d[5][1]), "+r"(d[5][2]), "+r"(d[5][3]),
+        "+r"(d[6][0]), "+r"(d[6][1]), "+r"(d[6][2]), "+r"(d[6][3]),
+        "+r"(d[7][0]), "+r"(d[7][1]), "+r"(d[7][2]), "+r"(d[7][3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d = A * B from a zero sum (scale-d false).
+__device__ __forceinline__ void wgmma_m64n64k32_s8_zero(
+    int (&d)[8][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "=r"(d[0][0]), "=r"(d[0][1]), "=r"(d[0][2]), "=r"(d[0][3]),
+        "=r"(d[1][0]), "=r"(d[1][1]), "=r"(d[1][2]), "=r"(d[1][3]),
+        "=r"(d[2][0]), "=r"(d[2][1]), "=r"(d[2][2]), "=r"(d[2][3]),
+        "=r"(d[3][0]), "=r"(d[3][1]), "=r"(d[3][2]), "=r"(d[3][3]),
+        "=r"(d[4][0]), "=r"(d[4][1]), "=r"(d[4][2]), "=r"(d[4][3]),
+        "=r"(d[5][0]), "=r"(d[5][1]), "=r"(d[5][2]), "=r"(d[5][3]),
+        "=r"(d[6][0]), "=r"(d[6][1]), "=r"(d[6][2]), "=r"(d[6][3]),
+        "=r"(d[7][0]), "=r"(d[7][1]), "=r"(d[7][2]), "=r"(d[7][3])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// The same over 128 window rows: lo the first 64 columns, hi the next 64.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(
+    int (&lo)[8][4], int (&hi)[8][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(lo[0][0]), "+r"(lo[0][1]), "+r"(lo[0][2]), "+r"(lo[0][3]),
+        "+r"(lo[1][0]), "+r"(lo[1][1]), "+r"(lo[1][2]), "+r"(lo[1][3]),
+        "+r"(lo[2][0]), "+r"(lo[2][1]), "+r"(lo[2][2]), "+r"(lo[2][3]),
+        "+r"(lo[3][0]), "+r"(lo[3][1]), "+r"(lo[3][2]), "+r"(lo[3][3]),
+        "+r"(lo[4][0]), "+r"(lo[4][1]), "+r"(lo[4][2]), "+r"(lo[4][3]),
+        "+r"(lo[5][0]), "+r"(lo[5][1]), "+r"(lo[5][2]), "+r"(lo[5][3]),
+        "+r"(lo[6][0]), "+r"(lo[6][1]), "+r"(lo[6][2]), "+r"(lo[6][3]),
+        "+r"(lo[7][0]), "+r"(lo[7][1]), "+r"(lo[7][2]), "+r"(lo[7][3]),
+        "+r"(hi[0][0]), "+r"(hi[0][1]), "+r"(hi[0][2]), "+r"(hi[0][3]),
+        "+r"(hi[1][0]), "+r"(hi[1][1]), "+r"(hi[1][2]), "+r"(hi[1][3]),
+        "+r"(hi[2][0]), "+r"(hi[2][1]), "+r"(hi[2][2]), "+r"(hi[2][3]),
+        "+r"(hi[3][0]), "+r"(hi[3][1]), "+r"(hi[3][2]), "+r"(hi[3][3]),
+        "+r"(hi[4][0]), "+r"(hi[4][1]), "+r"(hi[4][2]), "+r"(hi[4][3]),
+        "+r"(hi[5][0]), "+r"(hi[5][1]), "+r"(hi[5][2]), "+r"(hi[5][3]),
+        "+r"(hi[6][0]), "+r"(hi[6][1]), "+r"(hi[6][2]), "+r"(hi[6][3]),
+        "+r"(hi[7][0]), "+r"(hi[7][1]), "+r"(hi[7][2]), "+r"(hi[7][3])
+      : "l"(da), "l"(db), "r"(1));
+}
+__device__ __forceinline__ void wgmma_m64n128k32_s8_zero(
+    int (&lo)[8][4], int (&hi)[8][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "=r"(lo[0][0]), "=r"(lo[0][1]), "=r"(lo[0][2]), "=r"(lo[0][3]),
+        "=r"(lo[1][0]), "=r"(lo[1][1]), "=r"(lo[1][2]), "=r"(lo[1][3]),
+        "=r"(lo[2][0]), "=r"(lo[2][1]), "=r"(lo[2][2]), "=r"(lo[2][3]),
+        "=r"(lo[3][0]), "=r"(lo[3][1]), "=r"(lo[3][2]), "=r"(lo[3][3]),
+        "=r"(lo[4][0]), "=r"(lo[4][1]), "=r"(lo[4][2]), "=r"(lo[4][3]),
+        "=r"(lo[5][0]), "=r"(lo[5][1]), "=r"(lo[5][2]), "=r"(lo[5][3]),
+        "=r"(lo[6][0]), "=r"(lo[6][1]), "=r"(lo[6][2]), "=r"(lo[6][3]),
+        "=r"(lo[7][0]), "=r"(lo[7][1]), "=r"(lo[7][2]), "=r"(lo[7][3]),
+        "=r"(hi[0][0]), "=r"(hi[0][1]), "=r"(hi[0][2]), "=r"(hi[0][3]),
+        "=r"(hi[1][0]), "=r"(hi[1][1]), "=r"(hi[1][2]), "=r"(hi[1][3]),
+        "=r"(hi[2][0]), "=r"(hi[2][1]), "=r"(hi[2][2]), "=r"(hi[2][3]),
+        "=r"(hi[3][0]), "=r"(hi[3][1]), "=r"(hi[3][2]), "=r"(hi[3][3]),
+        "=r"(hi[4][0]), "=r"(hi[4][1]), "=r"(hi[4][2]), "=r"(hi[4][3]),
+        "=r"(hi[5][0]), "=r"(hi[5][1]), "=r"(hi[5][2]), "=r"(hi[5][3]),
+        "=r"(hi[6][0]), "=r"(hi[6][1]), "=r"(hi[6][2]), "=r"(hi[6][3]),
+        "=r"(hi[7][0]), "=r"(hi[7][1]), "=r"(hi[7][2]), "=r"(hi[7][3])
+      : "l"(da), "l"(db), "r"(0));
+}
+
+__device__ __forceinline__ void fence_acc(int (&d)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(d[j][i])::"memory");
+  }
+}
+
+// One 32-byte k step of the operand the accumulators name: bf16 (k16, f32
+// sums) for float accumulators, int8 (k32, s32 sums) for int ones; _zero
+// from a zero sum. N = 64 (one column half) or 128 (lo and hi).
+__device__ __forceinline__ void wgmma_n64(float (&d)[8][4], uint64_t da,
+                                          uint64_t db) {
+  wgmma_m64n64k16(d, da, db);
+}
+__device__ __forceinline__ void wgmma_n64(int (&d)[8][4], uint64_t da,
+                                          uint64_t db) {
+  wgmma_m64n64k32_s8(d, da, db);
+}
+__device__ __forceinline__ void wgmma_n64_zero(float (&d)[8][4], uint64_t da,
+                                               uint64_t db) {
+  wgmma_m64n64k16_zero(d, da, db);
+}
+__device__ __forceinline__ void wgmma_n64_zero(int (&d)[8][4], uint64_t da,
+                                               uint64_t db) {
+  wgmma_m64n64k32_s8_zero(d, da, db);
+}
+__device__ __forceinline__ void wgmma_n128(float (&lo)[8][4],
+                                           float (&hi)[8][4], uint64_t da,
+                                           uint64_t db) {
+  wgmma_m64n128k16(lo, hi, da, db);
+}
+__device__ __forceinline__ void wgmma_n128(int (&lo)[8][4], int (&hi)[8][4],
+                                           uint64_t da, uint64_t db) {
+  wgmma_m64n128k32_s8(lo, hi, da, db);
+}
+__device__ __forceinline__ void wgmma_n128_zero(float (&lo)[8][4],
+                                                float (&hi)[8][4],
+                                                uint64_t da, uint64_t db) {
+  wgmma_m64n128k16_zero(lo, hi, da, db);
+}
+__device__ __forceinline__ void wgmma_n128_zero(int (&lo)[8][4],
+                                                int (&hi)[8][4], uint64_t da,
+                                                uint64_t db) {
+  wgmma_m64n128k32_s8_zero(lo, hi, da, db);
 }
 
 }  // namespace wg

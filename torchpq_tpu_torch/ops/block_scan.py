@@ -7,26 +7,22 @@ prober id). Four kernels serve it, chosen before launch by `pick_route`,
 each built by `_build.py`, bound through plain C entry points and counted
 under its own key of `launches`:
   - `csrc/block_scan_wg.cu`, bf16 caches with rows of d <= 1024 (d % 8 ==
-    0), blocks of at most 128 probers, on Hopper's warpgroup products
-    (wgmma bf16, f32 sums) fed by TMA through a shared-memory ring, one
-    producer and two consumer warpgroups, in two families of instances:
-    "tc_wgn_exact" / "tc_wgn_pack32", rows of d <= 128 (the main path's
-    cache: the bf16 tier's probed plans and the deep-k scans, pack32
-    k_pair 64, included), the block's query rows resident in shared
-    memory and one chain of k steps; "tc_wg_exact" / "tc_wg_pack32", rows
-    of 128 < d <= 1024 (the GIST-class cache, 1,024 wide), each 256-byte
-    k chunk summed from zero;
-  - "tc_pack32", `csrc/block_scan_tc.cu`: the pack32 selects above k_pair
-    16 at d <= 128 whose phases cover fewer than 8 window tiles
-    (`tc_deep_ok`), on mma.sync with sorted phase ends, which beat the
-    narrow wgmma instances' passes there;
-  - "tc_int8_exact" / "tc_int8_pack32", `csrc/block_scan_tc_int8.cu`: int8
-    caches with rows of d <= 1024 (d % 16 == 0; above 256 in k chunks of
-    256 bytes), the same blocks, on the tensor cores (mma.sync s8, exact
-    s32 sums) through the same kernel body; the int8 tier's probed plans;
-    in k chunks, pack32 above k_pair 48 runs an instance of its own that
-    keeps one running list (its shared memory); on mma.sync (s8), scoring
-    only the live 16-prober tiles of a block;
+    0) and int8 caches with rows of d <= 1024 (d % 16 == 0), blocks of at
+    most 128 probers, on Hopper's warpgroup products (wgmma bf16 with f32
+    sums, s8 with exact s32 sums) fed by TMA through a shared-memory ring,
+    one producer and two consumer warpgroups, in two families of
+    instances: "tc_wgn_exact" / "tc_wgn_pack32" and "tc_wgn_int8_exact" /
+    "tc_wgn_int8_pack32", rows of at most 256 bytes (bf16 d <= 128, the
+    main path's cache: the bf16 tier's probed plans and the deep-k scans,
+    pack32 k_pair 64, included; int8 d <= 256, the int8 tier's probed
+    plans), the block's query rows resident in shared memory and one chain
+    of k steps; "tc_wg_exact" / "tc_wg_pack32" and "tc_wg_int8_exact" /
+    "tc_wg_int8_pack32", wider rows (the GIST-class cache, 1,024 wide),
+    bf16 in 256-byte k chunks each summed from zero, int8 in one s32 chain;
+  - "tc_pack32", `csrc/block_scan_tc.cu`: the bf16 pack32 selects above
+    k_pair 16 of rows of d <= 128 whose phases cover fewer than 8 window
+    tiles (`tc_deep_ok`), on mma.sync with sorted phase ends, which beat
+    the narrow wgmma instances' passes there;
   - "exact" / "pack32" and "int8_exact" / "int8_pack32",
     `csrc/block_scan.cu`: f32 caches and the shapes the tensor-core kernels
     do not take, on the CUDA cores (f32 FMAs, __dp4a).
@@ -82,28 +78,26 @@ BIG = float(np.float32(np.finfo(np.float32).max) / np.float32(4))
 # ("tc_*": the tensor-core kernels, bf16 and int8; the others: the CUDA-core
 # one, per cache mode and select)
 launches = {"exact": 0, "pack32": 0, "int8_exact": 0, "int8_pack32": 0,
-            "tc_pack32": 0, "tc_int8_exact": 0, "tc_int8_pack32": 0,
+            "tc_pack32": 0,
             "tc_wg_exact": 0, "tc_wg_pack32": 0, "tc_wgn_exact": 0,
-            "tc_wgn_pack32": 0}
+            "tc_wgn_pack32": 0, "tc_wg_int8_exact": 0,
+            "tc_wg_int8_pack32": 0, "tc_wgn_int8_exact": 0,
+            "tc_wgn_int8_pack32": 0}
 
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one CTA may use on sm_90
 _CHUNK_SCORES = 1 << 25   # f32 scores per chunk of the plain version (128 MB)
 _H100_SMS = 132           # SMs assumed for tensors that are not on a card
-# the tensor-core scans' body (csrc/scan_tc.cuh)
+# the mma.sync scans' body (csrc/scan_tc.cuh)
 _TC_WARPS = 8       # warps per CTA
 _TC_MAX_ROW = 256   # widest row (bytes) its A fragments hold: bf16 d <= 128
-_TC_CHUNK = 256     # k chunk (bytes) of wider rows
-_TC_MAX_CHUNKED_ROW = 1024  # widest int8 row it walks in those chunks
-_TC_MAX_CHUNKED_ROW_BF16 = 2048  # widest bf16 row block_scan_wg.cu walks
-_TC_CHUNKED_PACK_K = 48  # chunked pack32 k_pair with two running lists
-                         # (above: one, the ONE_LIST instances)
 _TC_MAX_PT = 128    # probers per block: an m tile per warp of 8
 _TC_KMAX = 16       # the exact k_pair its lane lists take
 _TC_MAX_PACK_K = 64  # the pack32 k_pair its lists take
 _TC_TN = 128        # its tile of window columns
 _TC_SLD = 72        # exact staging row stride (floats)
 _TC_QUEUE = 6       # exact: a lane's queued candidates
-# the warp-specialised scan of k-chunked bf16 rows (csrc/wg_layout.cuh)
+# the warp-specialised scan (csrc/wg_layout.cuh)
+_WG_MAX_ROW_BF16 = 2048  # widest row (bytes): bf16 d <= 1024
 _WG_SW_ATOM = 1024      # bytes of a 128-byte swizzle atom (alignment slack)
 _WG_STAGE_BYTES = 16384  # one operand of a ring stage: [128][128 B]
 _WG_BOX_ROWS = 128      # window columns per tile
@@ -119,8 +113,14 @@ _WG_QBUF_BYTES = 2 * _WG_STAGE_BYTES
 _WG_NRING_EXACT_10, _WG_NRING_EXACT = 6, 5
 _WG_NRING_PACK_16, _WG_NRING_DEEP = 8, 5
 _WG_NQB, _WG_NQB_DEEP = 2, 1
-# narrow pack32 above k_pair 16: block_scan_wg.cu where a phase covers at
-# least this many window tiles, else block_scan_tc.cu (tc_deep_ok)
+# int8 rows (d <= 1024, d % 16 == 0): each ring stage also carries its
+# columns' scales; the narrow pack32 instance of k_pair <= 16 keeps 7 stages
+_WG_SCALE_BYTES = 4 * _WG_BOX_ROWS
+_WG_NRING_PACK_16_I8 = 7
+_WG_MAX_ROW_I8 = 1024   # widest int8 row (bytes): d <= 1024
+# narrow bf16 pack32 above k_pair 16: block_scan_wg.cu where a phase
+# covers at least this many window tiles, else block_scan_tc.cu
+# (tc_deep_ok)
 _WGN_DEEP_PHASE_TILES = 8
 
 
@@ -454,42 +454,30 @@ def _cta_probers(smem, p_tile):
                      f"(p_tile={p_tile})")
 
 
-def tc_smem_bytes(rb, pack32, k_pair, scaled, chunked, one_tile=False,
-                  one_list=False):
-    """Dynamic shared memory of the tensor-core scans' body at rows of rb
+def tc_smem_bytes(rb, pack32, k_pair, one_tile=False):
+    """Dynamic shared memory of the mma.sync scans' body at rows of rb
     bytes: csrc/scan_tc.cuh:body_smem_bytes, term for term (the library's
     `*_smem` entry points report the same; a card test holds them equal),
     so that pick_route needs no library. Tiles [2][TN][row stride] bytes
-    (one_tile: [1][TN][row stride], the deep codes instance; chunked: and
-    the query rows' chunks), penalties and slots [2][TN],
-    scales [2][TN] (scaled), prober rows and tile flags, the slice lists
-    [WARPS][16][kls], then pack32: the running lists [2][MAX_PT][kls]
-    (one_list: [1][MAX_PT][kls]); exact: the staging rows, row bounds and
-    queues. kls: the lists' row stride, k_pair (pack32: made odd,
-    list_ld)."""
-    ld = (_TC_CHUNK if chunked else -(-rb // 32) * 32) + 16
+    (one_tile: [1][TN][row stride], the deep codes instance), penalties and
+    slots [2][TN], prober rows and tile flags, the
+    slice lists [WARPS][16][kls], then pack32: the running lists
+    [2][MAX_PT][kls]; exact: the staging rows, row bounds and queues. kls:
+    the lists' row stride, k_pair (pack32: made odd, list_ld)."""
+    ld = -(-rb // 32) * 32 + 16
     kls = k_pair | 1 if pack32 else k_pair
     lists = _TC_WARPS * 16 * kls * (4 if pack32 else 8)
-    select = ((1 if one_list else 2) * _TC_MAX_PT * kls * 4 if pack32 else
+    select = (2 * _TC_MAX_PT * kls * 4 if pack32 else
               _TC_WARPS * 16 * (_TC_SLD + 1) * 4 + _TC_QUEUE * 32 * _TC_WARPS
               * 8)
-    return ((1 if one_tile else 2) * _TC_TN * ld * (2 if chunked else 1)
-            + 16 * _TC_TN
-            + (8 * _TC_TN if scaled else 0) + 4 * _TC_MAX_PT
-            + 4 * (_TC_MAX_PT // 16) + lists + select)
+    return ((1 if one_tile else 2) * _TC_TN * ld + 16 * _TC_TN
+            + 4 * _TC_MAX_PT + 4 * (_TC_MAX_PT // 16) + lists + select)
 
 
-def tc_route_smem(*, d, pack32, k_pair, dtype=torch.bfloat16):
-    """Shared memory of the tensor-core block scan of a `dtype` cache at
-    width d (the library's torchpq_block_scan_tc_smem /
-    torchpq_block_scan_tc_int8_smem): int8 rows of more than _TC_MAX_ROW
-    bytes in k chunks, and there pack32 above _TC_CHUNKED_PACK_K with one
-    running list (scan_tc.cuh:one_list_of); bf16 rows whole."""
-    rb = d if dtype == torch.int8 else 2 * d
-    chunked = dtype == torch.int8 and rb > _TC_MAX_ROW
-    return tc_smem_bytes(rb, pack32, k_pair, dtype == torch.int8, chunked,
-                         one_list=bool(chunked and pack32
-                                       and k_pair > _TC_CHUNKED_PACK_K))
+def tc_route_smem(*, d, pack32, k_pair):
+    """Shared memory of the mma.sync block scan of a bf16 cache at width d
+    (the library's torchpq_block_scan_tc_smem): rows whole."""
+    return tc_smem_bytes(2 * d, pack32, k_pair)
 
 
 def wg_ring(pack32, k_pair):
@@ -514,38 +502,45 @@ def _wg_select_bytes(pack32, k_pair):
                     + 8 * _TC_QUEUE * 32 * _TC_WARPS)
 
 
-def wg_smem_bytes(pack32, k_pair, d=1024):
-    """Dynamic shared memory of the warp-specialised scan at width d
-    (csrc/wg_layout.cuh:smem_bytes for k-chunked rows, narrow_smem_bytes
-    for d <= 128, term for term; the library's torchpq_block_scan_wg_smem
-    reports the same). k-chunked: alignment slack, the ring's stages
-    (window and query tiles, penalties, two barriers; 3 to 6 stages by the
-    instance, wg_layout.cuh:ring_of), prober rows and tile flags, the
-    select's arrays. Narrow: alignment slack, the resident query buffers
-    [2][128][128 B] and their two barriers (two, or one for the deep
-    pack32 instance), the ring's stages (a window tile, penalties, two
+def wg_smem_bytes(pack32, k_pair, d=1024, dtype=torch.bfloat16):
+    """Dynamic shared memory of the warp-specialised scan at width d over a
+    `dtype` cache (bf16 or int8; csrc/wg_layout.cuh:smem_bytes for
+    k-chunked rows, narrow_smem_bytes for rows of at most 256 bytes, term
+    for term; the library's torchpq_block_scan_wg_smem /
+    torchpq_block_scan_wg_int8_smem report the same). k-chunked: alignment
+    slack, the ring's stages (window and query tiles, penalties, int8: the
+    columns' scales, two barriers; 3 to 6 stages by the instance,
+    wg_layout.cuh:ring_of), prober rows and tile flags, the select's
+    arrays. Narrow: alignment slack, the resident query buffers [2][128][128
+    B] and their two barriers (two, or one for the deep pack32 instance),
+    the ring's stages (a window tile, penalties, int8: scales, two
     barriers; 5 to 8 by the instance), prober rows and tile flags, the
     select's arrays."""
+    int8 = dtype == torch.int8
     head = _WG_SW_ATOM + 4 * _TC_MAX_PT + 4 * 8 \
         + _wg_select_bytes(pack32, k_pair)
-    if 2 * d <= _WG_NARROW_ROW:
-        _, ring, qbufs = wg_narrow_instance(pack32, k_pair)
+    scales = _WG_SCALE_BYTES if int8 else 0
+    if d * (1 if int8 else 2) <= _WG_NARROW_ROW:
+        _, ring, qbufs = wg_narrow_instance(pack32, k_pair, dtype)
         return head + qbufs * (_WG_QBUF_BYTES + 16) \
-            + ring * (_WG_STAGE_BYTES + 4 * _WG_BOX_ROWS + 16)
+            + ring * (_WG_STAGE_BYTES + 4 * _WG_BOX_ROWS + scales + 16)
     return head + wg_ring(pack32, k_pair) * (
-        2 * _WG_STAGE_BYTES + 4 * _WG_BOX_ROWS + 16)
+        2 * _WG_STAGE_BYTES + 4 * _WG_BOX_ROWS + scales + 16)
 
 
-def wg_narrow_instance(pack32, k_pair):
+def wg_narrow_instance(pack32, k_pair, dtype=torch.bfloat16):
     """(KMAX, ring stages, query buffers) of the narrow warp-specialised
-    instance that serves this select (csrc/block_scan_wg.cu's dispatch,
-    wg_layout.cuh:narrow_ring_of / narrow_qbufs_of): pack32 above k_pair 16
-    runs five stages and one query buffer, the others two buffers; every
-    pack32 instance extracts its phase ends pass by pass (KMAX 16)."""
+    instance that serves this select over a `dtype` cache
+    (csrc/block_scan_wg.cu's dispatch, wg_layout.cuh:narrow_ring_of /
+    narrow_qbufs_of): pack32 above k_pair 16 runs five stages and one query
+    buffer, the others two buffers; pack32 up to k_pair 16 eight stages
+    (int8: seven, its stages carrying the columns' scales); every pack32
+    instance extracts its phase ends pass by pass (KMAX 16)."""
     if pack32:
         if k_pair > 16:
             return 16, _WG_NRING_DEEP, _WG_NQB_DEEP
-        return 16, _WG_NRING_PACK_16, _WG_NQB
+        return 16, (_WG_NRING_PACK_16_I8 if dtype == torch.int8
+                    else _WG_NRING_PACK_16), _WG_NQB
     if k_pair <= 10:
         return 10, _WG_NRING_EXACT_10, _WG_NQB
     return 16, _WG_NRING_EXACT, _WG_NQB
@@ -554,16 +549,21 @@ def wg_narrow_instance(pack32, k_pair):
 def wg_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
     """Whether the warp-specialised scan (csrc/block_scan_wg.cu) takes these
     shapes: a bf16 cache with rows of d <= 1024, d % 8 == 0 (narrow
-    instances up to d = 128, k-chunked ones above); blocks, selects and
-    groups as tc_shapes_ok (_blocks_ok); its shared memory (wg_smem_bytes)
-    within the limit, which every such shape meets (the ring as deep as
-    the instance's largest k_pair lets it be: k-chunked, exact k_pair 10
-    227,952 B on five stages, pack32 k_pair 64 201,296 B on three; narrow,
-    exact k_pair 10 228,512 B on six, pack32 k_pair 64 218,752 B on
-    five)."""
-    return (dtype == torch.bfloat16 and d % 8 == 0 and 0 < d
-            and 2 * d <= _TC_MAX_CHUNKED_ROW_BF16
-            and wg_smem_bytes(pack32, k_pair, d) <= _SMEM_LIMIT
+    instances up to d = 128, k-chunked ones above), or an int8 cache with
+    rows of d <= 1024, d % 16 == 0 (narrow up to d = 256); blocks, selects
+    and groups as tc_shapes_ok (_blocks_ok); its shared memory
+    (wg_smem_bytes) within the limit, which every such shape meets (the
+    ring as deep as the instance's largest k_pair lets it be: k-chunked,
+    exact k_pair 10 227,952 B on five stages (int8 230,512 B), pack32
+    k_pair 64 201,296 B on three; narrow, exact k_pair 10 228,512 B on six
+    (int8 231,584 B), pack32 k_pair 64 218,752 B on five)."""
+    if dtype == torch.int8:
+        rows_ok = d % 16 == 0 and 0 < d <= _WG_MAX_ROW_I8
+    else:
+        rows_ok = (dtype == torch.bfloat16 and d % 8 == 0 and 0 < d
+                   and 2 * d <= _WG_MAX_ROW_BF16)
+    return (rows_ok
+            and wg_smem_bytes(pack32, k_pair, d, dtype) <= _SMEM_LIMIT
             and _blocks_ok(p_tile, s_eff, k_pair, pack32))
 
 
@@ -582,23 +582,17 @@ def _blocks_ok(p_tile, s_eff, k_pair, pack32):
         g <= _TC_TN if g == s_eff else g % _TC_TN == 0 and s_eff % g == 0)
 
 
-def tc_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
+def tc_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32):
     """Whether the mma.sync scans' body (csrc/scan_tc.cuh) takes these
-    shapes: rows of 16-byte pieces, bf16 up to 256 bytes (d <= 128, d % 8
-    == 0: the codes scan's decoded rows; the block scan's bf16 rows are
-    block_scan_wg.cu's) and int8 up to 1,024
-    (d <= 1024, d % 16 == 0; above 256 bytes in k chunks); the blocks and
-    selects of _blocks_ok; and the route's shared memory (tc_route_smem)
-    within the limit, which every such shape meets: pack32 k_pair 64 takes
-    172,064 B at bf16 d 128, 173,088 B at int8 d 256, and 209,440 B over
-    chunked int8 rows of any width, one running list there."""
-    rb = d * (1 if dtype == torch.int8 else 2)
-    return (rb % 16 == 0
-            and rb <= (_TC_MAX_CHUNKED_ROW if dtype == torch.int8
-                       else _TC_MAX_ROW)
+    shapes of bf16 rows in registers: rows of 16-byte pieces up to 256
+    bytes (d <= 128, d % 8 == 0: the codes scan's decoded rows and the
+    deep selects of tc_deep_ok); the blocks and selects of _blocks_ok; and
+    the route's shared memory (tc_route_smem) within the limit, which every
+    such shape meets: pack32 k_pair 64 takes 172,064 B at d 128."""
+    return (d % 8 == 0 and 0 < 2 * d <= _TC_MAX_ROW
             and _blocks_ok(p_tile, s_eff, k_pair, pack32)
-            and tc_route_smem(d=d, pack32=pack32, k_pair=k_pair,
-                              dtype=dtype) <= _SMEM_LIMIT)
+            and tc_route_smem(d=d, pack32=pack32, k_pair=k_pair)
+            <= _SMEM_LIMIT)
 
 
 def phase_tiles(s_eff, k_pair):
@@ -610,53 +604,55 @@ def phase_tiles(s_eff, k_pair):
 
 
 def tc_deep_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
-    """Whether these shapes stay on the mma.sync scan (csrc/block_scan_tc.cu,
-    sorted phase ends): a bf16 cache of d <= 128, pack32 above k_pair 16
-    (the deep selects) whose phases cover fewer than 8 window tiles, within
-    tc_shapes_ok. Timed in turns with the narrow wgmma instances on the
-    scans' own arguments (PERF.md, PR 19): there the narrow instances'
-    passes over 32 group maxima a lane cost more than their faster tiles
-    save (the untapered deep-k scan, 2 tiles a phase, 5.039 against 6.423
-    ms; IVFPQR k = 100, 4, 3.002 against 3.314; residual k = 100, 5, 1.542
-    against 1.600), and at 8 (the deep-k head) they win, 1.587 against
-    1.718 (NVIDIA H100 80GB HBM3, 700.00 W)."""
+    """Whether these shapes stay on csrc/block_scan_tc.cu (mma.sync, sorted
+    phase ends): a bf16 cache of d <= 128, pack32 above k_pair 16 (the deep
+    selects) whose phases cover fewer than 8 window tiles, within
+    tc_shapes_ok. Timed in turns with the narrow wgmma instances, where the
+    narrow instances' passes over 32 group maxima a lane cost more than
+    their faster tiles save, on the scans' own arguments (PERF.md §6,
+    chip_smoke.py --parent): the untapered deep-k scan, 2 tiles a phase,
+    5.039 against 6.423 ms; IVFPQR k = 100, 4, 3.002 against 3.314;
+    residual k = 100, 5, 1.542 against 1.600; at 8 (the deep-k head) the
+    wgmma instance wins, 1.587 against 1.718 (NVIDIA H100 80GB HBM3,
+    700.00 W). int8 caches take no such rule: no workload runs an int8
+    deep select of a short phase, so every int8 shape stays on
+    block_scan_wg.cu."""
     return (dtype == torch.bfloat16 and pack32 and k_pair > 16
-            and 2 * d <= _TC_MAX_ROW
             and phase_tiles(s_eff, k_pair) < _WGN_DEEP_PHASE_TILES
             and tc_shapes_ok(d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair,
-                             pack32=pack32, dtype=dtype))
+                             pack32=pack32))
 
 
 def pick_route(*, dtype, d, p_tile, s_eff, k_pair, pack32):
     """The kernel that serves a scan of these shapes, which is also its key
     in `launches`:
-      - "tc_wgn_exact" / "tc_wgn_pack32" (`csrc/block_scan_wg.cu`'s narrow
-        instances, wgmma and TMA, the query rows resident): a bf16 cache
-        at the shapes of `wg_shapes_ok` with d <= 128;
-      - "tc_wg_exact" / "tc_wg_pack32" (`csrc/block_scan_wg.cu`'s k-chunked
-        instances): a bf16 cache at the shapes of `wg_shapes_ok` with 128
-        < d <= 1024;
-      - "tc_pack32" (`csrc/block_scan_tc.cu`, mma.sync): the narrow deep
-        pack32 shapes of `tc_deep_ok`, taken before the narrow route;
-      - "tc_int8_exact" / "tc_int8_pack32" (`csrc/block_scan_tc_int8.cu`,
-        tensor cores): an int8 cache at the shapes of `tc_shapes_ok`;
+      - "tc_wgn_exact" / "tc_wgn_pack32" and "tc_wgn_int8_exact" /
+        "tc_wgn_int8_pack32" (`csrc/block_scan_wg.cu`'s narrow instances,
+        wgmma and TMA, the query rows resident): a bf16 or int8 cache at
+        the shapes of `wg_shapes_ok` with rows of at most 256 bytes (bf16
+        d <= 128, int8 d <= 256);
+      - "tc_wg_exact" / "tc_wg_pack32" and "tc_wg_int8_exact" /
+        "tc_wg_int8_pack32" (`csrc/block_scan_wg.cu`'s k-chunked
+        instances): the same with wider rows, up to d = 1024;
+      - "tc_pack32" (`csrc/block_scan_tc.cu`, mma.sync): the bf16 narrow
+        deep pack32 shapes of `tc_deep_ok`, taken before the narrow route;
       - "exact" / "pack32" (`csrc/block_scan.cu`, CUDA cores): f32 caches
         and the bf16 shapes above it does not take (rows over 2,048 bytes,
         exact k_pair > 16, other blocks or groups);
       - "int8_exact" / "int8_pack32" (`csrc/block_scan.cu`): the int8
-        shapes the tensor-core kernel does not take."""
-    mode = "pack32" if pack32 else "exact"
+        shapes the tensor-core kernels do not take (rows over 1,024 bytes
+        or not of 16-byte pieces, exact k_pair > 16, other blocks or
+        groups)."""
+    mode = ("int8_" if dtype == torch.int8 else "") + (
+        "pack32" if pack32 else "exact")
     if tc_deep_ok(d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair,
                   pack32=pack32, dtype=dtype):
-        return "tc_pack32"
+        return "tc_" + mode
     if wg_shapes_ok(d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair,
                     pack32=pack32, dtype=dtype):
-        return ("tc_wgn_" if 2 * d <= _WG_NARROW_ROW else "tc_wg_") + mode
-    tc = dtype == torch.int8 and tc_shapes_ok(
-        d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair, pack32=pack32,
-        dtype=dtype)
-    return ("tc_" if tc else "") + ("int8_" if dtype == torch.int8
-                                    else "") + mode
+        rb = d * (1 if dtype == torch.int8 else 2)
+        return ("tc_wgn_" if rb <= _WG_NARROW_ROW else "tc_wg_") + mode
+    return mode
 
 
 def block_scan(qtable, probers, start_c, off, cap, penalty, decoded, *,
@@ -725,9 +721,8 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
     route = route or best
     int8 = decoded.dtype == torch.int8
     kind = "int8_" + mode if int8 else mode
-    if route not in ((kind, "tc_" + kind) if int8 else
-                     (kind, "tc_wg_" + kind, "tc_wgn_" + kind)
-                     + (("tc_pack32",) if pack32 else ())):
+    if route not in ((kind, "tc_wg_" + kind, "tc_wgn_" + kind)
+                     + (("tc_" + kind,) if pack32 and not int8 else ())):
         raise ValueError(f"route {route!r} does not serve the {mode} select "
                          f"of a {decoded.dtype} cache")
     if route.startswith("tc_") and best != route:
@@ -744,36 +739,37 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
         raise ValueError("the tensor-core block scans copy 16-byte pieces: "
                          "qtable and decoded must be 16-byte aligned")
     if route.startswith(("tc_wg_", "tc_wgn_")):
+        name = "torchpq_block_scan_wg" + ("_int8" if int8 else "")
         if n_ctas is None:
-            n_ctas = resident_ctas(lib, "torchpq_block_scan_wg_occupancy",
-                                   decoded.device, d, int(pack32), k_pair)
-        rc = lib.torchpq_block_scan_wg(
-            qtable.data_ptr(), probers.data_ptr(), start_c.data_ptr(),
-            off.data_ptr(), cap.data_ptr(), penalty.data_ptr(),
-            decoded.data_ptr(), out.data_ptr(), b, p_tile, d,
-            decoded.shape[0], s_eff, k_pair, int(euclidean), int(pack32),
-            slot_mask, groups, min(n_ctas, b), ctypes.c_void_p(stream))
+            n_ctas = resident_ctas(lib, name + "_occupancy", decoded.device,
+                                   d, int(pack32), k_pair)
+        rows = (decoded.data_ptr(), out.data_ptr(), b, p_tile, d,
+                decoded.shape[0], s_eff, k_pair, int(euclidean), int(pack32),
+                slot_mask, groups, min(n_ctas, b), ctypes.c_void_p(stream))
+        if int8:
+            rc = lib.torchpq_block_scan_wg_int8(
+                qtable.data_ptr(), q_scale.data_ptr(), probers.data_ptr(),
+                start_c.data_ptr(), off.data_ptr(), cap.data_ptr(),
+                penalty.data_ptr(), scale.data_ptr(), *rows)
+        else:
+            rc = lib.torchpq_block_scan_wg(
+                qtable.data_ptr(), probers.data_ptr(), start_c.data_ptr(),
+                off.data_ptr(), cap.data_ptr(), penalty.data_ptr(), *rows)
     elif route.startswith("tc_"):
-        name = "torchpq_block_scan_tc" + ("_int8" if int8 else "")
-        if getattr(lib, name + "_smem")(d, int(pack32), k_pair) \
+        name = "torchpq_block_scan_tc"
+        if lib.torchpq_block_scan_tc_smem(d, int(pack32), k_pair) \
                 > _SMEM_LIMIT:
             raise ValueError(f"{name}: shared memory exceeds the limit at "
                              f"d={d}, k_pair={k_pair}")
         if n_ctas is None:
             n_ctas = resident_ctas(lib, name + "_occupancy", decoded.device,
                                    d, int(pack32), k_pair)
-        rows = (decoded.data_ptr(), out.data_ptr(), b, p_tile, d, s_eff,
-                k_pair, int(euclidean), int(pack32), slot_mask, groups,
-                min(n_ctas, b), ctypes.c_void_p(stream))
-        if int8:
-            rc = lib.torchpq_block_scan_tc_int8(
-                qtable.data_ptr(), q_scale.data_ptr(), probers.data_ptr(),
-                start_c.data_ptr(), off.data_ptr(), cap.data_ptr(),
-                penalty.data_ptr(), scale.data_ptr(), *rows)
-        else:
-            rc = lib.torchpq_block_scan_tc(
-                qtable.data_ptr(), probers.data_ptr(), start_c.data_ptr(),
-                off.data_ptr(), cap.data_ptr(), penalty.data_ptr(), *rows)
+        rc = lib.torchpq_block_scan_tc(
+            qtable.data_ptr(), probers.data_ptr(), start_c.data_ptr(),
+            off.data_ptr(), cap.data_ptr(), penalty.data_ptr(),
+            decoded.data_ptr(), out.data_ptr(), b, p_tile, d, s_eff, k_pair,
+            int(euclidean), int(pack32), slot_mask, groups, min(n_ctas, b),
+            ctypes.c_void_p(stream))
     elif int8:
         if d % 16 or qtable.data_ptr() % 16 or decoded.data_ptr() % 16:
             raise ValueError(f"int8 block scan kernel needs d % 16 == 0 "

@@ -240,8 +240,7 @@ def tc_smem_bytes(*, m, dsub, pack32, k_pair):
     d = m * dsub
     deep = bool(pack32) and k_pair > _TC_DEEP_PACK_K
     return (512 * d + (_TC_TN * m if deep else 0)
-            + body_smem_bytes(2 * d, pack32, k_pair, False, False,
-                              one_tile=deep))
+            + body_smem_bytes(2 * d, pack32, k_pair, one_tile=deep))
 
 
 def _cta_probers(lib, p_tile, d, pack32, groups):
@@ -260,8 +259,8 @@ def pick_route(*, m, dsub, p_tile, s_eff, k_pair, pack32):
     in `launches`:
       - "tc_exact" / "tc_pack32" (`csrc/codes_scan_tc.cu`, tensor cores):
         m a power of two (the packed storage's, g*m = 128) and d = m*dsub
-        <= 128 (bf16 rows the body's A registers hold: the decode source
-        walks no k chunks) at the shapes of `block_scan.tc_shapes_ok`
+        <= 128 (bf16 rows the body's A registers hold) at the shapes of
+        `block_scan.tc_shapes_ok`
         (pack32 k_pair <= 64), where the instance's shared memory
         (`tc_smem_bytes`: the codebook beside the body) fits;
       - "exact" / "pack32" (`csrc/codes_scan.cu`, CUDA cores): the rest
