@@ -3,22 +3,23 @@
 
     python3 chip_smoke.py                 # the full run, as below
     python3 chip_smoke.py --kernels-only  # phases 1-3 only, no result line
-    python3 chip_smoke.py --parent DIR    # and, on each int8 row, DIR's
-        # csrc/block_scan_tc_int8.cu (a checkout of a tree whose int8
-        # scans ran on mma.sync), where DIR holds it, timed in turns with
-        # the wgmma route; on each narrow bf16 row DIR's
-        # csrc/block_scan_tc.cu where it takes the row's shapes
+    python3 chip_smoke.py --parent DIR    # and, on each codes row, DIR's
+        # csrc/codes_scan_tc.cu (a checkout of a tree whose codes scans
+        # ran on mma.sync) timed in turns with the row's route; on each
+        # narrow bf16 row DIR's csrc/block_scan_tc.cu where it takes the
+        # row's shapes
 
 Phases, each of which fails the run on error:
   1. device: a CUDA card is required (no CPU continuation); prints its name
      and `nvidia-smi` name + power limit.
   2. build: compiles the kernels from `torchpq_tpu_torch/csrc` with nvcc;
      the ptxas report of CHECKED_KERNELS' instances must show no spill
-     and no stack frame, and each of the eighteen warp-specialised
-     instances (block_scan_wg.cu, bf16 and int8, narrow and k-chunked)
-     must hold warpgroup products (bf16 HGMMA, int8 IGMMA) and UTMALDG
-     instructions in its SASS (cuobjdump -sass; counts logged and in the
-     kernels line).
+     and no stack frame, and each of the twenty-two warp-specialised
+     instances (block_scan_wg.cu, bf16 and int8, narrow and k-chunked, and
+     the four codes instances) must hold warpgroup products (bf16 HGMMA,
+     int8 IGMMA) and, but the codes ones (their producer decodes the
+     window), UTMALDG instructions in its SASS (cuobjdump -sass; counts
+     logged and in the kernels line).
   3. kernel vs plain on seeded inputs: the bf16 block-scan kernel (the
      narrow warp-specialised instances, keys "tc_wgn_exact" /
      "tc_wgn_pack32", at d <= 128; pack32 above k_pair 16 whose phases
@@ -38,13 +39,15 @@ Phases, each of which fails the run on error:
      10, 1024 blocks, 8 live probers a block and random liveness) within
      tolerance, pad rows dead, timed in turns with block_scan.cu (logged);
      then the f32-cache kernel (CUDA cores);
-     then the tensor-core codes-scan kernel against `codes_scan_ref` (PQ64
-     codes, s_eff 1024, 1024 blocks), both selects, live rows within
-     tolerance and pad rows dead, and bit for bit on integer-valued inputs
-     with ties (PQ64 and PQ8, euclidean and inner, pack32 also at k_pair
-     40 over 512 strided groups, and the deep instance at k_pair 52 and
-     64 over 512 for PQ64 and the 4-bit byte pairs); on each of those
-     inputs the CUDA-core
+     then the tensor-core codes-scan kernels against `codes_scan_ref` (PQ64
+     codes, s_eff 1024, 1024 blocks: the wgmma codes instances of
+     block_scan_wg.cu), both selects, live rows within tolerance and pad
+     rows dead, and bit for bit on integer-valued inputs with ties (PQ64,
+     PQ8, PQ128 (two raw passes), the 4-bit byte pairs and PQ8 of dsub 9
+     (a ragged second k half), euclidean and inner, exact k_pair 10 and
+     16, pack32 k_pair 10 and 20 on the wgmma instances, and the sorted
+     mma.sync instance at k_pair 40, 52 and 64 over 512 groups); on each
+     of those inputs the CUDA-core
      codes kernel too, every row (bit for bit on integer inputs, equal
      exact values and >= 0.9999 of pack32 keys on random ones); then the
      block scan's int8 mode at d 128 and 1024 (random inputs) and 16, 128,
@@ -101,15 +104,16 @@ Phases, each of which fails the run on error:
      with the same floors; the exact n_probe=8 result must equal the main
      index's, and the flat result must agree with the main flat result
      (ids >= 0.99, recall within 0.005: the codes sweep rounds the query to
-     bf16). Both selects must have launched on the tensor-core codes kernel
-     and the CUDA-core one never. Then, on the codes-scan arguments of the
+     bf16). Both selects must have launched on the wgmma codes instances
+     ("tc_wgn_exact" / "tc_wgn_pack32") and no other codes route. Then, on the codes-scan arguments of the
      exact n_probe=8 and pack32 n_probe=32 searches, the tensor-core kernel
      against `codes_scan_ref` and against the tensor-core block-scan
      kernel over the decoded bf16 rows (live rows, tolerances; pad rows
      dead), the
      CUDA-core codes kernel against `codes_scan_ref` (every row, equal
      exact values, pack32 keys >= 0.9999), and the search's own select
-     timed on both codes kernels in turns.
+     timed on both codes kernels in turns (with --parent, the parent's
+     mma.sync codes kernel in turns too).
   8. int8 tier: an index with scan_cache_dtype="int8" takes the same
      trained codecs and adds; device bytes logged; the block scan's
      counters zeroed, the five plans run (every plan's recall@10 within
@@ -119,8 +123,7 @@ Phases, each of which fails the run on error:
      on the int8 searches' own arguments (exact n_probe 8, pack32 n_probe
      32), bit for bit (the tensor-core one on live rows, pad rows dead),
      and the select each search ran timed on both in turns (TOP/s over
-     live probers and live 16-prober tiles; with --parent, the parent's
-     mma.sync int8 kernel in turns too).
+     live probers and live 16-prober tiles).
   9. deep-k: the JAX package's k = 100 configuration
      (benchmark/results/ivf4096_pq64_sift1m_deepk_r6_g8c64kp64t8_16.json:
      spill 8 cells at capacity 2 x n / n_cells = 512, supercells of 8, a
@@ -152,7 +155,7 @@ Phases, each of which fails the run on error:
      n_probe; the all-cells probe against the flat sweep; the pack32 scan
      against `block_scan_ref` on its search's own arguments, timed in
      turns. Then the code domain at 4 bits (pack group 4, no spill or
-     supercells): its plans must launch only the tensor-core codes kernel
+     supercells): its plans must launch only the wgmma codes instances
      (32 byte pairs over the byte-pair codebook, dsub 4); a 4-bit bf16
      index of the main layout runs the slice's plans, each recall@10 below
      the 8-bit tier's, and holds the code domain's exact n_probe 8 and flat
@@ -185,13 +188,16 @@ Phases, each of which fails the run on error:
  13. IVFPQR, code domain (the record's _codes twin: scan_cache_dtype
      "none", initial_mult 3): flat and pack32 n_probe 8/32 at k = 10 (the
      base codes scan at k' 40) and k = 100 (k' 400: k_pair 64 / 52, the
-     deep instance), each plan's codes-scan counters zeroed before and
-     read after: the tensor-core codes kernel only; recall within 0.02 of
+     sorted mma.sync instance), each plan's codes-scan counters zeroed
+     before and read after: the wgmma codes instances only at k = 10
+     ("tc_wgn_pack32"), the sorted instance only at k = 100 ("tc_pack32");
+     recall within 0.02 of
      the cached tier's exact select over the same cells (its pack32 plans
      over supercells logged beside); the n_probe 32 scans and the k = 100
      n_probe 8 one held to codes_scan_ref on their own arguments (live
      rows, pad rows dead) and timed in turns with the CUDA-core
-     codes_scan.cu; both k = 100 plans profiled.
+     codes_scan.cu (and, with --parent, the parent's mma.sync codes
+     kernel); both k = 100 plans profiled.
  14. FlatIndex at 1M x 128 f32 (the slice's base and 10k queries), k = 10
      and 100, at the search precision "highest" (IEEE f32, the exact
      index): ids against the exact ground truth (>= 0.999), ms per batch
@@ -343,8 +349,8 @@ Phases, each of which fails the run on error:
      warp-specialised route, as every int8 row and every bf16 block-scan
      row but the bf16 mma.sync deep selects are: its launch key, the instance
      and its SASS counts of HGMMA or IGMMA and UTMALDG; with --parent, the
-     parent's mma.sync times in turns on the int8 rows and on the narrow
-     bf16 rows it takes); the
+     parent's mma.sync times in turns on the narrow bf16 rows it takes and
+     on every codes row); the
      deep-k
      split's head and tail scans and the
      untapered plan's scan; the 4-bit tier's pack32 block scan and both
@@ -378,31 +384,48 @@ TOL_ABS = 1e-3
 F32_UNIT = 2.0 ** -23
 
 
-# the deep tensor-core codes instance (pack32 k_pair 49-64), by the name
+# the sorted mma.sync codes instance (codes_scan_tc.cu: pack32 k_pair
+# 49-64, and 17-48 where the wgmma codes instances do not fit), by the name
 # kernel_name gives its mangled one
 DEEP_CODES_KERNEL = "codes_scan_tc_kernelILb1ELi64E"
 # the instances whose ptxas report must show no spill and no stack frame:
-# the deep codes instance and the block scan's eighteen warp-specialised
-# instances (block_scan_wg.cu <PACK,
-# KMAX, ring stages, query buffers, int8>, bf16 and int8 alike: over
-# k-chunked rows exact 10 / 16 on 5 / 4 stages, pack32 on 6, 4 and 3; over
-# narrow rows (at most 256 bytes) exact 10 / 16 on 6 / 5, pack32 on 8
-# (int8: 7) and, above k_pair 16, on 5 with one query buffer)
+# the sorted codes instance and block_scan_wg.cu's twenty-two
+# warp-specialised instances (<PACK, KMAX, ring stages, query buffers,
+# int8, codes>: bf16 and int8 alike over k-chunked rows exact 10 / 16 on 5
+# / 4 stages, pack32 on 6, 4 and 3; over narrow rows (at most 256 bytes)
+# exact 10 / 16 on 6 / 5, pack32 on 8 (int8: 7) and, above k_pair 16, on
+# 5 with one query buffer; the codes instances, one query buffer, exact 10
+# / 16 on 3 stages, pack32 on 5 and, above k_pair 16, on 4)
 CHECKED_KERNELS = re.compile(
     r"codes_scan_tc_kernelILb1ELi64E$|block_scan_wg_kernelI\w*E$")
-N_CHECKED_KERNELS = 19
-# the warp-specialised instances (nine bf16, nine int8), each of which
-# must hold warpgroup products (bf16: HGMMA; int8, template argument I8 =
-# true, "Lb1E" last: IGMMA, the integer form) and TMA loads (UTMALDG) in
-# its SASS
+N_CHECKED_KERNELS = 23
+# the warp-specialised instances (nine bf16, nine int8, four codes), each
+# of which must hold warpgroup products (bf16: HGMMA; int8, template
+# argument I8 = true: IGMMA, the integer form) and, but the codes ones
+# (CODES = true, the last argument: the producer decodes the window), TMA
+# loads (UTMALDG) in its SASS
 WG_KERNEL = re.compile(r"block_scan_wg_kernelI\w*E$")
-N_WG_KERNELS = 18
+N_WG_KERNELS = 22
 WG_OPS = ("HGMMA", "IGMMA", "UTMALDG")
+# the codes routes: the wgmma codes instances (block_scan_wg.cu) that the
+# code-domain, 4-bit and pqr3_codes k = 10 plans must take, and the sorted
+# mma.sync instance (codes_scan_tc.cu) of the pqr3_codes k = 100 plans
+CODES_WG_KEYS = ("tc_wgn_exact", "tc_wgn_pack32")
+CODES_DEEP_KEY = "tc_pack32"
 
 
 def wg_ops(fn):
     """The SASS ops a warp-specialised instance must hold."""
-    return ("IGMMA" if fn.endswith("Lb1E") else "HGMMA", "UTMALDG")
+    if fn.endswith("Lb1E"):  # codes
+        return ("HGMMA",)
+    return ("IGMMA" if fn.endswith("Lb1ELb0E") else "HGMMA", "UTMALDG")
+
+
+def codes_source(route):
+    """The source of a codes-scan route's kernel."""
+    return "torchpq_tpu_torch/csrc/" + (
+        "block_scan_wg.cu" if route.startswith("tc_wgn_") else
+        "codes_scan_tc.cu" if route.startswith("tc_") else "codes_scan.cu")
 
 
 # per instance: its SASS counts of WG_OPS (main, from cuobjdump)
@@ -877,93 +900,120 @@ def wg_instance(pack32, k_pair, d, int8=False):
         kmax, ring, qbufs = (16 if pack32 or k_pair > 10 else 10,
                              bs.wg_ring(pack32, k_pair), 0)
     return (f"block_scan_wg_kernelILb{int(bool(pack32))}ELi{kmax}ELi{ring}"
-            f"ELi{qbufs}ELb{int(bool(int8))}E")
+            f"ELi{qbufs}ELb{int(bool(int8))}ELb0E")
 
 
-# --parent DIR: the parent tree's mma.sync block scans, built from DIR and
-# timed in turns with the warp-specialised route on each row's own
-# arguments: csrc/block_scan_tc_int8.cu on every int8 row (the int8 rows'
-# kernel before block_scan_wg.cu took them), and csrc/block_scan_tc.cu on
-# the narrow bf16 rows whose shapes it still takes, each where DIR holds
-# it; empty without --parent
+def codes_instance(pack32, k_pair):
+    """The wgmma codes instance (kernel_name) a codes launch of this select
+    runs (block_scan_wg.cu's codes dispatch: one query buffer; exact 3
+    stages, pack32 5 up to k_pair 16, 4 above)."""
+    from torchpq_tpu_torch.ops import codes_scan as cs
+    kmax = 16 if pack32 or k_pair > 10 else 10
+    return (f"block_scan_wg_kernelILb{int(bool(pack32))}ELi{kmax}ELi"
+            f"{cs.wg_ring(pack32, k_pair)}ELi{cs._WG_CQB}ELb0ELb1E")
+
+
+# --parent DIR: the parent tree's mma.sync scans, built from DIR and timed
+# in turns with this tree's route on each row's own arguments:
+# csrc/codes_scan_tc.cu on every codes row (the codes rows' kernel before
+# block_scan_wg.cu's codes instances took its shallow selects), and
+# csrc/block_scan_tc.cu on the narrow bf16 rows whose shapes it still
+# takes, each where DIR holds it; empty without --parent
 PARENT = {}
 # the parent's sources: (file, its entry point's argument types, as
-# (pointers, ints) before the stream)
+# (pointers, ints) before the stream, its occupancy entry's ints)
 PARENT_SOURCES = {"bf16": ("block_scan_tc.cu", "torchpq_block_scan_tc",
-                           (8, 10)),
-                  "int8": ("block_scan_tc_int8.cu",
-                           "torchpq_block_scan_tc_int8", (10, 10))}
+                           (8, 10), 3),
+                  "codes": ("codes_scan_tc.cu", "torchpq_codes_scan_tc",
+                            (9, 12), 4)}
 
 
 def build_parent(_build, root):
-    """The mma.sync block scans of the tree at `root` (PARENT_SOURCES that
-    it holds, at least one), each built with the package's nvcc flags into
+    """The mma.sync scans of the tree at `root` (PARENT_SOURCES that it
+    holds, at least one), each built with the package's nvcc flags into
     build/parent/ and bound with ctypes (its entry point and occupancy)."""
     import ctypes
     csrc = Path(root).resolve() / "torchpq_tpu_torch" / "csrc"
-    if not any((csrc / f).exists() for f, _, _ in PARENT_SOURCES.values()):
+    if not any((csrc / f[0]).exists() for f in PARENT_SOURCES.values()):
         fail(f"--parent: {csrc} holds none of "
-             f"{[f for f, _, _ in PARENT_SOURCES.values()]}")
+             f"{[f[0] for f in PARENT_SOURCES.values()]}")
     out = Path("build/parent")
     out.mkdir(parents=True, exist_ok=True)
     p, i = ctypes.c_void_p, ctypes.c_int
     jobs = {}
-    for kind, (fname, entry, (n_ptr, n_int)) in PARENT_SOURCES.items():
+    for kind, (fname, entry, (n_ptr, n_int), n_occ) in \
+            PARENT_SOURCES.items():
         src = csrc / fname
         if not src.exists():
             continue
         so = out / f"libparent_{src.stem}.so"
-        jobs[kind] = (src, so, entry, n_ptr, n_int, subprocess.Popen(
+        jobs[kind] = (src, so, entry, n_ptr, n_int, n_occ, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", f"-I{csrc}",
              str(src), "-o", str(so), *_build.LINK_FLAGS],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for kind, (src, so, entry, n_ptr, n_int, proc) in jobs.items():
+    for kind, (src, so, entry, n_ptr, n_int, n_occ, proc) in jobs.items():
         text = proc.communicate()[0]
         if proc.returncode != 0:
             fail(f"--parent: nvcc failed on {src}:\n{text}")
         lib = ctypes.CDLL(str(so))
         getattr(lib, entry).argtypes = [p] * n_ptr + [i] * n_int + [p]
         getattr(lib, entry).restype = i
-        getattr(lib, entry + "_occupancy").argtypes = [i] * 3
+        getattr(lib, entry + "_occupancy").argtypes = [i] * n_occ
         getattr(lib, entry + "_occupancy").restype = i
         PARENT[kind] = (lib, entry)
         log(f"--parent: built {src} -> {so}")
 
 
+def parent_turns(torch, args, out, launch, new, what, source):
+    """The parent's kernel (launch(), its CUDA return code) and this tree's
+    route (new(), its output) in turns (parent, new, new, parent; 5
+    launches a turn, none counted), with the share of live entries the
+    two outputs hold equal; returns the row's fields (mma_sync_ms and its
+    turns)."""
+    def run():
+        rc = launch()
+        if rc != 0:
+            fail(f"{what}: the parent's {source} launch failed: CUDA error "
+                 f"{rc}")
+
+    run()
+    live = args[1] >= 0
+    agree = share_equal(out[live], new()[live])
+    t, turns = in_turns(torch, {"mma_sync": run, "new": new}, 5)
+    log(f"  {what}: in turns, the parent's {source} (mma.sync) "
+        f"{t['mma_sync']:.3f} ms "
+        f"({' / '.join(f'{x:.3f}' for x in turns['mma_sync'])}), this tree "
+        f"{t['new']:.3f} ms ({' / '.join(f'{x:.3f}' for x in turns['new'])})"
+        f", {t['mma_sync'] / t['new']:.2f}x; live entries equal "
+        f"{agree:.6f}")
+    return dict(mma_sync_ms=t["mma_sync"], mma_sync_turns=turns["mma_sync"],
+                new_turns=turns["new"], mma_sync_source=source,
+                live_equal=agree)
+
+
 def mma_sync_turns(torch, bs, args, kkw, route, what):
-    """With --parent, a row's arguments (its select kkw; int8 where kkw
-    holds the scales) on the parent's mma.sync kernel and on `route` in
-    turns (mma.sync, wgmma, wgmma, mma.sync; 5 launches a turn, none
-    counted), with the share of live entries the two outputs hold equal;
-    returns the row's fields (mma_sync_ms and its turns). {} without
-    --parent, on a route other than a narrow bf16 or an int8
-    warp-specialised one, or on a bf16 row whose shapes the parent's
-    block_scan_tc.cu does not take (logged)."""
-    int8 = kkw.get("scale") is not None
-    kind = "int8" if int8 else "bf16"
-    if kind not in PARENT or not (
-            is_wg(route) if int8 else route.startswith("tc_wgn_")):
+    """With --parent, a narrow bf16 row's arguments (its select kkw) on the
+    parent's mma.sync block_scan_tc.cu and on `route` in turns
+    (parent_turns); {} without --parent, on another route, or where the
+    parent's kernel does not take the row's shapes (logged)."""
+    if "bf16" not in PARENT or not route.startswith("tc_wgn_") \
+            or kkw.get("scale") is not None:
         return {}
-    lib, entry = PARENT[kind]
+    lib, entry = PARENT["bf16"]
     b, p_tile = args[1].shape
     d = args[6].shape[1]
     pack32, k_pair = kkw["pack32"], kkw["k_pair"]
     groups = bs.n_groups(kkw["s_eff"], k_pair) if pack32 else 0
     per_sm = getattr(lib, entry + "_occupancy")(d, int(pack32), k_pair)
     if per_sm <= 0:
-        if not int8:
-            log(f"  {what}: the parent's block_scan_tc.cu does not take "
-                f"these shapes (occupancy {per_sm})")
-            return {}
-        fail(f"{what}: the parent's occupancy query failed ({per_sm})")
+        log(f"  {what}: the parent's block_scan_tc.cu does not take these "
+            f"shapes (occupancy {per_sm})")
+        return {}
     n_ctas = min(b, per_sm * torch.cuda.get_device_properties(
         args[6].device).multi_processor_count)
     out = torch.empty((b, p_tile, k_pair if pack32 else 2 * k_pair),
                       dtype=torch.int32, device=args[6].device)
     ptrs = [t.data_ptr() for t in args]
-    if int8:  # the entry's order: q8, q_scale, ..., penalty, scale, y8
-        ptrs = ptrs[:1] + [kkw["q_scale"].data_ptr()] + ptrs[1:6] + [
-            kkw["scale"].data_ptr(), ptrs[6]]
 
     def launch():
         return getattr(lib, entry)(
@@ -971,33 +1021,49 @@ def mma_sync_turns(torch, bs, args, kkw, route, what):
             int(kkw["euclidean"]), int(pack32), kkw["slot_mask"], groups,
             n_ctas, torch.cuda.current_stream().cuda_stream)
 
-    def run():
-        rc = launch()
-        if rc != 0:
-            fail(f"{what}: the parent's {entry} launch failed: CUDA error "
-                 f"{rc}")
-
-    rc = launch()
-    if rc != 0 and not int8:
+    if launch() != 0:
         log(f"  {what}: the parent's block_scan_tc.cu does not take these "
-            f"shapes (CUDA error {rc})")
+            "shapes")
         return {}
-    run()
-    live = args[1] >= 0
-    agree = share_equal(out[live], block_launch(torch, bs, args, route,
-                                                **kkw)[live])
-    t, turns = in_turns(torch, {
-        "mma_sync": run,
-        route: lambda: block_launch(torch, bs, args, route, **kkw)}, 5)
-    log(f"  {what}: in turns, the parent's {PARENT_SOURCES[kind][0]} "
-        f"(mma.sync) {t['mma_sync']:.3f} ms "
-        f"({' / '.join(f'{x:.3f}' for x in turns['mma_sync'])}), {route} "
-        f"{t[route]:.3f} ms ({' / '.join(f'{x:.3f}' for x in turns[route])})"
-        f", {t['mma_sync'] / t[route]:.2f}x; live entries equal "
-        f"{agree:.6f}")
-    return dict(mma_sync_ms=t["mma_sync"], mma_sync_turns=turns["mma_sync"],
-                wgmma_turns=turns[route],
-                mma_sync_source=PARENT_SOURCES[kind][0])
+    return parent_turns(
+        torch, args, out, launch,
+        lambda: block_launch(torch, bs, args, route, **kkw), what,
+        PARENT_SOURCES["bf16"][0])
+
+
+def codes_parent_turns(torch, bs, cs, args, kkw, route, what):
+    """With --parent, a codes row's arguments (its select kkw) on the
+    parent's mma.sync codes_scan_tc.cu and on `route` in turns
+    (parent_turns); {} without --parent. Fails where the parent's kernel
+    refuses the row's shapes (it took every codes row's)."""
+    if "codes" not in PARENT:
+        return {}
+    lib, entry = PARENT["codes"]
+    b, p_tile = args[1].shape
+    m, _, dsub = args[7].shape
+    pack32, k_pair = kkw["pack32"], kkw["k_pair"]
+    groups = bs.n_groups(kkw["s_eff"], k_pair) if pack32 else 0
+    per_sm = getattr(lib, entry + "_occupancy")(m, dsub, int(pack32), k_pair)
+    if per_sm <= 0:
+        fail(f"{what}: the parent's codes_scan_tc.cu occupancy query failed "
+             f"({per_sm})")
+    n_ctas = min(b, per_sm * torch.cuda.get_device_properties(
+        args[6].device).multi_processor_count)
+    out = torch.empty((b, p_tile, k_pair if pack32 else 2 * k_pair),
+                      dtype=torch.int32, device=args[6].device)
+    ptrs = [t.data_ptr() for t in args]
+
+    def launch():
+        return getattr(lib, entry)(
+            *ptrs, out.data_ptr(), b, p_tile, m, dsub, args[6].shape[1] // m,
+            kkw["s_eff"], k_pair, int(kkw["euclidean"]), int(pack32),
+            kkw["slot_mask"], groups, n_ctas,
+            torch.cuda.current_stream().cuda_stream)
+
+    return parent_turns(
+        torch, args, out, launch,
+        lambda: codes_launch(torch, cs, args, route, **kkw), what,
+        PARENT_SOURCES["codes"][0])
 
 
 def sass_counts(torch, path):
@@ -1148,9 +1214,15 @@ def phase_kernels(torch, bs, cs, fs, gr):
             "kernel matches the plain version on every row)")
     del args
     # integer inputs with runs of equal codes: bit for bit, ties included
-    # (k_pair 52 and 64 over 512 groups: the deep instance, the IVFPQR code
-    # domain's k = 100 shapes, for PQ64 and the 4-bit byte pairs)
+    # (the wgmma codes instances at exact k_pair 10 and 16 and pack32 10,
+    # 16 and 20, PQ128 in two raw passes and PQ8 of dsub 9 a ragged second
+    # k half; k_pair 40, 52 and 64 over 512 groups at d = 128: the sorted
+    # mma.sync instance, the IVFPQR code domain's k = 100 shapes, for PQ64
+    # and the 4-bit byte pairs)
     for m, dsub, s_eff, k_pair in ((64, 2, 1024, 10), (8, 4, 256, 10),
+                                   (64, 2, 1024, 16), (64, 2, 1024, 20),
+                                   (128, 1, 1024, 16), (8, 9, 256, 16),
+                                   (32, 4, 1024, 16),
                                    (64, 2, 1024, 40), (64, 2, 1024, 52),
                                    (64, 2, 1024, 64), (32, 4, 1024, 52),
                                    (32, 4, 1024, 64)):
@@ -1602,11 +1674,7 @@ def phase_code_domain(torch, tp, bs, cs, sl):
                           "code-domain ", short_ok=True)
     counts = dict(cs.launches)
     log(f"code-domain launches: {counts}")
-    for name, c in counts.items():
-        if (c <= 0) == name.startswith("tc_"):
-            fail(f"the code-domain slice launched the codes kernel route "
-                 f"{name} {c} times: its probed plans must run the "
-                 "tensor-core kernel, both selects, and no other")
+    require_codes_wg(counts, "the code-domain slice")
 
     # the same exact probed search on the main index: equal results
     index.scan_mode, index.n_probe, index.use_approx_topk = "cell_major", 8, \
@@ -1636,6 +1704,16 @@ def phase_code_domain(torch, tp, bs, cs, sl):
                               "code-domain"), code
 
 
+def require_codes_wg(counts, what):
+    """Fails unless both wgmma codes keys (CODES_WG_KEYS) launched and no
+    other codes route did."""
+    for name, c in counts.items():
+        if (c <= 0) == (name in CODES_WG_KEYS):
+            fail(f"{what} launched the codes kernel route {name} {c} times: "
+                 f"its probed plans must run the wgmma codes instances "
+                 f"{CODES_WG_KEYS}, both selects, and no other")
+
+
 def codes_rows(torch, tp, bs, cs, code, xq, k, label, suffix=""):
     """The codes kernels on the arguments a code-domain index's searches
     give them: the exact n_probe=8 and pack32 n_probe=32 searches' codes
@@ -1643,9 +1721,10 @@ def codes_rows(torch, tp, bs, cs, code, xq, k, label, suffix=""):
     kernel against codes_scan_ref on live rows, pad rows dead; the
     CUDA-core one on every row), and against the tensor-core block scan
     over the decoded bf16 rows; then the select each search ran timed on
-    both codes kernels in turns. Returns the kernels' JSON rows (names
-    codes_scan_exact / codes_scan_pack32 + suffix) without their launch
-    counts."""
+    its route and the CUDA-core codes kernel in turns (with --parent, and
+    on the parent's mma.sync codes kernel). Returns the kernels' JSON rows
+    (names codes_scan_exact / codes_scan_pack32 + suffix) without their
+    launch counts."""
     rows = {}
     onehot = tp.ops.onehot_adc
     decoded = None
@@ -1702,14 +1781,24 @@ def codes_rows(torch, tp, bs, cs, code, xq, k, label, suffix=""):
                     f"addresses equal at separated values")
             if pack32 != approx:
                 continue
-            # the select the search ran: both codes kernels in turns
+            # the select the search ran: its route and the CUDA-core codes
+            # kernel in turns
             mode = "pack32" if pack32 else "exact"
+            route = cs.pick_route(m=m, dsub=args[7].shape[2],
+                                  p_tile=p_tile, s_eff=s_eff, k_pair=k_pair,
+                                  pack32=pack32)
+            if route not in CODES_WG_KEYS:
+                fail(f"{name} routes to {route}, not the wgmma codes "
+                     "instances")
             (t, turns) = in_turns(torch, {
                 "cuda_cores": lambda: codes_launch(torch, cs, args, mode,
                                                    **kkw),
-                "tensor_cores": lambda: codes_launch(torch, cs, args,
-                                                     "tc_" + mode, **kkw)},
+                "tensor_cores": lambda: codes_launch(torch, cs, args, route,
+                                                     **kkw)},
                 20)
+            parent = codes_parent_turns(
+                torch, bs, cs, args, kkw, route,
+                f"{name} on the {label} n_probe={n_probe} search")
             ms, cc_ms = t["tensor_cores"], t["cuda_cores"]
             plain_ms = cuda_ms(torch, lambda: cs.codes_scan_ref(*args,
                                                                 **kkw), 3)
@@ -1730,13 +1819,15 @@ def codes_rows(torch, tp, bs, cs, code, xq, k, label, suffix=""):
                 f"bound {b_ms:.3f} ms ({b_by}); block_scan (tensor cores) over "
                 f"the decoded rows {bs_ms:.3f} ms")
             rows[name] = dict(
-                name=name, route="cuda",
-                source="torchpq_tpu_torch/csrc/codes_scan_tc.cu",
+                name=name, route="cuda", source=codes_source(route),
                 replaces="torchpq_tpu/ops/pallas_codes_scan.py:198",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                launch_key=route,
+                instance=codes_instance(pack32, k_pair),
                 cuda_core_ms=cc_ms,
-                cuda_core_source="torchpq_tpu_torch/csrc/codes_scan.cu")
+                cuda_core_source="torchpq_tpu_torch/csrc/codes_scan.cu",
+                **parent)
     del decoded
     return rows
 
@@ -2544,11 +2635,7 @@ def phase_pq4(torch, tp, bs, cs, sl, gt100):
                               plans=plans, floors=False)
     code_counts = dict(cs.launches)
     log(f"pq4 code-domain launches: {code_counts}")
-    for name, c in code_counts.items():
-        if (c <= 0) == name.startswith("tc_"):
-            fail(f"the 4-bit code domain launched the codes kernel route "
-                 f"{name} {c} times: its probed plans must run the "
-                 "tensor-core kernel, both selects, and no other")
+    require_codes_wg(code_counts, "the 4-bit code domain")
     gate = tp.ops.adc.LAST_GATE
     if (gate.get("m"), code._scan_codebook.shape[-1]) != (m // 2, 4):
         fail(f"the 4-bit codes scan ran at m {gate.get('m')}, not 32 byte "
@@ -2587,8 +2674,8 @@ def phase_pq4(torch, tp, bs, cs, sl, gt100):
     del ref, res_r
     rows.update(codes_rows(torch, tp, bs, cs, code, xq, k,
                            "pq4 code-domain", suffix="_pq4"))
-    launches.update(codes_scan_exact_pq4=code_counts["tc_exact"],
-                    codes_scan_pack32_pq4=code_counts["tc_pack32"])
+    launches.update(codes_scan_exact_pq4=code_counts["tc_wgn_exact"],
+                    codes_scan_pack32_pq4=code_counts["tc_wgn_pack32"])
     phase_profile(torch, code, xq, k, label="pq4 code-domain ",
                   plans=[("cell_major", 32, True)])
     del code, pq4
@@ -2838,13 +2925,13 @@ def phase_pqr(torch, tp, bs, sl, gt100):
     return launches, rows, trained, rec
 
 
-def codes_pack32_row(torch, bs, cs, name, args, kw, what):
+def codes_pack32_row(torch, bs, cs, name, args, kw, what, want):
     """One pack32 codes scan on its search's own arguments, through the
-    tensor-core kernel pick_route must name: against codes_scan_ref on the
-    live rows, pad rows dead (check_codes; the CUDA-core kernel on every
-    row), timed in turns with the CUDA-core codes_scan.cu (the
-    cuda_core_ms yardstick), with its bound. Returns the kernels-line
-    row."""
+    tensor-core route `want` pick_route must name: against codes_scan_ref
+    on the live rows, pad rows dead (check_codes; the CUDA-core kernel on
+    every row), timed in turns with the CUDA-core codes_scan.cu (the
+    cuda_core_ms yardstick) and, with --parent, with the parent's mma.sync
+    codes kernel, with its bound. Returns the kernels-line row."""
     s_eff, k_pair = kw["s_eff"], kw["k_pair"]
     blocks, p_tile = args[1].shape
     m, _, dsub = args[7].shape
@@ -2854,8 +2941,8 @@ def codes_pack32_row(torch, bs, cs, name, args, kw, what):
                            k_pair=k_pair, pack32=True)
     log(f"{what}: {blocks} blocks x {p_tile} probers, {live} live, "
         f"s_eff={s_eff}, k_pair={k_pair}, m={m}, route {picked}")
-    if picked != "tc_pack32":
-        fail(f"{what} routes to {picked}, not tc_pack32")
+    if picked != want:
+        fail(f"{what} routes to {picked}, not {want}")
     kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
                pack32=True, slot_mask=kw["slot_mask"])
     err, agree, _, _ = check_codes(torch, bs, cs, args, s_eff=s_eff,
@@ -2863,8 +2950,9 @@ def codes_pack32_row(torch, bs, cs, name, args, kw, what):
                                    euclidean=kw["euclidean"], reps=0)
     t, turns = in_turns(torch, {
         "cuda_cores": lambda: codes_launch(torch, cs, args, "pack32", **kkw),
-        "tensor_cores": lambda: codes_launch(torch, cs, args, "tc_pack32",
-                                             **kkw)}, 10)
+        "tensor_cores": lambda: codes_launch(torch, cs, args, want, **kkw)},
+        10)
+    parent = codes_parent_turns(torch, bs, cs, args, kkw, want, what)
     ms, cc_ms = t["tensor_cores"], t["cuda_cores"]
     plain_ms = cuda_ms(torch, lambda: cs.codes_scan_ref(*args, **kkw), 1)
     b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=m + 4,
@@ -2878,12 +2966,11 @@ def codes_pack32_row(torch, bs, cs, name, args, kw, what):
         f"probers, {b_ms / ms:.1%} of the bound; plain {plain_ms:.3f} ms, "
         f"bound {b_ms:.3f} ms ({b_by}); max_abs_err {err:.3g}, key agreement "
         f"{agree:.7f}")
-    return dict(name=name, route="cuda",
-                source="torchpq_tpu_torch/csrc/codes_scan_tc.cu",
+    return dict(name=name, route="cuda", source=codes_source(want),
                 replaces="torchpq_tpu/ops/pallas_codes_scan.py:198",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, cuda_core_ms=cc_ms,
-                tensor_core_route=True)
+                launch_key=want, **parent)
 
 
 def phase_pqr_codes(torch, tp, bs, cs, sl, gt100, trained, rec_cached):
@@ -2900,9 +2987,12 @@ def phase_pqr_codes(torch, tp, bs, cs, sl, gt100, trained, rec_cached):
     8 and 32; the cached tier's pack32 plans over supercells of 4 are
     logged beside (on manifold-12 the supercells lift them 0.01-0.05 above
     both); the n_probe 32 scans of both k and the k = 100 n_probe 8 scan
-    held to codes_scan_ref on their searches' own arguments. Returns
-    (launches, the kernels' rows): a k = 10 row launched by both probed
-    plans, a k = 100 row per probed plan."""
+    held to codes_scan_ref on their searches' own arguments. The k = 10
+    scans (k_pair 20 / 16) run on the wgmma codes instances
+    ("tc_wgn_pack32"), the k = 100 ones (k_pair 64 / 52) on the sorted
+    mma.sync instance ("tc_pack32"). Returns (launches, the kernels' rows):
+    a k = 10 row launched by both probed plans, a k = 100 row per probed
+    plan."""
     base, xq, gt, k = (sl[x] for x in ("base", "xq", "gt", "k"))
     code, add_s = build_pqr(torch, tp, trained, base, sl["index"],
                             initial_mult=3, cache="none")
@@ -2918,8 +3008,8 @@ def phase_pqr_codes(torch, tp, bs, cs, sl, gt100, trained, rec_cached):
         f"{per_slot:.0f} (64 B codes, {PQR_RERANK_M} B rerank codes, 4 B "
         "norm, 4 B norm delta)")
     rec, launches, rows = {}, {}, {}
-    want = "tc_pack32"
     for kk, g in ((k, gt), (100, gt100)):
+        want = "tc_wgn_pack32" if kk == k else CODES_DEEP_KEY
         rec[kk], counts = {}, {}
         for plan in PQR_CODE_PLANS:
             for key in cs.launches:
@@ -2961,7 +3051,8 @@ def phase_pqr_codes(torch, tp, bs, cs, sl, gt100, trained, rec_cached):
                                     name="codes_scan")
             rows[name] = codes_pack32_row(
                 torch, bs, cs, name, args, kw,
-                f"the pqr3 code-domain k={kk} n_probe={n_probe} search")
+                f"the pqr3 code-domain k={kk} n_probe={n_probe} search",
+                want)
             launches[name] = sum(counts[p][want] for p in plans)
             del args
     phase_profile(torch, code, xq, 100, label="pqr3 code-domain k=100 ",
@@ -4137,7 +4228,7 @@ TIER_PLAN = ("cell_major", 32, True)
 SHARDED_KEYS = {"block_scan_exact": ("bf16", "tc_wgn_exact"),
                 "block_scan_pack32": ("bf16", "tc_wgn_pack32"),
                 "block_scan_int8_pack32": ("int8", "tc_wgn_int8_pack32"),
-                "codes_scan_pack32": ("codes", "tc_pack32")}
+                "codes_scan_pack32": ("codes", "tc_wgn_pack32")}
 
 
 # the scans of the sharded plans held to their plain versions on a rank's
@@ -4147,7 +4238,7 @@ SHARDED_ROWS = (("block_scan_exact_sharded", "bf16", ("cell_major", 8, False)),
                 ("block_scan_int8_pack32_sharded", "int8", TIER_PLAN),
                 ("codes_scan_pack32_sharded", "codes", TIER_PLAN))
 SHARDED_SOURCES = {"bf16": "block_scan_wg.cu", "int8": "block_scan_wg.cu",
-                   "codes": "codes_scan_tc.cu"}
+                   "codes": "block_scan_wg.cu"}
 
 
 def sharded_kernel_rows(torch, tp, bs, cs, searchers, tiers, xq, check,
@@ -4192,7 +4283,8 @@ def sharded_kernel_rows(torch, tp, bs, cs, searchers, tiers, xq, check,
                                     row_bytes=2 * d, peak="bf16", d=d,
                                     extra_bytes=args[7].numel() * 2)
             shape = f"m={m}, g={args[6].shape[1] // m}"
-            turns = {}
+            turns = codes_parent_turns(torch, bs, cs, args, kkw, route,
+                                       f"{label}{name}")
         else:
             d = args[6].shape[1]
             int8 = tier == "int8"
@@ -4520,9 +4612,11 @@ def phase_sharded(torch, tp, bs, cs, sl, tiers, work, timer):
         for c in (cnt if isinstance(cnt, list) else [cnt]):
             require_only_tc(c["bf16"], BF16_KEYS, f"{label}bf16 plans")
             require_only_tc(c["int8"], INT8_KEYS[1:], f"{label}int8 plan")
-            if c["codes"]["tc_pack32"] <= 0 or c["codes"]["pack32"]:
-                fail(f"{label}code-domain plan must launch the tensor-core "
-                     f"codes scan only: {c['codes']}")
+            if c["codes"]["tc_wgn_pack32"] <= 0 or any(
+                    n for key, n in c["codes"].items()
+                    if key != "tc_wgn_pack32"):
+                fail(f"{label}code-domain plan must launch the wgmma codes "
+                     f"instances' pack32 select only: {c['codes']}")
         log(f"{label}launches: {cnt}")
         for name in res:
             if name in ms:
@@ -5145,8 +5239,8 @@ def main():
              deep_launches["block_scan_pack32_deepk_tail"]),
             ("block_scan_pack32_deepk_untapered", deep_rows,
              deep_launches["block_scan_pack32_deepk_untapered"]),
-            ("codes_scan_exact", code_rows, code_counts["tc_exact"]),
-            ("codes_scan_pack32", code_rows, code_counts["tc_pack32"]),
+            ("codes_scan_exact", code_rows, code_counts["tc_wgn_exact"]),
+            ("codes_scan_pack32", code_rows, code_counts["tc_wgn_pack32"]),
             ("block_scan_pack32_pq4", pq4_rows,
              pq4_launches["block_scan_pack32_pq4"]),
             ("codes_scan_exact_pq4", pq4_rows,

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Variant builds of the block scan, timed in turns with the built library
-on the JAX package's GIST records' arguments (k-chunked rows) or on narrow
-random inputs (d 128, --narrow), on one CUDA card; and the int8 routes
-in turns with a parent tree's mma.sync int8 kernel (--int8-turns):
+on the JAX package's GIST records' arguments (k-chunked rows), on narrow
+random inputs (d 128, --narrow) or, for the codes instances, on random
+codes at the code domain's window (--codes), on one CUDA card:
 
     python3 chip_variants.py                       # every variant and tier
     python3 chip_variants.py --variants wg8_ring4 --tiers int8
     python3 chip_variants.py --variants wgn_noscore --narrow
     python3 chip_variants.py --variants wgn_sorted --ptxas-only
-    python3 chip_variants.py --variants '' --int8-turns --parent DIR
+    python3 chip_variants.py --variants wgc_noearly,wgc_pass4 --codes
 
 On each of the records' searches (1M x 960 manifold-12, seed 1, IVF4096 x
 PQ64, spill 8 cells at 512, scan_group 4: bf16 pack32 k = 10 and k = 100
@@ -47,7 +47,18 @@ with the package's nvcc flags into its own library under
             time what a part costs (--narrow only): wgn_nopen, no penalty
             loads in the producer; wgn_noscore, no scores or maxima;
             wgn_noprod, no products; wgn_noselect, no phase-end extraction
-            (pack32) or list pops (exact).
+            (pack32) or list pops (exact);
+  - wgc_*: (the codes instances, --codes only) wgc_noearly: a tile's first
+            k half released with its last after the scores, not after the
+            products; wgc_pass4: the raw slot half as large (4 chunks of a
+            column a pass, two passes at m = 64) and the exact k_pair <= 10
+            instance on four ring stages in place of three; wgc_regs40:
+            the producer and the consumers at 40 / 232 registers (ptxas
+            spills 32 B) instead of 56 / 224; wgc_nodecode: the producer
+            copies the codes and writes the penalties but decodes nothing
+            (wrong keys, what the decode costs); wgc_restrict2: the decode's
+            codebook and stage pointers __restrict__ and its loop unrolled
+            by two.
 It prints each variant's ptxas report for the k-chunked and
 warp-specialised instances; --ptxas-only stops there.
 Imports nothing of JAX."""
@@ -90,7 +101,7 @@ VARIANTS = {
     "wg_sorted": [("block_scan_wg.cu", a + "true, tc::PASS_K, RING_DEEP" + z,
                    a + "true, tc::MAX_PACK_K, RING_DEEP" + z)
                   for a, z in (("TPQ_LAUNCH(", ", 0)"),
-                               ("occupancy_of<", ", 0>"))],
+                               ("occupancy_of<", ", 0, I8>"))],
     "wgn_regs224": [("block_scan_wg.cu",
                      "constexpr int NARROW_PRODUCER_REGS = 40;",
                      "constexpr int NARROW_PRODUCER_REGS = 56;"),
@@ -102,8 +113,8 @@ VARIANTS = {
          "TPQ_LAUNCH(true, tc::PASS_K, NRING_DEEP, NQB_DEEP)",
          "TPQ_LAUNCH(true, tc::MAX_PACK_K, NRING_DEEP, NQB_DEEP)"),
         ("block_scan_wg.cu",
-         "occupancy_of<true, tc::PASS_K, NRING_DEEP, NQB_DEEP>",
-         "occupancy_of<true, tc::MAX_PACK_K, NRING_DEEP, NQB_DEEP>"),
+         "occupancy_of<true, tc::PASS_K, NRING_DEEP, NQB_DEEP, I8>",
+         "occupancy_of<true, tc::MAX_PACK_K, NRING_DEEP, NQB_DEEP, I8>"),
         ("block_scan_wg.cu", "constexpr int NARROW_PRODUCER_REGS = 40;",
          "constexpr int NARROW_PRODUCER_REGS = 24;"),
         ("block_scan_wg.cu", "constexpr int NARROW_CONSUMER_REGS = 232;",
@@ -129,16 +140,56 @@ VARIANTS = {
                     "TPQ_LAUNCH(true, tc::PASS_K, NRING_DEEP, NQB_DEEP)",
                     "TPQ_LAUNCH(true, tc::MAX_PACK_K, NRING_DEEP, NQB_DEEP)"),
                    ("block_scan_wg.cu",
-                    "occupancy_of<true, tc::PASS_K, NRING_DEEP, NQB_DEEP>",
+                    "occupancy_of<true, tc::PASS_K, NRING_DEEP, NQB_DEEP, I8>",
                     "occupancy_of<true, tc::MAX_PACK_K, NRING_DEEP, "
-                    "NQB_DEEP>")],
+                    "NQB_DEEP, I8>")],
+    "wgc_noearly": [("block_scan_wg.cu", """            if (nsc > 1) {
+              __syncwarp();
+              if (lane == 0) mbar_arrive(empty + sa);
+            }""", """            if (false) {
+              __syncwarp();
+              if (lane == 0) mbar_arrive(empty + sa);
+            }"""),
+                    ("block_scan_wg.cu",
+                     "if (!CODES || nsc == 1) mbar_arrive(empty + sa);",
+                     "mbar_arrive(empty + sa);")],
+    "wgc_pass4": [("wg_layout.cuh", "constexpr int PASS_CHUNKS = 8;",
+                   "constexpr int PASS_CHUNKS = 4;"),
+                  ("wg_layout.cuh",
+                   "return pack32 ? (k_pair <= 16 ? CRING_PACK_16 : CRING_PACK)"
+                   " : CRING_EXACT;",
+                   "return pack32 ? (k_pair <= 16 ? CRING_PACK_16 : CRING_PACK)"
+                   " : (k_pair <= 10 ? 4 : CRING_EXACT);"),
+                  ("block_scan_wg.cu", "? X(false, 10, CRING_EXACT)",
+                   "? X(false, 10, 4)")],
+    "wgc_nodecode": [("block_scan_wg.cu", """      decode_chunk(rc.x, rc.y, cb_s, ca.dsub, (ps << ca.lc) + ch, cl,
+                   stage0, stage1);""", """      if (rc.x == 0xFFFFFFFFu && rc.y == 0x12345678u) stage0[cl] = 0;""")],
+    "wgc_restrict2": [("wg_layout.cuh", """TPQ_HD inline void decode_chunk(uint32_t lo, uint32_t hi, const uint16_t* cb,
+                                int dsub, int chunk, int cl,
+                                unsigned char* stage0,
+                                unsigned char* stage1) {""", """TPQ_HD inline void decode_chunk(uint32_t lo, uint32_t hi,
+                                const uint16_t* __restrict__ cb,
+                                int dsub, int chunk, int cl,
+                                unsigned char* __restrict__ stage0,
+                                unsigned char* __restrict__ stage1) {"""),
+                      ("block_scan_wg.cu", """  tpq::cp_async_wait<0>();
+#pragma unroll 1
+  for (int e = t; e < (BOX_ROWS << ca.lc); e += 128) {""", """  tpq::cp_async_wait<0>();
+#pragma unroll 2
+  for (int e = t; e < (BOX_ROWS << ca.lc); e += 128) {""")],
+    "wgc_regs40": [("block_scan_wg.cu",
+                    "constexpr int CODES_PRODUCER_REGS = 56;",
+                    "constexpr int CODES_PRODUCER_REGS = 40;"),
+                   ("block_scan_wg.cu",
+                    "constexpr int CODES_CONSUMER_REGS = 224;",
+                    "constexpr int CODES_CONSUMER_REGS = 232;")],
 }
 SOURCES = ("block_scan.cu", "block_scan_wg.cu")
 
 
 def ptxas(log, tag):
-    """Registers and spills of the warp-specialised instances (bf16 and
-    int8) in a build log."""
+    """Registers and spills of the warp-specialised instances (bf16, int8
+    and codes) in a build log."""
     kernel = "?"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -193,6 +244,46 @@ def shapes(torch, args):
             f"({1 - live / max(64 * live64, 1):.3f} of their rows pads)")
 
 
+def codes_turns(torch, lib, libs):
+    """The codes instances (block_scan_wg.cu, CODES) of the built library
+    and of each wgc_* variant in turns (built, variant, variant, built; 10
+    launches a turn), on `random_codes_inputs` at the code domain's window
+    (s_eff 1024, 4,507 blocks, each block's live probers drawn uniformly
+    from 1-128, or its first n of 128 live): PQ64 exact and pack32 k_pair
+    10 and pack32 k_pair 20 (the pqr3_codes k = 10 base scan at n_probe
+    8), the 4-bit byte pairs (m 32, dsub 4) exact and pack32 k_pair 10;
+    PQ64 exact at 19 live probers a block (the code domain's n_probe 8
+    search: 15% of rows live) and pack32 at 71 (n_probe 32: 55%)."""
+    from torchpq_tpu_torch.ops import codes_scan as cods
+    stream = torch.cuda.current_stream().cuda_stream
+    for m, dsub, k_pair, pack32, n_live in (
+            (64, 2, 10, False, 0), (64, 2, 10, True, 0),
+            (64, 2, 20, True, 0), (32, 4, 10, False, 0),
+            (32, 4, 10, True, 0), (64, 2, 10, False, 19),
+            (64, 2, 10, True, 71)):
+        args = cods.random_codes_inputs("cuda", s_eff=1024, n_blocks=4507,
+                                        nq=10000, m=m, dsub=dsub,
+                                        cap_total=1 << 21, seed=5)
+        if n_live:
+            args[1][:, n_live:] = -1
+        kw = dict(s_eff=1024, k_pair=k_pair, euclidean=True, pack32=pack32,
+                  slot_mask=1023)
+        route = cods.pick_route(m=m, dsub=dsub, p_tile=128, s_eff=1024,
+                                k_pair=k_pair, pack32=pack32)
+        fns = {"built": lambda: cods.launch(lib, stream, *args, route=route,
+                                            **kw)}
+        for name, vlib in libs.items():
+            if name.startswith("wgc_"):
+                fns[name] = (lambda v: lambda: cods.launch(
+                    v, stream, *args, route=route, **kw))(vlib)
+        t, turns = cs.in_turns(torch, fns, 10)
+        print(f"codes m={m} dsub={dsub} {route} k_pair={k_pair}"
+              f"{f' ({n_live} live)' if n_live else ''}: " + ", ".join(
+            f"{n} {t[n]:.3f} ms {[round(x, 3) for x in turns[n]]}"
+            for n in fns), flush=True)
+        del args
+
+
 def narrow_turns(torch, bs, lib, libs):
     """The narrow route (bf16, d 128) of the built library and of each
     variant in turns (built, variant, variant, built; 5 launches a turn),
@@ -224,48 +315,6 @@ def narrow_turns(torch, bs, lib, libs):
         del args
 
 
-# the int8 shape classes --int8-turns times: (what, d, s_eff, blocks,
-# pack32, k_pair, live probers a block of 128); the int8 tiers' (1M x 128:
-# 15% of rows live at n_probe 8, 56% at 32), the GIST-class width's, and
-# the deep pack32 selects of narrow rows at 2, 4, 5 and 8 tiles a phase
-INT8_CLASSES = (
-    ("d 128 exact", 128, 640, 4096, False, 10, 19),
-    ("d 128 pack32", 128, 640, 4096, True, 10, 72),
-    ("d 256 pack32", 256, 640, 4096, True, 10, 64),
-    ("d 1024 exact", 1024, 640, 4096, False, 10, 19),
-    ("d 1024 pack32", 1024, 640, 4096, True, 10, 72),
-    ("d 1024 pack32 k48, G 512", 1024, 2048, 2048, True, 48, 64),
-    ("d 1024 pack32 k64, G 512", 1024, 2048, 2048, True, 64, 64),
-    ("d 128 pack32 k64, G 256: 2 tiles a phase", 128, 512, 4096, True, 64,
-     64),
-    ("d 128 pack32 k64, G 512: 4 tiles", 128, 2048, 2048, True, 64, 64),
-    ("d 128 pack32 k64, G 128: 5 tiles", 128, 640, 4096, True, 64, 64),
-    ("d 128 pack32 k64, G 512: 8 tiles", 128, 4096, 2048, True, 64, 64))
-
-
-def int8_turns(torch, bs):
-    """Each INT8_CLASSES shape on random int8 inputs (the first n probers
-    of every block live): pick_route's route (an s8 wgmma instance of
-    block_scan_wg.cu) in turns with the parent's mma.sync int8 kernel
-    (chip_smoke.mma_sync_turns: --parent's block_scan_tc_int8.cu; 5
-    launches a turn), live entries compared."""
-    for what, d, s_eff, blocks, pack32, k_pair, n_live in INT8_CLASSES:
-        args, scale, q_scale = bs.random_int8_inputs(
-            "cuda", s_eff=s_eff, n_blocks=blocks, nq=10000, d=d,
-            cap_total=1 << 21 if d <= 256 else 1 << 20, seed=7)
-        args[1][:, n_live:] = -1
-        kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
-                  slot_mask=bs.util.next_pow2(s_eff) - 1, scale=scale,
-                  q_scale=q_scale)
-        route = bs.pick_route(dtype=torch.int8, d=d, p_tile=128, s_eff=s_eff,
-                              k_pair=k_pair, pack32=pack32)
-        what = (f"int8 {what} (s_eff {s_eff}, {blocks} blocks, {n_live} of "
-                f"128 probers live), {route}")
-        if not cs.mma_sync_turns(torch, bs, args, kw, route, what):
-            cs.fail("--int8-turns needs --parent DIR (the mma.sync int8 "
-                    "kernel of DIR's tree)")
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS),
@@ -278,13 +327,9 @@ def main():
     ap.add_argument("--narrow", action="store_true",
                     help="time the variants on narrow random inputs "
                     "(narrow_turns) and stop")
-    ap.add_argument("--int8-turns", action="store_true",
-                    help="time the int8 routes on INT8_CLASSES in turns "
-                    "with --parent's mma.sync int8 kernel (int8_turns) "
-                    "and stop")
-    ap.add_argument("--parent", default=None, metavar="DIR",
-                    help="a checkout of the tree whose int8 scans ran on "
-                    "csrc/block_scan_tc_int8.cu (mma.sync)")
+    ap.add_argument("--codes", action="store_true",
+                    help="time the wgc_* variants of the codes instances on "
+                    "random codes (codes_turns) and stop")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: this run needs a card")
@@ -301,10 +346,8 @@ def main():
     if opts.narrow:
         narrow_turns(torch, bs, lib, libs)
         return
-    if opts.int8_turns:
-        if opts.parent:
-            cs.build_parent(_build, opts.parent)
-        int8_turns(torch, bs)
+    if opts.codes:
+        codes_turns(torch, lib, libs)
         return
     base, query = cs.make_data(1_000_000, 10_000, 960, seed=1)
     proto = tp.IVFPQIndex(d_vector=960, n_subvectors=64, n_cells=4096,

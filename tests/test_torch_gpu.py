@@ -360,7 +360,7 @@ def test_block_wgn_liveness(cuda, p_tile, n_live, pack32, k_pair, s_eff):
 @pytest.mark.parametrize("n_ctas", [None, 3])
 @pytest.mark.parametrize("inputs", ["random", "ties"])
 @pytest.mark.parametrize("d,s_eff", [(128, 4096), (256, 512)])
-def test_block_tc_int8_deep_pack32(cuda, d, s_eff, inputs, n_ctas):
+def test_block_wgn_int8_deep_pack32(cuda, d, s_eff, inputs, n_ctas):
     """The int8 rows of at most 256 bytes at pack32 k_pair 64, over 512
     strided groups at s_eff 4096 (8 tiles a phase) and 256 at s_eff 512 (2
     tiles), both on the narrow deep s8 wgmma instance, on the card's grid
@@ -589,7 +589,7 @@ def test_block_wg_instance_entry(cuda):
 @pytest.mark.parametrize("k_pair,s_eff", [(49, 2048), (57, 512),
                                           (64, 2048)])
 @pytest.mark.parametrize("d", [288, 1024])
-def test_block_tc_int8_one_list(cuda, d, k_pair, s_eff, inputs, n_ctas):
+def test_block_wg_int8_one_list(cuda, d, k_pair, s_eff, inputs, n_ctas):
     """int8 rows over 256 bytes at pack32 k_pair 49-64 (the shapes the
     mma.sync kernel's one-list instance served): the k-chunked s8 wgmma
     instance of three ring stages (202,832 B at k_pair 64), over 512 and
@@ -656,12 +656,14 @@ def test_tc_smem_matches_mirror(cuda):
     ops/block_scan.py's mirrors (which pick_route reads without the
     library): the narrow warp-specialised bf16 scan's wg_smem_bytes at d <=
     128, the mma.sync bf16 one's scan_tc.cuh:body_smem_bytes (rows of at
-    most 256 bytes), the codes scan's its own mirror
-    ops/codes_scan.py:tc_smem_bytes (the 512 * d-byte codebook beside the
-    body; above pack32 k_pair 48 the deep instance's ring and one tile);
-    every routed shape within the limit; and the codes entry point launches
-    at pack32 k_pair 64, d = 128, equal to the plain version on integer
-    inputs."""
+    most 256 bytes), the codes scan's its own mirrors
+    ops/codes_scan.py:wg_smem_bytes (the wgmma codes instances: the
+    codebook, the raw slot and the query buffer beside the ring and the
+    lists) and tc_smem_bytes (the mma.sync sorted instance: the codebook,
+    the raw codes' ring and one tile beside the body); every routed shape
+    within the limit; and the mma.sync codes entry point launches at
+    pack32 k_pair 64, d = 128, equal to the plain version on integer
+    inputs, and refuses the exact select."""
     from torchpq_tpu_torch import _build
     lib = _build.library()
     for d in (32, 40, 64, 128):
@@ -673,10 +675,15 @@ def test_tc_smem_matches_mirror(cuda):
                 assert lib.torchpq_block_scan_wg_smem(d, pack32, k_pair) \
                     == want
     for m, dsub in ((8, 4), (8, 5), (16, 4), (64, 2), (32, 4), (128, 1)):
+        for k_pair in (17, 40, 48, 49, 52, 57, 64):
+            assert lib.torchpq_codes_scan_tc_smem(m, dsub, 1, k_pair) \
+                == cs.tc_smem_bytes(m=m, dsub=dsub, k_pair=k_pair)
         for pack32 in (0, 1):
-            for k_pair in (1, 10, 16, 40, 48, 49, 52, 57, 64):
-                assert lib.torchpq_codes_scan_tc_smem(
-                    m, dsub, pack32, k_pair) == cs.tc_smem_bytes(
+            for k_pair in (1, 10, 16, 20, 35, 48):
+                if not pack32 and k_pair > 16:
+                    continue
+                assert lib.torchpq_codes_scan_wg_smem(
+                    m, dsub, pack32, k_pair) == cs.wg_smem_bytes(
                         m=m, dsub=dsub, pack32=pack32, k_pair=k_pair)
     for d in (32, 64, 128):
         for k_pair in (17, 40, 48, 49, 64):
@@ -698,6 +705,11 @@ def test_tc_smem_matches_mirror(cuda):
     live = cargs[1] >= 0
     assert torch.equal(out[live], ref[live])
     assert bool((out[~live] == torch.iinfo(torch.int32).min).all())
+    assert lib.torchpq_codes_scan_tc(
+        *(t.data_ptr() for t in cargs[:6]), cargs[6].data_ptr(),
+        cargs[7].data_ptr(), out.data_ptr(), 4, 128, 64, 2,
+        cargs[6].shape[1] // 64, 1024, 10, 1, 0, 1023, 0, 4,
+        torch.cuda.current_stream().cuda_stream) != 0
 
 
 @pytest.mark.gpu
@@ -922,8 +934,8 @@ def test_pq_variants_on_card_match_cpu(cuda, f32_search, tmp_path, d, m,
         elif "anisotropic_eta" not in kwargs:
             _assert_topk_ties(v, i, v_ref, i_ref)
     if kwargs.get("scan_cache_dtype") == "none":
-        assert cs.launches["tc_exact"] > before["tc_exact"]
-        assert cs.launches["tc_pack32"] > before["tc_pack32"]
+        assert cs.launches["tc_wgn_exact"] > before["tc_wgn_exact"]
+        assert cs.launches["tc_wgn_pack32"] > before["tc_wgn_pack32"]
     if kwargs.get("distance") == "manhattan":
         assert {**bs.launches, **cs.launches} == before
 
@@ -980,28 +992,43 @@ def _assert_pads(got, ref, probers, route, k_pair, pack32):
         assert bool((got[pad][:, k_pair:] == -1).all())
 
 
+def _codes_route_family(m, dsub, k_pair, pack32):
+    """The codes route these test shapes take: the wgmma codes instances
+    for exact k_pair <= 16 and pack32 up to k_pair 20 (and to 40 below
+    d = 128), the sorted mma.sync instance for the deeper pack32 selects, the
+    CUDA cores for exact above 16 (test_pick_route pins the boundaries)."""
+    if not pack32:
+        return "tc_wgn_exact" if k_pair <= 16 else "exact"
+    if k_pair <= 20 or (k_pair <= 40 and m * dsub < 128):
+        return "tc_wgn_pack32"
+    return "tc_pack32"
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("pack32", [False, True])
-@pytest.mark.parametrize("m,dsub", [(64, 2), (8, 4), (128, 1), (32, 4)])
+@pytest.mark.parametrize("m,dsub", [(64, 2), (8, 4), (128, 1), (32, 4),
+                                    (8, 9)])
 @pytest.mark.parametrize("s_eff", [256, 1024, 8192])
-@pytest.mark.parametrize("k_pair", [10, 40, 52, 64])
+@pytest.mark.parametrize("k_pair", [10, 16, 20, 40, 52, 64])
 def test_codes_kernel_matches_plain(cuda, pack32, m, dsub, s_eff, k_pair):
-    """g = 2 (d=128, PQ64), g = 16 (d=32, PQ8), g = 1 (d=128, PQ128) and
-    g = 4 (d=128, 4-bit PQ64: 32 byte pairs over the byte-pair codebook)
-    on random inputs, through the kernel pick_route names (exact k_pair 40
-    to 64: the CUDA-core one; pack32 k_pair 40 to 64 selects over 512
-    strided groups at s_eff 1024 and 8192, above 48 in the deep instance). Live rows: the tensor cores sum in another order
-    than the plain version's GEMM (bf16 products are exact in f32), so
-    exact values agree to 1e-3 relative and addresses and pack32 keys on
-    >= 0.99 of entries; pad rows as _assert_pads."""
+    """g = 2 (d=128, PQ64), g = 16 (d=32, PQ8; d=72, PQ8 of dsub 9: a
+    ragged second k half), g = 1 (d=128, PQ128: the raw codes in two
+    passes) and g = 4 (d=128, 4-bit PQ64: 32 byte pairs over the byte-pair
+    codebook) on random inputs, through the kernel pick_route names (the
+    wgmma codes instances, exact k_pair <= 16 and pack32 up to 20, below
+    d = 128 to 40; exact k_pair 20 to 64: the CUDA-core one; the deeper
+    pack32 selects, over 512 strided groups at s_eff 1024 and 8192: the
+    sorted mma.sync instance). Live rows: the tensor cores sum in another
+    order than the plain version's GEMM (bf16 products are exact in f32),
+    so exact values agree to 1e-3 relative and addresses and pack32 keys
+    on >= 0.99 of entries; pad rows as _assert_pads."""
     args = cs.random_codes_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
                                   m=m, dsub=dsub,
                                   cap_total=max(8192, 2 * s_eff))
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
               slot_mask=s_eff - 1)
     got, route = _codes_launch(cuda, args, kw)
-    assert route == ("tc_" if pack32 or k_pair <= 16 else "") + \
-        ("pack32" if pack32 else "exact")
+    assert route == _codes_route_family(m, dsub, k_pair, pack32)
     ref = cs.codes_scan_ref(*args, **kw)
     _assert_pads(got, ref, args[1], route, k_pair, pack32)
     live = args[1] >= 0
@@ -1020,22 +1047,27 @@ def test_codes_kernel_matches_plain(cuda, pack32, m, dsub, s_eff, k_pair):
 @pytest.mark.parametrize("pack32", [False, True])
 @pytest.mark.parametrize("m,dsub,s_eff", [(64, 2, 1024), (8, 4, 256),
                                           (128, 1, 512), (64, 2, 8192),
-                                          (32, 4, 1024)])
-@pytest.mark.parametrize("k_pair,euclidean", [(10, True), (40, False),
+                                          (32, 4, 1024), (8, 9, 256),
+                                          (16, 5, 640)])
+@pytest.mark.parametrize("k_pair,euclidean", [(10, True), (16, False),
+                                              (20, True), (40, False),
                                               (52, True), (64, False)])
 def test_codes_tc_kernel_integer_ties_exact(cuda, pack32, m, dsub, s_eff,
                                             k_pair, euclidean):
     """Integer-valued inputs with runs of equal codes: every sum is exact
-    in any order, so the tensor-core kernel equals the plain version bit
+    in any order, so the tensor-core kernels equal the plain version bit
     for bit on live rows, keys, addresses and pack32 keys, ties included
-    (pack32 k_pair 52 and 64: the deep instance; exact k_pair 40 to 64 runs
-    on the CUDA-core kernel, equal there too)."""
+    (exact k_pair <= 16 and pack32 to 20, below d = 128 to 40: the wgmma
+    codes instances, d = 72 and 80 a ragged second k half; the deeper pack32
+    selects: the sorted mma.sync instance; exact k_pair 20 to 64 runs on
+    the CUDA-core kernel, equal there too)."""
     args = cs.integer_codes_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
                                    m=m, dsub=dsub,
                                    cap_total=max(8192, 2 * s_eff), seed=m)
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=euclidean,
-              pack32=pack32, slot_mask=s_eff - 1)
+              pack32=pack32, slot_mask=bs.util.next_pow2(s_eff) - 1)
     got, route = _codes_launch(cuda, args, kw)
+    assert route == _codes_route_family(m, dsub, k_pair, pack32)
     ref = cs.codes_scan_ref(*args, **kw)
     _assert_pads(got, ref, args[1], route, k_pair, pack32)
     live = args[1] >= 0
@@ -1047,23 +1079,27 @@ def test_codes_tc_kernel_integer_ties_exact(cuda, pack32, m, dsub, s_eff,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("pack32,k_pair", [(False, 10), (False, 16),
-                                           (True, 10), (True, 40),
-                                           (True, 52), (True, 64)])
-@pytest.mark.parametrize("m,dsub,s_eff", [(64, 2, 1024), (8, 4, 256)])
+                                           (True, 10), (True, 20),
+                                           (True, 40), (True, 52),
+                                           (True, 64)])
+@pytest.mark.parametrize("m,dsub,s_eff", [(64, 2, 1024), (8, 4, 256),
+                                          (128, 1, 512)])
 def test_codes_tc_kernel_persistent_grid(cuda, pack32, k_pair, m, dsub,
                                          s_eff):
     """A grid of 3 persistent CTAs over 64 blocks: each CTA walks ~21
     blocks, so the state it resets between blocks (live-tile rows, the
-    pack32 phase parity of deep G = 512, the exact lists and queues, the
-    A fragments; the deep instance's codes ring and one tile) is reused. Integer inputs: live rows equal the plain
-    version bit for bit, pad rows dead."""
+    pack32 phase parity of deep G = 512, the exact lists and queues; the
+    wgmma instances' ring stages, barrier phases, query buffer and raw
+    slot; the sorted instance's codes ring and one tile) is reused.
+    Integer inputs: live rows equal the plain version bit for bit, pad
+    rows dead."""
     from torchpq_tpu_torch import _build
     args = cs.integer_codes_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
                                    m=m, dsub=dsub, cap_total=8192,
                                    seed=m + k_pair)
     kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
               slot_mask=s_eff - 1)
-    route = "tc_" + ("pack32" if pack32 else "exact")
+    route = _codes_route_family(m, dsub, k_pair, pack32)
     got = cs.launch(_build.library(), torch.cuda.current_stream().cuda_stream,
                     *args, route=route, n_ctas=3, **kw)
     torch.cuda.synchronize()
@@ -1076,13 +1112,16 @@ def test_codes_tc_kernel_persistent_grid(cuda, pack32, k_pair, m, dsub,
 @pytest.mark.gpu
 def test_codes_routes_on_card(cuda):
     """Exact k_pair > 16 and rows wider than 128 take the CUDA-core kernel,
-    counted under its own key; asking the tensor-core route for them
-    raises. pack32 k_pair 52 at d = 128 takes the deep tensor-core
-    instance, k_pair 64 at d = 160 the CUDA cores."""
+    counted under its own key; asking a tensor-core route for them raises.
+    Exact k_pair 10 and pack32 k_pair 20 at d = 128 take the wgmma codes
+    instances, pack32 k_pair 40 and 52 there the sorted mma.sync instance,
+    k_pair 64 at d = 160 the CUDA cores."""
     from torchpq_tpu_torch import _build
     for m, dsub, k_pair, route in ((64, 2, 20, "exact"),
                                    (32, 5, 10, "exact"),
-                                   (64, 2, 20, "tc_pack32"),
+                                   (64, 2, 10, "tc_wgn_exact"),
+                                   (64, 2, 20, "tc_wgn_pack32"),
+                                   (64, 2, 40, "tc_pack32"),
                                    (64, 2, 52, "tc_pack32"),
                                    (32, 5, 64, "pack32")):
         pack32 = route.endswith("pack32")
@@ -1096,11 +1135,12 @@ def test_codes_routes_on_card(cuda):
             with pytest.raises(ValueError):
                 cs.launch(_build.library(),
                           torch.cuda.current_stream().cuda_stream, *args,
-                          route="tc_" + route, **kw)
+                          route="tc_wgn_" + route, **kw)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,dsub,pack32", [(64, 2, False), (128, 1, True)])
+@pytest.mark.parametrize("m,dsub,pack32", [(64, 2, False), (128, 1, True),
+                                           (32, 4, False), (128, 1, False)])
 def test_codes_kernel_matches_block_scan(cuda, m, dsub, pack32):
     """The codes kernel against the block-scan kernel over the bf16 decoded
     rows, live rows only. The two kernels sum in different orders (tensor
@@ -1186,8 +1226,9 @@ def test_code_domain_index_on_card_matches_cpu(cuda, f32_search):
         assert gate["pack32"] and gate["impl"] == "codes_scan", gate
         _assert_pack32_values(v, v_ref, i, i_ref, q, gate["s_eff"])
     # the probed plans run the tensor-core codes kernel only
-    assert cs.launches == dict(before, tc_exact=before["tc_exact"] + 2,
-                               tc_pack32=before["tc_pack32"] + 1)
+    assert cs.launches == dict(
+        before, tc_wgn_exact=before["tc_wgn_exact"] + 2,
+        tc_wgn_pack32=before["tc_wgn_pack32"] + 1)
 
 
 @pytest.mark.gpu
@@ -1251,7 +1292,7 @@ def _int8_held(args, kw, scale, q_scale, route, n_ctas=None):
 @pytest.mark.parametrize("euclidean", [True, False])
 @pytest.mark.parametrize("pack32,k_pair,s_eff", _INT8_CASES)
 @pytest.mark.parametrize("d", [128, 160, 256, 1024])
-def test_block_tc_int8_matches_plain(cuda, d, pack32, k_pair, s_eff,
+def test_block_wg_int8_matches_plain(cuda, d, pack32, k_pair, s_eff,
                                      euclidean):
     """The tensor-core int8 routes on random int8 inputs: rows of 128, 160
     and 256 bytes (the narrow s8 wgmma instances: one or two stages a
@@ -1274,7 +1315,7 @@ def test_block_tc_int8_matches_plain(cuda, d, pack32, k_pair, s_eff,
 @pytest.mark.parametrize("euclidean", [True, False])
 @pytest.mark.parametrize("pack32", [False, True])
 @pytest.mark.parametrize("d", [32, 128, 288, 1024])
-def test_block_tc_int8_ties_exact(cuda, d, pack32, euclidean):
+def test_block_wg_int8_ties_exact(cuda, d, pack32, euclidean):
     """int8_tie_inputs (equal rows all over each window, runs of them):
     the tensor-core int8 routes equal the plain version bit for bit on
     live rows, ties and their column order included; d = 32 is one k32
@@ -1295,7 +1336,7 @@ def test_block_tc_int8_ties_exact(cuda, d, pack32, euclidean):
 @pytest.mark.parametrize("pack32,k_pair,s_eff", [
     (False, 10, 640), (False, 16, 1024), (True, 10, 640), (True, 40, 1024)])
 @pytest.mark.parametrize("d", [128, 1024])
-def test_block_tc_int8_persistent_grid(cuda, d, pack32, k_pair, s_eff):
+def test_block_wg_int8_persistent_grid_windows(cuda, d, pack32, k_pair, s_eff):
     """A grid of 3 persistent CTAs over 64 blocks: each CTA walks ~21
     blocks, so the state it resets between blocks (live-tile rows, the
     pack32 phase parity, the exact lists and queues, the query rows, the

@@ -21,7 +21,15 @@ window [s_eff rows][d bytes] once each at d 16 to 1024 (narrow up to 256,
 k-chunked above), the k32 steps cover d, the narrow query buffer holds a
 block's rows of d bytes once each where the k32 descriptors point, and
 the int8 shared-memory formulas (each stage also carrying its columns'
-scales) equal the mirror's."""
+scales) equal the mirror's. The codes rows (the codes scan's instances of
+the same kernel, whose producer decodes the window) take the header's
+decode map: a tile's decoded stages equal the codebook's rows of its
+columns' codes in sw128_offset order, where the k16 descriptors read them,
+with no byte past d written; the producer's 8-byte code copies of a
+block's tiles cover the window's codes once each in column_slots order (m
+8 to 128, s_eff / g below and above 128, the deep groups' phase order);
+and the codes instances' shared-memory formula equals
+ops/codes_scan.py's mirror."""
 
 import shutil
 import subprocess
@@ -29,6 +37,7 @@ import subprocess
 import pytest
 
 from torchpq_tpu_torch.ops import block_scan as bs
+from torchpq_tpu_torch.ops import codes_scan as cs
 
 from pathlib import Path
 
@@ -36,6 +45,8 @@ _CSRC = Path(bs.__file__).resolve().parents[1] / "csrc"
 
 _HARNESS = r"""
 #include <cstdio>
+#include <cstring>
+#include <random>
 #include <set>
 #include <utility>
 #include <vector>
@@ -294,6 +305,140 @@ static void qbuf_i8() {
   std::printf("qbuf_i8 %s\n", fails > before ? "FAIL" : "OK");
 }
 
+// codes rows: the decode of a tile (every pass, every producer thread's
+// chunk items) against a random codebook, at each (m, dsub) with d = m dsub
+// <= 128, d % 8 == 0: element k of column cl lies at byte 2k % 128 of row
+// cl in stage 2k / 128 (sw128_offset: where a k16 descriptor of the row's
+// 64-row half reads it), and every byte past 2d keeps its fill
+static void codes_decode() {
+  const int before = fails;
+  const int shapes[][2] = {{8, 4},  {8, 5},  {8, 13}, {8, 16}, {16, 2},
+                           {16, 6}, {32, 3}, {32, 4}, {64, 2}, {64, 1},
+                           {128, 1}};
+  std::mt19937 rng(7);
+  for (const auto& sh : shapes) {
+    const int m = sh[0], dsub = sh[1], d = m * dsub;
+    std::vector<uint16_t> cb((size_t)m * 256 * dsub);
+    for (auto& x : cb) x = (uint16_t)rng();
+    std::vector<unsigned char> codes((size_t)BOX_ROWS * m);
+    for (auto& x : codes) x = (unsigned char)rng();
+    std::vector<unsigned char> st(2 * STAGE_BYTES, 0xAB);
+    const int lc = __builtin_ctz(pass_chunks(m));
+    CHECK("codes_decode", codes_passes(m) * pass_chunks(m) * CODE_CHUNK == m);
+    for (int ps = 0; ps < codes_passes(m); ++ps) {
+      for (int t = 0; t < 128; ++t) {
+        for (int e = t; e < (BOX_ROWS << lc); e += 128) {
+          int cl, ch;
+          chunk_item(e, lc, cl, ch);
+          const int chunk = (ps << lc) + ch;
+          uint32_t w[2];
+          std::memcpy(w, &codes[(size_t)cl * m + CODE_CHUNK * chunk], 8);
+          decode_chunk(w[0], w[1], cb.data(), dsub, chunk, cl, st.data(),
+                       st.data() + STAGE_BYTES);
+        }
+      }
+    }
+    for (int cl = 0; cl < BOX_ROWS; ++cl) {
+      for (int kb = 0; kb < 2 * SW_ROW; ++kb) {
+        const unsigned char got =
+            st[(kb / SW_ROW) * STAGE_BYTES + sw128_offset(cl, kb % SW_ROW)];
+        if (kb >= 2 * d) {
+          CHECK("codes_decode", got == 0xAB);
+          continue;
+        }
+        const int k = kb / 2, i = k / dsub;
+        const uint16_t want =
+            cb[((size_t)i * 256 + codes[(size_t)cl * m + i]) * dsub +
+               k % dsub];
+        CHECK("codes_decode", got == ((kb % 2) ? want >> 8 : want & 0xFF));
+      }
+    }
+    // the rows' k16 steps as the consumers' descriptors address them:
+    // 64-row half h of a stage, step ks, at row 64 h's byte 32 ks
+    for (int h = 0; h < 2; ++h) {
+      for (int ks = 0; ks < ksteps_of(d, 0); ++ks) {
+        CHECK("codes_decode",
+              (int)desc_start(kmajor_desc(h * STAGE_BYTES / 2, ks)) ==
+                  sw128_offset(64 * h, KSTEP_BYTES * ks));
+      }
+    }
+  }
+  std::printf("codes_decode %s\n", fails > before ? "FAIL" : "OK");
+}
+
+// codes rows: the producer's cp.async copies of a block's tiles (tile
+// order as the kernel's, every pass, every thread's items of columns <
+// nrow) read each byte of the window's codes [s0 m, (s0 + s_eff) m) once,
+// column c of the window from slot (c % s_rows) g + c / s_rows, and land
+// inside the raw slot at distinct bytes within a pass
+static void codes_fetch() {
+  const int before = fails;
+  for (int m : {8, 16, 32, 64, 128}) {
+    const int g = 128 / m;
+    // (s_eff, G): s_rows below 128, at it, above it and ragged; one tile;
+    // the deep groups' phase order
+    const int shapes[][2] = {{64 * g, 128}, {128 * g, 128}, {1024, 128},
+                             {1024, 512}, {2048, 256}, {200 * g, 128},
+                             {96, 96}};
+    const int lc = __builtin_ctz(pass_chunks(m));
+    for (const auto& sh : shapes) {
+      const int s_eff = sh[0], G = sh[1];
+      if (s_eff % g) continue;
+      const int s_rows = s_eff / g;
+      const float inv = 1.0f / (float)s_rows;
+      const bool phased = G > BOX_ROWS;
+      const int n_tiles = (s_eff + BOX_ROWS - 1) / BOX_ROWS;
+      const int tpp = phased ? s_eff / G : n_tiles;
+      const int stride = phased ? G : BOX_ROWS;
+      const int s0 = 48;  // a block's first slot (16-aligned)
+      std::vector<int> seen((size_t)s_eff * m, 0);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int ts = tile_start(it, tpp, stride);
+        const int nrow = BOX_ROWS < s_eff - ts ? BOX_ROWS : s_eff - ts;
+        for (int ps = 0; ps < codes_passes(m); ++ps) {
+          std::vector<int> raw(codes_raw_bytes(m), 0);
+          for (int t = 0; t < 128; ++t) {
+            for (int e = t; e < (BOX_ROWS << lc); e += 128) {
+              int cl, ch;
+              chunk_item(e, lc, cl, ch);
+              CHECK("codes_fetch", cl >= 0 && cl < BOX_ROWS && ch >= 0 &&
+                                       ch < (1 << lc));
+              if (cl >= nrow) continue;
+              const int c = ts + cl;
+              const int j = col_slot(c, s_rows, g, inv);
+              CHECK("codes_fetch", j == (c % s_rows) * g + c / s_rows);
+              const long src = ((long)s0 + j) * m +
+                               CODE_CHUNK * ((ps << lc) + ch) - (long)s0 * m;
+              const int dst = cl * (CODE_CHUNK << lc) + CODE_CHUNK * ch;
+              CHECK("codes_fetch", dst >= 0 && dst + 8 <= codes_raw_bytes(m));
+              CHECK("codes_fetch", src >= 0 && src + 8 <= (long)s_eff * m);
+              if (src < 0 || src + 8 > (long)s_eff * m || dst < 0 ||
+                  dst + 8 > codes_raw_bytes(m)) {
+                continue;
+              }
+              for (int x = 0; x < 8; ++x) {
+                seen[src + x] += 1;
+                raw[dst + x] += 1;
+              }
+            }
+          }
+          for (int x : raw) CHECK("codes_fetch", x <= 1);
+        }
+      }
+      for (int x : seen) CHECK("codes_fetch", x == 1);
+    }
+  }
+  // col_slot's f32 quotient, corrected, over a wide range of columns
+  for (int s_rows : {1, 3, 64, 100, 127, 128, 200, 512, 1000, 4096}) {
+    const float inv = 1.0f / (float)s_rows;
+    for (int c = 0; c < (1 << 16); c += 7) {
+      CHECK("codes_fetch",
+            col_slot(c, s_rows, 5, inv) == (c % s_rows) * 5 + c / s_rows);
+    }
+  }
+  std::printf("codes_fetch %s\n", fails > before ? "FAIL" : "OK");
+}
+
 int main() {
   swizzle();
   accumulator();
@@ -304,6 +449,20 @@ int main() {
   boxes_i8();
   narrow_boxes_i8();
   qbuf_i8();
+  codes_decode();
+  codes_fetch();
+  for (int pack32 = 0; pack32 < 2; ++pack32) {
+    for (int k_pair = 1; k_pair <= CODES_DEEP_K; ++k_pair) {
+      if (!pack32 && k_pair > 16) break;
+      for (const auto& md : {std::pair<int, int>{64, 2}, {32, 4}, {128, 1},
+                             {8, 4}, {8, 5}, {16, 8}}) {
+        std::printf("codes_smem %d %d %d %d %zu %d\n", md.first, md.second,
+                    pack32, k_pair,
+                    codes_smem_bytes(md.first, md.second, pack32, k_pair),
+                    codes_ring_of(pack32, k_pair));
+      }
+    }
+  }
   for (int pack32 = 0; pack32 < 2; ++pack32) {
     for (int k_pair = 1; k_pair <= 64; ++k_pair) {
       if (!pack32 && k_pair > 16) break;
@@ -345,7 +504,8 @@ def harness(tmp_path_factory):
 
 @pytest.mark.parametrize("check", ["swizzle", "accumulator", "descriptor",
                                    "boxes", "narrow_boxes", "qbuf",
-                                   "boxes_i8", "narrow_boxes_i8", "qbuf_i8"])
+                                   "boxes_i8", "narrow_boxes_i8", "qbuf_i8",
+                                   "codes_decode", "codes_fetch"])
 def test_layout_map(harness, check):
     """Each map of the header holds its properties (see the module
     docstring); the harness prints the first failing condition."""
@@ -424,3 +584,120 @@ def test_int8_smem_formula_matches_mirror(harness):
             assert int(nbytes) + stage > bs._SMEM_LIMIT, (pack32, k_pair)
     assert bs.wg_narrow_instance(1, 16, i8)[1] == 7
     assert bs.wg_narrow_instance(1, 16)[1] == 8
+
+
+def test_codes_smem_formula_matches_mirror(harness):
+    """csrc/wg_layout.cuh:codes_smem_bytes (the codes instances of
+    block_scan_wg.cu) and its ring stages equal ops/codes_scan.py's mirror
+    (wg_smem_bytes, wg_ring) at every exact k_pair 1-16 and pack32 k_pair
+    1-48, at PQ64, the 4-bit byte pairs, PQ128, PQ8 and PQ16 of d 32-128;
+    at d = 128 (PQ64) every exact and pack32 k_pair <= 16 fits with its
+    ring, and the next stage would not at the exact k_pair 16 and pack32
+    k_pair 16 instances' largest select."""
+    rows = [x.split() for x in harness if x.startswith("codes_smem ")]
+    assert len(rows) == 6 * (16 + 48)
+    for _, m, dsub, pack32, k_pair, nbytes, ring in rows:
+        m, dsub, pack32, k_pair = int(m), int(dsub), int(pack32), int(k_pair)
+        assert cs.wg_smem_bytes(m=m, dsub=dsub, pack32=pack32,
+                                k_pair=k_pair) == int(nbytes), \
+            (m, dsub, pack32, k_pair)
+        assert cs.wg_ring(pack32, k_pair) == int(ring)
+        if (m, dsub) == (64, 2) and k_pair <= 16:
+            assert int(nbytes) <= cs._SMEM_LIMIT
+    stage = bs._WG_STAGE_BYTES + 4 * bs._WG_BOX_ROWS + 16
+    for pack32 in (0, 1):
+        got = cs.wg_smem_bytes(m=64, dsub=2, pack32=pack32, k_pair=16)
+        assert got + stage + 4 * bs._WG_BOX_ROWS * pack32 > cs._SMEM_LIMIT
+
+
+# A tile's decode as the codes instances' producer runs it (every pass,
+# every thread's chunk items, wg_layout.cuh:chunk_item and decode_chunk):
+# argv m dsub; stdin the codebook [m][256][dsub] bf16 bits, then the codes
+# [128][m]; stdout the two stages [2][128][128 B], 0xAB where not written.
+_DECODE = r"""
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+
+#include "wg_layout.cuh"
+
+using namespace tpq::wg;
+
+int main(int argc, char** argv) {
+  const int m = std::atoi(argv[1]), dsub = std::atoi(argv[2]);
+  std::vector<uint16_t> cb((size_t)m * 256 * dsub);
+  std::vector<unsigned char> codes((size_t)BOX_ROWS * m);
+  if (std::fread(cb.data(), 2, cb.size(), stdin) != cb.size() ||
+      std::fread(codes.data(), 1, codes.size(), stdin) != codes.size()) {
+    return 1;
+  }
+  std::vector<unsigned char> st(2 * STAGE_BYTES, 0xAB);
+  const int lc = __builtin_ctz(pass_chunks(m));
+  for (int ps = 0; ps < codes_passes(m); ++ps) {
+    for (int t = 0; t < 128; ++t) {
+      for (int e = t; e < (BOX_ROWS << lc); e += 128) {
+        int cl, ch;
+        chunk_item(e, lc, cl, ch);
+        const int chunk = (ps << lc) + ch;
+        const unsigned char* c = &codes[(size_t)cl * m + CODE_CHUNK * chunk];
+        const uint32_t lo = c[0] | c[1] << 8 | c[2] << 16 | (uint32_t)c[3] << 24;
+        const uint32_t hi = c[4] | c[5] << 8 | c[6] << 16 | (uint32_t)c[7] << 24;
+        decode_chunk(lo, hi, cb.data(), dsub, chunk, cl, st.data(),
+                     st.data() + STAGE_BYTES);
+      }
+    }
+  }
+  std::fwrite(st.data(), 1, st.size(), stdout);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def decoder(tmp_path_factory):
+    """The tile decoder built with g++ against csrc/."""
+    gxx = shutil.which("g++")
+    assert gxx, "g++ is needed to compile csrc/wg_layout.cuh"
+    work = tmp_path_factory.mktemp("wg_decode")
+    (work / "decode.cpp").write_text(_DECODE)
+    exe = work / "decode"
+    subprocess.run([gxx, "-std=c++17", "-O1", "-Wall", "-Werror",
+                    f"-I{_CSRC}", str(work / "decode.cpp"), "-o", str(exe)],
+                   check=True, capture_output=True, text=True)
+    return exe
+
+
+def _sw128(row, kb):
+    return ((row // 8) * 1024 + (row % 8) * 128
+            + ((kb // 16) ^ (row % 8)) * 16 + kb % 16)
+
+
+@pytest.mark.parametrize("m,dsub", [(64, 2), (32, 4), (128, 1), (8, 9),
+                                    (16, 5), (8, 3)])
+def test_decoded_stages_equal_decode_codes(decoder, m, dsub):
+    """The codes instances' decode of a tile of 128 columns (the producer's
+    every pass and thread) holds ops/codes_scan.py:decode_codes' bf16 rows:
+    byte kb of column cl's row in stage kb / 128 at sw128_offset(cl, kb %
+    128), where the k16 descriptors read it (test_layout_map[qbuf]); the
+    bytes past the row's 2 d untouched. PQ64, the 4-bit byte pairs, PQ128
+    (two passes), and rows of d 72, 80 and 24 (a ragged k half)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(m * 100 + dsub)
+    cb = rng.integers(0, 1 << 16, (m, 256, dsub), dtype=np.uint16)
+    codes = rng.integers(0, 256, (128, m), dtype=np.uint8)
+    res = subprocess.run([str(decoder), str(m), str(dsub)], check=True,
+                         input=cb.tobytes() + codes.tobytes(),
+                         capture_output=True, timeout=60)
+    got = np.frombuffer(res.stdout, dtype=np.uint8)
+    assert got.size == 2 * bs._WG_STAGE_BYTES
+    rows = cs.decode_codes(
+        torch.from_numpy(codes),
+        torch.from_numpy(cb.view(np.int16)).view(torch.bfloat16))
+    want = rows.view(torch.int16).numpy().view(np.uint8).reshape(128, -1)
+    d = m * dsub
+    assert want.shape[1] == 2 * d
+    for cl in range(128):
+        for kb in range(256):
+            o = (kb // 128) * bs._WG_STAGE_BYTES + _sw128(cl, kb % 128)
+            assert got[o] == (want[cl, kb] if kb < 2 * d else 0xAB), (cl, kb)

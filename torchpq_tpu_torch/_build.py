@@ -56,6 +56,9 @@ _SIGNATURES = {
     "torchpq_codes_scan_tc": ([_P] * 9 + [_I] * 12 + [_P], _I),
     "torchpq_codes_scan_tc_smem": ([_I] * 4, _L),
     "torchpq_codes_scan_tc_occupancy": ([_I] * 4, _I),
+    "torchpq_codes_scan_wg": ([_P] * 9 + [_I] * 12 + [_P], _I),
+    "torchpq_codes_scan_wg_smem": ([_I] * 4, _L),
+    "torchpq_codes_scan_wg_occupancy": ([_I] * 4, _I),
     "torchpq_flat_scan": ([_P] * 7 + [_I] * 9 + [_P], _I),
     "torchpq_flat_scan_smem": ([_I] * 3, _L),
     "torchpq_flat_scan_tc": ([_P] * 7 + [_I] * 8 + [_P], _I),

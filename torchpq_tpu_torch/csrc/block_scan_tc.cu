@@ -60,9 +60,10 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_tc_kernel(
     int n_blocks, int p_tile, int d, int s_eff, int k_pair, float factor,
     int slot_mask, int n_groups) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  static_assert(PACK && KMAX == MAX_PACK_K, "the sorted pack32 instance");
   RowsSource src;
   src.init(decoded, penalty, 2 * d, row_ld(2 * d));
-  scan_blocks<PACK, KMAX>(
+  scan_blocks(
       src, smem_raw, reinterpret_cast<const unsigned char*>(qtable), probers,
       start_c, off, capb, out, n_blocks, p_tile, 2 * d, s_eff, k_pair,
       factor, slot_mask, n_groups);

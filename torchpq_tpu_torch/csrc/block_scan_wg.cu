@@ -193,6 +193,58 @@
 // only on the pack32 selects above k_pair 16 of narrow rows whose phases
 // cover fewer than 8 window tiles, which no workload runs on an int8
 // cache.
+//
+// Codes rows (CODES; the codes scan, ops/codes_scan.py, the counterpart of
+// torchpq_tpu/ops/pallas_codes_scan.py:scan_blocks_pallas_codes for d <=
+// 128): the window is not read from a cache but decoded from the packed
+// uint8 codes against the codebook by the producer warpgroup, in the same
+// narrow body; window column c = q s_rows + r holds slot r g + q
+// (ops/codes_scan.py:column_slots):
+//
+//   y_j   = concat_i bf16(codebook)[i, code[start_c[b] + j, i], :]
+//   score = factor * <bf16(q_p), y_j> - pen_j
+//
+// summed in f32 as the bf16 narrow rows are; pack32 keys carry the
+// column's slot in their low bits, the exact lists hold columns (ties: the
+// first column) and write their slots; pad rows dead. Exact k_pair <= 16,
+// pack32 k_pair <= 48 where codes_smem_bytes fits (deeper: codes_scan_tc.cu).
+// - What bounds it: at the code domain's arguments (4,507 blocks of 128
+//   probers, s_eff 1,024, PQ64 at d = 128) the codes' bytes, ~0.3 GB
+//   (~0.1 ms at 3.35 TB/s), and the live probers' products, ~1e11
+//   operations (~0.1 ms at 989 TFLOP/s); beside them every block decodes
+//   s_eff * m codebook lookups from shared memory whatever its live count
+//   (~3e8 a call) and every live score passes through the select.
+// - The producer, per tile: its threads' cp.async copies of the tile's
+//   codes (8-byte chunks of 8 subspaces, wg_layout.cuh:chunk_item, slot by
+//   col_slot) into a raw slot [128][min(m, 64) B] (m = 128 in two passes),
+//   issued for the next tile as soon as this thread has decoded the last
+//   one; the wait for the tile's stages to be released; each thread's
+//   cp.async wait (it decodes the very chunks it copied); the decode
+//   against the codebook (staged once per CTA, 64 KB at d = 128) straight
+//   into the stages' 128-byte swizzled K-major rows (decode_chunk: a
+//   chunk's dsub 16-byte pieces, codebook words loaded before their
+//   stores); the columns' penalties and (pack32) slots in the tile's last
+//   stage, the last k step's bytes past d zeroed; fence.proxy.async (the
+//   generic proxy's stores, for wgmma's reads), then its arrivals. The
+//   block's query rows as the narrow rows' (one buffer).
+// - The consumers release a tile's first stage right after its products,
+//   its last after the scores and selects: the producer decodes the next
+//   tile beside them (released with the last, the exact instances, on
+//   three stages, ran 32-33% longer, pack32 0-2%: chip_variants.py
+//   --codes, wgc_noearly; a fourth exact stage in a raw slot half as large
+//   gained 1-2%, wgc_pass4). The decode is not wholly hidden: a producer
+//   that decodes nothing (wgc_nodecode, wrong keys) ran 9-16% faster, with
+//   its pointers __restrict__ and its loop unrolled by two no faster
+//   (wgc_restrict2; NVIDIA H100 80GB HBM3, 700.00 W).
+// - Registers: the producer's decode takes 56 (at 40 ptxas spilled 32 B
+//   and the scan ran 2-7% longer: wgc_regs40), the consumers 224 (no
+//   spill: they hold no TMA or query-copy state); 128 x 56 + 256 x 224 =
+//   64,512.
+// - Shared memory (wg_layout.cuh: codes_smem_bytes): 1,024 B of slack, one
+//   query buffer, the stages (a decoded k half, penalties, pack32 slots,
+//   barriers), the codebook 512 d B, the raw slot, prober rows and flags
+//   and the select's arrays: at PQ64, exact k_pair 10 218,720 B (3
+//   stages), 16 224,864 B (3); pack32 16 221,312 B (5), 20 210,032 B (4).
 
 #include <cstdint>
 #include <type_traits>
@@ -224,6 +276,10 @@ constexpr int CONSUMER_REGS = 232;  // <= 64,512 (168 x 384 at launch)
 // query gather fits 40 one copy at a time)
 constexpr int NARROW_PRODUCER_REGS = 40;
 constexpr int NARROW_CONSUMER_REGS = 232;
+// codes rows: the producer decodes (its loops at 40 spilled 16-32 B, at 56
+// none), and the consumers fit 224 (they hold no TMA or query-copy state)
+constexpr int CODES_PRODUCER_REGS = 56;
+constexpr int CODES_CONSUMER_REGS = 224;
 constexpr int BAR_CONSUMERS = 1;    // named barrier of the consumers
 constexpr int BAR_PRODUCER = 2;     // and of the producer warpgroup
 constexpr int FULL_ARRIVALS = 2 * 128;  // a producer thread's arrival, and
@@ -244,13 +300,74 @@ __device__ __forceinline__ float wg_score(int x, float rowm, float colm,
   return __fmaf_rn(__int2float_rn(x), __fmul_rn(rowm, colm), -pen);
 }
 
+// The codes rows' inputs (CODES): the packed codes (slot j's m bytes at j
+// m), the codebook [m][256][dsub] bf16 (d = m dsub), the pack group g, the
+// column -> slot map's s_rows = s_eff / g and inv = 1 / s_rows, a tile's
+// passes and log2 of a pass's chunks of a column (wg_layout.cuh:
+// codes_passes, pass_chunks): kernel parameters, so that the producer
+// keeps none of them in its registers.
+struct CodesArgs {
+  const unsigned char* codes;
+  const uint16_t* codebook;
+  int m, dsub, g, s_rows;
+  float inv;
+  int passes, lc;
+};
+
+// CODES: this thread's cp.async copies of pass ps of the tile of window
+// columns ts .. ts + nrow - 1 (chunks ps * 2^lc .. of each column's codes)
+// of the block whose window starts at slot s0, into the raw slot [128][8 *
+// 2^lc], committed as one group; the decode (codes_decode) reads the very
+// chunks this thread copied.
+__device__ __forceinline__ void codes_fetch(const CodesArgs& ca,
+                                            unsigned char* raw, int s0,
+                                            int ts, int nrow, int ps) {
+  const int t = threadIdx.x;
+#pragma unroll 1
+  for (int e = t; e < (BOX_ROWS << ca.lc); e += 128) {
+    int cl, ch;
+    chunk_item(e, ca.lc, cl, ch);
+    if (cl < nrow) {
+      const int j = col_slot(ts + cl, ca.s_rows, ca.g, ca.inv);
+      tpq::cp_async8(raw + cl * (CODE_CHUNK << ca.lc) + CODE_CHUNK * ch,
+                     ca.codes + ((size_t)s0 + j) * ca.m +
+                         CODE_CHUNK * ((ps << ca.lc) + ch));
+    }
+  }
+  tpq::cp_async_commit();
+}
+
+// CODES: pass ps of the tile decoded from the raw slot into its stages
+// (stage0, stage1: k halves 0 and 1), once this thread's copies of it have
+// landed.
+__device__ __forceinline__ void codes_decode(const CodesArgs& ca,
+                                             const unsigned char* raw,
+                                             const uint16_t* cb_s, int nrow,
+                                             int ps, unsigned char* stage0,
+                                             unsigned char* stage1) {
+  const int t = threadIdx.x;
+  tpq::cp_async_wait<0>();
+#pragma unroll 1
+  for (int e = t; e < (BOX_ROWS << ca.lc); e += 128) {
+    int cl, ch;
+    chunk_item(e, ca.lc, cl, ch);
+    if (cl < nrow) {
+      const uint2 rc = *reinterpret_cast<const uint2*>(
+          raw + cl * (CODE_CHUNK << ca.lc) + CODE_CHUNK * ch);
+      decode_chunk(rc.x, rc.y, cb_s, ca.dsub, (ps << ca.lc) + ch, cl,
+                   stage0, stage1);
+    }
+  }
+}
+
 // PACK: the select; KMAX: exact lists' length, or pack32's largest k_pair
 // extracted pass by pass (PASS_K) or sorted (MAX_PACK_K); NST: ring
 // stages; QB: the narrow rows' resident query buffers (rows of at most 256
 // bytes), 0 for the k-chunked rows' query copies with every stage; I8:
 // int8 rows (s8 wgmma k32, exact s32 sums, q_scale and scale read), else
-// bf16 (wgmma k16, f32 sums; q_scale and scale unused).
-template <bool PACK, int KMAX, int NST, int QB, bool I8>
+// bf16 (wgmma k16, f32 sums; q_scale and scale unused); CODES (narrow, bf16):
+// the window decoded from the codes by the producer (ca; tmap unused).
+template <bool PACK, int KMAX, int NST, int QB, bool I8, bool CODES>
 __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
     const __grid_constant__ CUtensorMap tmap,
     const unsigned char* __restrict__ qtable,
@@ -259,7 +376,8 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
     const int* __restrict__ capb, const float* __restrict__ penalty,
     const float* __restrict__ scale, int* __restrict__ out, int n_blocks,
     int p_tile, int d, int s_eff, int k_pair, float factor, int slot_mask,
-    int n_groups) {
+    int n_groups, const CodesArgs ca) {
+  static_assert(!CODES || (QB > 0 && !I8), "codes rows are narrow bf16");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((SW_ATOM - (smem_u32(smem_raw) & (SW_ATOM - 1))) &
@@ -273,8 +391,15 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
   float* pen_s = reinterpret_cast<float*>(
       aq + (NARROW ? QB * QBUF_BYTES : NST * STAGE_BYTES));  // [NST][128]
   float* scl_s = pen_s + NST * BOX_ROWS;  // int8: [NST][128]
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(scl_s + (I8 ? NST * BOX_ROWS : 0));
+  // codes pack32: the columns' slots [NST][128]
+  int* slt_s = reinterpret_cast<int*>(scl_s + (I8 ? NST * BOX_ROWS : 0));
+  // codes: the codebook [m][256][dsub] bf16, the raw slot [128][8 * cpp]
+  uint16_t* cb_s =
+      reinterpret_cast<uint16_t*>(slt_s + (CODES && PACK ? NST * BOX_ROWS : 0));
+  unsigned char* raw_s =
+      reinterpret_cast<unsigned char*>(cb_s) + (CODES ? 512 * d : 0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      raw_s + (CODES ? codes_raw_bytes(ca.m) : 0));
   uint64_t* empty = full + NST;
   uint64_t* qfull = empty + NST;  // narrow: [QB] each
   uint64_t* qempty = qfull + QB;
@@ -310,11 +435,18 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
     }
     mbar_init_fence();
   }
+  if constexpr (CODES) {  // the codebook, 16 bytes a thread step
+    const uint4* src = reinterpret_cast<const uint4*>(ca.codebook);
+    uint4* dst = reinterpret_cast<uint4*>(cb_s);
+    for (int i = t; i < 32 * d; i += THREADS) dst[i] = src[i];
+  }
   __syncthreads();
 
   if (wgi == 0) {
     // ---- producer: the window by TMA, the query rows by cp.async ----
-    setmaxnreg_dec<(NARROW ? NARROW_PRODUCER_REGS : PRODUCER_REGS)>();
+    setmaxnreg_dec<(CODES    ? CODES_PRODUCER_REGS
+                    : NARROW ? NARROW_PRODUCER_REGS
+                             : PRODUCER_REGS)>();
     const int lane = t % 32;
     const int warp = t / 32;
     int g = 0;   // stages filled
@@ -333,55 +465,104 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
       const int s0 = start_c[b];
       const int o0 = off[b];
       const int o1 = o0 + capb[b];
+      if constexpr (CODES) {  // the block's first tile's codes
+        codes_fetch(ca, raw_s, s0, 0, min(BOX_ROWS, s_eff), 0);
+      }
       for (int it = 0; it < n_tiles; ++it) {
         const int ts = tile_start(it, tpp, stride);
         const int nrow = min(BOX_ROWS, s_eff - ts);
-        for (int st = 0; st < nst; ++st, ++g) {
-          const int slot = g % NST;
-          uint64_t* fb = full + slot;
-          mbar_wait(empty + slot, ((g / NST) & 1) ^ 1);
-          if (t == 0) {
-            mbar_expect_tx(fb, STAGE_BYTES);
-            tma_load_2d(win + slot * STAGE_BYTES, &tmap, fb, box_x(st, E),
-                        box_y(s0, ts));
+        if constexpr (CODES) {
+          // the tile's nst stages, decoded by the producer's threads once
+          // the consumers have released them: pass by pass from the raw
+          // slot, the next pass's (or the next tile's) codes copied as soon
+          // as this thread's reads of the slot are done
+#pragma unroll 1
+          for (int st = 0; st < nst; ++st) {
+            mbar_wait(empty + (g + st) % NST, (((g + st) / NST) & 1) ^ 1);
           }
-          if (!NARROW && copy) {
-            // the warp's 32 rows, 4 a copy: lane l takes 16-byte piece
-            // l % 8 of row 32 warp + 4 i + l / 8 (whole 128-byte lines).
-            // The prober and the thread index pass through an opaque move,
-            // so the addresses are worked out anew each stage rather than
-            // kept across the loop in registers the producer lacks.
-            int pv, tv;
-            asm volatile("mov.b32 %0, %1;" : "=r"(pv) : "r"(pr));
-            asm volatile("mov.b32 %0, %1;" : "=r"(tv) : "r"(t));
-            unsigned char* dst = aq + slot * STAGE_BYTES;
-            const int c = tv % 8;
-            const int kb = st * SW_ROW + 16 * c;  // the piece's row byte
+          unsigned char* st0 = win + (g % NST) * STAGE_BYTES;
+          unsigned char* st1 = win + ((g + 1) % NST) * STAGE_BYTES;
+#pragma unroll 1
+          for (int ps = 0; ps < ca.passes; ++ps) {
+            codes_decode(ca, raw_s, cb_s, nrow, ps, st0, st1);
+            if (ps + 1 < ca.passes) {
+              codes_fetch(ca, raw_s, s0, ts, nrow, ps + 1);
+            } else if (it + 1 < n_tiles) {
+              const int tn = tile_start(it + 1, tpp, stride);
+              codes_fetch(ca, raw_s, s0, tn, min(BOX_ROWS, s_eff - tn), 0);
+            }
+          }
+          // column t's penalty (and pack32 slot) in the tile's last stage,
+          // and the bytes of the row's last k step past d zeros (the query
+          // rows' are too: no stale bits of an earlier tile enter a sum)
+          const int last = (g + nst - 1) % NST;
+          float p = 0.0f;
+          int sl = 0;
+          if (t < nrow) {
+            sl = col_slot(ts + t, ca.s_rows, ca.g, ca.inv);
+            p = __ldg(penalty + s0 + sl) +
+                ((sl >= o0 && sl < o1) ? 0.0f : big_penalty());
+          }
+          pen_s[last * BOX_ROWS + t] = p;
+          if constexpr (PACK) slt_s[last * BOX_ROWS + t] = sl;
+          if ((2 * d) % KSTEP_BYTES) {
+            store16(win + last * STAGE_BYTES +
+                        sw128_offset(t, (2 * d) % SW_ROW),
+                    0u, 0u, 0u, 0u);
+          }
+          // the generic proxy's stores, for the consumers' wgmma reads
+          fence_proxy_async();
+#pragma unroll 1
+          for (int st = 0; st < nst; ++st) mbar_arrive(full + (g + st) % NST);
+          g += nst;
+        } else {
+          for (int st = 0; st < nst; ++st, ++g) {
+            const int slot = g % NST;
+            uint64_t* fb = full + slot;
+            mbar_wait(empty + slot, ((g / NST) & 1) ^ 1);
+            if (t == 0) {
+              mbar_expect_tx(fb, STAGE_BYTES);
+              tma_load_2d(win + slot * STAGE_BYTES, &tmap, fb, box_x(st, E),
+                          box_y(s0, ts));
+            }
+            if (!NARROW && copy) {
+              // the warp's 32 rows, 4 a copy: lane l takes 16-byte piece
+              // l % 8 of row 32 warp + 4 i + l / 8 (whole 128-byte lines).
+              // The prober and the thread index pass through an opaque move,
+              // so the addresses are worked out anew each stage rather than
+              // kept across the loop in registers the producer lacks.
+              int pv, tv;
+              asm volatile("mov.b32 %0, %1;" : "=r"(pv) : "r"(pr));
+              asm volatile("mov.b32 %0, %1;" : "=r"(tv) : "r"(t));
+              unsigned char* dst = aq + slot * STAGE_BYTES;
+              const int c = tv % 8;
+              const int kb = st * SW_ROW + 16 * c;  // the piece's row byte
 #pragma unroll
-            for (int i = 0; i < 8; ++i) {
-              const int rr = 4 * i + (tv % 32) / 8;  // of the warp's 32
-              const int q = __shfl_sync(0xffffffffu, pv, rr);
-              tpq::cp_async16(
-                  dst + sw128_offset((tv / 32) * 32 + rr, 16 * c),
-                  reinterpret_cast<const unsigned char*>(qtable) +
-                      (size_t)max(q, 0) * rb + kb,
-                  q >= 0 && kb < rb ? 16 : 0);
+              for (int i = 0; i < 8; ++i) {
+                const int rr = 4 * i + (tv % 32) / 8;  // of the warp's 32
+                const int q = __shfl_sync(0xffffffffu, pv, rr);
+                tpq::cp_async16(
+                    dst + sw128_offset((tv / 32) * 32 + rr, 16 * c),
+                    reinterpret_cast<const unsigned char*>(qtable) +
+                        (size_t)max(q, 0) * rb + kb,
+                    q >= 0 && kb < rb ? 16 : 0);
+              }
             }
-          }
-          if (st == nst - 1) {  // the tile's penalties (int8: and scales)
-            float p = 0.0f;
-            float c = 0.0f;
-            if (t < nrow) {
-              const int j = ts + t;
-              p = __ldg(penalty + s0 + j) +
-                  ((j >= o0 && j < o1) ? 0.0f : big_penalty());
-              if constexpr (I8) c = __ldg(scale + s0 + j);
+            if (st == nst - 1) {  // the tile's penalties (int8: and scales)
+              float p = 0.0f;
+              float c = 0.0f;
+              if (t < nrow) {
+                const int j = ts + t;
+                p = __ldg(penalty + s0 + j) +
+                    ((j >= o0 && j < o1) ? 0.0f : big_penalty());
+                if constexpr (I8) c = __ldg(scale + s0 + j);
+              }
+              pen_s[slot * BOX_ROWS + t] = p;
+              if constexpr (I8) scl_s[slot * BOX_ROWS + t] = c;
             }
-            pen_s[slot * BOX_ROWS + t] = p;
-            if constexpr (I8) scl_s[slot * BOX_ROWS + t] = c;
+            if (!NARROW) mbar_arrive_cp_async(fb);
+            mbar_arrive(fb);
           }
-          if (!NARROW) mbar_arrive_cp_async(fb);
-          mbar_arrive(fb);
         }
         if constexpr (NARROW) {
           if (it == 0) {
@@ -425,7 +606,9 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
     cp_async_wait_all();
   } else {
     // ---- consumers: products, scores and selects ----
-    setmaxnreg_inc<(NARROW ? NARROW_CONSUMER_REGS : CONSUMER_REGS)>();
+    setmaxnreg_inc<(CODES    ? CODES_CONSUMER_REGS
+                    : NARROW ? NARROW_CONSUMER_REGS
+                             : CONSUMER_REGS)>();
     const int ct = t - 128;
     const int lane = ct % 32;
     const int cw = ct / 32;  // consumer warp
@@ -568,11 +751,13 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
           const int sb = (g + 1) % NST;
           mbar_wait(full + sa, (g / NST) & 1);
           if (nsc > 1) mbar_wait(full + sb, ((g + 1) / NST) & 1);
-          if (!NARROW) fence_proxy_async();  // the stage's query copies
+          // the stage's query copies (codes: the decoded tile's stores)
+          if (!NARROW || CODES) fence_proxy_async();
           const int ka = ksteps_of(d, 2 * kc, E);
           const int kb = nsc > 1 ? ksteps_of(d, 2 * kc + 1, E) : 0;
           const float* pen = pen_s + ((g + nsc - 1) % NST) * BOX_ROWS;
           const float* scl = scl_s + ((g + nsc - 1) % NST) * BOX_ROWS;
+          const int* slt = slt_s + ((g + nsc - 1) % NST) * BOX_ROWS;
           // the chunk's first product continues the tile's chain (k-chunked
           // int8 rows past their first chunk) or starts from zero
           const bool cont = !APART && kc > 0;
@@ -656,6 +841,15 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
               }
             }
           }
+          if constexpr (CODES) {
+            // the products are done with the chunk's first stage: released
+            // before the scores, so that the producer decodes the next tile
+            // beside them (the last stage holds the penalties and slots)
+            if (nsc > 1) {
+              __syncwarp();
+              if (lane == 0) mbar_arrive(empty + sa);
+            }
+          }
           // at a tile's last chunk, the scores (after the chunk's products:
           // no lane-dependent code between two of its wgmmas)
 #pragma unroll
@@ -676,6 +870,11 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
                       if constexpr (I8) {
                         cs = *reinterpret_cast<const float2*>(scl + cl);
                       }
+                      // codes: the columns' slots, the keys' low bits
+                      int2 sl = make_int2(0, 0);
+                      if constexpr (CODES) {
+                        sl = *reinterpret_cast<const int2*>(slt + cl);
+                      }
 #pragma unroll
                       for (int i = 0; i < 2; ++i) {
                         if (cl + i < nscore) {
@@ -685,7 +884,8 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
                                 wg_score(sum[lh][nt][2 * rr + i], rowm[rr],
                                          i ? cs.y : cs.x, i ? p.y : p.x);
                             const int key =
-                                (sortable(sc) & ~slot_mask) | (ts + cl + i);
+                                (sortable(sc) & ~slot_mask) |
+                                (CODES ? (i ? sl.y : sl.x) : ts + cl + i);
                             int& best = mx[rr][16 * lh + 2 * nt + i];
                             best = max(best, key);
                           }
@@ -777,7 +977,7 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
           }
           __syncwarp();
           if (lane == 0) {  // the chunk's stages are free again
-            mbar_arrive(empty + sa);
+            if (!CODES || nsc == 1) mbar_arrive(empty + sa);
             if (nsc > 1) mbar_arrive(empty + sb);
             // narrow: and the query buffer after the block's last products
             if (NARROW && it + 1 == n_tiles) mbar_arrive(qempty + qs);
@@ -886,6 +1086,7 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
           if (prow_s[p] >= 0) {
             int* o = out + ((size_t)b * p_tile + p) * 2 * k_pair;
             const float dead = -big_penalty() / 2.0f;
+            // codes: the lists hold window columns, the output their slots
             int h0 = 0, h1 = 0;
             for (int i = 0; i < k_pair; ++i) {
               float v = neg_inf();
@@ -908,7 +1109,10 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
               h1 += bs == 1;
               const bool alive = v > dead;
               o[i] = sortable(alive ? v : neg_inf());
-              o[k_pair + i] = alive ? s0 + c : -1;
+              o[k_pair + i] =
+                  alive ? s0 + (CODES ? col_slot(c, ca.s_rows, ca.g, ca.inv)
+                                      : c)
+                        : -1;
             }
           }
         }
@@ -928,10 +1132,10 @@ size_t smem_of(int d, int pack32, int k_pair, int i8, int inst_k = 0) {
              : smem_bytes(pack32, k_pair, ring_of(pack32, ik), i8);
 }
 
-template <bool PACK, int KMAX, int NST, int QB, bool I8>
-int occupancy_of(int d, int pack32, int k_pair) {
-  auto kern = block_scan_wg_kernel<PACK, KMAX, NST, QB, I8>;
-  const size_t smem = smem_of(d, pack32, k_pair, I8);
+// CTAs one SM holds at once of `kern` with `smem` bytes of dynamic shared
+// memory, or minus the CUDA error code.
+template <typename Kernel>
+int occupancy_at(Kernel kern, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess) {
@@ -945,6 +1149,12 @@ int occupancy_of(int d, int pack32, int k_pair) {
                                                         smem);
   }
   return err == cudaSuccess ? n : -(int)err;
+}
+
+template <bool PACK, int KMAX, int NST, int QB, bool I8>
+int occupancy_of(int d, int pack32, int k_pair) {
+  return occupancy_at(block_scan_wg_kernel<PACK, KMAX, NST, QB, I8, false>,
+                      smem_of(d, pack32, k_pair, I8));
 }
 
 // CTAs one SM holds at once of the instance that serves this select.
@@ -1035,10 +1245,10 @@ int launch_wg(const void* qtable, const float* q_scale, const int* probers,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define TPQ_LAUNCH(...)                                                     \
   return tpq::launch_kernel(                                                \
-      block_scan_wg_kernel<__VA_ARGS__, I8>, dim3(n_ctas), THREADS, smem,   \
-      st, map, static_cast<const unsigned char*>(qtable), q_scale, probers, \
-      start_c, off, capb, penalty, scale, out, n_blocks, p_tile, d, s_eff,  \
-      k_pair, factor, slot_mask, n_groups)
+      block_scan_wg_kernel<__VA_ARGS__, I8, false>, dim3(n_ctas), THREADS, \
+      smem, st, map, static_cast<const unsigned char*>(qtable), q_scale,    \
+      probers, start_c, off, capb, penalty, scale, out, n_blocks, p_tile,   \
+      d, s_eff, k_pair, factor, slot_mask, n_groups, CodesArgs{})
   if (rb <= NARROW_ROW) {  // narrow rows: resident query buffers
     if (pack32 && inst_k > tc::PASS_K) {  // the deep selects
       TPQ_LAUNCH(true, tc::PASS_K, NRING_DEEP, NQB_DEEP);
@@ -1054,6 +1264,63 @@ int launch_wg(const void* qtable, const float* q_scale, const int* probers,
   TPQ_LAUNCH(false, 16, RING_EXACT, 0);
 #undef TPQ_LAUNCH
 }
+
+// The codes instance of this select (exact k_pair <= 10 or 16, pack32
+// k_pair <= 16 or 17-48): its kernel, ring stages and query buffers.
+#define TPQ_CODES_INSTANCE(pack32, k_pair, X)                      \
+  ((pack32) ? ((k_pair) <= 16 ? X(true, tc::PASS_K, CRING_PACK_16) \
+                              : X(true, tc::PASS_K, CRING_PACK))   \
+            : ((k_pair) <= 10 ? X(false, 10, CRING_EXACT)          \
+                              : X(false, 16, CRING_EXACT)))
+
+int occupancy_codes(int m, int dsub, int pack32, int k_pair) {
+  const size_t smem = codes_smem_bytes(m, dsub, pack32, k_pair);
+#define TPQ_OCC(P, K, N) \
+  occupancy_at(block_scan_wg_kernel<P, K, N, CQB, false, true>, smem)
+  return TPQ_CODES_INSTANCE(pack32, k_pair, TPQ_OCC);
+#undef TPQ_OCC
+}
+
+int launch_codes(const void* qtable, const int* probers, const int* start_c,
+                 const int* off, const int* capb, const float* penalty,
+                 const unsigned char* codes, const void* codebook, int* out,
+                 int n_blocks, int p_tile, int m, int dsub, int g, int s_eff,
+                 int k_pair, int euclidean, int pack32, int slot_mask,
+                 int n_groups, int n_ctas, void* stream) {
+  const int d = m * dsub;
+  const size_t smem = codes_smem_bytes(m, dsub, pack32, k_pair);
+  if (m < CODE_CHUNK || m > 128 || (m & (m - 1)) || dsub <= 0 ||
+      !tc::shape_ok(n_blocks, n_ctas, p_tile, 2 * d, NARROW_ROW, s_eff,
+                    k_pair, pack32, n_groups) ||
+      (pack32 && k_pair > CODES_DEEP_K) || g <= 0 || s_eff % g ||
+      smem > tc::SMEM_LIMIT || reinterpret_cast<uintptr_t>(qtable) % 16 ||
+      reinterpret_cast<uintptr_t>(codebook) % 16 ||
+      reinterpret_cast<uintptr_t>(codes) % CODE_CHUNK) {
+    return (int)cudaErrorInvalidValue;
+  }
+  CUtensorMap map = {};  // unused: the producer decodes the window
+  const CodesArgs ca = {codes,
+                        static_cast<const uint16_t*>(codebook),
+                        m,
+                        dsub,
+                        g,
+                        s_eff / g,
+                        1.0f / (float)(s_eff / g),
+                        codes_passes(m),
+                        __builtin_ctz(pass_chunks(m))};
+  const float factor = euclidean ? 2.0f : 1.0f;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TPQ_RUN(P, K, N)                                                     \
+  tpq::launch_kernel(block_scan_wg_kernel<P, K, N, CQB, false, true>,        \
+                     dim3(n_ctas), THREADS, smem, st, map,                   \
+                     static_cast<const unsigned char*>(qtable),              \
+                     (const float*)nullptr, probers, start_c, off, capb,     \
+                     penalty, (const float*)nullptr, out, n_blocks, p_tile, \
+                     d, s_eff, k_pair, factor, slot_mask, n_groups, ca)
+  return TPQ_CODES_INSTANCE(pack32, k_pair, TPQ_RUN);
+#undef TPQ_RUN
+}
+#undef TPQ_CODES_INSTANCE
 
 }  // namespace
 
@@ -1145,4 +1412,40 @@ extern "C" int torchpq_block_scan_wg_occupancy(int d, int pack32,
 extern "C" int torchpq_block_scan_wg_int8_occupancy(int d, int pack32,
                                                     int k_pair) {
   return occupancy_wg<true>(d, pack32, k_pair);
+}
+
+// The codes scan on this kernel's narrow body (codes_scan_wg: the window
+// decoded by the producer warpgroup). qtable [nq, d] bf16 (16-byte
+// aligned), probers [n_blocks, p_tile] int32 (p_tile % 16 == 0, p_tile <=
+// 128), start_c / off / capb [n_blocks] int32, penalty [capacity] f32,
+// codes the packed uint8 storage (slot j's m bytes at j m; 8-byte
+// aligned), m a power of two from 8 to 128, codebook [m, 256, dsub] bf16
+// (16-byte aligned), d = m * dsub <= 128 and d % 8 == 0, g the pack group
+// (s_eff % g == 0), out int32; exact: k_pair <= 16; pack32: k_pair <= 48
+// and n_groups % 8 == 0, either n_groups == s_eff <= 128 or n_groups a
+// multiple of 128 that divides s_eff. n_ctas: the persistent grid (at most
+// n_blocks). Returns 0 or the CUDA error code of an attribute call or the
+// launch (cudaErrorInvalidValue, without launching, for other shapes or a
+// shared memory above the limit: codes_smem_bytes). Launches on `stream`,
+// does not synchronize and allocates nothing.
+extern "C" int torchpq_codes_scan_wg(
+    const void* qtable, const int* probers, const int* start_c,
+    const int* off, const int* capb, const float* penalty,
+    const unsigned char* codes, const void* codebook, int* out, int n_blocks,
+    int p_tile, int m, int dsub, int g, int s_eff, int k_pair, int euclidean,
+    int pack32, int slot_mask, int n_groups, int n_ctas, void* stream) {
+  return launch_codes(qtable, probers, start_c, off, capb, penalty, codes,
+                      codebook, out, n_blocks, p_tile, m, dsub, g, s_eff,
+                      k_pair, euclidean, pack32, slot_mask, n_groups, n_ctas,
+                      stream);
+}
+
+extern "C" long long torchpq_codes_scan_wg_smem(int m, int dsub, int pack32,
+                                               int k_pair) {
+  return (long long)codes_smem_bytes(m, dsub, pack32, k_pair);
+}
+
+extern "C" int torchpq_codes_scan_wg_occupancy(int m, int dsub, int pack32,
+                                               int k_pair) {
+  return occupancy_codes(m, dsub, pack32, k_pair);
 }

@@ -1,134 +1,65 @@
-// IVF block scan over PQ codes on Hopper's tensor cores (sm_90a): the
-// counterpart of torchpq_tpu/ops/pallas_codes_scan.py:scan_blocks_pallas_codes
-// for rows of d <= 128 (codes_scan.cu, on the CUDA cores, serves the rest).
-// It computes what codes_scan.cu computes, for block b, prober p and window
+// IVF block scan over PQ codes on Hopper's tensor cores (sm_90a), mma.sync
+// instance: the counterpart of
+// torchpq_tpu/ops/pallas_codes_scan.py:scan_blocks_pallas_codes for the
+// pack32 selects above k_pair 16 that block_scan_wg.cu's codes instances
+// leave (ops/codes_scan.py:pick_route): k_pair 49-64, the IVFPQR code
+// domain's base scan at k' = 400, and k_pair 17-48 where their shared
+// memory does not fit. Those take exact k_pair <= 16 and pack32 k_pair <=
+// 48 on wgmma, the window decoded by a producer warpgroup; codes_scan.cu,
+// on the CUDA cores, serves the rest. For block b, prober p and window
 // column c < s_eff holding slot j = (c % s_rows) * g + c / s_rows:
 //
 //   y_j   = concat_i bf16(codebook)[i, code[start_c[b] + j, i], :]
 //   score = factor * <bf16(q_p), y_j> - pen_j,   factor = 2 (euclidean) or 1
 //   pen_j = penalty[start_c[b] + j] + (off[b] <= j < off[b] + cap[b] ? 0 : BIG)
 //
-// summed in f32, then scan_common.cuh's selects over the columns (exact:
-// value descending, column ascending; pack32: one maximal key per strided
-// group of columns {j, j+G, ...}, then the k_pair largest) in block_scan.cu's
-// wire format. One difference: rows whose prober is -1 are not scored but
-// written dead (exact: sortable(-inf) keys and -1 addresses; pack32:
-// INT_MIN). ops/adc.py:_merge_pairs never reads them.
-//
-// What bounds it on an H100: at the code-domain plans' arguments (4,507
-// blocks of 128 probers, s_eff 1,024, PQ64 at d = 128) the bytes are ~0.3 GB
-// of codes (~0.1 ms at 3.35 TB/s) and the products of the live probers
-// ~9.4e10 operations (~0.1 ms at 989 TFLOP/s bf16). Each block decodes
-// s_eff * m codebook lookups from shared memory whatever its live count,
-// ~3e8 lookups per call, and every live score passes through the select,
-// ~3.7e8 scores: instruction issue, shared-memory traffic and latency, not
-// bytes or products. codes_scan.cu spent its time on what this design
-// drops: an f32 FMA chain per prober (every decoded element feeds 128
-// FMAs), pad probers scored in full (15% of rows are live at n_probe 8),
-// one CTA of 4 warps per SM at pt = 128 in pack32 (173,696 B of shared
-// memory), and the 64 KB codebook staged for every block.
+// summed in f32, then the pack32 select over the columns (one maximal key
+// per strided group of columns {j, j+G, ...}, then the k_pair largest) in
+// block_scan.cu's wire format. Rows whose prober is -1 are not scored but
+// written dead (INT_MIN); ops/adc.py:_merge_pairs never reads them.
 //
 // Design: scan_tc.cuh's body (persistent CTAs of 8 warps, live 16-prober
 // tiles only, mma.sync over tiles of 128 window columns, warps split by
-// column slices, pack32 maxima in registers, the exact select staged
-// through shared memory), fed by CodesSource below:
-// - The bf16 codebook (256 * d * 2 bytes, 64 KB at d = 128) is staged in
-//   shared memory once per CTA.
-// - Decode once per tile of TN = 128 window columns, shared by every live m
-//   tile: each thread reads its 8-byte chunks of codes (at most 8) into
-//   registers (fetch), and later writes each chunk's 8 codewords, looked up
-//   in the shared codebook (all 8 loads before any store), into the tile
-//   [column][k] with 16-byte stores (land; a quarter warp's stores cover 2
-//   columns x 4 chunks, distinct bank groups at m = 64). While the warps
-//   score tile t, the next tile's codes are in flight, and every warp then
-//   decodes its share into the other buffer.
-// - Budget at d = 128: shared memory 65,536 B codebook + 2 x 34,816 B tiles
-//   + 2,048 B penalties and slots + 544 B prober rows and tile flags + the
-//   slice lists (8 x 16 x k_pair entries) + exact: 36,864 B staging rows,
-//   512 B row bounds and 12,288 B queues; pack32: running lists (2 x 128 x
-//   k_pair keys): 197,664 B exact and 154,656 B pack32 at k_pair 10, one
-//   CTA of 8 warps per SM. Registers: the body's, plus 16 of prefetched
-//   codes.
-//
-// The deep instance (pack32 k_pair 49-64: the IVFPQR code domain's base
-// scan at k' = 400, k_pair 52 / 64): the phase ends sort the group maxima
-// (scan_tc.cuh:sort_slice) rather than extract them pass by pass, as the
-// rows sources' deep instance does. Two tiles, the codebook and the deep
-// lists do not fit (237,600 B at k_pair 64, d = 128), and the sort leaves
-// no registers for the prefetched codes (the codes instance sits at 251
-// on passes, the rows source's sorted one at 252). So its CodesSource<true>
-// copies each tile's raw codes by cp.async into a ring of shared memory
-// [TN][m] (8 KB at m = 64) while the warps score, and the body keeps one
-// decoded tile (scan_tc.cuh's ONE_TILE): a __syncthreads once the warps
-// are done with the tile, then the decode from the ring into it. Each
-// thread decodes the very 8-byte chunks it copied, so its own cp.async
-// wait makes them visible, and one ring serves: the land that reads it
-// precedes the stage's closing barrier, the next fetch follows it. Budget
-// at d = 128, k_pair 64: 65,536 B codebook + 8,192 B ring (16,384 at m =
-// 128, dsub 1) + 34,816 B tile + 2,048 B penalties and slots + 544 B
-// prober rows and tile flags + 33,280 B slice lists + 66,560 B running
-// lists = 210,976 B (219,168 at m = 128), one CTA of 8 warps per SM. What
-// bounds it is the rows instance's deep select (the sort and the serial
-// merge of the lists, ~half a deep scan) plus the decode, now behind a
-// barrier instead of beside the scoring.
+// column slices, pack32 maxima in registers), its phase ends sorted
+// (scan_tc.cuh:sort_slice), fed by CodesSource below: the bf16 codebook
+// (256 * d * 2 bytes, 64 KB at d = 128) staged in shared memory once per
+// CTA; each tile's raw codes copied by cp.async into a ring of shared
+// memory [TN][m] (8 KB at m = 64) while the warps score; one decoded tile
+// (scan_tc.cuh's ONE_TILE): a __syncthreads once the warps are done with
+// the tile, then the decode from the ring into it. Each thread decodes the
+// very 8-byte chunks it copied, so its own cp.async wait makes them
+// visible, and one ring serves: the land that reads it precedes the
+// stage's closing barrier, the next fetch follows it. Two tiles, the
+// codebook and the deep lists do not fit (237,600 B at k_pair 64, d =
+// 128), and the sort leaves no registers for codes prefetched into
+// registers. Budget at d = 128, k_pair 64: 65,536 B codebook + 8,192 B
+// ring (16,384 at m = 128, dsub 1) + 34,816 B tile + 2,048 B penalties and
+// slots + 544 B prober rows and tile flags + 33,280 B slice lists + 66,560
+// B running lists = 210,976 B (219,168 at m = 128), one CTA of 8 warps per
+// SM. What bounds it is the deep select (the sort and the serial merge of
+// the lists, ~half a deep scan) plus the decode, behind a barrier instead
+// of beside the scoring.
 
 #include <cstdint>
 
 #include "scan_tc.cuh"
+#include "wg_layout.cuh"
 
 namespace {
 
 using namespace tpq;
 using namespace tpq::tc;
 
-constexpr int MAX_CHUNKS = TN * 128 / 8 / THREADS;  // 8-byte code chunks
-                                                    // per thread (m <= 128)
-constexpr int DEEP_PACK_K = 48;  // pack32 k_pair above it: the deep instance
+using tpq::wg::chunk_item;
+using tpq::wg::col_slot;
 
-__host__ __device__ inline bool deep_instance(int pack32, int k_pair) {
-  return pack32 && k_pair > DEEP_PACK_K;
-}
-
-// Shared memory: the codebook [256 * d] bf16, (the deep instance) the raw
-// codes' ring [TN][m], then the body's (the deep instance: one tile).
-__host__ __device__ inline size_t tc_smem_bytes(int m, int dsub, int pack32,
+// Shared memory: the codebook [256 * d] bf16, the raw codes' ring [TN][m],
+// then the body's with one tile.
+__host__ __device__ inline size_t tc_smem_bytes(int m, int dsub,
                                                 int k_pair) {
-  const bool deep = deep_instance(pack32, k_pair);
   const int d = m * dsub;
-  return (size_t)512 * d + (deep ? (size_t)TN * m : 0) +
-         body_smem_bytes(2 * d, pack32, k_pair, deep);
-}
-
-// The column -> slot map of the packed codes (see the note above), without
-// an integer division: the quotient from the f32 reciprocal inv = 1 /
-// s_rows is off by at most one for c < 2^22, and the remainder corrects it.
-__device__ __forceinline__ int col_slot(int c, int s_rows, int g, float inv) {
-  int q = __float2int_rz((float)c * inv);
-  int r = c - q * s_rows;
-  if (r < 0) {
-    --q;
-    r += s_rows;
-  } else if (r >= s_rows) {
-    ++q;
-    r -= s_rows;
-  }
-  return r * g + q;
-}
-
-// Column `cl` (of the tile) and chunk `ch` (of the column's cpc = 2^lc
-// 8-byte chunks) of chunk item e. A warp's 32 items cover whole columns
-// (the reads coalesce); with cpc >= 4, every 8 consecutive items are 2
-// columns x 4 chunks, so a quarter warp's 16-byte stores fall on distinct
-// bank groups (row stride = 16 mod 128 bytes, chunk stride 32 bytes at
-// dsub = 2).
-__device__ __forceinline__ void chunk_item(int e, int lc, int& cl, int& ch) {
-  if (lc >= 2) {
-    ch = (e & 3) | (((e >> 3) & ((1 << (lc - 2)) - 1)) << 2);
-    cl = ((e >> 2) & 1) | ((e >> (lc + 1)) << 1);
-  } else {
-    cl = e >> lc;
-    ch = e & ((1 << lc) - 1);
-  }
+  return (size_t)512 * d + (size_t)TN * m +
+         body_smem_bytes(2 * d, true, k_pair, true);
 }
 
 __device__ __forceinline__ uint32_t code_byte(uint2 raw, int b) {
@@ -136,27 +67,23 @@ __device__ __forceinline__ uint32_t code_byte(uint2 raw, int b) {
 }
 
 // The window tiles of the packed codes, decoded against the shared
-// codebook. One thread's share of a tile's inputs is read from global
-// memory before the tile is needed (fetch) and written to shared memory
-// after (land): its code chunks, and (threads < TN) one column's penalty
-// and slot. RING: the code chunks are copied into the ring [TN][m] of
-// shared memory (cp.async) instead of registers, and the body keeps one
-// tile (see the note above).
-template <bool RING>
+// codebook. One thread's share of a tile's inputs is brought before the
+// tile is needed (fetch: its code chunks, copied into the ring [TN][m] of
+// shared memory by cp.async, and (threads < TN) one column's penalty and
+// slot) and written to the tile after (land), see the note above.
 struct CodesSource {
-  static constexpr bool ONE_TILE = RING;
+  static constexpr bool ONE_TILE = true;
   const unsigned char* __restrict__ codes;
   const float* __restrict__ penalty;
-  const __nv_bfloat16* cb_s;  // the staged codebook (RING: then the ring)
-  int m, dsub, lc, s_rows, g, ld;
+  const __nv_bfloat16* cb_s;  // the staged codebook, then the ring
+  int m, dsub, s_rows, g;
   float inv;
-  uint2 raw[RING ? 1 : MAX_CHUNKS];
   float pen;
   int slt;
 
-  // RING: the raw codes [TN][m] after the codebook. The deep instance's
-  // registers are full (the sort), so what its loops need is worked out
-  // where they run rather than kept, and they are not unrolled.
+  // The raw codes [TN][m] after the codebook. The registers are full (the
+  // sort), so what the loops need is worked out where they run rather than
+  // kept, and they are not unrolled.
   __device__ __forceinline__ unsigned char* ring() const {
     return reinterpret_cast<unsigned char*>(
         const_cast<__nv_bfloat16*>(cb_s) + 256 * m * dsub);
@@ -165,35 +92,19 @@ struct CodesSource {
   __device__ __forceinline__ void fetch(int s0, int o0, int o1, int ts,
                                         int nrow, unsigned char*) {
     const int t = threadIdx.x;
-    if constexpr (RING) {
-      const int lcr = 31 - __clz(m / 8);
-      const int items = (nrow + 1) / 2 * 2 << lcr;
-      unsigned char* rg = ring();
+    const int lc = 31 - __clz(m / 8);
+    const int items = (nrow + 1) / 2 * 2 << lc;
+    unsigned char* rg = ring();
 #pragma unroll 1
-      for (int e = t; e < items; e += THREADS) {
-        int cl, ch;
-        chunk_item(e, lcr, cl, ch);
-        if (cl < nrow) {
-          const int j = col_slot(ts + cl, s_rows, g, inv);
-          cp_async8(rg + cl * m + 8 * ch,
-                    codes + ((size_t)s0 + j) * m + 8 * ch);
-        }
-      }
-      cp_async_commit();
-    } else {
-      const int items = (nrow + 1) / 2 * 2 << lc;
-#pragma unroll
-      for (int r = 0; r < MAX_CHUNKS; ++r) {
-        const int e = t + r * THREADS;
-        int cl, ch;
-        chunk_item(e, lc, cl, ch);
-        if (e < items && cl < nrow) {
-          const int j = col_slot(ts + cl, s_rows, g, inv);
-          raw[r] = __ldg(reinterpret_cast<const uint2*>(
-              codes + ((size_t)s0 + j) * m + 8 * ch));
-        }
+    for (int e = t; e < items; e += THREADS) {
+      int cl, ch;
+      chunk_item(e, lc, cl, ch);
+      if (cl < nrow) {
+        const int j = col_slot(ts + cl, s_rows, g, inv);
+        cp_async8(rg + cl * m + 8 * ch, codes + ((size_t)s0 + j) * m + 8 * ch);
       }
     }
+    cp_async_commit();
     if (t < TN) {
       pen = 0.0f;
       slt = 0;
@@ -248,35 +159,24 @@ struct CodesSource {
     }
   }
 
-  // Decode into tile [TN][ld] and the tile's penalties and slots (RING:
-  // from the ring, once this thread's own copies have landed: each thread
-  // decodes the chunks it copied).
+  // Decode into the tile [TN][ld] and write the tile's penalties and
+  // slots, once this thread's own copies have landed (each thread decodes
+  // the chunks it copied).
   __device__ __forceinline__ void land(int, int nrow, unsigned char* tile_b,
                                        float* pen_s, int* slot_s) const {
     __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(tile_b);
     const int t = threadIdx.x;
-    if constexpr (RING) {
-      const int lcr = 31 - __clz(m / 8);
-      const int items = (nrow + 1) / 2 * 2 << lcr;
-      const unsigned char* rg = ring();
-      cp_async_wait<0>();
+    const int lc = 31 - __clz(m / 8);
+    const int items = (nrow + 1) / 2 * 2 << lc;
+    const unsigned char* rg = ring();
+    cp_async_wait<0>();
 #pragma unroll 1
-      for (int e = t; e < items; e += THREADS) {
-        int cl, ch;
-        chunk_item(e, lcr, cl, ch);
-        if (cl < nrow) {
-          decode(*reinterpret_cast<const uint2*>(rg + cl * m + 8 * ch), cl,
-                 ch, tile, row_ld(2 * m * dsub) / 2);
-        }
-      }
-    } else {
-      const int items = (nrow + 1) / 2 * 2 << lc;
-#pragma unroll
-      for (int r = 0; r < MAX_CHUNKS; ++r) {
-        const int e = t + r * THREADS;
-        int cl, ch;
-        chunk_item(e, lc, cl, ch);
-        if (e < items && cl < nrow) decode(raw[r], cl, ch, tile, ld);
+    for (int e = t; e < items; e += THREADS) {
+      int cl, ch;
+      chunk_item(e, lc, cl, ch);
+      if (cl < nrow) {
+        decode(*reinterpret_cast<const uint2*>(rg + cl * m + 8 * ch), cl, ch,
+               tile, row_ld(2 * m * dsub) / 2);
       }
     }
     if (t < TN) {
@@ -285,11 +185,9 @@ struct CodesSource {
     }
   }
 
-  __device__ __forceinline__ int slot(int c) const {
-    return col_slot(c, s_rows, g, inv);
-  }
 };
 
+// The sorted pack32 instance (PACK, KMAX = MAX_PACK_K: the only one).
 template <bool PACK, int KMAX>
 __global__ void __launch_bounds__(THREADS, 1) codes_scan_tc_kernel(
     const __nv_bfloat16* __restrict__ qtable,
@@ -300,7 +198,7 @@ __global__ void __launch_bounds__(THREADS, 1) codes_scan_tc_kernel(
     int n_blocks, int p_tile, int m, int dsub, int g, int s_eff, int k_pair,
     float factor, int slot_mask, int n_groups) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr bool RING = PACK && KMAX > PASS_K;  // the deep instance
+  static_assert(PACK && KMAX == MAX_PACK_K, "the sorted pack32 instance");
   const int d = m * dsub;
   __nv_bfloat16* cb_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   // the codebook, 16 bytes per thread step (256 * d * 2 bytes); the body's
@@ -311,28 +209,20 @@ __global__ void __launch_bounds__(THREADS, 1) codes_scan_tc_kernel(
     for (int i = threadIdx.x; i < 32 * d; i += THREADS) dst[i] = src[i];
   }
   const int s_rows = s_eff / g;
-  CodesSource<RING> src;
+  CodesSource src;
   src.codes = codes;
   src.penalty = penalty;
   src.cb_s = cb_s;
   src.m = m;
   src.dsub = dsub;
-  src.lc = 31 - __clz(m / 8);  // log2 of the code chunks per slot
   src.s_rows = s_rows;
   src.g = g;
-  src.ld = row_ld(2 * d) / 2;
   src.inv = 1.0f / (float)s_rows;
-  scan_blocks<PACK, KMAX>(
-      src, smem_raw + (size_t)512 * d + (RING ? TN * m : 0),
+  scan_blocks(
+      src, smem_raw + (size_t)512 * d + TN * m,
       reinterpret_cast<const unsigned char*>(qtable), probers, start_c, off,
       capb, out, n_blocks, p_tile, 2 * d, s_eff, k_pair, factor, slot_mask,
       n_groups);
-}
-
-template <bool PACK, int KMAX>
-int occupancy_of(int m, int dsub, int k_pair) {
-  return occupancy(codes_scan_tc_kernel<PACK, KMAX>,
-                   tc_smem_bytes(m, dsub, PACK, k_pair));
 }
 
 }  // namespace
@@ -341,16 +231,15 @@ int occupancy_of(int m, int dsub, int k_pair) {
 // aligned), probers [n_blocks, p_tile] int32 (p_tile % 16 == 0, p_tile <=
 // 128), start_c / off / capb [n_blocks] int32, penalty [capacity] f32,
 // codes the packed uint8 storage (capacity * m bytes, m a power of two
-// from 8 to 128, 8-byte aligned), codebook [m, 256, dsub] bf16 (16-byte aligned), d =
-// m * dsub <= 128, out int32; exact: k_pair <= 16; pack32: k_pair <= 64
-// (above 48 the deep instance: 210,976 B at d = 128, m = 64) and
-// n_groups % 8 == 0, either
-// n_groups == s_eff <= 128, or n_groups == 128 with s_eff % 128 == 0, or
-// n_groups a multiple of 128 that divides s_eff. n_ctas: the persistent
-// grid (at most n_blocks). Returns 0 or the CUDA error code of an attribute
-// call or the launch (cudaErrorInvalidValue, without launching, for other
-// shapes or a shared memory above SMEM_LIMIT). Launches on `stream`, does
-// not synchronize and allocates nothing.
+// from 8 to 128, 8-byte aligned), codebook [m, 256, dsub] bf16 (16-byte
+// aligned), d = m * dsub <= 128, out int32; pack32 only (the exact select
+// is block_scan_wg.cu's or codes_scan.cu's): k_pair <= 64 (210,976 B at
+// d = 128, m = 64, k_pair 64) and n_groups % 8 == 0, either n_groups ==
+// s_eff <= 128, or n_groups a multiple of 128 that divides s_eff. n_ctas:
+// the persistent grid (at most n_blocks). Returns 0 or the CUDA error code
+// of an attribute call or the launch (cudaErrorInvalidValue, without
+// launching, for other shapes or a shared memory above SMEM_LIMIT).
+// Launches on `stream`, does not synchronize and allocates nothing.
 extern "C" int torchpq_codes_scan_tc(
     const void* qtable, const int* probers, const int* start_c,
     const int* off, const int* capb, const float* penalty,
@@ -359,8 +248,9 @@ extern "C" int torchpq_codes_scan_tc(
     int euclidean, int pack32, int slot_mask, int n_groups, int n_ctas,
     void* stream) {
   const int d = m * dsub;
-  const size_t smem = tc_smem_bytes(m, dsub, pack32, k_pair);
-  if (!shape_ok(n_blocks, n_ctas, p_tile, 2 * d, MAX_ROW, s_eff, k_pair,
+  const size_t smem = tc_smem_bytes(m, dsub, k_pair);
+  if (!pack32 ||
+      !shape_ok(n_blocks, n_ctas, p_tile, 2 * d, MAX_ROW, s_eff, k_pair,
                 pack32, n_groups) ||
       smem > SMEM_LIMIT || m < 8 || (m & (m - 1)) || m > 128 || dsub <= 0 ||
       g <= 0 || s_eff % g || reinterpret_cast<uintptr_t>(qtable) % 4 ||
@@ -368,45 +258,25 @@ extern "C" int torchpq_codes_scan_tc(
       reinterpret_cast<uintptr_t>(codes) % 8) {
     return (int)cudaErrorInvalidValue;
   }
-  const float factor = euclidean ? 2.0f : 1.0f;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TPQ_ARGS                                                           \
-  static_cast<const __nv_bfloat16*>(qtable), probers, start_c, off, capb, \
-      penalty, codes, static_cast<const __nv_bfloat16*>(codebook), out,    \
-      n_blocks, p_tile, m, dsub, g, s_eff, k_pair, factor, slot_mask,      \
-      n_groups
-  if (deep_instance(pack32, k_pair)) {  // sorted, one tile, the codes ring
-    return launch_kernel(codes_scan_tc_kernel<true, MAX_PACK_K>,
-                         dim3(n_ctas), THREADS, smem, st, TPQ_ARGS);
-  }
-  if (pack32) {
-    return launch_kernel(codes_scan_tc_kernel<true, PASS_K>, dim3(n_ctas),
-                         THREADS, smem, st, TPQ_ARGS);
-  }
-  if (k_pair <= 10) {
-    return launch_kernel(codes_scan_tc_kernel<false, 10>, dim3(n_ctas),
-                         THREADS, smem, st, TPQ_ARGS);
-  }
-  return launch_kernel(codes_scan_tc_kernel<false, 16>, dim3(n_ctas),
-                       THREADS, smem, st, TPQ_ARGS);
-#undef TPQ_ARGS
+  return launch_kernel(
+      codes_scan_tc_kernel<true, MAX_PACK_K>, dim3(n_ctas), THREADS, smem,
+      static_cast<cudaStream_t>(stream),
+      static_cast<const __nv_bfloat16*>(qtable), probers, start_c, off, capb,
+      penalty, codes, static_cast<const __nv_bfloat16*>(codebook), out,
+      n_blocks, p_tile, m, dsub, g, s_eff, k_pair, euclidean ? 2.0f : 1.0f,
+      slot_mask, n_groups);
 }
 
-// Dynamic shared memory of one CTA of the instance that serves these
-// shapes (d = m * dsub).
-extern "C" long long torchpq_codes_scan_tc_smem(int m, int dsub, int pack32,
+// Dynamic shared memory of one CTA (d = m * dsub; pack32 alone is served).
+extern "C" long long torchpq_codes_scan_tc_smem(int m, int dsub, int,
                                                int k_pair) {
-  return (long long)tc_smem_bytes(m, dsub, pack32, k_pair);
+  return (long long)tc_smem_bytes(m, dsub, k_pair);
 }
 
 // CTAs one SM holds at once (registers and shared memory permitting), or
 // minus the CUDA error code.
-extern "C" int torchpq_codes_scan_tc_occupancy(int m, int dsub, int pack32,
+extern "C" int torchpq_codes_scan_tc_occupancy(int m, int dsub, int,
                                                int k_pair) {
-  if (deep_instance(pack32, k_pair)) {
-    return occupancy_of<true, MAX_PACK_K>(m, dsub, k_pair);
-  }
-  if (pack32) return occupancy_of<true, PASS_K>(m, dsub, k_pair);
-  return k_pair <= 10 ? occupancy_of<false, 10>(m, dsub, k_pair)
-                      : occupancy_of<false, 16>(m, dsub, k_pair);
+  return occupancy(codes_scan_tc_kernel<true, MAX_PACK_K>,
+                   tc_smem_bytes(m, dsub, k_pair));
 }

@@ -14,7 +14,8 @@
 // codes_scan.cu's decodes PQ codes against a shared-memory codebook and
 // visits the slots in the packed column order. Scoring and both selects are
 // this file's, so those two kernels' scores agree bit for bit on equal rows
-// (codes_scan_tc.cu sums on the tensor cores, in another order).
+// (the tensor-core codes scans, block_scan_wg.cu's codes instances and
+// codes_scan_tc.cu, sum in another order).
 //
 //   score = factor * <q_p, y_c> - pen_c      (f32 FMA chain, k ascending)
 //

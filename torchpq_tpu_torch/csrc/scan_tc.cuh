@@ -1,7 +1,9 @@
-// The mma.sync IVF block scan of codes_scan_tc.cu and block_scan_tc.cu:
-// one kernel body over bf16 rows, templated over the source of its window
-// tiles, for rows of at most 256 bytes (the wider ones, and every int8
-// row, are block_scan_wg.cu's, on wgmma).
+// The mma.sync IVF block scan of codes_scan_tc.cu and block_scan_tc.cu: one
+// kernel body over bf16 rows of at most 256 bytes (d <= 128), templated
+// over the source of its window tiles, for their one kind of instance, the
+// sorted pack32 select (k_pair <= 64); and the select helpers that
+// block_scan_wg.cu's consumers share (the pack32 maxima's phase-end
+// extraction and sort, the exact lists, queue and first fill).
 //
 // For block b, prober p and window column c < s_eff holding in-window slot
 // j (the source says which):
@@ -9,12 +11,11 @@
 //   score = factor * <bf16(q_p), y_j> - pen_j    (f32 sums)
 //   pen_j = penalty[start_c[b] + j] + (off[b] <= j < off[b] + cap[b] ? 0 : BIG)
 //
-// factor = 2 (euclidean) or 1; then scan_common.cuh's selects over the
-// columns (exact: value descending, column ascending; pack32: one maximal
-// key per strided group of columns {c, c+G, ...}, then the k_pair largest),
-// in block_scan.cu's wire format. Rows whose prober is -1 are not scored but
-// written dead (exact: sortable(-inf) keys and -1 addresses; pack32:
-// INT_MIN); ops/adc.py:_merge_pairs never reads them.
+// factor = 2 (euclidean) or 1; then scan_common.cuh's pack32 select over
+// the columns (one maximal key per strided group of columns {c, c+G, ...},
+// then the k_pair largest), in block_scan.cu's wire format. Rows whose
+// prober is -1 are not scored but written dead (INT_MIN);
+// ops/adc.py:_merge_pairs never reads them.
 //
 // Design:
 // - Persistent CTAs of 8 warps, one per SM (the wrapper sizes the grid from
@@ -26,29 +27,25 @@
 //   slice of 128 / S columns of every window tile, so at n_probe 8 (~2 live
 //   tiles a block) every warp scores and selects.
 // - Rows in bytes: a row of d elements is rb = 2 d bytes, a k step 32
-//   bytes (mma.sync m16n8k16 bf16: tc_ptx.cuh).
-// - Rows of rb <= 256 bytes (d <= 128): a warp's A
-//   fragments (its tile's 16 query rows, zero for -1 rows and past d) stay
-//   in registers for the block (32 registers at 256 bytes). The window in
-//   tiles of TN = 128 columns, shared by every live m tile: [column][byte]
-//   with rows of round32(rb) + 16 bytes (an odd multiple of 16 bytes, so
-//   the 8 row addresses of an ldmatrix phase fall on distinct banks; the K
-//   padding is zero), which is B as it lies (tc_ptx.cuh).
+//   bytes (mma.sync m16n8k16 bf16: tc_ptx.cuh). A warp's A fragments (its
+//   tile's 16 query rows, zero for -1 rows and past d) stay in registers
+//   for the block (32 registers at 256 bytes). The window in tiles of TN =
+//   128 columns, shared by every live m tile: [column][byte] with rows of
+//   round32(rb) + 16 bytes (an odd multiple of 16 bytes, so the 8 row
+//   addresses of an ldmatrix phase fall on distinct banks; the K padding
+//   is zero), which is B as it lies (tc_ptx.cuh).
 // - Two ring stages alternate: the source's fetch() starts the next stage
 //   before the warps score this one, and its land() finishes it after; one
 //   __syncthreads per stage. A block's last stage brings the CTA's next
 //   block's first one and this thread's prober of it, so a block waits at
 //   its start only for its window's bounds and its A fragments.
-// - One tile (a source whose ONE_TILE is true: the deep codes instance,
-//   whose codebook leaves no room for a second decoded tile beside the
-//   deep lists): the source keeps the next stage's raw inputs in shared
-//   memory of its own while the warps score the one tile, then a
-//   __syncthreads (the warps are done with the tile; at a pack32 phase
-//   end the select's own barrier serves), then land() writes the tile:
-//   two __syncthreads per stage, the land no longer overlapped by scoring.
-// - The merges of the slices' lists (one thread per live row) keep their
-//   list heads in registers (loops over the 8 slices unrolled), so the
-//   loads of a step issue together.
+// - One tile (a source whose ONE_TILE is true: the codes instance, whose
+//   codebook leaves no room for a second decoded tile beside the deep
+//   lists): the source keeps the next stage's raw inputs in shared memory
+//   of its own while the warps score the one tile, then a __syncthreads
+//   (the warps are done with the tile; at a phase end the select's own
+//   barrier serves), then land() writes the tile: two __syncthreads per
+//   stage, the land no longer overlapped by scoring.
 // - Products: mma.sync (tc_ptx.cuh), B by ldmatrix.x4 (16 columns x 32
 //   bytes), up to 8 accumulator tiles (64 columns) at a time, the first k
 //   step from a zero accumulator.
@@ -56,39 +53,35 @@
 //   g and g + 8 of its m tile and, of every 8 columns of its slice, columns
 //   2t and 2t + 1, so each (row, group) has one owner and no atomics are
 //   needed: at most 32 group maxima per row of a 128-column phase (32 / S
-//   in a slice of 128 / S columns). At a phase's end the quad extracts its
-//   slice's k_pair largest keys per row by 4-lane shuffles into shared
-//   memory, over only the maxima its slice fills (a code path per S): a
-//   pass per key up to k_pair 16, above it a bitonic sort of the quad's
-//   maxima (a pass costs ~3 instructions per maximum, so 64 passes over
-//   128 groups cost ~4x the sort). One thread per live row merges the S
-//   slices' lists and the running list of earlier phases (pack32 lists of
-//   an odd row stride, so those threads hit distinct banks), and each warp
-//   writes two rows of every live tile, its lanes on consecutive keys.
-//   With G = 256 or 512 (deep selects) the tiles are visited phase by phase
-//   (columns == phase * 128 mod G), so a lane never holds more than 32
-//   groups per row.
-// - exact through shared memory: a warp writes the scores of its 64-column
-//   group to its staging rows [16][SLD], and lane l takes row l / 2 over
-//   its half of the group's columns, in ascending order, into a sorted list
-//   of k_pair (rounded up to 10 or 16) entries (scan_common.cuh:insert keeps
-//   column order on ties). Inserting score by score costs the whole warp an
-//   insert whenever any lane has one, so a score enters only at or above a
-//   bound on the row's k_pair-th value (the largest k_pair-th entry of the
-//   row's lists, shared across its slices through shared memory), waits in
-//   a short per-lane queue, and the queues are inserted together; a lane's
-//   first 8 or 16 columns of a block are sorted at once by a bitonic
-//   network. The queue lives in shared memory and the lists in registers:
-//   no per-thread array may be indexed by a value the compiler cannot
-//   unroll, or it lands in local memory, which has little L1 beside these
-//   kernels' shared memory (see kth_of). At the block's end each
-//   slice's list per row (the two lanes' merged by shuffles) goes to shared
-//   memory, and one thread per live row merges the S slices' lists in
-//   (value descending, column ascending) order.
-// - Registers: 32 A + 32 accumulators + 64 pack32 maxima or 20-32 exact
-//   list entries +
-//   the source's prefetch, under the 255 that __launch_bounds__(256, 1)
-//   allows (read -Xptxas -v for spills and stack frames).
+//   in a slice of 128 / S columns). At a phase's end the quad sorts its
+//   slice's maxima of each row by a bitonic network (sort_slice; a pass
+//   per key, extract_slice, costs ~3 instructions per maximum, so 64
+//   passes over 128 groups cost ~4x the sort) and writes the first k_pair
+//   into shared memory. One thread per live row merges the S slices'
+//   lists and the running list of earlier phases (lists of an odd row
+//   stride, so those threads hit distinct banks; the heads in registers,
+//   loops over the 8 slices unrolled), and each warp writes two rows of
+//   every live tile, its lanes on consecutive keys. With G = 256 or 512
+//   the tiles are visited phase by phase (columns == phase * 128 mod G), so
+//   a lane never holds more than 32 groups per row.
+// - Registers: 32 A + 32 accumulators + 64 pack32 maxima + the sort, under
+//   the 255 that __launch_bounds__(256, 1) allows (read -Xptxas -v for
+//   spills and stack frames).
+//
+// The exact select's helpers (block_scan_wg.cu's exact instances): a warp
+// writes the scores of its 64 columns to its staging rows [16][SLD], and
+// lane l takes row l / 2 over its half of them, in ascending order, into a
+// sorted list of k_pair (rounded up to 10 or 16) entries
+// (scan_common.cuh:insert keeps column order on ties). Inserting score by
+// score costs the whole warp an insert whenever any lane has one, so a
+// score enters only at or above a bound on the row's k_pair-th value (the
+// largest k_pair-th entry of the row's lists, shared across its slices
+// through shared memory), waits in a short per-lane queue (ExactQueue),
+// and the queues are inserted together; a lane's first 16 columns of a
+// block are sorted at once (first_fill). The queue lives in shared memory
+// and the lists in registers: no per-thread array may be indexed by a
+// value the compiler cannot unroll, or it lands in local memory, which has
+// little L1 beside these kernels' shared memory (see kth_of).
 //
 // A tile source is a struct with
 //   ONE_TILE: whether the body keeps one tile (see above) or two;
@@ -97,8 +90,7 @@
 //       slots [o0, o1) of the window) into `tile`;
 //   land(ts, nrow, tile, pen_s, slot_s): finish them, and write each
 //       column's penalty and in-window slot; after a
-//       __syncthreads the tile holds the columns' bytes [0, rb) of each;
-//   slot(c): the in-window slot of column c.
+//       __syncthreads the tile holds the columns' bytes [0, rb) of each.
 
 #pragma once
 
@@ -428,15 +420,11 @@ __device__ __forceinline__ A& pick(A& a, A& b) {
   }
 }
 
-// The scan of the blocks b = blockIdx.x + i * gridDim.x (see the notes
-// above). smem: the body's shared memory (body_smem_bytes), 16-byte
-// aligned. qtable: the query rows [nq][rb] bytes. KMAX: the exact lists'
-// length, k_pair rounded up to 10 or
-// 16 (shorter lists make each insert cheaper); pack32: the largest k_pair
-// the kernel serves, PASS_K (a pass per key) or MAX_PACK_K (sort_slice: a
-// kernel of its own, so the sort's registers burden only the deep selects,
-// and a source whose registers it would spill keeps the passes).
-template <bool PACK, int KMAX, typename Source>
+// The sorted pack32 scan of the blocks b = blockIdx.x + i * gridDim.x
+// (see the notes above; k_pair <= MAX_PACK_K, phase ends by sort_slice).
+// smem: the body's shared memory (body_smem_bytes), 16-byte aligned.
+// qtable: the query rows [nq][rb] bytes.
+template <typename Source>
 __device__ __forceinline__ void scan_blocks(
     Source& src, unsigned char* smem, const unsigned char* __restrict__ qtable,
     const int* __restrict__ probers, const int* __restrict__ start_c,
@@ -448,9 +436,7 @@ __device__ __forceinline__ void scan_blocks(
   const int warp = t / 32;
   const int ld = row_ld(rb);              // tile row stride, bytes
   const int ksteps = round32(rb) / 32;    // the rows' k steps
-  const int width = PACK ? k_pair : 2 * k_pair;  // output ints per row
-  const int kls = list_ld(k_pair, PACK);  // the lists' row stride
-  constexpr bool SORT = PACK && KMAX > PASS_K;  // deep pack32: sort_slice
+  const int kls = list_ld(k_pair, true);  // the lists' row stride
   constexpr bool ONE = Source::ONE_TILE;  // one tile, landed after a barrier
 
   unsigned char* tiles = smem;  // [2][TN][ld] (ONE: [1][TN][ld])
@@ -460,12 +446,7 @@ __device__ __forceinline__ void scan_blocks(
   int* prow_s = slot_s + 2 * TN;                         // [MAX_PT]
   int* live_s = prow_s + MAX_PT;                          // [MAX_PT / 16]
   int* keys_s = live_s + MAX_PT / 16;  // slice lists [WARPS][16][kls]
-  float* vals_s = reinterpret_cast<float*>(keys_s + WARPS * 16 * kls);
-  int* run_s = keys_s + WARPS * 16 * kls;  // pack32 [2][MAX_PT][kls]
-  float* stage_s = vals_s + WARPS * 16 * kls;  // exact [WARPS][16][SLD]
-  volatile float* rowb_s = stage_s + WARPS * 16 * SLD;  // exact [WARPS][16]
-  float* qv_s = stage_s + WARPS * 16 * (SLD + 1);  // exact [QUEUE][THREADS]
-  int* qc_s = reinterpret_cast<int*>(qv_s + QUEUE * THREADS);
+  int* run_s = keys_s + WARPS * 16 * kls;  // running [2][MAX_PT][kls]
 
   // the K padding of the tiles (16 bytes or none), zero once (the sources
   // write [0, rb))
@@ -478,7 +459,7 @@ __device__ __forceinline__ void scan_blocks(
   // Tile order: ts(i) = (i % tpp) * stride + (i / tpp) * TN. Deep pack32
   // groups (G > TN) take the tiles phase by phase: phase f holds the
   // columns == f * TN (mod G), and a phase ends every tpp tiles.
-  const bool phased = PACK && n_groups > TN;
+  const bool phased = n_groups > TN;
   const int n_tiles = (s_eff + TN - 1) / TN;
   const int tpp = phased ? s_eff / n_groups : n_tiles;
   const int stride = phased ? n_groups : TN;
@@ -506,20 +487,10 @@ __device__ __forceinline__ void scan_blocks(
     const int o0 = off[b];
     const int o1 = o0 + capb[b];
     int npr = -1;  // this thread's prober of the next block
-    if (t < MAX_PT) {
-      prow_s[t] = pr;
-      if (!PACK) rowb_s[t] = neg_inf();
-    }
+    if (t < MAX_PT) prow_s[t] = pr;
     if (t < p_tile && pr < 0) {  // pad rows: dead, never scored
-      int* o = out + ((size_t)b * p_tile + t) * width;
-      for (int i = 0; i < k_pair; ++i) {
-        if (PACK) {
-          o[i] = INT_MIN;
-        } else {
-          o[i] = sortable(neg_inf());
-          o[k_pair + i] = -1;
-        }
-      }
+      int* o = out + ((size_t)b * p_tile + t) * k_pair;
+      for (int i = 0; i < k_pair; ++i) o[i] = INT_MIN;
     }
     const unsigned live = __ballot_sync(0xffffffffu, pr >= 0);
     if (lane == 0 && warp < MAX_PT / 32) {
@@ -564,346 +535,172 @@ __device__ __forceinline__ void scan_blocks(
       }
     }
 
-    // select state: exact lists and the quad's bound, or pack32 group
-    // maxima of the phase
-    // (exact: lane l keeps row l / 2 of the warp's 16, over its half of
-    // each group of columns)
-    float vals[PACK ? 1 : KMAX];
-    int cols[PACK ? 1 : KMAX];
-    // a -1 row of a live tile is scored but selects nothing
-    const bool dead_row = busy && prow_s[16 * mt + lane / 2] < 0;
-    float bound = dead_row ? -neg_inf() : neg_inf();
+    // the pack32 group maxima of the phase
     int mx[2][NGRP];
-    ExactQueue queue;
-    queue.v = qv_s + t;
-    queue.c = qc_s + t;
-    queue.n = 0;
-    if constexpr (PACK) {
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
+    for (int rr = 0; rr < 2; ++rr) {
 #pragma unroll
-        for (int j = 0; j < NGRP; ++j) mx[rr][j] = INT_MIN;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < KMAX; ++j) {
-        vals[j] = neg_inf();
-        cols[j] = INT_MAX;
-      }
+      for (int j = 0; j < NGRP; ++j) mx[rr][j] = INT_MIN;
     }
     int phase = 0;
 
     for (int it = 0; it < n_tiles; ++it, ++gt) {
       const int ts = (it % tpp) * stride + (it / tpp) * TN;
       const int nrow = min(TN, s_eff - ts);
-              const int buf = gt & 1;
-              // the next stage: this block's next tile, or the next block's first
-              const bool more = it + 1 < n_tiles;
-              const int tn =
-                  more ? ((it + 1) % tpp) * stride + ((it + 1) / tpp) * TN : 0;
-              const bool ahead = more || nb < n_blocks;
-              if (more) {
-                src.fetch(s0, o0, o1, tn, min(TN, s_eff - tn),
-                          tiles + (ONE ? 0 : (buf ^ 1) * TN * ld));
-              } else if (ahead) {
-                npr = t < p_tile ? probers[(size_t)nb * p_tile + t] : -1;
-                src.fetch(start_c[nb], off[nb], off[nb] + capb[nb], 0,
-                          min(TN, s_eff), tiles + (ONE ? 0 : (buf ^ 1) * TN * ld));
-              }
-              if (busy) {
-                const unsigned char* tile = tiles + (ONE ? 0 : buf * TN * ld);
-                const float* pen = pen_s + buf * TN;
-                const int* slt = slot_s + buf * TN;
-#pragma unroll
-                for (int gq = 0; gq < 2; ++gq) {  // up to 4 pairs (64 columns)
-                  const int p0 = slice * np_s + 4 * gq;  // first pair of the group
-                  if (4 * gq < np_s && 16 * p0 < nrow) {
-                    float sum[8][4];  // the group's sums
-#pragma unroll
-                    for (int ks = 0; ks < KSTEPS; ++ks) {
-                      if (ks < ksteps) {
-                        const uint32_t(&ak)[4] = a[ks];
-                        const bool fresh = ks == 0;
-#pragma unroll
-                        for (int np = 0; np < 4; ++np) {
-                          const int c0 = 16 * (p0 + np);
-                          if (4 * gq + np < np_s && c0 < nrow) {
-                            uint32_t bf[4];
-                            ldmatrix_x4(bf, tile + (c0 + ldm_b_row(lane)) * ld +
-                                                32 * ks + 2 * ldm_b_col(lane));
-                            if (fresh) {
-                              mma_bf16_16816_zero(sum[2 * np], ak, bf[0], bf[1]);
-                              mma_bf16_16816_zero(sum[2 * np + 1], ak, bf[2], bf[3]);
-                            } else {
-                              mma_bf16_16816(sum[2 * np], ak, bf[0], bf[1]);
-                              mma_bf16_16816(sum[2 * np + 1], ak, bf[2], bf[3]);
-                            }
-                          }
-                        }
-                      }
-                    }
-                    {
-                      // the scores of this lane's columns, in ascending order
-                      if constexpr (PACK) {
-#pragma unroll
-                        for (int nt = 0; nt < 8; ++nt) {
-                          const int base = 16 * p0 + 8 * nt;  // the n8 tile's
-                          const int cl = base + frag_c_col(lane, 0);
-                          if (4 * gq + nt / 2 < np_s && base < nrow) {
-                            const float2 p =
-                                *reinterpret_cast<const float2*>(pen + cl);
-#pragma unroll
-                            for (int i = 0; i < 2; ++i) {
-                              if (cl + i < nrow) {
-#pragma unroll
-                                for (int rr = 0; rr < 2; ++rr) {
-                                  const float sc =
-                                      score(sum[nt][2 * rr + i], factor,
-                                            i ? p.y : p.x);
-                                  const int key =
-                                      (sortable(sc) & ~slot_mask) | slt[cl + i];
-                                  int& best = mx[rr][2 * (8 * gq + nt) + i];
-                                  best = max(best, key);
-                                }
-                              }
-                            }
-                          }
-                        }
-                      } else {
-                        // exact: the group's scores through the warp's staging
-                        // rows [16][SLD]; lane l then takes row l / 2 over its
-                        // half of the group's columns, in ascending order
-                        float* st = stage_s + warp * 16 * SLD;
-#pragma unroll
-                        for (int nt = 0; nt < 8; ++nt) {
-                          const int base = 16 * p0 + 8 * nt;
-                          const int cl = base + frag_c_col(lane, 0);
-                          if (4 * gq + nt / 2 < np_s && base < nrow) {
-                            const float2 p =
-                                *reinterpret_cast<const float2*>(pen + cl);
-#pragma unroll
-                            for (int rr = 0; rr < 2; ++rr) {
-                              *reinterpret_cast<float2*>(
-                                  st + frag_c_row(lane, 2 * rr) * SLD + 8 * nt +
-                                  frag_c_col(lane, 0)) =
-                                  make_float2(score(sum[nt][2 * rr], factor, p.x),
-                                              score(sum[nt][2 * rr + 1], factor,
-                                                    p.y));
-                            }
-                          }
-                        }
-                        __syncwarp();
-                        const int hw = 8 * min(4, np_s - 4 * gq);  // half the group
-                        const int c0 = 16 * p0 + (lane % 2) * hw;  // lane's first
-                        const float* sr = st + (lane / 2) * SLD + (lane % 2) * hw;
-                        // the block's first group: the lists are empty, so its
-                        // first 16 (or 8) columns are sorted into them at once
-                        int j0 = 0;
-                        if (it == 0 && gq == 0) {
-                          if (hw >= 16) {
-                            first_fill<16, KMAX>(vals, cols, sr, c0, ts + c0, nrow);
-                            j0 = 16;
-                          } else {
-                            first_fill<8, KMAX>(vals, cols, sr, c0, ts + c0, nrow);
-                            j0 = 8;
-                          }
-                          const float kth = kth_of(vals, k_pair);
-                          bound = fmaxf(
-                              bound,
-                              fmaxf(kth, __shfl_xor_sync(0xffffffffu, kth, 1)));
-                        }
-#pragma unroll 1
-                        for (int j = j0; j < hw; j += 4) {  // hw % 8 == 0
-                          if (__any_sync(0xffffffffu, queue.n > QUEUE - 4)) {
-                            queue.flush(vals, cols);
-                          }
-                          const float4 s4 = *reinterpret_cast<const float4*>(sr + j);
-#pragma unroll
-                          for (int u = 0; u < 4; ++u) {
-                            const float sc = u == 0   ? s4.x
-                                             : u == 1 ? s4.y
-                                             : u == 2 ? s4.z
-                                                      : s4.w;
-                            if (c0 + j + u < nrow && sc >= bound &&
-                                sc > vals[KMAX - 1]) {
-                              queue.push(sc, ts + c0 + j + u);
-                            }
-                          }
-                        }
-                        __syncwarp();  // the staging rows are free again
-                        // a bound on the row's k_pair-th value: the largest
-                        // k_pair-th entry of the lists of its lanes, published
-                        // per slice (a slice holding k_pair entries >= x bounds
-                        // the row's k_pair-th by x; another slice's value read
-                        // stale is a lower bound too)
-                        float kth = kth_of(vals, k_pair);
-                        kth = fmaxf(kth, __shfl_xor_sync(0xffffffffu, kth, 1));
-                        if (lane % 2 == 0) rowb_s[warp * 16 + lane / 2] = kth;
-                        bound = kth;
-#pragma unroll
-                        for (int sl = 0; sl < WARPS; ++sl) {
-                          if (sl < S) {
-                            bound =
-                                fmaxf(bound, rowb_s[(lt * S + sl) * 16 + lane / 2]);
-                          }
-                        }
-                        if (dead_row) bound = -neg_inf();
-                      }
-                    }
-                  }
-                }
-              }
-              if constexpr (PACK) {
-                if ((it + 1) % tpp == 0) {
-                  // phase end: each slice's k_pair largest keys per row, by the
-                  // quad's shuffles, into its shared list
-                  if (busy) {
-                    int* ks_w = keys_s + warp * 16 * kls;
-                    switch (S) {  // a lane holds the first 32 / S maxima of a row
-                      case 8:
-                        select_slice<NGRP / 8, SORT>(mx, ks_w, lane, k_pair, kls);
-                        break;
-                      case 4:
-                        select_slice<NGRP / 4, SORT>(mx, ks_w, lane, k_pair, kls);
-                        break;
-                      case 2:
-                        select_slice<NGRP / 2, SORT>(mx, ks_w, lane, k_pair, kls);
-                        break;
-                      default:
-                        select_slice<NGRP, SORT>(mx, ks_w, lane, k_pair, kls);
-                    }
-                  }
-                  __syncthreads();
-                  // one thread per live row: the k_pair largest of its slices'
-                  // lists (each of k_pair keys, or ended by an INT_MIN) and the
-                  // running list of the earlier phases
-                  if (t < 16 * nm) {
-                    const int* cur = run_s + ((phase & 1) * MAX_PT + t) * kls;
-                    int* nxt = run_s + (((phase + 1) & 1) * MAX_PT + t) * kls;
-                    const int* sl = keys_s + ((t / 16) * S * 16 + t % 16) * kls;
-                    int h[WARPS];  // the slices' heads (unrolled: registers)
-                    int hc = 0;    // the running list's head
-#pragma unroll
-                    for (int s = 0; s < WARPS; ++s) h[s] = 0;
-                    for (int i = 0; i < k_pair; ++i) {
-                      int best = phase > 0 ? cur[hc] : INT_MIN;
-                      int bs = WARPS;
-#pragma unroll
-                      for (int s = 0; s < WARPS; ++s) {
-                        if (s < S) {
-                          const int v =
-                              h[s] < k_pair ? sl[s * 16 * kls + h[s]] : INT_MIN;
-                          if (v > best) {
-                            best = v;
-                            bs = s;
-                          }
-                        }
-                      }
-#pragma unroll
-                      for (int s = 0; s < WARPS; ++s) h[s] += s == bs;
-                      hc += bs == WARPS;
-                      nxt[i] = best;
-                    }
-                  }
-                  ++phase;
-                }
-              }
-              if (ahead) {
-                if constexpr (ONE) {
-                  // the warps are done with the tile (a pack32 phase end's
-                  // barrier has seen to it already)
-                  if (!(PACK && (it + 1) % tpp == 0)) __syncthreads();
-                }
-                src.land(tn, min(TN, s_eff - tn),
-                         tiles + (ONE ? 0 : (buf ^ 1) * TN * ld),
-                         pen_s + (buf ^ 1) * TN, slot_s + (buf ^ 1) * TN);
-              }
-              __syncthreads();
-    }
-
-    // the live rows' outputs
-    if constexpr (PACK) {
-      // warp w writes rows w and w + 8 of each live tile, its lanes on
-      // consecutive keys (coalesced stores)
-      int lt2 = 0;  // the live tile's index among the live ones
-      for (int m2 = 0; m2 < MAX_PT / 16; ++m2) {
-        if (!live_s[m2]) continue;
-#pragma unroll
-        for (int h = 0; h < 16 / WARPS; ++h) {
-          const int rw = warp + WARPS * h;  // the row in the tile
-          if (prow_s[16 * m2 + rw] >= 0) {
-            const int* fin =
-                run_s + ((phase & 1) * MAX_PT + 16 * lt2 + rw) * kls;
-            int* o = out + ((size_t)b * p_tile + 16 * m2 + rw) * k_pair;
-            for (int i = lane; i < k_pair; i += 32) o[i] = fin[i];
-          }
-        }
-        ++lt2;
+      const int buf = gt & 1;
+      // the next stage: this block's next tile, or the next block's first
+      const bool more = it + 1 < n_tiles;
+      const int tn =
+          more ? ((it + 1) % tpp) * stride + ((it + 1) / tpp) * TN : 0;
+      const bool ahead = more || nb < n_blocks;
+      if (more) {
+        src.fetch(s0, o0, o1, tn, min(TN, s_eff - tn),
+                  tiles + (ONE ? 0 : (buf ^ 1) * TN * ld));
+      } else if (ahead) {
+        npr = t < p_tile ? probers[(size_t)nb * p_tile + t] : -1;
+        src.fetch(start_c[nb], off[nb], off[nb] + capb[nb], 0,
+                  min(TN, s_eff), tiles + (ONE ? 0 : (buf ^ 1) * TN * ld));
       }
-    } else {
-      // each slice's k_pair best per row: the better head of the row's
-      // two lanes, then its owner pops it
       if (busy) {
-        queue.flush(vals, cols);
-        for (int i = 0; i < k_pair; ++i) {
-          float v = vals[0];
-          int c = cols[0];
-          const float ov = __shfl_xor_sync(0xffffffffu, v, 1);
-          const int oc = __shfl_xor_sync(0xffffffffu, c, 1);
-          const bool mine = !before(ov, oc, v, c);
-          if (mine) {
+        const unsigned char* tile = tiles + (ONE ? 0 : buf * TN * ld);
+        const float* pen = pen_s + buf * TN;
+        const int* slt = slot_s + buf * TN;
 #pragma unroll
-            for (int j = 0; j < KMAX - 1; ++j) {
-              vals[j] = vals[j + 1];
-              cols[j] = cols[j + 1];
+        for (int gq = 0; gq < 2; ++gq) {  // up to 4 pairs (64 columns)
+          const int p0 = slice * np_s + 4 * gq;  // first pair of the group
+          if (4 * gq < np_s && 16 * p0 < nrow) {
+            float sum[8][4];  // the group's sums
+#pragma unroll
+            for (int ks = 0; ks < KSTEPS; ++ks) {
+              if (ks < ksteps) {
+                const uint32_t(&ak)[4] = a[ks];
+                const bool fresh = ks == 0;
+#pragma unroll
+                for (int np = 0; np < 4; ++np) {
+                  const int c0 = 16 * (p0 + np);
+                  if (4 * gq + np < np_s && c0 < nrow) {
+                    uint32_t bf[4];
+                    ldmatrix_x4(bf, tile + (c0 + ldm_b_row(lane)) * ld +
+                                        32 * ks + 2 * ldm_b_col(lane));
+                    if (fresh) {
+                      mma_bf16_16816_zero(sum[2 * np], ak, bf[0], bf[1]);
+                      mma_bf16_16816_zero(sum[2 * np + 1], ak, bf[2], bf[3]);
+                    } else {
+                      mma_bf16_16816(sum[2 * np], ak, bf[0], bf[1]);
+                      mma_bf16_16816(sum[2 * np + 1], ak, bf[2], bf[3]);
+                    }
+                  }
+                }
+              }
             }
-            vals[KMAX - 1] = neg_inf();
-            cols[KMAX - 1] = INT_MAX;
-          } else {
-            v = ov;
-            c = oc;
-          }
-          if (lane % 2 == 0) {
-            const int e = (warp * 16 + lane / 2) * k_pair + i;
-            vals_s[e] = v;
-            keys_s[e] = c;
+            // the scores of this lane's columns, in ascending order
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt) {
+              const int base = 16 * p0 + 8 * nt;  // the n8 tile's
+              const int cl = base + frag_c_col(lane, 0);
+              if (4 * gq + nt / 2 < np_s && base < nrow) {
+                const float2 p = *reinterpret_cast<const float2*>(pen + cl);
+#pragma unroll
+                for (int i = 0; i < 2; ++i) {
+                  if (cl + i < nrow) {
+#pragma unroll
+                    for (int rr = 0; rr < 2; ++rr) {
+                      const float sc =
+                          score(sum[nt][2 * rr + i], factor, i ? p.y : p.x);
+                      const int key =
+                          (sortable(sc) & ~slot_mask) | slt[cl + i];
+                      int& best = mx[rr][2 * (8 * gq + nt) + i];
+                      best = max(best, key);
+                    }
+                  }
+                }
+              }
+            }
           }
         }
       }
-      __syncthreads();
-      // one thread per live row: merge its slices' lists
-      if (t < 16 * nm) {
-        const int p = 16 * nth_live(live_s, t / 16) + t % 16;
-        if (prow_s[p] >= 0) {
-          const int e0 = ((t / 16) * S * 16 + t % 16) * k_pair;
-          int* o = out + ((size_t)b * p_tile + p) * 2 * k_pair;
-          const float dead = -big_penalty() / 2.0f;
+      if ((it + 1) % tpp == 0) {
+        // phase end: each slice's k_pair largest keys per row, sorted by
+        // the quad's shuffles, into its shared list
+        if (busy) {
+          int* ks_w = keys_s + warp * 16 * kls;
+          switch (S) {  // a lane holds the first 32 / S maxima of a row
+            case 8:
+              sort_slice<NGRP / 8>(mx, ks_w, lane, k_pair, kls);
+              break;
+            case 4:
+              sort_slice<NGRP / 4>(mx, ks_w, lane, k_pair, kls);
+              break;
+            case 2:
+              sort_slice<NGRP / 2>(mx, ks_w, lane, k_pair, kls);
+              break;
+            default:
+              sort_slice<NGRP>(mx, ks_w, lane, k_pair, kls);
+          }
+        }
+        __syncthreads();
+        // one thread per live row: the k_pair largest of its slices'
+        // lists (each of k_pair keys, or ended by an INT_MIN) and the
+        // running list of the earlier phases
+        if (t < 16 * nm) {
+          const int* cur = run_s + ((phase & 1) * MAX_PT + t) * kls;
+          int* nxt = run_s + (((phase + 1) & 1) * MAX_PT + t) * kls;
+          const int* sl = keys_s + ((t / 16) * S * 16 + t % 16) * kls;
           int h[WARPS];  // the slices' heads (unrolled: registers)
+          int hc = 0;    // the running list's head
 #pragma unroll
           for (int s = 0; s < WARPS; ++s) h[s] = 0;
           for (int i = 0; i < k_pair; ++i) {
-            float v = neg_inf();
-            int c = INT_MAX;
-            int bs = 0;
+            int best = phase > 0 ? cur[hc] : INT_MIN;
+            int bs = WARPS;
 #pragma unroll
             for (int s = 0; s < WARPS; ++s) {
-              if (s < S && h[s] < k_pair) {
-                const int e = e0 + s * 16 * k_pair + h[s];
-                if (before(vals_s[e], keys_s[e], v, c)) {
-                  v = vals_s[e];
-                  c = keys_s[e];
+              if (s < S) {
+                const int v =
+                    h[s] < k_pair ? sl[s * 16 * kls + h[s]] : INT_MIN;
+                if (v > best) {
+                  best = v;
                   bs = s;
                 }
               }
             }
 #pragma unroll
             for (int s = 0; s < WARPS; ++s) h[s] += s == bs;
-            const bool alive = v > dead;
-            o[i] = sortable(alive ? v : neg_inf());
-            o[k_pair + i] = alive ? s0 + src.slot(c) : -1;
+            hc += bs == WARPS;
+            nxt[i] = best;
           }
         }
+        ++phase;
       }
+      if (ahead) {
+        if constexpr (ONE) {
+          // the warps are done with the tile (a phase end's barrier has
+          // seen to it already)
+          if ((it + 1) % tpp != 0) __syncthreads();
+        }
+        src.land(tn, min(TN, s_eff - tn),
+                 tiles + (ONE ? 0 : (buf ^ 1) * TN * ld),
+                 pen_s + (buf ^ 1) * TN, slot_s + (buf ^ 1) * TN);
+      }
+      __syncthreads();
+    }
+
+    // the live rows' outputs: warp w writes rows w and w + 8 of each live
+    // tile, its lanes on consecutive keys (coalesced stores)
+    int lt2 = 0;  // the live tile's index among the live ones
+    for (int m2 = 0; m2 < MAX_PT / 16; ++m2) {
+      if (!live_s[m2]) continue;
+#pragma unroll
+      for (int h = 0; h < 16 / WARPS; ++h) {
+        const int rw = warp + WARPS * h;  // the row in the tile
+        if (prow_s[16 * m2 + rw] >= 0) {
+          const int* fin =
+              run_s + ((phase & 1) * MAX_PT + 16 * lt2 + rw) * kls;
+          int* o = out + ((size_t)b * p_tile + 16 * m2 + rw) * k_pair;
+          for (int i = lane; i < k_pair; i += 32) o[i] = fin[i];
+        }
+      }
+      ++lt2;
     }
     pr = npr;
   }
@@ -973,7 +770,6 @@ struct RowsSource {
     }
   }
 
-  __device__ __forceinline__ int slot(int c) const { return c; }
 };
 
 // CTAs of `kern` one SM holds at once with `smem` bytes of dynamic shared

@@ -42,8 +42,12 @@
 
 #ifdef __CUDACC__
 #define TPQ_HD __host__ __device__
+#define TPQ_UNROLL _Pragma("unroll")
+#define TPQ_NO_UNROLL _Pragma("unroll 1")
 #else
 #define TPQ_HD
+#define TPQ_UNROLL
+#define TPQ_NO_UNROLL
 #endif
 
 namespace tpq {
@@ -231,6 +235,175 @@ TPQ_HD constexpr size_t narrow_smem_bytes(int pack32, int k_pair,
          (size_t)narrow_ring_of(pack32, inst_k ? inst_k : k_pair, i8) *
              (STAGE_BYTES + 4 * BOX_ROWS + (i8 ? SCALE_BYTES : 0) + 16) +
          4 * MAX_PT + 4 * 8 + select_bytes(pack32, k_pair);
+}
+
+// Codes rows (the narrow instances whose CODES is true: the codes scan's
+// window decoded by the producer warpgroup). Packed uint8 codes, m a power
+// of two from 8 to 128 subspaces of dsub bf16 elements, d = m dsub <= 128:
+// slot j of a block's window holds its codes at bytes j m .. j m + m - 1
+// past start_c[b] m, and window column c = q s_rows + r (s_rows = s_eff /
+// g, g = 128 / m codes of a packed row) holds slot r g + q. A tile's 128
+// columns are decoded into the ring's stages in the 128-byte swizzled
+// K-major layout the bf16 rows' TMA boxes give, the codebook [m][256][dsub]
+// bf16 staged once per CTA. The producer's threads copy a column's codes
+// in 8-byte chunks of 8 subspaces (cp.async, into a raw slot of [128][8
+// cpp] bytes), up to 8 chunks (64 subspaces) a column per pass: one pass,
+// or two at m = 128. A chunk's decoded bytes are dsub whole 16-byte pieces
+// of the row (16 dsub bytes from byte 16 dsub chunk), piece p in the
+// tile's stage p / 8 at byte 16 (p % 8) of the row. Instances: exact
+// k_pair <= 10 and <= 16 on three stages, pack32 k_pair <= 16 on five and
+// 17-48 on four (two d = 128 tiles up to k_pair 35), each with one query
+// buffer; pack32 above CODES_DEEP_K is codes_scan_tc.cu's sorted instance.
+// A stage carries its columns' penalties and, pack32, their slots (the
+// keys' low bits).
+constexpr int CRING_EXACT = 3;
+constexpr int CRING_PACK_16 = 5;
+constexpr int CRING_PACK = 4;
+constexpr int CQB = 1;
+constexpr int CODES_DEEP_K = 48;
+constexpr int CODE_CHUNK = 8;  // codes (bytes) of a chunk
+constexpr int PASS_CHUNKS = 8;  // a pass's chunks of a column, at most
+
+TPQ_HD constexpr int codes_ring_of(int pack32, int k_pair) {
+  return pack32 ? (k_pair <= 16 ? CRING_PACK_16 : CRING_PACK) : CRING_EXACT;
+}
+// The passes of a tile at m subspaces and the chunks a pass brings of a
+// column.
+TPQ_HD constexpr int codes_passes(int m) {
+  return m > CODE_CHUNK * PASS_CHUNKS ? m / (CODE_CHUNK * PASS_CHUNKS) : 1;
+}
+TPQ_HD constexpr int pass_chunks(int m) {
+  return m / CODE_CHUNK / codes_passes(m);
+}
+// The raw slot: a pass's codes of the tile's 128 columns.
+TPQ_HD constexpr int codes_raw_bytes(int m) {
+  return BOX_ROWS * CODE_CHUNK * pass_chunks(m);
+}
+// The shared memory of the codes instance that serves this select:
+// alignment slack, the query buffer and its barriers, the ring's stages
+// (a decoded tile's k half, penalties, pack32: slots, full and empty
+// barriers), the codebook [m][256][dsub] bf16, the raw slot, prober rows,
+// tile flags and the select's arrays.
+TPQ_HD constexpr size_t codes_smem_bytes(int m, int dsub, int pack32,
+                                         int k_pair) {
+  return (size_t)SW_ATOM + (size_t)CQB * (QBUF_BYTES + 16) +
+         (size_t)codes_ring_of(pack32, k_pair) *
+             (STAGE_BYTES + 4 * BOX_ROWS + (pack32 ? 4 * BOX_ROWS : 0) + 16) +
+         (size_t)512 * m * dsub + codes_raw_bytes(m) + 4 * MAX_PT + 4 * 8 +
+         select_bytes(pack32, k_pair);
+}
+
+// The in-window slot of window column c, without an integer division: the
+// quotient from the f32 reciprocal inv = 1 / s_rows (truncated, as
+// __float2int_rz) is off by at most one for c < 2^22, and the remainder
+// corrects it.
+TPQ_HD inline int col_slot(int c, int s_rows, int g, float inv) {
+  int q = (int)((float)c * inv);
+  int r = c - q * s_rows;
+  if (r < 0) {
+    --q;
+    r += s_rows;
+  } else if (r >= s_rows) {
+    ++q;
+    r -= s_rows;
+  }
+  return r * g + q;
+}
+
+// Column `cl` (of the tile) and chunk `ch` (of the pass's 2^lc chunks of a
+// column) of chunk item e. A warp's 32 items cover whole columns (the
+// copies coalesce); with 2^lc >= 4, every 8 consecutive items are 2
+// columns x 4 chunks.
+TPQ_HD inline void chunk_item(int e, int lc, int& cl, int& ch) {
+  if (lc >= 2) {
+    ch = (e & 3) | (((e >> 3) & ((1 << (lc - 2)) - 1)) << 2);
+    cl = ((e >> 2) & 1) | ((e >> (lc + 1)) << 1);
+  } else {
+    cl = e >> lc;
+    ch = e & ((1 << lc) - 1);
+  }
+}
+
+// One 16-byte store (the kernel's uint4; four words on the host).
+TPQ_HD inline void store16(unsigned char* p, uint32_t a, uint32_t b,
+                           uint32_t c, uint32_t d) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<uint4*>(p) = make_uint4(a, b, c, d);
+#else
+  uint32_t* w = reinterpret_cast<uint32_t*>(p);
+  w[0] = a;
+  w[1] = b;
+  w[2] = c;
+  w[3] = d;
+#endif
+}
+
+// Code b (< 8) of a chunk held as two words.
+TPQ_HD inline uint32_t chunk_code(uint32_t lo, uint32_t hi, int b) {
+  return ((b < 4 ? lo : hi) >> (8 * (b & 3))) & 0xFFu;
+}
+
+// Where piece p (16 bytes, p < 16) of tile column cl lies: in the tile's
+// stage p / 8 (stage0 or stage1), at byte 16 (p % 8) of the swizzled row.
+TPQ_HD inline unsigned char* piece_at(unsigned char* stage0,
+                                      unsigned char* stage1, int cl, int p) {
+  return (p < 8 ? stage0 : stage1) + sw128_offset(cl, 16 * (p % 8));
+}
+
+// Chunk `chunk` (subspaces 8 chunk .. + 7, codes in lo / hi) of tile
+// column cl decoded against the codebook cb [m][256][dsub] (bf16 bits)
+// into its dsub 16-byte pieces p = dsub chunk + u (piece_at). The codebook
+// words are loaded before the stores they fill, all of a chunk's at once
+// where they fit in 8 words (dsub 1 and 2: more loads in flight); dsub 1,
+// 2 and 4 read whole codewords, others element by element.
+TPQ_HD inline void decode_chunk(uint32_t lo, uint32_t hi, const uint16_t* cb,
+                                int dsub, int chunk, int cl,
+                                unsigned char* stage0,
+                                unsigned char* stage1) {
+  const int i0 = CODE_CHUNK * chunk;  // the chunk's first subspace
+  const int p0 = dsub * chunk;        // and piece
+  if (dsub == 2) {  // a codeword is one word: 4 a piece
+    const uint32_t* cw = reinterpret_cast<const uint32_t*>(cb) + i0 * 256;
+    uint32_t w[8];
+    TPQ_UNROLL
+    for (int b = 0; b < 8; ++b) w[b] = cw[b * 256 + chunk_code(lo, hi, b)];
+    store16(piece_at(stage0, stage1, cl, p0), w[0], w[1], w[2], w[3]);
+    store16(piece_at(stage0, stage1, cl, p0 + 1), w[4], w[5], w[6], w[7]);
+  } else if (dsub == 1) {  // two codewords a word: one piece
+    const uint16_t* ch = cb + i0 * 256;
+    uint32_t h[8];
+    TPQ_UNROLL
+    for (int b = 0; b < 8; ++b) h[b] = ch[b * 256 + chunk_code(lo, hi, b)];
+    store16(piece_at(stage0, stage1, cl, p0), h[0] | h[1] << 16,
+            h[2] | h[3] << 16, h[4] | h[5] << 16, h[6] | h[7] << 16);
+  } else if (dsub == 4) {  // a codeword is two words: 2 a piece
+    const uint32_t* cw = reinterpret_cast<const uint32_t*>(cb) + 2 * i0 * 256;
+    TPQ_UNROLL
+    for (int u = 0; u < 4; ++u) {
+      const uint32_t* a = cw + 2 * (2 * u * 256 + chunk_code(lo, hi, 2 * u));
+      const uint32_t* b =
+          cw + 2 * ((2 * u + 1) * 256 + chunk_code(lo, hi, 2 * u + 1));
+      const uint32_t a0 = a[0], a1 = a[1], b0 = b[0], b1 = b[1];
+      store16(piece_at(stage0, stage1, cl, p0 + u), a0, a1, b0, b1);
+    }
+  } else {  // element by element: piece u holds elements 8 u .. 8 u + 7
+    int b = 0, e = 0;  // code b of the chunk, element e of its codeword
+    TPQ_NO_UNROLL
+    for (int u = 0; u < dsub; ++u) {
+      uint32_t w[4];
+      TPQ_UNROLL
+      for (int x = 0; x < 8; ++x) {
+        const uint32_t h =
+            cb[((i0 + b) * 256 + chunk_code(lo, hi, b)) * dsub + e];
+        w[x / 2] = x % 2 ? w[x / 2] | h << 16 : h;
+        if (++e == dsub) {
+          e = 0;
+          ++b;
+        }
+      }
+      store16(piece_at(stage0, stage1, cl, p0 + u), w[0], w[1], w[2], w[3]);
+    }
+  }
 }
 
 }  // namespace wg

@@ -4,15 +4,23 @@ against the codebook, score it and keep each prober's top k_pair.
 Replaces the TPU kernel
 torchpq_tpu/ops/pallas_codes_scan.py:scan_blocks_pallas_codes, the probed
 scan of the code-domain tier (scan_cache_dtype="none": the index keeps only
-its codes and norms). Two kernels serve it, chosen before launch by
+its codes and norms). Three kernels serve it, chosen before launch by
 `pick_route`, each built by `_build.py`, bound through a plain C entry point
 and counted under its own key of `launches`:
-  - "tc_exact" / "tc_pack32", `csrc/codes_scan_tc.cu`: rows of d <= 128,
-    blocks of at most 128 probers, pack32 k_pair <= 64 where its shared
-    memory fits (`tc_smem_bytes`), on the tensor cores (mma.sync bf16, f32
-    sums), scoring only the live 16-prober tiles of a block;
+  - "tc_wgn_exact" / "tc_wgn_pack32", the codes instances of
+    `csrc/block_scan_wg.cu`'s narrow body (wgmma over a ring of decoded
+    tiles that its producer warpgroup fills from the codes and the staged
+    codebook; two consumer warpgroups score and select): rows of d <= 128,
+    blocks of at most 128 probers, exact k_pair <= 16 and pack32 k_pair
+    <= 48 where their shared memory fits (`wg_smem_bytes`);
+  - "tc_pack32", `csrc/codes_scan_tc.cu` (mma.sync, sorted phase ends, one
+    decoded tile and a ring of raw codes): the pack32 selects above k_pair
+    16 that the wgmma instances leave (k_pair 49-64), where its shared
+    memory fits (`tc_smem_bytes`);
   - "exact" / "pack32", `csrc/codes_scan.cu`: the rest, on the CUDA cores
     (f32 FMAs).
+The tensor-core kernels score only the live 16-prober tiles of a block
+(bf16 products, f32 sums).
 
 What it computes, for block b, prober p and window column c < s_eff that
 holds slot j:
@@ -47,8 +55,10 @@ import torch
 from .. import util
 from .block_scan import (BIG, n_groups, random_inputs, resident_ctas,
                          select_chunks, select_exact, select_pack32,
-                         tc_shapes_ok, window_scores, _SMEM_LIMIT,
-                         _TC_MAX_ROW, _TC_TN)
+                         tc_shapes_ok, window_scores, _blocks_ok,
+                         _wg_select_bytes, _SMEM_LIMIT, _TC_MAX_PT,
+                         _TC_MAX_ROW, _TC_TN, _WG_BOX_ROWS, _WG_QBUF_BYTES,
+                         _WG_STAGE_BYTES, _WG_SW_ATOM)
 from .block_scan import tc_smem_bytes as body_smem_bytes
 
 # The JAX package's bound on the resident [m*256, d_pad] bf16 decode matrix
@@ -58,15 +68,20 @@ from .block_scan import tc_smem_bytes as body_smem_bytes
 # line so both packages take the same numerics at every shape.
 CODEBOOK_BOUND_BYTES = 9 * 1024 * 1024
 
-# The pack32 k_pair above which the tensor-core codes scan runs its deep
-# instance (csrc/codes_scan_tc.cu:DEEP_PACK_K): sorted phase ends, one
-# decoded tile and a ring of raw codes, since two tiles beside the
-# codebook and the lists at k_pair 64 take 237,600 B at d = 128.
-_TC_DEEP_PACK_K = 48
+# The codes instances of csrc/block_scan_wg.cu (csrc/wg_layout.cuh): ring
+# stages by select (exact; pack32 k_pair <= 16; pack32 k_pair 17-48), one
+# query buffer, the largest pack32 k_pair they take (CODES_DEEP_K), and a
+# pass's code chunks of 8 bytes a column (PASS_CHUNKS: m = 128 in two).
+_WG_CRING_EXACT, _WG_CRING_PACK_16, _WG_CRING_PACK = 3, 5, 4
+_WG_CQB = 1
+_WG_CODES_DEEP_K = 48
+_WG_PASS_CHUNKS = 8
 
 # kernel launches per route and select, counted by `codes_scan` where it
-# launches ("tc_*": the tensor-core kernel; the others: the CUDA-core one)
-launches = {"exact": 0, "pack32": 0, "tc_exact": 0, "tc_pack32": 0}
+# launches ("tc_wgn_*": the wgmma codes instances; "tc_pack32": the
+# mma.sync sorted one; the others: the CUDA-core kernel)
+launches = {"exact": 0, "pack32": 0, "tc_pack32": 0, "tc_wgn_exact": 0,
+            "tc_wgn_pack32": 0}
 
 
 def codes_kernel_static_gate(m, g, d, distance):
@@ -229,18 +244,43 @@ def _check(qtable, probers, start_c, off, cap, penalty, codes, codebook,
         raise ValueError("slot_mask must be next_pow2(s_eff) - 1")
 
 
-def tc_smem_bytes(*, m, dsub, pack32, k_pair):
-    """Dynamic shared memory of the tensor-core codes kernel instance that
-    serves these shapes: csrc/codes_scan_tc.cu:tc_smem_bytes, term for term
+def tc_smem_bytes(*, m, dsub, k_pair):
+    """Dynamic shared memory of the mma.sync codes kernel (its sorted
+    pack32 instance): csrc/codes_scan_tc.cu:tc_smem_bytes, term for term
     (the library's torchpq_codes_scan_tc_smem reports the same; a card test
     holds them equal), so that pick_route needs no library. The codebook
-    [256 * d] bf16; above pack32 k_pair 48 (the deep instance) the raw
-    codes' ring [TN][m] and the body with one tile; then the body's
-    (block_scan.tc_smem_bytes at rows of 2 * d bytes)."""
+    [256 * d] bf16, the raw codes' ring [TN][m], then the body's with one
+    tile (block_scan.tc_smem_bytes at rows of 2 * d bytes)."""
     d = m * dsub
-    deep = bool(pack32) and k_pair > _TC_DEEP_PACK_K
-    return (512 * d + (_TC_TN * m if deep else 0)
-            + body_smem_bytes(2 * d, pack32, k_pair, one_tile=deep))
+    return (512 * d + _TC_TN * m
+            + body_smem_bytes(2 * d, True, k_pair, one_tile=True))
+
+
+def wg_ring(pack32, k_pair):
+    """Ring stages of the wgmma codes instance that serves this select
+    (csrc/wg_layout.cuh:codes_ring_of)."""
+    if pack32:
+        return _WG_CRING_PACK_16 if k_pair <= 16 else _WG_CRING_PACK
+    return _WG_CRING_EXACT
+
+
+def wg_smem_bytes(*, m, dsub, pack32, k_pair):
+    """Dynamic shared memory of the wgmma codes instance that serves these
+    shapes: csrc/wg_layout.cuh:codes_smem_bytes, term for term (the
+    library's torchpq_codes_scan_wg_smem reports the same; a card test
+    holds them equal). Alignment slack, one query buffer [2][128][128 B]
+    and its two barriers, the ring's stages (a decoded tile's k half, the
+    columns' penalties, pack32 their slots, two barriers; wg_ring), the
+    codebook [m][256][dsub] bf16, the raw slot [128][8 * chunks a pass]
+    (m <= 64: all of a column's codes, m = 128: half), prober rows and
+    tile flags, the select's arrays (block_scan._wg_select_bytes)."""
+    chunks = min(m // 8, _WG_PASS_CHUNKS)
+    stage = _WG_STAGE_BYTES + 4 * _WG_BOX_ROWS \
+        + (4 * _WG_BOX_ROWS if pack32 else 0) + 16
+    return (_WG_SW_ATOM + _WG_CQB * (_WG_QBUF_BYTES + 16)
+            + wg_ring(pack32, k_pair) * stage + 512 * m * dsub
+            + _WG_BOX_ROWS * 8 * chunks + 4 * _TC_MAX_PT + 4 * 8
+            + _wg_select_bytes(pack32, k_pair))
 
 
 def _cta_probers(lib, p_tile, d, pack32, groups):
@@ -256,23 +296,38 @@ def _cta_probers(lib, p_tile, d, pack32, groups):
 
 def pick_route(*, m, dsub, p_tile, s_eff, k_pair, pack32):
     """The kernel that serves a scan of these shapes, which is also its key
-    in `launches`:
-      - "tc_exact" / "tc_pack32" (`csrc/codes_scan_tc.cu`, tensor cores):
-        m a power of two (the packed storage's, g*m = 128) and d = m*dsub
-        <= 128 (bf16 rows the body's A registers hold) at the shapes of
-        `block_scan.tc_shapes_ok`
-        (pack32 k_pair <= 64), where the instance's shared memory
-        (`tc_smem_bytes`: the codebook beside the body) fits;
+    in `launches`. Every tensor-core route takes m a power of two from 8
+    to 128 (the packed storage's, g*m = 128) and rows of d = m*dsub <=
+    128, d % 8 == 0:
+      - "tc_wgn_exact" / "tc_wgn_pack32" (`csrc/block_scan_wg.cu`'s codes
+        instances, wgmma): the blocks and selects of
+        `block_scan._blocks_ok` up to pack32 k_pair 48, where the
+        instance's shared memory (`wg_smem_bytes`) fits: every such exact
+        and pack32 k_pair <= 16 shape but exact k_pair 11-16 at m = 128,
+        and pack32 k_pair 17-48 up to 35 at d = 128;
+      - "tc_pack32" (`csrc/codes_scan_tc.cu`, mma.sync, sorted): the pack32
+        shapes above k_pair 16 the wgmma instances leave, at the shapes of
+        `block_scan.tc_shapes_ok`, where its shared memory
+        (`tc_smem_bytes`) fits (every d <= 128);
       - "exact" / "pack32" (`csrc/codes_scan.cu`, CUDA cores): the rest
         (exact k_pair > 16, rows wider than 128, other blocks or groups,
         a shared memory above the limit)."""
     mode = "pack32" if pack32 else "exact"
-    tc = (m & (m - 1) == 0 and 2 * m * dsub <= _TC_MAX_ROW
-          and tc_smem_bytes(m=m, dsub=dsub, pack32=pack32,
-                            k_pair=k_pair) <= _SMEM_LIMIT
-          and tc_shapes_ok(d=m * dsub, p_tile=p_tile, s_eff=s_eff,
-                           k_pair=k_pair, pack32=pack32))
-    return ("tc_" if tc else "") + mode
+    d = m * dsub
+    if not (m & (m - 1) == 0 and 8 <= m <= 128 and d % 8 == 0
+            and 2 * d <= _TC_MAX_ROW):
+        return mode
+    if (_blocks_ok(p_tile, s_eff, k_pair, pack32)
+            and (not pack32 or k_pair <= _WG_CODES_DEEP_K)
+            and wg_smem_bytes(m=m, dsub=dsub, pack32=pack32,
+                              k_pair=k_pair) <= _SMEM_LIMIT):
+        return "tc_wgn_" + mode
+    if (pack32 and k_pair > 16
+            and tc_smem_bytes(m=m, dsub=dsub, k_pair=k_pair) <= _SMEM_LIMIT
+            and tc_shapes_ok(d=d, p_tile=p_tile, s_eff=s_eff,
+                             k_pair=k_pair, pack32=pack32)):
+        return "tc_pack32"
+    return mode
 
 
 def codes_scan(qtable, probers, start_c, off, cap, penalty, codes, codebook,
@@ -324,7 +379,8 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty, codes,
     best = pick_route(m=m, dsub=dsub, p_tile=p_tile, s_eff=s_eff,
                       k_pair=k_pair, pack32=pack32)
     route = route or best
-    if route not in (mode, "tc_" + mode):
+    if route not in (mode, "tc_wgn_" + mode) + (("tc_pack32",) if pack32
+                                                 else ()):
         raise ValueError(f"route {route!r} does not serve the {mode} select")
     out = torch.empty((b, p_tile, k_pair if pack32 else 2 * k_pair),
                       dtype=torch.int32, device=codes.device)
@@ -342,19 +398,23 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty, codes,
     if route.startswith("tc_"):
         if best != route:
             raise ValueError(
-                f"the tensor-core codes scan does not take d={d}, "
+                f"the tensor-core codes scan ({route}) does not take d={d}, "
                 f"p_tile={p_tile}, s_eff={s_eff}, k_pair={k_pair}, "
                 f"pack32={pack32}")
-        if lib.torchpq_codes_scan_tc_smem(m, dsub, int(pack32), k_pair) \
+        name = ("torchpq_codes_scan_wg" if route.startswith("tc_wgn_")
+                else "torchpq_codes_scan_tc")
+        if route.startswith("tc_wgn_") and qtable.data_ptr() % 16:
+            raise ValueError("the wgmma codes scan copies 16-byte pieces of "
+                             "the query rows: qtable must be 16-byte aligned")
+        if getattr(lib, name + "_smem")(m, dsub, int(pack32), k_pair) \
                 > _SMEM_LIMIT:
-            raise ValueError(f"codes_scan_tc: shared memory exceeds the "
-                             f"limit at m={m}, dsub={dsub}, k_pair={k_pair}")
+            raise ValueError(f"{name}: shared memory exceeds the limit at "
+                             f"m={m}, dsub={dsub}, k_pair={k_pair}")
         if n_ctas is None:
-            n_ctas = resident_ctas(lib, "torchpq_codes_scan_tc_occupancy",
-                                   codes.device, m, dsub, int(pack32),
-                                   k_pair)
-        rc = lib.torchpq_codes_scan_tc(*args, min(n_ctas, b),
-                                       ctypes.c_void_p(stream))
+            n_ctas = resident_ctas(lib, name + "_occupancy", codes.device, m,
+                                   dsub, int(pack32), k_pair)
+        rc = getattr(lib, name)(*args, min(n_ctas, b),
+                                ctypes.c_void_p(stream))
     else:
         if d % 4:
             raise ValueError(f"codes scan kernel needs d % 4 == 0 (d={d})")
