@@ -3,18 +3,19 @@
 
     python3 chip_smoke.py                 # the full run, as below
     python3 chip_smoke.py --kernels-only  # phases 1-3 only, no result line
-    python3 chip_smoke.py --parent DIR    # and, on each codes row, DIR's
-        # csrc/codes_scan_tc.cu (a checkout of a tree whose codes scans
-        # ran on mma.sync) timed in turns with the row's route; on each
-        # narrow bf16 row DIR's csrc/block_scan_tc.cu where it takes the
-        # row's shapes
+    python3 chip_smoke.py --parent DIR    # and, on each warp-specialised
+        # block-scan row, DIR's csrc/block_scan_wg.cu (a checkout of the
+        # parent tree) timed in turns with the row's route, its live keys
+        # held equal; on each codes row DIR's csrc/codes_scan_tc.cu; on
+        # each narrow bf16 deep pack32 row DIR's csrc/block_scan_tc.cu,
+        # each where DIR holds it
 
 Phases, each of which fails the run on error:
   1. device: a CUDA card is required (no CPU continuation); prints its name
      and `nvidia-smi` name + power limit.
   2. build: compiles the kernels from `torchpq_tpu_torch/csrc` with nvcc;
      the ptxas report of CHECKED_KERNELS' instances must show no spill
-     and no stack frame, and each of the twenty-two warp-specialised
+     and no stack frame, and each of the twenty warp-specialised
      instances (block_scan_wg.cu, bf16 and int8, narrow and k-chunked, and
      the four codes instances) must hold warpgroup products (bf16 HGMMA,
      int8 IGMMA) and, but the codes ones (their producer decodes the
@@ -22,18 +23,18 @@ Phases, each of which fails the run on error:
      logged and in the kernels line).
   3. kernel vs plain on seeded inputs: the bf16 block-scan kernel (the
      narrow warp-specialised instances, keys "tc_wgn_exact" /
-     "tc_wgn_pack32", at d <= 128; pack32 above k_pair 16 whose phases
-     cover fewer than 8 window tiles on block_scan_tc.cu, "tc_pack32")
+     "tc_wgn_pack32", at d <= 128; pack32 above k_pair 16 the deep
+     select, csrc/deep_select.cuh)
      against its plain PyTorch version (`block_scan_ref`) on the card
      (p_tile=128, d=128, s_eff 1024 and 2048, k_pair=10, 1024 blocks,
      bf16), both selects, live rows within tolerance and pad rows dead,
      with CUDA-event times of each, and bit for bit on integer-valued
      inputs with ties (d 128 at s_eff 640, pack32 also at k_pair 40 over
-     512 strided groups, 64 over 512 and 57 over 256, d 40 at s_eff 200,
-     and d 1024 (256-byte k chunks) at s_eff 2048, exact and pack32 k_pair
-     10 and pack32 k_pair 64 over 512 groups, and d 200 at s_eff 640,
-     exact and pack32 k_pair 16, euclidean and inner: at d 1024 and 200
-     the warp-specialised route); on
+     512 strided groups, 64 over 512, 57 over 256 and 64 over 128, d 40 at
+     s_eff 200, and d 1024 (256-byte k chunks) at s_eff 2048, exact and
+     pack32 k_pair 10 and pack32 k_pair 40 and 64 over 512 groups, and d
+     200 at s_eff 640, exact and pack32 k_pair 16, euclidean and inner: at
+     d 1024 and 200 the warp-specialised route); on
      each of those inputs the CUDA-core block-scan kernel too, every row;
      then the warp-specialised route at d 200 and 384 (s_eff 640, k_pair
      10, 1024 blocks, 8 live probers a block and random liveness) within
@@ -58,7 +59,7 @@ Phases, each of which fails the run on error:
      inputs and on `int8_tie_inputs` (equal rows, exact ties; pack32
      k_pair 40 over 128 groups, 5 tiles a phase, and 64 over 512 at d 128,
      2 tiles: the narrow deep instance; at d 1024 the k-chunked wgmma
-     instance of three stages); the flat
+     instance of four stages); the flat
      scan's
      two kernels (tensor cores, CUDA cores) against `flat_scan_ref` (cap
      262,144, 1,024 queries, the glue's head k=10 addresses equal outside
@@ -152,9 +153,10 @@ Phases, each of which fails the run on error:
      k = 100 (n_probe 1 at k = 100 on the plain select, as in the JAX
      package), exact at n_probe 8, flat; the block-scan counters zeroed
      before, only the tensor-core selects after; recall rising with
-     n_probe; the all-cells probe against the flat sweep; the pack32 scan
-     against `block_scan_ref` on its search's own arguments, timed in
-     turns. Then the code domain at 4 bits (pack group 4, no spill or
+     n_probe; the all-cells probe against the flat sweep; the pack32 scans
+     at n_probe 32 (k = 10, and k = 100: k_pair 64 over 512 groups, the
+     deep select) against `block_scan_ref` on their searches' own
+     arguments, timed in turns. Then the code domain at 4 bits (pack group 4, no spill or
      supercells): its plans must launch only the wgmma codes instances
      (32 byte pairs over the byte-pair codebook, dsub 4); a 4-bit bf16
      index of the main layout runs the slice's plans, each recall@10 below
@@ -256,7 +258,7 @@ Phases, each of which fails the run on error:
      bf16 exact scan
      (n_probe 8) held to block_scan_ref within the tolerance and
      its pack32 scans at k = 10 and k = 100 (k_pair 64 over 512 groups,
-     a ring of three stages; n_probe 32) to an f64-summed select by key or
+     a ring of four stages; n_probe 32) to an f64-summed select by key or
      slot as in phase 9, and block_scan.cu to it by slot, the tensor-core
      scans' values within the tolerance (their ratio to it logged), those
      of block_scan.cu's one sequential chain within the tolerance plus the
@@ -346,14 +348,15 @@ Phases, each of which fails the run on error:
      block scan at both widths, the 1M x 128 tier's and the GIST-class
      d = 1024 one's, and the GIST records' bf16 exact, pack32 and pack32
      k = 100 and int8 pack32 k = 100 scans at d_cache 1024 (on the
-     warp-specialised route, as every int8 row and every bf16 block-scan
-     row but the bf16 mma.sync deep selects are: its launch key, the instance
-     and its SASS counts of HGMMA or IGMMA and UTMALDG; with --parent, the
-     parent's mma.sync times in turns on the narrow bf16 rows it takes and
-     on every codes row); the
+     warp-specialised route, as every bf16 and int8 block-scan row is: its
+     launch key, the instance and its SASS counts of HGMMA or IGMMA and
+     UTMALDG; with --parent, the parent's block_scan_wg.cu times in turns
+     on every such row, its mma.sync times on the narrow bf16 deep rows it
+     takes and on every codes row); the
      deep-k
      split's head and tail scans and the
-     untapered plan's scan; the 4-bit tier's pack32 block scan and both
+     untapered plan's scan; the 4-bit tier's pack32 block scans (k = 10
+     and 100) and both
      codes scans, the residual tier's k = 100 pack32 block scan, the IVFPQR
      tiers' two block scans and two codes scans; each row's launches on
      the sharded path, per rank at D = 1 and 2; and the four sharded scans'
@@ -389,23 +392,25 @@ F32_UNIT = 2.0 ** -23
 # kernel_name gives its mangled one
 DEEP_CODES_KERNEL = "codes_scan_tc_kernelILb1ELi64E"
 # the instances whose ptxas report must show no spill and no stack frame:
-# the sorted codes instance and block_scan_wg.cu's twenty-two
-# warp-specialised instances (<PACK, KMAX, ring stages, query buffers,
-# int8, codes>: bf16 and int8 alike over k-chunked rows exact 10 / 16 on 5
-# / 4 stages, pack32 on 6, 4 and 3; over narrow rows (at most 256 bytes)
-# exact 10 / 16 on 6 / 5, pack32 on 8 (int8: 7) and, above k_pair 16, on
-# 5 with one query buffer; the codes instances, one query buffer, exact 10
-# / 16 on 3 stages, pack32 on 5 and, above k_pair 16, on 4)
+# the sorted codes instance and block_scan_wg.cu's twenty warp-specialised
+# instances (<PACK, KMAX, ring stages, query buffers, int8, codes>: bf16
+# and int8 alike over k-chunked rows exact 10 / 16 on 5 / 4 stages, pack32
+# up to k_pair 16 on 6 (KMAX 16, passes) and, the deep select (KMAX 64,
+# csrc/deep_select.cuh), above on 4; over narrow rows (at most 256 bytes)
+# exact 10 / 16 on 6 / 5, pack32 on 8 (int8: 7) and, above k_pair 16, the
+# deep select on 5, each with two query buffers; the codes instances, one
+# query buffer, exact 10 / 16 on 3 stages, pack32 on 5 and, above k_pair
+# 16 (passes), on 4)
 CHECKED_KERNELS = re.compile(
     r"codes_scan_tc_kernelILb1ELi64E$|block_scan_wg_kernelI\w*E$")
-N_CHECKED_KERNELS = 23
-# the warp-specialised instances (nine bf16, nine int8, four codes), each
+N_CHECKED_KERNELS = 21
+# the warp-specialised instances (eight bf16, eight int8, four codes), each
 # of which must hold warpgroup products (bf16: HGMMA; int8, template
 # argument I8 = true: IGMMA, the integer form) and, but the codes ones
 # (CODES = true, the last argument: the producer decodes the window), TMA
 # loads (UTMALDG) in its SASS
 WG_KERNEL = re.compile(r"block_scan_wg_kernelI\w*E$")
-N_WG_KERNELS = 22
+N_WG_KERNELS = 20
 WG_OPS = ("HGMMA", "IGMMA", "UTMALDG")
 # the codes routes: the wgmma codes instances (block_scan_wg.cu) that the
 # code-domain, 4-bit and pqr3_codes k = 10 plans must take, and the sorted
@@ -882,8 +887,6 @@ def route_source(route):
     """The source of a block-scan route's kernel."""
     if is_wg(route):
         return "torchpq_tpu_torch/csrc/block_scan_wg.cu"
-    if route.startswith("tc_"):
-        return "torchpq_tpu_torch/csrc/block_scan_tc.cu"
     return "torchpq_tpu_torch/csrc/block_scan.cu"
 
 
@@ -896,9 +899,10 @@ def wg_instance(pack32, k_pair, d, int8=False):
     dtype = bs.torch.int8 if int8 else bs.torch.bfloat16
     if d * (1 if int8 else 2) <= bs._WG_NARROW_ROW:
         kmax, ring, qbufs = bs.wg_narrow_instance(pack32, k_pair, dtype)
-    else:
-        kmax, ring, qbufs = (16 if pack32 or k_pair > 10 else 10,
-                             bs.wg_ring(pack32, k_pair), 0)
+    else:  # KMAX: 64 for the deep select (pack32 k_pair 17-64)
+        kmax = (bs._DS_MAX_K if pack32 and k_pair > bs._DS_SHALLOW_K
+                else 16 if pack32 or k_pair > 10 else 10)
+        kmax, ring, qbufs = kmax, bs.wg_ring(pack32, k_pair), 0
     return (f"block_scan_wg_kernelILb{int(bool(pack32))}ELi{kmax}ELi{ring}"
             f"ELi{qbufs}ELb{int(bool(int8))}ELb0E")
 
@@ -913,25 +917,28 @@ def codes_instance(pack32, k_pair):
             f"{cs.wg_ring(pack32, k_pair)}ELi{cs._WG_CQB}ELb0ELb1E")
 
 
-# --parent DIR: the parent tree's mma.sync scans, built from DIR and timed
-# in turns with this tree's route on each row's own arguments:
-# csrc/codes_scan_tc.cu on every codes row (the codes rows' kernel before
-# block_scan_wg.cu's codes instances took its shallow selects), and
-# csrc/block_scan_tc.cu on the narrow bf16 rows whose shapes it still
-# takes, each where DIR holds it; empty without --parent
+# --parent DIR: the parent tree's scans, built from DIR and timed in turns
+# with this tree's route on each row's own arguments: csrc/block_scan_wg.cu
+# on every warp-specialised block-scan row (bf16 and int8: the parent's
+# instances of the row's select, keys held equal), csrc/codes_scan_tc.cu on
+# every codes row, and csrc/block_scan_tc.cu (mma.sync) on the narrow bf16
+# rows whose shapes it takes, each where DIR holds it; empty without
+# --parent
 PARENT = {}
-# the parent's sources: (file, its entry point's argument types, as
-# (pointers, ints) before the stream, its occupancy entry's ints)
-PARENT_SOURCES = {"bf16": ("block_scan_tc.cu", "torchpq_block_scan_tc",
-                           (8, 10), 3),
-                  "codes": ("codes_scan_tc.cu", "torchpq_codes_scan_tc",
-                            (9, 12), 4)}
+# the parent's sources: (file, {entry point: ((pointers, ints) before the
+# stream, its occupancy entry's ints)})
+PARENT_SOURCES = {
+    "wg": ("block_scan_wg.cu", {"torchpq_block_scan_wg": ((8, 11), 3),
+                                "torchpq_block_scan_wg_int8": ((10, 11), 3)}),
+    "bf16": ("block_scan_tc.cu", {"torchpq_block_scan_tc": ((8, 10), 3)}),
+    "codes": ("codes_scan_tc.cu", {"torchpq_codes_scan_tc": ((9, 12), 4)})}
 
 
 def build_parent(_build, root):
-    """The mma.sync scans of the tree at `root` (PARENT_SOURCES that it
-    holds, at least one), each built with the package's nvcc flags into
-    build/parent/ and bound with ctypes (its entry point and occupancy)."""
+    """The scans of the tree at `root` (PARENT_SOURCES that it holds, at
+    least one), each built with the package's nvcc flags into
+    build/parent/ and bound with ctypes (its entry points and their
+    occupancy)."""
     import ctypes
     csrc = Path(root).resolve() / "torchpq_tpu_torch" / "csrc"
     if not any((csrc / f[0]).exists() for f in PARENT_SOURCES.values()):
@@ -941,34 +948,34 @@ def build_parent(_build, root):
     out.mkdir(parents=True, exist_ok=True)
     p, i = ctypes.c_void_p, ctypes.c_int
     jobs = {}
-    for kind, (fname, entry, (n_ptr, n_int), n_occ) in \
-            PARENT_SOURCES.items():
+    for kind, (fname, entries) in PARENT_SOURCES.items():
         src = csrc / fname
         if not src.exists():
             continue
         so = out / f"libparent_{src.stem}.so"
-        jobs[kind] = (src, so, entry, n_ptr, n_int, n_occ, subprocess.Popen(
+        jobs[kind] = (src, so, entries, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", f"-I{csrc}",
              str(src), "-o", str(so), *_build.LINK_FLAGS],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for kind, (src, so, entry, n_ptr, n_int, n_occ, proc) in jobs.items():
+    for kind, (src, so, entries, proc) in jobs.items():
         text = proc.communicate()[0]
         if proc.returncode != 0:
             fail(f"--parent: nvcc failed on {src}:\n{text}")
         lib = ctypes.CDLL(str(so))
-        getattr(lib, entry).argtypes = [p] * n_ptr + [i] * n_int + [p]
-        getattr(lib, entry).restype = i
-        getattr(lib, entry + "_occupancy").argtypes = [i] * n_occ
-        getattr(lib, entry + "_occupancy").restype = i
-        PARENT[kind] = (lib, entry)
+        for entry, ((n_ptr, n_int), n_occ) in entries.items():
+            getattr(lib, entry).argtypes = [p] * n_ptr + [i] * n_int + [p]
+            getattr(lib, entry).restype = i
+            getattr(lib, entry + "_occupancy").argtypes = [i] * n_occ
+            getattr(lib, entry + "_occupancy").restype = i
+        PARENT[kind] = lib
         log(f"--parent: built {src} -> {so}")
 
 
-def parent_turns(torch, args, out, launch, new, what, source):
+def parent_turns(torch, args, out, launch, new, what, source, tag):
     """The parent's kernel (launch(), its CUDA return code) and this tree's
     route (new(), its output) in turns (parent, new, new, parent; 5
     launches a turn, none counted), with the share of live entries the
-    two outputs hold equal; returns the row's fields (mma_sync_ms and its
+    two outputs hold equal; returns the row's fields ({tag}_ms and the
     turns)."""
     def run():
         rc = launch()
@@ -979,34 +986,128 @@ def parent_turns(torch, args, out, launch, new, what, source):
     run()
     live = args[1] >= 0
     agree = share_equal(out[live], new()[live])
-    t, turns = in_turns(torch, {"mma_sync": run, "new": new}, 5)
-    log(f"  {what}: in turns, the parent's {source} (mma.sync) "
-        f"{t['mma_sync']:.3f} ms "
-        f"({' / '.join(f'{x:.3f}' for x in turns['mma_sync'])}), this tree "
+    t, turns = in_turns(torch, {tag: run, "new": new}, 5)
+    log(f"  {what}: in turns, the parent's {source} {t[tag]:.3f} ms "
+        f"({' / '.join(f'{x:.3f}' for x in turns[tag])}), this tree "
         f"{t['new']:.3f} ms ({' / '.join(f'{x:.3f}' for x in turns['new'])})"
-        f", {t['mma_sync'] / t['new']:.2f}x; live entries equal "
-        f"{agree:.6f}")
-    return dict(mma_sync_ms=t["mma_sync"], mma_sync_turns=turns["mma_sync"],
-                new_turns=turns["new"], mma_sync_source=source,
-                live_equal=agree)
+        f", {t[tag] / t['new']:.2f}x; live entries equal {agree:.6f}")
+    return {f"{tag}_ms": t[tag], f"{tag}_turns": turns[tag],
+            f"{tag}_new_turns": turns["new"], f"{tag}_source": source,
+            f"{tag}_live_equal": agree}
 
 
-def mma_sync_turns(torch, bs, args, kkw, route, what):
-    """With --parent, a narrow bf16 row's arguments (its select kkw) on the
-    parent's mma.sync block_scan_tc.cu and on `route` in turns
-    (parent_turns); {} without --parent, on another route, or where the
-    parent's kernel does not take the row's shapes (logged)."""
-    if "bf16" not in PARENT or not route.startswith("tc_wgn_") \
-            or kkw.get("scale") is not None:
-        return {}
-    lib, entry = PARENT["bf16"]
+def wg_launch_fn(torch, bs, lib, args, kkw):
+    """(launch, out): a closure that launches `lib`'s warp-specialised block
+    scan (torchpq_block_scan_wg, or its _int8 twin where kkw holds the
+    scales) on args into out, uncounted, and returns its CUDA return code
+    (the grid: lib's occupancy times the card's SMs, at most a CTA a
+    block); (None, None) where lib's occupancy query refuses the shapes."""
+    b, p_tile = args[1].shape
+    d = args[6].shape[1]
+    int8 = kkw.get("scale") is not None
+    name = "torchpq_block_scan_wg" + ("_int8" if int8 else "")
+    pack32, k_pair = kkw["pack32"], kkw["k_pair"]
+    groups = bs.n_groups(kkw["s_eff"], k_pair) if pack32 else 0
+    per_sm = getattr(lib, name + "_occupancy")(d, int(pack32), k_pair)
+    if per_sm <= 0:
+        return None, None
+    n_ctas = min(b, per_sm * torch.cuda.get_device_properties(
+        args[6].device).multi_processor_count)
+    out = torch.empty((b, p_tile, k_pair if pack32 else 2 * k_pair),
+                      dtype=torch.int32, device=args[6].device)
+    ptrs = [t.data_ptr() for t in args]
+    if int8:  # the entry's order: q8, q_scale, ..., penalty, scale, y8
+        ptrs = ptrs[:1] + [kkw["q_scale"].data_ptr()] + ptrs[1:6] + [
+            kkw["scale"].data_ptr(), ptrs[6]]
+
+    def launch():
+        return getattr(lib, name)(
+            *ptrs, out.data_ptr(), b, p_tile, d, args[6].shape[0],
+            kkw["s_eff"], k_pair, int(kkw["euclidean"]), int(pack32),
+            kkw["slot_mask"], groups, n_ctas,
+            torch.cuda.current_stream().cuda_stream)
+
+    return launch, out
+
+
+def tc_launch_fn(torch, bs, lib, args, kkw):
+    """(launch, out): the same for the mma.sync block scan
+    (torchpq_block_scan_tc: bf16, d <= 128, pack32 k_pair 17-64) of a
+    tree that holds it; (None, None) where it refuses the shapes."""
     b, p_tile = args[1].shape
     d = args[6].shape[1]
     pack32, k_pair = kkw["pack32"], kkw["k_pair"]
-    groups = bs.n_groups(kkw["s_eff"], k_pair) if pack32 else 0
-    per_sm = getattr(lib, entry + "_occupancy")(d, int(pack32), k_pair)
+    if kkw.get("scale") is not None or not pack32 or k_pair <= 16:
+        return None, None
+    groups = bs.n_groups(kkw["s_eff"], k_pair)
+    per_sm = lib.torchpq_block_scan_tc_occupancy(d, 1, k_pair)
     if per_sm <= 0:
-        log(f"  {what}: the parent's block_scan_tc.cu does not take these "
+        return None, None
+    n_ctas = min(b, per_sm * torch.cuda.get_device_properties(
+        args[6].device).multi_processor_count)
+    out = torch.empty((b, p_tile, k_pair), dtype=torch.int32,
+                      device=args[6].device)
+    ptrs = [t.data_ptr() for t in args]
+
+    def launch():
+        return lib.torchpq_block_scan_tc(
+            *ptrs, out.data_ptr(), b, p_tile, d, kkw["s_eff"], k_pair,
+            int(kkw["euclidean"]), 1, kkw["slot_mask"], groups, n_ctas,
+            torch.cuda.current_stream().cuda_stream)
+
+    return launch, out
+
+
+def block_turns(torch, bs, args, kkw, route, what):
+    """With --parent, a block-scan row's arguments (its select kkw) on
+    `route` in turns with the parent's kernels (parent_turns): its
+    block_scan_wg.cu on a warp-specialised route (the live keys must equal
+    this tree's: the products and the selects' results are the same), and
+    its mma.sync block_scan_tc.cu on a narrow bf16 pack32 row above k_pair
+    16, where the parent holds and takes it; {} without --parent."""
+    row = {}
+    new = (lambda: block_launch(torch, bs, args, route, **kkw))
+    if "wg" in PARENT and is_wg(route):
+        launch, out = wg_launch_fn(torch, bs, PARENT["wg"], args, kkw)
+        if launch is None or launch() != 0:
+            log(f"  {what}: the parent's block_scan_wg.cu does not take "
+                "these shapes")
+        else:
+            row.update(parent_turns(torch, args, out, launch, new, what,
+                                    "block_scan_wg.cu", "parent_wg"))
+            if row["parent_wg_live_equal"] != 1.0:
+                fail(f"{what}: the live keys differ from the parent's "
+                     f"block_scan_wg.cu instance: "
+                     f"{row['parent_wg_live_equal']:.6f} equal")
+    if "bf16" in PARENT and route == "tc_wgn_pack32" \
+            and kkw["k_pair"] > 16 and kkw.get("scale") is None:
+        launch, out = tc_launch_fn(torch, bs, PARENT["bf16"], args, kkw)
+        if launch is None or launch() != 0:
+            log(f"  {what}: the parent's block_scan_tc.cu does not take "
+                "these shapes")
+        else:
+            row.update(parent_turns(torch, args, out, launch, new, what,
+                                    "block_scan_tc.cu", "mma_sync"))
+    return row
+
+
+def codes_parent_turns(torch, bs, cs, args, kkw, route, what):
+    """With --parent, a codes row's arguments (its select kkw) on the
+    parent's mma.sync codes_scan_tc.cu and on `route` in turns
+    (parent_turns); {} without --parent or where the parent's kernel
+    refuses the row's shapes (logged: since the codes scan's shallow
+    selects moved to block_scan_wg.cu it takes the deep pack32 ones
+    only)."""
+    if "codes" not in PARENT:
+        return {}
+    lib = PARENT["codes"]
+    b, p_tile = args[1].shape
+    m, _, dsub = args[7].shape
+    pack32, k_pair = kkw["pack32"], kkw["k_pair"]
+    groups = bs.n_groups(kkw["s_eff"], k_pair) if pack32 else 0
+    per_sm = lib.torchpq_codes_scan_tc_occupancy(m, dsub, int(pack32), k_pair)
+    if per_sm <= 0:
+        log(f"  {what}: the parent's codes_scan_tc.cu does not take these "
             f"shapes (occupancy {per_sm})")
         return {}
     n_ctas = min(b, per_sm * torch.cuda.get_device_properties(
@@ -1016,54 +1117,20 @@ def mma_sync_turns(torch, bs, args, kkw, route, what):
     ptrs = [t.data_ptr() for t in args]
 
     def launch():
-        return getattr(lib, entry)(
-            *ptrs, out.data_ptr(), b, p_tile, d, kkw["s_eff"], k_pair,
-            int(kkw["euclidean"]), int(pack32), kkw["slot_mask"], groups,
-            n_ctas, torch.cuda.current_stream().cuda_stream)
-
-    if launch() != 0:
-        log(f"  {what}: the parent's block_scan_tc.cu does not take these "
-            "shapes")
-        return {}
-    return parent_turns(
-        torch, args, out, launch,
-        lambda: block_launch(torch, bs, args, route, **kkw), what,
-        PARENT_SOURCES["bf16"][0])
-
-
-def codes_parent_turns(torch, bs, cs, args, kkw, route, what):
-    """With --parent, a codes row's arguments (its select kkw) on the
-    parent's mma.sync codes_scan_tc.cu and on `route` in turns
-    (parent_turns); {} without --parent. Fails where the parent's kernel
-    refuses the row's shapes (it took every codes row's)."""
-    if "codes" not in PARENT:
-        return {}
-    lib, entry = PARENT["codes"]
-    b, p_tile = args[1].shape
-    m, _, dsub = args[7].shape
-    pack32, k_pair = kkw["pack32"], kkw["k_pair"]
-    groups = bs.n_groups(kkw["s_eff"], k_pair) if pack32 else 0
-    per_sm = getattr(lib, entry + "_occupancy")(m, dsub, int(pack32), k_pair)
-    if per_sm <= 0:
-        fail(f"{what}: the parent's codes_scan_tc.cu occupancy query failed "
-             f"({per_sm})")
-    n_ctas = min(b, per_sm * torch.cuda.get_device_properties(
-        args[6].device).multi_processor_count)
-    out = torch.empty((b, p_tile, k_pair if pack32 else 2 * k_pair),
-                      dtype=torch.int32, device=args[6].device)
-    ptrs = [t.data_ptr() for t in args]
-
-    def launch():
-        return getattr(lib, entry)(
+        return lib.torchpq_codes_scan_tc(
             *ptrs, out.data_ptr(), b, p_tile, m, dsub, args[6].shape[1] // m,
             kkw["s_eff"], k_pair, int(kkw["euclidean"]), int(pack32),
             kkw["slot_mask"], groups, n_ctas,
             torch.cuda.current_stream().cuda_stream)
 
+    if launch() != 0:
+        log(f"  {what}: the parent's codes_scan_tc.cu does not take these "
+            "shapes")
+        return {}
     return parent_turns(
         torch, args, out, launch,
         lambda: codes_launch(torch, cs, args, route, **kkw), what,
-        PARENT_SOURCES["codes"][0])
+        PARENT_SOURCES["codes"][0], "mma_sync")
 
 
 def sass_counts(torch, path):
@@ -1159,18 +1226,23 @@ def phase_kernels(torch, bs, cs, fs, gr):
                 "rows within tolerance, pad rows dead; the CUDA-core kernel "
                 "matches the plain version on every row)")
     # integer inputs with runs of equal rows: bit for bit, ties included
-    # (d 40 pads K to 48; s_eff 200 ends in a ragged tile; pack32 k_pair 64
-    # over 512 groups and 57 over 256, the deep-k selects; d 1024, the
-    # GIST-class cache in 256-byte k chunks, at the records' k = 10 and
-    # k = 100 shapes, on the warp-specialised route; d 200, whose rows end
-    # inside a k chunk)
+    # (d 40 pads K to 48; s_eff 200 ends in a ragged tile; the deep pack32
+    # selects (csrc/deep_select.cuh) of the narrow instance: k_pair 40 over
+    # 512 groups (4 tiles a phase), 64 over 512 (8) and 57 over 256 (2), the
+    # deep-k selects, and 64 over 128 (one phase of 5 tiles, the residual
+    # record's); d 1024, the GIST-class cache in 256-byte k chunks, at the
+    # records' k = 10 and k = 100 shapes and pack32 k_pair 40 (the deep
+    # instance of k_pair 17-48), on the warp-specialised route; d 200, whose
+    # rows end inside a k chunk)
     for d, s_eff, k_pair, selects in ((128, 640, 10, (False, True)),
                                       (128, 2048, 40, (True,)),
                                       (128, 4096, 64, (True,)),
                                       (128, 512, 57, (True,)),
+                                      (128, 640, 64, (True,)),
                                       (40, 200, 16, (False,)),
                                       (1024, 2048, 10, (False, True)),
                                       (1024, 2048, 64, (True,)),
+                                      (1024, 2048, 40, (True,)),
                                       (200, 640, 16, (False, True))):
         args = bs.integer_block_inputs("cuda", s_eff=s_eff,
                                        n_blocks=256 if d > 128 else 1024,
@@ -1472,7 +1544,7 @@ def phase_main_shapes(torch, tp, bs, index, xq, k, label="main path",
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 launch_key=route, cuda_core_ms=cc_ms,
                 cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu",
-                **mma_sync_turns(torch, bs, args, kkw, route,
+                **block_turns(torch, bs, args, kkw, route,
                                  f"{name} on the {label} n_probe={n_probe} "
                                  "search's arguments"))
             if is_wg(route):
@@ -1977,7 +2049,7 @@ def int8_kernel_rows(torch, tp, bs, index, xq, k, label, suffix="",
                 bound_by=b_by, library_ms=None, launch_key=route,
                 cuda_core_ms=cc_ms,
                 cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu",
-                **mma_sync_turns(torch, bs, args, kkw, route,
+                **block_turns(torch, bs, args, kkw, route,
                                  f"{name} on the {label}n_probe={n_probe} "
                                  "search's arguments"))
             if is_wg(route):
@@ -2082,43 +2154,39 @@ def check_spill(torch, seen):
     return over
 
 
-def one_key_ms(torch, bs, args, kw, reps, route=None):
-    """The tensor-core pack32 launch on a scan's own arguments (bf16, or
-    int8 where kw holds its scales; a warp-specialised route (is_wg): the
-    warp-specialised kernel, else the mma.sync one), but writing k_pair =
-    1 key per row over the same strided groups: the same tiles, products,
-    group maxima and phases, with one extraction pass and one merge step
-    per phase (the warp-specialised one on the instance and ring stages of
-    the real launch's k_pair, torchpq_block_scan_wg_instance). The
+def one_key_ms(torch, bs, args, kw, reps):
+    """The warp-specialised pack32 launch on a scan's own arguments (bf16,
+    or int8 where kw holds its scales), but writing k_pair = 1 key per row
+    over the same strided groups: the same tiles, products, group maxima
+    and phases on the instance and ring stages of the real launch's k_pair
+    (torchpq_block_scan_wg_instance), with one extraction pass and one
+    merge step per phase on the instances of k_pair <= 16, and on the deep
+    ones each phase's survivors of a one-key list (a few a row). The
     difference to the real launch is what the rest of the select costs (the
-    passes or the sort, the merge, the writes). Mean CUDA-event ms over
-    reps launches (none counted)."""
+    passes or the merges, the writes). Mean CUDA-event ms over reps
+    launches (none counted)."""
     from torchpq_tpu_torch import _build
     lib = _build.library()
     b, p_tile = args[1].shape
     d = args[6].shape[1]
     int8 = kw.get("scale") is not None
-    wg = route is not None and is_wg(route)
-    name = "torchpq_block_scan_" + ("wg" if wg else "tc") + (
-        "_int8" if int8 else "")
+    name = "torchpq_block_scan_wg" + ("_int8" if int8 else "")
     groups = bs.n_groups(kw["s_eff"], kw["k_pair"])
     n_ctas = bs.resident_ctas(lib, name + "_occupancy", args[6].device, d,
-                              1, kw["k_pair"] if wg else 1)
+                              1, kw["k_pair"])
     out = torch.empty((b, p_tile, 1), dtype=torch.int32,
                       device=args[1].device)
     ptrs = [t.data_ptr() for t in args]
     if int8:  # the entry's order: q8, q_scale, ..., penalty, scale, y8
         ptrs = ptrs[:1] + [kw["q_scale"].data_ptr()] + ptrs[1:6] + [
             kw["scale"].data_ptr(), ptrs[6]]
-    dims = (d, args[6].shape[0]) if wg else (d,)  # wg: and the capacity
-    # wg: the instance of the real launch's k_pair
-    entry, inst = (name + "_instance", (kw["k_pair"],)) if wg else (name, ())
 
     def run():
-        rc = getattr(lib, entry)(
-            *ptrs, out.data_ptr(), b, p_tile, *dims, kw["s_eff"], 1,
-            int(kw["euclidean"]), 1, kw["slot_mask"], groups, min(n_ctas, b),
-            torch.cuda.current_stream().cuda_stream, *inst)
+        rc = getattr(lib, name + "_instance")(
+            *ptrs, out.data_ptr(), b, p_tile, d, args[6].shape[0],
+            kw["s_eff"], 1, int(kw["euclidean"]), 1, kw["slot_mask"], groups,
+            min(n_ctas, b), torch.cuda.current_stream().cuda_stream,
+            kw["k_pair"])
         if rc != 0:
             fail(f"the one-key tensor-core launch failed: CUDA error {rc}")
 
@@ -2195,7 +2263,7 @@ def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
     log(f"{what}: {blocks} blocks x {p_tile} probers, {live} live "
         f"({live / (blocks * p_tile):.3f}), {live_tiles} live 16-prober "
         f"tiles, s_eff={s_eff}, k_pair={k_pair}, G={groups}, route {route}")
-    if route not in ("tc_wgn_pack32", "tc_wg_pack32", "tc_pack32"):
+    if route not in ("tc_wgn_pack32", "tc_wg_pack32"):
         fail(f"{what} routes to {route}, not the tensor cores")
     kkw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=kw["euclidean"],
                pack32=True, slot_mask=kw["slot_mask"])
@@ -2241,7 +2309,7 @@ def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
         "tensor_cores": lambda: block_launch(torch, bs, args, route,
                                              **kkw)}, 5)
     ms, cc_ms = t["tensor_cores"], t["cuda_cores"]
-    k1_ms = one_key_ms(torch, bs, args, kkw, 5, route=route)
+    k1_ms = one_key_ms(torch, bs, args, kkw, 5)
     plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw), 1)
     b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=2 * d + 4,
                             row_bytes=2 * d, peak="bf16", d=d)
@@ -2269,7 +2337,7 @@ def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
         cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu",
         one_key_ms=k1_ms, key_agreement=agree, held_by_slot=by_slot,
         held_against="f64" if against_f64 else "plain",
-        **mma_sync_turns(torch, bs, args, kkw, route,
+        **block_turns(torch, bs, args, kkw, route,
                          f"{name} on {what}'s arguments"))
     if is_wg(route):
         inst = wg_instance(True, k_pair, d)
@@ -2280,9 +2348,9 @@ def pack32_scan_row(torch, bs, name, args, kw, what, against_f64=False):
 def deepk_counts(bs, seen, counts, what, s_eff):
     """The block-scan launches of a deep-k run (scans at s_eff): each scan
     call ops/adc.py made launched the tensor-core pack32 route pick_route
-    names for its k_pair (narrow wgmma, or block_scan_tc.cu's sorted
-    instance where the phases are short: tc_deep_ok), every such route at
-    least once and no other key; returns the calls per k_pair."""
+    names for its k_pair (the narrow wgmma instances: the deep select's
+    above k_pair 16), every such route at least once and no other key;
+    returns the calls per k_pair."""
     want = {}
     for kp in seen:
         route = bs.pick_route(dtype=bs.torch.bfloat16, d=128, p_tile=128,
@@ -2490,13 +2558,9 @@ def all_cells_check(torch, index, xq, k, label):
 
 
 # the block scan's tensor-core keys per cache: (exact, pack32); bf16 rows
-# of d <= 128 on the narrow warp-specialised instances
+# of d <= 128 on the narrow warp-specialised instances (the k = 100 plans
+# of the 4-bit, residual and pqr3 tiers on their deep pack32 instance)
 BF16_KEYS = ("tc_wgn_exact", "tc_wgn_pack32")
-# and the pack32 route that keeps the narrow deep selects of short phases
-# on block_scan_tc.cu (mma.sync, sorted phase ends: ops/block_scan.py:
-# tc_deep_ok), which the k = 100 plans of the 4-bit, residual and pqr3
-# tiers take beside BF16_KEYS
-BF16_DEEP_KEY = "tc_pack32"
 INT8_KEYS = ("tc_wgn_int8_exact", "tc_wgn_int8_pack32")
 # and those of the int8 scans at d_cache 1024 (the GIST-class int8 tier and
 # the GIST int8 record: the k-chunked int8 instances)
@@ -2515,8 +2579,7 @@ def require_only_tc(counts, keys, what):
         if counts[key] <= 0:
             fail(f"kernel block_scan {key} was never launched by {what}")
     others = []
-    for family in (BF16_KEYS + GIST_BF16_KEYS + (BF16_DEEP_KEY,),
-                   INT8_KEYS + GIST_INT8_KEYS):
+    for family in (BF16_KEYS + GIST_BF16_KEYS, INT8_KEYS + GIST_INT8_KEYS):
         if set(keys) <= set(family):
             others = [k for k in family if k not in keys]
     for key in ("exact", "pack32", "int8_exact", "int8_pack32", *others):
@@ -2593,24 +2656,31 @@ def phase_pq4(torch, tp, bs, cs, sl, gt100):
         bs.launches[key] = 0
     rec10, _ = time_plans(torch, tp, pq4, xq, gt, k, bs.launches,
                           "pq4 ", plans=PLANS_K10, floors=False)
+    counts10 = dict(bs.launches)
     rec100, _ = time_plans(torch, tp, pq4, xq, gt100, 100, bs.launches,
                            "pq4 k=100 ", plans=PLANS_K100, floors=False,
                            short_ok=True, plain_ok=PLAIN_K100)
     counts = dict(bs.launches)
-    log(f"pq4 launches: {counts}")
-    require_only_tc(counts, BF16_KEYS + (BF16_DEEP_KEY,),
+    counts100 = {key: counts[key] - counts10[key] for key in counts}
+    log(f"pq4 launches: k=10 plans {counts10}, k=100 plans {counts100}")
+    require_only_tc(counts, BF16_KEYS,
                     "the pq4 bf16 plans")
     rising(rec10, PLANS_K10, "pq4 k=10")
     rising(rec100, PLANS_K100, "pq4 k=100")
     all_cells_check(torch, pq4, xq, k, "pq4 ")
     pq4.scan_mode, pq4.n_probe, pq4.use_approx_topk = "cell_major", 32, True
-    args, kw = capture_call(tp, pq4, xq, k)
-    rows = {"block_scan_pack32_pq4": pack32_scan_row(
-        torch, bs, "block_scan_pack32_pq4", args, kw,
-        "the pq4 n_probe=32 search")}
-    launches = {"block_scan_pack32_pq4":
-                counts[rows["block_scan_pack32_pq4"]["launch_key"]]}
-    del args
+    rows, launches = {}, {}
+    # k = 10 (k_pair 10) and k = 100 (k_pair 64 over G = 512, 5 tiles a
+    # phase: the deep select) at n_probe 32
+    for name, kk, key_counts in (("block_scan_pack32_pq4", k, counts10),
+                                 ("block_scan_pack32_pq4_k100", 100,
+                                  counts100)):
+        args, kw = capture_call(tp, pq4, xq, kk)
+        rows[name] = pack32_scan_row(
+            torch, bs, name, args, kw,
+            f"the pq4 k={kk} n_probe=32 search")
+        launches[name] = key_counts[rows[name]["launch_key"]]
+        del args
     phase_profile(torch, pq4, xq, k, label="pq4 ",
                   plans=[p for p in PLANS_K10 if p[1] in (1, 8, 32)])
     phase_profile(torch, pq4, xq, 100, label="pq4 k=100 ",
@@ -2743,7 +2813,7 @@ def phase_residual(torch, tp, bs, sl, gt100):
                           "residual ", plans=PLANS_K10, floors=False)
     counts = dict(bs.launches)
     log(f"residual launches: k=100 plans {counts100}, all plans {counts}")
-    require_only_tc(counts, BF16_KEYS + (BF16_DEEP_KEY,),
+    require_only_tc(counts, BF16_KEYS,
                     "the residual plans")
     rising(rec10, PLANS_K10, "residual k=10")
     rising(rec100, PLANS_K100, "residual k=100")
@@ -2879,7 +2949,7 @@ def phase_pqr(torch, tp, bs, sl, gt100):
     counts = dict(bs.launches)
     counts100 = {key: counts[key] - counts10[key] for key in counts}
     log(f"pqr3 launches: k=10 plans {counts10}, k=100 plans {counts100}")
-    require_only_tc(counts, BF16_KEYS + (BF16_DEEP_KEY,),
+    require_only_tc(counts, BF16_KEYS,
                     "the pqr3 plans")
     rising(rec10, PQR_PLANS_K10, "pqr3 k=10")
     rising(rec100, PQR_PLANS_K100, "pqr3 k=100")
@@ -3619,12 +3689,12 @@ def gist_plans(torch, tp, bs, index, xq, gt, k, plans, label):
 
 def int8_deep_row(torch, tp, bs, index, xq, k, name, what):
     """The int8 tier's pack32 k = 100 scan (k_pair 64 over G = 512, the
-    k-chunked warp-specialised int8 instance of three ring stages) on its
-    search's own arguments: bit for bit against block_scan_ref on live
-    rows, pad rows dead, the CUDA-core int8 kernel on every row; timed in
-    turns with it (and, with --parent, with the parent's mma.sync int8
-    kernel) and beside the same launch writing one key per row. Returns the
-    kernels-line row."""
+    k-chunked warp-specialised int8 instance of four ring stages, the deep
+    select) on its search's own arguments: bit for bit against
+    block_scan_ref on live rows, pad rows dead, the CUDA-core int8 kernel
+    on every row; timed in turns with it (and, with --parent, with the
+    parent's block_scan_wg.cu instance) and beside the same launch writing
+    one key per row. Returns the kernels-line row."""
     args, kw = capture_call(tp, index, xq, k)
     s_eff, k_pair = kw["s_eff"], kw["k_pair"]
     blocks, p_tile = args[1].shape
@@ -3648,7 +3718,7 @@ def int8_deep_row(torch, tp, bs, index, xq, k, name, what):
                                            **kkw),
         route: lambda: block_launch(torch, bs, args, route, **kkw)}, 3)
     ms, cc_ms = t[route], t["cuda_cores"]
-    k1_ms = one_key_ms(torch, bs, args, kkw, 3, route=route)
+    k1_ms = one_key_ms(torch, bs, args, kkw, 3)
     plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw), 1)
     b_ms, b_by = scan_bound(torch, args, kkw, slot_bytes=d + 8,
                             row_bytes=d + 4, peak="int8", d=d)
@@ -3669,7 +3739,7 @@ def int8_deep_row(torch, tp, bs, index, xq, k, name, what):
         library_ms=None, launch_key=route, cuda_core_ms=cc_ms,
         cuda_core_source="torchpq_tpu_torch/csrc/block_scan.cu",
         one_key_ms=k1_ms, instance=inst, sass=SASS.get(inst),
-        **mma_sync_turns(torch, bs, args, kkw, route,
+        **block_turns(torch, bs, args, kkw, route,
                          f"{name} on {what}'s arguments"))
 
 
@@ -4299,7 +4369,7 @@ def sharded_kernel_rows(torch, tp, bs, cs, searchers, tiers, xq, check,
                 if int8 else None)[0]
             ms = cuda_ms(torch, lambda: block_launch(torch, bs, args, route,
                                                      **kkw), 20)
-            turns = mma_sync_turns(torch, bs, args, kkw, route,
+            turns = block_turns(torch, bs, args, kkw, route,
                                    f"{label}{name}")
             plain_ms = cuda_ms(torch, lambda: bs.block_scan_ref(*args, **kkw),
                                3)
@@ -5062,11 +5132,12 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel-vs-plain phase")
     ap.add_argument("--parent", default=None, metavar="DIR",
-                    help="a checkout of a tree whose int8 scans ran on "
-                    "csrc/block_scan_tc_int8.cu (mma.sync): each int8 row "
-                    "also times that kernel in turns (and each narrow bf16 "
-                    "row its csrc/block_scan_tc.cu, where that takes the "
-                    "row's shapes), each where the tree holds it")
+                    help="a checkout of a parent tree: each warp-specialised "
+                    "block-scan row also times DIR's "
+                    "csrc/block_scan_wg.cu in turns (its live keys held "
+                    "equal), each codes row DIR's csrc/codes_scan_tc.cu and "
+                    "each narrow bf16 deep pack32 row DIR's "
+                    "csrc/block_scan_tc.cu, each where the tree holds it")
     ap.add_argument("--sharded-rank", type=int, default=None,
                     help=argparse.SUPPRESS)  # a rank of the D=2 phase
     ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
@@ -5243,6 +5314,8 @@ def main():
             ("codes_scan_pack32", code_rows, code_counts["tc_wgn_pack32"]),
             ("block_scan_pack32_pq4", pq4_rows,
              pq4_launches["block_scan_pack32_pq4"]),
+            ("block_scan_pack32_pq4_k100", pq4_rows,
+             pq4_launches["block_scan_pack32_pq4_k100"]),
             ("codes_scan_exact_pq4", pq4_rows,
              pq4_launches["codes_scan_exact_pq4"]),
             ("codes_scan_pack32_pq4", pq4_rows,

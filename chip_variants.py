@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Variant builds of the block scan, timed in turns with the built library
 on the JAX package's GIST records' arguments (k-chunked rows), on narrow
-random inputs (d 128, --narrow) or, for the codes instances, on random
-codes at the code domain's window (--codes), on one CUDA card:
+random inputs (d 128, --narrow), on random inputs at the deep pack32 rows'
+shapes (--deep, also against a parent tree's build) or, for the codes
+instances, on random codes at the code domain's window (--codes), on one
+CUDA card:
 
     python3 chip_variants.py                       # every variant and tier
     python3 chip_variants.py --variants wg8_ring4 --tiers int8
     python3 chip_variants.py --variants wgn_noscore --narrow
-    python3 chip_variants.py --variants wgn_sorted --ptxas-only
+    python3 chip_variants.py --variants wgd_noprune --ptxas-only
     python3 chip_variants.py --variants wgc_noearly,wgc_pass4 --codes
+    python3 chip_variants.py --deep --parent DIR --variants wgd_noprune
 
 On each of the records' searches (1M x 960 manifold-12, seed 1, IVF4096 x
 PQ64, spill 8 cells at 512, scan_group 4: bf16 pack32 k = 10 and k = 100
@@ -27,27 +30,27 @@ with the package's nvcc flags into its own library under
             lowered from 232 to 224 (the producer's raised from 40 to 56);
   - wg_ring4: (wgmma) rings of four stages where the built instances
             take five (exact k_pair <= 10) or six (pack32 k_pair <= 16);
-  - wg_sorted: (wgmma) the deep instance (pack32 k_pair > 48) with sorted
-            phase ends instead of passes (ptxas spills 352 B there at the
-            consumers' 232 registers);
   - wg8_ring4: (wgmma; for the int8 rows, whose k-chunked tiles take half
             the stages of bf16 ones) rings of four stages where the built
             k-chunked instances take five (exact k_pair <= 10) or six
             (pack32 k_pair <= 16);
-  - wg8_onelist_ring4: (wgmma, k-chunked pack32 k_pair > 48) one running
-            list where the built instance keeps two (the merge reads and
-            writes the same list: wrong keys, a timing variant only), and
-            the 33,280 B it frees at k_pair 64 spent on a fourth ring stage;
   - wgn_*: (wgmma, narrow rows d <= 128; ptxas only, these records being
             d 1024) wgn_regs224: the producer's and the consumers'
-            registers at 56 / 224 instead of 40 / 232; wgn_sorted: the
-            deep instance (pack32 k_pair > 16) sorting its phase ends
-            instead of extracting them pass by pass, and wgn_sorted_regs240
-            the same at 24 / 240; and some that compute wrong keys, to
+            registers at 56 / 224 instead of 40 / 232; and some that
+            compute wrong keys, to
             time what a part costs (--narrow only): wgn_nopen, no penalty
             loads in the producer; wgn_noscore, no scores or maxima;
             wgn_noprod, no products; wgn_noselect, no phase-end extraction
-            (pack32) or list pops (exact);
+            (pack32 up to k_pair 16) or list pops (exact);
+  - wgd_*, wgn_deep_q1: (the deep pack32 instances, k_pair 17-64,
+            csrc/deep_select.cuh; --deep) wgd_noprune: every group maximum
+            of a phase staged and merged, the running lists' bounds
+            unread; wgd_ring_less: one ring stage fewer on each deep
+            instance (k-chunked 3, narrow 4; one more fits at neither but
+            the narrow one on one buffer); wgd_rows1: the
+            merge one row at a time, not two; wgn_deep_q1: the narrow deep
+            instance on one query buffer and seven stages instead of two
+            and five;
   - wgc_*: (the codes instances, --codes only) wgc_noearly: a tile's first
             k half released with its last after the scores, not after the
             products; wgc_pass4: the raw slot half as large (4 chunks of a
@@ -69,6 +72,7 @@ import re
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -80,45 +84,16 @@ VARIANTS = {
                    "constexpr int RING_EXACT_10 = 4;"),
                   ("wg_layout.cuh", "constexpr int RING_PACK_16 = 6;",
                    "constexpr int RING_PACK_16 = 4;")],
-    "wg8_onelist_ring4": [
-        ("block_scan_wg.cu",
-         "const int* cur = run_s + ((phase & 1) * MAX_PT + ct) * kls;",
-         "const int* cur = run_s + ct * kls;"),
-        ("block_scan_wg.cu",
-         "int* nxt = run_s + (((phase + 1) & 1) * MAX_PT + ct) * kls;",
-         "int* nxt = run_s + ct * kls;"),
-        ("block_scan_wg.cu",
-         "run_s + ((phase & 1) * MAX_PT + 16 * l2 + rw) * kls;",
-         "run_s + (16 * l2 + rw) * kls;"),
-        ("wg_layout.cuh", "(pack32 ? (size_t)2 * 4 * MAX_PT * (k_pair | 1)",
-         "(pack32 ? (size_t)1 * 4 * MAX_PT * (k_pair | 1)"),
-        ("wg_layout.cuh", "constexpr int RING_DEEP = 3;",
-         "constexpr int RING_DEEP = 4;")],
     "wg_regs224": [("block_scan_wg.cu", "constexpr int PRODUCER_REGS = 40;",
                     "constexpr int PRODUCER_REGS = 56;"),
                    ("block_scan_wg.cu", "constexpr int CONSUMER_REGS = 232;",
                     "constexpr int CONSUMER_REGS = 224;")],
-    "wg_sorted": [("block_scan_wg.cu", a + "true, tc::PASS_K, RING_DEEP" + z,
-                   a + "true, tc::MAX_PACK_K, RING_DEEP" + z)
-                  for a, z in (("TPQ_LAUNCH(", ", 0)"),
-                               ("occupancy_of<", ", 0, I8>"))],
     "wgn_regs224": [("block_scan_wg.cu",
                      "constexpr int NARROW_PRODUCER_REGS = 40;",
                      "constexpr int NARROW_PRODUCER_REGS = 56;"),
                     ("block_scan_wg.cu",
                      "constexpr int NARROW_CONSUMER_REGS = 232;",
                      "constexpr int NARROW_CONSUMER_REGS = 224;")],
-    "wgn_sorted_regs240": [
-        ("block_scan_wg.cu",
-         "TPQ_LAUNCH(true, tc::PASS_K, NRING_DEEP, NQB_DEEP)",
-         "TPQ_LAUNCH(true, tc::MAX_PACK_K, NRING_DEEP, NQB_DEEP)"),
-        ("block_scan_wg.cu",
-         "occupancy_of<true, tc::PASS_K, NRING_DEEP, NQB_DEEP, I8>",
-         "occupancy_of<true, tc::MAX_PACK_K, NRING_DEEP, NQB_DEEP, I8>"),
-        ("block_scan_wg.cu", "constexpr int NARROW_PRODUCER_REGS = 40;",
-         "constexpr int NARROW_PRODUCER_REGS = 24;"),
-        ("block_scan_wg.cu", "constexpr int NARROW_CONSUMER_REGS = 232;",
-         "constexpr int NARROW_CONSUMER_REGS = 240;")],
     "wgn_nopen": [("block_scan_wg.cu", "p = __ldg(penalty + s0 + j) +",
                    "p = 0.0f +")],
     "wgn_noscore": [("block_scan_wg.cu",
@@ -136,13 +111,26 @@ VARIANTS = {
                      ("block_scan_wg.cu",
                       "for (int i = 0; i < (wlive ? k_pair : 0); ++i) {",
                       "for (int i = 0; i < 0; ++i) {")],
-    "wgn_sorted": [("block_scan_wg.cu",
-                    "TPQ_LAUNCH(true, tc::PASS_K, NRING_DEEP, NQB_DEEP)",
-                    "TPQ_LAUNCH(true, tc::MAX_PACK_K, NRING_DEEP, NQB_DEEP)"),
-                   ("block_scan_wg.cu",
-                    "occupancy_of<true, tc::PASS_K, NRING_DEEP, NQB_DEEP, I8>",
-                    "occupancy_of<true, tc::MAX_PACK_K, NRING_DEEP, "
-                    "NQB_DEEP, I8>")],
+    # the deep select (csrc/deep_select.cuh): no pruning (every maximum of a
+    # phase staged and merged, whatever the running list's bound); one ring
+    # stage fewer on each deep instance (one more fits at no deep instance
+    # but the narrow one on one query buffer, wgn_deep_q1); the merge one
+    # row at a time (one shuffle chain) instead of two; the narrow
+    # instance on one query buffer and seven stages instead of two and five
+    "wgd_noprune": [("deep_select.cuh",
+                     "                                  : run[p * kls + "
+                     "k_pair - 1];",
+                     "                                  : INT_MIN + 0 * kls;")],
+    "wgd_ring_less": [("wg_layout.cuh", "constexpr int RING_DEEP = 4;",
+                       "constexpr int RING_DEEP = 3;"),
+                      ("wg_layout.cuh", "constexpr int NRING_DEEP = 5;",
+                       "constexpr int NRING_DEEP = 4;")],
+    "wgd_rows1": [("deep_select.cuh", "constexpr int MERGE_ROWS = 2;",
+                   "constexpr int MERGE_ROWS = 1;")],
+    "wgn_deep_q1": [("wg_layout.cuh", "constexpr int NRING_DEEP = 5;",
+                     "constexpr int NRING_DEEP = 7;"),
+                    ("wg_layout.cuh", "constexpr int NQB_DEEP = 2;",
+                     "constexpr int NQB_DEEP = 1;")],
     "wgc_noearly": [("block_scan_wg.cu", """            if (nsc > 1) {
               __syncwarp();
               if (lane == 0) mbar_arrive(empty + sa);
@@ -284,6 +272,102 @@ def codes_turns(torch, lib, libs):
         del args
 
 
+# the deep pack32 rows (k_pair 17-64) of PERF.md, and the main path's
+# k_pair 10 selects, on `random_inputs` / `random_int8_inputs` at each row's
+# shape: (name, int8, d, s_eff, k_pair, pack32, blocks)
+DEEP_ROWS = (
+    ("deep-k head", False, 128, 4096, 64, True, 2048),   # G 512, 8 tiles
+    ("deep-k untapered", False, 128, 512, 64, True, 4096),  # G 256, 2
+    ("pqr3 k = 100", False, 128, 2048, 64, True, 2048),  # G 512, 4 tiles
+    ("pq4 k = 100", False, 128, 2560, 64, True, 2048),   # G 512, 5 tiles
+    ("residual k = 100", False, 128, 640, 64, True, 4096),  # G 128, 5
+    ("k_pair 40, G 512", False, 128, 2048, 40, True, 2048),
+    ("int8 k_pair 64, G 512", True, 128, 2048, 64, True, 2048),
+    ("GIST bf16 k = 100", False, 1024, 2048, 64, True, 1024),
+    ("GIST bf16 k_pair 48", False, 1024, 2048, 48, True, 1024),
+    ("GIST int8 k = 100", True, 1024, 2048, 64, True, 1024),
+    ("main exact k_pair 10", False, 128, 640, 10, False, 4096),
+    ("main pack32 k_pair 10", False, 128, 640, 10, True, 4096))
+
+
+def deep_turns(torch, bs, lib, libs, parent):
+    """The deep pack32 instances of the built library (csrc/deep_select.cuh)
+    on DEEP_ROWS: first bit for bit against block_scan_ref on integer
+    inputs (`integer_block_inputs`, int8 `int8_tie_inputs`; 256 blocks; live
+    rows, pad rows dead), then on random inputs (each block's live probers
+    drawn from 1-128) their live keys against the parent tree's
+    block_scan_wg.cu instance of the same select (--parent; equal, the
+    products and the selects' results being the same) and in turns
+    (built, parent, variants..., ..., built; 5 launches a turn) with it,
+    with the parent's mma.sync block_scan_tc.cu where it takes the row, and
+    with each variant."""
+    for name, int8, d, s_eff, k_pair, pack32, blocks in DEEP_ROWS:
+        slot_mask = bs.util.next_pow2(s_eff) - 1
+        base = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True,
+                    pack32=pack32, slot_mask=slot_mask)
+        cap = 1 << (19 if d > 128 else 21)
+        if int8:
+            args, scale, q_scale = bs.int8_tie_inputs(
+                "cuda", s_eff=s_eff, n_blocks=256, nq=10000, d=d,
+                cap_total=1 << 18, seed=k_pair)
+            kkw = dict(base, scale=scale, q_scale=q_scale)
+        else:
+            args = bs.integer_block_inputs("cuda", s_eff=s_eff, n_blocks=256,
+                                           nq=10000, d=d, cap_total=1 << 18,
+                                           seed=k_pair)
+            kkw = dict(base)
+        launch, out = cs.wg_launch_fn(torch, bs, lib, args, kkw)
+        if launch is None or launch() != 0:
+            cs.fail(f"{name}: the built block_scan_wg.cu refuses the shapes")
+        torch.cuda.synchronize()
+        ref = bs.block_scan_ref(*args, **kkw)
+        live = args[1] >= 0
+        if not torch.equal(out[live], ref[live]) or not cs.dead_rows(
+                torch, bs, out, args[1], k_pair, pack32):
+            cs.fail(f"{name}: the built instance differs from block_scan_ref "
+                    f"on integer inputs ({cs.share_equal(out[live], ref[live]):.6f}"
+                    " of live entries equal) or writes pad rows alive")
+        print(f"{name}: integer inputs bit for bit against block_scan_ref "
+              f"(live rows; pad rows dead)", flush=True)
+        del args, ref
+        if int8:
+            args, scale, q_scale = bs.random_int8_inputs(
+                "cuda", s_eff=s_eff, n_blocks=blocks, nq=10000, d=d,
+                cap_total=cap, seed=s_eff)
+            kkw = dict(base, scale=scale, q_scale=q_scale)
+        else:
+            args = bs.random_inputs("cuda", s_eff=s_eff, n_blocks=blocks,
+                                    nq=10000, d=d, cap_total=cap, seed=s_eff)
+            kkw = dict(base)
+        live = args[1] >= 0
+        fns = {}
+        for tag, lb in [("built", lib)] + ([("parent", parent["wg"])]
+                                           if "wg" in parent else []) \
+                + list(libs.items()):
+            launch, out = cs.wg_launch_fn(torch, bs, lb, args, kkw)
+            if launch is None or launch() != 0:
+                print(f"{name}: {tag} refuses the shapes", flush=True)
+                continue
+            fns[tag] = (launch, out)
+        if "bf16" in parent and not int8 and d <= 128:
+            launch, out = cs.tc_launch_fn(torch, bs, parent["bf16"], args,
+                                          kkw)
+            if launch is not None and launch() == 0:
+                fns["parent_mma_sync"] = (launch, out)
+        torch.cuda.synchronize()
+        for tag, (_, out) in fns.items():
+            if tag != "built":
+                print(f"{name}: {tag} live keys equal to the built "
+                      f"instance's {cs.share_equal(out[live], fns['built'][1][live]):.6f}",
+                      flush=True)
+        t, turns = cs.in_turns(torch, {k: v[0] for k, v in fns.items()}, 5)
+        print(f"{name} ({shapes(torch, args)}): " + ", ".join(
+            f"{k} {t[k]:.3f} ms {[round(x, 3) for x in turns[k]]}"
+            for k in fns), flush=True)
+        del args, fns
+        torch.cuda.empty_cache()
+
+
 def narrow_turns(torch, bs, lib, libs):
     """The narrow route (bf16, d 128) of the built library and of each
     variant in turns (built, variant, variant, built; 5 launches a turn),
@@ -330,6 +414,14 @@ def main():
     ap.add_argument("--codes", action="store_true",
                     help="time the wgc_* variants of the codes instances on "
                     "random codes (codes_turns) and stop")
+    ap.add_argument("--deep", action="store_true",
+                    help="check the deep pack32 instances and time them in "
+                    "turns with --parent's and the variants (deep_turns) "
+                    "and stop")
+    ap.add_argument("--parent", default=None,
+                    help="with --deep: a checkout of the parent tree, whose "
+                    "block_scan_wg.cu and block_scan_tc.cu are built and "
+                    "timed in turns")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: this run needs a card")
@@ -339,9 +431,17 @@ def main():
     from torchpq_tpu_torch.ops import block_scan as bs
     lib = _build.library()
     ptxas(lib.build_log, "built")
-    libs = {name: build_variant(_build, name, VARIANTS[name])
-            for name in filter(None, opts.variants.split(","))}
+    names = list(filter(None, opts.variants.split(",")))
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        built = pool.map(lambda n: build_variant(_build, n, VARIANTS[n]),
+                         names)
+        libs = dict(zip(names, built))
     if opts.ptxas_only:
+        return
+    if opts.deep:
+        if opts.parent:
+            cs.build_parent(_build, opts.parent)
+        deep_turns(torch, bs, lib, libs, cs.PARENT)
         return
     if opts.narrow:
         narrow_turns(torch, bs, lib, libs)

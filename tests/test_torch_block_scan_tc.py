@@ -9,8 +9,8 @@ held to the JAX package's Pallas kernel (interpret mode, through
 tests/conftest.py) on those inputs, bit for bit, keys and addresses, pad
 rows included (both score them with query 0). `pick_route` is checked
 against the shapes each kernel takes (the warp-specialised routes, bf16
-and int8, narrow and k-chunked; the bf16 mma.sync deep selects of short
-phases; CUDA-core ones),
+and int8, narrow and k-chunked, their deep pack32 selects among them;
+CUDA-core ones),
 `launch` against the routes it refuses, and the shared memory mirrors that
 decide the routes against the headers' formulas."""
 
@@ -95,9 +95,9 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=640, k_pair=10,
           pack32=True), "tc_wgn_pack32"),   # the main path, G = 128
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=2048, k_pair=40,
-          pack32=True), "tc_pack32"),       # G = 512, 4 tiles a phase
+          pack32=True), "tc_wgn_pack32"),   # G = 512, 4 tiles a phase
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=512, k_pair=40,
-          pack32=True), "tc_pack32"),       # G = 256, 2 tiles a phase
+          pack32=True), "tc_wgn_pack32"),   # G = 256, 2 tiles a phase
     (dict(dtype=torch.bfloat16, d=32, p_tile=128, s_eff=96, k_pair=10,
           pack32=True), "tc_wgn_pack32"),   # G = s_eff, one tile
     (dict(dtype=torch.bfloat16, d=40, p_tile=64, s_eff=1024, k_pair=16,
@@ -127,9 +127,9 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.int8, d=256, p_tile=128, s_eff=4096, k_pair=64,
           pack32=True), "tc_wgn_int8_pack32"),  # G = 512: 8 tiles a phase
     (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=2048, k_pair=49,
-          pack32=True), "tc_wg_int8_pack32"),  # k-chunked: three stages
+          pack32=True), "tc_wg_int8_pack32"),  # k-chunked: four stages
     (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=4096, k_pair=64,
-          pack32=True), "tc_wg_int8_pack32"),  # 202,832 B at k_pair 64
+          pack32=True), "tc_wg_int8_pack32"),  # 204,416 B at k_pair 64
     (dict(dtype=torch.int8, d=128, p_tile=120, s_eff=640, k_pair=10,
           pack32=True), "int8_pack32"),     # not whole m tiles
     (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=200, k_pair=10,
@@ -141,11 +141,11 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=640, k_pair=17,
           pack32=False), "exact"),          # the lists hold 16
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=2048, k_pair=49,
-          pack32=True), "tc_pack32"),       # sorted phase ends: 49-64
+          pack32=True), "tc_wgn_pack32"),   # the deep select: 49-64
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=4096, k_pair=64,
           pack32=True), "tc_wgn_pack32"),   # the deep-k head, G = 512
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=512, k_pair=64,
-          pack32=True), "tc_pack32"),       # the untapered deep-k, G = 256
+          pack32=True), "tc_wgn_pack32"),   # the untapered deep-k, G = 256
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=4096, k_pair=65,
           pack32=True), "pack32"),          # past the lists' 64
     (dict(dtype=torch.bfloat16, d=128, p_tile=120, s_eff=640, k_pair=10,
@@ -168,9 +168,9 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=2048, k_pair=10,
           pack32=True), "tc_wg_pack32"),    # the records' k = 10, G = 128
     (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=2048, k_pair=48,
-          pack32=True), "tc_wg_pack32"),    # G = 512, 210,016 B
+          pack32=True), "tc_wg_pack32"),    # G = 512, 227,472 B: 5 stages
     (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=2048, k_pair=64,
-          pack32=True), "tc_wg_pack32"),    # the records' k = 100: 3 stages
+          pack32=True), "tc_wg_pack32"),    # the records' k = 100: 4 stages
     (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=512, k_pair=64,
           pack32=True), "tc_wg_pack32"),    # G = 256
     (dict(dtype=torch.bfloat16, d=1024, p_tile=128, s_eff=640, k_pair=17,
@@ -180,7 +180,7 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.bfloat16, d=200, p_tile=128, s_eff=640, k_pair=10,
           pack32=False), "tc_wg_exact"),    # ends in half a k step
     (dict(dtype=torch.int8, d=288, p_tile=128, s_eff=2048, k_pair=64,
-          pack32=True), "tc_wg_int8_pack32"),  # no mma.sync route at d 288
+          pack32=True), "tc_wg_int8_pack32"),  # the deep select at d 288
     # the warp-specialised route's edges: bf16 rows over 256 bytes only
     (dict(dtype=torch.bfloat16, d=136, p_tile=128, s_eff=640, k_pair=16,
           pack32=False), "tc_wg_exact"),    # the narrowest k-chunked row
@@ -206,22 +206,22 @@ def test_integer_inputs_layout():
           pack32=True), "tc_wgn_pack32"),   # the 4-bit record, G = 128
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=4096, k_pair=16,
           pack32=True), "tc_wgn_pack32"),   # the deep-k tail, G = 128
-    # pack32 above k_pair 16 stays on block_scan_tc.cu (mma.sync, sorted
-    # phase ends) where a phase covers fewer than 8 window tiles
+    # pack32 above k_pair 16 on the narrow deep instance (the deep select)
+    # however few window tiles a phase covers
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=640, k_pair=17,
-          pack32=True), "tc_pack32"),       # G = 128: 5 tiles, one phase
+          pack32=True), "tc_wgn_pack32"),   # G = 128: 5 tiles, one phase
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=640, k_pair=64,
-          pack32=True), "tc_pack32"),       # the residual k = 100
+          pack32=True), "tc_wgn_pack32"),   # the residual k = 100
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=2048, k_pair=64,
-          pack32=True), "tc_pack32"),       # pqr3 k = 100: 4 tiles
+          pack32=True), "tc_wgn_pack32"),   # pqr3 k = 100: 4 tiles
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=1024, k_pair=64,
-          pack32=True), "tc_pack32"),       # G = 512: 2 tiles
+          pack32=True), "tc_wgn_pack32"),   # G = 512: 2 tiles
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=4096, k_pair=17,
           pack32=True), "tc_wgn_pack32"),   # G = 128: 32 tiles
     (dict(dtype=torch.bfloat16, d=128, p_tile=128, s_eff=2304, k_pair=40,
           pack32=True), "tc_wgn_pack32"),   # G = 256: 9 tiles
     (dict(dtype=torch.bfloat16, d=136, p_tile=128, s_eff=512, k_pair=64,
-          pack32=True), "tc_wg_pack32"),    # k chunks: no mma.sync route
+          pack32=True), "tc_wg_pack32"),    # k chunks, the deep select
     (dict(dtype=torch.bfloat16, d=136, p_tile=128, s_eff=640, k_pair=10,
           pack32=True), "tc_wg_pack32"),    # past 256 bytes: k chunks
     # the int8 warp-specialised instances (s8 wgmma k32): narrow up to 256
@@ -250,7 +250,7 @@ def test_integer_inputs_layout():
     (dict(dtype=torch.int8, d=128, p_tile=128, s_eff=4096, k_pair=17,
           pack32=True), "tc_wgn_int8_pack32"),  # G = 128: 32 tiles
     (dict(dtype=torch.int8, d=272, p_tile=128, s_eff=512, k_pair=64,
-          pack32=True), "tc_wg_int8_pack32"),  # k-chunked: no mma.sync
+          pack32=True), "tc_wg_int8_pack32"),  # k-chunked, the deep select
     (dict(dtype=torch.int8, d=1008, p_tile=32, s_eff=200, k_pair=16,
           pack32=False), "tc_wg_int8_exact"),  # a ragged tile and row
     (dict(dtype=torch.int8, d=1024, p_tile=128, s_eff=2048, k_pair=65,
@@ -377,10 +377,10 @@ def test_smem_mirror_equals_header(pack32, one_tile):
     library, equals the header's formula over rows of 16 to 256 bytes (the
     mma.sync body's rows, whole in registers) and k_pair 1 to 64, with two
     tiles and with one (the deep codes instance) (the card test holds the
-    library's sizes to it too); the header's constants are the mirror's and
-    its rows end at 256 bytes (wider ones are block_scan_wg.cu's, whose
-    limits wg_layout.cuh holds); tc_route_smem is the body's at bf16 rows
-    of 2 d bytes; and the limit admits pack32 k_pair 64 at d 128."""
+    codes entry point's sizes to it too); the header's constants are the
+    mirror's and its rows end at 256 bytes (wider ones are
+    block_scan_wg.cu's, whose limits wg_layout.cuh holds); and the limit
+    admits pack32 k_pair 64 at d 128."""
     c = _header_constants()
     assert (c["WARPS"], c["TN"], c["MAX_PT"], c["SLD"], c["QUEUE"],
             c["MAX_PACK_K"], c["MAX_ROW"], c["MAX_EXACT_K"]) == (
@@ -397,11 +397,6 @@ def test_smem_mirror_equals_header(pack32, one_tile):
         for k_pair in (1, 10, 16, 40, 48, 49, 57, 64):
             assert bs.tc_smem_bytes(rb, pack32, k_pair, one_tile=one_tile) \
                 == _header_smem(c, rb, pack32, k_pair, one_tile)
-            if one_tile:
-                continue
-            assert bs.tc_route_smem(d=rb // 2, pack32=pack32,
-                                    k_pair=k_pair) \
-                == _header_smem(c, rb, pack32, k_pair)
     if pack32:
         assert _header_smem(c, 256, True, 64) <= bs._SMEM_LIMIT
 
@@ -412,36 +407,46 @@ def test_wg_smem_mirror_equals_header(pack32):
     library, equals csrc/wg_layout.cuh:smem_bytes transcribed over the
     header's own constants (alignment slack, the instance's ring stages of
     two [128][128 B] tiles, penalties and two barriers, prober rows, tile
-    flags, the slice lists, then pack32's two running lists or exact's
-    values, staging rows, row bounds and queues) at every k_pair of each
-    new instance: exact k_pair 1-10 (five stages) and 11-16 (four); pack32
-    1-16 (six), 17-48 (four) and 49-64 (three); the header's constants are
+    flags, then pack32 above k_pair 16 the deep select's arrays
+    (csrc/deep_select.cuh: the warps' staging rows, one running list a row
+    and counts), else the slice lists, then pack32's two running lists or
+    exact's values, staging rows, row bounds and queues) at every k_pair of
+    each instance: exact k_pair 1-10 (five stages) and 11-16 (four); pack32
+    1-16 (six) and 17-64 (four); the header's constants are
     the mirror's and scan_tc.cuh's, every such shape fits the limit, and
     one more stage would not at each instance's largest k_pair."""
     c = _header_constants(_WG_HEADER)
     t = _header_constants()
+    ds = _header_constants(_HEADER.with_name("deep_select.cuh"))
     assert (c["SW_ATOM"], c["STAGE_BYTES"], c["BOX_ROWS"], c["RING_EXACT_10"],
-            c["RING_EXACT"], c["RING_PACK_16"], c["RING_PACK"],
-            c["RING_DEEP"], c["DEEP_K"]) == (
+            c["RING_EXACT"], c["RING_PACK_16"], c["RING_DEEP"]) == (
         bs._WG_SW_ATOM, bs._WG_STAGE_BYTES, bs._WG_BOX_ROWS,
         bs._WG_RING_EXACT_10, bs._WG_RING_EXACT, bs._WG_RING_PACK_16,
-        bs._WG_RING_PACK, bs._WG_RING_DEEP, bs._WG_DEEP_K)
+        bs._WG_RING_DEEP)
     assert (c["MAX_PT"], c["WARPS"], c["SLD"], c["QUEUE"], c["CONSUMERS"]) \
         == (t["MAX_PT"], t["WARPS"], t["SLD"], t["QUEUE"], t["THREADS"])
+    assert (ds["SHALLOW_K"], ds["MAX_K"], ds["SLOTS"], ds["SST"],
+            ds["ROWS"], ds["WARPS"]) == (
+        bs._DS_SHALLOW_K, bs._DS_MAX_K, bs._DS_SLOTS, bs._DS_SST,
+        c["MAX_PT"], c["WARPS"])
 
     def header(k_pair, ring):
         kls = k_pair | 1 if pack32 else k_pair
+        if pack32 and k_pair > ds["SHALLOW_K"]:
+            select = 4 * (ds["WARPS"] * ds["SLOTS"] * ds["SST"]
+                          + ds["ROWS"] * (kls + 2))
+        else:
+            select = 4 * c["WARPS"] * 16 * kls + (
+                2 * 4 * c["MAX_PT"] * kls if pack32 else
+                4 * c["WARPS"] * 16 * k_pair
+                + 4 * c["WARPS"] * 16 * (c["SLD"] + 1)
+                + 8 * c["QUEUE"] * c["CONSUMERS"])
         return (c["SW_ATOM"] + ring * (2 * c["STAGE_BYTES"]
                                        + 4 * c["BOX_ROWS"] + 16)
-                + 4 * c["MAX_PT"] + 4 * 8 + 4 * c["WARPS"] * 16 * kls
-                + (2 * 4 * c["MAX_PT"] * kls if pack32 else
-                   4 * c["WARPS"] * 16 * k_pair
-                   + 4 * c["WARPS"] * 16 * (c["SLD"] + 1)
-                   + 8 * c["QUEUE"] * c["CONSUMERS"]))
+                + 4 * c["MAX_PT"] + 4 * 8 + select)
 
     if pack32:
-        tops = ((16, c["RING_PACK_16"]), (c["DEEP_K"], c["RING_PACK"]),
-                (64, c["RING_DEEP"]))
+        tops = ((16, c["RING_PACK_16"]), (64, c["RING_DEEP"]))
     else:
         tops = ((10, c["RING_EXACT_10"]), (16, c["RING_EXACT"]))
     lo = 1
@@ -472,14 +477,3 @@ def test_launch_refuses_the_narrow_route(d, dtype, k_pair, match):
     kw = dict(s_eff=256, euclidean=True, pack32=False, slot_mask=255)
     with pytest.raises(ValueError, match=match):
         bs.launch(None, 0, *args, route="tc_wgn_exact", k_pair=k_pair, **kw)
-
-
-@pytest.mark.parametrize("s_eff,k_pair,tiles", [
-    (4096, 64, 8), (4096, 16, 32), (2048, 64, 4), (512, 64, 2),
-    (640, 64, 5), (2304, 40, 9), (96, 40, 1), (1024, 10, 8)])
-def test_phase_tiles(s_eff, k_pair, tiles):
-    """The window tiles between two pack32 phase ends, which decide the
-    narrow deep selects' route: s_eff / G for deep groups, every tile of
-    the window for G <= 128 (the phases of scan_tc.cuh and
-    block_scan_wg.cu: one per G > 128 stride)."""
-    assert bs.phase_tiles(s_eff, k_pair) == tiles

@@ -232,7 +232,7 @@ def test_wg_smem_mirror_terms(m, dsub):
         stage = 16384 + 512 * (2 if pack32 else 1) + 16
         want = (1024 + (32768 + 16) + ring * stage + 512 * m * dsub
                 + 128 * 8 * min(m // 8, 8) + 544
-                + block_scan._wg_select_bytes(pack32, k_pair))
+                + block_scan._wg_list_bytes(pack32, k_pair))
         assert cs.wg_smem_bytes(m=m, dsub=dsub, pack32=pack32,
                                 k_pair=k_pair) == want, (pack32, k_pair)
 

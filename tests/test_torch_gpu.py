@@ -1,6 +1,6 @@
 """The port's CUDA kernels (block scan on its warp-specialised routes, bf16
-and int8, narrow and k-chunked, its bf16 mma.sync deep selects, and in
-its bf16/f32 and int8 modes on the CUDA cores, codes scan and flat scan
+and int8, narrow and k-chunked, their deep pack32 selects among them, and
+in its bf16/f32 and int8 modes on the CUDA cores, codes scan and flat scan
 on their tensor-core and CUDA-core routes, row gather)
 against their plain PyTorch versions, and the device spill routing against
 its CPU result, on a card; the indexes card against CPU; the sharded
@@ -108,8 +108,7 @@ def test_kernel_matches_plain(cuda, dtype, pack32, s_eff, k_pair):
     mode = "pack32" if pack32 else "exact"
     got, route = _block_launch(args, kw)
     tc = dtype == torch.bfloat16 and (pack32 or k_pair <= 16)
-    assert route == (("tc_" if pack32 and k_pair > 16 else "tc_wgn_")
-                     if tc else "") + mode
+    assert route == ("tc_wgn_" if tc else "") + mode
     ref = bs.block_scan_ref(*args, **kw)
     if tc:
         _assert_pads(got, ref, args[1], route, k_pair, pack32)
@@ -122,7 +121,7 @@ def test_kernel_matches_plain(cuda, dtype, pack32, s_eff, k_pair):
 @pytest.mark.parametrize("s_eff", [512, 640, 1024, 2048])
 @pytest.mark.parametrize("pack32,k_pair", [(False, 10), (False, 16),
                                            (True, 10), (True, 40)])
-def test_block_tc_kernel_matches_plain(cuda, s_eff, pack32, k_pair):
+def test_block_wgn_kernel_matches_plain(cuda, s_eff, pack32, k_pair):
     """The narrow warp-specialised block scan on random bf16 inputs at the
     main path's width (d = 128): s_eff 640 is the compacted layout's (a
     ragged pack32
@@ -137,8 +136,8 @@ def test_block_tc_kernel_matches_plain(cuda, s_eff, pack32, k_pair):
               slot_mask=bs.util.next_pow2(s_eff) - 1)
     mode = "pack32" if pack32 else "exact"
     got, route = _block_launch(args, kw)
-    # pack32 k_pair 40: phases of 2-5 tiles, block_scan_tc.cu's
-    assert route == ("tc_" if k_pair > 16 else "tc_wgn_") + mode
+    # pack32 k_pair 40: phases of 2-5 tiles, the deep select
+    assert route == "tc_wgn_" + mode
     ref = bs.block_scan_ref(*args, **kw)
     _assert_pads(got, ref, args[1], route, k_pair, pack32)
     live = args[1] >= 0
@@ -152,8 +151,8 @@ def test_block_tc_kernel_matches_plain(cuda, s_eff, pack32, k_pair):
     (True, 10, 96)])
 @pytest.mark.parametrize("euclidean", [True, False])
 @pytest.mark.parametrize("d", [128, 40])
-def test_block_tc_kernel_integer_ties_exact(cuda, pack32, k_pair, s_eff,
-                                            euclidean, d):
+def test_block_wgn_kernel_integer_ties_exact(cuda, pack32, k_pair, s_eff,
+                                             euclidean, d):
     """Integer-valued inputs with runs of equal rows: every sum is exact in
     any order, so the narrow warp-specialised kernel equals the plain
     version bit for bit on live rows, keys, addresses and pack32 keys, ties
@@ -183,12 +182,13 @@ def test_block_tc_kernel_integer_ties_exact(cuda, pack32, k_pair, s_eff,
 @pytest.mark.parametrize("pack32,k_pair,s_eff", [
     (False, 10, 640), (False, 16, 1024), (True, 10, 640), (True, 40, 1024),
     (True, 64, 4096), (True, 64, 512)])
-def test_block_tc_kernel_persistent_grid(cuda, pack32, k_pair, s_eff):
+def test_block_wgn_kernel_persistent_grid(cuda, pack32, k_pair, s_eff):
     """A grid of 3 persistent CTAs over 64 blocks: each CTA walks ~21
     blocks, so the state it resets between blocks (live-tile rows, the
-    pack32 phase parity of deep G = 512 and 256 and the running lists the
-    extraction reads, the exact lists and queues, the resident query
-    buffers and their barriers' phases, the ring in flight) is reused.
+    pack32 phases of deep G = 512 and 256 and the running lists the deep
+    select prunes by and merges into, the exact lists and queues, the
+    resident query buffers and their barriers' phases, the ring in flight)
+    is reused.
     Integer inputs: live rows equal the plain version bit for bit, pad rows
     dead."""
     args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
@@ -256,9 +256,9 @@ def test_block_deepk_shapes_match_plain(cuda, pack32, k_pair, route, inputs):
 @pytest.mark.parametrize("inputs", ["random", "integer"])
 @pytest.mark.parametrize("k_pair", [49, 57, 64])
 @pytest.mark.parametrize("s_eff", [512, 4096])
-def test_block_tc_deep_pack32_matches_plain(cuda, s_eff, k_pair, inputs):
-    """pack32 k_pair 49-64, on the narrow deep instance (one query
-    buffer, five ring stages, phase ends pass by pass): over 256 strided
+def test_block_wgn_deep_pack32_matches_plain(cuda, s_eff, k_pair, inputs):
+    """pack32 k_pair 49-64, on the narrow deep instance (two query
+    buffers, five ring stages, the deep select): over 256 strided
     groups at s_eff 512 (the untapered deep-k scan: two phases of 128
     groups) and 512 at s_eff 4096 (the split's head: four phases), d 128
     bf16; the slices of blocks with few live tiles hold fewer groups than
@@ -273,8 +273,7 @@ def test_block_tc_deep_pack32_matches_plain(cuda, s_eff, k_pair, inputs):
               slot_mask=s_eff - 1)
     assert bs.n_groups(s_eff, k_pair) == (256 if s_eff == 512 else 512)
     got, route = _block_launch(args, kw)
-    # 2 tiles a phase at s_eff 512: block_scan_tc.cu's sorted instance
-    assert route == ("tc_pack32" if s_eff == 512 else "tc_wgn_pack32")
+    assert route == "tc_wgn_pack32"
     ref = bs.block_scan_ref(*args, **kw)
     _assert_pads(got, ref, args[1], route, k_pair, True)
     live = args[1] >= 0
@@ -285,6 +284,71 @@ def test_block_tc_deep_pack32_matches_plain(cuda, s_eff, k_pair, inputs):
     else:
         _assert_close_rows(got[live], ref[live], k_pair, True)
         _assert_close_rows(cc, ref, k_pair, True)
+
+
+# the deep pack32 select (csrc/deep_select.cuh, k_pair 17-64) over each
+# group count it meets: (k_pair, s_eff) at G = s_eff (96: one tile), G =
+# 128 (640: one phase of 5 tiles; 4096: 32 tiles), G = 256 (512: two phases
+# of 2 tiles) and G = 512 (2048 and 4096: four phases of 4 and 8 tiles)
+_DEEP_SELECTS = [(17, 96), (17, 640), (33, 512), (33, 2048), (48, 640),
+                 (49, 2048), (57, 512), (64, 640), (64, 4096)]
+
+
+def _deep_inputs(cuda, kind, d, s_eff, blocks, seed):
+    """Block-scan inputs for the deep select's card tests: (args, extra
+    kwargs) bf16 integer (`integer_block_inputs`), int8 with ties
+    (`int8_tie_inputs`), or bf16 "ascending": zero cache rows and the
+    penalty -row (exact scores start_c + slot, the whole window in the
+    cell), so that every phase's group maxima beat all earlier ones and
+    all survive the running lists' bounds."""
+    if kind == "int8":
+        args, scale, q_scale = bs.int8_tie_inputs(
+            cuda, s_eff=s_eff, n_blocks=blocks, nq=500, d=d,
+            cap_total=max(8192, 2 * s_eff), seed=seed)
+        return args, dict(scale=scale, q_scale=q_scale)
+    args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=blocks,
+                                   nq=500, d=d,
+                                   cap_total=max(8192, 2 * s_eff), seed=seed)
+    if kind == "ascending":
+        args[6] = torch.zeros_like(args[6])
+        args[5] = -torch.arange(args[5].numel(), device=cuda,
+                                dtype=torch.float32)
+        args[3] = torch.zeros_like(args[3])
+        args[4] = torch.full_like(args[4], s_eff)
+    return args, {}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ctas", [None, 3])
+@pytest.mark.parametrize("kind", ["bf16", "int8", "ascending"])
+@pytest.mark.parametrize("k_pair,s_eff", _DEEP_SELECTS)
+@pytest.mark.parametrize("d", [128, 1024])
+def test_block_deep_select_matches_plain(cuda, d, k_pair, s_eff, kind,
+                                         n_ctas):
+    """The deep pack32 instances, narrow (d 128) and k-chunked (d 1024),
+    bf16 and int8, at k_pair 17-64 over G = s_eff, 128, 256 and 512 strided
+    groups, on the card's grid and on 3 persistent CTAs (each walking many
+    blocks, its lists and staging rows reused): every sum exact (integer
+    inputs, int8 ties), so the live rows equal block_scan_ref bit for bit;
+    pad rows dead. "ascending": every phase's maxima survive the bounds
+    (the staging's rounds past its 64 a row)."""
+    args, extra = _deep_inputs(cuda, kind, d, s_eff,
+                               32 if d > 128 else 64, d + k_pair + s_eff)
+    dtype = torch.int8 if kind == "int8" else torch.bfloat16
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=True,
+              slot_mask=bs.util.next_pow2(s_eff) - 1)
+    route = bs.pick_route(dtype=dtype, d=d, p_tile=128, s_eff=s_eff,
+                          k_pair=k_pair, pack32=True)
+    assert route == ("tc_wgn_" if d <= 128 else "tc_wg_") + (
+        "int8_" if kind == "int8" else "") + "pack32"
+    got = _block_uncounted(args, dict(kw, **extra), route, n_ctas=n_ctas)
+    ref = bs.block_scan_ref(*args, **kw, **extra)
+    _assert_pads(got, ref, args[1], route, k_pair, True)
+    live = args[1] >= 0
+    assert torch.equal(got[live], ref[live])
+    if kind == "ascending":  # the window's last slots win every row
+        top = ref[live][:, 0] & kw["slot_mask"]
+        assert bool((top >= s_eff - bs.n_groups(s_eff, k_pair)).all())
 
 
 # the narrow warp-specialised instances' selects: exact k_pair 1 / 10 / 16
@@ -385,7 +449,7 @@ _CHUNKED_CASES = [(False, 10, 640), (False, 16, 200), (True, 10, 640),
 @pytest.mark.parametrize("euclidean", [True, False])
 @pytest.mark.parametrize("pack32,k_pair,s_eff", _CHUNKED_CASES)
 @pytest.mark.parametrize("d", [160, 384, 1024])
-def test_block_tc_chunked_integer_ties_exact(cuda, d, pack32, k_pair, s_eff,
+def test_block_wg_chunked_integer_ties_exact(cuda, d, pack32, k_pair, s_eff,
                                              euclidean):
     """bf16 rows wider than 256 bytes, walked in 256-byte k chunks (d 160:
     256 + 64 bytes; 384: three chunks; 1024: eight, the GIST-class cache),
@@ -413,7 +477,7 @@ def test_block_tc_chunked_integer_ties_exact(cuda, d, pack32, k_pair, s_eff,
 @pytest.mark.gpu
 @pytest.mark.parametrize("pack32,k_pair,s_eff", _CHUNKED_CASES)
 @pytest.mark.parametrize("d", [160, 200, 1024])
-def test_block_tc_chunked_matches_plain(cuda, d, pack32, k_pair, s_eff):
+def test_block_wg_chunked_matches_plain(cuda, d, pack32, k_pair, s_eff):
     """The chunked bf16 rows on random inputs (d 200 ends in half a k step:
     the bytes past the row are zeros), on the warp-specialised route: live
     rows to the tolerances of _assert_close_rows, pad rows dead; the
@@ -548,8 +612,9 @@ def test_block_wg_entry_refuses_and_sizes(cuda):
 def test_block_wg_instance_entry(cuda):
     """torchpq_block_scan_wg_instance (the one-key timing's entry) runs the
     instance of a deeper select: at inst_k == k_pair it equals the routed
-    launch; a pack32 launch of one key a row on the deep instance (three
-    stages) equals the one on the routed k_pair 1 instance (six); it
+    launch; a pack32 launch of one key a row on the deep instance (four
+    stages, the deep select) equals the one on the routed k_pair 1
+    instance (six, passes); it
     refuses, without launching, inst_k below k_pair or past the lists."""
     from torchpq_tpu_torch import _build
     lib = _build.library()
@@ -592,7 +657,8 @@ def test_block_wg_instance_entry(cuda):
 def test_block_wg_int8_one_list(cuda, d, k_pair, s_eff, inputs, n_ctas):
     """int8 rows over 256 bytes at pack32 k_pair 49-64 (the shapes the
     mma.sync kernel's one-list instance served): the k-chunked s8 wgmma
-    instance of three ring stages (202,832 B at k_pair 64), over 512 and
+    instance of four ring stages and one running list a row (the deep
+    select; 204,416 B at k_pair 64), over 512 and
     256 strided groups, on the card's grid and on 3 persistent CTAs: bit
     for bit on every input, ties included; pad rows dead; the CUDA-core
     int8 kernel equal on every row."""
@@ -610,7 +676,7 @@ def test_block_wg_int8_one_list(cuda, d, k_pair, s_eff, inputs, n_ctas):
     (torch.int8, 1040, 10),       # a row of 1,040 bytes
     (torch.bfloat16, 1024, 17),   # the exact lists hold 16
 ])
-def test_block_tc_refuses_shapes_past_the_limit(cuda, dtype, d, k_pair):
+def test_block_wg_refuses_shapes_past_the_limit(cuda, dtype, d, k_pair):
     """Shapes past the tensor-core body's limits: launch(route="tc_*")
     raises before the library is called, pick_route names the CUDA-core
     kernel, and the C entry point itself returns cudaErrorInvalidValue
@@ -651,12 +717,12 @@ def test_block_tc_refuses_shapes_past_the_limit(cuda, dtype, d, k_pair):
 
 
 @pytest.mark.gpu
-def test_tc_smem_matches_mirror(cuda):
+def test_wg_smem_matches_mirror(cuda):
     """The library's shared-memory sizes of the tensor-core scans equal
     ops/block_scan.py's mirrors (which pick_route reads without the
-    library): the narrow warp-specialised bf16 scan's wg_smem_bytes at d <=
-    128, the mma.sync bf16 one's scan_tc.cuh:body_smem_bytes (rows of at
-    most 256 bytes), the codes scan's its own mirrors
+    library): the warp-specialised scan's wg_smem_bytes, bf16 and int8,
+    narrow and k-chunked, at every k_pair (the deep select's above pack32
+    k_pair 16), the codes scan's its own mirrors
     ops/codes_scan.py:wg_smem_bytes (the wgmma codes instances: the
     codebook, the raw slot and the query buffer beside the ring and the
     lists) and tc_smem_bytes (the mma.sync sorted instance: the codebook,
@@ -666,14 +732,18 @@ def test_tc_smem_matches_mirror(cuda):
     inputs, and refuses the exact select."""
     from torchpq_tpu_torch import _build
     lib = _build.library()
-    for d in (32, 40, 64, 128):
+    for d in (32, 40, 64, 128, 136, 1024):
         for pack32 in (0, 1):
-            for k_pair in (1, 10, 16, 40, 48, 49, 57, 64):
+            for k_pair in (1, 10, 16, 17, 33, 40, 48, 49, 57, 64):
                 if not pack32 and k_pair > 16:
                     continue
                 want = bs.wg_smem_bytes(pack32, k_pair, d)
                 assert lib.torchpq_block_scan_wg_smem(d, pack32, k_pair) \
                     == want
+                if d % 16 == 0:
+                    assert lib.torchpq_block_scan_wg_int8_smem(
+                        d, pack32, k_pair) == bs.wg_smem_bytes(
+                            pack32, k_pair, d, torch.int8)
     for m, dsub in ((8, 4), (8, 5), (16, 4), (64, 2), (32, 4), (128, 1)):
         for k_pair in (17, 40, 48, 49, 52, 57, 64):
             assert lib.torchpq_codes_scan_tc_smem(m, dsub, 1, k_pair) \
@@ -685,11 +755,6 @@ def test_tc_smem_matches_mirror(cuda):
                 assert lib.torchpq_codes_scan_wg_smem(
                     m, dsub, pack32, k_pair) == cs.wg_smem_bytes(
                         m=m, dsub=dsub, pack32=pack32, k_pair=k_pair)
-    for d in (32, 64, 128):
-        for k_pair in (17, 40, 48, 49, 64):
-            assert lib.torchpq_block_scan_tc_smem(d, 1, k_pair) \
-                == bs.tc_route_smem(d=d, pack32=True, k_pair=k_pair)
-    assert bs.tc_route_smem(d=128, pack32=True, k_pair=64) <= bs._SMEM_LIMIT
     out = torch.empty((4, 128, 64), dtype=torch.int32, device=cuda)
     cargs = cs.integer_codes_inputs(cuda, s_eff=1024, n_blocks=4, nq=50,
                                     m=64, dsub=2, cap_total=4096)
@@ -716,8 +781,8 @@ def test_tc_smem_matches_mirror(cuda):
 def test_block_routes_on_card(cuda):
     """bf16 at d = 128 and 1024 and int8 at d = 128 and 1024 take the
     tensor-core kernels (the warp-specialised one's narrow and k-chunked
-    instances; pack32 k_pair 64 over 2 tiles a phase at bf16 d = 128 the
-    mma.sync deep selects), pack32 k_pair 64 too at every such width; an
+    instances), pack32 k_pair 64 too at every such width (the deep
+    select; at bf16 d = 128 over 2 tiles a phase); an
     f32
     cache, bf16 exact k_pair 20 or d = 1032, and int8 at d = 1040 or exact
     k_pair 20 take the CUDA-core one; each counts under its own key, and
@@ -734,7 +799,7 @@ def test_block_routes_on_card(cuda):
             (torch.int8, 1024, 10, True, "tc_wg_int8_pack32"),
             (torch.int8, 1040, 10, False, "int8_exact"),
             (torch.int8, 128, 20, False, "int8_exact"),
-            (torch.bfloat16, 128, 64, True, "tc_pack32"),
+            (torch.bfloat16, 128, 64, True, "tc_wgn_pack32"),
             (torch.int8, 128, 64, True, "tc_wgn_int8_pack32"),
             (torch.int8, 1024, 64, True, "tc_wg_int8_pack32"),
             (torch.bfloat16, 1024, 10, False, "tc_wg_exact"),

@@ -516,7 +516,7 @@ def test_layout_map(harness, check):
 def test_smem_formula_matches_mirror(harness):
     """csrc/wg_layout.cuh:smem_bytes equals ops/block_scan.py:wg_smem_bytes
     at every exact k_pair 1-16 and pack32 k_pair 1-64, and every such shape
-    fits the limit (three ring stages above pack32 k_pair 48)."""
+    fits the limit (four ring stages above pack32 k_pair 16)."""
     rows = [x.split() for x in harness if x.startswith("smem ")]
     assert len(rows) == 16 + 64
     for _, pack32, k_pair, nbytes in rows:
@@ -570,7 +570,7 @@ def test_int8_smem_formula_matches_mirror(harness):
         assert nbytes <= bs._SMEM_LIMIT
         assert nbytes == bs.wg_smem_bytes(pack32, k_pair) + \
             bs.wg_ring(pack32, k_pair) * bs._WG_SCALE_BYTES
-        if k_pair in ((10, 16) if not pack32 else (16, 48, 64)):
+        if k_pair in ((10, 16) if not pack32 else (16, 64)):
             assert nbytes + stage + bs._WG_STAGE_BYTES > bs._SMEM_LIMIT
     for _, pack32, k_pair, nbytes, ring, qbufs in n_rows:
         pack32, k_pair = int(pack32), int(k_pair)

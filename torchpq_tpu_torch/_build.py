@@ -39,9 +39,6 @@ _SIGNATURES = {
     "torchpq_block_scan_smem": ([_I] * 5, _L),
     "torchpq_block_scan_int8": ([_P] * 10 + [_I] * 10 + [_P], _I),
     "torchpq_block_scan_int8_smem": ([_I] * 4, _L),
-    "torchpq_block_scan_tc": ([_P] * 8 + [_I] * 10 + [_P], _I),
-    "torchpq_block_scan_tc_smem": ([_I] * 3, _L),
-    "torchpq_block_scan_tc_occupancy": ([_I] * 3, _I),
     "torchpq_block_scan_wg": ([_P] * 8 + [_I] * 11 + [_P], _I),
     "torchpq_block_scan_wg_instance": ([_P] * 8 + [_I] * 11 + [_P, _I], _I),
     "torchpq_block_scan_wg_smem": ([_I] * 3, _L),

@@ -30,10 +30,9 @@
 // scan_common.cuh's, shared with codes_scan.cu. What bounds it on an H100:
 // every window element read from memory feeds p_tile (128) FMAs, so the
 // kernel is bound by f32 FMA issue and shared-memory bandwidth, not by HBM.
-// block_scan_wg.cu (with block_scan_tc.cu's bf16 deep selects of short
-// phases) serves bf16 and int8 caches of d <= 1024 on the tensor cores
-// (ops/block_scan.py:pick_route); this kernel serves f32 caches and the
-// other shapes of both modes.
+// block_scan_wg.cu serves bf16 and int8 caches of d <= 1024 on the tensor
+// cores (ops/block_scan.py:pick_route); this kernel serves f32 caches and
+// the other shapes of both modes.
 //
 // int8 mode (the int8 scan-cache tier, entry point torchpq_block_scan_int8):
 // the cache rows and query rows are int8 with per-slot and per-query f32

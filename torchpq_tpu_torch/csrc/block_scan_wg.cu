@@ -18,11 +18,13 @@
 // summed from zero on the tensor cores, then added into the running f32
 // sum (the tensor cores' f32 accumulation truncates, and one chain of 64 k
 // steps lost keys at d = 1024). Then the selects of block_scan.cu in its wire
-// format, through scan_tc.cuh's functions (exact: value descending, slot
-// ascending, k_pair <= 16; pack32: one maximal key per strided group of
-// slots, then the k_pair largest, k_pair <= 64, pass by pass). Rows whose
-// prober is -1 are written dead (exact: sortable(-inf) keys and -1
-// addresses; pack32: INT_MIN) and never output.
+// format (exact: value descending, slot ascending, k_pair <= 16, through
+// scan_tc.cuh's functions; pack32: one maximal key per strided group of
+// slots, then the k_pair largest, k_pair <= 64: up to k_pair 16 extracted
+// pass by pass, scan_tc.cuh:extract_slice, deeper by deep_select.cuh, see
+// "Deep pack32 selects" below). Rows whose prober is -1 are written dead
+// (exact: sortable(-inf) keys and -1 addresses; pack32: INT_MIN) and never
+// output.
 //
 // What bounds the k-chunked rows on an H100: at the GIST bf16 record's
 // arguments (s_eff 2048, d 1024; pack32 at n_probe 32: 2,677 blocks,
@@ -31,10 +33,10 @@
 // about as long the products of the live probers, ~1.2e12 operations
 // (~1.2 ms at 989 TFLOP/s; the pad rows of live 64-prober tiles add 11%
 // there, 31% at n_probe 8, whose 1,032 blocks are 57% live).
-// block_scan_tc.cu's chunked instances took 4.8-16.7 ms there: serial
-// mma.sync chains fed by ldmatrix (the window tile read from shared memory
-// once per 16-prober tile), one CTA of 8 warps per SM, and per-thread
-// cp.async copies of the window chunk and of the block's query chunk into a
+// An earlier mma.sync kernel took 4.8-16.7 ms there: serial mma.sync chains
+// fed by ldmatrix (the window tile read from shared memory once per
+// 16-prober tile), one CTA of 8 warps per SM, and per-thread cp.async
+// copies of the window chunk and of the block's query chunk into a
 // two-stage ring by the threads that score.
 //
 // Design:
@@ -44,10 +46,12 @@
 //   never reconverges. The CTA walks the blocks b = blockIdx.x + i *
 //   gridDim.x; producer and consumers read the block's probers themselves
 //   and skip a block with no live prober alike.
-// - A ring of NST stages (as many as the lists of the instance's largest
-//   k_pair leave room for: exact k_pair <= 10 5, exact 4; pack32 k_pair
-//   <= 16 6, <= 48 4, deeper 3; a ring of 3 took 8-27% longer than one of
-//   4 on the GIST record's scans), each 64 k elements (128 bytes of a row, one
+// - A ring of NST stages (as many as the select's arrays of the instance's
+//   largest k_pair leave room for: exact k_pair <= 10 5, exact 4; pack32
+//   k_pair <= 16 6, deeper 4 (a fifth fits up to k_pair 48 and gained
+//   nothing there; one stage fewer took 20% longer on the GIST k = 100
+//   shape's bf16 rows, 12% on its int8 ones: chip_variants.py --deep,
+//   wgd_ring_less), each 64 k elements (128 bytes of a row, one
 //   128-byte swizzle span) of one window tile: the window's 128 rows
 //   [128][128 B] by one TMA box {64, 128} from a 2-D tensor map over the
 //   cache [capacity][d] (rows past the cache and elements past d filled
@@ -95,19 +99,23 @@
 //   (232; the producer's 40 hold no address across its stage loop, which
 //   is worked out anew each stage); ptxas must report no spill and no
 //   stack frame (chip_smoke's CHECKED_KERNELS). At 224 / 56 the pack32
-//   instances spilled 28 B; the deep phase ends sorted (sort_slice)
-//   instead of extracted pass by pass spilled 84-352 B at 232.
+//   instances spilled 28 B; the deep phase ends sorted in registers
+//   (scan_tc.cuh:sort_slice) spilled 84-352 B at 232, and staged with the
+//   survivors past a row's room kept in registers for another round 16-32
+//   B (deep_select.cuh); a chain a column half (m64n64k16 into the same
+//   chunk accumulators) in place of the m64n128k16 one also made room in
+//   the k-chunked bf16 instance but took 11% longer on the GIST k = 100
+//   shape (chip_variants.py --deep).
 // - Shared memory (wg_layout.cuh: smem_bytes): 1,024 bytes of alignment
 //   slack, a stage's 32,768 B of tiles + 512 B of penalties + 16 B of
-//   barriers, prober rows and tile flags, then the lists of scan_tc.cuh:
+//   barriers, prober rows and tile flags, then the select's arrays:
 //   227,952 B exact at k_pair 10 (5 stages), 200,800 B at 16 (4); pack32
-//   227,456 B at 16 (6), 210,016 B at 48 (4), 201,296 B at 64 (3).
+//   227,456 B at 16 (6), 202,080 B at 64 (4).
 //
 // Narrow rows (d <= 128, d % 8 == 0; the instances whose QB > 0): the main
-// path's kernel, which replaced block_scan_tc.cu's mma.sync one for every
-// bf16 shape it took but the pack32 selects above k_pair 16 whose phases
-// cover fewer than 8 window tiles (ops/block_scan.py:tc_deep_ok), where
-// it measured slower.
+// path's kernel, which replaced an mma.sync one for every bf16 shape it
+// took (the pack32 selects above k_pair 16 whose phases cover fewer than
+// 8 window tiles last, once deep_select.cuh made their phase ends cheap).
 // - What bounds it: at the main path's arguments (1M x 128, s_eff 640 over
 //   the compacted layout, 4,075 blocks of 128 probers at n_probe 8, 4,507
 //   at n_probe 32, 15% / 56% of their rows live) the window bytes the
@@ -128,9 +136,9 @@
 //   (wg_layout.cuh: qbuf_offset; 32 KB), with a full barrier (landed
 //   copies and arrivals) and an empty one (the consumer warps release it
 //   after the block's last products). Two buffers let the next block's
-//   rows land while this one's are scored; the deep pack32 instance keeps
-//   one, so that its ring has five stages and not three, and its copy is
-//   covered by the block's last phase-end select. A ring stage is then the
+//   rows land while this one's are scored (the deep pack32 instance on one
+//   buffer and seven stages ran within 1% of two and five:
+//   chip_variants.py --deep, wgn_deep_q1). A ring stage is then the
 //   window's [128][128 B] tile of one k half and its penalties: d <= 64
 //   takes one stage a tile, d <= 128 two. A in registers (wgmma's
 //   register-A form, 32 registers a thread at d = 128) would free the
@@ -143,19 +151,19 @@
 //   64-prober tiles and m64n64k16 over a column half with one: no chunk
 //   sums and no add (APART false). That frees no register where the
 //   consumers' pressure peaks, the phase end's select, where the k-chunked
-//   rows' chunk sums are dead too: sorted phase ends (scan_tc.cuh:
-//   sort_slice, as block_scan_tc.cu's deep instance has them) spilled
-//   40-64 B at 232 and at 240 registers, so every pack32 instance extracts
-//   pass by pass (chip_variants.py --variants wgn_sorted --ptxas-only).
+//   rows' chunk sums are dead too: phase ends sorted in registers
+//   (scan_tc.cuh:sort_slice) spilled 40-64 B at 232 and at 240 registers,
+//   so the pack32 instances extract pass by pass up to k_pair 16 and stage
+//   their survivors in shared memory above (deep_select.cuh).
 // - A 16-prober warp slice of no live prober joins its warpgroup's
 //   products (wgmma is collective) but runs neither the pack32 maxima nor
 //   the exact staging and inserts, extracts no phase end and writes no
 //   list: its rows were written dead as the block started.
 // - Shared memory (wg_layout.cuh: narrow_smem_bytes): 1,024 B of slack,
 //   QB x (32,768 B + 16 B of barriers), a stage's 16,384 B tile + 512 B of
-//   penalties + 16 B of barriers, prober rows, tile flags and the lists:
-//   exact 228,512 B at k_pair 10 (6 stages), 217,744 B at 16 (5); pack32
-//   228,544 B at 16 (8), 218,752 B at 64 (5 stages, one query buffer).
+//   penalties + 16 B of barriers, prober rows, tile flags and the select's
+//   arrays: exact 228,512 B at k_pair 10 (6 stages), 217,744 B at 16 (5);
+//   pack32 228,544 B at 16 (8), 219,024 B at 64 (5).
 //
 // Int8 rows (I8; the int8 scan cache with per-slot scales and int8 query
 // rows with per-query scales, d <= 1024, d % 16 == 0):
@@ -189,10 +197,26 @@
 // in turns on the int8 rows' own arguments, 1.28x / 1.21x at d 128
 // (exact / pack32), 1.63x / 2.25x at d_cache 1024, 1.85x on the GIST int8
 // record's k = 100 scan (9.588 against 5.192 ms; NVIDIA H100 80GB HBM3,
-// 700.00 W; PERF.md). That kernel's sorted phase ends were 2-12% faster
-// only on the pack32 selects above k_pair 16 of narrow rows whose phases
-// cover fewer than 8 window tiles, which no workload runs on an int8
-// cache.
+// 700.00 W; PERF.md). Its pack32 selects above k_pair 16 are the bf16
+// rows' (deep_select.cuh).
+//
+// Deep pack32 selects (KMAX = ds::MAX_K: pack32 k_pair 17-64, both families
+// and dtypes; deep_select.cuh): the phase ends that pass by pass extraction
+// made cost k_pair passes over every group maximum. Each row's running list
+// (one a row, in shared memory) bounds the next phase's maxima; the
+// survivors are staged in shared memory and merged by a warp's bitonic
+// networks into the list. What the design buys, on random inputs at the
+// deep rows' shapes in turns with the passes (chip_variants.py --deep;
+// NVIDIA H100 80GB HBM3, 700.00 W): the GIST k = 100 shape's bf16 rows
+// 0.82x their time, int8 0.79x, the deep-k head's 0.83x, and below the
+// sorted mma.sync kernel's on every shorter phase (untapered deep-k 0.89x,
+// pqr3 k = 100 0.80x, pq4 0.79x, residual 0.85x), which it replaced there.
+// The pruning is worth up to 13% (none on one-phase rows: wgd_noprune),
+// merging two rows at once 2-19% (wgd_rows1), the k-chunked instances'
+// fourth ring stage (the list that went) 20% on bf16 and 12% on int8 rows
+// (wgd_ring_less). The phase end runs in each warp (S = 1) or in the pair
+// of warps cw and cw ^ 4 that hold a row's two column halves (S = 2: named
+// barrier BAR_PAIR + cw % 4); no barrier of all consumers.
 //
 // Codes rows (CODES; the codes scan, ops/codes_scan.py, the counterpart of
 // torchpq_tpu/ops/pallas_codes_scan.py:scan_blocks_pallas_codes for d <=
@@ -251,12 +275,14 @@
 
 #include <cuda.h>
 
+#include "deep_select.cuh"
 #include "scan_tc.cuh"
 #include "wg_ptx.cuh"
 
 namespace {
 
 using namespace tpq::wg;
+namespace ds = tpq::ds;
 namespace tc = tpq::tc;
 using tpq::big_penalty;
 using tpq::neg_inf;
@@ -267,6 +293,10 @@ static_assert(WARPS == tc::WARPS && CONSUMERS == tc::THREADS &&
                   MAX_PT == tc::MAX_PT && SLD == tc::SLD &&
                   QUEUE == tc::QUEUE && BOX_ROWS == tc::TN,
               "scan_tc.cuh's selects index the consumers' shared arrays");
+static_assert(ds::SHALLOW_K == tc::PASS_K && ds::MAX_K == tc::MAX_PACK_K &&
+                  ds::ROWS == MAX_PT && ds::WARPS == WARPS,
+              "deep_select.cuh's select serves the pack32 k_pair past the "
+              "passes, over the consumers' rows and warps");
 
 constexpr int THREADS = 384;        // producer warpgroup + two consumers
 constexpr int PRODUCER_REGS = 40;   // setmaxnreg: 128 x 40 + 256 x 232
@@ -282,6 +312,7 @@ constexpr int CODES_PRODUCER_REGS = 56;
 constexpr int CODES_CONSUMER_REGS = 224;
 constexpr int BAR_CONSUMERS = 1;    // named barrier of the consumers
 constexpr int BAR_PRODUCER = 2;     // and of the producer warpgroup
+constexpr int BAR_PAIR = 3;         // 3 .. 6: consumer warps w and w + 4
 constexpr int FULL_ARRIVALS = 2 * 128;  // a producer thread's arrival, and
                                         // its landed copies'
 constexpr int HALF = STAGE_BYTES / 2;   // 64 rows of a stage's operand
@@ -360,8 +391,33 @@ __device__ __forceinline__ void codes_decode(const CodesArgs& ca,
   }
 }
 
-// PACK: the select; KMAX: exact lists' length, or pack32's largest k_pair
-// extracted pass by pass (PASS_K) or sorted (MAX_PACK_K); NST: ring
+// The deep select's exchanges among a consumer warp's lanes (deep_select.cuh's
+// policy): warp shuffles, __syncwarp, and the named barrier of the warp and
+// its partner, the other consumer warpgroup's warp of the same rows.
+struct DeepWarp {
+  int l;     // lane
+  int pair;  // the pair's named barrier
+  __device__ __forceinline__ int lane() const { return l; }
+  __device__ __forceinline__ int xor_(int v, int m) const {
+    return __shfl_xor_sync(0xffffffffu, v, m);
+  }
+  __device__ __forceinline__ int up4(int v, int d) const {
+    return __shfl_up_sync(0xffffffffu, v, d, 4);
+  }
+  __device__ __forceinline__ int idx4(int v, int s) const {
+    return __shfl_sync(0xffffffffu, v, s, 4);
+  }
+  __device__ __forceinline__ bool any(bool p) const {
+    return __any_sync(0xffffffffu, p);
+  }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+  __device__ __forceinline__ void pair_sync() const {
+    named_barrier(pair, 64);
+  }
+};
+
+// PACK: the select; KMAX: exact lists' length, or pack32's largest k_pair:
+// extracted pass by pass (PASS_K) or by deep_select.cuh (MAX_K); NST: ring
 // stages; QB: the narrow rows' resident query buffers (rows of at most 256
 // bytes), 0 for the k-chunked rows' query copies with every stage; I8:
 // int8 rows (s8 wgmma k32, exact s32 sums, q_scale and scale read), else
@@ -615,8 +671,8 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
     const int h = wgi - 1;   // consumer warpgroup
     const int wq = cw % 4;   // warp of the warpgroup: rows 16 wq .. + 15
     const int width = PACK ? k_pair : 2 * k_pair;  // output ints per row
-    // pack32 phase ends: sorted (KMAX > PASS_K) or pass by pass
-    constexpr bool SORT = PACK && KMAX > tc::PASS_K;
+    // pack32 phase ends: deep_select.cuh (KMAX > PASS_K) or pass by pass
+    constexpr bool DEEP = PACK && KMAX > tc::PASS_K;
     float* vals_s = reinterpret_cast<float*>(keys_s + WARPS * 16 * kls);
     int* run_s = keys_s + WARPS * 16 * kls;  // pack32 [2][MAX_PT][kls]
     float* stage_s = vals_s + WARPS * 16 * kls;  // exact [WARPS][16][SLD]
@@ -983,7 +1039,36 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
             if (NARROW && it + 1 == n_tiles) mbar_arrive(qempty + qs);
           }
           g += nsc;
-          if constexpr (PACK) {
+          if constexpr (DEEP) {
+            if (last_k && (it + 1) % tpp == 0) {
+              // phase end (deep_select.cuh): the rows' survivors of the
+              // running lists' bounds staged and merged into the lists; S =
+              // 1, the warp's 16 rows alone; S = 2, with its partner (warp
+              // cw ^ 4: the other column half of the same rows, the staging
+              // rows of warp wq), 8 rows merged each
+              // k_pair, the rows' base and the warp through opaque moves:
+              // what the select derives from them (list strides, array
+              // offsets, the staging region and the pair's barrier) is
+              // worked out here, not kept across the tiles in registers
+              // (kept, the k-chunked bf16 instance spilled 16-24 B beside
+              // its chunk sums)
+              int kp = k_pair;
+              int p0 = base64 + 16 * lt;
+              int wv = cw;  // the warp: its staging region and pair
+              asm volatile("mov.b32 %0, %0;" : "+r"(kp));
+              asm volatile("mov.b32 %0, %0;" : "+r"(p0));
+              asm volatile("mov.b32 %0, %0;" : "+r"(wv));
+              const DeepWarp w{lane, BAR_PAIR + wv % 4};
+              if (S == 1) {
+                ds::phase_end<tc::NGRP>(w, mx, prow_s, p0, false, 0, wv,
+                                        keys_s, kp, phase == 0);
+              } else {
+                ds::phase_end<tc::NGRP / 2>(w, mx, prow_s, p0, true, wv / 4,
+                                            wv % 4, keys_s, kp, phase == 0);
+              }
+              ++phase;
+            }
+          } else if constexpr (PACK) {
             if (last_k && (it + 1) % tpp == 0) {
               // phase end: each slice's k_pair largest keys per row, by the
               // quad's shuffles, into its shared list; then one thread per
@@ -994,10 +1079,9 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
               // spilled)
               const int kx = wlive ? k_pair : 0;
               if (S == 1) {
-                tc::select_slice<tc::NGRP, SORT>(mx, ks_w, lane, kx, kls);
+                tc::extract_slice<tc::NGRP>(mx, ks_w, lane, kx, kls);
               } else {
-                tc::select_slice<tc::NGRP / 2, SORT>(mx, ks_w, lane, kx,
-                                                     kls);
+                tc::extract_slice<tc::NGRP / 2>(mx, ks_w, lane, kx, kls);
               }
               named_barrier(BAR_CONSUMERS, CONSUMERS);
               if (ct < 16 * nm && prow_s[base64 + ct] >= 0) {
@@ -1034,7 +1118,25 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
       }
 
       // the live rows' outputs
-      if constexpr (PACK) {
+      if constexpr (DEEP) {
+        // the rows this warp merged (deep_select.cuh: phase_end), from
+        // their lists (its own writes), its lanes on consecutive keys
+        __syncwarp();
+        const int* run = keys_s + ds::run_offset();
+        const int lo = S == 2 ? ds::SLOTS / 2 * h : 0;
+        const int hi = S == 2 ? lo + ds::SLOTS / 2 : ds::SLOTS;
+        for (int rr = 0; rr < 2; ++rr) {
+          for (int r = lo; r < hi; ++r) {
+            const int p = base64 + 16 * lt + 8 * rr + r;
+            if (prow_s[p] >= 0) {
+              int* o = out + ((size_t)b * p_tile + p) * k_pair;
+              for (int i = lane; i < k_pair; i += 32) {
+                o[i] = run[p * kls + i];
+              }
+            }
+          }
+        }
+      } else if constexpr (PACK) {
         // warp w writes rows w and w + 8 of each scored 16-prober tile, its
         // lanes on consecutive keys
         for (int l2 = 0; l2 < nm; ++l2) {
@@ -1129,7 +1231,7 @@ size_t smem_of(int d, int pack32, int k_pair, int i8, int inst_k = 0) {
   const int ik = inst_k ? inst_k : k_pair;
   return d * (i8 ? 1 : 2) <= NARROW_ROW
              ? narrow_smem_bytes(pack32, k_pair, ik, i8)
-             : smem_bytes(pack32, k_pair, ring_of(pack32, ik), i8);
+             : smem_bytes(pack32, k_pair, ik, i8);
 }
 
 // CTAs one SM holds at once of `kern` with `smem` bytes of dynamic shared
@@ -1162,7 +1264,7 @@ template <bool I8>
 int occupancy_wg(int d, int pack32, int k_pair) {
   if (d * (I8 ? 1 : 2) <= NARROW_ROW) {
     if (pack32 && k_pair > tc::PASS_K) {
-      return occupancy_of<true, tc::PASS_K, NRING_DEEP, NQB_DEEP, I8>(
+      return occupancy_of<true, ds::MAX_K, NRING_DEEP, NQB_DEEP, I8>(
           d, pack32, k_pair);
     }
     if (pack32) {
@@ -1175,13 +1277,8 @@ int occupancy_wg(int d, int pack32, int k_pair) {
                : occupancy_of<false, 16, NRING_EXACT, NQB, I8>(d, pack32,
                                                                k_pair);
   }
-  if (pack32 && k_pair > DEEP_K) {
-    return occupancy_of<true, tc::PASS_K, RING_DEEP, 0, I8>(d, pack32,
-                                                            k_pair);
-  }
   if (pack32 && k_pair > 16) {
-    return occupancy_of<true, tc::PASS_K, RING_PACK, 0, I8>(d, pack32,
-                                                            k_pair);
+    return occupancy_of<true, ds::MAX_K, RING_DEEP, 0, I8>(d, pack32, k_pair);
   }
   if (pack32) {
     return occupancy_of<true, tc::PASS_K, RING_PACK_16, 0, I8>(d, pack32,
@@ -1251,14 +1348,13 @@ int launch_wg(const void* qtable, const float* q_scale, const int* probers,
       d, s_eff, k_pair, factor, slot_mask, n_groups, CodesArgs{})
   if (rb <= NARROW_ROW) {  // narrow rows: resident query buffers
     if (pack32 && inst_k > tc::PASS_K) {  // the deep selects
-      TPQ_LAUNCH(true, tc::PASS_K, NRING_DEEP, NQB_DEEP);
+      TPQ_LAUNCH(true, ds::MAX_K, NRING_DEEP, NQB_DEEP);
     }
     if (pack32) TPQ_LAUNCH(true, tc::PASS_K, narrow_ring_of(1, 16, I8), NQB);
     if (inst_k <= 10) TPQ_LAUNCH(false, 10, NRING_EXACT_10, NQB);
     TPQ_LAUNCH(false, 16, NRING_EXACT, NQB);
   }
-  if (pack32 && inst_k > DEEP_K) TPQ_LAUNCH(true, tc::PASS_K, RING_DEEP, 0);
-  if (pack32 && inst_k > 16) TPQ_LAUNCH(true, tc::PASS_K, RING_PACK, 0);
+  if (pack32 && inst_k > 16) TPQ_LAUNCH(true, ds::MAX_K, RING_DEEP, 0);
   if (pack32) TPQ_LAUNCH(true, tc::PASS_K, RING_PACK_16, 0);
   if (inst_k <= 10) TPQ_LAUNCH(false, 10, RING_EXACT_10, 0);
   TPQ_LAUNCH(false, 16, RING_EXACT, 0);

@@ -1,8 +1,8 @@
 // Shared core of the CUDA-core IVF block scans (block_scan.cu,
 // codes_scan.cu) and of the fused flat scan (flat_scan.cu, which runs
 // scan_rows over runs of the whole cache with its own select); the
-// tensor-core kernels (block_scan_tc.cu and codes_scan_tc.cu through
-// scan_tc.cuh, block_scan_wg.cu, flat_scan_tc.cu) take only its
+// tensor-core kernels (codes_scan_tc.cu through scan_tc.cuh,
+// block_scan_wg.cu, flat_scan_tc.cu) take only its
 // helpers (sortable, insert, launch_kernel).
 //
 // A block is up to p_tile probers (queries) of one IVF cell; one CTA scores

@@ -1,9 +1,10 @@
-// The mma.sync IVF block scan of codes_scan_tc.cu and block_scan_tc.cu: one
-// kernel body over bf16 rows of at most 256 bytes (d <= 128), templated
-// over the source of its window tiles, for their one kind of instance, the
+// The mma.sync IVF block scan of codes_scan_tc.cu: one kernel body over bf16
+// rows of at most 256 bytes (d <= 128), templated over the source of its
+// window tiles (the codes' decode), for its one kind of instance, the
 // sorted pack32 select (k_pair <= 64); and the select helpers that
 // block_scan_wg.cu's consumers share (the pack32 maxima's phase-end
-// extraction and sort, the exact lists, queue and first fill).
+// extraction pass by pass up to k_pair 16, the exact lists, queue and first
+// fill; deeper pack32 selects are deep_select.cuh's).
 //
 // For block b, prober p and window column c < s_eff holding in-window slot
 // j (the source says which):
@@ -114,7 +115,8 @@ constexpr int MAX_PACK_K = 64;         // pack32 k_pair (where the shared
 constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory of a CTA
 constexpr int NGRP = TN / 4;           // pack32 group maxima per lane and row
 constexpr int PASS_K = 16;             // pack32 k_pair extracted pass by pass
-                                       // (deeper: sorted, sort_slice)
+                                       // (deeper: sort_slice here,
+                                       // deep_select.cuh in block_scan_wg.cu)
 constexpr int SLD = 72;                // exact staging row stride, floats
 constexpr int QUEUE = 6;               // exact: a lane's queued candidates
 
@@ -160,9 +162,8 @@ __host__ __device__ inline size_t body_smem_bytes(int rb, int pack32,
 // exact k_pair <= 16; pack32 k_pair <= 64 with G % 8 == 0, either G ==
 // s_eff <= TN, or G a multiple of TN that divides s_eff. The entry points
 // also refuse a shared memory above SMEM_LIMIT: the pack32 lists take
-// 1,536 bytes per entry of their row stride, so k_pair 64 fits the rows
-// source (d <= 128: 172,064 B) and the codes one with its codebook in one
-// tile (d <= 128: at most 219,168 B).
+// 1,536 bytes per entry of their row stride, so k_pair 64 fits the codes
+// source with its codebook in one tile (d <= 128: at most 219,168 B).
 __host__ inline bool shape_ok(int n_blocks, int n_ctas, int p_tile, int rb,
                               int max_rb, int s_eff, int k_pair, int pack32,
                               int n_groups) {
@@ -369,18 +370,6 @@ __device__ __forceinline__ void sort_slice(int (&mx)[2][NGRP], int* keys_s,
       mx[rr][j] = INT_MIN;
     }
     if (4 * NU < k_pair && lq == 0) row[4 * NU] = INT_MIN;
-  }
-}
-
-// The phase end's select of a slice of NU maxima per lane and row: sorted
-// (SORT, the kernels of k_pair > PASS_K) or pass by pass.
-template <int NU, bool SORT>
-__device__ __forceinline__ void select_slice(int (&mx)[2][NGRP], int* keys_s,
-                                             int lane, int k_pair, int kls) {
-  if constexpr (SORT) {
-    sort_slice<NU>(mx, keys_s, lane, k_pair, kls);
-  } else {
-    extract_slice<NU>(mx, keys_s, lane, k_pair, kls);
   }
 }
 
@@ -705,72 +694,6 @@ __device__ __forceinline__ void scan_blocks(
     pr = npr;
   }
 }
-
-// The window tiles of the block scan's bf16 cache rows ([capacity][rb]
-// bytes): column c is slot c. A thread copies the 16-byte pieces
-// e = t + r * THREADS of the tile (piece e is piece e % p of column e / p,
-// p = the row's bytes / 16), stepped without a division:
-// (cl, ch) of e + THREADS is (cl + q, ch + r), carried. The mapping is
-// worked out at each fetch rather than kept: the body's registers are
-// full.
-struct RowsSource {
-  static constexpr bool ONE_TILE = false;
-  static constexpr int MAX_COPIES = TN * MAX_ROW / 16 / THREADS;  // a thread's
-  const unsigned char* __restrict__ rows;
-  const float* __restrict__ penalty;
-  int rb, ld;
-  float pen;
-
-  __device__ __forceinline__ void init(const void* rows_, const float* pen_,
-                                       int rb_, int ld_) {
-    rows = static_cast<const unsigned char*>(rows_);
-    penalty = pen_;
-    rb = rb_;
-    ld = ld_;
-  }
-
-  __device__ __forceinline__ void fetch(int s0, int o0, int o1, int ts,
-                                        int nrow, unsigned char* tile) {
-    const int t = threadIdx.x;
-    const int p = rb / 16;  // the row's pieces
-    int cl = t / p, ch = t % p;
-    const int q = THREADS / p, r = THREADS % p;
-    const unsigned char* src = rows + ((size_t)s0 + ts) * rb;
-#pragma unroll
-    for (int u = 0; u < MAX_COPIES; ++u) {
-      if (cl < nrow) {
-        cp_async16(tile + cl * ld + 16 * ch, src + (size_t)cl * rb + 16 * ch,
-                   16);
-      }
-      cl += q;
-      ch += r;
-      if (ch >= p) {
-        ch -= p;
-        ++cl;
-      }
-    }
-    cp_async_commit();
-    if (t < TN) {
-      pen = 0.0f;
-      if (t < nrow) {
-        const int j = ts + t;
-        pen = __ldg(penalty + s0 + j) +
-              ((j >= o0 && j < o1) ? 0.0f : big_penalty());
-      }
-    }
-  }
-
-  __device__ __forceinline__ void land(int ts, int, unsigned char*,
-                                       float* pen_s, int* slot_s) const {
-    cp_async_wait<0>();
-    const int t = threadIdx.x;
-    if (t < TN) {
-      pen_s[t] = pen;
-      slot_s[t] = ts + t;
-    }
-  }
-
-};
 
 // CTAs of `kern` one SM holds at once with `smem` bytes of dynamic shared
 // memory (registers and shared memory permitting), or minus the CUDA error

@@ -1,5 +1,5 @@
 // The tensor-core and asynchronous-copy instructions of flat_scan_tc.cu and
-// scan_tc.cuh (block_scan_tc.cu, codes_scan_tc.cu),
+// scan_tc.cuh (codes_scan_tc.cu),
 // one inline-PTX wrapper each (sm_80 and later; built for sm_90a), and the
 // fragment layouts they imply, as plain functions of the lane.
 //

@@ -40,15 +40,7 @@
 #include <cstddef>
 #include <cstdint>
 
-#ifdef __CUDACC__
-#define TPQ_HD __host__ __device__
-#define TPQ_UNROLL _Pragma("unroll")
-#define TPQ_NO_UNROLL _Pragma("unroll 1")
-#else
-#define TPQ_HD
-#define TPQ_UNROLL
-#define TPQ_NO_UNROLL
-#endif
+#include "deep_select.cuh"  // TPQ_HD and the deep select's arrays
 
 namespace tpq {
 namespace wg {
@@ -139,22 +131,22 @@ TPQ_HD constexpr int ksteps_of(int d, int st, int e = 2) {
 // [RING][128][128 B] and query tiles [RING][128][128 B], the penalties of
 // each stage's columns [RING][128] f32, the full and empty barriers
 // [2][RING] (8 bytes each), the prober rows [MAX_PT], the tile flags [8],
-// the slice lists [WARPS][16][kls] (pack32 keys; exact columns), then
-// pack32: the running lists [2][MAX_PT][kls]; exact: the slice lists'
-// values [WARPS][16][kls] f32, the score staging rows [WARPS][16][SLD] and
-// row bounds [WARPS][16] f32, and the queues [QUEUE][CONSUMERS] f32 and int.
-// kls: the lists' row stride, k_pair (pack32: made odd, scan_tc.cuh's
-// list_ld). The ring holds as many stages as the lists of an instance's
-// largest k_pair leave room for: exact k_pair <= 10 five, exact four;
-// pack32 k_pair <= 16 six, <= DEEP_K four, deeper three. int8 rows (i8):
-// each stage also carries its columns' scales [128] f32 beside their
-// penalties (SCALE_BYTES), and the same depths fit.
+// then the select's arrays: the deep pack32 instances' (k_pair 17-64,
+// deep_select.cuh: staging rows, one running list per row, counts and round
+// flags); else the slice lists [WARPS][16][kls] (pack32 keys; exact
+// columns), then pack32: the running lists [2][MAX_PT][kls]; exact: the
+// slice lists' values [WARPS][16][kls] f32, the score staging rows
+// [WARPS][16][SLD] and row bounds [WARPS][16] f32, and the queues
+// [QUEUE][CONSUMERS] f32 and int. kls: the lists' row stride, k_pair
+// (pack32: made odd, scan_tc.cuh's list_ld). The ring holds as many stages
+// as the select's arrays of an instance's largest k_pair leave room for:
+// exact k_pair <= 10 five, exact four; pack32 k_pair <= 16 six, deeper
+// four. int8 rows (i8): each stage also carries its columns' scales [128]
+// f32 beside their penalties (SCALE_BYTES), and the same depths fit.
 constexpr int RING_EXACT_10 = 5;
 constexpr int RING_EXACT = 4;
 constexpr int RING_PACK_16 = 6;
-constexpr int RING_PACK = 4;
-constexpr int RING_DEEP = 3;
-constexpr int DEEP_K = 48;
+constexpr int RING_DEEP = 4;
 constexpr int MAX_PT = 128;     // probers per block
 constexpr int WARPS = 8;        // consumer warps
 constexpr int CONSUMERS = 256;  // consumer threads
@@ -163,29 +155,36 @@ constexpr int QUEUE = 6;        // exact: a lane's queued candidates
 constexpr int SCALE_BYTES = 4 * BOX_ROWS;  // int8: a stage's column scales
 
 TPQ_HD constexpr int ring_of(int pack32, int k_pair) {
-  return pack32 ? (k_pair <= 16       ? RING_PACK_16
-                   : k_pair <= DEEP_K ? RING_PACK
-                                      : RING_DEEP)
+  return pack32 ? (k_pair <= 16 ? RING_PACK_16 : RING_DEEP)
                 : (k_pair <= 10 ? RING_EXACT_10 : RING_EXACT);
 }
-// The select's shared arrays after the prober rows and tile flags: the
-// slice lists, then pack32's running lists or exact's values, staging rows,
-// row bounds and queues.
-TPQ_HD constexpr size_t select_bytes(int pack32, int k_pair) {
+// The pass by pass and exact selects' shared arrays after the prober rows
+// and tile flags: the slice lists, then pack32's two running lists or
+// exact's values, staging rows, row bounds and queues (the codes instances'
+// selects too).
+TPQ_HD constexpr size_t list_bytes(int pack32, int k_pair) {
   return (size_t)4 * WARPS * 16 * (pack32 ? (k_pair | 1) : k_pair) +
          (pack32 ? (size_t)2 * 4 * MAX_PT * (k_pair | 1)
                  : (size_t)4 * WARPS * 16 * k_pair +
                        (size_t)4 * WARPS * 16 * (SLD + 1) +
                        (size_t)8 * QUEUE * CONSUMERS);
 }
-// ring: the instance's stages (0: ring_of's, those of the instance that
-// serves k_pair); i8: int8 rows, whose stages carry the column scales.
-TPQ_HD constexpr size_t smem_bytes(int pack32, int k_pair, int ring = 0,
+// The select's arrays of the instance that serves inst_k (0: k_pair),
+// writing k_pair entries a row: the deep select's above pack32 k_pair 16.
+TPQ_HD constexpr size_t select_bytes(int pack32, int k_pair, int inst_k = 0) {
+  return pack32 && (inst_k ? inst_k : k_pair) > ds::SHALLOW_K
+             ? ds::select_bytes(k_pair)
+             : list_bytes(pack32, k_pair);
+}
+// The shared memory of the k-chunked instance that serves inst_k (0:
+// k_pair), writing k_pair entries a row: its ring (ring_of) and its select's
+// arrays; i8: int8 rows, whose stages carry the column scales.
+TPQ_HD constexpr size_t smem_bytes(int pack32, int k_pair, int inst_k = 0,
                                    int i8 = 0) {
   return (size_t)SW_ATOM +
-         (size_t)(ring ? ring : ring_of(pack32, k_pair)) *
+         (size_t)ring_of(pack32, inst_k ? inst_k : k_pair) *
              (2 * STAGE_BYTES + 4 * BOX_ROWS + (i8 ? SCALE_BYTES : 0) + 16) +
-         4 * MAX_PT + 4 * 8 + select_bytes(pack32, k_pair);
+         4 * MAX_PT + 4 * 8 + select_bytes(pack32, k_pair, inst_k);
 }
 
 // Narrow rows (rows of at most 256 bytes, bf16 d <= 128 and int8 d <= 256:
@@ -193,11 +192,12 @@ TPQ_HD constexpr size_t smem_bytes(int pack32, int k_pair, int ring = 0,
 // its window tiles go by, in QB buffers of two k halves [2][128][128 B]
 // (half h: row bytes 128 h .. 128 h + 127, in the 128-byte swizzle), each
 // with a full and an empty barrier; a ring stage holds the window's 128
-// bytes of k and the tile's penalties only. Per instance as many stages as the lists leave room for:
-// exact k_pair <= 10 six, exact five, pack32 k_pair <= 16 eight, each with
-// two query buffers (the next block's rows copied while this one's are
-// scored); the deep pack32 instance (k_pair 17-64) five stages and one
-// buffer (two would leave three stages). int8 rows (d <= 256: 256 bytes)
+// bytes of k and the tile's penalties only. Per instance as many stages as
+// the select's arrays leave room for, each instance with two query buffers
+// (the next block's rows copied while this one's are scored): exact k_pair
+// <= 10 six, exact five, pack32 k_pair <= 16 eight, the deep pack32
+// instance (k_pair 17-64) five (one buffer would leave room for seven:
+// chip_variants.py --narrow, wgn_deep_q1). int8 rows (d <= 256: 256 bytes)
 // take the same buffers, their stages the column scales too: the same
 // depths but pack32 k_pair <= 16's, seven (eight would take 232,640 B).
 constexpr int NARROW_ROW = 256;  // widest narrow row (bytes)
@@ -207,8 +207,8 @@ constexpr int NRING_EXACT = 5;
 constexpr int NRING_PACK_16 = 8;
 constexpr int NRING_PACK_16_I8 = 7;
 constexpr int NRING_DEEP = 5;
-constexpr int NQB = 2;       // query buffers, but the deep instance's
-constexpr int NQB_DEEP = 1;
+constexpr int NQB = 2;       // query buffers, the deep instance's too
+constexpr int NQB_DEEP = 2;
 
 TPQ_HD constexpr int narrow_ring_of(int pack32, int k_pair, int i8 = 0) {
   return pack32 ? (k_pair <= 16 ? (i8 ? NRING_PACK_16_I8 : NRING_PACK_16)
@@ -234,7 +234,7 @@ TPQ_HD constexpr size_t narrow_smem_bytes(int pack32, int k_pair,
              (QBUF_BYTES + 16) +
          (size_t)narrow_ring_of(pack32, inst_k ? inst_k : k_pair, i8) *
              (STAGE_BYTES + 4 * BOX_ROWS + (i8 ? SCALE_BYTES : 0) + 16) +
-         4 * MAX_PT + 4 * 8 + select_bytes(pack32, k_pair);
+         4 * MAX_PT + 4 * 8 + select_bytes(pack32, k_pair, inst_k);
 }
 
 // Codes rows (the narrow instances whose CODES is true: the codes scan's
@@ -290,7 +290,7 @@ TPQ_HD constexpr size_t codes_smem_bytes(int m, int dsub, int pack32,
          (size_t)codes_ring_of(pack32, k_pair) *
              (STAGE_BYTES + 4 * BOX_ROWS + (pack32 ? 4 * BOX_ROWS : 0) + 16) +
          (size_t)512 * m * dsub + codes_raw_bytes(m) + 4 * MAX_PT + 4 * 8 +
-         select_bytes(pack32, k_pair);
+         list_bytes(pack32, k_pair);
 }
 
 // The in-window slot of window column c, without an integer division: the

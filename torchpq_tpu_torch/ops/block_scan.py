@@ -3,9 +3,9 @@ keep each prober's top k_pair.
 
 Replaces the TPU kernel torchpq_tpu/ops/pallas_scan.py:scan_blocks_pallas
 (bf16/f32/int8 decoded cache, exact and pack32 selects, query rows read by
-prober id). Four kernels serve it, chosen before launch by `pick_route`,
-each built by `_build.py`, bound through plain C entry points and counted
-under its own key of `launches`:
+prober id). Two sources' kernels serve it, chosen before launch by
+`pick_route`, each built by `_build.py`, bound through plain C entry points
+and counted under its route's key of `launches`:
   - `csrc/block_scan_wg.cu`, bf16 caches with rows of d <= 1024 (d % 8 ==
     0) and int8 caches with rows of d <= 1024 (d % 16 == 0), blocks of at
     most 128 probers, on Hopper's warpgroup products (wgmma bf16 with f32
@@ -19,10 +19,9 @@ under its own key of `launches`:
     of k steps; "tc_wg_exact" / "tc_wg_pack32" and "tc_wg_int8_exact" /
     "tc_wg_int8_pack32", wider rows (the GIST-class cache, 1,024 wide),
     bf16 in 256-byte k chunks each summed from zero, int8 in one s32 chain;
-  - "tc_pack32", `csrc/block_scan_tc.cu`: the bf16 pack32 selects above
-    k_pair 16 of rows of d <= 128 whose phases cover fewer than 8 window
-    tiles (`tc_deep_ok`), on mma.sync with sorted phase ends, which beat
-    the narrow wgmma instances' passes there;
+    pack32 above k_pair 16 in both families through the deep select
+    (`csrc/deep_select.cuh`: phase ends pruned by each row's running
+    list, one list a row);
   - "exact" / "pack32" and "int8_exact" / "int8_pack32",
     `csrc/block_scan.cu`: f32 caches and the shapes the tensor-core kernels
     do not take, on the CUDA cores (f32 FMAs, __dp4a).
@@ -43,11 +42,11 @@ does 2 * d operations per live prober and slot, so bytes and products
 alike are far below the card's rates (the bf16 plans' bound is ~0.09 ms,
 set by the window bytes). The CUDA-core kernel spends its time on an f32
 FMA (or __dp4a) chain per prober, pad probers included (every window
-element feeds 128 of them). The tensor-core kernels run the products on
-the tensor cores for the live 64-prober (wgmma) or 16-prober (mma.sync)
-tiles only and bring the window rows as they lie (TMA boxes or cp.async
-tiles, no conversion); what is left is the select, one pass over every
-live score, and the latency of each tile's copy.
+element feeds 128 of them). The tensor-core kernel runs the products on
+the tensor cores (wgmma) for the live 64-prober tiles only and brings the
+window rows as they lie (TMA boxes, no conversion); what is left is the
+select, one pass over every live score, and the latency of each tile's
+copy.
 
 The products of bf16 values are exact in f32, so the kernels and the plain
 version differ only in summation order: they agree bit for bit where every
@@ -78,7 +77,6 @@ BIG = float(np.float32(np.finfo(np.float32).max) / np.float32(4))
 # ("tc_*": the tensor-core kernels, bf16 and int8; the others: the CUDA-core
 # one, per cache mode and select)
 launches = {"exact": 0, "pack32": 0, "int8_exact": 0, "int8_pack32": 0,
-            "tc_pack32": 0,
             "tc_wg_exact": 0, "tc_wg_pack32": 0, "tc_wgn_exact": 0,
             "tc_wgn_pack32": 0, "tc_wg_int8_exact": 0,
             "tc_wg_int8_pack32": 0, "tc_wgn_int8_exact": 0,
@@ -101,10 +99,9 @@ _WG_MAX_ROW_BF16 = 2048  # widest row (bytes): bf16 d <= 1024
 _WG_SW_ATOM = 1024      # bytes of a 128-byte swizzle atom (alignment slack)
 _WG_STAGE_BYTES = 16384  # one operand of a ring stage: [128][128 B]
 _WG_BOX_ROWS = 128      # window columns per tile
-# ring stages: exact k_pair <= 10, exact; pack32 k_pair <= 16, <= 48, deeper
+# ring stages: exact k_pair <= 10, exact; pack32 k_pair <= 16, deeper
 _WG_RING_EXACT_10, _WG_RING_EXACT = 5, 4
-_WG_RING_PACK_16, _WG_RING_PACK, _WG_RING_DEEP = 6, 4, 3
-_WG_DEEP_K = 48
+_WG_RING_PACK_16, _WG_RING_DEEP = 6, 4
 # its narrow rows (d <= 128): resident query buffers of [2][128][128 B],
 # ring stages of one [128][128 B] window tile; stages exact k_pair <= 10,
 # exact, pack32 k_pair <= 16, deeper; query buffers, the deep instance's
@@ -112,16 +109,16 @@ _WG_NARROW_ROW = 256
 _WG_QBUF_BYTES = 2 * _WG_STAGE_BYTES
 _WG_NRING_EXACT_10, _WG_NRING_EXACT = 6, 5
 _WG_NRING_PACK_16, _WG_NRING_DEEP = 8, 5
-_WG_NQB, _WG_NQB_DEEP = 2, 1
+_WG_NQB, _WG_NQB_DEEP = 2, 2
+# the deep pack32 select (csrc/deep_select.cuh, k_pair 17-64): a warp's
+# staging rows (one a quad) and their stride (a phase's 128 groups, plus
+# one)
+_DS_SHALLOW_K, _DS_MAX_K, _DS_SLOTS, _DS_SST = 16, 64, 8, 129
 # int8 rows (d <= 1024, d % 16 == 0): each ring stage also carries its
 # columns' scales; the narrow pack32 instance of k_pair <= 16 keeps 7 stages
 _WG_SCALE_BYTES = 4 * _WG_BOX_ROWS
 _WG_NRING_PACK_16_I8 = 7
 _WG_MAX_ROW_I8 = 1024   # widest int8 row (bytes): d <= 1024
-# narrow bf16 pack32 above k_pair 16: block_scan_wg.cu where a phase
-# covers at least this many window tiles, else block_scan_tc.cu
-# (tc_deep_ok)
-_WGN_DEEP_PHASE_TILES = 8
 
 
 def sortable_i32(x):
@@ -456,10 +453,11 @@ def _cta_probers(smem, p_tile):
 
 def tc_smem_bytes(rb, pack32, k_pair, one_tile=False):
     """Dynamic shared memory of the mma.sync scans' body at rows of rb
-    bytes: csrc/scan_tc.cuh:body_smem_bytes, term for term (the library's
-    `*_smem` entry points report the same; a card test holds them equal),
-    so that pick_route needs no library. Tiles [2][TN][row stride] bytes
-    (one_tile: [1][TN][row stride], the deep codes instance), penalties and
+    bytes: csrc/scan_tc.cuh:body_smem_bytes, term for term (the codes
+    scan's torchpq_codes_scan_tc_smem reports the same; a card test holds
+    them equal), so that pick_route needs no library. Tiles [2][TN][row
+    stride] bytes (one_tile: [1][TN][row stride], the deep codes instance,
+    the body's one source now), penalties and
     slots [2][TN], prober rows and tile flags, the
     slice lists [WARPS][16][kls], then pack32: the running lists
     [2][MAX_PT][kls]; exact: the staging rows, row bounds and queues. kls:
@@ -474,32 +472,38 @@ def tc_smem_bytes(rb, pack32, k_pair, one_tile=False):
             + 4 * _TC_MAX_PT + 4 * (_TC_MAX_PT // 16) + lists + select)
 
 
-def tc_route_smem(*, d, pack32, k_pair):
-    """Shared memory of the mma.sync block scan of a bf16 cache at width d
-    (the library's torchpq_block_scan_tc_smem): rows whole."""
-    return tc_smem_bytes(2 * d, pack32, k_pair)
-
-
 def wg_ring(pack32, k_pair):
     """Ring stages of the warp-specialised instance that serves this select
     (csrc/wg_layout.cuh:ring_of)."""
     if pack32:
-        return (_WG_RING_PACK_16 if k_pair <= 16 else _WG_RING_PACK
-                if k_pair <= _WG_DEEP_K else _WG_RING_DEEP)
+        return _WG_RING_PACK_16 if k_pair <= 16 else _WG_RING_DEEP
     return _WG_RING_EXACT_10 if k_pair <= 10 else _WG_RING_EXACT
 
 
-def _wg_select_bytes(pack32, k_pair):
-    """The select's shared arrays of the warp-specialised scan
-    (wg_layout.cuh:select_bytes): the slice lists [8][16][kls], then
-    pack32: the running lists [2][128][kls]; exact: the lists' values, the
-    staging rows [8][16][SLD], row bounds [8][16] and queues [QUEUE][256] x
-    2. kls: the lists' row stride, k_pair (pack32: made odd)."""
+def _wg_list_bytes(pack32, k_pair):
+    """The pass by pass and exact selects' shared arrays of the
+    warp-specialised scan (wg_layout.cuh:list_bytes; the codes instances'
+    too): the slice lists [8][16][kls], then pack32: the running lists
+    [2][128][kls]; exact: the lists' values, the staging rows [8][16][SLD],
+    row bounds [8][16] and queues [QUEUE][256] x 2. kls: the lists' row
+    stride, k_pair (pack32: made odd)."""
     kls = k_pair | 1 if pack32 else k_pair
     lists = 4 * _TC_WARPS * 16 * kls
     return lists + (2 * 4 * _TC_MAX_PT * kls if pack32 else
                     lists + 4 * _TC_WARPS * 16 * (_TC_SLD + 1)
                     + 8 * _TC_QUEUE * 32 * _TC_WARPS)
+
+
+def _wg_select_bytes(pack32, k_pair):
+    """The select's shared arrays of the warp-specialised scan's bf16 and
+    int8 instances (wg_layout.cuh:select_bytes): pack32 above k_pair 16,
+    the deep select's (deep_select.cuh:select_bytes: the warps' staging
+    rows [8][8][129], one running list a row [128][kls] and the staged
+    counts [128][2]); else _wg_list_bytes."""
+    if pack32 and k_pair > _DS_SHALLOW_K:
+        return 4 * (_TC_WARPS * _DS_SLOTS * _DS_SST
+                    + _TC_MAX_PT * ((k_pair | 1) + 2))
+    return _wg_list_bytes(pack32, k_pair)
 
 
 def wg_smem_bytes(pack32, k_pair, d=1024, dtype=torch.bfloat16):
@@ -512,10 +516,9 @@ def wg_smem_bytes(pack32, k_pair, d=1024, dtype=torch.bfloat16):
     columns' scales, two barriers; 3 to 6 stages by the instance,
     wg_layout.cuh:ring_of), prober rows and tile flags, the select's
     arrays. Narrow: alignment slack, the resident query buffers [2][128][128
-    B] and their two barriers (two, or one for the deep pack32 instance),
-    the ring's stages (a window tile, penalties, int8: scales, two
-    barriers; 5 to 8 by the instance), prober rows and tile flags, the
-    select's arrays."""
+    B] and their two barriers (two each instance), the ring's stages (a
+    window tile, penalties, int8: scales, two barriers; 5 to 8 by the
+    instance), prober rows and tile flags, the select's arrays."""
     int8 = dtype == torch.int8
     head = _WG_SW_ATOM + 4 * _TC_MAX_PT + 4 * 8 \
         + _wg_select_bytes(pack32, k_pair)
@@ -532,13 +535,13 @@ def wg_narrow_instance(pack32, k_pair, dtype=torch.bfloat16):
     """(KMAX, ring stages, query buffers) of the narrow warp-specialised
     instance that serves this select over a `dtype` cache
     (csrc/block_scan_wg.cu's dispatch, wg_layout.cuh:narrow_ring_of /
-    narrow_qbufs_of): pack32 above k_pair 16 runs five stages and one query
-    buffer, the others two buffers; pack32 up to k_pair 16 eight stages
-    (int8: seven, its stages carrying the columns' scales); every pack32
-    instance extracts its phase ends pass by pass (KMAX 16)."""
+    narrow_qbufs_of): pack32 above k_pair 16 runs five stages (KMAX 64: the
+    deep select, deep_select.cuh), pack32 up to k_pair 16 eight (int8:
+    seven, its stages carrying the columns' scales; KMAX 16: passes), each
+    instance with two query buffers."""
     if pack32:
-        if k_pair > 16:
-            return 16, _WG_NRING_DEEP, _WG_NQB_DEEP
+        if k_pair > _DS_SHALLOW_K:
+            return _DS_MAX_K, _WG_NRING_DEEP, _WG_NQB_DEEP
         return 16, (_WG_NRING_PACK_16_I8 if dtype == torch.int8
                     else _WG_NRING_PACK_16), _WG_NQB
     if k_pair <= 10:
@@ -555,8 +558,8 @@ def wg_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
     (wg_smem_bytes) within the limit, which every such shape meets (the
     ring as deep as the instance's largest k_pair lets it be: k-chunked,
     exact k_pair 10 227,952 B on five stages (int8 230,512 B), pack32
-    k_pair 64 201,296 B on three; narrow, exact k_pair 10 228,512 B on six
-    (int8 231,584 B), pack32 k_pair 64 218,752 B on five)."""
+    k_pair 64 202,080 B on four; narrow, exact k_pair 10 228,512 B on six
+    (int8 231,584 B), pack32 k_pair 64 219,024 B on five)."""
     if dtype == torch.int8:
         rows_ok = d % 16 == 0 and 0 < d <= _WG_MAX_ROW_I8
     else:
@@ -583,44 +586,12 @@ def _blocks_ok(p_tile, s_eff, k_pair, pack32):
 
 
 def tc_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32):
-    """Whether the mma.sync scans' body (csrc/scan_tc.cuh) takes these
-    shapes of bf16 rows in registers: rows of 16-byte pieces up to 256
-    bytes (d <= 128, d % 8 == 0: the codes scan's decoded rows and the
-    deep selects of tc_deep_ok); the blocks and selects of _blocks_ok; and
-    the route's shared memory (tc_route_smem) within the limit, which every
-    such shape meets: pack32 k_pair 64 takes 172,064 B at d 128."""
+    """Whether the mma.sync scans' body (csrc/scan_tc.cuh, the codes scan's
+    sorted instance) takes these shapes of bf16 rows in registers: rows of
+    16-byte pieces up to 256 bytes (d <= 128, d % 8 == 0: the codes scan's
+    decoded rows), the blocks and selects of _blocks_ok."""
     return (d % 8 == 0 and 0 < 2 * d <= _TC_MAX_ROW
-            and _blocks_ok(p_tile, s_eff, k_pair, pack32)
-            and tc_route_smem(d=d, pack32=pack32, k_pair=k_pair)
-            <= _SMEM_LIMIT)
-
-
-def phase_tiles(s_eff, k_pair):
-    """Window tiles of 128 slots between two phase ends of the pack32
-    select: s_eff / G for deep groups (G > 128, the tiles taken phase by
-    phase), every tile of the window otherwise."""
-    g = n_groups(s_eff, k_pair)
-    return s_eff // g if g > _TC_TN else -(-s_eff // _TC_TN)
-
-
-def tc_deep_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
-    """Whether these shapes stay on csrc/block_scan_tc.cu (mma.sync, sorted
-    phase ends): a bf16 cache of d <= 128, pack32 above k_pair 16 (the deep
-    selects) whose phases cover fewer than 8 window tiles, within
-    tc_shapes_ok. Timed in turns with the narrow wgmma instances, where the
-    narrow instances' passes over 32 group maxima a lane cost more than
-    their faster tiles save, on the scans' own arguments (PERF.md §6,
-    chip_smoke.py --parent): the untapered deep-k scan, 2 tiles a phase,
-    5.039 against 6.423 ms; IVFPQR k = 100, 4, 3.002 against 3.314;
-    residual k = 100, 5, 1.542 against 1.600; at 8 (the deep-k head) the
-    wgmma instance wins, 1.587 against 1.718 (NVIDIA H100 80GB HBM3,
-    700.00 W). int8 caches take no such rule: no workload runs an int8
-    deep select of a short phase, so every int8 shape stays on
-    block_scan_wg.cu."""
-    return (dtype == torch.bfloat16 and pack32 and k_pair > 16
-            and phase_tiles(s_eff, k_pair) < _WGN_DEEP_PHASE_TILES
-            and tc_shapes_ok(d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair,
-                             pack32=pack32))
+            and _blocks_ok(p_tile, s_eff, k_pair, pack32))
 
 
 def pick_route(*, dtype, d, p_tile, s_eff, k_pair, pack32):
@@ -634,8 +605,6 @@ def pick_route(*, dtype, d, p_tile, s_eff, k_pair, pack32):
       - "tc_wg_exact" / "tc_wg_pack32" and "tc_wg_int8_exact" /
         "tc_wg_int8_pack32" (`csrc/block_scan_wg.cu`'s k-chunked
         instances): the same with wider rows, up to d = 1024;
-      - "tc_pack32" (`csrc/block_scan_tc.cu`, mma.sync): the bf16 narrow
-        deep pack32 shapes of `tc_deep_ok`, taken before the narrow route;
       - "exact" / "pack32" (`csrc/block_scan.cu`, CUDA cores): f32 caches
         and the bf16 shapes above it does not take (rows over 2,048 bytes,
         exact k_pair > 16, other blocks or groups);
@@ -645,9 +614,6 @@ def pick_route(*, dtype, d, p_tile, s_eff, k_pair, pack32):
         groups)."""
     mode = ("int8_" if dtype == torch.int8 else "") + (
         "pack32" if pack32 else "exact")
-    if tc_deep_ok(d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair,
-                  pack32=pack32, dtype=dtype):
-        return "tc_" + mode
     if wg_shapes_ok(d=d, p_tile=p_tile, s_eff=s_eff, k_pair=k_pair,
                     pack32=pack32, dtype=dtype):
         rb = d * (1 if dtype == torch.int8 else 2)
@@ -721,8 +687,7 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
     route = route or best
     int8 = decoded.dtype == torch.int8
     kind = "int8_" + mode if int8 else mode
-    if route not in ((kind, "tc_wg_" + kind, "tc_wgn_" + kind)
-                     + (("tc_" + kind,) if pack32 and not int8 else ())):
+    if route not in (kind, "tc_wg_" + kind, "tc_wgn_" + kind):
         raise ValueError(f"route {route!r} does not serve the {mode} select "
                          f"of a {decoded.dtype} cache")
     if route.startswith("tc_") and best != route:
@@ -755,21 +720,6 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty,
             rc = lib.torchpq_block_scan_wg(
                 qtable.data_ptr(), probers.data_ptr(), start_c.data_ptr(),
                 off.data_ptr(), cap.data_ptr(), penalty.data_ptr(), *rows)
-    elif route.startswith("tc_"):
-        name = "torchpq_block_scan_tc"
-        if lib.torchpq_block_scan_tc_smem(d, int(pack32), k_pair) \
-                > _SMEM_LIMIT:
-            raise ValueError(f"{name}: shared memory exceeds the limit at "
-                             f"d={d}, k_pair={k_pair}")
-        if n_ctas is None:
-            n_ctas = resident_ctas(lib, name + "_occupancy", decoded.device,
-                                   d, int(pack32), k_pair)
-        rc = lib.torchpq_block_scan_tc(
-            qtable.data_ptr(), probers.data_ptr(), start_c.data_ptr(),
-            off.data_ptr(), cap.data_ptr(), penalty.data_ptr(),
-            decoded.data_ptr(), out.data_ptr(), b, p_tile, d, s_eff, k_pair,
-            int(euclidean), int(pack32), slot_mask, groups, min(n_ctas, b),
-            ctypes.c_void_p(stream))
     elif int8:
         if d % 16 or qtable.data_ptr() % 16 or decoded.data_ptr() % 16:
             raise ValueError(f"int8 block scan kernel needs d % 16 == 0 "

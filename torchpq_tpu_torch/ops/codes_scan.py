@@ -56,7 +56,7 @@ from .. import util
 from .block_scan import (BIG, n_groups, random_inputs, resident_ctas,
                          select_chunks, select_exact, select_pack32,
                          tc_shapes_ok, window_scores, _blocks_ok,
-                         _wg_select_bytes, _SMEM_LIMIT, _TC_MAX_PT,
+                         _wg_list_bytes, _SMEM_LIMIT, _TC_MAX_PT,
                          _TC_MAX_ROW, _TC_TN, _WG_BOX_ROWS, _WG_QBUF_BYTES,
                          _WG_STAGE_BYTES, _WG_SW_ATOM)
 from .block_scan import tc_smem_bytes as body_smem_bytes
@@ -273,14 +273,14 @@ def wg_smem_bytes(*, m, dsub, pack32, k_pair):
     columns' penalties, pack32 their slots, two barriers; wg_ring), the
     codebook [m][256][dsub] bf16, the raw slot [128][8 * chunks a pass]
     (m <= 64: all of a column's codes, m = 128: half), prober rows and
-    tile flags, the select's arrays (block_scan._wg_select_bytes)."""
+    tile flags, the select's arrays (block_scan._wg_list_bytes)."""
     chunks = min(m // 8, _WG_PASS_CHUNKS)
     stage = _WG_STAGE_BYTES + 4 * _WG_BOX_ROWS \
         + (4 * _WG_BOX_ROWS if pack32 else 0) + 16
     return (_WG_SW_ATOM + _WG_CQB * (_WG_QBUF_BYTES + 16)
             + wg_ring(pack32, k_pair) * stage + 512 * m * dsub
             + _WG_BOX_ROWS * 8 * chunks + 4 * _TC_MAX_PT + 4 * 8
-            + _wg_select_bytes(pack32, k_pair))
+            + _wg_list_bytes(pack32, k_pair))
 
 
 def _cta_probers(lib, p_tile, d, pack32, groups):
