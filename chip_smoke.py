@@ -6,18 +6,19 @@
     python3 chip_smoke.py --parent DIR    # and, on each warp-specialised
         # block-scan row, DIR's csrc/block_scan_wg.cu (a checkout of the
         # parent tree) timed in turns with the row's route, its live keys
-        # held equal; on each codes row DIR's csrc/codes_scan_tc.cu; on
-        # each narrow bf16 deep pack32 row DIR's csrc/block_scan_tc.cu,
-        # each where DIR holds it
+        # held equal; on each codes row DIR's block_scan_wg.cu codes
+        # instance (keys held equal) and csrc/codes_scan_tc.cu; on each
+        # narrow bf16 deep pack32 row DIR's csrc/block_scan_tc.cu, each
+        # where DIR holds and takes it
 
 Phases, each of which fails the run on error:
   1. device: a CUDA card is required (no CPU continuation); prints its name
      and `nvidia-smi` name + power limit.
   2. build: compiles the kernels from `torchpq_tpu_torch/csrc` with nvcc;
-     the ptxas report of CHECKED_KERNELS' instances must show no spill
-     and no stack frame, and each of the twenty warp-specialised
-     instances (block_scan_wg.cu, bf16 and int8, narrow and k-chunked, and
-     the four codes instances) must hold warpgroup products (bf16 HGMMA,
+     the ptxas report of the twenty-one warp-specialised instances
+     (WG_KERNEL: block_scan_wg.cu, bf16 and int8, narrow and k-chunked,
+     and the five codes instances) must show no spill and no stack frame,
+     and each of them must hold warpgroup products (bf16 HGMMA,
      int8 IGMMA) and, but the codes ones (their producer decodes the
      window), UTMALDG instructions in its SASS (cuobjdump -sass; counts
      logged and in the kernels line).
@@ -46,8 +47,8 @@ Phases, each of which fails the run on error:
      rows dead, and bit for bit on integer-valued inputs with ties (PQ64,
      PQ8, PQ128 (two raw passes), the 4-bit byte pairs and PQ8 of dsub 9
      (a ragged second k half), euclidean and inner, exact k_pair 10 and
-     16, pack32 k_pair 10 and 20 on the wgmma instances, and the sorted
-     mma.sync instance at k_pair 40, 52 and 64 over 512 groups); on each
+     16, pack32 k_pair 10 and 20 pass by pass, and the deep select at
+     k_pair 40, 52 and 64 over 512 groups); on each
      of those inputs the CUDA-core
      codes kernel too, every row (bit for bit on integer inputs, equal
      exact values and >= 0.9999 of pack32 keys on random ones); then the
@@ -114,7 +115,7 @@ Phases, each of which fails the run on error:
      CUDA-core codes kernel against `codes_scan_ref` (every row, equal
      exact values, pack32 keys >= 0.9999), and the search's own select
      timed on both codes kernels in turns (with --parent, the parent's
-     mma.sync codes kernel in turns too).
+     block_scan_wg.cu codes instance in turns too, keys held equal).
   8. int8 tier: an index with scan_cache_dtype="int8" takes the same
      trained codecs and adds; device bytes logged; the block scan's
      counters zeroed, the five plans run (every plan's recall@10 within
@@ -190,16 +191,16 @@ Phases, each of which fails the run on error:
  13. IVFPQR, code domain (the record's _codes twin: scan_cache_dtype
      "none", initial_mult 3): flat and pack32 n_probe 8/32 at k = 10 (the
      base codes scan at k' 40) and k = 100 (k' 400: k_pair 64 / 52, the
-     sorted mma.sync instance), each plan's codes-scan counters zeroed
-     before and read after: the wgmma codes instances only at k = 10
-     ("tc_wgn_pack32"), the sorted instance only at k = 100 ("tc_pack32");
+     deep select), each plan's codes-scan counters zeroed before and read
+     after: the wgmma codes instances only ("tc_wgn_pack32") at both k;
      recall within 0.02 of
      the cached tier's exact select over the same cells (its pack32 plans
      over supercells logged beside); the n_probe 32 scans and the k = 100
      n_probe 8 one held to codes_scan_ref on their own arguments (live
      rows, pad rows dead) and timed in turns with the CUDA-core
-     codes_scan.cu (and, with --parent, the parent's mma.sync codes
-     kernel); both k = 100 plans profiled.
+     codes_scan.cu (and, with --parent, the parent's sorted mma.sync
+     codes_scan_tc.cu, its share of equal live keys logged); both k = 100
+     plans profiled.
  14. FlatIndex at 1M x 128 f32 (the slice's base and 10k queries), k = 10
      and 100, at the search precision "highest" (IEEE f32, the exact
      index): ids against the exact ground truth (>= 0.999), ms per batch
@@ -351,8 +352,8 @@ Phases, each of which fails the run on error:
      warp-specialised route, as every bf16 and int8 block-scan row is: its
      launch key, the instance and its SASS counts of HGMMA or IGMMA and
      UTMALDG; with --parent, the parent's block_scan_wg.cu times in turns
-     on every such row, its mma.sync times on the narrow bf16 deep rows it
-     takes and on every codes row); the
+     on every such row and codes row, its mma.sync times on the narrow
+     bf16 deep rows and codes rows it takes); the
      deep-k
      split's head and tail scans and the
      untapered plan's scan; the 4-bit tier's pack32 block scans (k = 10
@@ -387,36 +388,29 @@ TOL_ABS = 1e-3
 F32_UNIT = 2.0 ** -23
 
 
-# the sorted mma.sync codes instance (codes_scan_tc.cu: pack32 k_pair
-# 49-64, and 17-48 where the wgmma codes instances do not fit), by the name
-# kernel_name gives its mangled one
-DEEP_CODES_KERNEL = "codes_scan_tc_kernelILb1ELi64E"
-# the instances whose ptxas report must show no spill and no stack frame:
-# the sorted codes instance and block_scan_wg.cu's twenty warp-specialised
-# instances (<PACK, KMAX, ring stages, query buffers, int8, codes>: bf16
-# and int8 alike over k-chunked rows exact 10 / 16 on 5 / 4 stages, pack32
-# up to k_pair 16 on 6 (KMAX 16, passes) and, the deep select (KMAX 64,
-# csrc/deep_select.cuh), above on 4; over narrow rows (at most 256 bytes)
-# exact 10 / 16 on 6 / 5, pack32 on 8 (int8: 7) and, above k_pair 16, the
-# deep select on 5, each with two query buffers; the codes instances, one
-# query buffer, exact 10 / 16 on 3 stages, pack32 on 5 and, above k_pair
-# 16 (passes), on 4)
-CHECKED_KERNELS = re.compile(
-    r"codes_scan_tc_kernelILb1ELi64E$|block_scan_wg_kernelI\w*E$")
-N_CHECKED_KERNELS = 21
-# the warp-specialised instances (eight bf16, eight int8, four codes), each
-# of which must hold warpgroup products (bf16: HGMMA; int8, template
-# argument I8 = true: IGMMA, the integer form) and, but the codes ones
-# (CODES = true, the last argument: the producer decodes the window), TMA
-# loads (UTMALDG) in its SASS
+# the deep codes instance (block_scan_wg.cu's codes instance of pack32
+# k_pair 33-64, the deep select on three ring stages, one query buffer),
+# by the name kernel_name gives its mangled one
+DEEP_CODES_KERNEL = "block_scan_wg_kernelILb1ELi64ELi3ELi1ELb0ELb1E"
+# block_scan_wg.cu's twenty-one warp-specialised instances (<PACK, KMAX,
+# ring stages, query buffers, int8, codes>: bf16 and int8 alike over
+# k-chunked rows exact 10 / 16 on 5 / 4 stages, pack32 up to k_pair 16 on 6
+# (KMAX 16, passes) and, the deep select (KMAX 64, csrc/deep_select.cuh),
+# above on 4; over narrow rows (at most 256 bytes) exact 10 / 16 on 6 / 5,
+# pack32 on 8 (int8: 7) and, above k_pair 16, the deep select on 5, each
+# with two query buffers; the codes instances, one query buffer, exact 10
+# / 16 on 3 stages, pack32 on 5, 17-32 (passes) on 4 and, above, the deep
+# select on 3), whose ptxas reports must show no spill and no stack frame
+# and each of which must hold warpgroup products (bf16: HGMMA; int8,
+# template argument I8 = true: IGMMA, the integer form) and, but the codes
+# ones (CODES = true, the last argument: the producer decodes the window),
+# TMA loads (UTMALDG) in its SASS
 WG_KERNEL = re.compile(r"block_scan_wg_kernelI\w*E$")
-N_WG_KERNELS = 20
+N_WG_KERNELS = 21
 WG_OPS = ("HGMMA", "IGMMA", "UTMALDG")
 # the codes routes: the wgmma codes instances (block_scan_wg.cu) that the
-# code-domain, 4-bit and pqr3_codes k = 10 plans must take, and the sorted
-# mma.sync instance (codes_scan_tc.cu) of the pqr3_codes k = 100 plans
+# code-domain, 4-bit and pqr3_codes plans must take
 CODES_WG_KEYS = ("tc_wgn_exact", "tc_wgn_pack32")
-CODES_DEEP_KEY = "tc_pack32"
 
 
 def wg_ops(fn):
@@ -430,7 +424,7 @@ def codes_source(route):
     """The source of a codes-scan route's kernel."""
     return "torchpq_tpu_torch/csrc/" + (
         "block_scan_wg.cu" if route.startswith("tc_wgn_") else
-        "codes_scan_tc.cu" if route.startswith("tc_") else "codes_scan.cu")
+        "codes_scan.cu")
 
 
 # per instance: its SASS counts of WG_OPS (main, from cuobjdump)
@@ -910,9 +904,11 @@ def wg_instance(pack32, k_pair, d, int8=False):
 def codes_instance(pack32, k_pair):
     """The wgmma codes instance (kernel_name) a codes launch of this select
     runs (block_scan_wg.cu's codes dispatch: one query buffer; exact 3
-    stages, pack32 5 up to k_pair 16, 4 above)."""
+    stages, pack32 5 up to k_pair 16, 4 up to 32 (passes), the deep select
+    above on 3)."""
     from torchpq_tpu_torch.ops import codes_scan as cs
-    kmax = 16 if pack32 or k_pair > 10 else 10
+    kmax = (64 if pack32 and k_pair > cs._WG_CODES_PASS_K
+            else 16 if pack32 or k_pair > 10 else 10)
     return (f"block_scan_wg_kernelILb{int(bool(pack32))}ELi{kmax}ELi"
             f"{cs.wg_ring(pack32, k_pair)}ELi{cs._WG_CQB}ELb0ELb1E")
 
@@ -929,7 +925,8 @@ PARENT = {}
 # stream, its occupancy entry's ints)})
 PARENT_SOURCES = {
     "wg": ("block_scan_wg.cu", {"torchpq_block_scan_wg": ((8, 11), 3),
-                                "torchpq_block_scan_wg_int8": ((10, 11), 3)}),
+                                "torchpq_block_scan_wg_int8": ((10, 11), 3),
+                                "torchpq_codes_scan_wg": ((9, 12), 4)}),
     "bf16": ("block_scan_tc.cu", {"torchpq_block_scan_tc": ((8, 10), 3)}),
     "codes": ("codes_scan_tc.cu", {"torchpq_codes_scan_tc": ((9, 12), 4)})}
 
@@ -963,6 +960,8 @@ def build_parent(_build, root):
             fail(f"--parent: nvcc failed on {src}:\n{text}")
         lib = ctypes.CDLL(str(so))
         for entry, ((n_ptr, n_int), n_occ) in entries.items():
+            if not hasattr(lib, entry):  # a tree from before the entry
+                continue
             getattr(lib, entry).argtypes = [p] * n_ptr + [i] * n_int + [p]
             getattr(lib, entry).restype = i
             getattr(lib, entry + "_occupancy").argtypes = [i] * n_occ
@@ -1091,25 +1090,20 @@ def block_turns(torch, bs, args, kkw, route, what):
     return row
 
 
-def codes_parent_turns(torch, bs, cs, args, kkw, route, what):
-    """With --parent, a codes row's arguments (its select kkw) on the
-    parent's mma.sync codes_scan_tc.cu and on `route` in turns
-    (parent_turns); {} without --parent or where the parent's kernel
-    refuses the row's shapes (logged: since the codes scan's shallow
-    selects moved to block_scan_wg.cu it takes the deep pack32 ones
-    only)."""
-    if "codes" not in PARENT:
-        return {}
-    lib = PARENT["codes"]
+def codes_launch_fn(torch, bs, lib, entry, args, kkw):
+    """(launch, out): a closure that launches `lib`'s codes-scan entry point
+    `entry` (torchpq_codes_scan_wg, block_scan_wg.cu's codes instances; or
+    torchpq_codes_scan_tc, the mma.sync sorted kernel of a tree that holds
+    it) on args into out, uncounted, and returns its CUDA return code (the
+    grid: its occupancy times the card's SMs, at most a CTA a block);
+    (None, None) where its occupancy query refuses the shapes."""
     b, p_tile = args[1].shape
     m, _, dsub = args[7].shape
     pack32, k_pair = kkw["pack32"], kkw["k_pair"]
     groups = bs.n_groups(kkw["s_eff"], k_pair) if pack32 else 0
-    per_sm = lib.torchpq_codes_scan_tc_occupancy(m, dsub, int(pack32), k_pair)
+    per_sm = getattr(lib, entry + "_occupancy")(m, dsub, int(pack32), k_pair)
     if per_sm <= 0:
-        log(f"  {what}: the parent's codes_scan_tc.cu does not take these "
-            f"shapes (occupancy {per_sm})")
-        return {}
+        return None, None
     n_ctas = min(b, per_sm * torch.cuda.get_device_properties(
         args[6].device).multi_processor_count)
     out = torch.empty((b, p_tile, k_pair if pack32 else 2 * k_pair),
@@ -1117,20 +1111,44 @@ def codes_parent_turns(torch, bs, cs, args, kkw, route, what):
     ptrs = [t.data_ptr() for t in args]
 
     def launch():
-        return lib.torchpq_codes_scan_tc(
+        return getattr(lib, entry)(
             *ptrs, out.data_ptr(), b, p_tile, m, dsub, args[6].shape[1] // m,
             kkw["s_eff"], k_pair, int(kkw["euclidean"]), int(pack32),
             kkw["slot_mask"], groups, n_ctas,
             torch.cuda.current_stream().cuda_stream)
 
-    if launch() != 0:
-        log(f"  {what}: the parent's codes_scan_tc.cu does not take these "
-            "shapes")
-        return {}
-    return parent_turns(
-        torch, args, out, launch,
-        lambda: codes_launch(torch, cs, args, route, **kkw), what,
-        PARENT_SOURCES["codes"][0], "mma_sync")
+    return launch, out
+
+
+def codes_parent_turns(torch, bs, cs, args, kkw, route, what):
+    """With --parent, a codes row's arguments (its select kkw) on `route`
+    in turns (parent_turns) with the parent's kernels, where it holds and
+    takes them: its block_scan_wg.cu codes instance of the row's select
+    (the live keys must equal this tree's: the products and the selects'
+    results are the same), and its mma.sync codes_scan_tc.cu (the sorted
+    kernel of older trees; its share of equal live keys logged: only the
+    f32 summation order differs); {} without --parent."""
+    row = {}
+    new = (lambda: codes_launch(torch, cs, args, route, **kkw))
+    for kind, entry, source, tag in (
+            ("wg", "torchpq_codes_scan_wg", "block_scan_wg.cu", "parent_wg"),
+            ("codes", "torchpq_codes_scan_tc", "codes_scan_tc.cu",
+             "mma_sync")):
+        if kind not in PARENT or not hasattr(PARENT[kind], entry):
+            continue
+        launch, out = codes_launch_fn(torch, bs, PARENT[kind], entry, args,
+                                      kkw)
+        if launch is None or launch() != 0:
+            log(f"  {what}: the parent's {source} does not take these "
+                "shapes")
+            continue
+        row.update(parent_turns(torch, args, out, launch, new, what, source,
+                                tag))
+        if kind == "wg" and row["parent_wg_live_equal"] != 1.0:
+            fail(f"{what}: the live keys differ from the parent's "
+                 f"block_scan_wg.cu codes instance: "
+                 f"{row['parent_wg_live_equal']:.6f} equal")
+    return row
 
 
 def sass_counts(torch, path):
@@ -1288,9 +1306,9 @@ def phase_kernels(torch, bs, cs, fs, gr):
     # integer inputs with runs of equal codes: bit for bit, ties included
     # (the wgmma codes instances at exact k_pair 10 and 16 and pack32 10,
     # 16 and 20, PQ128 in two raw passes and PQ8 of dsub 9 a ragged second
-    # k half; k_pair 40, 52 and 64 over 512 groups at d = 128: the sorted
-    # mma.sync instance, the IVFPQR code domain's k = 100 shapes, for PQ64
-    # and the 4-bit byte pairs)
+    # k half; k_pair 40, 52 and 64 over 512 groups at d = 128: the deep
+    # select, the IVFPQR code domain's k = 100 shapes, for PQ64 and the
+    # 4-bit byte pairs)
     for m, dsub, s_eff, k_pair in ((64, 2, 1024, 10), (8, 4, 256, 10),
                                    (64, 2, 1024, 16), (64, 2, 1024, 20),
                                    (128, 1, 1024, 16), (8, 9, 256, 16),
@@ -1794,7 +1812,7 @@ def codes_rows(torch, tp, bs, cs, code, xq, k, label, suffix=""):
     CUDA-core one on every row), and against the tensor-core block scan
     over the decoded bf16 rows; then the select each search ran timed on
     its route and the CUDA-core codes kernel in turns (with --parent, and
-    on the parent's mma.sync codes kernel). Returns the kernels' JSON rows
+    on the parent's kernels: codes_parent_turns). Returns the kernels' JSON rows
     (names codes_scan_exact / codes_scan_pack32 + suffix) without their
     launch counts."""
     rows = {}
@@ -3000,8 +3018,10 @@ def codes_pack32_row(torch, bs, cs, name, args, kw, what, want):
     tensor-core route `want` pick_route must name: against codes_scan_ref
     on the live rows, pad rows dead (check_codes; the CUDA-core kernel on
     every row), timed in turns with the CUDA-core codes_scan.cu (the
-    cuda_core_ms yardstick) and, with --parent, with the parent's mma.sync
-    codes kernel, with its bound. Returns the kernels-line row."""
+    cuda_core_ms yardstick) and, with --parent, with the parent's kernels
+    (codes_parent_turns: its sorted mma.sync codes_scan_tc.cu on the deep
+    rows, with its share of equal live keys), with its bound. Returns the
+    kernels-line row."""
     s_eff, k_pair = kw["s_eff"], kw["k_pair"]
     blocks, p_tile = args[1].shape
     m, _, dsub = args[7].shape
@@ -3040,7 +3060,8 @@ def codes_pack32_row(torch, bs, cs, name, args, kw, what, want):
                 replaces="torchpq_tpu/ops/pallas_codes_scan.py:198",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, cuda_core_ms=cc_ms,
-                launch_key=want, **parent)
+                launch_key=want, instance=codes_instance(True, k_pair),
+                key_agreement=agree, **parent)
 
 
 def phase_pqr_codes(torch, tp, bs, cs, sl, gt100, trained, rec_cached):
@@ -3050,19 +3071,17 @@ def phase_pqr_codes(torch, tp, bs, cs, sl, gt100, trained, rec_cached):
     PQR_CODE_PLANS at k = 10 and 100 with the codes-scan counters zeroed
     before it and read after. The base scan runs at k * 4 under the code
     scan's k_pair rule: k = 10 (k' 40) at pack32 k_pair 20 / 16 (n_probe
-    8 / 32), k = 100 (k' 400) at k_pair 64 / 52 (the deep instance), all
-    on the tensor-core pack32 key only. Recall@10 and @100 within 0.02 of
-    the cached tier's exact select over the same probed cells (scan_group
-    1: the code domain takes no supercells, in either package) at n_probe
-    8 and 32; the cached tier's pack32 plans over supercells of 4 are
-    logged beside (on manifold-12 the supercells lift them 0.01-0.05 above
-    both); the n_probe 32 scans of both k and the k = 100 n_probe 8 scan
-    held to codes_scan_ref on their searches' own arguments. The k = 10
-    scans (k_pair 20 / 16) run on the wgmma codes instances
-    ("tc_wgn_pack32"), the k = 100 ones (k_pair 64 / 52) on the sorted
-    mma.sync instance ("tc_pack32"). Returns (launches, the kernels' rows):
-    a k = 10 row launched by both probed plans, a k = 100 row per probed
-    plan."""
+    8 / 32), k = 100 (k' 400) at k_pair 64 / 52 (the deep select), all
+    on the tensor-core pack32 key only ("tc_wgn_pack32": the passes of
+    k_pair 16 and 20, the deep select of 52 and 64). Recall@10 and @100
+    within 0.02 of the cached tier's exact select over the same probed
+    cells (scan_group 1: the code domain takes no supercells, in either
+    package) at n_probe 8 and 32; the cached tier's pack32 plans over
+    supercells of 4 are logged beside (on manifold-12 the supercells lift
+    them 0.01-0.05 above both); the n_probe 32 scans of both k and the k =
+    100 n_probe 8 scan held to codes_scan_ref on their searches' own
+    arguments. Returns (launches, the kernels' rows): a k = 10 row
+    launched by both probed plans, a k = 100 row per probed plan."""
     base, xq, gt, k = (sl[x] for x in ("base", "xq", "gt", "k"))
     code, add_s = build_pqr(torch, tp, trained, base, sl["index"],
                             initial_mult=3, cache="none")
@@ -3079,7 +3098,7 @@ def phase_pqr_codes(torch, tp, bs, cs, sl, gt100, trained, rec_cached):
         "norm, 4 B norm delta)")
     rec, launches, rows = {}, {}, {}
     for kk, g in ((k, gt), (100, gt100)):
-        want = "tc_wgn_pack32" if kk == k else CODES_DEEP_KEY
+        want = "tc_wgn_pack32"
         rec[kk], counts = {}, {}
         for plan in PQR_CODE_PLANS:
             for key in cs.launches:
@@ -5133,11 +5152,12 @@ def main():
                     help="stop after the kernel-vs-plain phase")
     ap.add_argument("--parent", default=None, metavar="DIR",
                     help="a checkout of a parent tree: each warp-specialised "
-                    "block-scan row also times DIR's "
+                    "block-scan and codes row also times DIR's "
                     "csrc/block_scan_wg.cu in turns (its live keys held "
                     "equal), each codes row DIR's csrc/codes_scan_tc.cu and "
                     "each narrow bf16 deep pack32 row DIR's "
-                    "csrc/block_scan_tc.cu, each where the tree holds it")
+                    "csrc/block_scan_tc.cu, each where the tree holds and "
+                    "takes it")
     ap.add_argument("--sharded-rank", type=int, default=None,
                     help=argparse.SUPPRESS)  # a rank of the D=2 phase
     ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
@@ -5175,9 +5195,9 @@ def main():
             report[kernel] = report.get(kernel, "") + " " + line.strip()
         elif "Performance Loss" in line:  # wgmma serialized (C7520)
             log("ptxas: " + line.strip())
-    # the deep codes instance and the block scan's warp-specialised ones:
-    # no spill, no stack frame
-    checked = sorted(x for x in report if CHECKED_KERNELS.search(x))
+    # the block scan's warp-specialised instances, the deep codes one
+    # among them: no spill, no stack frame
+    checked = sorted(x for x in report if WG_KERNEL.search(x))
     for name in checked:
         rep = report[name]
         regs = re.search(r"Used (\d+) registers", rep)
@@ -5189,8 +5209,8 @@ def main():
         if not regs or len(frame) != 3 or any(frame):
             fail(f"ptxas reports a stack frame or spills for {name} (or no "
                  f"report): {rep.strip()!r}")
-    if len(checked) != N_CHECKED_KERNELS or DEEP_CODES_KERNEL not in checked:
-        fail(f"ptxas reported {checked}, not the {N_CHECKED_KERNELS} checked "
+    if len(checked) != N_WG_KERNELS or DEEP_CODES_KERNEL not in checked:
+        fail(f"ptxas reported {checked}, not the {N_WG_KERNELS} checked "
              f"instances")
     # the warp-specialised instances: warpgroup products and TMA loads
     SASS.update(sass_counts(torch, lib.path))

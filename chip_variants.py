@@ -11,6 +11,7 @@ CUDA card:
     python3 chip_variants.py --variants wgn_noscore --narrow
     python3 chip_variants.py --variants wgd_noprune --ptxas-only
     python3 chip_variants.py --variants wgc_noearly,wgc_pass4 --codes
+    python3 chip_variants.py --codes --parent DIR --variants wgc_deep_all
     python3 chip_variants.py --deep --parent DIR --variants wgd_noprune
 
 On each of the records' searches (1M x 960 manifold-12, seed 1, IVF4096 x
@@ -57,11 +58,14 @@ with the package's nvcc flags into its own library under
             column a pass, two passes at m = 64) and the exact k_pair <= 10
             instance on four ring stages in place of three; wgc_regs40:
             the producer and the consumers at 40 / 232 registers (ptxas
-            spills 32 B) instead of 56 / 224; wgc_nodecode: the producer
+            spills 16-20 B) instead of 56 / 224; wgc_nodecode: the producer
             copies the codes and writes the penalties but decodes nothing
             (wrong keys, what the decode costs); wgc_restrict2: the decode's
             codebook and stage pointers __restrict__ and its loop unrolled
-            by two.
+            by two; wgc_deep_all: pack32 above k_pair 16 all by the deep
+            select (the passes instance of 17-32 unused); wgc_passes35: the
+            passes up to k_pair 35; wgc_deep_ring4: the deep instance on
+            four stages (where they fit: a row they do not is skipped).
 It prints each variant's ptxas report for the k-chunked and
 warp-specialised instances; --ptxas-only stops there.
 Imports nothing of JAX."""
@@ -143,11 +147,8 @@ VARIANTS = {
                      "mbar_arrive(empty + sa);")],
     "wgc_pass4": [("wg_layout.cuh", "constexpr int PASS_CHUNKS = 8;",
                    "constexpr int PASS_CHUNKS = 4;"),
-                  ("wg_layout.cuh",
-                   "return pack32 ? (k_pair <= 16 ? CRING_PACK_16 : CRING_PACK)"
-                   " : CRING_EXACT;",
-                   "return pack32 ? (k_pair <= 16 ? CRING_PACK_16 : CRING_PACK)"
-                   " : (k_pair <= 10 ? 4 : CRING_EXACT);"),
+                  ("wg_layout.cuh", "return !pack32 ? CRING_EXACT",
+                   "return !pack32 ? (k_pair <= 10 ? 4 : CRING_EXACT)"),
                   ("block_scan_wg.cu", "? X(false, 10, CRING_EXACT)",
                    "? X(false, 10, 4)")],
     "wgc_nodecode": [("block_scan_wg.cu", """      decode_chunk(rc.x, rc.y, cb_s, ca.dsub, (ps << ca.lc) + ch, cl,
@@ -165,6 +166,16 @@ VARIANTS = {
   for (int e = t; e < (BOX_ROWS << ca.lc); e += 128) {""", """  tpq::cp_async_wait<0>();
 #pragma unroll 2
   for (int e = t; e < (BOX_ROWS << ca.lc); e += 128) {""")],
+    # the codes instances' boundary between the passes (four stages) and
+    # the deep select (three): the deep select from k_pair 17; the passes
+    # up to 35 (the deepest whose lists fit four stages at d = 128); the
+    # deep instance on four stages where they fit (k_pair <= 39 at PQ64)
+    "wgc_deep_all": [("wg_layout.cuh", "constexpr int CODES_PASS_K = 32;",
+                      "constexpr int CODES_PASS_K = 16;")],
+    "wgc_passes35": [("wg_layout.cuh", "constexpr int CODES_PASS_K = 32;",
+                      "constexpr int CODES_PASS_K = 35;")],
+    "wgc_deep_ring4": [("wg_layout.cuh", "constexpr int CRING_DEEP = 3;",
+                        "constexpr int CRING_DEEP = 4;")],
     "wgc_regs40": [("block_scan_wg.cu",
                     "constexpr int CODES_PRODUCER_REGS = 56;",
                     "constexpr int CODES_PRODUCER_REGS = 40;"),
@@ -232,44 +243,113 @@ def shapes(torch, args):
             f"({1 - live / max(64 * live64, 1):.3f} of their rows pads)")
 
 
+# the codes rows of --codes, on `random_codes_inputs` at the code domain's
+# window (s_eff 1024): (m, dsub, k_pair, pack32, live probers a block (0:
+# drawn from 1-128), blocks); pack32 above k_pair 16: the pqr3_codes base
+# scans at k = 10, n_probe 8 (k_pair 20, G = 128) and k = 100, n_probe 32 /
+# 8 (k_pair 52 / 64, G = 512), k_pair 40 (G = 512), the 4-bit byte pairs
+# at 47, PQ128 at 64; then the passes' reach against the deep select's
+# (k_pair 17-39 at the pqr3_codes blocks' liveness, 20 and 71 live probers
+# a block, and drawn: G = 128, one phase, up to k_pair 32; 512 above)
+CODES_ROWS = (
+    (64, 2, 10, False, 0, 4507), (64, 2, 10, True, 0, 4507),
+    (32, 4, 10, False, 0, 4507), (32, 4, 10, True, 0, 4507),
+    (64, 2, 10, False, 19, 4507), (64, 2, 10, True, 71, 4507),
+    (64, 2, 20, True, 20, 4075), (64, 2, 52, True, 71, 4509),
+    (64, 2, 64, True, 20, 4075), (64, 2, 40, True, 0, 4507),
+    (32, 4, 47, True, 0, 4507), (128, 1, 64, True, 0, 4507),
+    (64, 2, 17, True, 20, 4075), (64, 2, 17, True, 71, 4509),
+    (64, 2, 17, True, 0, 4507), (64, 2, 20, True, 71, 4509),
+    (64, 2, 20, True, 0, 4507), (64, 2, 24, True, 20, 4075),
+    (64, 2, 24, True, 71, 4509), (64, 2, 24, True, 0, 4507),
+    (64, 2, 28, True, 20, 4075), (64, 2, 28, True, 71, 4509),
+    (64, 2, 28, True, 0, 4507), (64, 2, 32, True, 20, 4075),
+    (64, 2, 32, True, 71, 4509), (64, 2, 32, True, 0, 4507),
+    (64, 2, 33, True, 71, 4509), (64, 2, 35, True, 20, 4075),
+    (64, 2, 35, True, 71, 4509), (64, 2, 35, True, 0, 4507),
+    (64, 2, 39, True, 0, 4507), (32, 4, 20, True, 71, 4509),
+    (32, 4, 28, True, 71, 4509))
+
+
 def codes_turns(torch, lib, libs):
     """The codes instances (block_scan_wg.cu, CODES) of the built library
-    and of each wgc_* variant in turns (built, variant, variant, built; 10
-    launches a turn), on `random_codes_inputs` at the code domain's window
-    (s_eff 1024, 4,507 blocks, each block's live probers drawn uniformly
-    from 1-128, or its first n of 128 live): PQ64 exact and pack32 k_pair
-    10 and pack32 k_pair 20 (the pqr3_codes k = 10 base scan at n_probe
-    8), the 4-bit byte pairs (m 32, dsub 4) exact and pack32 k_pair 10;
-    PQ64 exact at 19 live probers a block (the code domain's n_probe 8
-    search: 15% of rows live) and pack32 at 71 (n_probe 32: 55%)."""
+    on CODES_ROWS: each deep row first bit for bit against codes_scan_ref
+    on integer inputs (`integer_codes_inputs`, 256 blocks; live rows, pad
+    rows dead); then on random codes in turns (built, the others, ...,
+    built; 10 launches a turn) with each wgc_* variant and, with --parent,
+    the parent tree's codes instance of the same select (block_scan_wg.cu)
+    and its mma.sync sorted codes_scan_tc.cu, where they take the row,
+    each with its share of live keys equal to the built instance's."""
+    from torchpq_tpu_torch.ops import block_scan as bs
     from torchpq_tpu_torch.ops import codes_scan as cods
     stream = torch.cuda.current_stream().cuda_stream
-    for m, dsub, k_pair, pack32, n_live in (
-            (64, 2, 10, False, 0), (64, 2, 10, True, 0),
-            (64, 2, 20, True, 0), (32, 4, 10, False, 0),
-            (32, 4, 10, True, 0), (64, 2, 10, False, 19),
-            (64, 2, 10, True, 71)):
-        args = cods.random_codes_inputs("cuda", s_eff=1024, n_blocks=4507,
-                                        nq=10000, m=m, dsub=dsub,
-                                        cap_total=1 << 21, seed=5)
-        if n_live:
-            args[1][:, n_live:] = -1
+    for m, dsub, k_pair, pack32, n_live, blocks in CODES_ROWS:
         kw = dict(s_eff=1024, k_pair=k_pair, euclidean=True, pack32=pack32,
                   slot_mask=1023)
         route = cods.pick_route(m=m, dsub=dsub, p_tile=128, s_eff=1024,
                                 k_pair=k_pair, pack32=pack32)
+        what = (f"codes m={m} dsub={dsub} {route} k_pair={k_pair} "
+                f"(ring {cods.wg_ring(pack32, k_pair)})"
+                f"{f' ({n_live} live)' if n_live else ''}")
+        if pack32 and k_pair > 16:
+            args = cods.integer_codes_inputs(
+                "cuda", s_eff=1024, n_blocks=256, nq=10000, m=m, dsub=dsub,
+                cap_total=1 << 18, seed=m + k_pair)
+            got = cods.launch(lib, stream, *args, route=route, **kw)
+            torch.cuda.synchronize()
+            ref = cods.codes_scan_ref(*args, **kw)
+            live = args[1] >= 0
+            if not torch.equal(got[live], ref[live]) or not cs.dead_rows(
+                    torch, bs, got, args[1], k_pair, pack32):
+                cs.fail(f"{what}: the built instance differs from "
+                        f"codes_scan_ref on integer inputs "
+                        f"({cs.share_equal(got[live], ref[live]):.6f} of live "
+                        "entries equal) or writes pad rows alive")
+            print(f"{what}: integer inputs bit for bit against "
+                  "codes_scan_ref (live rows; pad rows dead)", flush=True)
+            del args, got, ref
+        args = cods.random_codes_inputs("cuda", s_eff=1024, n_blocks=blocks,
+                                        nq=10000, m=m, dsub=dsub,
+                                        cap_total=1 << 21, seed=5)
+        if n_live:
+            args[1][:, n_live:] = -1
+        live = args[1] >= 0
+        outs = {"built": cods.launch(lib, stream, *args, route=route, **kw)}
         fns = {"built": lambda: cods.launch(lib, stream, *args, route=route,
                                             **kw)}
+        for kind, entry in (("wg", "torchpq_codes_scan_wg"),
+                            ("codes", "torchpq_codes_scan_tc")):
+            plib = cs.PARENT.get(kind)
+            if plib is None or not hasattr(plib, entry):
+                continue
+            launch, out = cs.codes_launch_fn(torch, bs, plib, entry, args, kw)
+            if launch is None or launch() != 0:
+                print(f"{what}: the parent's {entry} does not take the row",
+                      flush=True)
+                continue
+            fns["parent_" + kind], outs["parent_" + kind] = launch, out
         for name, vlib in libs.items():
-            if name.startswith("wgc_"):
-                fns[name] = (lambda v: lambda: cods.launch(
-                    v, stream, *args, route=route, **kw))(vlib)
+            if not name.startswith("wgc_"):
+                continue
+            try:
+                outs[name] = cods.launch(vlib, stream, *args, route=route,
+                                         **kw)
+            except ValueError as e:  # its shared memory exceeds the limit
+                print(f"{what}: {name} refuses the row: {e}", flush=True)
+                continue
+            fns[name] = (lambda v: lambda: cods.launch(
+                v, stream, *args, route=route, **kw))(vlib)
+        torch.cuda.synchronize()
+        for name, out in outs.items():
+            if name != "built":
+                print(f"{what}: {name} live keys equal to the built "
+                      f"instance's {cs.share_equal(out[live], outs['built'][live]):.6f}",
+                      flush=True)
         t, turns = cs.in_turns(torch, fns, 10)
-        print(f"codes m={m} dsub={dsub} {route} k_pair={k_pair}"
-              f"{f' ({n_live} live)' if n_live else ''}: " + ", ".join(
+        print(f"{what}: " + ", ".join(
             f"{n} {t[n]:.3f} ms {[round(x, 3) for x in turns[n]]}"
             for n in fns), flush=True)
-        del args
+        del args, outs, fns
 
 
 # the deep pack32 rows (k_pair 17-64) of PERF.md, and the main path's
@@ -419,9 +499,10 @@ def main():
                     "turns with --parent's and the variants (deep_turns) "
                     "and stop")
     ap.add_argument("--parent", default=None,
-                    help="with --deep: a checkout of the parent tree, whose "
-                    "block_scan_wg.cu and block_scan_tc.cu are built and "
-                    "timed in turns")
+                    help="with --deep or --codes: a checkout of the parent "
+                    "tree, whose block_scan_wg.cu, block_scan_tc.cu and "
+                    "codes_scan_tc.cu (those it holds) are built and timed "
+                    "in turns")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is false: this run needs a card")
@@ -447,6 +528,8 @@ def main():
         narrow_turns(torch, bs, lib, libs)
         return
     if opts.codes:
+        if opts.parent:
+            cs.build_parent(_build, opts.parent)
         codes_turns(torch, lib, libs)
         return
     base, query = cs.make_data(1_000_000, 10_000, 960, seed=1)

@@ -354,51 +354,25 @@ def _header_constants(header=_HEADER):
     return env
 
 
-def _header_smem(c, rb, pack32, k_pair, one_tile=False):
-    """scan_tc.cuh:body_smem_bytes transcribed over the header's own
-    constants: tiles [2][TN][row_ld] (one_tile: one of them), penalties and
-    slots, prober rows, tile flags, the slice lists, then pack32's
-    running lists or exact's staging rows, row bounds and queues; the
-    lists' rows of list_ld entries (pack32: k_pair made odd)."""
-    ld = (rb + 31) // 32 * 32 + 16
-    kls = k_pair + (1 - k_pair % 2) if pack32 else k_pair
-    return ((1 if one_tile else 2) * c["TN"] * ld + 16 * c["TN"]
-            + 4 * c["MAX_PT"] + 4 * (c["MAX_PT"] // 16)
-            + c["WARPS"] * 16 * kls * (4 if pack32 else 8)
-            + (2 * c["MAX_PT"] * kls * 4 if pack32 else
-               c["WARPS"] * 16 * (c["SLD"] + 1) * 4
-               + c["QUEUE"] * c["THREADS"] * 8))
-
-
-@pytest.mark.parametrize("pack32", [False, True])
-@pytest.mark.parametrize("one_tile", [False, True])
-def test_smem_mirror_equals_header(pack32, one_tile):
-    """ops/block_scan.py:tc_smem_bytes, which pick_route reads without the
-    library, equals the header's formula over rows of 16 to 256 bytes (the
-    mma.sync body's rows, whole in registers) and k_pair 1 to 64, with two
-    tiles and with one (the deep codes instance) (the card test holds the
-    codes entry point's sizes to it too); the header's constants are the
-    mirror's and its rows end at 256 bytes (wider ones are
-    block_scan_wg.cu's, whose limits wg_layout.cuh holds); and the limit
-    admits pack32 k_pair 64 at d 128."""
+def test_header_constants_mirror():
+    """The select helpers' constants of csrc/scan_tc.cuh (consumer warps,
+    tile columns, probers a block, staging stride, queue, the lists' largest
+    k_pair) are ops/block_scan.py's _TC_* mirrors; the header keeps no row
+    widths or chunks of a scan body of its own (the rows are
+    block_scan_wg.cu's, whose limits wg_layout.cuh holds, with the shared
+    memory limit)."""
     c = _header_constants()
     assert (c["WARPS"], c["TN"], c["MAX_PT"], c["SLD"], c["QUEUE"],
-            c["MAX_PACK_K"], c["MAX_ROW"], c["MAX_EXACT_K"]) == (
+            c["MAX_PACK_K"], c["MAX_EXACT_K"]) == (
         bs._TC_WARPS, bs._TC_TN, bs._TC_MAX_PT, bs._TC_SLD, bs._TC_QUEUE,
-        bs._TC_MAX_PACK_K, bs._TC_MAX_ROW, bs._TC_KMAX)
-    text = _HEADER.read_text()
-    assert "CHUNK" not in c and "MAX_CHUNKED_ROW" not in c
-    limit = re.search(r"SMEM_LIMIT = (\d+);", text)
-    assert int(limit.group(1)) == bs._SMEM_LIMIT
+        bs._TC_MAX_PACK_K, bs._TC_KMAX)
+    assert not {"CHUNK", "MAX_CHUNKED_ROW", "MAX_ROW", "KSTEPS"} & set(c)
     wg = _header_constants(_WG_HEADER)
     assert (wg["MAX_ROW_BF16"], wg["MAX_ROW_I8"]) == (
         bs._WG_MAX_ROW_BF16, bs._WG_MAX_ROW_I8)
-    for rb in (16, 48, 80, 128, 144, 256):
-        for k_pair in (1, 10, 16, 40, 48, 49, 57, 64):
-            assert bs.tc_smem_bytes(rb, pack32, k_pair, one_tile=one_tile) \
-                == _header_smem(c, rb, pack32, k_pair, one_tile)
-    if pack32:
-        assert _header_smem(c, 256, True, 64) <= bs._SMEM_LIMIT
+    limit = re.search(r"constexpr size_t SMEM_LIMIT = (\d+);",
+                      _WG_HEADER.read_text())
+    assert int(limit.group(1)) == bs._SMEM_LIMIT
 
 
 @pytest.mark.parametrize("pack32", [False, True])

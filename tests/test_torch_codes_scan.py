@@ -7,10 +7,9 @@ occur. Here the plain version `codes_scan_ref` is held to the JAX package's
 Pallas codes kernel (interpret mode, through tests/conftest.py) on those
 inputs, bit for bit, keys and addresses, pad rows included (both score them
 with query 0). `pick_route` is checked against the shapes each kernel
-takes (the wgmma codes instances of csrc/block_scan_wg.cu, the mma.sync
-sorted instance of csrc/codes_scan_tc.cu, the CUDA-core codes_scan.cu),
-and its shared-memory mirrors `wg_smem_bytes` and `tc_smem_bytes` against
-their terms and the limit."""
+takes (the wgmma codes instances of csrc/block_scan_wg.cu, the CUDA-core
+codes_scan.cu), and its shared-memory mirror `wg_smem_bytes` against its
+terms and the limit."""
 
 import numpy as np
 import pytest
@@ -85,17 +84,17 @@ def test_integer_inputs_layout():
     (dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=20, pack32=True),
      "tc_wgn_pack32"),  # pqr3_codes k = 10 at n_probe 8: four stages
     (dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=35, pack32=True),
-     "tc_wgn_pack32"),  # the largest that fits at d = 128: 231,536 B
+     "tc_wgn_pack32"),  # the deep select: 212,320 B
     (dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=36, pack32=True),
-     "tc_pack32"),      # 234,608 B: the sorted mma.sync instance
+     "tc_wgn_pack32"),  # 213,344 B (passes on four stages: 234,608 B)
     (dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=40, pack32=True),
-     "tc_pack32"),     # G = 512
+     "tc_wgn_pack32"),  # G = 512: 215,392 B
     (dict(m=64, dsub=2, p_tile=128, s_eff=512, k_pair=40, pack32=True),
-     "tc_pack32"),     # G = 256
+     "tc_wgn_pack32"),  # G = 256
     (dict(m=8, dsub=4, p_tile=128, s_eff=1024, k_pair=48, pack32=True),
-     "tc_wgn_pack32"),  # d = 32: the codebook leaves room
+     "tc_wgn_pack32"),  # d = 32
     (dict(m=8, dsub=4, p_tile=128, s_eff=1024, k_pair=49, pack32=True),
-     "tc_pack32"),     # above CODES_DEEP_K
+     "tc_wgn_pack32"),  # above the passes instance's old 48
     (dict(m=8, dsub=4, p_tile=128, s_eff=96, k_pair=10, pack32=True),
      "tc_wgn_pack32"),  # G = s_eff, one tile
     (dict(m=128, dsub=1, p_tile=128, s_eff=8192, k_pair=16, pack32=False),
@@ -119,19 +118,37 @@ def test_integer_inputs_layout():
     (dict(m=16, dsub=2, p_tile=128, s_eff=200, k_pair=10, pack32=False),
      "tc_wgn_exact"),
     (dict(m=64, dsub=2, p_tile=128, s_eff=4096, k_pair=48, pack32=True),
-     "tc_pack32"),     # G = 512 at k_pair 48
+     "tc_wgn_pack32"),  # G = 512 at k_pair 48
     (dict(m=64, dsub=2, p_tile=128, s_eff=4096, k_pair=64, pack32=True),
-     "tc_pack32"),     # the sorted instance, one tile: 210,976 B
+     "tc_wgn_pack32"),  # 8 tiles a phase, three stages: 227,680 B
     (dict(m=64, dsub=2, p_tile=128, s_eff=512, k_pair=49, pack32=True),
-     "tc_pack32"),     # G = 256
+     "tc_wgn_pack32"),  # G = 256
     (dict(m=8, dsub=4, p_tile=128, s_eff=512, k_pair=57, pack32=True),
-     "tc_pack32"),     # d = 32: 130,080 B
+     "tc_wgn_pack32"),  # d = 32: 167,264 B
     (dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=52, pack32=True),
-     "tc_pack32"),     # IVFPQR code domain, k = 100 at n_probe 32
+     "tc_wgn_pack32"),  # IVFPQR code domain, k = 100 at n_probe 32
     (dict(m=32, dsub=4, p_tile=128, s_eff=1024, k_pair=64, pack32=True),
-     "tc_pack32"),     # 4-bit byte pairs: 206,880 B
+     "tc_wgn_pack32"),  # 4-bit byte pairs: 223,584 B
     (dict(m=128, dsub=1, p_tile=128, s_eff=1024, k_pair=64, pack32=True),
-     "tc_pack32"),     # PQ128: the ring of 16 KB, 219,168 B
+     "tc_wgn_pack32"),  # PQ128: 227,680 B
+    # the deep select on three stages at k_pair 39 / 40 (four would fit at
+    # 39, 231,792 B, and not at 40, 232,816 B), 52 and 64, d = 128
+    (dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=39, pack32=True),
+     "tc_wgn_pack32"),
+    (dict(m=128, dsub=1, p_tile=128, s_eff=1024, k_pair=39, pack32=True),
+     "tc_wgn_pack32"),
+    (dict(m=128, dsub=1, p_tile=128, s_eff=1024, k_pair=40, pack32=True),
+     "tc_wgn_pack32"),
+    (dict(m=32, dsub=4, p_tile=128, s_eff=1024, k_pair=39, pack32=True),
+     "tc_wgn_pack32"),
+    (dict(m=32, dsub=4, p_tile=128, s_eff=1024, k_pair=40, pack32=True),
+     "tc_wgn_pack32"),
+    (dict(m=128, dsub=1, p_tile=128, s_eff=1024, k_pair=52, pack32=True),
+     "tc_wgn_pack32"),
+    (dict(m=32, dsub=4, p_tile=128, s_eff=1024, k_pair=52, pack32=True),
+     "tc_wgn_pack32"),
+    (dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=64, pack32=True),
+     "tc_wgn_pack32"),  # IVFPQR code domain, k = 100 at n_probe 8
     (dict(m=32, dsub=5, p_tile=128, s_eff=1024, k_pair=64, pack32=True),
      "pack32"),        # d = 160 > 128
     (dict(m=16, dsub=16, p_tile=128, s_eff=1024, k_pair=52, pack32=True),
@@ -147,8 +164,9 @@ def test_pick_route(shape, route):
 def test_launch_refuses_a_route_that_does_not_fit():
     """launch() checks the route against pick_route before anything runs:
     the tensor-core route for exact k_pair 20, a route of the other select,
-    the mma.sync sorted route where the wgmma one serves, and the wgmma
-    route for query rows that are not 16-byte aligned."""
+    the mma.sync sorted key no route serves any more ("tc_pack32", whose
+    kernel went), and the wgmma route for query rows that are not 16-byte
+    aligned."""
     args = _integer_case(m=64, dsub=2, s_eff=256, seed=1)
     kw = dict(s_eff=256, k_pair=20, euclidean=True, pack32=False,
               slot_mask=255)
@@ -158,9 +176,9 @@ def test_launch_refuses_a_route_that_does_not_fit():
         cs.launch(None, 0, *args, route="tc_pack32", **kw)
     with pytest.raises(ValueError, match="select"):
         cs.launch(None, 0, *args, route="tc_exact", **dict(kw, k_pair=10))
-    with pytest.raises(ValueError, match="tc_pack32"):
+    with pytest.raises(ValueError, match="'tc_pack32' does not serve"):
         cs.launch(None, 0, *args, route="tc_pack32",
-                  **dict(kw, k_pair=10, pack32=True))
+                  **dict(kw, k_pair=52, pack32=True))
     qt = args[0]
     shifted = torch.empty(qt.numel() + 1, dtype=qt.dtype)[1:].view(qt.shape)
     shifted.copy_(qt)
@@ -171,47 +189,26 @@ def test_launch_refuses_a_route_that_does_not_fit():
 
 
 def _codes_constants():
-    """CODES_DEEP_K and CRING_* of csrc/wg_layout.cuh, TN of
-    csrc/scan_tc.cuh."""
+    """CRING_*, CQB, CODES_PASS_K and PASS_CHUNKS of csrc/wg_layout.cuh."""
     import re
     from pathlib import Path
     csrc = Path(cs.__file__).resolve().parents[1] / "csrc"
     layout = (csrc / "wg_layout.cuh").read_text()
-    found = {name: int(re.search(rf"constexpr int {name} = (\d+);",
-                                 layout).group(1))
-             for name in ("CODES_DEEP_K", "CRING_EXACT", "CRING_PACK_16",
-                          "CRING_PACK", "CQB", "PASS_CHUNKS")}
-    tn = re.search(r"constexpr int TN = (\d+);",
-                   (csrc / "scan_tc.cuh").read_text())
-    return found, int(tn.group(1))
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                layout).group(1))
+            for name in ("CRING_EXACT", "CRING_PACK_16", "CRING_PACK",
+                         "CRING_DEEP", "CQB", "CODES_PASS_K", "PASS_CHUNKS")}
 
 
 def test_codes_constants_mirror_the_header():
-    """The codes instances' constants of csrc/wg_layout.cuh (the largest
-    pack32 k_pair, the ring stages by select, one query buffer, a pass's
-    chunks) are ops/codes_scan.py's."""
-    found, _ = _codes_constants()
-    assert found == dict(CODES_DEEP_K=cs._WG_CODES_DEEP_K,
-                         CRING_EXACT=cs._WG_CRING_EXACT,
-                         CRING_PACK_16=cs._WG_CRING_PACK_16,
-                         CRING_PACK=cs._WG_CRING_PACK, CQB=cs._WG_CQB,
-                         PASS_CHUNKS=cs._WG_PASS_CHUNKS)
-
-
-@pytest.mark.parametrize("m,dsub", [(64, 2), (32, 4), (128, 1), (8, 4),
-                                    (8, 5)])
-def test_tc_smem_mirror_terms(m, dsub):
-    """ops/codes_scan.py:tc_smem_bytes, which pick_route reads without the
-    library (the card test holds the library's sizes to it), term for term:
-    the mma.sync sorted instance's 512 * d-byte codebook and raw codes'
-    ring [TN][m] beside the body with one decoded tile."""
-    _, tn = _codes_constants()
-    d = m * dsub
-    tile = tn * ((2 * d + 31) // 32 * 32 + 16)
-    for k_pair in (17, 20, 36, 40, 48, 49, 52, 57, 64):
-        body = block_scan.tc_smem_bytes(2 * d, True, k_pair)
-        assert cs.tc_smem_bytes(m=m, dsub=dsub, k_pair=k_pair) \
-            == 512 * d + tn * m + body - tile
+    """The codes instances' constants of csrc/wg_layout.cuh (the ring
+    stages by select, one query buffer, the deepest pack32 k_pair
+    extracted pass by pass, a pass's chunks) are ops/codes_scan.py's."""
+    assert _codes_constants() == dict(
+        CRING_EXACT=cs._WG_CRING_EXACT, CRING_PACK_16=cs._WG_CRING_PACK_16,
+        CRING_PACK=cs._WG_CRING_PACK, CRING_DEEP=cs._WG_CRING_DEEP,
+        CQB=cs._WG_CQB, CODES_PASS_K=cs._WG_CODES_PASS_K,
+        PASS_CHUNKS=cs._WG_PASS_CHUNKS)
 
 
 @pytest.mark.parametrize("m,dsub", [(64, 2), (32, 4), (128, 1), (8, 4),
@@ -222,44 +219,31 @@ def test_wg_smem_mirror_terms(m, dsub):
     a 16,384-byte k half with its 128 penalties (pack32: and slots) and two
     barriers, the 512 * d-byte codebook, the raw slot of 128 columns x 8 *
     min(m / 8, 8) bytes, prober rows and tile flags (544), the select's
-    arrays; the rings are 3 (exact), 5 (pack32 k_pair <= 16) and 4."""
-    found, _ = _codes_constants()
+    arrays (pass by pass: the slice and running lists; above pack32
+    k_pair 32 the deep select's staging rows, one list a row and counts);
+    the rings are 3 (exact), 5 (pack32 k_pair <= 16), 4 (17-32) and 3
+    (the deep select)."""
+    found = _codes_constants()
+    assert found["CODES_PASS_K"] == 32
     for pack32, k_pair in ((0, 1), (0, 10), (0, 16), (1, 1), (1, 10),
-                           (1, 16), (1, 17), (1, 20), (1, 35), (1, 48)):
+                           (1, 16), (1, 17), (1, 20), (1, 32), (1, 33),
+                           (1, 35), (1, 40), (1, 48), (1, 52), (1, 64)):
+        stage = 16384 + 512 * (2 if pack32 else 1) + 16
+        deep = pack32 and k_pair > 32
         ring = (found["CRING_EXACT"] if not pack32 else
                 found["CRING_PACK_16"] if k_pair <= 16 else
-                found["CRING_PACK"])
-        stage = 16384 + 512 * (2 if pack32 else 1) + 16
+                found["CRING_DEEP"] if deep else found["CRING_PACK"])
+        select = (4 * (8 * 8 * 129 + 128 * ((k_pair | 1) + 2)) if deep
+                  else block_scan._wg_list_bytes(pack32, k_pair))
         want = (1024 + (32768 + 16) + ring * stage + 512 * m * dsub
-                + 128 * 8 * min(m // 8, 8) + 544
-                + block_scan._wg_list_bytes(pack32, k_pair))
+                + 128 * 8 * min(m // 8, 8) + 544 + select)
+        assert cs.wg_ring(pack32, k_pair) == ring, (pack32, k_pair)
         assert cs.wg_smem_bytes(m=m, dsub=dsub, pack32=pack32,
                                 k_pair=k_pair) == want, (pack32, k_pair)
 
 
-def test_tc_route_boundary_reads_the_mirror(monkeypatch):
-    """The sorted instance's sizes at d = 128, k_pair 64 (two decoded tiles
-    beside the codebook and the lists would take 237,600 B there, over the
-    limit), and pick_route's mma.sync boundary sits where the mirror
-    meets the limit: one byte less and the same shape goes to the CUDA
-    cores."""
-    sizes = {(m, dsub): cs.tc_smem_bytes(m=m, dsub=dsub, k_pair=64)
-             for m, dsub in ((64, 2), (32, 4), (128, 1))}
-    assert sizes == {(64, 2): 210976, (32, 4): 206880, (128, 1): 219168}
-    assert cs.tc_smem_bytes(m=64, dsub=2, k_pair=48) == 186400
-    assert 512 * 128 + block_scan.tc_smem_bytes(256, True, 64) \
-        == 237600 > cs._SMEM_LIMIT
-    shape = dict(m=64, dsub=2, p_tile=128, s_eff=1024, k_pair=64,
-                 pack32=True)
-    monkeypatch.setattr(cs, "_SMEM_LIMIT", 210976)
-    assert cs.pick_route(**shape) == "tc_pack32"
-    monkeypatch.setattr(cs, "_SMEM_LIMIT", 210975)
-    assert cs.pick_route(**shape) == "pack32"
-    assert cs.pick_route(**dict(shape, k_pair=52)) == "tc_pack32"
-
-
 @pytest.mark.parametrize("shape,nbytes,over", [
-    (dict(m=64, dsub=2, k_pair=35, pack32=True), 231536, "tc_pack32"),
+    (dict(m=64, dsub=2, k_pair=64, pack32=True), 227680, "pack32"),
     (dict(m=128, dsub=1, k_pair=16, pack32=False), 224864, "exact"),
     (dict(m=64, dsub=2, k_pair=10, pack32=False), 218720, "exact"),
     (dict(m=32, dsub=4, k_pair=16, pack32=True), 217216, "pack32"),
@@ -268,8 +252,8 @@ def test_wg_route_boundary_reads_the_mirror(monkeypatch, shape, nbytes,
                                             over):
     """pick_route's wgmma boundary sits where wg_smem_bytes meets the
     limit: at the instance's size the shape takes the wgmma codes route,
-    one byte less and it goes to the next route (the sorted mma.sync
-    instance for pack32 above k_pair 16, else the CUDA cores)."""
+    one byte less and it goes to the CUDA cores (the deep select of pack32
+    k_pair 64 at PQ64 already on its three stages)."""
     assert cs.wg_smem_bytes(**shape) == nbytes
     full = dict(shape, p_tile=128, s_eff=1024)
     mode = "pack32" if shape["pack32"] else "exact"

@@ -19,7 +19,8 @@ adversarial keys whose every phase's maxima all survive (an ascending
 window), rows with fewer live groups than k_pair, phases whose maxima all
 fall below the bound (a descending window), dead rows in every case. Then
 the shared-memory formulas of the deep instances (csrc/wg_layout.cuh)
-against ops/block_scan.py's mirror at every deep k_pair and both dtypes."""
+against ops/block_scan.py's mirror at every deep k_pair and both dtypes,
+and those of the deep codes instances against ops/codes_scan.py's."""
 
 import shutil
 import subprocess
@@ -28,6 +29,7 @@ import numpy as np
 import pytest
 
 from torchpq_tpu_torch.ops import block_scan as bs
+from torchpq_tpu_torch.ops import codes_scan as cs
 
 from pathlib import Path
 
@@ -387,3 +389,53 @@ def test_deep_smem_mirror_equals_header(tmp_path_factory):
     assert one == 4 * (8 * 8 * 129 + 128 + 2 * 128)
     assert chunked1 == bs.wg_smem_bytes(True, 64) - 4 * 128 * (65 - 1)
     assert narrow1 == bs.wg_smem_bytes(True, 64, 128) - 4 * 128 * (65 - 1)
+
+
+_CODES_SMEM = r"""
+#include <cstdio>
+#include <cstdlib>
+
+#include "wg_layout.cuh"
+
+using namespace tpq::wg;
+
+int main(int argc, char** argv) {
+  const int m = std::atoi(argv[1]), dsub = std::atoi(argv[2]);
+  for (int k_pair = 17; k_pair <= 64; ++k_pair) {
+    std::printf("%d %zu %d %d %zu\n", k_pair,
+                codes_smem_bytes(m, dsub, 1, k_pair),
+                codes_ring_of(1, k_pair), CODES_PASS_K,
+                k_pair > CODES_PASS_K ? select_bytes(1, k_pair)
+                                      : list_bytes(1, k_pair));
+  }
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("m,dsub", [(64, 2), (128, 1), (32, 4)])
+def test_deep_codes_smem_mirror_equals_header(tmp_path_factory, m, dsub):
+    """csrc/wg_layout.cuh's shared memory of the codes instances above
+    pack32 k_pair 16 (block_scan_wg.cu's codes instances: pass by pass on
+    four ring stages up to CODES_PASS_K = 32, where a phase holds every
+    group (G = 128); above it the deep select on three, its arrays
+    deep_select.cuh:select_bytes beside the codebook and the raw slot) and
+    their ring stages equal ops/codes_scan.py's mirror (wg_smem_bytes,
+    wg_ring) at every such k_pair, at d = 128 (PQ64, PQ128 and the 4-bit
+    byte pairs), every shape within the limit; the deep select's arrays
+    are the warps' staging rows, one list a row and the counts."""
+    exe = _compile(tmp_path_factory, f"codes_smem_{m}", _CODES_SMEM)
+    lines = subprocess.run([str(exe), str(m), str(dsub)], check=True,
+                           capture_output=True, text=True).stdout.splitlines()
+    assert len(lines) == 48
+    for line in lines:
+        k, nbytes, ring, pass_k, sel = map(int, line.split())
+        assert pass_k == cs._WG_CODES_PASS_K == 32
+        assert cs.wg_smem_bytes(m=m, dsub=dsub, pack32=True,
+                                k_pair=k) == nbytes, k
+        assert cs.wg_ring(True, k) == ring == (4 if k <= 32 else 3), k
+        assert nbytes <= cs._SMEM_LIMIT
+        if k > 32:
+            assert sel == 4 * (8 * 8 * 129 + 128 * (k | 1) + 2 * 128)
+        else:
+            assert sel == bs._wg_list_bytes(True, k)

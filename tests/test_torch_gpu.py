@@ -722,14 +722,14 @@ def test_wg_smem_matches_mirror(cuda):
     ops/block_scan.py's mirrors (which pick_route reads without the
     library): the warp-specialised scan's wg_smem_bytes, bf16 and int8,
     narrow and k-chunked, at every k_pair (the deep select's above pack32
-    k_pair 16), the codes scan's its own mirrors
+    k_pair 16), the codes scan's its own mirror
     ops/codes_scan.py:wg_smem_bytes (the wgmma codes instances: the
     codebook, the raw slot and the query buffer beside the ring and the
-    lists) and tc_smem_bytes (the mma.sync sorted instance: the codebook,
-    the raw codes' ring and one tile beside the body); every routed shape
-    within the limit; and the mma.sync codes entry point launches at
-    pack32 k_pair 64, d = 128, equal to the plain version on integer
-    inputs, and refuses the exact select."""
+    lists, the deep select's above CODES_PASS_K) at every k_pair it
+    serves; every routed shape within the limit; and the codes entry point
+    launches its deep instance at pack32 k_pair 64, d = 128 (three ring
+    stages, 227,680 B), equal to the plain version on integer inputs, and
+    refuses exact k_pair 17."""
     from torchpq_tpu_torch import _build
     lib = _build.library()
     for d in (32, 40, 64, 128, 136, 1024):
@@ -745,20 +745,21 @@ def test_wg_smem_matches_mirror(cuda):
                         d, pack32, k_pair) == bs.wg_smem_bytes(
                             pack32, k_pair, d, torch.int8)
     for m, dsub in ((8, 4), (8, 5), (16, 4), (64, 2), (32, 4), (128, 1)):
-        for k_pair in (17, 40, 48, 49, 52, 57, 64):
-            assert lib.torchpq_codes_scan_tc_smem(m, dsub, 1, k_pair) \
-                == cs.tc_smem_bytes(m=m, dsub=dsub, k_pair=k_pair)
         for pack32 in (0, 1):
-            for k_pair in (1, 10, 16, 20, 35, 48):
+            for k_pair in (1, 10, 16, 17, 20, 32, 33, 35, 36, 40, 48, 49,
+                           52, 57, 64):
                 if not pack32 and k_pair > 16:
                     continue
+                want = cs.wg_smem_bytes(m=m, dsub=dsub, pack32=pack32,
+                                        k_pair=k_pair)
                 assert lib.torchpq_codes_scan_wg_smem(
-                    m, dsub, pack32, k_pair) == cs.wg_smem_bytes(
-                        m=m, dsub=dsub, pack32=pack32, k_pair=k_pair)
+                    m, dsub, pack32, k_pair) == want
+                assert want <= cs._SMEM_LIMIT
+    assert cs.wg_smem_bytes(m=64, dsub=2, pack32=1, k_pair=64) == 227680
     out = torch.empty((4, 128, 64), dtype=torch.int32, device=cuda)
     cargs = cs.integer_codes_inputs(cuda, s_eff=1024, n_blocks=4, nq=50,
                                     m=64, dsub=2, cap_total=4096)
-    rc = lib.torchpq_codes_scan_tc(
+    rc = lib.torchpq_codes_scan_wg(
         *(t.data_ptr() for t in cargs[:6]), cargs[6].data_ptr(),
         cargs[7].data_ptr(), out.data_ptr(), 4, 128, 64, 2,
         cargs[6].shape[1] // 64, 1024, 64, 1, 1, 1023, 512, 4,
@@ -770,10 +771,10 @@ def test_wg_smem_matches_mirror(cuda):
     live = cargs[1] >= 0
     assert torch.equal(out[live], ref[live])
     assert bool((out[~live] == torch.iinfo(torch.int32).min).all())
-    assert lib.torchpq_codes_scan_tc(
+    assert lib.torchpq_codes_scan_wg(
         *(t.data_ptr() for t in cargs[:6]), cargs[6].data_ptr(),
         cargs[7].data_ptr(), out.data_ptr(), 4, 128, 64, 2,
-        cargs[6].shape[1] // 64, 1024, 10, 1, 0, 1023, 0, 4,
+        cargs[6].shape[1] // 64, 1024, 17, 1, 0, 1023, 0, 4,
         torch.cuda.current_stream().cuda_stream) != 0
 
 
@@ -1059,14 +1060,12 @@ def _assert_pads(got, ref, probers, route, k_pair, pack32):
 
 def _codes_route_family(m, dsub, k_pair, pack32):
     """The codes route these test shapes take: the wgmma codes instances
-    for exact k_pair <= 16 and pack32 up to k_pair 20 (and to 40 below
-    d = 128), the sorted mma.sync instance for the deeper pack32 selects, the
-    CUDA cores for exact above 16 (test_pick_route pins the boundaries)."""
+    for exact k_pair <= 16 and every pack32 k_pair (above CODES_PASS_K the
+    deep select), the CUDA cores for exact above 16 (test_pick_route pins
+    the boundaries)."""
     if not pack32:
         return "tc_wgn_exact" if k_pair <= 16 else "exact"
-    if k_pair <= 20 or (k_pair <= 40 and m * dsub < 128):
-        return "tc_wgn_pack32"
-    return "tc_pack32"
+    return "tc_wgn_pack32"
 
 
 @pytest.mark.gpu
@@ -1080,10 +1079,10 @@ def test_codes_kernel_matches_plain(cuda, pack32, m, dsub, s_eff, k_pair):
     ragged second k half), g = 1 (d=128, PQ128: the raw codes in two
     passes) and g = 4 (d=128, 4-bit PQ64: 32 byte pairs over the byte-pair
     codebook) on random inputs, through the kernel pick_route names (the
-    wgmma codes instances, exact k_pair <= 16 and pack32 up to 20, below
-    d = 128 to 40; exact k_pair 20 to 64: the CUDA-core one; the deeper
-    pack32 selects, over 512 strided groups at s_eff 1024 and 8192: the
-    sorted mma.sync instance). Live rows: the tensor cores sum in another
+    wgmma codes instances, exact k_pair <= 16 and every pack32 k_pair, the
+    deeper ones over 512 strided groups at s_eff 1024 and 8192 by the deep
+    select; exact k_pair 20 to 64: the CUDA-core one). Live rows: the
+    tensor cores sum in another
     order than the plain version's GEMM (bf16 products are exact in f32),
     so exact values agree to 1e-3 relative and addresses and pack32 keys
     on >= 0.99 of entries; pad rows as _assert_pads."""
@@ -1122,10 +1121,10 @@ def test_codes_tc_kernel_integer_ties_exact(cuda, pack32, m, dsub, s_eff,
     """Integer-valued inputs with runs of equal codes: every sum is exact
     in any order, so the tensor-core kernels equal the plain version bit
     for bit on live rows, keys, addresses and pack32 keys, ties included
-    (exact k_pair <= 16 and pack32 to 20, below d = 128 to 40: the wgmma
-    codes instances, d = 72 and 80 a ragged second k half; the deeper pack32
-    selects: the sorted mma.sync instance; exact k_pair 20 to 64 runs on
-    the CUDA-core kernel, equal there too)."""
+    (exact k_pair <= 16 and every pack32 k_pair: the wgmma codes
+    instances, the deep select above CODES_PASS_K, d = 72 and 80 a ragged
+    second k half; exact k_pair 20 to 64 runs on the CUDA-core kernel,
+    equal there too)."""
     args = cs.integer_codes_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
                                    m=m, dsub=dsub,
                                    cap_total=max(8192, 2 * s_eff), seed=m)
@@ -1155,7 +1154,8 @@ def test_codes_tc_kernel_persistent_grid(cuda, pack32, k_pair, m, dsub,
     blocks, so the state it resets between blocks (live-tile rows, the
     pack32 phase parity of deep G = 512, the exact lists and queues; the
     wgmma instances' ring stages, barrier phases, query buffer and raw
-    slot; the sorted instance's codes ring and one tile) is reused.
+    slot; the deep select's running lists, staging rows and counts) is
+    reused.
     Integer inputs: live rows equal the plain version bit for bit, pad
     rows dead."""
     from torchpq_tpu_torch import _build
@@ -1175,19 +1175,88 @@ def test_codes_tc_kernel_persistent_grid(cuda, pack32, k_pair, m, dsub,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,dsub", [(64, 2), (128, 1), (32, 4)])
+@pytest.mark.parametrize("s_eff", [256, 512, 1024])
+@pytest.mark.parametrize("k_pair", [17, 33, 40, 52, 64])
+def test_codes_deep_select_matches_plain(cuda, m, dsub, s_eff, k_pair):
+    """The codes instances' pack32 selects above k_pair 16: pass by pass up
+    to CODES_PASS_K = 32 (k_pair 17: G = 128, one phase, at every s_eff),
+    the deep select (csrc/deep_select.cuh) above it over G = 128 (s_eff
+    256), 256 (s_eff 512) and 512 (s_eff 1024) strided groups: one, two and
+    four phases, at PQ64, PQ128 (two raw passes) and the 4-bit byte pairs,
+    d = 128.
+    Integer inputs with runs of equal codes: live rows equal
+    codes_scan_ref bit for bit, pad rows dead; random inputs: keys equal
+    on >= 0.99 of live entries (only the f32 sums' order differs)."""
+    groups = bs.n_groups(s_eff, k_pair)
+    assert groups == (128 if k_pair <= 32 else min(s_eff // 2, 512))
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=True,
+              slot_mask=s_eff - 1)
+    for make in (cs.integer_codes_inputs, cs.random_codes_inputs):
+        args = make(cuda, s_eff=s_eff, n_blocks=64, nq=500, m=m, dsub=dsub,
+                    cap_total=8192, seed=k_pair + s_eff)
+        got, route = _codes_launch(cuda, args, kw)
+        assert route == "tc_wgn_pack32"
+        ref = cs.codes_scan_ref(*args, **kw)
+        _assert_pads(got, ref, args[1], route, k_pair, True)
+        live = args[1] >= 0
+        if make is cs.integer_codes_inputs:
+            assert torch.equal(got[live], ref[live])
+        else:
+            assert (got[live] == ref[live]).float().mean().item() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,dsub,s_eff,k_pair", [(64, 2, 1024, 64),
+                                                 (64, 2, 1024, 52),
+                                                 (128, 1, 512, 40),
+                                                 (32, 4, 256, 64)])
+def test_codes_deep_select_ascending_window(cuda, m, dsub, s_eff, k_pair):
+    """A window whose scores rise along its columns by more than the
+    products span (every block at slot 0, the whole window its cell, the
+    penalty of the slot that column c holds -8192 c): each phase's group
+    maxima lie above every earlier key, so all of them survive the running
+    lists' bounds, every staging row fills and each merge takes the most
+    candidates. Integer sums (|2 <q, y>| <= 2,304 at d = 128; penalties
+    below 2^24): live rows equal codes_scan_ref bit for bit, pad rows
+    dead."""
+    args = cs.integer_codes_inputs(cuda, s_eff=s_eff, n_blocks=64, nq=500,
+                                   m=m, dsub=dsub, cap_total=8192, seed=m)
+    args[2].zero_()
+    args[3].zero_()
+    args[4].fill_(s_eff)
+    cols = torch.arange(s_eff, device=cuda, dtype=torch.float32)
+    slots = cs.column_slots(s_eff, args[6].shape[1] // m, cuda).long()
+    args[5].fill_(cs.BIG)
+    args[5][slots] = -8192.0 * cols
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=True,
+              slot_mask=s_eff - 1)
+    got, route = _codes_launch(cuda, args, kw)
+    assert route == "tc_wgn_pack32"
+    ref = cs.codes_scan_ref(*args, **kw)
+    _assert_pads(got, ref, args[1], route, k_pair, True)
+    live = args[1] >= 0
+    assert torch.equal(got[live], ref[live])
+    # the keys are the window's last k_pair groups' maxima, descending
+    keys = bs.sortable_i32_to_f32(ref[live] & ~(s_eff - 1))
+    assert bool((keys[:, :-1] > keys[:, 1:]).all())
+
+
+@pytest.mark.gpu
 def test_codes_routes_on_card(cuda):
     """Exact k_pair > 16 and rows wider than 128 take the CUDA-core kernel,
     counted under its own key; asking a tensor-core route for them raises.
-    Exact k_pair 10 and pack32 k_pair 20 at d = 128 take the wgmma codes
-    instances, pack32 k_pair 40 and 52 there the sorted mma.sync instance,
-    k_pair 64 at d = 160 the CUDA cores."""
+    Exact k_pair 10 and pack32 k_pair 20, 40 and 52 at d = 128 take the
+    wgmma codes instances (the two deepest the deep select, where the
+    sorted mma.sync codes kernel ran before), k_pair 64 at d = 160 the CUDA
+    cores."""
     from torchpq_tpu_torch import _build
     for m, dsub, k_pair, route in ((64, 2, 20, "exact"),
                                    (32, 5, 10, "exact"),
                                    (64, 2, 10, "tc_wgn_exact"),
                                    (64, 2, 20, "tc_wgn_pack32"),
-                                   (64, 2, 40, "tc_pack32"),
-                                   (64, 2, 52, "tc_pack32"),
+                                   (64, 2, 40, "tc_wgn_pack32"),
+                                   (64, 2, 52, "tc_wgn_pack32"),
                                    (32, 5, 64, "pack32")):
         pack32 = route.endswith("pack32")
         args = cs.random_codes_inputs(cuda, s_eff=512, n_blocks=16, nq=300,

@@ -452,7 +452,7 @@ int main() {
   codes_decode();
   codes_fetch();
   for (int pack32 = 0; pack32 < 2; ++pack32) {
-    for (int k_pair = 1; k_pair <= CODES_DEEP_K; ++k_pair) {
+    for (int k_pair = 1; k_pair <= 64; ++k_pair) {
       if (!pack32 && k_pair > 16) break;
       for (const auto& md : {std::pair<int, int>{64, 2}, {32, 4}, {128, 1},
                              {8, 4}, {8, 5}, {16, 8}}) {
@@ -590,20 +590,19 @@ def test_codes_smem_formula_matches_mirror(harness):
     """csrc/wg_layout.cuh:codes_smem_bytes (the codes instances of
     block_scan_wg.cu) and its ring stages equal ops/codes_scan.py's mirror
     (wg_smem_bytes, wg_ring) at every exact k_pair 1-16 and pack32 k_pair
-    1-48, at PQ64, the 4-bit byte pairs, PQ128, PQ8 and PQ16 of d 32-128;
-    at d = 128 (PQ64) every exact and pack32 k_pair <= 16 fits with its
-    ring, and the next stage would not at the exact k_pair 16 and pack32
-    k_pair 16 instances' largest select."""
+    1-64, at PQ64, the 4-bit byte pairs, PQ128, PQ8 and PQ16 of d 32-128;
+    every shape fits the limit with its ring, and the next stage would not
+    at the exact k_pair 16 and pack32 k_pair 16 instances' largest select
+    at d = 128 (PQ64)."""
     rows = [x.split() for x in harness if x.startswith("codes_smem ")]
-    assert len(rows) == 6 * (16 + 48)
+    assert len(rows) == 6 * (16 + 64)
     for _, m, dsub, pack32, k_pair, nbytes, ring in rows:
         m, dsub, pack32, k_pair = int(m), int(dsub), int(pack32), int(k_pair)
         assert cs.wg_smem_bytes(m=m, dsub=dsub, pack32=pack32,
                                 k_pair=k_pair) == int(nbytes), \
             (m, dsub, pack32, k_pair)
         assert cs.wg_ring(pack32, k_pair) == int(ring)
-        if (m, dsub) == (64, 2) and k_pair <= 16:
-            assert int(nbytes) <= cs._SMEM_LIMIT
+        assert int(nbytes) <= cs._SMEM_LIMIT
     stage = bs._WG_STAGE_BYTES + 4 * bs._WG_BOX_ROWS + 16
     for pack32 in (0, 1):
         got = cs.wg_smem_bytes(m=64, dsub=2, pack32=pack32, k_pair=16)

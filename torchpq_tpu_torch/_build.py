@@ -50,9 +50,6 @@ _SIGNATURES = {
     "torchpq_block_scan_wg_int8_occupancy": ([_I] * 3, _I),
     "torchpq_codes_scan": ([_P] * 9 + [_I] * 12 + [_P], _I),
     "torchpq_codes_scan_smem": ([_I] * 4, _L),
-    "torchpq_codes_scan_tc": ([_P] * 9 + [_I] * 12 + [_P], _I),
-    "torchpq_codes_scan_tc_smem": ([_I] * 4, _L),
-    "torchpq_codes_scan_tc_occupancy": ([_I] * 4, _I),
     "torchpq_codes_scan_wg": ([_P] * 9 + [_I] * 12 + [_P], _I),
     "torchpq_codes_scan_wg_smem": ([_I] * 4, _L),
     "torchpq_codes_scan_wg_occupancy": ([_I] * 4, _I),

@@ -20,9 +20,10 @@
 // steps lost keys at d = 1024). Then the selects of block_scan.cu in its wire
 // format (exact: value descending, slot ascending, k_pair <= 16, through
 // scan_tc.cuh's functions; pack32: one maximal key per strided group of
-// slots, then the k_pair largest, k_pair <= 64: up to k_pair 16 extracted
-// pass by pass, scan_tc.cuh:extract_slice, deeper by deep_select.cuh, see
-// "Deep pack32 selects" below). Rows whose prober is -1 are written dead
+// slots, then the k_pair largest, k_pair <= 64: up to k_pair 16 (codes
+// rows: 32) extracted pass by pass, scan_tc.cuh:extract_slice, deeper by
+// deep_select.cuh, see "Deep pack32 selects" below). Rows whose prober is
+// -1 are written dead
 // (exact: sortable(-inf) keys and -1 addresses; pack32: INT_MIN) and never
 // output.
 //
@@ -201,7 +202,8 @@
 // rows' (deep_select.cuh).
 //
 // Deep pack32 selects (KMAX = ds::MAX_K: pack32 k_pair 17-64, both families
-// and dtypes; deep_select.cuh): the phase ends that pass by pass extraction
+// and dtypes, and the codes rows' 33-64; deep_select.cuh): the phase ends
+// that pass by pass extraction
 // made cost k_pair passes over every group maximum. Each row's running list
 // (one a row, in shared memory) bounds the next phase's maxima; the
 // survivors are staged in shared memory and merged by a warp's bitonic
@@ -230,8 +232,19 @@
 //
 // summed in f32 as the bf16 narrow rows are; pack32 keys carry the
 // column's slot in their low bits, the exact lists hold columns (ties: the
-// first column) and write their slots; pad rows dead. Exact k_pair <= 16,
-// pack32 k_pair <= 48 where codes_smem_bytes fits (deeper: codes_scan_tc.cu).
+// first column) and write their slots; pad rows dead. Exact k_pair <= 16;
+// pack32 k_pair <= 32 pass by pass (wg_layout.cuh: CODES_PASS_K), 33-64 by
+// deep_select.cuh. Up to k_pair 32 the code domain's window (s_eff 1,024)
+// is G = 128 groups, one phase, so the deep select would sort every row's
+// 128 maxima with no bound yet: the passes ran 1.11-1.31x faster there
+// (wgc_deep_all), the deep select 1.11-1.20x faster at 33 and 35 (G = 512,
+// four phases; wgc_passes35). The deep instance replaced an mma.sync kernel
+// with sorted phase ends and its decode behind a barrier on one decoded
+// tile: 1.47x at the IVFPQR code domain's k = 100 scan at n_probe 32
+// (k_pair 52, 71 live probers a block: 3.983 against 2.703 ms on random
+// codes), 1.57x at n_probe 8 (k_pair 64, 20 live: 2.959 against 1.882),
+// 1.25-1.45x at k_pair 33-64 (chip_variants.py --codes --parent; NVIDIA
+// H100 80GB HBM3, 700.00 W).
 // - What bounds it: at the code domain's arguments (4,507 blocks of 128
 //   probers, s_eff 1,024, PQ64 at d = 128) the codes' bytes, ~0.3 GB
 //   (~0.1 ms at 3.35 TB/s), and the live probers' products, ~1e11
@@ -260,15 +273,21 @@
 //   that decodes nothing (wgc_nodecode, wrong keys) ran 9-16% faster, with
 //   its pointers __restrict__ and its loop unrolled by two no faster
 //   (wgc_restrict2; NVIDIA H100 80GB HBM3, 700.00 W).
-// - Registers: the producer's decode takes 56 (at 40 ptxas spilled 32 B
-//   and the scan ran 2-7% longer: wgc_regs40), the consumers 224 (no
+// - Registers: the producer's decode takes 56 (at 40 ptxas spilled 16-20
+//   B in every codes instance, the deep one too, and the scans ran
+//   0.97-1.09x the time: wgc_regs40), the consumers 224, the deep select's
+//   too (no
 //   spill: they hold no TMA or query-copy state); 128 x 56 + 256 x 224 =
-//   64,512.
+//   64,512, the launch's 168 x 384 that setmaxnreg moves between the
+//   warpgroups (48 / 232 would need 65,536).
 // - Shared memory (wg_layout.cuh: codes_smem_bytes): 1,024 B of slack, one
 //   query buffer, the stages (a decoded k half, penalties, pack32 slots,
 //   barriers), the codebook 512 d B, the raw slot, prober rows and flags
 //   and the select's arrays: at PQ64, exact k_pair 10 218,720 B (3
-//   stages), 16 224,864 B (3); pack32 16 221,312 B (5), 20 210,032 B (4).
+//   stages), 16 224,864 B (3); pack32 16 221,312 B (5), 32 228,464 B (4),
+//   64 227,680 B (3, the deep select's arrays). Four stages of the deep
+//   instance fit up to k_pair 39 at PQ64 and ran 0.93-1.10x the time of
+//   three (wgc_deep_ring4).
 
 #include <cstdint>
 #include <type_traits>
@@ -306,8 +325,9 @@ constexpr int CONSUMER_REGS = 232;  // <= 64,512 (168 x 384 at launch)
 // query gather fits 40 one copy at a time)
 constexpr int NARROW_PRODUCER_REGS = 40;
 constexpr int NARROW_CONSUMER_REGS = 232;
-// codes rows: the producer decodes (its loops at 40 spilled 16-32 B, at 56
-// none), and the consumers fit 224 (they hold no TMA or query-copy state)
+// codes rows: the producer decodes (its loops at 40 spilled 16-20 B, at 56
+// none), and the consumers fit 224, the deep select too (they hold no TMA
+// or query-copy state)
 constexpr int CODES_PRODUCER_REGS = 56;
 constexpr int CODES_CONSUMER_REGS = 224;
 constexpr int BAR_CONSUMERS = 1;    // named barrier of the consumers
@@ -1328,7 +1348,7 @@ int launch_wg(const void* qtable, const float* q_scale, const int* probers,
                     s_eff, k_pair, pack32, n_groups) ||
       inst_k < k_pair ||
       inst_k > (pack32 ? tc::MAX_PACK_K : tc::MAX_EXACT_K) ||
-      capacity < s_eff || smem > tc::SMEM_LIMIT ||
+      capacity < s_eff || smem > SMEM_LIMIT ||
       (I8 && (q_scale == nullptr || scale == nullptr)) ||
       reinterpret_cast<uintptr_t>(qtable) % 16 ||
       reinterpret_cast<uintptr_t>(decoded) % 16) {
@@ -1362,11 +1382,13 @@ int launch_wg(const void* qtable, const float* q_scale, const int* probers,
 }
 
 // The codes instance of this select (exact k_pair <= 10 or 16, pack32
-// k_pair <= 16 or 17-48): its kernel, ring stages and query buffers.
-#define TPQ_CODES_INSTANCE(pack32, k_pair, X)                      \
-  ((pack32) ? ((k_pair) <= 16 ? X(true, tc::PASS_K, CRING_PACK_16) \
-                              : X(true, tc::PASS_K, CRING_PACK))   \
-            : ((k_pair) <= 10 ? X(false, 10, CRING_EXACT)          \
+// k_pair <= 16 or up to CODES_PASS_K pass by pass, deeper by
+// deep_select.cuh): its kernel, ring stages and query buffers.
+#define TPQ_CODES_INSTANCE(pack32, k_pair, X)                          \
+  ((pack32) ? ((k_pair) <= tc::PASS_K    ? X(true, tc::PASS_K, CRING_PACK_16) \
+               : (k_pair) <= CODES_PASS_K ? X(true, tc::PASS_K, CRING_PACK) \
+                                          : X(true, ds::MAX_K, CRING_DEEP)) \
+            : ((k_pair) <= 10 ? X(false, 10, CRING_EXACT)                \
                               : X(false, 16, CRING_EXACT)))
 
 int occupancy_codes(int m, int dsub, int pack32, int k_pair) {
@@ -1388,8 +1410,8 @@ int launch_codes(const void* qtable, const int* probers, const int* start_c,
   if (m < CODE_CHUNK || m > 128 || (m & (m - 1)) || dsub <= 0 ||
       !tc::shape_ok(n_blocks, n_ctas, p_tile, 2 * d, NARROW_ROW, s_eff,
                     k_pair, pack32, n_groups) ||
-      (pack32 && k_pair > CODES_DEEP_K) || g <= 0 || s_eff % g ||
-      smem > tc::SMEM_LIMIT || reinterpret_cast<uintptr_t>(qtable) % 16 ||
+      g <= 0 || s_eff % g || smem > SMEM_LIMIT ||
+      reinterpret_cast<uintptr_t>(qtable) % 16 ||
       reinterpret_cast<uintptr_t>(codebook) % 16 ||
       reinterpret_cast<uintptr_t>(codes) % CODE_CHUNK) {
     return (int)cudaErrorInvalidValue;

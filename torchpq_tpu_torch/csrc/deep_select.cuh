@@ -1,8 +1,8 @@
 // The deep pack32 select of the warp-specialised block scan (block_scan_wg.cu's
-// bf16 and int8 instances of pack32 k_pair 17-64, template argument KMAX =
-// MAX_K): the phase end that merges a phase's strided-group maxima into each
-// row's running list of its k_pair largest keys, and the arithmetic of its
-// shared arrays. Plain C++ over a warp's lanes, callable from host and device
+// bf16 and int8 instances of pack32 k_pair 17-64 and its codes instance of
+// 33-64, template argument KMAX = MAX_K): the phase end that merges a
+// phase's strided-group maxima into each row's running list of its k_pair
+// largest keys, and the arithmetic of its shared arrays. Plain C++ over a warp's lanes, callable from host and device
 // code: a lane's exchanges with the others go through a policy object W (the
 // kernel's: warp shuffles, __syncwarp and a named barrier of two warps;
 // tests/test_torch_deep_select.py's: the lanes run as coroutines on the host),
@@ -41,7 +41,7 @@
 // for the CTA, about what one of the two running lists it replaces took),
 // so no survivor waits in registers for a later round: the maxima of a
 // staged row are dead through the merges, and the consumers stay within
-// their 232 registers. A first design staged 64 a row and kept the
+// their 232 registers (the codes instance's 224 too). A first design staged 64 a row and kept the
 // survivors past them in registers for another round (the first phase's
 // 128 always took two): ptxas spilled 16-32 B in every deep instance
 // (chip_variants.py --ptxas-only; more at 240 registers, as many with the

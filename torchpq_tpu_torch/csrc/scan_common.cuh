@@ -1,9 +1,9 @@
 // Shared core of the CUDA-core IVF block scans (block_scan.cu,
 // codes_scan.cu) and of the fused flat scan (flat_scan.cu, which runs
 // scan_rows over runs of the whole cache with its own select); the
-// tensor-core kernels (codes_scan_tc.cu through scan_tc.cuh,
-// block_scan_wg.cu, flat_scan_tc.cu) take only its
-// helpers (sortable, insert, launch_kernel).
+// tensor-core kernels (block_scan_wg.cu, through scan_tc.cuh too, and
+// flat_scan_tc.cu) take only its helpers (sortable, insert,
+// launch_kernel).
 //
 // A block is up to p_tile probers (queries) of one IVF cell; one CTA scores
 // `pt` of them (one prober per thread) against the block's window of s_eff
@@ -14,8 +14,8 @@
 // codes_scan.cu's decodes PQ codes against a shared-memory codebook and
 // visits the slots in the packed column order. Scoring and both selects are
 // this file's, so those two kernels' scores agree bit for bit on equal rows
-// (the tensor-core codes scans, block_scan_wg.cu's codes instances and
-// codes_scan_tc.cu, sum in another order).
+// (the tensor-core codes scan, block_scan_wg.cu's codes instances, sums in
+// another order).
 //
 //   score = factor * <q_p, y_c> - pen_c      (f32 FMA chain, k ascending)
 //

@@ -1,7 +1,8 @@
 // The tensor-core and asynchronous-copy instructions of flat_scan_tc.cu and
-// scan_tc.cuh (codes_scan_tc.cu),
-// one inline-PTX wrapper each (sm_80 and later; built for sm_90a), and the
-// fragment layouts they imply, as plain functions of the lane.
+// block_scan_wg.cu (its cp.async copies), one inline-PTX wrapper each (sm_80
+// and later; built for sm_90a), and the fragment layouts they imply, as
+// plain functions of the lane (scan_tc.cuh's selects index the C fragment's,
+// which the wgmma accumulators share warp by warp).
 //
 // Layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16 with floating point
 // type" and "Warp-level matrix load instruction: ldmatrix"); lane l,
@@ -31,14 +32,6 @@ __host__ __device__ constexpr int frag_c_row(int lane, int i) {
 // Column of C (in the 8-column n tile) that register c[i] of `lane` holds.
 __host__ __device__ constexpr int frag_c_col(int lane, int i) {
   return 2 * (lane % 4) + i % 2;
-}
-// Row (of 16) of A, and the first of the two columns (of 16), that
-// register a[i] of `lane` holds.
-__host__ __device__ constexpr int frag_a_row(int lane, int i) {
-  return lane / 4 + 8 * (i % 2);
-}
-__host__ __device__ constexpr int frag_a_col(int lane, int i) {
-  return 2 * (lane % 4) + 8 * (i / 2);
 }
 // Row (of 16) and column (of 16) of the A tile whose address `lane` gives
 // to ldmatrix.x4, so that the four registers are a[0..3].

@@ -55,6 +55,7 @@ constexpr int MAX_ROW_BF16 = 2048;  // widest row (bytes): bf16 d <= 1024
 constexpr int MAX_ROW_I8 = 1024;    // and int8 d <= 1024
 constexpr int STAGE_BYTES = BOX_ROWS * SW_ROW;  // one operand of a stage
 constexpr int LAYOUT_SW128 = 1;                 // descriptor layout type
+constexpr size_t SMEM_LIMIT = 232448;  // dynamic shared memory of a CTA
 
 // Byte offset of byte kb (< 128) of row `row` in a tile of 128-byte rows
 // under the 128-byte swizzle.
@@ -252,20 +253,24 @@ TPQ_HD constexpr size_t narrow_smem_bytes(int pack32, int k_pair,
 // of the row (16 dsub bytes from byte 16 dsub chunk), piece p in the
 // tile's stage p / 8 at byte 16 (p % 8) of the row. Instances: exact
 // k_pair <= 10 and <= 16 on three stages, pack32 k_pair <= 16 on five and
-// 17-48 on four (two d = 128 tiles up to k_pair 35), each with one query
-// buffer; pack32 above CODES_DEEP_K is codes_scan_tc.cu's sorted instance.
-// A stage carries its columns' penalties and, pack32, their slots (the
-// keys' low bits).
+// 17-CODES_PASS_K on four (extracted pass by pass), deeper pack32 by the
+// deep select (deep_select.cuh) on three, each with one query buffer. A
+// stage carries its columns' penalties and, pack32, their slots (the keys'
+// low bits).
 constexpr int CRING_EXACT = 3;
 constexpr int CRING_PACK_16 = 5;
 constexpr int CRING_PACK = 4;
+constexpr int CRING_DEEP = 3;
 constexpr int CQB = 1;
-constexpr int CODES_DEEP_K = 48;
+constexpr int CODES_PASS_K = 32;  // deepest pack32 k_pair of the passes
 constexpr int CODE_CHUNK = 8;  // codes (bytes) of a chunk
 constexpr int PASS_CHUNKS = 8;  // a pass's chunks of a column, at most
 
 TPQ_HD constexpr int codes_ring_of(int pack32, int k_pair) {
-  return pack32 ? (k_pair <= 16 ? CRING_PACK_16 : CRING_PACK) : CRING_EXACT;
+  return !pack32                   ? CRING_EXACT
+         : k_pair <= ds::SHALLOW_K ? CRING_PACK_16
+         : k_pair <= CODES_PASS_K  ? CRING_PACK
+                                   : CRING_DEEP;
 }
 // The passes of a tile at m subspaces and the chunks a pass brings of a
 // column.
@@ -280,17 +285,19 @@ TPQ_HD constexpr int codes_raw_bytes(int m) {
   return BOX_ROWS * CODE_CHUNK * pass_chunks(m);
 }
 // The shared memory of the codes instance that serves this select:
-// alignment slack, the query buffer and its barriers, the ring's stages
-// (a decoded tile's k half, penalties, pack32: slots, full and empty
+// alignment slack, the query buffer and its barriers, the ring's stages (a
+// decoded tile's k half, penalties, pack32: slots, full and empty
 // barriers), the codebook [m][256][dsub] bf16, the raw slot, prober rows,
-// tile flags and the select's arrays.
+// tile flags and the select's arrays (above CODES_PASS_K the deep
+// select's).
 TPQ_HD constexpr size_t codes_smem_bytes(int m, int dsub, int pack32,
                                          int k_pair) {
   return (size_t)SW_ATOM + (size_t)CQB * (QBUF_BYTES + 16) +
          (size_t)codes_ring_of(pack32, k_pair) *
              (STAGE_BYTES + 4 * BOX_ROWS + (pack32 ? 4 * BOX_ROWS : 0) + 16) +
          (size_t)512 * m * dsub + codes_raw_bytes(m) + 4 * MAX_PT + 4 * 8 +
-         list_bytes(pack32, k_pair);
+         (pack32 && k_pair > CODES_PASS_K ? ds::select_bytes(k_pair)
+                                          : list_bytes(pack32, k_pair));
 }
 
 // The in-window slot of window column c, without an integer division: the

@@ -85,13 +85,12 @@ launches = {"exact": 0, "pack32": 0, "int8_exact": 0, "int8_pack32": 0,
 _SMEM_LIMIT = 227 * 1024  # dynamic shared memory one CTA may use on sm_90
 _CHUNK_SCORES = 1 << 25   # f32 scores per chunk of the plain version (128 MB)
 _H100_SMS = 132           # SMs assumed for tensors that are not on a card
-# the mma.sync scans' body (csrc/scan_tc.cuh)
-_TC_WARPS = 8       # warps per CTA
-_TC_MAX_ROW = 256   # widest row (bytes) its A fragments hold: bf16 d <= 128
-_TC_MAX_PT = 128    # probers per block: an m tile per warp of 8
-_TC_KMAX = 16       # the exact k_pair its lane lists take
-_TC_MAX_PACK_K = 64  # the pack32 k_pair its lists take
-_TC_TN = 128        # its tile of window columns
+# the selects' shared arrays (csrc/scan_tc.cuh)
+_TC_WARPS = 8       # consumer warps
+_TC_MAX_PT = 128    # probers per block: 16 a warp
+_TC_KMAX = 16       # the exact k_pair the lane lists take
+_TC_MAX_PACK_K = 64  # the pack32 k_pair the lists take
+_TC_TN = 128        # a tile of window columns
 _TC_SLD = 72        # exact staging row stride (floats)
 _TC_QUEUE = 6       # exact: a lane's queued candidates
 # the warp-specialised scan (csrc/wg_layout.cuh)
@@ -451,27 +450,6 @@ def _cta_probers(smem, p_tile):
                      f"(p_tile={p_tile})")
 
 
-def tc_smem_bytes(rb, pack32, k_pair, one_tile=False):
-    """Dynamic shared memory of the mma.sync scans' body at rows of rb
-    bytes: csrc/scan_tc.cuh:body_smem_bytes, term for term (the codes
-    scan's torchpq_codes_scan_tc_smem reports the same; a card test holds
-    them equal), so that pick_route needs no library. Tiles [2][TN][row
-    stride] bytes (one_tile: [1][TN][row stride], the deep codes instance,
-    the body's one source now), penalties and
-    slots [2][TN], prober rows and tile flags, the
-    slice lists [WARPS][16][kls], then pack32: the running lists
-    [2][MAX_PT][kls]; exact: the staging rows, row bounds and queues. kls:
-    the lists' row stride, k_pair (pack32: made odd, list_ld)."""
-    ld = -(-rb // 32) * 32 + 16
-    kls = k_pair | 1 if pack32 else k_pair
-    lists = _TC_WARPS * 16 * kls * (4 if pack32 else 8)
-    select = (2 * _TC_MAX_PT * kls * 4 if pack32 else
-              _TC_WARPS * 16 * (_TC_SLD + 1) * 4 + _TC_QUEUE * 32 * _TC_WARPS
-              * 8)
-    return ((1 if one_tile else 2) * _TC_TN * ld + 16 * _TC_TN
-            + 4 * _TC_MAX_PT + 4 * (_TC_MAX_PT // 16) + lists + select)
-
-
 def wg_ring(pack32, k_pair):
     """Ring stages of the warp-specialised instance that serves this select
     (csrc/wg_layout.cuh:ring_of)."""
@@ -553,8 +531,8 @@ def wg_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
     """Whether the warp-specialised scan (csrc/block_scan_wg.cu) takes these
     shapes: a bf16 cache with rows of d <= 1024, d % 8 == 0 (narrow
     instances up to d = 128, k-chunked ones above), or an int8 cache with
-    rows of d <= 1024, d % 16 == 0 (narrow up to d = 256); blocks, selects
-    and groups as tc_shapes_ok (_blocks_ok); its shared memory
+    rows of d <= 1024, d % 16 == 0 (narrow up to d = 256); the blocks,
+    selects and groups of _blocks_ok; its shared memory
     (wg_smem_bytes) within the limit, which every such shape meets (the
     ring as deep as the instance's largest k_pair lets it be: k-chunked,
     exact k_pair 10 227,952 B on five stages (int8 230,512 B), pack32
@@ -571,7 +549,7 @@ def wg_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32, dtype=torch.bfloat16):
 
 
 def _blocks_ok(p_tile, s_eff, k_pair, pack32):
-    """The blocks and selects the tensor-core block scans take: p_tile a
+    """The blocks and selects the tensor-core scans take: p_tile a
     multiple of 16 up to 128; exact with k_pair <= 16; pack32 with k_pair
     <= 64 and the strided group count G = n_groups(s_eff, k_pair) a
     multiple of 8 that is either the whole row (s_eff <= 128) or a
@@ -583,15 +561,6 @@ def _blocks_ok(p_tile, s_eff, k_pair, pack32):
     g = n_groups(s_eff, k_pair)
     return k_pair <= _TC_MAX_PACK_K and g % 8 == 0 and (
         g <= _TC_TN if g == s_eff else g % _TC_TN == 0 and s_eff % g == 0)
-
-
-def tc_shapes_ok(*, d, p_tile, s_eff, k_pair, pack32):
-    """Whether the mma.sync scans' body (csrc/scan_tc.cuh, the codes scan's
-    sorted instance) takes these shapes of bf16 rows in registers: rows of
-    16-byte pieces up to 256 bytes (d <= 128, d % 8 == 0: the codes scan's
-    decoded rows), the blocks and selects of _blocks_ok."""
-    return (d % 8 == 0 and 0 < 2 * d <= _TC_MAX_ROW
-            and _blocks_ok(p_tile, s_eff, k_pair, pack32))
 
 
 def pick_route(*, dtype, d, p_tile, s_eff, k_pair, pack32):

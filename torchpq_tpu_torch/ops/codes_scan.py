@@ -12,14 +12,12 @@ and counted under its own key of `launches`:
     tiles that its producer warpgroup fills from the codes and the staged
     codebook; two consumer warpgroups score and select): rows of d <= 128,
     blocks of at most 128 probers, exact k_pair <= 16 and pack32 k_pair
-    <= 48 where their shared memory fits (`wg_smem_bytes`);
-  - "tc_pack32", `csrc/codes_scan_tc.cu` (mma.sync, sorted phase ends, one
-    decoded tile and a ring of raw codes): the pack32 selects above k_pair
-    16 that the wgmma instances leave (k_pair 49-64), where its shared
-    memory fits (`tc_smem_bytes`);
+    <= 64 (up to 32 extracted pass by pass, above by the deep select,
+    `csrc/deep_select.cuh`) where their shared memory fits
+    (`wg_smem_bytes`);
   - "exact" / "pack32", `csrc/codes_scan.cu`: the rest, on the CUDA cores
     (f32 FMAs).
-The tensor-core kernels score only the live 16-prober tiles of a block
+The tensor-core kernel scores only the live 16-prober tiles of a block
 (bf16 products, f32 sums).
 
 What it computes, for block b, prober p and window column c < s_eff that
@@ -55,11 +53,10 @@ import torch
 from .. import util
 from .block_scan import (BIG, n_groups, random_inputs, resident_ctas,
                          select_chunks, select_exact, select_pack32,
-                         tc_shapes_ok, window_scores, _blocks_ok,
-                         _wg_list_bytes, _SMEM_LIMIT, _TC_MAX_PT,
-                         _TC_MAX_ROW, _TC_TN, _WG_BOX_ROWS, _WG_QBUF_BYTES,
-                         _WG_STAGE_BYTES, _WG_SW_ATOM)
-from .block_scan import tc_smem_bytes as body_smem_bytes
+                         window_scores, _blocks_ok, _wg_list_bytes,
+                         _wg_select_bytes, _DS_SHALLOW_K, _SMEM_LIMIT,
+                         _TC_MAX_PT, _WG_BOX_ROWS, _WG_NARROW_ROW,
+                         _WG_QBUF_BYTES, _WG_STAGE_BYTES, _WG_SW_ATOM)
 
 # The JAX package's bound on the resident [m*256, d_pad] bf16 decode matrix
 # (pallas_codes_scan.py:PALLAS_BDIAG_VMEM_BYTES). It is a TPU VMEM budget,
@@ -69,19 +66,20 @@ from .block_scan import tc_smem_bytes as body_smem_bytes
 CODEBOOK_BOUND_BYTES = 9 * 1024 * 1024
 
 # The codes instances of csrc/block_scan_wg.cu (csrc/wg_layout.cuh): ring
-# stages by select (exact; pack32 k_pair <= 16; pack32 k_pair 17-48), one
-# query buffer, the largest pack32 k_pair they take (CODES_DEEP_K), and a
-# pass's code chunks of 8 bytes a column (PASS_CHUNKS: m = 128 in two).
-_WG_CRING_EXACT, _WG_CRING_PACK_16, _WG_CRING_PACK = 3, 5, 4
+# stages by select (exact; pack32 k_pair <= 16; pack32 up to CODES_PASS_K,
+# pass by pass; deeper, the deep select), one query buffer, the deepest
+# pack32 k_pair extracted pass by pass, and a pass's code chunks of 8 bytes
+# a column (PASS_CHUNKS: m = 128 in two).
+_WG_CRING_EXACT, _WG_CRING_PACK_16, _WG_CRING_PACK, _WG_CRING_DEEP = \
+    3, 5, 4, 3
 _WG_CQB = 1
-_WG_CODES_DEEP_K = 48
+_WG_CODES_PASS_K = 32
 _WG_PASS_CHUNKS = 8
 
 # kernel launches per route and select, counted by `codes_scan` where it
-# launches ("tc_wgn_*": the wgmma codes instances; "tc_pack32": the
-# mma.sync sorted one; the others: the CUDA-core kernel)
-launches = {"exact": 0, "pack32": 0, "tc_pack32": 0, "tc_wgn_exact": 0,
-            "tc_wgn_pack32": 0}
+# launches ("tc_wgn_*": the wgmma codes instances; the others: the
+# CUDA-core kernel)
+launches = {"exact": 0, "pack32": 0, "tc_wgn_exact": 0, "tc_wgn_pack32": 0}
 
 
 def codes_kernel_static_gate(m, g, d, distance):
@@ -244,24 +242,14 @@ def _check(qtable, probers, start_c, off, cap, penalty, codes, codebook,
         raise ValueError("slot_mask must be next_pow2(s_eff) - 1")
 
 
-def tc_smem_bytes(*, m, dsub, k_pair):
-    """Dynamic shared memory of the mma.sync codes kernel (its sorted
-    pack32 instance): csrc/codes_scan_tc.cu:tc_smem_bytes, term for term
-    (the library's torchpq_codes_scan_tc_smem reports the same; a card test
-    holds them equal), so that pick_route needs no library. The codebook
-    [256 * d] bf16, the raw codes' ring [TN][m], then the body's with one
-    tile (block_scan.tc_smem_bytes at rows of 2 * d bytes)."""
-    d = m * dsub
-    return (512 * d + _TC_TN * m
-            + body_smem_bytes(2 * d, True, k_pair, one_tile=True))
-
-
 def wg_ring(pack32, k_pair):
     """Ring stages of the wgmma codes instance that serves this select
     (csrc/wg_layout.cuh:codes_ring_of)."""
-    if pack32:
-        return _WG_CRING_PACK_16 if k_pair <= 16 else _WG_CRING_PACK
-    return _WG_CRING_EXACT
+    if not pack32:
+        return _WG_CRING_EXACT
+    if k_pair <= _DS_SHALLOW_K:
+        return _WG_CRING_PACK_16
+    return _WG_CRING_PACK if k_pair <= _WG_CODES_PASS_K else _WG_CRING_DEEP
 
 
 def wg_smem_bytes(*, m, dsub, pack32, k_pair):
@@ -273,14 +261,18 @@ def wg_smem_bytes(*, m, dsub, pack32, k_pair):
     columns' penalties, pack32 their slots, two barriers; wg_ring), the
     codebook [m][256][dsub] bf16, the raw slot [128][8 * chunks a pass]
     (m <= 64: all of a column's codes, m = 128: half), prober rows and
-    tile flags, the select's arrays (block_scan._wg_list_bytes)."""
+    tile flags, the select's arrays (block_scan._wg_list_bytes; above
+    pack32 k_pair _WG_CODES_PASS_K the deep select's,
+    block_scan._wg_select_bytes)."""
     chunks = min(m // 8, _WG_PASS_CHUNKS)
     stage = _WG_STAGE_BYTES + 4 * _WG_BOX_ROWS \
         + (4 * _WG_BOX_ROWS if pack32 else 0) + 16
+    select = (_wg_select_bytes(pack32, k_pair)
+              if pack32 and k_pair > _WG_CODES_PASS_K
+              else _wg_list_bytes(pack32, k_pair))
     return (_WG_SW_ATOM + _WG_CQB * (_WG_QBUF_BYTES + 16)
             + wg_ring(pack32, k_pair) * stage + 512 * m * dsub
-            + _WG_BOX_ROWS * 8 * chunks + 4 * _TC_MAX_PT + 4 * 8
-            + _wg_list_bytes(pack32, k_pair))
+            + _WG_BOX_ROWS * 8 * chunks + 4 * _TC_MAX_PT + 4 * 8 + select)
 
 
 def _cta_probers(lib, p_tile, d, pack32, groups):
@@ -296,37 +288,24 @@ def _cta_probers(lib, p_tile, d, pack32, groups):
 
 def pick_route(*, m, dsub, p_tile, s_eff, k_pair, pack32):
     """The kernel that serves a scan of these shapes, which is also its key
-    in `launches`. Every tensor-core route takes m a power of two from 8
-    to 128 (the packed storage's, g*m = 128) and rows of d = m*dsub <=
-    128, d % 8 == 0:
+    in `launches`:
       - "tc_wgn_exact" / "tc_wgn_pack32" (`csrc/block_scan_wg.cu`'s codes
-        instances, wgmma): the blocks and selects of
-        `block_scan._blocks_ok` up to pack32 k_pair 48, where the
-        instance's shared memory (`wg_smem_bytes`) fits: every such exact
-        and pack32 k_pair <= 16 shape but exact k_pair 11-16 at m = 128,
-        and pack32 k_pair 17-48 up to 35 at d = 128;
-      - "tc_pack32" (`csrc/codes_scan_tc.cu`, mma.sync, sorted): the pack32
-        shapes above k_pair 16 the wgmma instances leave, at the shapes of
-        `block_scan.tc_shapes_ok`, where its shared memory
-        (`tc_smem_bytes`) fits (every d <= 128);
+        instances, wgmma): m a power of two from 8 to 128 (the packed
+        storage's, g*m = 128), rows of d = m*dsub <= 128, d % 8 == 0, the
+        blocks and selects of `block_scan._blocks_ok` (exact k_pair <= 16,
+        pack32 k_pair <= 64), where the instance's shared memory
+        (`wg_smem_bytes`) fits, as it does at every such shape;
       - "exact" / "pack32" (`csrc/codes_scan.cu`, CUDA cores): the rest
         (exact k_pair > 16, rows wider than 128, other blocks or groups,
         a shared memory above the limit)."""
     mode = "pack32" if pack32 else "exact"
     d = m * dsub
-    if not (m & (m - 1) == 0 and 8 <= m <= 128 and d % 8 == 0
-            and 2 * d <= _TC_MAX_ROW):
-        return mode
-    if (_blocks_ok(p_tile, s_eff, k_pair, pack32)
-            and (not pack32 or k_pair <= _WG_CODES_DEEP_K)
+    if (m & (m - 1) == 0 and 8 <= m <= 128 and d % 8 == 0
+            and 2 * d <= _WG_NARROW_ROW
+            and _blocks_ok(p_tile, s_eff, k_pair, pack32)
             and wg_smem_bytes(m=m, dsub=dsub, pack32=pack32,
                               k_pair=k_pair) <= _SMEM_LIMIT):
         return "tc_wgn_" + mode
-    if (pack32 and k_pair > 16
-            and tc_smem_bytes(m=m, dsub=dsub, k_pair=k_pair) <= _SMEM_LIMIT
-            and tc_shapes_ok(d=d, p_tile=p_tile, s_eff=s_eff,
-                             k_pair=k_pair, pack32=pack32)):
-        return "tc_pack32"
     return mode
 
 
@@ -379,8 +358,7 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty, codes,
     best = pick_route(m=m, dsub=dsub, p_tile=p_tile, s_eff=s_eff,
                       k_pair=k_pair, pack32=pack32)
     route = route or best
-    if route not in (mode, "tc_wgn_" + mode) + (("tc_pack32",) if pack32
-                                                 else ()):
+    if route not in (mode, "tc_wgn_" + mode):
         raise ValueError(f"route {route!r} does not serve the {mode} select")
     out = torch.empty((b, p_tile, k_pair if pack32 else 2 * k_pair),
                       dtype=torch.int32, device=codes.device)
@@ -401,9 +379,8 @@ def launch(lib, stream, qtable, probers, start_c, off, cap, penalty, codes,
                 f"the tensor-core codes scan ({route}) does not take d={d}, "
                 f"p_tile={p_tile}, s_eff={s_eff}, k_pair={k_pair}, "
                 f"pack32={pack32}")
-        name = ("torchpq_codes_scan_wg" if route.startswith("tc_wgn_")
-                else "torchpq_codes_scan_tc")
-        if route.startswith("tc_wgn_") and qtable.data_ptr() % 16:
+        name = "torchpq_codes_scan_wg"
+        if qtable.data_ptr() % 16:
             raise ValueError("the wgmma codes scan copies 16-byte pieces of "
                              "the query rows: qtable must be 16-byte aligned")
         if getattr(lib, name + "_smem")(m, dsub, int(pack32), k_pair) \
