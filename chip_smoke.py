@@ -9,7 +9,9 @@
         # held equal; on each codes row DIR's block_scan_wg.cu codes
         # instance (keys held equal) and csrc/codes_scan_tc.cu; on each
         # narrow bf16 deep pack32 row DIR's csrc/block_scan_tc.cu, each
-        # where DIR holds and takes it
+        # where DIR holds and takes it; on the pallas_flat plan's flat scan
+        # DIR's csrc/flat_scan_tc.cu (its mma.sync kernel, at d <= 128 the
+        # parent's route)
 
 Phases, each of which fails the run on error:
   1. device: a CUDA card is required (no CPU continuation); prints its name
@@ -21,7 +23,8 @@ Phases, each of which fails the run on error:
      and each of them must hold warpgroup products (bf16 HGMMA,
      int8 IGMMA) and, but the codes ones (their producer decodes the
      window), UTMALDG instructions in its SASS (cuobjdump -sass; counts
-     logged and in the kernels line).
+     logged and in the kernels line); so must the warp-specialised flat
+     scan (FLAT_WG_KERNEL: flat_scan_wg.cu, HGMMA and UTMALDG).
   3. kernel vs plain on seeded inputs: the bf16 block-scan kernel (the
      narrow warp-specialised instances, keys "tc_wgn_exact" /
      "tc_wgn_pack32", at d <= 128; pack32 above k_pair 16 the deep
@@ -60,13 +63,14 @@ Phases, each of which fails the run on error:
      inputs and on `int8_tie_inputs` (equal rows, exact ties; pack32
      k_pair 40 over 128 groups, 5 tiles a phase, and 64 over 512 at d 128,
      2 tiles: the narrow deep instance; at d 1024 the k-chunked wgmma
-     instance of four stages); the flat
-     scan's
-     two kernels (tensor cores, CUDA cores) against `flat_scan_ref` (cap
-     262,144, 1,024 queries, the glue's head k=10 addresses equal outside
-     ties), the tensor-core one also at d 1024 and at r_keep 32 (values
-     within tolerance, addresses equal outside ties) and on integer-valued
-     inputs with ties at d 128 and 1024 (bit for bit); the row gather against
+     instance of four stages); the flat scan's three kernels (wgmma
+     "flat_wg" at d 128, mma.sync "flat_tc" at d 1024, CUDA cores "flat")
+     against `flat_scan_ref` (cap 262,144, 1,024 queries, the glue's head
+     k=10 addresses equal outside ties), the wgmma one also at d 64 and
+     128, r_keep 8, 16 and 32, the mma.sync one at d 1024, r_keep 16 and
+     32 (values within tolerance, addresses equal outside ties), both on
+     integer-valued inputs with ties (flat_wg at d 64 and 128, flat_tc at
+     1024, euclidean and inner, r_keep 16; bit for bit); the row gather against
      `table[idx.clamp]` (f32, bf16, int8 tables, out-of-range indices, bit
      for bit).
   4. the slice: 1M x 128 manifold-12 base + 10k queries (the numpy draws of
@@ -269,19 +273,22 @@ Phases, each of which fails the run on error:
      timed the same way; both tiers profiled.
  18. fused flat scan: the main index with scan_impl="pallas_flat" and
      approx top-k; the flat counters zeroed, the flat plan must launch the
-     tensor-core flat kernel, agree with the exact flat plan on >= 0.98 of
-     ids and lie within 0.01 of its recall (the kernel's bucket top-2
-     approximation); both timed in this call; then the kernel against
-     `flat_scan_ref` on the plan's own arguments (head-k addresses equal
-     outside ties), timed in turns with the CUDA-core kernel on the same
-     arguments (TFLOP/s and share of the bound of each), beside a
+     warp-specialised flat kernel ("flat_wg") and no other, agree with the
+     exact flat plan on >= 0.98 of ids and lie within 0.01 of its recall
+     (the kernel's bucket top-2 approximation); both timed in this call;
+     then the kernel against `flat_scan_ref` on the plan's own arguments
+     (head-k addresses equal outside ties), timed in turns with the
+     CUDA-core kernel on the same arguments and, with --parent, with the
+     parent's flat_scan_tc.cu (TFLOP/s and share of the bound), beside a
      yardstick of the product alone (bf16 torch.matmul over a 65,536-slot
      slice, scaled to the cache) and of the kernel at half the width (the
      same epilogue, half the products).
  19. profile: torch.profiler over one search per plan of the bf16, code
      domain and int8 indexes, the deep-k r6 and untapered plans and the
      pallas_flat flat plan (phases 10-13 profile their own plans);
-     device-busy time and the largest kernels of each.
+     device-busy time and the largest kernels of each (a session whose
+     records the profiler loses is run again, up to four; none recorded:
+     logged as not measured).
  20. native (timed, as are 21-24, through profiling.PhaseTimer): the 1M
      base written as .fvecs and read back by read_fvecs and in 250k-row
      chunks by stream_vecs, bit-equal, through the C++ route (MB/s
@@ -408,13 +415,25 @@ DEEP_CODES_KERNEL = "block_scan_wg_kernelILb1ELi64ELi3ELi1ELb0ELb1E"
 WG_KERNEL = re.compile(r"block_scan_wg_kernelI\w*E$")
 N_WG_KERNELS = 21
 WG_OPS = ("HGMMA", "IGMMA", "UTMALDG")
+# the warp-specialised flat scan (flat_scan_wg.cu): one kernel, which must
+# report no spill and no stack frame and hold warpgroup products (HGMMA) and
+# TMA loads (UTMALDG) in its SASS
+FLAT_WG_KERNEL = re.compile(r"flat_scan_wg_kernel$")
+FLAT_WG_OPS = ("HGMMA", "UTMALDG")
 # the codes routes: the wgmma codes instances (block_scan_wg.cu) that the
 # code-domain, 4-bit and pqr3_codes plans must take
 CODES_WG_KEYS = ("tc_wgn_exact", "tc_wgn_pack32")
 
 
+# sessions profile_search runs before it logs a search's profile as not
+# measured (the card's profiler at times records no kernel of a session)
+PROFILE_TRIES = 4
+
+
 def wg_ops(fn):
     """The SASS ops a warp-specialised instance must hold."""
+    if FLAT_WG_KERNEL.search(fn):
+        return FLAT_WG_OPS
     if fn.endswith("Lb1E"):  # codes
         return ("HGMMA",)
     return ("IGMMA" if fn.endswith("Lb1ELb0E") else "HGMMA", "UTMALDG")
@@ -917,9 +936,9 @@ def codes_instance(pack32, k_pair):
 # with this tree's route on each row's own arguments: csrc/block_scan_wg.cu
 # on every warp-specialised block-scan row (bf16 and int8: the parent's
 # instances of the row's select, keys held equal), csrc/codes_scan_tc.cu on
-# every codes row, and csrc/block_scan_tc.cu (mma.sync) on the narrow bf16
-# rows whose shapes it takes, each where DIR holds it; empty without
-# --parent
+# every codes row, csrc/block_scan_tc.cu (mma.sync) on the narrow bf16
+# rows whose shapes it takes, and csrc/flat_scan_tc.cu on the pallas_flat
+# plan's flat scan, each where DIR holds it; empty without --parent
 PARENT = {}
 # the parent's sources: (file, {entry point: ((pointers, ints) before the
 # stream, its occupancy entry's ints)})
@@ -928,7 +947,8 @@ PARENT_SOURCES = {
                                 "torchpq_block_scan_wg_int8": ((10, 11), 3),
                                 "torchpq_codes_scan_wg": ((9, 12), 4)}),
     "bf16": ("block_scan_tc.cu", {"torchpq_block_scan_tc": ((8, 10), 3)}),
-    "codes": ("codes_scan_tc.cu", {"torchpq_codes_scan_tc": ((9, 12), 4)})}
+    "codes": ("codes_scan_tc.cu", {"torchpq_codes_scan_tc": ((9, 12), 4)}),
+    "flat": ("flat_scan_tc.cu", {"torchpq_flat_scan_tc": ((7, 8), 3)})}
 
 
 def build_parent(_build, root):
@@ -1152,9 +1172,10 @@ def codes_parent_turns(torch, bs, cs, args, kkw, route, what):
 
 
 def sass_counts(torch, path):
-    """Per warp-specialised instance of the built library, its SASS counts
-    of WG_OPS (cuobjdump -sass); fails where the library holds other than
-    N_WG_KERNELS such instances or one lacks an op."""
+    """Per warp-specialised instance of the built library (block_scan_wg.cu's
+    and flat_scan_wg.cu's), its SASS counts of WG_OPS (cuobjdump -sass);
+    fails where the library holds other than N_WG_KERNELS block-scan
+    instances and one flat-scan kernel, or one lacks an op."""
     res = subprocess.run(["cuobjdump", "-sass", str(path)],
                          capture_output=True, text=True, timeout=300)
     if res.returncode != 0:
@@ -1164,7 +1185,8 @@ def sass_counts(torch, path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = kernel_name(m.group(1))
-            fn = fn if WG_KERNEL.search(fn) else None
+            fn = fn if WG_KERNEL.search(fn) or FLAT_WG_KERNEL.search(fn) \
+                else None
             if fn:
                 counts[fn] = dict.fromkeys(WG_OPS, 0)
             continue
@@ -1177,9 +1199,11 @@ def sass_counts(torch, path):
         if not all(c[op] for op in wg_ops(fn)):
             fail(f"{fn}: no {[op for op in wg_ops(fn) if not c[op]]} in its "
                  "SASS")
-    if len(counts) != N_WG_KERNELS:
+    blocks = [fn for fn in counts if WG_KERNEL.search(fn)]
+    flats = [fn for fn in counts if FLAT_WG_KERNEL.search(fn)]
+    if len(blocks) != N_WG_KERNELS or len(flats) != 1:
         fail(f"cuobjdump found {sorted(counts)}, not the {N_WG_KERNELS} "
-             f"warp-specialised instances")
+             f"warp-specialised block-scan instances and the flat scan")
     return counts
 
 
@@ -1409,59 +1433,111 @@ def phase_kernels(torch, bs, cs, fs, gr):
 
 
 def flat_launch(torch, fs, args, route, **kw):
-    """The flat scan's kernel of `route` ("flat_tc" or "flat") on args,
-    without counting a launch: the comparisons with the plain version and
-    the yardstick times."""
+    """The flat scan's kernel of `route` ("flat_wg", "flat_tc" or "flat")
+    on args, without counting a launch: the comparisons with the plain
+    version and the yardstick times."""
     from torchpq_tpu_torch import _build
     return fs.launch(_build.library(), torch.cuda.current_stream().cuda_stream,
                      *args, route=route, **kw)
 
 
 def phase_flat_kernels(torch, fs):
-    """The flat scan's two kernels on seeded inputs: the glue's head k=10
-    of the top r_keep=16 (tolerances), then the tensor-core kernel at d
-    1024 (K chunks, queries in shared memory) and at r_keep 32, and on
-    integer-valued inputs with ties (bit for bit)."""
+    """The flat scan's three kernels on seeded inputs: the glue's head k=10
+    of the top r_keep=16 (tolerances), the wgmma kernel at d 128, the
+    mma.sync one at d 1024, the CUDA-core one at d 128; then the wgmma
+    kernel at d 64 and 128, r_keep 8, 16 and 32, and the mma.sync one at d
+    1024, r_keep 16 and 32 (tolerances); then both on integer-valued inputs
+    with ties (bit for bit, euclidean and inner)."""
     args = fs.random_flat_inputs("cuda", nq=1024, cap=262144, seed=5)
-    vr, ar = fs.flat_scan_ref(*args, r_keep=16, euclidean=True)
-    plain_ms = cuda_ms(torch, lambda: fs.flat_scan_ref(
-        *args, r_keep=16, euclidean=True), 2)
-    for route in ("flat_tc", "flat"):
-        v, a = flat_launch(torch, fs, args, route, r_keep=16, euclidean=True)
+    wide = fs.random_flat_inputs("cuda", nq=1024, cap=262144, d=1024, seed=5)
+    for route, a_ in (("flat_wg", args), ("flat_tc", wide), ("flat", args)):
+        vr, ar = fs.flat_scan_ref(*a_, r_keep=16, euclidean=True)
+        plain_ms = cuda_ms(torch, lambda: fs.flat_scan_ref(
+            *a_, r_keep=16, euclidean=True), 2)
+        v, a = flat_launch(torch, fs, a_, route, r_keep=16, euclidean=True)
         torch.cuda.synchronize()
         err = compare_topk(torch, v[:, :10], a[:, :10], vr[:, :10],
                            ar[:, :10])
         ms = cuda_ms(torch, lambda: flat_launch(
-            torch, fs, args, route, r_keep=16, euclidean=True), 5)
-        log(f"flat_scan ({route}) nq=1024 cap=262144: kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, max_abs_err {err:.3g}, head-10 "
-            f"addresses equal {share_equal(a[:, :10], ar[:, :10]):.5f}")
-    for d, r_keep, cap in ((1024, 16, 100000), (128, 32, 100000)):
-        args = fs.random_flat_inputs("cuda", nq=1000, cap=cap, d=d, seed=d)
-        v, a = flat_launch(torch, fs, args, "flat_tc", r_keep=r_keep,
+            torch, fs, a_, route, r_keep=16, euclidean=True), 5)
+        log(f"flat_scan ({route}) nq=1024 cap=262144 d={a_[1].shape[1]}: "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, max_abs_err "
+            f"{err:.3g}, head-10 addresses equal "
+            f"{share_equal(a[:, :10], ar[:, :10]):.5f}")
+    del wide
+    for route, d, r_keep in (("flat_wg", 64, 8), ("flat_wg", 64, 32),
+                             ("flat_wg", 128, 8), ("flat_wg", 128, 16),
+                             ("flat_wg", 128, 32), ("flat_tc", 1024, 16),
+                             ("flat_tc", 1024, 32)):
+        args = fs.random_flat_inputs("cuda", nq=1000, cap=100000, d=d,
+                                     seed=d + r_keep)
+        v, a = flat_launch(torch, fs, args, route, r_keep=r_keep,
                            euclidean=True)
         torch.cuda.synchronize()
         vr, ar = fs.flat_scan_ref(*args, r_keep=r_keep, euclidean=True)
         err = compare_topk(torch, v, a, vr, ar)
-        log(f"flat_scan (flat_tc) nq=1000 cap={cap} d={d} r_keep={r_keep}: "
+        log(f"flat_scan ({route}) nq=1000 cap=100000 d={d} r_keep={r_keep}: "
             f"max_abs_err {err:.3g}, addresses equal "
             f"{share_equal(a, ar):.5f}")
-    for d in (128, 1024):
+    for route, d in (("flat_wg", 64), ("flat_wg", 128), ("flat_tc", 1024)):
         args = fs.integer_flat_inputs("cuda", nq=1000, cap=100000, d=d,
                                       seed=d)
         for euclidean in (True, False):
-            v, a = flat_launch(torch, fs, args, "flat_tc", r_keep=16,
+            v, a = flat_launch(torch, fs, args, route, r_keep=16,
                                euclidean=euclidean)
             torch.cuda.synchronize()
             vr, ar = fs.flat_scan_ref(*args, r_keep=16, euclidean=euclidean)
             if not (torch.equal(v, vr) and torch.equal(a, ar)):
-                fail(f"flat_scan (flat_tc) differs from flat_scan_ref on "
+                fail(f"flat_scan ({route}) differs from flat_scan_ref on "
                      f"integer inputs (d={d}, euclidean={euclidean}): "
                      f"{share_equal(a, ar):.5f} of addresses equal")
         ties = int((vr[:, 1:] == vr[:, :-1]).sum())
-        log(f"flat_scan (flat_tc) integer inputs nq=1000 cap=100000 d={d}: "
+        log(f"flat_scan ({route}) integer inputs nq=1000 cap=100000 d={d}: "
             f"equal bit for bit, values and addresses ({ties} tied "
             f"neighbours in the lists)")
+
+
+def parent_flat_fn(torch, fs, args, kw):
+    """(launch, out): a closure that launches the parent tree's mma.sync
+    flat scan (PARENT["flat"]: csrc/flat_scan_tc.cu, at d <= 128 the
+    parent's route for bf16 caches) on args into out, uncounted, and
+    returns its CUDA return code (its warps and split as the parent's
+    wrapper chose them: ops/flat_scan.py:tc_splits); (None, None) where
+    --parent gave no such source."""
+    import ctypes
+    lib = PARENT.get("flat")
+    if lib is None:
+        return None, None
+    query, decoded, penalty = args
+    nq, d = query.shape
+    cap, r_keep = decoded.shape[0], kw["r_keep"]
+    lib.torchpq_flat_scan_tc_smem.argtypes = [ctypes.c_int] * 3
+    lib.torchpq_flat_scan_tc_smem.restype = ctypes.c_longlong
+    warps = next(w for w in (8, 4, 2, 1)
+                 if lib.torchpq_flat_scan_tc_smem(w, d, r_keep)
+                 <= fs._SMEM_LIMIT)
+    per_sm = lib.torchpq_flat_scan_tc_occupancy(warps, d, r_keep)
+    if per_sm <= 0:
+        fail(f"--parent: flat_scan_tc.cu takes no CTA of {warps} warps "
+             f"(CUDA error {-per_sm})")
+    split, n_splits = fs.tc_splits(
+        nq, cap, 32 * warps, per_sm,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    qtable = query.to(torch.bfloat16).contiguous()
+    part_v = torch.empty((n_splits, nq, r_keep), dtype=torch.float32,
+                         device="cuda")
+    part_a = torch.empty_like(part_v, dtype=torch.int32)
+    out = (torch.empty((nq, r_keep), dtype=torch.float32, device="cuda"),
+           torch.empty((nq, r_keep), dtype=torch.int32, device="cuda"))
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        return lib.torchpq_flat_scan_tc(
+            qtable.data_ptr(), penalty.data_ptr(), decoded.data_ptr(),
+            part_v.data_ptr(), part_a.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), nq, cap, d, r_keep, split, n_splits,
+            int(kw["euclidean"]), warps, stream)
+    return launch, out
 
 
 def capture_call(tp, index, xq, k, module=None, name="block_scan",
@@ -1922,18 +1998,21 @@ def codes_rows(torch, tp, bs, cs, code, xq, k, label, suffix=""):
     return rows
 
 
-def profile_search(torch, search, what, host_ops=False):
+def profile_search(torch, search, what, host_ops=False, expect=None):
     """torch.profiler over one call of search() after a warm-up one:
     device-busy time (the sum of the kernels' own device times) and the
     largest kernels; with host_ops also the host's wall time and its
     largest operators by self CPU time. A session that records no kernel
-    is run once more; a second such session fails the run. Returns (busy
-    ms, [(kernel name, device ms)] largest first)."""
+    (or, given `expect`, no kernel whose name holds it) is run again, up to
+    PROFILE_TRIES sessions; where none records a kernel the profile is
+    logged as not measured. Returns (busy ms, [(kernel name, device ms)]
+    largest first), or (None, []) where not measured."""
+    import gc
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     search()
     torch.cuda.synchronize()
-    for attempt in range(2):
+    for attempt in range(PROFILE_TRIES):
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1943,13 +2022,27 @@ def profile_search(torch, search, what, host_ops=False):
         kernels = sorted((e for e in prof.key_averages()
                           if e.device_type == DeviceType.CUDA),
                          key=lambda e: -e.self_device_time_total)
-        if kernels:
+        seen = expect is None or any(expect in e.key for e in kernels)
+        if kernels and seen:
             break
-        # the card's profiler can deliver no kernel records for a session
-        # that follows another (seen after profiling.trace): profile again
-        log(f"profile of {what}: no device time; profiling again")
+        # the card's profiler can deliver no kernel records, or some of
+        # them, for a session that follows others (seen after
+        # profiling.trace, after the GIST profiles on the pallas_flat plan,
+        # and mid-phase: a session of its own records them): profile again,
+        # the last session's state collected first
+        log(f"profile of {what}: " + ("no device time" if not kernels else
+                                      f"no {expect} recorded")
+            + "; profiling again")
+        del prof
+        gc.collect()
+        time.sleep(1.0)
     if not kernels:
-        fail(f"profile of {what}: no device time")
+        log(f"profile of {what}: the profiler recorded no kernel in "
+            f"{PROFILE_TRIES} sessions; device busy not measured")
+        return None, []
+    if not seen:
+        log(f"profile of {what}: no {expect} recorded in {PROFILE_TRIES} "
+            "sessions; its busy time below lacks it")
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     top = "; ".join(f"{e.key[:48]} x{e.count} "
                     f"{e.self_device_time_total / 1e3:.3f} ms"
@@ -1967,13 +2060,15 @@ def profile_search(torch, search, what, host_ops=False):
     return busy, by_name
 
 
-def phase_profile(torch, index, xq, k, label="", plans=None):
-    """profile_search over one search per plan of an index."""
+def phase_profile(torch, index, xq, k, label="", plans=None, expect=None):
+    """profile_search over one search per plan of an index (expect: a
+    kernel each search must show, else it is profiled again)."""
     for mode, n_probe, approx in plans or PLANS:
         index.scan_mode, index.n_probe = mode, n_probe
         index.use_approx_topk = approx
         profile_search(torch, lambda: index.search(xq.T, k=k),
-                       f"{label}{mode} n_probe={n_probe} approx={approx}")
+                       f"{label}{mode} n_probe={n_probe} approx={approx}",
+                       expect=expect)
 
 
 def build_index(torch, tp, trained, base, *, d, m, n_cells, per_cell,
@@ -3256,7 +3351,8 @@ def phase_precision(torch, tp, sl):
                     gemm = [(name, ms) for name, ms in kernels
                             if re.search(r"gemm|xmma|cutlass|nvjet", name,
                                          re.I)]
-                    row["flat_gemm_device_ms"] = sum(x for _, x in gemm)
+                    row["flat_gemm_device_ms"] = (
+                        sum(x for _, x in gemm) if kernels else None)
                     row["flat_gemm_kernels"] = [name[:60] for name, _ in gemm]
                 elif tp.ops.adc.LAST_GATE.get("precision") != p:
                     fail(f"precision {p}: the scan recorded "
@@ -3549,13 +3645,15 @@ def phase_aniso_manhattan(torch, tp, bs, cs, sl):
 def phase_pallas_flat(torch, tp, fs, sl):
     """scan_impl="pallas_flat" on the main index: the flat plan through the
     fused flat scan (its counters zeroed before, read after; the bf16
-    cache must take the tensor-core kernel), held to the exact flat plan
-    run in the same call (ids >= 0.98, recall within 0.01), both timed;
-    then the kernel against flat_scan_ref on the plan's own arguments,
-    timed in turns with the CUDA-core kernel on the same arguments, and a
-    yardstick of the product alone (bf16 torch.matmul over a slice of the
-    cache, scaled to the whole). Returns (launch counts, the kernel's JSON
-    row)."""
+    cache must take the warp-specialised kernel, "flat_wg", and no other),
+    held to the exact flat plan run in the same call (ids >= 0.98, recall
+    within 0.01), both timed; then the kernel against flat_scan_ref on the
+    plan's own arguments, timed in turns with the CUDA-core kernel on the
+    same arguments and, with --parent, with the parent tree's
+    csrc/flat_scan_tc.cu (its mma.sync kernel, the parent's route here),
+    and a yardstick of the product alone (bf16 torch.matmul over a slice of
+    the cache, scaled to the whole) and the kernel at half the width.
+    Returns (launch counts, the kernel's JSON row)."""
     index, xq, gt, k = (sl[x] for x in ("index", "xq", "gt", "k"))
     index.scan_mode, index.use_approx_topk = "flat", True
 
@@ -3577,10 +3675,11 @@ def phase_pallas_flat(torch, tp, fs, sl):
     index.scan_impl = "pallas_flat"
     (v, i), kern_ms = timed()
     counts = dict(fs.launches)
-    if counts["flat_tc"] <= 0 or tp.ops.flat_adc.LAST_FLAT["impl"] != \
-            "flat_scan":
-        fail("the pallas_flat flat plan did not launch the tensor-core flat "
-             f"kernel: {counts}")
+    if counts["flat_wg"] <= 0 or any(n for key, n in counts.items()
+                                     if key != "flat_wg") \
+            or tp.ops.flat_adc.LAST_FLAT["impl"] != "flat_scan":
+        fail("the pallas_flat flat plan did not launch the warp-specialised "
+             f"flat kernel alone: {counts}")
     agree = recall_at(i.long(), i_ref.long())
     r_k, r_s = recall_at(i.long(), gt), recall_at(i_ref.long(), gt)
     log(f"pallas_flat flat plan: {kern_ms:.2f} ms ({xq.shape[0] / kern_ms * 1e3:.0f} q/s), "
@@ -3597,7 +3696,7 @@ def phase_pallas_flat(torch, tp, fs, sl):
     args, kw = capture_call(tp, index, xq, k, module=tp.ops.flat_adc,
                             name="flat_scan")
     index.scan_impl = "auto"
-    got = flat_launch(torch, fs, args, "flat_tc", **kw)
+    got = flat_launch(torch, fs, args, "flat_wg", **kw)
     torch.cuda.synchronize()
     ref = fs.flat_scan_ref(*args, **kw)
     err = compare_topk(torch, got[0][:, :k], got[1][:, :k], ref[0][:, :k],
@@ -3605,12 +3704,21 @@ def phase_pallas_flat(torch, tp, fs, sl):
     q, dec = args[0], args[1]
     nq, d = q.shape
     cap = dec.shape[0]
-    # in turns: CUDA cores, tensor cores, tensor cores, CUDA cores
-    times = {"flat": [], "flat_tc": []}
-    for route in ("flat", "flat_tc", "flat_tc", "flat"):
-        times[route].append(cuda_ms(torch, lambda: flat_launch(
-            torch, fs, args, route, **kw), 3 if route == "flat" else 10))
-    ms, cc_ms = (float(np.mean(times[r])) for r in ("flat_tc", "flat"))
+    # in turns: CUDA cores, wgmma, wgmma, CUDA cores; then, with --parent,
+    # the parent's mma.sync kernel, wgmma, wgmma, the parent's
+    t, turns = in_turns(torch, {
+        "flat": lambda: flat_launch(torch, fs, args, "flat", **kw),
+        "flat_wg": lambda: flat_launch(torch, fs, args, "flat_wg", **kw)},
+        3)
+    ms, cc_ms = t["flat_wg"], t["flat"]
+    row = {}
+    launch_parent, out_parent = parent_flat_fn(torch, fs, args, kw)
+    if launch_parent is not None:
+        row.update(parent_turns(
+            torch, [None, got[1]], out_parent[1], launch_parent,
+            lambda: flat_launch(torch, fs, args, "flat_wg", **kw)[1],
+            "the pallas_flat plan's flat scan",
+            "csrc/flat_scan_tc.cu (mma.sync)", "parent_flat"))
     plain_ms = cuda_ms(torch, lambda: fs.flat_scan_ref(*args, **kw), 2)
     flop = 2.0 * nq * cap * d
     b_ms, b_by = bound(flop, cap * d * dec.element_size() + cap * 4
@@ -3622,29 +3730,30 @@ def phase_pallas_flat(torch, tp, fs, sl):
     # the same queries and slots at d = 64: half the products, the same
     # epilogue, which splits the kernel's time between the two
     half = fs.random_flat_inputs("cuda", nq=nq, cap=cap, d=d // 2, seed=1)
-    half_ms = cuda_ms(torch, lambda: flat_launch(torch, fs, half, "flat_tc",
+    half_ms = cuda_ms(torch, lambda: flat_launch(torch, fs, half, "flat_wg",
                                                  **kw), 10)
     del half
     log(f"flat_scan on the plan's arguments (nq={nq}, cap={cap}, d={d}, "
-        f"r_keep={kw['r_keep']}): tensor cores {ms:.3f} ms "
-        f"({' / '.join(f'{t:.3f}' for t in times['flat_tc'])}; "
+        f"r_keep={kw['r_keep']}): flat_wg {ms:.3f} ms "
+        f"({' / '.join(f'{x:.3f}' for x in turns['flat_wg'])}; "
         f"{flop / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.1%} of the bound), CUDA "
         f"cores {cc_ms:.3f} ms "
-        f"({' / '.join(f'{t:.3f}' for t in times['flat'])}; "
+        f"({' / '.join(f'{x:.3f}' for x in turns['flat'])}; "
         f"{flop / cc_ms / 1e9:.2f} TFLOP/s), speed-up {cc_ms / ms:.2f}x; "
         f"plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), "
         f"max_abs_err {err:.3g}")
     log(f"flat_scan yardstick, the product alone (bf16 torch.matmul "
         f"[{nq}, {d}] x [{d}, {sl_rows}], scaled to cap): {mm_ms:.3f} ms "
-        f"({flop / mm_ms / 1e9:.2f} TFLOP/s); tensor cores at d={d // 2} "
+        f"({flop / mm_ms / 1e9:.2f} TFLOP/s); flat_wg at d={d // 2} "
         f"(half the products, the same epilogue): {half_ms:.3f} ms")
     return counts, dict(
         name="flat_scan", route="cuda",
-        source="torchpq_tpu_torch/csrc/flat_scan_tc.cu",
+        source="torchpq_tpu_torch/csrc/flat_scan_wg.cu",
         replaces="torchpq_tpu/ops/pallas_flat.py:139", max_abs_err=err,
         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=None, cuda_core_ms=cc_ms,
-        cuda_core_source="torchpq_tpu_torch/csrc/flat_scan.cu")
+        cuda_core_source="torchpq_tpu_torch/csrc/flat_scan.cu",
+        matmul_ms=mm_ms, half_width_ms=half_ms, **row)
 
 
 # the GIST-class phase's searches
@@ -5196,8 +5305,9 @@ def main():
         elif "Performance Loss" in line:  # wgmma serialized (C7520)
             log("ptxas: " + line.strip())
     # the block scan's warp-specialised instances, the deep codes one
-    # among them: no spill, no stack frame
-    checked = sorted(x for x in report if WG_KERNEL.search(x))
+    # among them, and the flat scan's: no spill, no stack frame
+    checked = sorted(x for x in report
+                     if WG_KERNEL.search(x) or FLAT_WG_KERNEL.search(x))
     for name in checked:
         rep = report[name]
         regs = re.search(r"Used (\d+) registers", rep)
@@ -5209,9 +5319,10 @@ def main():
         if not regs or len(frame) != 3 or any(frame):
             fail(f"ptxas reports a stack frame or spills for {name} (or no "
                  f"report): {rep.strip()!r}")
-    if len(checked) != N_WG_KERNELS or DEEP_CODES_KERNEL not in checked:
+    if len(checked) != N_WG_KERNELS + 1 or DEEP_CODES_KERNEL not in checked \
+            or not any(FLAT_WG_KERNEL.search(x) for x in checked):
         fail(f"ptxas reported {checked}, not the {N_WG_KERNELS} checked "
-             f"instances")
+             f"block-scan instances and the flat scan")
     # the warp-specialised instances: warpgroup products and TMA loads
     SASS.update(sass_counts(torch, lib.path))
     if args.parent:
@@ -5282,7 +5393,8 @@ def main():
                   plans=GIST_PLANS)
     sl["index"].scan_impl = "pallas_flat"
     phase_profile(torch, sl["index"], sl["xq"], sl["k"],
-                  label="pallas_flat ", plans=[("flat", 1, True)])
+                  label="pallas_flat ", plans=[("flat", 1, True)],
+                  expect="flat_scan_wg_kernel")
     sl["index"].scan_impl = "auto"
     log(f"phases 4-19: {time.perf_counter() - t_start:.1f} s")
     phase_planner(torch, tp, card)
@@ -5352,7 +5464,7 @@ def main():
              pqrc_launches["codes_scan_pack32_pqr_k100"]),
             ("codes_scan_pack32_pqr_k100_np8", pqrc_rows,
              pqrc_launches["codes_scan_pack32_pqr_k100_np8"]),
-            ("flat_scan", {"flat_scan": flat_row}, flat_counts["flat_tc"]),
+            ("flat_scan", {"flat_scan": flat_row}, flat_counts["flat_wg"]),
             ("gather_rows", krows, counts["gather"])):
         # launches on the sharded path (phase 24), per rank, D = 1 and 2
         tier, key = SHARDED_KEYS.get(name, (None, None))

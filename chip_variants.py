@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Variant builds of the block scan, timed in turns with the built library
-on the JAX package's GIST records' arguments (k-chunked rows), on narrow
-random inputs (d 128, --narrow), on random inputs at the deep pack32 rows'
-shapes (--deep, also against a parent tree's build) or, for the codes
-instances, on random codes at the code domain's window (--codes), on one
-CUDA card:
+"""Variant builds of the block scan and the fused flat scan, timed in turns
+with the built library on the JAX package's GIST records' arguments
+(k-chunked rows), on narrow random inputs (d 128, --narrow), on random
+inputs at the deep pack32 rows' shapes (--deep, also against a parent
+tree's build), for the codes instances on random codes at the code
+domain's window (--codes), or for the flat scan on the flat plan's own
+arguments (--flat), on one CUDA card:
 
     python3 chip_variants.py                       # every variant and tier
     python3 chip_variants.py --variants wg8_ring4 --tiers int8
@@ -13,6 +14,7 @@ CUDA card:
     python3 chip_variants.py --variants wgc_noearly,wgc_pass4 --codes
     python3 chip_variants.py --codes --parent DIR --variants wgc_deep_all
     python3 chip_variants.py --deep --parent DIR --variants wgd_noprune
+    python3 chip_variants.py --flat                # the fused flat scan
 
 On each of the records' searches (1M x 960 manifold-12, seed 1, IVF4096 x
 PQ64, spill 8 cells at 512, scan_group 4: bf16 pack32 k = 10 and k = 100
@@ -65,7 +67,22 @@ with the package's nvcc flags into its own library under
             by two; wgc_deep_all: pack32 above k_pair 16 all by the deep
             select (the passes instance of 17-32 unused); wgc_passes35: the
             passes up to k_pair 35; wgc_deep_ring4: the deep instance on
-            four stages (where they fit: a row they do not is skipped).
+            four stages (where they fit: a row they do not is skipped);
+  - fwg_*: (the fused flat scan's warp-specialised kernel,
+            csrc/flat_scan_wg.cu; --flat, on the flat plan's own arguments
+            at chip_smoke's main shape) fwg_noprune: every bucket's top 2
+            offered to the lists (the bucket maxima's test against the rows'
+            bounds off); fwg_novote: the votes never pass (the thinned path
+            alone, wrong lists); fwg_noshare: no run publishes its bound
+            (each run's lists fill from nothing); fwg_noepi: the epilogue
+            elided (products only, wrong lists); fwg_rotate: the consumer
+            warpgroups' products in turns (a ping-pong of three); fwg_count,
+            fwg_clock: counts of the votes, passes and insert rounds, and a
+            consumer warp's cycles by part (their times not timed);
+            fwg_wg4, fwg_wg4_noepi: four consumer warpgroups (256 queries
+            a CTA, 640 threads, registers 24 / 112), with the epilogue and
+            without; fwg_ring_less: one ring stage fewer; and the built
+            kernel at other run counts.
 It prints each variant's ptxas report for the k-chunked and
 warp-specialised instances; --ptxas-only stops there.
 Imports nothing of JAX."""
@@ -83,6 +100,23 @@ import torch
 
 import chip_smoke as cs
 
+FWG_WG4 = [("flat_scan_wg.cu", "constexpr int THREADS = 512;",
+            "constexpr int THREADS = 640;"),
+           ("flat_scan_wg.cu", "constexpr int PRODUCER_REGS = 32;",
+            "constexpr int PRODUCER_REGS = 24;"),
+           ("flat_scan_wg.cu", "constexpr int CONSUMER_REGS = 160;",
+            "constexpr int CONSUMER_REGS = 112;"),
+           ("flat_scan_wg.cu", "constexpr int CONSUMERS = 3;",
+            "constexpr int CONSUMERS = 4;"),
+           ("flat_select.cuh", "constexpr int QROWS = 192;",
+            "constexpr int QROWS = 256;")]
+FWG_NOEPI = [("flat_scan_wg.cu",
+              "fsel::tile_votes(w, sc, bound, floors, pass, vote);",
+              "(void)sc;"),
+             ("flat_scan_wg.cu",
+              "          fsel::tile_offers(w, sc, pass, vote, bound, floors, "
+              "own, lst_v,\n                            lst_a, off, r_keep, "
+              "ts);", "")]
 VARIANTS = {
     "wg8_ring4": [("wg_layout.cuh", "constexpr int RING_EXACT_10 = 5;",
                    "constexpr int RING_EXACT_10 = 4;"),
@@ -182,8 +216,137 @@ VARIANTS = {
                    ("block_scan_wg.cu",
                     "constexpr int CODES_CONSUMER_REGS = 224;",
                     "constexpr int CODES_CONSUMER_REGS = 232;")],
+    # the fused flat scan's warp-specialised kernel (--flat): the pruning
+    # off (every bucket's top 2 offered to the lists, which test it against
+    # their last entry); the votes never passing (bucket maxima, tests and
+    # votes, but no top 2 or insert: wrong lists, what the thinned path
+    # costs); the runs' shared bound off (nothing published); the epilogue
+    # elided (products only: wrong lists, what the products cost); one ring
+    # stage fewer
+    "fwg_noprune": [("flat_select.cuh",
+                     "      p[rr] = m[b][rr] > fmaxf(bound[rr], floors[rr]);",
+                     "      p[rr] = true;")],
+    "fwg_novote": [("flat_select.cuh",
+                    "    vote |= (unsigned)w.any(p[0] || p[1]) << b;",
+                    "    vote |= (unsigned)(w.any(p[0] || p[1]) && "
+                    "bound[0] > 3e38f) << b;")],
+    # counts (wrong times, the same lists): the votes, those that pass, the
+    # row halves among them holding a passing row, and the insert rounds
+    # (passing rows whose pair goes in), read back by fwg_counts
+    "fwg_count": [("flat_select.cuh", "namespace fsel {\n",
+                   "namespace fsel {\n"
+                   "__device__ unsigned long long counts[4];\n"),
+                  ("flat_select.cuh",
+                   "    vote |= (unsigned)w.any(p[0] || p[1]) << b;\n",
+                   "    vote |= (unsigned)w.any(p[0] || p[1]) << b;\n"
+                   "#ifdef __CUDA_ARCH__\n"
+                   "    {\n"
+                   "      const bool h0 = w.any(p[0]), h1 = w.any(p[1]);\n"
+                   "      if (w.lane() == 0) {\n"
+                   "        atomicAdd(&counts[0], 1ull);\n"
+                   "        if (h0 || h1) atomicAdd(&counts[1], 1ull);\n"
+                   "        atomicAdd(&counts[2], (unsigned long long)(h0 + h1));"
+                   "\n"
+                   "      }\n"
+                   "    }\n#endif\n"),
+                  ("flat_select.cuh", "    todo &= todo - 1;\n",
+                   "    todo &= todo - 1;\n#ifdef __CUDA_ARCH__\n"
+                   "    if (i == 0) atomicAdd(&counts[3], 1ull);\n#endif\n"),
+                  ("flat_scan_wg.cu", "// Dynamic shared memory of one CTA",
+                   "extern \"C\" int fwg_counts(unsigned long long* out) {\n"
+                   "  const unsigned long long zero[4] = {0, 0, 0, 0};\n"
+                   "  int rc = (int)cudaMemcpyFromSymbol(out, tpq::fsel::counts,"
+                   " 32);\n"
+                   "  return rc ? rc : (int)cudaMemcpyToSymbol("
+                   "tpq::fsel::counts, zero, 32);\n}\n\n"
+                   "// Dynamic shared memory of one CTA")],
+    # a consumer warp's clock (wrong times, the same lists): cycles waiting
+    # for a tile's stages, from then to the products' end, in the votes, in
+    # the offers; votes passed; tiles; read back by fwg_clocks
+    "fwg_clock": [("flat_scan_wg.cu", "    float acc[2][8][4];  // [bucket]",
+                   "    float acc[2][8][4];  // [bucket]\n"
+                   "    long long ck[6] = {0, 0, 0, 0, 0, 0};\n"
+                   "    long long tq = 0;"),
+                  ("flat_scan_wg.cu",
+                   "        mbar_wait(full + sa, (g / nring) & 1);",
+                   "        tq = clock64();\n"
+                   "        mbar_wait(full + sa, (g / nring) & 1);"),
+                  ("flat_scan_wg.cu",
+                   "        const float* pen = pen_s + (nst > 1 ? sb : sa) * "
+                   "BOX_ROWS;",
+                   "        ck[0] += clock64() - tq;\n        tq = clock64();\n"
+                   "        const float* pen = pen_s + (nst > 1 ? sb : sa) * "
+                   "BOX_ROWS;"),
+                  ("flat_scan_wg.cu", "          wgmma_wait_all();\n",
+                   "          wgmma_wait_all();\n"
+                   "          ck[1] += clock64() - tq;\n          tq = clock64();"
+                   "\n"),
+                  ("flat_scan_wg.cu",
+                   "          fsel::tile_votes(w, sc, bound, floors, pass, vote);",
+                   "          fsel::tile_votes(w, sc, bound, floors, pass, vote);"
+                   "\n          ck[2] += clock64() - tq;\n          tq = clock64();"
+                   "\n          ck[4] += __popc(vote);"),
+                  ("flat_scan_wg.cu",
+                   "                            lst_a, off, r_keep, ts);\n",
+                   "                            lst_a, off, r_keep, ts);\n"
+                   "          ck[3] += clock64() - tq;\n"),
+                  ("flat_scan_wg.cu", "        g += nst;\n",
+                   "        ck[5] += 1;\n        g += nst;\n"),
+                  ("flat_scan_wg.cu", "      // the owned row's sorted top R of the run",
+                   "      if (lane == 0) {\n"
+                   "        for (int i = 0; i < 6; ++i) {\n"
+                   "          atomicAdd(&fwg_clock[i], (unsigned long long)ck[i]);"
+                   "\n          ck[i] = 0;\n"
+                   "        }\n"
+                   "      }\n"
+                   "      // the owned row's sorted top R of the run"),
+                  ("flat_scan_wg.cu",
+                   "// nring: ring stages (fsel::ring_of); split:",
+                   "__device__ unsigned long long fwg_clock[6];\n\n"
+                   "// nring: ring stages (fsel::ring_of); split:"),
+                  ("flat_scan_wg.cu", "// Dynamic shared memory of one CTA",
+                   "extern \"C\" int fwg_clocks(unsigned long long* out) {\n"
+                   "  const unsigned long long zero[6] = {0, 0, 0, 0, 0, 0};\n"
+                   "  int rc = (int)cudaMemcpyFromSymbol(out, fwg_clock, 48);\n"
+                   "  return rc ? rc : (int)cudaMemcpyToSymbol(fwg_clock, zero, "
+                   "48);\n}\n\n"
+                   "// Dynamic shared memory of one CTA")],
+    # the consumer warpgroups' products in turns (a ping-pong of three: each
+    # issues after the previous one's products end, so that its scores run
+    # beside the others' products)
+    "fwg_rotate": [("flat_scan_wg.cu",
+                    "constexpr int CONSUMER_WARPS = 4 * CONSUMERS;",
+                    "constexpr int CONSUMER_WARPS = 4 * CONSUMERS;\n"
+                    "constexpr int BAR_TURN = 1;"),
+                   ("flat_scan_wg.cu",
+                    "        if (live) {\n          wgmma_fence();",
+                    "        if (g > 0 || h > 0) named_barrier(BAR_TURN + h, 256);"
+                    "\n        if (live) {\n          wgmma_fence();"),
+                   ("flat_scan_wg.cu",
+                    "          wgmma_wait_all();\n          fence_acc(acc[0]);",
+                    "          wgmma_wait_all();\n        }\n"
+                    "        asm volatile(\"bar.arrive %0, %1;\" :: \"r\"("
+                    "BAR_TURN + (h + 1) % CONSUMERS), \"r\"(256) : "
+                    "\"memory\");"
+                    "\n        if (live) {\n          fence_acc(acc[0]);"),
+                   ("flat_scan_wg.cu",
+                    "    }\n  }\n}\n\n// The 2-D tensor map of a bf16 matrix",
+                    "    }\n    if (h == 0 && g > 0) named_barrier(BAR_TURN, 256);"
+                    "\n  }\n}\n\n// The 2-D tensor map of a bf16 matrix")],
+    "fwg_noshare": [("flat_scan_wg.cu", "atomicMax(gkey + q, key);",
+                     "(void)key;")],
+    "fwg_noepi": FWG_NOEPI,
+    # four consumer warpgroups of one m64 tile (256 queries a CTA, the cache
+    # read from L2 a quarter fewer times), registers 24 / 112; and so with
+    # the epilogue elided
+    "fwg_wg4": FWG_WG4,
+    "fwg_wg4_noepi": FWG_WG4 + FWG_NOEPI,
+    "fwg_ring_less": [("flat_select.cuh",
+                       "? MAX_RING : ring_fit(d, r_keep);",
+                       "? MAX_RING - 1 : ring_fit(d, r_keep) - 1;")],
 }
 SOURCES = ("block_scan.cu", "block_scan_wg.cu")
+FLAT_SOURCES = ("flat_scan_wg.cu",)
 
 
 def ptxas(log, tag):
@@ -195,7 +358,8 @@ def ptxas(log, tag):
         if m:
             kernel = cs.kernel_name(m.group(1))
         elif ("registers" in line or "spill" in line) and \
-                "block_scan_wg_kernel" in kernel:
+                ("block_scan_wg_kernel" in kernel or
+                 "flat_scan_wg_kernel" in kernel):
             print(f"ptxas {tag} {kernel}: {line.strip()}", flush=True)
 
 
@@ -210,11 +374,12 @@ def build_variant(_build, name, edits):
             cs.fail(f"variant {name}: {old!r} not in {fname}")
         (src / fname).write_text(text.replace(old, new))
     nvcc = _build._nvcc()
-    objs = [src / (f + ".o") for f in SOURCES]
+    sources = FLAT_SOURCES if name.startswith("fwg") else SOURCES
+    objs = [src / (f + ".o") for f in sources]
     procs = [subprocess.Popen(
         [nvcc, *_build.NVCC_FLAGS, "-c", str(src / f), "-o", str(o)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for f, o in zip(SOURCES, objs)]
+        for f, o in zip(sources, objs)]
     log = "".join(p.communicate()[0] for p in procs)
     if any(p.returncode for p in procs):
         cs.fail(f"variant {name}: nvcc failed:\n{log}")
@@ -479,10 +644,110 @@ def narrow_turns(torch, bs, lib, libs):
         del args
 
 
+# the runs of the flat plan's cache timed with the built library beside
+# wg_splits' choice (13 at the plan's 1M slots and 10k queries)
+FLAT_SPLITS = (3, 6, 12, 24)
+
+
+def flat_turns(torch, tp, lib, libs):
+    """The fused flat scan's warp-specialised kernel (csrc/flat_scan_wg.cu)
+    of the built library and of each fwg_* variant in turns (built,
+    variant, variant, built; 5 launches a turn) on the flat plan's own
+    arguments: chip_smoke's main shape (1M x 128 manifold-12, seed 0,
+    IVF4096 x PQ64 trained on 100k, four adds), scan_impl="pallas_flat",
+    k = 10 (r_keep 16); each variant's lists held to the built one's
+    (equal but for fwg_noepi); then the built kernel at other run counts
+    (n_splits) beside wg_splits' choice, in turns."""
+    from torchpq_tpu_torch.ops import flat_scan as fs
+    base, query = cs.make_data(1_000_000, 10_000, 128)
+    index = tp.IVFPQIndex(d_vector=128, n_subvectors=64, n_cells=4096,
+                          initial_size=732, distance="euclidean",
+                          device="cuda")
+    index.train(torch.from_numpy(base[:100_000]).cuda().T)
+    trained = {**index.vq_codec.state_dict("vq_codec."),
+               **index.pq_codec.state_dict("pq_codec.")}
+    del index
+    index, _ = cs.build_index(torch, tp, trained, base, d=128, m=64,
+                              n_cells=4096, per_cell=732, cache=None)
+    xq = torch.from_numpy(query).cuda()
+    index.scan_mode, index.use_approx_topk = "flat", True
+    index.scan_impl = "pallas_flat"
+    args, kw = cs.capture_call(tp, index, xq, 10, module=tp.ops.flat_adc,
+                               name="flat_scan")
+    del index
+    torch.cuda.empty_cache()
+    stream = torch.cuda.current_stream().cuda_stream
+    nq, d = args[0].shape
+    cap = args[1].shape[0]
+    flop = 2.0 * nq * cap * d
+    what = f"flat_wg nq={nq} cap={cap} d={d} r_keep={kw['r_keep']}"
+
+    def run(which, **extra):
+        return fs.launch(which, stream, *args, route="flat_wg", **kw,
+                         **extra)
+
+    ref = run(lib)
+    torch.cuda.synchronize()
+    for name, vlib in libs.items():
+        if name == "fwg_clock":
+            clocks = (ctypes.c_ulonglong * 6)()
+            vlib.fwg_clocks(clocks)
+            run(vlib)
+            torch.cuda.synchronize()
+            vlib.fwg_clocks(clocks)
+            full, prod, votes, offers, passed, tiles = list(clocks)
+            print(f"{what} (fwg_clock): a consumer warp's cycles a tile, "
+                  f"{tiles} warp-tiles: waiting for the stages "
+                  f"{full / tiles:.0f}, products (issue to end) "
+                  f"{prod / tiles:.0f}, votes {votes / tiles:.0f}, offers "
+                  f"{offers / tiles:.0f} ({passed / tiles:.4f} votes passed "
+                  f"a tile, {offers / max(passed, 1):.0f} cycles each)",
+                  flush=True)
+            continue
+        if name == "fwg_count":
+            counts = (ctypes.c_ulonglong * 4)()
+            vlib.fwg_counts(counts)
+            got = run(vlib)
+            torch.cuda.synchronize()
+            vlib.fwg_counts(counts)
+            votes, passed, halves, rounds = list(counts)
+            print(f"{what} (fwg_count): {votes} votes of 16 rows, "
+                  f"{passed} ({passed / votes:.4f}) passing, {halves} "
+                  f"passing row halves of 8 ({halves / (2 * votes):.4f} of "
+                  f"them); {rounds} insert rounds "
+                  f"({rounds / max(passed, 1):.2f} a passing vote, "
+                  f"{rounds / nq:.1f} a query); lists equal: "
+                  f"{torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])}",
+                  flush=True)
+            continue
+        if not name.startswith("fwg"):
+            continue
+        got = run(vlib)
+        torch.cuda.synchronize()
+        equal = torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        t, turns = cs.in_turns(torch, {"built": lambda: run(lib),
+                                       name: lambda: run(vlib)}, 5)
+        print(f"{what}: built {t['built']:.3f} ms "
+              f"{[round(x, 3) for x in turns['built']]}, {name} "
+              f"{t[name]:.3f} ms {[round(x, 3) for x in turns[name]]} "
+              f"({flop / t[name] / 1e9:.1f} TFLOP/s), lists equal to the "
+              f"built kernel's: {equal}", flush=True)
+    chosen = fs.wg_splits(nq, cap, torch.cuda.get_device_properties(0)
+                          .multi_processor_count)[1]
+    fns = {f"n_splits {n}": (lambda n=n: run(lib, n_splits=n))
+           for n in FLAT_SPLITS}
+    t, turns = cs.in_turns(torch, fns, 5)
+    print(f"{what}, wg_splits' choice {chosen}: " + ", ".join(
+        f"{k} {t[k]:.3f} ms {[round(x, 3) for x in turns[k]]}"
+        for k in fns), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--variants", default=",".join(VARIANTS),
-                    help="comma-separated names of VARIANTS ('' for none)")
+    ap.add_argument("--variants", default=None,
+                    help="comma-separated names of VARIANTS ('' for none; "
+                    "default: the fwg_* ones with --flat, the others "
+                    "without)")
     ap.add_argument("--tiers", default="bf16,int8",
                     help="the records' caches to time: bf16, int8")
     ap.add_argument("--ptxas-only", action="store_true",
@@ -498,6 +763,9 @@ def main():
                     help="check the deep pack32 instances and time them in "
                     "turns with --parent's and the variants (deep_turns) "
                     "and stop")
+    ap.add_argument("--flat", action="store_true",
+                    help="time the fwg_* variants of the fused flat scan on "
+                    "the flat plan's arguments (flat_turns) and stop")
     ap.add_argument("--parent", default=None,
                     help="with --deep or --codes: a checkout of the parent "
                     "tree, whose block_scan_wg.cu, block_scan_tc.cu and "
@@ -512,7 +780,9 @@ def main():
     from torchpq_tpu_torch.ops import block_scan as bs
     lib = _build.library()
     ptxas(lib.build_log, "built")
-    names = list(filter(None, opts.variants.split(",")))
+    names = (list(filter(None, opts.variants.split(",")))
+             if opts.variants is not None else
+             [n for n in VARIANTS if n.startswith("fwg") == opts.flat])
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
         built = pool.map(lambda n: build_variant(_build, n, VARIANTS[n]),
                          names)
@@ -526,6 +796,9 @@ def main():
         return
     if opts.narrow:
         narrow_turns(torch, bs, lib, libs)
+        return
+    if opts.flat:
+        flat_turns(torch, tp, lib, libs)
         return
     if opts.codes:
         if opts.parent:
@@ -575,7 +848,7 @@ def main():
                 print(f"{what} built: keys equal to the f64-summed select "
                       f"{cs.share_equal(out[live], f64):.6f}", flush=True)
             for name, vlib in libs.items():
-                if name.startswith("wgn") or \
+                if name.startswith(("wgn", "fwg")) or \
                         name.startswith("wg") != route.startswith("tc_wg_"):
                     continue  # a variant of another route's instances
                 out = bs.launch(vlib, stream, *args, route=route, **kkw)

@@ -109,26 +109,43 @@ def test_flat_scan_ref_integer_ties_match_pallas(distance):
 
 
 @pytest.mark.parametrize("dtype,d,route", [
-    (torch.bfloat16, 128, "flat_tc"), (torch.bfloat16, 1024, "flat_tc"),
-    (torch.bfloat16, 8, "flat_tc"), (torch.bfloat16, 40, "flat_tc"),
+    (torch.bfloat16, 128, "flat_wg"), (torch.bfloat16, 1024, "flat_tc"),
+    (torch.bfloat16, 8, "flat_wg"), (torch.bfloat16, 40, "flat_wg"),
     (torch.bfloat16, 100, "flat"), (torch.bfloat16, 1032, "flat"),
-    (torch.float32, 128, "flat"), (torch.float32, 1024, "flat")])
+    (torch.float32, 128, "flat"), (torch.float32, 1024, "flat"),
+    (torch.bfloat16, 136, "flat_tc"), (torch.bfloat16, 72, "flat_wg"),
+    (torch.bfloat16, 16, "flat_wg"), (torch.bfloat16, 132, "flat")])
 def test_pick_route(dtype, d, route):
     """The wrapper's choice of kernel, made from the cache's dtype and
-    width before launch: the tensor cores take bf16 with d % 8 == 0 and
-    d <= 1024, the CUDA cores the rest."""
+    width before launch: for bf16 with d % 8 == 0 the warp-specialised
+    kernel up to d = 128 and the mma.sync one up to 1024, the CUDA cores
+    the rest."""
     assert fs.pick_route(dtype, d) == route
 
 
 def test_launch_refuses_a_route_that_does_not_take_the_cache(rng):
-    """Forcing the tensor-core route onto an f32 cache, or naming no known
-    route, raises before any kernel is touched."""
+    """Forcing a tensor-core route onto a cache it does not take (an f32
+    cache; flat_tc at d <= 128, flat_wg above), naming no known route, or
+    giving the run count to another route than flat_wg raises before any
+    kernel is touched."""
     q, y, pen = _inputs(rng, nq=4, cap=2048)
     args = [torch.from_numpy(q), to_t(y), torch.from_numpy(pen)]
     with pytest.raises(ValueError, match="tensor-core"):
         fs.launch(None, 0, *args, r_keep=8, euclidean=True, route="flat_tc")
     with pytest.raises(ValueError, match="route"):
         fs.launch(None, 0, *args, r_keep=8, euclidean=True, route="wgmma")
+    with pytest.raises(ValueError, match="warp-specialised"):
+        fs.launch(None, 0, *args, r_keep=8, euclidean=True, route="flat_wg")
+    bf16 = [args[0], args[1].to(torch.bfloat16), args[2]]
+    with pytest.raises(ValueError, match="tensor-core"):
+        fs.launch(None, 0, *bf16, r_keep=8, euclidean=True, route="flat_tc")
+    with pytest.raises(ValueError, match="n_splits"):
+        fs.launch(None, 0, *bf16, r_keep=8, euclidean=True, route="flat",
+                  n_splits=2)
+    q, y, pen = _inputs(rng, nq=4, cap=2048, d=136, dtype=jnp.bfloat16)
+    wide = [torch.from_numpy(q), to_t(y), torch.from_numpy(pen)]
+    with pytest.raises(ValueError, match="warp-specialised"):
+        fs.launch(None, 0, *wide, r_keep=8, euclidean=True, route="flat_wg")
 
 
 @pytest.mark.parametrize("nq,cap,rows,resident", [
@@ -148,6 +165,96 @@ def test_tc_splits(nq, cap, rows, resident):
         assert 2 * 132 <= ctas <= 4 * 132 * resident
     else:
         assert n_splits == n_windows
+
+
+@pytest.mark.parametrize("nq,cap,ctas", [
+    (10000, 1 << 20, 132), (1, 2048, 132), (63, 20000, 132),
+    (10000, 4100, 132), (300, 1 << 20, 132), (10000, 1 << 20, 114),
+    (100000, 1 << 20, 132)])
+def test_wg_splits(nq, cap, ctas):
+    """The warp-specialised kernel's split: whole windows, the runs cover
+    the padded cache with no empty run, and no other split count of whole
+    windows gives its busiest CTA fewer windows to scan (units a CTA times
+    the run plus a unit's fixed window) or as few with fewer splits; at the
+    flat plan (10k queries = 53 tiles of 192, 512 windows, 132 SMs) 12 runs
+    of 43 windows, five waves."""
+    split, n_splits = fs.wg_splits(nq, cap, ctas)
+    assert split % fs.W == 0
+    assert split * n_splits >= cap > split * (n_splits - 1)
+    n_windows = -(-cap // fs.W)
+    q_tiles = -(-nq // 192)
+
+    def cost(r):
+        per = -(-n_windows // r)
+        return -(-q_tiles * r // ctas) * (per + 1)
+
+    whole = [r for r in range(1, n_windows + 1)
+             if -(-n_windows // -(-n_windows // r)) == r]
+    assert n_splits in whole
+    assert all(cost(r) > cost(n_splits) or
+               (cost(r) == cost(n_splits) and r >= n_splits)
+               for r in whole if -(-q_tiles * r // ctas) <= 64)
+    if (nq, cap, ctas) == (10000, 1 << 20, 132):
+        assert (split, n_splits) == (43 * fs.W, 12)
+
+
+def test_flat_wg_launch_sizes_the_grid(rng):
+    """launch(route="flat_wg") with a stand-in library: the wrapper folds c
+    into the bf16 query (x 2, exact, euclidean only), asks the occupancy
+    entry, sizes the persistent grid to the units (at most SMs x resident),
+    takes wg_splits' runs (or n_splits'), and hands the kernel the scratch
+    of those runs and the rows' shared bound keys, none published (INT_MIN);
+    a refused occupancy raises before any launch."""
+    q, y, pen = _inputs(rng, nq=300, cap=5000, d=64, dtype=jnp.bfloat16)
+    args = [torch.from_numpy(q), to_t(y), torch.from_numpy(pen)]
+    seen, tensors = {}, {}
+
+    class Lib:
+        occ = 1
+
+        def torchpq_flat_scan_wg_occupancy(self, d, r_keep):
+            seen["occupancy"] = (d, r_keep)
+            return self.occ
+
+        def torchpq_flat_scan_wg(self, qt, pen, dec, pv, pa, gk, ov, oa,
+                                 *rest):
+            seen["ints"] = rest[:7]
+            seen["q"], seen["part"] = tensors[qt], tensors[pv]
+            seen["gkey"] = tensors[gk].clone()
+            return 0
+
+    real_ptr = torch.Tensor.data_ptr
+
+    def data_ptr(t):
+        tensors[real_ptr(t)] = t
+        return real_ptr(t)
+
+    torch.Tensor.data_ptr = data_ptr
+    try:
+        for euclidean, n_splits in ((True, None), (False, 2)):
+            fs.launch(Lib(), 0, *args, r_keep=16, euclidean=euclidean,
+                      route="flat_wg", n_splits=n_splits)
+            nq, cap, d, r_keep, split, runs, n_ctas = seen["ints"]
+            assert (nq, cap, d, r_keep) == (300, 5000, 64, 16)
+            assert seen["occupancy"] == (64, 16)
+            want = torch.from_numpy(q).to(torch.bfloat16) * (
+                2 if euclidean else 1)
+            assert seen["q"].dtype == torch.bfloat16
+            assert torch.equal(seen["q"], want)
+            if n_splits is None:
+                assert (split, runs) == fs.wg_splits(300, 5000, 132)
+            else:
+                assert (split, runs) == (2 * fs.W, 2)
+            assert tuple(seen["part"].shape) == (runs, 300, 16)
+            assert torch.equal(seen["gkey"], torch.full(
+                (300,), torch.iinfo(torch.int32).min, dtype=torch.int32))
+            assert n_ctas == min(132, 2 * runs)  # two tiles of 192 queries
+        Lib.occ = -1
+        with pytest.raises(RuntimeError, match="no CTA"):
+            fs.launch(Lib(), 0, *args, r_keep=16, euclidean=True,
+                      route="flat_wg")
+    finally:
+        torch.Tensor.data_ptr = real_ptr
 
 
 def _data(seed, n, d=32):

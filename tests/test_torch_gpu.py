@@ -1686,7 +1686,7 @@ def test_flat_kernel_matches_plain(cuda, dtype, nq, cap, r_keep):
     version's GEMM (bf16 products are exact in f32), so values agree to
     1e-3 relative and addresses on >= 0.99 of entries (near ties may
     swap). cap 20000 is not a multiple of the 2048-slot window. bf16 at
-    d = 128 takes the tensor-core kernel, f32 the CUDA-core one."""
+    d = 128 takes the warp-specialised kernel, f32 the CUDA-core one."""
     args = fs.random_flat_inputs(cuda, nq=nq, cap=cap, dtype=dtype)
     route = fs.pick_route(dtype, 128)
     before = fs.launches[route]
@@ -1699,16 +1699,15 @@ def test_flat_kernel_matches_plain(cuda, dtype, nq, cap, r_keep):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [64, 128, 1024])
+@pytest.mark.parametrize("d", [136, 256, 1024])
 @pytest.mark.parametrize("nq,cap,r_keep", [(300, 20000, 16), (1000, 60000, 32),
                                            (40, 4100, 8)])
 def test_flat_tc_kernel_matches_plain(cuda, d, nq, cap, r_keep):
-    """The tensor-core route against flat_scan_ref on random bf16 inputs,
-    at the tolerances of the test above (the tensor cores sum in another
-    order than the plain version's GEMM). Every cap is off the 2048-slot
-    window; d = 1024 walks the cache in K chunks with the queries in shared
-    memory, as r_keep = 32 does at any d; r_keep 8 and 16 below d = 128
-    keep them in registers."""
+    """The mma.sync route (bf16, 128 < d <= 1024) against flat_scan_ref on
+    random bf16 inputs, at the tolerances of the test above (the tensor
+    cores sum in another order than the plain version's GEMM). Every cap
+    is off the 2048-slot window; the cache is walked in K chunks of 128
+    with the queries in shared memory (d 136: a chunk of 8)."""
     args = fs.random_flat_inputs(cuda, nq=nq, cap=cap, d=d, seed=d + cap)
     before = dict(fs.launches)
     v, a = fs.flat_scan(*args, r_keep=r_keep, euclidean=True)
@@ -1720,13 +1719,13 @@ def test_flat_tc_kernel_matches_plain(cuda, d, nq, cap, r_keep):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d,r_keep,euclidean", [(128, 16, True),
-                                                (128, 32, False),
+@pytest.mark.parametrize("d,r_keep,euclidean", [(136, 16, True),
+                                                (256, 32, False),
                                                 (1024, 16, True),
-                                                (40, 8, True)])
+                                                (200, 8, True)])
 def test_flat_tc_kernel_integer_ties_exact(cuda, d, r_keep, euclidean):
     """Integer-valued inputs with equal rows inside and across buckets:
-    every sum is exact in any order, so the tensor-core kernel equals the
+    every sum is exact in any order, so the mma.sync kernel equals the
     plain version bit for bit, values and addresses, ties included."""
     args = fs.integer_flat_inputs(cuda, nq=500, cap=30000, d=d, seed=d)
     before = fs.launches["flat_tc"]
@@ -1739,11 +1738,102 @@ def test_flat_tc_kernel_integer_ties_exact(cuda, d, r_keep, euclidean):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 64, 72, 128])
+@pytest.mark.parametrize("r_keep", [8, 16, 32])
+def test_flat_wg_kernel_matches_plain(cuda, d, r_keep):
+    """The warp-specialised route (bf16, d % 8 == 0, d <= 128: one k half
+    at d <= 64, two above, the last one partial at d 72) against
+    flat_scan_ref on random bf16 inputs, at the tolerances of the tests
+    above (the tensor cores sum in another order than the plain version's
+    GEMM); cap 20,000 is off the 2048-slot window and off a run."""
+    args = fs.random_flat_inputs(cuda, nq=300, cap=20000, d=d,
+                                 seed=d + r_keep)
+    before = dict(fs.launches)
+    v, a = fs.flat_scan(*args, r_keep=r_keep, euclidean=True)
+    torch.cuda.synchronize()
+    assert fs.launches == dict(before, flat_wg=before["flat_wg"] + 1)
+    v_ref, a_ref = fs.flat_scan_ref(*args, r_keep=r_keep, euclidean=True)
+    torch.testing.assert_close(v, v_ref, rtol=1e-3, atol=1e-3)
+    assert (a == a_ref).float().mean().item() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq", [1, 63, 10000])
+@pytest.mark.parametrize("cap", [2048, 20000])
+def test_flat_wg_kernel_shapes(cuda, nq, cap):
+    """The warp-specialised route at the query counts of one row, of one
+    partial query tile (63 of 192) and of the flat plan (10,000: 53 tiles,
+    the last partial), over one window and over a cache off the window and
+    off the runs: within the tolerances above."""
+    args = fs.random_flat_inputs(cuda, nq=nq, cap=cap, seed=nq + cap)
+    v, a = fs.flat_scan(*args, r_keep=16, euclidean=True)
+    torch.cuda.synchronize()
+    v_ref, a_ref = fs.flat_scan_ref(*args, r_keep=16, euclidean=True)
+    torch.testing.assert_close(v, v_ref, rtol=1e-3, atol=1e-3)
+    assert (a == a_ref).float().mean().item() >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("r_keep", [8, 16, 32])
+@pytest.mark.parametrize("euclidean", [True, False])
+def test_flat_wg_kernel_integer_ties_exact(cuda, d, r_keep, euclidean):
+    """Integer-valued inputs with equal rows inside and across buckets:
+    every sum is exact in any order, so the warp-specialised kernel equals
+    the plain version bit for bit, values and addresses, ties included (c
+    folded into the query, the bound-pruned epilogue, the runs' shared
+    bound)."""
+    args = fs.integer_flat_inputs(cuda, nq=500, cap=30000, d=d, seed=d)
+    before = fs.launches["flat_wg"]
+    v, a = fs.flat_scan(*args, r_keep=r_keep, euclidean=euclidean)
+    torch.cuda.synchronize()
+    assert fs.launches["flat_wg"] == before + 1
+    v_ref, a_ref = fs.flat_scan_ref(*args, r_keep=r_keep, euclidean=euclidean)
+    assert torch.equal(v, v_ref)
+    assert torch.equal(a, a_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_splits", [1, 3, 15])
+def test_flat_wg_kernel_runs_agree(cuda, n_splits):
+    """The warp-specialised kernel over the cache in 1, 3 or 15 runs (each
+    run's list filling on its own, the runs sharing their bound, merged in
+    address order) returns the same lists, bit for bit on integer inputs,
+    as flat_scan_ref."""
+    from torchpq_tpu_torch import _build
+    args = fs.integer_flat_inputs(cuda, nq=700, cap=15 * 2048, d=128,
+                                  seed=n_splits)
+    v, a = fs.launch(_build.library(), torch.cuda.current_stream().cuda_stream,
+                     *args, r_keep=16, euclidean=True, route="flat_wg",
+                     n_splits=n_splits)
+    torch.cuda.synchronize()
+    v_ref, a_ref = fs.flat_scan_ref(*args, r_keep=16, euclidean=True)
+    assert torch.equal(v, v_ref)
+    assert torch.equal(a, a_ref)
+
+
+@pytest.mark.gpu
+def test_flat_wg_smem_matches_mirror(cuda):
+    """The kernel's shared memory (its _smem entry) equals
+    ops/flat_scan.py's mirror at every width and r_keep it takes, and a CTA
+    of it fits an SM (its _occupancy entry)."""
+    from torchpq_tpu_torch import _build
+    lib = _build.library()
+    for d in range(8, 129, 8):
+        for r_keep in (1, 8, 16, 17, 32):
+            assert lib.torchpq_flat_scan_wg_smem(d, r_keep) == \
+                fs.wg_smem_bytes(d, r_keep), (d, r_keep)
+    assert lib.torchpq_flat_scan_wg_occupancy(128, 32) >= 1
+
+
+@pytest.mark.gpu
 def test_flat_routes_on_card(cuda):
-    """bf16 at d = 128 launches the tensor-core kernel; an f32 cache and a
-    bf16 cache at d = 100 launch the CUDA-core one; each counts under its
-    own key and matches the plain version."""
-    for dtype, d, route in ((torch.bfloat16, 128, "flat_tc"),
+    """bf16 at d = 128 launches the warp-specialised kernel, at d = 256 the
+    mma.sync one; an f32 cache and a bf16 cache at d = 100 launch the
+    CUDA-core one; each counts under its own key and matches the plain
+    version."""
+    for dtype, d, route in ((torch.bfloat16, 128, "flat_wg"),
+                            (torch.bfloat16, 256, "flat_tc"),
                             (torch.float32, 128, "flat"),
                             (torch.bfloat16, 100, "flat")):
         args = fs.random_flat_inputs(cuda, nq=200, cap=8192, d=d,
@@ -1760,7 +1850,7 @@ def test_flat_routes_on_card(cuda):
 @pytest.mark.gpu
 def test_pallas_flat_index_on_card(cuda):
     """scan_impl="pallas_flat": the flat plan launches the flat kernel on
-    the card (the bf16 cache at d = 32: the tensor-core route) and finds
+    the card (the bf16 cache at d = 32: the warp-specialised route) and finds
     what the same index finds on the CPU (the plain version; only the f32
     sum order differs); scan_impl="pallas" raises on the card where the
     block scan's gate fails (k_pair > 64)."""
@@ -1782,9 +1872,9 @@ def test_pallas_flat_index_on_card(cuda):
         idx.scan_mode, idx.scan_impl, idx.use_approx_topk = \
             "flat", "pallas_flat", True
     v_ref, i_ref = cpu.search(q.T, k=10)
-    before = fs.launches["flat_tc"]
+    before = fs.launches["flat_wg"]
     v, i = gpu.search(torch.from_numpy(q).to(cuda).T, k=10)
-    assert fs.launches["flat_tc"] == before + 1
+    assert fs.launches["flat_wg"] == before + 1
     assert flat_adc.LAST_FLAT["impl"] == "flat_scan"
     shared = sum(len(set(a.tolist()) & set(b.tolist()))
                  for a, b in zip(i.cpu(), i_ref)) / i_ref.numel()

@@ -3,7 +3,7 @@
 All `csrc/*.cu` files compile into one shared library with a plain C
 interface, for Hopper (`sm_90a`), at first use: one nvcc per source, all
 started together, then one link (with libcuda, for the TMA tensor maps of
-`csrc/block_scan_wg.cu`). The library goes to
+`csrc/block_scan_wg.cu` and `csrc/flat_scan_wg.cu`). The library goes to
 `build/torchpq_tpu_torch/` beside the package, named by a hash of the
 sources, the headers they share (`csrc/*.cuh`) and the flags, so an edited
 file rebuilds and an unchanged tree loads at once. Nothing but the sources
@@ -24,7 +24,8 @@ HEADERS = sorted((_PKG / "csrc").glob("*.cuh"))
 BUILD_DIR = _PKG.parent / "build" / "torchpq_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# the link: libcuda, for block_scan_wg.cu's TMA tensor maps
+# the link: libcuda, for the TMA tensor maps of block_scan_wg.cu and
+# flat_scan_wg.cu
 # (cuTensorMapEncodeTiled); nvcc links its stub, the loader the installed one
 LINK_FLAGS = ["-lcuda"]
 
@@ -58,6 +59,9 @@ _SIGNATURES = {
     "torchpq_flat_scan_tc": ([_P] * 7 + [_I] * 8 + [_P], _I),
     "torchpq_flat_scan_tc_smem": ([_I] * 3, _L),
     "torchpq_flat_scan_tc_occupancy": ([_I] * 3, _I),
+    "torchpq_flat_scan_wg": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "torchpq_flat_scan_wg_smem": ([_I] * 2, _L),
+    "torchpq_flat_scan_wg_occupancy": ([_I] * 2, _I),
     "torchpq_gather_rows": ([_P] * 3 + [_L] * 3 + [_I, _P], _I),
 }
 

@@ -1,6 +1,6 @@
-// What the two fused flat scans share (flat_scan.cu on the CUDA cores,
-// flat_scan_tc.cu on the tensor cores): the bucket width and the merge of
-// the per-split partial lists.
+// What the fused flat scans share (flat_scan.cu on the CUDA cores,
+// flat_scan_tc.cu and flat_scan_wg.cu on the tensor cores): the bucket
+// width and the merge of the per-split partial lists.
 //
 // Both kernels split the cache into runs of whole buckets, one run per CTA
 // row of the grid, and write each query's sorted top-r_keep of the run to

@@ -1,9 +1,10 @@
-// Fused flat (exhaustive) scan on Hopper's tensor cores (sm_90a): the
+// Fused flat (exhaustive) scan on the tensor cores (mma.sync, sm_90a): the
 // counterpart of torchpq_tpu/ops/pallas_flat.py:flat_scan_pallas for bf16
-// caches with d % 8 == 0 and d <= 1024 (flat_scan.cu, on the CUDA cores,
-// serves f32 caches and the other widths). It computes what flat_scan.cu
-// computes, for query q and slot j (slots past cap, up to the glue's
-// 2048-slot window, are dead: zero rows, penalty BIG):
+// caches with d % 8 == 0 and 128 < d <= 1024 (flat_scan_wg.cu, wgmma + TMA,
+// takes d <= 128; flat_scan.cu, on the CUDA cores, f32 caches and the
+// other widths). It computes what flat_scan.cu computes, for query q and
+// slot j (slots past cap, up to the glue's 2048-slot window, are dead: zero
+// rows, penalty BIG):
 //
 //   score = c * <bf16(q), y_j> - penalty[j],   c = 2 (euclidean) or 1
 //
@@ -13,17 +14,19 @@
 // ascending -> values [nq, R] f32, addresses [nq, R] int32.
 //
 // What bounds it on an H100: 2 * nq * cap * d operations on cap * d * 2
-// bytes of cache. At the flat plan's arguments (nq 10,000, cap 1,048,576,
-// d 128) that is 2.68e12 operations over the tensor cores' 989 TFLOP/s
-// bf16 = 2.71 ms, against 0.08 ms for the bytes: it is bound by
-// operations. The epilogue sets a floor of its own: 1.05e10 scores, and
-// each instruction per score on the CUDA cores costs ~0.35 ms across the
-// card (132 SMs x 128 lanes x ~1.75 GHz = 3e13 lane-instructions/s). A
-// bucket top 2 needs one FMA (c * ab - pen) and 3-5 compares and selects
-// per score, some 2 ms, the order of the operations bound. So the products
-// go to mma.sync (at ~60% of peak within 2x of what wgmma could give
-// beside this epilogue), and the epilogue stays in registers with a fixed,
-// small number of instructions per score.
+// bytes of cache, so operations. The epilogue sets a floor of its own: each
+// instruction per score on the CUDA cores costs ~0.35 ms across the card
+// per 1e10 scores (132 SMs x 128 lanes x ~1.75 GHz = 3e13
+// lane-instructions/s), and this kernel's bucket top 2 takes an FMA and ~6
+// compares and selects a score. The note's first estimate put that epilogue
+// at ~2 ms at the flat plan's arguments (nq 10,000, cap 1,048,576, d 128);
+// the card measured ~8.7 ms of its 14.1 there (the same queries and slots
+// at d 64 kept 81% of the time): the warps that issue the serial MMAs also
+// issue the epilogue, two of them a scheduler, and its latency is not
+// hidden. flat_scan_wg.cu took those widths over with wgmma, a producer
+// warpgroup and an epilogue that tests each bucket's maximum against the
+// row's bound (flat_select.cuh); this kernel keeps the wider rows, whose
+// products outweigh the epilogue (d / 16 k steps a bucket).
 //
 // Design:
 // - Grid and split as flat_scan.cu: CTA (x, y) takes 32 * warps queries
@@ -31,47 +34,32 @@
 //   flat_common.cuh merges the partial lists in split (address) order.
 // - Main loop: mma.sync m16n8k16 bf16 x bf16 -> f32 (tc_ptx.cuh). A is the
 //   warp's 32 query rows, two m16 tiles, so every B fragment feeds two
-//   MMAs and the ldmatrix traffic per bucket (the whole 64-slot tile, read
-//   by every warp) stays below the MMAs' time. A is resident for the whole
-//   run: in registers when d <= 128 and R <= 16 (64 registers at d = 128;
-//   the first k step's MMAs start from a zero accumulator, so nothing is
-//   cleared per bucket), else in shared memory, read by ldmatrix per K
-//   chunk. B is the cache tile by ldmatrix: [slot][k] row-major is the
-//   .col operand as it lies. A warp keeps a whole bucket's 16 accumulator
-//   tiles in flight (64 registers); at d = 128 the register path takes
-//   ~224 registers, so an SM holds 8 warps, and the wrapper's CTA of 8
-//   warps reads each tile once for 256 queries.
-// - Copies: a ring in shared memory whose slots each hold one bucket x 128
+//   MMAs; A is resident in shared memory for the whole run, read by
+//   ldmatrix per K chunk, and B is the cache tile by ldmatrix: [slot][k]
+//   row-major is the .col operand as it lies. A warp keeps a whole
+//   bucket's 16 accumulator tiles (64 registers) across the K chunks.
+// - Copies: a ring of 4 slots in shared memory, each one bucket x 128
 //   columns (a K chunk) and, with the bucket's last chunk, its 64
-//   penalties. cp.async fills them (16 B; zero bytes past d and past cap,
-//   whose penalty is BIG); one cp.async.wait_group and one __syncthreads
-//   per stage. The register path's stage is two buckets, fetched two
-//   stages ahead in a ring of 8 slots; the shared-A path's stage is one
-//   slot (a bucket of a wider cache takes several), fetched three ahead in
-//   a ring of 4. Shared rows are 136 elements (272 B, an odd multiple of
-//   16 B), so the 8 row addresses of an ldmatrix phase fall on 32 distinct
-//   banks.
-// - Ping-pong (register path): the MMAs and the epilogue of one warp run
-//   one after the other, and a barrier per stage keeps a CTA's warps in
-//   step, so the later half of the warps runs half a stage behind: it
-//   keeps each stage's second bucket in its accumulators across the
-//   barrier and selects it first thing in the next stage. On each
-//   scheduler one warp's compares then issue beside another's MMAs.
+//   penalties, fetched three stages ahead. cp.async fills them (16 B; zero
+//   bytes past d and past cap, whose penalty is BIG); one
+//   cp.async.wait_group and one __syncthreads per stage. Shared rows are
+//   136 elements (272 B, an odd multiple of 16 B), so the 8 row addresses
+//   of an ldmatrix phase fall on 32 distinct banks.
 // - Epilogue per bucket, in registers: in the C layout a thread holds 4
 //   query rows (rows g and g + 8 of each m tile) x 16 of the bucket's
 //   columns. It takes the top 2 of each row over its own columns, in
-//   ascending order with strict > (the first maximal slot first); two
-//   __shfl_xor_sync rounds (lanes ^1, ^2) merge the quad's pairs in (value
-//   desc, address asc) order, which gives the bucket's top 2 by the TPU
-//   kernel's rule. Lane t of the quad then owns the running top-KMAX list
-//   of row t of its 4, so each query's list lives in one thread, and
-//   inserts the pair after a test against the list's last entry
-//   (scan_common.cuh:insert keeps visit order, which is address order, on
-//   ties).
+//   ascending order with strict > (the first maximal slot first), then the
+//   quad's merge (flat_select.cuh: top2_push, quad_merge), which gives the
+//   bucket's top 2 by the TPU kernel's rule. Lane t of the quad then owns
+//   the running top-KMAX list of row t of its 4, so each query's list
+//   lives in one thread, and inserts the pair after a test against the
+//   list's last entry (scan_common.cuh:insert keeps visit order, which is
+//   address order, on ties).
 
 #include <cstdint>
 
 #include "flat_common.cuh"
+#include "flat_select.cuh"
 #include "tc_ptx.cuh"
 
 namespace {
@@ -82,64 +70,19 @@ constexpr int W = 2048;          // the glue's window: the cache pads to it
 constexpr int KC = 128;          // cache columns per stage (a K chunk)
 constexpr int KSTEPS = KC / 16;  // k16 steps per stage
 constexpr int LDS = KC + 8;      // shared row stride of a stage, elements
-constexpr int STAGES = 4;    // ring slots of the shared-A path, one stage each
-constexpr int RING_REG = 8;  // ring slots of the register path: 4 stages of 2
+constexpr int STAGES = 4;        // ring slots, one stage each
 constexpr int STAGE_BYTES = BUCKET * LDS * 2 + BUCKET * 4;  // rows + pens
 constexpr int MAX_WARPS = 8;
+constexpr int MIN_D = 136;  // narrower rows are flat_scan_wg.cu's
 constexpr int MAX_D = 1024;
 
 __host__ __device__ inline int round16(int d) { return (d + 15) / 16 * 16; }
 
-// A in registers: d within one K chunk, and room for the list (R <= 16).
-__host__ __device__ inline bool a_in_registers(int d, int r_keep) {
-  return d <= KC && r_keep <= 16;
-}
-
-// Dynamic shared memory: the ring of the register path, or the query rows
-// [32 * warps][round16(d) + 8] bf16 and the ring of the shared-A path.
-__host__ __device__ inline size_t tc_smem_bytes(int warps, int d,
-                                                bool a_reg) {
-  if (a_reg) return (size_t)RING_REG * STAGE_BYTES;
+// Dynamic shared memory: the query rows [32 * warps][round16(d) + 8] bf16
+// and the ring.
+__host__ __device__ inline size_t tc_smem_bytes(int warps, int d) {
   return (size_t)32 * warps * (round16(d) + 8) * 2 +
          (size_t)STAGES * STAGE_BYTES;
-}
-
-// Running top 2 of one row over one thread's columns, visited in
-// ascending order: strict > keeps the first maximal column first.
-__device__ __forceinline__ void top2(float& m1, int& a1, float& m2, int& a2,
-                                     float s, int j) {
-  const bool p1 = s > m1;
-  const bool p2 = s > m2;
-  m2 = p1 ? m1 : (p2 ? s : m2);
-  a2 = p1 ? a1 : (p2 ? j : a2);
-  m1 = p1 ? s : m1;
-  a1 = p1 ? j : a1;
-}
-
-// (x, i) comes before (y, j): value descending, then address ascending.
-__device__ __forceinline__ bool before(float x, int i, float y, int j) {
-  return x > y || (x == y && i < j);
-}
-
-// Merge this lane's top 2 with that of lane ^ mask, without branches; both
-// lanes end with the top 2 of the union: the first of the winning list,
-// then the better of its second and the other list's first.
-__device__ __forceinline__ void merge_lanes(float& m1, int& a1, float& m2,
-                                            int& a2, int mask) {
-  const float o1 = __shfl_xor_sync(0xffffffffu, m1, mask);
-  const int b1 = __shfl_xor_sync(0xffffffffu, a1, mask);
-  const float o2 = __shfl_xor_sync(0xffffffffu, m2, mask);
-  const int b2 = __shfl_xor_sync(0xffffffffu, a2, mask);
-  const bool mine = before(m1, a1, o1, b1);
-  const float w2 = mine ? m2 : o2;  // the winner's second
-  const int wa2 = mine ? a2 : b2;
-  const float l1 = mine ? o1 : m1;  // the loser's first
-  const int la1 = mine ? b1 : a1;
-  const bool keep = before(w2, wa2, l1, la1);
-  m1 = mine ? m1 : o1;
-  a1 = mine ? a1 : b1;
-  m2 = keep ? w2 : l1;
-  a2 = keep ? wa2 : la1;
 }
 
 template <typename T>
@@ -152,15 +95,11 @@ __device__ __forceinline__ T pick4(const T (&v)[4], int i) {
 // that tile's fragments. Columns are kept without their lane part
 // (frag_c_col(lane, 0) = 2 * t4), added in finish().
 struct BucketTop2 {
-  float m1[4], m2[4];
-  int a1[4], a2[4];
+  fsel::Top2 t[4];
 
   __device__ __forceinline__ void reset() {
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      m1[r] = m2[r] = neg_inf();
-      a1[r] = a2[r] = 0;
-    }
+    for (int r = 0; r < 4; ++r) t[r] = fsel::top2_empty();
   }
 
   // The scores of n8 tile nt of the bucket, from its C fragments c0 (m
@@ -172,9 +111,8 @@ struct BucketTop2 {
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const float* cr = (r < 2 ? c0 : c1) + 2 * (r % 2);
-      top2(m1[r], a1[r], m2[r], a2[r], fmaf(factor, cr[0], -p.x), 8 * nt);
-      top2(m1[r], a1[r], m2[r], a2[r], fmaf(factor, cr[1], -p.y),
-           8 * nt + 1);
+      fsel::top2_push(t[r], fmaf(factor, cr[0], -p.x), 8 * nt);
+      fsel::top2_push(t[r], fmaf(factor, cr[1], -p.y), 8 * nt + 1);
     }
   }
 
@@ -184,72 +122,24 @@ struct BucketTop2 {
                                          int (&slots)[KMAX], int bucket0,
                                          int lane) {
     const int col0 = frag_c_col(lane, 0);
+    const fsel::CudaWarp w{lane};
+    float m1[4], m2[4];
+    int a1[4], a2[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      a1[r] += col0;
-      a2[r] += col0;
-      merge_lanes(m1[r], a1[r], m2[r], a2[r], 1);
-      merge_lanes(m1[r], a1[r], m2[r], a2[r], 2);
+      t[r].a1 += col0;
+      t[r].a2 += col0;
+      fsel::quad_merge(w, t[r]);
+      m1[r] = t[r].m1;
+      m2[r] = t[r].m2;
+      a1[r] = t[r].a1;
+      a2[r] = t[r].a2;
     }
     const int t4 = lane % 4;
-    const float v1 = pick4(m1, t4);
-    const float v2 = pick4(m2, t4);
-    if (v1 > vals[KMAX - 1]) {
-      insert<KMAX>(vals, slots, v1, bucket0 + pick4(a1, t4));
-    }
-    if (v2 > vals[KMAX - 1]) {
-      insert<KMAX>(vals, slots, v2, bucket0 + pick4(a2, t4));
-    }
+    insert<KMAX>(vals, slots, pick4(m1, t4), bucket0 + pick4(a1, t4));
+    insert<KMAX>(vals, slots, pick4(m2, t4), bucket0 + pick4(a2, t4));
   }
 };
-
-// The products of one bucket's tile for the warp's 32 rows, A in
-// registers: acc[mt][nt] = rows of m tile mt x slots 8 nt .. 8 nt + 7 over
-// nks k16 steps, the first from a zero accumulator.
-__device__ __forceinline__ void bucket_products(
-    float (&acc)[2][8][4], const uint32_t (&areg)[2][KSTEPS][4],
-    const __nv_bfloat16* tile, int nks, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    if (ks < nks) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {  // pairs of n8 tiles
-        uint32_t bf[4];
-        ldmatrix_x4(bf, tile + (16 * np + ldm_b_row(lane)) * LDS + 16 * ks +
-                            ldm_b_col(lane));
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          if (ks == 0) {
-            mma_bf16_16816_zero(acc[mt][2 * np], areg[mt][0], bf[0], bf[1]);
-            mma_bf16_16816_zero(acc[mt][2 * np + 1], areg[mt][0], bf[2],
-                                bf[3]);
-          } else {
-            mma_bf16_16816(acc[mt][2 * np], areg[mt][ks], bf[0], bf[1]);
-            mma_bf16_16816(acc[mt][2 * np + 1], areg[mt][ks], bf[2], bf[3]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// A bucket's scores (its products acc and penalties pen_s) into its top 2
-// per row, then into the lists.
-template <int KMAX>
-__device__ __forceinline__ void bucket_select(
-    BucketTop2& top, const float (&acc)[2][8][4], const float* pen_s,
-    float factor, float (&vals)[KMAX], int (&slots)[KMAX], int bucket0,
-    int lane) {
-  top.reset();
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    top.add(acc[0][nt], acc[1][nt], nt,
-            *reinterpret_cast<const float2*>(pen_s + 8 * nt +
-                                             frag_c_col(lane, 0)),
-            factor);
-  }
-  top.finish<KMAX>(vals, slots, bucket0, lane);
-}
 
 // One CTA's run of the cache: rows and penalties from the run's first
 // slot; n_live of its slots exist (the rest are dead pads).
@@ -259,12 +149,11 @@ struct Run {
   int d, n_live, nchunk;
 
   // Issue the copies of piece t (bucket t / nchunk, K chunk t % nchunk)
-  // into ring slot t % n_slots.
-  __device__ __forceinline__ void load(unsigned char* ring, int t,
-                                       int n_slots) const {
+  // into ring slot t % STAGES.
+  __device__ __forceinline__ void load(unsigned char* ring, int t) const {
     const int b = t / nchunk;
     const int c = t - b * nchunk;
-    unsigned char* base = ring + (size_t)(t % n_slots) * STAGE_BYTES;
+    unsigned char* base = ring + (size_t)(t % STAGES) * STAGE_BYTES;
     __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(base);
     const int slot0 = b * BUCKET;
     constexpr int SEGS = KC / 8;  // 16-byte segments per row of a stage
@@ -290,19 +179,7 @@ struct Run {
   }
 };
 
-// Tile and penalties of bucket b in the register path's ring.
-__device__ __forceinline__ const __nv_bfloat16* tile_of(
-    const unsigned char* ring, int b) {
-  return reinterpret_cast<const __nv_bfloat16*>(
-      ring + (size_t)(b % RING_REG) * STAGE_BYTES);
-}
-__device__ __forceinline__ const float* pen_of(const unsigned char* ring,
-                                               int b) {
-  return reinterpret_cast<const float*>(
-      ring + (size_t)(b % RING_REG) * STAGE_BYTES + BUCKET * LDS * 2);
-}
-
-template <bool A_REG, int KMAX>
+template <int KMAX>
 __global__ void __launch_bounds__(32 * MAX_WARPS)
     flat_scan_tc_kernel(const __nv_bfloat16* __restrict__ qtable,
                         const float* __restrict__ penalty,
@@ -313,7 +190,6 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
-  const int g = lane / 4;
   const int t4 = lane % 4;
   const int rows = blockDim.x;         // 32 queries per warp
   const int q0 = blockIdx.x * rows;    // the CTA's first query
@@ -326,39 +202,19 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
   const Run run{decoded + (size_t)s0 * d, penalty + s0, d, cap - s0,
                 (dpad + KC - 1) / KC};
   __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  unsigned char* ring = smem_raw + (A_REG ? 0 : (size_t)rows * ldq * 2);
+  unsigned char* ring = smem_raw + (size_t)rows * ldq * 2;
 
   // A, resident for the run: zero past nq and past d
-  uint32_t areg[2][KSTEPS][4];
-  if constexpr (A_REG) {
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = qw + 16 * mt + g + 8 * (i % 2);
-          const int col = 16 * ks + 2 * t4 + 8 * (i / 2);
-          areg[mt][ks][i] =
-              row < nq && col < d
-                  ? *reinterpret_cast<const uint32_t*>(
-                        qtable + (size_t)row * d + col)
-                  : 0u;
-        }
-      }
+  const int segs = dpad / 8;
+  for (int i = threadIdx.x; i < rows * segs; i += blockDim.x) {
+    const int r = i / segs;
+    const int col = 8 * (i % segs);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (q0 + r < nq && col < d) {
+      v = *reinterpret_cast<const uint4*>(qtable + (size_t)(q0 + r) * d +
+                                          col);
     }
-  } else {
-    const int segs = dpad / 8;
-    for (int i = threadIdx.x; i < rows * segs; i += blockDim.x) {
-      const int r = i / segs;
-      const int col = 8 * (i % segs);
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (q0 + r < nq && col < d) {
-        v = *reinterpret_cast<const uint4*>(qtable + (size_t)(q0 + r) * d +
-                                            col);
-      }
-      *reinterpret_cast<uint4*>(q_s + (size_t)r * ldq + col) = v;
-    }
+    *reinterpret_cast<uint4*>(q_s + (size_t)r * ldq + col) = v;
   }
 
   float vals[KMAX];
@@ -369,122 +225,75 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
     slots[i] = -1;
   }
   BucketTop2 top;
-  if constexpr (A_REG) {
-    // A stage is two buckets (ring slots b % RING_REG), fetched two stages
-    // ahead. Ping-pong: the CTA's later half of warps runs half a stage
-    // behind the earlier half: it leaves each stage's second bucket in its
-    // accumulators across the barrier and selects it at the start of the
-    // next stage, so on every scheduler one warp's compares run beside
-    // another's MMAs. Stage t - 2's slots are refilled only after the
-    // barrier of stage t, by which every warp is done with them.
-    const int nks = dpad / 16;
-    const bool late = warp >= (int)(blockDim.x / 64);
-    const int n_pairs = (n_buckets + 1) / 2;
-    for (int b = 0; b < 4; ++b) {  // stages 0 and 1
-      if (b < n_buckets) run.load(ring, b, RING_REG);
-      if (b % 2 == 1) cp_async_commit();
-    }
-    float acc[2][8][4];  // [m tile][n8 tile][C register]
-    int held = -1;       // the bucket whose products wait in acc
-    for (int t = 0; t < n_pairs; ++t) {
-      cp_async_wait<1>();  // this thread's copies of stage t landed
-      __syncthreads();     // everyone's; and stage t - 2 is consumed
-      for (int b = 2 * t + 4; b < 2 * t + 6; ++b) {
-        if (b < n_buckets) run.load(ring, b, RING_REG);
-      }
-      cp_async_commit();
-      if (held >= 0) {
-        bucket_select<KMAX>(top, acc, pen_of(ring, held), factor, vals,
-                            slots, held * BUCKET, lane);
-        held = -1;
-      }
-      for (int b = 2 * t; b < min(2 * t + 2, n_buckets); ++b) {
-        bucket_products(acc, areg, tile_of(ring, b), nks, lane);
-        if (late && b == 2 * t + 1) {
-          held = b;
-        } else {
-          bucket_select<KMAX>(top, acc, pen_of(ring, b), factor, vals, slots,
-                              b * BUCKET, lane);
+  // the bucket's columns in K chunks of KC, one stage each, fetched
+  // STAGES - 1 ahead; its scores are complete after the last chunk
+  const int n_stages = n_buckets * run.nchunk;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_stages) run.load(ring, s);
+    cp_async_commit();
+  }
+  float acc[2][8][4];
+  int b = 0;
+  int c = 0;
+  for (int t = 0; t < n_stages; ++t) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (t + STAGES - 1 < n_stages) run.load(ring, t + STAGES - 1);
+    cp_async_commit();
+    const unsigned char* base = ring + (size_t)(t % STAGES) * STAGE_BYTES;
+    const __nv_bfloat16* tile = reinterpret_cast<const __nv_bfloat16*>(base);
+    if (c == 0) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
         }
       }
     }
-    if (held >= 0) {
-      bucket_select<KMAX>(top, acc, pen_of(ring, held), factor, vals, slots,
-                          held * BUCKET, lane);
-    }
-  } else {
-    // A in shared memory, the bucket's columns in K chunks of KC, one
-    // stage each, fetched STAGES - 1 ahead; its scores are complete after
-    // the last chunk
-    const int n_stages = n_buckets * run.nchunk;
+    const int nks = min(KSTEPS, (dpad - c * KC) / 16);
 #pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < n_stages) run.load(ring, s, STAGES);
-      cp_async_commit();
-    }
-    float acc[2][8][4];
-    int b = 0;
-    int c = 0;
-    for (int t = 0; t < n_stages; ++t) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      if (t + STAGES - 1 < n_stages) run.load(ring, t + STAGES - 1, STAGES);
-      cp_async_commit();
-      const unsigned char* base = ring + (size_t)(t % STAGES) * STAGE_BYTES;
-      const __nv_bfloat16* tile =
-          reinterpret_cast<const __nv_bfloat16*>(base);
-      if (c == 0) {
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      if (ks < nks) {
+        uint32_t a[2][4];
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-          for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.0f;
-          }
+          ldmatrix_x4(a[mt], q_s + (size_t)(32 * warp + 16 * mt +
+                                            ldm_a_row(lane)) * ldq +
+                                 c * KC + 16 * ks + ldm_a_col(lane));
         }
-      }
-      const int nks = min(KSTEPS, (dpad - c * KC) / 16);
 #pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-        if (ks < nks) {
-          uint32_t a[2][4];
+        for (int np = 0; np < 4; ++np) {  // pairs of n8 tiles
+          uint32_t bf[4];
+          ldmatrix_x4(bf, tile + (16 * np + ldm_b_row(lane)) * LDS + 16 * ks +
+                              ldm_b_col(lane));
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
-            ldmatrix_x4(a[mt], q_s + (size_t)(32 * warp + 16 * mt +
-                                              ldm_a_row(lane)) * ldq +
-                                   c * KC + 16 * ks + ldm_a_col(lane));
-          }
-#pragma unroll
-          for (int np = 0; np < 4; ++np) {  // pairs of n8 tiles
-            uint32_t bf[4];
-            ldmatrix_x4(bf, tile + (16 * np + ldm_b_row(lane)) * LDS +
-                                16 * ks + ldm_b_col(lane));
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              mma_bf16_16816(acc[mt][2 * np], a[mt], bf[0], bf[1]);
-              mma_bf16_16816(acc[mt][2 * np + 1], a[mt], bf[2], bf[3]);
-            }
+            mma_bf16_16816(acc[mt][2 * np], a[mt], bf[0], bf[1]);
+            mma_bf16_16816(acc[mt][2 * np + 1], a[mt], bf[2], bf[3]);
           }
         }
       }
-      if (c < run.nchunk - 1) {
-        ++c;
-        continue;
-      }
-      const float* pen_s =
-          reinterpret_cast<const float*>(base + BUCKET * LDS * 2);
-      top.reset();
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        top.add(acc[0][nt], acc[1][nt], nt,
-                *reinterpret_cast<const float2*>(
-                    pen_s + 8 * nt + frag_c_col(lane, 0)),
-                factor);
-      }
-      top.finish<KMAX>(vals, slots, b * BUCKET, lane);
-      ++b;
-      c = 0;
     }
+    if (c < run.nchunk - 1) {
+      ++c;
+      continue;
+    }
+    const float* pen_s =
+        reinterpret_cast<const float*>(base + BUCKET * LDS * 2);
+    top.reset();
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      top.add(acc[0][nt], acc[1][nt], nt,
+              *reinterpret_cast<const float2*>(pen_s + 8 * nt +
+                                               frag_c_col(lane, 0)),
+              factor);
+    }
+    top.finish<KMAX>(vals, slots, b * BUCKET, lane);
+    ++b;
+    c = 0;
   }
 
   // lane t4 owns row t4 of its four: m tile t4 / 2, C register row
@@ -502,15 +311,15 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
   }
 }
 
-template <bool A_REG, int KMAX>
+template <int KMAX>
 int launch(const void* qtable, const float* penalty, const void* decoded,
            float* part_v, int* part_a, float* out_v, int* out_a, int nq,
            int cap, int d, int r_keep, int split, int n_splits, float factor,
            int warps, cudaStream_t stream) {
   const int threads = 32 * warps;
   const dim3 grid((nq + threads - 1) / threads, n_splits);
-  int rc = launch_kernel(flat_scan_tc_kernel<A_REG, KMAX>, grid, threads,
-                         tc_smem_bytes(warps, d, A_REG), stream,
+  int rc = launch_kernel(flat_scan_tc_kernel<KMAX>, grid, threads,
+                         tc_smem_bytes(warps, d), stream,
                          static_cast<const __nv_bfloat16*>(qtable), penalty,
                          static_cast<const __nv_bfloat16*>(decoded), part_v,
                          part_a, nq, cap, d, r_keep, split, factor);
@@ -520,10 +329,10 @@ int launch(const void* qtable, const float* penalty, const void* decoded,
 }
 
 // Blocks of `warps` warps one SM holds at once, or minus the CUDA error.
-template <bool A_REG, int KMAX>
+template <int KMAX>
 int occupancy(int warps, int d) {
-  const auto kern = flat_scan_tc_kernel<A_REG, KMAX>;
-  const size_t smem = tc_smem_bytes(warps, d, A_REG);
+  const auto kern = flat_scan_tc_kernel<KMAX>;
+  const size_t smem = tc_smem_bytes(warps, d);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess) {
@@ -543,9 +352,9 @@ int occupancy(int warps, int d) {
 
 // Plain C entry point (bound with ctypes). qtable [nq, d] bf16 (the query
 // rounded to bf16), penalty [cap] f32, decoded [cap, d] bf16, both bf16
-// arrays 16-byte aligned; d % 8 == 0 and d <= 1024; split slots per CTA
-// row (a multiple of 64; n_splits * split >= cap, the slots past cap are
-// dead pads); warps per CTA (1, 2, 4 or 8; 32 queries each); part_v /
+// arrays 16-byte aligned; d % 8 == 0 and 128 < d <= 1024; split slots per
+// CTA row (a multiple of 64; n_splits * split >= cap, the slots past cap
+// are dead pads); warps per CTA (1, 2, 4 or 8; 32 queries each); part_v /
 // part_a [n_splits, nq, r_keep] scratch; out_v / out_a [nq, r_keep].
 // Returns 0 or the CUDA error code of an attribute call or a launch.
 // Launches on `stream`, does not synchronize and allocates nothing.
@@ -555,7 +364,7 @@ extern "C" int torchpq_flat_scan_tc(const void* qtable, const float* penalty,
                                     int nq, int cap, int d, int r_keep,
                                     int split, int n_splits, int euclidean,
                                     int warps, void* stream) {
-  if (nq <= 0 || cap <= 0 || d <= 0 || d % 8 || d > MAX_D || r_keep < 1 ||
+  if (nq <= 0 || cap <= 0 || d < MIN_D || d % 8 || d > MAX_D || r_keep < 1 ||
       r_keep > 32 || warps < 1 || warps > MAX_WARPS || (warps & (warps - 1)) ||
       split <= 0 || split % BUCKET || (long long)split * n_splits < cap ||
       (long long)split * (n_splits - 1) >= cap ||
@@ -568,22 +377,20 @@ extern "C" int torchpq_flat_scan_tc(const void* qtable, const float* penalty,
 #define TPQ_ARGS                                                           \
   qtable, penalty, decoded, part_v, part_a, out_v, out_a, nq, cap, d,      \
       r_keep, split, n_splits, factor, warps, st
-  if (a_in_registers(d, r_keep)) return launch<true, 16>(TPQ_ARGS);
-  if (r_keep <= 16) return launch<false, 16>(TPQ_ARGS);
-  return launch<false, 32>(TPQ_ARGS);
+  if (r_keep <= 16) return launch<16>(TPQ_ARGS);
+  return launch<32>(TPQ_ARGS);
 #undef TPQ_ARGS
 }
 
 // Dynamic shared memory of one CTA of `warps` warps.
 extern "C" long long torchpq_flat_scan_tc_smem(int warps, int d,
                                                int r_keep) {
-  return (long long)tc_smem_bytes(warps, d, a_in_registers(d, r_keep));
+  return (long long)tc_smem_bytes(warps, d);
 }
 
 // CTAs of `warps` warps one SM holds at once (registers and shared memory
 // permitting), or minus the CUDA error code.
 extern "C" int torchpq_flat_scan_tc_occupancy(int warps, int d, int r_keep) {
-  if (a_in_registers(d, r_keep)) return occupancy<true, 16>(warps, d);
-  if (r_keep <= 16) return occupancy<false, 16>(warps, d);
-  return occupancy<false, 32>(warps, d);
+  if (r_keep <= 16) return occupancy<16>(warps, d);
+  return occupancy<32>(warps, d);
 }

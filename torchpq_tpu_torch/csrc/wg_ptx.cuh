@@ -1,6 +1,6 @@
-// Hopper's asynchronous instructions for block_scan_wg.cu, one inline-PTX
-// wrapper each (sm_90a): the warpgroup matrix product (wgmma: bf16 with f32
-// sums, s8 with s32 sums), the tensor
+// Hopper's asynchronous instructions for block_scan_wg.cu and
+// flat_scan_wg.cu, one inline-PTX wrapper each (sm_90a): the warpgroup
+// matrix product (wgmma: bf16 with f32 sums, s8 with s32 sums), the tensor
 // memory accelerator's 2-D tiled load (TMA), the shared-memory barriers
 // that track arrivals and transferred bytes (mbarrier), the register
 // hand-over between warpgroups (setmaxnreg), named barriers and the proxy

@@ -2,12 +2,16 @@
 of bucket winners (the flat plan's kernel under scan_impl="pallas_flat").
 
 Replaces the TPU kernel torchpq_tpu/ops/pallas_flat.py:flat_scan_pallas.
-Two kernels serve it, chosen by the cache's dtype and width before launch
+Three kernels serve it, chosen by the cache's dtype and width before launch
 (`pick_route`), each built by `_build.py` and bound through a plain C entry
 point, each counted under its own key of `launches`:
+  - "flat_wg", `csrc/flat_scan_wg.cu`: bf16 caches with d % 8 == 0 and
+    d <= 128 (the main index's d = 128 and every lane-padded width below),
+    on the tensor cores (wgmma over a TMA ring, a producer warpgroup and
+    three consumer warpgroups; each bucket's maximum tested against its
+    row's running bound, `csrc/flat_select.cuh`);
   - "flat_tc", `csrc/flat_scan_tc.cu`: bf16 caches with d % 8 == 0 and
-    d <= 1024 (the main index's d = 128 and every lane-padded width), on
-    the tensor cores (mma.sync bf16, f32 sums);
+    128 < d <= 1024, on the tensor cores (mma.sync bf16, f32 sums);
   - "flat", `csrc/flat_scan.cu`: f32 caches and the other widths, on the
     CUDA cores (f32 FMAs).
 
@@ -24,9 +28,9 @@ descending then address ascending -> (values [nq, r_keep] f32, addresses
 caller masks them.
 
 What bounds it on an H100: 2 * nq * cap * d operations on cap * d cache
-elements, so arithmetic, not bytes. Both kernels split the cache across
-CTAs (the top R is associative over address ranges) and merge the partial
-lists in a second launch.
+elements, so arithmetic, not bytes. Every kernel splits the cache into runs
+of whole windows (the top R is associative over address ranges) and merges
+the partial lists in a second launch.
 
 `flat_scan` takes the plain version `flat_scan_ref` only for tensors on the
 CPU. For CUDA tensors it launches the kernel of its route or raises.
@@ -38,10 +42,11 @@ import numpy as np
 import torch
 
 from .. import util
-from .block_scan import BIG, _H100_SMS, _SMEM_LIMIT
+from .block_scan import (BIG, _H100_SMS, _SMEM_LIMIT, _WG_BOX_ROWS,
+                         _WG_STAGE_BYTES, _WG_SW_ATOM)
 
 # kernel launches, counted by `flat_scan` where it launches
-launches = {"flat": 0, "flat_tc": 0}
+launches = {"flat": 0, "flat_tc": 0, "flat_wg": 0}
 
 W = 2048     # the TPU kernel's window; the cache pads to a multiple
 BUCKET = 64  # slots per bucket, W / 32 (pallas_flat.py:151; flat_scan.cu)
@@ -49,10 +54,22 @@ BUCKET = 64  # slots per bucket, W / 32 (pallas_flat.py:151; flat_scan.cu)
 # CTAs to aim for when splitting the cache (4 per SM of an H100's 132)
 _TARGET_CTAS = 528
 
-# warps per CTA of the tensor-core kernel (32 queries each), the first whose
+# warps per CTA of the mma.sync kernel (32 queries each), the first whose
 # shared memory fits: 8 warps (one CTA per SM by registers) read each cache
 # tile into shared memory once for 256 queries
 _TC_WARPS = (8, 4, 2, 1)
+
+# the warp-specialised kernel (csrc/flat_scan_wg.cu): its widest row, the
+# query rows of a CTA (three consumer warpgroups of one m64 tile), and the
+# mirror of its shared memory (csrc/flat_select.cuh: smem_bytes; the ring's
+# stages and tiles are block_scan_wg.cu's: wg_layout.cuh)
+_WG_MAX_D = 128
+_WG_QROWS = 192
+_WG_SW_ROW = 128        # bytes of a swizzled row: a k half of 64 elements
+_WG_MAX_RING = 8
+# a unit's fixed cost in windows, beside its run (the query rows' copy, the
+# lists' first fill): the split's tie-breaker
+_WG_UNIT_WINDOWS = 1
 
 _CHUNK_SCORES = 1 << 26  # f32 scores per chunk of the plain version
 
@@ -157,11 +174,66 @@ def _check(query, decoded, penalty, r_keep):
 
 def pick_route(dtype, d):
     """The kernel that serves a cache of `dtype` and width d, which is also
-    its key in `launches`: "flat_tc" (tensor cores) for bf16 with
-    d % 8 == 0 and d <= 1024, else "flat" (CUDA cores)."""
+    its key in `launches`: for bf16 with d % 8 == 0, "flat_wg" (wgmma)
+    up to d = 128 and "flat_tc" (mma.sync) up to 1024; else "flat" (CUDA
+    cores)."""
     if dtype == torch.bfloat16 and d % 8 == 0 and 0 < d <= 1024:
-        return "flat_tc"
+        return "flat_wg" if d <= _WG_MAX_D else "flat_tc"
     return "flat"
+
+
+def wg_halves(d):
+    """The k halves (64 elements, a 128-byte swizzled row each) of a row of
+    width d: the warp-specialised kernel's ring stages a tile and query
+    buffers."""
+    return (2 * d + _WG_SW_ROW - 1) // _WG_SW_ROW
+
+
+def _wg_fixed_bytes(d, r_keep):
+    return (_WG_SW_ATOM + wg_halves(d) * _WG_QROWS * _WG_SW_ROW + 16
+            + 8 * _WG_QROWS * (r_keep | 1))
+
+
+_WG_RING_STAGE = _WG_STAGE_BYTES + 4 * _WG_BOX_ROWS + 16
+
+
+def wg_ring(d, r_keep):
+    """The warp-specialised kernel's ring stages at (d, r_keep): as many as
+    the rest of its shared memory leaves room for, at most eight
+    (csrc/flat_select.cuh: ring_of)."""
+    return min(_WG_MAX_RING,
+               (_SMEM_LIMIT - _wg_fixed_bytes(d, r_keep)) // _WG_RING_STAGE)
+
+
+def wg_smem_bytes(d, r_keep):
+    """Mirror of csrc/flat_select.cuh:smem_bytes: alignment slack, the
+    query rows [halves][192][128 B], the ring (a 128-slot tile's k half, its
+    penalties and two barriers a stage), the query rows' barriers and the
+    rows' lists [192][r_keep | 1] of values and addresses."""
+    return _wg_fixed_bytes(d, r_keep) + wg_ring(d, r_keep) * _WG_RING_STAGE
+
+
+def wg_splits(nq, cap, ctas):
+    """(split, n_splits) of the warp-specialised kernel: runs of whole
+    windows, as even as the window count allows; a unit is 192 queries over
+    a run, `ctas` persistent CTAs walk the units. The split count whose
+    busiest CTA has the fewest windows to scan (units a CTA, times the run
+    and a unit's fixed cost) wins, the fewer splits on a tie: longer runs
+    fill each row's list once, and its bound then prunes the most."""
+    n_windows = util.cdiv(cap, W)
+    q_tiles = util.cdiv(nq, _WG_QROWS)
+    best, best_key = None, None
+    for n_splits in range(1, n_windows + 1):
+        per = util.cdiv(n_windows, n_splits)
+        if util.cdiv(n_windows, per) != n_splits:
+            continue  # no split of whole windows gives this count
+        waves = util.cdiv(q_tiles * n_splits, ctas)
+        if best is not None and waves > 64:
+            break
+        key = waves * (per + _WG_UNIT_WINDOWS)
+        if best is None or key < best_key:
+            best, best_key = (per * W, n_splits), key
+    return best
 
 
 def tc_splits(nq, cap, rows, resident, n_sm):
@@ -219,10 +291,12 @@ def _scratch(n_splits, nq, r_keep, dev):
 
 
 def launch(lib, stream, query, decoded, penalty, *, r_keep, euclidean,
-           route=None):
-    """Launch the kernel of `route` ("flat_tc" or "flat"; default
-    pick_route's) of `lib` on `stream` with checked arguments. Raises if
-    the route does not take the cache or the launch fails."""
+           route=None, n_splits=None):
+    """Launch the kernel of `route` ("flat_wg", "flat_tc" or "flat";
+    default pick_route's) of `lib` on `stream` with checked arguments.
+    Raises if the route does not take the cache or the launch fails.
+    n_splits (flat_wg only): the runs of the cache in place of wg_splits'
+    choice."""
     nq, d = query.shape
     cap = decoded.shape[0]
     dev = decoded.device
@@ -233,13 +307,46 @@ def launch(lib, stream, query, decoded, penalty, *, r_keep, euclidean,
     out_a = torch.empty((nq, r_keep), dtype=torch.int32, device=dev)
     if nq == 0:
         return out_v, out_a
+    if n_splits is not None and route != "flat_wg":
+        raise ValueError("n_splits is the warp-specialised route's")
     # the query rounded to bf16, in the cache's dtype for the kernel's loads
     qtable = query.to(torch.bfloat16).to(decoded.dtype).contiguous()
-    if route == "flat_tc":
+    n_sm = (torch.cuda.get_device_properties(dev).multi_processor_count
+            if dev.type == "cuda" else _H100_SMS)
+    if route == "flat_wg":
+        if pick_route(decoded.dtype, d) != "flat_wg":
+            raise ValueError(f"the warp-specialised flat scan takes bf16 "
+                             f"caches with d % 8 == 0 and d <= "
+                             f"{_WG_MAX_D}, got {decoded.dtype} d={d}")
+        if decoded.data_ptr() % 16:  # TMA reads 16-byte aligned rows
+            decoded = decoded.clone()
+        if euclidean:  # c folded into the bf16 query: x 2 is exact
+            qtable = qtable * 2
+        resident = lib.torchpq_flat_scan_wg_occupancy(d, r_keep)
+        if resident <= 0:
+            raise RuntimeError(f"flat_scan_wg: no CTA fits an SM (CUDA "
+                               f"error {-resident})")
+        ctas = n_sm * resident
+        if n_splits is None:
+            split, n_splits = wg_splits(nq, cap, ctas)
+        else:
+            per = util.cdiv(util.cdiv(cap, W), n_splits)
+            split, n_splits = per * W, util.cdiv(cap, per * W)
+        part_v, part_a = _scratch(n_splits, nq, r_keep, dev)
+        # the rows' bound shared by their runs: no run has published one
+        gkey = torch.full((nq,), torch.iinfo(torch.int32).min,
+                          dtype=torch.int32, device=dev)
+        n_ctas = min(ctas, util.cdiv(nq, _WG_QROWS) * n_splits)
+        rc = lib.torchpq_flat_scan_wg(
+            qtable.data_ptr(), penalty.data_ptr(), decoded.data_ptr(),
+            part_v.data_ptr(), part_a.data_ptr(), gkey.data_ptr(),
+            out_v.data_ptr(), out_a.data_ptr(), nq, cap, d, r_keep, split,
+            n_splits, n_ctas, ctypes.c_void_p(stream))
+    elif route == "flat_tc":
         if pick_route(decoded.dtype, d) != "flat_tc":
             raise ValueError(f"the tensor-core flat scan takes bf16 caches "
-                             f"with d % 8 == 0 and d <= 1024, got "
-                             f"{decoded.dtype} d={d}")
+                             f"with d % 8 == 0 and {_WG_MAX_D} < d <= "
+                             f"1024, got {decoded.dtype} d={d}")
         if decoded.data_ptr() % 16:  # its copies read 16-byte pieces
             decoded = decoded.clone()
         warps = next(
@@ -249,8 +356,6 @@ def launch(lib, stream, query, decoded, penalty, *, r_keep, euclidean,
         if resident <= 0:
             raise RuntimeError(f"flat_scan_tc: no CTA of {warps} warps fits "
                                f"an SM (CUDA error {-resident})")
-        n_sm = (torch.cuda.get_device_properties(dev).multi_processor_count
-                if dev.type == "cuda" else _H100_SMS)
         split, n_splits = tc_splits(nq, cap, 32 * warps, resident, n_sm)
         part_v, part_a = _scratch(n_splits, nq, r_keep, dev)
         rc = lib.torchpq_flat_scan_tc(
