@@ -683,8 +683,7 @@ def flat_turns(torch, tp, lib, libs):
     what = f"flat_wg nq={nq} cap={cap} d={d} r_keep={kw['r_keep']}"
 
     def run(which, **extra):
-        return fs.launch(which, stream, *args, route="flat_wg", **kw,
-                         **extra)
+        return fs._launch_wg(which, stream, *args, **kw, **extra)
 
     ref = run(lib)
     torch.cuda.synchronize()

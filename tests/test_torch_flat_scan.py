@@ -125,9 +125,8 @@ def test_pick_route(dtype, d, route):
 
 def test_launch_refuses_a_route_that_does_not_take_the_cache(rng):
     """Forcing a tensor-core route onto a cache it does not take (an f32
-    cache; flat_tc at d <= 128, flat_wg above), naming no known route, or
-    giving the run count to another route than flat_wg raises before any
-    kernel is touched."""
+    cache; flat_tc at d <= 128, flat_wg above) or naming no known route
+    raises before any kernel is touched."""
     q, y, pen = _inputs(rng, nq=4, cap=2048)
     args = [torch.from_numpy(q), to_t(y), torch.from_numpy(pen)]
     with pytest.raises(ValueError, match="tensor-core"):
@@ -139,9 +138,6 @@ def test_launch_refuses_a_route_that_does_not_take_the_cache(rng):
     bf16 = [args[0], args[1].to(torch.bfloat16), args[2]]
     with pytest.raises(ValueError, match="tensor-core"):
         fs.launch(None, 0, *bf16, r_keep=8, euclidean=True, route="flat_tc")
-    with pytest.raises(ValueError, match="n_splits"):
-        fs.launch(None, 0, *bf16, r_keep=8, euclidean=True, route="flat",
-                  n_splits=2)
     q, y, pen = _inputs(rng, nq=4, cap=2048, d=136, dtype=jnp.bfloat16)
     wide = [torch.from_numpy(q), to_t(y), torch.from_numpy(pen)]
     with pytest.raises(ValueError, match="warp-specialised"):
@@ -202,9 +198,10 @@ def test_flat_wg_launch_sizes_the_grid(rng):
     """launch(route="flat_wg") with a stand-in library: the wrapper folds c
     into the bf16 query (x 2, exact, euclidean only), asks the occupancy
     entry, sizes the persistent grid to the units (at most SMs x resident),
-    takes wg_splits' runs (or n_splits'), and hands the kernel the scratch
-    of those runs and the rows' shared bound keys, none published (INT_MIN);
-    a refused occupancy raises before any launch."""
+    takes wg_splits' runs (or, through _launch_wg, n_splits'), and hands
+    the kernel the scratch of those runs and the rows' shared bound keys,
+    none published (INT_MIN); a refused occupancy raises before any
+    launch."""
     q, y, pen = _inputs(rng, nq=300, cap=5000, d=64, dtype=jnp.bfloat16)
     args = [torch.from_numpy(q), to_t(y), torch.from_numpy(pen)]
     seen, tensors = {}, {}
@@ -232,8 +229,12 @@ def test_flat_wg_launch_sizes_the_grid(rng):
     torch.Tensor.data_ptr = data_ptr
     try:
         for euclidean, n_splits in ((True, None), (False, 2)):
-            fs.launch(Lib(), 0, *args, r_keep=16, euclidean=euclidean,
-                      route="flat_wg", n_splits=n_splits)
+            if n_splits is None:
+                fs.launch(Lib(), 0, *args, r_keep=16, euclidean=euclidean,
+                          route="flat_wg")
+            else:
+                fs._launch_wg(Lib(), 0, *args, r_keep=16,
+                              euclidean=euclidean, n_splits=n_splits)
             nq, cap, d, r_keep, split, runs, n_ctas = seen["ints"]
             assert (nq, cap, d, r_keep) == (300, 5000, 64, 16)
             assert seen["occupancy"] == (64, 16)

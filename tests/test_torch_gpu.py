@@ -1803,9 +1803,9 @@ def test_flat_wg_kernel_runs_agree(cuda, n_splits):
     from torchpq_tpu_torch import _build
     args = fs.integer_flat_inputs(cuda, nq=700, cap=15 * 2048, d=128,
                                   seed=n_splits)
-    v, a = fs.launch(_build.library(), torch.cuda.current_stream().cuda_stream,
-                     *args, r_keep=16, euclidean=True, route="flat_wg",
-                     n_splits=n_splits)
+    v, a = fs._launch_wg(_build.library(),
+                         torch.cuda.current_stream().cuda_stream, *args,
+                         r_keep=16, euclidean=True, n_splits=n_splits)
     torch.cuda.synchronize()
     v_ref, a_ref = fs.flat_scan_ref(*args, r_keep=16, euclidean=True)
     assert torch.equal(v, v_ref)

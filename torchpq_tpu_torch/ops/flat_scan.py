@@ -290,59 +290,81 @@ def _scratch(n_splits, nq, r_keep, dev):
                         device=dev))
 
 
+def _prepare(query, decoded, r_keep):
+    """The outputs (values, addresses [nq, r_keep]), the query rounded to
+    bf16 in the cache's dtype for the kernels' loads, and the card's SMs."""
+    nq = query.shape[0]
+    dev = decoded.device
+    out = (torch.empty((nq, r_keep), dtype=torch.float32, device=dev),
+           torch.empty((nq, r_keep), dtype=torch.int32, device=dev))
+    qtable = query.to(torch.bfloat16).to(decoded.dtype).contiguous()
+    n_sm = (torch.cuda.get_device_properties(dev).multi_processor_count
+            if dev.type == "cuda" else _H100_SMS)
+    return out, qtable, n_sm
+
+
+def _launch_wg(lib, stream, query, decoded, penalty, *, r_keep, euclidean,
+               n_splits=None):
+    """launch(route="flat_wg") with the cache in n_splits runs of whole
+    windows (default: wg_splits' choice): the tests and chip_variants.py
+    time and check other run counts through it."""
+    nq, d = query.shape
+    cap = decoded.shape[0]
+    dev = decoded.device
+    if pick_route(decoded.dtype, d) != "flat_wg":
+        raise ValueError(f"the warp-specialised flat scan takes bf16 "
+                         f"caches with d % 8 == 0 and d <= "
+                         f"{_WG_MAX_D}, got {decoded.dtype} d={d}")
+    (out_v, out_a), qtable, n_sm = _prepare(query, decoded, r_keep)
+    if nq == 0:
+        return out_v, out_a
+    if decoded.data_ptr() % 16:  # TMA reads 16-byte aligned rows
+        decoded = decoded.clone()
+    if euclidean:  # c folded into the bf16 query: x 2 is exact
+        qtable = qtable * 2
+    resident = lib.torchpq_flat_scan_wg_occupancy(d, r_keep)
+    if resident <= 0:
+        raise RuntimeError(f"flat_scan_wg: no CTA fits an SM (CUDA "
+                           f"error {-resident})")
+    ctas = n_sm * resident
+    if n_splits is None:
+        split, n_splits = wg_splits(nq, cap, ctas)
+    else:
+        per = util.cdiv(util.cdiv(cap, W), n_splits)
+        split, n_splits = per * W, util.cdiv(cap, per * W)
+    part_v, part_a = _scratch(n_splits, nq, r_keep, dev)
+    # the rows' bound shared by their runs: no run has published one
+    gkey = torch.full((nq,), torch.iinfo(torch.int32).min,
+                      dtype=torch.int32, device=dev)
+    n_ctas = min(ctas, util.cdiv(nq, _WG_QROWS) * n_splits)
+    rc = lib.torchpq_flat_scan_wg(
+        qtable.data_ptr(), penalty.data_ptr(), decoded.data_ptr(),
+        part_v.data_ptr(), part_a.data_ptr(), gkey.data_ptr(),
+        out_v.data_ptr(), out_a.data_ptr(), nq, cap, d, r_keep, split,
+        n_splits, n_ctas, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"flat_wg kernel launch failed: CUDA error {rc}")
+    return out_v, out_a
+
+
 def launch(lib, stream, query, decoded, penalty, *, r_keep, euclidean,
-           route=None, n_splits=None):
+           route=None):
     """Launch the kernel of `route` ("flat_wg", "flat_tc" or "flat";
     default pick_route's) of `lib` on `stream` with checked arguments.
-    Raises if the route does not take the cache or the launch fails.
-    n_splits (flat_wg only): the runs of the cache in place of wg_splits'
-    choice."""
+    Raises if the route does not take the cache or the launch fails."""
     nq, d = query.shape
     cap = decoded.shape[0]
     dev = decoded.device
     route = route or pick_route(decoded.dtype, d)
     if route not in launches:
         raise ValueError(f"unknown flat scan route {route!r}")
-    out_v = torch.empty((nq, r_keep), dtype=torch.float32, device=dev)
-    out_a = torch.empty((nq, r_keep), dtype=torch.int32, device=dev)
+    if route == "flat_wg":
+        return _launch_wg(lib, stream, query, decoded, penalty,
+                          r_keep=r_keep, euclidean=euclidean)
+    (out_v, out_a), qtable, n_sm = _prepare(query, decoded, r_keep)
     if nq == 0:
         return out_v, out_a
-    if n_splits is not None and route != "flat_wg":
-        raise ValueError("n_splits is the warp-specialised route's")
-    # the query rounded to bf16, in the cache's dtype for the kernel's loads
-    qtable = query.to(torch.bfloat16).to(decoded.dtype).contiguous()
-    n_sm = (torch.cuda.get_device_properties(dev).multi_processor_count
-            if dev.type == "cuda" else _H100_SMS)
-    if route == "flat_wg":
-        if pick_route(decoded.dtype, d) != "flat_wg":
-            raise ValueError(f"the warp-specialised flat scan takes bf16 "
-                             f"caches with d % 8 == 0 and d <= "
-                             f"{_WG_MAX_D}, got {decoded.dtype} d={d}")
-        if decoded.data_ptr() % 16:  # TMA reads 16-byte aligned rows
-            decoded = decoded.clone()
-        if euclidean:  # c folded into the bf16 query: x 2 is exact
-            qtable = qtable * 2
-        resident = lib.torchpq_flat_scan_wg_occupancy(d, r_keep)
-        if resident <= 0:
-            raise RuntimeError(f"flat_scan_wg: no CTA fits an SM (CUDA "
-                               f"error {-resident})")
-        ctas = n_sm * resident
-        if n_splits is None:
-            split, n_splits = wg_splits(nq, cap, ctas)
-        else:
-            per = util.cdiv(util.cdiv(cap, W), n_splits)
-            split, n_splits = per * W, util.cdiv(cap, per * W)
-        part_v, part_a = _scratch(n_splits, nq, r_keep, dev)
-        # the rows' bound shared by their runs: no run has published one
-        gkey = torch.full((nq,), torch.iinfo(torch.int32).min,
-                          dtype=torch.int32, device=dev)
-        n_ctas = min(ctas, util.cdiv(nq, _WG_QROWS) * n_splits)
-        rc = lib.torchpq_flat_scan_wg(
-            qtable.data_ptr(), penalty.data_ptr(), decoded.data_ptr(),
-            part_v.data_ptr(), part_a.data_ptr(), gkey.data_ptr(),
-            out_v.data_ptr(), out_a.data_ptr(), nq, cap, d, r_keep, split,
-            n_splits, n_ctas, ctypes.c_void_p(stream))
-    elif route == "flat_tc":
+    if route == "flat_tc":
         if pick_route(decoded.dtype, d) != "flat_tc":
             raise ValueError(f"the tensor-core flat scan takes bf16 caches "
                              f"with d % 8 == 0 and {_WG_MAX_D} < d <= "
