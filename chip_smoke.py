@@ -945,6 +945,8 @@ def codes_instance(pack32, k_pair):
 # rows whose shapes it takes, and csrc/flat_scan_tc.cu on the pallas_flat
 # plan's flat scan, each where DIR holds it; empty without --parent
 PARENT = {}
+# the parent tree's csrc directory (None without --parent)
+PARENT_CSRC = None
 # the parent's sources: (file, {entry point: ((pointers, ints) before the
 # stream, its occupancy entry's ints)})
 PARENT_SOURCES = {
@@ -962,7 +964,9 @@ def build_parent(_build, root):
     build/parent/ and bound with ctypes (its entry points and their
     occupancy)."""
     import ctypes
+    global PARENT_CSRC
     csrc = Path(root).resolve() / "torchpq_tpu_torch" / "csrc"
+    PARENT_CSRC = csrc
     if not any((csrc / f[0]).exists() for f in PARENT_SOURCES.values()):
         fail(f"--parent: {csrc} holds none of "
              f"{[f[0] for f in PARENT_SOURCES.values()]}")
@@ -1508,13 +1512,19 @@ def parent_flat_fn(torch, fs, args, kw):
     parent's route for bf16 caches) on args into out, uncounted, and
     returns its CUDA return code (its warps and split as the parent's
     wrapper chose them: ops/flat_scan.py:tc_splits); (None, None) where
-    --parent gave no such source."""
+    --parent gave no such source, or where d <= 128 and the parent tree
+    holds flat_scan_wg.cu (whose flat_scan_tc.cu serves 128 < d <= 1024
+    only). Any other refusal fails in parent_turns."""
     import ctypes
     lib = PARENT.get("flat")
     if lib is None:
         return None, None
     query, decoded, penalty = args
     nq, d = query.shape
+    if d <= 128 and (PARENT_CSRC / "flat_scan_wg.cu").exists():
+        log(f"--parent: the parent's flat_scan_tc.cu does not serve d={d} "
+            f"(its flat_scan_wg.cu does): no turn")
+        return None, None
     cap, r_keep = decoded.shape[0], kw["r_keep"]
     lib.torchpq_flat_scan_tc_smem.argtypes = [ctypes.c_int] * 3
     lib.torchpq_flat_scan_tc_smem.restype = ctypes.c_longlong

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Variant builds of the block scan and the fused flat scan, timed in turns
 with the built library on the JAX package's GIST records' arguments
-(k-chunked rows), on narrow random inputs (d 128, --narrow), on random
+(k-chunked rows), on random inputs at the main path's narrow windows and
+the GIST k = 10 shape (--narrow), on random
 inputs at the deep pack32 rows' shapes (--deep, also against a parent
 tree's build), for the codes instances on random codes at the code
 domain's window (--codes), or for the flat scan on the flat plan's own
@@ -10,6 +11,7 @@ arguments (--flat), on one CUDA card:
     python3 chip_variants.py                       # every variant and tier
     python3 chip_variants.py --variants wg8_ring4 --tiers int8
     python3 chip_variants.py --variants wgn_noscore --narrow
+    python3 chip_variants.py --variants wgp_clock,wgp_noturns --narrow
     python3 chip_variants.py --variants wgd_noprune --ptxas-only
     python3 chip_variants.py --variants wgc_noearly,wgc_pass4 --codes
     python3 chip_variants.py --codes --parent DIR --variants wgc_deep_all
@@ -45,6 +47,14 @@ with the package's nvcc flags into its own library under
             loads in the producer; wgn_noscore, no scores or maxima;
             wgn_noprod, no products; wgn_noselect, no phase-end extraction
             (pack32 up to k_pair 16) or list pops (exact);
+  - wgp_*: (the consumers' schedule of the pass-by-pass pack32
+            instances, --narrow) wgp_clock: a consumer warp's cycles by
+            part (a Clock and its marks added by WGP_CLOCK's text edits,
+            logged per warp and tile: waiting for stages, for the turn,
+            products, scores, phase ends, outputs, block starts; not
+            timed); wgp_noturns: decoupled
+            without the turns (turn_take and turn_hand_on empty: each
+            warpgroup issues its chain as its stages land);
   - wgd_*, wgn_deep_q1: (the deep pack32 instances, k_pair 17-64,
             csrc/deep_select.cuh; --deep) wgd_noprune: every group maximum
             of a phase staged and merged, the running lists' bounds
@@ -117,6 +127,123 @@ FWG_NOEPI = [("flat_scan_wg.cu",
               "          fsel::tile_offers(w, sc, pass, vote, bound, floors, "
               "own, lst_v,\n                            lst_a, off, r_keep, "
               "ts);", "")]
+# the wgp_clock variant: a Clock (WGP_CLOCK_DEFS) in block_scan_wg.cu, its
+# marks in the turns body at WGP_CLOCK_MARKS' anchors (each found once,
+# applied in order) and the sums' reader (WGP_CLOCK_READER)
+WGP_CLOCK_DEFS = (
+    "// A consumer warp's cycles by part: each mark adds the cycles since the\n"
+    "// last one to its part, count() adds one, lane 0 into the CTA's and warp's\n"
+    "// sums in wg_clock (read and cleared by torchpq_block_scan_wg_clock), so\n"
+    "// that the clock holds one register. Parts: waiting for a chunk's stages\n"
+    "// or the block's query rows, for the turn; the products (issue to the\n"
+    "// wait's return, the chunk adds included); the scores and group maxima;\n"
+    "// the phase ends; the outputs; the block's start; tiles; blocks.\n"
+    "enum ClockPart {\n"
+    "  CK_WAIT, CK_TURN, CK_PROD, CK_SCORE, CK_PHASE, CK_OUT, CK_START,\n"
+    "  CK_TILES, CK_BLOCKS, CK_PARTS\n"
+    "};\n"
+    "constexpr int CK_CTAS = 256;  // CTAs with sums of their own (the rest wrap)\n"
+    "__device__ unsigned long long wg_clock[CK_CTAS * 12 * CK_PARTS];\n"
+    "struct Clock {\n"
+    "  unsigned t;\n"
+    "  __device__ __forceinline__ Clock() : t((unsigned)clock()) {}\n"
+    "  __device__ __forceinline__ static void add(int part, unsigned v) {\n"
+    "    if (threadIdx.x % 32 == 0) {\n"
+    "      atomicAdd(wg_clock + ((blockIdx.x % CK_CTAS) * 12 + threadIdx.x / 32) *\n"
+    "                               CK_PARTS + part,\n"
+    "                (unsigned long long)v);\n"
+    "    }\n"
+    "  }\n"
+    "  __device__ __forceinline__ void mark(int part) {\n"
+    "    const unsigned now = (unsigned)clock();\n"
+    "    add(part, now - t);\n"
+    "    t = now;\n"
+    "  }\n"
+    "  __device__ __forceinline__ void count(int part) { add(part, 1); }\n"
+    "};\n"
+    "\n")
+WGP_CLOCK_READER = (
+    "// The consumer warps' cycle sums by part since the last call, over all\n"
+    "// CTAs and warps (out: CK_PARTS counts), then cleared; 0 or the CUDA error\n"
+    "// code.\n"
+    "extern \"C\" int torchpq_block_scan_wg_clock(unsigned long long* out) {\n"
+    "  static unsigned long long sums[CK_CTAS * 12 * CK_PARTS];\n"
+    "  int rc = (int)cudaMemcpyFromSymbol(sums, wg_clock, sizeof(sums));\n"
+    "  for (int i = 0; i < CK_PARTS; ++i) out[i] = 0;\n"
+    "  for (int i = 0; i < CK_CTAS * 12 * CK_PARTS; ++i) {\n"
+    "    out[i % CK_PARTS] += sums[i];\n"
+    "    sums[i] = 0;\n"
+    "  }\n"
+    "  return rc ? rc : (int)cudaMemcpyToSymbol(wg_clock, sums, sizeof(sums));\n"
+    "}\n"
+    "\n")
+WGP_CLOCK_MARKS = [
+    ("    // whether block b is the CTA's last with a live prober (the prologue's\n",
+     "    Clock clk;\n"
+     "    // whether block b is the CTA's last with a live prober (the prologue's\n"),
+    ("        __syncwarp();\n"
+     "      }\n",
+     "        __syncwarp();\n"
+     "      }\n"
+     "      clk.mark(CK_START);\n"),
+    ("      const int qs = qi % NQ;\n"
+     "      if constexpr (NARROW) {\n"
+     "        mbar_wait(qfull + qs, (qi / NQ) & 1);\n"
+     "        fence_proxy_async();  // the query copies, for wgmma's reads\n"
+     "      }\n",
+     "      const int qs = qi % NQ;\n"
+     "      if constexpr (NARROW) {\n"
+     "        mbar_wait(qfull + qs, (qi / NQ) & 1);\n"
+     "        fence_proxy_async();  // the query copies, for wgmma's reads\n"
+     "      }\n"
+     "      clk.mark(CK_WAIT);\n"),
+    ("            if (!NARROW || CODES) fence_proxy_async();\n",
+     "            if (!NARROW || CODES) fence_proxy_async();\n"
+     "            clk.mark(CK_WAIT);\n"),
+    ("            turn_take(h);\n",
+     "            turn_take(h);\n"
+     "            clk.mark(CK_TURN);\n"),
+    ("          // what the scores, selects and releases read, worked out anew\n",
+     "          clk.mark(CK_PROD);\n"
+     "          // what the scores, selects and releases read, worked out anew\n"),
+    ("                    }\n"
+     "                  }\n"
+     "                }\n"
+     "              }\n",
+     "                    }\n"
+     "                  }\n"
+     "                }\n"
+     "              }\n"
+     "              clk.mark(CK_SCORE);\n"),
+    ("        }\n"
+     "        // the phase end, after a tile's last chunk (outside the chunk loop:\n",
+     "          clk.mark(CK_SCORE);\n"
+     "        }\n"
+     "        // the phase end, after a tile's last chunk (outside the chunk loop:\n"),
+    ("          }\n"
+     "          ++phase;\n",
+     "          }\n"
+     "          ++phase;\n"
+     "          clk.mark(CK_PHASE);\n"),
+    ("          clk.mark(CK_PHASE);\n"
+     "        }\n",
+     "          clk.mark(CK_PHASE);\n"
+     "        }\n"
+     "        clk.count(CK_TILES);\n"),
+    ("      pair_owed = S == 2;\n"
+     "      ++qi;\n",
+     "      pair_owed = S == 2;\n"
+     "      ++qi;\n"
+     "      clk.mark(CK_OUT);\n"
+     "      clk.count(CK_BLOCKS);\n"),
+]
+WGP_CLOCK = (
+    [("block_scan_wg.cu", "// The score of a product sum x",
+      WGP_CLOCK_DEFS + "// The score of a product sum x"),
+     ("block_scan_wg.cu", "// Dynamic shared memory of one CTA at width d",
+      WGP_CLOCK_READER + "// Dynamic shared memory of one CTA at width d")]
+    + [("block_scan_wg.cu", old, new) for old, new in WGP_CLOCK_MARKS])
+
 VARIANTS = {
     "wg8_ring4": [("wg_layout.cuh", "constexpr int RING_EXACT_10 = 5;",
                    "constexpr int RING_EXACT_10 = 4;"),
@@ -138,6 +265,12 @@ VARIANTS = {
                      "const int ncol = wlive ? s_eff : 0;",
                      "const int ncol = 0;")],
     "wgn_noprod": [("block_scan_wg.cu",
+                    "if (rows().S == 1) {  // both halves in one chain",
+                    "if (false) {"),
+                   ("block_scan_wg.cu",
+                    "} else if (takes_chain(2, h, nrow)) {  // one: this",
+                    "} else if (false) {  //"),
+                   ("block_scan_wg.cu",
                     "if (nm64 == 2) {  // both halves in one chain",
                     "if (false) {"),
                    ("block_scan_wg.cu",
@@ -181,7 +314,7 @@ VARIANTS = {
                      "mbar_arrive(empty + sa);")],
     "wgc_pass4": [("wg_layout.cuh", "constexpr int PASS_CHUNKS = 8;",
                    "constexpr int PASS_CHUNKS = 4;"),
-                  ("wg_layout.cuh", "return !pack32 ? CRING_EXACT",
+                  ("wg_layout.cuh", "return !pack32                   ? CRING_EXACT",
                    "return !pack32 ? (k_pair <= 10 ? 4 : CRING_EXACT)"),
                   ("block_scan_wg.cu", "? X(false, 10, CRING_EXACT)",
                    "? X(false, 10, 4)")],
@@ -333,6 +466,20 @@ VARIANTS = {
                     "    }\n  }\n}\n\n// The 2-D tensor map of a bf16 matrix",
                     "    }\n    if (h == 0 && g > 0) named_barrier(BAR_TURN, 256);"
                     "\n  }\n}\n\n// The 2-D tensor map of a bf16 matrix")],
+    # the turns body's consumer warps' cycles by part (WGP_CLOCK: waiting
+    # for stages, for the turn, products, scores, phase ends, outputs, block
+    # starts; tiles, blocks), read back by torchpq_block_scan_wg_clock (not
+    # timed)
+    "wgp_clock": WGP_CLOCK,
+    # the pass-by-pass instances decoupled without their turns (each
+    # warpgroup issues its chain as its stages land; no barrier of all
+    # consumers either way): what the turns add beside the barriers' removal
+    "wgp_noturns": [("block_scan_wg.cu",
+                     "void turn_take(int h) {\n",
+                     "void turn_take(int h) {\n  return;\n"),
+                    ("block_scan_wg.cu",
+                     "void turn_hand_on(int h) {\n",
+                     "void turn_hand_on(int h) {\n  return;\n")],
     "fwg_noshare": [("flat_scan_wg.cu", "atomicMax(gkey + q, key);",
                      "(void)key;")],
     "fwg_noepi": FWG_NOEPI,
@@ -351,7 +498,17 @@ FLAT_SOURCES = ("flat_scan_wg.cu",)
 
 def ptxas(log, tag):
     """Registers and spills of the warp-specialised instances (bf16, int8
-    and codes) in a build log."""
+    and codes) in a build log, and the warpgroup syncs ptxas injected into
+    each (around a wgmma whose registers other code touches: they
+    serialise the warpgroup's products)."""
+    injected = {}
+    for m in re.finditer(r"warpgroup\.(?:arrive|wait) is injected.*?"
+                         r"function '(\S+)'", log):
+        name = cs.kernel_name(m.group(1))
+        injected[name] = injected.get(name, 0) + 1
+    for name, n in sorted(injected.items()):
+        print(f"ptxas {tag} {name}: {n} warpgroup syncs injected",
+              flush=True)
     kernel = "?"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -613,25 +770,64 @@ def deep_turns(torch, bs, lib, libs, parent):
         torch.cuda.empty_cache()
 
 
+# the Clock's parts (WGP_CLOCK_DEFS: CK_*), in order
+CLOCK_PARTS = ("waiting", "turn", "products", "scores", "phase ends",
+               "outputs", "block starts", "tiles", "blocks")
+# the rows of --narrow, on `random_inputs`: (s_eff, blocks, k_pair, pack32,
+# d); the main path's window (s_eff 640: exact and pack32 k_pair 10), the
+# deep-k tail's (s_eff 4096, pack32 k_pair 16) and the GIST k = 10 shape
+# (d 1024, s_eff 2048, pack32 k_pair 10, the k-chunked instance, the
+# record's 2,677 blocks at n_probe 32)
+NARROW_ROWS = ((640, 4096, 10, False, 128), (640, 4096, 10, True, 128),
+               (4096, 2048, 16, True, 128), (2048, 2677, 10, True, 1024))
+
+
+def clock_split(torch, vlib, launch, what):
+    """A launch of the wgp_clock variant: its consumer warps' cycles by part,
+    per warp and tile."""
+    import ctypes
+    clocks = (ctypes.c_ulonglong * len(CLOCK_PARTS))()
+    fn = vlib.torchpq_block_scan_wg_clock
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    fn(clocks)
+    launch()
+    torch.cuda.synchronize()
+    if fn(clocks) != 0:
+        cs.fail(f"{what}: torchpq_block_scan_wg_clock failed")
+    got = dict(zip(CLOCK_PARTS, clocks))
+    tiles = max(got["tiles"], 1)
+    parts = [n for n in CLOCK_PARTS if n not in ("tiles", "blocks")]
+    total = sum(got[n] for n in parts)
+    print(f"{what} (wgp_clock): a consumer warp's cycles a tile, "
+          f"{got['tiles']} warp-tiles of {got['blocks']} warp-blocks: "
+          + ", ".join(f"{n} {got[n] / tiles:.0f}" for n in parts)
+          + f"; all {total / tiles:.0f}", flush=True)
+
+
 def narrow_turns(torch, bs, lib, libs):
-    """The narrow route (bf16, d 128) of the built library and of each
-    variant in turns (built, variant, variant, built; 5 launches a turn),
-    on `random_inputs` at the main path's window (s_eff 640: exact and
-    pack32 k_pair 10, 4,096 blocks) and the deep-k tail's (s_eff 4096:
-    pack32 k_pair 16, 2,048 blocks); each block's live probers drawn
-    uniformly from 1-128."""
+    """The bf16 routes of the built library and of each variant in turns
+    (built, variant, variant, built; 5 launches a turn) on NARROW_ROWS, each
+    block's live probers drawn uniformly from 1-128; the wgp_clock variant
+    logs its cycle split (clock_split) in place of a time."""
     stream = torch.cuda.current_stream().cuda_stream
-    for s_eff, blocks, k_pair, pack32 in ((640, 4096, 10, False),
-                                          (640, 4096, 10, True),
-                                          (4096, 2048, 16, True)):
+    for s_eff, blocks, k_pair, pack32, d in NARROW_ROWS:
         args = bs.random_inputs("cuda", s_eff=s_eff, n_blocks=blocks,
-                                nq=10000, cap_total=1 << 21, seed=s_eff)
+                                nq=10000, d=d,
+                                cap_total=1 << (21 if d <= 128 else 19),
+                                seed=s_eff)
         kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
                   slot_mask=bs.util.next_pow2(s_eff) - 1)
-        route = bs.pick_route(dtype=torch.bfloat16, d=128, p_tile=128,
+        route = bs.pick_route(dtype=torch.bfloat16, d=d, p_tile=128,
                               s_eff=s_eff, k_pair=k_pair, pack32=pack32)
-        what = f"{route} s_eff={s_eff} k_pair={k_pair} ({shapes(torch, args)})"
+        what = (f"{route} d={d} s_eff={s_eff} k_pair={k_pair} "
+                f"({shapes(torch, args)})")
         for name, vlib in libs.items():
+            if name.startswith("wgp") and not (pack32 and k_pair <= 16):
+                continue  # the turns body's variants; this row is lockstep
+            if name == "wgp_clock":
+                clock_split(torch, vlib, lambda: bs.launch(
+                    vlib, stream, *args, route=route, **kw), what)
+                continue
             t, turns = cs.in_turns(torch, {
                 "built": lambda: bs.launch(lib, stream, *args, route=route,
                                            **kw),
@@ -847,7 +1043,7 @@ def main():
                 print(f"{what} built: keys equal to the f64-summed select "
                       f"{cs.share_equal(out[live], f64):.6f}", flush=True)
             for name, vlib in libs.items():
-                if name.startswith(("wgn", "fwg")) or \
+                if name.startswith(("wgn", "wgp", "fwg")) or \
                         name.startswith("wg") != route.startswith("tc_wg_"):
                     continue  # a variant of another route's instances
                 out = bs.launch(vlib, stream, *args, route=route, **kkw)

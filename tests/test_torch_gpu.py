@@ -575,6 +575,100 @@ def test_block_wg_persistent_grid(cuda, d, pack32, k_pair, s_eff):
     _wg_held(args, kw, n_ctas=3)
 
 
+def _alternating_probers(probers, nq, seed):
+    """Prober rows of the consumers' schedule cases (128 a block): two live
+    64-prober tiles, then two blocks of one (the first or the second,
+    drawn), ...; in a live tile up to three of its four 16-row slices dead;
+    every tenth block with no live prober (skipped)."""
+    g = torch.Generator(device=probers.device).manual_seed(seed)
+    b, p_tile = probers.shape
+    assert p_tile == 128
+    pr = torch.randint(0, nq, (b, 128), generator=g, device=probers.device,
+                       dtype=torch.int32)
+    slices = torch.rand((b, 8), generator=g, device=probers.device) < 0.3
+    slices.view(b, 2, 4)[:, :, 0] = False  # a live tile keeps a slice
+    one = torch.arange(b, device=probers.device) % 3 != 0
+    first = torch.rand(b, generator=g, device=probers.device) < 0.5
+    tiles = torch.stack([~one | first, ~one | ~first], 1)  # [b, 2] live
+    tiles[9::10] = False
+    live = tiles.repeat_interleave(4, 1) & ~slices
+    pr[~live.repeat_interleave(16, 1)] = -1
+    return pr.contiguous()
+
+
+# the warp-specialised routes under the consumers' schedule (turns of the
+# two warpgroups, pair barriers, no barrier of all consumers): (kind, d or
+# (m, dsub), s_eff, k_pair, pack32): narrow bf16 (a last tile of 64
+# columns: warpgroup 1 has no half where one tile is live), the k-chunked
+# bf16 rows (d 256), int8 narrow and k-chunked, the codes instances; exact,
+# pack32 pass by pass and the deep select
+_SCHEDULE_CASES = [
+    ("bf16", 128, 192, 10, False), ("bf16", 128, 640, 10, True),
+    ("bf16", 128, 1024, 40, True), ("bf16", 256, 320, 16, False),
+    ("bf16", 256, 640, 16, True), ("bf16", 256, 2048, 64, True),
+    ("int8", 128, 640, 10, False), ("int8", 128, 640, 16, True),
+    ("int8", 512, 1024, 40, True), ("codes", (64, 2), 1024, 10, False),
+    ("codes", (64, 2), 1024, 16, True), ("codes", (64, 2), 1024, 52, True)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_ctas", [None, 3])
+@pytest.mark.parametrize("kind,d,s_eff,k_pair,pack32", _SCHEDULE_CASES)
+def test_wg_schedule_alternating_tiles(cuda, kind, d, s_eff, k_pair, pack32,
+                                       n_ctas):
+    """Blocks whose live 64-prober tiles alternate between one and two (the
+    warpgroups taking a column half each, then a tile each), dead 16-row
+    slices and skipped blocks, on the card's grid and on a persistent grid
+    of 3 CTAs (each walking ~32 blocks, its barriers' phases and shared
+    lists reused): every warp-specialised route, bf16 and int8, narrow and
+    k-chunked, codes, exact, pass by pass and deep, equal to its plain
+    version bit for bit on integer inputs (int8: int8_tie_inputs) on live
+    rows, pad rows dead."""
+    from torchpq_tpu_torch import _build
+    seed = s_eff + k_pair + (0 if n_ctas is None else 1)
+    kw = dict(s_eff=s_eff, k_pair=k_pair, euclidean=True, pack32=pack32,
+              slot_mask=bs.util.next_pow2(s_eff) - 1)
+    stream = torch.cuda.current_stream().cuda_stream
+    if kind == "codes":
+        m, dsub = d
+        args = cs.integer_codes_inputs(cuda, s_eff=s_eff, n_blocks=96,
+                                       nq=500, m=m, dsub=dsub,
+                                       cap_total=8192, seed=seed)
+        args[1] = _alternating_probers(args[1], 500, seed)
+        route = cs.pick_route(m=m, dsub=dsub, p_tile=128, s_eff=s_eff,
+                              k_pair=k_pair, pack32=pack32)
+        assert route.startswith("tc_wgn_")
+        got = cs.launch(_build.library(), stream, *args, route=route,
+                        n_ctas=n_ctas, **kw)
+        torch.cuda.synchronize()
+        ref = cs.codes_scan_ref(*args, **kw)
+    elif kind == "int8":
+        args, scale, q_scale = bs.int8_tie_inputs(
+            cuda, s_eff=s_eff, n_blocks=96, nq=500, d=d,
+            cap_total=max(8192, 4 * s_eff), seed=seed)
+        args[1] = _alternating_probers(args[1], 500, seed)
+        kw = dict(kw, scale=scale, q_scale=q_scale)
+        route = _int8_wg_route(d, pack32)
+        got = _block_uncounted(args, kw, route, n_ctas=n_ctas)
+        ref = bs.block_scan_ref(*args, **kw)
+    else:
+        args = bs.integer_block_inputs(cuda, s_eff=s_eff, n_blocks=96,
+                                       nq=500, d=d,
+                                       cap_total=max(8192, 4 * s_eff),
+                                       seed=seed)
+        args[1] = _alternating_probers(args[1], 500, seed)
+        route = bs.pick_route(dtype=torch.bfloat16, d=d, p_tile=128,
+                              s_eff=s_eff, k_pair=k_pair, pack32=pack32)
+        assert route.startswith(("tc_wg_", "tc_wgn_"))
+        got = _block_uncounted(args, kw, route, n_ctas=n_ctas)
+        ref = bs.block_scan_ref(*args, **kw)
+    live = args[1] >= 0
+    tiles = live.view(96, 2, 64).any(-1).sum(-1)
+    assert {0, 1, 2} <= set(tiles.tolist())
+    _assert_pads(got, ref, args[1], route, k_pair, pack32)
+    assert torch.equal(got[live], ref[live])
+
+
 @pytest.mark.gpu
 def test_block_wg_entry_refuses_and_sizes(cuda):
     """The warp-specialised entry point: its shared memory equals the

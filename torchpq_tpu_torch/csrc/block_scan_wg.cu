@@ -45,8 +45,8 @@
 //   warpgroup 0 the producer (setmaxnreg down to PRODUCER_REGS), warpgroups
 //   1 and 2 the consumers (up to CONSUMER_REGS), in one if / else that
 //   never reconverges. The CTA walks the blocks b = blockIdx.x + i *
-//   gridDim.x; producer and consumers read the block's probers themselves
-//   and skip a block with no live prober alike.
+//   gridDim.x; the producer and each consumer warp read the block's
+//   probers themselves and skip a block with no live prober alike.
 // - A ring of NST stages (as many as the select's arrays of the instance's
 //   largest k_pair leave room for: exact k_pair <= 10 5, exact 4; pack32
 //   k_pair <= 16 6, deeper 4 (a fifth fits up to k_pair 48 and gained
@@ -95,6 +95,39 @@
 //   rows of products, but no bytes: the pad rows' query copies are zeros
 //   from no address, and the window is read once per warpgroup whatever
 //   the live count.
+// - The consumers' schedules, two by family (wg_layout.cuh: takes_turns).
+//   The pass-by-pass pack32 instances (k_pair <= 16; codes rows <= 32)
+//   take turns: no barrier holds all eight consumer warps in the block
+//   loop. Each warp reads the block's probers itself and keeps its rows' in
+//   a copy of its own (prow_s [WARPS][16]); a phase end synchronises at
+//   most the pair of warps cw and cw ^ 4 that hold a row's two column
+//   halves at S = 2 (BAR_PAIR + cw % 4), to merge the halves' lists, and
+//   the pair meets once more before either starts its next live block, so
+//   that neither overwrites a list or row the other still reads. The two
+//   warpgroups take turns at every chunk (a ping-pong, as
+//   FlashAttention-3's warpgroups; turn_wait / turn_pass, named barriers
+//   BAR_TURN + h): warpgroup h waits for its turn, issues its chain,
+//   commits it, hands the turn on (an arrival, no wait) and only then
+//   waits for its products, so that one warpgroup's chain runs on the
+//   tensor cores while the other scores and selects; both take a turn at
+//   every chunk of every live block, with or without a chain of their own,
+//   and warpgroup 1 hands none on after the CTA's last chunk (the CTA's
+//   last live block, found by warp 0 as the kernel starts).
+//   tests/test_torch_wg_schedule.py runs this schedule as a model of a
+//   CTA's warps under random interleavings. The exact and deep pack32
+//   instances run in lockstep: both warpgroups issue as their stages land,
+//   two barriers of all 256 consumers (BAR_CONSUMERS) open every block
+//   (the block's probers and tile flags in prow_s / live_s) and one or two
+//   close the exact outputs; the deep select's phase ends meet as a pair.
+//   Measured in turns with the lockstep body on every family (a consumer
+//   warp's cycles a tile at the main path's window, chip_variants.py
+//   --narrow, wgp_clock: products 27-35%, under none of its scores; NVIDIA
+//   H100 80GB HBM3, 700.00 W; PERF.md): the turns ran the long
+//   pass-by-pass windows 1.07-1.16x and the main pack32 window 1.04x, but
+//   the exact rows 0.93-0.95x decoupled and 1.6-1.8% slower again in turns
+//   (each turn waits for the other warpgroup's slowest warp, and the exact
+//   inserts keep both warps of an SMSP issuing), the deep rows 0.95-1.03x
+//   decoupled and the k-chunked k = 100 row 0.85x in turns.
 // - Registers: sums 64, the chunk's accumulators 64 (dead between chunks),
 //   the pack32 group maxima 64 or the exact lists 32, under CONSUMER_REGS
 //   (232; the producer's 40 hold no address across its stage loop, which
@@ -330,9 +363,6 @@ constexpr int NARROW_CONSUMER_REGS = 232;
 // or query-copy state)
 constexpr int CODES_PRODUCER_REGS = 56;
 constexpr int CODES_CONSUMER_REGS = 224;
-constexpr int BAR_CONSUMERS = 1;    // named barrier of the consumers
-constexpr int BAR_PRODUCER = 2;     // and of the producer warpgroup
-constexpr int BAR_PAIR = 3;         // 3 .. 6: consumer warps w and w + 4
 constexpr int FULL_ARRIVALS = 2 * 128;  // a producer thread's arrival, and
                                         // its landed copies'
 constexpr int HALF = STAGE_BYTES / 2;   // 64 rows of a stage's operand
@@ -411,6 +441,23 @@ __device__ __forceinline__ void codes_decode(const CodesArgs& ca,
   }
 }
 
+// Consumer warpgroup h's turn (wg_layout.cuh: turn_wait, turn_pass), the
+// barrier ids immediates of a branch on h (uniform in the warpgroup).
+__device__ __forceinline__ void turn_take(int h) {
+  if (h == 0) {
+    named_barrier_imm<turn_wait(0), TURN_THREADS>();
+  } else {
+    named_barrier_imm<turn_wait(1), TURN_THREADS>();
+  }
+}
+__device__ __forceinline__ void turn_hand_on(int h) {
+  if (h == 0) {
+    named_barrier_arrive_imm<turn_pass(0), TURN_THREADS>();
+  } else {
+    named_barrier_arrive_imm<turn_pass(1), TURN_THREADS>();
+  }
+}
+
 // The deep select's exchanges among a consumer warp's lanes (deep_select.cuh's
 // policy): warp shuffles, __syncwarp, and the named barrier of the warp and
 // its partner, the other consumer warpgroup's warp of the same rows.
@@ -432,7 +479,7 @@ struct DeepWarp {
   }
   __device__ __forceinline__ void sync() const { __syncwarp(); }
   __device__ __forceinline__ void pair_sync() const {
-    named_barrier(pair, 64);
+    named_barrier(pair, PAIR_THREADS);
   }
 };
 
@@ -460,6 +507,10 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
                   (SW_ATOM - 1));
   constexpr bool NARROW = QB > 0;
   constexpr int NQ = NARROW ? QB : 1;  // query buffers, as a modulus
+  // the consumers' schedule: pass-by-pass pack32 decoupled, the warpgroups
+  // in turns; exact and deep pack32 in lockstep (wg_layout.cuh:
+  // takes_turns)
+  constexpr bool TURNS = takes_turns(PACK, KMAX > tc::PASS_K);
   unsigned char* win = base;                      // [NST][128][128 B]
   // the query rows: k-chunked [NST][128][128 B], a stage's with it;
   // narrow [QB][2][128][128 B], a block's (qbuf_offset)
@@ -479,15 +530,26 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
   uint64_t* empty = full + NST;
   uint64_t* qfull = empty + NST;  // narrow: [QB] each
   uint64_t* qempty = qfull + QB;
-  int* prow_s = reinterpret_cast<int*>(qempty + QB);  // [MAX_PT]
-  int* live_s = prow_s + MAX_PT;  // consumers' [4], producer's [4]
+  // the block's probers [MAX_PT]: lockstep, row p's at p; turns, each
+  // consumer warp's copy of its 16 rows' [WARPS][16]
+  int* prow_s = reinterpret_cast<int*>(qempty + QB);
+  // lockstep, the consumers' tile flags [4]; turns, the CTA's last live
+  // block [1], 3 spare; then the producer's tile flags [4]
+  int* live_s = prow_s + MAX_PT;
   int* keys_s = live_s + 8;       // slice lists [WARPS][16][kls]
+  const int kls = tc::list_ld(k_pair, PACK);
+  float* vals_s = reinterpret_cast<float*>(keys_s + WARPS * 16 * kls);
+  int* run_s = keys_s + WARPS * 16 * kls;  // pack32 [2][MAX_PT][kls]
+  float* stage_s = vals_s + WARPS * 16 * kls;  // exact [WARPS][16][SLD]
+  // exact: a row's bound, shared at S = 2 with the pair's other warp
+  volatile float* rowb_s = stage_s + WARPS * 16 * SLD;  // [WARPS][16]
+  float* qv_s = stage_s + WARPS * 16 * (SLD + 1);  // [QUEUE][CONSUMERS]
+  int* qc_s = reinterpret_cast<int*>(qv_s + QUEUE * CONSUMERS);
 
   const int t = threadIdx.x;
   // the warpgroup, uniform in the compiler's eyes (so that the wgmma
   // instructions sit in no path it must treat as divergent)
   const int wgi = __shfl_sync(0xffffffffu, t / 128, 0);
-  const int kls = tc::list_ld(k_pair, PACK);
   constexpr int E = I8 ? 1 : 2;              // element bytes
   const int rb = E * d;                      // row bytes
   const int nst = stages_of(d, E);           // ring stages per tile
@@ -510,6 +572,26 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
       mbar_init(qempty + i, WARPS);
     }
     mbar_init_fence();
+  }
+  // the consumers' turns: the CTA's last block with a live prober (-1:
+  // none), whose last chunk is the last turn (wg_layout.cuh: turn_hands_on),
+  // in a spare flag (a register holding it across the block loop made
+  // ptxas spill)
+  volatile int* b_last_s = live_s;
+  if (TURNS && t < 32) {
+    int b_last = -1;
+    for (int b = blockIdx.x + (n_blocks - 1 - blockIdx.x) / gridDim.x *
+                                  gridDim.x;
+         b >= (int)blockIdx.x && b_last < 0; b -= gridDim.x) {
+      bool live = false;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = 32 * j + t;
+        live |= p < p_tile && probers[(size_t)b * p_tile + p] >= 0;
+      }
+      if (__any_sync(0xffffffffu, live)) b_last = b;
+    }
+    if (t == 0) *b_last_s = b_last;
   }
   if constexpr (CODES) {  // the codebook, 16 bytes a thread step
     const uint4* src = reinterpret_cast<const uint4*>(ca.codebook);
@@ -680,8 +762,432 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
       }
     }
     cp_async_wait_all();
+  } else if constexpr (TURNS) {
+    // ---- consumers, pass-by-pass pack32: products, scores and selects,
+    // the warpgroups in turns, no barrier of all consumers ----
+    setmaxnreg_inc<(CODES    ? CODES_CONSUMER_REGS
+                    : NARROW ? NARROW_CONSUMER_REGS
+                             : CONSUMER_REGS)>();
+    const int ct = t - 128;
+    const int lane = ct % 32;
+    const int cw = ct / 32;  // consumer warp
+    const int h = wgi - 1;   // consumer warpgroup
+    const int wq = cw % 4;   // warp of the warpgroup: rows 16 wq .. + 15
+    int* prow_w = prow_s + 16 * cw;  // the probers of this warp's 16 rows
+    const uint32_t win_u = smem_u32(win);
+    const uint32_t aq_u = smem_u32(aq);
+    using Acc = std::conditional_t<I8, int, float>;
+    Acc sum[2][8][4];  // a tile's sums over its chunks, per column half
+    // APART: the chunk's products from zero into accumulators of their
+    // own, then added into sum (k-chunked bf16 rows); else one chain into
+    // sum itself (narrow rows; k-chunked int8 rows, whose s32 sums are
+    // exact in any order: one chain over the whole row)
+    constexpr bool APART = !NARROW && !I8;
+    Acc part[8][4];
+    Acc part_hi[8][4];  // the second half's (two live 64-prober tiles)
+    Acc(&acc)[8][4] = tc::pick<APART>(part, sum[0]);
+    Acc(&acc_hi)[8][4] = tc::pick<APART>(part_hi, sum[1]);
+    int g = 0;   // stages consumed
+    int qi = 0;  // narrow: query buffers consumed
+    // whether block b is the CTA's last with a live prober (the prologue's
+    // b_last_s, read through prow_s: no pointer of its own across the loop)
+    auto cta_last = [&](int b) {
+      return b == ((volatile int*)prow_s)[MAX_PT];
+    };
+    if (turn_opens(h) && prow_s[MAX_PT] >= 0) turn_hand_on(h);
+    // after a block of S = 2, the pair meets before either starts the next
+    // live block, so that neither overwrites the lists or rows the other
+    // still reads (at the next block's start rather than the last's end: no
+    // value held across the tiles for it)
+    bool pair_owed = false;
+    // the block's tiles, from s_eff through an opaque move where used (a
+    // value held across the block loop spills)
+    auto tiles_n = [&]() {
+      int se = s_eff;
+      asm volatile("mov.b32 %0, %0;" : "+r"(se));
+      return (se + BOX_ROWS - 1) / BOX_ROWS;
+    };
+    for (int b = blockIdx.x; b < n_blocks; b += gridDim.x) {
+      // the block's probers, lane l holding rows l + 32 j (-1 past p_tile):
+      // each warp reads them itself, so that no barrier of the consumers
+      // publishes them
+      int pv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int p = 32 * j + lane;
+        pv[j] = p < p_tile ? probers[(size_t)b * p_tile + p] : -1;
+      }
+      if (h == 0) {  // pad rows (warp cw: rows 32 cw + lane): dead, never
+                     // scored
+        const int p = 32 * cw + lane;
+        const int pr = cw == 0 ? pv[0] : cw == 1 ? pv[1] : cw == 2 ? pv[2]
+                                                                  : pv[3];
+        if (p < p_tile && pr < 0) {
+          int* o = out + ((size_t)b * p_tile + p) * k_pair;
+          for (int i = 0; i < k_pair; ++i) o[i] = INT_MIN;
+        }
+      }
+      // the block's live 64-prober tiles (bit 0: rows 0-63, bit 1: 64-127):
+      // what this warp takes of the block (warp_rows: S, the slices of a
+      // 16-prober tile; m64, its warpgroup's tile; p0, the first of its 16
+      // rows) is derived from them where used, through an opaque move
+      // (rows()), not kept across the tiles in registers (the k-chunked
+      // instances' registers are at the edge)
+      const int tl = (int)__any_sync(0xffffffffu, pv[0] >= 0 || pv[1] >= 0) |
+                     (int)__any_sync(0xffffffffu, pv[2] >= 0 || pv[3] >= 0)
+                         << 1;
+      if (tl == 0) continue;  // no live prober
+      if (pair_owed) named_barrier(pair_bar(cw), PAIR_THREADS);
+      auto rows = [&]() {
+        int v = tl;
+        asm volatile("mov.b32 %0, %0;" : "+r"(v));
+        return warp_rows(v & 1, v >> 1, cw);
+      };
+      {
+        // this warp's rows' probers into its own copy (its last block's
+        // reads of it are done)
+        const int p0 = rows().p0;
+        const int p32 = p0 / 32;
+        const int pw = p32 == 0 ? pv[0] : p32 == 1 ? pv[1] : p32 == 2 ? pv[2]
+                                                                      : pv[3];
+        const int mine = __shfl_sync(0xffffffffu, pw, p0 % 32 + lane % 16);
+        __syncwarp();
+        if (lane < 16) prow_w[lane] = mine;
+        __syncwarp();
+      }
+      // this warp's 16 rows hold a live prober: else it scores and selects
+      // nothing (its rows were written dead), but joins the products
+      const bool wlive =
+          !NARROW || __any_sync(0xffffffffu, prow_w[lane % 16] >= 0);
+      // the window columns this warp scores of each tile (none where its
+      // rows hold no live prober): a bound the scores' own conditions read,
+      // so a dead slice adds no branch of its own (a branch spilled)
+      const int ncol = wlive ? s_eff : 0;
+      // the query rows' 64-prober tile: narrow, of the block's buffer
+      const int qs = qi % NQ;
+      if constexpr (NARROW) {
+        mbar_wait(qfull + qs, (qi / NQ) & 1);
+        fence_proxy_async();  // the query copies, for wgmma's reads
+      }
+      // the scale of the lane's two accumulator rows (acc_row: 16 wq + lane
+      // / 4 and 8 more): factor, int8 times the prober's q_scale
+      float rowm[2] = {factor, factor};
+      if constexpr (I8) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int q = prow_w[lane / 4 + 8 * rr];
+          rowm[rr] = __fmul_rn(factor, __ldg(q_scale + max(q, 0)));
+        }
+      }
+
+      // select state: the group maxima of the lane's two rows
+      int mx[2][tc::NGRP];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+#pragma unroll
+        for (int j = 0; j < tc::NGRP; ++j) mx[rr][j] = INT_MIN;
+      }
+      int phase = 0;
+
+      for (int it = 0; it < tiles_n(); ++it) {
+        // the tile's window columns (warpgroup 1's half ends past them
+        // where nrow <= 64)
+        const int nrow = min(BOX_ROWS, s_eff - tile_start(it, tpp, stride));
+        // the tile's sums start at -0, the identity of f32 addition (-0 +
+        // x is x, -0 and +0 included; int8: 0): the first chunk's add is its
+        // assignment, and no sum stays live from the last tile (a chain's
+        // first wgmma overwrites them, and the reset keeps a path without
+        // products from carrying the last tile's sums across the phase
+        // end's select)
+#pragma unroll
+        for (int lh = 0; lh < 2; ++lh) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) sum[lh][j][i] = I8 ? 0 : -0.0f;
+          }
+        }
+        for (int kc = 0; kc < nch; ++kc) {
+          {  // the chunk's waits, turn and products
+            const bool last_k = kc + 1 == nch;
+            const int nsc = min(2, nst - 2 * kc);  // the chunk's stages
+            const int sa = g % NST;
+            const int sb = (g + 1) % NST;
+            mbar_wait(full + sa, (g / NST) & 1);
+            if (nsc > 1) mbar_wait(full + sb, ((g + 1) / NST) & 1);
+            // the stage's query copies (codes: the decoded tile's stores)
+            if (!NARROW || CODES) fence_proxy_async();
+            const int ka = ksteps_of(d, 2 * kc, E);
+            const int kb = nsc > 1 ? ksteps_of(d, 2 * kc + 1, E) : 0;
+            // the chunk's first product continues the tile's chain (k-chunked
+            // int8 rows past their first chunk) or starts from zero
+            const bool cont = !APART && kc > 0;
+            // A of the chunk's two stages: narrow, the k halves of the
+            // block's buffer (its address through an opaque move, so that
+            // the descriptors are worked out anew each tile rather than
+            // kept across the selects); k-chunked, the stages' query tiles
+            const uint32_t a_tile =
+                aq_u + qs * QBUF_BYTES + rows().m64 * HALF;
+            uint32_t qa = a_tile + (NARROW ? 0 : sa * STAGE_BYTES);
+            if constexpr (NARROW) asm volatile("mov.b32 %0, %0;" : "+r"(qa));
+            const uint32_t qb =
+                NARROW ? qa + STAGE_BYTES : a_tile + sb * STAGE_BYTES;
+            // this warpgroup's turn: the other has issued its last chain
+            turn_take(h);
+            if (rows().S == 1) {  // both halves in one chain
+              wgmma_fence();
+              if (cont) {
+                wgmma_n128(acc, acc_hi, kmajor_desc(qa, 0),
+                           kmajor_desc(win_u + sa * STAGE_BYTES, 0));
+              } else {
+                wgmma_n128_zero(acc, acc_hi, kmajor_desc(qa, 0),
+                                kmajor_desc(win_u + sa * STAGE_BYTES, 0));
+              }
+#pragma unroll
+              for (int ks = 1; ks < 4; ++ks) {
+                if (ks < ka) {
+                  wgmma_n128(acc, acc_hi, kmajor_desc(qa, ks),
+                             kmajor_desc(win_u + sa * STAGE_BYTES, ks));
+                }
+              }
+#pragma unroll
+              for (int ks = 0; ks < 4; ++ks) {
+                if (ks < kb) {
+                  wgmma_n128(acc, acc_hi, kmajor_desc(qb, ks),
+                             kmajor_desc(win_u + sb * STAGE_BYTES, ks));
+                }
+              }
+              wgmma_commit();
+              // the other warpgroup's turn, while this chain runs
+              if (turn_hands_on(h, it + 1 == tiles_n() && last_k &&
+                                cta_last(b))) {
+                turn_hand_on(h);
+              }
+              wgmma_wait_all();
+              fence_acc(acc);
+              fence_acc(acc_hi);
+              if constexpr (APART) {
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+#pragma unroll
+                  for (int i = 0; i < 4; ++i) {
+                    sum[0][j][i] += part[j][i];
+                    sum[1][j][i] += part_hi[j][i];
+                  }
+                }
+              }
+            } else if (takes_chain(2, h, nrow)) {  // one: this warpgroup's half
+              wgmma_fence();
+              if (cont) {
+                wgmma_n64(acc, kmajor_desc(qa, 0),
+                          kmajor_desc(win_u + sa * STAGE_BYTES + h * HALF, 0));
+              } else {
+                wgmma_n64_zero(
+                    acc, kmajor_desc(qa, 0),
+                    kmajor_desc(win_u + sa * STAGE_BYTES + h * HALF, 0));
+              }
+#pragma unroll
+              for (int ks = 1; ks < 4; ++ks) {
+                if (ks < ka) {
+                  wgmma_n64(acc, kmajor_desc(qa, ks),
+                            kmajor_desc(win_u + sa * STAGE_BYTES + h * HALF,
+                                        ks));
+                }
+              }
+#pragma unroll
+              for (int ks = 0; ks < 4; ++ks) {
+                if (ks < kb) {
+                  wgmma_n64(acc, kmajor_desc(qb, ks),
+                            kmajor_desc(win_u + sb * STAGE_BYTES + h * HALF,
+                                        ks));
+                }
+              }
+              wgmma_commit();
+              if (turn_hands_on(h, it + 1 == tiles_n() && last_k &&
+                                cta_last(b))) {
+                turn_hand_on(h);
+              }
+              wgmma_wait_all();
+              fence_acc(acc);
+              if constexpr (APART) {
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+#pragma unroll
+                  for (int i = 0; i < 4; ++i) sum[0][j][i] += part[j][i];
+                }
+              }
+            } else {  // no half: the turn passes on
+              if (turn_hands_on(h, it + 1 == tiles_n() && last_k &&
+                                cta_last(b))) {
+                turn_hand_on(h);
+              }
+            }
+          }
+          // what the scores, selects and releases read, worked out anew
+          // after the products from opaque copies of the counters rather
+          // than held across them (held, a k-chunked instance spilled group
+          // maxima there): the chunk's stages, the block's layout, the
+          // tile's columns and its stages' penalties, scales and slots
+          int gv = g, kv = kc, itv = it;
+          asm volatile("mov.b32 %0, %0;" : "+r"(gv));
+          asm volatile("mov.b32 %0, %0;" : "+r"(kv));
+          asm volatile("mov.b32 %0, %0;" : "+r"(itv));
+          const bool last_k = kv + 1 == nch;
+          const int nsc = min(2, nst - 2 * kv);
+          const int sa = gv % NST;
+          const int sb = (gv + 1) % NST;
+          const int S = rows().S;
+          const int ts = tile_start(itv, tpp, stride);
+          const int nscore = min(BOX_ROWS, ncol - ts);  // columns it scores
+          const float* pen = pen_s + ((gv + nsc - 1) % NST) * BOX_ROWS;
+          const float* scl = scl_s + ((gv + nsc - 1) % NST) * BOX_ROWS;
+          const int* slt = slt_s + ((gv + nsc - 1) % NST) * BOX_ROWS;
+          if constexpr (CODES) {
+            // the products are done with the chunk's first stage: released
+            // before the scores, so that the producer decodes the next tile
+            // beside them (the last stage holds the penalties and slots)
+            if (nsc > 1) {
+              __syncwarp();
+              if (lane == 0) mbar_arrive(empty + sa);
+            }
+          }
+          // at a tile's last chunk, the scores (after the chunk's products:
+          // no lane-dependent code between two of its wgmmas), over the
+          // column halves it takes (S = 1: both; S = 2: its own)
+#pragma unroll
+          for (int lh = 0; lh < 2; ++lh) {
+            const int hv = S == 1 ? lh : h;
+            if (last_k && lh < 3 - S && 64 * hv < nscore) {
+              // the scores of this lane's columns of the half, ascending
+#pragma unroll
+              for (int nt = 0; nt < 8; ++nt) {
+                const int c8 = 64 * hv + 8 * nt;  // the n8 tile's
+                const int cl = c8 + tpq::frag_c_col(lane, 0);
+                if (c8 < nscore) {
+                  const float2 p = *reinterpret_cast<const float2*>(pen + cl);
+                  float2 cs = make_float2(0.0f, 0.0f);
+                  if constexpr (I8) {
+                    cs = *reinterpret_cast<const float2*>(scl + cl);
+                  }
+                  // codes: the columns' slots, the keys' low bits
+                  int2 sl = make_int2(0, 0);
+                  if constexpr (CODES) {
+                    sl = *reinterpret_cast<const int2*>(slt + cl);
+                  }
+#pragma unroll
+                  for (int i = 0; i < 2; ++i) {
+                    if (cl + i < nscore) {
+#pragma unroll
+                      for (int rr = 0; rr < 2; ++rr) {
+                        const float sc =
+                            wg_score(sum[lh][nt][2 * rr + i], rowm[rr],
+                                     i ? cs.y : cs.x, i ? p.y : p.x);
+                        const int key =
+                            (sortable(sc) & ~slot_mask) |
+                            (CODES ? (i ? sl.y : sl.x) : ts + cl + i);
+                        int& best = mx[rr][16 * lh + 2 * nt + i];
+                        best = max(best, key);
+                      }
+                    }
+                  }
+                }
+              }
+            }
+          }
+          __syncwarp();
+          if (lane == 0) {  // the chunk's stages are free again
+            if (!CODES || nsc == 1) mbar_arrive(empty + sa);
+            if (nsc > 1) mbar_arrive(empty + sb);
+            // narrow: and the query buffer after the block's last products
+            if (NARROW && it + 1 == tiles_n()) mbar_arrive(qempty + qs);
+          }
+          g += nsc;
+        }
+        // the phase end, after a tile's last chunk (outside the chunk loop:
+        // none of its values is live there)
+        if ((it + 1) % tpp == 0) {
+          const int S = rows().S;
+          // phase end: each slice's k_pair largest keys per row, by the
+          // quad's shuffles, into its warp's list; then one lane per
+          // live row (S = 1: the warp's 16; S = 2: 8 of the pair's)
+          // merges its slices' lists and the running list, after a
+          // barrier of the warp or of the pair
+          int* ks_w = keys_s + slice_region(cw) * 16 * kls;
+          // a slice of no live row extracts nothing (its lists are
+          // never read): a count, not a branch of its own (a branch
+          // spilled)
+          const int kx = wlive ? k_pair : 0;
+          if (S == 1) {
+            tc::extract_slice<tc::NGRP>(mx, ks_w, lane, kx, kls);
+            __syncwarp();
+          } else {
+            tc::extract_slice<tc::NGRP / 2>(mx, ks_w, lane, kx, kls);
+            named_barrier(pair_bar(cw), PAIR_THREADS);
+          }
+          const int p0 = rows().p0;
+          const int r = merge_first(S, h) + lane;  // of the warp's 16
+          if (lane < merge_count(S) && prow_w[r] >= 0) {
+            const int* cur = run_s + ((phase & 1) * MAX_PT + p0 + r) * kls;
+            int* nxt = run_s + (((phase + 1) & 1) * MAX_PT + p0 + r) * kls;
+            // slice 0 (S = 2: warpgroup 0's warp), slice 1 64 rows on
+            const int* sl =
+                keys_s + (slice_region(S == 2 ? wq : cw) * 16 + r) * kls;
+            int h0 = 0, h1 = 0, hc = 0;
+            for (int i = 0; i < k_pair; ++i) {
+              int best = phase > 0 ? cur[hc] : INT_MIN;
+              int bs = 2;
+              const int v0 = h0 < k_pair ? sl[h0] : INT_MIN;
+              if (v0 > best) {
+                best = v0;
+                bs = 0;
+              }
+              if (S == 2) {
+                const int v1 = h1 < k_pair ? sl[64 * kls + h1] : INT_MIN;
+                if (v1 > best) {
+                  best = v1;
+                  bs = 1;
+                }
+              }
+              h0 += bs == 0;
+              h1 += bs == 1;
+              hc += bs == 2;
+              nxt[i] = best;
+            }
+          }
+          // the slice lists are read (the block's last phase: the
+          // pair's barrier after the outputs)
+          if (it + 1 < tiles_n()) {
+            if (S == 1) {
+              __syncwarp();
+            } else {
+              named_barrier(pair_bar(cw), PAIR_THREADS);
+            }
+          }
+          ++phase;
+        }
+      }
+
+      // the live rows' outputs
+      const WarpRows wr = rows();
+      const int S = wr.S;
+      const int p0 = wr.p0;
+      // the rows this warp merged, its lanes on consecutive keys
+      __syncwarp();
+      const int r0 = merge_first(S, h);
+      for (int r = r0; r < r0 + merge_count(S); ++r) {
+        if (prow_w[r] >= 0) {
+          const int* fin = run_s + ((phase & 1) * MAX_PT + p0 + r) * kls;
+          int* o = out + ((size_t)b * p_tile + p0 + r) * k_pair;
+          for (int i = lane; i < k_pair; i += 32) o[i] = fin[i];
+        }
+      }
+      pair_owed = S == 2;
+      ++qi;
+    }
   } else {
-    // ---- consumers: products, scores and selects ----
+    // ---- consumers, exact and deep pack32: products, scores and selects,
+    // the warpgroups in lockstep (the block's start and the exact outputs
+    // on barriers of all consumers) ----
     setmaxnreg_inc<(CODES    ? CODES_CONSUMER_REGS
                     : NARROW ? NARROW_CONSUMER_REGS
                              : CONSUMER_REGS)>();
@@ -693,12 +1199,7 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
     const int width = PACK ? k_pair : 2 * k_pair;  // output ints per row
     // pack32 phase ends: deep_select.cuh (KMAX > PASS_K) or pass by pass
     constexpr bool DEEP = PACK && KMAX > tc::PASS_K;
-    float* vals_s = reinterpret_cast<float*>(keys_s + WARPS * 16 * kls);
-    int* run_s = keys_s + WARPS * 16 * kls;  // pack32 [2][MAX_PT][kls]
-    float* stage_s = vals_s + WARPS * 16 * kls;  // exact [WARPS][16][SLD]
-    volatile float* rowb_s = stage_s + WARPS * 16 * SLD;  // [WARPS][16]
-    float* qv_s = stage_s + WARPS * 16 * (SLD + 1);  // [QUEUE][CONSUMERS]
-    int* qc_s = reinterpret_cast<int*>(qv_s + QUEUE * CONSUMERS);
+    static_assert(!PACK || DEEP, "the pass-by-pass instances take turns");
     const uint32_t win_u = smem_u32(win);
     const uint32_t aq_u = smem_u32(aq);
     using Acc = std::conditional_t<I8, int, float>;
@@ -1088,51 +1589,6 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
               }
               ++phase;
             }
-          } else if constexpr (PACK) {
-            if (last_k && (it + 1) % tpp == 0) {
-              // phase end: each slice's k_pair largest keys per row, by the
-              // quad's shuffles, into its shared list; then one thread per
-              // live row merges its slices' lists and the running list
-              int* ks_w = keys_s + cw * 16 * kls;
-              // a slice of no live row extracts nothing (its lists are
-              // never read): a count, not a branch of its own (a branch
-              // spilled)
-              const int kx = wlive ? k_pair : 0;
-              if (S == 1) {
-                tc::extract_slice<tc::NGRP>(mx, ks_w, lane, kx, kls);
-              } else {
-                tc::extract_slice<tc::NGRP / 2>(mx, ks_w, lane, kx, kls);
-              }
-              named_barrier(BAR_CONSUMERS, CONSUMERS);
-              if (ct < 16 * nm && prow_s[base64 + ct] >= 0) {
-                const int* cur = run_s + ((phase & 1) * MAX_PT + ct) * kls;
-                int* nxt = run_s + (((phase + 1) & 1) * MAX_PT + ct) * kls;
-                const int* sl = keys_s + ct * kls;  // slice s: + 64 s rows
-                int h0 = 0, h1 = 0, hc = 0;
-                for (int i = 0; i < k_pair; ++i) {
-                  int best = phase > 0 ? cur[hc] : INT_MIN;
-                  int bs = 2;
-                  const int v0 = h0 < k_pair ? sl[h0] : INT_MIN;
-                  if (v0 > best) {
-                    best = v0;
-                    bs = 0;
-                  }
-                  if (S == 2) {
-                    const int v1 = h1 < k_pair ? sl[64 * kls + h1] : INT_MIN;
-                    if (v1 > best) {
-                      best = v1;
-                      bs = 1;
-                    }
-                  }
-                  h0 += bs == 0;
-                  h1 += bs == 1;
-                  hc += bs == 2;
-                  nxt[i] = best;
-                }
-              }
-              named_barrier(BAR_CONSUMERS, CONSUMERS);
-              ++phase;
-            }
           }
         }
       }
@@ -1153,22 +1609,6 @@ __global__ void __launch_bounds__(THREADS, 1) block_scan_wg_kernel(
               for (int i = lane; i < k_pair; i += 32) {
                 o[i] = run[p * kls + i];
               }
-            }
-          }
-        }
-      } else if constexpr (PACK) {
-        // warp w writes rows w and w + 8 of each scored 16-prober tile, its
-        // lanes on consecutive keys
-        for (int l2 = 0; l2 < nm; ++l2) {
-#pragma unroll
-          for (int hh = 0; hh < 2; ++hh) {
-            const int rw = cw + WARPS * hh;
-            const int p = base64 + 16 * l2 + rw;
-            if (prow_s[p] >= 0) {
-              const int* fin =
-                  run_s + ((phase & 1) * MAX_PT + 16 * l2 + rw) * kls;
-              int* o = out + ((size_t)b * p_tile + p) * k_pair;
-              for (int i = lane; i < k_pair; i += 32) o[i] = fin[i];
             }
           }
         }

@@ -131,7 +131,8 @@ TPQ_HD constexpr int ksteps_of(int d, int st, int e = 2) {
 // SW_ATOM bytes are the slack that aligns it): the ring's window tiles
 // [RING][128][128 B] and query tiles [RING][128][128 B], the penalties of
 // each stage's columns [RING][128] f32, the full and empty barriers
-// [2][RING] (8 bytes each), the prober rows [MAX_PT], the tile flags [8],
+// [2][RING] (8 bytes each), the prober rows [MAX_PT] (the instances in
+// turns: the consumer warps' copies [WARPS][16]), the tile flags [8],
 // then the select's arrays: the deep pack32 instances' (k_pair 17-64,
 // deep_select.cuh: staging rows, one running list per row, counts and round
 // flags); else the slice lists [WARPS][16][kls] (pack32 keys; exact
@@ -330,6 +331,80 @@ TPQ_HD inline void chunk_item(int e, int lc, int& cl, int& ch) {
     ch = e & ((1 << lc) - 1);
   }
 }
+
+// The consumers' schedules (block_scan_wg.cu; tests/test_torch_wg_schedule.py
+// runs the turns as a model of a CTA's eight consumer warps). Named
+// barriers: 0 is __syncthreads', BAR_CONSUMERS the eight consumer warps'
+// (lockstep instances only), BAR_PRODUCER the producer warpgroup's,
+// BAR_PAIR + w (w < 4) the pair of consumer warps w and w + 4 (one in each
+// warpgroup, the same rows at S = 2), BAR_TURN + h warpgroup h's turn. In
+// the instances that take turns no barrier holds all eight consumer warps
+// inside the block loop.
+constexpr int BAR_CONSUMERS = 1;
+constexpr int BAR_PRODUCER = 2;
+constexpr int BAR_PAIR = 3;      // 3 .. 6
+constexpr int BAR_TURN = 7;      // 7, 8
+constexpr int PAIR_THREADS = 64;
+constexpr int TURN_THREADS = 256;
+
+TPQ_HD constexpr int pair_bar(int cw) { return BAR_PAIR + cw % 4; }
+
+// The turns (a ping-pong of the two consumer warpgroups): warpgroup h waits
+// on turn_wait(h) before it issues a chunk's chain and arrives on
+// turn_pass(h), the other's, once it has, so that one's chain runs on the
+// tensor cores while the other scores and selects. Each completes on
+// TURN_THREADS: the waiting warpgroup's 128 threads and the other's 128
+// arrivals. Both take a turn at every chunk of every live block, whether
+// they issue a chain there or not (takes_chain). Warpgroup 1 opens
+// warpgroup 0's first turn with one arrival before its own first
+// (turn_opens: where the CTA has a live block) and hands the turn on after
+// every chunk but the CTA's last (turn_hands_on), so that no arrival is
+// left on a turn barrier when the CTA ends. (Balanced the other way, by one
+// more wait of warpgroup 0 after its last chunk, a barrier after the block
+// loop, ptxas spilled 16-736 B in 13 of the 21 instances.)
+TPQ_HD constexpr int turn_wait(int h) { return BAR_TURN + h; }
+TPQ_HD constexpr int turn_pass(int h) { return BAR_TURN + 1 - h; }
+TPQ_HD constexpr bool turn_opens(int h) { return h == 1; }
+TPQ_HD constexpr bool turn_hands_on(int h, bool cta_last) {
+  return h == 0 || !cta_last;
+}
+// Whether an instance's consumers take turns, decoupled (the pass-by-pass
+// pack32 instances), or run in lockstep: the exact and deep pack32 ones ran
+// 1.6-15% slower in turns and 4-7% slower decoupled without them
+// (PERF.md), so they keep the lockstep schedule.
+TPQ_HD constexpr bool takes_turns(bool pack32, bool deep) {
+  return pack32 && !deep;
+}
+
+// A block's work for consumer warp cw (of 8; warpgroup cw / 4), from its
+// live 64-prober tiles l0 (rows 0-63) and l1 (64-127): S, the slices of a
+// 16-prober tile (0: no live tile, the block skipped; 1: two live tiles,
+// warpgroup h takes tile h over both column halves of each window tile; 2:
+// one, both warpgroups take it, a column half each, warp cw and its pair
+// cw ^ 4 the same rows); m64, the warpgroup's tile; p0, the first of the
+// warp's 16 rows (p0 .. p0 + 15).
+struct WarpRows {
+  int S, m64, p0;
+};
+TPQ_HD constexpr WarpRows warp_rows(bool l0, bool l1, int cw) {
+  return (l0 && l1) ? WarpRows{1, cw / 4, 16 * cw}
+         : (l0 || l1)
+             ? WarpRows{2, l0 ? 0 : 1, 64 * (l0 ? 0 : 1) + 16 * (cw % 4)}
+             : WarpRows{0, 0, 0};
+}
+// Whether warpgroup h issues a chain at a chunk of a tile of nrow window
+// columns: with two live tiles always, with one for its column half (none
+// where the tile ends before it).
+TPQ_HD constexpr bool takes_chain(int S, int h, int nrow) {
+  return S == 1 || 64 * h < nrow;
+}
+// The rows (of the warp's 16) whose lists warp cw of warpgroup h merges and
+// writes at a phase end: its 16 (S = 1), or 8 of the pair's (S = 2:
+// warpgroup h's half, after a pair barrier).
+TPQ_HD constexpr int merge_first(int S, int h) { return S == 2 ? 8 * h : 0; }
+TPQ_HD constexpr int merge_count(int S) { return S == 2 ? 8 : 16; }
+// The slice lists' region (rows of 16) of warp cw.
+TPQ_HD constexpr int slice_region(int cw) { return cw; }
 
 // One 16-byte store (the kernel's uint4; four words on the host).
 TPQ_HD inline void store16(unsigned char* p, uint32_t a, uint32_t b,

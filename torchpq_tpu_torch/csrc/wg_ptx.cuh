@@ -115,6 +115,18 @@ __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// The same with the barrier's id and count as immediates (no register
+// holds them across a loop), and an arrival on it that does not wait for
+// it to complete (the threads that wait on it pass once COUNT arrived).
+template <int ID, int COUNT>
+__device__ __forceinline__ void named_barrier_imm() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(COUNT) : "memory");
+}
+template <int ID, int COUNT>
+__device__ __forceinline__ void named_barrier_arrive_imm() {
+  asm volatile("bar.arrive %0, %1;\n" ::"n"(ID), "n"(COUNT) : "memory");
+}
+
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
